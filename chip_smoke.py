@@ -1,0 +1,529 @@
+#!/usr/bin/env python3
+"""
+Smoke test of gordo_tpu_torch on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout; it builds the CUDA kernels from
+``gordo_tpu_torch/ops/csrc`` if they are not built, then:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the kernels (one ``nvcc`` per source, all started together);
+3. holds K1 (the fleet dense-stack kernel) against its plain PyTorch
+   version on the card: feedforward_hourglass(20) at 1000 members x 1008
+   rows, feedforward_model(20)'s 256-wide defaults at 64 x 1008, every
+   activation on both of the kernel's paths, ragged batches, gather
+   indices with repeats, the ingest prologue, layers too wide for shared
+   memory at once, and the shapes the serving path uses;
+4. serves a collection of 64 seeded feedforward_hourglass(20) detectors
+   through ``build_app`` on a localhost ``wsgiref`` thread: three
+   ``/anomaly/prediction`` requests and one fleet request for all 64,
+   1008 rows each; every answer must be 200, carry the right column
+   groups, and agree with the same app on the CPU; K1's launch count
+   over those requests must be above zero;
+5. times K1, its plain version and a cuBLAS ``baddbmm`` chain (the
+   library yardstick, used nowhere in the package) with CUDA events,
+   beside the card's bound for the same work; and, at the hourglass(20)
+   shapes, K1 against its build with ``FLEET_DENSE_WIDE_ONLY``, which
+   runs them through the wide kernel instead of the narrow one (the
+   measurement that keeps two kernels in the source).
+
+It prints one line per phase, then a JSON line with the kernel numbers,
+then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before that last line; so does a machine
+without CUDA, and a directory without the package.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import traceback
+import urllib.request
+from datetime import datetime, timedelta, timezone
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+#: f32 sums taken in another order (kernel FMA chain vs cuBLAS/CPU BLAS)
+RTOL, ATOL = 1e-5, 1e-5
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+ROWS = 1008  # one week of 10-minute data
+SERVED_MACHINES = 64
+TIMED = 5  # the first cases of kernel_cases(): the full widths and the served shapes
+#: the build of K1 that sends narrow specs through the wide kernel
+WIDE_ONLY = ("FLEET_DENSE_WIDE_ONLY",)
+#: the hourglass(20) cases that the narrow kernel takes, timed against WIDE_ONLY
+NARROW_CASES = (
+    "hourglass20 M=1000 B=1008",
+    "served fleet: hourglass20 M=64 B=1008 +ingest",
+    "served anomaly: hourglass20 gather M=1 B=1008 +ingest",
+)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(condition, message):
+    if not condition:
+        raise SmokeFailure(message)
+
+
+def phase(name, detail):
+    print(f"[{name}] {detail}", flush=True)
+
+
+# -- phase 1: device ----------------------------------------------------------
+
+
+def device_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    check(out, "nvidia-smi printed no card")
+    return out[0]
+
+
+# -- phase 3: K1 against its plain version ------------------------------------
+
+
+def make_bucket(spec, n, seed, device):
+    import torch
+
+    from gordo_tpu_torch.models.nn import init_feedforward
+    from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+    gen = torch.Generator().manual_seed(seed)
+    return stack_member_params([init_feedforward(spec, gen) for _ in range(n)], device)
+
+
+def make_case(spec, n, m, b, indices=None, ingest=False, seed=0):
+    import torch
+
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 1)
+    bucket = make_bucket(spec, n, seed, device)
+    X = torch.rand(m, b, spec.n_features, generator=gen).to(device)
+    plan = None
+    if ingest:
+        plan = (
+            (torch.rand(n, spec.n_features, generator=gen) * 2).to(device),
+            (torch.rand(n, spec.n_features, generator=gen) - 0.5).to(device),
+        )
+    return dict(spec=spec, bucket=bucket, X=X, indices=indices, ingest=plan)
+
+
+def compare(case, defines=()):
+    import torch
+
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward, fleet_feedforward_reference
+
+    args = (case["spec"], case["bucket"], case["X"], case["indices"], case["ingest"])
+    got = fleet_feedforward(*args, defines=defines)
+    torch.cuda.synchronize()
+    expected = fleet_feedforward_reference(*args)
+    check(got.shape == expected.shape, f"shape {tuple(got.shape)} != {tuple(expected.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    diff = (got - expected).abs()
+    max_abs = float(diff.max())
+    max_rel = float((diff / expected.abs().clamp_min(1e-6)).max())
+    check(
+        bool(torch.allclose(got, expected, rtol=RTOL, atol=ATOL)),
+        f"kernel disagrees with the plain version: max abs {max_abs}, max rel {max_rel}",
+    )
+    return max_abs, max_rel
+
+
+def kernel_cases():
+    from gordo_tpu_torch.models.factories import feedforward_hourglass, feedforward_model
+    from gordo_tpu_torch.ops.activations import ACTIVATION_NAMES
+
+    hourglass = feedforward_hourglass(20)
+    cases = {
+        "hourglass20 M=1000 B=1008": make_case(hourglass, 1000, 1000, ROWS),
+        "feedforward_model20 M=64 B=1008": make_case(feedforward_model(20), 64, 64, ROWS, seed=1),
+        "served fleet: hourglass20 M=64 B=1008 +ingest": make_case(
+            hourglass, SERVED_MACHINES, SERVED_MACHINES, ROWS, ingest=True, seed=2
+        ),
+        "served anomaly: hourglass20 gather M=1 B=1008 +ingest": make_case(
+            hourglass, SERVED_MACHINES, 1, ROWS, indices=[17], ingest=True, seed=3
+        ),
+        # 40 wide: the wide kernel's 256-thread side (feedforward_model is its 512 side)
+        "hourglass40 M=64 B=1008": make_case(feedforward_hourglass(40), 64, 64, ROWS, seed=11),
+        "ragged: hourglass7 B=50": make_case(feedforward_hourglass(7), 2, 2, 50, seed=4),
+        "ragged: hourglass7 B=129": make_case(feedforward_hourglass(7), 2, 2, 129, seed=4),
+        "gather repeats: hourglass20 N=10 M=6 B=301": make_case(
+            hourglass, 10, 6, 301, indices=[3, 3, 0, 9, 3, 1], seed=5
+        ),
+        "ingest: hourglass20 N=10 M=4 B=300": make_case(
+            hourglass, 10, 4, 300, indices=[1, 2, 2, 7], ingest=True, seed=6
+        ),
+        "ingest, wide path: hourglass40 N=10 M=4 B=300": make_case(
+            feedforward_hourglass(40), 10, 4, 300, indices=[1, 2, 2, 7], ingest=True, seed=7
+        ),
+        "chunked 256x256 layer B=200": make_case(
+            feedforward_model(256, encoding_dim=(256,), decoding_dim=(256,),
+                              encoding_func=("relu",), decoding_func=("gelu",)), 2, 2, 200, seed=8
+        ),
+        "widest: 512-300-1-512 B=70": make_case(
+            feedforward_model(512, encoding_dim=(300,), decoding_dim=(1,),
+                              encoding_func=("tanh",), decoding_func=("softmax",)), 2, 2, 70, seed=9
+        ),
+    }
+    # every activation on both kernel paths: a 9-wide (registers) and a
+    # 48-wide (shared memory) hidden layer
+    for i, name in enumerate(ACTIVATION_NAMES):
+        for hidden in (9, 48):
+            spec = feedforward_model(
+                6, encoding_dim=(hidden,), decoding_dim=(5,),
+                encoding_func=(name,), decoding_func=("tanh",), out_func=name,
+            )
+            cases[f"activation {name}, hidden {hidden}"] = make_case(spec, 3, 3, 37, seed=10 + i)
+    return cases
+
+
+# -- phase 4: serving ------------------------------------------------------------
+
+
+def sensor_data(seed, rows, n_tags):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(rows)[:, None]
+    phase_ = rng.uniform(0, 2 * np.pi, n_tags)
+    level = rng.uniform(20, 80, n_tags)
+    return level + 5 * np.sin(2 * np.pi * t / 144 + phase_) + rng.standard_normal((rows, n_tags))
+
+
+def write_collection(directory):
+    """SERVED_MACHINES seeded hourglass(20) detectors with fitted scalers and
+    thresholds taken from their own reconstruction errors."""
+    import numpy as np
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+    from gordo_tpu_torch.models.factories import feedforward_hourglass
+    from gordo_tpu_torch.models.nn import init_feedforward, params_to_numpy
+    from gordo_tpu_torch.models.preprocessing import MinMaxScaler
+
+    spec = feedforward_hourglass(20)
+    names = []
+    for i in range(SERVED_MACHINES):
+        name = f"machine-{i:03d}"
+        params = params_to_numpy(init_feedforward(spec, torch.Generator().manual_seed(1000 + i)))
+        train = sensor_data(i, 2000, 20)
+        scaler = MinMaxScaler().fit(train)
+        state = {
+            "spec": spec.to_dict(),
+            "params": params,
+            "pipeline": [{"scale_": scaler.scale_, "min_": scaler.min_}],
+            "scaler": {"scale_": scaler.scale_, "min_": scaler.min_},
+        }
+        recon = DiffBasedAnomalyDetector.from_state(state, device="cpu").predict(train)
+        scaled_err = np.abs(scaler.transform(recon) - scaler.transform(train))
+        state["feature_thresholds"] = np.percentile(np.abs(recon - train), 99, axis=0)
+        state["aggregate_threshold"] = float(np.percentile((scaled_err ** 2).mean(axis=1), 99))
+        metadata = {
+            "name": name,
+            "dataset": {"tag_list": [f"tag-{j:02d}" for j in range(20)], "resolution": "10min"},
+        }
+        detector = DiffBasedAnomalyDetector.from_state(state, device="cpu")
+        serializer.dump(detector, os.path.join(directory, name), metadata)
+        names.append(name)
+    return names
+
+
+def request_frame(seed):
+    start = datetime(2020, 3, 1, tzinfo=timezone.utc)
+    keys = [(start + timedelta(minutes=10 * r)).isoformat() for r in range(ROWS)]
+    values = sensor_data(10_000 + seed, ROWS, 20)
+    values[ROWS // 2:ROWS // 2 + 6, 3] += 25.0  # an excursion to flag
+    return {f"tag-{j:02d}": dict(zip(keys, values[:, j].tolist())) for j in range(20)}
+
+
+def post(url, payload):
+    request = urllib.request.Request(
+        url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"}
+    )
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(request, timeout=300) as response:
+        body = response.read()
+        status = response.status
+    return status, json.loads(body), (time.perf_counter() - t0) * 1e3
+
+
+def wsgi_post(app, path, payload):
+    """One POST straight into a WSGI app, without a socket."""
+    import io
+    from wsgiref.util import setup_testing_defaults
+
+    body = json.dumps(payload).encode()
+    environ = {}
+    setup_testing_defaults(environ)
+    environ.update(
+        REQUEST_METHOD="POST", PATH_INFO=path, CONTENT_LENGTH=str(len(body)),
+        CONTENT_TYPE="application/json", **{"wsgi.input": io.BytesIO(body)},
+    )
+    status = []
+    chunks = app(environ, lambda s, h: status.append(int(s.split()[0])))
+    return status[0], json.loads(b"".join(chunks))
+
+
+def same_json(expected, got, path="data"):
+    """Nested objects equal: same keys in the same order, numbers within
+    RTOL/ATOL, everything else exact. Returns the largest abs difference."""
+    if isinstance(expected, dict):
+        check(isinstance(got, dict) and list(got) == list(expected), f"keys differ at {path}")
+        return max([same_json(expected[k], got[k], f"{path}/{k}") for k in expected] or [0.0])
+    if isinstance(expected, float) and isinstance(got, float):
+        diff = abs(got - expected)
+        check(diff <= ATOL + RTOL * abs(expected), f"{path}: {got} vs {expected}")
+        return diff
+    check(got == expected, f"{path}: {got!r} vs {expected!r}")
+    return 0.0
+
+
+ANOMALY_GROUPS = [
+    "start", "end", "model-input", "model-output", "tag-anomaly-scaled", "total-anomaly-scaled",
+    "tag-anomaly-unscaled", "total-anomaly-unscaled", "anomaly-confidence", "total-anomaly-confidence",
+]
+
+
+def serve_phase(work_dir):
+    import math
+
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.server.app import make_wsgi_server
+
+    collection = os.path.join(work_dir, "1700000000000")
+    names = write_collection(collection)
+    app = build_app(collection, device="cuda")
+    check(len(app.store.fleet().warm()) == SERVED_MACHINES, "not every model loaded")
+    cpu_app = build_app(collection, device="cpu")
+    server = make_wsgi_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}/gordo/v0/smoke"
+    anomaly_names = [names[0], names[17], names[63]]
+    requests = [(f"/{n}/anomaly/prediction", {"X": request_frame(i), "y": request_frame(i)})
+                for i, n in enumerate(anomaly_names)]
+    fleet_payload = {"X": {n: request_frame(100 + i) for i, n in enumerate(names)}}
+    requests.append(("/prediction/fleet", fleet_payload))
+    try:
+        fleet_feedforward.launches = 0
+        answers = [post(base + path, payload) for path, payload in requests]
+        launches = fleet_feedforward.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
+    check(launches >= 1, "the served requests never launched K1")
+
+    max_diff = 0.0
+    for (path, payload), (status, body, ms) in zip(requests, answers):
+        check(status == 200, f"{path} answered {status}")
+        cpu_status, cpu_body = wsgi_post(cpu_app, "/gordo/v0/smoke" + path, payload)
+        check(cpu_status == 200, f"CPU app answered {cpu_status} on {path}")
+        data = body["data"]
+        if path.endswith("anomaly/prediction"):
+            check(list(data) == ANOMALY_GROUPS, f"anomaly groups {list(data)}")
+            check(all(len(col) == ROWS for group in data.values() for col in group.values()), "row count")
+            check(all(isinstance(v, float) and math.isfinite(v)
+                      for g in ANOMALY_GROUPS[2:] for col in data[g].values() for v in col.values()),
+                  "non-finite anomaly values")
+            flagged = max(data["total-anomaly-confidence"]["total-anomaly-confidence"].values())
+            phase("serve", f"POST {path}: 200 in {ms:.1f} ms, peak total-anomaly-confidence {flagged:.3f}")
+        else:
+            check(sorted(data) == names, "fleet answered other machines")
+            check(all(list(entry) == ["model-output", "total-anomaly-unscaled"] for entry in data.values()),
+                  "fleet entry groups")
+            check(all(len(entry["model-output"]) == 20 and len(entry["total-anomaly-unscaled"]) == ROWS
+                      for entry in data.values()), "fleet entry shape")
+            phase("serve", f"POST {path} ({len(names)} machines x {ROWS} rows): 200 in {ms:.1f} ms")
+        max_diff = max(max_diff, same_json(cpu_body["data"], data))
+    phase("serve", f"{len(requests)} requests, K1 launches {launches}, "
+          f"max abs diff vs the CPU app {max_diff:.3e} (rtol {RTOL}, atol {ATOL})")
+    return launches
+
+
+# -- phase 5: times ----------------------------------------------------------------
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Device ms per call: CUDA events around ``iters`` calls queued behind
+    a device sleep that outlasts their enqueueing twice over, so the host's
+    time (Python, ctypes) is hidden and the events see only the device's
+    work. ``fn`` must not synchronise with the device."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(max(1e7, 2 * host_s * iters * 2e9)))  # cycles; the SM clock is below 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def library_chain(case):
+    """cuBLAS ``baddbmm`` per layer over pre-gathered params: the library
+    yardstick for the same function."""
+    import torch
+
+    from gordo_tpu_torch.ops.activations import resolve_activation
+
+    spec, bucket, X = case["spec"], case["bucket"], case["X"]
+    idx = torch.as_tensor(case["indices"] if case["indices"] is not None else range(X.shape[0]),
+                          device=X.device)
+    layers = [(bucket[k]["W"][idx].contiguous(), bucket[k]["b"][idx][:, None, :].contiguous(),
+               resolve_activation(a)) for k, a in spec.layer_names()]
+    ingest = None
+    if case["ingest"] is not None:
+        ingest = (case["ingest"][0][idx][:, None, :], case["ingest"][1][idx][:, None, :])
+
+    def run():
+        h = X if ingest is None else torch.addcmul(ingest[1], X, ingest[0])
+        for W, b, act in layers:
+            h = act(torch.baddbmm(b, h, W))
+        return h
+
+    return run
+
+
+def bound(case):
+    """(bound_ms, bound_by): each input read once and each output written
+    once against HBM, and 2 flops per multiply-add against the f32 rate."""
+    spec, X = case["spec"], case["X"]
+    M, B, _ = X.shape
+    # only the members the batch reads: a gather touches len(set(indices)) rows
+    n = case["bucket"]["out"]["W"].shape[0] if case["indices"] is None else len(set(case["indices"]))
+    widths = spec.widths()
+    macs = sum(widths[i] * widths[i + 1] for i in range(len(widths) - 1))
+    params = n * (macs + sum(widths[1:]))
+    byte_count = 4 * (X.numel() + M * B * spec.n_features_out + params + M)
+    if case["ingest"] is not None:
+        byte_count += 4 * 2 * n * spec.n_features
+    flops = 2 * M * B * macs
+    byte_ms = byte_count / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+
+
+def times(case):
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward, fleet_feedforward_reference
+
+    args = (case["spec"], case["bucket"], case["X"], case["indices"], case["ingest"])
+    kernel = cuda_ms(lambda: fleet_feedforward(*args))
+    plain = cuda_ms(lambda: fleet_feedforward_reference(*args))
+    library = cuda_ms(library_chain(case))
+    bound_ms, bound_by = bound(case)
+    return kernel, plain, library, bound_ms, bound_by
+
+
+# -- main ------------------------------------------------------------------------------
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        raise SmokeFailure("torch is not installed")
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is False: this smoke test needs a GPU")
+    sys.path.insert(0, HERE)
+    try:
+        import gordo_tpu_torch
+    except ImportError as exc:
+        raise SmokeFailure(f"gordo_tpu_torch is not importable beside this script: {exc}")
+    package_dir = os.path.dirname(os.path.abspath(gordo_tpu_torch.__file__))
+    check(os.path.dirname(package_dir) == HERE, f"gordo_tpu_torch found at {package_dir}, not beside the script")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = device_line()
+    phase("device", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} visible")
+
+    from gordo_tpu_torch.ops import _build
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+
+    t0 = time.perf_counter()
+    libraries = _build.build(variants=((), WIDE_ONLY))
+    for stem, path in libraries.items():
+        log = path.with_suffix(".log")
+        report = [line.strip() for line in log.read_text().splitlines() if "registers" in line or "spill" in line] \
+            if log.exists() else ["(prebuilt)"]
+        phase("build", f"{stem}: {path.name} in {time.perf_counter() - t0:.1f} s; " + " | ".join(report))
+
+    cases = kernel_cases()
+    errors = {}
+    for name, case in cases.items():
+        errors[name] = compare(case)
+        phase("kernel", f"{name}: max abs {errors[name][0]:.3e}, max rel {errors[name][1]:.3e} "
+              f"(rtol {RTOL}, atol {ATOL}: f32 sums in another order)")
+
+    build_dir = os.path.join(HERE, "build")  # git-ignored; the collection is temporary
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
+        launches = serve_phase(work_dir)
+
+    timed = {}
+    for name in list(cases)[:TIMED]:
+        timed[name] = times(cases[name])
+        kernel, plain, library, bound_ms, bound_by = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms, "
+              f"bound {bound_ms!r} ms ({bound_by}); {card}")
+
+    for name in NARROW_CASES:
+        case = cases[name]
+        args = (case["spec"], case["bucket"], case["X"], case["indices"], case["ingest"])
+        wide_err = compare(case, WIDE_ONLY)[0]
+        narrow = cuda_ms(lambda: fleet_feedforward(*args))
+        wide = cuda_ms(lambda: fleet_feedforward(*args, defines=WIDE_ONLY))
+        phase("narrow vs wide", f"{name}: narrow kernel {narrow!r} ms, wide kernel {wide!r} ms "
+              f"(wide/narrow {wide / narrow:.2f}; wide max abs {wide_err:.3e}); {card}")
+
+    headline = "hourglass20 M=1000 B=1008"
+    kernel, plain, library, bound_ms, bound_by = timed[headline]
+    check(fleet_feedforward.launches >= launches, "launch counter went backwards")
+    print(json.dumps({"kernels": [{
+        "name": "fleet_dense (K1)",
+        "route": "cuda",
+        "source": "gordo_tpu_torch/ops/csrc/fleet_dense.cu",
+        "replaces": "gordo_tpu/ops/pallas_dense.py:114",
+        "launches": launches,
+        "max_abs_err": errors[headline][0],
+        "ms": kernel,
+        "plain_ms": plain,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library,
+    }]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except Exception as exc:  # noqa: BLE001 - every failure ends the run non-zero
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
+        sys.exit(1)

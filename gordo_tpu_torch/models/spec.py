@@ -1,0 +1,136 @@
+"""
+Static model specifications: frozen, hashable data that says what a
+served network is.
+
+A copy of the serving half of ``gordo_tpu/models/spec.py``: a
+:class:`FeedForwardSpec` with the :class:`OptimizerSpec` fields it
+carries, equal field by field to the JAX package's, so that one
+artifact's spec means the same thing to both packages. Specs are
+hashable because the fleet store groups members into one stacked bucket
+per spec.
+"""
+
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, Optional, Tuple, Union
+
+
+def _freeze_kwargs(kwargs: Optional[Dict[str, Any]]) -> Tuple[Tuple[str, Any], ...]:
+    if not kwargs:
+        return ()
+    return tuple(sorted(kwargs.items()))
+
+
+@dataclass(frozen=True)
+class OptimizerSpec:
+    """Optimizer configuration (Keras' Adam defaults). Serving only carries
+    it, so a spec compares equal to the one it was trained with."""
+
+    name: str = "Adam"
+    learning_rate: float = 0.001
+    kwargs: Tuple[Tuple[str, Any], ...] = ()
+
+    @classmethod
+    def from_config(
+        cls,
+        optimizer: Union[str, "OptimizerSpec", None] = "Adam",
+        optimizer_kwargs: Optional[Dict[str, Any]] = None,
+    ) -> "OptimizerSpec":
+        if isinstance(optimizer, OptimizerSpec):
+            return optimizer
+        optimizer_kwargs = dict(optimizer_kwargs or {})
+        lr = optimizer_kwargs.pop(
+            "learning_rate", optimizer_kwargs.pop("lr", 0.001)
+        )
+        return cls(
+            name=optimizer or "Adam",
+            learning_rate=float(lr),
+            kwargs=_freeze_kwargs(optimizer_kwargs),
+        )
+
+
+@dataclass(frozen=True)
+class FeedForwardSpec:
+    """
+    A feedforward autoencoder: ``dims[i]`` hidden units with
+    ``activations[i]``, then an output layer of ``n_features_out`` with
+    ``out_activation``. ``l1_activity`` and ``optimizer`` only matter to
+    training; they are kept so specs compare equal across packages.
+    """
+
+    n_features: int
+    n_features_out: int
+    dims: Tuple[int, ...]
+    activations: Tuple[str, ...]
+    out_activation: str = "linear"
+    l1_activity: Tuple[float, ...] = ()
+    optimizer: OptimizerSpec = field(default_factory=OptimizerSpec)
+    loss: str = "mse"
+    compute_dtype: str = "float32"
+    precision: str = ""
+
+    def __post_init__(self):
+        if len(self.dims) != len(self.activations):
+            raise ValueError(
+                f"dims ({len(self.dims)}) and activations "
+                f"({len(self.activations)}) must have equal length"
+            )
+        if self.l1_activity and len(self.l1_activity) != len(self.dims):
+            raise ValueError("l1_activity must match dims length when given")
+
+    def layer_names(self) -> Tuple[Tuple[str, str], ...]:
+        """``((param key, activation name), ...)`` in forward order.
+
+        >>> FeedForwardSpec(3, 3, (2,), ("tanh",)).layer_names()
+        (('dense_0', 'tanh'), ('out', 'linear'))
+        """
+        names = tuple(
+            (f"dense_{i}", self.activations[i]) for i in range(len(self.dims))
+        )
+        return names + (("out", self.out_activation),)
+
+    def widths(self) -> Tuple[int, ...]:
+        """Input width, every hidden width, output width.
+
+        >>> FeedForwardSpec(3, 4, (2,), ("tanh",)).widths()
+        (3, 2, 4)
+        """
+        return (self.n_features,) + tuple(self.dims) + (self.n_features_out,)
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The JSON form, key for key the JAX package's ``to_dict``."""
+        out: Dict[str, Any] = {"spec_type": type(self).__name__}
+        for f in fields(self):
+            value = getattr(self, f.name)
+            if isinstance(value, OptimizerSpec):
+                value = {
+                    "name": value.name,
+                    "learning_rate": value.learning_rate,
+                    **dict(value.kwargs),
+                }
+            out[f.name] = value
+        return out
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "FeedForwardSpec":
+        """Inverse of :meth:`to_dict` (also reads the JAX package's form).
+
+        >>> spec = FeedForwardSpec(3, 3, (2,), ("tanh",))
+        >>> FeedForwardSpec.from_dict(spec.to_dict()) == spec
+        True
+        """
+        data = dict(data)
+        spec_type = data.pop("spec_type", cls.__name__)
+        if spec_type != cls.__name__:
+            raise ValueError(f"Not a {cls.__name__}: {spec_type!r}")
+        optimizer = dict(data.pop("optimizer", None) or {})
+        name = optimizer.pop("name", "Adam")
+        lr = optimizer.pop("learning_rate", 0.001)
+        return cls(
+            n_features=int(data.pop("n_features")),
+            n_features_out=int(data.pop("n_features_out")),
+            dims=tuple(int(d) for d in data.pop("dims")),
+            activations=tuple(data.pop("activations")),
+            l1_activity=tuple(float(v) for v in data.pop("l1_activity", ())),
+            optimizer=OptimizerSpec(name, float(lr), _freeze_kwargs(optimizer)),
+            **data,
+        )

@@ -1,0 +1,24 @@
+"""``python -m gordo_tpu_torch.server``: serve ``MODEL_COLLECTION_DIR``."""
+
+import argparse
+import logging
+
+from .app import run_server
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        prog="python -m gordo_tpu_torch.server",
+        description="Serve the model collection in $MODEL_COLLECTION_DIR.",
+    )
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=5555)
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--log-level", default="INFO")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=args.log_level.upper())
+    run_server(host=args.host, port=args.port, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,321 @@
+"""
+The fleet-resident model store: every served model of one revision loaded
+once, with its params on the device, grouped into one stacked bucket per
+spec so that a request scores through one kernel launch per bucket.
+
+A copy of the serving core of ``gordo_tpu/server/fleet_store.py``
+(``RevisionFleet``, ``fleet_forward``, ``fleet_forward_gather``) for f32
+feedforward autoencoders. There is no program cache: PyTorch runs
+eagerly and the kernel takes every spec's widths as arguments.
+
+Each bucket also has a compiled ingest plan: the affine preprocessing of
+every member's pipeline (``X * scale + offset``, stacked ``[N, F]`` on the
+device), which the kernel applies to the raw request rows as a prologue.
+The port's pipelines hold only affine transformers, so every bucket has
+a plan, except one whose members have no transformers at all: its plan
+is None and it runs without the prologue (a member without transformers
+in a mixed bucket gets the identity row).
+"""
+
+import logging
+import os
+import re
+import threading
+from datetime import timedelta
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import serializer
+from ..models.estimators import find_estimator
+from ..models.spec import FeedForwardSpec
+from ..ops.fleet_dense import fleet_feedforward
+from ..parallel.fleet import stack_member_params
+
+logger = logging.getLogger(__name__)
+
+Stacked = Dict[str, Dict[str, torch.Tensor]]
+
+#: pandas' fixed-frequency aliases, old and new spellings
+_UNITS = {
+    "d": "days", "D": "days",
+    "h": "hours", "H": "hours",
+    "min": "minutes", "T": "minutes",
+    "s": "seconds", "S": "seconds",
+    "ms": "milliseconds", "L": "milliseconds",
+    "us": "microseconds", "U": "microseconds",
+}
+_RESOLUTION = re.compile(r"^\s*(\d*)\s*([A-Za-z]+)\s*$")
+
+
+def parse_resolution(text: str) -> timedelta:
+    """A dataset resolution such as ``10min`` or ``1H`` as a timedelta.
+
+    >>> parse_resolution("10min"), parse_resolution("H")
+    (datetime.timedelta(seconds=600), datetime.timedelta(seconds=3600))
+    """
+    match = _RESOLUTION.match(str(text))
+    if not match or match.group(2) not in _UNITS:
+        raise ValueError(f"Unsupported dataset resolution {text!r}")
+    count = int(match.group(1) or 1)
+    return timedelta(**{_UNITS[match.group(2)]: count})
+
+
+def _tag_names(tags: Sequence[Any]) -> List[str]:
+    """Tag entries of ``metadata.json`` (names, ``{"name": ...}`` dicts or
+    ``[name, asset]`` pairs) as names."""
+    names = []
+    for tag in tags:
+        if isinstance(tag, dict):
+            names.append(str(tag["name"]))
+        elif isinstance(tag, (list, tuple)):
+            names.append(str(tag[0]))
+        else:
+            names.append(str(tag))
+    return names
+
+
+def _transformers(model: Any) -> List[Any]:
+    """The transformer steps ahead of the estimator."""
+    obj = getattr(model, "base_estimator", model)
+    return list(getattr(obj, "transformers", ()))
+
+
+class ModelResolution:
+    """What the routes derive from one model's artifacts, once per
+    revision: the model, its metadata, tag names, resolution and
+    thresholds."""
+
+    __slots__ = (
+        "name",
+        "model",
+        "metadata",
+        "tag_names",
+        "target_names",
+        "feature_thresholds",
+        "aggregate_threshold",
+        "_frequency",
+    )
+
+    def __init__(self, name: str, model: Any, metadata: dict):
+        self.name = name
+        self.model = model
+        self.metadata = metadata
+        dataset = metadata.get("dataset") or {}
+        self.tag_names = _tag_names(dataset.get("tag_list") or [])
+        target = dataset.get("target_tag_list")
+        self.target_names = _tag_names(target) if target else list(self.tag_names)
+        try:
+            self._frequency: Tuple[str, Any] = ("ok", parse_resolution(dataset["resolution"]))
+        except (KeyError, TypeError, ValueError) as exc:
+            self._frequency = ("error", exc)
+        self.feature_thresholds = getattr(model, "feature_thresholds_", None)
+        self.aggregate_threshold = getattr(model, "aggregate_threshold_", None)
+
+    @property
+    def frequency(self) -> timedelta:
+        """The training resolution; a bad one raises on every access."""
+        kind, value = self._frequency
+        if kind == "error":
+            raise ValueError(f"Bad dataset resolution in metadata: {value}")
+        return value
+
+
+Ingest = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def member_plan(model: Any, n_features: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """One model's composed affine pipeline ``(scale, offset)`` (float32),
+    or None when it has no transformers. ``X*s1+o1`` then ``(s2, o2)``
+    composes to ``X*(s1*s2) + (o1*s2 + o2)``, in float64."""
+    transformers = _transformers(model)
+    if not transformers:
+        return None
+    scale = np.ones(n_features, np.float64)
+    offset = np.zeros(n_features, np.float64)
+    for step in transformers:
+        s, o = step.affine()
+        scale = scale * np.broadcast_to(s, (n_features,))
+        offset = offset * np.broadcast_to(s, (n_features,)) + np.broadcast_to(o, (n_features,))
+    return scale.astype(np.float32), offset.astype(np.float32)
+
+
+def fleet_forward(spec: FeedForwardSpec, stacked: Stacked, X: torch.Tensor, ingest: Ingest = None) -> torch.Tensor:
+    """The whole bucket's forward, ``X[N, B, F] -> [N, B, F_out]``."""
+    return fleet_feedforward(spec, stacked, X, ingest=ingest)
+
+
+def fleet_forward_gather(
+    spec: FeedForwardSpec,
+    stacked: Stacked,
+    indices: Sequence[int],
+    X: torch.Tensor,
+    ingest: Ingest = None,
+) -> torch.Tensor:
+    """The gather forward, ``(bucket[N], indices[M], X[M, B, F]) ->
+    [M, B, F_out]``: each row of the batch is scored by bucket member
+    ``indices[m]``, read in place by the kernel. ``ingest`` is the
+    bucket's ``(scale, offset)``; ``X`` then holds raw rows."""
+    return fleet_feedforward(spec, stacked, X, indices=indices, ingest=ingest)
+
+
+class RevisionFleet:
+    """All models of one revision directory, loaded lazily and kept for
+    the life of the revision, with one stacked bucket and ingest plan per
+    spec (rebuilt when the spec's membership grows)."""
+
+    def __init__(self, collection_dir: str, device: torch.device):
+        self.collection_dir = collection_dir
+        self.device = device
+        self._lock = threading.RLock()
+        self._models: Dict[str, Any] = {}
+        self._specs: Dict[str, FeedForwardSpec] = {}
+        self._resolutions: Dict[str, ModelResolution] = {}
+        self._buckets: Dict[FeedForwardSpec, Tuple[List[str], Stacked, Ingest]] = {}
+
+    def model(self, name: str) -> Any:
+        """The loaded model for ``name`` (load once, then resident)."""
+        with self._lock:
+            model = self._models.get(name)
+            if model is not None:
+                return model
+            model = serializer.load(os.path.join(self.collection_dir, name), self.device)
+            estimator = find_estimator(model)
+            if estimator is not None and estimator.params_ is not None:
+                self._specs[name] = estimator.spec_
+                self._buckets.pop(estimator.spec_, None)  # membership grew
+            self._models[name] = model
+            return model
+
+    def resolution(self, name: str) -> ModelResolution:
+        """The cached :class:`ModelResolution`; ``FileNotFoundError`` when
+        the artifacts are gone."""
+        with self._lock:
+            cached = self._resolutions.get(name)
+            if cached is None:
+                model = self.model(name)
+                metadata = serializer.load_metadata(os.path.join(self.collection_dir, name))
+                cached = self._resolutions[name] = ModelResolution(name, model, metadata)
+            return cached
+
+    def warm(self) -> List[str]:
+        """Load every model of the revision; returns the names that loaded."""
+        loaded = []
+        for name in serializer.list_model_dirs(self.collection_dir):
+            try:
+                self.model(name)
+                loaded.append(name)
+            except Exception:  # noqa: BLE001 - one bad artifact must not stop the rest
+                logger.exception("warm: could not load %s", name)
+        return loaded
+
+    def _bucket(self, spec: FeedForwardSpec) -> Tuple[List[str], Stacked, Ingest]:
+        with self._lock:
+            cached = self._buckets.get(spec)
+            if cached is not None:
+                return cached
+            names = sorted(n for n, s in self._specs.items() if s == spec)
+            if not names:
+                raise KeyError(f"no loaded models with spec {spec}")
+            stacked = stack_member_params(
+                [find_estimator(self._models[n]).params_ for n in names], self.device
+            )
+            plans = [member_plan(self._models[n], spec.n_features) for n in names]
+            ingest = None
+            if any(p is not None for p in plans):
+                identity = (np.ones(spec.n_features, np.float32), np.zeros(spec.n_features, np.float32))
+                plans = [identity if p is None else p for p in plans]
+                ingest = (
+                    torch.from_numpy(np.stack([s for s, _ in plans])).to(self.device),
+                    torch.from_numpy(np.stack([o for _, o in plans])).to(self.device),
+                )
+            cached = self._buckets[spec] = (names, stacked, ingest)
+            return cached
+
+    def spec_bucket(self, spec: FeedForwardSpec) -> Tuple[List[str], Stacked]:
+        """``(names, stacked params)`` over every loaded model of ``spec``:
+        names sorted, params on the device."""
+        names, stacked, _ = self._bucket(spec)
+        return names, stacked
+
+    def ingest_plan(self, spec: FeedForwardSpec) -> Ingest:
+        """The bucket's compiled preprocessing, row for row with
+        :meth:`spec_bucket`: ``(scale[N, F], offset[N, F])`` float32 on the
+        device, or None when no member has a transformer."""
+        return self._bucket(spec)[2]
+
+    def predict(self, name: str, X: np.ndarray) -> np.ndarray:
+        """One model's reconstruction of raw rows ``X[B, F]``: the compiled
+        single-member path, one gather launch with the ingest prologue."""
+        estimator = find_estimator(self.model(name))
+        if estimator is None:
+            raise TypeError(f"{name} holds no servable autoencoder")
+        spec = estimator.spec_
+        X = np.asarray(X, np.float32)
+        if X.ndim != 2 or X.shape[1] != spec.n_features:
+            raise ValueError(f"expected rows of {spec.n_features} features, got shape {X.shape}")
+        names, stacked, ingest = self._bucket(spec)
+        x = torch.from_numpy(X).to(self.device)[None]
+        out = fleet_forward_gather(spec, stacked, [names.index(name)], x, ingest=ingest)
+        return out[0].cpu().numpy()
+
+    def fleet_scores(
+        self, inputs: Dict[str, np.ndarray]
+    ) -> Tuple[Dict[str, Tuple[np.ndarray, np.ndarray]], Dict[str, Exception]]:
+        """Score many models, one launch per spec bucket: ``inputs[name]``
+        are raw rows; returns ``({name: (reconstruction, per-row mse)},
+        {name: error})``. One broken model never takes the batch down."""
+        errors: Dict[str, Exception] = {}
+        by_spec: Dict[FeedForwardSpec, List[str]] = {}
+        for name in inputs:
+            try:
+                estimator = find_estimator(self.model(name))
+            except Exception as exc:  # noqa: BLE001 - per-machine isolation
+                logger.warning("fleet_scores: could not load %s: %r", name, exc)
+                errors[name] = exc
+                continue
+            if estimator is None:
+                errors[name] = TypeError(f"{name} holds no servable autoencoder")
+                continue
+            by_spec.setdefault(estimator.spec_, []).append(name)
+
+        out: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        for spec, names in by_spec.items():
+            names = sorted(names)
+            raw = {n: np.asarray(inputs[n], np.float32) for n in names}
+            for n in names:
+                if raw[n].ndim != 2 or raw[n].shape[1] != spec.n_features:
+                    errors[n] = ValueError(f"expected rows of {spec.n_features} features, got shape {raw[n].shape}")
+            names = [n for n in names if n not in errors]
+            if not names:
+                continue
+            bucket_names, stacked, ingest = self._bucket(spec)
+            b_max = max(raw[n].shape[0] for n in names)
+            X = np.zeros((len(names), b_max, spec.n_features), np.float32)
+            for i, n in enumerate(names):
+                X[i, : raw[n].shape[0]] = raw[n]
+            x = torch.from_numpy(X).to(self.device)
+            if names == bucket_names:
+                recon = fleet_forward(spec, stacked, x, ingest=ingest)
+            else:
+                indices = [bucket_names.index(n) for n in names]
+                recon = fleet_forward_gather(spec, stacked, indices, x, ingest=ingest)
+            recon = recon.cpu().numpy()
+            for i, n in enumerate(names):
+                r = recon[i, : raw[n].shape[0]]
+                width = min(r.shape[-1], raw[n].shape[-1])
+                out[n] = (r, ((r[:, :width] - raw[n][:, :width]) ** 2).mean(axis=-1))
+        return out, errors
+
+
+class FleetModelStore:
+    """The store of one served revision directory."""
+
+    def __init__(self, collection_dir: str, device: torch.device):
+        self.collection_dir = collection_dir
+        self.device = device
+        self._fleet = RevisionFleet(collection_dir, device)
+
+    def fleet(self) -> RevisionFleet:
+        return self._fleet

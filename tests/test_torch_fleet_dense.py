@@ -1,0 +1,127 @@
+"""K1, the fleet dense-stack forward, against the JAX package.
+
+On the CPU the wrapper runs its plain version; these cases are those of
+``tests/ops/test_pallas_dense.py``, held against
+``fleet_feedforward_pallas(..., interpret=True)`` at that file's
+tolerance (rtol 1e-5, atol 1e-6), plus the gather and ingest variants
+against ``gordo_tpu.server.fleet_store.fleet_forward_gather``. Inputs
+and params are made with seeded numpy/JAX and given to both packages.
+The CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_fleet_dense_cuda.py``.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import gordo_tpu.ops.pallas_dense as pallas_dense
+from gordo_tpu.models import factories as jax_factories
+from gordo_tpu.models.nn import init_feedforward as jax_init
+from gordo_tpu.server.fleet_store import fleet_forward_gather as jax_forward_gather
+from gordo_tpu_torch.models import factories
+from gordo_tpu_torch.models.nn import init_feedforward, params_from_jax
+from gordo_tpu_torch.ops import _build
+from gordo_tpu_torch.ops.fleet_dense import (
+    fleet_feedforward,
+    fleet_feedforward_reference,
+)
+from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+
+def _jax_bucket(spec, n, seed):
+    keys = jax.random.split(jax.random.PRNGKey(seed), n)
+    return jax.vmap(lambda k: jax_init(k, spec))(keys)
+
+
+def _port(bucket):
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, bucket))
+
+
+def _both(factory, *args, **kwargs):
+    return getattr(jax_factories, factory)(*args, **kwargs), getattr(factories, factory)(*args, **kwargs)
+
+
+@pytest.mark.parametrize("m,b", [(1, 8), (4, 32)])
+def test_hourglass_matches_pallas(m, b):
+    jax_spec, spec = _both("feedforward_hourglass", 12)
+    bucket = _jax_bucket(jax_spec, m, 0)
+    X = np.random.RandomState(0).rand(m, b, 12).astype(np.float32)
+    expected = pallas_dense.fleet_feedforward_pallas(jax_spec, bucket, X, interpret=True)
+    launches = fleet_feedforward.launches
+    got = fleet_feedforward(spec, _port(bucket), torch.from_numpy(X))
+    assert fleet_feedforward.launches == launches  # CPU runs are plain runs
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
+
+
+def test_explicit_dims_relu_matches_pallas():
+    kwargs = dict(encoding_dim=(8, 4), decoding_dim=(4, 8),
+                  encoding_func=("relu", "relu"), decoding_func=("relu", "relu"))
+    jax_spec, spec = _both("feedforward_model", 6, 6, **kwargs)
+    bucket = _jax_bucket(jax_spec, 3, 1)
+    X = np.random.RandomState(1).rand(3, 16, 6).astype(np.float32)
+    expected = pallas_dense.fleet_feedforward_pallas(jax_spec, bucket, X, interpret=True)
+    got = fleet_feedforward(spec, _port(bucket), torch.from_numpy(X))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
+
+
+def test_ragged_batch_matches_pallas(monkeypatch):
+    """50 rows: the JAX kernel pads to its 16-row blocks and trims."""
+    monkeypatch.setattr(pallas_dense, "BLOCK_B", 16)
+    jax_spec, spec = _both("feedforward_hourglass", 7)
+    bucket = _jax_bucket(jax_spec, 2, 3)
+    X = np.random.RandomState(3).rand(2, 50, 7).astype(np.float32)
+    expected = pallas_dense.fleet_feedforward_pallas(jax_spec, bucket, X, interpret=True)
+    got = fleet_feedforward(spec, _port(bucket), torch.from_numpy(X))
+    assert got.shape == (2, 50, 7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("ingest", [False, True], ids=["gather", "gather+ingest"])
+def test_gather_matches_jax_serving_program(ingest):
+    jax_spec, spec = _both("feedforward_hourglass", 9)
+    bucket = _jax_bucket(jax_spec, 5, 4)
+    rng = np.random.RandomState(4)
+    indices = np.array([3, 0, 3, 4], np.int32)
+    X = (rng.rand(4, 21, 9) * 50).astype(np.float32)
+    plan = None
+    if ingest:
+        plan = ((rng.rand(5, 9) / 50).astype(np.float32), (rng.rand(5, 9) - 0.5).astype(np.float32))
+    expected = jax_forward_gather(
+        jax_spec, bucket, indices, X,
+        ingest=None if plan is None else tuple(jax.numpy.asarray(a) for a in plan),
+    )
+    got = fleet_feedforward(
+        spec, _port(bucket), torch.from_numpy(X), indices=indices,
+        ingest=None if plan is None else tuple(torch.from_numpy(a) for a in plan),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
+
+
+def test_arguments_are_checked():
+    spec = factories.feedforward_hourglass(4)
+    bucket = stack_member_params([init_feedforward(spec, torch.Generator().manual_seed(0))])
+    X = torch.zeros(2, 3, 4)
+    with pytest.raises(IndexError):
+        fleet_feedforward(spec, bucket, X, indices=[0, 1])
+    with pytest.raises(ValueError):
+        fleet_feedforward(spec, bucket, X[:1], indices=[0, 0])
+    with pytest.raises(ValueError):
+        fleet_feedforward(spec, bucket, torch.zeros(1, 3, 5))
+    with pytest.raises(TypeError):
+        fleet_feedforward(spec, bucket, X[:1].double())
+    with pytest.raises(ValueError):
+        fleet_feedforward(spec, bucket, X[:1], ingest=(torch.ones(2, 4), torch.zeros(2, 4)))
+
+
+def test_build_variants_are_libraries_of_their_own():
+    """A set of preprocessor defines is a build of its own: its own key and
+    its own library file, so the measured variant never loads as K1."""
+    source = _build.CSRC / "fleet_dense.cu"
+    wide_only = ("FLEET_DENSE_WIDE_ONLY",)
+    assert _build.kernel_sources() == [source]
+    assert "FLEET_DENSE_WIDE_ONLY" in source.read_text()
+    assert _build.library_name(source) == "fleet_dense"
+    assert _build.library_name(source, wide_only) == "fleet_dense+FLEET_DENSE_WIDE_ONLY"
+    assert _build.library_path(source) != _build.library_path(source, wide_only)
+    assert _build.library_path(source).parent == _build.BUILD_DIR

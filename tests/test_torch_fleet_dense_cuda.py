@@ -1,0 +1,133 @@
+"""K1, the fleet dense-stack CUDA kernel, against its plain version on the card.
+
+Every test here needs an NVIDIA GPU and ``nvcc``; on a machine without a
+card each one skips. The file imports neither JAX nor the JAX package, so
+it also runs on a machine that has only PyTorch (``tests/conftest.py``
+imports JAX, hence ``--noconftest``)::
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_fleet_dense_cuda.py
+
+Tolerance: rtol 1e-5, atol 1e-5, f32 sums taken in another order than
+the plain version's ``bmm``. Both of the kernel's paths are covered:
+the register-resident one for specs at most 32 wide and the
+shared-memory one for wider specs (up to 512, chunked columns included).
+"""
+
+import threading
+
+import pytest
+import torch
+
+from gordo_tpu_torch.models import factories
+from gordo_tpu_torch.models.nn import init_feedforward
+from gordo_tpu_torch.ops.activations import ACTIVATION_NAMES
+from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward, fleet_feedforward_reference
+from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(device, spec, n, m, b, indices=None, ingest=False, seed=0, defines=()):
+    gen = torch.Generator().manual_seed(seed)
+    bucket = stack_member_params([init_feedforward(spec, gen) for _ in range(n)], device)
+    X = torch.rand(m, b, spec.n_features, generator=gen).to(device)
+    plan = None
+    if ingest:
+        plan = (torch.rand(n, spec.n_features, generator=gen).to(device) * 2,
+                torch.rand(n, spec.n_features, generator=gen).to(device) - 0.5)
+    launches = fleet_feedforward.launches
+    got = fleet_feedforward(spec, bucket, X, indices, plan, defines=defines)
+    torch.cuda.synchronize()
+    assert fleet_feedforward.launches == launches + 1
+    expected = fleet_feedforward_reference(spec, bucket, X, indices, plan)
+    torch.testing.assert_close(got, expected, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_name", ["hourglass", "model"])
+def test_kernel_matches_plain_on_card(cuda, spec_name):
+    spec = factories.feedforward_hourglass(20) if spec_name == "hourglass" else factories.feedforward_model(20)
+    _kernel_vs_plain(cuda, spec, 8, 8, 1008)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [9, 48], ids=["narrow", "wide"])
+@pytest.mark.parametrize("name", ACTIVATION_NAMES)
+def test_kernel_activation_on_card(cuda, name, hidden):
+    spec = factories.feedforward_model(6, encoding_dim=(hidden,), decoding_dim=(5,),
+                                       encoding_func=(name,), decoding_func=("tanh",), out_func=name)
+    _kernel_vs_plain(cuda, spec, 3, 3, 37)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_features", [20, 40], ids=["narrow", "wide"])
+def test_kernel_gather_ingest_ragged_on_card(cuda, n_features):
+    _kernel_vs_plain(cuda, factories.feedforward_hourglass(n_features), 10, 6, 301,
+                     indices=[3, 3, 0, 9, 3, 1], ingest=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 50, 129])
+def test_kernel_ragged_tiles_on_card(cuda, rows):
+    _kernel_vs_plain(cuda, factories.feedforward_hourglass(7), 2, 2, rows)
+
+
+@pytest.mark.cuda
+def test_kernel_chunks_wide_layers_on_card(cuda):
+    """A 256x256 layer does not fit a block's shared memory at once."""
+    spec = factories.feedforward_model(256, encoding_dim=(256,), decoding_dim=(256,),
+                                       encoding_func=("relu",), decoding_func=("gelu",))
+    _kernel_vs_plain(cuda, spec, 2, 2, 200)
+
+
+@pytest.mark.cuda
+def test_kernel_widest_spec_on_card(cuda):
+    spec = factories.feedforward_model(512, encoding_dim=(300,), decoding_dim=(1,),
+                                       encoding_func=("tanh",), decoding_func=("softmax",))
+    _kernel_vs_plain(cuda, spec, 2, 2, 70)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    too_wide = factories.feedforward_model(513, encoding_dim=(4,), decoding_dim=(4,),
+                                           encoding_func=("tanh",), decoding_func=("tanh",))
+    bucket = stack_member_params([init_feedforward(too_wide, torch.Generator().manual_seed(0))], cuda)
+    with pytest.raises(ValueError, match="kernel"):
+        fleet_feedforward(too_wide, bucket, torch.zeros(1, 2, 513, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,indices", [(8, 1008, None), (1, 1008, [5])], ids=["fleet", "gather"])
+def test_wide_only_build_matches_plain_on_narrow_spec(cuda, m, b, indices):
+    """The build that sends every spec to the wide kernel, which
+    chip_smoke.py times against the narrow one, computes the same."""
+    _kernel_vs_plain(cuda, factories.feedforward_hourglass(20), 8, m, b, indices=indices,
+                     ingest=True, defines=("FLEET_DENSE_WIDE_ONLY",))
+
+
+@pytest.mark.cuda
+def test_launch_count_is_exact_under_threads(cuda):
+    """Server request threads launch concurrently; no launch is lost."""
+    spec = factories.feedforward_hourglass(7)
+    bucket = stack_member_params([init_feedforward(spec, torch.Generator().manual_seed(0))], cuda)
+    X = torch.rand(1, 16, 7, device=cuda)
+    fleet_feedforward(spec, bucket, X)  # build and load before the threads start
+    before = fleet_feedforward.launches
+
+    def launch():
+        for _ in range(200):
+            fleet_feedforward(spec, bucket, X)
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    torch.cuda.synchronize()
+    assert fleet_feedforward.launches == before + 8 * 200

@@ -1,0 +1,49 @@
+"""The port stands alone: no module of ``gordo_tpu_torch/`` nor
+``chip_smoke.py`` imports JAX, the JAX package, or a library the card's
+machine does not have (pandas, scikit-learn, werkzeug, yaml, pyarrow).
+Checked on the source with ``ast``, so an import inside a function
+counts too."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FILES = sorted((REPO / "gordo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "gordo_tpu", "pandas", "sklearn", "werkzeug", "yaml", "pyarrow", "optax", "flax"}
+
+
+def _imported_roots(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None)) in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and isinstance(node.args[0].value, str)
+        ):
+            yield node.lineno, node.args[0].value.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(REPO)) for p in FILES])
+def test_no_forbidden_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, root) for line, root in _imported_roots(tree) if root in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_check_sees_imports():
+    tree = ast.parse("import jax.numpy\nfrom gordo_tpu.server import x\nfrom . import y\nimport gordo_tpu_torch\n")
+    assert [root for _, root in _imported_roots(tree)] == ["jax", "gordo_tpu", "gordo_tpu_torch"]
+
+
+def test_package_has_modules():
+    names = {p.relative_to(REPO / "gordo_tpu_torch").as_posix() for p in FILES[:-1]}
+    for expected in ("ops/fleet_dense.py", "server/app.py", "models/nn.py", "serializer/serializer.py"):
+        assert expected in names

@@ -1,0 +1,391 @@
+"""The port's serving slice against the JAX server, end to end on the CPU.
+
+A two-machine detector config (a MinMaxScaler pipeline ahead of an
+hourglass autoencoder, thresholds from cross-validation) is built once
+with the JAX package's ``local_build``. Each detector crosses into the
+port through ``DiffBasedAnomalyDetector.from_state``, and a third,
+bare-pipeline machine (not a detector) rides along. Both apps then get
+the same JSON requests on the anomaly and fleet routes, and the parsed
+``data`` must agree column by column.
+
+Tolerance: rtol 1e-5, atol 1e-6 on every numeric cell. The
+reconstruction is f32 with sums taken in another order by XLA and by
+torch, and the scaled errors subtract nearly equal numbers, so a few
+ulps of the reconstruction carry into them; keys, column order, strings
+and nulls must match exactly.
+"""
+
+import io
+import json
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+from werkzeug.test import Client
+
+from gordo_tpu import serializer as jax_serializer
+from gordo_tpu.builder import local_build
+from gordo_tpu.server import build_app as jax_build_app
+from gordo_tpu_torch import resolve_device, serializer
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_tpu_torch.models.estimators import TorchAutoEncoder
+from gordo_tpu_torch.models.preprocessing import MinMaxScaler, Pipeline
+from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+from gordo_tpu_torch.server import build_app
+from gordo_tpu_torch.server.fleet_store import parse_resolution
+from gordo_tpu_torch.server.wire import decode_frame, index_wire_keys, verify_frame
+
+PROJECT = "test-project"
+REVISION = "1602324482000"
+RTOL, ATOL = 1e-5, 1e-6
+
+_MACHINE = """
+  - name: {name}
+    dataset:
+      type: RandomDataset
+      train_start_date: "2020-01-01T00:00:00+00:00"
+      train_end_date: "2020-01-05T00:00:00+00:00"
+      tag_list: [{tags}]
+    model:
+      gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector:
+        base_estimator:
+          sklearn.pipeline.Pipeline:
+            steps:
+              - sklearn.preprocessing.MinMaxScaler
+              - gordo_tpu.models.JaxAutoEncoder:
+                  kind: feedforward_hourglass
+                  epochs: 1
+"""
+CONFIG = "machines:" + "".join(
+    _MACHINE.format(name=name, tags=tags)
+    for name, tags in (
+        ("machine-1", "tag-1, tag-2, tag-3, tag-4"),
+        ("machine-2", "tag-5, tag-6, tag-7, tag-8"),
+    )
+)
+
+
+def _scaler_state(scaler):
+    return {"scale_": np.asarray(scaler.scale_), "min_": np.asarray(scaler.min_)}
+
+
+def _estimator_state(pipeline):
+    estimator = pipeline.steps[-1][1]
+    params = {k: {n: np.asarray(v) for n, v in layer.items()} for k, layer in estimator.params_.items()}
+    pipeline_scalers = [_scaler_state(step) for _, step in pipeline.steps[:-1]]
+    return estimator.spec_.to_dict(), params, pipeline_scalers
+
+
+def port_detector(model) -> DiffBasedAnomalyDetector:
+    """A JAX-built detector as the port's, through its plain-state constructor."""
+    spec, params, pipeline = _estimator_state(model.base_estimator)
+    return DiffBasedAnomalyDetector.from_state(
+        {
+            "spec": spec,
+            "params": params,
+            "pipeline": pipeline,
+            "scaler": _scaler_state(model.scaler),
+            "feature_thresholds": np.asarray(model.feature_thresholds_.values),
+            "aggregate_threshold": model.aggregate_threshold_,
+            "require_thresholds": model.require_thresholds,
+            "window": model.window,
+            "smoothing_method": model.smoothing_method,
+        },
+        device="cpu",
+    )
+
+
+def port_pipeline(pipeline) -> Pipeline:
+    spec, params, scalers = _estimator_state(pipeline)
+    from gordo_tpu_torch.models.spec import FeedForwardSpec
+
+    steps = [(f"step_{i}", MinMaxScaler(s["scale_"], s["min_"])) for i, s in enumerate(scalers)]
+    return Pipeline(steps + [("ae", TorchAutoEncoder(FeedForwardSpec.from_dict(spec), params, device="cpu"))])
+
+
+@pytest.fixture(scope="module")
+def collections(tmp_path_factory):
+    """``(jax_dir, port_dir)``: the same three machines served by both."""
+    root = tmp_path_factory.mktemp("torch-serving")
+    jax_dir, port_dir = root / "jax" / REVISION, root / "port" / REVISION
+    builds = list(local_build(CONFIG, project_name=PROJECT))
+    models = {machine.name: (model, machine.to_dict()) for model, machine in builds}
+    # a bare pipeline of machine-1's spec: scores, but is not a detector
+    models["machine-3"] = (models["machine-1"][0].base_estimator, models["machine-1"][1])
+    for name, (model, metadata) in models.items():
+        jax_serializer.dump(model, str(jax_dir / name), metadata=metadata)
+        with open(jax_dir / name / "metadata.json") as f:
+            metadata_json = json.load(f)
+        port_model = port_pipeline(model) if name == "machine-3" else port_detector(model)
+        serializer.dump(port_model, str(port_dir / name), metadata=metadata_json)
+    return str(jax_dir), str(port_dir)
+
+
+@pytest.fixture(scope="module")
+def clients(collections):
+    jax_dir, port_dir = collections
+    previous = os.environ.get("MODEL_COLLECTION_DIR")
+    os.environ["MODEL_COLLECTION_DIR"] = jax_dir
+    try:
+        jax_client = Client(jax_build_app(config={"EXPECTED_MODELS": []}))
+        yield jax_client, Client(build_app(port_dir, device="cpu"))
+    finally:
+        if previous is None:
+            os.environ.pop("MODEL_COLLECTION_DIR", None)
+        else:
+            os.environ["MODEL_COLLECTION_DIR"] = previous
+
+
+def _frame(tags, rows, seed, start_minute=0):
+    rng = np.random.RandomState(seed)
+    index = [
+        f"2020-03-01T{(start_minute + 10 * i) // 60:02d}:{(start_minute + 10 * i) % 60:02d}:00+00:00"
+        for i in range(rows)
+    ]
+    values = rng.rand(len(tags), rows) * 2 - 0.5
+    values[0, 3] = np.nan  # a missing reading
+    # keys shuffled: the decoder must sort rows by time
+    order = rng.permutation(rows)
+    return {tag: {index[i]: (None if np.isnan(values[t, i]) else float(values[t, i])) for i in order}
+            for t, tag in enumerate(tags)}
+
+
+TAGS = {
+    "machine-1": ["tag-1", "tag-2", "tag-3", "tag-4"],
+    "machine-2": ["tag-5", "tag-6", "tag-7", "tag-8"],
+    "machine-3": ["tag-1", "tag-2", "tag-3", "tag-4"],
+}
+
+
+def _assert_same(expected, got, path="data"):
+    """Nested JSON objects equal: same keys in the same order, numbers
+    within tolerance, everything else exact."""
+    if isinstance(expected, dict):
+        assert isinstance(got, dict), path
+        assert list(got) == list(expected), path
+        for key in expected:
+            _assert_same(expected[key], got[key], f"{path}/{key}")
+    elif isinstance(expected, float) and isinstance(got, float):
+        np.testing.assert_allclose(got, expected, rtol=RTOL, atol=ATOL, err_msg=path)
+    else:
+        assert got == expected, path
+
+
+def _post(client, url, payload):
+    response = client.post(url, data=json.dumps(payload), content_type="application/json")
+    return response.status_code, json.loads(response.get_data())
+
+
+@pytest.mark.parametrize("name", ["machine-1", "machine-2"])
+def test_anomaly_route_matches_jax(clients, name):
+    jax_client, port_client = clients
+    X = _frame(TAGS[name], 30, seed=1)
+    y = _frame(TAGS[name], 30, seed=2)
+    url = f"/gordo/v0/{PROJECT}/{name}/anomaly/prediction"
+    launches = fleet_feedforward.launches
+    jax_status, jax_body = _post(jax_client, url, {"X": X, "y": y})
+    status, body = _post(port_client, url, {"X": X, "y": y})
+    assert (status, jax_status) == (200, 200)
+    assert list(body) == ["data", "time-seconds", "revision"] == list(jax_body)
+    assert body["revision"] == jax_body["revision"] == REVISION
+    assert list(body["data"]) == [
+        "start", "end", "model-input", "model-output", "tag-anomaly-scaled",
+        "total-anomaly-scaled", "tag-anomaly-unscaled", "total-anomaly-unscaled",
+        "anomaly-confidence", "total-anomaly-confidence",
+    ]
+    _assert_same(jax_body["data"], body["data"])
+    assert fleet_feedforward.launches == launches  # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["lean", "full"])
+def test_fleet_route_matches_jax(clients, full):
+    jax_client, port_client = clients
+    X = {name: _frame(tags, 25 + 5 * i, seed=10 + i) for i, (name, tags) in enumerate(TAGS.items())}
+    X["no-such-machine"] = X["machine-1"]
+    payload = {"X": X, "y": {"machine-2": _frame(TAGS["machine-2"], 35, seed=20)}}
+    url = f"/gordo/v0/{PROJECT}/prediction/fleet" + ("?full" if full else "")
+    jax_status, jax_body = _post(jax_client, url, payload)
+    status, body = _post(port_client, url, payload)
+    assert (status, jax_status) == (200, 200)
+    assert list(body) == ["data", "errors", "revision"] == list(jax_body)
+    assert body["errors"] == jax_body["errors"]
+    assert sorted(body["data"]) == ["machine-1", "machine-2", "machine-3"]
+    assert list(body["data"]["machine-3"]) == ["model-output", "total-anomaly-unscaled"]
+    if full:
+        assert "anomaly-confidence" in body["data"]["machine-1"]
+    _assert_same({k: jax_body["data"][k] for k in body["data"]}, body["data"])
+
+
+@pytest.mark.parametrize(
+    "name,payload,status",
+    [
+        ("no-such-machine", {"X": {}, "y": {}}, 404),
+        ("machine-1", {"X": {"tag-1": {"2020-01-01T00:00:00+00:00": 1.0}}}, 400),
+        ("machine-1", {"y": {}}, 400),
+        ("_bad_name", {"X": {}}, 422),
+    ],
+)
+def test_error_statuses_match_jax(clients, name, payload, status):
+    jax_client, port_client = clients
+    url = f"/gordo/v0/{PROJECT}/{name}/anomaly/prediction"
+    assert _post(jax_client, url, payload)[0] == status
+    assert _post(port_client, url, payload)[0] == status
+
+
+@pytest.mark.parametrize(
+    "frame",
+    [
+        {"tag-1": {"not-a-time": 1.0}},
+        {"tag-1": {"2020-01-01T00:00:00+00:00": "high"}},
+        {"tag-1": {"2020-01-01T00:00:00+00:00": {"nested": 1.0}}},
+        [1.0, 2.0],
+    ],
+)
+def test_bad_frames_are_bad_requests(clients, frame):
+    """Unreadable frames answer 400 (the JAX server answers some of these
+    with a 500 from an unhandled parse error)."""
+    _, port_client = clients
+    url = f"/gordo/v0/{PROJECT}/machine-1/anomaly/prediction"
+    status, body = _post(port_client, url, {"X": frame, "y": frame})
+    assert status == 400, body
+
+
+def test_non_detector_is_unprocessable(clients):
+    jax_client, port_client = clients
+    X = _frame(TAGS["machine-3"], 10, seed=5)
+    url = f"/gordo/v0/{PROJECT}/machine-3/anomaly/prediction"
+    assert _post(jax_client, url, {"X": X, "y": X})[0] == 422
+    assert _post(port_client, url, {"X": X, "y": X})[0] == 422
+
+
+def test_healthcheck_and_unknown_route(clients):
+    _, port_client = clients
+    assert port_client.get("/healthcheck").status_code == 200
+    assert port_client.get("/nope").status_code == 404
+    assert port_client.get(f"/gordo/v0/{PROJECT}/prediction/fleet").status_code == 405
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_artifact_is_device_independent(collections):
+    _, port_dir = collections
+    model = serializer.load(os.path.join(port_dir, "machine-1"), device="cpu")
+    assert model.base_estimator.estimator.params_["out"]["W"].device.type == "cpu"
+    state = pickle.loads(pickle.dumps(model))
+    params = state.base_estimator.estimator.__getstate__()["params_"]
+    assert isinstance(params["out"]["W"], np.ndarray)
+    if not torch.cuda.is_available():
+        # the default device is cuda: no quiet move to the CPU
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serializer.load(os.path.join(port_dir, "machine-1"))
+    assert serializer.list_model_dirs(port_dir) == ["machine-1", "machine-2", "machine-3"]
+    assert serializer.load_metadata(os.path.join(port_dir, "machine-1"))["dataset"]["resolution"] == "10min"
+
+
+def test_store_bucket_and_ingest_plan_match_jax(collections):
+    """One bucket per spec, names sorted, and the compiled ingest plan row
+    for row with it, as the JAX store builds them."""
+    from gordo_tpu.server.fleet_store import RevisionFleet as JaxRevisionFleet
+    from gordo_tpu_torch.server.fleet_store import RevisionFleet, find_estimator
+
+    jax_dir, port_dir = collections
+    jax_fleet, fleet = JaxRevisionFleet(jax_dir), RevisionFleet(port_dir, torch.device("cpu"))
+    for name in ("machine-1", "machine-2", "machine-3"):
+        jax_fleet.model(name)
+        fleet.model(name)
+    spec = find_estimator(fleet.model("machine-1")).spec_
+    jax_spec = jax_fleet.model("machine-1").base_estimator.steps[-1][1].spec_
+    names, stacked = fleet.spec_bucket(spec)
+    jax_names, jax_stacked = jax_fleet.spec_bucket(jax_spec)
+    assert names == jax_names == ["machine-1", "machine-2", "machine-3"]
+    np.testing.assert_array_equal(stacked["out"]["W"].numpy(), np.asarray(jax_stacked["out"]["W"]))
+    scale, offset = fleet.ingest_plan(spec)
+    jax_plan = jax_fleet.ingest_plan(jax_spec)
+    assert jax_plan.names == names
+    np.testing.assert_allclose(scale.numpy(), np.asarray(jax_plan.scale), rtol=1e-7)
+    np.testing.assert_allclose(offset.numpy(), np.asarray(jax_plan.offset), rtol=1e-7, atol=1e-7)
+
+
+@pytest.mark.parametrize(
+    "keys",
+    [
+        ["2020-03-01T00:10:00+00:00", "2020-03-01T00:00:00+00:00"],
+        ["2020-03-01T00:00:00Z", "2020-03-01T00:00:00.5Z"],
+        ["2020-03-02", "2020-03-01"],
+        ["2020-03-01T00:00:00+01:00", "2020-03-01T01:30:00+01:00"],
+        ["3", "1", "2"],
+    ],
+)
+def test_frame_decoding_matches_pandas(keys):
+    from gordo_tpu.server.utils import dataframe_from_dict, index_wire_keys as jax_keys
+
+    data = {"a": {k: float(i) for i, k in enumerate(keys)}, "b": {keys[0]: None}}
+    expected = dataframe_from_dict(json.loads(json.dumps(data)))
+    frame = decode_frame(data)
+    np.testing.assert_array_equal(frame.values, expected[["a", "b"]].to_numpy(dtype=float))
+    assert index_wire_keys(frame.index) == jax_keys(expected.index)
+
+
+def test_verify_frame_aligns_columns():
+    frame = decode_frame({"b": [1.0, 2.0], "a": [3.0, 4.0], "c": [0.0, 0.0]})
+    assert verify_frame(frame, ["a", "b"]).values.tolist() == [[3.0, 1.0], [4.0, 2.0]]
+    renamed = verify_frame(decode_frame({"x": [1.0], "y": [2.0]}), ["a", "b"])
+    assert renamed.columns == ["a", "b"] and renamed.values.tolist() == [[1.0, 2.0]]
+    with pytest.raises(ValueError):
+        verify_frame(frame, ["a", "z"])
+
+
+def test_prediction_table_matches_jax():
+    import pandas as pd
+
+    from gordo_tpu.server.wire.assemble import prediction_table as jax_table
+    from gordo_tpu.server.wire.json_codec import encode_table as jax_encode_table
+    from gordo_tpu_torch.server.wire import encode_table, prediction_table
+
+    data = _frame(["t-1", "t-2"], 12, seed=7)
+    frame = decode_frame(data)
+    df = pd.DataFrame(frame.values, columns=frame.columns, index=pd.DatetimeIndex(frame.index))
+    output = np.random.RandomState(7).rand(10, 2).astype(np.float32)
+    expected = jax_table(["t-1", "t-2"], df, output, frequency=pd.tseries.frequencies.to_offset("10min"))
+    got = prediction_table(frame, output, ["t-1", "t-2"], frequency=parse_resolution("10min"))
+    _assert_same(json.loads("".join(jax_encode_table(expected))), json.loads("".join(encode_table(got))))
+
+
+def test_port_app_runs_over_a_socket(collections):
+    """The WSGI app behind the threaded wsgiref server, as ``run_server`` uses it."""
+    import threading
+    import urllib.request
+
+    from gordo_tpu_torch.server.app import make_wsgi_server
+
+    _, port_dir = collections
+    server = make_wsgi_server(build_app(port_dir, device="cpu"), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_port}"
+        X = _frame(TAGS["machine-2"], 8, seed=3)
+        request = urllib.request.Request(
+            f"{url}/gordo/v0/{PROJECT}/machine-2/anomaly/prediction",
+            data=json.dumps({"X": X, "y": X}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(request, timeout=30) as response:
+            assert response.status == 200
+            assert response.headers["revision"] == REVISION
+            body = json.load(io.TextIOWrapper(response))
+        assert len(body["data"]["model-output"]["tag-5"]) == 8
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
