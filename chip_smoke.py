@@ -28,6 +28,19 @@ Run from the root of a checkout; it builds the CUDA kernels from
    runs them through the wide kernel instead of the narrow one (the
    measurement that keeps two kernels in the source).
 
+K2, the fused anomaly scores (K1 with a per-row MSE epilogue, the same
+source), is held the same way: against its plain version on both
+kernel paths with ``y`` the input rows (with the ingest prologue), a
+separate ``y``, a narrower ``y``, a NaN in ``y``, ragged rows, gather
+indices with repeats and the wide-only build (``[kernel]``); the fleet
+request must launch it (``[serve]``); and ``[stream]`` drives the
+streaming plane over the socket on the same 64 machines with 64-row
+watermark windows: one ingest of 1008 rows a machine and three of 64,
+the SSE feed and the close, each answer equal to the CPU app's, K2
+launched by every flush. ``[times]`` times K2 at three shapes against
+its plain version, a ``baddbmm`` chain plus ``torch.square(out - y).mean(-1)``,
+K1 alone at the same shape, and its bound.
+
 It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that last line; so does a machine
@@ -54,6 +67,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 ROWS = 1008  # one week of 10-minute data
 SERVED_MACHINES = 64
+#: the stream phase's watermark and its ingests: 1008 rows a machine, then
+#: three of 64; snap_rows cuts 512, 512, 64 and 64 rows a machine
+STREAM_WINDOW = 64
+STREAM_POSTS = (ROWS, STREAM_WINDOW, STREAM_WINDOW, STREAM_WINDOW)
+STREAM_SCORED = (512, 512, 64, 64)
 TIMED = 5  # the first cases of kernel_cases(): the full widths and the served shapes
 #: the build of K1 that sends narrow specs through the wide kernel
 WIDE_ONLY = ("FLEET_DENSE_WIDE_ONLY",)
@@ -188,6 +206,84 @@ def kernel_cases():
     return cases
 
 
+def scores_case(case, y="x", seed=0):
+    """A K1 case with targets for K2: ``y`` is ``"x"`` (X itself, the
+    store's case), ``"same"`` (a separate y as wide as the output),
+    ``"narrower"`` (3 columns fewer) or ``"nan"`` (a separate y with one
+    NaN)."""
+    import torch
+
+    X = case["X"]
+    if y == "x":
+        return dict(case, y=X)
+    M, B, _ = X.shape
+    width = case["spec"].n_features_out - (3 if y == "narrower" else 0)
+    target = torch.rand(M, B, width, generator=torch.Generator().manual_seed(seed + 2)).to(X.device)
+    if y == "nan":
+        target[0, B // 2, 1] = float("nan")
+    return dict(case, y=target)
+
+
+def compare_scores(case, defines=()):
+    """K2 against its plain version: ``(max abs, max rel)`` over the
+    reconstruction and the mse (NaN where the plain version has NaN)."""
+    import torch
+
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_anomaly_scores_reference
+
+    args = (case["spec"], case["bucket"], case["X"], case["y"], case["indices"], case["ingest"])
+    recon, mse = fleet_anomaly_scores(*args, defines=defines)
+    torch.cuda.synchronize()
+    expected_recon, expected_mse = fleet_anomaly_scores_reference(*args)
+    check(recon.shape == expected_recon.shape and mse.shape == expected_mse.shape, "K2 output shapes")
+    check(bool((torch.isnan(mse) == torch.isnan(expected_mse)).all()), "K2's NaN rows differ from the plain version's")
+    worst = (0.0, 0.0)
+    for got, expected in ((recon, expected_recon), (mse, expected_mse)):
+        keep = ~torch.isnan(expected)
+        got, expected = got[keep], expected[keep]
+        diff = (got - expected).abs()
+        check(bool(torch.allclose(got, expected, rtol=RTOL, atol=ATOL)),
+              f"K2 disagrees with the plain version: max abs {float(diff.max())}")
+        if diff.numel():
+            worst = max(worst, (float(diff.max()), float((diff / expected.abs().clamp_min(1e-6)).max())))
+    return worst
+
+
+def k2_cases(cases):
+    """K2's cases, on K1's buckets and rows where the shapes are the same."""
+    from gordo_tpu_torch.models.factories import feedforward_hourglass
+
+    served = cases["served fleet: hourglass20 M=64 B=1008 +ingest"]
+    flush = dict(served, X=served["X"][:, :512].contiguous())
+    k2 = {
+        "K2 hourglass20 M=1000 B=1008 y=X": scores_case(cases["hourglass20 M=1000 B=1008"]),
+        "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest": scores_case(flush),
+        "K2 feedforward_model20 M=64 B=1008 y=X": scores_case(cases["feedforward_model20 M=64 B=1008"]),
+        "K2 served fleet: hourglass20 M=64 B=1008 y=X +ingest": scores_case(served),
+    }
+    for path, name in (("narrow", "served fleet: hourglass20 M=64 B=1008 +ingest"),
+                       ("wide", "feedforward_model20 M=64 B=1008")):
+        for y in ("same", "narrower", "nan"):
+            k2[f"K2 {path}: {name.split(': ')[-1]} y={y}"] = scores_case(cases[name], y, seed=20)
+    for path, ragged, gathered in (("narrow", 7, 20), ("wide", 40, 40)):
+        for rows in (1, 50, 129):
+            k2[f"K2 ragged {path}: hourglass{ragged} B={rows}"] = scores_case(
+                make_case(feedforward_hourglass(ragged), 2, 2, rows, seed=30 + rows))
+        gather = make_case(feedforward_hourglass(gathered), 10, 6, 301, indices=[3, 3, 0, 9, 3, 1],
+                           ingest=True, seed=40)
+        k2[f"K2 gather repeats {path}: hourglass{gathered} N=10 M=6 B=301 y=X +ingest"] = scores_case(gather)
+        k2[f"K2 gather repeats {path}: hourglass{gathered} N=10 M=6 B=301 y=narrower"] = scores_case(
+            gather, "narrower", seed=41)
+    return k2
+
+
+#: K2's cases that also go through the wide-only build
+K2_WIDE_ONLY = (
+    "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest",
+    "K2 narrow: hourglass20 M=64 B=1008 +ingest y=narrower",
+)
+
+
 # -- phase 4: serving ------------------------------------------------------------
 
 
@@ -240,11 +336,12 @@ def write_collection(directory):
     return names
 
 
-def request_frame(seed):
+def request_frame(seed, rows=ROWS, first_row=0):
+    """``rows`` 10-minute rows of 20 tags from row ``first_row`` on."""
     start = datetime(2020, 3, 1, tzinfo=timezone.utc)
-    keys = [(start + timedelta(minutes=10 * r)).isoformat() for r in range(ROWS)]
-    values = sensor_data(10_000 + seed, ROWS, 20)
-    values[ROWS // 2:ROWS // 2 + 6, 3] += 25.0  # an excursion to flag
+    keys = [(start + timedelta(minutes=10 * (first_row + r))).isoformat() for r in range(rows)]
+    values = sensor_data(10_000 + seed, rows, 20)
+    values[rows // 2:rows // 2 + 6, 3] += 25.0  # an excursion to flag
     return {f"tag-{j:02d}": dict(zip(keys, values[:, j].tolist())) for j in range(20)}
 
 
@@ -259,21 +356,37 @@ def post(url, payload):
     return status, json.loads(body), (time.perf_counter() - t0) * 1e3
 
 
-def wsgi_post(app, path, payload):
-    """One POST straight into a WSGI app, without a socket."""
+def wsgi_call(app, method, path, payload=None, query=""):
+    """One request straight into a WSGI app, without a socket: ``(status,
+    body bytes)``."""
     import io
     from wsgiref.util import setup_testing_defaults
 
-    body = json.dumps(payload).encode()
+    body = b"" if payload is None else json.dumps(payload).encode()
     environ = {}
     setup_testing_defaults(environ)
     environ.update(
-        REQUEST_METHOD="POST", PATH_INFO=path, CONTENT_LENGTH=str(len(body)),
+        REQUEST_METHOD=method, PATH_INFO=path, QUERY_STRING=query, CONTENT_LENGTH=str(len(body)),
         CONTENT_TYPE="application/json", **{"wsgi.input": io.BytesIO(body)},
     )
     status = []
     chunks = app(environ, lambda s, h: status.append(int(s.split()[0])))
-    return status[0], json.loads(b"".join(chunks))
+    try:
+        return status[0], b"".join(chunks)
+    finally:
+        getattr(chunks, "close", lambda: None)()
+
+
+def wsgi_post(app, path, payload):
+    """One POST straight into a WSGI app: ``(status, parsed JSON)``."""
+    status, body = wsgi_call(app, "POST", path, payload)
+    return status, json.loads(body)
+
+
+def http_call(url, method="GET"):
+    """A bodiless request over the socket: ``(status, body bytes)``."""
+    with urllib.request.urlopen(urllib.request.Request(url, method=method), timeout=300) as response:
+        return response.status, response.read()
 
 
 def same_json(expected, got, path="data"):
@@ -296,37 +409,24 @@ ANOMALY_GROUPS = [
 ]
 
 
-def serve_phase(work_dir):
+def serve_phase(base, names, cpu_app):
+    """Three anomaly requests and one fleet request to the card's app at
+    ``base``, each answer held against the CPU app's; returns the launches
+    of K1 (the anomaly route) and K2 (the fleet route) they made."""
     import math
 
-    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
-    from gordo_tpu_torch.server import build_app
-    from gordo_tpu_torch.server.app import make_wsgi_server
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 
-    collection = os.path.join(work_dir, "1700000000000")
-    names = write_collection(collection)
-    app = build_app(collection, device="cuda")
-    check(len(app.store.fleet().warm()) == SERVED_MACHINES, "not every model loaded")
-    cpu_app = build_app(collection, device="cpu")
-    server = make_wsgi_server(app, "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_port}/gordo/v0/smoke"
     anomaly_names = [names[0], names[17], names[63]]
     requests = [(f"/{n}/anomaly/prediction", {"X": request_frame(i), "y": request_frame(i)})
                 for i, n in enumerate(anomaly_names)]
     fleet_payload = {"X": {n: request_frame(100 + i) for i, n in enumerate(names)}}
     requests.append(("/prediction/fleet", fleet_payload))
-    try:
-        fleet_feedforward.launches = 0
-        answers = [post(base + path, payload) for path, payload in requests]
-        launches = fleet_feedforward.launches
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    check(not thread.is_alive(), "server thread did not stop")
-    check(launches >= 1, "the served requests never launched K1")
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    answers = [post(base + path, payload) for path, payload in requests]
+    launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(launches["K1"] >= 1, "the served anomaly requests never launched K1")
+    check(launches["K2"] >= 1, "the served fleet request never launched K2")
 
     max_diff = 0.0
     for (path, payload), (status, body, ms) in zip(requests, answers):
@@ -350,9 +450,66 @@ def serve_phase(work_dir):
                       for entry in data.values()), "fleet entry shape")
             phase("serve", f"POST {path} ({len(names)} machines x {ROWS} rows): 200 in {ms:.1f} ms")
         max_diff = max(max_diff, same_json(cpu_body["data"], data))
-    phase("serve", f"{len(requests)} requests, K1 launches {launches}, "
+    phase("serve", f"{len(requests)} requests, K1 launches {launches['K1']}, K2 launches {launches['K2']}, "
           f"max abs diff vs the CPU app {max_diff:.3e} (rtol {RTOL}, atol {ATOL})")
     return launches
+
+
+def sse_events(body):
+    """``(id, event, data)`` of each event frame of an SSE body; heartbeat
+    comments left out."""
+    frames = []
+    for frame in body.decode().split("\n\n"):
+        if frame and not frame.startswith(":"):
+            fields = dict(line.split(": ", 1) for line in frame.split("\n"))
+            frames.append((fields.get("id"), fields["event"], json.loads(fields["data"])))
+    return frames
+
+
+def stream_phase(base, names, cpu_app):
+    """The streaming plane on the card's app at ``base`` and on the CPU app:
+    the same ingests, acks and events; every flush one K2 launch. Returns
+    K2's launches, the ingest latencies and the rows scored a second."""
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+
+    stream = "/stream/smoke"
+    local = "/gordo/v0/smoke" + stream  # the same path on the CPU app
+    first_row, latencies, scored = 0, [], 0
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    for step, rows in enumerate(STREAM_POSTS):
+        payload = {"X": {n: request_frame(300 + 10 * step + i, rows, first_row) for i, n in enumerate(names)}}
+        first_row += rows
+        status, ack, ms = post(base + stream + "/ingest", payload)
+        cpu_status, cpu_ack = wsgi_post(cpu_app, local + "/ingest", payload)
+        check(status == cpu_status == 200, f"stream ingest answered {status} (CPU app {cpu_status})")
+        same_json(cpu_ack, ack)
+        check(ack["scored"] == {n: STREAM_SCORED[step] for n in names} and not ack["errors"],
+              f"ingest {step} scored {ack['scored']} with errors {ack['errors']}")
+        latencies.append(ms)
+        scored += sum(ack["scored"].values())
+        phase("stream", f"ingest {step}: {len(names)} machines x {rows} rows, scored {STREAM_SCORED[step]} a machine, "
+              f"200 in {ms:.1f} ms")
+    launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(launches["K2"] >= len(STREAM_POSTS), f"the stream flushes launched K2 {launches['K2']} times")
+
+    expected_events = len(STREAM_POSTS) * len(names)
+    query = f"max_events={expected_events}&idle_timeout_s=5"
+    status, body = http_call(f"{base}{stream}/events?{query}")
+    cpu_status, cpu_body = wsgi_call(cpu_app, "GET", local + "/events", query=query)
+    check(status == cpu_status == 200, f"events answered {status} (CPU app {cpu_status})")
+    got, expected = sse_events(body), sse_events(cpu_body)
+    check([k for _, k, _ in got] == ["open"] + ["anomaly"] * expected_events, "stream event kinds")
+    check([(i, k) for i, k, _ in got] == [(i, k) for i, k, _ in expected], "stream event ids differ from the CPU app's")
+    max_diff = max(same_json(want, have) for (_, _, want), (_, _, have) in zip(expected, got))
+    check(all(d["mse_mean"] is not None for _, k, d in got if k == "anomaly"), "an anomaly event without mse")
+    status, body = http_call(base + stream, method="DELETE")
+    cpu_status, cpu_body = wsgi_call(cpu_app, "DELETE", local)
+    check(status == cpu_status == 200 and json.loads(body) == json.loads(cpu_body), "stream close")
+    rows_per_s = scored / (sum(latencies) / 1e3)
+    phase("stream", f"{len(got) - 1} anomaly events equal to the CPU app's (max abs diff {max_diff:.3e}, "
+          f"rtol {RTOL}, atol {ATOL}); K2 launches {launches['K2']}, K1 launches {launches['K1']}; "
+          f"ingest ms {[round(ms, 1) for ms in latencies]}, {rows_per_s:.0f} rows scored a second")
+    return launches, latencies, rows_per_s
 
 
 # -- phase 5: times ----------------------------------------------------------------
@@ -407,7 +564,9 @@ def library_chain(case):
 
 def bound(case):
     """(bound_ms, bound_by): each input read once and each output written
-    once against HBM, and 2 flops per multiply-add against the f32 rate."""
+    once against HBM, and 2 flops per multiply-add against the f32 rate.
+    With K2's targets ``case["y"]``: 4 more bytes a row for the mse, y's
+    bytes when y is not X, and 3 flops a compared column."""
     spec, X = case["spec"], case["X"]
     M, B, _ = X.shape
     # only the members the batch reads: a gather touches len(set(indices)) rows
@@ -419,6 +578,10 @@ def bound(case):
     if case["ingest"] is not None:
         byte_count += 4 * 2 * n * spec.n_features
     flops = 2 * M * B * macs
+    y = case.get("y")
+    if y is not None:
+        byte_count += 4 * M * B + (0 if y is X else 4 * y.numel())
+        flops += 3 * M * B * min(spec.n_features_out, y.shape[-1])
     byte_ms = byte_count / PEAK_BYTES_PER_S * 1e3
     flop_ms = flops / PEAK_F32_FLOP_PER_S * 1e3
     return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
@@ -433,6 +596,35 @@ def times(case):
     library = cuda_ms(library_chain(case))
     bound_ms, bound_by = bound(case)
     return kernel, plain, library, bound_ms, bound_by
+
+
+def scores_times(case):
+    """K2, its plain version, the library yardstick (the ``baddbmm`` chain
+    and ``torch.square(out - y).mean(-1)``), K1 alone at the same shape,
+    and the bound."""
+    import torch
+
+    from gordo_tpu_torch.ops.fleet_dense import (
+        fleet_anomaly_scores,
+        fleet_anomaly_scores_reference,
+        fleet_feedforward,
+    )
+
+    y = case["y"]
+    w = min(case["spec"].n_features_out, y.shape[-1])
+    args = (case["spec"], case["bucket"], case["X"], y, case["indices"], case["ingest"])
+    chain = library_chain(case)
+
+    def library():
+        out = chain()
+        return out, torch.square(out[..., :w] - y[..., :w]).mean(-1)
+
+    kernel = cuda_ms(lambda: fleet_anomaly_scores(*args))
+    plain = cuda_ms(lambda: fleet_anomaly_scores_reference(*args))
+    library_ms = cuda_ms(library)
+    k1 = cuda_ms(lambda: fleet_feedforward(*args[:3], *args[4:]))
+    bound_ms, bound_by = bound(case)
+    return kernel, plain, library_ms, k1, bound_ms, bound_by
 
 
 # -- main ------------------------------------------------------------------------------
@@ -460,7 +652,7 @@ def main():
           f"{torch.cuda.device_count()} visible")
 
     from gordo_tpu_torch.ops import _build
-    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 
     t0 = time.perf_counter()
     libraries = _build.build(variants=((), WIDE_ONLY))
@@ -476,11 +668,40 @@ def main():
         errors[name] = compare(case)
         phase("kernel", f"{name}: max abs {errors[name][0]:.3e}, max rel {errors[name][1]:.3e} "
               f"(rtol {RTOL}, atol {ATOL}: f32 sums in another order)")
+    scored = k2_cases(cases)
+    for name, case in scored.items():
+        errors[name] = compare_scores(case)
+        phase("kernel", f"{name}: max abs {errors[name][0]:.3e}, max rel {errors[name][1]:.3e} "
+              f"over recon and mse (rtol {RTOL}, atol {ATOL})")
+    for name in K2_WIDE_ONLY:
+        wide_err = compare_scores(scored[name], WIDE_ONLY)
+        phase("kernel", f"{name}, wide-only build: max abs {wide_err[0]:.3e}, max rel {wide_err[1]:.3e}")
 
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.server.app import make_wsgi_server
+
+    # the stream plane reads its knobs when the first stream route creates it
+    os.environ["GORDO_TPU_STREAM_WINDOW_ROWS"] = str(STREAM_WINDOW)
     build_dir = os.path.join(HERE, "build")  # git-ignored; the collection is temporary
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
-        launches = serve_phase(work_dir)
+        collection = os.path.join(work_dir, "1700000000000")
+        names = write_collection(collection)
+        app = build_app(collection, device="cuda")
+        check(len(app.store.fleet().warm()) == SERVED_MACHINES, "not every model loaded")
+        cpu_app = build_app(collection, device="cpu")
+        server = make_wsgi_server(app, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_port}/gordo/v0/smoke"
+        try:
+            launches = serve_phase(base, names, cpu_app)
+            stream_launches, _latencies, _rows_per_s = stream_phase(base, names, cpu_app)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "server thread did not stop")
 
     timed = {}
     for name in list(cases)[:TIMED]:
@@ -488,6 +709,12 @@ def main():
         kernel, plain, library, bound_ms, bound_by = timed[name]
         phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms, "
               f"bound {bound_ms!r} ms ({bound_by}); {card}")
+    scored_timed = {}
+    for name in list(scored)[:3]:
+        scored_timed[name] = scores_times(scored[name])
+        kernel, plain, library, k1, bound_ms, bound_by = scored_timed[name]
+        phase("times", f"{name}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms, "
+              f"K1 alone {k1!r} ms (epilogue {kernel - k1:+.5f} ms), bound {bound_ms!r} ms ({bound_by}); {card}")
 
     for name in NARROW_CASES:
         case = cases[name]
@@ -497,23 +724,48 @@ def main():
         wide = cuda_ms(lambda: fleet_feedforward(*args, defines=WIDE_ONLY))
         phase("narrow vs wide", f"{name}: narrow kernel {narrow!r} ms, wide kernel {wide!r} ms "
               f"(wide/narrow {wide / narrow:.2f}; wide max abs {wide_err:.3e}); {card}")
+    for name in K2_WIDE_ONLY[:1]:
+        case = scored[name]
+        args = (case["spec"], case["bucket"], case["X"], case["y"], case["indices"], case["ingest"])
+        narrow = cuda_ms(lambda: fleet_anomaly_scores(*args))
+        wide = cuda_ms(lambda: fleet_anomaly_scores(*args, defines=WIDE_ONLY))
+        phase("narrow vs wide", f"{name}: narrow kernel {narrow!r} ms, wide kernel {wide!r} ms "
+              f"(wide/narrow {wide / narrow:.2f}); {card}")
 
     headline = "hourglass20 M=1000 B=1008"
     kernel, plain, library, bound_ms, bound_by = timed[headline]
-    check(fleet_feedforward.launches >= launches, "launch counter went backwards")
-    print(json.dumps({"kernels": [{
-        "name": "fleet_dense (K1)",
-        "route": "cuda",
-        "source": "gordo_tpu_torch/ops/csrc/fleet_dense.cu",
-        "replaces": "gordo_tpu/ops/pallas_dense.py:114",
-        "launches": launches,
-        "max_abs_err": errors[headline][0],
-        "ms": kernel,
-        "plain_ms": plain,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library,
-    }]}), flush=True)
+    k2_headline = "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"
+    k2_kernel, k2_plain, k2_library, _k1, k2_bound_ms, k2_bound_by = scored_timed[k2_headline]
+    print(json.dumps({"kernels": [
+        {
+            "name": "fleet_dense (K1)",
+            "route": "cuda",
+            "source": "gordo_tpu_torch/ops/csrc/fleet_dense.cu",
+            "replaces": "gordo_tpu/ops/pallas_dense.py:114",
+            "launches": launches["K1"],
+            "launches_by_path": {"serve": launches["K1"], "stream": stream_launches["K1"]},
+            "max_abs_err": errors[headline][0],
+            "ms": kernel,
+            "plain_ms": plain,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library,
+        },
+        {
+            "name": "fleet_anomaly_scores (K2)",
+            "route": "cuda",
+            "source": "gordo_tpu_torch/ops/csrc/fleet_dense.cu",
+            "replaces": "gordo_tpu/ops/pallas_dense.py:126",
+            "launches": stream_launches["K2"],
+            "launches_by_path": {"serve": launches["K2"], "stream": stream_launches["K2"]},
+            "max_abs_err": errors[k2_headline][0],
+            "ms": k2_kernel,
+            "plain_ms": k2_plain,
+            "bound_ms": k2_bound_ms,
+            "bound_by": k2_bound_by,
+            "library_ms": k2_library,
+        },
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),

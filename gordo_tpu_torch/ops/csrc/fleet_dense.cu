@@ -1,4 +1,5 @@
-// Fleet dense-stack forward for Hopper (sm_90a): K1 of the port.
+// Fleet dense-stack forward for Hopper (sm_90a): K1 of the port, and K2,
+// the same forward with a per-row MSE epilogue.
 //
 // Replaces gordo_tpu/ops/pallas_dense.py::fleet_feedforward_pallas, the
 // TPU kernel that walks a feedforward autoencoder's whole layer stack for
@@ -64,6 +65,26 @@
 //
 // Both kernels sum in plain f32 FMAs, k in order, and add the bias after
 // the sum, as the plain version's bmm + b does. No TF32, no tensor cores.
+//
+// K2, the fleet anomaly scores (fleet_dense_forward with y and mse), replaces
+// gordo_tpu/ops/pallas_dense.py::fleet_anomaly_scores_pallas: K1, then
+// the per-row mean squared error against targets y[M, B, F_y],
+//   mse[m, r] = (1/w) * sum_{j<w} (out[m, r, j] - y[m, r, j])^2,
+// w = min(F_out, F_y), in f32, divided by w (as numpy's f32 mean), NaN
+// propagating. It is an epilogue of both kernels above, so the
+// reconstruction is never read back from device memory; it adds 4 bytes
+// a row to K1's traffic (and y's bytes when y is not X).
+//   - Narrow kernel: the thread that owns a row holds its outputs in
+//     registers and sums its own squared differences; no reduction across
+//     threads. When y is X itself (the store's case: the error against the
+//     raw rows), y comes from the raw tile still in shared memory (the
+//     ingest prologue only read it), so y costs no second read.
+//     Otherwise each thread reads its row of y from global memory.
+//   - Wide kernel: the final store walks one row a warp, lanes striding
+//     the row's columns; each lane sums its squares, a warp shuffle adds
+//     them, and lane 0 writes the row's mse.
+// Padded weight columns (narrow: widths rounded up to 4; wide: chunks)
+// never enter the sum: it runs over the real columns j < w only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,7 +145,11 @@ struct Args {
   const int* indices;   // [M], rows of the bucket
   const float* scale;   // [N, F] or null
   const float* offset;  // [N, F] or null
+  const float* y;       // [M, B, F_y] or null (K1 alone); may be X itself
+  float* mse;           // [M, B] or null
   int B, F, F_out, n_layers;
+  int F_y;
+  int w;                // columns in the MSE: min(F_out, F_y)
   int tiles;            // row tiles per member
   int ingest_off;       // narrow kernel: offset of the staged scale, offset
   int act_floats;       // wide kernel: floats in one activation buffer
@@ -362,6 +387,19 @@ __global__ void __launch_bounds__(kNarrowRows)
     for (int k = 0; k < kNarrowWidth; ++k) h[k] = t[k];
   }
 
+  if (a.mse && r < rows) {
+    // K2's epilogue, before io is overwritten: y = X is the raw row in io
+    const float* y = a.y == a.X ? io + r * a.F : a.y + ((size_t)m * a.B + row0 + r) * a.F_y;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNarrowWidth; ++j) {
+      if (j >= a.w) break;
+      const float d = h[j] - y[j];
+      sum = fmaf(d, d, sum);
+    }
+    a.mse[(size_t)m * a.B + row0 + r] = sum / (float)a.w;
+  }
+
   __syncthreads();  // every thread has read its input row out of io
   if (r < rows) {
     float* row = io + r * a.F_out;
@@ -557,9 +595,25 @@ __global__ void __launch_bounds__(NT)
     cur ^= 1;
   }
 
+  // The final store, a row a warp; with K2's epilogue each lane sums the
+  // squared differences of its columns and a shuffle adds the lanes.
   float* o = a.out + ((size_t)m * a.B + row0) * a.F_out;
-  for (int r = warp; r < rows; r += NT / 32) {
-    for (int c = lane; c < a.F_out; c += 32) o[(size_t)r * a.F_out + c] = act(cur)[c * LD + r];
+  for (int r = warp; r < rows; r += NT / 32) {  // uniform across the warp
+    const float* y = a.mse ? a.y + ((size_t)m * a.B + row0 + r) * a.F_y : nullptr;
+    float sum = 0.f;
+    for (int c = lane; c < a.F_out; c += 32) {
+      const float v = act(cur)[c * LD + r];
+      o[(size_t)r * a.F_out + c] = v;
+      if (y && c < a.w) {
+        const float d = v - y[c];
+        sum = fmaf(d, d, sum);
+      }
+    }
+    if (a.mse) {
+#pragma unroll
+      for (int offset = 16; offset > 0; offset >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, offset);
+      if (lane == 0) a.mse[(size_t)m * a.B + row0 + r] = sum / (float)a.w;
+    }
   }
 }
 
@@ -611,18 +665,23 @@ int launch_wide(Args& a, int M, int max_width, cudaStream_t stream) {
 
 extern "C" {
 
-// Launches K1 on `stream` and returns 0, a negative argument-check code,
-// or the cudaError_t of the launch. Does not synchronise.
+// Launches K1, or K2 when y and mse are given, on `stream` and returns 0,
+// a negative argument-check code, or the cudaError_t of the launch. Does
+// not synchronise.
+//   y, mse, F_y: targets [M, B, F_y] and the per-row MSE [M, B], both null
+//     for K1; y may be X itself (then F_y must be F)
 //   weights[l], biases[l]: device pointers of layer l's W and b
 //   dims[0..n_layers]: F, the hidden widths, F_out
 //   acts[l]: activation code of layer l
-int fleet_dense_forward(const float* X, float* out, const int* indices,
-                        const float* scale, const float* offset, int M, int B,
-                        int n_layers, const void* const* weights,
-                        const void* const* biases, const int* dims,
-                        const int* acts, void* stream) {
+int fleet_dense_forward(const float* X, float* out, const float* y, float* mse, int F_y,
+                        const int* indices, const float* scale, const float* offset, int M,
+                        int B, int n_layers, const void* const* weights,
+                        const void* const* biases, const int* dims, const int* acts,
+                        void* stream) {
   if (M < 0 || B < 0 || n_layers < 1) return kBadShape;
   if (n_layers > kMaxLayers) return kTooManyLayers;
+  if ((y == nullptr) != (mse == nullptr)) return kBadPointer;
+  if (mse && F_y < 1) return kBadShape;
   if (M == 0 || B == 0) return 0;
   if (!X || !out || !indices || (scale == nullptr) != (offset == nullptr)) return kBadPointer;
   Args a = {};
@@ -631,10 +690,15 @@ int fleet_dense_forward(const float* X, float* out, const int* indices,
   a.indices = indices;
   a.scale = scale;
   a.offset = offset;
+  a.y = y;
+  a.mse = mse;
   a.B = B;
   a.F = dims[0];
   a.F_out = dims[n_layers];
   a.n_layers = n_layers;
+  a.F_y = F_y;
+  a.w = F_y < a.F_out ? F_y : a.F_out;
+  if (y == X && F_y != a.F) return kBadShape;
   int max_width = 0;
   for (int l = 0; l <= n_layers; ++l) {
     if (dims[l] < 1) return kBadShape;
@@ -668,7 +732,7 @@ int fleet_dense_forward(const float* X, float* out, const int* indices,
 const char* fleet_dense_error_string(int code) {
   switch (code) {
     case kBadShape:
-      return "bad shape (M, B or a width below 1, or too many blocks)";
+      return "bad shape (M, B or a width below 1, y aliasing X at another width, or too many blocks)";
     case kTooManyLayers:
       return "too many layers for the kernel's argument block";
     case kTooWide:

@@ -17,8 +17,15 @@ into the launch here (``gordo_tpu/server/fleet_store.py:838-861``):
 - ``ingest=(scale[N, F], offset[N, F])`` applies the member's compiled
   preprocessing ``X * scale + offset`` in float32 to the loaded tile.
 
-``fleet_feedforward.launches`` counts kernel launches (never plain runs),
-so a caller can show that a path went through the kernel.
+:func:`fleet_anomaly_scores` is the counterpart of
+``fleet_anomaly_scores_pallas`` (K2): the same forward, then the per-row
+mean squared error against targets ``y``, fused into the same launch as
+an epilogue (``fleet_dense.cu``), so the reconstruction is never read
+back. Its plain version is :func:`fleet_anomaly_scores_reference`.
+
+``fleet_feedforward.launches`` and ``fleet_anomaly_scores.launches``
+count kernel launches (never plain runs), so a caller can show that a
+path went through the kernel.
 """
 
 import ctypes
@@ -68,11 +75,17 @@ def _device_indices(indices: Indices, M: int, N: int, device: torch.device) -> t
     return idx.to(device, non_blocking=True)
 
 
-def _check(spec: FeedForwardSpec, stacked: Params, X: torch.Tensor, ingest) -> int:
+def _check(
+    spec: FeedForwardSpec, stacked: Params, X: torch.Tensor, ingest, y: Optional[torch.Tensor] = None
+) -> int:
     """Validate shapes, dtypes and devices; returns the bucket size N."""
     if X.dim() != 3 or X.shape[-1] != spec.n_features:
         raise ValueError(
             f"X must be [M, B, {spec.n_features}], got {tuple(X.shape)}"
+        )
+    if y is not None and (y.dim() != 3 or y.shape[:2] != X.shape[:2] or y.shape[-1] < 1):
+        raise ValueError(
+            f"y must be [{X.shape[0]}, {X.shape[1]}, F_y >= 1] like X, got {tuple(y.shape)}"
         )
     widths = spec.widths()
     N = None
@@ -94,7 +107,7 @@ def _check(spec: FeedForwardSpec, stacked: Params, X: torch.Tensor, ingest) -> i
                     f"ingest arrays must be [{N}, {spec.n_features}], got {tuple(t.shape)}"
                 )
         tensors += list(ingest)
-    for t in tensors + [X]:
+    for t in tensors + [X] + ([] if y is None else [y]):
         if t.dtype != torch.float32:
             raise TypeError(f"expected float32 tensors, got {t.dtype}")
         if t.device != X.device:
@@ -125,6 +138,23 @@ def fleet_feedforward_reference(
     return h
 
 
+def fleet_anomaly_scores_reference(
+    spec: FeedForwardSpec,
+    stacked: Params,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    indices: Indices = None,
+    ingest: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K2: :func:`fleet_feedforward_reference`, then
+    the mean of squared differences over the first ``min(F_out, F_y)``
+    columns. Same arguments and result as :func:`fleet_anomaly_scores`."""
+    _check(spec, stacked, X, ingest, y)
+    recon = fleet_feedforward_reference(spec, stacked, X, indices, ingest)
+    w = min(recon.shape[-1], y.shape[-1])
+    return recon, torch.square(recon[..., :w] - y[..., :w]).mean(-1)
+
+
 _kernels: Dict[Tuple[str, ...], Tuple[Callable, Callable]] = {}
 _kernels_lock = threading.Lock()
 _launches_lock = threading.Lock()
@@ -144,7 +174,9 @@ def _kernel(defines: Tuple[str, ...] = ()) -> Tuple[Callable, Callable]:
             p = ctypes.c_void_p
             forward = lib.fleet_dense_forward
             forward.argtypes = [
-                p, p, p, p, p,                    # X, out, indices, scale, offset
+                p, p, p, p,                       # X, out, y, mse
+                ctypes.c_int,                     # F_y
+                p, p, p,                          # indices, scale, offset
                 ctypes.c_int, ctypes.c_int,       # M, B
                 ctypes.c_int,                     # n_layers
                 p, p, p, p,                       # weights, biases, dims, acts
@@ -156,6 +188,73 @@ def _kernel(defines: Tuple[str, ...] = ()) -> Tuple[Callable, Callable]:
             error_string.restype = ctypes.c_char_p
             _kernels[defines] = (forward, error_string)
         return _kernels[defines]
+
+
+def _launch(
+    spec: FeedForwardSpec,
+    stacked: Params,
+    X: torch.Tensor,
+    indices: Indices,
+    ingest: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    y: Optional[torch.Tensor],
+    defines: Tuple[str, ...],
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch ``fleet_dense_forward`` on CUDA tensors: K1, or K2 when
+    ``y`` is given; returns ``(out, mse or None)``. Never synchronises."""
+    if X.device.type != "cuda":
+        raise ValueError(f"the fleet_dense kernel runs on cuda or cpu, not {X.device}")
+    N = _check(spec, stacked, X, ingest, y)
+    M, B, _ = X.shape
+    names = spec.layer_names()
+    widths = spec.widths()
+    if len(names) > MAX_LAYERS or max(widths) > MAX_WIDTH:
+        raise ValueError(
+            f"spec exceeds the kernel's {MAX_LAYERS} layers / width {MAX_WIDTH}"
+        )
+    idx = _device_indices(indices, M, N, X.device)
+    aliased = y is X
+    X = X.contiguous()
+    # y passed as X itself stays X, so the narrow kernel reads it from the
+    # raw tile in shared memory
+    y = X if aliased else (None if y is None else y.contiguous())
+    out = torch.empty((M, B, spec.n_features_out), dtype=torch.float32, device=X.device)
+    mse = None if y is None else torch.empty((M, B), dtype=torch.float32, device=X.device)
+    if M == 0 or B == 0:
+        return out, mse
+    params = [(stacked[k]["W"].contiguous(), stacked[k]["b"].contiguous()) for k, _ in names]
+    scale = offset = None
+    if ingest is not None:
+        scale, offset = (t.contiguous() for t in ingest)
+    n = len(names)
+    weights = (ctypes.c_void_p * n)(*[W.data_ptr() for W, _ in params])
+    biases = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in params])
+    dims = (ctypes.c_int * (n + 1))(*widths)
+    acts = (ctypes.c_int * n)(*[activation_code(a) for _, a in names])
+    forward, error_string = _kernel(tuple(defines))
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        status = forward(
+            X.data_ptr(),
+            out.data_ptr(),
+            None if y is None else y.data_ptr(),
+            None if mse is None else mse.data_ptr(),
+            0 if y is None else y.shape[-1],
+            idx.data_ptr(),
+            scale.data_ptr() if scale is not None else None,
+            offset.data_ptr() if offset is not None else None,
+            M,
+            B,
+            n,
+            ctypes.cast(weights, ctypes.c_void_p),
+            ctypes.cast(biases, ctypes.c_void_p),
+            ctypes.cast(dims, ctypes.c_void_p),
+            ctypes.cast(acts, ctypes.c_void_p),
+            stream,
+        )
+    if status != 0:
+        message = error_string(status).decode(errors="replace")
+        raise RuntimeError(f"fleet_dense kernel launch failed ({status}): {message}")
+    return out, mse
 
 
 def fleet_feedforward(
@@ -181,54 +280,41 @@ def fleet_feedforward(
     """
     if X.device.type == "cpu":
         return fleet_feedforward_reference(spec, stacked, X, indices, ingest)
-    if X.device.type != "cuda":
-        raise ValueError(f"fleet_feedforward runs on cuda or cpu, not {X.device}")
-    N = _check(spec, stacked, X, ingest)
-    M, B, _ = X.shape
-    names = spec.layer_names()
-    widths = spec.widths()
-    if len(names) > MAX_LAYERS or max(widths) > MAX_WIDTH:
-        raise ValueError(
-            f"spec exceeds the kernel's {MAX_LAYERS} layers / width {MAX_WIDTH}"
-        )
-    idx = _device_indices(indices, M, N, X.device)
-    X = X.contiguous()
-    out = torch.empty((M, B, spec.n_features_out), dtype=torch.float32, device=X.device)
-    if M == 0 or B == 0:
-        return out
-    params = [(stacked[k]["W"].contiguous(), stacked[k]["b"].contiguous()) for k, _ in names]
-    scale = offset = None
-    if ingest is not None:
-        scale, offset = (t.contiguous() for t in ingest)
-    n = len(names)
-    weights = (ctypes.c_void_p * n)(*[W.data_ptr() for W, _ in params])
-    biases = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in params])
-    dims = (ctypes.c_int * (n + 1))(*widths)
-    acts = (ctypes.c_int * n)(*[activation_code(a) for _, a in names])
-    forward, error_string = _kernel(tuple(defines))
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        status = forward(
-            X.data_ptr(),
-            out.data_ptr(),
-            idx.data_ptr(),
-            scale.data_ptr() if scale is not None else None,
-            offset.data_ptr() if offset is not None else None,
-            M,
-            B,
-            n,
-            ctypes.cast(weights, ctypes.c_void_p),
-            ctypes.cast(biases, ctypes.c_void_p),
-            ctypes.cast(dims, ctypes.c_void_p),
-            ctypes.cast(acts, ctypes.c_void_p),
-            stream,
-        )
-    if status != 0:
-        message = error_string(status).decode(errors="replace")
-        raise RuntimeError(f"fleet_dense kernel launch failed ({status}): {message}")
+    out, _ = _launch(spec, stacked, X, indices, ingest, None, defines)
     with _launches_lock:  # request threads of the server launch concurrently
         fleet_feedforward.launches += 1
     return out
 
 
 fleet_feedforward.launches = 0  # type: ignore[attr-defined]
+
+
+def fleet_anomaly_scores(
+    spec: FeedForwardSpec,
+    stacked: Params,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    indices: Indices = None,
+    ingest: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    *,
+    defines: Tuple[str, ...] = (),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Fused fleet scoring: ``(reconstruction[M, B, F_out], mse[M, B])``
+    (float32), the forward of :func:`fleet_feedforward` and, per row,
+    ``mean_j (out[..., j] - y[..., j])**2`` over ``j < min(F_out, F_y)``.
+
+    ``y[M, B, F_y]`` is aligned with ``X`` row for row (it is not gathered
+    by ``indices``) and may be ``X`` itself: the error against the raw
+    rows, before the ``ingest`` prologue. NaN propagates. CUDA tensors
+    launch K2; CPU tensors run the plain version.
+    """
+    if X.device.type == "cpu":
+        return fleet_anomaly_scores_reference(spec, stacked, X, y, indices, ingest)
+    out, mse = _launch(spec, stacked, X, indices, ingest, y, defines)
+    with _launches_lock:
+        fleet_anomaly_scores.launches += 1
+    return out, mse
+
+
+fleet_anomaly_scores.launches = 0  # type: ignore[attr-defined]

@@ -4,9 +4,11 @@ once, with its params on the device, grouped into one stacked bucket per
 spec so that a request scores through one kernel launch per bucket.
 
 A copy of the serving core of ``gordo_tpu/server/fleet_store.py``
-(``RevisionFleet``, ``fleet_forward``, ``fleet_forward_gather``) for f32
-feedforward autoencoders. There is no program cache: PyTorch runs
-eagerly and the kernel takes every spec's widths as arguments.
+(``RevisionFleet``, ``fleet_forward_gather``) for f32 feedforward
+autoencoders. There is no program cache: PyTorch runs eagerly and the
+kernel takes every spec's widths as arguments. ``fleet_scores`` scores a
+spec bucket with one K2 launch: the forward and each row's error against
+its raw input rows, fused.
 
 Each bucket also has a compiled ingest plan: the affine preprocessing of
 every member's pipeline (``X * scale + offset``, stacked ``[N, F]`` on the
@@ -30,7 +32,7 @@ import torch
 from .. import serializer
 from ..models.estimators import find_estimator
 from ..models.spec import FeedForwardSpec
-from ..ops.fleet_dense import fleet_feedforward
+from ..ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 from ..parallel.fleet import stack_member_params
 
 logger = logging.getLogger(__name__)
@@ -141,11 +143,6 @@ def member_plan(model: Any, n_features: int) -> Optional[Tuple[np.ndarray, np.nd
     return scale.astype(np.float32), offset.astype(np.float32)
 
 
-def fleet_forward(spec: FeedForwardSpec, stacked: Stacked, X: torch.Tensor, ingest: Ingest = None) -> torch.Tensor:
-    """The whole bucket's forward, ``X[N, B, F] -> [N, B, F_out]``."""
-    return fleet_feedforward(spec, stacked, X, ingest=ingest)
-
-
 def fleet_forward_gather(
     spec: FeedForwardSpec,
     stacked: Stacked,
@@ -198,6 +195,11 @@ class RevisionFleet:
                 metadata = serializer.load_metadata(os.path.join(self.collection_dir, name))
                 cached = self._resolutions[name] = ModelResolution(name, model, metadata)
             return cached
+
+    def loaded_specs(self) -> Dict[str, FeedForwardSpec]:
+        """``{name: spec}`` of every loaded servable model."""
+        with self._lock:
+            return dict(self._specs)
 
     def warm(self) -> List[str]:
         """Load every model of the revision; returns the names that loaded."""
@@ -263,9 +265,11 @@ class RevisionFleet:
     def fleet_scores(
         self, inputs: Dict[str, np.ndarray]
     ) -> Tuple[Dict[str, Tuple[np.ndarray, np.ndarray]], Dict[str, Exception]]:
-        """Score many models, one launch per spec bucket: ``inputs[name]``
+        """Score many models, one K2 launch per spec bucket: ``inputs[name]``
         are raw rows; returns ``({name: (reconstruction, per-row mse)},
-        {name: error})``. One broken model never takes the batch down."""
+        {name: error})``. The mse is against the raw rows, over the first
+        ``min(F_out, F)`` columns (the JAX store's ``mse_vs_raw`` rule). One
+        broken model never takes the batch down."""
         errors: Dict[str, Exception] = {}
         by_spec: Dict[FeedForwardSpec, List[str]] = {}
         for name in inputs:
@@ -296,16 +300,12 @@ class RevisionFleet:
             for i, n in enumerate(names):
                 X[i, : raw[n].shape[0]] = raw[n]
             x = torch.from_numpy(X).to(self.device)
-            if names == bucket_names:
-                recon = fleet_forward(spec, stacked, x, ingest=ingest)
-            else:
-                indices = [bucket_names.index(n) for n in names]
-                recon = fleet_forward_gather(spec, stacked, indices, x, ingest=ingest)
-            recon = recon.cpu().numpy()
+            indices = None if names == bucket_names else [bucket_names.index(n) for n in names]
+            recon, mse = fleet_anomaly_scores(spec, stacked, x, x, indices, ingest)
+            recon, mse = recon.cpu().numpy(), mse.cpu().numpy()
             for i, n in enumerate(names):
-                r = recon[i, : raw[n].shape[0]]
-                width = min(r.shape[-1], raw[n].shape[-1])
-                out[n] = (r, ((r[:, :width] - raw[n][:, :width]) ** 2).mean(axis=-1))
+                rows = raw[n].shape[0]
+                out[n] = (recon[i, :rows], mse[i, :rows])
         return out, errors
 
 
@@ -316,6 +316,12 @@ class FleetModelStore:
         self.collection_dir = collection_dir
         self.device = device
         self._fleet = RevisionFleet(collection_dir, device)
+
+    def route(self, collection_dir: str) -> str:
+        """The revision directory that serves ``collection_dir``: itself.
+        (The JAX store also redirects here for hot-swaps and canaries,
+        which belong to the lifecycle and are not ported.)"""
+        return collection_dir
 
     def fleet(self) -> RevisionFleet:
         return self._fleet

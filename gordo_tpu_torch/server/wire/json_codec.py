@@ -46,6 +46,10 @@ class Frame:
     def __len__(self) -> int:
         return len(self.index)
 
+    def __getitem__(self, rows: slice) -> "Frame":
+        """The rows ``rows`` (a slice) as a frame sharing ``values``."""
+        return Frame(self.index[rows], self.columns, self.values[rows])
+
 
 def _parse_index(keys: Sequence[str]) -> List[Any]:
     """ISO datetimes when every key parses as one, else integers."""

@@ -1,0 +1,74 @@
+"""
+Environment-knob parsing: the three typed readers the streaming plane
+and its breakers use, a copy of ``gordo_tpu/utils/env.py``'s
+``env_int``/``env_float``/``env_bool``.
+
+Malformed values never raise: they log one warning per distinct
+``(name, value)`` pair and fall back to the call-site default.
+
+>>> import os
+>>> os.environ["GORDO_TPU_DOCTEST_KNOB"] = "not-a-number"
+>>> env_int("GORDO_TPU_DOCTEST_KNOB", 7)
+7
+>>> del os.environ["GORDO_TPU_DOCTEST_KNOB"]
+"""
+
+import logging
+import os
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+#: truthy / falsy spellings accepted by :func:`env_bool`
+_TRUE_STRINGS = frozenset(("1", "true", "on", "yes"))
+_FALSE_STRINGS = frozenset(("0", "false", "off", "no"))
+
+#: (name, raw) pairs already warned about: a malformed knob warns once,
+#: not once per read
+_warned: set = set()
+
+
+def _warn_once(name: str, raw: str, default) -> None:
+    key = (name, raw)
+    if key not in _warned:
+        _warned.add(key)
+        logger.warning("Invalid %s=%r; using %r", name, raw, default)
+
+
+def env_int(name: str, default: int) -> int:
+    """``int(os.environ[name])``, falling back to ``default``."""
+    raw = os.environ.get(name)
+    if raw:
+        try:
+            return int(raw)
+        except ValueError:
+            _warn_once(name, raw, default)
+    return default
+
+
+def env_float(name: str, default: Optional[float]) -> Optional[float]:
+    """``float(os.environ[name])``, falling back to ``default``."""
+    raw = os.environ.get(name)
+    if raw:
+        try:
+            return float(raw)
+        except ValueError:
+            _warn_once(name, raw, default)
+    return default
+
+
+def env_bool(name: str, default: bool) -> bool:
+    """``1/true/on/yes`` is True, ``0/false/off/no`` False; unset or empty
+    is ``default``; anything else warns once and falls back."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    value = raw.strip().lower()
+    if not value:
+        return default
+    if value in _TRUE_STRINGS:
+        return True
+    if value in _FALSE_STRINGS:
+        return False
+    _warn_once(name, raw, default)
+    return default

@@ -1,4 +1,5 @@
-"""K1, the fleet dense-stack CUDA kernel, against its plain version on the card.
+"""K1 and K2, the fleet dense-stack CUDA kernel and its anomaly-score
+epilogue, against their plain versions on the card.
 
 Every test here needs an NVIDIA GPU and ``nvcc``; on a machine without a
 card each one skips. The file imports neither JAX nor the JAX package, so
@@ -11,6 +12,9 @@ Tolerance: rtol 1e-5, atol 1e-5, f32 sums taken in another order than
 the plain version's ``bmm``. Both of the kernel's paths are covered:
 the register-resident one for specs at most 32 wide and the
 shared-memory one for wider specs (up to 512, chunked columns included).
+K2's per-row MSE is held to the same tolerance, with ``y`` the input rows
+themselves (the store's case), a separate ``y`` as wide as the output or
+narrower, and a NaN in ``y``.
 """
 
 import threading
@@ -21,7 +25,12 @@ import torch
 from gordo_tpu_torch.models import factories
 from gordo_tpu_torch.models.nn import init_feedforward
 from gordo_tpu_torch.ops.activations import ACTIVATION_NAMES
-from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward, fleet_feedforward_reference
+from gordo_tpu_torch.ops.fleet_dense import (
+    fleet_anomaly_scores,
+    fleet_anomaly_scores_reference,
+    fleet_feedforward,
+    fleet_feedforward_reference,
+)
 from gordo_tpu_torch.parallel.fleet import stack_member_params
 
 
@@ -131,3 +140,90 @@ def test_launch_count_is_exact_under_threads(cuda):
         thread.join()
     torch.cuda.synchronize()
     assert fleet_feedforward.launches == before + 8 * 200
+
+
+def _scores_vs_plain(device, spec, n, m, b, indices=None, ingest=False, y="x", seed=0, defines=()):
+    """K2 against its plain version; ``y`` is ``"x"`` (X itself), ``"same"``
+    (a separate y as wide as the output), ``"narrower"`` (F_y < F_out) or
+    ``"nan"`` (a separate y with a NaN)."""
+    gen = torch.Generator().manual_seed(seed)
+    bucket = stack_member_params([init_feedforward(spec, gen) for _ in range(n)], device)
+    X = torch.rand(m, b, spec.n_features, generator=gen).to(device)
+    plan = None
+    if ingest:
+        plan = (torch.rand(n, spec.n_features, generator=gen).to(device) * 2,
+                torch.rand(n, spec.n_features, generator=gen).to(device) - 0.5)
+    if y == "x":
+        target = X
+    else:
+        width = spec.n_features_out - (3 if y == "narrower" else 0)
+        target = torch.rand(m, b, width, generator=gen).to(device)
+        if y == "nan":
+            target[0, b // 2, 1] = float("nan")
+    launches, k1_launches = fleet_anomaly_scores.launches, fleet_feedforward.launches
+    recon, mse = fleet_anomaly_scores(spec, bucket, X, target, indices, plan, defines=defines)
+    torch.cuda.synchronize()
+    assert fleet_anomaly_scores.launches == launches + 1
+    assert fleet_feedforward.launches == k1_launches  # K2 counts as K2 alone
+    expected_recon, expected_mse = fleet_anomaly_scores_reference(spec, bucket, X, target, indices, plan)
+    torch.testing.assert_close(recon, expected_recon, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(mse, expected_mse, rtol=1e-5, atol=1e-5, equal_nan=True)
+    if y == "nan":
+        assert torch.isnan(mse[0, b // 2]) and int(torch.isnan(mse).sum()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "same", "narrower", "nan"])
+@pytest.mark.parametrize("spec_name", ["hourglass", "model"], ids=["narrow", "wide"])
+def test_scores_match_plain_on_card(cuda, spec_name, y):
+    spec = factories.feedforward_hourglass(20) if spec_name == "hourglass" else factories.feedforward_model(20)
+    _scores_vs_plain(cuda, spec, 8, 8, 1008, ingest=y == "x", y=y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 50, 129])
+@pytest.mark.parametrize("n_features", [7, 40], ids=["narrow", "wide"])
+def test_scores_ragged_tiles_on_card(cuda, n_features, rows):
+    _scores_vs_plain(cuda, factories.feedforward_hourglass(n_features), 2, 2, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "narrower"])
+@pytest.mark.parametrize("n_features", [20, 40], ids=["narrow", "wide"])
+def test_scores_gather_ingest_on_card(cuda, n_features, y):
+    """Gather indices with repeats; y stays row-aligned with X."""
+    _scores_vs_plain(cuda, factories.feedforward_hourglass(n_features), 10, 6, 301,
+                     indices=[3, 3, 0, 9, 3, 1], ingest=True, y=y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "narrower"])
+def test_scores_wide_only_build_on_card(cuda, y):
+    _scores_vs_plain(cuda, factories.feedforward_hourglass(20), 8, 8, 1008, ingest=True, y=y,
+                     defines=("FLEET_DENSE_WIDE_ONLY",))
+
+
+@pytest.mark.cuda
+def test_store_scores_launch_k2_on_card(cuda, tmp_path):
+    """``fleet_scores`` on the card launches K2 once per spec bucket and
+    answers what the CPU store answers."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.models.estimators import TorchAutoEncoder
+    from gordo_tpu_torch.models.nn import params_to_numpy
+    from gordo_tpu_torch.server.fleet_store import RevisionFleet
+
+    spec = factories.feedforward_hourglass(6)
+    for i in range(3):
+        params = params_to_numpy(init_feedforward(spec, torch.Generator().manual_seed(i)))
+        serializer.dump(TorchAutoEncoder(spec, params, device="cpu"), str(tmp_path / f"m-{i}"), {"name": f"m-{i}"})
+    rng = np.random.RandomState(0)
+    inputs = {f"m-{i}": rng.rand(10 + i, 6).astype(np.float32) for i in (2, 0)}
+    launches = fleet_anomaly_scores.launches
+    scores, errors = RevisionFleet(str(tmp_path), cuda).fleet_scores(inputs)
+    assert fleet_anomaly_scores.launches == launches + 1 and not errors
+    expected, _ = RevisionFleet(str(tmp_path), torch.device("cpu")).fleet_scores(inputs)
+    for name, (recon, mse) in expected.items():
+        np.testing.assert_allclose(scores[name][0], recon, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(scores[name][1], mse, rtol=1e-5, atol=1e-5)

@@ -45,5 +45,10 @@ def test_the_check_sees_imports():
 
 def test_package_has_modules():
     names = {p.relative_to(REPO / "gordo_tpu_torch").as_posix() for p in FILES[:-1]}
-    for expected in ("ops/fleet_dense.py", "server/app.py", "models/nn.py", "serializer/serializer.py"):
+    for expected in (
+        "ops/fleet_dense.py", "server/app.py", "models/nn.py", "serializer/serializer.py",
+        "utils/env.py", "utils/faults.py", "serve/ladder.py", "serve/breaker.py",
+        "stream/events.py", "stream/ring.py", "stream/session.py", "stream/telemetry.py",
+        "stream/scorer.py", "stream/plane.py", "server/views/stream.py",
+    ):
         assert expected in names

@@ -315,6 +315,30 @@ def test_store_bucket_and_ingest_plan_match_jax(collections):
     np.testing.assert_allclose(offset.numpy(), np.asarray(jax_plan.offset), rtol=1e-7, atol=1e-7)
 
 
+@pytest.mark.parametrize("names", [["machine-1", "machine-2", "machine-3"], ["machine-3", "machine-1"]],
+                         ids=["whole-bucket", "gather"])
+def test_fleet_scores_match_jax(collections, names):
+    """The store's K2 launch (its plain version here) against the JAX
+    store's forward and ``mse_vs_raw``: raw rows in, the mse against them;
+    a NaN reading makes its row's mse NaN on both."""
+    from gordo_tpu.server.fleet_store import RevisionFleet as JaxRevisionFleet
+    from gordo_tpu_torch.server.fleet_store import RevisionFleet
+
+    jax_dir, port_dir = collections
+    rng = np.random.RandomState(8)
+    inputs = {name: (rng.rand(11 + 3 * i, 4) * 2 - 0.5).astype(np.float32) for i, name in enumerate(names)}
+    inputs[names[0]][5, 1] = np.nan
+    expected, jax_errors = JaxRevisionFleet(jax_dir).fleet_scores(inputs)
+    got, errors = RevisionFleet(port_dir, torch.device("cpu")).fleet_scores(inputs)
+    assert errors == jax_errors == {}
+    assert list(got) == sorted(names)
+    for name in names:
+        recon, mse = got[name]
+        np.testing.assert_allclose(recon, expected[name][0], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(mse, expected[name][1], rtol=RTOL, atol=ATOL)
+        assert mse.dtype == np.float32 and np.isnan(mse).sum() == (name == names[0])
+
+
 @pytest.mark.parametrize(
     "keys",
     [
@@ -389,3 +413,154 @@ def test_port_app_runs_over_a_socket(collections):
         server.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+# -- the streaming plane -----------------------------------------------------------
+
+
+@pytest.fixture
+def stream_clients(clients, collections, monkeypatch):
+    """The JAX client with a fresh process-global plane and standalone
+    breaker board (no engine), and a fresh port app: window 8 rows,
+    breakers that trip on one failure and cool down for 3 s."""
+    from gordo_tpu import serve as jax_serve
+    from gordo_tpu.stream import reset_plane
+
+    for name, value in [
+        ("GORDO_TPU_STREAM_WINDOW_ROWS", "8"),
+        ("GORDO_TPU_STREAM_HEARTBEAT_S", "0.05"),
+        ("GORDO_TPU_BREAKER_THRESHOLD", "1"),
+        ("GORDO_TPU_BREAKER_COOLDOWN_S", "3.0"),
+        ("GORDO_TPU_BREAKER_BACKOFF", "1.0"),
+    ]:
+        monkeypatch.setenv(name, value)
+    engine = jax_serve.get_engine()
+    jax_serve.install_engine(None)
+    jax_serve.reset_stream_breakers()
+    reset_plane()
+    try:
+        yield clients[0], Client(build_app(collections[1], device="cpu"))
+    finally:
+        reset_plane()
+        jax_serve.reset_stream_breakers()
+        jax_serve.install_engine(engine)
+
+
+def _sse(body: bytes):
+    """``(id, event, data)`` of every event frame; heartbeats left out."""
+    frames = []
+    for frame in body.decode().split("\n\n"):
+        if not frame or frame.startswith(":"):
+            continue
+        fields = dict(line.split(": ", 1) for line in frame.split("\n"))
+        frames.append((fields.get("id"), fields["event"], json.loads(fields["data"])))
+    return frames
+
+
+def _events(client, stream, max_events):
+    url = f"/gordo/v0/{PROJECT}/stream/{stream}/events?max_events={max_events}&idle_timeout_s=0.1"
+    response = client.get(url)
+    assert response.status_code == 200
+    assert response.headers["Content-Type"].startswith("text/event-stream")
+    return _sse(response.get_data())
+
+
+def _same_events(expected, got, drop=()):
+    assert [(i, k) for i, k, _ in got] == [(i, k) for i, k, _ in expected]
+    for (_, _, want), (_, _, have) in zip(expected, got):
+        _assert_same({k: v for k, v in want.items() if k not in drop},
+                     {k: v for k, v in have.items() if k not in drop})
+
+
+def test_stream_matches_jax(stream_clients):
+    """Ingest, watermark flushes (snapped to the row ladder), the SSE feed,
+    status and close: the same acks and events from both servers."""
+    jax_client, port_client = stream_clients
+    url = f"/gordo/v0/{PROJECT}/stream/s1"
+    batches = [
+        {"machine-1": _frame(TAGS["machine-1"], 20, seed=30), "machine-2": _frame(TAGS["machine-2"], 13, seed=31),
+         "machine-3": _frame(TAGS["machine-3"], 5, seed=32), "no-such-machine": _frame(TAGS["machine-1"], 4, seed=33)},
+        {"machine-1": _frame(TAGS["machine-1"], 9, seed=34, start_minute=200),
+         "machine-3": _frame(TAGS["machine-3"], 40, seed=35, start_minute=50)},
+    ]
+    launches = fleet_feedforward.launches
+    for X in batches:
+        jax_status, jax_ack = _post(jax_client, url + "/ingest", {"X": X})
+        status, ack = _post(port_client, url + "/ingest", {"X": X})
+        assert (status, jax_status) == (200, 200)
+        assert ack == jax_ack
+    assert ack["scored"] == {"machine-1": 8, "machine-3": 32}  # 45 pending rows snap to 32
+    assert fleet_feedforward.launches == launches  # the CPU runs the plain version
+    expected = _events(jax_client, "s1", 8)
+    got = _events(port_client, "s1", 8)
+    _same_events(expected, got)
+    assert [k for _, k, _ in got] == ["open"] + ["anomaly"] * 4
+    assert got[1][2]["mse_mean"] is not None and got[1][2]["revision"] == REVISION
+    status_url = f"/gordo/v0/{PROJECT}/stream/status"
+    jax_status = json.loads(jax_client.get(status_url).get_data())
+    status = json.loads(port_client.get(status_url).get_data())
+    assert status["sessions"][f"{PROJECT}/s1"]["accounting"] == jax_status["sessions"][f"{PROJECT}/s1"]["accounting"]
+    for client in (jax_client, port_client):
+        assert client.delete(url).status_code == 200
+        assert client.delete(f"/gordo/v0/{PROJECT}/stream/nope").status_code == 404
+    assert _events(port_client, "s1", 100)[-1][1] == "end"
+    assert _post(port_client, url + "/ingest", {"X": batches[0]})[0] == 410
+    assert _post(jax_client, url + "/ingest", {"X": batches[0]})[0] == 410
+
+
+def test_stream_quarantine_and_recovery_match_jax(stream_clients):
+    """A member poisoned at the ``stream_score`` fault site errors, is
+    quarantined while the others keep scoring, and recovers with its
+    backlog as one span, on both servers."""
+    import time
+
+    from gordo_tpu.utils import faults as jax_faults
+    from gordo_tpu_torch.utils import faults
+
+    jax_client, port_client = stream_clients
+    url = f"/gordo/v0/{PROJECT}/stream/s2/ingest"
+
+    def ingest(step):
+        X = {name: _frame(tags, 8, seed=40 + step, start_minute=80 * step) for name, tags in TAGS.items()}
+        jax_ack, ack = _post(jax_client, url, {"X": X})[1], _post(port_client, url, {"X": X})[1]
+        assert ack.keys() == jax_ack.keys()
+        assert list(ack.pop("quarantined")) == list(jax_ack.pop("quarantined"))  # values: the cooldown left
+        assert ack == jax_ack
+        return ack
+
+    rules = (jax_faults.FaultRule("stream_score", match="s2:machine-2", times=None),
+             faults.FaultRule("stream_score", match="s2:machine-2", times=None))
+    with jax_faults.inject(rules[0]), faults.inject(rules[1]):
+        assert ingest(0)["score_errors"] == {"machine-2": "FaultInjected"}
+        assert "machine-2" not in ingest(1)["scored"]  # quarantined: buffered, not cut
+    time.sleep(3.1)  # past the cooldown: the next flush is the probe
+    assert ingest(2)["scored"] == {"machine-1": 8, "machine-2": 16, "machine-3": 8}
+    expected, got = _events(jax_client, "s2", 20), _events(port_client, "s2", 20)
+    _same_events(expected, got, drop=("retry_after_s",))
+    kinds = [(k, d.get("machine")) for _, k, d in got]
+    assert ("error", "machine-2") in kinds and ("quarantined", "machine-2") in kinds
+    assert ("recovered", "machine-2") in kinds
+    backlog = [d for _, k, d in got if k == "anomaly" and d["machine"] == "machine-2"]
+    assert [(d["first_seq"], d["last_seq"], d["windows"]) for d in backlog] == [(9, 24, 2)]
+
+
+def test_stream_statuses(stream_clients, monkeypatch):
+    _, port_client = stream_clients
+    base = f"/gordo/v0/{PROJECT}/stream"
+    assert _post(port_client, f"{base}/bad id!/ingest", {"X": {}})[0] == 400
+    assert _post(port_client, f"{base}/s3/ingest", {"X": {}})[0] == 400
+    response = port_client.post(f"{base}/s3/ingest", data=b"ARROW1\x00", content_type="application/vnd.apache.arrow.stream")
+    assert response.status_code == 400  # Arrow bodies are not ported yet
+    assert port_client.get(f"{base}/s3/events?cursor=x").status_code == 400
+    monkeypatch.setenv("GORDO_TPU_STREAM_MAX_SESSIONS", "1")
+    capped = Client(build_app(port_client.application.store.collection_dir, device="cpu"))
+    assert _post(capped, f"{base}/a/ingest", {"X": {"machine-1": _frame(TAGS["machine-1"], 4, seed=1)}})[0] == 200
+    response = capped.post(f"{base}/b/ingest", data=json.dumps({"X": {}}), content_type="application/json")
+    assert response.status_code == 429 and response.headers["Retry-After"] == "1"
+    capped.application.plane.drain()
+    response = capped.post(f"{base}/c/ingest", data=json.dumps({"X": {}}), content_type="application/json")
+    assert response.status_code == 503 and response.headers["Retry-After"] == "1"
+    monkeypatch.setenv("GORDO_TPU_STREAM_ENABLED", "0")
+    off = Client(build_app(port_client.application.store.collection_dir, device="cpu"))
+    assert _post(off, f"{base}/a/ingest", {"X": {}})[0] == 503
+    assert json.loads(off.get(f"{base}/status").get_data())["enabled"] is False
