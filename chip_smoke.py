@@ -37,9 +37,22 @@ request must launch it (``[serve]``); and ``[stream]`` drives the
 streaming plane over the socket on the same 64 machines with 64-row
 watermark windows: one ingest of 1008 rows a machine and three of 64,
 the SSE feed and the close, each answer equal to the CPU app's, K2
-launched by every flush. ``[times]`` times K2 at three shapes against
+launched by every flush. ``[times]`` times K2 at four shapes against
 its plain version, a ``baddbmm`` chain plus ``torch.square(out - y).mean(-1)``,
 K1 alone at the same shape, and its bound.
+
+The narrow kernel's persistent loop has cases of its own, K1 and K2 (y =
+X, a separate y, a NaN in y): many tiles a member (2 x 52,560 rows), more
+tiles than resident blocks (2000 x 144), one member (1 x 1 and 1 x 1008),
+and gather patterns in which a member leaves a block and comes back.
+``[occupancy]`` prints the narrow kernel's launch at the hourglass(20)
+shapes: lanes a row, shared memory, blocks an SM and grid. ``[times]``
+prints the launch floor (a one-element ``zero_``) beside each served
+shape and K1 at the served anomaly shape with its indices already on the
+card, so the index copy shows apart. Where M x B rows make fewer tiles
+than the card has SMs, the narrow kernel shares each row among lanes;
+``[split]`` times that against the build with ``FLEET_DENSE_NO_SPLIT``,
+which ``[kernel]`` also holds against the plain version.
 
 It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
@@ -75,6 +88,15 @@ STREAM_SCORED = (512, 512, 64, 64)
 TIMED = 5  # the first cases of kernel_cases(): the full widths and the served shapes
 #: the build of K1 that sends narrow specs through the wide kernel
 WIDE_ONLY = ("FLEET_DENSE_WIDE_ONLY",)
+#: the build of K1 whose narrow kernel never shares a row among lanes
+NO_SPLIT = ("FLEET_DENSE_NO_SPLIT",)
+#: the cases in which the narrow kernel shares each row among lanes (fewer
+#: tiles than SMs), timed against NO_SPLIT
+SPLIT_CASES = (
+    "served anomaly: hourglass20 gather M=1 B=1008 +ingest",
+    "one member: hourglass20 gather M=1 B=1008",
+    "one row: hourglass20 gather M=1 B=1",
+)
 #: the hourglass(20) cases that the narrow kernel takes, timed against WIDE_ONLY
 NARROW_CASES = (
     "hourglass20 M=1000 B=1008",
@@ -203,7 +225,37 @@ def kernel_cases():
                 encoding_func=(name,), decoding_func=("tanh",), out_func=name,
             )
             cases[f"activation {name}, hidden {hidden}"] = make_case(spec, 3, 3, 37, seed=10 + i)
+    # the narrow kernel's persistent loop: every B below leaves a ragged
+    # last tile in each member's span
+    cases.update({
+        "many tiles a member: hourglass20 M=2 B=52560": make_case(hourglass, 2, 2, 52_560, seed=60),
+        "more tiles than blocks: hourglass20 M=N=2000 B=144": make_case(hourglass, 2000, 2000, 144, seed=61),
+        "one row: hourglass20 gather M=1 B=1": make_case(hourglass, 8, 1, 1, indices=[5], ingest=True, seed=62),
+        "one member: hourglass20 gather M=1 B=1008": make_case(hourglass, 8, 1, ROWS, indices=[5], seed=63),
+        "member returns: hourglass20 N=10 M=1200 B=144 [3,3,0,9,3,1]": make_case(
+            hourglass, 10, 1200, 144, indices=GATHER_6 * 200, ingest=True, seed=64),
+        "member returns: hourglass20 N=10 M=1024 B=144 64-long pattern": make_case(
+            hourglass, 10, 1024, 144, indices=GATHER_64 * 16, ingest=True, seed=65),
+    })
     return cases
+
+
+#: gather patterns in which a member repeats in neighbouring and in distant
+#: batch rows, so a block that walks several rows sees its member change
+#: and come back
+GATHER_6 = [3, 3, 0, 9, 3, 1]
+GATHER_64 = [5 if i % 3 == 0 else (i // 2) % 5 * 2 for i in range(64)]
+#: K1 cases that K2 also takes, each with y = X, a separate y and a NaN in y
+K2_LOOP_CASES = (
+    "served anomaly: hourglass20 gather M=1 B=1008 +ingest",
+    "many tiles a member: hourglass20 M=2 B=52560",
+    "more tiles than blocks: hourglass20 M=N=2000 B=144",
+    "one row: hourglass20 gather M=1 B=1",
+    "one member: hourglass20 gather M=1 B=1008",
+    "gather repeats: hourglass20 N=10 M=6 B=301",
+    "member returns: hourglass20 N=10 M=1200 B=144 [3,3,0,9,3,1]",
+    "member returns: hourglass20 N=10 M=1024 B=144 64-long pattern",
+)
 
 
 def scores_case(case, y="x", seed=0):
@@ -241,11 +293,12 @@ def compare_scores(case, defines=()):
     for got, expected in ((recon, expected_recon), (mse, expected_mse)):
         keep = ~torch.isnan(expected)
         got, expected = got[keep], expected[keep]
+        if not expected.numel():  # one row, and its target has the NaN
+            continue
         diff = (got - expected).abs()
         check(bool(torch.allclose(got, expected, rtol=RTOL, atol=ATOL)),
               f"K2 disagrees with the plain version: max abs {float(diff.max())}")
-        if diff.numel():
-            worst = max(worst, (float(diff.max()), float((diff / expected.abs().clamp_min(1e-6)).max())))
+        worst = max(worst, (float(diff.max()), float((diff / expected.abs().clamp_min(1e-6)).max())))
     return worst
 
 
@@ -274,6 +327,10 @@ def k2_cases(cases):
         k2[f"K2 gather repeats {path}: hourglass{gathered} N=10 M=6 B=301 y=X +ingest"] = scores_case(gather)
         k2[f"K2 gather repeats {path}: hourglass{gathered} N=10 M=6 B=301 y=narrower"] = scores_case(
             gather, "narrower", seed=41)
+    activations = [name for name in cases if name.startswith("activation") and name.endswith("hidden 9")]
+    for name in (*K2_LOOP_CASES, *activations):
+        for y in ("x", "same", "nan"):
+            k2[f"K2 {name} y={y}"] = scores_case(cases[name], y, seed=50)
     return k2
 
 
@@ -537,6 +594,49 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_report(log):
+    """``"<kernel>: <registers>, <spills>"`` for each entry function in
+    ``nvcc -Xptxas -v``'s output; kernels named ``narrow<S>`` (S lanes a
+    row) and ``wide<TB,NT>``."""
+    import re
+
+    report, name, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            wide = re.search(r"wide_kernelILi(\d+)ELi(\d+)", entry.group(1))
+            narrow = re.search(r"narrow_kernelILi(\d+)E", entry.group(1))
+            name = f"wide<{wide.group(1)},{wide.group(2)}>" if wide else \
+                f"narrow<{narrow.group(1)}>" if narrow else \
+                "narrow" if "narrow_kernel" in entry.group(1) else entry.group(1)
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            used = re.search(r"Used (\d+) registers", line)
+            report.append(f"{name}: {used.group(1) if used else '?'} registers, {spills}")
+            name = None
+    return report
+
+
+def narrow_plan(case):
+    """``(lanes a row, shared memory bytes a block, blocks an SM, grid)``
+    of the narrow kernel at ``case``'s shape, as its launch works them out."""
+    import ctypes
+
+    from gordo_tpu_torch.ops import _build
+
+    fn = _build.load("fleet_dense").fleet_dense_narrow_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    widths = case["spec"].widths()
+    dims = (ctypes.c_int * len(widths))(*widths)
+    M, B, _ = case["X"].shape
+    out = [ctypes.c_int() for _ in range(4)]
+    status = fn(len(widths) - 1, ctypes.cast(dims, ctypes.c_void_p), M, B, *map(ctypes.byref, out))
+    check(status == 0, f"fleet_dense_narrow_occupancy returned {status}")
+    return tuple(v.value for v in out)
+
+
 def library_chain(case):
     """cuBLAS ``baddbmm`` per layer over pre-gathered params: the library
     yardstick for the same function."""
@@ -655,11 +755,10 @@ def main():
     from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 
     t0 = time.perf_counter()
-    libraries = _build.build(variants=((), WIDE_ONLY))
+    libraries = _build.build(variants=((), WIDE_ONLY, NO_SPLIT))
     for stem, path in libraries.items():
         log = path.with_suffix(".log")
-        report = [line.strip() for line in log.read_text().splitlines() if "registers" in line or "spill" in line] \
-            if log.exists() else ["(prebuilt)"]
+        report = ptxas_report(log.read_text()) if log.exists() else ["(prebuilt)"]
         phase("build", f"{stem}: {path.name} in {time.perf_counter() - t0:.1f} s; " + " | ".join(report))
 
     cases = kernel_cases()
@@ -676,6 +775,17 @@ def main():
     for name in K2_WIDE_ONLY:
         wide_err = compare_scores(scored[name], WIDE_ONLY)
         phase("kernel", f"{name}, wide-only build: max abs {wide_err[0]:.3e}, max rel {wide_err[1]:.3e}")
+    for name in SPLIT_CASES:
+        for y in ("x", "nan"):
+            k2_name = f"K2 {name} y={y}"
+            unsplit = max(compare(cases[name], NO_SPLIT), compare_scores(scored[k2_name], NO_SPLIT))
+            phase("kernel", f"{name}, K1 and {k2_name}, no-split build: max abs {unsplit[0]:.3e}, "
+                  f"max rel {unsplit[1]:.3e}")
+    # the activation cases (3 x 37 rows) share rows among lanes; one lane a row too
+    activations = [name for name in cases if name.startswith("activation") and name.endswith("hidden 9")]
+    unsplit = max(compare(cases[name], NO_SPLIT) for name in activations)
+    phase("kernel", f"{len(activations)} activations at hidden 9, no-split build: max abs {unsplit[0]:.3e}, "
+          f"max rel {unsplit[1]:.3e}")
 
     from gordo_tpu_torch.server import build_app
     from gordo_tpu_torch.server.app import make_wsgi_server
@@ -703,18 +813,36 @@ def main():
             thread.join(timeout=30)
         check(not thread.is_alive(), "server thread did not stop")
 
+    for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
+        split, smem, per_sm, grid = narrow_plan(scored[name] if name.startswith("K2") else cases[name])
+        phase("occupancy", f"narrow kernel at {name}: {split} lanes a row, {smem} B of shared memory a block, "
+              f"{per_sm} blocks of 128 threads an SM, grid {grid}")
+
+    # what no kernel launch can beat: one launch of a one-element kernel
+    one = torch.zeros(1, device="cuda")
+    floor = cuda_ms(lambda: one.zero_())
+    phase("times", f"launch floor (a one-element zero_): {floor!r} ms; {card}")
     timed = {}
     for name in list(cases)[:TIMED]:
         timed[name] = times(cases[name])
         kernel, plain, library, bound_ms, bound_by = timed[name]
+        served = f", launch floor {floor!r} ms" if name.startswith("served") else ""
         phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms, "
-              f"bound {bound_ms!r} ms ({bound_by}); {card}")
+              f"bound {bound_ms!r} ms ({bound_by}){served}; {card}")
+    anomaly = cases[NARROW_CASES[2]]
+    on_card = torch.tensor(anomaly["indices"], dtype=torch.int32, device="cuda")
+    k1_on_card = cuda_ms(lambda: fleet_feedforward(
+        anomaly["spec"], anomaly["bucket"], anomaly["X"], on_card, anomaly["ingest"]))
+    phase("times", f"{NARROW_CASES[2]}, indices already on the card: K1 {k1_on_card!r} ms (host indices "
+          f"{timed[NARROW_CASES[2]][0]!r} ms), launch floor {floor!r} ms; {card}")
     scored_timed = {}
-    for name in list(scored)[:3]:
+    for name in list(scored)[:4]:
         scored_timed[name] = scores_times(scored[name])
         kernel, plain, library, k1, bound_ms, bound_by = scored_timed[name]
+        served = f", launch floor {floor!r} ms" if "served" in name or "stream" in name else ""
         phase("times", f"{name}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms, "
-              f"K1 alone {k1!r} ms (epilogue {kernel - k1:+.5f} ms), bound {bound_ms!r} ms ({bound_by}); {card}")
+              f"K1 alone {k1!r} ms (epilogue {kernel - k1:+.5f} ms), bound {bound_ms!r} ms ({bound_by})"
+              f"{served}; {card}")
 
     for name in NARROW_CASES:
         case = cases[name]
@@ -731,6 +859,15 @@ def main():
         wide = cuda_ms(lambda: fleet_anomaly_scores(*args, defines=WIDE_ONLY))
         phase("narrow vs wide", f"{name}: narrow kernel {narrow!r} ms, wide kernel {wide!r} ms "
               f"(wide/narrow {wide / narrow:.2f}); {card}")
+
+    for name in SPLIT_CASES:
+        case = cases[name]
+        on_card = torch.tensor(case["indices"], dtype=torch.int32, device="cuda")
+        args = (case["spec"], case["bucket"], case["X"], on_card, case["ingest"])
+        split = cuda_ms(lambda: fleet_feedforward(*args))
+        unsplit = cuda_ms(lambda: fleet_feedforward(*args, defines=NO_SPLIT))
+        phase("split", f"{name}, indices on the card: {narrow_plan(case)[0]} lanes a row {split!r} ms, "
+              f"one lane a row {unsplit!r} ms (split/one {split / unsplit:.2f}), launch floor {floor!r} ms; {card}")
 
     headline = "hourglass20 M=1000 B=1008"
     kernel, plain, library, bound_ms, bound_by = timed[headline]
@@ -750,6 +887,7 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library,
+            "launch_floor_ms": floor,
         },
         {
             "name": "fleet_anomaly_scores (K2)",
@@ -764,6 +902,7 @@ def main():
             "bound_ms": k2_bound_ms,
             "bound_by": k2_bound_by,
             "library_ms": k2_library,
+            "launch_floor_ms": floor,
         },
     ]}), flush=True)
     print(card, flush=True)

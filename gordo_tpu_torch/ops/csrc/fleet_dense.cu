@@ -22,29 +22,66 @@
 //     192,512 flops a row, ~1,000 flops a byte: bound by the f32 rate.
 //
 // How it tiles. Widths and activation codes are kernel arguments, so one
-// build serves every spec. One block per (member, tile of rows); the
-// ragged last tile is masked, not padded. The block reads its member
-// index and the params at that index itself, so no gathered copy of the
-// bucket is ever made. Two kernels, chosen by the spec's widest layer:
+// build serves every spec. A block reads its member index and the params
+// at that index itself, so no gathered copy of the bucket is ever made.
+// Two kernels, chosen by the spec's widest layer:
 //
 // Narrow specs (every width <= kNarrowWidth = 32; the production
-// hourglass is 20 wide): fleet_dense_narrow_kernel.
-//   - One thread per row, kNarrowRows rows a block. All layers' weights
-//     and biases (~6 KB for hourglass(20)) are staged into shared memory
-//     once, as the TPU kernel keeps them in VMEM; then each thread walks
-//     its row through every layer with the activations in registers: no
-//     barrier and no shared-memory activation traffic between layers.
-//   - Per k a thread reads one float4 of weights (the same address across
-//     the warp, a broadcast) for 4 FMAs, four k at a time so that four
-//     loads are in flight before their FMAs. Loops are unrolled to the
-//     32-wide maximum and leave at the real width (rounded up to 4 with
-//     zero-padded weights), so registers index statically and a 13-wide
-//     layer costs 16 steps, not 32. The activation is applied in one pass
-//     a layer, with the switch on its code outside the per-element loop.
-//   - The row tile is read and written through shared memory so that the
-//     device-memory traffic stays coalesced, and each thread's global
-//     loads of the tile and the weights are issued together.
-//
+// hourglass is 20 wide): fleet_dense_narrow_kernel<S>. A thread walks a
+// row through every layer with the activations in registers, reading the
+// member's weights from shared memory (float4 loads, the same address
+// across the warp: a broadcast). What bounds it:
+//   - Not the bytes. Exact f32 FMAs and exact tanhf on the CUDA cores
+//     (1,708 FMAs and 80 tanhf of two MUFU ops each a row of
+//     hourglass(20)) cost ~4,000 warp instructions per 32 rows, ~0.13 ms
+//     at 1000 x 1008 on 528 schedulers at 1.98 GHz even at one
+//     instruction a clock, against the ~0.05 ms byte bound; only tensor
+//     cores (3xTF32 mma for f32 accuracy) reach the bytes. Measured, it
+//     issues at about half that rate: see PERF.md.
+//   - So the kernel must keep the schedulers issuing, with no serial
+//     prologue, no block idle on its own loads and no wasted FMAs. What
+//     each choice does about it:
+//   - Persistent blocks. The grid is the SM count times the blocks an SM
+//     holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at most one
+//     block per tile. Block b takes the b-th contiguous run of the
+//     flattened (batch row m, row tile) sequence, so the tiles split
+//     evenly (within one) over the blocks whatever M and B are: at 1000
+//     x 1008 each of 528 blocks walks 15-16 tiles of 2-3 members. The
+//     ragged last tile of each member is masked, not padded.
+//   - One staging group per member change. A block stages member n's
+//     params (every layer's W, zero-padded to [d_in][ldw] with ldw =
+//     d_out rounded up to 4, its b as row d_in, and the ingest scale and
+//     offset) with one 4-byte cp.async a float, all issued together, and
+//     waits once; a warp a row, a lane a column, the rows of all layers
+//     dealt round-robin to the warps. The offsets (w_off, ldw, the first
+//     warp of each layer) are worked out on the host: no division on the
+//     device. It re-stages only when indices[m] changes, so repeated
+//     members in neighbouring batch rows share one staging.
+//   - Double-buffered row tiles. Tile t + 1's rows are in flight
+//     (cp.async, 16 bytes where the rows are 16-byte aligned) while tile
+//     t is computed, and the first tile's rows are issued before the
+//     member index is read; a new member's params are issued as soon as
+//     the last tile of the old one is computed, so they fly under its
+//     output stores. The output leaves from shared memory in coalesced
+//     16-byte stores, which the thread does not wait on. Two barriers a
+//     tile.
+//   - Many FMAs in flight, none wasted. A layer is k-outer: per k the
+//     float4 loads of weight row k feed 4 FMAs each on independent sums
+//     (4 * ldw / 4 of them), so a thread keeps up to 32 sums going
+//     instead of one chain of d_in. k runs over the real d_in; only the
+//     columns are padded to 4: 1,708 FMAs a row at hourglass(20), not
+//     1,968. The column groups ldw / 4 are a template argument chosen by
+//     a switch a layer, so every loop is unrolled with static register
+//     indices and the layer works in place on the row's registers. The
+//     activation goes four elements to a branch, so they interleave.
+//   - Few rows: S lanes a row. When M x B rows make fewer tiles than the
+//     card has SMs (one served machine), a launch waits on one row's
+//     chain of layers; then S = 4 (or 2) lanes share a row, each summing
+//     and activating a quarter of the column groups, and swap them by
+//     __shfl_sync after each layer, with tiles of 128 / S rows.
+//     Otherwise S = 1: a split costs shuffles and padding that lose
+//     wherever the card is full.
+
 // Wider specs (up to kMaxWidth = 512): fleet_dense_wide_kernel<TB>, a
 // SIMT matrix product in the style of an SGEMM, one layer after another.
 //   - TB = 64 rows a block (32 above 256 wide), 256 threads (512 above
@@ -78,13 +115,23 @@
 //     registers and sums its own squared differences; no reduction across
 //     threads. When y is X itself (the store's case: the error against the
 //     raw rows), y comes from the raw tile still in shared memory (the
-//     ingest prologue only read it), so y costs no second read.
-//     Otherwise each thread reads its row of y from global memory.
+//     ingest prologue only read it; the buffer is refilled only after the
+//     tile's last barrier), so y costs no second read. Otherwise each
+//     thread reads its row of y from global memory.
 //   - Wide kernel: the final store walks one row a warp, lanes striding
 //     the row's columns; each lane sums its squares, a warp shuffle adds
 //     them, and lane 0 writes the row's mse.
 // Padded weight columns (narrow: widths rounded up to 4; wide: chunks)
 // never enter the sum: it runs over the real columns j < w only.
+//
+// Neither kernel uses fast math, *.approx intrinsics or TF32.
+//
+// Builds for measurement only (chip_smoke.py, scripts/narrow_ablation.py):
+// -DFLEET_DENSE_WIDE_ONLY sends narrow specs to the wide kernel;
+// -DFLEET_DENSE_NO_SPLIT never shares a row among lanes; and
+// -DFLEET_DENSE_SKIP_FMAS / -DFLEET_DENSE_SKIP_ACTIVATIONS leave the
+// narrow kernel's layer sums or activations out, computing wrong answers
+// on purpose, so that the time of each part shows apart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,7 +141,8 @@ namespace {
 constexpr int kMaxLayers = 32;
 constexpr int kMaxWidth = 512;
 constexpr int kNarrowWidth = 32;
-constexpr int kNarrowRows = 128;
+constexpr int kNarrowThreads = 128;  // threads a block of the narrow kernel
+constexpr int kNarrowWarps = kNarrowThreads / 32;
 constexpr int kWideKC = 16;  // weight rows a chunk
 
 // Must match gordo_tpu_torch/ops/activations.py ACTIVATION_CODES.
@@ -134,9 +182,11 @@ struct Layer {
   int d_in;
   int d_out;
   int act;
-  int ldw;    // narrow kernel: d_out rounded up to 4, the staged row length
-  int w_off;  // narrow kernel: offsets of the staged W and b, in floats
-  int b_off;
+  // narrow kernel, worked out on the host:
+  int ldw;    // d_out rounded up to 4, the staged row length
+  int w_off;  // offset of the staged W, in floats; b is its row d_in
+  int warp0;  // the warp that stages row 0 (the rows of all layers are
+              // dealt round-robin to the warps)
 };
 
 struct Args {
@@ -151,7 +201,11 @@ struct Args {
   int F_y;
   int w;                // columns in the MSE: min(F_out, F_y)
   int tiles;            // row tiles per member
+  long long n_tiles;    // narrow kernel: M * tiles
   int ingest_off;       // narrow kernel: offset of the staged scale, offset
+  int ingest_warp;      // narrow kernel: the warp that stages scale
+  int stage_floats;     // narrow kernel: floats of the staged params
+  int x_floats;         // narrow kernel: floats of one row-tile buffer
   int act_floats;       // wide kernel: floats in one activation buffer
   int w_floats;         // wide kernel: floats in one weight chunk
   Layer layers[kMaxLayers];
@@ -247,170 +301,112 @@ __device__ __forceinline__ void softmax_row(float (&v)[kNarrowWidth], int width)
   }
 }
 
-// The layer's activation over v[0:width), one switch a layer.
-__device__ __forceinline__ void activate_layer(float (&v)[kNarrowWidth], int width, int act) {
-  if (act == kSoftmax) {
-    softmax_row(v, width);
-    return;
-  }
-  with_activation(act, [&](auto code) {
+// One layer's sums for the column groups a lane owns, with S lanes to a
+// row: lane s of a row owns groups s, s + S, ... of the layer's G groups
+// of 4 columns (with S = 1 a lane owns all of them), and
+// acc[q] = (in W + b)[4g:4g + 4] for its q-th group g. k runs over the
+// real d_in, in order; per k the lane's float4 weight loads feed 4 FMAs
+// each, on independent sums, so a thread keeps many FMAs in flight
+// rather than one chain of d_in. A lane past the last group repeats the
+// last one (its sums are never read). Staged W is [d_in][ldw], its
+// columns past d_out zero, and b is its row d_in.
+template <int G, int S>
+__device__ __forceinline__ void narrow_columns(const float (&in)[kNarrowWidth],
+                                               float4 (&acc)[kNarrowWidth / 4 / S],
+                                               const float* w, int d_in, int ldw, int s) {
+  constexpr int Q = (G + S - 1) / S;
+  int col[Q];
 #pragma unroll
-    for (int j = 0; j < kNarrowWidth; ++j) {
-      if (j >= width) break;
-      v[j] = activate(v[j], decltype(code)::value);
-    }
-  });
-}
-
-// One layer of one row, registers to registers: out = act(in W + b).
-// Staged W has its rows padded with zeros to a multiple of 4 and its
-// columns to ldw; in[k] is exactly 0 for d_in <= k < ldw of the layer
-// before, so the padded steps add exact zeros. out[j] is 0 for
-// d_out <= j < ldw, and out[j] for j >= ldw is never read.
-__device__ __forceinline__ void narrow_layer(const float (&in)[kNarrowWidth],
-                                             float (&out)[kNarrowWidth],
-                                             const float* smem, const Layer& L) {
-  const float* w = smem + L.w_off;
-  const float* bias = smem + L.b_off;
-#pragma unroll
-  for (int j = 0; j < kNarrowWidth; j += 4) {
-    if (j >= L.d_out) break;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < kNarrowWidth; k += 4) {
-      if (k >= L.d_in) break;
-      // four weight rows in flight before their 16 FMAs; k stays in order
-      float4 wv[4];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) wv[s] = *reinterpret_cast<const float4*>(w + (k + s) * L.ldw + j);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        acc.x = fmaf(in[k + s], wv[s].x, acc.x);
-        acc.y = fmaf(in[k + s], wv[s].y, acc.y);
-        acc.z = fmaf(in[k + s], wv[s].z, acc.z);
-        acc.w = fmaf(in[k + s], wv[s].w, acc.w);
-      }
-    }
-    const float4 bv = *reinterpret_cast<const float4*>(bias + j);
-    out[j + 0] = acc.x + bv.x;
-    out[j + 1] = j + 1 < L.d_out ? acc.y + bv.y : 0.f;
-    out[j + 2] = j + 2 < L.d_out ? acc.z + bv.z : 0.f;
-    out[j + 3] = j + 3 < L.d_out ? acc.w + bv.w : 0.f;
+  for (int q = 0; q < Q; ++q) {
+    col[q] = 4 * min(s + S * q, G - 1);
+    acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  activate_layer(out, L.d_out, L.act);
-}
-
-// n floats from global src to shared dst, a thread's loads in flight
-// together (float4 when both ends allow it).
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int n) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (n & 3) == 0) {
-    const float4* s = reinterpret_cast<const float4*>(src);
-    float4* d = reinterpret_cast<float4*>(dst);
-#pragma unroll 4
-    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d[i] = __ldg(s + i);
-  } else {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
-  }
-}
-
-// n floats from shared src to global dst.
-__device__ __forceinline__ void store_tile(float* dst, const float* src, int n) {
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (n & 3) == 0) {
-    const float4* s = reinterpret_cast<const float4*>(src);
-    float4* d = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d[i] = s[i];
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  }
-}
-
-__global__ void __launch_bounds__(kNarrowRows)
-    fleet_dense_narrow_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* io = smem;  // the row tile, [rows][F] in, then [rows][F_out] out
-
-  const int m = blockIdx.x / a.tiles;
-  const int tile = blockIdx.x - m * a.tiles;
-  const int row0 = tile * kNarrowRows;
-  const int rows = min(kNarrowRows, a.B - row0);
-  const int n = a.indices[m];
-
-  // Stage every layer's W, zero-padded to [ceil4(d_in)][ldw], and b.
-  for (int l = 0; l < a.n_layers; ++l) {
-    const Layer& L = a.layers[l];
-    const float* __restrict__ W = L.W + (size_t)n * L.d_in * L.d_out;
-    float* w = smem + L.w_off;
-    const int count = (L.d_in + 3) / 4 * 4 * L.ldw;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < count; i += kNarrowRows) {
-      const int k = i / L.ldw;
-      const int j = i - k * L.ldw;
-      w[i] = k < L.d_in && j < L.d_out ? __ldg(W + k * L.d_out + j) : 0.f;
-    }
-    if (threadIdx.x < L.ldw) {
-      smem[L.b_off + threadIdx.x] =
-          threadIdx.x < L.d_out ? __ldg(L.b + (size_t)n * L.d_out + threadIdx.x) : 0.f;
-    }
-  }
-  float* sc = smem + a.ingest_off;
-  float* of = sc + kNarrowWidth;
-  if (a.scale && threadIdx.x < a.F) {
-    sc[threadIdx.x] = __ldg(a.scale + (size_t)n * a.F + threadIdx.x);
-    of[threadIdx.x] = __ldg(a.offset + (size_t)n * a.F + threadIdx.x);
-  }
-  load_tile(io, a.X + ((size_t)m * a.B + row0) * a.F, rows * a.F);
-  __syncthreads();
-
-  const int r = threadIdx.x;
-  float h[kNarrowWidth], t[kNarrowWidth];
 #pragma unroll
   for (int k = 0; k < kNarrowWidth; ++k) {
-    h[k] = 0.f;
-    t[k] = 0.f;
-  }
-  if (r < rows) {
+    if (k >= d_in) break;
+#ifdef FLEET_DENSE_SKIP_FMAS
+    break;
+#endif
+    float4 wv[Q];
 #pragma unroll
-    for (int k = 0; k < kNarrowWidth; ++k) {
-      if (k >= a.F) break;
-      float v = io[r * a.F + k];
-      // multiply then add, each rounded, as the plain version does
-      if (a.scale) v = __fadd_rn(__fmul_rn(v, sc[k]), of[k]);
-      h[k] = v;
+    for (int q = 0; q < Q; ++q) wv[q] = *reinterpret_cast<const float4*>(w + k * ldw + col[q]);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      acc[q].x = fmaf(in[k], wv[q].x, acc[q].x);
+      acc[q].y = fmaf(in[k], wv[q].y, acc[q].y);
+      acc[q].z = fmaf(in[k], wv[q].z, acc[q].z);
+      acc[q].w = fmaf(in[k], wv[q].w, acc[q].w);
     }
   }
-
-  for (int l = 0; l < a.n_layers; ++l) {
-    narrow_layer(h, t, smem, a.layers[l]);
+  const float* bias = w + d_in * ldw;
 #pragma unroll
-    for (int k = 0; k < kNarrowWidth; ++k) h[k] = t[k];
+  for (int q = 0; q < Q; ++q) {
+    const float4 bv = *reinterpret_cast<const float4*>(bias + col[q]);
+    acc[q].x += bv.x;
+    acc[q].y += bv.y;
+    acc[q].z += bv.z;
+    acc[q].w += bv.w;
   }
+}
 
-  if (a.mse && r < rows) {
-    // K2's epilogue, before io is overwritten: y = X is the raw row in io
-    const float* y = a.y == a.X ? io + r * a.F : a.y + ((size_t)m * a.B + row0 + r) * a.F_y;
-    float sum = 0.f;
+// One layer of one row, in place in registers: h = act(h W + b), every
+// lane of the row ending with the whole of h. The column groups G = ldw /
+// 4 are a template argument, so every loop is unrolled with static
+// register indices. Each lane applies the activation to its own groups,
+// four elements to a branch so that they interleave (the columns past
+// d_out are activated too, and never read); with S > 1 the lanes then
+// swap their groups by __shfl_sync. Softmax, a reduction over the row,
+// runs after the swap.
+template <int S>
+__device__ __forceinline__ void narrow_layer(float (&h)[kNarrowWidth], const float* smem,
+                                             const Layer& L, int s) {
+  constexpr int QMAX = kNarrowWidth / 4 / S;
+  float4 acc[QMAX];
+  const float* w = smem + L.w_off;
+  const int groups = L.ldw >> 2;
+  switch (groups) {
+    case 1: narrow_columns<1, S>(h, acc, w, L.d_in, L.ldw, s); break;
+    case 2: narrow_columns<2, S>(h, acc, w, L.d_in, L.ldw, s); break;
+    case 3: narrow_columns<3, S>(h, acc, w, L.d_in, L.ldw, s); break;
+    case 4: narrow_columns<4, S>(h, acc, w, L.d_in, L.ldw, s); break;
+    case 5: narrow_columns<5, S>(h, acc, w, L.d_in, L.ldw, s); break;
+    case 6: narrow_columns<6, S>(h, acc, w, L.d_in, L.ldw, s); break;
+    case 7: narrow_columns<7, S>(h, acc, w, L.d_in, L.ldw, s); break;
+    default: narrow_columns<8, S>(h, acc, w, L.d_in, L.ldw, s); break;
+  }
+#ifdef FLEET_DENSE_SKIP_ACTIVATIONS
+  const int act = kLinear;
+#else
+  const int act = L.act;
+#endif
+  if (act != kSoftmax) {
+    with_activation(act, [&](auto code) {
 #pragma unroll
-    for (int j = 0; j < kNarrowWidth; ++j) {
-      if (j >= a.w) break;
-      const float d = h[j] - y[j];
-      sum = fmaf(d, d, sum);
+      for (int q = 0; q < QMAX; ++q) {
+        if (q * S >= groups) break;
+        acc[q].x = activate(acc[q].x, decltype(code)::value);
+        acc[q].y = activate(acc[q].y, decltype(code)::value);
+        acc[q].z = activate(acc[q].z, decltype(code)::value);
+        acc[q].w = activate(acc[q].w, decltype(code)::value);
+      }
+    });
+  }
+#pragma unroll
+  for (int g = 0; g < kNarrowWidth / 4; ++g) {
+    if (g >= groups) break;
+    float4 v = acc[g / S];
+    if (S > 1) {
+      v.x = __shfl_sync(0xffffffffu, v.x, g % S, S);
+      v.y = __shfl_sync(0xffffffffu, v.y, g % S, S);
+      v.z = __shfl_sync(0xffffffffu, v.z, g % S, S);
+      v.w = __shfl_sync(0xffffffffu, v.w, g % S, S);
     }
-    a.mse[(size_t)m * a.B + row0 + r] = sum / (float)a.w;
+    h[4 * g + 0] = v.x;
+    h[4 * g + 1] = v.y;
+    h[4 * g + 2] = v.z;
+    h[4 * g + 3] = v.w;
   }
-
-  __syncthreads();  // every thread has read its input row out of io
-  if (r < rows) {
-    float* row = io + r * a.F_out;
-#pragma unroll
-    for (int j = 0; j < kNarrowWidth; ++j) {
-      if (j >= a.F_out) break;
-      row[j] = h[j];
-    }
-  }
-  __syncthreads();
-  store_tile(a.out + ((size_t)m * a.B + row0) * a.F_out, io, rows * a.F_out);
+  if (act == kSoftmax) softmax_row(h, L.d_out);
 }
 
 // cp.async (sm_80 and later): a 4-byte global-to-shared copy that does
@@ -422,6 +418,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
                "r"(valid ? 4 : 0));
 }
 
+// The same for 16 bytes; both ends 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -429,6 +431,173 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Member n's params into the staging area, every copy in flight together
+// (the caller commits the group): each layer's W rows and then b as its
+// row d_in, zeros past d_out, and the ingest scale and offset. A warp a
+// row, a lane a column; row i of a layer goes to warp (warp0 + i) % 4.
+__device__ __forceinline__ void stage_member(float* smem, const Args& a, int n) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const Layer& L = a.layers[l];
+    if (lane >= L.ldw) continue;
+    const bool valid = lane < L.d_out;
+    const int col = valid ? lane : 0;
+    const float* W = L.W + (size_t)n * L.d_in * L.d_out + col;
+    const float* b = L.b + (size_t)n * L.d_out + col;
+    float* dst = smem + L.w_off + lane;
+    for (int k = (warp - L.warp0) & (kNarrowWarps - 1); k <= L.d_in; k += kNarrowWarps) {
+      cp_async4(dst + k * L.ldw, k < L.d_in ? W + k * L.d_out : b, valid);
+    }
+  }
+  if (a.scale && lane < a.F) {
+    if (warp == a.ingest_warp) {
+      cp_async4(smem + a.ingest_off + lane, a.scale + (size_t)n * a.F + lane, true);
+    }
+    if (warp == ((a.ingest_warp + 1) & (kNarrowWarps - 1))) {
+      cp_async4(smem + a.ingest_off + kNarrowWidth + lane, a.offset + (size_t)n * a.F + lane, true);
+    }
+  }
+}
+
+// n floats from global src to shared dst (16-byte aligned) with cp.async,
+// 16 bytes a copy where src is 16-byte aligned too.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int n) {
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i + 4 <= n; i += 4 * kNarrowThreads) cp_async16(dst + i, src + i);
+    i0 = n & ~3;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += kNarrowThreads) cp_async4(dst + i, src + i, true);
+}
+
+// n floats from shared src (16-byte aligned) to global dst, 16 bytes a
+// store where dst is 16-byte aligned too.
+__device__ __forceinline__ void store_rows(float* dst, const float* src, int n) {
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i + 4 <= n; i += 4 * kNarrowThreads) {
+      *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+    }
+    i0 = n & ~3;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += kNarrowThreads) dst[i] = src[i];
+}
+
+// The tile's rows through every layer, S lanes to a row: lane s of row
+// threadIdx.x / S (raw values in xtile, `rows` of them valid). The
+// reconstruction goes to the output tile in shared memory and, for K2,
+// each row's mse straight to device memory, both from lane 0 of the
+// row. A lane past the ragged end repeats the last row (the lanes of a
+// warp all take part in every __shfl_sync) and stores nothing.
+template <int S>
+__device__ __forceinline__ void narrow_rows(const Args& a, const float* smem, const float* xtile,
+                                            float* otile, int m, int row0, int rows) {
+  const int r = min((int)threadIdx.x / S, rows - 1);
+  const int s = threadIdx.x % S;
+  const float* x = xtile + r * a.F;
+  float h[kNarrowWidth];
+#pragma unroll
+  for (int k = 0; k < kNarrowWidth; ++k) h[k] = 0.f;
+  const float* sc = smem + a.ingest_off;
+  const float* of = sc + kNarrowWidth;
+#pragma unroll
+  for (int k = 0; k < kNarrowWidth; ++k) {
+    if (k >= a.F) break;
+    // multiply then add, each rounded, as the plain version does
+    h[k] = a.scale ? __fadd_rn(__fmul_rn(x[k], sc[k]), of[k]) : x[k];
+  }
+
+  for (int l = 0; l < a.n_layers; ++l) narrow_layer<S>(h, smem, a.layers[l], s);
+
+  if (s != 0 || (int)threadIdx.x / S >= rows) return;
+  if (a.mse) {
+    // K2's epilogue: y = X is the raw row, still in shared memory
+    const float* y = a.y == a.X ? x : a.y + ((size_t)m * a.B + row0 + r) * a.F_y;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNarrowWidth; ++j) {
+      if (j >= a.w) break;
+      const float d = h[j] - y[j];
+      sum = fmaf(d, d, sum);
+    }
+    a.mse[(size_t)m * a.B + row0 + r] = sum / (float)a.w;
+  }
+  float* o = otile + r * a.F_out;
+#pragma unroll
+  for (int j = 0; j < kNarrowWidth; ++j) {
+    if (j >= a.F_out) break;
+    o[j] = h[j];
+  }
+}
+
+// Shared memory: the staged params (a.stage_floats), two row-tile
+// buffers of kNarrowThreads / S rows x F (a.x_floats each), one output
+// tile of kNarrowThreads / S rows x F_out.
+template <int S>
+__global__ void __launch_bounds__(kNarrowThreads)
+    fleet_dense_narrow_kernel(const __grid_constant__ Args a) {
+  constexpr int TR = kNarrowThreads / S;  // rows a tile
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xbuf = smem + a.stage_floats;
+  float* obuf = xbuf + 2 * a.x_floats;
+
+  // this block's run of the flattened (batch row, tile) sequence
+  long long t = (long long)blockIdx.x * a.n_tiles / gridDim.x;
+  const long long t_end = (long long)(blockIdx.x + 1) * a.n_tiles / gridDim.x;
+  if (t >= t_end) return;
+  int m = (int)(t / a.tiles);
+  int tile = (int)(t - (long long)m * a.tiles);
+  {
+    // the rows first: they do not wait on the member index
+    const int row0 = tile * TR;
+    stage_rows(xbuf, a.X + ((size_t)m * a.B + row0) * a.F, min(TR, a.B - row0) * a.F);
+  }
+  int n = __ldg(a.indices + m);
+  stage_member(smem, a, n);
+  cp_async_commit();
+
+  for (int buf = 0;; buf ^= 1) {
+    const int row0 = tile * TR;
+    const int rows = min(TR, a.B - row0);
+    const bool more = ++t < t_end;
+    int m_next = m;
+    int tile_next = tile + 1;
+    if (tile_next == a.tiles) {
+      ++m_next;
+      tile_next = 0;
+    }
+    int n_next = n;
+    if (more) {
+      // the next tile's rows fly while this one is computed
+      if (m_next != m) n_next = __ldg(a.indices + m_next);
+      const int next0 = tile_next * TR;
+      stage_rows(xbuf + (buf ^ 1) * a.x_floats, a.X + ((size_t)m_next * a.B + next0) * a.F,
+                 min(TR, a.B - next0) * a.F);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's rows, and the params if they changed
+    __syncthreads();
+
+    // a warp whose rows are all past the ragged end sits out
+    if ((int)(threadIdx.x & ~31u) / S < rows) {
+      narrow_rows<S>(a, smem, xbuf + buf * a.x_floats, obuf, m, row0, rows);
+    }
+    __syncthreads();  // the output tile is whole; nobody reads the params
+    if (more && n_next != n) {
+      // the next member's params fly under this tile's stores
+      stage_member(smem, a, n_next);
+      cp_async_commit();
+    }
+    store_rows(a.out + ((size_t)m * a.B + row0) * a.F_out, obuf, rows * a.F_out);
+    if (!more) break;
+    m = m_next;
+    tile = tile_next;
+    n = n_next;
+  }
 }
 
 // Rows k0 .. k0 + kWideKC of a member's W[d_in][d_out] into
@@ -617,29 +786,100 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-int launch_narrow(Args& a, int M, cudaStream_t stream) {
-  // shared memory: the row tile, the ingest vectors, then each layer's W
-  // and b; every region starts 16-byte aligned for float4 loads
-  int off = kNarrowRows * (a.F > a.F_out ? a.F : a.F_out);
-  off = (off + 3) / 4 * 4;
-  a.ingest_off = off;
-  off += 2 * kNarrowWidth;
+// The narrow kernel's staging offsets for tiles of `tile_rows` rows,
+// worked out here so the device divides nothing; returns its shared
+// memory in bytes. Staged params: each layer's [d_in + 1][ldw] (W, then b
+// as row d_in), then the ingest scale and offset; then two row-tile
+// buffers and the output tile. Every region starts 16-byte aligned for
+// float4 loads and 16-byte copies.
+size_t narrow_layout(Args& a, int tile_rows) {
+  int off = 0;
+  int rows = 0;  // staged rows so far, dealt round-robin to the warps
   for (int l = 0; l < a.n_layers; ++l) {
     Layer& L = a.layers[l];
-    L.ldw = (L.d_out + 3) / 4 * 4;
+    L.ldw = round_up(L.d_out, 4);
     L.w_off = off;
-    off += (L.d_in + 3) / 4 * 4 * L.ldw;
-    L.b_off = off;
-    off += L.ldw;
+    L.warp0 = rows % kNarrowWarps;
+    off += (L.d_in + 1) * L.ldw;
+    rows += L.d_in + 1;
   }
-  const size_t smem = (size_t)off * sizeof(float);  // <= 152 KB at 32 layers
-  a.tiles = (a.B + kNarrowRows - 1) / kNarrowRows;
-  cudaError_t err = cudaFuncSetAttribute(
-      fleet_dense_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  a.ingest_off = off;
+  a.ingest_warp = rows % kNarrowWarps;
+  off += 2 * kNarrowWidth;
+  a.stage_floats = off;
+  a.x_floats = round_up(tile_rows * a.F, 4);
+  // <= 183 KB at 32 layers 32 wide
+  return (size_t)(off + 2 * a.x_floats + tile_rows * a.F_out) * sizeof(float);
+}
+
+template <int S>
+cudaError_t narrow_blocks_per_sm(size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(fleet_dense_narrow_kernel<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fleet_dense_narrow_kernel<S>,
+                                                       kNarrowThreads, smem);
+}
+
+// How the narrow kernel runs M x B rows: S lanes to a row, tiles of
+// kNarrowThreads / S rows, the shared memory and blocks an SM of that
+// build, and the grid. One lane a row keeps the most FMAs in flight for
+// the fewest instructions, so it is the rule. Only when M x B rows make
+// fewer tiles than the card has SMs (one served machine) is a launch
+// waiting on one row's chain of layers; then S is the widest split (4,
+// then 2) whose tiles all fit on the card at once, which cuts that chain
+// about S-fold. A build with -DFLEET_DENSE_NO_SPLIT never splits, for
+// chip_smoke.py to time the split against.
+struct NarrowPlan {
+  int split;
+  size_t smem;
+  int blocks_per_sm;
+  long long grid;
+};
+
+int narrow_plan(Args& a, int M, NarrowPlan* plan) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)M * a.tiles;
-  if (blocks > 0x7fffffffLL) return kBadShape;
-  fleet_dense_narrow_kernel<<<(unsigned)blocks, kNarrowRows, smem, stream>>>(a);
+  const long long unsplit_tiles = (long long)M * ((a.B + kNarrowThreads - 1) / kNarrowThreads);
+  int split = unsplit_tiles < sms ? 4 : 1;
+#ifdef FLEET_DENSE_NO_SPLIT
+  split = 1;
+#endif
+  for (;; split /= 2) {
+    const int tile_rows = kNarrowThreads / split;
+    const size_t smem = narrow_layout(a, tile_rows);
+    int per_sm = 0;
+    err = split == 4   ? narrow_blocks_per_sm<4>(smem, &per_sm)
+          : split == 2 ? narrow_blocks_per_sm<2>(smem, &per_sm)
+                       : narrow_blocks_per_sm<1>(smem, &per_sm);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (a.B + tile_rows - 1) / tile_rows;
+    const long long n_tiles = (long long)M * tiles;
+    // persistent blocks: as many as the card holds at once, at most a tile each
+    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    if (split == 1 || n_tiles <= resident) {
+      a.tiles = tiles;
+      a.n_tiles = n_tiles;
+      *plan = {split, smem, per_sm, n_tiles < resident ? n_tiles : resident};
+      return 0;
+    }
+  }
+}
+
+int launch_narrow(Args& a, int M, cudaStream_t stream) {
+  NarrowPlan p;
+  const int status = narrow_plan(a, M, &p);
+  if (status != 0) return status;
+  const unsigned grid = (unsigned)p.grid;
+  if (p.split == 4) {
+    fleet_dense_narrow_kernel<4><<<grid, kNarrowThreads, p.smem, stream>>>(a);
+  } else if (p.split == 2) {
+    fleet_dense_narrow_kernel<2><<<grid, kNarrowThreads, p.smem, stream>>>(a);
+  } else {
+    fleet_dense_narrow_kernel<1><<<grid, kNarrowThreads, p.smem, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -718,8 +958,8 @@ int fleet_dense_forward(const float* X, float* out, const float* y, float* mse, 
 #ifndef FLEET_DENSE_WIDE_ONLY
   // A build with -DFLEET_DENSE_WIDE_ONLY sends narrow specs to the wide
   // kernel too, and chip_smoke.py times it beside this one: on an H100 the
-  // wide kernel takes 2.9x the narrow one's time on hourglass(20) at
-  // 1000 x 1008 rows and 2.6x at 64 x 1008, and is level at 1 x 1008.
+  // wide kernel takes 4.9x the narrow one's time on hourglass(20) at
+  // 1000 x 1008 rows, 3.7x at 64 x 1008 and 1.9x at 1 x 1008.
   if (max_width <= kNarrowWidth) return launch_narrow(a, M, s);
 #endif
   // 16 warps a block beat 8 on feedforward_model's 256-wide layers and
@@ -727,6 +967,37 @@ int fleet_dense_forward(const float* X, float* out, const float* y, float* mse, 
   if (max_width <= 128) return launch_wide<64, 256>(a, M, max_width, s);
   if (max_width <= 256) return launch_wide<64, 512>(a, M, max_width, s);
   return launch_wide<32, 512>(a, M, max_width, s);
+}
+
+// How the narrow kernel would run M x B rows of a spec (dims as for
+// fleet_dense_forward, every width at most 32): the lanes a row, the
+// shared memory a block, the blocks an SM holds at once and the grid.
+// Returns 0 or an error code as fleet_dense_forward does.
+int fleet_dense_narrow_occupancy(int n_layers, const int* dims, int M, int B, int* split,
+                                 int* smem_bytes, int* blocks_per_sm, int* grid) {
+  if (n_layers < 1 || M < 1 || B < 1) return kBadShape;
+  if (n_layers > kMaxLayers) return kTooManyLayers;
+  Args a = {};
+  a.B = B;
+  a.F = dims[0];
+  a.F_out = dims[n_layers];
+  a.n_layers = n_layers;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return kBadShape;
+    if (dims[l] > kNarrowWidth) return kTooWide;
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    a.layers[l].d_in = dims[l];
+    a.layers[l].d_out = dims[l + 1];
+  }
+  NarrowPlan p;
+  const int status = narrow_plan(a, M, &p);
+  if (status != 0) return status;
+  *split = p.split;
+  *smem_bytes = (int)p.smem;
+  *blocks_per_sm = p.blocks_per_sm;
+  *grid = (int)p.grid;
+  return 0;
 }
 
 const char* fleet_dense_error_string(int code) {

@@ -62,13 +62,21 @@ def _host_indices(indices: Indices, M: int, N: int) -> np.ndarray:
 
 
 def _device_indices(indices: Indices, M: int, N: int, device: torch.device) -> torch.Tensor:
-    """Validated int32 indices on ``device``. Neither path waits for the
+    """Validated int32 indices on ``device``. No path waits for the
     device: a pageable host-to-device copy would synchronise the stream,
-    so explicit indices go through pinned memory."""
+    so host indices go through pinned memory, and an integer tensor that
+    already lies on ``device`` (a card) is used where it is, its range
+    unchecked, since reading it back to check would synchronise."""
     if indices is None:
         if M > N:
             raise IndexError(f"indices out of range for a bucket of {N} members")
         return torch.arange(M, dtype=torch.int32, device=device)
+    if isinstance(indices, torch.Tensor) and indices.device == device and device.type != "cpu":
+        if tuple(indices.shape) != (M,):
+            raise ValueError(f"indices has shape {tuple(indices.shape)}, expected ({M},)")
+        if indices.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"indices must be int32 or int64, got {indices.dtype}")
+        return indices.to(torch.int32).contiguous()
     idx = torch.from_numpy(_host_indices(indices, M, N))
     if device.type == "cuda":
         idx = idx.pin_memory()
@@ -271,7 +279,9 @@ def fleet_feedforward(
 
     ``stacked`` is a spec bucket (``parallel.fleet.stack_member_params``):
     every leaf carries a leading member axis of size N. ``indices[M]``
-    (host ints, default ``0..M-1``) picks each batch row's member;
+    (host ints, default ``0..M-1``, or an integer tensor already on X's
+    card, taken without a host round trip and unchecked) picks each batch
+    row's member;
     ``ingest`` is the bucket's ``(scale[N, F], offset[N, F])`` plan.
     CUDA tensors launch K1; CPU tensors run the plain version.
     ``defines`` selects a build of the kernel with those preprocessor

@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""
+Static SASS instruction counts of a kernel in built CUDA libraries.
+
+    python3 scripts/sass_counts.py LIB.so [LIB.so ...] [--kernel NAME]
+
+Disassembles each library with ``cuobjdump -sass`` (from ``PATH`` or
+``$CUDA_HOME/bin``, default ``/usr/local/cuda``) and prints, for every
+function whose mangled name contains ``NAME`` (default
+``fleet_dense_narrow_kernel``), its instruction count and the count of
+each opcode, most frequent first. The counts are of the code, not of a
+run: a fully unrolled loop counts every width it can take.
+"""
+
+import argparse
+import collections
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
+INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+
+
+def opcode_counts(sass: str, kernel: str):
+    """``{function: Counter(opcode)}`` for the functions naming ``kernel``."""
+    counts, current = {}, None
+    for line in sass.splitlines():
+        header = FUNCTION.match(line)
+        if header:
+            current = header.group(1) if kernel in header.group(1) else None
+            if current:
+                counts[current] = collections.Counter()
+            continue
+        if current:
+            op = INSTRUCTION.search(line)
+            if op:
+                counts[current][op.group(1)] += 1
+    return counts
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("libraries", nargs="+")
+    parser.add_argument("--kernel", default="fleet_dense_narrow_kernel")
+    args = parser.parse_args(argv)
+    for path in args.libraries:
+        sass = subprocess.run([cuobjdump(), "-sass", path], capture_output=True, text=True, check=True).stdout
+        counts = opcode_counts(sass, args.kernel)
+        if not counts:
+            print(f"[sass] {path}: no function naming {args.kernel}")
+            return 1
+        for function, ops in counts.items():
+            top = ", ".join(f"{op} {n}" for op, n in ops.most_common(24))
+            print(f"[sass] {os.path.basename(path)} {function}: {sum(ops.values())} instructions; {top}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

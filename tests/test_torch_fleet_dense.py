@@ -21,7 +21,7 @@ from gordo_tpu.models.nn import init_feedforward as jax_init
 from gordo_tpu.server.fleet_store import fleet_forward_gather as jax_forward_gather
 from gordo_tpu_torch.models import factories
 from gordo_tpu_torch.models.nn import init_feedforward, params_from_jax
-from gordo_tpu_torch.ops import _build
+from gordo_tpu_torch.ops import _build, fleet_dense
 from gordo_tpu_torch.ops.fleet_dense import (
     fleet_feedforward,
     fleet_feedforward_reference,
@@ -96,6 +96,77 @@ def test_gather_matches_jax_serving_program(ingest):
         ingest=None if plan is None else tuple(torch.from_numpy(a) for a in plan),
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
+
+
+#: gather patterns of the narrow kernel's card tests: a member repeats in
+#: neighbouring and in distant batch rows
+GATHER_PATTERNS = {
+    "6": [3, 3, 0, 9, 3, 1],
+    "64": [5 if i % 3 == 0 else (i // 2) % 5 * 2 for i in range(64)],
+}
+
+
+@pytest.mark.parametrize("pattern", GATHER_PATTERNS)
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["list", "tensor"])
+def test_gather_patterns_match_jax_serving_program(pattern, as_tensor):
+    jax_spec, spec = _both("feedforward_hourglass", 20)
+    bucket = _jax_bucket(jax_spec, 10, 5)
+    rng = np.random.RandomState(5)
+    indices = np.array(GATHER_PATTERNS[pattern], np.int32)
+    X = rng.rand(len(indices), 9, 20).astype(np.float32)
+    plan = ((rng.rand(10, 20) * 2).astype(np.float32), (rng.rand(10, 20) - 0.5).astype(np.float32))
+    expected = jax_forward_gather(jax_spec, bucket, indices, X, ingest=tuple(jax.numpy.asarray(a) for a in plan))
+    got = fleet_feedforward(
+        spec, _port(bucket), torch.from_numpy(X),
+        indices=torch.from_numpy(indices) if as_tensor else indices.tolist(),
+        ingest=tuple(torch.from_numpy(a) for a in plan),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
+
+
+def test_indices_already_on_the_device_are_not_read_back():
+    """An index tensor on X's (non-CPU) device is cast in place, never
+    copied to the host: a meta tensor, which has no data, shows it."""
+    on_device = torch.tensor([1, 0, 2], dtype=torch.int64, device="meta")
+    idx = fleet_dense._device_indices(on_device, 3, 3, torch.device("meta"))
+    assert idx.device.type == "meta" and idx.dtype == torch.int32 and tuple(idx.shape) == (3,)
+    with pytest.raises(ValueError, match="shape"):
+        fleet_dense._device_indices(on_device, 2, 3, torch.device("meta"))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        fleet_dense._device_indices(on_device.float(), 3, 3, torch.device("meta"))
+
+
+def test_host_index_tensors_are_still_checked():
+    spec = factories.feedforward_hourglass(4)
+    bucket = stack_member_params([init_feedforward(spec, torch.Generator().manual_seed(0))])
+    with pytest.raises(IndexError):
+        fleet_feedforward(spec, bucket, torch.zeros(2, 3, 4), indices=torch.tensor([0, 1]))
+
+
+def test_sass_counts_reads_the_kernel_out_of_a_disassembly():
+    """``scripts/sass_counts.py`` counts the opcodes of the named kernel
+    only, predicated instructions by their opcode."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "sass_counts.py"
+    module_spec = importlib.util.spec_from_file_location("sass_counts", path)
+    sass_counts = importlib.util.module_from_spec(module_spec)
+    module_spec.loader.exec_module(sass_counts)
+    sass = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_121fleet_dense_wide_kernelILi64ELi256EEEv4Args",
+        "        /*0000*/                   FFMA R1, R2, R3, R4 ;   /* 0x000 */",
+        "\t\tFunction : _ZN12_GLOBAL__N_125fleet_dense_narrow_kernelE4Args",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */",
+        "        /*0010*/                   FFMA R4, R5, R6, R4 ;   /* 0x000 */",
+        "        /*0020*/              @!P0 FFMA R4, R5, R7, R4 ;   /* 0x000 */",
+        "        /*0030*/                   LDS.128 R8, [R2+0x10] ;   /* 0x000 */",
+        "        /*0040*/               @P1 MUFU.EX2 R9, R9 ;   /* 0x000 */",
+    ])
+    counts = sass_counts.opcode_counts(sass, "fleet_dense_narrow_kernel")
+    assert list(counts) == ["_ZN12_GLOBAL__N_125fleet_dense_narrow_kernelE4Args"]
+    ops = next(iter(counts.values()))
+    assert ops == {"LDC": 1, "FFMA": 2, "LDS.128": 1, "MUFU.EX2": 1}
 
 
 def test_arguments_are_checked():

@@ -14,7 +14,10 @@ the register-resident one for specs at most 32 wide and the
 shared-memory one for wider specs (up to 512, chunked columns included).
 K2's per-row MSE is held to the same tolerance, with ``y`` the input rows
 themselves (the store's case), a separate ``y`` as wide as the output or
-narrower, and a NaN in ``y``.
+narrower, and a NaN in ``y``. The narrow kernel's persistent loop has
+cases of its own (``LOOP_CASES``): many tiles a member, more tiles than
+resident blocks, one member, and gather patterns in which a member
+leaves a block's run and comes back.
 """
 
 import threading
@@ -201,6 +204,82 @@ def test_scores_gather_ingest_on_card(cuda, n_features, y):
 def test_scores_wide_only_build_on_card(cuda, y):
     _scores_vs_plain(cuda, factories.feedforward_hourglass(20), 8, 8, 1008, ingest=True, y=y,
                      defines=("FLEET_DENSE_WIDE_ONLY",))
+
+
+#: gather patterns in which a member repeats in neighbouring and in distant
+#: batch rows, so a persistent block sees its member change and come back
+NO_SPLIT = ("FLEET_DENSE_NO_SPLIT",)
+GATHER_6 = [3, 3, 0, 9, 3, 1]
+GATHER_64 = [5 if i % 3 == 0 else (i // 2) % 5 * 2 for i in range(64)]
+#: the narrow kernel's persistent loop, hourglass(20): (N, M, B, indices,
+#: ingest); every B leaves a ragged last tile in each member's span
+LOOP_CASES = {
+    "many_tiles_a_member": (2, 2, 52_560, None, False),
+    "more_tiles_than_blocks": (2000, 2000, 144, None, False),
+    "one_row": (8, 1, 1, [5], True),
+    "one_member": (8, 1, 1008, [5], False),
+    "one_member_ragged": (8, 1, 50, [5], True),
+    "gather_6": (10, 6, 301, GATHER_6, True),
+    "gather_6_tiled": (10, 1200, 144, GATHER_6 * 200, True),
+    "gather_64_tiled": (10, 1024, 144, GATHER_64 * 16, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_persistent_loop_matches_plain_on_card(cuda, case):
+    n, m, b, indices, ingest = LOOP_CASES[case]
+    _kernel_vs_plain(cuda, factories.feedforward_hourglass(20), n, m, b, indices=indices, ingest=ingest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "same", "nan"])
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_persistent_loop_scores_match_plain_on_card(cuda, case, y):
+    n, m, b, indices, ingest = LOOP_CASES[case]
+    _scores_vs_plain(cuda, factories.feedforward_hourglass(20), n, m, b, indices=indices, ingest=ingest, y=y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "same", "nan"])
+@pytest.mark.parametrize("name", ACTIVATION_NAMES)
+def test_scores_activation_on_card(cuda, name, y):
+    spec = factories.feedforward_model(6, encoding_dim=(9,), decoding_dim=(5,),
+                                       encoding_func=(name,), decoding_func=("tanh",), out_func=name)
+    _scores_vs_plain(cuda, spec, 3, 3, 37, y=y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_row", "one_member", "one_member_ragged"])
+def test_no_split_build_matches_plain_on_card(cuda, case):
+    """Few rows share each row among lanes; the build that never does
+    (which chip_smoke.py times against) computes the same."""
+    n, m, b, indices, ingest = LOOP_CASES[case]
+    _kernel_vs_plain(cuda, factories.feedforward_hourglass(20), n, m, b, indices=indices, ingest=ingest,
+                     defines=NO_SPLIT)
+    _scores_vs_plain(cuda, factories.feedforward_hourglass(20), n, m, b, indices=indices, ingest=ingest,
+                     y="nan", defines=NO_SPLIT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ACTIVATION_NAMES)
+def test_no_split_build_activation_on_card(cuda, name):
+    spec = factories.feedforward_model(6, encoding_dim=(9,), decoding_dim=(5,),
+                                       encoding_func=(name,), decoding_func=("tanh",), out_func=name)
+    _kernel_vs_plain(cuda, spec, 3, 3, 37, defines=NO_SPLIT)
+
+
+@pytest.mark.cuda
+def test_indices_on_the_card_are_taken_in_place(cuda):
+    """A gather index tensor already on the card gives what host indices give."""
+    spec = factories.feedforward_hourglass(20)
+    bucket = stack_member_params([init_feedforward(spec, torch.Generator().manual_seed(i)) for i in range(10)], cuda)
+    X = torch.rand(64, 300, 20, generator=torch.Generator().manual_seed(0)).to(cuda)
+    on_card = torch.tensor(GATHER_64, dtype=torch.int64, device=cuda)
+    got = fleet_feedforward(spec, bucket, X, on_card)
+    expected = fleet_feedforward(spec, bucket, X, GATHER_64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, expected, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
