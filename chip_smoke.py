@@ -13,20 +13,27 @@ Run from the root of a checkout; it builds the CUDA kernels from
    version on the card: feedforward_hourglass(20) at 1000 members x 1008
    rows, feedforward_model(20)'s 256-wide defaults at 64 x 1008, every
    activation on both of the kernel's paths, ragged batches, gather
-   indices with repeats, the ingest prologue, layers too wide for shared
-   memory at once, and the shapes the serving path uses;
+   indices with repeats, the ingest prologue, layers whose weights stream
+   through the wide kernel's ring, odd widths, and the shapes the serving
+   path uses;
 4. serves a collection of 64 seeded feedforward_hourglass(20) detectors
-   through ``build_app`` on a localhost ``wsgiref`` thread: three
-   ``/anomaly/prediction`` requests and one fleet request for all 64,
-   1008 rows each; every answer must be 200, carry the right column
-   groups, and agree with the same app on the CPU; K1's launch count
-   over those requests must be above zero;
+   and 8 feedforward_hourglass(40) ones (a 40-tag bucket, which the
+   store sends to the wide kernel) through ``build_app`` on a localhost
+   ``wsgiref`` thread: three ``/anomaly/prediction`` requests and one
+   fleet request for the 64, then one anomaly request to a 40-tag
+   machine and one fleet request for the 8, 1008 rows each; every answer
+   must be 200, carry the right column groups, and agree with the same
+   app on the CPU; K1's and K2's launch counts over each group of
+   requests must be above zero;
 5. times K1, its plain version and a cuBLAS ``baddbmm`` chain (the
-   library yardstick, used nowhere in the package) with CUDA events,
-   beside the card's bound for the same work; and, at the hourglass(20)
-   shapes, K1 against its build with ``FLEET_DENSE_WIDE_ONLY``, which
-   runs them through the wide kernel instead of the narrow one (the
-   measurement that keeps two kernels in the source).
+   library yardstick, used nowhere in the package; also timed with TF32
+   allowed, less accurate than the kernel, to show what cuBLAS gives on
+   the tensor cores) with CUDA events, beside the card's bound for the
+   same work (at the 3xTF32 tensor-core rate, with the CUDA-core f32
+   bound beside it); and, at the hourglass(20) shapes, K1 against its
+   build with ``FLEET_DENSE_WIDE_ONLY``, which runs them through the wide
+   kernel instead of the narrow one (the measurement that keeps two
+   kernels in the source).
 
 K2, the fused anomaly scores (K1 with a per-row MSE epilogue, the same
 source), is held the same way: against its plain version on both
@@ -37,16 +44,19 @@ request must launch it (``[serve]``); and ``[stream]`` drives the
 streaming plane over the socket on the same 64 machines with 64-row
 watermark windows: one ingest of 1008 rows a machine and three of 64,
 the SSE feed and the close, each answer equal to the CPU app's, K2
-launched by every flush. ``[times]`` times K2 at four shapes against
-its plain version, a ``baddbmm`` chain plus ``torch.square(out - y).mean(-1)``,
-K1 alone at the same shape, and its bound.
+launched by every flush. ``[times]`` times K2 at six shapes (the wide
+kernel's three among them) against its plain version, a ``baddbmm`` chain
+plus ``torch.square(out - y).mean(-1)`` in f32 and with TF32, K1 alone at
+the same shape, and its bounds.
 
 The narrow kernel's persistent loop has cases of its own, K1 and K2 (y =
 X, a separate y, a NaN in y): many tiles a member (2 x 52,560 rows), more
 tiles than resident blocks (2000 x 144), one member (1 x 1 and 1 x 1008),
 and gather patterns in which a member leaves a block and comes back.
 ``[occupancy]`` prints the narrow kernel's launch at the hourglass(20)
-shapes: lanes a row, shared memory, blocks an SM and grid. ``[times]``
+shapes: lanes a row, shared memory, blocks an SM and grid; and the wide
+kernel's at its timed shapes: weights resident or streamed, rows a tile,
+warps a 16-row slice, shared memory, blocks an SM and grid. ``[times]``
 prints the launch floor (a one-element ``zero_``) beside each served
 shape and K1 at the served anomaly shape with its indices already on the
 card, so the index copy shows apart. Where M x B rows make fewer tiles
@@ -78,14 +88,25 @@ RTOL, ATOL = 1e-5, 1e-5
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+#: the fastest f32-accurate rate of the card: TF32 on the tensor cores (495
+#: TFLOP/s dense), three products to an f32 one (3xTF32, the wide kernel's)
+PEAK_3XTF32_FLOP_PER_S = 495e12 / 3
 ROWS = 1008  # one week of 10-minute data
 SERVED_MACHINES = 64
+#: the 40-tag bucket served beside the 64 20-tag machines: its spec is wider
+#: than 32, so the store sends it to the wide kernel
+WIDE_MACHINES = 8
+WIDE_TAGS = 40
 #: the stream phase's watermark and its ingests: 1008 rows a machine, then
 #: three of 64; snap_rows cuts 512, 512, 64 and 64 rows a machine
 STREAM_WINDOW = 64
 STREAM_POSTS = (ROWS, STREAM_WINDOW, STREAM_WINDOW, STREAM_WINDOW)
 STREAM_SCORED = (512, 512, 64, 64)
-TIMED = 5  # the first cases of kernel_cases(): the full widths and the served shapes
+TIMED = 6  # the first cases of kernel_cases(): the full widths and the served shapes
+#: the 40-tag anomaly request's kernel shape (the wide kernel, 16-row tiles)
+WIDE_ANOMALY = "served anomaly: hourglass40 gather M=1 B=1008 +ingest"
+#: the wide kernel's timed shapes, K1 (and K2 with y = X)
+WIDE_CASES = ("feedforward_model20 M=64 B=1008", "hourglass40 M=64 B=1008", WIDE_ANOMALY)
 #: the build of K1 that sends narrow specs through the wide kernel
 WIDE_ONLY = ("FLEET_DENSE_WIDE_ONLY",)
 #: the build of K1 whose narrow kernel never shares a row among lanes
@@ -194,8 +215,10 @@ def kernel_cases():
         "served anomaly: hourglass20 gather M=1 B=1008 +ingest": make_case(
             hourglass, SERVED_MACHINES, 1, ROWS, indices=[17], ingest=True, seed=3
         ),
-        # 40 wide: the wide kernel's 256-thread side (feedforward_model is its 512 side)
+        # 40 wide: the wide kernel with the member's stack resident (feedforward_model streams it)
         "hourglass40 M=64 B=1008": make_case(feedforward_hourglass(40), 64, 64, ROWS, seed=11),
+        WIDE_ANOMALY: make_case(feedforward_hourglass(40), WIDE_MACHINES, 1, ROWS, indices=[5], ingest=True,
+                                seed=12),
         "ragged: hourglass7 B=50": make_case(feedforward_hourglass(7), 2, 2, 50, seed=4),
         "ragged: hourglass7 B=129": make_case(feedforward_hourglass(7), 2, 2, 129, seed=4),
         "gather repeats: hourglass20 N=10 M=6 B=301": make_case(
@@ -237,6 +260,25 @@ def kernel_cases():
         "member returns: hourglass20 N=10 M=1024 B=144 64-long pattern": make_case(
             hourglass, 10, 1024, 144, indices=GATHER_64 * 16, ingest=True, seed=65),
     })
+    # the wide kernel: persistent blocks whose member changes (resident and
+    # streamed stacks), one row, odd widths
+    model = feedforward_model(20)
+    cases.update({
+        "wide member returns: hourglass40 N=10 M=240 B=144 [3,3,0,9,3,1]": make_case(
+            feedforward_hourglass(40), 10, 240, 144, indices=GATHER_6 * 40, ingest=True, seed=70),
+        "wide member returns: feedforward_model20 N=10 M=128 B=144 64-long pattern": make_case(
+            model, 10, 128, 144, indices=GATHER_64 * 2, ingest=True, seed=71),
+        "wide one row: hourglass40 gather M=1 B=1": make_case(
+            feedforward_hourglass(40), 8, 1, 1, indices=[5], ingest=True, seed=72),
+        "wide one member: feedforward_model20 gather M=1 B=1008": make_case(
+            model, 8, 1, ROWS, indices=[5], ingest=True, seed=73),
+        "odd widths: 33-27-1-27-33 M=3 B=157": make_case(feedforward_model(
+            33, encoding_dim=(27, 1), decoding_dim=(27,), encoding_func=("tanh", "relu"),
+            decoding_func=("elu",)), 3, 3, 157, ingest=True, seed=74),
+        "odd widths: 300-27-1-33-300 M=3 B=157": make_case(feedforward_model(
+            300, encoding_dim=(27, 1), decoding_dim=(33,), encoding_func=("relu", "tanh"),
+            decoding_func=("tanh",)), 3, 3, 157, ingest=True, seed=75),
+    })
     return cases
 
 
@@ -255,6 +297,12 @@ K2_LOOP_CASES = (
     "gather repeats: hourglass20 N=10 M=6 B=301",
     "member returns: hourglass20 N=10 M=1200 B=144 [3,3,0,9,3,1]",
     "member returns: hourglass20 N=10 M=1024 B=144 64-long pattern",
+    "wide member returns: hourglass40 N=10 M=240 B=144 [3,3,0,9,3,1]",
+    "wide member returns: feedforward_model20 N=10 M=128 B=144 64-long pattern",
+    "wide one row: hourglass40 gather M=1 B=1",
+    "wide one member: feedforward_model20 gather M=1 B=1008",
+    "odd widths: 33-27-1-27-33 M=3 B=157",
+    "odd widths: 300-27-1-33-300 M=3 B=157",
 )
 
 
@@ -313,6 +361,8 @@ def k2_cases(cases):
         "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest": scores_case(flush),
         "K2 feedforward_model20 M=64 B=1008 y=X": scores_case(cases["feedforward_model20 M=64 B=1008"]),
         "K2 served fleet: hourglass20 M=64 B=1008 y=X +ingest": scores_case(served),
+        "K2 hourglass40 M=64 B=1008 y=X": scores_case(cases["hourglass40 M=64 B=1008"]),
+        f"K2 {WIDE_ANOMALY} y=X": scores_case(cases[WIDE_ANOMALY]),
     }
     for path, name in (("narrow", "served fleet: hourglass20 M=64 B=1008 +ingest"),
                        ("wide", "feedforward_model20 M=64 B=1008")):
@@ -327,7 +377,7 @@ def k2_cases(cases):
         k2[f"K2 gather repeats {path}: hourglass{gathered} N=10 M=6 B=301 y=X +ingest"] = scores_case(gather)
         k2[f"K2 gather repeats {path}: hourglass{gathered} N=10 M=6 B=301 y=narrower"] = scores_case(
             gather, "narrower", seed=41)
-    activations = [name for name in cases if name.startswith("activation") and name.endswith("hidden 9")]
+    activations = [name for name in cases if name.startswith("activation")]
     for name in (*K2_LOOP_CASES, *activations):
         for y in ("x", "same", "nan"):
             k2[f"K2 {name} y={y}"] = scores_case(cases[name], y, seed=50)
@@ -355,8 +405,10 @@ def sensor_data(seed, rows, n_tags):
 
 
 def write_collection(directory):
-    """SERVED_MACHINES seeded hourglass(20) detectors with fitted scalers and
-    thresholds taken from their own reconstruction errors."""
+    """SERVED_MACHINES seeded hourglass(20) detectors and WIDE_MACHINES
+    hourglass(40) ones (their own names and tag lists), with fitted scalers
+    and thresholds taken from their own reconstruction errors. Returns the
+    two lists of names."""
     import numpy as np
     import torch
 
@@ -366,12 +418,13 @@ def write_collection(directory):
     from gordo_tpu_torch.models.nn import init_feedforward, params_to_numpy
     from gordo_tpu_torch.models.preprocessing import MinMaxScaler
 
-    spec = feedforward_hourglass(20)
-    names = []
-    for i in range(SERVED_MACHINES):
-        name = f"machine-{i:03d}"
+    names = {20: [], WIDE_TAGS: []}
+    machines = [(f"machine-{i:03d}", 20, i) for i in range(SERVED_MACHINES)]
+    machines += [(f"compressor-{i:03d}", WIDE_TAGS, 500 + i) for i in range(WIDE_MACHINES)]
+    for name, n_tags, i in machines:
+        spec = feedforward_hourglass(n_tags)
         params = params_to_numpy(init_feedforward(spec, torch.Generator().manual_seed(1000 + i)))
-        train = sensor_data(i, 2000, 20)
+        train = sensor_data(i, 2000, n_tags)
         scaler = MinMaxScaler().fit(train)
         state = {
             "spec": spec.to_dict(),
@@ -385,21 +438,26 @@ def write_collection(directory):
         state["aggregate_threshold"] = float(np.percentile((scaled_err ** 2).mean(axis=1), 99))
         metadata = {
             "name": name,
-            "dataset": {"tag_list": [f"tag-{j:02d}" for j in range(20)], "resolution": "10min"},
+            "dataset": {"tag_list": tag_list(n_tags), "resolution": "10min"},
         }
         detector = DiffBasedAnomalyDetector.from_state(state, device="cpu")
         serializer.dump(detector, os.path.join(directory, name), metadata)
-        names.append(name)
-    return names
+        names[n_tags].append(name)
+    return names[20], names[WIDE_TAGS]
 
 
-def request_frame(seed, rows=ROWS, first_row=0):
-    """``rows`` 10-minute rows of 20 tags from row ``first_row`` on."""
+def tag_list(n_tags):
+    """The 20-tag machines' tags, or the 40-tag compressors' own."""
+    return [f"tag-{j:02d}" for j in range(n_tags)] if n_tags == 20 else [f"ctag-{j:02d}" for j in range(n_tags)]
+
+
+def request_frame(seed, rows=ROWS, first_row=0, n_tags=20):
+    """``rows`` 10-minute rows of ``n_tags`` tags from row ``first_row`` on."""
     start = datetime(2020, 3, 1, tzinfo=timezone.utc)
     keys = [(start + timedelta(minutes=10 * (first_row + r))).isoformat() for r in range(rows)]
-    values = sensor_data(10_000 + seed, rows, 20)
+    values = sensor_data(10_000 + seed, rows, n_tags)
     values[rows // 2:rows // 2 + 6, 3] += 25.0  # an excursion to flag
-    return {f"tag-{j:02d}": dict(zip(keys, values[:, j].tolist())) for j in range(20)}
+    return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tag_list(n_tags))}
 
 
 def post(url, payload):
@@ -466,12 +524,13 @@ ANOMALY_GROUPS = [
 ]
 
 
-def serve_phase(base, names, cpu_app):
-    """Three anomaly requests and one fleet request to the card's app at
-    ``base``, each answer held against the CPU app's; returns the launches
-    of K1 (the anomaly route) and K2 (the fleet route) they made."""
-    import math
-
+def serve_phase(base, names, wide_names, cpu_app):
+    """Three anomaly requests and one fleet request to the 20-tag machines
+    of the card's app at ``base``, then one anomaly request to a 40-tag
+    machine and one fleet request for the 40-tag bucket (the wide kernel),
+    each answer held against the CPU app's; returns the launches of K1 (the
+    anomaly route) and K2 (the fleet route) the first four made, and those
+    the two 40-tag requests made."""
     from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 
     anomaly_names = [names[0], names[17], names[63]]
@@ -484,6 +543,32 @@ def serve_phase(base, names, cpu_app):
     launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
     check(launches["K1"] >= 1, "the served anomaly requests never launched K1")
     check(launches["K2"] >= 1, "the served fleet request never launched K2")
+    max_diff = check_answers(requests, answers, names, 20, cpu_app)
+    phase("serve", f"{len(requests)} requests, K1 launches {launches['K1']}, K2 launches {launches['K2']}, "
+          f"max abs diff vs the CPU app {max_diff:.3e} (rtol {RTOL}, atol {ATOL})")
+
+    # the 40-tag bucket: its spec is wider than 32, so only the wide kernel runs
+    frame = request_frame(200, n_tags=WIDE_TAGS)
+    wide_requests = [
+        (f"/{wide_names[5]}/anomaly/prediction", {"X": frame, "y": frame}),
+        ("/prediction/fleet", {"X": {n: request_frame(210 + i, n_tags=WIDE_TAGS) for i, n in enumerate(wide_names)}}),
+    ]
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    wide_answers = [post(base + path, payload) for path, payload in wide_requests]
+    wide_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(wide_launches["K1"] >= 1, "the 40-tag anomaly request never launched K1's wide kernel")
+    check(wide_launches["K2"] >= 1, "the 40-tag fleet request never launched K2's wide kernel")
+    wide_diff = check_answers(wide_requests, wide_answers, wide_names, WIDE_TAGS, cpu_app)
+    phase("serve", f"{len(wide_requests)} 40-tag requests (hourglass40, the wide kernel), "
+          f"K1 launches {wide_launches['K1']}, K2 launches {wide_launches['K2']}, "
+          f"max abs diff vs the CPU app {wide_diff:.3e} (rtol {RTOL}, atol {ATOL})")
+    return launches, wide_launches
+
+
+def check_answers(requests, answers, names, n_tags, cpu_app):
+    """Each answer 200, of the right shape, equal to the CPU app's; returns
+    the largest abs difference."""
+    import math
 
     max_diff = 0.0
     for (path, payload), (status, body, ms) in zip(requests, answers):
@@ -503,13 +588,11 @@ def serve_phase(base, names, cpu_app):
             check(sorted(data) == names, "fleet answered other machines")
             check(all(list(entry) == ["model-output", "total-anomaly-unscaled"] for entry in data.values()),
                   "fleet entry groups")
-            check(all(len(entry["model-output"]) == 20 and len(entry["total-anomaly-unscaled"]) == ROWS
+            check(all(len(entry["model-output"]) == n_tags and len(entry["total-anomaly-unscaled"]) == ROWS
                       for entry in data.values()), "fleet entry shape")
             phase("serve", f"POST {path} ({len(names)} machines x {ROWS} rows): 200 in {ms:.1f} ms")
         max_diff = max(max_diff, same_json(cpu_body["data"], data))
-    phase("serve", f"{len(requests)} requests, K1 launches {launches['K1']}, K2 launches {launches['K2']}, "
-          f"max abs diff vs the CPU app {max_diff:.3e} (rtol {RTOL}, atol {ATOL})")
-    return launches
+    return max_diff
 
 
 def sse_events(body):
@@ -597,16 +680,19 @@ def cuda_ms(fn, iters=20, warmup=3):
 def ptxas_report(log):
     """``"<kernel>: <registers>, <spills>"`` for each entry function in
     ``nvcc -Xptxas -v``'s output; kernels named ``narrow<S>`` (S lanes a
-    row) and ``wide<TB,NT>``."""
+    row) and ``wide<resident|streamed, 8|16>`` (the member's weights
+    staged once or streamed through the ring; at most 8 or 16 fragments a
+    warp)."""
     import re
 
     report, name, spills = [], None, ""
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            wide = re.search(r"wide_kernelILi(\d+)ELi(\d+)", entry.group(1))
+            wide = re.search(r"wide_kernelILb([01])ELb([01])E", entry.group(1))
             narrow = re.search(r"narrow_kernelILi(\d+)E", entry.group(1))
-            name = f"wide<{wide.group(1)},{wide.group(2)}>" if wide else \
+            name = f"wide<{'resident' if wide.group(1) == '1' else 'streamed'}, {16 if wide.group(2) == '1' else 8}>" \
+                if wide else \
                 f"narrow<{narrow.group(1)}>" if narrow else \
                 "narrow" if "narrow_kernel" in entry.group(1) else entry.group(1)
         elif "spill" in line:
@@ -637,9 +723,30 @@ def narrow_plan(case):
     return tuple(v.value for v in out)
 
 
+def wide_plan(case):
+    """``(resident, rows a tile, warps a 16-row slice, shared memory bytes a
+    block, blocks an SM, grid)`` of the wide kernel at ``case``'s shape, as
+    its launch works them out."""
+    import ctypes
+
+    from gordo_tpu_torch.ops import _build
+
+    fn = _build.load("fleet_dense").fleet_dense_wide_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    widths = case["spec"].widths()
+    dims = (ctypes.c_int * len(widths))(*widths)
+    M, B, _ = case["X"].shape
+    out = [ctypes.c_int() for _ in range(6)]
+    status = fn(len(widths) - 1, ctypes.cast(dims, ctypes.c_void_p), M, B, *map(ctypes.byref, out))
+    check(status == 0, f"fleet_dense_wide_occupancy returned {status}")
+    return tuple(v.value for v in out)
+
+
 def library_chain(case):
     """cuBLAS ``baddbmm`` per layer over pre-gathered params: the library
-    yardstick for the same function."""
+    yardstick for the same function (in full f32 unless the caller lets
+    cuBLAS use TF32, see :func:`with_tf32`)."""
     import torch
 
     from gordo_tpu_torch.ops.activations import resolve_activation
@@ -663,10 +770,14 @@ def library_chain(case):
 
 
 def bound(case):
-    """(bound_ms, bound_by): each input read once and each output written
-    once against HBM, and 2 flops per multiply-add against the f32 rate.
-    With K2's targets ``case["y"]``: 4 more bytes a row for the mse, y's
-    bytes when y is not X, and 3 flops a compared column."""
+    """(bound_ms, bound_by, cuda_core_ms): each input read once and each
+    output written once against HBM, and 2 flops per multiply-add against
+    the card's fastest f32-accurate rate, the tensor cores' 3xTF32
+    (``PEAK_3XTF32_FLOP_PER_S``); ``cuda_core_ms`` is the same bound at the
+    f32 rate outside the tensor cores (67 TFLOP/s), the bound before the
+    wide kernel used them, kept for the record. With K2's targets
+    ``case["y"]``: 4 more bytes a row for the mse, y's bytes when y is not
+    X, and 3 flops a compared column."""
     spec, X = case["spec"], case["X"]
     M, B, _ = X.shape
     # only the members the batch reads: a gather touches len(set(indices)) rows
@@ -683,25 +794,44 @@ def bound(case):
         byte_count += 4 * M * B + (0 if y is X else 4 * y.numel())
         flops += 3 * M * B * min(spec.n_features_out, y.shape[-1])
     byte_ms = byte_count / PEAK_BYTES_PER_S * 1e3
-    flop_ms = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+    flop_ms = flops / PEAK_3XTF32_FLOP_PER_S * 1e3
+    cuda_core_ms = max(byte_ms, flops / PEAK_F32_FLOP_PER_S * 1e3)
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations", cuda_core_ms
+
+
+def with_tf32(fn):
+    """``fn`` with cuBLAS allowed TF32 (one product, ~3 decimal digits):
+    what the library gives on the tensor cores, less accurate than the
+    kernel's 3xTF32; the yardstick stays the f32 chain."""
+    import torch
+
+    def run():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    return run
 
 
 def times(case):
+    """K1, its plain version, the f32 ``baddbmm`` chain, the chain with
+    TF32, and the bounds."""
     from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward, fleet_feedforward_reference
 
     args = (case["spec"], case["bucket"], case["X"], case["indices"], case["ingest"])
     kernel = cuda_ms(lambda: fleet_feedforward(*args))
     plain = cuda_ms(lambda: fleet_feedforward_reference(*args))
     library = cuda_ms(library_chain(case))
-    bound_ms, bound_by = bound(case)
-    return kernel, plain, library, bound_ms, bound_by
+    library_tf32 = cuda_ms(with_tf32(library_chain(case)))
+    return (kernel, plain, library, library_tf32, *bound(case))
 
 
 def scores_times(case):
     """K2, its plain version, the library yardstick (the ``baddbmm`` chain
-    and ``torch.square(out - y).mean(-1)``), K1 alone at the same shape,
-    and the bound."""
+    and ``torch.square(out - y).mean(-1)``) in f32 and with TF32, K1 alone
+    at the same shape, and the bounds."""
     import torch
 
     from gordo_tpu_torch.ops.fleet_dense import (
@@ -722,9 +852,9 @@ def scores_times(case):
     kernel = cuda_ms(lambda: fleet_anomaly_scores(*args))
     plain = cuda_ms(lambda: fleet_anomaly_scores_reference(*args))
     library_ms = cuda_ms(library)
+    library_tf32 = cuda_ms(with_tf32(library))
     k1 = cuda_ms(lambda: fleet_feedforward(*args[:3], *args[4:]))
-    bound_ms, bound_by = bound(case)
-    return kernel, plain, library_ms, k1, bound_ms, bound_by
+    return (kernel, plain, library_ms, library_tf32, k1, *bound(case))
 
 
 # -- main ------------------------------------------------------------------------------
@@ -796,16 +926,16 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
         collection = os.path.join(work_dir, "1700000000000")
-        names = write_collection(collection)
+        names, wide_names = write_collection(collection)
         app = build_app(collection, device="cuda")
-        check(len(app.store.fleet().warm()) == SERVED_MACHINES, "not every model loaded")
+        check(len(app.store.fleet().warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
         cpu_app = build_app(collection, device="cpu")
         server = make_wsgi_server(app, "127.0.0.1", 0)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         base = f"http://127.0.0.1:{server.server_port}/gordo/v0/smoke"
         try:
-            launches = serve_phase(base, names, cpu_app)
+            launches, wide_launches = serve_phase(base, names, wide_names, cpu_app)
             stream_launches, _latencies, _rows_per_s = stream_phase(base, names, cpu_app)
         finally:
             server.shutdown()
@@ -817,6 +947,11 @@ def main():
         split, smem, per_sm, grid = narrow_plan(scored[name] if name.startswith("K2") else cases[name])
         phase("occupancy", f"narrow kernel at {name}: {split} lanes a row, {smem} B of shared memory a block, "
               f"{per_sm} blocks of 128 threads an SM, grid {grid}")
+    for name in (*WIDE_CASES, "widest: 512-300-1-512 B=70"):
+        resident, rows, wpr, smem, per_sm, grid = wide_plan(cases[name])
+        phase("occupancy", f"wide kernel at {name}: weights {'resident' if resident else 'streamed'}, "
+              f"{rows}-row tiles, {wpr} warps a 16-row slice, {smem} B of shared memory a block, "
+              f"{per_sm} blocks of 512 threads an SM, grid {grid}")
 
     # what no kernel launch can beat: one launch of a one-element kernel
     one = torch.zeros(1, device="cuda")
@@ -825,10 +960,12 @@ def main():
     timed = {}
     for name in list(cases)[:TIMED]:
         timed[name] = times(cases[name])
-        kernel, plain, library, bound_ms, bound_by = timed[name]
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
         served = f", launch floor {floor!r} ms" if name.startswith("served") else ""
-        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms, "
-              f"bound {bound_ms!r} ms ({bound_by}){served}; {card}")
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms "
+              f"(with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
+              f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+              f"({cuda_core_ms / kernel:.1%}){served}; {card}")
     anomaly = cases[NARROW_CASES[2]]
     on_card = torch.tensor(anomaly["indices"], dtype=torch.int32, device="cuda")
     k1_on_card = cuda_ms(lambda: fleet_feedforward(
@@ -836,13 +973,14 @@ def main():
     phase("times", f"{NARROW_CASES[2]}, indices already on the card: K1 {k1_on_card!r} ms (host indices "
           f"{timed[NARROW_CASES[2]][0]!r} ms), launch floor {floor!r} ms; {card}")
     scored_timed = {}
-    for name in list(scored)[:4]:
+    for name in list(scored)[:6]:
         scored_timed[name] = scores_times(scored[name])
-        kernel, plain, library, k1, bound_ms, bound_by = scored_timed[name]
+        kernel, plain, library, library_tf32, k1, bound_ms, bound_by, cuda_core_ms = scored_timed[name]
         served = f", launch floor {floor!r} ms" if "served" in name or "stream" in name else ""
-        phase("times", f"{name}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms, "
-              f"K1 alone {k1!r} ms (epilogue {kernel - k1:+.5f} ms), bound {bound_ms!r} ms ({bound_by})"
-              f"{served}; {card}")
+        phase("times", f"{name}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms "
+              f"(with TF32 {library_tf32!r} ms), K1 alone {k1!r} ms (epilogue {kernel - k1:+.5f} ms), "
+              f"bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), "
+              f"CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}){served}; {card}")
 
     for name in NARROW_CASES:
         case = cases[name]
@@ -869,41 +1007,30 @@ def main():
         phase("split", f"{name}, indices on the card: {narrow_plan(case)[0]} lanes a row {split!r} ms, "
               f"one lane a row {unsplit!r} ms (split/one {split / unsplit:.2f}), launch floor {floor!r} ms; {card}")
 
-    headline = "hourglass20 M=1000 B=1008"
-    kernel, plain, library, bound_ms, bound_by = timed[headline]
-    k2_headline = "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"
-    k2_kernel, k2_plain, k2_library, _k1, k2_bound_ms, k2_bound_by = scored_timed[k2_headline]
+    def entry(name, replaces, launches_, by_path, case, numbers):
+        kernel, plain, library, library_tf32 = numbers[:4]
+        bound_ms, bound_by, cuda_core_ms = numbers[-3:]
+        return {
+            "name": name, "route": "cuda", "source": "gordo_tpu_torch/ops/csrc/fleet_dense.cu",
+            "replaces": replaces, "launches": launches_, "launches_by_path": by_path, "shape": case,
+            "max_abs_err": errors[case][0], "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library, "library_tf32_ms": library_tf32,
+            "cuda_core_bound_ms": cuda_core_ms, "launch_floor_ms": floor,
+        }
+
+    k1_by_path = {"serve": launches["K1"], "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"]}
+    k2_by_path = {"serve": launches["K2"], "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"]}
+    k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
-        {
-            "name": "fleet_dense (K1)",
-            "route": "cuda",
-            "source": "gordo_tpu_torch/ops/csrc/fleet_dense.cu",
-            "replaces": "gordo_tpu/ops/pallas_dense.py:114",
-            "launches": launches["K1"],
-            "launches_by_path": {"serve": launches["K1"], "stream": stream_launches["K1"]},
-            "max_abs_err": errors[headline][0],
-            "ms": kernel,
-            "plain_ms": plain,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": library,
-            "launch_floor_ms": floor,
-        },
-        {
-            "name": "fleet_anomaly_scores (K2)",
-            "route": "cuda",
-            "source": "gordo_tpu_torch/ops/csrc/fleet_dense.cu",
-            "replaces": "gordo_tpu/ops/pallas_dense.py:126",
-            "launches": stream_launches["K2"],
-            "launches_by_path": {"serve": launches["K2"], "stream": stream_launches["K2"]},
-            "max_abs_err": errors[k2_headline][0],
-            "ms": k2_kernel,
-            "plain_ms": k2_plain,
-            "bound_ms": k2_bound_ms,
-            "bound_by": k2_bound_by,
-            "library_ms": k2_library,
-            "launch_floor_ms": floor,
-        },
+        entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
+              k1_by_path, "hourglass20 M=1000 B=1008", timed["hourglass20 M=1000 B=1008"]),
+        entry("fleet_anomaly_scores (K2), narrow kernel", "gordo_tpu/ops/pallas_dense.py:126",
+              stream_launches["K2"], k2_by_path, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest",
+              scored_timed["K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"]),
+        entry("fleet_dense (K1), wide kernel", "gordo_tpu/ops/pallas_dense.py:114", wide_launches["K1"],
+              k1_by_path, WIDE_CASES[0], timed[WIDE_CASES[0]]),
+        entry("fleet_anomaly_scores (K2), wide kernel", "gordo_tpu/ops/pallas_dense.py:126", wide_launches["K2"],
+              k2_by_path, k2_wide, scored_timed[k2_wide]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,26 +82,79 @@
 //     Otherwise S = 1: a split costs shuffles and padding that lose
 //     wherever the card is full.
 
-// Wider specs (up to kMaxWidth = 512): fleet_dense_wide_kernel<TB>, a
-// SIMT matrix product in the style of an SGEMM, one layer after another.
-//   - TB = 64 rows a block (32 above 256 wide), 256 threads (512 above
-//     128 wide, where the layers keep 16 warps busy). The tile's
-//     activations live in two shared-memory buffers, transposed
-//     ([width][TB + 4]); layers ping-pong between them and only the
-//     final layer is written out.
-//   - A layer's weights do not fit at once (feedforward_model's 256x128
-//     is 128 KB beside 136 KB of activations), so they stream through
-//     two 16-row chunk buffers with cp.async: chunk c + 1 is in flight
-//     while chunk c is multiplied.
-//   - Each thread holds an 8-row x 4-column tile of the output in 32
-//     registers: per k it reads two float4 of activations (a broadcast
-//     within a warp) and 4 weights (consecutive across the warp, so no
-//     bank conflicts) for 32 FMAs.
-//   - Bias, activation and softmax (a reduction across a row) are
-//     separate passes over the finished layer in shared memory.
-//
-// Both kernels sum in plain f32 FMAs, k in order, and add the bias after
-// the sum, as the plain version's bmm + b does. No TF32, no tensor cores.
+// Wider specs (up to kMaxWidth = 512): fleet_dense_wide_kernel<R, WF>,
+// the layer sums on the tensor cores. What bounds it: feedforward_model(20)
+// is ~1,000 flops a byte, so the rate of f32-accurate products; exact
+// f32 FMAs top out at 67 TFLOP/s, while 3xTF32 on the tensor cores
+// (495 TFLOP/s TF32, three products a multiply-add) gives ~165
+// f32-equivalent TFLOP/s. A 40-wide hourglass is bound by its bytes.
+// Measured, both are bound by latency instead (PERF.md): the parts (sums,
+// exact activations, weight streaming) add up rather than overlap.
+//   - 3xTF32 mma.sync.m16n8k8: each f32 operand x is split into
+//     hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and a product is
+//     lo*hi + hi*lo + hi*hi, the small terms first, summed in f32 by the
+//     tensor core; the dropped lo*lo is ~2^-22 of the product, so the sum
+//     keeps f32 accuracy. The A split (activations) is made once a k step
+//     and reused across all the warp's n-fragments; per group of 8
+//     fragments the three products go out in waves (every lo*hi, then
+//     every hi*lo, then every hi*hi), so 8 independent products stand
+//     between two that share an accumulator. A non-finite activation
+//     keeps lo = 0, so inf and NaN pass through hi alone. mma.sync, not
+//     wgmma: a warp owns 16 rows and walks every layer on its own (below),
+//     which wgmma's 64-row warpgroup tiles would undo for the 20-40-wide
+//     layers of served specs.
+//   - Rows are dealt to warps before columns: 16 warps, each owning a
+//     16-row slice of the block's row tile (TR = 256 rows) and every
+//     n-fragment of every layer, so a 20-wide head keeps every warp busy.
+//     When a tile has fewer rows (TR = 128, 64, 32, 16: shared memory or
+//     few rows force it) 2, 4, 8 or 16 warps share a slice, each taking
+//     every wpr-th fragment. A warp holds at most 16 fragments (64
+//     accumulators); a layer that would give it 9-16 is padded to 16 a
+//     warp (zero weights in the padding; WF = true, a build of its own).
+//   - The slice's activations sit in one shared-memory buffer (row stride
+//     lda = widest layer rounded to 8, plus 4: = 4 mod 8, so the A
+//     fragment loads hit 32 banks) and every layer works in place: a warp
+//     sums all its fragments over every k, then, once every warp of the
+//     slice is done reading its rows, writes the layer back over them.
+//     One buffer instead of two is what lets feedforward_model's
+//     256-wide rows take 128-row tiles. A warp touches only its slice, so
+//     with one warp a slice layers need only __syncwarp.
+//   - Depth and columns are padded to 8 (not 16 or 4 column groups):
+//     padded weight rows and columns are zero, the padded input columns
+//     are zeros, and padded output columns (act(0), finite) meet only zero
+//     weight rows in the next layer and never reach out or the MSE.
+//   - Weights, R = true (resident): when a member's whole stack fits
+//     beside the tiles (hourglass(40): 8,384 padded weights, 33 KB), it
+//     is staged once per member change, zero-filled, in rows of ldw = 8
+//     mod 16 floats (the B fragment loads hit 32 banks). R = false
+//     (streamed, feedforward_model): every layer is cut into k chunks of
+//     the whole layer's width, as many rows as a stage holds, that stream
+//     through a ring of 4 shared-memory stages, three tiles ahead of the
+//     one multiplied, across layer and row-tile boundaries, so the next
+//     layer's first tiles fly under the current layer's epilogue. One
+//     cp.async group and one __syncthreads a tile: every warp consumes
+//     every tile, so the barrier is the wait all of them need anyway
+//     (an mbarrier ring would let no warp run further ahead than the
+//     stage it waits on). Copies are 16-byte cp.async where W's rows are
+//     16-byte aligned, and 4-byte ones at odd widths (33 x 27 x 4 = 3,564
+//     bytes a member is not).
+//   - Persistent blocks walk contiguous runs of (batch row, row tile), as
+//     the narrow kernel does, with the raw row tile and the tile's small
+//     params (every layer's bias, the ingest scale and offset)
+//     double-buffered: tile t + 1's fly while tile t is computed. The host
+//     works out every offset (wide_layout), so the device divides nothing.
+//   - The epilogue works on the accumulators: bias after the sum, then
+//     the exact activate() in registers. Softmax is a pass over the
+//     slice's own rows. K2's MSE and the coalesced final store walk the
+//     slice's rows, lanes over columns, with a warp shuffle for each
+//     row's sum, y = X read from the raw tile still in shared memory.
+//   - Few rows still spread: the row tile is halved (down to 16 rows)
+//     while M x B rows make fewer tiles than SMs, so the served anomaly
+//     request (M = 1, B = 1008: 63 tiles of 16 rows) runs on 63 SMs, not 4.
+
+// The narrow kernel sums in plain f32 FMAs, k in order, the wide one in
+// 3xTF32 on the tensor cores; both add the bias after the sum, as the
+// plain version's bmm + b does.
 //
 // K2, the fleet anomaly scores (fleet_dense_forward with y and mse), replaces
 // gordo_tpu/ops/pallas_dense.py::fleet_anomaly_scores_pallas: K1, then
@@ -118,20 +171,24 @@
 //     ingest prologue only read it; the buffer is refilled only after the
 //     tile's last barrier), so y costs no second read. Otherwise each
 //     thread reads its row of y from global memory.
-//   - Wide kernel: the final store walks one row a warp, lanes striding
-//     the row's columns; each lane sums its squares, a warp shuffle adds
-//     them, and lane 0 writes the row's mse.
-// Padded weight columns (narrow: widths rounded up to 4; wide: chunks)
+//   - Wide kernel: the final store walks the slice's rows, lanes striding
+//     a row's columns; each lane sums its squares, a warp shuffle adds
+//     them, and lane 0 writes the row's mse. y = X comes from the raw
+//     tile in shared memory, as in the narrow kernel.
+// Padded weight columns (narrow: widths rounded up to 4; wide: to 8)
 // never enter the sum: it runs over the real columns j < w only.
 //
-// Neither kernel uses fast math, *.approx intrinsics or TF32.
+// Neither kernel uses fast math or *.approx intrinsics; only the wide
+// kernel's products go through TF32, three to an f32 product.
 //
 // Builds for measurement only (chip_smoke.py, scripts/narrow_ablation.py):
 // -DFLEET_DENSE_WIDE_ONLY sends narrow specs to the wide kernel;
 // -DFLEET_DENSE_NO_SPLIT never shares a row among lanes; and
-// -DFLEET_DENSE_SKIP_FMAS / -DFLEET_DENSE_SKIP_ACTIVATIONS leave the
-// narrow kernel's layer sums or activations out, computing wrong answers
-// on purpose, so that the time of each part shows apart.
+// -DFLEET_DENSE_SKIP_FMAS / -DFLEET_DENSE_SKIP_ACTIVATIONS leave both
+// kernels' layer sums or activations out, and -DFLEET_DENSE_SKIP_SPLIT
+// the wide kernel's hi/lo split of the weights (hi the raw f32, lo 0),
+// computing wrong answers on purpose, so that the time of each part shows
+// apart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,7 +200,12 @@ constexpr int kMaxWidth = 512;
 constexpr int kNarrowWidth = 32;
 constexpr int kNarrowThreads = 128;  // threads a block of the narrow kernel
 constexpr int kNarrowWarps = kNarrowThreads / 32;
-constexpr int kWideKC = 16;  // weight rows a chunk
+constexpr int kWideThreads = 512;  // threads a block of the wide kernel
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideMaxRows = 16 * kWideWarps;  // rows a tile with one warp a slice
+constexpr int kWideMaxFrags = 16;  // n-fragments a warp holds at most (64 accumulators)
+constexpr int kWideStages = 4;                 // streamed tiles in the ring
+constexpr int kWideMaxSmem = 232448;           // shared memory a block can have (H100)
 
 // Must match gordo_tpu_torch/ops/activations.py ACTIVATION_CODES.
 enum Act : int {
@@ -182,11 +244,19 @@ struct Layer {
   int d_in;
   int d_out;
   int act;
-  // narrow kernel, worked out on the host:
-  int ldw;    // d_out rounded up to 4, the staged row length
-  int w_off;  // offset of the staged W, in floats; b is its row d_in
-  int warp0;  // the warp that stages row 0 (the rows of all layers are
-              // dealt round-robin to the warps)
+  // worked out on the host:
+  int ldw;    // the staged row length: narrow, d_out rounded up to 4;
+              // wide, n8 or n8 + 8, whichever is 8 mod 16
+  int w_off;  // offset of the staged W, in floats; narrow: b is its row d_in
+  int warp0;  // narrow: the warp that stages row 0 (the rows of all
+              // layers are dealt round-robin to the warps)
+  int k8;       // wide: d_in rounded up to 8
+  int n8p;      // wide: d_out rounded up to 8, or to 8 x fw x warps a slice
+  int fw;       // wide: fragments a warp holds when above 8, else 0
+  int kc;       // wide, streamed: k rows a ring tile
+  int kchunks;  // wide, streamed: ring tiles of the layer, ceil(k8 / kc)
+  int b_off;    // wide: offset of b (n8p floats) in a tile's staged params
+  int vec;      // wide: W's rows are 16-byte aligned (16-byte copies)
 };
 
 struct Args {
@@ -201,13 +271,23 @@ struct Args {
   int F_y;
   int w;                // columns in the MSE: min(F_out, F_y)
   int tiles;            // row tiles per member
-  long long n_tiles;    // narrow kernel: M * tiles
+  long long n_tiles;    // M * tiles
   int ingest_off;       // narrow kernel: offset of the staged scale, offset
   int ingest_warp;      // narrow kernel: the warp that stages scale
   int stage_floats;     // narrow kernel: floats of the staged params
   int x_floats;         // narrow kernel: floats of one row-tile buffer
-  int act_floats;       // wide kernel: floats in one activation buffer
-  int w_floats;         // wide kernel: floats in one weight chunk
+  int tile_rows;        // wide kernel: rows a tile (TR), 16 x slices
+  int wpr_shift;        // wide kernel: log2 of the warps a 16-row slice
+  int lda;              // wide kernel: row stride of the activations
+  int act_off;          // wide kernel: offset of the activation buffer
+  int raw_off;          // wide kernel: offset of the two raw row-tile buffers
+  int raw_floats;       // wide kernel: floats of one raw buffer
+  int ring_tiles;       // wide kernel, streamed: weight tiles a row tile
+  int ring_stage;       // wide kernel, streamed: floats of a ring stage
+  int prm_off;          // wide kernel: offset of the two buffers of a tile's params
+  int prm_floats;       // wide kernel: floats of one: every layer's b, then scale, offset
+  int sc_off;           // wide kernel: offset of scale in it (offset follows at + f4)
+  int f4;               // wide kernel: F rounded up to 4
   Layer layers[kMaxLayers];
 };
 
@@ -424,6 +504,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
+// 16 bytes, or 16 zeros (reading nothing) when valid is false.
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -463,14 +550,15 @@ __device__ __forceinline__ void stage_member(float* smem, const Args& a, int n) 
 }
 
 // n floats from global src to shared dst (16-byte aligned) with cp.async,
-// 16 bytes a copy where src is 16-byte aligned too.
+// 16 bytes a copy where src is 16-byte aligned too; NT threads take part.
+template <int NT>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n) {
   int i0 = 0;
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    for (int i = 4 * threadIdx.x; i + 4 <= n; i += 4 * kNarrowThreads) cp_async16(dst + i, src + i);
+    for (int i = 4 * threadIdx.x; i + 4 <= n; i += 4 * NT) cp_async16(dst + i, src + i);
     i0 = n & ~3;
   }
-  for (int i = i0 + threadIdx.x; i < n; i += kNarrowThreads) cp_async4(dst + i, src + i, true);
+  for (int i = i0 + threadIdx.x; i < n; i += NT) cp_async4(dst + i, src + i, true);
 }
 
 // n floats from shared src (16-byte aligned) to global dst, 16 bytes a
@@ -554,7 +642,7 @@ __global__ void __launch_bounds__(kNarrowThreads)
   {
     // the rows first: they do not wait on the member index
     const int row0 = tile * TR;
-    stage_rows(xbuf, a.X + ((size_t)m * a.B + row0) * a.F, min(TR, a.B - row0) * a.F);
+    stage_rows<kNarrowThreads>(xbuf, a.X + ((size_t)m * a.B + row0) * a.F, min(TR, a.B - row0) * a.F);
   }
   int n = __ldg(a.indices + m);
   stage_member(smem, a, n);
@@ -575,7 +663,7 @@ __global__ void __launch_bounds__(kNarrowThreads)
       // the next tile's rows fly while this one is computed
       if (m_next != m) n_next = __ldg(a.indices + m_next);
       const int next0 = tile_next * TR;
-      stage_rows(xbuf + (buf ^ 1) * a.x_floats, a.X + ((size_t)m_next * a.B + next0) * a.F,
+      stage_rows<kNarrowThreads>(xbuf + (buf ^ 1) * a.x_floats, a.X + ((size_t)m_next * a.B + next0) * a.F,
                  min(TR, a.B - next0) * a.F);
     }
     cp_async_commit();
@@ -600,26 +688,8 @@ __global__ void __launch_bounds__(kNarrowThreads)
   }
 }
 
-// Rows k0 .. k0 + kWideKC of a member's W[d_in][d_out] into
-// dst[kWideKC][ldw], zeros past d_in and d_out; a warp a row, a lane a
-// column, so the global reads are coalesced. Commits one cp.async group.
-template <int NT>
-__device__ __forceinline__ void stage_chunk(float* dst, const float* W, int k0, int d_in,
-                                            int d_out, int ldw) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int kk = warp; kk < kWideKC; kk += NT / 32) {
-    const int k = k0 + kk;
-    for (int c = lane; c < ldw; c += 32) {
-      const bool valid = k < d_in && c < d_out;
-      cp_async4(dst + kk * ldw + c, valid ? W + (size_t)k * d_out + c : W, valid);
-    }
-  }
-  cp_async_commit();
-}
-
-// The same arithmetic as softmax_row, on one row r of a transposed
-// buffer: v[c * stride] is the row's value c.
+// The same arithmetic as softmax_row, on one row: v[c * stride] is the
+// row's value c.
 __device__ __forceinline__ void softmax_column(float* v, int stride, int width) {
   float mx = v[0];
   for (int c = 1; c < width; ++c) mx = v[c * stride] > mx ? v[c * stride] : mx;
@@ -634,155 +704,462 @@ __device__ __forceinline__ void softmax_column(float* v, int stride, int width) 
 
 __host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 
-template <int TB, int NT>
-__global__ void __launch_bounds__(NT)
-    fleet_dense_wide_kernel(const __grid_constant__ Args a) {
-  constexpr int LD = TB + 4;  // row stride of the transposed activations
-  constexpr int RG = TB / 8;  // groups of 8 rows
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  // two activation buffers, act(i)[k * LD + r] holding row r's value k;
-  // two weight chunk buffers; the bias
-  auto act = [&](int i) { return smem + i * a.act_floats; };
-  auto wbuf = [&](int i) { return smem + 2 * a.act_floats + i * a.w_floats; };
-  float* bias = wbuf(2);
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as the
+// bits of an f32 whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
 
-  const int m = blockIdx.x / a.tiles;
-  const int tile = blockIdx.x - m * a.tiles;
-  const int row0 = tile * TB;
-  const int rows = min(TB, a.B - row0);
-  const int n = a.indices[m];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// x = hi + lo to ~22 bits. With kGuard (activations), lo = 0 when x is
+// not finite, so inf and NaN pass through hi alone (x - hi would be NaN
+// for an inf); weights are finite and go unguarded.
+template <bool kGuard>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  const float rest = x - __uint_as_float(hi);
+  lo = to_tf32(kGuard && !isfinite(rest) ? 0.f : rest);
+}
 
-  // The row tile, transposed, with the ingest affine as a prologue; zeros
-  // past the last row and in the feature rows up to a whole chunk.
-  {
-    const float* x = a.X + ((size_t)m * a.B + row0) * a.F;
-    const float* sc = a.scale ? a.scale + (size_t)n * a.F : nullptr;
-    const float* of = a.offset ? a.offset + (size_t)n * a.F : nullptr;
-    const int f_pad = round_up(a.F, kWideKC);
-    for (int r = warp; r < TB; r += NT / 32) {
-      for (int f = lane; f < f_pad; f += 32) {
-        float v = 0.f;
-        if (r < rows && f < a.F) {
-          v = x[(size_t)r * a.F + f];
-          // multiply then add, each rounded, as the plain version does
-          if (sc) v = __fadd_rn(__fmul_rn(v, sc[f]), of[f]);
-        }
-        act(0)[f * LD + r] = v;
+// c += a b on the tensor cores: one m16n8k8 product of TF32 operands,
+// summed in f32.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[i] += in x w over `ksteps` k steps of 8 for the warp's FW
+// n-fragments f = part + i * wpr, in 3xTF32: per k step, for each group of
+// up to 8 fragments, every lo*hi, then every hi*lo, then every hi*hi, so
+// that up to 8 independent products stand between two that share an
+// accumulator; the A split is made once a k step for all FW fragments.
+// `in` is the slice's row 0 at the first k (row stride lda); `w` the
+// weights at that k, column 0 (row stride ldw). Fragments (g = lane / 4,
+// t = lane % 4): A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); B b0 (k t, n g), b1 (k t + 4, n g).
+template <int FW>
+__device__ __forceinline__ void mma_steps(float (&acc)[FW][4], const float* in, int lda, const float* w,
+                                          int ldw, int ksteps, int part, int wpr) {
+  constexpr int kGroup = FW < 8 ? FW : 8;
+  constexpr int kUnroll = FW <= 8 ? 2 : 1;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* a0 = in + g * lda + t;
+  const float* a1 = a0 + 8 * lda;
+  const float* b = w + t * ldw + g + 8 * part;
+  const int fstride = 8 * wpr;
+#pragma unroll kUnroll
+  for (int s = 0; s < ksteps; ++s) {
+    const float av[4] = {a0[8 * s], a1[8 * s], a0[8 * s + 4], a1[8 * s + 4]};
+    uint32_t ahi[4], alo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32<true>(av[j], ahi[j], alo[j]);
+    const float* bk = b + 8 * s * ldw;
+#pragma unroll
+    for (int g0 = 0; g0 < FW; g0 += kGroup) {
+      float bv[kGroup][2];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        bv[i][0] = bk[(g0 + i) * fstride];
+        bv[i][1] = bk[(g0 + i) * fstride + 4 * ldw];
       }
+      uint32_t bhi[kGroup][2], blo[kGroup][2];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+#ifdef FLEET_DENSE_SKIP_SPLIT
+        bhi[i][0] = __float_as_uint(bv[i][0]);
+        bhi[i][1] = __float_as_uint(bv[i][1]);
+        blo[i][0] = blo[i][1] = 0u;
+#else
+        split_tf32<false>(bv[i][0], bhi[i][0], blo[i][0]);
+        split_tf32<false>(bv[i][1], bhi[i][1], blo[i][1]);
+#endif
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) mma_tf32(acc[g0 + i], alo, bhi[i][0], bhi[i][1]);
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) mma_tf32(acc[g0 + i], ahi, blo[i][0], blo[i][1]);
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) mma_tf32(acc[g0 + i], ahi, bhi[i][0], bhi[i][1]);
     }
   }
+}
 
-  int cur = 0;
+// `cols` floats (a multiple of 8) of weight row k of a member's W into
+// dst, zeros past d_in and d_out; a warp a row, lanes over the columns
+// (coalesced reads). 16-byte copies where W's rows are 16-byte aligned
+// (then d_out is a multiple of 4, so a copy is all in or all out); else
+// 4-byte ones (odd widths: 33 x 27 x 4 = 3,564 bytes a member).
+__device__ __forceinline__ void copy_w_row(float* dst, const float* W, const Layer& L, int k, int cols) {
+  const int lane = threadIdx.x & 31;
+  const bool row = k < L.d_in;
+  const float* src = row ? W + (size_t)k * L.d_out : W;
+  const int valid_cols = row ? L.d_out : 0;
+  if (L.vec) {
+    for (int c = 4 * lane; c < cols; c += 128) {
+      const bool valid = c < valid_cols;
+      cp_async16z(dst + c, valid ? src + c : W, valid);
+    }
+  } else {
+    for (int c = lane; c < cols; c += 32) {
+      const bool valid = c < valid_cols;
+      cp_async4(dst + c, valid ? src + c : W, valid);
+    }
+  }
+}
+
+// Member n's whole stack into the resident weights: each layer's W as
+// [k8][ldw] at w_off, zeros past d_in and d_out. The caller commits.
+__device__ __forceinline__ void stage_stack(float* dst, const Args& a, int n) {
+  const int warp = threadIdx.x >> 5;
   for (int l = 0; l < a.n_layers; ++l) {
     const Layer& L = a.layers[l];
     const float* W = L.W + (size_t)n * L.d_in * L.d_out;
-    const int ncg = (L.d_out + 3) / 4;  // column groups: group cg owns cg + j * ncg
-    const int ldw = 4 * ncg;
-    const int chunks = (L.d_in + kWideKC - 1) / kWideKC;
-    const float* in = act(cur);
-    float* out = act(cur ^ 1);
-    for (int c = threadIdx.x; c < ldw; c += NT) {
-      bias[c] = c < L.d_out ? L.b[(size_t)n * L.d_out + c] : 0.f;
-    }
+    for (int k = warp; k < L.k8; k += kWideWarps) copy_w_row(dst + L.w_off + k * L.ldw, W, L, k, L.n8p);
+  }
+}
 
-    for (int item0 = 0; item0 < RG * ncg; item0 += NT) {
-      const int item = item0 + threadIdx.x;
-      const bool active = item < RG * ncg;
-      const int rg = item / ncg;
-      const int cg = item - rg * ncg;
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      }
-      stage_chunk<NT>(wbuf(0), W, 0, L.d_in, L.d_out, ldw);
-      for (int ch = 0; ch < chunks; ++ch) {
-        if (ch + 1 < chunks) {
-          stage_chunk<NT>(wbuf((ch + 1) & 1), W, (ch + 1) * kWideKC, L.d_in, L.d_out, ldw);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();  // chunk ch (and the tile and bias) visible to all
-        if (active) {
-          const float* w = wbuf(ch & 1) + cg;
-          const float* xk = in + ch * kWideKC * LD + rg * 8;
-#pragma unroll
-          for (int kk = 0; kk < kWideKC; ++kk) {
-            const float4 x0 = *reinterpret_cast<const float4*>(xk + kk * LD);
-            const float4 x1 = *reinterpret_cast<const float4*>(xk + kk * LD + 4);
-            const float xr[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-            float wv[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) wv[j] = w[kk * ldw + j * ncg];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xr[i], wv[j], acc[i][j]);
-            }
-          }
-        }
-        __syncthreads();  // the next stage_chunk overwrites this chunk's buffer
-      }
-      if (active) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = cg + j * ncg;
-          if (c < L.d_out) {
-            const float bc = bias[c];
-            float* o = out + c * LD + rg * 8;
-            *reinterpret_cast<float4*>(o) =
-                make_float4(acc[0][j] + bc, acc[1][j] + bc, acc[2][j] + bc, acc[3][j] + bc);
-            *reinterpret_cast<float4*>(o + 4) =
-                make_float4(acc[4][j] + bc, acc[5][j] + bc, acc[6][j] + bc, acc[7][j] + bc);
-          }
+// Member n's small params for a row tile into dst: every layer's b at
+// b_off (zeros past d_out), then the ingest scale and offset. The caller
+// commits.
+__device__ __forceinline__ void stage_params(float* dst, const Args& a, int n) {
+  for (int l = 0; l < a.n_layers; ++l) {
+    const Layer& L = a.layers[l];
+    const float* b = L.b + (size_t)n * L.d_out;
+    for (int c = threadIdx.x; c < L.n8p; c += kWideThreads) {
+      cp_async4(dst + L.b_off + c, c < L.d_out ? b + c : b, c < L.d_out);
+    }
+  }
+  if (a.scale) {
+    for (int c = threadIdx.x; c < a.F; c += kWideThreads) {
+      cp_async4(dst + a.sc_off + c, a.scale + (size_t)n * a.F + c, true);
+      cp_async4(dst + a.sc_off + a.f4 + c, a.offset + (size_t)n * a.F + c, true);
+    }
+  }
+}
+
+// The streamed ring: where its producer stands (the next weight tile to
+// issue: k chunk kc of layer l of row tile t, whose batch row is m, member
+// n), the stage it fills next and the stage the next consumed tile is in.
+struct Ring {
+  long long t, t_end;
+  int m, tile, n;
+  int l, kc;
+  int pstage, stage;
+};
+
+// Issues the producer's weight tile into its stage, rows kc * L.kc on of
+// the layer's W as [L.kc][ldw] (zeros past d_in and d_out), commits it as
+// one group and steps the producer on, across layers and row tiles; past
+// the block's last tile it commits an empty group, so that every step
+// commits one.
+__device__ __forceinline__ void issue_tile(float* smem, const Args& a, Ring& r) {
+  if (r.t < r.t_end) {
+    const Layer& L = a.layers[r.l];
+    const int warp = threadIdx.x >> 5;
+    const float* W = L.W + (size_t)r.n * L.d_in * L.d_out;
+    float* dst = smem + r.pstage * a.ring_stage;
+    const int k0 = r.kc * L.kc;
+    const int rows = min(L.kc, L.k8 - k0);
+    for (int kk = warp; kk < rows; kk += kWideWarps) copy_w_row(dst + kk * L.ldw, W, L, k0 + kk, L.n8p);
+    if (++r.kc == L.kchunks) {
+      r.kc = 0;
+      if (++r.l == a.n_layers) {
+        r.l = 0;
+        ++r.t;
+        if (++r.tile == a.tiles) {
+          r.tile = 0;
+          ++r.m;
+          if (r.t < r.t_end) r.n = __ldg(a.indices + r.m);
         }
       }
     }
-    __syncthreads();
+  }
+  cp_async_commit();
+  r.pstage = r.pstage == kWideStages - 1 ? 0 : r.pstage + 1;
+}
 
-    // The activation, then zeros in the rows up to a whole chunk, which
-    // the next layer reads against its zero-padded weight rows.
-    if (L.act == kSoftmax) {
-      for (int r = threadIdx.x; r < TB; r += NT) softmax_column(out + r, LD, L.d_out);
+// The next streamed tile, once every thread's copies of it have landed:
+// its stage. The barrier also tells that every warp is done with the
+// stage refilled next, so the producer issues into it here.
+__device__ __forceinline__ const float* ring_next(float* smem, const Args& a, Ring& r) {
+  cp_async_wait<kWideStages - 2>();
+  __syncthreads();
+  issue_tile(smem, a, r);
+  const float* w = smem + r.stage * a.ring_stage;
+  r.stage = r.stage == kWideStages - 1 ? 0 : r.stage + 1;
+  return w;
+}
+
+// One layer for the warp's FW n-fragments (FW may be 0: the warp still
+// takes part in the barriers), in place on the slice's rows v (row stride
+// lda): the sums over every k (resident weights, or the ring's k chunks),
+// then, once every warp of the slice is done reading its rows, the
+// epilogue on the accumulators: bias after the sum (`bias`, the layer's b
+// in the tile's staged params, zeros past d_out), the activation in
+// registers (softmax is left to a pass over the finished rows), the rows
+// back in place. C fragments: c0, c1 (g, 2t, 2t + 1), c2, c3 (g + 8, 2t,
+// 2t + 1).
+template <int FW, bool kResident>
+__device__ __forceinline__ void layer_pass(float* smem, const Args& a, const Layer& L, Ring& r, float* v,
+                                           const float* bias, int part, int wpr, int act) {
+  const int lda = a.lda;
+  if constexpr (FW == 0) {
+    if (!kResident) {
+      for (int kc = 0; kc < L.kchunks; ++kc) ring_next(smem, a, r);
+    }
+    if (wpr > 1) __syncthreads();
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    float acc[FW][4];
+#pragma unroll
+    for (int i = 0; i < FW; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    }
+#ifndef FLEET_DENSE_SKIP_FMAS
+    if (kResident) {
+      mma_steps<FW>(acc, v, lda, smem + L.w_off, L.ldw, L.k8 >> 3, part, wpr);
     } else {
-      with_activation(L.act, [&](auto code) {
-        for (int e = threadIdx.x; e < L.d_out * TB; e += NT) {
-          float* v = out + (e / TB) * LD + e % TB;
-          *v = activate(*v, decltype(code)::value);
-        }
-      });
+      for (int kc = 0; kc < L.kchunks; ++kc) {
+        const float* w = ring_next(smem, a, r);
+        const int k0 = kc * L.kc;
+        mma_steps<FW>(acc, v + k0, lda, w, L.ldw, min(L.kc, L.k8 - k0) >> 3, part, wpr);
+      }
     }
-    for (int e = L.d_out * TB + threadIdx.x; e < round_up(L.d_out, kWideKC) * TB; e += NT) {
-      out[(e / TB) * LD + e % TB] = 0.f;
+#else
+    if (!kResident) {
+      for (int kc = 0; kc < L.kchunks; ++kc) ring_next(smem, a, r);
     }
-    __syncthreads();
-    cur ^= 1;
+#endif
+#pragma unroll
+    for (int i = 0; i < FW; ++i) {
+      const int col = 8 * (part + i * wpr) + 2 * t;
+      const float b0 = bias[col];
+      const float b1 = bias[col + 1];
+      acc[i][0] += b0;
+      acc[i][1] += b1;
+      acc[i][2] += b0;
+      acc[i][3] += b1;
+    }
+    with_activation(act, [&](auto code) {
+#pragma unroll
+      for (int i = 0; i < FW; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = activate(acc[i][j], decltype(code)::value);
+      }
+    });
+    // every warp of the slice is done reading its rows
+    if (wpr == 1) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < FW; ++i) {
+      const int col = 8 * (part + i * wpr) + 2 * t;
+      *reinterpret_cast<float2*>(v + g * lda + col) = make_float2(acc[i][0], acc[i][1]);
+      *reinterpret_cast<float2*>(v + (g + 8) * lda + col) = make_float2(acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+// layer_pass for the warp's fragment count: up to 8, or (kWideFrags) 16,
+// a layer wider than 8 fragments a warp, padded.
+template <bool kResident, bool kWideFrags>
+__device__ __forceinline__ void layer_for(int fw, float* smem, const Args& a, const Layer& L, Ring& r,
+                                          float* v, const float* bias, int part, int wpr, int act) {
+  switch (fw) {
+#define FLEET_DENSE_LAYER(FW) \
+  case FW:                    \
+    layer_pass<FW, kResident>(smem, a, L, r, v, bias, part, wpr, act); \
+    break;
+    FLEET_DENSE_LAYER(0)
+    FLEET_DENSE_LAYER(1)
+    FLEET_DENSE_LAYER(2)
+    FLEET_DENSE_LAYER(3)
+    FLEET_DENSE_LAYER(4)
+    FLEET_DENSE_LAYER(5)
+    FLEET_DENSE_LAYER(6)
+    FLEET_DENSE_LAYER(7)
+    FLEET_DENSE_LAYER(8)
+#undef FLEET_DENSE_LAYER
+    default:
+      if constexpr (kWideFrags) layer_pass<kWideMaxFrags, kResident>(smem, a, L, r, v, bias, part, wpr, act);
+      break;
+  }
+}
+
+// Shared memory (floats, every region 16-byte aligned): resident, the
+// member's stack (sum of k8 x ldw); streamed, the ring (kWideStages x
+// ring_stage); then the activation buffer of tile_rows x lda, two raw
+// row-tile buffers of raw_floats and two buffers of a tile's params
+// (biases, ingest scale and offset) of prm_floats, the next tile's raw
+// rows and params in flight while this tile is computed. kWideFrags: some
+// layer gives a warp 16 fragments. Its registers spill where they do not
+// (108 bytes against 4), so specs whose warps hold 8 fragments at most get
+// a build without that path.
+template <bool kResident, bool kWideFrags>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    fleet_dense_wide_kernel(const __grid_constant__ Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wpr = 1 << a.wpr_shift;  // warps a slice
+  const int slice = warp >> a.wpr_shift;
+  const int part = warp & (wpr - 1);
+  const int lda = a.lda;
+  const int TR = a.tile_rows;
+  float* v = smem + a.act_off + slice * 16 * lda;  // the slice's rows
+  float* raw = smem + a.raw_off;
+  float* prm = smem + a.prm_off;
+
+  // this block's run of the flattened (batch row, tile) sequence
+  long long t = (long long)blockIdx.x * a.n_tiles / gridDim.x;
+  const long long t_end = (long long)(blockIdx.x + 1) * a.n_tiles / gridDim.x;
+  if (t >= t_end) return;
+  int m = (int)(t / a.tiles);
+  int tile = (int)(t - (long long)m * a.tiles);
+  stage_rows<kWideThreads>(raw, a.X + ((size_t)m * a.B + tile * TR) * a.F, min(TR, a.B - tile * TR) * a.F);
+  int n = __ldg(a.indices + m);
+  stage_params(prm, a, n);
+  cp_async_commit();
+  Ring ring = {t, t_end, m, tile, n, 0, 0, 0, 0};
+  if (kResident) {
+    stage_stack(smem, a, n);
+    cp_async_commit();
+  } else {
+    for (int i = 0; i < kWideStages - 1; ++i) issue_tile(smem, a, ring);
   }
 
-  // The final store, a row a warp; with K2's epilogue each lane sums the
-  // squared differences of its columns and a shuffle adds the lanes.
-  float* o = a.out + ((size_t)m * a.B + row0) * a.F_out;
-  for (int r = warp; r < rows; r += NT / 32) {  // uniform across the warp
-    const float* y = a.mse ? a.y + ((size_t)m * a.B + row0 + r) * a.F_y : nullptr;
-    float sum = 0.f;
-    for (int c = lane; c < a.F_out; c += 32) {
-      const float v = act(cur)[c * LD + r];
-      o[(size_t)r * a.F_out + c] = v;
-      if (y && c < a.w) {
-        const float d = v - y[c];
-        sum = fmaf(d, d, sum);
+  for (int buf = 0;; buf ^= 1) {
+    const int row0 = tile * TR;
+    const int rows = min(TR, a.B - row0);
+    const bool more = ++t < t_end;
+    int m_next = m;
+    int tile_next = tile + 1;
+    if (tile_next == a.tiles) {
+      ++m_next;
+      tile_next = 0;
+    }
+    const int n_next = more && m_next != m ? __ldg(a.indices + m_next) : n;
+    // this tile's rows and params (resident: and the member's stack).
+    // Streamed, they went out in a group that at least kWideStages - 1
+    // ring tiles followed, when a row tile has that many tiles or more.
+    if (kResident || a.ring_tiles < kWideStages) {
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<kWideStages - 1>();
+    }
+    __syncthreads();  // visible to all; every warp is done with the last tile
+    const float* xr = raw + buf * a.raw_floats;
+    const float* params = prm + buf * a.prm_floats;
+    if (more) {
+      // the next tile's rows and params fly while this one is computed
+      // (streamed: they join the ring's next group)
+      stage_rows<kWideThreads>(raw + (buf ^ 1) * a.raw_floats,
+                               a.X + ((size_t)m_next * a.B + tile_next * TR) * a.F,
+                               min(TR, a.B - tile_next * TR) * a.F);
+      stage_params(prm + (buf ^ 1) * a.prm_floats, a, n_next);
+      if (kResident) cp_async_commit();
+    }
+
+    // the prologue: the slice's rows with the ingest affine, zeros past
+    // the ragged end and up to k8
+    {
+      const float* sc = params + a.sc_off;
+      const float* of = sc + a.f4;
+      const int k8 = a.layers[0].k8;
+      for (int r = part; r < 16; r += wpr) {
+        const int row = slice * 16 + r;
+        for (int c = lane; c < k8; c += 32) {
+          float x = 0.f;
+          if (row < rows && c < a.F) {
+            x = xr[row * a.F + c];
+            // multiply then add, each rounded, as the plain version does
+            if (a.scale) x = __fadd_rn(__fmul_rn(x, sc[c]), of[c]);
+          }
+          v[r * lda + c] = x;
+        }
       }
     }
-    if (a.mse) {
-#pragma unroll
-      for (int offset = 16; offset > 0; offset >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, offset);
-      if (lane == 0) a.mse[(size_t)m * a.B + row0 + r] = sum / (float)a.w;
+    if (wpr == 1) {
+      __syncwarp();
+    } else {
+      __syncthreads();
     }
+
+    for (int l = 0; l < a.n_layers; ++l) {
+      const Layer& L = a.layers[l];
+#ifdef FLEET_DENSE_SKIP_ACTIVATIONS
+      const int act = kLinear;
+#else
+      const int act = L.act;
+#endif
+      // the warp's fragments: part, part + wpr, ... (below nf, or fw of
+      // them where the layer was padded to whole groups of 8)
+      const int nf = L.n8p >> 3;
+      const int fw = L.fw ? L.fw : part < nf ? ((nf - part - 1) >> a.wpr_shift) + 1 : 0;
+      layer_for<kResident, kWideFrags>(fw, smem, a, L, ring, v, params + L.b_off, part, wpr, act);
+      // the layer's output is whole for the slice
+      if (wpr == 1) {
+        __syncwarp();
+      } else {
+        __syncthreads();
+      }
+      if (act == kSoftmax) {
+        if (part == 0 && lane < 16) softmax_column(v + lane * lda, 1, L.d_out);
+        if (wpr == 1) {
+          __syncwarp();
+        } else {
+          __syncthreads();
+        }
+      }
+    }
+
+    // The final store, the slice's rows, lanes over a row's columns; with
+    // K2's epilogue each lane sums the squared differences of its columns
+    // and a shuffle adds the lanes. y = X is the raw row in shared memory.
+    {
+      float* o = a.out + ((size_t)m * a.B + row0) * a.F_out;
+      for (int r = part; r < 16; r += wpr) {
+        const int row = slice * 16 + r;
+        if (row >= rows) break;  // uniform across the warp
+        const float* y = !a.mse ? nullptr
+                         : a.y == a.X ? xr + row * a.F
+                                      : a.y + ((size_t)m * a.B + row0 + row) * a.F_y;
+        float sum = 0.f;
+        for (int c = lane; c < a.F_out; c += 32) {
+          const float x = v[r * lda + c];
+          o[(size_t)row * a.F_out + c] = x;
+          if (y && c < a.w) {
+            const float d = x - y[c];
+            sum = fmaf(d, d, sum);
+          }
+        }
+        if (a.mse) {
+#pragma unroll
+          for (int offset = 16; offset > 0; offset >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, offset);
+          if (lane == 0) a.mse[(size_t)m * a.B + row0 + row] = sum / (float)a.w;
+        }
+      }
+    }
+    if (!more) break;
+    if (kResident && n_next != n) {
+      __syncthreads();  // nobody reads the old member's stack any more
+      stage_stack(smem, a, n_next);
+      cp_async_commit();
+    }
+    m = m_next;
+    tile = tile_next;
+    n = n_next;
   }
 }
 
@@ -883,21 +1260,151 @@ int launch_narrow(Args& a, int M, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int TB, int NT>
-int launch_wide(Args& a, int M, int max_width, cudaStream_t stream) {
-  // shared memory: two transposed activation buffers, two weight chunks,
-  // the bias; at most 215 KB (512 wide, TB = 32)
-  a.act_floats = round_up(max_width, kWideKC) * (TB + 4);
-  a.w_floats = kWideKC * round_up(max_width, 4);
-  const size_t smem =
-      (size_t)(2 * a.act_floats + 2 * a.w_floats + round_up(max_width, 4)) * sizeof(float);
-  a.tiles = (a.B + TB - 1) / TB;
-  cudaError_t err = cudaFuncSetAttribute(
-      fleet_dense_wide_kernel<TB, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The wide kernel's layout for tiles of `tile_rows` rows (wpr = 128 /
+// tile_rows warps a 16-row slice), worked out here so the device divides
+// nothing; returns its shared memory in bytes, or 0 if some layer would
+// give a warp more than kWideMaxFrags fragments. Per layer: k8; the
+// fragments a warp holds (fw, set when above 8: then kWideMaxFrags, and
+// the layer's columns padded to 8 x fw x wpr, n8p; else every warp takes
+// part + i * wpr below n8 / 8); the row stride ldw of the resident stack
+// and of a ring tile (= 8 mod 16, so the B fragment loads hit 32 banks),
+// w_off, b_off, and whether W's rows allow 16-byte copies. Then the activation stride lda (= 4 mod 8, for the A fragment
+// loads), the ring's stage size and each layer's k rows a tile (kc), and
+// the offsets of every region.
+size_t wide_layout(Args& a, int tile_rows, bool resident) {
+  const int wpr = kWideMaxRows / tile_rows;
+  a.wpr_shift = 0;
+  while ((1 << a.wpr_shift) < wpr) ++a.wpr_shift;
+  int off = 0;
+  int prm = 0;  // floats of a tile's params so far
+  int widest = round_up(a.F, 8);
+  int min_stage = 0, max_stage = 0;
+  for (int l = 0; l < a.n_layers; ++l) {
+    Layer& L = a.layers[l];
+    L.k8 = round_up(L.d_in, 8);
+    const int nf = round_up(L.d_out, 8) / 8;
+    int fw = (nf + wpr - 1) / wpr;
+    if (fw > kWideMaxFrags) return 0;
+    L.fw = fw > 8 ? kWideMaxFrags : 0;
+    L.n8p = L.fw ? 8 * L.fw * wpr : 8 * nf;
+    L.ldw = L.n8p % 16 == 8 ? L.n8p : L.n8p + 8;
+    L.w_off = off;
+    off += L.k8 * L.ldw;
+    L.b_off = prm;
+    prm += L.n8p;
+    L.vec = L.d_out % 4 == 0 && (reinterpret_cast<uintptr_t>(L.W) & 15) == 0;
+    widest = L.n8p > widest ? L.n8p : widest;
+    min_stage = 8 * L.ldw > min_stage ? 8 * L.ldw : min_stage;
+    max_stage = L.k8 * L.ldw > max_stage ? L.k8 * L.ldw : max_stage;
+  }
+  a.f4 = round_up(a.F, 4);
+  a.sc_off = prm;
+  a.prm_floats = prm + 2 * a.f4;
+  a.tile_rows = tile_rows;
+  a.lda = widest + 4;
+  a.raw_floats = round_up(tile_rows * a.F, 4);
+  const int tail = tile_rows * a.lda + 2 * a.raw_floats + 2 * a.prm_floats;
+  a.ring_tiles = 0;
+  a.ring_stage = 0;
+  if (!resident) {
+    // the ring takes what is left, at most a whole layer a stage
+    int stage = (kWideMaxSmem / (int)sizeof(float) - tail) / kWideStages / 4 * 4;
+    if (stage < min_stage) stage = min_stage;  // too big: the caller sees the size
+    a.ring_stage = stage < max_stage ? stage : max_stage;
+    for (int l = 0; l < a.n_layers; ++l) {
+      Layer& L = a.layers[l];
+      const int kc = a.ring_stage / L.ldw / 8 * 8;
+      L.kc = kc < L.k8 ? kc : L.k8;
+      L.kchunks = (L.k8 + L.kc - 1) / L.kc;
+      a.ring_tiles += L.kchunks;
+    }
+    off = kWideStages * a.ring_stage;
+  }
+  a.act_off = off;
+  a.raw_off = a.act_off + tile_rows * a.lda;
+  a.prm_off = a.raw_off + 2 * a.raw_floats;
+  return (size_t)(off + tail) * sizeof(float);
+}
+
+template <bool R, bool WF>
+cudaError_t wide_blocks_per_sm(size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(fleet_dense_wide_kernel<R, WF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fleet_dense_wide_kernel<R, WF>,
+                                                       kWideThreads, smem);
+}
+
+// How the wide kernel runs M x B rows: resident weights if the member's
+// stack fits beside tiles of 32 rows or more, else streamed; the largest
+// row tile (128, 64, 32, 16 rows) that fits, halved while M x B rows
+// make fewer tiles than the card has SMs; whether a layer gives a warp
+// 16 fragments (the build with that path); its shared memory, blocks an
+// SM and a persistent grid of at most a tile a block.
+struct WidePlan {
+  bool resident;
+  bool wide_frags;
+  int tile_rows;
+  size_t smem;
+  int blocks_per_sm;
+  long long grid;
+};
+
+int wide_plan(Args& a, int M, WidePlan* plan) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)M * a.tiles;
-  if (blocks > 0x7fffffffLL) return kBadShape;
-  fleet_dense_wide_kernel<TB, NT><<<(unsigned)blocks, NT, smem, stream>>>(a);
+  auto fits = [&](int tr, bool resident) {
+    const size_t bytes = wide_layout(a, tr, resident);
+    return bytes > 0 && bytes <= (size_t)kWideMaxSmem;
+  };
+  bool resident = false;
+  int tile_rows = 0;
+  for (int tr = kWideMaxRows; tr >= 32 && !tile_rows; tr /= 2) {
+    if (fits(tr, true)) resident = true, tile_rows = tr;
+  }
+  for (int tr = kWideMaxRows; tr >= 16 && !tile_rows; tr /= 2) {
+    if (fits(tr, false)) tile_rows = tr;
+  }
+  if (!tile_rows) return kTooWide;
+  while (tile_rows > 16 && (long long)M * ((a.B + tile_rows - 1) / tile_rows) < sms &&
+         fits(tile_rows / 2, resident)) {
+    tile_rows /= 2;
+  }
+  const size_t smem = wide_layout(a, tile_rows, resident);
+  bool wide_frags = false;
+  for (int l = 0; l < a.n_layers; ++l) wide_frags = wide_frags || a.layers[l].fw > 0;
+  int per_sm = 0;
+  err = resident ? (wide_frags ? wide_blocks_per_sm<true, true>(smem, &per_sm)
+                               : wide_blocks_per_sm<true, false>(smem, &per_sm))
+                 : (wide_frags ? wide_blocks_per_sm<false, true>(smem, &per_sm)
+                               : wide_blocks_per_sm<false, false>(smem, &per_sm));
+  if (err != cudaSuccess) return (int)err;
+  a.tiles = (a.B + tile_rows - 1) / tile_rows;
+  a.n_tiles = (long long)M * a.tiles;
+  const long long resident_blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *plan = {resident, wide_frags, tile_rows, smem, per_sm,
+           a.n_tiles < resident_blocks ? a.n_tiles : resident_blocks};
+  return 0;
+}
+
+int launch_wide(Args& a, int M, cudaStream_t stream) {
+  WidePlan p;
+  const int status = wide_plan(a, M, &p);
+  if (status != 0) return status;
+  const unsigned grid = (unsigned)p.grid;
+  if (p.resident) {
+    if (p.wide_frags) {
+      fleet_dense_wide_kernel<true, true><<<grid, kWideThreads, p.smem, stream>>>(a);
+    } else {
+      fleet_dense_wide_kernel<true, false><<<grid, kWideThreads, p.smem, stream>>>(a);
+    }
+  } else if (p.wide_frags) {
+    fleet_dense_wide_kernel<false, true><<<grid, kWideThreads, p.smem, stream>>>(a);
+  } else {
+    fleet_dense_wide_kernel<false, false><<<grid, kWideThreads, p.smem, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -957,16 +1464,11 @@ int fleet_dense_forward(const float* X, float* out, const float* y, float* mse, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #ifndef FLEET_DENSE_WIDE_ONLY
   // A build with -DFLEET_DENSE_WIDE_ONLY sends narrow specs to the wide
-  // kernel too, and chip_smoke.py times it beside this one: on an H100 the
-  // wide kernel takes 4.9x the narrow one's time on hourglass(20) at
-  // 1000 x 1008 rows, 3.7x at 64 x 1008 and 1.9x at 1 x 1008.
+  // kernel too, and chip_smoke.py times it beside this one at the
+  // hourglass(20) shapes ([narrow vs wide], PERF.md).
   if (max_width <= kNarrowWidth) return launch_narrow(a, M, s);
 #endif
-  // 16 warps a block beat 8 on feedforward_model's 256-wide layers and
-  // lose on a 40-wide hourglass, whose narrow layers leave most idle
-  if (max_width <= 128) return launch_wide<64, 256>(a, M, max_width, s);
-  if (max_width <= 256) return launch_wide<64, 512>(a, M, max_width, s);
-  return launch_wide<32, 512>(a, M, max_width, s);
+  return launch_wide(a, M, s);
 }
 
 // How the narrow kernel would run M x B rows of a spec (dims as for
@@ -994,6 +1496,40 @@ int fleet_dense_narrow_occupancy(int n_layers, const int* dims, int M, int B, in
   const int status = narrow_plan(a, M, &p);
   if (status != 0) return status;
   *split = p.split;
+  *smem_bytes = (int)p.smem;
+  *blocks_per_sm = p.blocks_per_sm;
+  *grid = (int)p.grid;
+  return 0;
+}
+
+// How the wide kernel would run M x B rows of a spec (dims as for
+// fleet_dense_forward): resident (1) or streamed (0) weights, rows a tile,
+// warps a 16-row slice, shared memory a block, blocks an SM and grid.
+// Returns 0 or an error code as fleet_dense_forward does.
+int fleet_dense_wide_occupancy(int n_layers, const int* dims, int M, int B, int* resident,
+                               int* tile_rows, int* warps_a_slice, int* smem_bytes,
+                               int* blocks_per_sm, int* grid) {
+  if (n_layers < 1 || M < 1 || B < 1) return kBadShape;
+  if (n_layers > kMaxLayers) return kTooManyLayers;
+  Args a = {};
+  a.B = B;
+  a.F = dims[0];
+  a.F_out = dims[n_layers];
+  a.n_layers = n_layers;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return kBadShape;
+    if (dims[l] > kMaxWidth) return kTooWide;
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    a.layers[l].d_in = dims[l];
+    a.layers[l].d_out = dims[l + 1];
+  }
+  WidePlan p;
+  const int status = wide_plan(a, M, &p);
+  if (status != 0) return status;
+  *resident = p.resident ? 1 : 0;
+  *tile_rows = p.tile_rows;
+  *warps_a_slice = 1 << a.wpr_shift;
   *smem_bytes = (int)p.smem;
   *blocks_per_sm = p.blocks_per_sm;
   *grid = (int)p.grid;

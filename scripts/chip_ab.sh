@@ -7,8 +7,12 @@
 # Runs the other tree's chip_smoke.py, this tree's, this tree's again and
 # the other's again (each builds its own kernels), keeps each full output
 # in OUT/<run>.log (default build/ab), prints each run's [build], [occupancy],
-# [times], [narrow vs wide] and [split] lines and its kernel JSON line, then the
-# narrow kernel's SASS counts of both builds (scripts/sass_counts.py).
+# [times], [narrow vs wide] and [split] lines and its kernel JSON line, and
+# times K1 and K2 at the wide kernel's shapes with that tree's package
+# (scripts/wide_shapes.py: the 40-tag served shape is not in older trees'
+# chip_smoke.py), then the
+# narrow and wide kernels' SASS counts of both builds (scripts/sass_counts.py;
+# HMMA shows the wide kernel's tensor-core path).
 # Exits non-zero if any run failed.
 set -u
 other=${1:?usage: scripts/chip_ab.sh DIR [OUT]}
@@ -23,6 +27,7 @@ run() {
   local rc=$?
   echo "== $label: rc $rc"
   grep -E '^\[(build|occupancy|times|narrow vs wide|split)\]|^\{"kernels"' "$out/$label.log"
+  python3 "$here/scripts/wide_shapes.py" "$dir" 2>&1 | tee -a "$out/$label.log" | grep -E '^\[wide shapes\]|rror' || status=1
   if [ $rc -ne 0 ]; then
     tail -n 30 "$out/$label.log"
     status=1
@@ -34,5 +39,5 @@ run change-1 "$here"
 run change-2 "$here"
 run parent-2 "$other"
 python3 scripts/sass_counts.py build/gordo_tpu_torch/fleet_dense-*.so "$other"/build/gordo_tpu_torch/fleet_dense-*.so \
-  || status=1
+  --kernel fleet_dense_narrow_kernel --kernel fleet_dense_wide_kernel || status=1
 exit $status

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """
-Where the narrow fleet-dense kernel's time goes, part by part, on one card.
+Where the fleet-dense kernels' time goes, part by part, on one card.
 
-    python3 scripts/narrow_ablation.py
+    python3 scripts/narrow_ablation.py [--wide]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and
 ``nvcc``. Builds ``gordo_tpu_torch/ops/csrc/fleet_dense.cu`` four times:
@@ -13,7 +13,11 @@ with CUDA events (``chip_smoke.cuda_ms``) at the hourglass(20) shapes of
 ``chip_smoke.py``: 1000 x 1008 rows, the served fleet (64 x 1008 with the
 ingest prologue), the served anomaly request (1 x 1008, gather and
 ingest, indices already on the card), and K2 at the stream flush (64 x
-512, ingest, y = X). Each build is timed twice, in turns. The full
+512, ingest, y = X); with ``--wide``, the wide (tensor-core) kernel's
+shapes instead: feedforward_model(20) and hourglass(40) at 64 x 1008 and
+the 40-tag anomaly request (1 x 1008, gather and ingest), and a fifth
+build, ``-DFLEET_DENSE_SKIP_SPLIT``, whose weights are not split into TF32
+hi and lo (the cost of that split). Each build is timed twice, in turns. The full
 build's time less a reduced build's is that part's cost; what the build
 without both keeps is the tile I/O, the staging and the per-row overhead.
 Prints one line a build and pass, and the card's name and power limit.
@@ -36,14 +40,17 @@ VARIANTS = (
     ("FLEET_DENSE_SKIP_FMAS",),
     ("FLEET_DENSE_SKIP_ACTIVATIONS", "FLEET_DENSE_SKIP_FMAS"),
 )
+#: with --wide, also the wide kernel without the hi/lo split of its weights
+WIDE_VARIANTS = VARIANTS + (("FLEET_DENSE_SKIP_SPLIT",),)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    wide = "--wide" in (sys.argv[1:] if argv is None else argv)
     sys.path.insert(0, HERE)
     import torch
 
     import chip_smoke
-    from gordo_tpu_torch.models.factories import feedforward_hourglass
+    from gordo_tpu_torch.models.factories import feedforward_hourglass, feedforward_model
     from gordo_tpu_torch.ops import _build
     from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 
@@ -51,7 +58,8 @@ def main() -> int:
         print("narrow_ablation: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     card = chip_smoke.device_line()
-    _build.build(variants=VARIANTS)
+    variants = WIDE_VARIANTS if wide else VARIANTS
+    _build.build(variants=variants)
     hourglass = feedforward_hourglass(20)
     big = chip_smoke.make_case(hourglass, 1000, 1000, chip_smoke.ROWS)
     fleet = chip_smoke.make_case(hourglass, 64, 64, chip_smoke.ROWS, ingest=True, seed=2)
@@ -63,18 +71,35 @@ def main() -> int:
         return lambda: fleet_feedforward(case["spec"], case["bucket"], case["X"], indices, case["ingest"],
                                          defines=defines)
 
-    for run in range(2):
-        for defines in VARIANTS:
-            ms = {
-                "K1 1000x1008": chip_smoke.cuda_ms(k1(big, None, defines)),
-                "K1 served fleet 64x1008": chip_smoke.cuda_ms(k1(fleet, None, defines)),
-                "K1 served anomaly 1x1008": chip_smoke.cuda_ms(k1(anomaly, on_card, defines)),
-                "K2 stream flush 64x512": chip_smoke.cuda_ms(lambda: fleet_anomaly_scores(
-                    hourglass, fleet["bucket"], flush_X, flush_X, None, fleet["ingest"], defines=defines)),
+    if wide:
+        model = chip_smoke.make_case(feedforward_model(20), 64, 64, chip_smoke.ROWS, seed=1)
+        wide_big = chip_smoke.make_case(feedforward_hourglass(40), 64, 64, chip_smoke.ROWS, seed=11)
+        wide_anomaly = chip_smoke.make_case(feedforward_hourglass(40), 8, 1, chip_smoke.ROWS, indices=[5],
+                                            ingest=True, seed=12)
+        wide_on_card = torch.tensor(wide_anomaly["indices"], dtype=torch.int32, device="cuda")
+
+    def shapes(defines):
+        if wide:
+            return {
+                "K1 feedforward_model20 64x1008": k1(model, None, defines),
+                "K1 hourglass40 64x1008": k1(wide_big, None, defines),
+                "K1 hourglass40 served anomaly 1x1008": k1(wide_anomaly, wide_on_card, defines),
             }
+        return {
+            "K1 1000x1008": k1(big, None, defines),
+            "K1 served fleet 64x1008": k1(fleet, None, defines),
+            "K1 served anomaly 1x1008": k1(anomaly, on_card, defines),
+            "K2 stream flush 64x512": lambda: fleet_anomaly_scores(
+                hourglass, fleet["bucket"], flush_X, flush_X, None, fleet["ingest"], defines=defines),
+        }
+    for run in range(2):
+        for defines in variants:
+            ms = {name: chip_smoke.cuda_ms(fn) for name, fn in shapes(defines).items()}
             name = "+".join(defines) or "full"
             print(f"[ablation] pass {run}, {name}: " + ", ".join(f"{k} {v!r} ms" for k, v in ms.items())
                   + f"; {card}", flush=True)
+    if wide:
+        return 0
 
     launch = k1(big, None, ())
     smi = subprocess.Popen(

@@ -65,6 +65,10 @@ SPECS = {
     "wide-hourglass40": ("feedforward_hourglass", (40,), {}),
     "wide-48": ("feedforward_model", (6,), dict(
         encoding_dim=(48,), decoding_dim=(40,), encoding_func=("tanh",), decoding_func=("relu",))),
+    "wide-64-128": ("feedforward_model", (24,), dict(
+        encoding_dim=(128, 64), decoding_dim=(64, 128), encoding_func=("tanh", "relu"), decoding_func=("tanh", "tanh"))),
+    "wide-64-relu": ("feedforward_model", (20,), dict(
+        encoding_dim=(64,), decoding_dim=(64,), encoding_func=("relu",), decoding_func=("elu",))),
 }
 
 
@@ -77,6 +81,9 @@ CASES = [
     ("hourglass20", 4, 32),
     ("wide-hourglass40", 2, 16),
     ("wide-48", 2, 16),
+    ("wide-hourglass40", 3, 24),
+    ("wide-64-128", 2, 16),
+    ("wide-64-relu", 2, 16),
 ]
 
 

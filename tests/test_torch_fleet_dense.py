@@ -65,6 +65,28 @@ def test_explicit_dims_relu_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
 
 
+#: specs the wide kernel takes on the card (wider than 32): a 40-tag
+#: hourglass and feedforward_model stacks with 64- and 128-wide layers
+WIDE_SPECS = {
+    "hourglass40": ("feedforward_hourglass", (40,), {}),
+    "model_64_128": ("feedforward_model", (24,), dict(encoding_dim=(128, 64), decoding_dim=(64, 128),
+                                                       encoding_func=("tanh", "relu"), decoding_func=("tanh", "tanh"))),
+    "model_64_relu": ("feedforward_model", (20,), dict(
+        encoding_dim=(64,), decoding_dim=(64,), encoding_func=("relu",), decoding_func=("elu",))),
+}
+
+
+@pytest.mark.parametrize("name", WIDE_SPECS)
+def test_wide_specs_match_pallas(name):
+    factory, args, kwargs = WIDE_SPECS[name]
+    jax_spec, spec = _both(factory, *args, **kwargs)
+    bucket = _jax_bucket(jax_spec, 2, 7)
+    X = np.random.RandomState(7).rand(2, 16, spec.n_features).astype(np.float32)
+    expected = pallas_dense.fleet_feedforward_pallas(jax_spec, bucket, X, interpret=True)
+    got = fleet_feedforward(spec, _port(bucket), torch.from_numpy(X))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
+
+
 def test_ragged_batch_matches_pallas(monkeypatch):
     """50 rows: the JAX kernel pads to its 16-row blocks and trims."""
     monkeypatch.setattr(pallas_dense, "BLOCK_B", 16)
@@ -167,6 +189,22 @@ def test_sass_counts_reads_the_kernel_out_of_a_disassembly():
     assert list(counts) == ["_ZN12_GLOBAL__N_125fleet_dense_narrow_kernelE4Args"]
     ops = next(iter(counts.values()))
     assert ops == {"LDC": 1, "FFMA": 2, "LDS.128": 1, "MUFU.EX2": 1}
+
+
+def test_sass_counts_adds_up_the_tensor_core_families():
+    """HMMA and the TF32 conversions are counted by family, whatever their
+    suffixes, so the A/B shows the wide kernel's tensor-core path."""
+    import collections
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "sass_counts.py"
+    module_spec = importlib.util.spec_from_file_location("sass_counts", path)
+    sass_counts = importlib.util.module_from_spec(module_spec)
+    module_spec.loader.exec_module(sass_counts)
+    ops = collections.Counter({"HMMA.1688.F32.TF32": 24, "HMMA.16816.F32": 1, "F2FP.TF32.F32.PACK_AB": 3,
+                               "FRND.TF32": 2, "F2F.F64.F32": 1, "FFMA": 9})
+    assert sass_counts.family_counts(ops) == {"HMMA": 25, "F2FP": 3, "F2F": 1, "FRND": 2}
 
 
 def test_arguments_are_checked():

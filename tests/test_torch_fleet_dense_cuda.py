@@ -10,8 +10,10 @@ imports JAX, hence ``--noconftest``)::
 
 Tolerance: rtol 1e-5, atol 1e-5, f32 sums taken in another order than
 the plain version's ``bmm``. Both of the kernel's paths are covered:
-the register-resident one for specs at most 32 wide and the
-shared-memory one for wider specs (up to 512, chunked columns included).
+the register-resident one for specs at most 32 wide and the tensor-core
+one (3xTF32) for wider specs, up to 512 wide, with weights resident in
+shared memory or streamed through a ring of tiles (``WIDE_SPECS``,
+``test_wide_plan_*``).
 K2's per-row MSE is held to the same tolerance, with ``y`` the input rows
 themselves (the store's case), a separate ``y`` as wide as the output or
 narrower, and a NaN in ``y``. The narrow kernel's persistent loop has
@@ -92,7 +94,8 @@ def test_kernel_ragged_tiles_on_card(cuda, rows):
 
 @pytest.mark.cuda
 def test_kernel_chunks_wide_layers_on_card(cuda):
-    """A 256x256 layer does not fit a block's shared memory at once."""
+    """A 256x256 layer's weights do not fit beside the row tiles: they
+    stream through the wide kernel's ring of weight tiles."""
     spec = factories.feedforward_model(256, encoding_dim=(256,), decoding_dim=(256,),
                                        encoding_func=("relu",), decoding_func=("gelu",))
     _kernel_vs_plain(cuda, spec, 2, 2, 200)
@@ -306,3 +309,113 @@ def test_store_scores_launch_k2_on_card(cuda, tmp_path):
     for name, (recon, mse) in expected.items():
         np.testing.assert_allclose(scores[name][0], recon, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(scores[name][1], mse, rtol=1e-5, atol=1e-5)
+
+
+# -- the wide kernel (3xTF32 on the tensor cores) ----------------------------
+
+
+def _wide_plan(spec, m, b):
+    """``(resident, rows a tile, warps a slice, smem, blocks an SM, grid)``
+    of the wide kernel at this shape, from ``fleet_dense_wide_occupancy``."""
+    import ctypes
+
+    from gordo_tpu_torch.ops import _build
+
+    fn = _build.load("fleet_dense").fleet_dense_wide_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    widths = spec.widths()
+    dims = (ctypes.c_int * len(widths))(*widths)
+    out = [ctypes.c_int() for _ in range(6)]
+    assert fn(len(widths) - 1, ctypes.cast(dims, ctypes.c_void_p), m, b, *map(ctypes.byref, out)) == 0
+    return tuple(v.value for v in out)
+
+
+def _model(n, enc, dec, enc_func=None, dec_func=None, out_func="linear"):
+    return factories.feedforward_model(
+        n, encoding_dim=enc, decoding_dim=dec, encoding_func=enc_func or ("tanh",) * len(enc),
+        decoding_func=dec_func or ("tanh",) * len(dec), out_func=out_func)
+
+
+#: wide specs: odd widths (33, 27, 1, 300), a member that fits in shared
+#: memory (resident) and ones that stream
+WIDE_SPECS = {
+    "odd_33_27_1": lambda: _model(33, (27, 1), (27,), ("tanh", "relu"), ("elu",)),
+    "odd_300_27_1_33": lambda: _model(300, (27, 1), (33,), ("relu", "tanh"), ("tanh",)),
+    "hourglass40": lambda: factories.feedforward_hourglass(40),
+    "model20": lambda: factories.feedforward_model(20),
+    "model_64_128": lambda: _model(24, (128, 64), (64, 128)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "same", "nan"])
+@pytest.mark.parametrize("name", WIDE_SPECS)
+def test_wide_specs_match_plain_on_card(cuda, name, y):
+    spec = WIDE_SPECS[name]()
+    _kernel_vs_plain(cuda, spec, 3, 3, 157, ingest=True)
+    _scores_vs_plain(cuda, spec, 3, 3, 157, ingest=y == "x", y=y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hourglass40", "model20"])
+@pytest.mark.parametrize("pattern,repeat", [(GATHER_6, 40), (GATHER_64, 2)], ids=["gather_6", "gather_64"])
+def test_wide_member_changes_match_plain_on_card(cuda, name, pattern, repeat):
+    """Persistent blocks whose member changes and comes back."""
+    spec = WIDE_SPECS[name]()
+    indices = pattern * repeat
+    _kernel_vs_plain(cuda, spec, 10, len(indices), 144, indices=indices, ingest=True)
+    _scores_vs_plain(cuda, spec, 10, len(indices), 144, indices=indices, ingest=True, y="x")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 1008])
+@pytest.mark.parametrize("name", ["hourglass40", "model20", "odd_300_27_1_33"])
+def test_wide_one_member_matches_plain_on_card(cuda, name, rows):
+    """M = 1: the served anomaly request, on 16-row tiles."""
+    spec = WIDE_SPECS[name]()
+    _kernel_vs_plain(cuda, spec, 8, 1, rows, indices=[5], ingest=True)
+    _scores_vs_plain(cuda, spec, 8, 1, rows, indices=[5], ingest=True, y="x")
+    _scores_vs_plain(cuda, spec, 8, 1, rows, indices=[5], y="nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "same", "nan"])
+@pytest.mark.parametrize("name", ACTIVATION_NAMES)
+def test_wide_scores_activation_on_card(cuda, name, y):
+    spec = factories.feedforward_model(6, encoding_dim=(48,), decoding_dim=(5,),
+                                       encoding_func=(name,), decoding_func=("tanh",), out_func=name)
+    _scores_vs_plain(cuda, spec, 3, 3, 37, y=y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "same"])
+def test_wide_softmax_rows_on_card(cuda, y):
+    """Softmax hidden and output layers: a row reduction over the slice's rows."""
+    spec = _model(40, (48, 33), (48,), ("softmax", "tanh"), ("relu",), out_func="softmax")
+    _kernel_vs_plain(cuda, spec, 4, 4, 300, ingest=True)
+    _scores_vs_plain(cuda, spec, 4, 4, 300, y=y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y", ["x", "nan"])
+def test_wide_widest_spec_scores_on_card(cuda, y):
+    spec = factories.feedforward_model(512, encoding_dim=(300,), decoding_dim=(1,),
+                                       encoding_func=("tanh",), decoding_func=("softmax",))
+    _scores_vs_plain(cuda, spec, 2, 2, 70, y=y)
+
+
+@pytest.mark.cuda
+def test_wide_plan_keeps_a_fitting_member_resident(cuda):
+    """hourglass(40) stays in shared memory on 256-row tiles, one warp a
+    slice; feedforward_model streams on 128-row tiles, two warps a slice;
+    the 512-wide spec streams on 16-row tiles; a lone served machine gets
+    16-row tiles on many SMs."""
+    resident, rows, wpr, smem, per_sm, grid = _wide_plan(factories.feedforward_hourglass(40), 64, 1008)
+    assert (resident, rows, wpr) == (1, 256, 1) and smem <= 232448 and per_sm >= 1
+    assert _wide_plan(factories.feedforward_model(20), 64, 1008)[:3] == (0, 128, 2)
+    widest = factories.feedforward_model(512, encoding_dim=(300,), decoding_dim=(1,),
+                                         encoding_func=("tanh",), decoding_func=("softmax",))
+    assert _wide_plan(widest, 2, 70)[:3] == (0, 16, 16)
+    resident, rows, wpr, _, _, grid = _wide_plan(factories.feedforward_hourglass(40), 1, 1008)
+    assert (resident, rows, wpr, grid) == (1, 16, 16, 63)
