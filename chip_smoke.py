@@ -16,16 +16,30 @@ Run from the root of a checkout; it builds the CUDA kernels from
    indices with repeats, the ingest prologue, layers whose weights stream
    through the wide kernel's ring, odd widths, and the shapes the serving
    path uses;
-4. serves a collection of 64 seeded feedforward_hourglass(20) detectors
-   and 8 feedforward_hourglass(40) ones (a 40-tag bucket, which the
-   store sends to the wide kernel) through ``build_app`` on a localhost
+4. trains the collection it then serves (``[train]``): 64 20-tag machines
+   and 8 40-tag ones, each a ``DiffBasedAnomalyDetector`` of a MinMax
+   pipeline and a feedforward_hourglass autoencoder (5 epochs, batch 32,
+   ``examples/config.yaml``'s settings) on 2000 seeded rows, built with
+   ``fleet_build`` on the card: TimeSeriesSplit(3) cross-validation with
+   every fold of every machine of a width in one stacked fit, the folds
+   scored by one K1 launch a spec group (checked on the launch counter;
+   each forward held against the plain version on its own inputs and
+   timed: the 20-tag group's on the narrow kernel, the 40-tag group's on
+   the wide one), the final fit, the dump. It prints each phase's wall
+   time, steps a second, the CUDA-event time a step and one step's
+   device time; then it builds 4 of the machines again on the CPU from
+   the same seeds and holds the card's params, thresholds, CV scores and
+   epochs to them;
+5. serves that collection (64 feedforward_hourglass(20) detectors and 8
+   feedforward_hourglass(40) ones, a 40-tag bucket which the store sends
+   to the wide kernel) through ``build_app`` on a localhost
    ``wsgiref`` thread: three ``/anomaly/prediction`` requests and one
    fleet request for the 64, then one anomaly request to a 40-tag
    machine and one fleet request for the 8, 1008 rows each; every answer
    must be 200, carry the right column groups, and agree with the same
    app on the CPU; K1's and K2's launch counts over each group of
    requests must be above zero;
-5. times K1, its plain version and a cuBLAS ``baddbmm`` chain (the
+6. times K1, its plain version and a cuBLAS ``baddbmm`` chain (the
    library yardstick, used nowhere in the package; also timed with TF32
    allowed, less accurate than the kernel, to show what cuBLAS gives on
    the tensor cores) with CUDA events, beside the card's bound for the
@@ -107,6 +121,11 @@ TIMED = 6  # the first cases of kernel_cases(): the full widths and the served s
 WIDE_ANOMALY = "served anomaly: hourglass40 gather M=1 B=1008 +ingest"
 #: the wide kernel's timed shapes, K1 (and K2 with y = X)
 WIDE_CASES = ("feedforward_model20 M=64 B=1008", "hourglass40 M=64 B=1008", WIDE_ANOMALY)
+#: K1 in the build's CV scoring, by input width: 3 folds of each group's
+#: machines x each fold's 500 test rows; the 20-tag group on the narrow
+#: kernel, the 40-tag one on the wide kernel (a ragged last row tile)
+CV_CASES = {20: "CV fold scoring: hourglass20 M=192 B=500", WIDE_TAGS: "CV fold scoring: hourglass40 M=24 B=500"}
+CV_MACHINES = {20: SERVED_MACHINES, WIDE_TAGS: WIDE_MACHINES}
 #: the build of K1 that sends narrow specs through the wide kernel
 WIDE_ONLY = ("FLEET_DENSE_WIDE_ONLY",)
 #: the build of K1 whose narrow kernel never shares a row among lanes
@@ -404,46 +423,218 @@ def sensor_data(seed, rows, n_tags):
     return level + 5 * np.sin(2 * np.pi * t / 144 + phase_) + rng.standard_normal((rows, n_tags))
 
 
-def write_collection(directory):
-    """SERVED_MACHINES seeded hourglass(20) detectors and WIDE_MACHINES
-    hourglass(40) ones (their own names and tag lists), with fitted scalers
-    and thresholds taken from their own reconstruction errors. Returns the
-    two lists of names."""
-    import numpy as np
-    import torch
+#: the served collection's detector, as ``examples/config.yaml`` defines it
+DEFINITION = {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {"base_estimator": {
+    "sklearn.pipeline.Pipeline": {"steps": [
+        "sklearn.preprocessing.MinMaxScaler",
+        {"gordo_tpu.models.estimators.JaxAutoEncoder": {"kind": "feedforward_hourglass", "epochs": 5, "batch_size": 32}},
+    ]}}}}
+TRAIN_ROWS = 2000
+#: machines built again on the CPU from the same seeds, 2 of each width
+CPU_CHECK = ("machine-000", "machine-001", "compressor-000", "compressor-001")
+#: the card's build against the CPU's, TF32 off: f32 sums in other orders
+#: (cuBLAS, the CPU's BLAS) through 640 Adam steps a machine. Each limit
+#: lies between the sound build's reading and a planted fault's
+#: (``scripts/build_tolerance.py`` on an H100; sound / TF32 on / one row
+#: swapped between batches in the last epoch): params max abs 1.8e-7 /
+#: 4.0e-6 / 9.1e-6; thresholds max rel 3.0e-7 / 4.0e-7 / 3.5e-5; CV
+#: scores max |d| / (1 + |cpu|) 2.7e-6 / 2.9e-6 / 2.2e-4. The sound
+#: readings repeat to the last digit from run to run at these shapes.
+BUILD_PARAM_ATOL = 1e-6
+BUILD_THRESHOLD_RTOL = 3e-6
+BUILD_SCORE_TOL = 2e-5
 
-    from gordo_tpu_torch import serializer
-    from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
-    from gordo_tpu_torch.models.factories import feedforward_hourglass
-    from gordo_tpu_torch.models.nn import init_feedforward, params_to_numpy
-    from gordo_tpu_torch.models.preprocessing import MinMaxScaler
 
-    names = {20: [], WIDE_TAGS: []}
+def served_machines():
+    """SERVED_MACHINES 20-tag machines and WIDE_MACHINES 40-tag compressors
+    (their own names, tags and ``sensor_data`` rows, 2000 a machine from
+    1 January 2020 at 10-minute steps) as fleet-build machines of
+    ``DEFINITION`` with the default evaluation (TimeSeriesSplit, 3
+    folds)."""
+    from gordo_tpu_torch.machine import Machine
+
+    start = datetime(2020, 1, 1, tzinfo=timezone.utc)
+    index = [start + timedelta(minutes=10 * r) for r in range(TRAIN_ROWS)]
     machines = [(f"machine-{i:03d}", 20, i) for i in range(SERVED_MACHINES)]
     machines += [(f"compressor-{i:03d}", WIDE_TAGS, 500 + i) for i in range(WIDE_MACHINES)]
-    for name, n_tags, i in machines:
-        spec = feedforward_hourglass(n_tags)
-        params = params_to_numpy(init_feedforward(spec, torch.Generator().manual_seed(1000 + i)))
-        train = sensor_data(i, 2000, n_tags)
-        scaler = MinMaxScaler().fit(train)
-        state = {
-            "spec": spec.to_dict(),
-            "params": params,
-            "pipeline": [{"scale_": scaler.scale_, "min_": scaler.min_}],
-            "scaler": {"scale_": scaler.scale_, "min_": scaler.min_},
-        }
-        recon = DiffBasedAnomalyDetector.from_state(state, device="cpu").predict(train)
-        scaled_err = np.abs(scaler.transform(recon) - scaler.transform(train))
-        state["feature_thresholds"] = np.percentile(np.abs(recon - train), 99, axis=0)
-        state["aggregate_threshold"] = float(np.percentile((scaled_err ** 2).mean(axis=1), 99))
-        metadata = {
-            "name": name,
-            "dataset": {"tag_list": tag_list(n_tags), "resolution": "10min"},
-        }
-        detector = DiffBasedAnomalyDetector.from_state(state, device="cpu")
-        serializer.dump(detector, os.path.join(directory, name), metadata)
-        names[n_tags].append(name)
-    return names[20], names[WIDE_TAGS]
+    return [
+        Machine.from_config(
+            {"name": name, "model": DEFINITION, "dataset": {"tag_list": tag_list(n_tags), "resolution": "10min"}},
+            "smoke", data=(sensor_data(i, TRAIN_ROWS, n_tags), None), index=index,
+        )
+        for name, n_tags, i in machines
+    ]
+
+
+def build_summary(model, machine):
+    """What the card's build is held to the CPU's on: final params,
+    thresholds, CV scores and epochs run."""
+    import numpy as np
+
+    meta = machine.metadata["build_metadata"]["model"]
+    return {
+        "params": {k: {n: t.detach().cpu().numpy() for n, t in layer.items()}
+                   for k, layer in model.base_estimator.estimator.params_.items()},
+        "thresholds": np.append(model.feature_thresholds_, model.aggregate_threshold_),
+        "scores": meta["cross_validation"]["scores"],
+        "epochs_run": meta["training"]["epochs_run"],
+    }
+
+
+def compare_builds(card, cpu):
+    """The card's build against the CPU's: the largest differences,
+    ``[params abs, thresholds rel, scores |d| / (1 + |cpu|)]``, and what
+    lies beyond the stated limits or ran another number of epochs (empty
+    when the builds agree)."""
+    import numpy as np
+
+    worst, faults = [0.0, 0.0, 0.0], []
+    for name, want in cpu.items():
+        got = card[name]
+        if got["epochs_run"] != want["epochs_run"]:
+            faults.append(f"{name}: epochs run {got['epochs_run']} vs {want['epochs_run']}")
+        for key, layer in want["params"].items():
+            for leaf, value in layer.items():
+                diff = float(np.abs(got["params"][key][leaf] - value).max())
+                if not diff <= BUILD_PARAM_ATOL:
+                    faults.append(f"{name} {key}/{leaf}: params {diff} apart")
+                worst[0] = max(worst[0], diff)
+        rel = float((np.abs(got["thresholds"] - want["thresholds"]) / np.abs(want["thresholds"])).max())
+        if not rel <= BUILD_THRESHOLD_RTOL:
+            faults.append(f"{name}: thresholds {rel} apart (relative)")
+        worst[1] = max(worst[1], rel)
+        if list(got["scores"]) != list(want["scores"]):
+            faults.append(f"{name}: CV score keys differ")
+            continue
+        for key, folds in want["scores"].items():
+            values = np.array(list(folds.values()))
+            have = np.array(list(got["scores"][key].values()))
+            diff = float((np.abs(have - values) / (1 + np.abs(values))).max())
+            if not diff <= BUILD_SCORE_TOL:
+                faults.append(f"{name} {key}: {diff} apart")
+            worst[2] = max(worst[2], diff)
+    return worst, faults
+
+
+def build_summaries(machines, device, random=None):
+    """``{name: build_summary}`` of ``machines`` built with
+    ``FleetBuilder`` on ``device``, and the build's seconds."""
+    from gordo_tpu_torch.parallel.fleet_build import FleetBuilder
+
+    t0 = time.perf_counter()
+    builder = FleetBuilder(machines, device=device, random=random)
+    results = builder.build()
+    check(not builder.build_errors, f"build errors: {builder.build_errors}")
+    return {machine.name: build_summary(model, machine) for model, machine in results}, time.perf_counter() - t0
+
+
+def train_phase(directory):
+    """Train the served collection on the card with ``fleet_build`` into
+    ``directory``; hold it against a CPU build of CPU_CHECK from the same
+    seeds; time one training step. Returns the two lists of names, the
+    kernel launches of the build, and each CV scoring forward as a K1 case
+    on the card with the K1 launches it made, by input width."""
+    import torch
+
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.parallel.fleet_build import FleetBuilder
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: training must run in full f32")
+    machines = served_machines()
+    builder = FleetBuilder(machines, device="cuda")
+    forward, forwards = builder.trainer.predict_bucket, []
+
+    def captured(spec, stacked, X):
+        # the host arrays the build made; copied to the card after the build
+        before = fleet_feedforward.launches
+        out = forward(spec, stacked, X)
+        forwards.append((spec, stacked, X, fleet_feedforward.launches - before))
+        return out
+
+    builder.trainer.predict_bucket = captured
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    t0 = time.perf_counter()
+    results = builder.build(output_dir=directory)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(not builder.build_errors, f"build errors: {builder.build_errors}")
+    check(len(results) == SERVED_MACHINES + WIDE_MACHINES, f"{len(results)} machines built")
+    check(len(forwards) == 2 and launches["K1"] == 2 and all(n == 1 for *_, n in forwards),
+          f"CV scoring launched K1 {[n for *_, n in forwards]} times for {len(forwards)} spec groups, "
+          f"not once a group")
+    cv_cases = {
+        X.shape[-1]: (dict(spec=spec, bucket={k: {n: t.cuda() for n, t in layer.items()} for k, layer in stacked.items()},
+                           X=torch.from_numpy(X).cuda(), indices=None, ingest=None), n)
+        for spec, stacked, X, n in forwards
+    }
+    seconds = builder.phase_seconds
+    fits = builder.trainer.fits
+    steps = sum(f["steps"] for f in fits)
+    fit_s = sum(f["seconds"] for f in fits)
+    event_ms = sum(f["event_ms"] for f in fits)
+    phase("train", f"fleet_build of {len(results)} machines ({SERVED_MACHINES} x 20 tags, {WIDE_MACHINES} x "
+          f"{WIDE_TAGS}; hourglass, 5 epochs, batch 32, TimeSeriesSplit(3)) on the card in {wall:.2f} s: "
+          f"plan {seconds['plan'] + seconds['stage']:.3f} s, CV training {seconds['cv_train']:.3f} s, "
+          f"CV scoring {seconds['cv_predict'] + seconds['cv_score'] + seconds['cv_finalize']:.3f} s "
+          f"(forwards {seconds['cv_predict']:.3f} s), final fit {seconds['final_fit']:.3f} s, "
+          f"dump {seconds['dump']:.3f} s")
+    phase("train", f"{len(fits)} stacked fits, members {[f['members'] for f in fits]}, {steps} optimizer steps in "
+          f"{fit_s:.3f} s: {steps / fit_s:.1f} steps a second, {1e3 * fit_s / steps:.3f} ms a step on the host "
+          f"clock, {event_ms / steps:.3f} ms a step between CUDA events; "
+          f"K1 launches {launches['K1']} (one per spec group), K2 {launches['K2']}")
+    device_ms = step_device_ms(make_step(machines[0].X.shape[1], 3 * SERVED_MACHINES))
+    phase("train", f"one training step of the 20-tag CV bucket ({3 * SERVED_MACHINES} members x 32 rows) "
+          f"with the host's enqueue hidden: {device_ms!r} ms of device time; the steps above take "
+          f"{event_ms / steps:.3f} ms between events: the device idles ~{1 - device_ms * steps / event_ms:.0%} "
+          f"of a step")
+
+    card = {model_machine[1].name: build_summary(*model_machine) for model_machine in results
+            if model_machine[1].name in CPU_CHECK}
+    cpu, cpu_s = build_summaries([m for m in machines if m.name in CPU_CHECK], "cpu")
+    worst, faults = compare_builds(card, cpu)
+    check(not faults, "card build disagrees with the CPU's: " + "; ".join(faults[:5]))
+    phase("train", f"card build against a CPU build of {', '.join(CPU_CHECK)} ({cpu_s:.2f} s on the CPU): "
+          f"params max abs {worst[0]:.3e} (limit {BUILD_PARAM_ATOL}), thresholds max rel {worst[1]:.3e} "
+          f"(limit {BUILD_THRESHOLD_RTOL}), CV scores max |d| / (1 + |cpu|) {worst[2]:.3e} "
+          f"(limit {BUILD_SCORE_TOL}), epochs run equal")
+    names = [r[1].name for r in results if r[1].name.startswith("machine-")]
+    wide_names = [r[1].name for r in results if r[1].name.startswith("compressor-")]
+    return names, wide_names, launches, cv_cases
+
+
+def make_step(n_features, members):
+    """One optimizer step of the build's stacked fit on the card, as a
+    closure: ``members`` feedforward_hourglass(``n_features``) members,
+    Adam, 32 seeded rows each."""
+    import torch
+
+    from gordo_tpu_torch.models.factories import feedforward_hourglass
+    from gordo_tpu_torch.models.training import FitConfig, StackedFit, TorchRandom
+    from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+    spec = feedforward_hourglass(n_features)
+    fit = StackedFit(spec, FitConfig(epochs=5, batch_size=32))
+    params = stack_member_params([TorchRandom().init_params(spec, s) for s in range(members)], "cuda")
+    for leaf in fit.leaves(params):
+        leaf.requires_grad_(True)
+    state = fit.optimizer.init(fit.leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    xb = torch.rand(members, 32, n_features, generator=gen).cuda()
+    wb = torch.ones(members, 32, device="cuda")
+    active = torch.ones(members, dtype=torch.bool, device="cuda")
+    return lambda: fit.train_step(params, state, xb, xb, wb, active)
+
+
+def step_device_ms(step):
+    """Device ms of one ``step`` (from :func:`make_step`): CUDA events
+    around one step queued behind a device sleep, the median of 5. One
+    step at a time: a step is ~350 launches, and more than the card's
+    launch queue holds would let the host pace the device again."""
+    import statistics
+
+    return statistics.median(cuda_ms(step, iters=1) for _ in range(5))
 
 
 def tag_list(n_tags):
@@ -926,7 +1117,16 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
         collection = os.path.join(work_dir, "1700000000000")
-        names, wide_names = write_collection(collection)
+        names, wide_names, train_launches, cv_cases = train_phase(collection)
+        check(sorted(cv_cases) == sorted(CV_CASES), f"CV forwards of widths {sorted(cv_cases)}")
+        for width, name in CV_CASES.items():
+            cv_case = cv_cases[width][0]
+            shape = (3 * CV_MACHINES[width], TRAIN_ROWS // 4, width)
+            check(tuple(cv_case["X"].shape) == shape, f"the {width}-tag CV forward had shape "
+                  f"{tuple(cv_case['X'].shape)}, not {shape}")
+            errors[name] = compare(cv_case)
+            phase("kernel", f"{name}, the build's own fold params and test rows: max abs {errors[name][0]:.3e}, "
+                  f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         app = build_app(collection, device="cuda")
         check(len(app.store.fleet().warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
         cpu_app = build_app(collection, device="cpu")
@@ -966,6 +1166,13 @@ def main():
               f"(with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
               f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
               f"({cuda_core_ms / kernel:.1%}){served}; {card}")
+    for width, name in CV_CASES.items():
+        timed[name] = times(cv_cases[width][0])
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms "
+              f"(with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
+              f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+              f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
     anomaly = cases[NARROW_CASES[2]]
     on_card = torch.tensor(anomaly["indices"], dtype=torch.int32, device="cuda")
     k1_on_card = cuda_ms(lambda: fleet_feedforward(
@@ -1018,8 +1225,10 @@ def main():
             "cuda_core_bound_ms": cuda_core_ms, "launch_floor_ms": floor,
         }
 
-    k1_by_path = {"serve": launches["K1"], "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"]}
-    k2_by_path = {"serve": launches["K2"], "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"]}
+    k1_by_path = {"train": train_launches["K1"], "serve": launches["K1"], "serve_wide": wide_launches["K1"],
+                  "stream": stream_launches["K1"]}
+    k2_by_path = {"train": train_launches["K2"], "serve": launches["K2"], "serve_wide": wide_launches["K2"],
+                  "stream": stream_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -1031,6 +1240,11 @@ def main():
               k1_by_path, WIDE_CASES[0], timed[WIDE_CASES[0]]),
         entry("fleet_anomaly_scores (K2), wide kernel", "gordo_tpu/ops/pallas_dense.py:126", wide_launches["K2"],
               k2_by_path, k2_wide, scored_timed[k2_wide]),
+        # launches: the build's CV forward of that width, read on the counter
+        entry("fleet_dense (K1), narrow kernel, CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              cv_cases[20][1], k1_by_path, CV_CASES[20], timed[CV_CASES[20]]),
+        entry("fleet_dense (K1), wide kernel, CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              cv_cases[WIDE_TAGS][1], k1_by_path, CV_CASES[WIDE_TAGS], timed[CV_CASES[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """
-gordo_tpu_torch: the PyTorch/CUDA port of gordo-tpu's serving path.
+gordo_tpu_torch: the PyTorch/CUDA port of gordo-tpu.
 
-The package serves anomaly scores for fleets of feedforward autoencoders
-on an NVIDIA Hopper card. Its whole fleet forward is one hand-written
-CUDA kernel (``ops/csrc/fleet_dense.cu``). It imports torch, numpy and
-the standard library only.
+The package trains fleets of feedforward autoencoders
+(``parallel/fleet_build.py``: cross-validation thresholds, final fit,
+artifacts) and serves their anomaly scores on an NVIDIA Hopper card. Its
+whole fleet forward, in serving and in cross-validation scoring, is one
+hand-written CUDA kernel (``ops/csrc/fleet_dense.cu``). It imports
+torch, numpy and the standard library only.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises instead of

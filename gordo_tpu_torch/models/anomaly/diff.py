@@ -1,9 +1,12 @@
 """
-The ``DiffBasedAnomalyDetector`` state that serving reads
-(``gordo_tpu/models/anomaly/diff.py``): the base estimator (a pipeline of
-the input scaler and the autoencoder), the error ``scaler``, the fitted
-``feature_thresholds_`` / ``aggregate_threshold_``, ``require_thresholds``,
-``window`` and ``smoothing_method``.
+The ``DiffBasedAnomalyDetector`` of ``gordo_tpu/models/anomaly/diff.py``:
+the base estimator (a pipeline of the input scaler and the autoencoder),
+the error ``scaler``, the fitted ``feature_thresholds_`` /
+``aggregate_threshold_``, ``require_thresholds``, ``shuffle``, ``window``
+and ``smoothing_method``. The fleet builder (``parallel/fleet_build.py``)
+trains it: the autoencoder on rows in ``sklearn.utils.shuffle``'s order
+when ``shuffle`` is set, the thresholds from cross-validation, the error
+scaler on ``y``.
 
 The anomaly math itself lives in ``server/wire/assemble.py``, composed as
 numpy columns around the fused reconstruction, as the JAX server's
@@ -25,19 +28,24 @@ from ..spec import FeedForwardSpec
 class DiffBasedAnomalyDetector:
     """Diff-error anomaly detection around ``base_estimator``."""
 
+    #: class default: detectors pickled before ``shuffle`` existed load
+    shuffle = False
+
     def __init__(
         self,
         base_estimator: Any,
-        scaler: MinMaxScaler,
+        scaler: Optional[MinMaxScaler] = None,
         require_thresholds: bool = True,
         window: Optional[int] = None,
         smoothing_method: Optional[str] = None,
         feature_thresholds: Optional[Any] = None,
         aggregate_threshold: Optional[float] = None,
+        shuffle: bool = False,
     ):
         self.base_estimator = base_estimator
-        self.scaler = scaler
+        self.scaler = scaler if scaler is not None else MinMaxScaler()
         self.require_thresholds = require_thresholds
+        self.shuffle = bool(shuffle)
         self.window = window
         self.smoothing_method = smoothing_method
         if window is not None and smoothing_method is None:
@@ -53,6 +61,38 @@ class DiffBasedAnomalyDetector:
 
     def predict(self, X) -> np.ndarray:
         return self.base_estimator.predict(X)
+
+    def get_metadata(self) -> dict:
+        """The thresholds and settings a build records under
+        ``model_meta``, with the keys of the JAX detector's
+        ``get_metadata`` (the estimator's fit history included)."""
+        metadata: dict = {}
+        if self.feature_thresholds_ is not None:
+            metadata["feature-thresholds"] = self.feature_thresholds_.tolist()
+        if self.aggregate_threshold_ is not None:
+            metadata["aggregate-threshold"] = self.aggregate_threshold_
+        for attr, key in (
+            ("feature_thresholds_per_fold_", "feature-thresholds-per-fold"),
+            ("aggregate_thresholds_per_fold_", "aggregate-thresholds-per-fold"),
+        ):
+            if getattr(self, attr, None) is not None:
+                metadata[key] = getattr(self, attr)
+        metadata["window"] = self.window
+        metadata["smoothing-method"] = self.smoothing_method
+        for attr, key in (
+            ("smooth_feature_thresholds_", "smooth-feature-thresholds"),
+            ("smooth_aggregate_threshold_", "smooth-aggregate-threshold"),
+            ("smooth_feature_thresholds_per_fold_", "smooth-feature-thresholds-per-fold"),
+            ("smooth_aggregate_thresholds_per_fold_", "smooth-aggregate-thresholds-per-fold"),
+        ):
+            value = getattr(self, attr, None)
+            if value is not None:
+                metadata[key] = value.tolist() if isinstance(value, np.ndarray) else value
+        metadata.update(scaler=repr(self.scaler), base_estimator=repr(self.base_estimator), shuffle=self.shuffle)
+        estimator = getattr(self.base_estimator, "estimator", self.base_estimator)
+        if isinstance(estimator, TorchAutoEncoder):
+            metadata.update(estimator.get_metadata())
+        return metadata
 
     @classmethod
     def from_state(

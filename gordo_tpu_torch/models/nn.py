@@ -9,6 +9,8 @@ packages, and :func:`params_from_jax` is only a type conversion.
 :func:`forward_feedforward` is the plain forward of one model. Serving
 never calls it: the fleet store runs every forward through
 :func:`gordo_tpu_torch.ops.fleet_dense.fleet_feedforward`.
+:func:`forward_feedforward_stacked` is the training forward of a whole
+stacked bucket, under autograd.
 """
 
 import math
@@ -60,6 +62,34 @@ def forward_feedforward(
         h = resolve_activation(act)(h @ layer["W"].to(dtype) + layer["b"].to(dtype))
         if key != "out" and spec.l1_activity and spec.l1_activity[i]:
             penalty = penalty + spec.l1_activity[i] * h.abs().sum(dtype=torch.float32)
+    return h.to(torch.float32), penalty
+
+
+def forward_feedforward_stacked(
+    spec: FeedForwardSpec, stacked: Params, X: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    The training forward of a stacked fleet bucket, differentiable:
+    ``X[M, B, n_features]`` through every member's layers at once (one
+    ``baddbmm`` a layer), returning ``(output[M, B, n_features_out],
+    penalty[M])``. ``penalty`` is each member's L1 activity term, the raw
+    sum over its whole batch, padding rows included, as Keras and the JAX
+    program add it (``gordo_tpu/models/training.py:263-268``). Compute
+    runs in ``spec.compute_dtype``; output and penalty are float32.
+    """
+    dtype = getattr(torch, spec.compute_dtype)
+    penalty = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    h = X.to(dtype)
+    for i, (key, act) in enumerate(spec.layer_names()):
+        layer = stacked[key]
+        h = resolve_activation(act)(
+            torch.baddbmm(layer["b"].to(dtype)[:, None, :], h, layer["W"].to(dtype))
+        )
+        if key != "out" and spec.l1_activity and spec.l1_activity[i]:
+            # |h| with jnp.abs's gradient: 1 at h == 0, where torch's abs has
+            # 0 (a zero-filled padding row meets zero-initialized biases)
+            magnitude = torch.where(h >= 0, h, -h)
+            penalty = penalty + spec.l1_activity[i] * magnitude.sum(dim=(1, 2), dtype=torch.float32)
     return h.to(torch.float32), penalty
 
 

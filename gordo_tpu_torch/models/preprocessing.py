@@ -42,6 +42,9 @@ class MinMaxScaler:
         self.min_ = low - data_min * self.scale_
         return self
 
+    def fit_transform(self, X) -> np.ndarray:
+        return self.fit(X).transform(X)
+
     def transform(self, X) -> np.ndarray:
         if self.scale_ is None:
             raise AttributeError("MinMaxScaler is not fitted")

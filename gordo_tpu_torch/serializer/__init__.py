@@ -1,5 +1,7 @@
-"""Artifact dump/load with the JAX package's directory layout."""
+"""Artifact dump/load with the JAX package's directory layout, and the
+model-definition reader (``from_definition``)."""
 
+from .from_definition import from_definition
 from .serializer import (
     INFO_FILE,
     METADATA_FILE,
@@ -15,6 +17,7 @@ __all__ = [
     "METADATA_FILE",
     "MODEL_FILE",
     "dump",
+    "from_definition",
     "list_model_dirs",
     "load",
     "load_metadata",

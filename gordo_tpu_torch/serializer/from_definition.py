@@ -1,0 +1,140 @@
+"""
+Model definitions to port objects: a reader for the subset of
+``gordo_tpu/serializer/from_definition.py`` a dense fleet build takes.
+
+A definition is a single-key dict ``{dotted.path: kwargs}`` or a bare
+path (defaults). The paths below are matched as strings, never
+imported; the reference's ``gordo.machine.model...`` names map onto
+them as the JAX package's ``COMPAT_LOCATIONS`` maps them
+(``from_definition.py:40-55``). Anything else raises
+``NotImplementedError`` naming the path.
+
+- ``gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector``: its
+  ``base_estimator`` (default: an hourglass autoencoder), ``scaler``
+  (default: MinMaxScaler), ``require_thresholds``, ``shuffle``,
+  ``window``, ``smoothing_method``;
+- ``sklearn.pipeline.Pipeline`` (``steps``, named ``step_<i>``);
+- ``sklearn.preprocessing.MinMaxScaler`` (``feature_range``);
+- ``gordo_tpu.models[.estimators].JaxAutoEncoder`` with a ``kind`` of
+  ``models.estimators.KINDS``; its ``callbacks`` may hold
+  ``EarlyStopping`` (the JAX package's, Keras' or TensorFlow's path);
+- ``sklearn.model_selection.TimeSeriesSplit`` (``n_splits``), for an
+  evaluation's ``cv``.
+
+``DiffBasedKFCVAnomalyDetector`` is named apart: it is not ported yet.
+"""
+
+import copy
+from typing import Any, Dict, Tuple
+
+from .. import DeviceLike, resolve_device
+from ..models.anomaly.diff import DiffBasedAnomalyDetector
+from ..models.callbacks import EarlyStopping
+from ..models.estimators import TorchAutoEncoder
+from ..models.model_selection import TimeSeriesSplit
+from ..models.preprocessing import MinMaxScaler, Pipeline
+
+DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector"
+KFCV_DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector"
+PIPELINE = "sklearn.pipeline.Pipeline"
+MIN_MAX_SCALER = "sklearn.preprocessing.MinMaxScaler"
+TIME_SERIES_SPLIT = "sklearn.model_selection.TimeSeriesSplit"
+AUTOENCODERS = ("gordo_tpu.models.JaxAutoEncoder", "gordo_tpu.models.estimators.JaxAutoEncoder")
+EARLY_STOPPING = (
+    "gordo_tpu.models.callbacks.EarlyStopping",
+    "tensorflow.keras.callbacks.EarlyStopping",
+    "keras.callbacks.EarlyStopping",
+)
+
+#: the reference's paths of the ported classes
+COMPAT_LOCATIONS: Dict[str, str] = {
+    "gordo.machine.model.models.KerasAutoEncoder": "gordo_tpu.models.JaxAutoEncoder",
+    "gordo.machine.model.anomaly.diff.DiffBasedAnomalyDetector": DETECTOR,
+    "gordo.machine.model.anomaly.diff.DiffBasedKFCVAnomalyDetector": KFCV_DETECTOR,
+}
+
+
+def _path_and_kwargs(definition: Any) -> Tuple[str, Dict[str, Any]]:
+    if isinstance(definition, str):
+        path, kwargs = definition, {}
+    elif isinstance(definition, dict) and len(definition) == 1:
+        path, kwargs = next(iter(definition.items()))
+        kwargs = dict(kwargs or {})
+    else:
+        raise ValueError(f"A definition is a path or a single-key dict, got {definition!r}")
+    return COMPAT_LOCATIONS.get(path, path), kwargs
+
+
+def _no_more(path: str, kwargs: Dict[str, Any]) -> None:
+    if kwargs:
+        raise NotImplementedError(f"{path}: arguments {sorted(kwargs)} are not ported")
+
+
+def from_definition(definition: Any, device: DeviceLike = None) -> Any:
+    """
+    The port object a definition describes; autoencoders are placed on
+    ``device`` (``cuda`` unless the caller asks for the CPU).
+
+    >>> model = from_definition({DETECTOR: {"base_estimator": {PIPELINE: {"steps": [
+    ...     MIN_MAX_SCALER, {AUTOENCODERS[0]: {"kind": "feedforward_hourglass", "epochs": 5}}]}}}},
+    ...     device="cpu")
+    >>> model.base_estimator.estimator.kind, model.base_estimator.estimator.kwargs
+    ('feedforward_hourglass', {'epochs': 5})
+    """
+    return _build(copy.deepcopy(definition), resolve_device(device))
+
+
+def _build(definition: Any, device) -> Any:
+    path, kwargs = _path_and_kwargs(definition)
+    if path == DETECTOR:
+        base = kwargs.pop("base_estimator", None)
+        scaler = kwargs.pop("scaler", None)
+        options = {
+            key: kwargs.pop(key)
+            for key in ("require_thresholds", "shuffle", "window", "smoothing_method")
+            if key in kwargs
+        }
+        _no_more(path, kwargs)
+        return DiffBasedAnomalyDetector(
+            base_estimator=(
+                _build(base, device) if base is not None
+                else TorchAutoEncoder(device=device, kind="feedforward_hourglass")
+            ),
+            scaler=None if scaler is None else _build(scaler, device),
+            **options,
+        )
+    if path == PIPELINE:
+        steps = kwargs.pop("steps")
+        kwargs.pop("memory", None)
+        kwargs.pop("verbose", None)
+        _no_more(path, kwargs)
+        return Pipeline([(f"step_{i}", _build(step, device)) for i, step in enumerate(steps)])
+    if path == MIN_MAX_SCALER:
+        feature_range = tuple(kwargs.pop("feature_range", (0.0, 1.0)))
+        kwargs.pop("copy", None)
+        if kwargs.pop("clip", False):
+            raise NotImplementedError(f"{path}: clip=True is not ported")
+        _no_more(path, kwargs)
+        return MinMaxScaler(feature_range=feature_range)
+    if path in AUTOENCODERS:
+        if "kind" not in kwargs:
+            raise ValueError(f"{path} needs a kind")
+        if kwargs.get("callbacks"):
+            kwargs["callbacks"] = [_callback(cb) for cb in kwargs["callbacks"]]
+        return TorchAutoEncoder(device=device, **kwargs)
+    if path == TIME_SERIES_SPLIT:
+        n_splits = kwargs.pop("n_splits", 5)
+        _no_more(path, kwargs)
+        return TimeSeriesSplit(n_splits)
+    if path == KFCV_DETECTOR:
+        raise NotImplementedError(f"{path} is not ported to gordo_tpu_torch yet")
+    raise NotImplementedError(f"{path} is not supported by gordo_tpu_torch")
+
+
+def _callback(definition: Any) -> Any:
+    if isinstance(definition, EarlyStopping):
+        return definition
+    path, kwargs = _path_and_kwargs(definition)
+    if path not in EARLY_STOPPING:
+        raise NotImplementedError(f"callback {path} is not supported by gordo_tpu_torch")
+    return EarlyStopping(**kwargs)

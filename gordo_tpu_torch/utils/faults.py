@@ -1,6 +1,6 @@
 """
-Deterministic fault injection at the streaming plane's three sites, a
-copy of ``gordo_tpu/utils/faults.py`` (``fault_point``, ``FaultRule``,
+Deterministic fault injection at the streaming plane's three sites and
+the fleet trainer's, a copy of ``gordo_tpu/utils/faults.py`` (``fault_point``, ``FaultRule``,
 ``inject``, the ``GORDO_TPU_FAULTS`` environment form).
 
 Production code calls :func:`fault_point` at a named site; it is a no-op
@@ -13,11 +13,14 @@ the :func:`inject` context manager or the environment variable. Sites:
   scorer (same key); repeated firings open the machine's breaker.
 - ``stream_emit``: before an event is appended to a session's outbox
   (key ``<stream-id>:<event-kind>``); the event is counted and dropped.
+- ``device_program``: before a training bucket runs, once per member
+  (key the member name); raise :class:`InjectedDeviceError` to make the
+  trainer bisect the bucket as it does on a device failure.
 
 Each rule counts the calls matching its (site, key glob) and fires on
 calls ``after < i <= after + times``. (The JAX registry's ``kill``
-option, a process death for build drills, is left out: no stream site
-needs it.)
+option, a process death for build drills, is left out: the port has no
+build journal to resume from.)
 
 >>> with inject(FaultRule("stream_score", match="s1:*", times=1)):
 ...     try:
@@ -45,16 +48,21 @@ logger = logging.getLogger(__name__)
 
 ENV_VAR = "GORDO_TPU_FAULTS"
 
-SITES = ("stream_ingest", "stream_score", "stream_emit")
+SITES = ("stream_ingest", "stream_score", "stream_emit", "device_program")
 
 
 class FaultInjected(RuntimeError):
     """An injected fault (the default exception)."""
 
 
+class InjectedDeviceError(FaultInjected):
+    """An injected fault the fleet trainer treats as a device failure."""
+
+
 #: exception names accepted by the env form's ``exc=`` option
 _EXC_TYPES = {
     "FaultInjected": FaultInjected,
+    "InjectedDeviceError": InjectedDeviceError,
     "RuntimeError": RuntimeError,
     "OSError": OSError,
     "MemoryError": MemoryError,

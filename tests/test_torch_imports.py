@@ -50,5 +50,8 @@ def test_package_has_modules():
         "utils/env.py", "utils/faults.py", "serve/ladder.py", "serve/breaker.py",
         "stream/events.py", "stream/ring.py", "stream/session.py", "stream/telemetry.py",
         "stream/scorer.py", "stream/plane.py", "server/views/stream.py",
+        "ops/losses.py", "models/optim.py", "models/training.py", "models/callbacks.py",
+        "models/metrics.py", "models/model_selection.py", "planner/packing.py", "parallel/fleet.py",
+        "parallel/fleet_build.py", "serializer/from_definition.py", "machine/machine.py", "machine/metadata.py",
     ):
         assert expected in names
