@@ -49,6 +49,20 @@ Run from the root of a checkout; it builds the CUDA kernels from
    kernel instead of the narrow one (the measurement that keeps two
    kernels in the source).
 
+``[routes]`` then drives the rest of the JSON surface on the card's app
+over the socket, each answer held to the CPU app's on the same
+directories: ``/models``, ``/revisions``, ``/server-version``,
+``/expected-models`` and a machine's ``/metadata``; ``/prediction`` for a
+20-tag machine (K1's narrow kernel) and a 40-tag one (the wide kernel),
+each a K1 launch, then both again pinned (``?revision=``) to a second
+revision beside the first (copies of three 20-tag machines and one
+40-tag machine, given a smoothing window of a day); a pin to a missing
+revision (410); ``?all_columns`` on an anomaly request of the second
+revision (14 column groups); ``Accept: text/csv`` (406); ``DELETE`` of
+the served revision (409) and of one machine of the second (200), after
+which a request pinned to it answers 404. It prints each request's
+status and host ms.
+
 K2, the fused anomaly scores (K1 with a per-row MSE epilogue, the same
 source), is held the same way: against its plain version on both
 kernel paths with ``y`` the input rows (with the ingest prologue), a
@@ -86,12 +100,14 @@ without CUDA, and a directory without the package.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 from datetime import datetime, timedelta, timezone
 
@@ -99,6 +115,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: f32 sums taken in another order (kernel FMA chain vs cuBLAS/CPU BLAS)
 RTOL, ATOL = 1e-5, 1e-5
+#: where both apps' f32 forwards are themselves beyond ATOL of the exact
+#: answer (rows far from what a model was trained on), the card's output may
+#: lie at most this many times as far from an f64 forward as the CPU app's
+F64_MULTIPLE = 2.0
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -116,6 +136,13 @@ WIDE_TAGS = 40
 STREAM_WINDOW = 64
 STREAM_POSTS = (ROWS, STREAM_WINDOW, STREAM_WINDOW, STREAM_WINDOW)
 STREAM_SCORED = (512, 512, 64, 64)
+#: [routes]: the served revision's name, a second one beside it, and the
+#: smoothing window (a day of 10-minute rows) its detectors are given
+REVISION = "1700000000000"
+SECOND_REVISION = "1690000000000"
+SMOOTH_WINDOW = 144
+#: [routes]: what /expected-models lists (a YAML flow list, as deployments write it)
+EXPECTED_MODELS = "[machine-000, compressor-000]"
 TIMED = 6  # the first cases of kernel_cases(): the full widths and the served shapes
 #: the 40-tag anomaly request's kernel shape (the wide kernel, 16-row tiles)
 WIDE_ANOMALY = "served anomaly: hourglass40 gather M=1 B=1008 +ingest"
@@ -430,6 +457,8 @@ DEFINITION = {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {"base_e
         {"gordo_tpu.models.estimators.JaxAutoEncoder": {"kind": "feedforward_hourglass", "epochs": 5, "batch_size": 32}},
     ]}}}}
 TRAIN_ROWS = 2000
+#: the 40-tag compressors' sensor_data seeds start here (the 20-tag machines' at 0)
+WIDE_SEED = 500
 #: machines built again on the CPU from the same seeds, 2 of each width
 CPU_CHECK = ("machine-000", "machine-001", "compressor-000", "compressor-001")
 #: the card's build against the CPU's, TF32 off: f32 sums in other orders
@@ -456,7 +485,7 @@ def served_machines():
     start = datetime(2020, 1, 1, tzinfo=timezone.utc)
     index = [start + timedelta(minutes=10 * r) for r in range(TRAIN_ROWS)]
     machines = [(f"machine-{i:03d}", 20, i) for i in range(SERVED_MACHINES)]
-    machines += [(f"compressor-{i:03d}", WIDE_TAGS, 500 + i) for i in range(WIDE_MACHINES)]
+    machines += [(f"compressor-{i:03d}", WIDE_TAGS, WIDE_SEED + i) for i in range(WIDE_MACHINES)]
     return [
         Machine.from_config(
             {"name": name, "model": DEFINITION, "dataset": {"tag_list": tag_list(n_tags), "resolution": "10min"}},
@@ -651,6 +680,18 @@ def request_frame(seed, rows=ROWS, first_row=0, n_tags=20):
     return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tag_list(n_tags))}
 
 
+def own_frame(name, n_tags):
+    """A machine's next ROWS rows, as a deployment sends them: its own
+    sensor stream (``sensor_data`` from its build seed) past the
+    TRAIN_ROWS it was trained on, with request_frame's excursion."""
+    seed = int(name.rsplit("-", 1)[1]) + (WIDE_SEED if name.startswith("compressor-") else 0)
+    start = datetime(2020, 1, 1, tzinfo=timezone.utc)
+    keys = [(start + timedelta(minutes=10 * (TRAIN_ROWS + r))).isoformat() for r in range(ROWS)]
+    values = sensor_data(seed, TRAIN_ROWS + ROWS, n_tags)[TRAIN_ROWS:]
+    values[ROWS // 2:ROWS // 2 + 6, 3] += 25.0
+    return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tag_list(n_tags))}
+
+
 def post(url, payload):
     request = urllib.request.Request(
         url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"}
@@ -662,7 +703,7 @@ def post(url, payload):
     return status, json.loads(body), (time.perf_counter() - t0) * 1e3
 
 
-def wsgi_call(app, method, path, payload=None, query=""):
+def wsgi_call(app, method, path, payload=None, query="", headers=None):
     """One request straight into a WSGI app, without a socket: ``(status,
     body bytes)``."""
     import io
@@ -674,6 +715,7 @@ def wsgi_call(app, method, path, payload=None, query=""):
     environ.update(
         REQUEST_METHOD=method, PATH_INFO=path, QUERY_STRING=query, CONTENT_LENGTH=str(len(body)),
         CONTENT_TYPE="application/json", **{"wsgi.input": io.BytesIO(body)},
+        **{"HTTP_" + k.upper().replace("-", "_"): v for k, v in (headers or {}).items()},
     )
     status = []
     chunks = app(environ, lambda s, h: status.append(int(s.split()[0])))
@@ -693,6 +735,21 @@ def http_call(url, method="GET"):
     """A bodiless request over the socket: ``(status, body bytes)``."""
     with urllib.request.urlopen(urllib.request.Request(url, method=method), timeout=300) as response:
         return response.status, response.read()
+
+
+def http_request(url, method, payload=None, headers=None):
+    """One request over the socket, any status: ``(status, body bytes,
+    revision header, host ms)``."""
+    data = None if payload is None else json.dumps(payload).encode()
+    request = urllib.request.Request(url, data=data, method=method,
+                                     headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=300) as response:
+            status, body, revision = response.status, response.read(), response.headers.get("revision")
+    except urllib.error.HTTPError as error:
+        status, body, revision = error.code, error.read(), error.headers.get("revision")
+    return status, body, revision, (time.perf_counter() - t0) * 1e3
 
 
 def same_json(expected, got, path="data"):
@@ -841,6 +898,139 @@ def stream_phase(base, names, cpu_app):
           f"rtol {RTOL}, atol {ATOL}); K2 launches {launches['K2']}, K1 launches {launches['K1']}; "
           f"ingest ms {[round(ms, 1) for ms in latencies]}, {rows_per_s:.0f} rows scored a second")
     return launches, latencies, rows_per_s
+
+
+def second_revision(collection, machines):
+    """A revision beside ``collection`` holding copies of ``machines``,
+    each detector given a ``SMOOTH_WINDOW``-row rolling median (as a later
+    build of the same config with a window would)."""
+    from gordo_tpu_torch import serializer
+
+    second = os.path.join(os.path.dirname(collection), SECOND_REVISION)
+    for name in machines:
+        source = os.path.join(collection, name)
+        with open(os.path.join(source, serializer.MODEL_FILE), "rb") as f:
+            detector = serializer.loads(f.read(), device="cpu")
+        detector.window, detector.smoothing_method = SMOOTH_WINDOW, "smm"
+        serializer.dump(detector, os.path.join(second, name), metadata=serializer.load_metadata(source))
+    return second
+
+
+def f64_forward(model, X):
+    """``model``'s reconstruction of raw rows ``X[rows, tags]`` in float64:
+    its ingest plan and layers, the f32 weights widened."""
+    import numpy as np
+    import torch
+    from gordo_tpu_torch.models.estimators import find_estimator
+    from gordo_tpu_torch.ops.activations import resolve_activation
+    from gordo_tpu_torch.server.fleet_store import member_plan
+
+    estimator = find_estimator(model)
+    scale, offset = member_plan(model, X.shape[1])
+    h = torch.from_numpy(np.asarray(X, np.float64) * scale.astype(np.float64) + offset.astype(np.float64))
+    for key, activation in estimator.spec_.layer_names():
+        W, b = (estimator.params_[key][n].cpu().double() for n in ("W", "b"))
+        h = resolve_activation(activation)(h @ W + b)
+    return h.numpy()
+
+
+def f64_distances(cpu_body, body, reference, path):
+    """Pop ``model-output`` from both answers and return the largest abs
+    difference of the CPU app's and of the card's from ``reference[rows,
+    tags]``; the groups' tags and row keys must be equal."""
+    import numpy as np
+
+    outputs = [answer["data"].pop("model-output") for answer in (cpu_body, body)]
+    check([(t, list(c)) for t, c in outputs[0].items()] == [(t, list(c)) for t, c in outputs[1].items()],
+          f"{path}: model-output tags or rows differ")
+    return [float(np.abs(np.array([list(col.values()) for col in out.values()]).T - reference).max())
+            for out in outputs]
+
+
+def routes_phase(base, names, wide_names, cpu_app, collection, card):
+    """The JSON routes of the card's app at ``base`` beside a second
+    revision, every answer held to the CPU app's on the same directories;
+    each ``/prediction`` must launch K1. Returns the phase's launches of K1
+    and K2."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server.wire import decode_frame
+
+    root, prefix = base.split("/gordo/v0/")
+    prefix = "/gordo/v0/" + prefix
+    second = second_revision(collection, names[:3] + wide_names[:1])
+    pin = f"revision={SECOND_REVISION}"
+    narrow_x, wide_x = own_frame(names[0], 20), own_frame(wide_names[0], WIDE_TAGS)
+
+    def both(method, path, query="", payload=None, headers=None, status=200, cpu_first=None, f64=None):
+        """The request to the card's app over the socket and to the CPU app
+        (``cpu_first`` runs between the two when given); both answer
+        ``status`` with equal bodies, except that with ``f64`` (an f64
+        forward of the rows) ``model-output`` is held to it instead: the
+        card's at most F64_MULTIPLE times as far as the CPU app's (or ATOL).
+        Returns the card's parsed body."""
+        url = path if path == "/server-version" else prefix + path
+        before = fleet_feedforward.launches
+        if cpu_first is not None:
+            cpu_status, cpu_body = wsgi_call(cpu_app, method, url, payload, query, headers)
+            cpu_first()
+        got, body, revision, ms = http_request(root + url + ("?" + query if query else ""), method, payload, headers)
+        k1 = fleet_feedforward.launches - before
+        if cpu_first is None:
+            cpu_status, cpu_body = wsgi_call(cpu_app, method, url, payload, query, headers)
+        check(got == cpu_status == status, f"{method} {url}?{query} answered {got} (CPU app {cpu_status}), not {status}")
+        body, cpu_body = json.loads(body), json.loads(cpu_body)
+        body.pop("time-seconds", None)
+        cpu_body.pop("time-seconds", None)
+        note = ""
+        if f64 is not None:
+            cpu_err, card_err = f64_distances(cpu_body, body, f64, path)
+            limit = F64_MULTIPLE * max(cpu_err, ATOL)
+            check(card_err <= limit, f"{path}: model-output {card_err:.3e} from an f64 forward, "
+                  f"the CPU app's {cpu_err:.3e} (limit {limit:.3e})")
+            note = (f", model-output max abs from an f64 forward: card {card_err:.3e}, CPU app {cpu_err:.3e} "
+                    f"(limit {F64_MULTIPLE} x max(CPU app's, ATOL) = {limit:.3e})")
+        same_json(cpu_body, body, path)
+        check(revision == body.get("revision"), f"{path}: revision header {revision!r}, body {body.get('revision')!r}")
+        if path.endswith("/prediction") and status == 200:
+            check(k1 >= 1, f"{method} {url}?{query} never launched K1")
+        sent = f"{method} {url}{'?' + query if query else ''}{' ' + json.dumps(headers) if headers else ''}"
+        phase("routes", f"{sent}: {got} in {ms:.1f} ms on the host clock, K1 launches {k1}{note}; {card}")
+        return body
+
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    models = both("GET", "/models")["models"]
+    check(models == sorted(names + wide_names), "/models lists other machines")
+    revisions = both("GET", "/revisions")
+    check(revisions["latest"] == REVISION and SECOND_REVISION in revisions["available-revisions"], "/revisions")
+    check(list(both("GET", "/server-version")) == ["version"], "/server-version")
+    check(both("GET", "/expected-models")["expected-models"] == ["machine-000", "compressor-000"], "/expected-models")
+    check(both("GET", f"/{names[0]}/metadata")["metadata"]["name"] == names[0], "metadata")
+    served = [both("POST", f"/{n}/prediction", payload={"X": x}) for n, x in ((names[0], narrow_x), (wide_names[0], wide_x))]
+    pinned = [both("POST", f"/{n}/prediction", pin, {"X": x}) for n, x in ((names[0], narrow_x), (wide_names[0], wide_x))]
+    for got, want in zip(pinned, served):
+        check(got["revision"] == SECOND_REVISION, "a pinned answer carries another revision")
+        same_json(want["data"], got["data"])  # the copies score what the originals score
+    check(len(served[1]["data"]["model-output"]) == WIDE_TAGS, "40-tag prediction columns")
+    # another machine's levels at a 40-tag machine: both apps' f32 forwards lie beyond ATOL of the
+    # exact answer here, so each is held to an f64 forward of the same rows
+    far_x = request_frame(401, n_tags=WIDE_TAGS)
+    reference = f64_forward(serializer.load(os.path.join(collection, wide_names[0]), "cpu"),
+                            decode_frame(far_x).values)
+    both("POST", f"/{wide_names[0]}/prediction", payload={"X": far_x}, f64=reference)
+    both("POST", f"/{names[0]}/anomaly/prediction", "revision=999", {"X": narrow_x, "y": narrow_x}, status=410)
+    smooth = both("POST", f"/{names[0]}/anomaly/prediction", pin + "&all_columns", {"X": narrow_x, "y": narrow_x})
+    check(len(smooth["data"]) == 14 and "smooth-total-anomaly-scaled" in smooth["data"],
+          f"?all_columns gave {len(smooth['data'])} column groups")
+    both("POST", f"/{names[0]}/anomaly/prediction", payload={"X": narrow_x, "y": narrow_x},
+         headers={"Accept": "text/csv"}, status=406)
+    both("DELETE", f"/{names[0]}/revision/{REVISION}", status=409)
+    machine_dir = os.path.join(second, names[2])
+    kept = shutil.copytree(machine_dir, os.path.join(os.path.dirname(second), "kept"))
+    both("DELETE", f"/{names[2]}/revision/{SECOND_REVISION}", cpu_first=lambda: shutil.copytree(kept, machine_dir))
+    check(not os.path.exists(machine_dir), "DELETE left the machine's directory")
+    both("POST", f"/{names[2]}/prediction", pin, {"X": narrow_x}, status=404)
+    return {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
 
 
 # -- phase 5: times ----------------------------------------------------------------
@@ -1113,10 +1303,11 @@ def main():
 
     # the stream plane reads its knobs when the first stream route creates it
     os.environ["GORDO_TPU_STREAM_WINDOW_ROWS"] = str(STREAM_WINDOW)
+    os.environ["EXPECTED_MODELS"] = EXPECTED_MODELS
     build_dir = os.path.join(HERE, "build")  # git-ignored; the collection is temporary
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
-        collection = os.path.join(work_dir, "1700000000000")
+        collection = os.path.join(work_dir, REVISION)
         names, wide_names, train_launches, cv_cases = train_phase(collection)
         check(sorted(cv_cases) == sorted(CV_CASES), f"CV forwards of widths {sorted(cv_cases)}")
         for width, name in CV_CASES.items():
@@ -1137,6 +1328,7 @@ def main():
         try:
             launches, wide_launches = serve_phase(base, names, wide_names, cpu_app)
             stream_launches, _latencies, _rows_per_s = stream_phase(base, names, cpu_app)
+            route_launches = routes_phase(base, names, wide_names, cpu_app, collection, card)
         finally:
             server.shutdown()
             server.server_close()
@@ -1226,9 +1418,9 @@ def main():
         }
 
     k1_by_path = {"train": train_launches["K1"], "serve": launches["K1"], "serve_wide": wide_launches["K1"],
-                  "stream": stream_launches["K1"]}
+                  "stream": stream_launches["K1"], "routes": route_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "serve": launches["K2"], "serve_wide": wide_launches["K2"],
-                  "stream": stream_launches["K2"]}
+                  "stream": stream_launches["K2"], "routes": route_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],

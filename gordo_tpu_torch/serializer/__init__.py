@@ -7,9 +7,14 @@ from .serializer import (
     METADATA_FILE,
     MODEL_FILE,
     dump,
+    dumps,
+    is_builder_dropping,
+    is_staging_dir,
     list_model_dirs,
     load,
+    load_info,
     load_metadata,
+    loads,
 )
 
 __all__ = [
@@ -17,8 +22,13 @@ __all__ = [
     "METADATA_FILE",
     "MODEL_FILE",
     "dump",
+    "dumps",
     "from_definition",
+    "is_builder_dropping",
+    "is_staging_dir",
     "list_model_dirs",
     "load",
+    "load_info",
     "load_metadata",
+    "loads",
 ]

@@ -1,22 +1,31 @@
 """
 The model server: a plain WSGI application, served with ``wsgiref``.
 
-The routes of this slice, with the JAX server's JSON shapes
-(``gordo_tpu/server/app.py``):
+The routes of the JAX server's URL map (``gordo_tpu/server/app.py``),
+with its JSON shapes, in its order; ``build-status``, ``fleet-health``
+and ``slo`` are not ported:
 
-- ``GET /healthcheck``;
-- ``POST /gordo/v0/<project>/<name>/anomaly/prediction``;
-- ``POST /gordo/v0/<project>/prediction/fleet`` (lean, or ``?full``);
+- ``GET /healthcheck`` and ``GET /server-version``;
+- under ``/gordo/v0/<project>/``: ``POST <name>/prediction``,
+  ``POST <name>/anomaly/prediction``, ``GET <name>/metadata`` and
+  ``GET <name>/healthcheck`` (the same answer),
+  ``GET <name>/download-model``, ``DELETE <name>/revision/<revision>``,
+  ``POST prediction/fleet`` (lean, or ``?full``), ``GET models``,
+  ``GET revisions`` and ``GET expected-models``;
 - the streaming plane (``views/stream.py``): ``POST .../stream/<id>/ingest``,
   ``GET .../stream/<id>/events`` (server-sent events),
   ``GET .../stream/status`` and ``DELETE .../stream/<id>``.
 
-Every JSON body carries the served ``revision`` (the collection
-directory's name), as the JAX server stamps it. Errors map to statuses
-as there: 400 for a bad request or frame, 404 for an unknown model, 410
-for ingest into a closed stream, 422 for a malformed name or a model
-that is not an anomaly detector, 429 and 503 (with ``Retry-After``) when
-the streaming plane refuses a session.
+A request may pin a revision, a sibling directory of the served one,
+with ``?revision=`` or a ``revision`` header. Every JSON body of a
+``/gordo/v0`` route, and its ``revision`` header, carries the revision
+that answered. Errors map to statuses as there: 400 for a bad request or
+frame, 404 for an unknown model, 406 and 415 for a format the port does
+not serve (it serves JSON only), 409 for deleting the served revision,
+410 for a malformed or missing revision pin or ingest into a closed
+stream, 422 for a malformed name or a model that is not an anomaly
+detector, 429 and 503 (with ``Retry-After``) when the streaming plane
+refuses a session.
 
 The app owns its store and, from the first stream route on, its
 :class:`~gordo_tpu_torch.stream.StreamPlane`.
@@ -28,41 +37,73 @@ import os
 import re
 import socketserver
 import threading
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 from urllib.parse import parse_qs
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 
 from .. import DeviceLike, resolve_device
 from ..stream import StreamPlane, stream_enabled
-from .fleet_store import FleetModelStore, ModelResolution
+from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
+from .utils import ServerError, check_metadata_file, validate_gordo_name, validate_revision
 from .wire import dumps
 
 logger = logging.getLogger(__name__)
 
 PREFIX = "/gordo/v0"
 MODEL_COLLECTION_DIR_ENV_VAR = "MODEL_COLLECTION_DIR"
+EXPECTED_MODELS_ENV_VAR = "EXPECTED_MODELS"
 
-_NAME = re.compile(r"^[a-zA-Z\d-]+")
 _REASONS = {
     200: "OK",
     400: "Bad Request",
     404: "Not Found",
     405: "Method Not Allowed",
+    406: "Not Acceptable",
+    409: "Conflict",
     410: "Gone",
+    415: "Unsupported Media Type",
     422: "Unprocessable Entity",
     429: "Too Many Requests",
     500: "Internal Server Error",
     503: "Service Unavailable",
 }
 
+#: a bare name in a YAML flow list, and the bare words YAML 1.1 reads as
+#: something other than a string (numbers, booleans, null, dates)
+_FLOW_NAME = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]*")
+_YAML_SCALAR = re.compile(
+    r"[-+]?(\d[\d_]*|0[xob][\da-fA-F_]+|(\d[\d_]*)?\.[\d_]*([eE][-+]?\d+)?|\d+[eE][-+]?\d+)"
+    r"|\.(inf|Inf|INF|nan|NaN|NAN)|\d{4}-\d\d?-\d\d?"
+    r"|(?i:y|n|yes|no|true|false|on|off|null)"
+)
 
-class ServerError(Exception):
-    """An error answered as ``{key: message}`` with an HTTP status."""
 
-    def __init__(self, message: str, status: int = 400, key: str = "message"):
-        super().__init__(message)
-        self.status = status
-        self.payload = {key: message}
+def parse_expected_models(raw: Optional[str]) -> List[str]:
+    """The ``EXPECTED_MODELS`` list: ``[]`` when unset, else a JSON list
+    of names or a YAML flow list of bare names (``[a, b]``). Anything
+    else, or a bare word that YAML would not read as a string, raises.
+
+    >>> parse_expected_models("[machine-1, machine-2]")
+    ['machine-1', 'machine-2']
+    """
+    if raw is None:
+        return []
+    try:
+        names = json.loads(raw)
+    except ValueError:
+        text = raw.strip()
+        if not (text.startswith("[") and text.endswith("]")):
+            raise ValueError(f"{EXPECTED_MODELS_ENV_VAR}={raw!r} is not a list of model names")
+        items = [item.strip() for item in text[1:-1].split(",")]
+        names = [] if items == [""] else items
+        for name in names:
+            if not _FLOW_NAME.fullmatch(name) or _YAML_SCALAR.fullmatch(name):
+                raise ValueError(
+                    f"{EXPECTED_MODELS_ENV_VAR}={raw!r}: {name!r} is not a bare model name; write a JSON list"
+                )
+    if not isinstance(names, list) or not all(isinstance(name, str) for name in names):
+        raise ValueError(f"{EXPECTED_MODELS_ENV_VAR}={raw!r} is not a list of model names")
+    return names
 
 
 class Request:
@@ -81,7 +122,15 @@ class Request:
 
     def header(self, name: str) -> Optional[str]:
         """A request header, e.g. ``Last-Event-ID``, or None."""
-        return self.environ.get("HTTP_" + name.upper().replace("-", "_"))
+        key = name.upper().replace("-", "_")
+        if key in ("CONTENT_TYPE", "CONTENT_LENGTH"):
+            return self.environ.get(key)
+        return self.environ.get("HTTP_" + key)
+
+    def arg(self, name: str) -> Optional[str]:
+        """The first value of a query parameter, or None."""
+        values = self.args.get(name)
+        return values[0] if values else None
 
     def json(self) -> Any:
         """The JSON body, or None when there is none or it does not parse."""
@@ -109,27 +158,45 @@ class Response:
 
 
 class RequestContext:
-    """Per-request state handed to the views."""
+    """Per-request state handed to the views: the served revision, and
+    the revision that answers once :meth:`resolve_revision` has run
+    (``collection_dir``, ``revision``)."""
 
     def __init__(self, app: "GordoServerApp", request: Request):
         self.app = app
         self.request = request
         self.store = app.store
         self.collection_dir = app.store.collection_dir
-        self.revision = app.revision
+        self.current_revision = app.revision
+        self.revision: Optional[str] = None
+
+    def resolve_revision(self) -> None:
+        """Point the request at the revision it pins (``?revision=`` or
+        the ``revision`` header), a sibling directory of the served one,
+        or else at the served revision; 410 when the pin is malformed or
+        names no directory."""
+        revision = self.request.arg("revision") or self.request.header("revision")
+        if not revision:
+            self.revision = self.current_revision
+            return
+        # validated before it is adopted: it is echoed into a header
+        if not validate_revision(revision):
+            raise ServerError("Revision should only contains numbers.", status=410, key="error")
+        self.revision = revision
+        self.collection_dir = os.path.join(self.collection_dir, "..", revision)
+        if not os.path.isdir(self.collection_dir):
+            raise ServerError(f"Revision '{revision}' not found.", status=410, key="error")
+
+    def fleet(self) -> RevisionFleet:
+        """The fleet of the revision that answers this request."""
+        return self.store.fleet(self.collection_dir)
 
     def resolve(self, name: str) -> ModelResolution:
         """The model and metadata for ``name``: 422 for a malformed name,
         ``FileNotFoundError`` when there is no such model."""
-        if not _NAME.match(name or ""):
-            raise ServerError("gordo_name field has wrong format", status=422)
-        model_dir = os.path.join(self.collection_dir, name)
-        if not any(
-            os.path.isfile(os.path.join(d, "metadata.json"))
-            for d in (model_dir, self.collection_dir)
-        ):
-            raise FileNotFoundError("Unable to load metadata.json file")
-        return self.store.fleet().resolution(name)
+        validate_gordo_name(name)
+        check_metadata_file(self.collection_dir, name)
+        return self.fleet().resolution(name)
 
     def json_response(self, payload: Dict[str, Any], status: int = 200) -> Response:
         if self.revision is not None:
@@ -138,38 +205,41 @@ class RequestContext:
 
 
 def _routes() -> List[Tuple[str, "re.Pattern[str]", Callable[..., Response]]]:
+    """``(method, path pattern, view)`` in the JAX server's URL map order."""
     from .views import anomaly, base, stream
 
     project = rf"^{PREFIX}/(?P<gordo_project>[^/]+)"
+    model = rf"{project}/(?P<gordo_name>[^/]+)"
     return [
         ("GET", re.compile(r"^/healthcheck/?$"), base.get_healthcheck),
+        ("GET", re.compile(r"^/server-version/?$"), base.get_server_version),
+        ("POST", re.compile(rf"{model}/prediction/?$"), base.post_prediction),
+        ("POST", re.compile(rf"{model}/anomaly/prediction/?$"), anomaly.post_anomaly_prediction),
+        ("GET", re.compile(rf"{model}/metadata/?$"), base.get_metadata),
+        ("GET", re.compile(rf"{model}/healthcheck/?$"), base.get_metadata),
+        ("GET", re.compile(rf"{model}/download-model/?$"), base.get_download_model),
+        ("DELETE", re.compile(rf"{model}/revision/(?P<revision>[^/]+)/?$"), base.delete_model_revision),
+        ("POST", re.compile(rf"{project}/prediction/fleet/?$"), base.post_fleet_prediction),
         ("POST", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/ingest/?$"), stream.post_stream_ingest),
         ("GET", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/events/?$"), stream.get_stream_events),
         ("GET", re.compile(rf"{project}/stream/status/?$"), stream.get_stream_status),
         ("DELETE", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/?$"), stream.delete_stream),
-        (
-            "POST",
-            re.compile(rf"^{PREFIX}/(?P<gordo_project>[^/]+)/prediction/fleet/?$"),
-            base.post_fleet_prediction,
-        ),
-        (
-            "POST",
-            re.compile(
-                rf"^{PREFIX}/(?P<gordo_project>[^/]+)/(?P<gordo_name>[^/]+)/anomaly/prediction/?$"
-            ),
-            anomaly.post_anomaly_prediction,
-        ),
+        ("GET", re.compile(rf"{project}/models/?$"), base.get_model_list),
+        ("GET", re.compile(rf"{project}/revisions/?$"), base.get_revision_list),
+        ("GET", re.compile(rf"{project}/expected-models/?$"), base.get_expected_models),
     ]
 
 
 class GordoServerApp:
     """The WSGI application serving one model-collection (revision)
-    directory on one device."""
+    directory, and the revisions beside it that requests pin, on one
+    device. ``expected_models`` is what ``/expected-models`` lists."""
 
-    def __init__(self, collection_dir: str, device: DeviceLike = None):
+    def __init__(self, collection_dir: str, device: DeviceLike = None, expected_models: Sequence[str] = ()):
         self.device = resolve_device(device)
         self.store = FleetModelStore(collection_dir, self.device)
         self.revision = os.path.basename(os.path.normpath(collection_dir))
+        self.expected_models = list(expected_models)
         self.routes = _routes()
         self.plane: Optional[StreamPlane] = None
         self._plane_lock = threading.Lock()
@@ -186,24 +256,32 @@ class GordoServerApp:
 
     def dispatch(self, request: Request) -> Response:
         ctx = RequestContext(self, request)
-        allowed = []
         try:
-            for method, pattern, view in self.routes:
-                match = pattern.match(request.path)
-                if match is None:
-                    continue
-                if method != request.method:
-                    allowed.append(method)
-                    continue
-                return view(ctx, **match.groupdict())
-            if allowed:
-                return ctx.json_response({"error": "Method Not Allowed"}, status=405)
-            return ctx.json_response({"error": "Not Found"}, status=404)
+            response = self._dispatch(ctx, request)
         except ServerError as exc:
-            return ctx.json_response(exc.payload, status=exc.status)
+            response = ctx.json_response(exc.payload, status=exc.status)
         except Exception:  # noqa: BLE001 - the server boundary answers 500
             logger.exception("Unhandled server error")
-            return ctx.json_response({"error": "Internal Server Error"}, status=500)
+            response = ctx.json_response({"error": "Internal Server Error"}, status=500)
+        if ctx.revision is not None:
+            response.headers.setdefault("revision", ctx.revision)
+        return response
+
+    def _dispatch(self, ctx: RequestContext, request: Request) -> Response:
+        allowed = []
+        for method, pattern, view in self.routes:
+            match = pattern.match(request.path)
+            if match is None:
+                continue
+            if method != request.method:
+                allowed.append(method)
+                continue
+            if request.path.startswith(PREFIX + "/"):  # /healthcheck and /server-version have no revision
+                ctx.resolve_revision()
+            return view(ctx, **match.groupdict())
+        if allowed:
+            return ctx.json_response({"error": "Method Not Allowed"}, status=405)
+        return ctx.json_response({"error": "Not Found"}, status=404)
 
     def __call__(self, environ: Dict[str, Any], start_response) -> Iterable[bytes]:
         response = self.dispatch(Request(environ))
@@ -211,8 +289,6 @@ class GordoServerApp:
         if isinstance(response.body, bytes):
             headers.append(("Content-Length", str(len(response.body))))
         headers += list(response.headers.items())
-        if self.revision is not None:
-            headers.append(("revision", self.revision))
         reason = _REASONS.get(response.status, "")
         start_response(f"{response.status} {reason}".rstrip(), headers)
         if isinstance(response.body, bytes):
@@ -235,10 +311,13 @@ def _encoded(chunks: Iterator[str]) -> Iterator[bytes]:
 def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None) -> GordoServerApp:
     """The server application for ``collection_dir`` (default: the
     ``MODEL_COLLECTION_DIR`` environment variable), on ``device``
-    (default ``cuda``; pass ``"cpu"`` to run on the CPU)."""
+    (default ``cuda``; pass ``"cpu"`` to run on the CPU), listing the
+    ``EXPECTED_MODELS`` environment variable's names
+    (:func:`parse_expected_models`)."""
     if collection_dir is None:
         collection_dir = os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
-    return GordoServerApp(collection_dir, device)
+    expected = parse_expected_models(os.environ.get(EXPECTED_MODELS_ENV_VAR))
+    return GordoServerApp(collection_dir, device, expected)
 
 
 class ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):

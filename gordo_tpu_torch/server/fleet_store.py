@@ -1,11 +1,13 @@
 """
-The fleet-resident model store: every served model of one revision loaded
+The fleet-resident model store: every served model of a revision loaded
 once, with its params on the device, grouped into one stacked bucket per
-spec so that a request scores through one kernel launch per bucket.
+spec so that a request scores through one kernel launch per bucket. The
+store keeps the served revision and the revisions that requests pin,
+least recently used first out.
 
 A copy of the serving core of ``gordo_tpu/server/fleet_store.py``
-(``RevisionFleet``, ``fleet_forward_gather``) for f32 feedforward
-autoencoders. There is no program cache: PyTorch runs eagerly and the
+(``RevisionFleet``, ``fleet_forward_gather``, ``FleetModelStore``) for f32
+feedforward autoencoders. There is no program cache: PyTorch runs eagerly and the
 kernel takes every spec's widths as arguments. ``fleet_scores`` scores a
 spec bucket with one K2 launch: the forward and each row's error against
 its raw input rows, fused.
@@ -23,6 +25,7 @@ import logging
 import os
 import re
 import threading
+from collections import OrderedDict
 from datetime import timedelta
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -34,6 +37,7 @@ from ..models.estimators import find_estimator
 from ..models.spec import FeedForwardSpec
 from ..ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 from ..parallel.fleet import stack_member_params
+from ..utils.env import env_int
 
 logger = logging.getLogger(__name__)
 
@@ -310,12 +314,28 @@ class RevisionFleet:
 
 
 class FleetModelStore:
-    """The store of one served revision directory."""
+    """An LRU of :class:`RevisionFleet` objects keyed by the real path of their
+    revision directory (``FleetModelStore`` of
+    ``gordo_tpu/server/fleet_store.py``): the served revision
+    (``collection_dir``) and the revisions that requests pin with
+    ``?revision=``. ``N_CACHED_REVISIONS`` (default 2) bounds how many
+    stay resident; a revision is never evicted model by model. An evicted
+    or invalidated fleet stays usable by a request that already holds
+    it."""
 
     def __init__(self, collection_dir: str, device: torch.device):
+        max_revisions = env_int("N_CACHED_REVISIONS", 2)
+        if max_revisions < 1:
+            logger.warning("N_CACHED_REVISIONS=%d is not a positive revision count; using 2", max_revisions)
+            max_revisions = 2
         self.collection_dir = collection_dir
         self.device = device
-        self._fleet = RevisionFleet(collection_dir, device)
+        self.max_revisions = max_revisions
+        self._lock = threading.Lock()
+        self._revisions: "OrderedDict[str, RevisionFleet]" = OrderedDict()
+        #: the last ``(collection_dir as asked, fleet)``: a request for the
+        #: same directory skips the realpath and the lock
+        self._mru: Optional[Tuple[str, RevisionFleet]] = None
 
     def route(self, collection_dir: str) -> str:
         """The revision directory that serves ``collection_dir``: itself.
@@ -323,5 +343,43 @@ class FleetModelStore:
         which belong to the lifecycle and are not ported.)"""
         return collection_dir
 
-    def fleet(self) -> RevisionFleet:
-        return self._fleet
+    def _ensure_fleet(self, collection_dir: str) -> RevisionFleet:
+        """The resident fleet of ``collection_dir``, made (evicting the
+        least recently used beyond ``max_revisions``) on first use."""
+        key = os.path.realpath(collection_dir)
+        with self._lock:
+            fleet = self._revisions.get(key)
+            if fleet is None:
+                mru = self._mru
+                if mru is not None:  # requests served through _mru never refreshed its slot
+                    for mru_key, mru_fleet in self._revisions.items():
+                        if mru_fleet is mru[1]:
+                            self._revisions.move_to_end(mru_key)
+                            break
+                fleet = self._revisions[key] = RevisionFleet(key, self.device)
+                while len(self._revisions) > self.max_revisions:
+                    evicted, _ = self._revisions.popitem(last=False)
+                    logger.info("Evicting served revision %s", evicted)
+            else:
+                self._revisions.move_to_end(key)
+        return fleet
+
+    def fleet(self, collection_dir: Optional[str] = None) -> RevisionFleet:
+        """The fleet of ``collection_dir`` (default: the served revision)."""
+        if collection_dir is None:
+            collection_dir = self.collection_dir
+        mru = self._mru
+        if mru is not None and mru[0] == collection_dir:
+            return mru[1]
+        fleet = self._ensure_fleet(collection_dir)
+        with self._lock:
+            self._mru = (collection_dir, fleet)
+        return fleet
+
+    def invalidate(self, collection_dir: str) -> None:
+        """Forget ``collection_dir``'s fleet (its artifacts changed on
+        disk); the next request loads it afresh."""
+        key = os.path.realpath(collection_dir)
+        with self._lock:
+            self._mru = None
+            self._revisions.pop(key, None)

@@ -5,18 +5,20 @@ Anomaly route: ``POST /gordo/v0/<project>/<name>/anomaly/prediction``
 Body ``{"X": frame, "y": frame}``. The reconstruction runs on the device
 through the compiled single-member path (one gather launch of the fleet
 kernel, with the model's input scaling as its prologue); the threshold
-and confidence math composes as numpy columns around it. ``y`` is
-required (400); a model that is not a ``DiffBasedAnomalyDetector``
-answers 422, as does one whose thresholds were never fitted.
+and confidence math composes as numpy columns around it, with the
+``smooth-*`` groups only under ``?all_columns``. ``y`` is required
+(400); a model that is not a ``DiffBasedAnomalyDetector`` answers 422,
+as does one whose thresholds were never fitted.
 """
 
 import logging
 import timeit
 
 from ...models.anomaly.diff import DiffBasedAnomalyDetector
-from .. import wire
+from .. import utils, wire
 from ..app import Response, ServerError
-from .base import extract_X_y
+from ..wire import negotiate
+from .base import encode_table_response, extract_X_y
 
 logger = logging.getLogger(__name__)
 
@@ -30,10 +32,8 @@ def _unprocessable(ctx, model) -> Response:
 
 def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Response:
     start = timeit.default_timer()
-    try:
-        resolution = ctx.resolve(gordo_name)
-    except FileNotFoundError:
-        raise ServerError(f"No such model found: '{gordo_name}'", status=404)
+    resolution = utils.resolve_model(ctx, gordo_name)
+    response_format = negotiate.response_format(ctx.request)  # before decoding and scoring
     X, y = extract_X_y(ctx.request, resolution)
     if y is None:
         raise ServerError("Cannot perform anomaly without 'y' to compare against.")
@@ -42,7 +42,7 @@ def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Respons
         return _unprocessable(ctx, model)
     try:
         frequency = resolution.frequency
-        output = ctx.store.fleet().predict(gordo_name, X.values)
+        output = ctx.fleet().predict(gordo_name, X.values)
         table = wire.anomaly_table(
             model,
             X,
@@ -51,11 +51,11 @@ def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Respons
             frequency=frequency,
             thresholds=resolution.feature_thresholds,
             aggregate=resolution.aggregate_threshold,
+            keep_smooth="all_columns" in ctx.request.args,
         )
     except AttributeError:
         return _unprocessable(ctx, model)
     except ValueError as err:
         logger.error("Failed to compute anomalies: %s", err)
         return ctx.json_response({"error": f"ValueError: {err}"}, status=400)
-    extra = {"time-seconds": f"{timeit.default_timer() - start:.4f}", "revision": ctx.revision}
-    return Response(wire.encode_response(table, extra))
+    return encode_table_response(ctx, response_format, table, {"time-seconds": f"{timeit.default_timer() - start:.4f}"})

@@ -1,25 +1,35 @@
 """
-Base routes: the healthcheck and the fleet route
-``POST /gordo/v0/<project>/prediction/fleet``
-(``gordo_tpu/server/views/base.py``).
+Base routes (``gordo_tpu/server/views/base.py``): the healthcheck and
+server version, per-model prediction, metadata, the model download,
+revision deletion, the model, revision and expected-model lists, and the
+fleet route ``POST /gordo/v0/<project>/prediction/fleet``.
+
+``POST .../<name>/prediction`` scores one model's rows, body ``{"X":
+frame}``, through one gather launch of K1 (with the model's input
+scaling as its prologue) and answers ``start``/``end``/``model-input``/
+``model-output``.
 
 The fleet route scores many models in one request, body ``{"X": {name:
 frame}, "y"?: {name: frame}, "full"?: bool}``: models sharing a spec are
 scored by one kernel launch over their bucket. Each machine answers the
 lean entry (``model-output`` and the per-row ``total-anomaly-unscaled``)
-or, with ``?full``, a detector's whole anomaly frame. Per-machine
-problems become entries of ``errors``, never the whole batch's failure.
+or, with ``?full``, a detector's whole anomaly frame (its ``smooth-*``
+groups too with ``?all_columns``). Per-machine problems become entries
+of ``errors``, never the whole batch's failure.
 """
 
 import logging
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from ... import __version__, serializer
 from ...models.anomaly.diff import DiffBasedAnomalyDetector
-from .. import wire
-from ..app import Response, ServerError
+from .. import utils, wire
+from ..app import MODEL_COLLECTION_DIR_ENV_VAR, Response, ServerError
 from ..fleet_store import ModelResolution
+from ..wire import negotiate
 
 logger = logging.getLogger(__name__)
 
@@ -28,9 +38,16 @@ def get_healthcheck(ctx) -> Response:
     return Response(b"", 200, "text/plain")
 
 
+def get_server_version(ctx) -> Response:
+    return ctx.json_response({"version": __version__})
+
+
 def extract_X_y(request, resolution: ModelResolution) -> Tuple[wire.Frame, Optional[wire.Frame]]:
     """``X`` (and ``y`` when sent) from a ``{"X": frame, "y": frame}`` body,
-    aligned with the model's tags; 400 on anything unreadable."""
+    aligned with the model's tags; 400 on anything unreadable, 415 for an
+    Arrow or parquet body."""
+    if negotiate.request_format(request) == negotiate.PARQUET:
+        raise ServerError(negotiate.PARQUET_UNAVAILABLE, status=415)
     body = request.json()
     if not isinstance(body, dict) or "X" not in body:
         raise ServerError('Cannot predict without "X"')
@@ -55,7 +72,89 @@ def _score_error(name: str, exc: Exception) -> Dict[str, Any]:
     return {"error": f"Scoring failed ({type(exc).__name__})", "status": 500}
 
 
-def _full_entry(resolution: ModelResolution, X, y, recon) -> Tuple[Optional[str], Optional[dict]]:
+def encode_table_response(ctx, response_format: str, table: wire.WireTable, extra: Optional[dict] = None) -> Response:
+    """A scoring route's table as ``{"data": ..., **extra, "revision":
+    ...}``; 415 when the client asked for parquet."""
+    if response_format == negotiate.PARQUET:
+        raise ServerError(negotiate.PARQUET_UNAVAILABLE, status=415)
+    return Response(wire.encode_response(table, {**(extra or {}), "revision": ctx.revision}))
+
+
+def post_prediction(ctx, gordo_project: str, gordo_name: str) -> Response:
+    """One model's reconstruction of ``X``: one K1 gather launch on the
+    model's spec bucket. 400 for rows the model cannot take."""
+    resolution = utils.resolve_model(ctx, gordo_name)
+    response_format = negotiate.response_format(ctx.request)  # before decoding and scoring
+    X, _ = extract_X_y(ctx.request, resolution)
+    try:
+        output = ctx.fleet().predict(gordo_name, X.values)
+    except ValueError as err:
+        logger.error("Failed to predict: %s", err)
+        return ctx.json_response({"error": f"ValueError: {err}"}, status=400)
+    except TypeError:
+        logger.exception("Failed to predict")
+        return ctx.json_response({"error": "Something unexpected happened; check your input data"}, status=400)
+    table = wire.prediction_table(X, output, resolution.tag_names, resolution.target_names)
+    return encode_table_response(ctx, response_format, table)
+
+
+def get_metadata(ctx, gordo_project: str, gordo_name: str) -> Response:
+    """The model's ``info.json`` with its metadata, the server's version
+    and ``MODEL_COLLECTION_DIR``; also the per-model healthcheck."""
+    info, model_metadata = utils.require_metadata(ctx, gordo_name)
+    metadata = dict(info)
+    metadata.update({
+        "gordo-server-version": __version__,
+        "metadata": model_metadata,
+        "env": {MODEL_COLLECTION_DIR_ENV_VAR: os.environ.get(MODEL_COLLECTION_DIR_ENV_VAR)},
+    })
+    return ctx.json_response(metadata)
+
+
+def get_download_model(ctx, gordo_project: str, gordo_name: str) -> Response:
+    """The served model as :func:`~gordo_tpu_torch.serializer.dumps` bytes."""
+    model = utils.resolve_model(ctx, gordo_name).model
+    return Response(
+        serializer.dumps(model),
+        content_type="application/octet-stream",
+        headers={"Content-Disposition": "attachment; filename=model.pickle"},
+    )
+
+
+def delete_model_revision(ctx, gordo_project: str, gordo_name: str, revision: str) -> Response:
+    """Delete one model of a revision other than the served one: 422 for
+    a malformed revision, 409 for the served one, 404 for a missing
+    model."""
+    utils.validate_gordo_name(gordo_name)
+    if not utils.validate_revision(revision):
+        return ctx.json_response({"error": "Revision should only contains numbers."}, status=422)
+    if revision == ctx.current_revision:
+        return ctx.json_response({"error": "Unable to delete current revision."}, status=409)
+    utils.delete_revision(ctx.store, os.path.join(ctx.collection_dir, "..", revision), gordo_name)
+    return ctx.json_response({"ok": True})
+
+
+def get_model_list(ctx, gordo_project: str) -> Response:
+    return ctx.json_response({"models": serializer.list_model_dirs(ctx.collection_dir)})
+
+
+def get_revision_list(ctx, gordo_project: str) -> Response:
+    """Every entry beside the revision, and the served one as latest."""
+    try:
+        available = os.listdir(os.path.join(ctx.collection_dir, ".."))
+    except FileNotFoundError:
+        logger.exception("Could not list the revisions beside %s", ctx.collection_dir)
+        available = [ctx.current_revision]
+    return ctx.json_response({"latest": ctx.current_revision, "available-revisions": available})
+
+
+def get_expected_models(ctx, gordo_project: str) -> Response:
+    return ctx.json_response({"expected-models": ctx.app.expected_models})
+
+
+def _full_entry(
+    resolution: ModelResolution, X, y, recon, keep_smooth: bool
+) -> Tuple[Optional[str], Optional[dict]]:
     """One detector's whole anomaly frame as an encoded entry, or
     ``(None, None)`` for a model that is not a detector."""
     model = resolution.model
@@ -66,7 +165,7 @@ def _full_entry(resolution: ModelResolution, X, y, recon) -> Tuple[Optional[str]
     except ValueError:
         frequency = None
     try:
-        table = wire.anomaly_table(model, X, y, recon, frequency=frequency)
+        table = wire.anomaly_table(model, X, y, recon, frequency=frequency, keep_smooth=keep_smooth)
     except AttributeError:
         return None, {"error": "Model has no thresholds (require_thresholds unmet)", "status": 422}
     except ValueError as exc:
@@ -75,10 +174,14 @@ def _full_entry(resolution: ModelResolution, X, y, recon) -> Tuple[Optional[str]
 
 
 def post_fleet_prediction(ctx, gordo_project: str) -> Response:
+    if negotiate.response_format(ctx.request) == negotiate.PARQUET:
+        raise ServerError("The fleet route serves JSON or Arrow, not parquet", status=406)
+    negotiate.request_format(ctx.request)
     body = ctx.request.json()
     if not isinstance(body, dict) or not isinstance(body.get("X"), dict) or not body["X"]:
         raise ServerError('Fleet prediction needs a JSON body {"X": {<model-name>: frame}}')
     full = "full" in ctx.request.args or bool(body.get("full"))
+    keep_smooth = "all_columns" in ctx.request.args
     y_payloads = body.get("y") if isinstance(body.get("y"), dict) else {}
 
     frames: Dict[str, wire.Frame] = {}
@@ -106,7 +209,7 @@ def post_fleet_prediction(ctx, gordo_project: str) -> Response:
 
     entries: Dict[str, str] = {}
     if frames:
-        scores, score_errors = ctx.store.fleet().fleet_scores(
+        scores, score_errors = ctx.fleet().fleet_scores(
             {name: frame.values for name, frame in frames.items()}
         )
         for name, exc in score_errors.items():
@@ -114,7 +217,7 @@ def post_fleet_prediction(ctx, gordo_project: str) -> Response:
         for name, (recon, mse) in scores.items():
             X = frames[name]
             if full:
-                entry, error = _full_entry(resolutions[name], X, y_frames.get(name, X), recon)
+                entry, error = _full_entry(resolutions[name], X, y_frames.get(name, X), recon, keep_smooth)
                 if error is not None:
                     errors[name] = error
                     continue

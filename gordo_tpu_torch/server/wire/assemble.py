@@ -142,12 +142,14 @@ def anomaly_table(
     frequency: Optional[timedelta] = None,
     thresholds: Optional[np.ndarray] = None,
     aggregate: Optional[float] = None,
+    keep_smooth: bool = False,
 ) -> WireTable:
     """
     The ``DiffBasedAnomalyDetector`` anomaly response as columns: input,
-    output, tag and total anomalies scaled and unscaled, and the
-    confidences when thresholds were fitted. ``thresholds``/``aggregate``
-    default to the detector's own.
+    output, tag and total anomalies scaled and unscaled, with
+    ``keep_smooth`` their ``smooth-*`` groups when the detector has a
+    window, and the confidences when thresholds were fitted.
+    ``thresholds``/``aggregate`` default to the detector's own.
 
     Raises ``AttributeError`` when ``require_thresholds`` is set and no
     thresholds were fitted (422) and ``ValueError`` on input problems (400).
@@ -179,6 +181,16 @@ def anomaly_table(
     columns += [WireColumn("tag-anomaly-unscaled", sub, tag_unscaled[:, i]) for i, sub in enumerate(out_names)]
     columns.append(WireColumn("total-anomaly-unscaled", "", total_unscaled))
 
+    if keep_smooth and model.window is not None and model.smoothing_method:
+        smooth_scaled = _smooth(model, tag_scaled)
+        columns += [WireColumn("smooth-tag-anomaly-scaled", sub, smooth_scaled[:, i]) for i, sub in enumerate(out_subs)]
+        columns.append(WireColumn("smooth-total-anomaly-scaled", "", _smooth(model, total_scaled)))
+        smooth_unscaled = _smooth(model, tag_unscaled)
+        columns += [
+            WireColumn("smooth-tag-anomaly-unscaled", sub, smooth_unscaled[:, i]) for i, sub in enumerate(out_names)
+        ]
+        columns.append(WireColumn("smooth-total-anomaly-unscaled", "", _smooth(model, total_unscaled)))
+
     if thresholds is None:
         thresholds = model.feature_thresholds_
     if thresholds is not None:
@@ -196,3 +208,52 @@ def anomaly_table(
             "before `.anomaly`"
         )
     return WireTable(index, columns)
+
+
+def _smooth(model: Any, values: np.ndarray) -> np.ndarray:
+    """The detector's smoothing of a column (1-D) or of each column of a
+    matrix (2-D), as pandas computes it over the JAX server's frames
+    (``gordo_tpu/server/wire/assemble.py::_smooth``): ``smm``
+    ``rolling(window).median()``, ``sma`` ``rolling(window).mean()``, both
+    NaN for the first ``window - 1`` rows and for every window that holds
+    a NaN; ``ewma`` ``ewm(span=window).mean()``."""
+    values = np.asarray(values, np.float64)
+    window = int(model.window)
+    if model.smoothing_method == "ewma":
+        return _ewma(values, window)
+    if model.smoothing_method not in ("smm", "sma"):
+        raise ValueError(f"Unknown smoothing_method {model.smoothing_method!r}")
+    out = np.full(values.shape, np.nan)
+    if len(values) >= window:
+        windows = np.lib.stride_tricks.sliding_window_view(values, window, axis=0)
+        reduce = np.median if model.smoothing_method == "smm" else np.mean
+        out[window - 1:] = reduce(windows, axis=-1)  # a NaN in a window gives NaN
+    return out
+
+
+def _ewma(values: np.ndarray, span: int) -> np.ndarray:
+    """pandas' ``ewm(span=span).mean()`` (``adjust=True``,
+    ``min_periods=0``, ``ignore_na=False``) with its own recurrence: a
+    weighted mean whose old weight decays by ``1 - alpha`` a row, NaN
+    rows included, and grows by 1 with each reading; NaN until a column's
+    first reading."""
+    alpha = 1.0 / (1.0 + (span - 1) / 2.0)
+    decay = 1.0 - alpha
+    rows = values if values.ndim == 2 else values[:, None]
+    out = np.empty_like(rows)
+    if not len(rows):
+        return out.reshape(values.shape)
+    weighted = rows[0].copy()
+    old_wt = np.ones(rows.shape[1])
+    out[0] = weighted
+    for i in range(1, len(rows)):
+        cur = rows[i]
+        seen, observed = ~np.isnan(weighted), ~np.isnan(cur)
+        old_wt = np.where(seen, old_wt * decay, old_wt)
+        update = seen & observed & (weighted != cur)
+        with np.errstate(invalid="ignore"):
+            mixed = (old_wt * weighted + cur) / (old_wt + 1.0)
+        weighted = np.where(update, mixed, np.where(~seen & observed, cur, weighted))
+        old_wt = np.where(seen & observed, old_wt + 1.0, old_wt)
+        out[i] = weighted
+    return out.reshape(values.shape)

@@ -1,12 +1,14 @@
 """The port's serving slice against the JAX server, end to end on the CPU.
 
 A two-machine detector config (a MinMaxScaler pipeline ahead of an
-hourglass autoencoder, thresholds from cross-validation) is built once
-with the JAX package's ``local_build``. Each detector crosses into the
-port through ``DiffBasedAnomalyDetector.from_state``, and a third,
-bare-pipeline machine (not a detector) rides along. Both apps then get
-the same JSON requests on the anomaly and fleet routes, and the parsed
-``data`` must agree column by column.
+hourglass autoencoder, thresholds from cross-validation; machine-2
+smooths with a window of 6) is built once with the JAX package's
+``local_build``. Each detector crosses into the port through
+``DiffBasedAnomalyDetector.from_state``, and a third, bare-pipeline
+machine (not a detector) rides along. Both apps then get the same
+requests on every route the port serves, over two revisions beside each
+other (the second holds copies of machine-2 and machine-3), and the
+statuses and parsed bodies must agree.
 
 Tolerance: rtol 1e-5, atol 1e-6 on every numeric cell. The
 reconstruction is f32 with sums taken in another order by XLA and by
@@ -19,6 +21,8 @@ import io
 import json
 import os
 import pickle
+import shutil
+from urllib.parse import urlsplit
 
 import numpy as np
 import pytest
@@ -39,6 +43,8 @@ from gordo_tpu_torch.server.wire import decode_frame, index_wire_keys, verify_fr
 
 PROJECT = "test-project"
 REVISION = "1602324482000"
+#: the sibling revision: copies of machine-2 and machine-3
+REVISION_2 = "1602324483000"
 RTOL, ATOL = 1e-5, 1e-6
 
 _MACHINE = """
@@ -49,7 +55,7 @@ _MACHINE = """
       train_end_date: "2020-01-05T00:00:00+00:00"
       tag_list: [{tags}]
     model:
-      gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector:
+      gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector:{detector}
         base_estimator:
           sklearn.pipeline.Pipeline:
             steps:
@@ -59,10 +65,10 @@ _MACHINE = """
                   epochs: 1
 """
 CONFIG = "machines:" + "".join(
-    _MACHINE.format(name=name, tags=tags)
-    for name, tags in (
-        ("machine-1", "tag-1, tag-2, tag-3, tag-4"),
-        ("machine-2", "tag-5, tag-6, tag-7, tag-8"),
+    _MACHINE.format(name=name, tags=tags, detector=detector)
+    for name, tags, detector in (
+        ("machine-1", "tag-1, tag-2, tag-3, tag-4", ""),
+        ("machine-2", "tag-5, tag-6, tag-7, tag-8", "\n        window: 6"),
     )
 )
 
@@ -107,7 +113,9 @@ def port_pipeline(pipeline) -> Pipeline:
 
 @pytest.fixture(scope="module")
 def collections(tmp_path_factory):
-    """``(jax_dir, port_dir)``: the same three machines served by both."""
+    """``(jax_dir, port_dir)``: the same three machines served by both,
+    each dir beside a REVISION_2 that holds copies of machine-2 and
+    machine-3."""
     root = tmp_path_factory.mktemp("torch-serving")
     jax_dir, port_dir = root / "jax" / REVISION, root / "port" / REVISION
     builds = list(local_build(CONFIG, project_name=PROJECT))
@@ -120,6 +128,9 @@ def collections(tmp_path_factory):
             metadata_json = json.load(f)
         port_model = port_pipeline(model) if name == "machine-3" else port_detector(model)
         serializer.dump(port_model, str(port_dir / name), metadata=metadata_json)
+    for served in (jax_dir, port_dir):
+        for name in ("machine-2", "machine-3"):
+            shutil.copytree(served / name, served.parent / REVISION_2 / name)
     return str(jax_dir), str(port_dir)
 
 
@@ -564,3 +575,313 @@ def test_stream_statuses(stream_clients, monkeypatch):
     off = Client(build_app(port_client.application.store.collection_dir, device="cpu"))
     assert _post(off, f"{base}/a/ingest", {"X": {}})[0] == 503
     assert json.loads(off.get(f"{base}/status").get_data())["enabled"] is False
+
+
+# -- routes, revisions and negotiation ----------------------------------------------
+
+
+def _call(client, method, url, payload=None, **kwargs):
+    """``(status, parsed JSON body or None, revision header)``."""
+    if payload is not None:
+        kwargs.update(data=json.dumps(payload), content_type="application/json")
+    response = client.open(url, method=method, **kwargs)
+    data = response.get_data()
+    body = json.loads(data) if response.mimetype == "application/json" else None
+    return response.status_code, body, response.headers.get("revision")
+
+
+def _same_call(clients, method, url, payload=None, drop=(), **kwargs):
+    """The same request to both apps: statuses and revision headers equal,
+    bodies equal but for the keys in ``drop``; returns the port's."""
+    expected, got = (_call(client, method, url, payload, **kwargs) for client in clients)
+    assert got[0] == expected[0], (url, got, expected)
+    assert got[2] == expected[2], url
+    if expected[1] is None:
+        assert got[1] is None
+    else:
+        _assert_same({k: v for k, v in expected[1].items() if k not in drop},
+                     {k: v for k, v in got[1].items() if k not in drop}, url)
+    return got
+
+
+def _pin(how, revision):
+    """The keyword arguments that pin ``revision``, by query or by header."""
+    return {"query_string": {"revision": revision}} if how == "query" else {"headers": {"revision": revision}}
+
+
+@pytest.mark.parametrize("how", ["query", "header"])
+def test_revision_pin(clients, how):
+    """A pinned revision answers from its own directory and stamps itself;
+    a missing one answers 410 with its name, a malformed one 410 with no
+    revision at all."""
+    base = f"/gordo/v0/{PROJECT}"
+    X = _frame(TAGS["machine-2"], 12, seed=60)
+    anomaly = f"{base}/machine-2/anomaly/prediction"
+    status, body, header = _same_call(clients, "POST", anomaly, {"X": X, "y": X}, drop=("time-seconds",),
+                                      **_pin(how, REVISION_2))
+    assert (status, body["revision"], header) == (200, REVISION_2, REVISION_2)
+    assert _same_call(clients, "GET", f"{base}/models", **_pin(how, REVISION_2))[1]["models"] == [
+        "machine-2", "machine-3"]
+    status, body, _ = _same_call(clients, "POST", f"{base}/machine-1/anomaly/prediction", {"X": X, "y": X},
+                                 **_pin(how, REVISION_2))
+    assert (status, body) == (404, {"message": "No such model found: 'machine-1'", "revision": REVISION_2})
+    fleet = {"X": {"machine-1": X, "machine-2": X}}
+    status, body, _ = _same_call(clients, "POST", f"{base}/prediction/fleet", fleet, **_pin(how, REVISION_2))
+    assert status == 200 and list(body["data"]) == ["machine-2"] and body["errors"]["machine-1"]["status"] == 404
+    status, body, header = _same_call(clients, "POST", anomaly, {"X": X, "y": X}, **_pin(how, "999"))
+    assert (status, body, header) == (410, {"error": "Revision '999' not found.", "revision": "999"}, "999")
+    status, body, header = _same_call(clients, "GET", f"{base}/models", **_pin(how, "12a"))
+    assert (status, body, header) == (410, {"error": "Revision should only contains numbers."}, None)
+
+
+def test_all_columns_smooth(clients):
+    """``?all_columns`` adds the four ``smooth-*`` groups for a detector
+    with a window (machine-2, window 6, rolling median), on the anomaly
+    route and in the fleet route's full entries; NaN heads are nulls."""
+    base = f"/gordo/v0/{PROJECT}"
+    X, y = _frame(TAGS["machine-2"], 30, seed=61), _frame(TAGS["machine-2"], 30, seed=62)
+    url = f"{base}/machine-2/anomaly/prediction"
+    _, body, _ = _same_call(clients, "POST", url, {"X": X, "y": y}, drop=("time-seconds",),
+                            query_string={"all_columns": ""})
+    assert list(body["data"]) == [
+        "start", "end", "model-input", "model-output", "tag-anomaly-scaled", "total-anomaly-scaled",
+        "tag-anomaly-unscaled", "total-anomaly-unscaled", "smooth-tag-anomaly-scaled",
+        "smooth-total-anomaly-scaled", "smooth-tag-anomaly-unscaled", "smooth-total-anomaly-unscaled",
+        "anomaly-confidence", "total-anomaly-confidence",
+    ]
+    smooth = list(body["data"]["smooth-total-anomaly-unscaled"]["smooth-total-anomaly-unscaled"].values())
+    assert smooth[:5] == [None] * 5 and all(isinstance(v, float) for v in smooth[-10:])
+    _, plain, _ = _same_call(clients, "POST", url, {"X": X, "y": y}, drop=("time-seconds",))
+    assert len(plain["data"]) == 10
+    fleet = {"X": {"machine-1": X, "machine-2": X}}
+    # the smooth groups come from the query only (a JSON body's all_columns is ignored, as there)
+    _, body, _ = _same_call(clients, "POST", f"{base}/prediction/fleet", {**fleet, "all_columns": True},
+                            query_string={"full": ""})
+    assert "smooth-tag-anomaly-scaled" not in body["data"]["machine-2"]
+    _, body, _ = _same_call(clients, "POST", f"{base}/prediction/fleet", fleet,
+                            query_string={"full": "", "all_columns": ""})
+    assert len(body["data"]["machine-2"]) == 14 and len(body["data"]["machine-1"]) == 10
+
+
+ARROW = "application/vnd.apache.arrow.stream"
+
+
+@pytest.mark.parametrize(
+    "route,kwargs,status",
+    [
+        ("anomaly", {"headers": {"Accept": "text/csv"}}, 406),
+        ("anomaly", {"headers": {"Accept": ARROW}}, 406),
+        ("prediction", {"headers": {"Accept": "text/html, text/csv;q=0.5"}}, 406),
+        ("fleet", {"headers": {"Accept": ARROW}}, 406),
+        ("anomaly", {"headers": {"Accept": f"{ARROW}, application/json;q=0.5"}}, 200),
+        ("prediction", {"headers": {"Accept": "*/*"}}, 200),
+        ("fleet", {"headers": {"Accept": "application/*;q=0.3, application/x-parquet;q=0.2"}}, 200),
+        ("anomaly", {"headers": {"Accept": "application/x-parquet"}}, 415),
+        ("anomaly", {"query_string": {"format": "parquet"}}, 415),
+        ("prediction", {"query_string": {"format": "parquet"}}, 415),
+        ("fleet", {"query_string": {"format": "parquet"}}, 406),
+        ("anomaly", {"content_type": ARROW}, 415),
+        ("prediction", {"content_type": ARROW}, 415),
+        ("fleet", {"content_type": ARROW}, 415),
+        ("prediction", {"content_type": "application/x-parquet"}, 415),
+    ],
+)
+def test_negotiation_statuses(clients, monkeypatch, route, kwargs, status):
+    """The JAX server without pyarrow and the port answer the same status
+    and error body for each ``Accept`` header, ``?format`` and body type."""
+    import gordo_tpu.server.utils
+
+    monkeypatch.setenv("GORDO_TPU_WIRE_ARROW", "0")
+    monkeypatch.setattr(gordo_tpu.server.utils, "pa", None)
+    X = _frame(TAGS["machine-1"], 8, seed=63)
+    url, payload = {
+        "anomaly": (f"/gordo/v0/{PROJECT}/machine-1/anomaly/prediction", {"X": X, "y": X}),
+        "prediction": (f"/gordo/v0/{PROJECT}/machine-1/prediction", {"X": X}),
+        "fleet": (f"/gordo/v0/{PROJECT}/prediction/fleet", {"X": {"machine-1": X}}),
+    }[route]
+    kwargs = dict(kwargs, data=json.dumps(payload))
+    kwargs.setdefault("content_type", "application/json")
+    responses = [client.post(url, **kwargs) for client in clients]
+    assert [r.status_code for r in responses] == [status, status]
+    assert responses[1].mimetype == "application/json"
+    if status != 200:
+        assert json.loads(responses[1].get_data()) == json.loads(responses[0].get_data())
+
+
+@pytest.mark.parametrize("name", ["machine-1", "machine-2", "machine-3"])
+def test_prediction_route_matches_jax(clients, name):
+    """``POST .../<name>/prediction`` for two detectors and the bare
+    pipeline machine-3: the same frame; on the CPU no kernel launches."""
+    X = _frame(TAGS[name], 20, seed=64)
+    url = f"/gordo/v0/{PROJECT}/{name}/prediction"
+    launches = fleet_feedforward.launches
+    status, body, header = _same_call(clients, "POST", url, {"X": X})
+    assert (status, header) == (200, REVISION)
+    assert list(body) == ["data", "revision"]
+    assert list(body["data"]) == ["start", "end", "model-input", "model-output"]
+    assert list(body["data"]["model-output"]) == TAGS[name]
+    assert fleet_feedforward.launches == launches
+    bad = {"X": {"tag-1": {"2020-01-01T00:00:00+00:00": 1.0}}}
+    assert _call(clients[1], "POST", url, bad)[0] == _call(clients[0], "POST", url, bad)[0] == 400
+    assert _same_call(clients, "POST", url, {"y": X})[0] == 400
+
+
+@pytest.fixture
+def fresh_clients(collections, monkeypatch):
+    """Both apps built anew (after the caller's environment changes)."""
+
+    def make():
+        monkeypatch.setenv("MODEL_COLLECTION_DIR", collections[0])
+        return Client(jax_build_app()), Client(build_app(collections[1], device="cpu"))
+
+    return make
+
+
+@pytest.mark.parametrize("expected", ['["machine-1", "machine-9"]', "[machine-1, machine-9]", None],
+                         ids=["json", "yaml-flow", "unset"])
+def test_listing_routes_match_jax(clients, fresh_clients, monkeypatch, expected):
+    """``/models``, ``/revisions``, ``/expected-models``, ``/server-version``,
+    ``/<name>/metadata`` and ``/<name>/healthcheck``. One difference, by
+    design: ``info.json``'s ``checksum`` is of each package's own pickle."""
+    if expected is None:
+        monkeypatch.delenv("EXPECTED_MODELS", raising=False)
+    else:
+        monkeypatch.setenv("EXPECTED_MODELS", expected)
+    both = fresh_clients()
+    base = f"/gordo/v0/{PROJECT}"
+    body = _same_call(both, "GET", f"{base}/expected-models")[1]
+    assert body["expected-models"] == ([] if expected is None else ["machine-1", "machine-9"])
+    assert _same_call(clients, "GET", f"{base}/models")[1]["models"] == ["machine-1", "machine-2", "machine-3"]
+    status, body, header = _same_call(clients, "GET", "/server-version")
+    assert (status, list(body), header) == (200, ["version"], None)
+    revisions = [_call(client, "GET", f"{base}/revisions")[1] for client in clients]
+    for body in revisions:
+        assert body["latest"] == REVISION and sorted(body["available-revisions"]) == [REVISION, REVISION_2]
+    for route in ("metadata", "healthcheck"):
+        status, body, header = _same_call(clients, "GET", f"{base}/machine-2/{route}", drop=("checksum",))
+        assert (status, header) == (200, REVISION)
+        assert list(body) == ["checksum", "gordo-server-version", "metadata", "env", "revision"]
+        assert body["metadata"]["name"] == "machine-2"
+    assert _same_call(clients, "GET", f"{base}/no-such-machine/metadata")[0] == 404
+    assert _same_call(clients, "GET", f"{base}/_bad/metadata")[0] == 422
+
+
+def test_delete_revision(collections, monkeypatch, tmp_path):
+    """422 for a malformed revision, 409 for the served one, 404 for a
+    model the revision lacks; 200, after which the model is gone from its
+    pinned revision, and the revision directory once only a builder's
+    journal is left in it."""
+    trees = []
+    for served in collections:
+        copy = tmp_path / os.path.basename(os.path.dirname(served))
+        shutil.copytree(os.path.dirname(served), copy)
+        trees.append(copy)
+    monkeypatch.setenv("MODEL_COLLECTION_DIR", str(trees[0] / REVISION))
+    both = (Client(jax_build_app()), Client(build_app(str(trees[1] / REVISION), device="cpu")))
+    base = f"/gordo/v0/{PROJECT}"
+    X = _frame(TAGS["machine-2"], 8, seed=65)
+    pinned = {"query_string": {"revision": REVISION_2}}
+    assert _same_call(both, "POST", f"{base}/machine-2/prediction", {"X": X}, **pinned)[0] == 200
+    for name, revision, status in [("machine-2", "1x", 422), ("machine-2", REVISION, 409),
+                                   ("machine-1", REVISION_2, 404)]:
+        assert _same_call(both, "DELETE", f"{base}/{name}/revision/{revision}")[0] == status
+    status, body, _ = _same_call(both, "DELETE", f"{base}/machine-2/revision/{REVISION_2}")
+    assert (status, body) == (200, {"ok": True, "revision": REVISION})
+    assert _same_call(both, "POST", f"{base}/machine-2/prediction", {"X": X}, **pinned)[0] == 404
+    assert _same_call(both, "GET", f"{base}/models", **pinned)[1]["models"] == ["machine-3"]
+    for tree in trees:
+        (tree / REVISION_2 / "build_state.json").write_text("{}")
+    assert _same_call(both, "DELETE", f"{base}/machine-3/revision/{REVISION_2}")[0] == 200
+    assert not any((tree / REVISION_2).exists() for tree in trees)
+    assert _same_call(both, "GET", f"{base}/models", **pinned)[0] == 410
+    assert _same_call(both, "POST", f"{base}/machine-2/prediction", {"X": X})[0] == 200
+
+
+def test_download_model_roundtrip(clients):
+    """The downloaded bytes load with ``serializer.loads`` and predict what
+    the served model predicts."""
+    url = f"/gordo/v0/{PROJECT}/machine-1"
+    for client in clients:
+        response = client.get(f"{url}/download-model")
+        assert response.status_code == 200 and response.mimetype == "application/octet-stream"
+        assert response.headers["Content-Disposition"] == "attachment; filename=model.pickle"
+    model = serializer.loads(response.get_data(), device="cpu")
+    assert isinstance(model, DiffBasedAnomalyDetector)
+    X = _frame(TAGS["machine-1"], 9, seed=66)
+    X["tag-1"] = {k: (0.5 if v is None else v) for k, v in X["tag-1"].items()}
+    served = _call(clients[1], "POST", f"{url}/prediction", {"X": X})[1]["data"]["model-output"]
+    frame = verify_frame(decode_frame(X), TAGS["machine-1"])
+    np.testing.assert_allclose(
+        model.predict(frame.values),
+        np.array([list(served[tag].values()) for tag in TAGS["machine-1"]]).T,
+        rtol=1e-6, atol=1e-7,
+    )
+    assert _call(clients[1], "GET", f"/gordo/v0/{PROJECT}/nope/download-model")[0] == 404
+
+
+def test_store_evicts_oldest_revision(collections, monkeypatch):
+    """With ``N_CACHED_REVISIONS=1`` a pinned request evicts the served
+    revision's fleet and the next served request loads it again; a fleet
+    a caller already holds keeps scoring after it is evicted or
+    invalidated."""
+    monkeypatch.setenv("N_CACHED_REVISIONS", "1")
+    app = build_app(collections[1], device="cpu")
+    client, store = Client(app), app.store
+    base = f"/gordo/v0/{PROJECT}/machine-2/prediction"
+    X = _frame(TAGS["machine-2"], 8, seed=67)
+    first = _call(client, "POST", base, {"X": X})
+    served = store.fleet()
+    assert _call(client, "POST", base, {"X": X}, query_string={"revision": REVISION_2})[0] == 200
+    assert list(store._revisions) == [os.path.realpath(os.path.join(collections[1], "..", REVISION_2))]
+    again = _call(client, "POST", base, {"X": X})
+    assert store.fleet() is not served
+    _assert_same(first[1], again[1])
+    rows = decode_frame(X).values
+    store.invalidate(collections[1])
+    np.testing.assert_array_equal(served.predict("machine-2", rows), store.fleet().predict("machine-2", rows))
+
+
+class _WSGIResponse:
+    """A werkzeug test response as the ``requests.Response`` the JAX
+    client reads."""
+
+    def __init__(self, response):
+        self.status_code = response.status_code
+        self.headers = response.headers
+        self.content = response.get_data()
+        self.text = self.content.decode(errors="replace")
+
+    def json(self):
+        return json.loads(self.content)
+
+
+class WSGISession:
+    """The ``requests.Session`` surface the JAX client uses, answered by a
+    WSGI app in this process (``tests/client/conftest.py``'s adapter)."""
+
+    def __init__(self, app):
+        self.client = Client(app)
+
+    def get(self, url, params=None, **kwargs):
+        return _WSGIResponse(self.client.get(urlsplit(url).path, query_string=params or {}))
+
+    def post(self, url, params=None, json=None, **kwargs):
+        return _WSGIResponse(self.client.post(urlsplit(url).path, query_string=params or {}, json=json))
+
+
+@pytest.mark.parametrize("revision", [None, REVISION_2])
+def test_jax_client_reads_the_port(collections, revision):
+    """The JAX package's client lists revisions and models and reads a
+    machine's metadata from the port's app, unpinned and pinned."""
+    from gordo_tpu.client.client import Client as GordoClient
+
+    session = WSGISession(build_app(collections[1], device="cpu"))
+    client = GordoClient(PROJECT, revision=revision, session=session)
+    revisions = client.get_revisions()
+    assert revisions["latest"] == REVISION and sorted(revisions["available-revisions"]) == [REVISION, REVISION_2]
+    names = client.get_machine_names()
+    assert names == (["machine-2", "machine-3"] if revision else ["machine-1", "machine-2", "machine-3"])
+    metadata = client.machine_metadata("machine-2")
+    assert metadata["revision"] == (revision or REVISION)
+    with open(os.path.join(collections[1], "machine-2", "metadata.json")) as f:
+        assert metadata["metadata"] == json.load(f)
