@@ -19,23 +19,34 @@ Run from the root of a checkout; it builds the CUDA kernels from
 4. trains the collection it then serves (``[train]``): 64 20-tag machines
    and 8 40-tag ones, each a ``DiffBasedAnomalyDetector`` of a MinMax
    pipeline and a feedforward_hourglass autoencoder (5 epochs, batch 32,
-   ``examples/config.yaml``'s settings) on 2000 seeded rows, built with
-   ``fleet_build`` on the card: TimeSeriesSplit(3) cross-validation with
+   ``examples/config.yaml``'s settings) on 2000 seeded rows, written as a
+   project config in ``examples/config.yaml``'s dialect whose machines
+   read CSV files (``FileDataProvider``), normalized to a shard and built
+   by the ``build-fleet`` command's function on the card (each machine's
+   fetched rows must equal its seeded rows): TimeSeriesSplit(3) cross-validation with
    every fold of every machine of a width in one stacked fit, the folds
    scored by one K1 launch a spec group (checked on the launch counter;
    each forward held against the plain version on its own inputs and
    timed: the 20-tag group's on the narrow kernel, the 40-tag group's on
    the wide one), the final fit, the dump. It prints each phase's wall
    time, steps a second, the CUDA-event time a step and one step's
-   device time; then it builds 4 of the machines again on the CPU from
-   the same seeds and holds the card's params, thresholds, CV scores and
-   epochs to them;
+   device time and the data fetch's time a machine; then it builds 4 of
+   the machines again on the CPU from the same shard and holds the card's
+   params, thresholds, CV scores and epochs to them. ``[config]`` then
+   builds ``examples/config.yaml`` and 16 generated
+   ``DiffBasedKFCVAnomalyDetector`` machines (4 weeks of seeded
+   ``RandomDataProvider`` readings) in one ``build-fleet`` run: each
+   build phase's time, K1 launched once a spec group in CV scoring (the
+   KFCV group 80 fold models x ~807 rows), each forward against the
+   plain version, 2 KFCV machines against a CPU build, and an anomaly
+   request to a KFCV and an example machine on a card app and a CPU app;
 5. serves that collection (64 feedforward_hourglass(20) detectors and 8
    feedforward_hourglass(40) ones, a 40-tag bucket which the store sends
    to the wide kernel) through ``build_app`` on a localhost
    ``wsgiref`` thread: three ``/anomaly/prediction`` requests and one
    fleet request for the 64, then one anomaly request to a 40-tag
-   machine and one fleet request for the 8, 1008 rows each; every answer
+   machine and one fleet request for the 8 (each 40-tag machine sent its
+   own next rows), 1008 rows each; every answer
    must be 200, carry the right column groups, and agree with the same
    app on the CPU; K1's and K2's launch counts over each group of
    requests must be above zero;
@@ -98,6 +109,7 @@ Any failure exits non-zero before that last line; so does a machine
 without CUDA, and a directory without the package.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -153,6 +165,8 @@ WIDE_CASES = ("feedforward_model20 M=64 B=1008", "hourglass40 M=64 B=1008", WIDE
 #: kernel, the 40-tag one on the wide kernel (a ragged last row tile)
 CV_CASES = {20: "CV fold scoring: hourglass20 M=192 B=500", WIDE_TAGS: "CV fold scoring: hourglass40 M=24 B=500"}
 CV_MACHINES = {20: SERVED_MACHINES, WIDE_TAGS: WIDE_MACHINES}
+#: the ``[config]`` build's KFCV fold scoring: 16 machines x 5 folds, ~4032 / 5 test rows each
+KFCV_CASE = "KFCV fold scoring: hourglass20 M=80"
 #: the build of K1 that sends narrow specs through the wide kernel
 WIDE_ONLY = ("FLEET_DENSE_WIDE_ONLY",)
 #: the build of K1 whose narrow kernel never shares a row among lanes
@@ -456,7 +470,16 @@ DEFINITION = {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {"base_e
         "sklearn.preprocessing.MinMaxScaler",
         {"gordo_tpu.models.estimators.JaxAutoEncoder": {"kind": "feedforward_hourglass", "epochs": 5, "batch_size": 32}},
     ]}}}}
+DETECTOR_PATH = "gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector"
+KFCV_DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector"
 TRAIN_ROWS = 2000
+TRAIN_START = datetime(2020, 1, 1, tzinfo=timezone.utc)
+#: the generated KFCV project of ``[config]``: machines, and its data's first day
+KFCV_MACHINES = 16
+KFCV_START = datetime(2020, 2, 1, tzinfo=timezone.utc)
+#: the build phases ``[train]`` and ``[config]`` print, in order
+BUILD_PHASES = ("plan", "data_fetch", "stage", "cv_train", "cv_predict", "cv_score", "cv_finalize", "final_fit",
+                "assemble", "dump")
 #: the 40-tag compressors' sensor_data seeds start here (the 20-tag machines' at 0)
 WIDE_SEED = 500
 #: machines built again on the CPU from the same seeds, 2 of each width
@@ -475,32 +498,29 @@ BUILD_SCORE_TOL = 2e-5
 
 
 def served_machines():
-    """SERVED_MACHINES 20-tag machines and WIDE_MACHINES 40-tag compressors
-    (their own names, tags and ``sensor_data`` rows, 2000 a machine from
-    1 January 2020 at 10-minute steps) as fleet-build machines of
-    ``DEFINITION`` with the default evaluation (TimeSeriesSplit, 3
-    folds)."""
+    """The served collection's machines (``machine_rows``) as fleet-build
+    machines of ``DEFINITION`` holding their rows as arrays, the same rows
+    ``[train]`` fetches from its project config (``scripts/build_tolerance.py``
+    builds them)."""
     from gordo_tpu_torch.machine import Machine
 
-    start = datetime(2020, 1, 1, tzinfo=timezone.utc)
-    index = [start + timedelta(minutes=10 * r) for r in range(TRAIN_ROWS)]
-    machines = [(f"machine-{i:03d}", 20, i) for i in range(SERVED_MACHINES)]
-    machines += [(f"compressor-{i:03d}", WIDE_TAGS, WIDE_SEED + i) for i in range(WIDE_MACHINES)]
+    index = [TRAIN_START + timedelta(minutes=10 * r) for r in range(TRAIN_ROWS)]
     return [
-        Machine.from_config(
-            {"name": name, "model": DEFINITION, "dataset": {"tag_list": tag_list(n_tags), "resolution": "10min"}},
-            "smoke", data=(sensor_data(i, TRAIN_ROWS, n_tags), None), index=index,
-        )
-        for name, n_tags, i in machines
+        Machine.from_config({"name": name, "model": DEFINITION, "dataset": {"tag_list": tags, "resolution": "10min"}},
+                            "smoke", data=(values, None), index=index)
+        for name, tags, values in machine_rows()
     ]
 
 
-def build_summary(model, machine):
+def build_summary(model, metadata):
     """What the card's build is held to the CPU's on: final params,
-    thresholds, CV scores and epochs run."""
+    thresholds, CV scores and epochs run (``metadata`` is a machine's
+    ``metadata.json`` tree, or the machine itself)."""
     import numpy as np
 
-    meta = machine.metadata["build_metadata"]["model"]
+    if not isinstance(metadata, dict):
+        metadata = metadata.to_dict()
+    meta = metadata["metadata"]["build_metadata"]["model"]
     return {
         "params": {k: {n: t.detach().cpu().numpy() for n, t in layer.items()}
                    for k, layer in model.base_estimator.estimator.params_.items()},
@@ -557,80 +577,312 @@ def build_summaries(machines, device, random=None):
     return {machine.name: build_summary(model, machine) for model, machine in results}, time.perf_counter() - t0
 
 
-def train_phase(directory):
-    """Train the served collection on the card with ``fleet_build`` into
-    ``directory``; hold it against a CPU build of CPU_CHECK from the same
-    seeds; time one training step. Returns the two lists of names, the
-    kernel launches of the build, and each CV scoring forward as a K1 case
-    on the card with the K1 launches it made, by input width."""
-    import torch
+def yaml_block(value, indent=0):
+    """``value`` (dicts, lists, strings, numbers) as block YAML, the way a
+    project config is written by hand; the port reads it back with its
+    own reader."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        lines = []
+        for key, item in value.items():
+            if isinstance(item, (dict, list)) and item:
+                lines.append(f"{pad}{key}:\n{yaml_block(item, indent + 2)}")
+            else:
+                lines.append(f"{pad}{key}: {yaml_block(item)}")
+        return "\n".join(lines)
+    if isinstance(value, list):
+        if not value:
+            return "[]"
+        lines = []
+        for item in value:
+            body = yaml_block(item, indent + 2).lstrip(" ") if isinstance(item, (dict, list)) else yaml_block(item)
+            lines.append(f"{pad}- {body}")
+        return "\n".join(lines)
+    return str(value)
 
-    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+
+def machine_rows():
+    """The served collection: (name, tags, sensor_data rows) of
+    SERVED_MACHINES 20-tag machines and WIDE_MACHINES 40-tag compressors."""
+    machines = [(f"machine-{i:03d}", 20, i) for i in range(SERVED_MACHINES)]
+    machines += [(f"compressor-{i:03d}", WIDE_TAGS, WIDE_SEED + i) for i in range(WIDE_MACHINES)]
+    return [(name, tag_list(n_tags), sensor_data(seed, TRAIN_ROWS, n_tags)) for name, n_tags, seed in machines]
+
+
+def write_project(directory):
+    """The served collection as a project config in ``examples/config.yaml``'s
+    dialect (a CRD document, ``globals.model`` a ``|`` block holding
+    ``DEFINITION``), each machine's dataset a ``FileDataProvider`` CSV of
+    its ``sensor_data`` rows at 10-minute stamps from TRAIN_START, floats
+    with 17 significant digits so they read back exactly, and the
+    half-open window ``[TRAIN_START, TRAIN_START + TRAIN_ROWS x 10 min)``
+    holding all of them. Returns the config's path and ``{name: rows}``."""
+    stamps = [(TRAIN_START + timedelta(minutes=10 * r)).isoformat() for r in range(TRAIN_ROWS)]
+    end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
+    entries, rows = [], {}
+    for name, tags, values in machine_rows():
+        path = os.path.join(directory, f"{name}.csv")
+        with open(path, "w") as f:
+            f.write(",".join(["time", *tags]) + "\n")
+            for stamp, row in zip(stamps, values):
+                f.write(stamp + "," + ",".join(f"{v:.17g}" for v in row) + "\n")
+        dataset = yaml_block({
+            "data_provider": {"type": "FileDataProvider", "path": path, "timestamp_column": "time"},
+            "tag_list": "[" + ", ".join(tags) + "]",
+            "train_start_date": TRAIN_START.isoformat(),
+            "train_end_date": end,
+        }, 10)
+        entries.append(f"      - name: {name}\n        dataset: |\n{dataset}\n")
+        rows[name] = values
+    config = (
+        "apiVersion: equinor.com/v1\nkind: Gordo\nmetadata:\n  name: smoke\nspec:\n  config:\n    machines:\n"
+        + "".join(entries)
+        + "    globals:\n      model: |\n" + yaml_block(DEFINITION, 8) + "\n"
+    )
+    config_path = os.path.join(directory, "config.yaml")
+    with open(config_path, "w") as f:
+        f.write(config)
+    return config_path, rows
+
+
+@contextlib.contextmanager
+def captured_build():
+    """During a build: each CV scoring forward (``predict_bucket``) with the
+    K1 launches it made, and each machine's fetched rows."""
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer
     from gordo_tpu_torch.parallel.fleet_build import FleetBuilder
 
-    check(torch.backends.cuda.matmul.allow_tf32 is False and torch.get_float32_matmul_precision() == "highest",
-          "TF32 is on: training must run in full f32")
-    machines = served_machines()
-    builder = FleetBuilder(machines, device="cuda")
-    forward, forwards = builder.trainer.predict_bucket, []
+    forwards, fetched = [], {}
+    predict, stage = FleetTrainer.predict_bucket, FleetBuilder._stage_arrays
 
-    def captured(spec, stacked, X):
-        # the host arrays the build made; copied to the card after the build
+    def captured_predict(self, spec, stacked, X):
         before = fleet_feedforward.launches
-        out = forward(spec, stacked, X)
+        out = predict(self, spec, stacked, X)
         forwards.append((spec, stacked, X, fleet_feedforward.launches - before))
         return out
 
-    builder.trainer.predict_bucket = captured
-    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
-    t0 = time.perf_counter()
-    results = builder.build(output_dir=directory)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
-    check(not builder.build_errors, f"build errors: {builder.build_errors}")
-    check(len(results) == SERVED_MACHINES + WIDE_MACHINES, f"{len(results)} machines built")
-    check(len(forwards) == 2 and launches["K1"] == 2 and all(n == 1 for *_, n in forwards),
-          f"CV scoring launched K1 {[n for *_, n in forwards]} times for {len(forwards)} spec groups, "
-          f"not once a group")
-    cv_cases = {
-        X.shape[-1]: (dict(spec=spec, bucket={k: {n: t.cuda() for n, t in layer.items()} for k, layer in stacked.items()},
-                           X=torch.from_numpy(X).cuda(), indices=None, ingest=None), n)
-        for spec, stacked, X, n in forwards
-    }
+    def captured_stage(plan):
+        fetched[plan.machine.name] = plan.X
+        return stage(plan)
+
+    FleetTrainer.predict_bucket = captured_predict
+    FleetBuilder._stage_arrays = staticmethod(captured_stage)
+    try:
+        yield forwards, fetched
+    finally:
+        FleetTrainer.predict_bucket = predict
+        FleetBuilder._stage_arrays = staticmethod(stage)
+
+
+def as_case(spec, stacked, X):
+    """A CV scoring forward's inputs as a K1 case on the card."""
+    import torch
+
+    bucket = {k: {n: torch.as_tensor(t).cuda() for n, t in layer.items()} for k, layer in stacked.items()}
+    return dict(spec=spec, bucket=bucket, X=torch.from_numpy(X).cuda(), indices=None, ingest=None)
+
+
+def build_phases(builder):
     seconds = builder.phase_seconds
+    return ", ".join(f"{name} {seconds[name]:.3f} s" for name in BUILD_PHASES)
+
+
+def fit_rates(builder):
     fits = builder.trainer.fits
     steps = sum(f["steps"] for f in fits)
     fit_s = sum(f["seconds"] for f in fits)
     event_ms = sum(f["event_ms"] for f in fits)
-    phase("train", f"fleet_build of {len(results)} machines ({SERVED_MACHINES} x 20 tags, {WIDE_MACHINES} x "
+    return fits, steps, fit_s, event_ms
+
+
+def train_phase(work_dir, directory):
+    """Build the served collection on the card from its project config:
+    the config written to ``work_dir``, normalized to a shard, built by the
+    ``build-fleet`` command's function into ``directory``; each machine's
+    fetched rows must equal its ``sensor_data`` rows; a CPU build of
+    CPU_CHECK from the same shard is held against the card's; one training
+    step timed. Returns the two lists of names, the kernel launches of the
+    build, and each CV scoring forward as a K1 case on the card with the K1
+    launches it made, by input width."""
+    import numpy as np
+    import torch
+
+    from gordo_tpu_torch.cli.cli import build_fleet, load_fleet_machines
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: training must run in full f32")
+    t0 = time.perf_counter()
+    config_path, rows = write_project(work_dir)
+    shard = os.path.join(work_dir, "shard.json")
+    with open(shard, "w") as f:
+        f.write(normalize(config_path, "smoke"))
+    phase("train", f"project config of {len(rows)} machines (CRD document, FileDataProvider CSVs of {TRAIN_ROWS} "
+          f"rows) written and normalized to a shard in {time.perf_counter() - t0:.2f} s")
+    with captured_build() as (forwards, fetched):
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        t0 = time.perf_counter()
+        code, builder = build_fleet(shard, directory, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(code == 0 and not builder.build_errors, f"build-fleet exited {code}: {builder and builder.build_errors}")
+    check(sorted(fetched) == sorted(rows), "build-fleet fetched other machines")
+    unequal = [name for name, X in fetched.items() if not np.array_equal(X, rows[name])]
+    check(not unequal, f"fetched rows differ from sensor_data for {unequal[:5]}")
+    check(len(forwards) == 2 and launches["K1"] == 2 and all(n == 1 for *_, n in forwards),
+          f"CV scoring launched K1 {[n for *_, n in forwards]} times for {len(forwards)} spec groups, "
+          f"not once a group")
+    cv_cases = {X.shape[-1]: (as_case(spec, stacked, X), n) for spec, stacked, X, n in forwards}
+    seconds = builder.phase_seconds
+    fits, steps, fit_s, event_ms = fit_rates(builder)
+    phase("train", f"build-fleet of {len(fetched)} machines ({SERVED_MACHINES} x 20 tags, {WIDE_MACHINES} x "
           f"{WIDE_TAGS}; hourglass, 5 epochs, batch 32, TimeSeriesSplit(3)) on the card in {wall:.2f} s: "
-          f"plan {seconds['plan'] + seconds['stage']:.3f} s, CV training {seconds['cv_train']:.3f} s, "
-          f"CV scoring {seconds['cv_predict'] + seconds['cv_score'] + seconds['cv_finalize']:.3f} s "
-          f"(forwards {seconds['cv_predict']:.3f} s), final fit {seconds['final_fit']:.3f} s, "
-          f"dump {seconds['dump']:.3f} s")
+          f"{build_phases(builder)}; data_fetch {1e3 * seconds['data_fetch'] / len(fetched):.2f} ms a machine "
+          f"(CSV read and 10-minute resampling on the host); every machine's fetched X equal to its sensor_data rows")
     phase("train", f"{len(fits)} stacked fits, members {[f['members'] for f in fits]}, {steps} optimizer steps in "
           f"{fit_s:.3f} s: {steps / fit_s:.1f} steps a second, {1e3 * fit_s / steps:.3f} ms a step on the host "
           f"clock, {event_ms / steps:.3f} ms a step between CUDA events; "
           f"K1 launches {launches['K1']} (one per spec group), K2 {launches['K2']}")
-    device_ms = step_device_ms(make_step(machines[0].X.shape[1], 3 * SERVED_MACHINES))
+    device_ms = step_device_ms(make_step(20, 3 * SERVED_MACHINES))
     phase("train", f"one training step of the 20-tag CV bucket ({3 * SERVED_MACHINES} members x 32 rows) "
           f"with the host's enqueue hidden: {device_ms!r} ms of device time; the steps above take "
           f"{event_ms / steps:.3f} ms between events: the device idles ~{1 - device_ms * steps / event_ms:.0%} "
           f"of a step")
 
-    card = {model_machine[1].name: build_summary(*model_machine) for model_machine in results
-            if model_machine[1].name in CPU_CHECK}
-    cpu, cpu_s = build_summaries([m for m in machines if m.name in CPU_CHECK], "cpu")
+    from gordo_tpu_torch import serializer
+
+    card = {}
+    for name in CPU_CHECK:
+        model = serializer.load(os.path.join(directory, name), "cpu")
+        card[name] = build_summary(model, serializer.load_metadata(os.path.join(directory, name)))
+    cpu, cpu_s = build_summaries([m for m in load_fleet_machines(shard) if m.name in CPU_CHECK], "cpu")
     worst, faults = compare_builds(card, cpu)
     check(not faults, "card build disagrees with the CPU's: " + "; ".join(faults[:5]))
-    phase("train", f"card build against a CPU build of {', '.join(CPU_CHECK)} ({cpu_s:.2f} s on the CPU): "
-          f"params max abs {worst[0]:.3e} (limit {BUILD_PARAM_ATOL}), thresholds max rel {worst[1]:.3e} "
-          f"(limit {BUILD_THRESHOLD_RTOL}), CV scores max |d| / (1 + |cpu|) {worst[2]:.3e} "
+    phase("train", f"card build against a CPU build of {', '.join(CPU_CHECK)} from the same shard "
+          f"({cpu_s:.2f} s on the CPU): params max abs {worst[0]:.3e} (limit {BUILD_PARAM_ATOL}), thresholds "
+          f"max rel {worst[1]:.3e} (limit {BUILD_THRESHOLD_RTOL}), CV scores max |d| / (1 + |cpu|) {worst[2]:.3e} "
           f"(limit {BUILD_SCORE_TOL}), epochs run equal")
-    names = [r[1].name for r in results if r[1].name.startswith("machine-")]
-    wide_names = [r[1].name for r in results if r[1].name.startswith("compressor-")]
+    names = sorted(n for n in fetched if n.startswith("machine-"))
+    wide_names = sorted(n for n in fetched if n.startswith("compressor-"))
     return names, wide_names, launches, cv_cases
+
+
+def kfcv_project(directory):
+    """The generated KFCV project: KFCV_MACHINES machines of 20 tags, each
+    a ``DiffBasedKFCVAnomalyDetector`` (window 144, ``smm``) over MinMax +
+    feedforward_hourglass (5 epochs, batch 32) on ``RandomDataProvider``
+    readings (3000-4000 a tag) over 4 weeks from KFCV_START at 10 minutes;
+    written as a CRD config, its path returned."""
+    definition = {KFCV_DETECTOR: {"window": 144, "smoothing_method": "smm", **DEFINITION[DETECTOR_PATH]}}
+    entries = []
+    for i in range(KFCV_MACHINES):
+        name = f"kfcv-{i:03d}"
+        dataset = yaml_block({
+            "data_provider": {"type": "RandomDataProvider", "min_size": 3000, "max_size": 4000},
+            "tag_list": "[" + ", ".join(f"{name}-tag-{j:02d}" for j in range(20)) + "]",
+            "resolution": "10min",
+            "train_start_date": KFCV_START.isoformat(),
+            "train_end_date": (KFCV_START + timedelta(weeks=4)).isoformat(),
+        }, 10)
+        entries.append(f"      - name: {name}\n        dataset: |\n{dataset}\n")
+    config = (
+        "apiVersion: equinor.com/v1\nkind: Gordo\nmetadata:\n  name: kfcv\nspec:\n  config:\n    machines:\n"
+        + "".join(entries) + "    globals:\n      model: |\n" + yaml_block(definition, 8) + "\n"
+    )
+    path = os.path.join(directory, "kfcv.yaml")
+    with open(path, "w") as f:
+        f.write(config)
+    return path
+
+
+def config_phase(work_dir):
+    """``examples/config.yaml`` and the generated KFCV project, built by one
+    ``build-fleet`` run on the card into a fresh directory: K1 launched once
+    a spec group in CV scoring, each forward held to the plain version; 2
+    KFCV machines built again on the CPU from the same shard and held to the
+    card's build; a card app and a CPU app over the directory answer
+    alike. Returns K1's and K2's launches, and the KFCV forward as a case
+    with its launches and its distance from the plain version."""
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.cli.cli import build_fleet, load_fleet_machines
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    directory = os.path.join(work_dir, "config-build", REVISION)
+    documents = [json.loads(normalize(path, "smoke-config"))
+                 for path in (os.path.join(HERE, "examples", "config.yaml"), kfcv_project(work_dir))]
+    shard = os.path.join(work_dir, "config-shard.json")
+    with open(shard, "w") as f:
+        json.dump({"machines": [m for document in documents for m in document["machines"]]}, f)
+    with captured_build() as (forwards, fetched):
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        t0 = time.perf_counter()
+        code, builder = build_fleet(shard, directory, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        build_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(code == 0 and not builder.build_errors, f"build-fleet exited {code}: {builder and builder.build_errors}")
+    groups = {(spec, X.shape[-1]) for spec, _, X, _ in forwards}
+    check(build_launches["K1"] == len(forwards) == len(groups) == 2 and all(n == 1 for *_, n in forwards),
+          f"CV scoring launched K1 {build_launches['K1']} times for {len(groups)} spec groups "
+          f"({len(forwards)} forwards)")
+    fits, steps, fit_s, _ = fit_rates(builder)
+    rows = {name: len(X) for name, X in fetched.items()}
+    phase("config", f"build-fleet of examples/config.yaml (3 machines, 3 tags) and {KFCV_MACHINES} KFCV machines "
+          f"(20 tags, window 144 smm, KFold(5)) on the card in {wall:.2f} s: {build_phases(builder)}; "
+          f"data_fetch {1e3 * builder.phase_seconds['data_fetch'] / len(rows):.2f} ms a machine; {steps} optimizer "
+          f"steps in {fit_s:.3f} s, {steps / fit_s:.1f} steps a second; rows a machine {sorted(set(rows.values()))}; "
+          f"K1 launches in CV scoring {build_launches['K1']} for {len(groups)} spec groups")
+    kfcv = [i for i, (_, _, X, _) in enumerate(forwards) if X.shape[-1] == 20]
+    check(len(kfcv) == 1 and forwards[kfcv[0]][2].shape[0] == 5 * KFCV_MACHINES, "the KFCV forward's members")
+    cases = [as_case(spec, stacked, X) for spec, stacked, X, _ in forwards]
+    errors = [compare(case) for case in cases]
+    phase("config", "each CV scoring forward against the plain version on its own inputs: "
+          + "; ".join(f"{tuple(c['X'].shape)} max abs {e[0]:.3e}" for c, e in zip(cases, errors))
+          + f" (rtol {RTOL}, atol {ATOL})")
+
+    cpu_names = [f"kfcv-{i:03d}" for i in range(2)]
+    card_summaries = {}
+    for name in cpu_names:
+        model = serializer.load(os.path.join(directory, name), "cpu")
+        card_summaries[name] = build_summary(model, serializer.load_metadata(os.path.join(directory, name)))
+    cpu, cpu_s = build_summaries([m for m in load_fleet_machines(shard) if m.name in cpu_names], "cpu")
+    worst, faults = compare_builds(card_summaries, cpu)
+    phase("config", f"card KFCV build against a CPU build of {', '.join(cpu_names)} from the same shard "
+          f"({cpu_s:.2f} s on the CPU): params max abs {worst[0]:.3e} (limit {BUILD_PARAM_ATOL}), thresholds "
+          f"max rel {worst[1]:.3e} (limit {BUILD_THRESHOLD_RTOL}), CV scores max |d| / (1 + |cpu|) "
+          f"{worst[2]:.3e} (limit {BUILD_SCORE_TOL}), epochs run equal")
+    check(not faults, "card KFCV build disagrees with the CPU's: " + "; ".join(faults[:5]))
+
+    apps = build_app(directory, device="cuda"), build_app(directory, device="cpu")
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    for name in ("kfcv-000", "ct-23-0003"):
+        X = fetched[name][-ROWS:]
+        meta = serializer.load_metadata(os.path.join(directory, name))
+        tags = [t["name"] for t in meta["metadata"]["build_metadata"]["dataset"]["dataset_meta"]["tag_list"]]
+        start = datetime(2020, 3, 1, tzinfo=timezone.utc)
+        keys = [(start + timedelta(minutes=10 * r)).isoformat() for r in range(len(X))]
+        frame = {tag: dict(zip(keys, X[:, j].tolist())) for j, tag in enumerate(tags)}
+        path = f"/gordo/v0/smoke-config/{name}/anomaly/prediction"
+        t0 = time.perf_counter()
+        status, body = wsgi_post(apps[0], path, {"X": frame, "y": frame})
+        ms = 1e3 * (time.perf_counter() - t0)
+        cpu_status, cpu_body = wsgi_post(apps[1], path, {"X": frame, "y": frame})
+        check(status == cpu_status == 200, f"{path} answered {status} (CPU app {cpu_status})")
+        check(list(body["data"]) == ANOMALY_GROUPS, f"{path}: anomaly groups {list(body['data'])}")
+        diff = same_json(cpu_body["data"], body["data"])
+        phase("config", f"POST {path} ({len(X)} of its own rows): 200 in {ms:.1f} ms on the card's app, "
+              f"max abs diff vs the CPU app {diff:.3e} (rtol {RTOL}, atol {ATOL})")
+    launches = {k: build_launches[k] + n for k, n in (("K1", fleet_feedforward.launches),
+                                                       ("K2", fleet_anomaly_scores.launches))}
+    check(launches["K1"] >= build_launches["K1"] + 1, "the [config] anomaly requests never launched K1")
+    return launches, cases[kfcv[0]], forwards[kfcv[0]][3], errors[kfcv[0]]
 
 
 def make_step(n_features, members):
@@ -795,11 +1047,13 @@ def serve_phase(base, names, wide_names, cpu_app):
     phase("serve", f"{len(requests)} requests, K1 launches {launches['K1']}, K2 launches {launches['K2']}, "
           f"max abs diff vs the CPU app {max_diff:.3e} (rtol {RTOL}, atol {ATOL})")
 
-    # the 40-tag bucket: its spec is wider than 32, so only the wide kernel runs
-    frame = request_frame(200, n_tags=WIDE_TAGS)
+    # the 40-tag bucket: its spec is wider than 32, so only the wide kernel runs. Each machine is sent
+    # its own next rows: another machine's levels put both apps' f32 forwards beyond ATOL of the exact
+    # answer, so they would agree only by chance ([routes] holds one such request to an f64 forward)
+    frame = own_frame(wide_names[5], WIDE_TAGS)
     wide_requests = [
         (f"/{wide_names[5]}/anomaly/prediction", {"X": frame, "y": frame}),
-        ("/prediction/fleet", {"X": {n: request_frame(210 + i, n_tags=WIDE_TAGS) for i, n in enumerate(wide_names)}}),
+        ("/prediction/fleet", {"X": {n: own_frame(n, WIDE_TAGS) for n in wide_names}}),
     ]
     fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
     wide_answers = [post(base + path, payload) for path, payload in wide_requests]
@@ -1308,7 +1562,7 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
         collection = os.path.join(work_dir, REVISION)
-        names, wide_names, train_launches, cv_cases = train_phase(collection)
+        names, wide_names, train_launches, cv_cases = train_phase(work_dir, collection)
         check(sorted(cv_cases) == sorted(CV_CASES), f"CV forwards of widths {sorted(cv_cases)}")
         for width, name in CV_CASES.items():
             cv_case = cv_cases[width][0]
@@ -1318,6 +1572,7 @@ def main():
             errors[name] = compare(cv_case)
             phase("kernel", f"{name}, the build's own fold params and test rows: max abs {errors[name][0]:.3e}, "
                   f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
+        config_launches, kfcv_case, kfcv_launches, errors[KFCV_CASE] = config_phase(work_dir)
         app = build_app(collection, device="cuda")
         check(len(app.store.fleet().warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
         cpu_app = build_app(collection, device="cpu")
@@ -1365,6 +1620,12 @@ def main():
               f"(with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
               f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
               f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+    timed[KFCV_CASE] = times(kfcv_case)
+    kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[KFCV_CASE]
+    phase("times", f"{KFCV_CASE} {tuple(kfcv_case['X'].shape)}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm "
+          f"chain {library!r} ms (with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 "
+          f"tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+          f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
     anomaly = cases[NARROW_CASES[2]]
     on_card = torch.tensor(anomaly["indices"], dtype=torch.int32, device="cuda")
     k1_on_card = cuda_ms(lambda: fleet_feedforward(
@@ -1417,10 +1678,10 @@ def main():
             "cuda_core_bound_ms": cuda_core_ms, "launch_floor_ms": floor,
         }
 
-    k1_by_path = {"train": train_launches["K1"], "serve": launches["K1"], "serve_wide": wide_launches["K1"],
-                  "stream": stream_launches["K1"], "routes": route_launches["K1"]}
-    k2_by_path = {"train": train_launches["K2"], "serve": launches["K2"], "serve_wide": wide_launches["K2"],
-                  "stream": stream_launches["K2"], "routes": route_launches["K2"]}
+    k1_by_path = {"train": train_launches["K1"], "config": config_launches["K1"], "serve": launches["K1"],
+                  "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"], "routes": route_launches["K1"]}
+    k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
+                  "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -1437,6 +1698,9 @@ def main():
               cv_cases[20][1], k1_by_path, CV_CASES[20], timed[CV_CASES[20]]),
         entry("fleet_dense (K1), wide kernel, CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
               cv_cases[WIDE_TAGS][1], k1_by_path, CV_CASES[WIDE_TAGS], timed[CV_CASES[WIDE_TAGS]]),
+        # launches: the [config] build's KFCV forward, read on the counter
+        entry("fleet_dense (K1), narrow kernel, KFCV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              kfcv_launches, k1_by_path, KFCV_CASE, timed[KFCV_CASE]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,20 @@ port's server loads (``model.pkl``, ``metadata.json``, ``info.json``).
 
 Per machine it follows the JAX builder:
 
-- **plan** (``_plan_machine``, ``_stage_arrays``, ``:889-920``,
-  ``:1247-1304``): the definition becomes port objects, the host
-  pipeline steps (MinMax) are fitted on the machine's X, ``y`` is
-  aliased to ``X`` when they are equal, and the fit config and seed come
-  from the estimator's kwargs;
+- **plan** (``_plan_machine``, ``:889-922``): the definition becomes
+  port objects;
+- **data fetch** (``_load_all_data``, ``:1169-1245``): the machine's
+  dataset fetches and resamples its rows (``dataset/datasets.py``, on
+  the host), timed into ``query_duration_sec``; a failed fetch is tried
+  again ``GORDO_TPU_DATA_RETRIES`` times (default 2) after
+  ``GORDO_TPU_DATA_BACKOFF`` seconds (0.5), doubling, within an optional
+  ``GORDO_TPU_DATA_DEADLINE``; configuration errors, too few rows and
+  what the port does not implement are not tried again. A machine whose
+  fetch fails is recorded in ``build_errors``;
+- **stage** (``_stage_arrays``, ``:1247-1304``): the host pipeline steps
+  (MinMax) are fitted on the machine's X, ``y`` is aliased to ``X`` when
+  they are equal, and the fit config and seed come from the estimator's
+  kwargs;
 - **cross-validation** (``:1308-1394``): fold models are members
   ``<machine>::fold<k>`` with seed ``seed + 1000 * (k + 1)`` and the
   fold's rows as train weights, appended fold-major, all folds of all
@@ -21,20 +30,25 @@ Per machine it follows the JAX builder:
   metric scores, and the ``DiffBasedAnomalyDetector`` thresholds: the
   error scaler fitted on the fold's train targets, thresholds the max
   over time of 6-row rolling minimums, the last fold's kept
-  (``:1687-1860``);
+  (``:1687-1860``). A ``DiffBasedKFCVAnomalyDetector`` is
+  cross-validated with ``KFold(5, shuffle=True, random_state=0)``; its
+  folds' errors are kept with their test rows, stitched back into row
+  order, and its thresholds are a quantile of their smoothing;
 - **final fit** of every machine (``:1864-1965``), then the detector's
   error scaler fitted on ``y``;
 - **assemble and dump** (``:1969-2011``): ``metadata.json`` with the
   JAX artifact's ``dataset`` and ``build_metadata.model`` keys
   (``model_offset``, ``cross_validation.{scores, splits,
-  cv_duration_sec}``, ``training``, ``model_meta``), ``info.json`` with
-  the model's checksum.
+  cv_duration_sec}``, ``training``, ``model_meta``), the dataset's own
+  ``get_metadata()`` and fetch time under ``build_metadata.dataset``,
+  ``info.json`` with the model's checksum.
 
 Where the JAX builder does more, the port does not yet (``ROADMAP.md``
 queue 3): a machine that fails, or whose program fails alone on the
 device after bisection, is recorded in ``build_errors`` (there is no
-sequential builder to fall back to); there is no journal, resume,
-model-register cache, telemetry, progress file, packing, LSTM or KFCV.
+sequential builder to fall back to); fetches run one after another,
+not in a thread pool; there is no journal, resume, model-register
+cache, telemetry, progress file, packing or LSTM.
 """
 
 import contextlib
@@ -49,16 +63,17 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import DeviceLike, __version__, serializer
+from ..dataset.exceptions import ConfigException, InsufficientDataError
 from ..machine import Machine, TrainingSummaryMetadata
 from ..machine.metadata import drift_baseline
-from ..models.anomaly.diff import DiffBasedAnomalyDetector
+from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector
 from ..models.estimators import TorchAutoEncoder
 from ..models.metrics import metrics_from_list
-from ..models.model_selection import TimeSeriesSplit, shuffle_indices
+from ..models.model_selection import KFold, TimeSeriesSplit, shuffle_indices
 from ..models.nn import params_from_jax
 from ..models.preprocessing import MinMaxScaler, Pipeline
 from ..models.training import FitConfig, RandomSource, fit_config_from_kwargs, split_fit_kwargs
-from ..utils.env import env_int
+from ..utils.env import env_float, env_int
 from .fleet import FleetMember, FleetTrainer, stack_member_params
 
 logger = logging.getLogger(__name__)
@@ -77,6 +92,11 @@ class _Plan:
     detector: Optional[DiffBasedAnomalyDetector]
     pipeline: Optional[Pipeline]
     estimator: TorchAutoEncoder
+    X: np.ndarray = None  # the fetched rows, float64
+    y: np.ndarray = None
+    index: Optional[Sequence[Any]] = None  # the rows' datetimes
+    query_duration: Optional[float] = None
+    data_retries: int = 0
     X_arr: np.ndarray = None  # inputs after the host pipeline steps, float32
     y_arr: np.ndarray = None  # targets, float32 (X_arr itself when equal)
     shuffle_perm: Optional[np.ndarray] = None  # the detector's row shuffle
@@ -155,10 +175,34 @@ def _rolling_min_max(values: np.ndarray, window: int):
 
 
 def _cv_for(plan: _Plan):
-    """The machine's CV splitter: its evaluation's ``cv`` definition, else
-    ``TimeSeriesSplit(n_splits=3)``."""
+    """The machine's CV splitter: ``KFold(5, shuffle=True,
+    random_state=0)`` for a KFCV detector, else its evaluation's ``cv``
+    definition, else ``TimeSeriesSplit(n_splits=3)``."""
+    if isinstance(plan.detector, DiffBasedKFCVAnomalyDetector):
+        return KFold(n_splits=5, shuffle=True, random_state=0)
     cv_def = plan.machine.evaluation.get("cv")
     return serializer.from_definition(cv_def, device="cpu") if cv_def else TimeSeriesSplit(n_splits=3)
+
+
+def _retry_call(fn, attempts: int, backoff: float, deadline: Optional[float], no_retry, on_retry):
+    """``fn()``, tried up to ``attempts`` times, sleeping ``backoff * 2**k``
+    seconds (at most 30) between tries; ``no_retry`` exceptions, and a
+    sleep that would cross ``deadline`` seconds, re-raise at once
+    (``gordo_tpu/utils/retry.py::retry_call``)."""
+    start = time.monotonic()
+    attempt = 1
+    while True:
+        try:
+            return fn()
+        except no_retry:
+            raise
+        except Exception as exc:
+            delay = min(backoff * 2.0 ** (attempt - 1), 30.0)
+            if attempt >= attempts or (deadline is not None and time.monotonic() - start + delay > deadline):
+                raise
+            on_retry(attempt, exc)
+            time.sleep(delay)
+            attempt += 1
 
 
 class FleetBuilder:
@@ -169,9 +213,9 @@ class FleetBuilder:
 
     ``build_errors`` maps a failed machine to its exception: one machine's
     failure spares the rest. ``phase_seconds`` holds the host wall time
-    of each phase: ``plan``, ``stage``, ``cv_train``, ``cv_predict`` (the
-    fold forwards through K1), ``cv_score``, ``cv_finalize``,
-    ``final_fit``, ``assemble``, ``dump``.
+    of each phase: ``plan``, ``data_fetch``, ``stage``, ``cv_train``,
+    ``cv_predict`` (the fold forwards through K1), ``cv_score``,
+    ``cv_finalize``, ``final_fit``, ``assemble``, ``dump``.
     """
 
     def __init__(
@@ -220,13 +264,7 @@ class FleetBuilder:
                     plans.append(self._plan_machine(machine))
                 except Exception as exc:
                     self._fail(machine.name, exc)
-        with self._phase("stage"):
-            for plan in plans:
-                try:
-                    self._stage_arrays(plan)
-                except Exception as exc:
-                    self._fail(plan.machine.name, exc)
-        plans = [p for p in plans if not self._skipped(p.machine.name)]
+        plans = self._load_all_data(plans)
 
         def cv_mode(plan: _Plan) -> str:
             return plan.machine.evaluation.get("cv_mode", "full_build").lower()
@@ -272,6 +310,45 @@ class FleetBuilder:
 
     # --------------------------------------------------------------- planning
 
+    def _load_all_data(self, plans: List[_Plan]) -> List[_Plan]:
+        """Fetch and stage every plan; a machine that fails drops out and
+        is recorded in ``build_errors``."""
+        attempts = 1 + max(0, env_int("GORDO_TPU_DATA_RETRIES", 2))
+        backoff = env_float("GORDO_TPU_DATA_BACKOFF", 0.5)
+        deadline = env_float("GORDO_TPU_DATA_DEADLINE", None)
+
+        def note_retry(plan: _Plan, attempt: int, exc: BaseException) -> None:
+            plan.data_retries += 1
+            logger.warning("Data fetch retry %d for %s after %r", attempt, plan.machine.name, exc)
+
+        fetched = []
+        with self._phase("data_fetch"):
+            for plan in plans:
+                start = time.perf_counter()
+                try:
+                    X, y, index = _retry_call(
+                        plan.machine.dataset.get_data, attempts, backoff, deadline,
+                        no_retry=(ConfigException, InsufficientDataError, NotImplementedError),
+                        on_retry=lambda attempt, exc, plan=plan: note_retry(plan, attempt, exc),
+                    )
+                except Exception as exc:
+                    self._fail(plan.machine.name, exc)
+                    continue
+                plan.query_duration = time.perf_counter() - start
+                plan.X, plan.y, plan.index = X, y, index
+                fetched.append(plan)
+        self.robustness["data_fetch_retries"] += sum(p.data_retries for p in plans)
+        staged = []
+        with self._phase("stage"):
+            for plan in fetched:
+                try:
+                    self._stage_arrays(plan)
+                except Exception as exc:
+                    self._fail(plan.machine.name, exc)
+                    continue
+                staged.append(plan)
+        return staged
+
     def _plan_machine(self, machine: Machine) -> _Plan:
         model_obj = serializer.from_definition(machine.model, device=self.device)
         obj, detector, pipeline = model_obj, None, None
@@ -287,10 +364,10 @@ class FleetBuilder:
     def _stage_arrays(plan: _Plan) -> None:
         """Fit the host pipeline steps, resolve spec, fit config and seed."""
         machine = plan.machine
-        X_arr = np.asarray(machine.X, np.float32)
-        y_arr = np.asarray(machine.y, np.float32)
+        X_arr = np.asarray(plan.X, np.float32)
+        y_arr = np.asarray(plan.y, np.float32)
         if plan.pipeline is not None and plan.pipeline.transformers:
-            transformed = np.asarray(machine.X, np.float64)
+            transformed = np.asarray(plan.X, np.float64)
             for transformer in plan.pipeline.transformers:
                 transformed = transformer.fit_transform(transformed)
             X_arr = np.asarray(transformed, np.float32)
@@ -450,7 +527,7 @@ class FleetBuilder:
                     if plan.detector is not None:
                         self._accumulate_thresholds(
                             plan, y_true, y_pred, fold_idx, fold_state[plan.machine.name],
-                            y_train=plan.y_arr[train_rows],
+                            y_train=plan.y_arr[train_rows], test_rows=test_rows,
                         )
 
     @staticmethod
@@ -480,12 +557,17 @@ class FleetBuilder:
             plan.cv_scores.setdefault(name, {})[fold_key] = float(np.mean(per_tag))
 
     @staticmethod
-    def _accumulate_thresholds(plan: _Plan, y_true, y_pred, fold_idx: int, state, y_train) -> None:
+    def _accumulate_thresholds(plan: _Plan, y_true, y_pred, fold_idx: int, state, y_train, test_rows) -> None:
         detector = plan.detector
         # the fold model's error scaler is fitted on the fold's train targets
         scaler = MinMaxScaler(feature_range=detector.scaler.feature_range).fit(y_train)
         scaled_mse = np.mean(np.square(scaler.transform(y_pred) - scaler.transform(y_true)), axis=1)
         abs_err = np.abs(y_true - y_pred)
+        if isinstance(detector, DiffBasedKFCVAnomalyDetector):
+            # KFold's test rows are scattered: keep each fold's errors with
+            # their rows, to smooth them in row order once every fold is in
+            state.setdefault("kfcv_parts", []).append((np.asarray(test_rows), scaled_mse, abs_err))
+            return
         fold = f"fold-{fold_idx}"
         state["aggregate_threshold"] = _rolling_min_max(scaled_mse, 6)
         state.setdefault("feature_folds", {})[fold] = _rolling_min_max(abs_err, 6)
@@ -509,6 +591,16 @@ class FleetBuilder:
                 "fold-min": float(values.min()),
             })
         detector = plan.detector
+        if isinstance(detector, DiffBasedKFCVAnomalyDetector) and "kfcv_parts" in state:
+            n = len(plan.y_arr)
+            mse_full = np.full(n, np.nan)
+            abs_full = np.full((n, plan.y_arr.shape[1]), np.nan)
+            for rows, mse_part, abs_part in state["kfcv_parts"]:
+                mse_full[rows] = mse_part
+                abs_full[rows] = abs_part
+            detector.aggregate_threshold_ = float(detector.calculate_threshold(mse_full))
+            detector.feature_thresholds_ = detector.calculate_threshold(abs_full)
+            return
         if detector is None or "feature_folds" not in state:
             return
         tags = plan.machine.target_tag_list
@@ -563,23 +655,12 @@ class FleetBuilder:
             plan.train_duration = time.perf_counter() - start
             plan.training_summary = TrainingSummaryMetadata.from_history(result.history)
             if plan.detector is not None:
-                plan.detector.scaler.fit(plan.machine.y)
+                plan.detector.scaler.fit(plan.y)
 
     # --------------------------------------------------------------- assembly
 
     def _assemble(self, plan: _Plan) -> Tuple[Any, Machine]:
-        machine = Machine(
-            name=plan.machine.name,
-            model=plan.machine.model,
-            dataset=plan.machine.dataset,
-            project_name=plan.machine.project_name,
-            X=plan.machine.X,
-            y=plan.machine.y,
-            index=plan.machine.index,
-            evaluation=plan.machine.evaluation,
-            metadata=dict(plan.machine.metadata),
-            runtime=plan.machine.runtime,
-        )
+        machine = plan.machine.copy()
         model_obj = plan.model_obj
         meta_source = model_obj if plan.detector is not None else plan.estimator
         machine.metadata["build_metadata"] = {
@@ -597,20 +678,15 @@ class FleetBuilder:
                 "training": (plan.training_summary or TrainingSummaryMetadata()).to_dict(),
             },
             "dataset": {
-                "query_duration_sec": None,
-                "dataset_meta": {
-                    "row_count": int(len(machine.X)),
-                    "resolution": machine.dataset.get("resolution"),
-                    "tag_list": [{"name": t} for t in machine.tag_list],
-                    "target_tag_list": [{"name": t} for t in machine.target_tag_list],
-                },
+                "query_duration_sec": plan.query_duration,
+                "dataset_meta": plan.machine.dataset.get_metadata(),
             },
             "robustness": {
                 "fleet_retries": plan.fleet_retries,
                 "bucket_bisects": plan.bucket_bisects,
-                "data_fetch_retries": 0,
+                "data_fetch_retries": plan.data_retries,
             },
-            "drift_baseline": drift_baseline(machine.X, machine.tag_list),
+            "drift_baseline": drift_baseline(plan.X, plan.machine.dataset.column_names()[0]),
         }
         return model_obj, machine
 
@@ -618,7 +694,7 @@ class FleetBuilder:
     def _split_metadata(plan: _Plan, splits) -> Dict[str, Any]:
         """First and last row of each fold's train and test split, as the
         index's ISO times (positions when the machine has no index)."""
-        index = plan.machine.index
+        index = plan.index
         metadata = {}
         for i, (train, test) in enumerate(splits):
             for label, idx in (("train", train), ("test", test)):

@@ -18,20 +18,22 @@ them as the JAX package's ``COMPAT_LOCATIONS`` maps them
 - ``gordo_tpu.models[.estimators].JaxAutoEncoder`` with a ``kind`` of
   ``models.estimators.KINDS``; its ``callbacks`` may hold
   ``EarlyStopping`` (the JAX package's, Keras' or TensorFlow's path);
-- ``sklearn.model_selection.TimeSeriesSplit`` (``n_splits``), for an
-  evaluation's ``cv``.
-
-``DiffBasedKFCVAnomalyDetector`` is named apart: it is not ported yet.
+- ``gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector``: the
+  same arguments (``shuffle`` defaulting to True, ``window`` to 144,
+  ``smoothing_method`` to ``smm``) and ``threshold_percentile`` (0.99);
+- ``sklearn.model_selection.TimeSeriesSplit`` (``n_splits``) and
+  ``sklearn.model_selection.KFold`` (``n_splits``, ``shuffle``,
+  ``random_state``), for an evaluation's ``cv``.
 """
 
 import copy
 from typing import Any, Dict, Tuple
 
 from .. import DeviceLike, resolve_device
-from ..models.anomaly.diff import DiffBasedAnomalyDetector
+from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector
 from ..models.callbacks import EarlyStopping
 from ..models.estimators import TorchAutoEncoder
-from ..models.model_selection import TimeSeriesSplit
+from ..models.model_selection import KFold, TimeSeriesSplit
 from ..models.preprocessing import MinMaxScaler, Pipeline
 
 DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector"
@@ -39,6 +41,7 @@ KFCV_DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector"
 PIPELINE = "sklearn.pipeline.Pipeline"
 MIN_MAX_SCALER = "sklearn.preprocessing.MinMaxScaler"
 TIME_SERIES_SPLIT = "sklearn.model_selection.TimeSeriesSplit"
+K_FOLD = "sklearn.model_selection.KFold"
 AUTOENCODERS = ("gordo_tpu.models.JaxAutoEncoder", "gordo_tpu.models.estimators.JaxAutoEncoder")
 EARLY_STOPPING = (
     "gordo_tpu.models.callbacks.EarlyStopping",
@@ -86,16 +89,16 @@ def from_definition(definition: Any, device: DeviceLike = None) -> Any:
 
 def _build(definition: Any, device) -> Any:
     path, kwargs = _path_and_kwargs(definition)
-    if path == DETECTOR:
+    if path in (DETECTOR, KFCV_DETECTOR):
         base = kwargs.pop("base_estimator", None)
         scaler = kwargs.pop("scaler", None)
-        options = {
-            key: kwargs.pop(key)
-            for key in ("require_thresholds", "shuffle", "window", "smoothing_method")
-            if key in kwargs
-        }
+        names = ("require_thresholds", "shuffle", "window", "smoothing_method")
+        if path == KFCV_DETECTOR:
+            names += ("threshold_percentile",)
+        options = {key: kwargs.pop(key) for key in names if key in kwargs}
         _no_more(path, kwargs)
-        return DiffBasedAnomalyDetector(
+        detector = DiffBasedKFCVAnomalyDetector if path == KFCV_DETECTOR else DiffBasedAnomalyDetector
+        return detector(
             base_estimator=(
                 _build(base, device) if base is not None
                 else TorchAutoEncoder(device=device, kind="feedforward_hourglass")
@@ -126,8 +129,10 @@ def _build(definition: Any, device) -> Any:
         n_splits = kwargs.pop("n_splits", 5)
         _no_more(path, kwargs)
         return TimeSeriesSplit(n_splits)
-    if path == KFCV_DETECTOR:
-        raise NotImplementedError(f"{path} is not ported to gordo_tpu_torch yet")
+    if path == K_FOLD:
+        options = {key: kwargs.pop(key) for key in ("n_splits", "shuffle", "random_state") if key in kwargs}
+        _no_more(path, kwargs)
+        return KFold(**options)
     raise NotImplementedError(f"{path} is not supported by gordo_tpu_torch")
 
 

@@ -10,6 +10,7 @@ machine, beside whatever a builder or a serving process left there
 layout is the JAX package's, the pickled classes are the port's.
 """
 
+import datetime
 import hashlib
 import json
 import os
@@ -57,6 +58,12 @@ def _file_checksum(file_path: str) -> str:
     return digest.hexdigest()
 
 
+def _json_default(obj: Any) -> str:
+    """A datetime in ``metadata.json`` as ISO 8601, as the JAX package
+    writes it; anything else as ``str``."""
+    return obj.isoformat() if isinstance(obj, (datetime.date, datetime.datetime)) else str(obj)
+
+
 def dump(obj: Any, dest_dir: str, metadata: Optional[dict] = None, info: Optional[dict] = None):
     """Write ``obj`` into ``dest_dir`` as ``model.pkl`` (+ ``metadata.json``
     when given; ``info.json`` always records the model checksum)."""
@@ -66,7 +73,7 @@ def dump(obj: Any, dest_dir: str, metadata: Optional[dict] = None, info: Optiona
         pickle.dump(obj, f)
     if metadata is not None:
         with open(path.join(dest_dir, METADATA_FILE), "w") as f:
-            json.dump(metadata, f, default=str)
+            json.dump(metadata, f, default=_json_default)
     full_info = {"checksum": _file_checksum(model_path)}
     if info:
         full_info.update(info)

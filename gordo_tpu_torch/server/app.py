@@ -43,6 +43,7 @@ from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 
 from .. import DeviceLike, resolve_device
 from ..stream import StreamPlane, stream_enabled
+from ..utils import yaml_lite
 from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
 from .utils import ServerError, check_metadata_file, validate_gordo_name, validate_revision
 from .wire import dumps
@@ -68,20 +69,16 @@ _REASONS = {
     503: "Service Unavailable",
 }
 
-#: a bare name in a YAML flow list, and the bare words YAML 1.1 reads as
-#: something other than a string (numbers, booleans, null, dates)
-_FLOW_NAME = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]*")
-_YAML_SCALAR = re.compile(
-    r"[-+]?(\d[\d_]*|0[xob][\da-fA-F_]+|(\d[\d_]*)?\.[\d_]*([eE][-+]?\d+)?|\d+[eE][-+]?\d+)"
-    r"|\.(inf|Inf|INF|nan|NaN|NAN)|\d{4}-\d\d?-\d\d?"
-    r"|(?i:y|n|yes|no|true|false|on|off|null)"
-)
+#: what a model name in ``EXPECTED_MODELS`` may look like
+_MODEL_NAME = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]*")
 
 
 def parse_expected_models(raw: Optional[str]) -> List[str]:
-    """The ``EXPECTED_MODELS`` list: ``[]`` when unset, else a JSON list
-    of names or a YAML flow list of bare names (``[a, b]``). Anything
-    else, or a bare word that YAML would not read as a string, raises.
+    """The ``EXPECTED_MODELS`` list: ``[]`` when unset, else a YAML list of
+    names (a flow list ``[a, b]``, a JSON list or a block list), read as
+    ``yaml.safe_load`` reads it (``utils/yaml_lite.py``). Anything that
+    is not a list of names raises, where the JAX app takes whatever the
+    YAML reader gives.
 
     >>> parse_expected_models("[machine-1, machine-2]")
     ['machine-1', 'machine-2']
@@ -89,19 +86,10 @@ def parse_expected_models(raw: Optional[str]) -> List[str]:
     if raw is None:
         return []
     try:
-        names = json.loads(raw)
-    except ValueError:
-        text = raw.strip()
-        if not (text.startswith("[") and text.endswith("]")):
-            raise ValueError(f"{EXPECTED_MODELS_ENV_VAR}={raw!r} is not a list of model names")
-        items = [item.strip() for item in text[1:-1].split(",")]
-        names = [] if items == [""] else items
-        for name in names:
-            if not _FLOW_NAME.fullmatch(name) or _YAML_SCALAR.fullmatch(name):
-                raise ValueError(
-                    f"{EXPECTED_MODELS_ENV_VAR}={raw!r}: {name!r} is not a bare model name; write a JSON list"
-                )
-    if not isinstance(names, list) or not all(isinstance(name, str) for name in names):
+        names = yaml_lite.safe_load(raw)
+    except ValueError as exc:
+        raise ValueError(f"{EXPECTED_MODELS_ENV_VAR}={raw!r} is not a list of model names: {exc}") from exc
+    if not isinstance(names, list) or not all(isinstance(n, str) and _MODEL_NAME.fullmatch(n) for n in names):
         raise ValueError(f"{EXPECTED_MODELS_ENV_VAR}={raw!r} is not a list of model names")
     return names
 

@@ -18,6 +18,8 @@ from typing import Any, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...models.anomaly.diff import smooth as _smooth
+
 
 class WireColumn(NamedTuple):
     """One response column: top-level ``group``, tag-level ``sub`` ('' for
@@ -208,52 +210,3 @@ def anomaly_table(
             "before `.anomaly`"
         )
     return WireTable(index, columns)
-
-
-def _smooth(model: Any, values: np.ndarray) -> np.ndarray:
-    """The detector's smoothing of a column (1-D) or of each column of a
-    matrix (2-D), as pandas computes it over the JAX server's frames
-    (``gordo_tpu/server/wire/assemble.py::_smooth``): ``smm``
-    ``rolling(window).median()``, ``sma`` ``rolling(window).mean()``, both
-    NaN for the first ``window - 1`` rows and for every window that holds
-    a NaN; ``ewma`` ``ewm(span=window).mean()``."""
-    values = np.asarray(values, np.float64)
-    window = int(model.window)
-    if model.smoothing_method == "ewma":
-        return _ewma(values, window)
-    if model.smoothing_method not in ("smm", "sma"):
-        raise ValueError(f"Unknown smoothing_method {model.smoothing_method!r}")
-    out = np.full(values.shape, np.nan)
-    if len(values) >= window:
-        windows = np.lib.stride_tricks.sliding_window_view(values, window, axis=0)
-        reduce = np.median if model.smoothing_method == "smm" else np.mean
-        out[window - 1:] = reduce(windows, axis=-1)  # a NaN in a window gives NaN
-    return out
-
-
-def _ewma(values: np.ndarray, span: int) -> np.ndarray:
-    """pandas' ``ewm(span=span).mean()`` (``adjust=True``,
-    ``min_periods=0``, ``ignore_na=False``) with its own recurrence: a
-    weighted mean whose old weight decays by ``1 - alpha`` a row, NaN
-    rows included, and grows by 1 with each reading; NaN until a column's
-    first reading."""
-    alpha = 1.0 / (1.0 + (span - 1) / 2.0)
-    decay = 1.0 - alpha
-    rows = values if values.ndim == 2 else values[:, None]
-    out = np.empty_like(rows)
-    if not len(rows):
-        return out.reshape(values.shape)
-    weighted = rows[0].copy()
-    old_wt = np.ones(rows.shape[1])
-    out[0] = weighted
-    for i in range(1, len(rows)):
-        cur = rows[i]
-        seen, observed = ~np.isnan(weighted), ~np.isnan(cur)
-        old_wt = np.where(seen, old_wt * decay, old_wt)
-        update = seen & observed & (weighted != cur)
-        with np.errstate(invalid="ignore"):
-            mixed = (old_wt * weighted + cur) / (old_wt + 1.0)
-        weighted = np.where(update, mixed, np.where(~seen & observed, cur, weighted))
-        old_wt = np.where(seen & observed, old_wt + 1.0, old_wt)
-        out[i] = weighted
-    return out.reshape(values.shape)

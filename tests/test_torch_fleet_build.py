@@ -364,8 +364,8 @@ def test_definitions_are_read_as_strings():
     "definition,message",
     [
         ({"sklearn.decomposition.PCA": {"n_components": 2}}, "sklearn.decomposition.PCA"),
-        ({"gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector": {}}, "DiffBasedKFCVAnomalyDetector"),
-        ({"gordo.machine.model.anomaly.diff.DiffBasedKFCVAnomalyDetector": {}}, "DiffBasedKFCVAnomalyDetector"),
+        ({"gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector": {"n_splits": 5}}, "n_splits"),
+        ({"gordo.machine.model.anomaly.diff.DiffBasedKFCVAnomalyDetector": {"cv": "KFold"}}, "cv"),
         ({"gordo_tpu.models.JaxLSTMAutoEncoder": {"kind": "lstm_model"}}, "JaxLSTMAutoEncoder"),
         ({"gordo_tpu.models.JaxAutoEncoder": {"kind": "lstm_model"}}, "lstm_model"),
         ({"gordo_tpu.models.JaxAutoEncoder": {"kind": "feedforward_model", "callbacks": [
@@ -385,7 +385,7 @@ def test_machine_checks_its_data():
     with pytest.raises(ValueError, match="not a valid name"):
         Machine.from_config({**config, "name": "Bad_Name"}, PROJECT, data=(np.zeros((5, 3)), None))
     machine = Machine.from_config(config, PROJECT, data=(np.zeros((5, 3)), None))
-    assert machine.y is machine.X and machine.dataset["resolution"] == "10min"
+    assert machine.dataset.y is machine.dataset.X and machine.dataset.to_dict()["resolution"] == "10min"
 
 
 def _seeded_machines():
@@ -427,3 +427,183 @@ def test_fleet_build_defaults_to_cuda():
     machine = Machine.from_config(CONFIGS[0], PROJECT, data=(np.zeros((5, 3)), None))
     with pytest.raises(RuntimeError, match="CUDA"):
         port_fleet_build.fleet_build([machine])
+
+
+# -- KFCV: KFold folds, stitched errors, smoothed quantile thresholds --------------
+
+KFCV_DETECTOR = {
+    "gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector": {
+        "window": 12,
+        "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
+            "sklearn.preprocessing.MinMaxScaler",
+            {"gordo_tpu.models.JaxAutoEncoder": {"kind": "feedforward_hourglass", "encoding_layers": 1, "epochs": 2}},
+        ]}},
+    }
+}
+KFCV_CONFIGS = [
+    {"name": "k-a", "model": KFCV_DETECTOR, "dataset": {**DATASET, "tag_list": ["t1", "t2", "t3"]}},
+    {"name": "k-b", "model": KFCV_DETECTOR, "dataset": {**DATASET, "tag_list": ["t4", "t5", "t6"]}},
+]
+
+
+@pytest.fixture(scope="module")
+def kfcv_builds(tmp_path_factory):
+    """Both packages' builds of two KFCV machines (the port's from the
+    same config dicts, its dataset fetching its own rows), JAX's
+    randomness injected; ``{name: (jax model, jax metadata, model,
+    metadata)}`` and the port's builder."""
+    root = tmp_path_factory.mktemp("kfcv")
+    jax_results = jax_fleet_build([JaxMachine.from_config(c, project_name=PROJECT) for c in KFCV_CONFIGS],
+                                  output_dir=str(root / "jax"))
+    builder = port_fleet_build.FleetBuilder([Machine.from_config(c, PROJECT) for c in KFCV_CONFIGS], device="cpu",
+                                            random=JaxRandom())
+    port_results = builder.build(output_dir=str(root / "port"))
+    assert builder.build_errors == {}
+    out = {}
+    for (jax_model, machine), (model, _) in zip(jax_results, port_results, strict=True):
+        with open(root / "jax" / machine.name / "metadata.json") as f:
+            jax_meta = json.load(f)
+        out[machine.name] = (jax_model, jax_meta, model, serializer.load_metadata(str(root / "port" / machine.name)))
+    return out, builder, root
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in KFCV_CONFIGS])
+def test_kfcv_build_matches_jax(kfcv_builds, name):
+    """KFCV thresholds (the 0.99 quantile of 12-row rolling medians of the
+    stitched fold errors) rtol 1e-5; every CV score rtol/atol 1e-5; the
+    split metadata equal; final params atol 1e-5; ``model_meta``'s keys."""
+    jax_model, jax_meta, model, meta = kfcv_builds[0][name]
+    assert type(model).__name__ == "DiffBasedKFCVAnomalyDetector" and model.window == 12
+    np.testing.assert_allclose(model.feature_thresholds_, jax_model.feature_thresholds_.to_numpy(float), rtol=RTOL)
+    np.testing.assert_allclose(model.aggregate_threshold_, jax_model.aggregate_threshold_, rtol=RTOL)
+    jax_cv = jax_meta["metadata"]["build_metadata"]["model"]["cross_validation"]
+    cv = meta["metadata"]["build_metadata"]["model"]["cross_validation"]
+    assert cv["splits"] == jax_cv["splits"] and len(cv["splits"]) == 5 * 4
+    assert list(cv["scores"]) == list(jax_cv["scores"])
+    for key, folds in jax_cv["scores"].items():
+        assert list(cv["scores"][key]) == list(folds), key
+        np.testing.assert_allclose(list(cv["scores"][key].values()), list(folds.values()), rtol=RTOL, atol=ATOL,
+                                   err_msg=key)
+    jax_params = jax_model.base_estimator.steps[-1][1].params_
+    for key, layer in jax_params.items():
+        for leaf, value in layer.items():
+            np.testing.assert_allclose(model.base_estimator.estimator.params_[key][leaf].numpy(), np.asarray(value),
+                                       atol=PARAM_ATOL)
+    model_meta, jax_model_meta = (m["metadata"]["build_metadata"]["model"]["model_meta"] for m in (meta, jax_meta))
+    assert set(model_meta) == set(jax_model_meta)
+    assert model_meta["threshold-percentile"] == jax_model_meta["threshold-percentile"] == 0.99
+
+
+def test_kfcv_scoring_is_one_forward_per_spec_group(kfcv_builds):
+    """Both machines share a spec: their 10 fold models are scored by one
+    forward (one K1 launch on a card) of 10 members x 116 rows."""
+    builder = kfcv_builds[1]
+    assert [f["members"] for f in builder.trainer.fits] == [10, 2]
+    assert set(builder.phase_seconds) >= {"data_fetch", "cv_predict", "cv_finalize"}
+
+
+# -- from a YAML config: NormalizedConfig, the shard, the data fetch ---------------
+
+
+def _trimmed_example() -> str:
+    """``examples/config.yaml`` with 2 epochs and ct-23-0002's window cut to two days."""
+    with open("examples/config.yaml") as f:
+        text = f.read()
+    return text.replace("epochs: 5", "epochs: 2").replace("2018-05-27T15:05:50+02:00", "2018-05-22T15:05:50+02:00")
+
+
+@pytest.fixture(scope="module")
+def config_builds(tmp_path_factory):
+    """``examples/config.yaml`` (trimmed) built by both packages from the
+    YAML text, through each one's ``NormalizedConfig`` and shard."""
+    import io
+
+    from gordo_tpu.cli.cli import _load_fleet_machines as jax_load_fleet_machines
+    from gordo_tpu.cli.workflow_generator import _machines_yaml as jax_machines_yaml
+    from gordo_tpu.workflow.config_elements.normalized_config import NormalizedConfig as JaxNormalizedConfig
+    from gordo_tpu.workflow.workflow_generator.workflow_generator import get_dict_from_yaml as jax_get_dict
+    from gordo_tpu_torch.cli.cli import load_fleet_machines
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    root = tmp_path_factory.mktemp("from-config")
+    jax_dir, port_dir = root / "jax" / REVISION, root / "port" / REVISION
+    text = _trimmed_example()
+    jax_shard = jax_machines_yaml(JaxNormalizedConfig(jax_get_dict(io.StringIO(text)), PROJECT).machines)
+    jax_machines = jax_load_fleet_machines(jax_shard)
+    jax_results = jax_fleet_build(jax_machines, output_dir=str(jax_dir))
+    machines = load_fleet_machines(normalize(io.StringIO(text), PROJECT))
+    builder = port_fleet_build.FleetBuilder(machines, device="cpu", random=JaxRandom())
+    port_results = builder.build(output_dir=str(port_dir))
+    assert builder.build_errors == {} and len(port_results) == len(jax_results) == 3
+    return jax_machines, machines, jax_results, port_results, jax_dir, port_dir
+
+
+def test_config_build_fetches_the_same_rows(config_builds):
+    """Each machine's rows, fetched by each package's dataset: values
+    rtol 1e-12, stamps equal."""
+    jax_machines, machines = config_builds[:2]
+    for jax_machine, machine in zip(jax_machines, machines, strict=True):
+        X, _ = jax_machine.dataset.get_data()
+        PX, _, index = machine.dataset.get_data()
+        np.testing.assert_allclose(PX, X.to_numpy(np.float64), rtol=1e-12)
+        assert [i.isoformat() for i in index] == [i.isoformat() for i in X.index]
+
+
+def test_config_build_matches_jax(config_builds):
+    """Thresholds rtol 1e-5, CV scores rtol/atol 1e-5, the split metadata
+    equal; ``metadata.json``'s ``dataset`` equal key for key and
+    ``build_metadata.dataset.dataset_meta`` (``x_hist`` included) equal,
+    its floats within rtol 1e-12."""
+    *_, jax_results, port_results, jax_dir, port_dir = config_builds
+    for (jax_model, machine), (model, _) in zip(jax_results, port_results):
+        np.testing.assert_allclose(model.feature_thresholds_, jax_model.feature_thresholds_.to_numpy(float),
+                                   rtol=RTOL)
+        np.testing.assert_allclose(model.aggregate_threshold_, jax_model.aggregate_threshold_, rtol=RTOL)
+        with open(jax_dir / machine.name / "metadata.json") as f:
+            jax_meta = json.load(f)
+        meta = serializer.load_metadata(str(port_dir / machine.name))
+        assert meta["dataset"] == jax_meta["dataset"]
+        jax_build, build = jax_meta["metadata"]["build_metadata"], meta["metadata"]["build_metadata"]
+        assert list(build["dataset"]) == list(jax_build["dataset"])
+        assert build["dataset"]["query_duration_sec"] > 0
+        _assert_same(jax_build["dataset"]["dataset_meta"], build["dataset"]["dataset_meta"])
+        jax_cv, cv = jax_build["model"]["cross_validation"], build["model"]["cross_validation"]
+        assert cv["splits"] == jax_cv["splits"]
+        for key, folds in jax_cv["scores"].items():
+            np.testing.assert_allclose(list(cv["scores"][key].values()), list(folds.values()), rtol=RTOL,
+                                       atol=ATOL, err_msg=key)
+
+
+def test_config_build_serves_alike(config_builds, monkeypatch):
+    """Both apps' ``/anomaly/prediction`` for each machine, on its own last
+    48 fetched rows, rtol/atol 1e-5."""
+    jax_machines, _, _, _, jax_dir, port_dir = config_builds
+    monkeypatch.setenv("MODEL_COLLECTION_DIR", str(jax_dir))
+    both = Client(jax_build_app(config={"EXPECTED_MODELS": []})), Client(build_app(str(port_dir), device="cpu"))
+    for machine in jax_machines:
+        X, _ = machine.dataset.get_data()
+        rows = X.iloc[-48:]
+        frame = {tag: {t.isoformat(): float(v) for t, v in rows[tag].items()} for tag in rows.columns}
+        url = f"/gordo/v0/{PROJECT}/{machine.name}/anomaly/prediction"
+        answers = [c.post(url, data=json.dumps({"X": frame, "y": frame}), content_type="application/json")
+                   for c in both]
+        assert [a.status_code for a in answers] == [200, 200], machine.name
+        expected, got = (json.loads(a.get_data())["data"] for a in answers)
+        _assert_same(expected, got)
+
+
+def test_kfcv_build_serves_alike(kfcv_builds, monkeypatch):
+    """Both apps' ``/anomaly/prediction`` for a KFCV machine (its confidences
+    from the quantile thresholds), rtol/atol 1e-5."""
+    root = kfcv_builds[2]
+    monkeypatch.setenv("MODEL_COLLECTION_DIR", str(root / "jax"))
+    both = Client(jax_build_app(config={"EXPECTED_MODELS": []})), Client(build_app(str(root / "port"), device="cpu"))
+    rng = np.random.RandomState(11)
+    index = [f"2020-03-01T{i // 6:02d}:{i % 6 * 10:02d}:00+00:00" for i in range(36)]
+    frame = {tag: dict(zip(index, (20 + 15 * rng.rand(len(index))).tolist())) for tag in ("t1", "t2", "t3")}
+    url = f"/gordo/v0/{PROJECT}/k-a/anomaly/prediction"
+    answers = [c.post(url, data=json.dumps({"X": frame, "y": frame}), content_type="application/json") for c in both]
+    assert [a.status_code for a in answers] == [200, 200]
+    expected, got = (json.loads(a.get_data())["data"] for a in answers)
+    assert "anomaly-confidence" in got and "smooth-total-anomaly-scaled" not in got
+    _assert_same(expected, got)

@@ -2,7 +2,9 @@
 the same fit on the CPU, and ``FleetTrainer.predict_bucket`` (one K1
 launch) against K1's plain version at the cross-validation shapes of the
 served fleet: the 20-tag group (192 fold members x 500 test rows, the
-narrow kernel) and the 40-tag one (24 x 500, the wide kernel).
+narrow kernel) and the 40-tag one (24 x 500, the wide kernel); and the
+fleet build of one ``DiffBasedKFCVAnomalyDetector`` machine, its data
+fetched by its ``RandomDataProvider``, on the card against the CPU.
 
 Every test here needs an NVIDIA GPU; on a machine without one each
 skips. The file imports neither JAX nor the JAX package, so it runs on
@@ -17,7 +19,9 @@ in another order). The fit, card against CPU, TF32 off: losses rtol
 in other orders, and Adam divides each gradient by its own running
 scale, so the last-bit difference of a near-zero gradient can move one
 parameter by a few steps of the learning rate: measured on an H100, 1
-element of 130 2.5e-4 apart, the rest within 1e-5.
+element of 130 2.5e-4 apart, the rest within 1e-5. The KFCV build is
+held to ``chip_smoke.py``'s build limits: params atol 1e-6, thresholds
+rtol 3e-6, epochs equal.
 """
 
 import numpy as np
@@ -80,3 +84,33 @@ def test_predict_bucket_launches_k1_at_the_cv_shape(cuda, n_features, members):
     expected = fleet_feedforward_reference(
         spec, stack_member_params(per_member, cuda), torch.from_numpy(X).to(cuda)).cpu().numpy()
     np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kfcv_fleet_build_on_card_matches_cpu(cuda):
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.parallel.fleet_build import FleetBuilder
+
+    config = {
+        "name": "kfcv-1",
+        "model": {"gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector": {"base_estimator": {
+            "sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler", {
+                "gordo_tpu.models.JaxAutoEncoder": {"kind": "feedforward_hourglass", "epochs": 2}}]}}}},
+        "dataset": {"train_start_date": "2020-02-01T00:00:00+00:00", "train_end_date": "2020-02-08T00:00:00+00:00",
+                    "tag_list": [f"tag-{i:02d}" for i in range(20)],
+                    "data_provider": {"type": "RandomDataProvider", "min_size": 900, "max_size": 1100}},
+    }
+    built = {}
+    for device in (cuda, "cpu"):
+        builder = FleetBuilder([Machine.from_config(config, "card-test")], device=device)
+        ((model, machine),) = builder.build()
+        assert not builder.build_errors
+        built[str(device)] = (model, machine.metadata["build_metadata"]["model"])
+    (card, card_meta), (host, host_meta) = built["cuda"], built["cpu"]
+    assert card_meta["training"]["epochs_run"] == host_meta["training"]["epochs_run"]
+    np.testing.assert_allclose(card.feature_thresholds_, host.feature_thresholds_, rtol=3e-6)
+    np.testing.assert_allclose(card.aggregate_threshold_, host.aggregate_threshold_, rtol=3e-6)
+    for key, layer in host.base_estimator.estimator.params_.items():
+        for leaf, value in layer.items():
+            np.testing.assert_allclose(card.base_estimator.estimator.params_[key][leaf].cpu().numpy(),
+                                       value.cpu().numpy(), atol=1e-6)
