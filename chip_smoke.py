@@ -60,6 +60,28 @@ Run from the root of a checkout; it builds the CUDA kernels from
    kernel instead of the narrow one (the measurement that keeps two
    kernels in the source).
 
+``[lstm]`` (after ``[config]``) writes 16 LSTM machines as a project
+config (``examples/model-configuration.yaml``'s settings, lookback 10,
+20 tags, 2000 seeded rows in ``FileDataProvider`` CSVs, 5 epochs, batch
+32, TimeSeriesSplit(3)): 8 lstm_hourglass autoencoders (15-10-10-15), 4
+lstm_symmetric forecasters (64-32-32-64) and 4 lstm_model autoencoders at
+its 256-128-64-64-128-256 defaults, each a ``DiffBasedAnomalyDetector``
+over MinMax. It builds them on the card through ``build-fleet`` (every
+``model_offset`` 9 or 10, one windowed CV forward a spec group) and prints
+the phases, steps a second, and each group's CV step: kernel launches
+and kernel time (``torch.profiler``), the device's idle share; builds one
+machine an architecture again on the CPU and holds the card's params,
+thresholds, CV scores, epochs and offsets to it; serves the collection
+with 4 of ``[train]``'s feedforward machines from one app on the card and
+one on the CPU: an anomaly request an architecture (999 rows out of an
+autoencoder, 998 of a forecaster), a ``/prediction`` (held to an f64
+forward if the apps differ) and a fleet request over all 20 machines,
+which must launch K2 once, for the feedforward bucket; and ``[lstm
+times]`` times the windowed forward at 1 x 1008 and 16 x 1008 rows for
+lstm_model and the hourglass beside its bound and a cuDNN
+``torch.nn.LSTM`` stack of the same layers (the yardstick, used nowhere
+in the package).
+
 ``[routes]`` then drives the rest of the JSON surface on the card's app
 over the socket, each answer held to the CPU app's on the same
 directories: ``/models``, ``/revisions``, ``/server-version``,
@@ -495,6 +517,12 @@ CPU_CHECK = ("machine-000", "machine-001", "compressor-000", "compressor-001")
 BUILD_PARAM_ATOL = 1e-6
 BUILD_THRESHOLD_RTOL = 3e-6
 BUILD_SCORE_TOL = 2e-5
+BUILD_LIMITS = (BUILD_PARAM_ATOL, BUILD_THRESHOLD_RTOL, BUILD_SCORE_TOL)
+#: the same check for the [lstm] build (params, thresholds, CV scores):
+#: the recurrence carries the f32 differences through 10 steps a window
+#: and 2 layers' more products; ``scripts/build_tolerance.py lstm`` reads
+#: the sound build against its planted faults
+LSTM_BUILD_LIMITS = (1e-5, 3e-6, 2e-5)
 
 
 def served_machines():
@@ -514,8 +542,8 @@ def served_machines():
 
 def build_summary(model, metadata):
     """What the card's build is held to the CPU's on: final params,
-    thresholds, CV scores and epochs run (``metadata`` is a machine's
-    ``metadata.json`` tree, or the machine itself)."""
+    thresholds, CV scores, epochs run and the model offset (``metadata`` is
+    a machine's ``metadata.json`` tree, or the machine itself)."""
     import numpy as np
 
     if not isinstance(metadata, dict):
@@ -527,29 +555,33 @@ def build_summary(model, metadata):
         "thresholds": np.append(model.feature_thresholds_, model.aggregate_threshold_),
         "scores": meta["cross_validation"]["scores"],
         "epochs_run": meta["training"]["epochs_run"],
+        "offset": meta["model_offset"],
     }
 
 
-def compare_builds(card, cpu):
+def compare_builds(card, cpu, limits=BUILD_LIMITS):
     """The card's build against the CPU's: the largest differences,
     ``[params abs, thresholds rel, scores |d| / (1 + |cpu|)]``, and what
-    lies beyond the stated limits or ran another number of epochs (empty
-    when the builds agree)."""
+    lies beyond the stated limits, ran another number of epochs or has
+    another model offset (empty when the builds agree)."""
     import numpy as np
 
+    param_atol, threshold_rtol, score_tol = limits
     worst, faults = [0.0, 0.0, 0.0], []
     for name, want in cpu.items():
         got = card[name]
         if got["epochs_run"] != want["epochs_run"]:
             faults.append(f"{name}: epochs run {got['epochs_run']} vs {want['epochs_run']}")
+        if got["offset"] != want["offset"]:
+            faults.append(f"{name}: model_offset {got['offset']} vs {want['offset']}")
         for key, layer in want["params"].items():
             for leaf, value in layer.items():
                 diff = float(np.abs(got["params"][key][leaf] - value).max())
-                if not diff <= BUILD_PARAM_ATOL:
+                if not diff <= param_atol:
                     faults.append(f"{name} {key}/{leaf}: params {diff} apart")
                 worst[0] = max(worst[0], diff)
         rel = float((np.abs(got["thresholds"] - want["thresholds"]) / np.abs(want["thresholds"])).max())
-        if not rel <= BUILD_THRESHOLD_RTOL:
+        if not rel <= threshold_rtol:
             faults.append(f"{name}: thresholds {rel} apart (relative)")
         worst[1] = max(worst[1], rel)
         if list(got["scores"]) != list(want["scores"]):
@@ -559,7 +591,7 @@ def compare_builds(card, cpu):
             values = np.array(list(folds.values()))
             have = np.array(list(got["scores"][key].values()))
             diff = float((np.abs(have - values) / (1 + np.abs(values))).max())
-            if not diff <= BUILD_SCORE_TOL:
+            if not diff <= score_tol:
                 faults.append(f"{name} {key}: {diff} apart")
             worst[2] = max(worst[2], diff)
     return worst, faults
@@ -609,18 +641,20 @@ def machine_rows():
     return [(name, tag_list(n_tags), sensor_data(seed, TRAIN_ROWS, n_tags)) for name, n_tags, seed in machines]
 
 
-def write_project(directory):
-    """The served collection as a project config in ``examples/config.yaml``'s
+def write_project(directory, machines=None, models=None, project="smoke"):
+    """A collection as a project config in ``examples/config.yaml``'s
     dialect (a CRD document, ``globals.model`` a ``|`` block holding
-    ``DEFINITION``), each machine's dataset a ``FileDataProvider`` CSV of
-    its ``sensor_data`` rows at 10-minute stamps from TRAIN_START, floats
-    with 17 significant digits so they read back exactly, and the
-    half-open window ``[TRAIN_START, TRAIN_START + TRAIN_ROWS x 10 min)``
-    holding all of them. Returns the config's path and ``{name: rows}``."""
+    ``DEFINITION``, or each machine's own ``model`` block from ``models``),
+    each machine's dataset a ``FileDataProvider`` CSV of its rows
+    (``machines``: ``(name, tags, rows)``, default the served collection's
+    ``machine_rows``) at 10-minute stamps from TRAIN_START, floats with 17
+    significant digits so they read back exactly, and the half-open window
+    ``[TRAIN_START, TRAIN_START + TRAIN_ROWS x 10 min)`` holding all of
+    them. Returns the config's path and ``{name: rows}``."""
     stamps = [(TRAIN_START + timedelta(minutes=10 * r)).isoformat() for r in range(TRAIN_ROWS)]
     end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
     entries, rows = [], {}
-    for name, tags, values in machine_rows():
+    for name, tags, values in machine_rows() if machines is None else machines:
         path = os.path.join(directory, f"{name}.csv")
         with open(path, "w") as f:
             f.write(",".join(["time", *tags]) + "\n")
@@ -632,14 +666,15 @@ def write_project(directory):
             "train_start_date": TRAIN_START.isoformat(),
             "train_end_date": end,
         }, 10)
-        entries.append(f"      - name: {name}\n        dataset: |\n{dataset}\n")
+        model = "" if models is None else f"        model: |\n{yaml_block(models[name], 10)}\n"
+        entries.append(f"      - name: {name}\n        dataset: |\n{dataset}\n{model}")
         rows[name] = values
     config = (
-        "apiVersion: equinor.com/v1\nkind: Gordo\nmetadata:\n  name: smoke\nspec:\n  config:\n    machines:\n"
+        f"apiVersion: equinor.com/v1\nkind: Gordo\nmetadata:\n  name: {project}\nspec:\n  config:\n    machines:\n"
         + "".join(entries)
-        + "    globals:\n      model: |\n" + yaml_block(DEFINITION, 8) + "\n"
+        + ("    globals:\n      model: |\n" + yaml_block(DEFINITION, 8) + "\n" if models is None else "")
     )
-    config_path = os.path.join(directory, "config.yaml")
+    config_path = os.path.join(directory, f"{project}.yaml")
     with open(config_path, "w") as f:
         f.write(config)
     return config_path, rows
@@ -883,6 +918,506 @@ def config_phase(work_dir):
                                                        ("K2", fleet_anomaly_scores.launches))}
     check(launches["K1"] >= build_launches["K1"] + 1, "the [config] anomaly requests never launched K1")
     return launches, cases[kfcv[0]], forwards[kfcv[0]][3], errors[kfcv[0]]
+
+
+# -- phase: the LSTM family ----------------------------------------------------------------
+
+#: the [lstm] collection, ``examples/model-configuration.yaml``'s LSTM settings:
+#: (name prefix, machines, estimator path, estimator kwargs, model offset)
+LSTM_AE = "gordo_tpu.models.estimators.JaxLSTMAutoEncoder"
+LSTM_FORECAST = "gordo_tpu.models.estimators.JaxLSTMForecast"
+LSTM_GROUPS = (
+    ("lstm-hourglass", 8, LSTM_AE,
+     {"kind": "lstm_hourglass", "lookback_window": 10, "compression_factor": 0.5, "encoding_layers": 2}, 9),
+    ("lstm-forecast", 4, LSTM_FORECAST,
+     {"kind": "lstm_symmetric", "lookback_window": 10, "dims": [64, 32], "funcs": ["tanh", "tanh"]}, 10),
+    ("lstm-model", 4, LSTM_AE, {"kind": "lstm_model", "lookback_window": 10}, 9),
+)
+#: the examples' 5 epochs cut to 2: at 5 the card's build took 47 s and
+#: the CPU check 91 s (one H100 machine), far past the phase's minute
+LSTM_EPOCHS = 2
+#: the LSTM machines' sensor_data seeds start here
+LSTM_SEED = 700
+#: feedforward machines of the [train] collection served beside the LSTMs
+LSTM_FF_MACHINES = ("machine-000", "machine-001", "machine-002", "machine-003")
+#: machines built again on the CPU, one an architecture
+LSTM_CPU_CHECK = ("lstm-hourglass-000", "lstm-forecast-000", "lstm-model-000")
+
+
+def lstm_machines():
+    """The [lstm] collection: ``(name, tags, rows)`` of each machine and
+    ``{name: definition}`` (a detector over MinMax and the group's LSTM
+    estimator, 5 epochs, batch 32)."""
+    machines, models, seed = [], {}, LSTM_SEED
+    for prefix, count, path, kwargs, _ in LSTM_GROUPS:
+        for i in range(count):
+            name = f"{prefix}-{i:03d}"
+            machines.append((name, tag_list(20), sensor_data(seed, TRAIN_ROWS, 20)))
+            estimator = {path: {**kwargs, "epochs": LSTM_EPOCHS, "batch_size": 32}}
+            models[name] = {DETECTOR_PATH: {"base_estimator": {"sklearn.pipeline.Pipeline": {
+                "steps": ["sklearn.preprocessing.MinMaxScaler", estimator]}}}}
+            seed += 1
+    return machines, models
+
+
+def lstm_offsets():
+    """``{name: model offset}`` of the [lstm] collection."""
+    return {f"{prefix}-{i:03d}": offset for prefix, count, _, _, offset in LSTM_GROUPS for i in range(count)}
+
+
+def lstm_own_frame(name, seed):
+    """An LSTM machine's next ROWS rows (``sensor_data`` from its seed past
+    the TRAIN_ROWS it trained on), with request_frame's excursion."""
+    start = datetime(2020, 1, 1, tzinfo=timezone.utc)
+    keys = [(start + timedelta(minutes=10 * (TRAIN_ROWS + r))).isoformat() for r in range(ROWS)]
+    values = sensor_data(seed, TRAIN_ROWS + ROWS, 20)[TRAIN_ROWS:]
+    values[ROWS // 2:ROWS // 2 + 6, 3] += 25.0
+    return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tag_list(20))}
+
+
+def lstm_f64_forward(model, X):
+    """An LSTM detector's output for raw rows ``X[rows, tags]`` in float64,
+    written out apart from the port's code: its ingest plan, every window,
+    the recurrence of each layer with the f32 weights widened, the head."""
+    import numpy as np
+    import torch
+    from gordo_tpu_torch.models.estimators import find_estimator
+    from gordo_tpu_torch.ops.activations import resolve_activation
+    from gordo_tpu_torch.server.fleet_store import member_plan
+
+    estimator = find_estimator(model)
+    spec, params = estimator.spec_, estimator.params_
+    scale, offset = member_plan(model, X.shape[1])
+    x = torch.from_numpy(np.asarray(X, np.float64) * scale.astype(np.float64) + offset.astype(np.float64))
+    count = len(x) - estimator.offset
+    h_seq = torch.stack([x[t:t + count] for t in range(spec.lookback_window)])  # [T, windows, F]
+    for key, activation in spec.layer_names()[:-1]:
+        act = resolve_activation(activation)
+        Wx, Wh, b = (params[key][n].cpu().double() for n in ("Wx", "Wh", "b"))
+        H = Wh.shape[0]
+        h = torch.zeros(count, H, dtype=torch.float64)
+        c = torch.zeros_like(h)
+        hidden = []
+        for t in range(spec.lookback_window):
+            g = h_seq[t] @ Wx + b + h @ Wh
+            c = torch.sigmoid(g[:, H:2 * H]) * c + torch.sigmoid(g[:, :H]) * act(g[:, 2 * H:3 * H])
+            h = torch.sigmoid(g[:, 3 * H:]) * act(c)
+            hidden.append(h)
+        h_seq = torch.stack(hidden)
+    head = params["out"]
+    return resolve_activation(spec.out_activation)(h_seq[-1] @ head["W"].cpu().double() + head["b"].cpu().double()).numpy()
+
+
+def lstm_step(spec, members):
+    """One optimizer step of an LSTM CV bucket on the card, as a closure:
+    ``members`` members of ``spec``, Adam, 32 windows each gathered from a
+    seeded 2000-row series (``WindowedFit``'s own gather)."""
+    import torch
+
+    from gordo_tpu_torch.models.training import FitConfig, TorchRandom, WindowedFit
+    from gordo_tpu_torch.ops.windows import gather_windows
+    from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+    fit = WindowedFit(spec, FitConfig(epochs=LSTM_EPOCHS, batch_size=32, shuffle=False))
+    params = stack_member_params([TorchRandom().init_params(spec, s) for s in range(members)], "cuda")
+    for leaf in fit.leaves(params):
+        leaf.requires_grad_(True)
+    state = fit.optimizer.init(fit.leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    series = torch.rand(members, TRAIN_ROWS, spec.n_features, generator=gen).cuda()
+    targets = series[:, spec.lookback_window - 1:]
+    starts = torch.arange(32, device="cuda").repeat(members, 1) * 7
+    wb = torch.ones(members, 32, device="cuda")
+    active = torch.ones(members, dtype=torch.bool, device="cuda")
+
+    def step():
+        xb = gather_windows(series, starts, spec.lookback_window)
+        yb = torch.take_along_dim(targets, starts[..., None], dim=1)
+        return fit.train_step(params, state, xb, yb, wb, active)
+
+    return step
+
+
+def profile_step(step, steps=5):
+    """``(kernel launches, kernel ms)`` a step, from ``torch.profiler`` over
+    ``steps`` steps (CPU and CUDA activities)."""
+    import torch
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    launches = sum(e.count for e in averages if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    kernel_us = sum(e.self_device_time_total for e in averages if e.device_type == torch.autograd.DeviceType.CUDA)
+    return launches / steps, kernel_us / steps / 1e3
+
+
+@contextlib.contextmanager
+def captured_windowed():
+    """During a build: each windowed CV forward (``predict_windowed_bucket``)
+    as ``(spec, members, windows a member)``."""
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer
+
+    forwards, predict = [], FleetTrainer.predict_windowed_bucket
+
+    def captured(self, spec, stacked, series, order, batch_size=256):
+        forwards.append((spec, order.shape[0], order.shape[1]))
+        return predict(self, spec, stacked, series, order, batch_size)
+
+    FleetTrainer.predict_windowed_bucket = captured
+    try:
+        yield forwards
+    finally:
+        FleetTrainer.predict_windowed_bucket = predict
+
+
+def lstm_case(spec, members, seed=0):
+    """A windowed forward on the card: ``members`` members of ``spec``
+    (``TorchRandom`` params) over seeded ROWS-row series, every window."""
+    import torch
+
+    from gordo_tpu_torch.models.training import TorchRandom
+    from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+    params = stack_member_params([TorchRandom().init_params(spec, seed + s) for s in range(members)], "cuda")
+    gen = torch.Generator().manual_seed(seed)
+    series = torch.rand(members, ROWS, spec.n_features, generator=gen).cuda()
+    count = ROWS - spec.lookback_window + 1
+    order = torch.arange(count, device="cuda").repeat(members, 1)
+    return dict(spec=spec, params=params, series=series, order=order)
+
+
+def lstm_bound(case):
+    """(bound_ms, bound_by) of a windowed forward: the series read once,
+    the params once, the output written once, at HBM rate; 2 flops a
+    multiply-add of the products (the gates' elementwise work left out)
+    at the CUDA-core f32 rate."""
+    spec, series, order = case["spec"], case["series"], case["order"]
+    M, windows = order.shape
+    widths = spec.widths()
+    macs = sum(spec.lookback_window * (widths[i] * 4 * widths[i + 1] + widths[i + 1] * 4 * widths[i + 1])
+               for i in range(len(spec.dims)))
+    macs += widths[-2] * widths[-1]
+    params = sum(t[0].numel() for layer in case["params"].values() for t in layer.values())
+    byte_count = 4 * (series.numel() + M * params + M * windows * spec.n_features_out)
+    byte_ms = byte_count / PEAK_BYTES_PER_S * 1e3
+    flop_ms = 2 * M * windows * macs / PEAK_F32_FLOP_PER_S * 1e3
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+
+
+def cudnn_yardstick(case):
+    """The same windowed forward through cuDNN (``torch.nn.LSTM``, one
+    module a layer and member, tanh only, ``bias_hh`` zero, a ``Linear``
+    head), as a closure, and its output for the first member. Used here
+    only, as the measure of what a library recurrence gives."""
+    import torch
+
+    from gordo_tpu_torch.ops.windows import gather_windows
+
+    spec, params = case["spec"], case["params"]
+    check(set(spec.activations) == {"tanh"} and spec.out_activation == "linear", "the yardstick is tanh only")
+    members = []
+    for m in range(case["order"].shape[0]):
+        layers = []
+        for key, _ in spec.layer_names()[:-1]:
+            Wx, Wh, b = (params[key][n][m] for n in ("Wx", "Wh", "b"))
+            lstm = torch.nn.LSTM(Wx.shape[0], Wh.shape[0], batch_first=False).cuda()
+            with torch.no_grad():
+                lstm.weight_ih_l0.copy_(Wx.T)
+                lstm.weight_hh_l0.copy_(Wh.T)
+                lstm.bias_ih_l0.copy_(b)
+                lstm.bias_hh_l0.zero_()
+            layers.append(lstm)
+        head = torch.nn.Linear(*params["out"]["W"][m].shape).cuda()
+        with torch.no_grad():
+            head.weight.copy_(params["out"]["W"][m].T)
+            head.bias.copy_(params["out"]["b"][m])
+        members.append((layers, head))
+
+    @torch.no_grad()
+    def run():
+        outs = []
+        for start in range(0, case["order"].shape[1], 256):
+            x = gather_windows(case["series"], case["order"][:, start:start + 256], spec.lookback_window)
+            batch = []
+            for m, (layers, head) in enumerate(members):
+                h = x[m]  # [T, B, F]
+                for lstm in layers:
+                    h = lstm(h)[0]
+                batch.append(head(h[-1]))
+            outs.append(torch.stack(batch))
+        return torch.cat(outs, dim=1)
+
+    return run
+
+
+def host_step_ms(step, steps=10):
+    """Host ms a ``step`` over ``steps`` steps, ending in a synchronise."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def lstm_build(work_dir, card):
+    """Write the [lstm] collection as a project config and build it on the
+    card through ``build-fleet``: the phases, steps a second, every
+    ``model_offset``, one windowed CV forward a spec group; each group's CV
+    step profiled (launches, device time, idle share); one machine an
+    architecture built again on the CPU from the same shard and held to
+    the card's. Returns the build's directory, its seeds by machine and
+    K1's and K2's launches."""
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.cli.cli import build_fleet, load_fleet_machines
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    t0 = time.perf_counter()
+    machines, models = lstm_machines()
+    lstm_dir = os.path.join(work_dir, "lstm")
+    os.makedirs(lstm_dir)
+    config_path, rows = write_project(lstm_dir, machines, models, project="smoke-lstm")
+    shard = os.path.join(lstm_dir, "shard.json")
+    with open(shard, "w") as f:
+        f.write(normalize(config_path, "smoke-lstm"))
+    phase("lstm", f"project config of {len(rows)} LSTM machines (8 lstm_hourglass autoencoders 15-10-10-15, 4 "
+          f"lstm_symmetric forecasters 64-32-32-64, 4 lstm_model autoencoders 256-128-64-64-128-256; lookback 10, "
+          f"20 tags, {TRAIN_ROWS} rows, {LSTM_EPOCHS} epochs (cut from the examples' 5 to keep the phase near a "
+          f"minute), batch 32, TimeSeriesSplit(3)) written and normalized in {time.perf_counter() - t0:.2f} s")
+    directory = os.path.join(work_dir, "lstm-build", REVISION)
+    with captured_windowed() as forwards:
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        t0 = time.perf_counter()
+        code, builder = build_fleet(shard, directory, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(code == 0 and not builder.build_errors, f"build-fleet exited {code}: {builder and builder.build_errors}")
+    check(len(forwards) == len(LSTM_GROUPS), f"CV scoring ran {len(forwards)} windowed forwards for "
+          f"{len(LSTM_GROUPS)} spec groups")
+    for name, offset in lstm_offsets().items():
+        got = serializer.load_metadata(os.path.join(directory, name))["metadata"]["build_metadata"]["model"]
+        check(got["model_offset"] == offset, f"{name}: model_offset {got['model_offset']}, not {offset}")
+    fits, steps, fit_s, event_ms = fit_rates(builder)
+    phase("lstm", f"build-fleet of {len(rows)} machines on the card in {wall:.2f} s: {build_phases(builder)}; "
+          f"model_offset 9 (autoencoders) and 10 (forecasters) in every metadata.json; CV scoring "
+          f"{len(forwards)} windowed forwards, members x windows {[(m, w) for _, m, w in forwards]}; "
+          f"K1 launches {launches['K1']}, K2 {launches['K2']}; {card}")
+    phase("lstm", f"{len(fits)} windowed fits, members {[f['members'] for f in fits]}, steps "
+          f"{[f['steps'] for f in fits]} ({steps} in all, the all-padding batches left out) in {fit_s:.3f} s: "
+          f"{steps / fit_s:.1f} steps a second, {1e3 * fit_s / steps:.3f} ms a step on the host clock, "
+          f"{event_ms / steps:.3f} ms between CUDA events; per fit ms a step between events "
+          f"{[round(f['event_ms'] / f['steps'], 3) for f in fits]}; {card}")
+    for (prefix, count, *_), fit in zip(LSTM_GROUPS, fits):
+        spec = serializer.load(os.path.join(directory, f"{prefix}-000"), "cpu").base_estimator.estimator.spec_
+        step = lstm_step(spec, 3 * count)
+        device_ms = step_device_ms(step)
+        host_ms = host_step_ms(step)
+        step_launches, kernel_ms = profile_step(step)
+        fit_ms = fit["event_ms"] / fit["steps"]
+        # a step of more launches than the card's queue holds lets the host pace
+        # the sleep-hidden timing too: the profiler's kernel time is the device's busy time
+        phase("lstm", f"one CV step of {prefix} ({3 * count} members x 32 windows, dims {spec.dims}): "
+              f"{step_launches:.0f} kernel launches, {kernel_ms:.3f} ms of kernel time in the profiler "
+              f"({device_ms!r} ms between events with the host's enqueue hidden behind a device sleep), "
+              f"{host_ms:.3f} ms on the host clock (its CV fit {fit_ms:.3f} ms a step between events): the "
+              f"device idles ~{1 - kernel_ms / fit_ms:.0%} of a step; {card}")
+
+    card_summaries = {name: build_summary(serializer.load(os.path.join(directory, name), "cpu"),
+                                          serializer.load_metadata(os.path.join(directory, name)))
+                      for name in LSTM_CPU_CHECK}
+    cpu, cpu_s = build_summaries([m for m in load_fleet_machines(shard) if m.name in LSTM_CPU_CHECK], "cpu")
+    worst, faults = compare_builds(card_summaries, cpu, LSTM_BUILD_LIMITS)
+    phase("lstm", f"card build against a CPU build of {', '.join(LSTM_CPU_CHECK)} from the same shard "
+          f"({cpu_s:.2f} s on the CPU): params max abs {worst[0]:.3e} (limit {LSTM_BUILD_LIMITS[0]}), thresholds "
+          f"max rel {worst[1]:.3e} (limit {LSTM_BUILD_LIMITS[1]}), CV scores max |d| / (1 + |cpu|) "
+          f"{worst[2]:.3e} (limit {LSTM_BUILD_LIMITS[2]}), epochs run and model_offset equal")
+    check(not faults, "card LSTM build disagrees with the CPU's: " + "; ".join(faults[:5]))
+    seeds = {name: LSTM_SEED + i for i, (name, _, _) in enumerate(machines)}
+    return directory, seeds, launches
+
+
+def f64_held(cpu_data, data, reference, path):
+    """Both apps' answers (``data`` trees) held to ``reference`` (the same
+    answer made from an f64 forward): each group's numeric cells no
+    further from it on the card than F64_MULTIPLE times the CPU app's
+    distance (or ATOL), everything else equal. Returns ``{group: (card's
+    distance, CPU app's)}`` and the largest abs difference of the two."""
+    import math
+
+    def cells(tree, prefix=()):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                yield from cells(value, prefix + (key,))
+            else:
+                yield prefix + (key,), value
+
+    want, have, exact = dict(cells(cpu_data)), dict(cells(data)), dict(cells(reference))
+    check(list(have) == list(want) == list(exact), f"{path}: the answers' keys differ")
+    distances, diff = {}, 0.0
+    for key, value in want.items():
+        group = key[:-2] if len(key) > 2 else key[:1]  # a column's group: (machine,) group for the fleet route
+        if all(isinstance(v, float) for v in (value, have[key], exact[key])) and math.isfinite(exact[key]):
+            card_err, cpu_err = distances.get(group, (0.0, 0.0))
+            distances[group] = (max(card_err, abs(have[key] - exact[key])), max(cpu_err, abs(value - exact[key])))
+            diff = max(diff, abs(have[key] - value))
+        else:
+            check(have[key] == value, f"{path}: {'/'.join(key)}: {have[key]!r} vs {value!r}")
+    for group, (card_err, cpu_err) in distances.items():
+        limit = F64_MULTIPLE * max(cpu_err, ATOL)
+        check(card_err <= limit, f"{path}: {'/'.join(group)} {card_err:.3e} from the f64 answer, the CPU app's "
+              f"{cpu_err:.3e} (limit {limit:.3e})")
+    return distances, diff
+
+
+def lstm_serve(directory, collection, seeds, card):
+    """An app over the [lstm] collection and LSTM_FF_MACHINES of [train]'s,
+    on the card and on the CPU: one anomaly request an LSTM architecture
+    (999 rows out of an autoencoder, 998 of a forecaster), one
+    ``/prediction`` and one fleet request over all 20 machines (K2 once, for
+    the feedforward bucket), each machine sent its own next ROWS rows.
+    Each answer equals the CPU app's within RTOL/ATOL, or else both are held
+    to the answer an f64 forward gives (``f64_held``). Returns K1's and K2's
+    launches."""
+    import shutil
+
+    from gordo_tpu_torch.models.spec import LSTMSpec
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server import build_app, wire
+
+    for name in LSTM_FF_MACHINES:
+        shutil.copytree(os.path.join(collection, name), os.path.join(directory, name))
+    apps = build_app(directory, device="cuda"), build_app(directory, device="cpu")
+    check(len(apps[0].store.fleet().warm()) == len(seeds) + len(LSTM_FF_MACHINES), "not every model loaded")
+    offsets = lstm_offsets()
+    frames = {name: lstm_own_frame(name, seed) for name, seed in seeds.items()}
+    frames.update({name: own_frame(name, 20) for name in LSTM_FF_MACHINES})
+    prefix = "/gordo/v0/smoke-lstm"
+    fleet = apps[1].store.fleet()
+
+    def exact(name):
+        """``(resolution, X, f64 output)`` of a machine's request rows."""
+        resolution = fleet.resolution(name)
+        X = wire.verify_frame(wire.decode_frame(frames[name]), resolution.tag_names)
+        forward = lstm_f64_forward if isinstance(fleet.loaded_specs()[name], LSTMSpec) else f64_forward
+        return resolution, X, forward(resolution.model, X.values)
+
+    def hold(path, body, cpu_body, reference):
+        """``(max abs diff, note)``: within RTOL/ATOL of the CPU app's, or
+        held to ``reference()``."""
+        try:
+            return same_json(cpu_body["data"], body["data"]), "within rtol/atol of the CPU app's"
+        except SmokeFailure as exc:
+            distances, diff = f64_held(cpu_body["data"], body["data"], reference(), path)
+            worst = max(distances.values())
+            return diff, (
+                f"beyond rtol/atol of the CPU app's ({exc}), so both held to the f64 answer: furthest group "
+                f"card {worst[0]:.3e}, CPU app {worst[1]:.3e} (limit {F64_MULTIPLE} x max(CPU app's, ATOL))")
+
+    def both(path, payload):
+        t0 = time.perf_counter()
+        status, body = wsgi_post(apps[0], prefix + path, payload)
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu_status, cpu_body = wsgi_post(apps[1], prefix + path, payload)
+        check(status == cpu_status == 200, f"{path} answered {status} (CPU app {cpu_status})")
+        return body, cpu_body, ms
+
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    for group, *_ in LSTM_GROUPS:
+        name = f"{group}-001"
+        path = f"/{name}/anomaly/prediction"
+        k1 = fleet_feedforward.launches
+        body, cpu_body, ms = both(path, {"X": frames[name], "y": frames[name]})
+        check(list(body["data"]) == ANOMALY_GROUPS, f"{path}: anomaly groups {list(body['data'])}")
+        lengths = {len(col) for group_ in body["data"].values() for col in group_.values()}
+        check(lengths == {ROWS - offsets[name]}, f"{path}: {lengths} rows, not {ROWS - offsets[name]}")
+
+        def reference(name=name):
+            resolution, X, output = exact(name)
+            table = wire.anomaly_table(resolution.model, X, X, output, frequency=resolution.frequency,
+                                       thresholds=resolution.feature_thresholds,
+                                       aggregate=resolution.aggregate_threshold)
+            return json.loads(wire.encode_response(table))["data"]
+
+        diff, note = hold(path, body, cpu_body, reference)
+        phase("lstm", f"POST {path} ({ROWS} rows): 200 in {ms:.1f} ms on the card's app, {ROWS - offsets[name]} "
+              f"rows out, K1 launches {fleet_feedforward.launches - k1}, max abs diff vs the CPU app {diff:.3e}: "
+              f"{note}; {card}")
+    name = "lstm-forecast-002"
+    path = f"/{name}/prediction"
+    body, cpu_body, ms = both(path, {"X": frames[name]})
+    check(len(body["data"]["model-output"]["tag-00"]) == ROWS - offsets[name], f"{path}: rows")
+
+    def reference():
+        resolution, X, output = exact(name)
+        table = wire.prediction_table(X, output, resolution.tag_names, resolution.target_names)
+        return json.loads(wire.encode_response(table))["data"]
+
+    diff, note = hold(path, body, cpu_body, reference)
+    phase("lstm", f"POST {path} ({ROWS} rows): 200 in {ms:.1f} ms, {ROWS - offsets[name]} rows out, max abs "
+          f"diff vs the CPU app {diff:.3e}: {note}; {card}")
+    k2 = fleet_anomaly_scores.launches
+    body, cpu_body, ms = both("/prediction/fleet", {"X": frames})
+    k2 = fleet_anomaly_scores.launches - k2
+    check(k2 == 1, f"the fleet request launched K2 {k2} times, not once for the feedforward bucket")
+    check(sorted(body["data"]) == sorted(frames) and "errors" not in body, "the fleet request's machines")
+    for name, entry in body["data"].items():
+        check(len(entry["total-anomaly-unscaled"]) == ROWS - offsets.get(name, 0), f"fleet entry {name}: rows")
+
+    def reference():
+        entries = {}
+        for name in body["data"]:
+            _, X, output = exact(name)
+            tail = X.values[len(X.values) - len(output):]
+            keys = wire.index_wire_keys(X.index[len(X.index) - len(output):])
+            entries[name] = json.loads(wire.encode_lean_entry(keys, output, ((output - tail) ** 2).mean(-1)))
+        return entries
+
+    diff, note = hold("/prediction/fleet", body, cpu_body, reference)
+    phase("lstm", f"POST /prediction/fleet ({len(frames)} machines x {ROWS} rows: {len(seeds)} LSTM in "
+          f"{len(LSTM_GROUPS)} buckets, {len(LSTM_FF_MACHINES)} feedforward): 200 in {ms:.1f} ms on the card's "
+          f"app, K2 launches {k2}, max abs diff vs the CPU app {diff:.3e}: {note}; {card}")
+    return {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+
+
+def lstm_times(card):
+    """The windowed forward (``forward_lstm_windows``, 256 windows a batch)
+    at the anomaly shape (1 x ROWS) and the fleet shape (16 x ROWS) for
+    lstm_model's defaults and the hourglass, with CUDA events, beside its
+    bound and a cuDNN ``torch.nn.LSTM`` stack of the same layers. Returns
+    ``{shape: (ms, bound_ms, bound_by, cudnn_ms, max abs from cuDNN)}``."""
+    from gordo_tpu_torch.models.factories import lstm_hourglass, lstm_model
+    from gordo_tpu_torch.models.nn import forward_lstm_windows
+
+    out = {}
+    for label, spec in (("lstm_model(20)", lstm_model(20, lookback_window=10)),
+                        ("lstm_hourglass(20)", lstm_hourglass(20, lookback_window=10, encoding_layers=2))):
+        for members in (1, 16):
+            case = lstm_case(spec, members)
+            args = (spec, case["params"], case["series"], case["order"])
+            ms = cuda_ms(lambda: forward_lstm_windows(*args), iters=5, warmup=2)
+            yardstick = cudnn_yardstick(case)
+            cudnn_ms = cuda_ms(yardstick, iters=5, warmup=2)
+            err = float((yardstick() - forward_lstm_windows(*args)).abs().max())
+            bound_ms, bound_by = lstm_bound(case)
+            shape = f"{label} M={members} B={ROWS}"
+            out[shape] = (ms, bound_ms, bound_by, cudnn_ms, err)
+            phase("lstm times", f"windowed forward {shape} ({case['order'].shape[1]} windows a member): "
+                  f"{ms!r} ms, bound {bound_ms!r} ms ({bound_by}, CUDA-core f32; {bound_ms / ms:.2%} of it), "
+                  f"cuDNN nn.LSTM stack {cudnn_ms!r} ms (max abs {err:.3e} from the port's); {card}")
+    return out
 
 
 def make_step(n_features, members):
@@ -1573,6 +2108,11 @@ def main():
             phase("kernel", f"{name}, the build's own fold params and test rows: max abs {errors[name][0]:.3e}, "
                   f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         config_launches, kfcv_case, kfcv_launches, errors[KFCV_CASE] = config_phase(work_dir)
+        t0 = time.perf_counter()
+        lstm_directory, lstm_seeds, lstm_build_launches = lstm_build(work_dir, card)
+        lstm_serve_launches = lstm_serve(lstm_directory, collection, lstm_seeds, card)
+        phase("lstm", f"the phase took {time.perf_counter() - t0:.1f} s ([lstm times] comes later)")
+        lstm_launches = {k: lstm_build_launches[k] + lstm_serve_launches[k] for k in ("K1", "K2")}
         app = build_app(collection, device="cuda")
         check(len(app.store.fleet().warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
         cpu_app = build_app(collection, device="cpu")
@@ -1642,6 +2182,8 @@ def main():
               f"bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), "
               f"CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}){served}; {card}")
 
+    lstm_times(card)
+
     for name in NARROW_CASES:
         case = cases[name]
         args = (case["spec"], case["bucket"], case["X"], case["indices"], case["ingest"])
@@ -1679,9 +2221,11 @@ def main():
         }
 
     k1_by_path = {"train": train_launches["K1"], "config": config_launches["K1"], "serve": launches["K1"],
-                  "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"], "routes": route_launches["K1"]}
+                  "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"], "routes": route_launches["K1"],
+                  "lstm": lstm_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
-                  "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"]}
+                  "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
+                  "lstm": lstm_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],

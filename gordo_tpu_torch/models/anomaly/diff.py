@@ -10,7 +10,9 @@ scaler on ``y``.
 
 The anomaly math itself lives in ``server/wire/assemble.py``, composed as
 numpy columns around the fused reconstruction, as the JAX server's
-columnar path does; the detectors' smoothing (:func:`smooth`, pandas'
+columnar path does, with ``y``'s last rows set against an LSTM's shorter
+output (``diff.py:294-305``; the fleet builder aligns its CV test rows the
+same way, ``:189-190``); the detectors' smoothing (:func:`smooth`, pandas'
 rolling median, rolling mean and ``ewm`` in numpy) lives here and serves
 both ``?all_columns`` and the KFCV thresholds.
 
@@ -33,9 +35,10 @@ from typing import Any, Mapping, Optional
 import numpy as np
 
 from ... import DeviceLike
-from ..estimators import TorchAutoEncoder
+from ..estimators import TorchAutoEncoder, TorchLSTMAutoEncoder, TorchLSTMForecast
+from ..metrics import explained_variance_score
 from ..preprocessing import MinMaxScaler, Pipeline
-from ..spec import FeedForwardSpec
+from ..spec import LSTMSpec, spec_from_dict
 
 
 #: window elements reduced at once by :func:`smooth` (32 MB of float64)
@@ -132,6 +135,14 @@ class DiffBasedAnomalyDetector:
     def predict(self, X) -> np.ndarray:
         return self.base_estimator.predict(X)
 
+    def score(self, X, y) -> float:
+        """Explained variance of the prediction against ``y``'s last rows,
+        as many as the model gives (an LSTM's output is shorter by its
+        offset; ``diff.py:147``)."""
+        out = np.asarray(self.predict(X))
+        y = np.asarray(y, np.float64)
+        return float(np.mean(explained_variance_score(y[len(y) - len(out):], out)))
+
     def get_metadata(self) -> dict:
         """The thresholds and settings a build records under
         ``model_meta``, with the keys of the JAX detector's
@@ -172,8 +183,13 @@ class DiffBasedAnomalyDetector:
         A detector from plain state, its autoencoder on ``device`` (``cuda``
         unless the caller asks for the CPU):
 
-        - ``spec``: the autoencoder's ``FeedForwardSpec.to_dict()``;
-        - ``params``: ``{"dense_i": {"W", "b"}, "out": {...}}`` arrays;
+        - ``spec``: the autoencoder's ``to_dict()`` (a ``FeedForwardSpec``
+          or an ``LSTMSpec``);
+        - ``params``: ``{"dense_i": {"W", "b"}, "out": {...}}`` arrays, or
+          an LSTM's ``{"lstm_i": {"Wx", "Wh", "b"}, "out": {...}}``;
+        - for an LSTM, the estimator: ``estimator`` (its class name,
+          ``JaxLSTMAutoEncoder`` or ``JaxLSTMForecast``) or ``lookahead``
+          (0 or 1);
         - ``pipeline``: the input scalers ahead of the autoencoder, each
           ``{"scale_": [...], "min_": [...]}`` (may be empty);
         - ``scaler``: the error scaler, same form;
@@ -181,9 +197,16 @@ class DiffBasedAnomalyDetector:
           ``require_thresholds`` (default True), ``window`` and
           ``smoothing_method``.
         """
-        estimator = TorchAutoEncoder(
-            FeedForwardSpec.from_dict(state["spec"]), state["params"], device
-        )
+        spec = spec_from_dict(state["spec"])
+        estimator_class = TorchAutoEncoder
+        if isinstance(spec, LSTMSpec):
+            lstm = {"JaxLSTMAutoEncoder": TorchLSTMAutoEncoder, "JaxLSTMForecast": TorchLSTMForecast,
+                    0: TorchLSTMAutoEncoder, 1: TorchLSTMForecast}
+            key = state.get("estimator", state.get("lookahead"))
+            if key not in lstm:
+                raise ValueError(f"an LSTM detector's state needs its estimator or lookahead, got {key!r}")
+            estimator_class = lstm[key]
+        estimator = estimator_class(spec, state["params"], device)
         steps = [
             (f"step_{i}", MinMaxScaler(s["scale_"], s["min_"]))
             for i, s in enumerate(state.get("pipeline") or ())

@@ -2,12 +2,12 @@
 Static model specifications: frozen, hashable data that says what a
 served network is.
 
-A copy of the serving half of ``gordo_tpu/models/spec.py``: a
-:class:`FeedForwardSpec` with the :class:`OptimizerSpec` fields it
-carries, equal field by field to the JAX package's, so that one
-artifact's spec means the same thing to both packages. Specs are
-hashable because the fleet store groups members into one stacked bucket
-per spec.
+A copy of ``gordo_tpu/models/spec.py``'s specs: a
+:class:`FeedForwardSpec` and an :class:`LSTMSpec` with the
+:class:`OptimizerSpec` fields they carry, equal field by field to the JAX
+package's, so that one artifact's spec means the same thing to both
+packages. Specs are hashable because the fleet store groups members into
+one stacked bucket per spec.
 """
 
 from dataclasses import dataclass, field, fields
@@ -48,8 +48,55 @@ class OptimizerSpec:
         )
 
 
+class ModelSpec:
+    """The JSON form shared by the specs: ``to_dict`` writes the JAX
+    package's ``ModelSpec.to_dict``, ``from_dict`` reads it back."""
+
+    #: fields read back as tuples of this type
+    _TUPLES = {"dims": int, "activations": str, "l1_activity": float}
+    #: fields read back as ints
+    _INTS = ("n_features", "n_features_out", "lookback_window")
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The JSON form, key for key the JAX package's ``to_dict``."""
+        out: Dict[str, Any] = {"spec_type": type(self).__name__}
+        for f in fields(self):
+            value = getattr(self, f.name)
+            if isinstance(value, OptimizerSpec):
+                value = {
+                    "name": value.name,
+                    "learning_rate": value.learning_rate,
+                    **dict(value.kwargs),
+                }
+            out[f.name] = value
+        return out
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "ModelSpec":
+        """Inverse of :meth:`to_dict` (also reads the JAX package's form).
+
+        >>> spec = FeedForwardSpec(3, 3, (2,), ("tanh",))
+        >>> FeedForwardSpec.from_dict(spec.to_dict()) == spec
+        True
+        """
+        data = dict(data)
+        spec_type = data.pop("spec_type", cls.__name__)
+        if spec_type != cls.__name__:
+            raise ValueError(f"Not a {cls.__name__}: {spec_type!r}")
+        optimizer = dict(data.pop("optimizer", None) or {})
+        name = optimizer.pop("name", "Adam")
+        lr = optimizer.pop("learning_rate", 0.001)
+        for key, kind in cls._TUPLES.items():
+            if key in data:
+                data[key] = tuple(kind(v) for v in data[key])
+        for key in cls._INTS:
+            if key in data:
+                data[key] = int(data[key])
+        return cls(optimizer=OptimizerSpec(name, float(lr), _freeze_kwargs(optimizer)), **data)
+
+
 @dataclass(frozen=True)
-class FeedForwardSpec:
+class FeedForwardSpec(ModelSpec):
     """
     A feedforward autoencoder: ``dims[i]`` hidden units with
     ``activations[i]``, then an output layer of ``n_features_out`` with
@@ -96,41 +143,65 @@ class FeedForwardSpec:
         """
         return (self.n_features,) + tuple(self.dims) + (self.n_features_out,)
 
-    def to_dict(self) -> Dict[str, Any]:
-        """The JSON form, key for key the JAX package's ``to_dict``."""
-        out: Dict[str, Any] = {"spec_type": type(self).__name__}
-        for f in fields(self):
-            value = getattr(self, f.name)
-            if isinstance(value, OptimizerSpec):
-                value = {
-                    "name": value.name,
-                    "learning_rate": value.learning_rate,
-                    **dict(value.kwargs),
-                }
-            out[f.name] = value
-        return out
 
-    @classmethod
-    def from_dict(cls, data: Dict[str, Any]) -> "FeedForwardSpec":
-        """Inverse of :meth:`to_dict` (also reads the JAX package's form).
+@dataclass(frozen=True)
+class LSTMSpec(ModelSpec):
+    """
+    A stacked LSTM over ``lookback_window`` time steps, many to one: every
+    LSTM layer but the last hands its whole hidden sequence on, and a
+    dense head reads the last step's hidden state. ``activations[i]``
+    drives layer ``i``'s candidate and its cell output, the gates are
+    sigmoids (Keras' LSTM). ``optimizer`` only matters to training.
+    """
 
-        >>> spec = FeedForwardSpec(3, 3, (2,), ("tanh",))
-        >>> FeedForwardSpec.from_dict(spec.to_dict()) == spec
-        True
+    n_features: int
+    n_features_out: int
+    lookback_window: int
+    dims: Tuple[int, ...]
+    activations: Tuple[str, ...]
+    out_activation: str = "linear"
+    optimizer: OptimizerSpec = field(default_factory=OptimizerSpec)
+    loss: str = "mse"
+    compute_dtype: str = "float32"
+    precision: str = ""
+
+    def __post_init__(self):
+        if len(self.dims) != len(self.activations):
+            raise ValueError(
+                f"dims ({len(self.dims)}) and activations "
+                f"({len(self.activations)}) must have equal length"
+            )
+        if not self.dims:
+            raise ValueError("LSTM spec needs at least one layer")
+
+    def layer_names(self) -> Tuple[Tuple[str, str], ...]:
+        """``((param key, activation name), ...)`` in forward order.
+
+        >>> LSTMSpec(3, 3, 4, (2,), ("tanh",)).layer_names()
+        (('lstm_0', 'tanh'), ('out', 'linear'))
         """
-        data = dict(data)
-        spec_type = data.pop("spec_type", cls.__name__)
-        if spec_type != cls.__name__:
-            raise ValueError(f"Not a {cls.__name__}: {spec_type!r}")
-        optimizer = dict(data.pop("optimizer", None) or {})
-        name = optimizer.pop("name", "Adam")
-        lr = optimizer.pop("learning_rate", 0.001)
-        return cls(
-            n_features=int(data.pop("n_features")),
-            n_features_out=int(data.pop("n_features_out")),
-            dims=tuple(int(d) for d in data.pop("dims")),
-            activations=tuple(data.pop("activations")),
-            l1_activity=tuple(float(v) for v in data.pop("l1_activity", ())),
-            optimizer=OptimizerSpec(name, float(lr), _freeze_kwargs(optimizer)),
-            **data,
+        names = tuple(
+            (f"lstm_{i}", self.activations[i]) for i in range(len(self.dims))
         )
+        return names + (("out", self.out_activation),)
+
+    def widths(self) -> Tuple[int, ...]:
+        """Input width, every hidden width, output width.
+
+        >>> LSTMSpec(3, 4, 4, (2,), ("tanh",)).widths()
+        (3, 2, 4)
+        """
+        return (self.n_features,) + tuple(self.dims) + (self.n_features_out,)
+
+
+def spec_from_dict(data: Dict[str, Any]) -> ModelSpec:
+    """The spec a ``to_dict`` form names in its ``spec_type``.
+
+    >>> spec_from_dict(LSTMSpec(3, 3, 4, (2,), ("tanh",)).to_dict()).lookback_window
+    4
+    """
+    kinds = {cls.__name__: cls for cls in (FeedForwardSpec, LSTMSpec)}
+    spec_type = data.get("spec_type", "FeedForwardSpec")
+    if spec_type not in kinds:
+        raise ValueError(f"Unknown spec_type {spec_type!r}; known: {sorted(kinds)}")
+    return kinds[spec_type].from_dict(data)

@@ -30,6 +30,15 @@ Semantics kept from the JAX program, member by member:
   max(patience, 1)``, restore-best is optional, and ``epochs_ran`` counts
   the epochs a member had not stopped at their start (``:151-200``).
 
+:class:`WindowedFit` is the windowed (LSTM) fit of
+``build_raw_windowed_fit_fn`` (``:343-457``): only each member's series
+``[n, F]`` and its window targets ``[n_windows, F_out]`` are on the
+device, and each step gathers its batch of windows from the series
+through ``order`` (virtual slot -> window start), so a bucket never
+holds its ``lookback``-times larger windows; the weights are per virtual
+slot, validation runs batch by batch. Given the same virtual order it
+trains as :class:`StackedFit` does on the windows made beforehand.
+
 Randomness is explicit: a :class:`RandomSource` draws each member's
 initial params and its per-epoch permutations from the member's seed.
 The default, :class:`TorchRandom`, draws from CPU ``torch.Generator``s,
@@ -39,16 +48,17 @@ inject a source that derives them as the JAX trainer does.
 """
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Protocol, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.losses import resolve_loss, weighted_mean_loss
+from ..ops.windows import gather_windows
 from .callbacks import Callback, EarlyStopping
-from .nn import Params, forward_feedforward_stacked, init_feedforward
+from .nn import Params, forward_lstm_time_major, forward_stacked, init_params, param_keys
 from .optim import OptimizerState, StackedOptimizer
-from .spec import FeedForwardSpec
+from .spec import ModelSpec
 
 
 @dataclass(frozen=True)
@@ -118,9 +128,9 @@ def fit_config_from_kwargs(kwargs: dict) -> Tuple[FitConfig, List[Callback]]:
 class RandomSource(Protocol):
     """Where a member's random numbers come from."""
 
-    def init_params(self, spec: FeedForwardSpec, seed: int) -> Any:
-        """Initial params in the ``{"dense_i": {"W", "b"}, "out": ...}``
-        layout (tensors or numpy arrays)."""
+    def init_params(self, spec: ModelSpec, seed: int) -> Any:
+        """Initial params in the spec's layout (``models/nn.py``; tensors or
+        numpy arrays)."""
 
     def permutations(self, seed: int, epochs: int, n_total: int) -> Any:
         """``[epochs, n_total]`` integer permutations, one an epoch."""
@@ -133,13 +143,14 @@ def _generator(seed: int, stream: int) -> torch.Generator:
 
 
 class TorchRandom:
-    """The default source: Glorot-uniform weights and zero biases (as
-    ``init_feedforward`` draws them) and ``randperm``s, each from a CPU
-    ``torch.Generator`` seeded from the member's seed, so the same build
-    draws the same numbers on every device."""
+    """The default source: the spec's initialisation (``nn.init_params``:
+    Glorot-uniform, orthogonal recurrent weights for an LSTM) and
+    ``randperm``s, each from a CPU ``torch.Generator`` seeded from the
+    member's seed, so the same build draws the same numbers on every
+    device."""
 
-    def init_params(self, spec: FeedForwardSpec, seed: int) -> Params:
-        return init_feedforward(spec, _generator(seed, 0))
+    def init_params(self, spec: ModelSpec, seed: int) -> Params:
+        return init_params(spec, _generator(seed, 0))
 
     def permutations(self, seed: int, epochs: int, n_total: int) -> torch.Tensor:
         gen = _generator(seed, 1)
@@ -149,32 +160,39 @@ class TorchRandom:
 @dataclass
 class FitOutput:
     """What one stacked fit returns, on the fit's device: final params and
-    ``losses[M, epochs]``, ``val_losses[M, epochs]``, ``epochs_ran[M]``."""
+    ``losses[M, epochs]``, ``val_losses[M, epochs]``, ``epochs_ran[M]``;
+    ``steps``, the optimizer steps it ran (over all members)."""
 
     params: Params
     losses: torch.Tensor
     val_losses: torch.Tensor
     epochs_ran: torch.Tensor
+    steps: int = 0
 
 
 class StackedFit:
-    """The fused fit of one (spec, config) over a stacked bucket."""
+    """The fused fit of one (spec, config) over a stacked bucket of
+    samples (feedforward rows, or LSTM windows made beforehand)."""
 
-    def __init__(self, spec: FeedForwardSpec, config: FitConfig):
+    def __init__(self, spec: ModelSpec, config: FitConfig):
         self.spec = spec
         self.config = config
         self.per_sample = resolve_loss(spec.loss)
         self.optimizer = StackedOptimizer(spec.optimizer)
-        self.keys = [(key, name) for key, _ in spec.layer_names() for name in ("W", "b")]
+        self.keys = list(param_keys(spec))
 
     def leaves(self, params: Params) -> List[torch.Tensor]:
         return [params[key][name] for key, name in self.keys]
+
+    def forward(self, params: Params, xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(output[M, B, F_out], penalty[M])`` of a batch."""
+        return forward_stacked(self.spec, params, xb)
 
     def batch_loss(
         self, params: Params, xb: torch.Tensor, yb: torch.Tensor, wb: torch.Tensor
     ) -> torch.Tensor:
         """Each member's batch loss ``[M]``: weighted mean + L1 activity."""
-        out, penalty = forward_feedforward_stacked(self.spec, params, xb)
+        out, penalty = self.forward(params, xb)
         return weighted_mean_loss(self.per_sample(out, yb), wb) + penalty
 
     def train_step(
@@ -206,7 +224,7 @@ class StackedFit:
     def evaluate(self, params: Params, X: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Each member's weighted loss ``[M]`` over all of ``X`` (no L1
         term); NaN where ``w`` is all zero."""
-        out, _ = forward_feedforward_stacked(self.spec, params, X)
+        out, _ = self.forward(params, X)
         return weighted_mean_loss(self.per_sample(out, y), w)
 
     def run(
@@ -220,25 +238,51 @@ class StackedFit:
     ) -> FitOutput:
         """
         Train ``params`` (stacked, float32, on X's device; updated in
-        place) on ``X[M, n, F]``, ``y[M, n, F_out]`` (``y`` may be ``X``)
+        place) on ``X[M, n, ...]``, ``y[M, n, F_out]`` (``y`` may be ``X``)
         with weights ``wtr``/``wval`` ``[M, n]`` (``n`` a whole number of
         batches), shuffling each epoch by ``perms[M, epochs, n]`` when the
         config shuffles.
         """
-        config, es = self.config, self.config.early_stopping
-        M, n = wtr.shape
-        B = config.batch_size
+        B = self.config.batch_size
+        n = wtr.shape[1]
         if n % B:
             raise ValueError(f"sample axis {n} is not a whole number of {B}-row batches")
         dtype = getattr(torch, self.spec.compute_dtype)
         aliased = y is X
         X = X.to(dtype)
         y = X if aliased else y.to(dtype)
+
+        def batches(epoch: int):
+            Xe, ye, we = X, y, wtr
+            if self.config.shuffle:
+                perm = perms[:, epoch].long()
+                index = perm.view(perm.shape + (1,) * (X.dim() - 2))
+                Xe = torch.take_along_dim(X, index, dim=1)
+                ye = Xe if aliased else torch.take_along_dim(y, perm[:, :, None], dim=1)
+                we = torch.take_along_dim(wtr, perm, dim=1)
+            for s in range(0, n, B):
+                yield Xe[:, s:s + B], ye[:, s:s + B], we[:, s:s + B]
+
+        return self._fit(params, wtr, wval, batches, lambda: self.evaluate(params, X, y, wval))
+
+    def _fit(
+        self,
+        params: Params,
+        wtr: torch.Tensor,
+        wval: torch.Tensor,
+        batches: Callable[[int], Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]],
+        validate: Callable[[], torch.Tensor],
+    ) -> FitOutput:
+        """The epochs and early stopping around ``batches(epoch)`` (each
+        epoch's ``(xb, yb, wb)``) and ``validate()`` (each member's
+        validation loss), the scaffold of ``_make_fit_loop``."""
+        config, es = self.config, self.config.early_stopping
+        M = wtr.shape[0]
         for leaf in self.leaves(params):
             leaf.requires_grad_(True)
         state = self.optimizer.init(self.leaves(params))
         has_val = bool((wval > 0).any())
-        device = X.device
+        device = wtr.device
         best = torch.full((M,), float("inf"), device=device)
         wait = torch.zeros(M, dtype=torch.int32, device=device)
         stopped = torch.zeros(M, dtype=torch.bool, device=device)
@@ -246,24 +290,15 @@ class StackedFit:
         best_params = [leaf.detach().clone() for leaf in self.leaves(params)] if restore else None
         wtr_total = wtr.sum(-1).clamp(min=1.0)
         losses, val_losses, ran = [], [], []
+        steps = 0
         for epoch in range(config.epochs):
             active = ~stopped
-            Xe, ye, we = X, y, wtr
-            if config.shuffle:
-                perm = perms[:, epoch].long()
-                Xe = torch.take_along_dim(X, perm[:, :, None], dim=1)
-                ye = Xe if aliased else torch.take_along_dim(y, perm[:, :, None], dim=1)
-                we = torch.take_along_dim(wtr, perm, dim=1)
             total = torch.zeros(M, device=device)
-            for s in range(0, n, B):
-                total = total + self.train_step(
-                    params, state, Xe[:, s:s + B], ye[:, s:s + B], we[:, s:s + B], active
-                )
+            for xb, yb, wb in batches(epoch):
+                total = total + self.train_step(params, state, xb, yb, wb, active)
+                steps += 1
             loss = total / wtr_total
-            val_loss = (
-                self.evaluate(params, X, y, wval) if has_val
-                else torch.full((M,), float("nan"), device=device)
-            )
+            val_loss = validate() if has_val else torch.full((M,), float("nan"), device=device)
             losses.append(loss)
             val_losses.append(val_loss)
             ran.append(active)
@@ -289,7 +324,80 @@ class StackedFit:
             losses=torch.stack(losses, dim=1),
             val_losses=torch.stack(val_losses, dim=1),
             epochs_ran=epochs,
+            steps=steps,
         )
+
+
+class WindowedFit(StackedFit):
+    """The windowed fit of one (LSTM spec, config) over a stacked bucket:
+    windows gathered from the resident series each step. Unshuffled, a
+    batch of padding slots for every member (a padded series' tail, a
+    fold's unused windows) changes nothing and adds 0, so it is not run;
+    validation skips such batches too."""
+
+    def forward(self, params: Params, xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forward of gathered, time-major windows ``xb[M, L, B, F]``."""
+        return forward_lstm_time_major(self.spec, params, xb)
+
+    def run(
+        self,
+        params: Params,
+        series: torch.Tensor,
+        targets: torch.Tensor,
+        order: torch.Tensor,
+        wtr: torch.Tensor,
+        wval: torch.Tensor,
+        perms: Optional[torch.Tensor],
+    ) -> FitOutput:
+        """
+        Train ``params`` (stacked, float32, on the series' device; updated
+        in place) on each member's ``series[M, n, F]`` towards its window
+        targets ``targets[M, n_windows, F_out]``. Virtual slot ``j`` of a
+        member is its window ``order[m, j]``, with weights ``wtr``/``wval``
+        ``[M, nv]`` (``nv`` a whole number of batches; padding slots point
+        at window 0 with weight 0). When the config shuffles, each epoch
+        permutes the slots by ``perms[M, epochs, nv]``.
+        """
+        B, lookback = self.config.batch_size, self.spec.lookback_window
+        nv = wtr.shape[1]
+        if nv % B:
+            raise ValueError(f"window axis {nv} is not a whole number of {B}-window batches")
+        dtype = getattr(torch, self.spec.compute_dtype)
+        series, targets, order = series.to(dtype), targets.to(dtype), order.long()
+
+        def batch(starts: torch.Tensor):
+            return gather_windows(series, starts, lookback), torch.take_along_dim(targets, starts[..., None], dim=1)
+
+        def live(weights: torch.Tensor) -> List[int]:
+            # the batch starts where some member has weight: a batch of
+            # padding slots alone changes nothing and adds 0, so it is left out
+            return [B * i for i in torch.nonzero(weights.view(len(weights), -1, B).sum(-1).sum(0)).flatten().tolist()]
+
+        train_starts = None if self.config.shuffle else live(wtr)
+
+        def batches(epoch: int):
+            order_e, we, starts = order, wtr, train_starts
+            if self.config.shuffle:
+                perm = perms[:, epoch].long()
+                order_e = torch.take_along_dim(order, perm, dim=1)
+                we = torch.take_along_dim(wtr, perm, dim=1)
+                starts = range(0, nv, B)
+            for s in starts:
+                yield (*batch(order_e[:, s:s + B]), we[:, s:s + B])
+
+        @torch.no_grad()
+        def validate() -> torch.Tensor:
+            # batch by batch, as training: validation memory stays bounded too
+            total = torch.zeros(wval.shape[0], device=wval.device)
+            wsum = torch.zeros_like(total)
+            for s in live(wval):
+                xb, yb = batch(order[:, s:s + B])
+                wb = wval[:, s:s + B]
+                total = total + (self.per_sample(self.forward(params, xb)[0], yb) * wb).sum(-1)
+                wsum = wsum + wb.sum(-1)
+            return torch.where(wsum > 0, total / wsum, torch.full_like(total, float("nan")))
+
+        return self._fit(params, wtr, wval, batches, validate)
 
 
 def permutation_tensor(

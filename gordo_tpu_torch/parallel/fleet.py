@@ -3,7 +3,8 @@ The fleet trainer: many per-machine models as one stacked computation,
 the dense half of ``gordo_tpu/parallel/fleet.py``.
 
 1. **Bucketing.** Members are grouped by (spec, padded sample count), the
-   naive strategy of the JAX planner (``planner/packing.py``).
+   naive strategy of the JAX planner (``planner/packing.py``); windowed
+   (LSTM) members by (spec, padded series rows, model offset).
 2. **Stacking.** Each bucket's data becomes ``X[M, n_padded, F]``
    (zero-filled), with weight masks for ragged lengths, validation
    splits and CV-fold boundaries; ``y`` is ``X`` itself when every
@@ -11,6 +12,14 @@ the dense half of ``gordo_tpu/parallel/fleet.py``.
 3. **One program.** ``models/training.py::StackedFit`` trains the bucket
    with the member axis written out; each member draws its own init and
    permutations from its seed (``models/training.py::RandomSource``).
+
+A :class:`WindowedFleetMember` (an LSTM machine) brings its raw series
+and its window targets instead of samples: its bucket stacks
+``series[M, n_padded, F]`` and ``targets[M, n_padded - offset, F_out]``
+and trains through ``models/training.py::WindowedFit``, which gathers
+each batch's windows on the device (``fleet.py:898-1026``, without the
+mesh). :meth:`FleetTrainer.predict_windowed_bucket` forwards windows the
+same way, 256 a batch (``:1108-1161``).
 
 A diverged member (final loss not finite) is retrained with seed
 ``seed + 7919 * attempt`` (``fleet.py:476-531``). A bucket whose program
@@ -33,7 +42,8 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
-from ..models.spec import FeedForwardSpec
+from ..models.nn import forward_lstm_windows
+from ..models.spec import FeedForwardSpec, LSTMSpec, ModelSpec
 from ..models.training import (
     FitConfig,
     FitOutput,
@@ -41,10 +51,11 @@ from ..models.training import (
     RandomSource,
     StackedFit,
     TorchRandom,
+    WindowedFit,
     permutation_tensor,
 )
 from ..ops.fleet_dense import fleet_feedforward
-from ..planner.packing import naive_buckets
+from ..planner.packing import member_offset, naive_buckets
 from ..utils.faults import InjectedDeviceError, fault_point
 
 logger = logging.getLogger(__name__)
@@ -99,8 +110,8 @@ class FleetMember:
     """One machine's (or one CV fold's) training problem, as arrays."""
 
     name: str
-    spec: FeedForwardSpec
-    X: np.ndarray  # [n, n_features]
+    spec: ModelSpec
+    X: np.ndarray  # [n, n_features] (or LSTM windows [n, lookback, n_features])
     y: np.ndarray  # [n, n_features_out]; may be X itself
     train_weights: Optional[np.ndarray] = None  # defaults to all rows
     val_weights: Optional[np.ndarray] = None
@@ -113,6 +124,34 @@ class FleetMember:
     @property
     def n(self) -> int:
         return len(self.X)
+
+
+@dataclass
+class WindowedFleetMember:
+    """One windowed (LSTM) machine's training problem: its raw series and
+    window targets (``ops.windows.window_targets``); the windows are
+    gathered on the device batch by batch."""
+
+    name: str
+    spec: LSTMSpec
+    series: np.ndarray  # [n, n_features]
+    targets: np.ndarray  # [n_windows, n_features_out]
+    order: Optional[np.ndarray] = None  # virtual slot -> window start; None: in order
+    train_weights: Optional[np.ndarray] = None  # per virtual slot
+    val_weights: Optional[np.ndarray] = None
+    seed: int = 42
+
+    def __post_init__(self):
+        # the window count, not the series length: a lookahead shortens it too
+        if len(self.targets) < 1:
+            raise ValueError(
+                f"{self.name}: series of {len(self.series)} rows too short "
+                f"for lookback {self.spec.lookback_window} (no complete windows)"
+            )
+
+    @property
+    def n_windows(self) -> int:
+        return len(self.targets)
 
 
 @dataclass
@@ -148,8 +187,8 @@ class FleetTrainer:
     every member's init and permutations from ``random`` (default
     :class:`~gordo_tpu_torch.models.training.TorchRandom`).
 
-    ``fits`` records each bucket it trained: members, padded rows,
-    optimizer steps, host seconds of the fit loop (ending in the results'
+    ``fits`` records each bucket it trained: members, padded rows (window
+    slots for a windowed bucket), optimizer steps run, host seconds of the fit loop (ending in the results'
     copy to the host) and, on a card, the CUDA-event milliseconds between
     the loop's first and last launch.
     """
@@ -200,11 +239,13 @@ class FleetTrainer:
         failures: Dict[str, BaseException] = {}
         for planned in naive_buckets(members, config.batch_size):
             logger.info(
-                "Fleet bucket: %d models, spec=%s, padded_n=%d",
+                "Fleet bucket: %d models, spec=%s, padded_n=%d%s",
                 len(planned.members), type(planned.spec).__name__, planned.n_padded,
+                f", windowed, offset {planned.offset}" if planned.windowed else "",
             )
+            train = self._train_windowed_bucket if planned.windowed else self._train_bucket
             self._run_bucket_degraded(
-                lambda b, _p=planned: self._train_bucket(_p.spec, _p.n_padded, b, config),
+                lambda b, _p=planned, _t=train: _t(_p.spec, _p.n_padded, b, config),
                 planned.members, by_name, failures,
             )
         for member in members:
@@ -270,26 +311,59 @@ class FleetTrainer:
         self, spec: FeedForwardSpec, n_padded: int, bucket: List[FleetMember], config: FitConfig
     ) -> List[FleetResult]:
         X, y, wtr, wval = self._stack_bucket(n_padded, bucket, config)
+        return self._fit_bucket(bucket, config, StackedFit(spec, config), (X, y), wtr, wval)
+
+    def _stack_windowed_bucket(
+        self, spec: LSTMSpec, n_padded: int, bucket: List[WindowedFleetMember], config: FitConfig
+    ):
+        """``(series, targets, order, wtr, wval)`` tensors on the trainer's
+        device: ``n_padded`` series rows, ``n_padded - offset`` target
+        rows, and the virtual slots rounded up to whole batches."""
+        nw_padded = n_padded - member_offset(bucket[0])
+        B = config.batch_size
+        nv_padded = -(-nw_padded // B) * B
+        M = len(bucket)
+        series = np.zeros((M, n_padded, bucket[0].series.shape[1]), np.float32)
+        targets = np.zeros((M, nw_padded, bucket[0].targets.shape[1]), np.float32)
+        order = np.zeros((M, nv_padded), np.int64)
+        wtr = np.zeros((M, nv_padded), np.float32)
+        wval = np.zeros((M, nv_padded), np.float32)
+        for i, member in enumerate(bucket):
+            nv = member.n_windows
+            series[i, : len(member.series)] = member.series
+            targets[i, :nv] = member.targets
+            order[i, :nv] = member.order if member.order is not None else np.arange(nv)
+            _fill_weight_row(wtr, wval, i, nv, member, config)
+        return tuple(torch.from_numpy(a).to(self.device) for a in (series, targets, order, wtr, wval))
+
+    def _train_windowed_bucket(
+        self, spec: LSTMSpec, n_padded: int, bucket: List[WindowedFleetMember], config: FitConfig
+    ) -> List[FleetResult]:
+        series, targets, order, wtr, wval = self._stack_windowed_bucket(spec, n_padded, bucket, config)
+        return self._fit_bucket(bucket, config, WindowedFit(spec, config), (series, targets, order), wtr, wval)
+
+    def _fit_bucket(self, bucket, config: FitConfig, fit: StackedFit, data, wtr, wval) -> List[FleetResult]:
+        """Draw the bucket's init and permutations, run ``fit`` on ``data``
+        and the weights, time it into ``fits`` and collect the results."""
         seeds = [m.seed for m in bucket]
-        params = stack_member_params([self.random.init_params(spec, s) for s in seeds], self.device)
-        perms = (
-            permutation_tensor(self.random, seeds, config.epochs, n_padded, self.device)
-            if config.shuffle else None
-        )
-        steps = n_padded // config.batch_size
+        params = stack_member_params([self.random.init_params(fit.spec, s) for s in seeds], self.device)
+        n = wtr.shape[1]
+        perms = permutation_tensor(self.random, seeds, config.epochs, n, self.device) if config.shuffle else None
+        steps = n // config.batch_size
         on_card = self.device.type == "cuda"
         t0 = time.perf_counter()
         if on_card:
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             events[0].record()
-        out = StackedFit(spec, config).run(params, X, y, wtr, wval, perms)
+        out = fit.run(params, *data, wtr, wval, perms)
         if on_card:
             events[1].record()
         results = self._collect_results(bucket, out, config, steps)
         self.fits.append(dict(
-            members=len(bucket), rows=n_padded, steps=config.epochs * steps,
+            members=len(bucket), rows=n, steps=out.steps,
             seconds=time.perf_counter() - t0,
             event_ms=events[0].elapsed_time(events[1]) if on_card else None,
+            windowed=isinstance(fit, WindowedFit),
         ))
         return results
 
@@ -331,3 +405,22 @@ class FleetTrainer:
         }
         x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
         return fleet_feedforward(spec, stacked, x).cpu().numpy()
+
+    def predict_windowed_bucket(
+        self,
+        spec: LSTMSpec,
+        stacked_params: Mapping[str, Mapping[str, Any]],
+        series: np.ndarray,
+        order: np.ndarray,
+        batch_size: int = 256,
+    ) -> np.ndarray:
+        """Forward a windowed bucket, ``series[M, n, F]`` and window starts
+        ``order[M, nv]`` -> ``[M, nv, F_out]`` (float32 numpy), the windows
+        gathered on the device ``batch_size`` at a time."""
+        stacked = {
+            key: {name: torch.as_tensor(leaf, dtype=torch.float32).to(self.device) for name, leaf in layer.items()}
+            for key, layer in stacked_params.items()
+        }
+        s = torch.from_numpy(np.ascontiguousarray(series, np.float32)).to(self.device)
+        o = torch.from_numpy(np.asarray(order, np.int64)).to(self.device)
+        return forward_lstm_windows(spec, stacked, s, o, batch_size).cpu().numpy()

@@ -19,14 +19,22 @@ Per machine it follows the JAX builder:
 - **stage** (``_stage_arrays``, ``:1247-1304``): the host pipeline steps
   (MinMax) are fitted on the machine's X, ``y`` is aliased to ``X`` when
   they are equal, and the fit config and seed come from the estimator's
-  kwargs;
+  kwargs. An LSTM machine keeps its series and its window targets
+  (``ops.windows.window_targets``) instead, its model offset is
+  ``lookback + lookahead - 1``, and it never shuffles between epochs;
 - **cross-validation** (``:1308-1394``): fold models are members
   ``<machine>::fold<k>`` with seed ``seed + 1000 * (k + 1)`` and the
   fold's rows as train weights, appended fold-major, all folds of all
   machines of one fit config in one ``train`` call (chunked by
   ``GORDO_TPU_CV_CHUNK_BYTES``); each (spec, width) group of trained
   folds is scored by **one** forward, ``FleetTrainer.predict_bucket``
-  (one K1 launch on a card, ``:1579-1636``); per-tag and aggregate
+  (one K1 launch on a card, ``:1579-1636``), an LSTM spec group by one
+  windowed forward of its folds' test windows
+  (``predict_windowed_bucket``, ``:1638-1661``). An LSTM fold trains on
+  the windows whose targets lie in its train rows and is scored on those
+  whose targets lie in its test rows (``_window_train_weights``,
+  ``_test_window_rows``, ``:1453-1485``): folds must be contiguous, so a
+  KFCV LSTM machine fails as it does in JAX. Then per-tag and aggregate
   metric scores, and the ``DiffBasedAnomalyDetector`` thresholds: the
   error scaler fitted on the fold's train targets, thresholds the max
   over time of 6-row rolling minimums, the last fold's kept
@@ -38,7 +46,7 @@ Per machine it follows the JAX builder:
   error scaler fitted on ``y``;
 - **assemble and dump** (``:1969-2011``): ``metadata.json`` with the
   JAX artifact's ``dataset`` and ``build_metadata.model`` keys
-  (``model_offset``, ``cross_validation.{scores, splits,
+  (``model_offset``: 0, or an LSTM's offset; ``cross_validation.{scores, splits,
   cv_duration_sec}``, ``training``, ``model_meta``), the dataset's own
   ``get_metadata()`` and fetch time under ``build_metadata.dataset``,
   ``info.json`` with the model's checksum.
@@ -48,7 +56,7 @@ queue 3): a machine that fails, or whose program fails alone on the
 device after bisection, is recorded in ``build_errors`` (there is no
 sequential builder to fall back to); fetches run one after another,
 not in a thread pool; there is no journal, resume, model-register
-cache, telemetry, progress file, packing or LSTM.
+cache, telemetry, progress file or packing.
 """
 
 import contextlib
@@ -67,14 +75,15 @@ from ..dataset.exceptions import ConfigException, InsufficientDataError
 from ..machine import Machine, TrainingSummaryMetadata
 from ..machine.metadata import drift_baseline
 from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector
-from ..models.estimators import TorchAutoEncoder
+from ..models.estimators import TorchAutoEncoder, TorchLSTMBaseEstimator
 from ..models.metrics import metrics_from_list
 from ..models.model_selection import KFold, TimeSeriesSplit, shuffle_indices
 from ..models.nn import params_from_jax
 from ..models.preprocessing import MinMaxScaler, Pipeline
 from ..models.training import FitConfig, RandomSource, fit_config_from_kwargs, split_fit_kwargs
+from ..ops.windows import model_offset, window_targets
 from ..utils.env import env_float, env_int
-from .fleet import FleetMember, FleetTrainer, stack_member_params
+from .fleet import FleetMember, FleetTrainer, WindowedFleetMember, stack_member_params
 
 logger = logging.getLogger(__name__)
 
@@ -99,7 +108,10 @@ class _Plan:
     data_retries: int = 0
     X_arr: np.ndarray = None  # inputs after the host pipeline steps, float32
     y_arr: np.ndarray = None  # targets, float32 (X_arr itself when equal)
-    shuffle_perm: Optional[np.ndarray] = None  # the detector's row shuffle
+    offset: int = 0  # the model offset: rows the output is shorter than the input
+    targets: Optional[np.ndarray] = None  # an LSTM's window targets (None: dense)
+    n_windows: int = 0  # training samples: windows, or rows
+    shuffle_perm: Optional[np.ndarray] = None  # the detector's sample shuffle
     spec: Any = None
     fit_config: FitConfig = None
     seed: int = 42
@@ -114,8 +126,8 @@ class _Plan:
     shuffled: Any = None  # (X, y) in the shuffle's order, made once
 
     @property
-    def n(self) -> int:
-        return len(self.X_arr)
+    def windowed(self) -> bool:
+        return self.targets is not None
 
 
 def _cv_chunk_bytes() -> int:
@@ -124,7 +136,9 @@ def _cv_chunk_bytes() -> int:
     return env_int("GORDO_TPU_CV_CHUNK_BYTES", 1 << 30)
 
 
-def _member_nbytes(member: FleetMember) -> int:
+def _member_nbytes(member) -> int:
+    if isinstance(member, WindowedFleetMember):
+        return member.series.nbytes + member.targets.nbytes
     return member.X.nbytes + (0 if member.y is member.X else member.y.nbytes)
 
 
@@ -172,6 +186,52 @@ def _rolling_min_max(values: np.ndarray, window: int):
     else:
         out = mins.max(axis=0)
     return float(out) if values.ndim == 1 else out
+
+
+#: windows an LSTM group's CV forward gathers at once
+SCORING_BATCH = 256
+
+
+def _window_train_weights(plan: _Plan, train_idx: np.ndarray) -> np.ndarray:
+    """A fold's train rows as a train mask over the plan's samples: the
+    rows themselves for a dense model; for an LSTM, the windows whose
+    targets lie in the fold's rows ``[first, last]``, which must be
+    contiguous (``_window_train_weights``, ``fleet_build.py:1453-1469``).
+
+    >>> plan = _Plan(None, None, None, None, None, offset=2, targets=np.zeros(8), n_windows=8)
+    >>> _window_train_weights(plan, np.arange(5)).tolist()
+    [1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    """
+    weights = np.zeros(plan.n_windows, np.float32)
+    if plan.offset == 0:
+        weights[train_idx[train_idx < plan.n_windows]] = 1.0
+        return weights
+    if len(train_idx) != int(train_idx[-1]) - int(train_idx[0]) + 1:
+        raise FleetBuildError(
+            f"{plan.machine.name}: non-contiguous CV folds are not supported for windowed "
+            "(LSTM) models in fleet builds"
+        )
+    weights[: max(int(train_idx[-1]) + 1 - plan.offset, 0)] = 1.0
+    return weights
+
+
+def _test_window_rows(plan: _Plan, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A fold's test rows as ``(windows to forward, the rows they
+    target)``: for an LSTM the windows of a contiguous ``[b, c)`` are
+    ``[b, c - offset)``, targeting ``[b + offset, c)``
+    (``_test_window_rows``, ``fleet_build.py:1471-1485``).
+
+    >>> plan = _Plan(None, None, None, None, None, offset=2, targets=np.zeros(8), n_windows=8)
+    >>> [a.tolist() for a in _test_window_rows(plan, np.arange(5, 10))]
+    [[5, 6, 7], [7, 8, 9]]
+    """
+    if plan.offset == 0:
+        rows = rows[rows < plan.n_windows]
+        return rows, rows
+    b, c = int(rows[0]), int(rows[-1]) + 1
+    windows = np.arange(b, max(c - plan.offset, b))
+    windows = windows[windows < plan.n_windows]
+    return windows, windows + plan.offset
 
 
 def _cv_for(plan: _Plan):
@@ -362,7 +422,8 @@ class FleetBuilder:
 
     @staticmethod
     def _stage_arrays(plan: _Plan) -> None:
-        """Fit the host pipeline steps, resolve spec, fit config and seed."""
+        """Fit the host pipeline steps, window an LSTM's targets, resolve
+        spec, fit config and seed."""
         machine = plan.machine
         X_arr = np.asarray(plan.X, np.float32)
         y_arr = np.asarray(plan.y, np.float32)
@@ -371,17 +432,25 @@ class FleetBuilder:
             for transformer in plan.pipeline.transformers:
                 transformed = transformer.fit_transform(transformed)
             X_arr = np.asarray(transformed, np.float32)
-        # pure autoencoder builds train y == X: stage the block once
-        if X_arr.shape == y_arr.shape and np.array_equal(X_arr, y_arr):
-            y_arr = X_arr
-        plan.X_arr, plan.y_arr = X_arr, y_arr
         estimator = plan.estimator
-        estimator.kwargs.update(n_features=X_arr.shape[1], n_features_out=y_arr.shape[1])
         fit_kwargs, _ = split_fit_kwargs(estimator.kwargs)
+        if isinstance(estimator, TorchLSTMBaseEstimator):
+            # the series stays whole; windows are gathered on the device
+            plan.offset = model_offset(estimator.lookback_window, estimator.lookahead)
+            plan.targets = window_targets(y_arr, estimator.lookback_window, estimator.lookahead)
+            plan.n_windows = len(plan.targets)
+            fit_kwargs["shuffle"] = False
+        else:
+            # pure autoencoder builds train y == X: stage the block once
+            if X_arr.shape == y_arr.shape and np.array_equal(X_arr, y_arr):
+                y_arr = X_arr
+            plan.n_windows = len(X_arr)
+        plan.X_arr, plan.y_arr = X_arr, y_arr
+        estimator.kwargs.update(n_features=X_arr.shape[1], n_features_out=y_arr.shape[1])
         if plan.detector is not None and plan.detector.shuffle:
-            # the detector's fit trains on sklearn.utils.shuffle's row order;
-            # scoring always runs on the chronological rows
-            plan.shuffle_perm = shuffle_indices(len(X_arr), random_state=0)
+            # the detector's fit trains on sklearn.utils.shuffle's sample
+            # order (an LSTM's: its window order); scoring is chronological
+            plan.shuffle_perm = shuffle_indices(plan.n_windows, random_state=0)
         plan.spec = estimator.build_spec(X_arr.shape[1], y_arr.shape[1])
         config, host_callbacks = fit_config_from_kwargs(fit_kwargs)
         if host_callbacks:
@@ -414,12 +483,14 @@ class FleetBuilder:
                 if self._skipped(plan.machine.name) or fold_idx >= len(per_plan_folds[plan.machine.name]):
                     continue
                 train_idx, _ = per_plan_folds[plan.machine.name][fold_idx]
-                weights = np.zeros(plan.n, np.float32)
-                weights[train_idx[train_idx < plan.n]] = 1.0
-                member = self._make_member(
-                    plan, weights, seed=plan.seed + 1000 * (fold_idx + 1),
-                    name=_fold_member_name(plan.machine.name, fold_idx),
-                )
+                try:
+                    member = self._make_member(
+                        plan, _window_train_weights(plan, train_idx), seed=plan.seed + 1000 * (fold_idx + 1),
+                        name=_fold_member_name(plan.machine.name, fold_idx),
+                    )
+                except Exception as exc:
+                    self._fail(plan.machine.name, exc)
+                    continue
                 members, items = grouped.setdefault(plan.fit_config, ([], []))
                 members.append(member)
                 items.append((plan, fold_idx))
@@ -439,9 +510,15 @@ class FleetBuilder:
                 plan.cv_duration = time.perf_counter() - start
 
     @staticmethod
-    def _make_member(plan: _Plan, train_weights: Optional[np.ndarray], seed: int, name: str) -> FleetMember:
-        """A training member, in the detector's shuffled row order if any."""
+    def _make_member(plan: _Plan, train_weights: Optional[np.ndarray], seed: int, name: str):
+        """A training member, in the detector's shuffled sample order if
+        any; an LSTM's is its series, the shuffle its window order."""
         perm = plan.shuffle_perm
+        if plan.windowed:
+            if perm is not None and train_weights is not None:
+                train_weights = train_weights[perm]
+            return WindowedFleetMember(name=name, spec=plan.spec, series=plan.X_arr, targets=plan.targets,
+                                       order=perm, train_weights=train_weights, seed=seed)
         if perm is None:
             X, y = plan.X_arr, plan.y_arr
         else:
@@ -499,7 +576,8 @@ class FleetBuilder:
     def _score_folds(self, items, results, per_plan_folds, fold_state) -> None:
         """Score trained fold models: one forward per (spec, width) group,
         every fold of every machine of the group at once (one K1 launch on
-        a card), each fold on its test rows."""
+        a card; one windowed forward for an LSTM group), each fold on its
+        test windows, against the rows they target."""
         by_name = {r.name: r for r in results}
         groups: Dict[Tuple, List[Tuple[_Plan, int]]] = {}
         for plan, fold_idx in items:
@@ -508,21 +586,31 @@ class FleetBuilder:
             stacked = stack_member_params(
                 [by_name[_fold_member_name(p.machine.name, k)].params for p, k in group]
             )
-            fold_rows = []  # per item: (train rows, test rows)
+            fold_rows = []  # per item: (train rows, test windows, the rows they target)
             for plan, fold_idx in group:
                 train_rows, test_rows = per_plan_folds[plan.machine.name][fold_idx]
-                fold_rows.append((train_rows, test_rows[test_rows < plan.n]))
+                fold_rows.append((train_rows, *_test_window_rows(plan, test_rows)))
             with self._phase("cv_predict"):
-                n_max = max(len(test) for _, test in fold_rows)
-                X = np.zeros((len(group), n_max) + group[0][0].X_arr.shape[1:], np.float32)
-                for i, (plan, _) in enumerate(group):
-                    X[i, : len(fold_rows[i][1])] = plan.X_arr[fold_rows[i][1]]
-                predictions = self.trainer.predict_bucket(spec, stacked, X)
+                n_max = max(len(windows) for _, windows, _ in fold_rows)
+                width = group[0][0].X_arr.shape[1:]
+                if group[0][0].windowed:
+                    series = np.zeros((len(group), max(len(p.X_arr) for p, _ in group)) + width, np.float32)
+                    order = np.zeros((len(group), n_max), np.int64)
+                    for i, (plan, _) in enumerate(group):
+                        series[i, : len(plan.X_arr)] = plan.X_arr
+                        order[i, : len(fold_rows[i][1])] = fold_rows[i][1]
+                    predictions = self.trainer.predict_windowed_bucket(
+                        spec, stacked, series, order, batch_size=SCORING_BATCH)
+                else:
+                    X = np.zeros((len(group), n_max) + width, np.float32)
+                    for i, (plan, _) in enumerate(group):
+                        X[i, : len(fold_rows[i][1])] = plan.X_arr[fold_rows[i][1]]
+                    predictions = self.trainer.predict_bucket(spec, stacked, X)
             with self._phase("cv_score"):
                 for i, (plan, fold_idx) in enumerate(group):
-                    train_rows, test_rows = fold_rows[i]
+                    train_rows, windows, test_rows = fold_rows[i]
                     y_true = plan.y_arr[test_rows]
-                    y_pred = predictions[i, : len(test_rows)]
+                    y_pred = predictions[i, : len(windows)]
                     self._accumulate_metric_scores(plan, y_true, y_pred, fold_idx)
                     if plan.detector is not None:
                         self._accumulate_thresholds(
@@ -665,7 +753,7 @@ class FleetBuilder:
         meta_source = model_obj if plan.detector is not None else plan.estimator
         machine.metadata["build_metadata"] = {
             "model": {
-                "model_offset": 0,
+                "model_offset": plan.offset,
                 "model_creation_date": str(datetime.datetime.now(datetime.timezone.utc).astimezone()),
                 "model_builder_version": __version__,
                 "cross_validation": {

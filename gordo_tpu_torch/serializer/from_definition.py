@@ -18,6 +18,9 @@ them as the JAX package's ``COMPAT_LOCATIONS`` maps them
 - ``gordo_tpu.models[.estimators].JaxAutoEncoder`` with a ``kind`` of
   ``models.estimators.KINDS``; its ``callbacks`` may hold
   ``EarlyStopping`` (the JAX package's, Keras' or TensorFlow's path);
+- ``gordo_tpu.models[.estimators].JaxLSTMAutoEncoder`` and
+  ``...JaxLSTMForecast`` with a ``kind`` of ``models.estimators.LSTM_KINDS``
+  (and ``lookback_window``, ``batch_size``), the same callbacks;
 - ``gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector``: the
   same arguments (``shuffle`` defaulting to True, ``window`` to 144,
   ``smoothing_method`` to ``smm``) and ``threshold_percentile`` (0.99);
@@ -32,7 +35,7 @@ from typing import Any, Dict, Tuple
 from .. import DeviceLike, resolve_device
 from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector
 from ..models.callbacks import EarlyStopping
-from ..models.estimators import TorchAutoEncoder
+from ..models.estimators import TorchAutoEncoder, TorchLSTMAutoEncoder, TorchLSTMForecast
 from ..models.model_selection import KFold, TimeSeriesSplit
 from ..models.preprocessing import MinMaxScaler, Pipeline
 
@@ -43,6 +46,14 @@ MIN_MAX_SCALER = "sklearn.preprocessing.MinMaxScaler"
 TIME_SERIES_SPLIT = "sklearn.model_selection.TimeSeriesSplit"
 K_FOLD = "sklearn.model_selection.KFold"
 AUTOENCODERS = ("gordo_tpu.models.JaxAutoEncoder", "gordo_tpu.models.estimators.JaxAutoEncoder")
+#: every estimator path, with the port's class
+ESTIMATORS = {
+    **{path: TorchAutoEncoder for path in AUTOENCODERS},
+    "gordo_tpu.models.JaxLSTMAutoEncoder": TorchLSTMAutoEncoder,
+    "gordo_tpu.models.estimators.JaxLSTMAutoEncoder": TorchLSTMAutoEncoder,
+    "gordo_tpu.models.JaxLSTMForecast": TorchLSTMForecast,
+    "gordo_tpu.models.estimators.JaxLSTMForecast": TorchLSTMForecast,
+}
 EARLY_STOPPING = (
     "gordo_tpu.models.callbacks.EarlyStopping",
     "tensorflow.keras.callbacks.EarlyStopping",
@@ -52,6 +63,8 @@ EARLY_STOPPING = (
 #: the reference's paths of the ported classes
 COMPAT_LOCATIONS: Dict[str, str] = {
     "gordo.machine.model.models.KerasAutoEncoder": "gordo_tpu.models.JaxAutoEncoder",
+    "gordo.machine.model.models.KerasLSTMAutoEncoder": "gordo_tpu.models.JaxLSTMAutoEncoder",
+    "gordo.machine.model.models.KerasLSTMForecast": "gordo_tpu.models.JaxLSTMForecast",
     "gordo.machine.model.anomaly.diff.DiffBasedAnomalyDetector": DETECTOR,
     "gordo.machine.model.anomaly.diff.DiffBasedKFCVAnomalyDetector": KFCV_DETECTOR,
 }
@@ -119,12 +132,12 @@ def _build(definition: Any, device) -> Any:
             raise NotImplementedError(f"{path}: clip=True is not ported")
         _no_more(path, kwargs)
         return MinMaxScaler(feature_range=feature_range)
-    if path in AUTOENCODERS:
+    if path in ESTIMATORS:
         if "kind" not in kwargs:
             raise ValueError(f"{path} needs a kind")
         if kwargs.get("callbacks"):
             kwargs["callbacks"] = [_callback(cb) for cb in kwargs["callbacks"]]
-        return TorchAutoEncoder(device=device, **kwargs)
+        return ESTIMATORS[path](device=device, **kwargs)
     if path == TIME_SERIES_SPLIT:
         n_splits = kwargs.pop("n_splits", 5)
         _no_more(path, kwargs)

@@ -7,10 +7,20 @@ least recently used first out.
 
 A copy of the serving core of ``gordo_tpu/server/fleet_store.py``
 (``RevisionFleet``, ``fleet_forward_gather``, ``FleetModelStore``) for f32
-feedforward autoencoders. There is no program cache: PyTorch runs eagerly and the
+feedforward and LSTM autoencoders. There is no program cache: PyTorch runs eagerly and the
 kernel takes every spec's widths as arguments. ``fleet_scores`` scores a
-spec bucket with one K2 launch: the forward and each row's error against
-its raw input rows, fused.
+feedforward spec bucket with one K2 launch: the forward and each row's
+error against its raw input rows, fused.
+
+LSTM members join one bucket per ``LSTMSpec`` (an autoencoder and a
+forecaster of one architecture share it: the lookahead is each member's
+own). An LSTM bucket is scored by one windowed forward
+(``models/nn.py::forward_lstm_windows``): each member's series is scaled
+on the device, and its windows are gathered there 256 at a time
+(``fleet_store.py:639-700``). Its output is ``lookback + lookahead - 1``
+rows shorter than its input; the error is taken against the raw rows'
+tail (``:554-560``), and a series shorter than one window is that
+machine's error alone.
 
 Each bucket also has a compiled ingest plan: the affine preprocessing of
 every member's pipeline (``X * scale + offset``, stacked ``[N, F]`` on the
@@ -34,8 +44,10 @@ import torch
 
 from .. import serializer
 from ..models.estimators import find_estimator
-from ..models.spec import FeedForwardSpec
+from ..models.nn import forward_lstm_windows
+from ..models.spec import FeedForwardSpec, LSTMSpec, ModelSpec
 from ..ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+from ..ops.windows import num_windows
 from ..parallel.fleet import stack_member_params
 from ..utils.env import env_int
 
@@ -130,6 +142,9 @@ class ModelResolution:
 
 Ingest = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
+#: windows an LSTM bucket's forward gathers at once
+LSTM_SERVING_BATCH = 256
+
 
 def member_plan(model: Any, n_features: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """One model's composed affine pipeline ``(scale, offset)`` (float32),
@@ -171,9 +186,9 @@ class RevisionFleet:
         self.device = device
         self._lock = threading.RLock()
         self._models: Dict[str, Any] = {}
-        self._specs: Dict[str, FeedForwardSpec] = {}
+        self._specs: Dict[str, ModelSpec] = {}
         self._resolutions: Dict[str, ModelResolution] = {}
-        self._buckets: Dict[FeedForwardSpec, Tuple[List[str], Stacked, Ingest]] = {}
+        self._buckets: Dict[ModelSpec, Tuple[List[str], Stacked, Ingest]] = {}
 
     def model(self, name: str) -> Any:
         """The loaded model for ``name`` (load once, then resident)."""
@@ -200,7 +215,7 @@ class RevisionFleet:
                 cached = self._resolutions[name] = ModelResolution(name, model, metadata)
             return cached
 
-    def loaded_specs(self) -> Dict[str, FeedForwardSpec]:
+    def loaded_specs(self) -> Dict[str, ModelSpec]:
         """``{name: spec}`` of every loaded servable model."""
         with self._lock:
             return dict(self._specs)
@@ -216,7 +231,7 @@ class RevisionFleet:
                 logger.exception("warm: could not load %s", name)
         return loaded
 
-    def _bucket(self, spec: FeedForwardSpec) -> Tuple[List[str], Stacked, Ingest]:
+    def _bucket(self, spec: ModelSpec) -> Tuple[List[str], Stacked, Ingest]:
         with self._lock:
             cached = self._buckets.get(spec)
             if cached is not None:
@@ -239,13 +254,13 @@ class RevisionFleet:
             cached = self._buckets[spec] = (names, stacked, ingest)
             return cached
 
-    def spec_bucket(self, spec: FeedForwardSpec) -> Tuple[List[str], Stacked]:
+    def spec_bucket(self, spec: ModelSpec) -> Tuple[List[str], Stacked]:
         """``(names, stacked params)`` over every loaded model of ``spec``:
         names sorted, params on the device."""
         names, stacked, _ = self._bucket(spec)
         return names, stacked
 
-    def ingest_plan(self, spec: FeedForwardSpec) -> Ingest:
+    def ingest_plan(self, spec: ModelSpec) -> Ingest:
         """The bucket's compiled preprocessing, row for row with
         :meth:`spec_bucket`: ``(scale[N, F], offset[N, F])`` float32 on the
         device, or None when no member has a transformer."""
@@ -253,7 +268,9 @@ class RevisionFleet:
 
     def predict(self, name: str, X: np.ndarray) -> np.ndarray:
         """One model's reconstruction of raw rows ``X[B, F]``: the compiled
-        single-member path, one gather launch with the ingest prologue."""
+        single-member path, one gather launch with the ingest prologue; an
+        LSTM's, one windowed forward of the member (``B - offset`` rows;
+        ``ValueError`` unless its lookback is under ``B``)."""
         estimator = find_estimator(self.model(name))
         if estimator is None:
             raise TypeError(f"{name} holds no servable autoencoder")
@@ -263,19 +280,40 @@ class RevisionFleet:
             raise ValueError(f"expected rows of {spec.n_features} features, got shape {X.shape}")
         names, stacked, ingest = self._bucket(spec)
         x = torch.from_numpy(X).to(self.device)[None]
+        if isinstance(spec, LSTMSpec):
+            if spec.lookback_window >= len(X):
+                raise ValueError(f"For {type(estimator).__name__} lookback_window must be < size of X")
+            return self._windowed(spec, [names.index(name)], x, [len(X) - estimator.offset])[0].cpu().numpy()
         out = fleet_forward_gather(spec, stacked, [names.index(name)], x, ingest=ingest)
         return out[0].cpu().numpy()
+
+    def _windowed(self, spec: LSTMSpec, rows: Sequence[int], x: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
+        """The windowed forward of bucket members ``rows`` on their raw
+        series ``x[M, b, F]`` (on the device): each series scaled by its
+        member's ingest plan, then the first ``counts[m]`` windows of
+        member ``m`` forwarded, ``[M, max(counts), F_out]``."""
+        _, stacked, ingest = self._bucket(spec)
+        index = torch.tensor(rows, device=self.device)
+        members = {key: {n: t.index_select(0, index) for n, t in layer.items()} for key, layer in stacked.items()}
+        if ingest is not None:
+            x = x * ingest[0].index_select(0, index)[:, None, :] + ingest[1].index_select(0, index)[:, None, :]
+        order = np.zeros((len(rows), max(counts)), np.int64)
+        for i, count in enumerate(counts):
+            order[i, :count] = np.arange(count)
+        return forward_lstm_windows(spec, members, x, torch.from_numpy(order).to(self.device), LSTM_SERVING_BATCH)
 
     def fleet_scores(
         self, inputs: Dict[str, np.ndarray]
     ) -> Tuple[Dict[str, Tuple[np.ndarray, np.ndarray]], Dict[str, Exception]]:
-        """Score many models, one K2 launch per spec bucket: ``inputs[name]``
-        are raw rows; returns ``({name: (reconstruction, per-row mse)},
-        {name: error})``. The mse is against the raw rows, over the first
-        ``min(F_out, F)`` columns (the JAX store's ``mse_vs_raw`` rule). One
-        broken model never takes the batch down."""
+        """Score many models, one K2 launch per feedforward spec bucket and
+        one windowed forward per LSTM one: ``inputs[name]`` are raw rows;
+        returns ``({name: (reconstruction, per-row mse)}, {name: error})``.
+        The mse is against the raw rows (their last rows, for an LSTM's
+        shorter output), over the first ``min(F_out, F)`` columns (the JAX
+        store's ``mse_vs_raw`` rule). One broken model never takes the
+        batch down."""
         errors: Dict[str, Exception] = {}
-        by_spec: Dict[FeedForwardSpec, List[str]] = {}
+        by_spec: Dict[ModelSpec, List[str]] = {}
         for name in inputs:
             try:
                 estimator = find_estimator(self.model(name))
@@ -289,13 +327,17 @@ class RevisionFleet:
             by_spec.setdefault(estimator.spec_, []).append(name)
 
         out: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
-        for spec, names in by_spec.items():
+        # feedforward buckets first, then the LSTM ones: the JAX store's order
+        for spec, names in sorted(by_spec.items(), key=lambda item: isinstance(item[0], LSTMSpec)):
             names = sorted(names)
             raw = {n: np.asarray(inputs[n], np.float32) for n in names}
             for n in names:
                 if raw[n].ndim != 2 or raw[n].shape[1] != spec.n_features:
                     errors[n] = ValueError(f"expected rows of {spec.n_features} features, got shape {raw[n].shape}")
             names = [n for n in names if n not in errors]
+            if isinstance(spec, LSTMSpec):
+                self._score_lstm_bucket(spec, names, raw, out, errors)
+                continue
             if not names:
                 continue
             bucket_names, stacked, ingest = self._bucket(spec)
@@ -311,6 +353,39 @@ class RevisionFleet:
                 rows = raw[n].shape[0]
                 out[n] = (recon[i, :rows], mse[i, :rows])
         return out, errors
+
+    def _score_lstm_bucket(self, spec: LSTMSpec, names: List[str], raw: Dict[str, np.ndarray], out, errors) -> None:
+        """One windowed forward for the LSTM members ``names`` (raw rows in
+        ``raw``), each forwarding its own count of windows (its lookahead
+        is its own); a series without a whole window is its error."""
+        counts = {}
+        for n in names:
+            estimator = find_estimator(self._models[n])
+            count = num_windows(len(raw[n]), spec.lookback_window, estimator.lookahead)
+            if count <= 0:
+                errors[n] = ValueError(
+                    f"series of {len(raw[n])} rows too short for lookback {spec.lookback_window} "
+                    f"(lookahead {estimator.lookahead})"
+                )
+            else:
+                counts[n] = count
+        kept = [n for n in names if n in counts]
+        if not kept:
+            return
+        bucket_names = self._bucket(spec)[0]
+        # at least one window's rows, so the padded gather stays in bounds
+        b_max = max(spec.lookback_window, *(len(raw[n]) for n in kept))
+        X = np.zeros((len(kept), b_max, spec.n_features), np.float32)
+        for i, n in enumerate(kept):
+            X[i, : len(raw[n])] = raw[n]
+        x = torch.from_numpy(X).to(self.device)
+        predictions = self._windowed(spec, [bucket_names.index(n) for n in kept], x,
+                                     [counts[n] for n in kept]).cpu().numpy()
+        for i, n in enumerate(kept):
+            prediction = predictions[i, : counts[n]]
+            aligned = raw[n][len(raw[n]) - len(prediction):]
+            width = min(prediction.shape[-1], aligned.shape[-1])
+            out[n] = (prediction, ((prediction[:, :width] - aligned[:, :width]) ** 2).mean(axis=-1))
 
 
 class FleetModelStore:

@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with an NVIDIA GPU. Makes
 the training step of ``chip_smoke.py``'s ``[train]`` buckets with
 ``chip_smoke.make_step`` (feedforward_hourglass, Adam, batch 32, TF32
 off): the 20-tag CV bucket (192 members), the 40-tag one (24) and the
-20-tag final fit (64), on seeded rows, and for each:
+20-tag final fit (64), on seeded rows; and of its ``[lstm]`` CV buckets
+with ``chip_smoke.lstm_step`` (the windowed step, 32 windows of 10 rows
+gathered on the card a member): lstm_hourglass (24 members),
+lstm_symmetric (12) and lstm_model (12). For each:
 
 - times one ``StackedFit.train_step`` three ways: the host clock over 50
   steps ending in a synchronise, CUDA events around the same 50, and
@@ -35,6 +38,14 @@ BUCKETS = (("20-tag CV bucket", 20, 192), ("40-tag CV bucket", 40, 24), ("20-tag
 STEPS = 50
 
 
+def lstm_spec(kwargs):
+    """The spec an ``[lstm]`` group's estimator kwargs make for 20 tags."""
+    from gordo_tpu_torch.models import factories
+
+    kwargs = dict(kwargs)
+    return getattr(factories, kwargs.pop("kind"))(20, **kwargs)
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -47,8 +58,15 @@ def main():
     out_dir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(HERE, "build", "train_profile")
     os.makedirs(out_dir, exist_ok=True)
     card = chip_smoke.device_line()
-    for label, n_features, members in BUCKETS:
-        step = chip_smoke.make_step(n_features, members)
+    buckets = [(f"{label} ({members} members x 32 rows, hourglass({n_features}))",
+                f"{n_features}_{members}", lambda n=n_features, m=members: chip_smoke.make_step(n, m))
+               for label, n_features, members in BUCKETS]
+    for prefix, count, path, kwargs, _ in chip_smoke.LSTM_GROUPS:
+        spec = lstm_spec(kwargs)
+        buckets.append((f"{prefix} CV bucket ({3 * count} members x 32 windows, dims {spec.dims})",
+                        f"{prefix}_{3 * count}", lambda s=spec, m=3 * count: chip_smoke.lstm_step(s, m)))
+    for label, stem, make in buckets:
+        step = make()
         for _ in range(5):
             step()
         torch.cuda.synchronize()
@@ -78,9 +96,9 @@ def main():
         waits = {e.key: e.count for e in averages
                  if any(w in e.key for w in ("Synchronize", "_local_scalar_dense", "aten::item"))}
         table = averages.table(sort_by="self_device_time_total", row_limit=25)
-        with open(os.path.join(out_dir, f"train_profile_{n_features}_{members}.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"train_profile_{stem}.txt"), "w") as f:
             f.write(table)
-        print(f"[profile] {label} ({members} members x 32 rows, hourglass({n_features})): host clock "
+        print(f"[profile] {label}: host clock "
               f"{host_ms:.3f} ms a step, CUDA events {event_ms:.3f}, device alone {device_ms:.3f} (50 queued: "
               f"{queued_ms:.3f}); profiler: "
               f"{device_total / 10 / 1e3:.3f} ms of kernel time a step, {launches / 10:.0f} kernel launches and "

@@ -366,7 +366,7 @@ def test_definitions_are_read_as_strings():
         ({"sklearn.decomposition.PCA": {"n_components": 2}}, "sklearn.decomposition.PCA"),
         ({"gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector": {"n_splits": 5}}, "n_splits"),
         ({"gordo.machine.model.anomaly.diff.DiffBasedKFCVAnomalyDetector": {"cv": "KFold"}}, "cv"),
-        ({"gordo_tpu.models.JaxLSTMAutoEncoder": {"kind": "lstm_model"}}, "JaxLSTMAutoEncoder"),
+        ({"gordo_tpu.models.JaxRawModelRegressor": {"kind": {"spec": []}}}, "JaxRawModelRegressor"),
         ({"gordo_tpu.models.JaxAutoEncoder": {"kind": "lstm_model"}}, "lstm_model"),
         ({"gordo_tpu.models.JaxAutoEncoder": {"kind": "feedforward_model", "callbacks": [
             {"tensorflow.keras.callbacks.ReduceLROnPlateau": {}}]}}, "ReduceLROnPlateau"),

@@ -62,6 +62,38 @@ def test_package_has_modules():
         "workflow/workflow_generator.py", "workflow/config_elements/normalized_config.py", "machine/constants.py",
         "machine/loader.py", "dataset/exceptions.py", "dataset/sensor_tag.py", "dataset/series.py",
         "dataset/data_provider.py", "dataset/datasets.py", "models/anomaly/diff.py", "cli/cli.py",
-        "cli/exceptions_reporter.py", "__main__.py",
+        "cli/exceptions_reporter.py", "__main__.py", "ops/windows.py", "models/factories/lstm_autoencoder.py",
     ):
         assert expected in names
+
+
+#: library recurrences: the port writes its LSTM out (gate order, the
+#: activation on candidate and cell output, one bias)
+RECURRENT = {"LSTM", "GRU", "RNN", "LSTMCell", "GRUCell", "RNNCell", "_cudnn_rnn", "rnn_tanh", "lstm"}
+
+
+def _library_recurrence_or_compile(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and (
+            node.attr in RECURRENT or (node.attr == "compile" and getattr(node.value, "id", None) == "torch")
+            or node.attr == "_dynamo"
+        ):
+            yield node.lineno, node.attr
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("torch"):
+            for alias in node.names:
+                if alias.name in RECURRENT or alias.name in ("compile", "_dynamo"):
+                    yield node.lineno, alias.name
+
+
+@pytest.mark.parametrize("path", FILES[:-1], ids=[str(p.relative_to(REPO)) for p in FILES[:-1]])
+def test_no_library_recurrence_or_compile(path):
+    """No ``torch.nn.LSTM`` (or another library RNN), cuDNN RNN or
+    ``torch.compile`` in the package; ``chip_smoke.py`` times cuDNN as a
+    yardstick only."""
+    bad = list(_library_recurrence_or_compile(ast.parse(path.read_text(), filename=str(path))))
+    assert not bad, f"{path.name} uses {bad}"
+
+
+def test_the_recurrence_check_sees_them():
+    tree = ast.parse("import torch\ntorch.nn.LSTM(3, 4)\nf = torch.compile(g)\nfrom torch.nn import GRU\nre.compile('x')\n")
+    assert sorted(_library_recurrence_or_compile(tree)) == [(2, "LSTM"), (3, "compile"), (4, "GRU")]
