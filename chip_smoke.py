@@ -8,7 +8,8 @@ Run from the root of a checkout; it builds the CUDA kernels from
 ``gordo_tpu_torch/ops/csrc`` if they are not built, then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the kernels (one ``nvcc`` per source, all started together);
+2. builds the kernels (one ``nvcc`` per source, all started together;
+   ``[build]`` prints each build's registers, stack and spills);
 3. holds K1 (the fleet dense-stack kernel) against its plain PyTorch
    version on the card: feedforward_hourglass(20) at 1000 members x 1008
    rows, feedforward_model(20)'s 256-wide defaults at 64 x 1008, every
@@ -81,6 +82,29 @@ times]`` times the windowed forward at 1 x 1008 and 16 x 1008 rows for
 lstm_model and the hourglass beside its bound and a cuDNN
 ``torch.nn.LSTM`` stack of the same layers (the yardstick, used nowhere
 in the package).
+
+``[sequential]`` (after ``[lstm]``) drives the sequential build and the fleet
+build's crash recovery. It builds three machines one at a time with
+``ModelBuilder`` on the card (machine-000 of ``[train]``, 20 tags, K1's
+narrow kernel; compressor-000, 40 tags, the wide one; lstm-hourglass-000
+of ``[lstm]``), each fold's ``predict`` one K1 launch (3 a feedforward
+machine, 0 for the LSTM, read on the counter; the last fold's forward of
+each width held against the plain version on its own params and rows, M
+= 1 x 500, and timed), prints each build's times beside the fleet
+build's ms a machine, and holds each to a CPU ``ModelBuilder`` build of
+the same machine within ``SEQUENTIAL_BUILD_LIMITS``. It runs ``python -m
+gordo_tpu_torch build`` in a subprocess as a build pod does
+(``MACHINE``, ``OUTPUT_DIR``, ``--print-cv-scores``), serves the artifact
+from the card's app, and runs it twice more with ``--model-register-dir``: the second is a cache hit
+with the first's ``model.pkl`` bytes. Then the kill drill: ``build-fleet``
+of 16 of ``[train]``'s machines in a subprocess with
+``GORDO_TPU_FAULTS="process_kill_after_n_machines:*:after=5:kill"`` must
+exit 137 with exactly 6 complete artifacts (the site fires after its
+machine's artifact landed), ``build-fleet --resume`` must resume those 6
+(their ``info.json`` unchanged) and build the other 10 within
+``BUILD_LIMITS`` of ``[train]``'s artifacts, and the card's app must list
+all 16. The kernel JSON's ``launches_by_path`` has a ``build`` key: the
+sequential builds' launches; two of its rows are the fold forwards.
 
 ``[routes]`` then drives the rest of the JSON surface on the card's app
 over the socket, each answer held to the CPU app's on the same
@@ -738,8 +762,8 @@ def train_phase(work_dir, directory):
     fetched rows must equal its ``sensor_data`` rows; a CPU build of
     CPU_CHECK from the same shard is held against the card's; one training
     step timed. Returns the two lists of names, the kernel launches of the
-    build, and each CV scoring forward as a K1 case on the card with the K1
-    launches it made, by input width."""
+    build, each CV scoring forward as a K1 case on the card with the K1
+    launches it made, by input width, and the build's ms a machine."""
     import numpy as np
     import torch
 
@@ -802,7 +826,7 @@ def train_phase(work_dir, directory):
           f"(limit {BUILD_SCORE_TOL}), epochs run equal")
     names = sorted(n for n in fetched if n.startswith("machine-"))
     wide_names = sorted(n for n in fetched if n.startswith("compressor-"))
-    return names, wide_names, launches, cv_cases
+    return names, wide_names, launches, cv_cases, 1e3 * wall / len(fetched)
 
 
 def kfcv_project(directory):
@@ -1176,7 +1200,7 @@ def lstm_build(work_dir, card):
     step profiled (launches, device time, idle share); one machine an
     architecture built again on the CPU from the same shard and held to
     the card's. Returns the build's directory, its seeds by machine and
-    K1's and K2's launches."""
+    K1's and K2's launches and the build's ms a machine."""
     import torch
 
     from gordo_tpu_torch import serializer
@@ -1246,7 +1270,7 @@ def lstm_build(work_dir, card):
           f"{worst[2]:.3e} (limit {LSTM_BUILD_LIMITS[2]}), epochs run and model_offset equal")
     check(not faults, "card LSTM build disagrees with the CPU's: " + "; ".join(faults[:5]))
     seeds = {name: LSTM_SEED + i for i, (name, _, _) in enumerate(machines)}
-    return directory, seeds, launches
+    return directory, seeds, launches, 1e3 * wall / len(rows)
 
 
 def f64_held(cpu_data, data, reference, path):
@@ -1825,6 +1849,283 @@ def routes_phase(base, names, wide_names, cpu_app, collection, card):
 # -- phase 5: times ----------------------------------------------------------------
 
 
+# -- [sequential]: the sequential build, the build command, kill and resume --------
+
+#: machines built one at a time by ``ModelBuilder``: a 20-tag and a 40-tag
+#: machine of [train] and an lstm_hourglass machine of [lstm], with the K1
+#: launches each must make (one a TimeSeriesSplit(3) fold; an LSTM none)
+SEQUENTIAL = (("machine-000", 3), ("compressor-000", 3), ("lstm-hourglass-000", 0))
+#: the kill-and-resume drill: [train]'s first 16 20-tag machines; the kill
+#: site fires after its machine's artifact landed and was journaled, so
+#: ``after=5`` dies with exactly 6 artifacts on disk
+DRILL_MACHINES = 16
+DRILL_KILL = "process_kill_after_n_machines:*:after=5:kill"
+DRILL_LEFT = 6
+#: the ``build`` command's machine: one week of RandomDataProvider readings
+COMMAND_MACHINE = "command-000"
+#: a fold forward of each sequential feedforward build, held to the plain
+#: version and timed: one member, the fold's 500 test rows
+SEQUENTIAL_CASES = {20: "sequential fold scoring: hourglass20 M=1 B=500",
+                    WIDE_TAGS: "sequential fold scoring: hourglass40 M=1 B=500"}
+#: a sequential build (``ModelBuilder``) on the card against the same on
+#: the CPU, TF32 off (params, thresholds, CV scores), for every machine of
+#: that path here and in ``tests/test_torch_builder_cuda.py``: a lone
+#: member's Adam steps carry the f32 differences further than a stacked
+#: bucket's. ``scripts/build_tolerance.py sequential`` on an H100 (sound /
+#: TF32 on / one row swapped in the last epoch): feedforward params 3.71e-6
+#: / 3.22e-3 / 4.35e-5, thresholds 1.31e-7 / 2.04e-5 / 4.55e-6, CV scores
+#: 5.90e-7 / 5.87e-4 / 1.17e-4; LSTM (sound / TF32 on; it never shuffles)
+#: params LSTM_SOUND_TF32_PARAMS, thresholds LSTM_SOUND_TF32_THRESHOLDS,
+#: CV scores LSTM_SOUND_TF32_SCORES.
+SEQUENTIAL_BUILD_LIMITS = (1e-5, 3e-6, 2e-5)
+
+
+def sequential_machines():
+    """``(machine, expected K1 launches, model_offset)`` of SEQUENTIAL, each
+    holding its seeded rows, with [train]'s or [lstm]'s definition."""
+    from gordo_tpu_torch.machine import Machine
+
+    index = [TRAIN_START + timedelta(minutes=10 * r) for r in range(TRAIN_ROWS)]
+    rows = {name: (tags, values) for name, tags, values in machine_rows()}
+    lstm, models = lstm_machines()
+    rows.update({name: (tags, values) for name, tags, values in lstm})
+    out = []
+    for name, launches in SEQUENTIAL:
+        tags, values = rows[name]
+        config = {"name": name, "model": models.get(name, DEFINITION),
+                  "dataset": {"tag_list": tags, "resolution": "10min"}}
+        out.append((Machine.from_config(config, "smoke", data=(values, None), index=index), launches,
+                    lstm_offsets().get(name, 0)))
+    return out
+
+
+@contextlib.contextmanager
+def captured_fold_forwards():
+    """During sequential builds: each ``TorchAutoEncoder.predict``'s K1 call
+    as ``(spec, params, X, K1 launches it made)``, its tensors on the card."""
+    from gordo_tpu_torch.models import estimators
+
+    forwards, launch = [], estimators.fleet_feedforward
+
+    def captured(spec, bucket, X, *args, **kwargs):
+        before = launch.launches
+        out = launch(spec, bucket, X, *args, **kwargs)
+        forwards.append((spec, bucket, X, launch.launches - before))
+        return out
+
+    estimators.fleet_feedforward = captured
+    try:
+        yield forwards
+    finally:
+        estimators.fleet_feedforward = launch
+
+
+def sequential_builds(card, fleet_ms):
+    """Build SEQUENTIAL one at a time with ``ModelBuilder`` on the card, each
+    K1 launch counted (the counters set to 0 before the first build, read
+    after each); print each build's times beside the fleet build's ms a
+    machine of its collection (``fleet_ms``: ``{"train": ms, "lstm": ms}``)
+    and hold it to a CPU build of the same machine within
+    SEQUENTIAL_BUILD_LIMITS. Returns the launches, and each feedforward
+    machine's last fold forward as a K1 case on the card with the K1
+    launches its build made, by input width."""
+    import torch
+
+    from gordo_tpu_torch.builder import ModelBuilder
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+
+    machines = sequential_machines()
+    card_summaries, walls, cases = {}, {}, {}
+    with captured_fold_forwards() as forwards:
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        before = 0
+        for machine, launches, offset in machines:
+            first = len(forwards)
+            t0 = time.perf_counter()
+            model, built = ModelBuilder(machine, device="cuda").build()
+            torch.cuda.synchronize()
+            walls[machine.name] = 1e3 * (time.perf_counter() - t0)
+            made, before = fleet_feedforward.launches - before, fleet_feedforward.launches
+            meta = built.metadata["build_metadata"]
+            collection = "lstm" if offset else "train"
+            phase("sequential", f"{machine.name} built alone by ModelBuilder on the card in "
+                  f"{walls[machine.name]:.1f} ms: fetch {1e3 * meta['dataset']['query_duration_sec']:.3f} ms (rows "
+                  f"already in memory), CV {1e3 * meta['model']['cross_validation']['cv_duration_sec']:.1f} ms "
+                  f"(3 folds, one after another), final fit {1e3 * meta['model']['model_training_duration_sec']:.1f} "
+                  f"ms; [{collection}]'s build-fleet took {fleet_ms[collection]:.1f} ms a machine "
+                  f"({walls[machine.name] / fleet_ms[collection]:.1f}x); K1 launches {made} (expected {launches}: "
+                  f"one a fold's predict), model_offset {meta['model']['model_offset']}; {card}")
+            check(made == launches and len(forwards) - first == launches,
+                  f"{machine.name}: the sequential build launched K1 {made} times in {len(forwards) - first} "
+                  f"predicts, not {launches}")
+            check(meta["model"]["model_offset"] == offset,
+                  f"{machine.name}: model_offset {meta['model']['model_offset']}")
+            if launches:
+                spec, params, X, _ = forwards[-1]
+                cases[X.shape[-1]] = (dict(spec=spec, bucket=params, X=X, indices=None, ingest=None), made)
+            card_summaries[machine.name] = build_summary(model, built)
+        launched = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    t0 = time.perf_counter()
+    cpu = {}
+    for machine, _, _ in sequential_machines():
+        model, built = ModelBuilder(machine, device="cpu").build()
+        cpu[machine.name] = build_summary(model, built)
+    cpu_s = time.perf_counter() - t0
+    limits = SEQUENTIAL_BUILD_LIMITS
+    for kind in ("feedforward", "lstm"):
+        names = [m.name for m, _, offset in machines if bool(offset) == (kind == "lstm")]
+        worst, faults = compare_builds(card_summaries, {n: cpu[n] for n in names}, limits)
+        phase("sequential", f"{kind} ({', '.join(names)}): card against a CPU ModelBuilder build of the same "
+              f"machine ({cpu_s:.2f} s on the CPU for all three): params max abs {worst[0]:.3e} (limit "
+              f"{limits[0]}), thresholds max rel {worst[1]:.3e} (limit {limits[1]}), CV scores max |d| / "
+              f"(1 + |cpu|) {worst[2]:.3e} (limit {limits[2]}), epochs run and model_offset equal")
+        check(not faults, f"sequential {kind} card build disagrees with the CPU's: " + "; ".join(faults[:5]))
+    return launched, cases
+
+
+def run_command(args, env=None, timeout=600):
+    """``python -m gordo_tpu_torch ARGS`` from the checkout: ``(exit code,
+    stdout, stderr, seconds)``."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "gordo_tpu_torch", *args], cwd=HERE, capture_output=True,
+                          text=True, timeout=timeout, env={**os.environ, **(env or {})})
+    return done.returncode, done.stdout, done.stderr, time.perf_counter() - t0
+
+
+def build_command(work_dir, card):
+    """The ``build`` command in a subprocess, as a build pod runs it
+    (``MACHINE``, ``OUTPUT_DIR``, ``--print-cv-scores``): exit 0, the score
+    lines, an artifact the port's app serves; then twice with
+    ``--model-register-dir``, the second a cache hit with the first's
+    ``model.pkl`` bytes."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.server import build_app
+
+    end = TRAIN_START + timedelta(days=7)
+    machine = json.dumps({"name": COMMAND_MACHINE, "project_name": "smoke", "model": DEFINITION, "dataset": {
+        "type": "RandomDataset", "train_start_date": TRAIN_START.isoformat(), "train_end_date": end.isoformat(),
+        "tag_list": tag_list(20)}})
+    collection = os.path.join(work_dir, "command", REVISION)
+    output = os.path.join(collection, COMMAND_MACHINE)
+    code, out, err, seconds = run_command(["build", "--print-cv-scores"], {"MACHINE": machine, "OUTPUT_DIR": output})
+    check(code == 0, f"build exited {code}: {err[-2000:]}")
+    scores = [line for line in out.splitlines() if "_fold-" in line]
+    check(len(scores) == 4 * 21 * 7, f"build printed {len(scores)} score lines, not {4 * 21 * 7}")
+    app = build_app(collection, device="cuda")
+    status, body = wsgi_call(app, "GET", "/gordo/v0/smoke/models")
+    check(status == 200 and json.loads(body)["models"] == [COMMAND_MACHINE], f"models: {status} {body[:200]}")
+    frame = request_frame(7)
+    status, answer = wsgi_post(app, f"/gordo/v0/smoke/{COMMAND_MACHINE}/anomaly/prediction", {"X": frame, "y": frame})
+    check(status == 200, f"anomaly request to the built machine answered {status}")
+    confidence = np.array(list(answer["data"]["total-anomaly-confidence"]["total-anomaly-confidence"].values()))
+    check(confidence.shape == (ROWS,) and np.isfinite(confidence).all(), "anomaly confidence not finite")
+    phase("sequential", f"python -m gordo_tpu_torch build (MACHINE, OUTPUT_DIR, --print-cv-scores; {COMMAND_MACHINE}: "
+          f"20 tags, one week of RandomDataProvider readings, hourglass, 5 epochs) exited 0 in {seconds:.2f} s "
+          f"(a new process: import, kernel load, fetch, 3 folds, fit, dump), {len(scores)} score lines "
+          f"({scores[0]}); the port's app on the card serves the artifact: anomaly request 200; {card}")
+    register = os.path.join(work_dir, "register")
+    times_, pickles = [], []
+    for attempt in range(2):
+        target = os.path.join(work_dir, "command-register", str(attempt), COMMAND_MACHINE)
+        code, _, err, seconds = run_command(["build", "--model-register-dir", register],
+                                            {"MACHINE": machine, "OUTPUT_DIR": target})
+        check(code == 0, f"build --model-register-dir exited {code}: {err[-2000:]}")
+        times_.append(seconds)
+        with open(os.path.join(target, serializer.MODEL_FILE), "rb") as f:
+            pickles.append(f.read())
+        retrieved = serializer.load_metadata(target)["metadata"]["user_defined"].get("date_of_retrieval")
+        check((retrieved is not None) == (attempt == 1), f"run {attempt + 1}: date_of_retrieval {retrieved!r}")
+    check(pickles[0] == pickles[1], "the cache hit's model.pkl differs from the registered build's")
+    phase("sequential", f"build --model-register-dir twice: the first built and registered in {times_[0]:.2f} s, the "
+          f"second loaded the registered build (date_of_retrieval stamped, no training) in {times_[1]:.2f} s, "
+          f"model.pkl bytes equal; {card}")
+
+
+def kill_and_resume(work_dir, train_collection, card):
+    """build-fleet of DRILL_MACHINES of [train]'s machines in a subprocess
+    killed by ``GORDO_TPU_FAULTS`` (``os._exit(137)``): DRILL_LEFT complete
+    artifacts and no half-written model directory; then ``--resume``: the
+    DRILL_LEFT resumed from the journal with their ``info.json`` unchanged,
+    the rest built within BUILD_LIMITS of [train]'s artifacts of the same
+    names (or, where the smaller buckets make them differ, of an
+    uninterrupted build of the same shard), and an app listing all of them."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.parallel.journal import BuildJournal, artifact_complete
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    drill_dir = os.path.join(work_dir, "drill")
+    os.makedirs(drill_dir)
+    machines = [m for m in machine_rows() if m[0].startswith("machine-")][:DRILL_MACHINES]
+    config_path, _ = write_project(drill_dir, machines)
+    shard = os.path.join(drill_dir, "shard.json")
+    with open(shard, "w") as f:
+        f.write(normalize(config_path, "smoke"))
+    out = os.path.join(drill_dir, REVISION)
+    code, _, err, killed_s = run_command(["build-fleet", shard, out], {"GORDO_TPU_FAULTS": DRILL_KILL})
+    check(code == 137, f"the killed build-fleet exited {code}, not 137: {err[-2000:]}")
+    left = serializer.list_model_dirs(out)
+    staging = [e for e in os.listdir(out) if serializer.is_staging_dir(e)]
+    check(len(left) == DRILL_LEFT and all(artifact_complete(os.path.join(out, n)) for n in left),
+          f"the kill left {len(left)} model directories ({left}), not {DRILL_LEFT} complete ones")
+    journal = BuildJournal.load(out).machines()
+    check(sorted(n for n, e in journal.items() if e["status"] == "built") == left, "journal and artifacts differ")
+    checksums = {n: serializer.load_info(os.path.join(out, n))["checksum"] for n in left}
+    code, _, err, resume_s = run_command(["build-fleet", shard, out, "--resume"])
+    check(code == 0, f"build-fleet --resume exited {code}: {err[-2000:]}")
+    summary = [line for line in err.splitlines() if "Fleet build complete" in line]
+    expected = f"{DRILL_MACHINES - DRILL_LEFT} built, {DRILL_LEFT} resumed, 0 failed"
+    check(summary and expected in summary[-1], f"the resume reported {summary[-1:]} , not {expected}")
+    check({n: serializer.load_info(os.path.join(out, n))["checksum"] for n in left} == checksums,
+          "a resumed machine's artifact changed")
+    names = serializer.list_model_dirs(out)
+    check(names == sorted(m[0] for m in machines), f"after the resume the revision holds {names}")
+    rebuilt = [n for n in names if n not in left]
+    summaries = {}
+    for directory in (out, train_collection):
+        summaries[directory] = {n: build_summary(serializer.load(os.path.join(directory, n), "cpu"),
+                                                 serializer.load_metadata(os.path.join(directory, n)))
+                                for n in rebuilt}
+    worst, faults = compare_builds(summaries[out], summaries[train_collection])
+    reference = "[train]'s artifacts"
+    if faults:
+        phase("sequential", f"the resumed machines against [train]'s artifacts: {'; '.join(faults[:3])}; building an "
+              f"uninterrupted reference of the same shard")
+        reference_dir = os.path.join(drill_dir, "reference")
+        code, _, err, _ = run_command(["build-fleet", shard, reference_dir])
+        check(code == 0, f"the reference build-fleet exited {code}: {err[-2000:]}")
+        ref = {n: build_summary(serializer.load(os.path.join(reference_dir, n), "cpu"),
+                                serializer.load_metadata(os.path.join(reference_dir, n))) for n in rebuilt}
+        worst, faults = compare_builds(summaries[out], ref)
+        reference = "an uninterrupted build of the same shard"
+    check(not faults, "resumed machines disagree with their reference: " + "; ".join(faults[:5]))
+    app = build_app(out, device="cuda")
+    status, body = wsgi_call(app, "GET", "/gordo/v0/smoke/models")
+    listed = json.loads(body)["models"]
+    check(status == 200 and listed == names, f"the app lists {listed}")
+    phase("sequential", f"kill and resume: build-fleet of {DRILL_MACHINES} [train] machines with GORDO_TPU_FAULTS="
+          f"\"{DRILL_KILL}\" exited 137 after {killed_s:.2f} s with {len(left)} complete artifacts, no half-written "
+          f"model directory ({len(staging)} staging leftovers, hidden), the journal naming the same {len(left)}; "
+          f"--resume exited 0 in {resume_s:.2f} s: {expected}, the resumed info.json checksums unchanged, the "
+          f"{len(rebuilt)} rebuilt within BUILD_LIMITS of {reference} (params max abs {worst[0]:.3e}, thresholds "
+          f"max rel {worst[1]:.3e}, CV scores {worst[2]:.3e}); the app lists all {len(listed)} and no journal or "
+          f"staging entry; {card}")
+
+
+def sequential_phase(work_dir, train_collection, fleet_ms, card):
+    """[sequential]: the sequential builds, the build command and the kill
+    drill. Returns K1's and K2's launches in the sequential builds and their
+    fold forwards (``sequential_builds``)."""
+    t0 = time.perf_counter()
+    launches, cases = sequential_builds(card, fleet_ms)
+    build_command(work_dir, card)
+    kill_and_resume(work_dir, train_collection, card)
+    phase("sequential", f"the phase took {time.perf_counter() - t0:.1f} s")
+    return launches, cases
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """Device ms per call: CUDA events around ``iters`` calls queued behind
     a device sleep that outlasts their enqueueing twice over, so the host's
@@ -2097,7 +2398,7 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
         collection = os.path.join(work_dir, REVISION)
-        names, wide_names, train_launches, cv_cases = train_phase(work_dir, collection)
+        names, wide_names, train_launches, cv_cases, train_ms = train_phase(work_dir, collection)
         check(sorted(cv_cases) == sorted(CV_CASES), f"CV forwards of widths {sorted(cv_cases)}")
         for width, name in CV_CASES.items():
             cv_case = cv_cases[width][0]
@@ -2109,10 +2410,22 @@ def main():
                   f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         config_launches, kfcv_case, kfcv_launches, errors[KFCV_CASE] = config_phase(work_dir)
         t0 = time.perf_counter()
-        lstm_directory, lstm_seeds, lstm_build_launches = lstm_build(work_dir, card)
+        lstm_directory, lstm_seeds, lstm_build_launches, lstm_ms = lstm_build(work_dir, card)
         lstm_serve_launches = lstm_serve(lstm_directory, collection, lstm_seeds, card)
         phase("lstm", f"the phase took {time.perf_counter() - t0:.1f} s ([lstm times] comes later)")
         lstm_launches = {k: lstm_build_launches[k] + lstm_serve_launches[k] for k in ("K1", "K2")}
+        build_launches, sequential_cases = sequential_phase(work_dir, collection, {"train": train_ms, "lstm": lstm_ms},
+                                                            card)
+        check(sorted(sequential_cases) == sorted(SEQUENTIAL_CASES),
+              f"sequential fold forwards of widths {sorted(sequential_cases)}")
+        for width, name in SEQUENTIAL_CASES.items():
+            case = sequential_cases[width][0]
+            shape = (1, TRAIN_ROWS // 4, width)
+            check(tuple(case["X"].shape) == shape, f"the {width}-tag sequential fold forward had shape "
+                  f"{tuple(case['X'].shape)}, not {shape}")
+            errors[name] = compare(case)
+            phase("kernel", f"{name}, a sequential build's own fold params and test rows: max abs "
+                  f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         app = build_app(collection, device="cuda")
         check(len(app.store.fleet().warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
         cpu_app = build_app(collection, device="cpu")
@@ -2155,6 +2468,13 @@ def main():
               f"({cuda_core_ms / kernel:.1%}){served}; {card}")
     for width, name in CV_CASES.items():
         timed[name] = times(cv_cases[width][0])
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms "
+              f"(with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
+              f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+              f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+    for width, name in SEQUENTIAL_CASES.items():
+        timed[name] = times(sequential_cases[width][0])
         kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
         phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms "
               f"(with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
@@ -2222,10 +2542,10 @@ def main():
 
     k1_by_path = {"train": train_launches["K1"], "config": config_launches["K1"], "serve": launches["K1"],
                   "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"], "routes": route_launches["K1"],
-                  "lstm": lstm_launches["K1"]}
+                  "lstm": lstm_launches["K1"], "build": build_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
-                  "lstm": lstm_launches["K2"]}
+                  "lstm": lstm_launches["K2"], "build": build_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -2245,6 +2565,12 @@ def main():
         # launches: the [config] build's KFCV forward, read on the counter
         entry("fleet_dense (K1), narrow kernel, KFCV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
               kfcv_launches, k1_by_path, KFCV_CASE, timed[KFCV_CASE]),
+        # launches: the [sequential] build of that width, one a fold, read on the counter
+        entry("fleet_dense (K1), narrow kernel, sequential fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              sequential_cases[20][1], k1_by_path, SEQUENTIAL_CASES[20], timed[SEQUENTIAL_CASES[20]]),
+        entry("fleet_dense (K1), wide kernel, sequential fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              sequential_cases[WIDE_TAGS][1], k1_by_path, SEQUENTIAL_CASES[WIDE_TAGS],
+              timed[SEQUENTIAL_CASES[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

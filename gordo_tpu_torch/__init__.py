@@ -1,9 +1,10 @@
 """
 gordo_tpu_torch: the PyTorch/CUDA port of gordo-tpu.
 
-The package trains fleets of feedforward autoencoders
+The package trains fleets of feedforward and LSTM autoencoders
 (``parallel/fleet_build.py``: cross-validation thresholds, final fit,
-artifacts) and serves their anomaly scores on an NVIDIA Hopper card. Its
+artifacts; a build journal to resume from), or one machine at a time
+(``builder/``), and serves their anomaly scores on an NVIDIA Hopper card. Its
 whole fleet forward, in serving and in cross-validation scoring, is one
 hand-written CUDA kernel (``ops/csrc/fleet_dense.cu``). It imports
 torch, numpy and the standard library only.

@@ -1,6 +1,19 @@
 """
 The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
 
+- ``build MACHINE OUTPUT_DIR [--device cuda|cpu]``: the JAX package's
+  ``build`` (``gordo_tpu/cli/cli.py:104-244``), what an Argo build pod
+  runs. ``MACHINE`` (default ``$MACHINE``) is one machine's config as JSON
+  or YAML text with its ``project_name``; the sequential
+  ``builder.ModelBuilder`` (or the ``--model-builder-class`` subclass)
+  builds it into ``OUTPUT_DIR`` (default ``$OUTPUT_DIR``, else ``/data``),
+  through the model-register cache with ``--model-register-dir``
+  (``$MODEL_REGISTER_DIR``). ``--print-cv-scores`` prints each CV score
+  as ``<metric>_<fold>=<value>``. The exit codes and the failure report
+  are ``build-fleet``'s. ``--model-parameter`` is refused: it renders the
+  model config as a Jinja template, and the port has no Jinja
+  (``ROADMAP.md`` queue 1, item 13). Unlike the JAX command, the port
+  records the model definition as given, without every default filled in.
 - ``build-fleet MACHINES_CONFIG OUTPUT_DIR [--device cuda|cpu]``: the JAX
   package's ``build-fleet`` (``gordo_tpu/cli/cli.py:558-725``). It builds
   every machine of a shard (a path to, or the text of, a ``machines:``
@@ -11,10 +24,11 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   ``fleet-build``. It exits with the code of the exception that failed
   it (:data:`EXIT_CODES`); when some machines fail and the rest are
   dumped, with the first failure's; ``--exceptions-reporter-file`` writes
-  the JSON report. ``--resume``, ``--plan-strategy``, ``--plan-from``,
-  ``--cost-table`` and ``--model-register-dir`` are refused: the port has
-  no build journal, planner or model register yet (``ROADMAP.md`` queue
-  1, items 7 and 8).
+  the JSON report. ``--resume`` (``$FLEET_RESUME``) finishes a build that
+  was cut short, from its journal; ``--model-register-dir`` shares the
+  model-register cache with other builds. ``--plan-strategy``,
+  ``--plan-from`` and ``--cost-table`` are refused: the port has no
+  packing planner yet (``ROADMAP.md`` queue 1, item 7).
 - ``normalize CONFIG PROJECT``: the shard of a project config, what
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator.py::normalize``), printed or written to
@@ -32,6 +46,7 @@ from ..dataset.exceptions import ConfigException, InsufficientDataError, NoSuita
 from ..dataset.sensor_tag import SensorTagNormalizationError
 from ..machine import Machine
 from ..utils import yaml_lite
+from ..utils.env import env_bool
 from .exceptions_reporter import ExceptionsReporter, ReportLevel
 
 logger = logging.getLogger(__name__)
@@ -51,14 +66,77 @@ EXIT_CODES = (
 )
 _reporter = ExceptionsReporter(EXIT_CODES)
 
-#: the JAX command's options that the port refuses, and why
+#: the JAX commands' options that the port refuses, and why
 _REFUSED = {
-    "resume": "--resume needs the build journal (ROADMAP.md queue 1, item 8)",
     "plan_strategy": "--plan-strategy needs the packing planner (ROADMAP.md queue 1, item 7)",
     "plan_from": "--plan-from needs the packing planner (ROADMAP.md queue 1, item 7)",
     "cost_table": "--cost-table needs the packing planner's cost model (ROADMAP.md queue 1, item 7)",
-    "model_register_dir": "--model-register-dir needs the model-register cache (ROADMAP.md queue 1, item 8)",
+    "model_parameter": "--model-parameter renders the model config with Jinja (ROADMAP.md queue 1, item 13)",
 }
+
+
+def _report(exceptions_reporter_file: Optional[str], exceptions_report_level: str) -> int:
+    """Print the exception being handled, write its report when asked, and
+    return its exit code."""
+    traceback.print_exc()
+    exc_type, exc_value, exc_traceback = sys.exc_info()
+    if exceptions_reporter_file:
+        level = ReportLevel.get_by_name(exceptions_report_level.upper(), ReportLevel.EXIT_CODE)
+        # a Kubernetes termination message holds 2024 bytes; room for the JSON around it
+        _reporter.safe_report(level, exc_type, exc_value, exc_traceback, exceptions_reporter_file,
+                              max_message_len=2024 - 500)
+    return _reporter.exception_exit_code(exc_type)
+
+
+def get_all_score_strings(machine: Machine) -> List[str]:
+    """Each CV score of a built machine as ``<metric>_<fold>=<value>``
+    (spaces dashed), the lines a hyperparameter tuner reads off a build
+    pod's log (``cli.py:230-244``).
+
+    >>> m = Machine.from_dict({"name": "m", "project_name": "p", "model": {}, "dataset": {"type": "RandomDataset",
+    ...     "train_start_date": "2020-01-01T00:00:00+00:00", "train_end_date": "2020-01-02T00:00:00+00:00",
+    ...     "tag_list": ["a"]}})
+    >>> m.metadata["build_metadata"]["model"]["cross_validation"]["scores"] = {"r2 score": {"fold-1": 0.5}}
+    >>> get_all_score_strings(m)
+    ['r2-score_fold-1=0.5']
+    """
+    scores = machine.metadata["build_metadata"]["model"]["cross_validation"]["scores"]
+    return [
+        f"{metric.replace(' ', '-')}_{name.replace(' ', '-')}={value}"
+        for metric, values in scores.items()
+        for name, value in values.items()
+    ]
+
+
+def build(
+    machine_config: str,
+    output_dir: str,
+    device: Optional[str] = None,
+    model_register_dir: Optional[str] = None,
+    model_builder_class: Optional[str] = None,
+    print_cv_scores: bool = False,
+    exceptions_reporter_file: Optional[str] = None,
+    exceptions_report_level: str = ReportLevel.MESSAGE.name,
+) -> int:
+    """The ``build`` command: build one machine (``machine_config``, its
+    JSON or YAML text) into ``output_dir``; the exit code."""
+    from ..builder import create_model_builder
+
+    try:
+        config = yaml_lite.safe_load(machine_config)
+        if not isinstance(config, dict):
+            raise ValueError(f"MACHINE must be a mapping, got {type(config).__name__}")
+        machine = Machine.from_config(config, project_name=config["project_name"])
+        logger.info("Building, output will be at: %s", output_dir)
+        logger.info("Register dir: %s", model_register_dir)
+        builder = create_model_builder(model_builder_class)(machine, device=device)
+        _, machine_out = builder.build(output_dir, model_register_dir)
+        if print_cv_scores:
+            for score in get_all_score_strings(machine_out):
+                print(score)
+        return 0
+    except Exception:
+        return _report(exceptions_reporter_file, exceptions_report_level)
 
 
 def load_fleet_machines(machines_config: str) -> List[Machine]:
@@ -84,6 +162,8 @@ def build_fleet(
     device: Optional[str] = None,
     exceptions_reporter_file: Optional[str] = None,
     exceptions_report_level: str = ReportLevel.MESSAGE.name,
+    resume: bool = False,
+    model_register_dir: Optional[str] = None,
 ) -> Tuple[int, Optional[object]]:
     """The ``build-fleet`` command: its exit code and the ``FleetBuilder``
     (None when the shard did not load)."""
@@ -94,20 +174,15 @@ def build_fleet(
         machines = load_fleet_machines(machines_config)
         logger.info("Fleet-building %d machines; output at %s", len(machines), output_dir)
         builder = FleetBuilder(machines, device=device)
-        results = builder.build(output_dir)
-        logger.info("Fleet build complete: %d built, %d failed", len(results), len(builder.build_errors))
+        results = builder.build(output_dir, model_register_dir=model_register_dir, resume=resume)
+        logger.info("Fleet build complete: %d built, %d resumed, %d failed", len(results), len(builder.resumed),
+                    len(builder.build_errors))
         if builder.build_errors:
             _, exc = next(iter(builder.build_errors.items()))
             raise exc
         return 0, builder
     except Exception:
-        traceback.print_exc()
-        exc_type, exc_value, exc_traceback = sys.exc_info()
-        if exceptions_reporter_file:
-            level = ReportLevel.get_by_name(exceptions_report_level.upper(), ReportLevel.EXIT_CODE)
-            _reporter.safe_report(level, exc_type, exc_value, exc_traceback, exceptions_reporter_file,
-                                  max_message_len=2024 - 500)
-        return _reporter.exception_exit_code(exc_type), builder
+        return _report(exceptions_reporter_file, exceptions_report_level), builder
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -115,20 +190,35 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--log-level", default="INFO")
     commands = parser.add_subparsers(dest="command", required=True)
 
+    def reporting(command: argparse.ArgumentParser) -> None:
+        command.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        command.add_argument("--exceptions-reporter-file", default=os.environ.get("EXCEPTIONS_REPORTER_FILE"))
+        command.add_argument("--exceptions-report-level", type=str.upper, choices=ReportLevel.get_names(),
+                             default=os.environ.get("EXCEPTIONS_REPORT_LEVEL", "MESSAGE"))
+        command.add_argument("--model-register-dir", default=os.environ.get("MODEL_REGISTER_DIR"))
+
+    one = commands.add_parser("build", help="build one machine with the sequential builder")
+    one.add_argument("machine_config", nargs="?", default=os.environ.get("MACHINE"),
+                     help="the machine's config, JSON or YAML text (default $MACHINE)")
+    one.add_argument("output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR", "/data"),
+                     help="where the artifact goes (default $OUTPUT_DIR, else /data)")
+    reporting(one)
+    one.add_argument("--model-builder-class", default=os.environ.get("MODEL_BUILDER_CLASS"),
+                     help="a subclass of gordo_tpu_torch.builder.build_model.ModelBuilder, as module.path.Name")
+    one.add_argument("--print-cv-scores", action="store_true", help="print the CV scores to stdout")
+    one.add_argument("--model-parameter", action="append", default=[])
+
     build = commands.add_parser("build-fleet", help="build every machine of a shard")
     build.add_argument("machines_config", nargs="?", default=os.environ.get("MACHINES_CONFIG"),
                        help="path to, or text of, the machines document (default $MACHINES_CONFIG)")
     build.add_argument("output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR", "/data"),
                        help="where the artifacts go (default $OUTPUT_DIR, else /data)")
-    build.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    build.add_argument("--exceptions-reporter-file", default=os.environ.get("EXCEPTIONS_REPORTER_FILE"))
-    build.add_argument("--exceptions-report-level", default=os.environ.get("EXCEPTIONS_REPORT_LEVEL", "MESSAGE"),
-                       type=str.upper, choices=ReportLevel.get_names())
-    build.add_argument("--resume", action="store_true", default=bool(os.environ.get("FLEET_RESUME")))
+    reporting(build)
+    build.add_argument("--resume", action="store_true", default=env_bool("FLEET_RESUME", False),
+                       help="skip the machines the output directory's journal has built (default $FLEET_RESUME)")
     build.add_argument("--plan-strategy", default=None)
     build.add_argument("--plan-from", default=None)
     build.add_argument("--cost-table", default=None)
-    build.add_argument("--model-register-dir", default=os.environ.get("MODEL_REGISTER_DIR"))
 
     normalize = commands.add_parser("normalize", help="print the shard of a project config")
     normalize.add_argument("config", help="the project's YAML config (a CRD document or its spec.config)")
@@ -153,10 +243,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(document)
         return 0
     for option, reason in _REFUSED.items():
-        if getattr(args, option):
+        if getattr(args, option, None):
             parser.error(f"{reason}, which gordo_tpu_torch does not have yet")
+    if args.command == "build":
+        if not args.machine_config:
+            parser.error("MACHINE is required (argument or $MACHINE)")
+        return build(args.machine_config, args.output_dir, args.device, args.model_register_dir,
+                     args.model_builder_class, args.print_cv_scores, args.exceptions_reporter_file,
+                     args.exceptions_report_level)
     if not args.machines_config:
         parser.error("MACHINES_CONFIG is required (argument or $MACHINES_CONFIG)")
     code, _ = build_fleet(args.machines_config, args.output_dir, args.device, args.exceptions_reporter_file,
-                          args.exceptions_report_level)
+                          args.exceptions_report_level, args.resume, args.model_register_dir)
     return code

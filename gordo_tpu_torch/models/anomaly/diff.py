@@ -3,10 +3,16 @@ The ``DiffBasedAnomalyDetector`` of ``gordo_tpu/models/anomaly/diff.py``:
 the base estimator (a pipeline of the input scaler and the autoencoder),
 the error ``scaler``, the fitted ``feature_thresholds_`` /
 ``aggregate_threshold_``, ``require_thresholds``, ``shuffle``, ``window``
-and ``smoothing_method``. The fleet builder (``parallel/fleet_build.py``)
-trains it: the autoencoder on rows in ``sklearn.utils.shuffle``'s order
-when ``shuffle`` is set, the thresholds from cross-validation, the error
-scaler on ``y``.
+and ``smoothing_method``. Two builders train it. The sequential one
+(``builder/build_model.py``) calls :meth:`DiffBasedAnomalyDetector.fit`
+(the base estimator on rows in ``sklearn.utils.shuffle``'s order when
+``shuffle`` is set, then the error scaler on ``y``) and
+:meth:`DiffBasedAnomalyDetector.cross_validate` (``diff.py:149-228``). The
+fleet builder (``parallel/fleet_build.py``) trains every fold of every
+machine at once and hands each fold's errors to the same threshold
+functions: :func:`fold_errors`, :func:`rolling_min_max`,
+:meth:`DiffBasedAnomalyDetector.fold_thresholds` and
+:meth:`DiffBasedAnomalyDetector.set_fold_thresholds`.
 
 The anomaly math itself lives in ``server/wire/assemble.py``, composed as
 numpy columns around the fused reconstruction, as the JAX server's
@@ -17,12 +23,14 @@ rolling median, rolling mean and ``ewm`` in numpy) lives here and serves
 both ``?all_columns`` and the KFCV thresholds.
 
 ``DiffBasedKFCVAnomalyDetector`` is the KFold variant
-(``diff.py:365-462``): the fleet builder cross-validates it with
-``KFold(5, shuffle=True, random_state=0)`` and stitches the folds'
-errors back into row order; its thresholds are the
-``threshold_percentile`` quantile of the smoothed errors
-(:meth:`DiffBasedKFCVAnomalyDetector.calculate_threshold`). It keeps no
-per-fold or smoothed thresholds, and serves without them.
+(``diff.py:365-462``): cross-validated with ``KFold(5, shuffle=True,
+random_state=0)`` by the fleet builder and by default, with the
+evaluation's splitter by the sequential builder, its folds' errors
+stitched back into row order
+(:meth:`DiffBasedKFCVAnomalyDetector.set_kfcv_thresholds`); its
+thresholds are the ``threshold_percentile`` quantile of the smoothed
+errors (:meth:`DiffBasedKFCVAnomalyDetector.calculate_threshold`). It
+keeps no per-fold or smoothed thresholds, and serves without them.
 
 :meth:`DiffBasedAnomalyDetector.from_state` builds a detector from plain
 numpy/JSON state, which is how a JAX-built detector crosses into the
@@ -30,13 +38,14 @@ port.
 """
 
 import warnings
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ... import DeviceLike
 from ..estimators import TorchAutoEncoder, TorchLSTMAutoEncoder, TorchLSTMForecast
 from ..metrics import explained_variance_score
+from ..model_selection import KFold, TimeSeriesSplit, cross_validate, shuffle_indices
 from ..preprocessing import MinMaxScaler, Pipeline
 from ..spec import LSTMSpec, spec_from_dict
 
@@ -98,6 +107,39 @@ def _ewma(values: np.ndarray, span: int) -> np.ndarray:
     return out.reshape(values.shape)
 
 
+def rolling_min_max(values: np.ndarray, window: int):
+    """
+    ``pd.Series(values).rolling(window).min().max()`` in numpy: the max
+    over time of the minimum of each ``window``-row run. A run holding a
+    NaN has a NaN minimum and is skipped by the max; no complete run, or
+    only NaN ones, gives NaN. ``[n]`` gives a float, ``[n, k]`` a ``[k]``.
+
+    >>> rolling_min_max(np.array([3.0, 1.0, 4.0, 1.0, 5.0, 9.0]), 2)
+    5.0
+    """
+    values = np.asarray(values, np.float64)
+    if len(values) < window:
+        return np.nan if values.ndim == 1 else np.full(values.shape[1], np.nan)
+    mins = np.lib.stride_tricks.sliding_window_view(values, window, axis=0).min(axis=-1)
+    if np.isnan(mins).any():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN slice
+            out = np.nanmax(mins, axis=0)
+    else:
+        out = mins.max(axis=0)
+    return float(out) if values.ndim == 1 else out
+
+
+def fold_errors(scaler: MinMaxScaler, y_true, y_pred) -> Tuple[np.ndarray, np.ndarray]:
+    """A fold's errors on its test rows: each row's MSE between the
+    prediction and ``y_true`` after the fold model's error ``scaler``, and
+    the absolute error of each tag (``_scaled_mse_per_timestep``,
+    ``_absolute_error``)."""
+    y_true = np.asarray(y_true)
+    scaled_mse = np.mean(np.square(scaler.transform(y_pred) - scaler.transform(y_true)), axis=1)
+    return scaled_mse, np.abs(y_true - np.asarray(y_pred))
+
+
 class DiffBasedAnomalyDetector:
     """Diff-error anomaly detection around ``base_estimator``."""
 
@@ -131,6 +173,85 @@ class DiffBasedAnomalyDetector:
         self.aggregate_threshold_ = (
             None if aggregate_threshold is None else float(aggregate_threshold)
         )
+
+    def get_params(self, deep: bool = False) -> dict:
+        return {
+            "base_estimator": self.base_estimator,
+            "scaler": self.scaler,
+            "require_thresholds": self.require_thresholds,
+            "window": self.window,
+            "smoothing_method": self.smoothing_method,
+            "shuffle": self.shuffle,
+        }
+
+    def fit(self, X, y, **fit_kwargs) -> "DiffBasedAnomalyDetector":
+        """Fit the base estimator (on ``shuffle_indices(n, 0)``'s row
+        order when ``shuffle`` is set; ``fit_kwargs`` go to its ``fit``),
+        then the error scaler on ``y``."""
+        X, y = np.asarray(X), np.asarray(y)
+        if self.shuffle:
+            order = shuffle_indices(len(X), random_state=0)
+            self.base_estimator.fit(X[order], y[order], **fit_kwargs)
+        else:
+            self.base_estimator.fit(X, y, **fit_kwargs)
+        self.scaler.fit(y)
+        return self
+
+    def cross_validate(self, *, X, y, cv: Any = None, **kwargs) -> Dict[str, Any]:
+        """
+        :func:`~..model_selection.cross_validate` of this detector (default
+        ``TimeSeriesSplit(3)``; ``kwargs`` pass on, ``scoring`` and
+        ``fit_params`` among them), then its thresholds from each fold's
+        errors on its test rows, the last rows of the fold as many as the
+        model's output has (an LSTM's is shorter): per fold, and the last
+        fold's as the thresholds. The per-fold smoothed thresholds are
+        empty without a ``window``, as the JAX detector leaves them.
+        """
+        cv = cv if cv is not None else TimeSeriesSplit(n_splits=3)
+        kwargs.update(return_estimator=True, return_indices=True, return_predictions=True)
+        out = cross_validate(self, X, y, cv=cv, **kwargs)
+        y = np.asarray(y)
+        folds = []
+        for test, fold_model, y_pred in zip(out["indices"]["test"], out["estimator"], out.pop("predictions")):
+            test = test[len(test) - len(y_pred):]
+            folds.append(self.fold_thresholds(*fold_errors(fold_model.scaler, y[test], y_pred)))
+        self.set_fold_thresholds(folds, range(y.shape[1]))
+        if self.window is None:
+            self.smooth_feature_thresholds_per_fold_ = {}
+            self.smooth_aggregate_thresholds_per_fold_ = {}
+        return out
+
+    def fold_thresholds(self, scaled_mse: np.ndarray, abs_err: np.ndarray) -> Dict[str, Any]:
+        """One fold's thresholds from its errors: the max over time of the
+        6-row rolling minimum, and of the ``window``-row one when the
+        detector smooths."""
+        out = {"aggregate": rolling_min_max(scaled_mse, 6), "feature": rolling_min_max(abs_err, 6)}
+        if self.window is not None:
+            out["smooth_aggregate"] = rolling_min_max(scaled_mse, self.window)
+            out["smooth_feature"] = rolling_min_max(abs_err, self.window)
+        return out
+
+    def set_fold_thresholds(self, folds: Sequence[Dict[str, Any]], columns: Sequence[Any]) -> None:
+        """Set the thresholds from :meth:`fold_thresholds` of every fold in
+        order: each fold's as ``fold-<i>`` (a feature's keyed by its column
+        name, as ``DataFrame(folds).T.to_dict()`` keys them), the last
+        fold's as the detector's."""
+        columns = list(columns)
+
+        def per_column(key: str) -> Dict[Any, Dict[str, float]]:
+            return {col: {f"fold-{i}": float(f[key][j]) for i, f in enumerate(folds)} for j, col in enumerate(columns)}
+
+        last = folds[-1]
+        self.feature_thresholds_ = np.asarray(last["feature"], np.float64)
+        self.aggregate_threshold_ = last["aggregate"]
+        self.feature_thresholds_per_fold_ = per_column("feature")
+        self.aggregate_thresholds_per_fold_ = {f"fold-{i}": f["aggregate"] for i, f in enumerate(folds)}
+        self.smooth_aggregate_threshold_ = last.get("smooth_aggregate")
+        self.smooth_feature_thresholds_ = last.get("smooth_feature")
+        if self.window is not None:
+            self.smooth_feature_thresholds_per_fold_ = per_column("smooth_feature")
+            self.smooth_aggregate_thresholds_per_fold_ = {
+                f"fold-{i}": f["smooth_aggregate"] for i, f in enumerate(folds)}
 
     def predict(self, X) -> np.ndarray:
         return self.base_estimator.predict(X)
@@ -268,6 +389,38 @@ class DiffBasedKFCVAnomalyDetector(DiffBasedAnomalyDetector):
             "shuffle": self.shuffle,
             "threshold_percentile": self.threshold_percentile,
         }
+
+    def cross_validate(self, *, X, y, cv: Any = None, **kwargs) -> Dict[str, Any]:
+        """:func:`~..model_selection.cross_validate` of this detector (default
+        ``KFold(5, shuffle=True, random_state=0)``), then the thresholds of
+        :meth:`set_kfcv_thresholds` from every fold's test rows
+        (``diff.py:422-462``). A fold whose prediction is shorter than its
+        test rows (an LSTM's) raises ``ValueError``."""
+        cv = cv if cv is not None else KFold(n_splits=5, shuffle=True, random_state=0)
+        kwargs.update(return_estimator=True, return_indices=True, return_predictions=True)
+        out = cross_validate(self, X, y, cv=cv, **kwargs)
+        y = np.asarray(y)
+        parts = []
+        for test, fold_model, y_pred in zip(out["indices"]["test"], out["estimator"], out.pop("predictions")):
+            if len(y_pred) != len(test):
+                raise ValueError(f"shape mismatch: a prediction of {len(y_pred)} rows for {len(test)} test rows")
+            parts.append((test, *fold_errors(fold_model.scaler, y[test], y_pred)))
+        self.set_kfcv_thresholds(y, parts)
+        return out
+
+    def set_kfcv_thresholds(self, y: np.ndarray, parts: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]]) -> None:
+        """The thresholds of every fold's ``(test rows, scaled MSE, absolute
+        error)`` stitched into row order: a row no fold tested has a NaN
+        MSE and its absolute error against a prediction of 0, as the JAX
+        detector's zero-filled frame gives."""
+        y = np.asarray(y, np.float64)
+        mse_full = np.full(len(y), np.nan)
+        abs_full = np.abs(y)
+        for rows, mse_part, abs_part in parts:
+            mse_full[rows] = mse_part
+            abs_full[rows] = abs_part
+        self.aggregate_threshold_ = float(self.calculate_threshold(mse_full))
+        self.feature_thresholds_ = self.calculate_threshold(abs_full)
 
     def calculate_threshold(self, values: np.ndarray) -> Any:
         """``_calculate_threshold``: the ``threshold_percentile`` quantile

@@ -2,8 +2,9 @@
 The port's ``JaxAutoEncoder`` (``gordo_tpu/models/estimators.py``):
 ``spec_``, ``params_`` and ``predict`` for serving, and the fit side
 (``:143-263``): the definition's ``kind`` and kwargs (factory and fit
-kwargs alike), ``fit``, which trains a fleet of one through
-``parallel.fleet.FleetTrainer``, and the fit ``history``.
+kwargs alike), ``fit``, which trains one model as the JAX estimator's
+``fit_single`` does (``parallel.fleet.FleetTrainer.fit_single``), the
+fit ``history``, and ``get_params`` for ``preprocessing.clone``.
 
 :class:`TorchLSTMAutoEncoder` (lookahead 0) and :class:`TorchLSTMForecast`
 (lookahead 1) are the JAX package's ``JaxLSTMAutoEncoder`` and
@@ -104,11 +105,23 @@ class TorchAutoEncoder:
         factory_kwargs.update(n_features=n_features, n_features_out=n_features_out)
         return self.KINDS[self.kind](**factory_kwargs)
 
+    def get_params(self, deep: bool = False) -> Dict[str, Any]:
+        """The constructor's arguments: ``kind`` and the kwargs (the spec
+        when the estimator has no kind), and the device."""
+        params: Dict[str, Any] = {"device": self.device}
+        if self.kind is None:
+            params["spec"] = self.spec_
+        else:
+            params["kind"] = self.kind
+        params.update(self.kwargs)
+        return params
+
     def fit(self, X, y, random: Any = None) -> "TorchAutoEncoder":
-        """Train on ``X[rows, n_features]`` towards ``y`` as a fleet of one
-        on the estimator's device (``random``: the trainer's random
-        source, default ``TorchRandom``). Host callbacks other than
-        ``EarlyStopping`` are refused."""
+        """Train on ``X[rows, n_features]`` towards ``y`` on the
+        estimator's device, as the JAX estimator's ``fit_single`` does
+        (``random``: the trainer's random source, default
+        ``TorchRandom``). Host callbacks other than ``EarlyStopping`` are
+        refused."""
         from ..parallel.fleet import FleetMember, FleetTrainer
 
         X_arr = np.asarray(X, np.float32)
@@ -121,11 +134,10 @@ class TorchAutoEncoder:
         config, host_callbacks = fit_config_from_kwargs(fit_kwargs)
         if host_callbacks:
             raise NotImplementedError(f"host callbacks are not supported: {host_callbacks!r}")
+        self.kwargs.update(n_features=X_arr.shape[-1], n_features_out=y_arr.shape[-1])
         self.spec_ = self.build_spec(X_arr.shape[-1], y_arr.shape[-1])
         member = FleetMember("estimator", self.spec_, X_arr, y_arr, seed=int(fit_kwargs.get("seed", 42)))
-        result = FleetTrainer(self.device, random).train([member], config)[0]
-        if result.error is not None:
-            raise result.error
+        result = FleetTrainer(self.device, random).fit_single(member, config)
         self.params_ = params_from_jax(result.params, self.device)
         self._history = result.history
         return self
@@ -240,8 +252,10 @@ class TorchLSTMBaseEstimator(TorchAutoEncoder):
 
     def fit(self, X, y, random: Any = None) -> "TorchLSTMBaseEstimator":
         """Train on the windows of ``X[rows, n_features]`` towards ``y``'s
-        rows ``offset`` on, as a windowed fleet of one, never shuffled
-        (``random``: the trainer's random source, default ``TorchRandom``)."""
+        rows ``offset`` on, never shuffled, as the JAX estimator's
+        ``fit_single`` over its windows does, the windows gathered on the
+        device (``random``: the trainer's random source, default
+        ``TorchRandom``)."""
         from ..parallel.fleet import FleetTrainer, WindowedFleetMember
 
         X_arr = self._checked(X)
@@ -255,14 +269,13 @@ class TorchLSTMBaseEstimator(TorchAutoEncoder):
         config, host_callbacks = fit_config_from_kwargs(fit_kwargs)
         if host_callbacks:
             raise NotImplementedError(f"host callbacks are not supported: {host_callbacks!r}")
+        self.kwargs.update(n_features=X_arr.shape[-1], n_features_out=y_arr.shape[-1])
         self.spec_ = self.build_spec(X_arr.shape[-1], y_arr.shape[-1])
         member = WindowedFleetMember(
             "estimator", self.spec_, X_arr, window_targets(y_arr, self.lookback_window, self.lookahead),
             seed=int(fit_kwargs.get("seed", 42)),
         )
-        result = FleetTrainer(self.device, random).train([member], config)[0]
-        if result.error is not None:
-            raise result.error
+        result = FleetTrainer(self.device, random).fit_single(member, config)
         self.params_ = params_from_jax(result.params, self.device)
         self._history = result.history
         return self

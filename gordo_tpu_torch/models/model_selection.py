@@ -11,12 +11,19 @@ The scikit-learn splitters and shuffles a fleet build uses, in numpy:
   ``arange(n)``;
 - :class:`KFold`, ``sklearn.model_selection.KFold``: the
   ``DiffBasedKFCVAnomalyDetector``'s CV, ``KFold(5, shuffle=True,
-  random_state=0)`` (``fleet_build.py:1445-1447``).
+  random_state=0)`` (``fleet_build.py:1445-1447``);
+- :func:`cross_validate`, ``sklearn.model_selection.cross_validate`` as
+  the sequential ``ModelBuilder`` calls it: a clone of the estimator
+  fitted on each fold's train rows, one fold after another, and scored
+  on its test rows.
 """
 
-from typing import Iterator, Tuple
+import time
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
+
+from .preprocessing import clone
 
 
 class TimeSeriesSplit:
@@ -96,3 +103,61 @@ class KFold:
             mask[test] = True
             yield np.flatnonzero(~mask), np.flatnonzero(mask)
             current += size
+
+
+#: a scorer of :func:`cross_validate`: ``(y_true, y_pred) -> float``
+Scorer = Callable[[np.ndarray, np.ndarray], float]
+
+
+def cross_validate(
+    estimator: Any,
+    X,
+    y,
+    scoring: Optional[Mapping[str, Scorer]] = None,
+    cv: Any = None,
+    return_estimator: bool = False,
+    return_indices: bool = False,
+    return_predictions: bool = False,
+    fit_params: Optional[Mapping[str, Any]] = None,
+) -> Dict[str, Any]:
+    """
+    ``sklearn.model_selection.cross_validate`` with its keys: for each fold
+    of ``cv`` (default ``KFold(5)``), a :func:`~.preprocessing.clone` of
+    ``estimator`` fitted on the fold's train rows (``fit_params`` go to
+    its ``fit``), its ``predict`` on the test rows, and each scorer of
+    ``scoring`` on ``(y_test, prediction)``; ``fit_time``,
+    ``score_time`` (seconds) and ``test_<name>`` arrays, and with
+    ``return_estimator`` the fitted clones, with ``return_indices`` the
+    ``{"train": [...], "test": [...]}`` rows. A scorer takes the targets
+    and the prediction rather than scikit-learn's ``(estimator, X, y)``,
+    so one ``predict`` a fold serves them all; ``return_predictions``
+    keeps those predictions (``predictions``) for a caller that needs
+    them too.
+    """
+    X, y = np.asarray(X), np.asarray(y)
+    cv = cv if cv is not None else KFold(n_splits=5)
+    scoring = dict(scoring or {})
+    out: Dict[str, Any] = {"fit_time": [], "score_time": [], **{f"test_{name}": [] for name in scoring}}
+    estimators, indices, predictions = [], {"train": [], "test": []}, []
+    for train, test in cv.split(X):
+        fold = clone(estimator)
+        start = time.time()
+        fold.fit(X[train], y[train], **(fit_params or {}))
+        out["fit_time"].append(time.time() - start)
+        start = time.time()
+        y_pred = fold.predict(X[test])
+        for name, scorer in scoring.items():
+            out[f"test_{name}"].append(scorer(y[test], y_pred))
+        out["score_time"].append(time.time() - start)
+        estimators.append(fold)
+        indices["train"].append(train)
+        indices["test"].append(test)
+        predictions.append(y_pred)
+    out = {key: np.asarray(values, np.float64) for key, values in out.items()}
+    if return_estimator:
+        out["estimator"] = estimators
+    if return_indices:
+        out["indices"] = indices
+    if return_predictions:
+        out["predictions"] = predictions
+    return out

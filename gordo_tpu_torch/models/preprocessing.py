@@ -9,10 +9,15 @@ sklearn's (``scale_``, ``min_``, float64) and ``transform`` is
 ``X * scale_ + min_``, as sklearn's is.
 
 :class:`Pipeline` is the ``sklearn.pipeline.Pipeline`` stand-in: named
-steps, transformers first, the estimator last.
+steps, transformers first, the estimator last; ``fit`` fits each
+transformer on what the one before gives, then the estimator.
+
+:func:`clone` is ``sklearn.base.clone`` for the port's objects: a fresh,
+unfitted copy with the same constructor parameters (``get_params``).
 """
 
-from typing import Any, List, Sequence, Tuple
+import copy
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -42,8 +47,11 @@ class MinMaxScaler:
         self.min_ = low - data_min * self.scale_
         return self
 
-    def fit_transform(self, X) -> np.ndarray:
+    def fit_transform(self, X, y=None) -> np.ndarray:
         return self.fit(X).transform(X)
+
+    def get_params(self, deep: bool = False) -> Dict[str, Any]:
+        return {"feature_range": self.feature_range}
 
     def transform(self, X) -> np.ndarray:
         if self.scale_ is None:
@@ -83,8 +91,42 @@ class Pipeline:
             X = step.transform(X)
         return X
 
+    def fit(self, X, y, **fit_kwargs) -> "Pipeline":
+        """Fit each transformer on the output of the ones before it, then
+        the estimator on the result towards ``y`` (``fit_kwargs`` go to
+        the estimator's ``fit``)."""
+        X = np.asarray(X, np.float64)
+        for step in self.transformers:
+            X = step.fit_transform(X)
+        self.estimator.fit(X, y, **fit_kwargs)
+        return self
+
+    def fit_transform(self, X, y) -> np.ndarray:
+        return self.fit(X, y).predict(X)
+
     def predict(self, X) -> np.ndarray:
         return self.estimator.predict(self.transform_input(X))
 
+    def get_params(self, deep: bool = False) -> Dict[str, Any]:
+        return {"steps": self.steps}
+
     def __repr__(self):
         return f"Pipeline(steps={self.steps!r})"
+
+
+def clone(obj: Any) -> Any:
+    """A fresh unfitted copy of a port estimator, detector, pipeline or
+    scaler: its class made again from ``get_params()``, each parameter
+    cloned in turn (lists and tuples item by item); a value without
+    ``get_params`` is deep-copied.
+
+    >>> s = MinMaxScaler(feature_range=(0, 2)).fit(np.ones((2, 1)))
+    >>> c = clone(s)
+    >>> c.feature_range, c.scale_
+    ((0, 2), None)
+    """
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(clone(item) for item in obj)
+    if not hasattr(obj, "get_params"):
+        return copy.deepcopy(obj)
+    return type(obj)(**{name: clone(value) for name, value in obj.get_params(deep=False).items()})

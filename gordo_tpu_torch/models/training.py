@@ -235,13 +235,16 @@ class StackedFit:
         wtr: torch.Tensor,
         wval: torch.Tensor,
         perms: Optional[torch.Tensor],
+        val: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> FitOutput:
         """
         Train ``params`` (stacked, float32, on X's device; updated in
         place) on ``X[M, n, ...]``, ``y[M, n, F_out]`` (``y`` may be ``X``)
         with weights ``wtr``/``wval`` ``[M, n]`` (``n`` a whole number of
         batches), shuffling each epoch by ``perms[M, epochs, n]`` when the
-        config shuffles.
+        config shuffles. With ``val = (X_val, y_val)`` validation runs on
+        those rows instead, ``wval`` their weights (``fit_single``'s
+        separate validation arrays).
         """
         B = self.config.batch_size
         n = wtr.shape[1]
@@ -263,7 +266,12 @@ class StackedFit:
             for s in range(0, n, B):
                 yield Xe[:, s:s + B], ye[:, s:s + B], we[:, s:s + B]
 
-        return self._fit(params, wtr, wval, batches, lambda: self.evaluate(params, X, y, wval))
+        if val is None:
+            X_val, y_val = X, y
+        else:
+            X_val = val[0].to(dtype)
+            y_val = X_val if val[1] is val[0] else val[1].to(dtype)
+        return self._fit(params, wtr, wval, batches, lambda: self.evaluate(params, X_val, y_val, wval))
 
     def _fit(
         self,

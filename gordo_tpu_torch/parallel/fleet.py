@@ -27,6 +27,11 @@ fails on the device is bisected until the failure is isolated to one
 member, which then gets a :class:`FleetResult` with ``error`` set
 (``fleet.py:612-662``); host errors raise.
 
+:meth:`FleetTrainer.fit_single` trains one member as the JAX package's
+sequential ``fit_single`` does (the estimators' ``fit``, so the
+sequential ``ModelBuilder``): train rows padded to whole batches, not
+to a power of two, validation apart.
+
 :meth:`FleetTrainer.predict_bucket` forwards a whole bucket through
 ``ops/fleet_dense.py::fleet_feedforward``: K1 on a CUDA device, its
 plain version because the tensors lie on the CPU otherwise.
@@ -286,6 +291,54 @@ class FleetTrainer:
             return
         for result in results:
             by_name[result.name] = result
+
+    def fit_single(self, member, config: FitConfig) -> FleetResult:
+        """
+        Train one member as the JAX package's sequential fit does
+        (``gordo_tpu/models/training.py::fit_single``, ``:692-775``, the fit
+        of ``JaxAutoEncoder`` and of an LSTM estimator over its windows): the
+        last ``int(n * validation_split)`` samples validate, the batch is at
+        most the train samples, the train samples are padded to whole
+        batches with the last one repeated at weight 0, and each epoch
+        permutes those padded samples alone. A fleet bucket pads to a power
+        of two instead and so sees other batches. Device errors raise.
+        """
+        windowed = isinstance(member, WindowedFleetMember)
+        n = member.n_windows if windowed else member.n
+        n_val = int(n * config.validation_split)
+        n_tr = n - n_val
+        config = replace(config, batch_size=min(config.batch_size, max(1, n_tr)))
+        B = config.batch_size
+        total = max(1, -(-n_tr // B)) * B
+        pad_rows = np.full(total - n_tr, n_tr - 1)
+        wtr = np.zeros((1, total), np.float32)
+        wtr[0, :n_tr] = 1.0
+        if windowed:
+            if config.shuffle:
+                raise ValueError("a windowed fit never shuffles")
+            # validation slots after the train slots, rounded up to a whole batch
+            val_slots = -(-n_val // B) * B
+            order = np.concatenate([np.arange(n_tr), pad_rows, np.arange(n_tr, n), np.zeros(val_slots - n_val, int)])
+            wtr = np.concatenate([wtr, np.zeros((1, val_slots), np.float32)], axis=1)
+            wval = np.zeros_like(wtr)
+            wval[0, total: total + n_val] = 1.0
+            fit = WindowedFit(member.spec, config)
+            data = [torch.from_numpy(a[None]).to(self.device) for a in (member.series, member.targets, order)]
+            val = None
+        else:
+            rows = np.concatenate([np.arange(n_tr), pad_rows])
+            X_tr = torch.from_numpy(member.X[rows][None]).to(self.device)
+            y_tr = X_tr if member.y is member.X else torch.from_numpy(member.y[rows][None]).to(self.device)
+            X_val = torch.from_numpy(member.X[n_tr:][None]).to(self.device)
+            y_val = X_val if member.y is member.X else torch.from_numpy(member.y[n_tr:][None]).to(self.device)
+            wval = np.ones((1, n_val), np.float32)
+            fit, data, val = StackedFit(member.spec, config), [X_tr, y_tr], (X_val, y_val)
+        params = stack_member_params([self.random.init_params(member.spec, member.seed)], self.device)
+        perms = (permutation_tensor(self.random, [member.seed], config.epochs, total, self.device)
+                 if config.shuffle else None)
+        wtr_dev, wval_dev = torch.from_numpy(wtr).to(self.device), torch.from_numpy(wval).to(self.device)
+        out = fit.run(params, *data, wtr_dev, wval_dev, perms, **({} if val is None else {"val": val}))
+        return self._collect_results([member], out, config, total // B)[0]
 
     def _stack_bucket(self, n_padded: int, bucket: List[FleetMember], config: FitConfig):
         """``(X, y, wtr, wval)`` tensors on the trainer's device: zero-filled

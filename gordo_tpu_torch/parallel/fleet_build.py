@@ -8,14 +8,16 @@ Per machine it follows the JAX builder:
 
 - **plan** (``_plan_machine``, ``:889-922``): the definition becomes
   port objects;
-- **data fetch** (``_load_all_data``, ``:1169-1245``): the machine's
-  dataset fetches and resamples its rows (``dataset/datasets.py``, on
-  the host), timed into ``query_duration_sec``; a failed fetch is tried
-  again ``GORDO_TPU_DATA_RETRIES`` times (default 2) after
+- **data fetch** (``_load_all_data``, ``:1169-1245``): the machines'
+  datasets fetch and resample their rows (``dataset/datasets.py``, on
+  the host) in a pool of ``DATA_WORKERS`` threads (16), each timed into
+  ``query_duration_sec``; a failed fetch is tried again
+  ``GORDO_TPU_DATA_RETRIES`` times (default 2) after
   ``GORDO_TPU_DATA_BACKOFF`` seconds (0.5), doubling, within an optional
   ``GORDO_TPU_DATA_DEADLINE``; configuration errors, too few rows and
-  what the port does not implement are not tried again. A machine whose
-  fetch fails is recorded in ``build_errors``;
+  what the port does not implement are not tried again. Each attempt
+  passes the ``data_fetch`` fault site. A machine whose fetch fails is
+  recorded in ``build_errors``;
 - **stage** (``_stage_arrays``, ``:1247-1304``): the host pipeline steps
   (MinMax) are fitted on the machine's X, ``y`` is aliased to ``X`` when
   they are equal, and the fit config and seed come from the estimator's
@@ -33,36 +35,55 @@ Per machine it follows the JAX builder:
   (``predict_windowed_bucket``, ``:1638-1661``). An LSTM fold trains on
   the windows whose targets lie in its train rows and is scored on those
   whose targets lie in its test rows (``_window_train_weights``,
-  ``_test_window_rows``, ``:1453-1485``): folds must be contiguous, so a
-  KFCV LSTM machine fails as it does in JAX. Then per-tag and aggregate
-  metric scores, and the ``DiffBasedAnomalyDetector`` thresholds: the
-  error scaler fitted on the fold's train targets, thresholds the max
-  over time of 6-row rolling minimums, the last fold's kept
-  (``:1687-1860``). A ``DiffBasedKFCVAnomalyDetector`` is
-  cross-validated with ``KFold(5, shuffle=True, random_state=0)``; its
-  folds' errors are kept with their test rows, stitched back into row
-  order, and its thresholds are a quantile of their smoothing;
+  ``_test_window_rows``, ``:1453-1485``): folds must be contiguous.
+  Then per-tag and aggregate metric scores, and the
+  ``DiffBasedAnomalyDetector`` thresholds: the error scaler fitted on the
+  fold's train targets, each fold's errors handed to the detector's own
+  threshold functions (``models/anomaly/diff.py``: the max over time of
+  6-row rolling minimums, the last fold's kept; ``:1687-1860``). A
+  ``DiffBasedKFCVAnomalyDetector`` is cross-validated with ``KFold(5,
+  shuffle=True, random_state=0)``; its folds' errors are kept with their
+  test rows and stitched back into row order by the detector;
 - **final fit** of every machine (``:1864-1965``), then the detector's
   error scaler fitted on ``y``;
 - **assemble and dump** (``:1969-2011``): ``metadata.json`` with the
-  JAX artifact's ``dataset`` and ``build_metadata.model`` keys
-  (``model_offset``: 0, or an LSTM's offset; ``cross_validation.{scores, splits,
-  cv_duration_sec}``, ``training``, ``model_meta``), the dataset's own
-  ``get_metadata()`` and fetch time under ``build_metadata.dataset``,
-  ``info.json`` with the model's checksum.
+  JAX artifact's keys (``model_offset``: 0, or an LSTM's offset;
+  ``cross_validation.{scores, splits, cv_duration_sec}``, ``training``,
+  ``model_meta``), the dataset's own ``get_metadata()`` and fetch time
+  under ``build_metadata.dataset``, ``info.json`` with the model's
+  checksum; each artifact written by ``serializer.dump_atomic`` in a pool
+  of up to 8 threads, the artifacts landing one at a time.
 
-Where the JAX builder does more, the port does not yet (``ROADMAP.md``
-queue 3): a machine that fails, or whose program fails alone on the
-device after bisection, is recorded in ``build_errors`` (there is no
-sequential builder to fall back to); fetches run one after another,
-not in a thread pool; there is no journal, resume, model-register
-cache, telemetry, progress file or packing.
+Robustness, as ``_run_build`` (``:504-683``, ``:810-870``) has it:
+
+- **journal**: with an ``output_dir``, staging leftovers of killed builds
+  are swept (``parallel/journal.py::clean_staging_dirs``), and
+  ``build_state.json`` records each machine ``planned`` (with its config
+  hash, ``builder.ModelBuilder.calculate_cache_key``), ``data_loaded``,
+  ``cv_done``, then ``built`` as its artifact lands (before the
+  ``process_kill_after_n_machines`` fault site), or ``failed``;
+- **resume**: ``resume=True`` skips the machines the journal names
+  resumable (``self.resumed``) and builds the rest;
+- **model-register cache**: with a ``model_register_dir``, a machine
+  whose build is registered is loaded, not trained, and every machine
+  built is registered (``builder/build_model.py``);
+- **sequential fallback**: a machine the fleet cannot plan (an estimator
+  that is not an autoencoder; a KFCV LSTM, whose scattered KFold folds
+  have no window mapping) and a machine whose device program fails alone
+  in its bucket (``self.degraded``) are built by
+  ``ModelBuilder(machine, device, random)``; a failure there is the
+  machine's error.
+
+The JAX builder's telemetry, progress file, packing planner and
+multi-host mirrors are not ported (``ROADMAP.md`` queue 1).
 """
 
+import concurrent.futures
 import contextlib
 import datetime
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -71,10 +92,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import DeviceLike, __version__, serializer
+from ..builder.build_model import ModelBuilder, split_metadata
 from ..dataset.exceptions import ConfigException, InsufficientDataError
 from ..machine import Machine, TrainingSummaryMetadata
 from ..machine.metadata import drift_baseline
-from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector
+from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector, fold_errors
 from ..models.estimators import TorchAutoEncoder, TorchLSTMBaseEstimator
 from ..models.metrics import metrics_from_list
 from ..models.model_selection import KFold, TimeSeriesSplit, shuffle_indices
@@ -83,9 +105,14 @@ from ..models.preprocessing import MinMaxScaler, Pipeline
 from ..models.training import FitConfig, RandomSource, fit_config_from_kwargs, split_fit_kwargs
 from ..ops.windows import model_offset, window_targets
 from ..utils.env import env_float, env_int
-from .fleet import FleetMember, FleetTrainer, WindowedFleetMember, stack_member_params
+from ..utils.faults import fault_point
+from .fleet import FleetMember, FleetTrainer, WindowedFleetMember, is_device_error, stack_member_params
+from .journal import BuildJournal, clean_staging_dirs
 
 logger = logging.getLogger(__name__)
+
+#: threads fetching the machines' rows (the JAX builder's default)
+DATA_WORKERS = 16
 
 
 class FleetBuildError(RuntimeError):
@@ -161,31 +188,6 @@ def _chunk_by_bytes(members, items, budget: int):
 def _fold_member_name(machine_name: str, fold_idx: int) -> str:
     """A fold model's member name; ``::`` cannot occur in a machine name."""
     return f"{machine_name}::fold{fold_idx}"
-
-
-def _rolling_min_max(values: np.ndarray, window: int):
-    """
-    ``pd.Series(values).rolling(window).min().max()`` in numpy: the max
-    over time of the minimum of each ``window``-row run. A run holding a
-    NaN has a NaN minimum and is skipped by the max; no complete run, or
-    only NaN ones, gives NaN. ``[n]`` gives a float, ``[n, k]`` a ``[k]``.
-
-    >>> _rolling_min_max(np.array([3.0, 1.0, 4.0, 1.0, 5.0, 9.0]), 2)
-    5.0
-    """
-    values = np.asarray(values, np.float64)
-    if len(values) < window:
-        return np.nan if values.ndim == 1 else np.full(values.shape[1], np.nan)
-    mins = np.lib.stride_tricks.sliding_window_view(values, window, axis=0).min(axis=-1)
-    if np.isnan(mins).any():
-        import warnings
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN slice
-            out = np.nanmax(mins, axis=0)
-    else:
-        out = mins.max(axis=0)
-    return float(out) if values.ndim == 1 else out
 
 
 #: windows an LSTM group's CV forward gathers at once
@@ -265,17 +267,48 @@ def _retry_call(fn, attempts: int, backoff: float, deadline: Optional[float], no
             attempt += 1
 
 
+def _try_call(fn, *args) -> Optional[BaseException]:
+    """``fn(*args)``'s exception, or None: a pool thread's failure kept for
+    its machine. ``SystemExit`` and ``KeyboardInterrupt`` are not a
+    machine's failure, and raise."""
+    try:
+        fn(*args)
+        return None
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except BaseException as exc:  # noqa: BLE001 - recorded per machine
+        return exc
+
+
+def _run_pool(fn, items, workers: int) -> List[Optional[BaseException]]:
+    """:func:`_try_call` of ``fn`` on every item in a pool of ``workers``
+    threads; on ``SystemExit`` or ``KeyboardInterrupt`` the queued items
+    are cancelled before it propagates."""
+    pool = concurrent.futures.ThreadPoolExecutor(max(1, workers))
+    try:
+        return list(pool.map(lambda item: _try_call(fn, item), items))
+    except (KeyboardInterrupt, SystemExit):
+        pool.shutdown(wait=True, cancel_futures=True)
+        raise
+    finally:
+        pool.shutdown(wait=True)
+
+
 class FleetBuilder:
     """
     Builds every machine of ``machines`` as stacked fleet buckets on
     ``device`` (``cuda`` unless the caller asks for the CPU), drawing each
-    member's random numbers from ``random`` (default ``TorchRandom``).
+    member's random numbers from ``random`` (default ``TorchRandom``),
+    fetching rows in ``DATA_WORKERS`` threads.
 
     ``build_errors`` maps a failed machine to its exception: one machine's
-    failure spares the rest. ``phase_seconds`` holds the host wall time
-    of each phase: ``plan``, ``data_fetch``, ``stage``, ``cv_train``,
-    ``cv_predict`` (the fold forwards through K1), ``cv_score``,
-    ``cv_finalize``, ``final_fit``, ``assemble``, ``dump``.
+    failure spares the rest. ``degraded`` maps a machine rebuilt by the
+    sequential builder after its device program failed alone to that
+    failure; ``resumed`` names the machines a resume skipped.
+    ``phase_seconds`` holds the host wall time of each phase: ``plan``,
+    ``data_fetch``, ``stage``, ``cv_train``, ``cv_predict`` (the fold
+    forwards through K1), ``cv_score``, ``cv_finalize``, ``final_fit``,
+    ``assemble``, ``sequential`` (the fallback builds), ``dump``.
     """
 
     def __init__(
@@ -288,8 +321,14 @@ class FleetBuilder:
         self.trainer = FleetTrainer(device, random)
         self.device = self.trainer.device
         self.build_errors: Dict[str, BaseException] = {}
+        self.degraded: Dict[str, BaseException] = {}
+        self.resumed: List[str] = []
         self.phase_seconds: Dict[str, float] = defaultdict(float)
         self.robustness: Dict[str, int] = defaultdict(int)
+        self._journal: Optional[BuildJournal] = None
+        self._config_hashes: Dict[str, str] = {}
+        #: cache hits' registered ``model.pkl`` bytes, dumped as they are
+        self._cached_pickles: Dict[str, bytes] = {}
 
     @contextlib.contextmanager
     def _phase(self, name: str):
@@ -300,30 +339,103 @@ class FleetBuilder:
             self.phase_seconds[name] += time.perf_counter() - start
 
     def _fail(self, name: str, exc: BaseException) -> None:
+        if self._journal is not None:
+            self._journal.record(name, "failed", error=repr(exc))
         logger.error("Fleet build of machine %s failed: %r", name, exc)
         self.build_errors[name] = exc
 
     def _skipped(self, name: str) -> bool:
-        return name in self.build_errors
+        """Out of the fleet path: failed, or left to the sequential builder."""
+        return name in self.build_errors or name in self.degraded
+
+    def _degrade(self, plan: _Plan, exc: BaseException) -> None:
+        """Hand a machine whose device program failed alone to the
+        sequential builder (``_degrade``, ``:366-385``)."""
+        name = plan.machine.name
+        logger.warning("Fleet degrade: %s falls back to the sequential builder after an isolated device "
+                       "failure: %r", name, exc)
+        self.robustness["sequential_degraded"] += 1
+        self.degraded[name] = exc
+
+    def _device_failure(self, plan: _Plan, exc: BaseException) -> None:
+        """A member's failure: a device error degrades its machine, any
+        other fails it."""
+        if is_device_error(exc):
+            self._degrade(plan, exc)
+        else:
+            self._fail(plan.machine.name, exc)
 
     # -------------------------------------------------------------------- API
 
-    def build(self, output_dir: Optional[str] = None) -> List[Tuple[Any, Machine]]:
+    def build(
+        self,
+        output_dir: Optional[str] = None,
+        model_register_dir: Optional[str] = None,
+        replace_cache: bool = False,
+        resume: bool = False,
+    ) -> List[Tuple[Any, Machine]]:
         """Train the whole fleet; ``(model, machine)`` for every machine
         that built, in input order, its metadata filled in. With an
-        ``output_dir``, each is dumped to ``output_dir/<name>/``."""
+        ``output_dir``, each is dumped to ``output_dir/<name>/`` and the
+        build is journaled there; ``resume`` then skips what an earlier
+        run journaled ``built`` with a complete artifact (those are not
+        returned). With a ``model_register_dir``, registered builds are
+        loaded instead of trained and new ones registered
+        (``replace_cache`` forgets the keys first)."""
         self.build_errors = {}
+        self.degraded = {}
+        self.resumed = []
         self.phase_seconds = defaultdict(float)
         self.robustness = defaultdict(int)
+        self._journal = None
         bisects_start = self.trainer.bucket_bisects
         counts_start = dict(self.trainer.bisect_counts)
+        machines = self.machines
+        if output_dir is not None:
+            self._config_hashes = {m.name: ModelBuilder.calculate_cache_key(m) for m in machines}
+            clean_staging_dirs(output_dir)
+            self._journal = BuildJournal.load(output_dir) if resume else BuildJournal(output_dir)
+            if resume:
+                remaining = []
+                for machine in machines:
+                    if self._journal.resumable(machine.name, self._config_hashes[machine.name]):
+                        self.resumed.append(machine.name)
+                    else:
+                        remaining.append(machine)
+                machines = remaining
+                logger.info("Resume: %d machines already built, %d to build", len(self.resumed), len(machines))
+
+        cached, self._cached_pickles = [], {}
+        if model_register_dir:
+            clean_staging_dirs(os.path.join(str(model_register_dir), "builds"))
+            to_probe, machines = machines, []
+            for machine in to_probe:
+                registry = ModelBuilder(machine, self.device)
+                hit = registry.load_cached(model_register_dir, replace_cache=replace_cache)
+                if hit is None:
+                    machines.append(machine)
+                else:
+                    cached.append(hit)
+                    self._cached_pickles[machine.name] = registry.cached_model_bytes
+            logger.info("Model register: %d hits, %d to build", len(cached), len(machines))
+
         with self._phase("plan"):
-            plans = []
-            for machine in self.machines:
+            plans, fallbacks = [], []
+            for machine in machines:
                 try:
-                    plans.append(self._plan_machine(machine))
+                    plan = self._plan_machine(machine)
                 except Exception as exc:
                     self._fail(machine.name, exc)
+                    continue
+                if plan is None:
+                    fallbacks.append(machine)
+                else:
+                    plans.append(plan)
+        if self._journal is not None:
+            for machine in machines:
+                self._journal.record(machine.name, "planned", config_hash=self._config_hashes[machine.name],
+                                     flush=False)
+            self._journal.flush()
         plans = self._load_all_data(plans)
 
         def cv_mode(plan: _Plan) -> str:
@@ -332,6 +444,11 @@ class FleetBuilder:
         cv_plans = [p for p in plans if cv_mode(p) in ("full_build", "cross_val_only")]
         if cv_plans:
             self._run_cross_validation(cv_plans)
+            if self._journal is not None:
+                for plan in cv_plans:
+                    if not self._skipped(plan.machine.name):
+                        self._journal.record(plan.machine.name, "cv_done", flush=False)
+                self._journal.flush()
         self._run_final_fit(
             [p for p in plans if not self._skipped(p.machine.name) and cv_mode(p) != "cross_val_only"]
         )
@@ -352,17 +469,50 @@ class FleetBuilder:
                     results.append(self._assemble(plan))
                 except Exception as exc:
                     self._fail(plan.machine.name, exc)
+        with self._phase("sequential"):
+            by_name = {m.name: m for m in machines}
+            for machine in fallbacks + [by_name[name] for name in self.degraded]:
+                logger.info("Sequential build of machine %s", machine.name)
+                try:
+                    results.append(ModelBuilder(machine, self.device, self.trainer.random).build())
+                except Exception as exc:
+                    self._fail(machine.name, exc)
+        if model_register_dir:
+            for model, machine in results:
+                try:
+                    ModelBuilder(machine, self.device).register(model, machine, model_register_dir)
+                except Exception as exc:
+                    self._fail(machine.name, exc)
+        order = {m.name: i for i, m in enumerate(self.machines)}
+        results = sorted(cached + results, key=lambda item: order[item[1].name])
         if output_dir is not None:
             with self._phase("dump"):
                 results = self._dump_all(results, output_dir)
-        return results
+            self._journal.flush()  # one clean state file once the build is done
+        return [(model, machine) for model, machine in results if machine.name not in self.build_errors]
 
     def _dump_all(self, results, output_dir: str):
+        """Dump every artifact with ``serializer.dump_atomic`` in up to 8
+        threads; the artifacts land one at a time, each journaled
+        ``built`` before the ``process_kill_after_n_machines`` fault site,
+        so a kill after N machines leaves exactly the N journaled."""
+        landing = threading.Lock()
+
+        def dump_one(item):
+            model, machine = item
+
+            def landed():
+                self._journal.record(machine.name, "built", config_hash=self._config_hashes.get(machine.name))
+                fault_point("process_kill_after_n_machines", machine.name)
+
+            serializer.dump_atomic(model, os.path.join(output_dir, machine.name), metadata=machine.to_dict(),
+                                   lock=landing, on_landed=landed, pickled=self._cached_pickles.get(machine.name))
+
+        to_dump = [(model, machine) for model, machine in results if machine.name not in self.build_errors]
+        outcomes = _run_pool(dump_one, to_dump, min(8, len(to_dump)))
         saved = []
-        for model, machine in results:
-            try:
-                serializer.dump(model, os.path.join(output_dir, machine.name), metadata=machine.to_dict())
-            except Exception as exc:
+        for (model, machine), exc in zip(to_dump, outcomes):
+            if exc is not None:
                 self._fail(machine.name, exc)
                 continue
             saved.append((model, machine))
@@ -371,45 +521,53 @@ class FleetBuilder:
     # --------------------------------------------------------------- planning
 
     def _load_all_data(self, plans: List[_Plan]) -> List[_Plan]:
-        """Fetch and stage every plan; a machine that fails drops out and
-        is recorded in ``build_errors``."""
+        """Fetch every plan in ``DATA_WORKERS`` threads, then stage each; a
+        machine that fails drops out and is recorded in ``build_errors``."""
         attempts = 1 + max(0, env_int("GORDO_TPU_DATA_RETRIES", 2))
         backoff = env_float("GORDO_TPU_DATA_BACKOFF", 0.5)
         deadline = env_float("GORDO_TPU_DATA_DEADLINE", None)
 
-        def note_retry(plan: _Plan, attempt: int, exc: BaseException) -> None:
-            plan.data_retries += 1
-            logger.warning("Data fetch retry %d for %s after %r", attempt, plan.machine.name, exc)
+        def load(plan: _Plan) -> None:
+            def fetch():
+                fault_point("data_fetch", plan.machine.name)
+                return plan.machine.dataset.get_data()
 
-        fetched = []
+            def note_retry(attempt: int, exc: BaseException) -> None:
+                plan.data_retries += 1  # one thread a plan: no race
+                logger.warning("Data fetch retry %d for %s after %r", attempt, plan.machine.name, exc)
+
+            start = time.perf_counter()
+            plan.X, plan.y, plan.index = _retry_call(
+                fetch, attempts, backoff, deadline,
+                no_retry=(ConfigException, InsufficientDataError, NotImplementedError), on_retry=note_retry,
+            )
+            plan.query_duration = time.perf_counter() - start
+
         with self._phase("data_fetch"):
-            for plan in plans:
-                start = time.perf_counter()
-                try:
-                    X, y, index = _retry_call(
-                        plan.machine.dataset.get_data, attempts, backoff, deadline,
-                        no_retry=(ConfigException, InsufficientDataError, NotImplementedError),
-                        on_retry=lambda attempt, exc, plan=plan: note_retry(plan, attempt, exc),
-                    )
-                except Exception as exc:
-                    self._fail(plan.machine.name, exc)
-                    continue
-                plan.query_duration = time.perf_counter() - start
-                plan.X, plan.y, plan.index = X, y, index
-                fetched.append(plan)
+            outcomes = _run_pool(load, plans, min(DATA_WORKERS, len(plans)))
         self.robustness["data_fetch_retries"] += sum(p.data_retries for p in plans)
         staged = []
         with self._phase("stage"):
-            for plan in fetched:
-                try:
-                    self._stage_arrays(plan)
-                except Exception as exc:
+            for plan, exc in zip(plans, outcomes):
+                if exc is not None:
                     self._fail(plan.machine.name, exc)
                     continue
+                try:
+                    self._stage_arrays(plan)
+                except Exception as stage_exc:
+                    self._fail(plan.machine.name, stage_exc)
+                    continue
                 staged.append(plan)
+        if self._journal is not None:
+            for plan in staged:
+                self._journal.record(plan.machine.name, "data_loaded", flush=False)
+            self._journal.flush()
         return staged
 
-    def _plan_machine(self, machine: Machine) -> _Plan:
+    def _plan_machine(self, machine: Machine) -> Optional[_Plan]:
+        """The machine's plan, or None for a machine the fleet cannot train
+        (``_plan_machine``, ``:889-922``): an estimator that is not an
+        autoencoder, or a KFCV LSTM."""
         model_obj = serializer.from_definition(machine.model, device=self.device)
         obj, detector, pipeline = model_obj, None, None
         if isinstance(obj, DiffBasedAnomalyDetector):
@@ -417,7 +575,9 @@ class FleetBuilder:
         if isinstance(obj, Pipeline):
             pipeline, obj = obj, obj.estimator
         if not isinstance(obj, TorchAutoEncoder):
-            raise FleetBuildError(f"{machine.name}: the model's estimator {obj!r} is not an autoencoder")
+            return None
+        if isinstance(obj, TorchLSTMBaseEstimator) and isinstance(detector, DiffBasedKFCVAnomalyDetector):
+            return None
         return _Plan(machine=machine, model_obj=model_obj, detector=detector, pipeline=pipeline, estimator=obj)
 
     @staticmethod
@@ -470,7 +630,7 @@ class FleetBuilder:
         for plan in plans:
             try:
                 splits = list(_cv_for(plan).split(plan.X_arr))
-                plan.cv_splits = self._split_metadata(plan, splits)
+                plan.cv_splits = split_metadata(splits, plan.index)
             except Exception as exc:
                 self._fail(plan.machine.name, exc)
                 continue
@@ -552,14 +712,14 @@ class FleetBuilder:
                 self._train_and_score_folds(members[:mid], items[:mid], config, per_plan_folds, fold_state)
                 self._train_and_score_folds(members[mid:], items[mid:], config, per_plan_folds, fold_state)
                 return
-            self._fail(items[0][0].machine.name, exc)
+            self._device_failure(items[0][0], exc)
             return
         scorable_items, scorable_results = [], []
         for (plan, fold_idx), result in zip(items, results):
-            if result.error is not None:
-                self._fail(plan.machine.name, result.error)
+            if result.error is not None and not self._skipped(plan.machine.name):
+                self._device_failure(plan, result.error)
         for (plan, fold_idx), result in zip(items, results):
-            if self._skipped(plan.machine.name):
+            if result.error is not None or self._skipped(plan.machine.name):
                 continue
             plan.fleet_retries += result.retries
             self.robustness["fleet_retries"] += result.retries
@@ -646,30 +806,22 @@ class FleetBuilder:
 
     @staticmethod
     def _accumulate_thresholds(plan: _Plan, y_true, y_pred, fold_idx: int, state, y_train, test_rows) -> None:
+        """One fold's errors, the fold model's error scaler fitted on the
+        fold's train targets: its thresholds for a detector, its rows and
+        errors for a KFCV detector (whose KFold test rows are scattered, so
+        they are smoothed in row order once every fold is in)."""
         detector = plan.detector
-        # the fold model's error scaler is fitted on the fold's train targets
         scaler = MinMaxScaler(feature_range=detector.scaler.feature_range).fit(y_train)
-        scaled_mse = np.mean(np.square(scaler.transform(y_pred) - scaler.transform(y_true)), axis=1)
-        abs_err = np.abs(y_true - y_pred)
+        scaled_mse, abs_err = fold_errors(scaler, y_true, y_pred)
         if isinstance(detector, DiffBasedKFCVAnomalyDetector):
-            # KFold's test rows are scattered: keep each fold's errors with
-            # their rows, to smooth them in row order once every fold is in
             state.setdefault("kfcv_parts", []).append((np.asarray(test_rows), scaled_mse, abs_err))
-            return
-        fold = f"fold-{fold_idx}"
-        state["aggregate_threshold"] = _rolling_min_max(scaled_mse, 6)
-        state.setdefault("feature_folds", {})[fold] = _rolling_min_max(abs_err, 6)
-        state.setdefault("agg_folds", {})[fold] = state["aggregate_threshold"]
-        if detector.window is not None:
-            state["smooth_aggregate_threshold"] = _rolling_min_max(scaled_mse, detector.window)
-            state["smooth_feature_thresholds"] = _rolling_min_max(abs_err, detector.window)
-            state.setdefault("smooth_feature_folds", {})[fold] = state["smooth_feature_thresholds"]
-            state.setdefault("smooth_agg_folds", {})[fold] = state["smooth_aggregate_threshold"]
+        else:
+            state.setdefault("folds", {})[fold_idx] = detector.fold_thresholds(scaled_mse, abs_err)
 
     @staticmethod
     def _finalize_cv(plan: _Plan, state: Dict[str, Any]) -> None:
         """Fold statistics rows of every score; the detector's thresholds
-        from the last fold, and per fold."""
+        from its folds (``models/anomaly/diff.py``)."""
         for folds in plan.cv_scores.values():
             values = np.array([v for k, v in folds.items() if k.startswith("fold-")])
             folds.update({
@@ -680,32 +832,10 @@ class FleetBuilder:
             })
         detector = plan.detector
         if isinstance(detector, DiffBasedKFCVAnomalyDetector) and "kfcv_parts" in state:
-            n = len(plan.y_arr)
-            mse_full = np.full(n, np.nan)
-            abs_full = np.full((n, plan.y_arr.shape[1]), np.nan)
-            for rows, mse_part, abs_part in state["kfcv_parts"]:
-                mse_full[rows] = mse_part
-                abs_full[rows] = abs_part
-            detector.aggregate_threshold_ = float(detector.calculate_threshold(mse_full))
-            detector.feature_thresholds_ = detector.calculate_threshold(abs_full)
-            return
-        if detector is None or "feature_folds" not in state:
-            return
-        tags = plan.machine.target_tag_list
-
-        def per_fold(folds):  # DataFrame(folds).T.to_dict(): {tag: {fold: value}}
-            return {tag: {fold: float(v[i]) for fold, v in folds.items()} for i, tag in enumerate(tags)}
-
-        last = list(state["feature_folds"])[-1]
-        detector.feature_thresholds_ = np.asarray(state["feature_folds"][last], np.float64)
-        detector.aggregate_threshold_ = state["aggregate_threshold"]
-        detector.feature_thresholds_per_fold_ = per_fold(state["feature_folds"])
-        detector.aggregate_thresholds_per_fold_ = state["agg_folds"]
-        detector.smooth_aggregate_threshold_ = state.get("smooth_aggregate_threshold")
-        detector.smooth_feature_thresholds_ = state.get("smooth_feature_thresholds")
-        if "smooth_feature_folds" in state:
-            detector.smooth_feature_thresholds_per_fold_ = per_fold(state["smooth_feature_folds"])
-            detector.smooth_aggregate_thresholds_per_fold_ = state["smooth_agg_folds"]
+            detector.set_kfcv_thresholds(plan.y_arr, state["kfcv_parts"])
+        elif detector is not None and "folds" in state:
+            folds = state["folds"]
+            detector.set_fold_thresholds([folds[k] for k in sorted(folds)], plan.machine.target_tag_list)
 
     # -------------------------------------------------------------- final fit
 
@@ -727,12 +857,24 @@ class FleetBuilder:
             with self._phase("final_fit"):
                 results = self.trainer.train(members, config)
         except Exception as exc:
-            for plan in plans:
-                self._fail(plan.machine.name, exc)
+            # the trainer bisects device errors inside its buckets; a device
+            # error here has no bucket to bisect, so it splits the group
+            if is_device_error(exc) and len(members) > 1:
+                self.robustness["bucket_bisects"] += 1
+                for plan in plans:
+                    plan.bucket_bisects += 1
+                mid = len(members) // 2
+                self._train_final_group(members[:mid], plans[:mid], config, start)
+                self._train_final_group(members[mid:], plans[mid:], config, start)
+            elif is_device_error(exc):
+                self._degrade(plans[0], exc)
+            else:
+                for plan in plans:
+                    self._fail(plan.machine.name, exc)
             return
         for plan, result in zip(plans, results):
             if result.error is not None:
-                self._fail(plan.machine.name, result.error)
+                self._device_failure(plan, result.error)
                 continue
             plan.fleet_retries += result.retries
             self.robustness["fleet_retries"] += result.retries
@@ -777,21 +919,6 @@ class FleetBuilder:
             "drift_baseline": drift_baseline(plan.X, plan.machine.dataset.column_names()[0]),
         }
         return model_obj, machine
-
-    @staticmethod
-    def _split_metadata(plan: _Plan, splits) -> Dict[str, Any]:
-        """First and last row of each fold's train and test split, as the
-        index's ISO times (positions when the machine has no index)."""
-        index = plan.index
-        metadata = {}
-        for i, (train, test) in enumerate(splits):
-            for label, idx in (("train", train), ("test", test)):
-                for endpoint, pos in (("start", idx[0]), ("end", idx[-1])):
-                    value = index[pos] if index is not None else int(pos)
-                    metadata[f"fold-{i + 1}-{label}-{endpoint}"] = (
-                        value.isoformat() if hasattr(value, "isoformat") else value
-                    )
-        return metadata
 
 
 def fleet_build(

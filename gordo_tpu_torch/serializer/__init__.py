@@ -3,10 +3,13 @@ model-definition reader (``from_definition``)."""
 
 from .from_definition import from_definition
 from .serializer import (
+    BUILD_JOURNAL_EVENTS_FILE,
+    BUILD_JOURNAL_FILE,
     INFO_FILE,
     METADATA_FILE,
     MODEL_FILE,
     dump,
+    dump_atomic,
     dumps,
     is_builder_dropping,
     is_staging_dir,
@@ -18,10 +21,13 @@ from .serializer import (
 )
 
 __all__ = [
+    "BUILD_JOURNAL_EVENTS_FILE",
+    "BUILD_JOURNAL_FILE",
     "INFO_FILE",
     "METADATA_FILE",
     "MODEL_FILE",
     "dump",
+    "dump_atomic",
     "dumps",
     "from_definition",
     "is_builder_dropping",

@@ -8,19 +8,27 @@ machine, beside whatever a builder or a serving process left there
 (:func:`is_builder_dropping`). The pickle bytes (:func:`dumps` /
 :func:`loads`) are the server's ``/download-model`` wire format: the
 layout is the JAX package's, the pickled classes are the port's.
+
+Builders write through :func:`dump_atomic`: the files land in a
+``.<name>.tmp-*`` staging sibling, which is renamed into place, so a
+crash leaves a complete artifact or none.
 """
 
+import contextlib
 import datetime
 import hashlib
 import json
 import os
 import pickle
 import re
+import shutil
+import uuid
 from os import path
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 from .. import DeviceLike, resolve_device
 from ..models.estimators import find_estimator
+from ..utils.faults import fault_point
 
 MODEL_FILE = "model.pkl"
 METADATA_FILE = "metadata.json"
@@ -28,13 +36,17 @@ INFO_FILE = "info.json"
 
 #: the marker of an atomic-write staging entry (``.<name>.tmp-*``)
 TMP_DIR_MARKER = ".tmp-"
+#: the fleet build's journal and its per-machine event overlay
+#: (``parallel/journal.py``), the JAX package's names
+BUILD_JOURNAL_FILE = "build_state.json"
+BUILD_JOURNAL_EVENTS_FILE = ".build_state.json.events"
 #: what the JAX builder (its journal and event overlay), its telemetry and
 #: a serving process may write beside the machines of a revision (the
 #: names of ``gordo_tpu/serializer/serializer.py:85-147`` and the
 #: telemetry modules it imports them from); never models
 _DROPPING_NAMES = frozenset((
-    "build_state.json",
-    ".build_state.json.events",
+    BUILD_JOURNAL_FILE,
+    BUILD_JOURNAL_EVENTS_FILE,
     "build_status.json",
     "build_trace.jsonl",
     "serve_trace.jsonl",
@@ -64,13 +76,25 @@ def _json_default(obj: Any) -> str:
     return obj.isoformat() if isinstance(obj, (datetime.date, datetime.datetime)) else str(obj)
 
 
-def dump(obj: Any, dest_dir: str, metadata: Optional[dict] = None, info: Optional[dict] = None):
+def dump(
+    obj: Any,
+    dest_dir: str,
+    metadata: Optional[dict] = None,
+    info: Optional[dict] = None,
+    pickled: Optional[bytes] = None,
+):
     """Write ``obj`` into ``dest_dir`` as ``model.pkl`` (+ ``metadata.json``
-    when given; ``info.json`` always records the model checksum)."""
+    when given; ``info.json`` always records the model checksum).
+    ``pickled``, when given, is written as ``model.pkl`` instead: the bytes
+    of an artifact already on disk (pickling an unpickled model again
+    memoizes its strings otherwise, and gives other bytes)."""
     os.makedirs(dest_dir, exist_ok=True)
     model_path = path.join(dest_dir, MODEL_FILE)
     with open(model_path, "wb") as f:
-        pickle.dump(obj, f)
+        if pickled is None:
+            pickle.dump(obj, f)
+        else:
+            f.write(pickled)
     if metadata is not None:
         with open(path.join(dest_dir, METADATA_FILE), "w") as f:
             json.dump(metadata, f, default=_json_default)
@@ -79,6 +103,64 @@ def dump(obj: Any, dest_dir: str, metadata: Optional[dict] = None, info: Optiona
         full_info.update(info)
     with open(path.join(dest_dir, INFO_FILE), "w") as f:
         json.dump(full_info, f, default=str)
+
+
+#: the files of an artifact: a destination holding only these (or nothing)
+#: is an earlier artifact, and is replaced whole
+_ARTIFACT_FILES = frozenset({MODEL_FILE, METADATA_FILE, INFO_FILE})
+
+
+def dump_atomic(
+    obj: Any,
+    dest_dir: str,
+    metadata: Optional[dict] = None,
+    info: Optional[dict] = None,
+    lock: Optional[Any] = None,
+    on_landed: Optional[Callable[[], None]] = None,
+    pickled: Optional[bytes] = None,
+):
+    """
+    :func:`dump` that a crash cannot leave half done
+    (``gordo_tpu/serializer/serializer.py::dump_atomic``): the files are
+    written into a ``.<name>.tmp-*`` sibling, made with ``os.mkdir`` so
+    it keeps the umask's mode, which ``os.replace`` then renames to
+    ``dest_dir``. An earlier artifact there is removed just before the
+    rename; a destination holding other files keeps them, and the three
+    artifact files are moved in one by one. The ``dump_artifact`` fault
+    site fires between the writes and the rename; whatever fails removes
+    the staging directory. With a ``lock``, the rename and ``on_landed()``
+    run under it, so threads that dump at once land their artifacts one
+    at a time, each followed by its own ``on_landed``. ``pickled`` is
+    :func:`dump`'s.
+    """
+    dest_dir = path.normpath(dest_dir)
+    parent, name = path.dirname(dest_dir), path.basename(dest_dir)
+    os.makedirs(parent or ".", exist_ok=True)
+    while True:
+        staging = path.join(parent or ".", f".{name}{TMP_DIR_MARKER}{os.getpid()}-{uuid.uuid4().hex[:8]}")
+        try:
+            os.mkdir(staging)
+            break
+        except FileExistsError:  # pragma: no cover - a 32-bit collision
+            continue
+    try:
+        dump(obj, staging, metadata=metadata, info=info, pickled=pickled)
+        fault_point("dump_artifact", name)
+        with lock if lock is not None else contextlib.nullcontext():
+            if path.isdir(dest_dir) and not set(os.listdir(dest_dir)) <= _ARTIFACT_FILES:
+                for entry in os.listdir(staging):
+                    os.replace(path.join(staging, entry), path.join(dest_dir, entry))
+                os.rmdir(staging)
+            else:
+                if path.isdir(dest_dir):
+                    # rename(2) does not replace a directory that holds files
+                    shutil.rmtree(dest_dir)
+                os.replace(staging, dest_dir)
+            if on_landed is not None:
+                on_landed()
+    except BaseException:
+        shutil.rmtree(staging, ignore_errors=True)
+        raise
 
 
 def load(source_dir: str, device: DeviceLike = None) -> Any:

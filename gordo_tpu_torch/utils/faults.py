@@ -1,7 +1,8 @@
 """
 Deterministic fault injection at the streaming plane's three sites and
-the fleet trainer's, a copy of ``gordo_tpu/utils/faults.py`` (``fault_point``, ``FaultRule``,
-``inject``, the ``GORDO_TPU_FAULTS`` environment form).
+the fleet build's four, a copy of ``gordo_tpu/utils/faults.py``
+(``fault_point``, ``FaultRule``, ``inject``, the ``GORDO_TPU_FAULTS``
+environment form, the ``kill`` option).
 
 Production code calls :func:`fault_point` at a named site; it is a no-op
 unless a matching :class:`FaultRule` is active. Rules are installed with
@@ -14,13 +15,23 @@ the :func:`inject` context manager or the environment variable. Sites:
 - ``stream_emit``: before an event is appended to a session's outbox
   (key ``<stream-id>:<event-kind>``); the event is counted and dropped.
 - ``device_program``: before a training bucket runs, once per member
-  (key the member name); raise :class:`InjectedDeviceError` to make the
-  trainer bisect the bucket as it does on a device failure.
+  (key the member name); its default exception is an
+  :class:`InjectedDeviceError`, which makes the trainer bisect the
+  bucket as it does on a device failure.
+- ``data_fetch``: before each attempt at a machine's
+  ``dataset.get_data()`` in a fleet build (key the machine name).
+- ``dump_artifact``: inside ``serializer.dump_atomic``, after the files
+  are written into the ``.<name>.tmp-*`` staging directory and before
+  the rename (key the artifact directory's name).
+- ``process_kill_after_n_machines``: after each machine's artifact
+  landed and was journaled ``built`` (key the machine name); its default
+  exception is ``SystemExit(137)``, which a build never records as one
+  machine's failure.
 
 Each rule counts the calls matching its (site, key glob) and fires on
-calls ``after < i <= after + times``. (The JAX registry's ``kill``
-option, a process death for build drills, is left out: the port has no
-build journal to resume from.)
+calls ``after < i <= after + times``. A rule with ``kill`` ends the
+process with ``os._exit(137)`` instead of raising: a real death for the
+kill-and-resume drill.
 
 >>> with inject(FaultRule("stream_score", match="s1:*", times=1)):
 ...     try:
@@ -31,10 +42,11 @@ build journal to resume from.)
 fired
 
 Env form (``;``-separated rules, fields ``site[:key-glob][:opt...]``,
-options ``times=N|inf``, ``after=N``, ``exc=Name``); the glob
+options ``times=N|inf``, ``after=N``, ``exc=Name``, ``kill``); the glob
 cannot contain ``:``, but ``*`` matches across it::
 
     GORDO_TPU_FAULTS="stream_score:*machine-3:times=inf"
+    GORDO_TPU_FAULTS="process_kill_after_n_machines:*:after=6:kill"
 """
 
 import fnmatch
@@ -48,7 +60,15 @@ logger = logging.getLogger(__name__)
 
 ENV_VAR = "GORDO_TPU_FAULTS"
 
-SITES = ("stream_ingest", "stream_score", "stream_emit", "device_program")
+SITES = (
+    "data_fetch",
+    "device_program",
+    "dump_artifact",
+    "process_kill_after_n_machines",
+    "stream_ingest",
+    "stream_score",
+    "stream_emit",
+)
 
 
 class FaultInjected(RuntimeError):
@@ -66,6 +86,8 @@ _EXC_TYPES = {
     "RuntimeError": RuntimeError,
     "OSError": OSError,
     "MemoryError": MemoryError,
+    "SystemExit": SystemExit,
+    "KeyboardInterrupt": KeyboardInterrupt,
 }
 
 
@@ -79,6 +101,7 @@ class FaultRule:
     times: Optional[int] = 1  # None = every matching call past ``after``
     after: int = 0
     exc: Optional[Any] = None  # exception class/instance/factory(message)
+    kill: bool = False  # os._exit(137) instead of raising
     seen: int = field(default=0, compare=False)
     fired: int = field(default=0, compare=False)
 
@@ -88,6 +111,10 @@ class FaultRule:
             if isinstance(exc, BaseException):
                 return exc
             return exc(f"injected fault at {self.site}:{key}")
+        if self.site == "device_program":
+            return InjectedDeviceError(f"injected device fault ({key})")
+        if self.site == "process_kill_after_n_machines":
+            return SystemExit(137)
         return FaultInjected(f"injected fault at {self.site}:{key}")
 
 
@@ -103,6 +130,8 @@ def parse_rules(spec: str) -> List[FaultRule]:
 
     >>> [(r.match, r.times) for r in parse_rules("stream_score:*m-3:times=inf")]
     [('*m-3', None)]
+    >>> [(r.match, r.after, r.kill) for r in parse_rules("process_kill_after_n_machines:*:after=6:kill")]
+    [('*', 6, True)]
     """
     rules = []
     for entry in spec.split(";"):
@@ -115,11 +144,13 @@ def parse_rules(spec: str) -> List[FaultRule]:
             raise ValueError(f"unknown fault site {site!r} (known: {SITES})")
         rule = FaultRule(site=site)
         opts = parts[1:]
-        if opts and "=" not in opts[0]:
+        if opts and "=" not in opts[0] and opts[0] != "kill":
             rule.match = opts[0]
             opts = opts[1:]
         for opt in opts:
-            if opt.startswith("times="):
+            if opt == "kill":
+                rule.kill = True
+            elif opt.startswith("times="):
                 value = opt.split("=", 1)[1]
                 rule.times = None if value in ("inf", "all") else int(value)
             elif opt.startswith("after="):
@@ -204,5 +235,8 @@ def fault_point(site: str, key: str = "") -> None:
             break
     if to_fire is None:
         return
-    logger.warning("Fault injection: firing at %s:%s (match %r, fired %d)", site, key, to_fire.match, to_fire.fired)
+    logger.warning("Fault injection: firing %s at %s:%s (match %r, fired %d)",
+                   "os._exit(137)" if to_fire.kill else "exception", site, key, to_fire.match, to_fire.fired)
+    if to_fire.kill:
+        os._exit(137)
     raise to_fire.make_exc(key)

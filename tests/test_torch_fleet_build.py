@@ -41,6 +41,7 @@ from gordo_tpu.server import build_app as jax_build_app
 from gordo_tpu_torch import serializer
 from gordo_tpu_torch.machine import Machine
 from gordo_tpu_torch.models import metrics
+from gordo_tpu_torch.models.anomaly.diff import rolling_min_max
 from gordo_tpu_torch.models.callbacks import EarlyStopping
 from gordo_tpu_torch.models.model_selection import TimeSeriesSplit, shuffle_indices
 from gordo_tpu_torch.parallel import fleet_build as port_fleet_build
@@ -336,10 +337,10 @@ def test_rolling_min_max_matches_pandas_and_jax(case):
     elif case == "short":
         values = values[:4]
     expected = pd.DataFrame(values).rolling(6).min().max().to_numpy()
-    got = port_fleet_build._rolling_min_max(values, 6)
+    got = rolling_min_max(values, 6)
     np.testing.assert_allclose(got, expected, equal_nan=True)
     np.testing.assert_allclose(got, JaxFleetBuilder._rolling_min_max(values, 6), equal_nan=True)
-    np.testing.assert_allclose(port_fleet_build._rolling_min_max(values[:, 0], 6),
+    np.testing.assert_allclose(rolling_min_max(values[:, 0], 6),
                                pd.Series(values[:, 0]).rolling(6).min().max(), equal_nan=True)
 
 

@@ -57,7 +57,7 @@ from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 from gordo_tpu_torch.models.estimators import TorchLSTMAutoEncoder, TorchLSTMForecast
 from gordo_tpu_torch.models.spec import LSTMSpec
 from gordo_tpu_torch.parallel import fleet as port_fleet
-from gordo_tpu_torch.parallel.fleet_build import FleetBuildError, FleetBuilder
+from gordo_tpu_torch.parallel.fleet_build import FleetBuilder
 from gordo_tpu_torch.server import build_app
 from gordo_tpu_torch.workflow.workflow_generator import normalize
 
@@ -205,10 +205,11 @@ def _kfcv_lstm_machine():
 
 
 def test_kfcv_lstm_machine_fails_in_both():
-    """KFold's scattered folds have no window mapping: both builders record
-    the machine as failed and build nothing. The port's error is the fleet
-    path's ``FleetBuildError``; the JAX builder hands the machine on to its
-    sequential builder, which fails in the detector's ``cross_validate``."""
+    """KFold's scattered folds have no window mapping: both fleet builders
+    hand the machine on to their sequential builder, which fails in the
+    detector's ``cross_validate`` (an LSTM's prediction is shorter than
+    its fold's test rows), so both record it as failed with a
+    ``ValueError`` and build nothing."""
     from gordo_tpu.machine import Machine as JaxMachine
 
     config = _kfcv_lstm_machine()
@@ -218,8 +219,8 @@ def test_kfcv_lstm_machine_fails_in_both():
     X = np.random.RandomState(0).rand(100, 2)
     builder = FleetBuilder([Machine.from_config(config, PROJECT, data=(X, None))], device="cpu")
     assert builder.build() == []
-    assert isinstance(builder.build_errors["kfcv-lstm"], FleetBuildError)
-    assert "non-contiguous" in str(builder.build_errors["kfcv-lstm"])
+    assert isinstance(builder.build_errors["kfcv-lstm"], ValueError)
+    assert "shape mismatch" in str(builder.build_errors["kfcv-lstm"])
 
 
 # -- serving JAX-built LSTM detectors --------------------------------------------

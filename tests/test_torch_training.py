@@ -239,25 +239,56 @@ def test_fit_kwargs_match_jax():
         training.fit_config_from_kwargs({"callbacks": ["not a callback"]})
 
 
-def test_estimator_fit_is_a_fleet_of_one():
-    """``TorchAutoEncoder.fit`` trains as the fleet trainer trains one
-    member, keeps its history, and pickles numpy only."""
-    import pickle
+def _estimator_fit_against_jax(fit_kwargs):
+    """A ``TorchAutoEncoder`` fitted with JAX's randomness, the trainer's
+    ``fit_single`` of the same member, and the JAX estimator's fit."""
+    from gordo_tpu.models.estimators import JaxAutoEncoder
 
     rng = np.random.RandomState(3)
     X = rng.rand(90, 5).astype(np.float32)
-    estimator = TorchAutoEncoder(device="cpu", kind="feedforward_hourglass", epochs=2, batch_size=BATCH, seed=7)
+    kwargs = dict(kind="feedforward_hourglass", epochs=2, batch_size=BATCH, seed=7, **fit_kwargs)
+    estimator = TorchAutoEncoder(device="cpu", **kwargs)
     estimator.fit(X, X, random=JaxRandom())
-    want = fleet.FleetTrainer(device="cpu", random=JaxRandom()).train(
-        [fleet.FleetMember("m", feedforward_hourglass(5), X, X, seed=7)],
-        training.FitConfig(epochs=2, batch_size=BATCH))[0]
+    want = fleet.FleetTrainer(device="cpu", random=JaxRandom()).fit_single(
+        fleet.FleetMember("m", feedforward_hourglass(5), X, X, seed=7),
+        training.FitConfig(epochs=2, batch_size=BATCH, **fit_kwargs))
+    return estimator, want, JaxAutoEncoder(**kwargs).fit(X, X)
+
+
+def test_estimator_fit_is_a_fleet_of_one():
+    """``TorchAutoEncoder.fit`` trains a fleet of one member through the
+    trainer's ``fit_single``, as the JAX estimator's ``fit_single`` trains
+    it (the train rows padded to whole batches, not to a power of two as
+    in a fleet bucket), keeps its history, and pickles numpy only."""
+    import pickle
+
+    estimator, want, jax_estimator = _estimator_fit_against_jax({})
     assert estimator.spec_ == feedforward_hourglass(5)
     assert estimator.history.history == want.history.history
     np.testing.assert_array_equal(estimator.params_["out"]["W"].numpy(), want.params["out"]["W"])
-    assert estimator.get_metadata()["history"]["params"] == want.history.params
+    assert estimator.get_metadata()["history"]["params"] == want.history.params == jax_estimator._history.params
+    for key in jax_estimator._history.history:
+        np.testing.assert_allclose(estimator.history.history[key], jax_estimator._history.history[key], rtol=LOSS_RTOL)
+    for key, layer in jax_estimator.params_.items():
+        for name, leaf in layer.items():
+            np.testing.assert_allclose(estimator.params_[key][name].numpy(), np.asarray(leaf), atol=PARAM_ATOL)
     state = pickle.loads(pickle.dumps(estimator)).__dict__
     assert isinstance(state["params_"]["out"]["W"], np.ndarray) and state["device"] is None
     assert state["kind"] == "feedforward_hourglass" and state["kwargs"]["epochs"] == 2
+
+
+def test_estimator_fit_single_validation_matches_jax():
+    """With a validation split, the last 20% of the rows validate apart
+    from the padded train rows: history and params as the JAX estimator's."""
+    estimator, want, jax_estimator = _estimator_fit_against_jax({"validation_split": 0.2})
+    assert estimator.history.history == want.history.history
+    assert list(estimator.history.history) == ["loss", "val_loss"]
+    assert want.history.params == jax_estimator._history.params
+    for key in jax_estimator._history.history:
+        np.testing.assert_allclose(estimator.history.history[key], jax_estimator._history.history[key], rtol=LOSS_RTOL)
+    for key, layer in jax_estimator.params_.items():
+        for name, leaf in layer.items():
+            np.testing.assert_allclose(estimator.params_[key][name].numpy(), np.asarray(leaf), atol=PARAM_ATOL)
 
 
 def test_training_defaults_to_cuda():
