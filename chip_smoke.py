@@ -134,6 +134,29 @@ kernel's three among them) against its plain version, a ``baddbmm`` chain
 plus ``torch.square(out - y).mean(-1)`` in f32 and with TF32, K1 alone at
 the same shape, and its bounds.
 
+``[engine]`` then serves the ``[train]`` collection through the
+micro-batching engine (``GORDO_TPU_BATCHING``'s ``ServeEngine``, default
+knobs but a 30 s batching deadline) on the card over the socket, beside the same app without it: C = 1,
+8 and 32 concurrent clients, each on its own 20-tag machine with its own
+next 1008 rows, on ``/anomaly/prediction`` then ``/prediction``, every
+answer held to the CPU app's; it prints requests a second, p50 and p99
+host latency with batching on and off, K1's launches, the engine's
+batches, coalesced requests and mean batch, and checks that 32 clients
+took fewer K1 launches than requests. One more burst of 32 clients on
+``/anomaly/prediction`` runs an engine at every default knob, the 2000 ms
+deadline included, and prints how many answered 504 (a reading, not a
+check; the 200s are held to the CPU app's). Then 8 clients of the 40-tag
+bucket (the wide kernel), a bf16 and an int8 round (the parity gate must
+pass; each answer's anomaly verdicts against f32's), and a poisoned member
+(``GORDO_TPU_FAULTS``' ``serve_member_poison``): its riders answer 200, it
+answers 500 and then 503. The largest batch the engine launched at each
+width (its bucket, indices, ingest plan and stacked rows, captured on the
+way to K1) is held to K1's plain version and timed under ``[times]``
+against its bound, its plain version and the ``baddbmm`` chain, beside
+the bf16 and int8 forwards on the same tensors; so is a full batch that
+the engine did not reach here (32 x 2048 x 20 gathered from 64 with the
+ingest prologue, narrow; 8 x 2048 x 40, wide), on lines of its own.
+
 The narrow kernel's persistent loop has cases of its own, K1 and K2 (y =
 X, a separate y, a NaN in y): many tiles a member (2 x 52,560 rows), more
 tiles than resident blocks (2000 x 144), one member (1 x 1 and 1 x 1008),
@@ -1846,6 +1869,292 @@ def routes_phase(base, names, wide_names, cpu_app, collection, card):
     return {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
 
 
+# -- [engine]: the micro-batching serve engine ------------------------------------------
+
+ENGINE_CLIENTS = (1, 8, 32)
+ENGINE_ROUTES = ("anomaly/prediction", "prediction")
+ENGINE_PRECISIONS = ("bf16", "int8")
+#: the member whose forward the drill poisons
+ENGINE_POISON = "machine-005"
+#: the engine's batching deadline for the latency rounds: 32 clients' 1008-row JSON bodies hold the GIL for
+#: seconds, and a rehearsal on the CPU at the 2000 ms default shed requests with 504 while their batch waited
+#: for it; those rounds measure latency, so they wait (every other knob is the default). One burst runs at
+#: the default deadline and reports its 504s
+ENGINE_DEADLINE_MS = 30000.0
+#: full batches the engine did not reach here, timed beside its real ones: 32 of the 64 20-tag members, and
+#: the 8 40-tag ones, at the 2048-row rung
+ENGINE_FULL_CASES = {20: "full engine batch: hourglass20 gather M=32 of 64 B=2048 +ingest",
+                     WIDE_TAGS: "full engine batch: hourglass40 gather M=8 of 8 B=2048 +ingest"}
+
+
+def engine_body(route, frame):
+    return {"X": frame, "y": frame} if route.startswith("anomaly") else {"X": frame}
+
+
+def burst(base, requests):
+    """``requests`` (``(path, body)``) posted at once, one thread each:
+    ``([(status, body bytes, host ms)], wall seconds)``."""
+    answers = [None] * len(requests)
+
+    def hit(i):
+        status, body, _, ms = http_request(base + requests[i][0], "POST", requests[i][1])
+        answers[i] = (status, body, ms)
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(all(a is not None for a in answers), "a client of the burst never returned")
+    return answers, wall
+
+
+def serving(app):
+    """``app`` behind a threaded socket server: ``(base url, stop)``."""
+    from gordo_tpu_torch.server.app import make_wsgi_server
+
+    server = make_wsgi_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        check(not thread.is_alive(), "server thread did not stop")
+
+    return f"http://127.0.0.1:{server.server_port}/gordo/v0/smoke", stop
+
+
+def engine_app(collection, **config):
+    """A card app on ``collection`` with an engine of ``config`` (defaults
+    otherwise), its models loaded and its warmup (parity gates and one
+    forward a bucket) run to the end: ``(app, warmup ms)``."""
+    from gordo_tpu_torch.serve.engine import ServeConfig
+    from gordo_tpu_torch.server import build_app
+
+    app = build_app(collection, device="cuda", serve_config=ServeConfig(**config))
+    check(len(app.store.fleet().warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
+    t0 = time.perf_counter()
+    app.start_warmup().join(timeout=600)
+    return app, (time.perf_counter() - t0) * 1e3
+
+
+def captured_engine_batches():
+    """Until ``restore()``: the largest coalesced batch (two members or
+    more; the unbatched path scores one a call) sent to K1 at each input
+    width, as a K1 case on the card (the bucket, the batch's indices, the
+    bucket's ingest plan and the stacked rows): ``(batches, restore)``."""
+    from gordo_tpu_torch.server import fleet_store
+
+    batches, launch = {}, fleet_store.fleet_feedforward
+
+    def captured(spec, bucket, X, indices=None, ingest=None, **kwargs):
+        width, members = X.shape[-1], X.shape[0]
+        if members > 1 and (width not in batches or members > batches[width]["X"].shape[0]):
+            batches[width] = dict(spec=spec, bucket=bucket, X=X, indices=[int(i) for i in indices], ingest=ingest)
+        return launch(spec, bucket, X, indices=indices, ingest=ingest, **kwargs)
+
+    def restore():
+        fleet_store.fleet_feedforward = launch
+
+    fleet_store.fleet_feedforward = captured
+    return batches, restore
+
+
+def engine_case_name(case):
+    M, B, width = case["X"].shape
+    members = case["bucket"]["out"]["W"].shape[0]
+    return (f"coalesced engine batch: hourglass{width} gather M={M} of {members} B={B}"
+            + (" +ingest" if case["ingest"] is not None else ""))
+
+
+def verdicts(data):
+    """Each row's anomaly verdict: its total-anomaly-confidence above 1."""
+    return [v > 1.0 for v in data["total-anomaly-confidence"]["total-anomaly-confidence"].values()]
+
+
+def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
+    """The micro-batching engine on the card (see the module docstring).
+    Returns the K1 launches of its main path, narrow and wide, and the
+    largest batch it launched at each width."""
+    import numpy as np
+
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+
+    t_phase = time.perf_counter()
+    # the apps below warm up in the foreground, timed, instead of in a thread at build
+    os.environ["GORDO_TPU_SERVE_WARMUP"] = "0"
+    os.environ["GORDO_TPU_BREAKER_THRESHOLD"] = "1"  # the poison drill's breaker opens on its first failure
+    on_app, warm_ms = engine_app(collection, deadline_ms=ENGINE_DEADLINE_MS)
+    engine = on_app.engine
+    check(engine.stats()["warmup_programs"] == 2, f"warmup ran {engine.stats()['warmup_programs']} forwards, not 2")
+    phase("engine", f"engine knobs: max_size {engine.config.max_size}, max_delay {engine.config.max_delay_s * 1e3} ms, "
+          f"deadline {engine.config.deadline_s * 1e3} ms, row ladder {engine.config.row_ladder}; warmup (one forward "
+          f"a bucket, the kernel library loaded) {warm_ms:.1f} ms")
+    bodies = {(route, n): engine_body(route, own_frame(n, 20)) for route in ENGINE_ROUTES
+              for n in names[:max(ENGINE_CLIENTS)]}
+    t0 = time.perf_counter()
+    expected = {key: wsgi_post(cpu_app, f"/gordo/v0/smoke/{key[1]}/{key[0]}", body) for key, body in bodies.items()}
+    check(all(status == 200 for status, _ in expected.values()), "the CPU app refused a request")
+    phase("engine", f"{len(expected)} CPU-app answers to hold the card's to in {time.perf_counter() - t0:.1f} s")
+
+    launches = {"narrow": 0, "wide": 0}
+    (on_base, stop_on), (off_base, stop_off) = serving(on_app), serving(plain_app)
+    captured, restore = captured_engine_batches()
+    try:
+        for clients in ENGINE_CLIENTS:
+            for route in ENGINE_ROUTES:
+                requests = [(f"/{n}/{route}", bodies[(route, n)]) for n in names[:clients]]
+                for label, base in (("off", off_base), ("on", on_base)):
+                    before = engine.stats()
+                    fleet_feedforward.launches = 0
+                    answers, wall = burst(base, requests)
+                    k1 = fleet_feedforward.launches
+                    after = engine.stats()
+                    max_diff = 0.0
+                    for (path, _), (status, body, _) in zip(requests, answers):
+                        check(status == 200, f"batching {label}: {path} answered {status}")
+                        max_diff = max(max_diff, same_json(expected[(route, path.split("/")[1])][1]["data"],
+                                                           json.loads(body)["data"]))
+                    ms = np.asarray([a[2] for a in answers])
+                    line = (f"C={clients} /{route} batching {label}: {clients} requests in {wall:.3f} s "
+                            f"({clients / wall:.2f} requests a second), p50 {np.percentile(ms, 50):.1f} ms, "
+                            f"p99 {np.percentile(ms, 99):.1f} ms, K1 launches {k1} "
+                            f"({k1 / clients:.3f} a request)")
+                    if label == "on":
+                        batches = after["batches"] - before["batches"]
+                        coalesced = after["coalesced"] - before["coalesced"]
+                        check(coalesced == clients and batches >= 1, f"the engine scored {coalesced} of {clients}")
+                        check(k1 == after["launches"] - before["launches"], "K1 launches the engine did not count")
+                        if clients == max(ENGINE_CLIENTS):
+                            check(k1 < clients, f"{clients} clients took {k1} K1 launches, not fewer")
+                        launches["narrow"] += k1
+                        line += f", engine batches {batches}, coalesced {coalesced}, mean batch {coalesced / batches:.2f}"
+                    else:
+                        check(k1 == clients, f"batching off: {k1} K1 launches for {clients} requests")
+                    phase("engine", f"{line}; max abs diff vs the CPU app {max_diff:.3e}; {card}")
+
+        # the 40-tag bucket: the wide kernel
+        requests = [(f"/{n}/anomaly/prediction", engine_body("anomaly", own_frame(n, WIDE_TAGS))) for n in wide_names]
+        before = engine.stats()
+        fleet_feedforward.launches = 0
+        answers, wall = burst(on_base, requests)
+        k1, after = fleet_feedforward.launches, engine.stats()
+        check(k1 >= 1, "the 40-tag round never launched K1")
+        launches["wide"] = k1
+        max_diff = 0.0
+        for (path, body), (status, got, _) in zip(requests, answers):
+            check(status == 200, f"{path} answered {status}")
+            max_diff = max(max_diff, same_json(wsgi_post(cpu_app, "/gordo/v0/smoke" + path, body)[1]["data"],
+                                               json.loads(got)["data"]))
+        phase("engine", f"C={len(requests)} 40-tag /anomaly/prediction batching on (the wide kernel): {wall:.3f} s, "
+              f"K1 launches {k1}, engine batches {after['batches'] - before['batches']}, coalesced "
+              f"{after['coalesced'] - before['coalesced']}; max abs diff vs the CPU app {max_diff:.3e}; {card}")
+
+        # the poison drill: the member's riders answer, it answers 500, then 503 from its open breaker
+        os.environ["GORDO_TPU_FAULTS"] = f"serve_member_poison:*{ENGINE_POISON}:times=inf"
+        try:
+            requests = [(f"/{n}/anomaly/prediction", bodies[("anomaly/prediction", n)]) for n in names[:8]]
+            answers, _ = burst(on_base, requests)
+            statuses = {path.split("/")[1]: status for (path, _), (status, _, _) in zip(requests, answers)}
+            check(statuses.pop(ENGINE_POISON) == 500, f"the poisoned member answered {answers}")
+            check(set(statuses.values()) == {200}, f"its riders answered {statuses}")
+            poisoned = next(r for r in requests if r[0].split("/")[1] == ENGINE_POISON)
+            status, _, _, _ = http_request(on_base + poisoned[0], "POST", poisoned[1])
+            check(status == 503, f"the quarantined member answered {status}, not 503")
+        finally:
+            del os.environ["GORDO_TPU_FAULTS"]
+        stats = engine.stats()
+        phase("engine", f"poisoned {ENGINE_POISON}: 7 riders 200, it 500 then 503; nonfinite_outputs "
+              f"{stats['nonfinite_outputs']}, members_isolated {stats['members_isolated']}, breaker_trips "
+              f"{stats['breaker_trips']}, breaker_rejects {stats['breaker_rejects']}")
+    finally:
+        restore()
+        stop_on()
+        stop_off()
+        on_app.shutdown()
+    check(sorted(captured) == sorted(ENGINE_FULL_CASES), f"coalesced K1 batches at widths {sorted(captured)}")
+
+    # every knob at its default, the 2000 ms deadline included: how many of 32 clients answer 504
+    default_app, warm_ms = engine_app(collection)
+    base, stop = serving(default_app)
+    try:
+        requests = [(f"/{n}/anomaly/prediction", bodies[("anomaly/prediction", n)])
+                    for n in names[:max(ENGINE_CLIENTS)]]
+        answers, wall = burst(base, requests)
+    finally:
+        stop()
+        default_app.shutdown()
+    statuses = [a[0] for a in answers]
+    check(set(statuses) <= {200, 504}, f"the default engine answered {sorted(set(statuses))}")
+    max_diff = 0.0
+    for (path, _), (status, body, _) in zip(requests, answers):
+        if status == 200:
+            max_diff = max(max_diff, same_json(expected[("anomaly/prediction", path.split("/")[1])][1]["data"],
+                                               json.loads(body)["data"]))
+    ms = np.asarray([a[2] for a in answers])
+    stats = default_app.engine.stats()
+    phase("engine", f"C={len(requests)} /anomaly/prediction at the default knobs (deadline "
+          f"{default_app.engine.config.deadline_s * 1e3} ms): {statuses.count(200)} answered 200, "
+          f"{statuses.count(504)} answered 504 (shed_deadline {stats['shed_deadline']}), in {wall:.3f} s, p50 "
+          f"{np.percentile(ms, 50):.1f} ms, p99 {np.percentile(ms, 99):.1f} ms (every answer), engine batches "
+          f"{stats['batches']}, coalesced {stats['coalesced']}; the 200s' max abs diff vs the CPU app {max_diff:.3e}; "
+          f"{card}")
+
+    # bf16 and int8: the parity gate, then 8 clients; each answer's verdicts against f32's
+    for prec in ENGINE_PRECISIONS:
+        app, warm_ms = engine_app(collection, serve_precision=prec, deadline_ms=ENGINE_DEADLINE_MS)
+        fleet = app.store.fleet()
+        for name in (names[0], wide_names[0]):
+            report = fleet.precision_state(fleet.loaded_specs()[name], prec)
+            check(report is not None and report["passed"], f"the {prec} gate did not pass: {report}")
+            phase("engine", f"{prec} gate of the {fleet.loaded_specs()[name].n_features}-tag bucket: passed, verdict "
+                  f"agreement min {report['agreement_min']} over {len(report['members'])} members x "
+                  f"{report['probe_rows']} probe rows (warmup {warm_ms:.1f} ms)")
+        base, stop = serving(app)
+        try:
+            requests = [(f"/{n}/anomaly/prediction", bodies[("anomaly/prediction", n)]) for n in names[:8]]
+            fleet_feedforward.launches = 0
+            answers, wall = burst(base, requests)
+            check(fleet_feedforward.launches == 0, f"{prec} requests launched K1")
+        finally:
+            stop()
+            app.shutdown()
+        agree = rows = 0
+        for (path, _), (status, body, _) in zip(requests, answers):
+            check(status == 200, f"{prec}: {path} answered {status}")
+            ours, f32 = verdicts(json.loads(body)["data"]), verdicts(expected[("anomaly/prediction",
+                                                                              path.split("/")[1])][1]["data"])
+            agree += sum(a == b for a, b in zip(ours, f32))
+            rows += len(f32)
+        stats = app.engine.stats()
+        check(stats["precision"]["coalesced"] == {prec: 8}, f"{prec} coalesced {stats['precision']['coalesced']}")
+        check(agree / rows >= 0.98, f"{prec} verdicts agree with f32 on {agree} of {rows} rows")
+        phase("engine", f"C=8 /anomaly/prediction at {prec}: {wall:.3f} s, coalesced {stats['precision']['coalesced']}"
+              f" in {stats['batches']} batches, verdicts equal to f32's on {agree} of {rows} rows "
+              f"({agree / rows:.4%}); {card}")
+    for name in ("GORDO_TPU_SERVE_WARMUP", "GORDO_TPU_BREAKER_THRESHOLD"):
+        del os.environ[name]
+    phase("engine", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches, captured
+
+
+def reduced_ms(case, prec):
+    """The bf16 or int8 gather forward at ``case``'s shape (indices on the card)."""
+    import torch
+
+    from gordo_tpu_torch.serve import precision
+    from gordo_tpu_torch.server.fleet_store import fleet_forward_gather
+
+    cast = precision.cast_bucket_params(case["bucket"], prec)
+    indices = torch.as_tensor(case["indices"], device="cuda")
+    return cuda_ms(lambda: fleet_forward_gather(case["spec"], cast, indices, case["X"], ingest=case["ingest"],
+                                                precision=prec))
+
+
 # -- phase 5: times ----------------------------------------------------------------
 
 
@@ -2350,7 +2659,8 @@ def main():
 
     card = device_line()
     phase("device", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} visible")
+          f"{torch.cuda.device_count()} visible; host CPU {torch.backends.cpu.get_cpu_capability()}, "
+          f"{os.cpu_count()} cores (the CPU builds that the card's are held to run there)")
 
     from gordo_tpu_torch.ops import _build
     from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
@@ -2442,6 +2752,7 @@ def main():
             server.server_close()
             thread.join(timeout=30)
         check(not thread.is_alive(), "server thread did not stop")
+        engine_launches, engine_batches = engine_phase(collection, names, wide_names, cpu_app, app, card)
 
     for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
         split, smem, per_sm, grid = narrow_plan(scored[name] if name.startswith("K2") else cases[name])
@@ -2486,6 +2797,22 @@ def main():
           f"chain {library!r} ms (with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 "
           f"tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
           f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+    from gordo_tpu_torch.models.factories import feedforward_hourglass
+
+    engine_names = {width: engine_case_name(case) for width, case in engine_batches.items()}
+    engine_cases = {engine_names[width]: case for width, case in engine_batches.items()}
+    for width, n, m, indices in ((20, 64, 32, list(range(0, 64, 2))), (WIDE_TAGS, 8, 8, list(range(8)))):
+        engine_cases[ENGINE_FULL_CASES[width]] = make_case(feedforward_hourglass(width), n, m, 2048, indices=indices,
+                                                           ingest=True, seed=40 + width)
+    for name, case in engine_cases.items():
+        errors[name] = compare(case)
+        timed[name] = times(case)
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        reduced = ", ".join(f"{prec} forward {reduced_ms(case, prec)!r} ms" for prec in ENGINE_PRECISIONS)
+        phase("times", f"{name}: K1 {kernel!r} ms (max abs {errors[name][0]:.3e} vs plain), plain {plain!r} ms, "
+              f"baddbmm chain {library!r} ms (with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, "
+              f"3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+              f"({cuda_core_ms / kernel:.1%}); {reduced}; {card}")
     anomaly = cases[NARROW_CASES[2]]
     on_card = torch.tensor(anomaly["indices"], dtype=torch.int32, device="cuda")
     k1_on_card = cuda_ms(lambda: fleet_feedforward(
@@ -2542,10 +2869,11 @@ def main():
 
     k1_by_path = {"train": train_launches["K1"], "config": config_launches["K1"], "serve": launches["K1"],
                   "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"], "routes": route_launches["K1"],
-                  "lstm": lstm_launches["K1"], "build": build_launches["K1"]}
+                  "lstm": lstm_launches["K1"], "build": build_launches["K1"],
+                  "engine": engine_launches["narrow"] + engine_launches["wide"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
-                  "lstm": lstm_launches["K2"], "build": build_launches["K2"]}
+                  "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -2571,6 +2899,12 @@ def main():
         entry("fleet_dense (K1), wide kernel, sequential fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
               sequential_cases[WIDE_TAGS][1], k1_by_path, SEQUENTIAL_CASES[WIDE_TAGS],
               timed[SEQUENTIAL_CASES[WIDE_TAGS]]),
+        # launches: the [engine] phase's coalesced batches of that width, read on the counter; the shape:
+        # the largest batch it launched at that width, captured on its way to K1
+        entry("fleet_dense (K1), narrow kernel, coalesced engine batch", "gordo_tpu/ops/pallas_dense.py:114",
+              engine_launches["narrow"], k1_by_path, engine_names[20], timed[engine_names[20]]),
+        entry("fleet_dense (K1), wide kernel, coalesced engine batch", "gordo_tpu/ops/pallas_dense.py:114",
+              engine_launches["wide"], k1_by_path, engine_names[WIDE_TAGS], timed[engine_names[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

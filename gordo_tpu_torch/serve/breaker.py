@@ -1,8 +1,9 @@
 """
 Per-member circuit breakers, a copy of ``gordo_tpu/serve/breaker.py``
-(``BreakerConfig``, ``BreakerBoard``, ``MemberQuarantined``) without the
-micro-batching engine's precision degrade set, which waits for the
-engine. The streaming plane owns one board and quarantines through it.
+(``BreakerConfig``, ``BreakerBoard``, ``MemberQuarantined``,
+``ServeDeviceError``). The serving engine owns one board; the streaming
+plane quarantines through the engine's board when the app has an engine,
+else through its own.
 
 The board keeps one record per ``(revision fleet, spec, member)``:
 
@@ -16,6 +17,10 @@ The board keeps one record per ``(revision fleet, spec, member)``:
   its success closes the breaker, its failure re-opens it. A probe that
   never reports expires after ``probe_ttl_s``.
 
+The board also holds the engine's precision degrade set: the (fleet,
+spec, precision) buckets whose reduced-precision forward failed while
+serving, pinned to f32 whether or not the parity gate is on.
+
 Keys hold the fleet's ``id``, and a fleet that dies takes its records
 with it (``weakref.finalize``), so a new revision starts clean.
 """
@@ -28,6 +33,7 @@ import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..utils.env import env_float, env_int
+from .batcher import BatchShedError
 
 logger = logging.getLogger(__name__)
 
@@ -36,7 +42,7 @@ OPEN = "open"
 HALF_OPEN = "half_open"
 
 
-class MemberQuarantined(Exception):
+class MemberQuarantined(BatchShedError):
     """The member's circuit breaker is open: answered as 503 with a
     ``Retry-After`` from the remaining cooldown."""
 
@@ -47,6 +53,17 @@ class MemberQuarantined(Exception):
         )
         self.member = member
         self.retry_after_s = retry_after_s
+
+
+class ServeDeviceError(BatchShedError):
+    """The device forward failed for this member after the engine isolated
+    it (its batch's other riders have their answers): answered as 500,
+    with a generic text; the cause is chained for the server log."""
+
+    def __init__(self, member: str, cause: Optional[BaseException] = None):
+        super().__init__(f"device scoring failed for model {member!r} in isolation")
+        self.member = member
+        self.__cause__ = cause
 
 
 class BreakerConfig:
@@ -126,6 +143,9 @@ class BreakerBoard:
         #: unhealthy members cost, not the fleet's size
         self._unhealthy: Dict[Tuple[int, Any, str], _MemberBreaker] = {}
         self._live_trips = 0
+        #: (fleet id, spec, precision) buckets degraded to f32 after device
+        #: errors; read per request with one set probe
+        self._degraded: set = set()
         #: fleet id -> finalizer that purges a dead fleet's records
         self._fleets: Dict[int, Any] = {}
         #: fleet ids whose finalizer fired, drained under the lock; the
@@ -149,6 +169,7 @@ class BreakerBoard:
             for key in [k for k in self._members if k[0] == fid]:
                 self._live_trips -= self._members.pop(key).trips
                 self._unhealthy.pop(key, None)
+            self._degraded = {k for k in self._degraded if k[0] != fid}
 
     def quarantined(self, fleet: Any, spec: Any, member: str) -> Optional[float]:
         """None when the member may be scored (closed, or admitted as the
@@ -243,6 +264,25 @@ class BreakerBoard:
             self._fire(member, *transition)
         return transition is not None
 
+    def degrade_bucket(self, fleet: Any, spec: Any, precision: str) -> bool:
+        """Pin one (fleet, spec, precision) bucket to f32 after its
+        reduced-precision forward failed; True when newly degraded."""
+        with self._lock:
+            self._drain_dead_locked()
+            key = (self._track_fleet(fleet), spec, precision)
+            if key in self._degraded:
+                return False
+            self._degraded.add(key)
+        return True
+
+    def degraded(self, fleet: Any, spec: Any, precision: str) -> bool:
+        if self._dead:
+            # a dead fleet's id may be reused by a new one: drain first, so
+            # a stale key never pins a fresh revision's bucket to f32
+            with self._lock:
+                self._drain_dead_locked()
+        return (id(fleet), spec, precision) in self._degraded  # lock-free
+
     def summary(self, top_k: int = 10) -> Dict[str, Any]:
         """Counts by state, total trips, and the ``top_k`` unhealthy
         members by trips."""
@@ -251,6 +291,7 @@ class BreakerBoard:
             tracked = len(self._members)
             unhealthy = list(self._unhealthy.values())
             trips = self._live_trips
+            degraded = len(self._degraded)
         counts = {OPEN: 0, HALF_OPEN: 0}
         for breaker in unhealthy:
             counts[breaker.state] += 1
@@ -260,6 +301,7 @@ class BreakerBoard:
             "open": counts[OPEN],
             "half_open": counts[HALF_OPEN],
             "trips": trips,
+            "degraded_buckets": degraded,
             "members": [b.snapshot() for b in ranked[: max(0, top_k)]],
         }
 

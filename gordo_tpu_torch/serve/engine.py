@@ -1,0 +1,611 @@
+"""
+The serving engine, a copy of ``gordo_tpu/serve/engine.py``: concurrent
+single-model requests coalesced into one fused forward a batch.
+
+:class:`ServeEngine` owns a :class:`~gordo_tpu_torch.serve.batcher.MicroBatcher`
+keyed by ``(revision fleet, spec, row rung, precision)``:
+
+- **request thread** (:meth:`ServeEngine.batched_predict`): the breaker
+  first (503), then the row rung and the precision (the parity gate), then
+  the request's raw float32 rows padded to the rung and queued;
+- **dispatcher** (``_run_batch``): the live riders' rows stacked to
+  ``[members, rung, F]`` and copied to the device once, one K1 gather
+  launch with the bucket's ``indices`` and ingest plan at f32 (the plain
+  bf16/int8 forward at reduced precision), one copy back, and each
+  rider's rows handed back through its future.
+
+The port launches exactly the live members: a hand kernel has no compile
+cache to bound, so the JAX engine's power-of-two member padding
+(repeating ``indices[0]``) is left out; :meth:`stats` reports the padded
+count the JAX engine would have launched. Every request queues its raw
+rows, at every precision: the bucket's ingest plan (the pipeline's
+affine scaling) runs on the device, in the launch at f32.
+
+Failures are contained as there: a device error of a batch bisects it;
+a member that fails alone degrades a reduced-precision bucket to f32 and
+retries, else records a failure on its breaker and answers 500 while its
+riders answer 200; an out-of-memory demotes the ladder rung it struck
+(and frees the caching allocator's blocks); a non-finite output from
+finite input is the member's failure. On a card, the errors bisected
+are the synchronous ones (an out-of-memory, a refused launch, an
+injected fault); a CUDA error the runtime reports as sticky (an illegal
+address, a launch failure) leaves the context unusable, so its batch
+answers 500 without a bisection and the log says so.
+
+Requests the engine cannot batch (not feedforward, an empty or too tall
+request, rows of the wrong width, a draining batcher) answer None from
+:meth:`batched_predict`, and the caller scores them unbatched.
+
+The learned performance model's knobs (``GORDO_TPU_PERFMODEL_*``) are not
+ported: set, they make the engine refuse to start. Telemetry spans and
+Prometheus metrics are not ported either.
+"""
+
+import logging
+import re
+import threading
+import time
+from concurrent.futures import CancelledError
+from concurrent.futures import TimeoutError as FutureTimeoutError
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.estimators import find_estimator
+from ..models.spec import FeedForwardSpec
+from ..utils.env import env_bool, env_float, env_int, env_str
+from ..utils.faults import FaultInjected, fault_point
+from . import ladder, precision
+from .batcher import BatcherStopped, BatchItem, DeadlineExceeded, MicroBatcher
+from .breaker import BreakerBoard, MemberQuarantined, ServeDeviceError
+
+logger = logging.getLogger(__name__)
+
+BATCHING_ENV = "GORDO_TPU_BATCHING"
+
+#: the learned performance model's consumer knobs (off by default in the
+#: JAX package); the model is not ported, so the engine refuses them
+PERFMODEL_KNOBS = (
+    "GORDO_TPU_PERFMODEL_PRECISION",
+    "GORDO_TPU_PERFMODEL_WARMUP",
+    "GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES",
+    "GORDO_TPU_PERFMODEL_BREAKER",
+)
+
+#: CUDA errors that the runtime reports as sticky: the context is lost,
+#: and no retry on it can succeed
+_STICKY_CUDA = re.compile(
+    r"illegal memory access|illegal address|illegal instruction|misaligned address|unspecified launch failure"
+    r"|device-side assert|launch timed out|hardware stack error|invalid program counter|uncorrectable ECC"
+    r"|invalid address space",
+    re.IGNORECASE,
+)
+
+
+def batching_enabled() -> bool:
+    """The switch: batching is opt-in (``GORDO_TPU_BATCHING=1``)."""
+    return env_bool(BATCHING_ENV, False)
+
+
+def refuse_perfmodel_knobs() -> None:
+    """Raise when a learned-performance-model knob is set: the port has no
+    cost model to honour it with."""
+    for name in PERFMODEL_KNOBS:
+        raw = env_str(name, "")
+        if raw and raw.strip().lower() not in ("0", "false", "off", "no"):
+            raise NotImplementedError(f"{name}={raw!r} needs the learned performance model, which gordo_tpu_torch "
+                                      "does not have; unset it")
+
+
+def is_sticky_device_error(exc: BaseException) -> bool:
+    """True for a CUDA error that leaves the context unusable.
+
+    >>> is_sticky_device_error(RuntimeError("CUDA error: an illegal memory access was encountered"))
+    True
+    >>> is_sticky_device_error(torch.cuda.OutOfMemoryError("CUDA out of memory"))
+    False
+    """
+    return isinstance(exc, RuntimeError) and not isinstance(exc, torch.cuda.OutOfMemoryError) and bool(
+        _STICKY_CUDA.search(str(exc)))
+
+
+def is_out_of_memory(exc: BaseException) -> bool:
+    """The card's out-of-memory, or a failure that says
+    ``RESOURCE_EXHAUSTED`` (the JAX package's word, which injected faults
+    carry)."""
+    return isinstance(exc, torch.cuda.OutOfMemoryError) or "RESOURCE_EXHAUSTED" in str(exc)
+
+
+class ServeConfig:
+    """Engine knobs, read once from the environment at creation; the same
+    names and defaults as the JAX engine's."""
+
+    __slots__ = (
+        "max_size",
+        "max_delay_s",
+        "queue_depth",
+        "deadline_s",
+        "dispatchers",
+        "row_ladder",
+        "warmup_max_rows",
+        "inline_flush",
+        "precision",
+        "finite_check",
+    )
+
+    def __init__(
+        self,
+        max_size: int = 32,
+        max_delay_ms: float = 5.0,
+        queue_depth: int = 512,
+        deadline_ms: float = 2000.0,
+        dispatchers: int = 1,
+        row_ladder: Optional[Tuple[int, ...]] = None,
+        warmup_max_rows: int = 512,
+        inline_flush: bool = True,
+        serve_precision: str = "",
+        finite_check: bool = True,
+    ):
+        self.max_size = max(1, int(max_size))
+        self.max_delay_s = max(0.0, float(max_delay_ms) / 1000.0)
+        self.queue_depth = max(1, int(queue_depth))
+        self.deadline_s = max(0.001, float(deadline_ms) / 1000.0)
+        self.dispatchers = max(1, int(dispatchers))
+        self.row_ladder = tuple(row_ladder) if row_ladder is not None else ladder.row_ladder()
+        self.warmup_max_rows = int(warmup_max_rows)
+        self.inline_flush = bool(inline_flush)
+        #: scan each batch's output for non-finite rows: a member that gives
+        #: them for finite input is poisoned and fails alone
+        self.finite_check = bool(finite_check)
+        #: the default serving precision ("" reads GORDO_TPU_SERVE_PRECISION);
+        #: a spec's own precision field wins per request
+        self.precision = precision.normalize(serve_precision) if serve_precision else precision.serve_precision()
+
+    @classmethod
+    def from_env(cls) -> "ServeConfig":
+        return cls(
+            max_size=env_int("GORDO_TPU_BATCH_MAX_SIZE", 32),
+            max_delay_ms=env_float("GORDO_TPU_BATCH_MAX_DELAY_MS", 5.0),
+            queue_depth=env_int("GORDO_TPU_BATCH_QUEUE_DEPTH", 512),
+            deadline_ms=env_float("GORDO_TPU_BATCH_DEADLINE_MS", 2000.0),
+            dispatchers=env_int("GORDO_TPU_BATCH_DISPATCHERS", 1),
+            warmup_max_rows=env_int("GORDO_TPU_SERVE_WARMUP_ROWS", 512),
+            inline_flush=env_bool("GORDO_TPU_BATCH_INLINE_FLUSH", True),
+            serve_precision=env_str(precision.PRECISION_ENV, "") or "",
+            finite_check=env_bool("GORDO_TPU_SERVE_FINITE_CHECK", True),
+        )
+
+
+class ServeEngine:
+    """The micro-batching scheduler over one app's ``FleetModelStore``."""
+
+    def __init__(self, store: Any, config: Optional[ServeConfig] = None):
+        refuse_perfmodel_knobs()
+        self.store = store
+        self.config = config or ServeConfig.from_env()
+        self.member_ladder = ladder.member_ladder(self.config.max_size)
+        #: gate-then-serve; a failed gate serves f32
+        self.governor = precision.PrecisionGovernor()
+        #: per-(fleet, spec, member) breakers and the precision degrade set
+        self.breakers = BreakerBoard(on_transition=self._on_breaker_transition)
+        self._lock = threading.Lock()
+        #: (spec, route, members, padded members, rows, precision) of every
+        #: forward run, for :meth:`program_shapes`
+        self._programs: set = set()
+        #: (spec, precision) -> member and row caps after an out-of-memory
+        self._member_caps: Dict[Tuple, int] = {}
+        self._row_caps: Dict[Tuple, int] = {}
+        self._counters: Dict[str, int] = {
+            "requests": 0,  # batched_predict calls that queued
+            "fallback": 0,  # calls answered None
+            "batches": 0,  # drained batches scored
+            "launches": 0,  # fused forwards run (bisection runs several a batch)
+            "coalesced": 0,  # requests scored in batches
+            "padded_members": 0,  # members the JAX engine would have launched
+            "shed_queue_full": 0,
+            "shed_deadline": 0,
+            "warmup_programs": 0,
+            "precision_degraded": 0,  # requests served f32 instead
+            "device_errors": 0,  # forwards that raised device errors
+            "sticky_device_errors": 0,  # of them, CUDA errors that lose the context
+            "batch_bisects": 0,
+            "members_isolated": 0,  # failures pinned on one member
+            "nonfinite_outputs": 0,
+            "breaker_rejects": 0,  # requests answered 503
+            "breaker_trips": 0,
+            "rung_demotions": 0,  # ladder rungs dropped after an out-of-memory
+            "oom_fallbacks": 0,  # single-member out-of-memory sent unbatched
+            "ingest_batches": 0,  # batches run with the ingest prologue
+        }
+        self._precision_counters: Dict[str, int] = {}
+        self._batcher = MicroBatcher(
+            self._run_batch,
+            max_size=self.config.max_size,
+            max_delay_s=self.config.max_delay_s,
+            queue_depth=self.config.queue_depth,
+            dispatchers=self.config.dispatchers,
+            inline_flush=self.config.inline_flush,
+            retry_after_s=max(1.0, self.config.max_delay_s * 4),
+            on_shed=self._on_shed,
+        )
+
+    # -- request path ---------------------------------------------------------
+
+    def eligible_spec(self, fleet: Any, name: str) -> Optional[FeedForwardSpec]:
+        """The spec this request batches under, or None: feedforward only
+        (an LSTM's windowed forward stays unbatched)."""
+        spec = fleet.loaded_specs().get(name)
+        return spec if isinstance(spec, FeedForwardSpec) else None
+
+    def batched_predict(self, fleet: Any, name: str, model: Any, X: Any) -> Optional[np.ndarray]:
+        """One request's reconstruction rows by ``fleet`` (the request's
+        revision) through the batcher, or None when the request is not
+        batchable (the caller scores it itself).
+
+        Raises :class:`~gordo_tpu_torch.serve.QueueFullError` (429) when
+        admission refuses it, :class:`MemberQuarantined` (503) when its
+        breaker is open, :class:`ServeDeviceError` (500) when its member
+        failed alone, and :class:`DeadlineExceeded` (504) when its batch
+        missed the deadline."""
+        spec = self.eligible_spec(fleet, name)
+        if spec is None or find_estimator(model) is None:
+            self._count("fallback")
+            return None
+        # the breaker first: a quarantined member answers 503 before queueing
+        retry_after = self.breakers.quarantined(fleet, spec, name)
+        if retry_after is not None:
+            self._count("breaker_rejects")
+            raise MemberQuarantined(name, retry_after)
+        X = np.asarray(X, np.float32)
+        rows = int(len(X))
+        padded_rows = ladder.pad_to(rows, self.config.row_ladder)
+        if rows == 0 or padded_rows is None or X.ndim != 2 or X.shape[1] != spec.n_features:
+            # too tall for the ladder, or rows the unbatched path refuses itself
+            self._count("fallback")
+            return None
+
+        desired = precision.resolve_precision(spec, self.config.precision)
+        prec = desired
+        if desired != precision.F32:
+            if self.breakers.degraded(fleet, spec, desired):
+                prec = precision.F32
+            else:
+                prec = self.governor.effective_precision(fleet, spec, desired)
+            if prec != desired:
+                self._count("precision_degraded")
+
+        # a rung that ran out of memory serves unbatched from now on
+        row_cap = self._row_caps.get((spec, prec))
+        if row_cap is not None and padded_rows > row_cap:
+            self._count("fallback")
+            return None
+
+        # rows padded here, on the waiting request thread: the dispatcher
+        # stacks same-rung payloads in one numpy call
+        if rows == padded_rows:
+            payload = np.ascontiguousarray(X)
+        else:
+            payload = np.zeros((padded_rows, spec.n_features), np.float32)
+            payload[:rows] = X
+        item = BatchItem(name, payload, rows=rows, deadline=time.monotonic() + self.config.deadline_s)
+        try:
+            # precision is part of the key: an f32 and a bf16 request never
+            # share a forward (a mixed hot-swap)
+            future = self._batcher.submit((fleet, spec, padded_rows, prec), item)
+        except BatcherStopped:
+            self._count("fallback")
+            return None
+        self._count("requests")
+        try:
+            recon = future.result(timeout=self.config.deadline_s)
+        except FutureTimeoutError:
+            future.cancel()
+            self._count("shed_deadline")
+            raise DeadlineExceeded(f"request missed the {self.config.deadline_s * 1000:.0f}ms batching deadline") \
+                from None
+        except CancelledError:
+            raise DeadlineExceeded("request expired while queued") from None
+        # None: the member's smallest forward ran out of memory; the caller
+        # scores it unbatched
+        return recon
+
+    # -- batch execution (dispatcher thread) ----------------------------------
+
+    def _fault_key(self, spec: Any, prec: str, name: str) -> str:
+        """The fault sites' key of one rider: ``<spec>:<precision>:<member>``."""
+        return f"{type(spec).__name__}:{prec}:{name}"
+
+    def _run_batch(self, key: Tuple, items: List[BatchItem]) -> None:
+        fleet, spec, padded_rows, prec = key
+        names, params, ingest = fleet.serving_bucket(spec, prec)
+        bucket_rows = {n: i for i, n in enumerate(names)}
+        live: List[BatchItem] = []
+        for item in items:
+            if item.name in bucket_rows:
+                live.append(item)
+                continue
+            try:  # not in the bucket it was queued for
+                item.future.set_exception(KeyError(f"{item.name} left the serving bucket"))
+            except Exception:  # noqa: BLE001 - already resolved
+                pass
+        if not live:
+            return
+        results: List[Tuple[BatchItem, np.ndarray]] = []
+        failures: List[Tuple[BatchItem, BaseException]] = []
+        fallbacks: List[BatchItem] = []
+        self._score_live(fleet, spec, prec, padded_rows, live, params, bucket_rows, ingest,
+                         results, failures, fallbacks)
+        members = len(live)
+        with self._lock:
+            self._counters["batches"] += 1
+            self._counters["coalesced"] += members
+            self._counters["padded_members"] += ladder.pad_to(members, self.member_ladder) or members
+            if ingest is not None:
+                self._counters["ingest_batches"] += 1
+            self._precision_counters[prec] = self._precision_counters.get(prec, 0) + members
+        for item, rows in results:
+            try:
+                fault_point("serve_scatter", self._fault_key(spec, prec, item.name))
+                item.future.set_result(rows[: item.rows])
+            except FaultInjected as exc:
+                # one rider's hand-back failure is that rider's alone
+                try:
+                    item.future.set_exception(ServeDeviceError(item.name, exc))
+                except Exception:  # noqa: BLE001 - the waiter gave up
+                    pass
+            except Exception:  # noqa: BLE001 - the waiter gave up (504)
+                pass
+        for item in fallbacks:
+            try:
+                item.future.set_result(None)
+            except Exception:  # noqa: BLE001 - the waiter gave up
+                pass
+        for item, exc in failures:
+            try:
+                item.future.set_exception(exc)
+            except Exception:  # noqa: BLE001 - the waiter gave up
+                pass
+
+    # -- failure containment (the scoring ladder) -------------------------------
+
+    def _score_live(self, fleet, spec, prec: str, padded_rows: int, live: List[BatchItem], params,
+                    bucket_rows: Dict[str, int], ingest, results: List, failures: List, fallbacks: List) -> None:
+        """Score ``live``: a device error of the fused forward bisects the
+        batch and scores each half; a one-member forward's failure is the
+        member's own (:meth:`_member_failure`). A sticky CUDA error answers
+        500 to the whole batch: the context it would retry on is lost.
+        Host errors propagate (they would fail every half alike), and the
+        batcher hands each rider its own copy."""
+        from ..parallel.fleet import is_device_error
+
+        cap = self._member_caps.get((spec, prec))
+        if cap is not None and len(live) > cap:
+            for start in range(0, len(live), cap):
+                self._score_live(fleet, spec, prec, padded_rows, live[start:start + cap], params, bucket_rows,
+                                 ingest, results, failures, fallbacks)
+            return
+        try:
+            recon = self._fused_live(fleet, spec, prec, padded_rows, live, params, bucket_rows, ingest)
+        except Exception as exc:
+            if not is_device_error(exc):
+                raise
+            self._count("device_errors")
+            if is_sticky_device_error(exc):
+                self._count("sticky_device_errors")
+                logger.error(
+                    "CUDA reported a sticky error in a coalesced forward of %d member(s): the context is lost, "
+                    "so the batch answers 500 without bisection and later device work will fail too: %r",
+                    len(live), exc,
+                )
+                failures.extend((item, ServeDeviceError(item.name, exc)) for item in live)
+                return
+            self._note_resource_exhausted(fleet, spec, prec, len(live), padded_rows, exc)
+            if len(live) > 1:
+                self._count("batch_bisects")
+                logger.warning("fused serving forward failed for %d coalesced member(s) (%s); bisecting",
+                               len(live), exc)
+                mid = len(live) // 2
+                for half in (live[:mid], live[mid:]):
+                    self._score_live(fleet, spec, prec, padded_rows, half, params, bucket_rows, ingest,
+                                     results, failures, fallbacks)
+            else:
+                self._member_failure(fleet, spec, prec, padded_rows, live[0], exc, results, failures, fallbacks)
+            return
+        for i, item in enumerate(live):
+            rows = recon[i]
+            try:
+                fault_point("serve_member_poison", self._fault_key(spec, prec, item.name))
+            except FaultInjected:
+                rows = np.full_like(rows, np.nan)
+            if self.config.finite_check and not np.isfinite(rows[: item.rows]).all():
+                if np.isfinite(item.payload[: item.rows]).all():
+                    # finite input, non-finite output: the member is poisoned
+                    self._count("nonfinite_outputs")
+                    self._member_failure(
+                        fleet, spec, prec, padded_rows, item,
+                        FloatingPointError(f"non-finite output from member {item.name} ({prec}) for finite input"),
+                        results, failures, fallbacks,
+                    )
+                    continue
+                # non-finite input rows are the client's; the unbatched
+                # path would answer the same NaN
+            results.append((item, rows))
+            self.breakers.record_success(fleet, spec, item.name)
+
+    def _fused_live(self, fleet, spec, prec: str, padded_rows: int, live: List[BatchItem], params,
+                    bucket_rows: Dict[str, int], ingest) -> np.ndarray:
+        """One fused forward over ``live``: the payloads stacked on the host
+        and copied to the device once, one gather launch, one copy back;
+        returns the ``[len(live), padded_rows, F_out]`` host rows."""
+        from ..server.fleet_store import fleet_forward_gather
+
+        for item in live:
+            fault_point("serve_device_program", self._fault_key(spec, prec, item.name))
+        X = torch.from_numpy(np.stack([item.payload for item in live]))
+        if fleet.device.type == "cuda":
+            X = X.pin_memory().to(fleet.device, non_blocking=True)
+        indices = [bucket_rows[item.name] for item in live]
+        recon = fleet_forward_gather(spec, params, indices, X, ingest=ingest, precision=prec).cpu().numpy()
+        members = len(live)
+        shape = (spec, "k1" if prec == precision.F32 else "torch", members,
+                 ladder.pad_to(members, self.member_ladder) or members, padded_rows, prec)
+        with self._lock:
+            self._counters["launches"] += 1
+            self._programs.add(shape)
+        return recon
+
+    def _member_failure(self, fleet, spec, prec: str, padded_rows: int, item: BatchItem, exc: BaseException,
+                        results: List, failures: List, fallbacks: List) -> None:
+        """One member failed alone. In order: an out-of-memory hands the
+        request back to the unbatched path (the rung was demoted; the member
+        is not to blame); a reduced-precision bucket degrades to f32 and the
+        member retries there; anything else is the member's own failure, on
+        its breaker, answered with :class:`ServeDeviceError`."""
+        if is_out_of_memory(exc):
+            self._count("oom_fallbacks")
+            fallbacks.append(item)
+            return
+        if prec != precision.F32:
+            self._degrade_bucket(fleet, spec, prec, exc)
+            self._count("precision_degraded")
+            try:
+                names32, params32, ingest32 = fleet.serving_bucket(spec)
+            except Exception:  # noqa: BLE001 - no f32 bucket to retry on
+                names32 = []
+            if item.name in names32:
+                rows32 = {n: i for i, n in enumerate(names32)}
+                self._score_live(fleet, spec, precision.F32, padded_rows, [item], params32, rows32, ingest32,
+                                 results, failures, fallbacks)
+                return
+        self._count("members_isolated")
+        logger.error("serving device forward failed for member %s in isolation: %r", item.name, exc)
+        self.breakers.record_failure(fleet, spec, item.name, exc)
+        failures.append((item, ServeDeviceError(item.name, exc)))
+
+    def _degrade_bucket(self, fleet, spec, prec: str, exc: BaseException) -> None:
+        """Pin a failing reduced-precision bucket to f32: in the board's
+        degrade set (which holds with the gate off) and as a failed gate
+        verdict on the fleet."""
+        if not self.breakers.degrade_bucket(fleet, spec, prec):
+            return  # already degraded
+        logger.warning("degrading (%s, %s) bucket to f32 after a device error: %r", type(spec).__name__, prec, exc)
+        fleet.set_precision_state(spec, prec, {
+            "precision": prec,
+            "spec": type(spec).__name__,
+            "passed": False,
+            "detail": f"device errors while serving {prec}: {exc!r}"[:300],
+        })
+
+    def _note_resource_exhausted(self, fleet, spec, prec: str, members: int, padded_rows: int,
+                                 exc: BaseException) -> None:
+        """An out-of-memory demotes the rung it struck: the member axis while
+        the batch can still split, the row axis once one member ran out, so
+        the engine stops retrying a shape the card refused. On a card the
+        caching allocator's free blocks go back first."""
+        if not is_out_of_memory(exc):
+            return
+        if fleet.device.type == "cuda":
+            torch.cuda.empty_cache()
+        demoted = None
+        padded = ladder.pad_to(members, self.member_ladder) or members
+        with self._lock:
+            if members > 1:
+                cap = max(1, padded // 2)
+                current = self._member_caps.get((spec, prec))
+                if current is None or cap < current:
+                    self._member_caps[(spec, prec)] = cap
+                    demoted = ("members", cap)
+            else:
+                lower = [r for r in self.config.row_ladder if r < padded_rows]
+                cap = max(lower) if lower else 0
+                current = self._row_caps.get((spec, prec))
+                if current is None or cap < current:
+                    self._row_caps[(spec, prec)] = cap
+                    demoted = ("rows", cap)
+        if demoted is not None:
+            self._count("rung_demotions")
+            logger.warning("out of memory at (%s members, %s rows, %s): capping the %s ladder for %s at %d",
+                           members, padded_rows, prec, demoted[0], type(spec).__name__, demoted[1])
+
+    def _on_breaker_transition(self, member: str, old: str, new: str, info: dict) -> None:
+        if new == "open":
+            self._count("breaker_trips")
+
+    # -- warmup ---------------------------------------------------------------
+
+    def warmup_collection(self, collection_dir: str) -> Dict[str, Any]:
+        """Load a revision's models and run :meth:`warmup_fleet` on it."""
+        fleet = self.store.fleet(collection_dir)
+        fleet.warm()
+        return self.warmup_fleet(fleet)
+
+    def warmup_fleet(self, fleet: Any) -> Dict[str, Any]:
+        """Before the first request: the parity gate of every reduced
+        feedforward bucket, then one forward a bucket at its serving
+        precision (one K1 launch a spec at f32 on a card, which also loads
+        the kernel library, built with ``nvcc`` on first use), at the
+        tallest rung within ``warmup_max_rows``."""
+        from ..server.fleet_store import fleet_forward_gather
+
+        start = time.monotonic()
+        warm_rows = max([r for r in self.config.row_ladder if r <= self.config.warmup_max_rows]
+                        or [self.config.row_ladder[0]])
+        specs = {spec for spec in fleet.loaded_specs().values() if isinstance(spec, FeedForwardSpec)}
+        runs = 0
+        for spec in sorted(specs, key=repr):
+            desired = precision.resolve_precision(spec, self.config.precision)
+            prec = self.governor.effective_precision(fleet, spec, desired) if desired != precision.F32 \
+                else precision.F32
+            try:
+                names, params, ingest = fleet.serving_bucket(spec, prec)
+            except KeyError:
+                continue
+            members = min(len(names), self.config.max_size)
+            X = torch.zeros((members, warm_rows, spec.n_features), dtype=torch.float32, device=fleet.device)
+            fleet_forward_gather(spec, params, list(range(members)), X, ingest=ingest, precision=prec).cpu()
+            runs += 1
+        self._count("warmup_programs", runs)
+        seconds = time.monotonic() - start
+        logger.info("serve warmup: %d forward(s) over %d spec bucket(s) in %.2fs", runs, len(specs), seconds)
+        return {"programs": runs, "specs": len(specs), "seconds": seconds}
+
+    # -- introspection and lifecycle -------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            stats = dict(self._counters)
+            stats["programs"] = len(self._programs)
+            stats["precision"] = {"config": self.config.precision, "coalesced": dict(self._precision_counters)}
+            demotions = {
+                "members": {f"{type(s).__name__}:{p}": cap for (s, p), cap in self._member_caps.items()},
+                "rows": {f"{type(s).__name__}:{p}": cap for (s, p), cap in self._row_caps.items()},
+            }
+        stats["pending"] = self._batcher.pending()
+        stats["breaker"] = self.breakers.summary()
+        stats["demoted_rungs"] = demotions
+        return stats
+
+    def program_shapes(self) -> List[Tuple]:
+        """``(spec, route, members, padded members, rows, precision)`` of
+        every forward shape run, ``route`` ``k1`` (f32) or ``torch``."""
+        with self._lock:
+            return sorted((repr(s), *rest) for (s, *rest) in self._programs)
+
+    def shutdown(self, drain: bool = True) -> None:
+        """Stop the dispatchers; with ``drain`` everything queued still
+        scores first."""
+        self._batcher.shutdown(drain=drain)
+
+    def _count(self, key: str, by: int = 1) -> None:
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + by
+
+    def _on_shed(self, reason: str, n: int) -> None:
+        if reason == "queue_full":
+            self._count("shed_queue_full", n)
+        elif reason == "deadline":
+            self._count("shed_deadline", n)
+        elif reason == "runner_error":
+            # the batcher's backstop: a host error of the runner
+            self._count("shed_runner_error", n)

@@ -1,11 +1,15 @@
 """
-The serve row ladder, a copy of ``gordo_tpu/planner/ladder.py``'s row
-rungs (``gordo_tpu/serve/ladder.py`` re-exports them there).
+The serve ladders, a copy of ``gordo_tpu/planner/ladder.py``'s rungs
+(``gordo_tpu/serve/ladder.py`` re-exports them there).
 
-The streaming plane snaps a multi-window backlog onto a rung
-(:func:`snap_rows`), so a backlog flush scores the row counts the
-request plane batches into. The port has no compiled programs, so the
-ladder is kept for the same cuts and the same events as the JAX plane.
+The serving engine pads each request's rows up the row ladder
+(:func:`row_ladder`, :func:`pad_to`): the rung decides which requests
+share a batch, and a request taller than the top rung is served
+unbatched. The member ladder (:func:`member_ladder`) is the JAX engine's
+bound on its compile cache; the port launches exactly the live members
+and reports the padded count beside them. The streaming plane snaps a
+multi-window backlog onto a row rung (:func:`snap_rows`), so a backlog
+flush scores the row counts the request plane batches into.
 """
 
 import logging
@@ -43,6 +47,33 @@ def row_ladder() -> Tuple[int, ...]:
         except ValueError:
             logger.warning("Invalid %s=%r; using %r", ROW_LADDER_ENV, raw, DEFAULT_ROW_LADDER)
     return DEFAULT_ROW_LADDER
+
+
+def member_ladder(max_size: int) -> Tuple[int, ...]:
+    """Powers of two up to and including ``max_size`` rounded up to one.
+
+    >>> member_ladder(5)
+    (1, 2, 4, 8)
+    """
+    rungs = []
+    rung = 1
+    while rung < max_size:
+        rungs.append(rung)
+        rung <<= 1
+    rungs.append(rung)
+    return tuple(rungs)
+
+
+def pad_to(n: int, ladder: Sequence[int]) -> Optional[int]:
+    """The first rung ``>= n``, or None when ``n`` overflows the ladder.
+
+    >>> pad_to(33, (32, 128)), pad_to(129, (32, 128))
+    (128, None)
+    """
+    for rung in ladder:
+        if n <= rung:
+            return rung
+    return None
 
 
 def snap_rows(pending_rows: int, window_rows: int, ladder: Optional[Sequence[int]] = None) -> int:

@@ -25,10 +25,15 @@ not serve (it serves JSON only), 409 for deleting the served revision,
 410 for a malformed or missing revision pin or ingest into a closed
 stream, 422 for a malformed name or a model that is not an anomaly
 detector, 429 and 503 (with ``Retry-After``) when the streaming plane
-refuses a session.
+refuses a session. With the serving engine, the scoring routes also
+answer 429 (queue full) and 503 (breaker open) with ``Retry-After``, 500
+(the member's device forward failed alone) and 504 (batching deadline).
 
-The app owns its store and, from the first stream route on, its
-:class:`~gordo_tpu_torch.stream.StreamPlane`.
+The app owns its store, its serving engine when ``GORDO_TPU_BATCHING`` is
+on (``serve/engine.py``; its warmup runs in the background unless
+``GORDO_TPU_SERVE_WARMUP=0``) and, from the first stream route on, its
+:class:`~gordo_tpu_torch.stream.StreamPlane`, which quarantines through
+the engine's breaker board when there is an engine.
 """
 
 import json
@@ -42,8 +47,10 @@ from urllib.parse import parse_qs
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 
 from .. import DeviceLike, resolve_device
+from ..serve.engine import ServeConfig, ServeEngine, batching_enabled
 from ..stream import StreamPlane, stream_enabled
 from ..utils import yaml_lite
+from ..utils.env import env_bool
 from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
 from .utils import ServerError, check_metadata_file, validate_gordo_name, validate_revision
 from .wire import dumps
@@ -67,6 +74,7 @@ _REASONS = {
     429: "Too Many Requests",
     500: "Internal Server Error",
     503: "Service Unavailable",
+    504: "Gateway Timeout",
 }
 
 #: what a model name in ``EXPECTED_MODELS`` may look like
@@ -157,6 +165,7 @@ class RequestContext:
         self.collection_dir = app.store.collection_dir
         self.current_revision = app.revision
         self.revision: Optional[str] = None
+        self._fleet: Optional[RevisionFleet] = None
 
     def resolve_revision(self) -> None:
         """Point the request at the revision it pins (``?revision=`` or
@@ -176,8 +185,12 @@ class RequestContext:
             raise ServerError(f"Revision '{revision}' not found.", status=410, key="error")
 
     def fleet(self) -> RevisionFleet:
-        """The fleet of the revision that answers this request."""
-        return self.store.fleet(self.collection_dir)
+        """The fleet of the revision that answers this request, taken once
+        a request: a revision invalidated meanwhile does not split the
+        request across two fleets."""
+        if self._fleet is None:
+            self._fleet = self.store.fleet(self.collection_dir)
+        return self._fleet
 
     def resolve(self, name: str) -> ModelResolution:
         """The model and metadata for ``name``: 422 for a malformed name,
@@ -221,14 +234,22 @@ def _routes() -> List[Tuple[str, "re.Pattern[str]", Callable[..., Response]]]:
 class GordoServerApp:
     """The WSGI application serving one model-collection (revision)
     directory, and the revisions beside it that requests pin, on one
-    device. ``expected_models`` is what ``/expected-models`` lists."""
+    device. ``expected_models`` is what ``/expected-models`` lists; with a
+    ``serve_config`` the app runs a serving engine of that configuration."""
 
-    def __init__(self, collection_dir: str, device: DeviceLike = None, expected_models: Sequence[str] = ()):
+    def __init__(
+        self,
+        collection_dir: str,
+        device: DeviceLike = None,
+        expected_models: Sequence[str] = (),
+        serve_config: Optional[ServeConfig] = None,
+    ):
         self.device = resolve_device(device)
         self.store = FleetModelStore(collection_dir, self.device)
         self.revision = os.path.basename(os.path.normpath(collection_dir))
         self.expected_models = list(expected_models)
         self.routes = _routes()
+        self.engine: Optional[ServeEngine] = None if serve_config is None else ServeEngine(self.store, serve_config)
         self.plane: Optional[StreamPlane] = None
         self._plane_lock = threading.Lock()
 
@@ -239,8 +260,35 @@ class GordoServerApp:
             return None
         with self._plane_lock:
             if self.plane is None:
-                self.plane = StreamPlane(self.store)
+                self.plane = StreamPlane(self.store, breakers=None if self.engine is None else self.engine.breakers)
             return self.plane
+
+    def start_warmup(self) -> Optional[threading.Thread]:
+        """The engine's warmup of the served revision on a background
+        thread (None without an engine): the first request then finds the
+        kernel loaded and the parity gates decided."""
+        engine = self.engine
+        if engine is None:
+            return None
+
+        def warm():
+            try:
+                engine.warmup_collection(self.store.collection_dir)
+            except Exception:  # noqa: BLE001 - a failed warmup leaves the first requests to pay for it
+                logger.exception("serve warmup failed for %s", self.store.collection_dir)
+
+        thread = threading.Thread(target=warm, name="gordo-serve-warmup", daemon=True)
+        thread.start()
+        return thread
+
+    def shutdown(self) -> None:
+        """Drain: every live stream gets its terminal ``drain`` frame, then
+        the engine scores everything already queued and stops; later
+        requests are scored unbatched."""
+        if self.plane is not None:
+            self.plane.drain()
+        if self.engine is not None:
+            self.engine.shutdown(drain=True)
 
     def dispatch(self, request: Request) -> Response:
         ctx = RequestContext(self, request)
@@ -296,16 +344,39 @@ def _encoded(chunks: Iterator[str]) -> Iterator[bytes]:
             close()
 
 
-def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None) -> GordoServerApp:
+def serve_warmup_enabled() -> bool:
+    """Whether an app with an engine warms up in the background at build
+    (``GORDO_TPU_SERVE_WARMUP``, default on)."""
+    return env_bool("GORDO_TPU_SERVE_WARMUP", True)
+
+
+def build_app(
+    collection_dir: Optional[str] = None, device: DeviceLike = None, serve_config: Optional[ServeConfig] = None
+) -> GordoServerApp:
     """The server application for ``collection_dir`` (default: the
     ``MODEL_COLLECTION_DIR`` environment variable), on ``device``
     (default ``cuda``; pass ``"cpu"`` to run on the CPU), listing the
     ``EXPECTED_MODELS`` environment variable's names
-    (:func:`parse_expected_models`)."""
+    (:func:`parse_expected_models`). With ``serve_config``, or with
+    ``GORDO_TPU_BATCHING`` on (its configuration then read from the
+    ``GORDO_TPU_BATCH_*`` environment), the app runs a serving engine and
+    starts its warmup (:meth:`GordoServerApp.start_warmup`) unless
+    ``GORDO_TPU_SERVE_WARMUP=0``."""
     if collection_dir is None:
         collection_dir = os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
     expected = parse_expected_models(os.environ.get(EXPECTED_MODELS_ENV_VAR))
-    return GordoServerApp(collection_dir, device, expected)
+    if serve_config is None and batching_enabled():
+        serve_config = ServeConfig.from_env()
+    app = GordoServerApp(collection_dir, device, expected, serve_config)
+    if app.engine is not None:
+        logger.info(
+            "micro-batching engine on: max_size=%d max_delay=%.1fms queue_depth=%d row_ladder=%s precision=%s",
+            serve_config.max_size, serve_config.max_delay_s * 1000.0, serve_config.queue_depth,
+            serve_config.row_ladder, serve_config.precision,
+        )
+        if serve_warmup_enabled():
+            app.start_warmup()
+    return app
 
 
 class ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
@@ -331,8 +402,8 @@ def run_server(
     device: DeviceLike = None,
 ) -> None:
     """Serve ``collection_dir`` (default: ``MODEL_COLLECTION_DIR``) until
-    interrupted, with every model loaded up front. On the way out every
-    live stream gets its terminal ``drain`` frame."""
+    interrupted, with every model loaded up front. On the way out the app
+    drains (:meth:`GordoServerApp.shutdown`)."""
     app = build_app(collection_dir, device)
     loaded = app.store.fleet().warm()
     logger.info("serving %d models of %s on %s", len(loaded), app.store.collection_dir, app.device)
@@ -340,5 +411,4 @@ def run_server(
         try:
             server.serve_forever()
         finally:
-            if app.plane is not None:
-                app.plane.drain()
+            app.shutdown()

@@ -22,6 +22,13 @@ rows shorter than its input; the error is taken against the raw rows'
 tail (``:554-560``), and a series shorter than one window is that
 machine's error alone.
 
+A bucket serves at a reduced precision too (``serve/precision.py``): its
+bf16 cast or int8 quantization is made once from the f32 bucket, kept for
+the bucket's membership, and forwarded by plain PyTorch, as the JAX
+package forwards it with XLA rather than its Pallas kernel. The fleet
+also keeps the precision gate's verdicts, stamped with the membership
+they were taken at.
+
 Each bucket also has a compiled ingest plan: the affine preprocessing of
 every member's pipeline (``X * scale + offset``, stacked ``[N, F]`` on the
 device), which the kernel applies to the raw request rows as a prologue.
@@ -49,6 +56,7 @@ from ..models.spec import FeedForwardSpec, LSTMSpec, ModelSpec
 from ..ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 from ..ops.windows import num_windows
 from ..parallel.fleet import stack_member_params
+from ..serve import precision as serve_precision
 from ..utils.env import env_int
 
 logger = logging.getLogger(__name__)
@@ -168,18 +176,39 @@ def fleet_forward_gather(
     indices: Sequence[int],
     X: torch.Tensor,
     ingest: Ingest = None,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """The gather forward, ``(bucket[N], indices[M], X[M, B, F]) ->
-    [M, B, F_out]``: each row of the batch is scored by bucket member
-    ``indices[m]``, read in place by the kernel. ``ingest`` is the
-    bucket's ``(scale, offset)``; ``X`` then holds raw rows."""
-    return fleet_feedforward(spec, stacked, X, indices=indices, ingest=ingest)
+    [M, B, F_out]`` float32: each row of the batch is scored by bucket
+    member ``indices[m]``. ``ingest`` is the bucket's ``(scale, offset)``;
+    ``X`` then holds raw float32 rows.
+
+    At f32, one K1 launch (its plain version on the CPU), the member read
+    in place by the kernel. At bf16 or int8 ``stacked`` is the bucket at
+    that precision (``RevisionFleet.spec_bucket(spec, precision)``): the
+    members are gathered with ``index_select``, the ingest plan applied in
+    float32, the rows cast to bf16 and the plain reduced forward run."""
+    if not precision or precision == serve_precision.F32:
+        return fleet_feedforward(spec, stacked, X, indices=indices, ingest=ingest)
+    if isinstance(indices, torch.Tensor):
+        index = indices.to(X.device, torch.int64)
+    else:
+        index = torch.as_tensor(np.asarray(indices, np.int64), device=X.device)
+    members = {key: {n: t.index_select(0, index) for n, t in layer.items()} for key, layer in stacked.items()}
+    h = X.to(torch.float32)
+    if ingest is not None:
+        h = h * ingest[0].index_select(0, index)[:, None, :] + ingest[1].index_select(0, index)[:, None, :]
+    h = h.to(serve_precision.payload_dtype(precision))
+    if precision == "int8":
+        return serve_precision.forward_feedforward_quantized(spec, members, h)
+    return serve_precision.forward_feedforward_bf16(spec, members, h)
 
 
 class RevisionFleet:
     """All models of one revision directory, loaded lazily and kept for
     the life of the revision, with one stacked bucket and ingest plan per
-    spec (rebuilt when the spec's membership grows)."""
+    spec, its reduced-precision copies and the precision gate's verdicts
+    (rebuilt, or read as absent, when the spec's membership grows)."""
 
     def __init__(self, collection_dir: str, device: torch.device):
         self.collection_dir = collection_dir
@@ -189,6 +218,12 @@ class RevisionFleet:
         self._specs: Dict[str, ModelSpec] = {}
         self._resolutions: Dict[str, ModelResolution] = {}
         self._buckets: Dict[ModelSpec, Tuple[List[str], Stacked, Ingest]] = {}
+        #: (spec, precision) -> the bucket's params cast to that precision
+        self._cast_buckets: Dict[Tuple[ModelSpec, str], Stacked] = {}
+        #: (spec, precision) -> (gate report, membership epoch it was taken at)
+        self._precision_states: Dict[Tuple[ModelSpec, str], Tuple[Dict[str, Any], int]] = {}
+        #: bumped whenever a bucket's membership grows
+        self.bucket_epoch = 0
 
     def model(self, name: str) -> Any:
         """The loaded model for ``name`` (load once, then resident)."""
@@ -199,8 +234,13 @@ class RevisionFleet:
             model = serializer.load(os.path.join(self.collection_dir, name), self.device)
             estimator = find_estimator(model)
             if estimator is not None and estimator.params_ is not None:
-                self._specs[name] = estimator.spec_
-                self._buckets.pop(estimator.spec_, None)  # membership grew
+                spec = estimator.spec_
+                self._specs[name] = spec
+                # membership grew: restack, recast, and re-gate
+                self._buckets.pop(spec, None)
+                for key in [k for k in self._cast_buckets if k[0] == spec]:
+                    del self._cast_buckets[key]
+                self.bucket_epoch += 1
             self._models[name] = model
             return model
 
@@ -254,11 +294,42 @@ class RevisionFleet:
             cached = self._buckets[spec] = (names, stacked, ingest)
             return cached
 
-    def spec_bucket(self, spec: ModelSpec) -> Tuple[List[str], Stacked]:
+    def spec_bucket(self, spec: ModelSpec, precision: str = "f32") -> Tuple[List[str], Stacked]:
         """``(names, stacked params)`` over every loaded model of ``spec``:
-        names sorted, params on the device."""
-        names, stacked, _ = self._bucket(spec)
+        names sorted, params on the device; at bf16 or int8 the bucket's
+        cast (:func:`~gordo_tpu_torch.serve.precision.cast_bucket_params`),
+        made once for the bucket's membership."""
+        names, stacked, _ = self.serving_bucket(spec, precision)
         return names, stacked
+
+    def serving_bucket(self, spec: ModelSpec, precision: str = "f32") -> Tuple[List[str], Stacked, Ingest]:
+        """``(names, params at precision, ingest plan)`` of ``spec``'s bucket,
+        all three of one membership."""
+        with self._lock:
+            names, stacked, ingest = self._bucket(spec)
+            if not precision or precision == serve_precision.F32:
+                return names, stacked, ingest
+            cast = self._cast_buckets.get((spec, precision))
+            if cast is None:
+                cast = self._cast_buckets[(spec, precision)] = serve_precision.cast_bucket_params(stacked, precision)
+            return names, cast, ingest
+
+    def precision_state(self, spec: ModelSpec, precision: str) -> Optional[Dict[str, Any]]:
+        """The gate's report for ``(spec, precision)``, or None when there
+        is none for the bucket's present membership."""
+        entry = self._precision_states.get((spec, precision))
+        if entry is None:
+            return None
+        report, epoch = entry
+        return report if epoch == self.bucket_epoch else None
+
+    def set_precision_state(
+        self, spec: ModelSpec, precision: str, report: Dict[str, Any], epoch: Optional[int] = None
+    ) -> None:
+        """Record a gate verdict, stamped with the membership epoch it was
+        taken at (default: the present one)."""
+        with self._lock:
+            self._precision_states[(spec, precision)] = (report, self.bucket_epoch if epoch is None else epoch)
 
     def ingest_plan(self, spec: ModelSpec) -> Ingest:
         """The bucket's compiled preprocessing, row for row with

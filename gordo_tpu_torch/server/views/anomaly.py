@@ -4,7 +4,9 @@ Anomaly route: ``POST /gordo/v0/<project>/<name>/anomaly/prediction``
 
 Body ``{"X": frame, "y": frame}``. The reconstruction runs on the device
 through the compiled single-member path (one gather launch of the fleet
-kernel, with the model's input scaling as its prologue); the threshold
+kernel, with the model's input scaling as its prologue), or, with the
+app's serving engine, coalesced with concurrent requests into one such
+launch (its refusals: 429, 503, 500, 504); the threshold
 and confidence math composes as numpy columns around it, with the
 ``smooth-*`` groups only under ``?all_columns``. ``y`` is required
 (400); a model that is not a ``DiffBasedAnomalyDetector`` answers 422,
@@ -15,7 +17,8 @@ import logging
 import timeit
 
 from ...models.anomaly.diff import DiffBasedAnomalyDetector
-from .. import utils, wire
+from ...serve import BatchShedError
+from .. import model_io, utils, wire
 from ..app import Response, ServerError
 from ..wire import negotiate
 from .base import encode_table_response, extract_X_y
@@ -42,7 +45,9 @@ def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Respons
         return _unprocessable(ctx, model)
     try:
         frequency = resolution.frequency
-        output = ctx.fleet().predict(gordo_name, X.values)
+        output = model_io.batched_model_output(ctx, gordo_name, model, X.values)
+        if output is None:
+            output = model_io.get_model_output(ctx, gordo_name, X.values)
         table = wire.anomaly_table(
             model,
             X,
@@ -53,6 +58,8 @@ def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Respons
             aggregate=resolution.aggregate_threshold,
             keep_smooth="all_columns" in ctx.request.args,
         )
+    except BatchShedError as exc:
+        return model_io.shed_response(ctx, exc)
     except AttributeError:
         return _unprocessable(ctx, model)
     except ValueError as err:

@@ -7,7 +7,10 @@ fleet route ``POST /gordo/v0/<project>/prediction/fleet``.
 ``POST .../<name>/prediction`` scores one model's rows, body ``{"X":
 frame}``, through one gather launch of K1 (with the model's input
 scaling as its prologue) and answers ``start``/``end``/``model-input``/
-``model-output``.
+``model-output``. With the app's serving engine (``GORDO_TPU_BATCHING``)
+concurrent requests coalesce into one launch; its refusals answer 429,
+503, 500 or 504 (``server/model_io.py``), and what it cannot batch is
+scored alone as without it.
 
 The fleet route scores many models in one request, body ``{"X": {name:
 frame}, "y"?: {name: frame}, "full"?: bool}``: models sharing a spec are
@@ -26,7 +29,8 @@ import numpy as np
 
 from ... import __version__, serializer
 from ...models.anomaly.diff import DiffBasedAnomalyDetector
-from .. import utils, wire
+from ...serve import BatchShedError
+from .. import model_io, utils, wire
 from ..app import MODEL_COLLECTION_DIR_ENV_VAR, Response, ServerError
 from ..fleet_store import ModelResolution
 from ..wire import negotiate
@@ -87,7 +91,11 @@ def post_prediction(ctx, gordo_project: str, gordo_name: str) -> Response:
     response_format = negotiate.response_format(ctx.request)  # before decoding and scoring
     X, _ = extract_X_y(ctx.request, resolution)
     try:
-        output = ctx.fleet().predict(gordo_name, X.values)
+        output = model_io.batched_model_output(ctx, gordo_name, resolution.model, X.values)
+        if output is None:
+            output = model_io.get_model_output(ctx, gordo_name, X.values)
+    except BatchShedError as exc:
+        return model_io.shed_response(ctx, exc)
     except ValueError as err:
         logger.error("Failed to predict: %s", err)
         return ctx.json_response({"error": f"ValueError: {err}"}, status=400)

@@ -4,9 +4,11 @@ the session registry, ingest, subscribe and drain.
 
 The server app owns one :class:`StreamPlane`, created on the first
 stream route (the JAX package installs a process-global one), beside its
-store. The plane owns its breaker board (the JAX plane shares the
-micro-batching engine's board when there is one; the port has no engine
-yet) and its telemetry. The plane starts no threads.
+store. The plane quarantines through the app's serving engine's breaker
+board when the app has an engine, so a member tripped by requests is
+quarantined on every stream and a stream's probe reopens the routes too
+(the JAX plane's ``stream_breaker_board``); otherwise through a board of
+its own. It owns its telemetry and starts no threads.
 
 Admission is bounded: at most ``GORDO_TPU_STREAM_MAX_SESSIONS`` live
 sessions (beyond that :class:`PlaneSaturated`, the route's 429), and a
@@ -95,7 +97,8 @@ class StreamConfig:
 
 class StreamPlane:
     """Session registry, scorer, breakers and drain for one server app.
-    ``store`` is the app's ``FleetModelStore``."""
+    ``store`` is the app's ``FleetModelStore``; ``breakers`` the board to
+    quarantine through (default: a board of its own)."""
 
     def __init__(self, store: Any, config: Optional[StreamConfig] = None, breakers: Optional[BreakerBoard] = None):
         self.store = store

@@ -1,7 +1,7 @@
 """
-Environment-knob parsing: the three typed readers the streaming plane
-and its breakers use, a copy of ``gordo_tpu/utils/env.py``'s
-``env_int``/``env_float``/``env_bool``.
+Environment-knob parsing: the typed readers the streaming plane, the
+breakers and the serving engine use, a copy of ``gordo_tpu/utils/env.py``'s
+``env_int``/``env_float``/``env_bool``/``env_str``.
 
 Malformed values never raise: they log one warning per distinct
 ``(name, value)`` pair and fall back to the call-site default.
@@ -72,3 +72,9 @@ def env_bool(name: str, default: bool) -> bool:
         return False
     _warn_once(name, raw, default)
     return default
+
+
+def env_str(name: str, default: Optional[str]) -> Optional[str]:
+    """The raw value, unset or empty falling back to ``default``."""
+    raw = os.environ.get(name)
+    return raw if raw else default

@@ -1,6 +1,6 @@
 """
-Deterministic fault injection at the streaming plane's three sites and
-the fleet build's four, a copy of ``gordo_tpu/utils/faults.py``
+Deterministic fault injection at the streaming plane's three sites, the
+serving engine's three and the fleet build's four, a copy of ``gordo_tpu/utils/faults.py``
 (``fault_point``, ``FaultRule``, ``inject``, the ``GORDO_TPU_FAULTS``
 environment form, the ``kill`` option).
 
@@ -14,6 +14,14 @@ the :func:`inject` context manager or the environment variable. Sites:
   scorer (same key); repeated firings open the machine's breaker.
 - ``stream_emit``: before an event is appended to a session's outbox
   (key ``<stream-id>:<event-kind>``); the event is counted and dropped.
+- ``serve_device_program``: before a coalesced batch's forward, once per
+  rider (key ``<spec class>:<precision>:<member>``); its default
+  exception is an :class:`InjectedDeviceError` whose message says
+  ``RESOURCE_EXHAUSTED``, which the engine treats as an out-of-memory.
+- ``serve_member_poison``: after a batch's forward, per rider (same
+  key); the rider's output rows become NaN, as a poisoned member's would.
+- ``serve_scatter``: before a rider's result is handed back (same key);
+  that rider alone fails.
 - ``device_program``: before a training bucket runs, once per member
   (key the member name); its default exception is an
   :class:`InjectedDeviceError`, which makes the trainer bisect the
@@ -65,6 +73,9 @@ SITES = (
     "device_program",
     "dump_artifact",
     "process_kill_after_n_machines",
+    "serve_device_program",
+    "serve_member_poison",
+    "serve_scatter",
     "stream_ingest",
     "stream_score",
     "stream_emit",
@@ -113,6 +124,8 @@ class FaultRule:
             return exc(f"injected fault at {self.site}:{key}")
         if self.site == "device_program":
             return InjectedDeviceError(f"injected device fault ({key})")
+        if self.site == "serve_device_program":
+            return InjectedDeviceError(f"RESOURCE_EXHAUSTED: injected device fault ({key})")
         if self.site == "process_kill_after_n_machines":
             return SystemExit(137)
         return FaultInjected(f"injected fault at {self.site}:{key}")

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``gordo_tpu_torch/`` nor
 ``chip_smoke.py`` imports JAX, the JAX package, or a library the card's
 machine does not have (pandas, scikit-learn, werkzeug, yaml, pyarrow,
-click, jinja2, pydantic, dateutil).
+click, jinja2, pydantic, dateutil, ml_dtypes, prometheus_client).
 Checked on the source with ``ast``, so an import inside a function
 counts too."""
 
@@ -14,7 +14,7 @@ REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "gordo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = {
     "jax", "jaxlib", "gordo_tpu", "pandas", "sklearn", "werkzeug", "yaml", "pyarrow", "optax", "flax",
-    "click", "jinja2", "pydantic", "dateutil",
+    "click", "jinja2", "pydantic", "dateutil", "ml_dtypes", "prometheus_client",
 }
 
 
@@ -64,7 +64,8 @@ def test_package_has_modules():
         "dataset/data_provider.py", "dataset/datasets.py", "models/anomaly/diff.py", "cli/cli.py",
         "cli/exceptions_reporter.py", "__main__.py", "ops/windows.py", "models/factories/lstm_autoencoder.py",
         "builder/__init__.py", "builder/build_model.py", "builder/local_build.py", "builder/utils.py",
-        "parallel/journal.py", "utils/disk_registry.py",
+        "parallel/journal.py", "utils/disk_registry.py", "serve/batcher.py", "serve/engine.py",
+        "serve/precision.py", "server/model_io.py",
     ):
         assert expected in names
 

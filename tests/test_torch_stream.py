@@ -234,9 +234,7 @@ def _drive_board(board, clock):
             result = board.record_failure(other, "spec", arg, RuntimeError("elsewhere"))
         else:
             result = board.quarantined(fleet, "spec", arg)
-        summary = board.summary(top_k=5)
-        summary.pop("degraded_buckets", None)  # the engine's degrade set is not ported
-        seen.append((op, arg, result, summary))
+        seen.append((op, arg, result, board.summary(top_k=5)))
     return seen, transitions
 
 
