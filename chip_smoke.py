@@ -157,6 +157,27 @@ the bf16 and int8 forwards on the same tensors; so is a full batch that
 the engine did not reach here (32 x 2048 x 20 gathered from 64 with the
 ingest prologue, narrow; 8 x 2048 x 40, wide), on lines of its own.
 
+``[definitions]`` (after ``[engine]``) builds 28 machines of the model
+definitions beyond the plain MinMax autoencoder, from CSVs through
+``build-fleet`` on the card: 8 of ``examples/model-configuration.yaml``'s ``raw_spec``
+block (16-4-20, tanh, tanh, linear; as a detector's base estimator, its
+readings at unit scale), 8 ``StandardScaler`` pipelines with a
+``RobustScaler`` error scaler, 4 ``MaxAbsScaler`` ones, 4 non-affine ones
+(``InfImputer`` -> ``FunctionTransformer(multiply_by)`` -> clipping
+``MinMaxScaler``, ``inf`` cells in an input-only tag) and 4 of
+``examples/config-influx-callbacks.yaml``'s model block (10 epochs),
+which go to ``ModelBuilder``'s per-epoch host loop. One machine of each
+kind is built again on the CPU and held to the card's within
+``DEFINITIONS_BUILD_LIMITS`` (the callbacks machine within
+``SEQUENTIAL_BUILD_LIMITS``, every fit's learning rates equal). The
+engine then serves one anomaly request a kind (the non-affine bucket
+host-transformed, without the prologue) and a fleet request over the
+non-affine and raw-spec machines, K1 and K2 read on the counters, each
+answer held to a CPU app's; the raw spec's CV forward, the
+``StandardScaler`` bucket's and the non-affine bucket's served K1 gathers
+and the non-affine bucket's K2 (``y`` the raw rows) are held to the plain
+versions and timed under ``[times]``.
+
 The narrow kernel's persistent loop has cases of its own, K1 and K2 (y =
 X, a separate y, a NaN in y): many tiles a member (2 x 52,560 rows), more
 tiles than resident blocks (2000 x 144), one member (1 x 1 and 1 x 1008),
@@ -596,9 +617,10 @@ def build_summary(model, metadata):
     if not isinstance(metadata, dict):
         metadata = metadata.to_dict()
     meta = metadata["metadata"]["build_metadata"]["model"]
+    estimator = getattr(model.base_estimator, "estimator", model.base_estimator)  # a pipeline's, or bare
     return {
         "params": {k: {n: t.detach().cpu().numpy() for n, t in layer.items()}
-                   for k, layer in model.base_estimator.estimator.params_.items()},
+                   for k, layer in estimator.params_.items()},
         "thresholds": np.append(model.feature_thresholds_, model.aggregate_threshold_),
         "scores": meta["cross_validation"]["scores"],
         "epochs_run": meta["training"]["epochs_run"],
@@ -698,15 +720,10 @@ def write_project(directory, machines=None, models=None, project="smoke"):
     significant digits so they read back exactly, and the half-open window
     ``[TRAIN_START, TRAIN_START + TRAIN_ROWS x 10 min)`` holding all of
     them. Returns the config's path and ``{name: rows}``."""
-    stamps = [(TRAIN_START + timedelta(minutes=10 * r)).isoformat() for r in range(TRAIN_ROWS)]
     end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
     entries, rows = [], {}
     for name, tags, values in machine_rows() if machines is None else machines:
-        path = os.path.join(directory, f"{name}.csv")
-        with open(path, "w") as f:
-            f.write(",".join(["time", *tags]) + "\n")
-            for stamp, row in zip(stamps, values):
-                f.write(stamp + "," + ",".join(f"{v:.17g}" for v in row) + "\n")
+        path = write_csv(directory, name, tags, values)
         dataset = yaml_block({
             "data_provider": {"type": "FileDataProvider", "path": path, "timestamp_column": "time"},
             "tag_list": "[" + ", ".join(tags) + "]",
@@ -725,6 +742,19 @@ def write_project(directory, machines=None, models=None, project="smoke"):
     with open(config_path, "w") as f:
         f.write(config)
     return config_path, rows
+
+
+def write_csv(directory, name, tags, values):
+    """``values`` as ``directory/<name>.csv``: a ``time`` column of 10-minute
+    stamps from TRAIN_START, then a column a tag, floats with 17 significant
+    digits so they read back exactly (``inf`` as ``inf``). Returns the path."""
+    path = os.path.join(directory, f"{name}.csv")
+    with open(path, "w") as f:
+        f.write(",".join(["time", *tags]) + "\n")
+        for r, row in enumerate(values):
+            stamp = (TRAIN_START + timedelta(minutes=10 * r)).isoformat()
+            f.write(stamp + "," + ",".join(f"{v:.17g}" for v in row) + "\n")
+    return path
 
 
 @contextlib.contextmanager
@@ -2155,6 +2185,331 @@ def reduced_ms(case, prec):
                                                 precision=prec))
 
 
+# -- [definitions]: every model definition the JAX package reads ------------------
+
+#: the [definitions] collection, one group a kind of definition: (prefix, machines). Every machine
+#: has 20 tags and TRAIN_ROWS rows
+DEFINITION_GROUPS = (("raw", 8), ("standard", 8), ("maxabs", 4), ("nonaffine", 4), ("callbacks", 4))
+#: each group's sensor_data seeds start at DEFINITIONS_SEED + 100 x its index
+DEFINITIONS_SEED = 900
+#: machines built again on the CPU, one of each kind
+DEFINITIONS_CPU_CHECK = ("raw-000", "standard-000", "maxabs-000", "nonaffine-000", "callbacks-000")
+#: the callbacks block's epochs here (it says 30)
+CALLBACK_EPOCHS = 10
+#: the card's [definitions] fleet build against the CPU's (params, thresholds, CV scores).
+#: ``scripts/build_tolerance.py definitions`` on an H100 (sound / TF32 on / one row swapped):
+#: raw, standard, maxabs params 6.3e-7 / 6.3e-4 / 4.0e-4, thresholds 4.0e-7 / 8.4e-6 / 6.5e-3, CV
+#: scores 2.6e-6 / 2.2e-5 / 8.8e-3; the non-affine machines params 2.59e-6 (the same to the last
+#: digit in every sound build) / 2.59e-6 (TF32 leaves their fits as they were) / 4.5e-6,
+#: thresholds 1.0e-7 / 1.0e-7 / 9.0e-6, CV scores 0 (their clipping scoring scaler clips every
+#: fold's prediction alike). The port's CPU build and the JAX package's of the same machines
+#: differ by 1.0e-6 to 1.4e-6 in params: these 5-epoch fits towards raw targets carry f32 rounding
+#: further than [train]'s, so BUILD_LIMITS' 1e-6 is below their sound spread; the limits of the
+#: [lstm] and [sequential] builds are kept, and a swapped row still fails the thresholds.
+DEFINITIONS_BUILD_LIMITS = (1e-5, 3e-6, 2e-5)
+#: the [definitions] shapes that K1 and K2 are held to their plain versions at and timed
+DEFINITION_CASES = {
+    "raw": "raw spec CV fold scoring: 20-16-4-20 tanh/tanh/linear M=24 B=500",
+    "standard": "StandardScaler bucket: hourglass20 gather M=1 +ingest",
+    "host": "host-transformed bucket: hourglass20-to-19 gather M=1, no prologue",
+}
+DEFINITION_K2 = "K2 host-transformed bucket: hourglass20-to-19 M=4 B=1008, y the raw rows"
+
+
+def definition_models():
+    """``{prefix: (definition, evaluation)}`` of DEFINITION_GROUPS, read from
+    the examples where they come from:
+
+    - ``raw``: ``examples/model-configuration.yaml``'s ``raw_spec`` block as
+      written (16-4-20, tanh, tanh, linear; ``mse``, ``adam``), the base
+      estimator of a ``DiffBasedAnomalyDetector`` so the anomaly route
+      answers it; no pipeline, so its readings are at unit scale;
+    - ``standard``: a ``StandardScaler`` pipeline ahead of the hourglass, a
+      ``RobustScaler`` error scaler, a ``StandardScaler`` scoring scaler;
+    - ``maxabs``: a ``MaxAbsScaler`` pipeline ahead of a 2-layer hourglass
+      (a bucket of its own), a ``MaxAbsScaler`` error scaler and a
+      ``RobustScaler`` scoring scaler;
+    - ``nonaffine``: ``InfImputer`` -> ``FunctionTransformer(multiply_by,
+      factor 2)`` -> ``MinMaxScaler(clip=True)``, ``inf`` / ``-inf`` cells in
+      its last tag, which is an input only (the other 19 are the targets:
+      an infinite target makes every loss infinite); a clipping
+      ``MinMaxScaler`` scoring scaler;
+    - ``callbacks``: ``examples/config-influx-callbacks.yaml``'s model block
+      (``EarlyStopping``, ``ReduceLROnPlateau``, ``TerminateOnNaN``),
+      CALLBACK_EPOCHS epochs; its data provider is the CSV one.
+    """
+    from gordo_tpu_torch.utils.yaml_lite import safe_load
+
+    with open(os.path.join(HERE, "examples", "model-configuration.yaml")) as f:
+        raw = safe_load(f.read())["raw_spec"]
+    with open(os.path.join(HERE, "examples", "config-influx-callbacks.yaml")) as f:
+        callbacks = safe_load(f.read())["globals"]["model"]
+    steps = callbacks[DETECTOR_PATH]["base_estimator"]["sklearn.pipeline.Pipeline"]["steps"]
+    steps[-1]["gordo_tpu.models.estimators.JaxAutoEncoder"]["epochs"] = CALLBACK_EPOCHS
+    hourglass = {"kind": "feedforward_hourglass", "epochs": 5, "batch_size": 32}
+
+    def detector(pipeline, scaler, **estimator):
+        estimator = {"gordo_tpu.models.estimators.JaxAutoEncoder": {**hourglass, **estimator}}
+        return {DETECTOR_PATH: {"base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [*pipeline, estimator]}},
+                                "scaler": scaler}}
+
+    non_affine = [
+        "gordo_tpu.models.transformers.imputer.InfImputer",
+        {"sklearn.preprocessing.FunctionTransformer": {
+            "func": "gordo_tpu.models.transformer_funcs.general.multiply_by", "kw_args": {"factor": 2}}},
+        {"sklearn.preprocessing.MinMaxScaler": {"clip": True}},
+    ]
+    return {
+        "raw": ({DETECTOR_PATH: {"base_estimator": raw}}, {}),
+        "standard": (detector(["sklearn.preprocessing.StandardScaler"], "sklearn.preprocessing.RobustScaler"),
+                     {"scoring_scaler": "sklearn.preprocessing.StandardScaler"}),
+        "maxabs": (detector(["sklearn.preprocessing.MaxAbsScaler"], "sklearn.preprocessing.MaxAbsScaler",
+                            encoding_layers=2), {"scoring_scaler": "sklearn.preprocessing.RobustScaler"}),
+        "nonaffine": (detector(non_affine, "sklearn.preprocessing.StandardScaler"),
+                      {"scoring_scaler": {"sklearn.preprocessing.MinMaxScaler": {"clip": True}}}),
+        "callbacks": (callbacks, {}),
+    }
+
+
+def definition_rows(name, rows=TRAIN_ROWS):
+    """A [definitions] machine's first ``rows`` readings (its seeded
+    ``sensor_data``; the raw spec's at unit scale)."""
+    prefix, i = name.rsplit("-", 1)
+    group = [p for p, _ in DEFINITION_GROUPS].index(prefix)
+    values = sensor_data(DEFINITIONS_SEED + 100 * group + int(i), rows, 20)
+    return (values - 50.0) / 30.0 if prefix == "raw" else values
+
+
+def definitions_project(directory):
+    """The [definitions] project config (JSON, which the port's YAML reader
+    reads) and a CSV a machine; ``{name: rows}`` beside its path. The
+    non-affine machines' CSVs hold ``inf`` / ``-inf`` every 97th row of the
+    last tag."""
+    models = definition_models()
+    end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
+    machines, rows = [], {}
+    for prefix, count in DEFINITION_GROUPS:
+        model, evaluation = models[prefix]
+        for i in range(count):
+            name = f"{prefix}-{i:03d}"
+            values = definition_rows(name)
+            tags = tag_list(20)
+            dataset = {"data_provider": {"type": "FileDataProvider", "timestamp_column": "time"},
+                       "tag_list": tags, "train_start_date": TRAIN_START.isoformat(), "train_end_date": end}
+            if prefix == "nonaffine":
+                values = values.copy()
+                values[5::97, -1] = [float("inf") if k % 2 else float("-inf") for k in range(len(values[5::97]))]
+                dataset["target_tag_list"] = tags[:-1]
+            dataset["data_provider"]["path"] = write_csv(directory, name, tags, values)
+            machines.append({"name": name, "model": model, "evaluation": evaluation, "dataset": dataset})
+            rows[name] = values
+    config_path = os.path.join(directory, "definitions.json")
+    with open(config_path, "w") as f:
+        json.dump({"machines": machines}, f, indent=1)
+    return config_path, rows
+
+
+@contextlib.contextmanager
+def captured_host_loops():
+    """During a build: the learning rate every host-loop fit
+    (``StackedFit._fit_host_loop``) ran each epoch at, one list a fit, in
+    order."""
+    from gordo_tpu_torch.models.callbacks import Callback
+    from gordo_tpu_torch.models.training import StackedFit
+
+    fits, loop = [], StackedFit._fit_host_loop
+
+    class Recorder(Callback):
+        def __init__(self, lrs):
+            self.lrs = lrs
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.lrs.append(logs["lr"])
+            return False
+
+    def captured(self, params, wtr, wval, batches, validate, callbacks):
+        fits.append([])
+        return loop(self, params, wtr, wval, batches, validate, [*callbacks, Recorder(fits[-1])])
+
+    StackedFit._fit_host_loop = captured
+    try:
+        yield fits
+    finally:
+        StackedFit._fit_host_loop = loop
+
+
+@contextlib.contextmanager
+def captured_serving_launches():
+    """While serving: every K1 and K2 call of the store and the engine, as
+    ``("K1" | "K2", case)``, its tensors on the card."""
+    from gordo_tpu_torch.server import fleet_store
+
+    calls, k1, k2 = [], fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores
+
+    def captured_k1(spec, bucket, X, indices=None, ingest=None, **kwargs):
+        calls.append(("K1", dict(spec=spec, bucket=bucket, X=X, ingest=ingest,
+                                 indices=None if indices is None else [int(i) for i in indices])))
+        return k1(spec, bucket, X, indices=indices, ingest=ingest, **kwargs)
+
+    def captured_k2(spec, bucket, X, y, indices=None, ingest=None, **kwargs):
+        calls.append(("K2", dict(spec=spec, bucket=bucket, X=X, y=y, ingest=ingest,
+                                 indices=None if indices is None else [int(i) for i in indices])))
+        return k2(spec, bucket, X, y, indices, ingest, **kwargs)
+
+    fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores = captured_k1, captured_k2
+    try:
+        yield calls
+    finally:
+        fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores = k1, k2
+
+
+def definition_frame(name, y=False):
+    """A [definitions] machine's next ROWS rows past its training rows (its
+    target tags alone with ``y``), with request_frame's excursion."""
+    keys = [(TRAIN_START + timedelta(minutes=10 * (TRAIN_ROWS + r))).isoformat() for r in range(ROWS)]
+    values = definition_rows(name, TRAIN_ROWS + ROWS)[TRAIN_ROWS:]
+    values[ROWS // 2:ROWS // 2 + 6, 3] += 25.0 if not name.startswith("raw") else 1.0
+    tags = tag_list(20)[:-1] if y and name.startswith("nonaffine") else tag_list(20)
+    return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tags)}
+
+
+def definitions_phase(work_dir, card):
+    """``[definitions]``: every kind of definition the port now reads,
+    built on the card from a project config and served by the engine.
+    Returns the K1/K2 launches of its build and its serving, the shapes
+    DEFINITION_CASES and DEFINITION_K2 name as cases on the card, and the
+    launches each of those made on this path."""
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.cli.cli import build_fleet, load_fleet_machines
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.serve.engine import ServeConfig
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    t_phase = time.perf_counter()
+    project_dir = os.path.join(work_dir, "definitions")
+    directory = os.path.join(project_dir, REVISION)
+    os.makedirs(project_dir)
+    config_path, rows = definitions_project(project_dir)
+    shard = os.path.join(project_dir, "shard.json")
+    with open(shard, "w") as f:
+        f.write(normalize(config_path, "smoke"))
+    counts = dict(DEFINITION_GROUPS)
+    sequential = counts["callbacks"]
+    fleet_machines = len(rows) - sequential
+    with captured_build() as (forwards, fetched), captured_host_loops() as card_lrs:
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        t0 = time.perf_counter()
+        code, builder = build_fleet(shard, directory, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        build_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(code == 0 and not builder.build_errors, f"build-fleet exited {code}: {builder and builder.build_errors}")
+    check(len(fetched) == fleet_machines, f"the fleet path planned {len(fetched)} machines, not {fleet_machines}")
+    check(len(card_lrs) == 4 * sequential, f"{len(card_lrs)} host-loop fits, not 4 a callbacks machine")
+    # one CV forward a fleet spec group (raw, standard, maxabs, nonaffine), one a sequential fold's predict
+    want_k1 = 4 + 3 * sequential
+    check(build_launches["K1"] == want_k1 and len(forwards) == 4,
+          f"the build launched K1 {build_launches['K1']} times ({len(forwards)} CV forwards), not {want_k1}")
+    phase("definitions", f"build-fleet of {len(rows)} machines ({', '.join(f'{n} {p}' for p, n in DEFINITION_GROUPS)};"
+          f" 20 tags, {TRAIN_ROWS} CSV rows) on the card in {wall:.2f} s: {build_phases(builder)}, sequential "
+          f"{builder.phase_seconds['sequential']:.3f} s (the {sequential} callbacks machines, ModelBuilder, "
+          f"{CALLBACK_EPOCHS} epochs); K1 launches {build_launches['K1']} (4 CV spec groups + 3 folds a sequential "
+          f"machine), K2 {build_launches['K2']}; {card}")
+    for i, lrs in enumerate(card_lrs[:4]):
+        phase("definitions", f"callbacks-000 fit {i} (3 folds, then the final fit): {len(lrs)} epochs at "
+              f"learning rates {lrs}")
+    raw_forward = [f for f in forwards if f[0].dims == (16, 4)]
+    check(len(raw_forward) == 1 and raw_forward[0][0].activations == ("tanh", "tanh"),
+          "no raw-spec CV forward of 16-4 tanh units")
+    spec, stacked, X, raw_launches = raw_forward[0]
+    cases = {"raw": as_case(spec, stacked, X)}
+
+    card_summaries = {}
+    for name in DEFINITIONS_CPU_CHECK:
+        model = serializer.load(os.path.join(directory, name), "cpu")
+        card_summaries[name] = build_summary(model, serializer.load_metadata(os.path.join(directory, name)))
+    with captured_host_loops() as cpu_lrs:
+        cpu, cpu_s = build_summaries([m for m in load_fleet_machines(shard) if m.name in DEFINITIONS_CPU_CHECK],
+                                     "cpu")
+    check(cpu_lrs == card_lrs[:4], f"callbacks-000's learning rates on the CPU {cpu_lrs} vs the card's "
+          f"{card_lrs[:4]}")
+    for names, limits in ((DEFINITIONS_CPU_CHECK[:-1], DEFINITIONS_BUILD_LIMITS),
+                          (DEFINITIONS_CPU_CHECK[-1:], SEQUENTIAL_BUILD_LIMITS)):
+        worst, faults = compare_builds(card_summaries, {n: cpu[n] for n in names}, limits)
+        check(not faults, "[definitions] card build disagrees with the CPU's: " + "; ".join(faults[:5]))
+        phase("definitions", f"card against a CPU build of {', '.join(names)} ({cpu_s:.2f} s on the CPU for all "
+              f"{len(DEFINITIONS_CPU_CHECK)}): params max abs {worst[0]:.3e} (limit {limits[0]}), thresholds max rel "
+              f"{worst[1]:.3e} (limit {limits[1]}), CV scores max |d| / (1 + |cpu|) {worst[2]:.3e} (limit "
+              f"{limits[2]}), epochs run equal" + ("; learning rates of every fit equal" if limits is
+                                                    SEQUENTIAL_BUILD_LIMITS else ""))
+
+    # serving, engine on: one anomaly request a group, one fleet request over the non-affine and raw machines
+    app = build_app(directory, device="cuda", serve_config=ServeConfig(deadline_ms=ENGINE_DEADLINE_MS))
+    check(len(app.store.fleet().warm()) == len(rows), "not every [definitions] model loaded")
+    app.start_warmup().join(timeout=600)
+    cpu_app = build_app(directory, device="cpu")
+    fleet = app.store.fleet()
+    specs = fleet.loaded_specs()
+    host_spec, standard_spec = specs["nonaffine-000"], specs["standard-000"]
+    check(fleet.host_transformed(host_spec) and fleet.ingest_plan(host_spec) is None,
+          "the non-affine bucket is not host-transformed")
+    check(not fleet.host_transformed(standard_spec) and fleet.ingest_plan(standard_spec) is not None,
+          "the StandardScaler bucket has no ingest plan")
+    check(specs["callbacks-000"] == standard_spec, "the callbacks machines left the StandardScaler bucket")
+    base, stop = serving(app)
+    requests = [(f"/{p}-000/anomaly/prediction", {"X": definition_frame(f"{p}-000"),
+                                                  "y": definition_frame(f"{p}-000", y=True)})
+                for p, _ in DEFINITION_GROUPS]
+    fleet_names = [f"nonaffine-{i:03d}" for i in range(counts["nonaffine"])] + [f"raw-{i:03d}" for i in
+                                                                               range(counts["raw"])]
+    requests.append(("/prediction/fleet", {"X": {n: definition_frame(n) for n in fleet_names}}))
+    before = dict(app.engine.stats())
+    try:
+        with captured_serving_launches() as calls:
+            fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+            answers = [post(base + path, payload) for path, payload in requests]
+            serve_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    finally:
+        stop()
+    stats = app.engine.stats()
+    app.shutdown()
+    check(serve_launches == {"K1": len(DEFINITION_GROUPS), "K2": 2},
+          f"serving launched {serve_launches}, not one K1 an anomaly request and one K2 a fleet bucket")
+    check(stats["batches"] - before["batches"] == len(DEFINITION_GROUPS) and
+          stats["ingest_batches"] - before["ingest_batches"] == 3,
+          f"engine batches {stats['batches'] - before['batches']}, with the prologue "
+          f"{stats['ingest_batches'] - before['ingest_batches']} (want {len(DEFINITION_GROUPS)} and 3: standard, "
+          "maxabs, callbacks)")
+    max_diff = 0.0
+    for (path, payload), (status, body, ms) in zip(requests, answers):
+        check(status == 200, f"{path} answered {status}")
+        cpu_status, cpu_body = wsgi_post(cpu_app, "/gordo/v0/smoke" + path, payload)
+        check(cpu_status == 200, f"the CPU app answered {cpu_status} on {path}")
+        max_diff = max(max_diff, same_json(cpu_body["data"], body["data"]))
+        phase("definitions", f"POST {path}: 200 in {ms:.1f} ms")
+    k1_calls = [case for kernel, case in calls if kernel == "K1"]
+    k2_calls = [case for kernel, case in calls if kernel == "K2"]
+    cases["standard"] = next(c for c in k1_calls if c["spec"] == standard_spec)
+    cases["host"] = next(c for c in k1_calls if c["spec"] == host_spec)
+    host_k2 = next(c for c in k2_calls if c["spec"] == host_spec)
+    # each case's launches on this phase's path: its CV forward, or its bucket's calls while serving
+    case_launches = {"raw": raw_launches, "standard": sum(c["spec"] == standard_spec for c in k1_calls),
+                     "host": sum(c["spec"] == host_spec for c in k1_calls),
+                     "K2": sum(c["spec"] == host_spec for c in k2_calls)}
+    check(cases["standard"]["ingest"] is not None and cases["host"]["ingest"] is None and host_k2["ingest"] is None,
+          "the prologue ran where it should not, or not where it should")
+    check(host_k2["y"] is not host_k2["X"] and host_k2["y"].shape == host_k2["X"].shape,
+          "the host-transformed bucket's K2 did not take the raw rows as y")
+    phase("definitions", f"{len(requests)} requests through the engine, K1 launches {serve_launches['K1']}, K2 "
+          f"{serve_launches['K2']} (the non-affine and raw buckets); the non-affine bucket host-transformed, "
+          f"no prologue; max abs diff vs the CPU app {max_diff:.3e} (rtol {RTOL}, atol {ATOL}); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return build_launches, serve_launches, cases, host_k2, case_launches
+
+
 # -- phase 5: times ----------------------------------------------------------------
 
 
@@ -2753,6 +3108,7 @@ def main():
             thread.join(timeout=30)
         check(not thread.is_alive(), "server thread did not stop")
         engine_launches, engine_batches = engine_phase(collection, names, wide_names, cpu_app, app, card)
+        def_build_launches, def_serve_launches, def_cases, def_k2, def_launches = definitions_phase(work_dir, card)
 
     for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
         split, smem, per_sm, grid = narrow_plan(scored[name] if name.startswith("K2") else cases[name])
@@ -2813,6 +3169,15 @@ def main():
               f"baddbmm chain {library!r} ms (with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, "
               f"3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
               f"({cuda_core_ms / kernel:.1%}); {reduced}; {card}")
+    for key, name in DEFINITION_CASES.items():
+        case = def_cases[key]
+        errors[name] = compare(case)
+        timed[name] = times(case)
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name} {tuple(case['X'].shape)}: K1 {kernel!r} ms (max abs {errors[name][0]:.3e} vs "
+              f"plain), plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 {library_tf32!r} ms), bound "
+              f"{bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 "
+              f"bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
     anomaly = cases[NARROW_CASES[2]]
     on_card = torch.tensor(anomaly["indices"], dtype=torch.int32, device="cuda")
     k1_on_card = cuda_ms(lambda: fleet_feedforward(
@@ -2828,6 +3193,15 @@ def main():
               f"(with TF32 {library_tf32!r} ms), K1 alone {k1!r} ms (epilogue {kernel - k1:+.5f} ms), "
               f"bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), "
               f"CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}){served}; {card}")
+
+    errors[DEFINITION_K2] = compare_scores(def_k2)
+    scored_timed[DEFINITION_K2] = scores_times(def_k2)
+    kernel, plain, library, library_tf32, k1, bound_ms, bound_by, cuda_core_ms = scored_timed[DEFINITION_K2]
+    phase("times", f"{DEFINITION_K2} {tuple(def_k2['X'].shape)}: K2 {kernel!r} ms (max abs "
+          f"{errors[DEFINITION_K2][0]:.3e} vs plain), plain {plain!r} ms, baddbmm chain + mean {library!r} ms (with "
+          f"TF32 {library_tf32!r} ms), K1 alone {k1!r} ms, bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
+          f"{bound_ms / kernel:.1%} of it; y's bytes counted apart), CUDA-core f32 bound {cuda_core_ms!r} ms "
+          f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
 
     lstm_times(card)
 
@@ -2870,10 +3244,12 @@ def main():
     k1_by_path = {"train": train_launches["K1"], "config": config_launches["K1"], "serve": launches["K1"],
                   "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"], "routes": route_launches["K1"],
                   "lstm": lstm_launches["K1"], "build": build_launches["K1"],
-                  "engine": engine_launches["narrow"] + engine_launches["wide"]}
+                  "engine": engine_launches["narrow"] + engine_launches["wide"],
+                  "definitions": def_build_launches["K1"] + def_serve_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
-                  "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0}
+                  "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
+                  "definitions": def_build_launches["K2"] + def_serve_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -2905,6 +3281,17 @@ def main():
               engine_launches["narrow"], k1_by_path, engine_names[20], timed[engine_names[20]]),
         entry("fleet_dense (K1), wide kernel, coalesced engine batch", "gordo_tpu/ops/pallas_dense.py:114",
               engine_launches["wide"], k1_by_path, engine_names[WIDE_TAGS], timed[engine_names[WIDE_TAGS]]),
+        # launches: the [definitions] build's CV forward of the raw spec's group, read on the counter; the
+        # served shapes: the K1 calls of that bucket's anomaly requests, through the engine
+        entry("fleet_dense (K1), narrow kernel, raw spec CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              def_launches["raw"], k1_by_path, DEFINITION_CASES["raw"], timed[DEFINITION_CASES["raw"]]),
+        entry("fleet_dense (K1), narrow kernel, StandardScaler bucket", "gordo_tpu/ops/pallas_dense.py:114",
+              def_launches["standard"], k1_by_path, DEFINITION_CASES["standard"], timed[DEFINITION_CASES["standard"]]),
+        entry("fleet_dense (K1), narrow kernel, host-transformed bucket", "gordo_tpu/ops/pallas_dense.py:114",
+              def_launches["host"], k1_by_path, DEFINITION_CASES["host"], timed[DEFINITION_CASES["host"]]),
+        # launches: the fleet request's K2 launch for the non-affine bucket
+        entry("fleet_anomaly_scores (K2), narrow kernel, host-transformed bucket", "gordo_tpu/ops/pallas_dense.py:126",
+              def_launches["K2"], k2_by_path, DEFINITION_K2, scored_timed[DEFINITION_K2]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,7 @@ from ... import DeviceLike
 from ..estimators import TorchAutoEncoder, TorchLSTMAutoEncoder, TorchLSTMForecast
 from ..metrics import explained_variance_score
 from ..model_selection import KFold, TimeSeriesSplit, cross_validate, shuffle_indices
-from ..preprocessing import MinMaxScaler, Pipeline
+from ..preprocessing import MinMaxScaler, Pipeline, transformer_from_state
 from ..spec import LSTMSpec, spec_from_dict
 
 
@@ -130,11 +130,11 @@ def rolling_min_max(values: np.ndarray, window: int):
     return float(out) if values.ndim == 1 else out
 
 
-def fold_errors(scaler: MinMaxScaler, y_true, y_pred) -> Tuple[np.ndarray, np.ndarray]:
+def fold_errors(scaler: Any, y_true, y_pred) -> Tuple[np.ndarray, np.ndarray]:
     """A fold's errors on its test rows: each row's MSE between the
-    prediction and ``y_true`` after the fold model's error ``scaler``, and
-    the absolute error of each tag (``_scaled_mse_per_timestep``,
-    ``_absolute_error``)."""
+    prediction and ``y_true`` after the fold model's fitted error
+    ``scaler`` (any of ``models/preprocessing.py``'s), and the absolute
+    error of each tag (``_scaled_mse_per_timestep``, ``_absolute_error``)."""
     y_true = np.asarray(y_true)
     scaled_mse = np.mean(np.square(scaler.transform(y_pred) - scaler.transform(y_true)), axis=1)
     return scaled_mse, np.abs(y_true - np.asarray(y_pred))
@@ -149,7 +149,7 @@ class DiffBasedAnomalyDetector:
     def __init__(
         self,
         base_estimator: Any,
-        scaler: Optional[MinMaxScaler] = None,
+        scaler: Optional[Any] = None,
         require_thresholds: bool = True,
         window: Optional[int] = None,
         smoothing_method: Optional[str] = None,
@@ -311,8 +311,12 @@ class DiffBasedAnomalyDetector:
         - for an LSTM, the estimator: ``estimator`` (its class name,
           ``JaxLSTMAutoEncoder`` or ``JaxLSTMForecast``) or ``lookahead``
           (0 or 1);
-        - ``pipeline``: the input scalers ahead of the autoencoder, each
-          ``{"scale_": [...], "min_": [...]}`` (may be empty);
+        - ``pipeline``: the transformers ahead of the autoencoder (may be
+          empty), each the state
+          :func:`~..preprocessing.transformer_from_state` reads: a
+          ``type`` (``MinMaxScaler`` when absent, so ``{"scale_": [...],
+          "min_": [...]}`` is a MinMax step), its arguments and its fitted
+          attributes;
         - ``scaler``: the error scaler, same form;
         - optional ``feature_thresholds``, ``aggregate_threshold``,
           ``require_thresholds`` (default True), ``window`` and
@@ -328,15 +332,11 @@ class DiffBasedAnomalyDetector:
                 raise ValueError(f"an LSTM detector's state needs its estimator or lookahead, got {key!r}")
             estimator_class = lstm[key]
         estimator = estimator_class(spec, state["params"], device)
-        steps = [
-            (f"step_{i}", MinMaxScaler(s["scale_"], s["min_"]))
-            for i, s in enumerate(state.get("pipeline") or ())
-        ]
+        steps = [(f"step_{i}", transformer_from_state(s)) for i, s in enumerate(state.get("pipeline") or ())]
         steps.append((f"step_{len(steps)}", estimator))
-        scaler = state["scaler"]
         return cls(
             base_estimator=Pipeline(steps),
-            scaler=MinMaxScaler(scaler["scale_"], scaler["min_"]),
+            scaler=transformer_from_state(state["scaler"]),
             require_thresholds=bool(state.get("require_thresholds", True)),
             window=state.get("window"),
             smoothing_method=state.get("smoothing_method"),
@@ -359,7 +359,7 @@ class DiffBasedKFCVAnomalyDetector(DiffBasedAnomalyDetector):
     def __init__(
         self,
         base_estimator: Any,
-        scaler: Optional[MinMaxScaler] = None,
+        scaler: Optional[Any] = None,
         require_thresholds: bool = True,
         shuffle: bool = True,
         window: int = 144,

@@ -15,6 +15,10 @@ between epochs, and ``predict`` forwards the windows 256 at a time,
 gathered on the device, so a long series never has all its windows made
 at once.
 
+:class:`TorchRawModelRegressor` is ``JaxRawModelRegressor``
+(``:405-437``): its ``kind`` is a raw ``Sequential`` definition, compiled
+to a ``FeedForwardSpec``.
+
 Params are held as float32 tensors on the estimator's device (``cuda``
 unless the caller asks for the CPU) and pickled as host numpy arrays, so
 an artifact is device-independent. An unpickled estimator holds host
@@ -22,6 +26,7 @@ arrays and no device until :meth:`TorchAutoEncoder.to` places it
 (``serializer.load`` does); until then ``predict`` raises.
 """
 
+from pprint import pformat
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -32,7 +37,7 @@ from ..ops.fleet_dense import fleet_feedforward
 from ..ops.windows import model_offset, num_windows, window_targets
 from . import factories
 from .nn import Params, forward_lstm_windows, params_from_jax, params_to_numpy
-from .spec import LSTMSpec, ModelSpec
+from .spec import LSTMSpec, ModelSpec, Sequential
 from .training import History, fit_config_from_kwargs, split_fit_kwargs
 
 #: the architecture factories a feedforward definition's ``kind`` may name
@@ -84,9 +89,7 @@ class TorchAutoEncoder:
         kind: Optional[str] = None,
         **kwargs,
     ):
-        if kind is not None and kind not in self.KINDS:
-            raise NotImplementedError(
-                f"kind {kind!r} is not ported for {type(self).__name__}; known: {sorted(self.KINDS)}")
+        self._check_kind(kind)
         self.spec_ = spec
         self.device: Optional[torch.device] = resolve_device(device)
         self.params_: Optional[Params] = (
@@ -95,6 +98,11 @@ class TorchAutoEncoder:
         self.kind = kind
         self.kwargs: Dict[str, Any] = kwargs
         self._history: Optional[History] = None
+
+    def _check_kind(self, kind: Any) -> None:
+        if kind is not None and kind not in self.KINDS:
+            raise NotImplementedError(
+                f"kind {kind!r} is not ported for {type(self).__name__}; known: {sorted(self.KINDS)}")
 
     def build_spec(self, n_features: int, n_features_out: int) -> ModelSpec:
         """The spec ``kind``'s factory makes for these widths from the
@@ -120,8 +128,8 @@ class TorchAutoEncoder:
         """Train on ``X[rows, n_features]`` towards ``y`` on the
         estimator's device, as the JAX estimator's ``fit_single`` does
         (``random``: the trainer's random source, default
-        ``TorchRandom``). Host callbacks other than ``EarlyStopping`` are
-        refused."""
+        ``TorchRandom``). Host callbacks other than ``EarlyStopping`` make
+        the fit the per-epoch host loop, as there."""
         from ..parallel.fleet import FleetMember, FleetTrainer
 
         X_arr = np.asarray(X, np.float32)
@@ -132,12 +140,10 @@ class TorchAutoEncoder:
             raise RuntimeError(f"This {type(self).__name__} is on no device; call .to(device) first")
         fit_kwargs, _ = split_fit_kwargs(self.kwargs)
         config, host_callbacks = fit_config_from_kwargs(fit_kwargs)
-        if host_callbacks:
-            raise NotImplementedError(f"host callbacks are not supported: {host_callbacks!r}")
         self.kwargs.update(n_features=X_arr.shape[-1], n_features_out=y_arr.shape[-1])
         self.spec_ = self.build_spec(X_arr.shape[-1], y_arr.shape[-1])
         member = FleetMember("estimator", self.spec_, X_arr, y_arr, seed=int(fit_kwargs.get("seed", 42)))
-        result = FleetTrainer(self.device, random).fit_single(member, config)
+        result = FleetTrainer(self.device, random).fit_single(member, config, host_callbacks)
         self.params_ = params_from_jax(result.params, self.device)
         self._history = result.history
         return self
@@ -255,7 +261,8 @@ class TorchLSTMBaseEstimator(TorchAutoEncoder):
         rows ``offset`` on, never shuffled, as the JAX estimator's
         ``fit_single`` over its windows does, the windows gathered on the
         device (``random``: the trainer's random source, default
-        ``TorchRandom``)."""
+        ``TorchRandom``); host callbacks run the per-epoch host loop, as
+        the JAX estimator's ``fit_single`` does for them."""
         from ..parallel.fleet import FleetTrainer, WindowedFleetMember
 
         X_arr = self._checked(X)
@@ -267,15 +274,13 @@ class TorchLSTMBaseEstimator(TorchAutoEncoder):
         fit_kwargs, _ = split_fit_kwargs(self.kwargs)
         fit_kwargs["shuffle"] = False  # time series train in order (models.py:613-615)
         config, host_callbacks = fit_config_from_kwargs(fit_kwargs)
-        if host_callbacks:
-            raise NotImplementedError(f"host callbacks are not supported: {host_callbacks!r}")
         self.kwargs.update(n_features=X_arr.shape[-1], n_features_out=y_arr.shape[-1])
         self.spec_ = self.build_spec(X_arr.shape[-1], y_arr.shape[-1])
         member = WindowedFleetMember(
             "estimator", self.spec_, X_arr, window_targets(y_arr, self.lookback_window, self.lookahead),
             seed=int(fit_kwargs.get("seed", 42)),
         )
-        result = FleetTrainer(self.device, random).fit_single(member, config)
+        result = FleetTrainer(self.device, random).fit_single(member, config, host_callbacks)
         self.params_ = params_from_jax(result.params, self.device)
         self._history = result.history
         return self
@@ -310,3 +315,43 @@ class TorchLSTMForecast(TorchLSTMBaseEstimator):
     ``lookback_window``)."""
 
     lookahead = 1
+
+
+class TorchRawModelRegressor(TorchAutoEncoder):
+    """
+    A feedforward model from a raw ``{spec: ..., compile: ...}`` definition
+    (``JaxRawModelRegressor``, ``gordo_tpu/models/estimators.py:405-437``;
+    the reference's ``KerasRawModelRegressor``): ``kind["spec"]`` is a
+    ``Sequential`` of ``Dense`` layers, ``kind["compile"]`` the loss and
+    optimizer. It compiles to a ``FeedForwardSpec``, so it trains and
+    serves as any feedforward autoencoder does.
+    """
+
+    _expected_keys = ("spec", "compile")
+
+    def _check_kind(self, kind: Any) -> None:
+        if kind is not None and not isinstance(kind, Mapping):
+            raise ValueError(f"{type(self).__name__} needs a kind of {self._expected_keys}, got {kind!r}")
+
+    def build_spec(self, n_features: int, n_features_out: int) -> ModelSpec:
+        """The compiled ``Sequential`` for ``n_features`` inputs; its head
+        sets the output width. A string optimizer is capitalised."""
+        from ..serializer.from_definition import from_definition
+
+        if self.kind is None or not all(k in self.kind for k in self._expected_keys):
+            raise ValueError(
+                f"Expected spec to have keys: {self._expected_keys}, but found {list(self.kind or ())}"
+            )
+        sequential = from_definition(self.kind["spec"], device="cpu")
+        if not isinstance(sequential, Sequential):
+            raise ValueError(f"Raw spec must describe a Sequential stack, got {type(sequential)}")
+        compile_kwargs = dict(self.kind.get("compile") or {})
+        sequential.loss = compile_kwargs.get("loss", sequential.loss)
+        optimizer = compile_kwargs.get("optimizer", sequential.optimizer)
+        sequential.optimizer = optimizer.capitalize() if isinstance(optimizer, str) else optimizer
+        return sequential.compile_spec(n_features=n_features)
+
+    def __repr__(self):
+        if self.kind is not None:
+            return f"{type(self).__name__}(kind: {pformat(self.kind)})"
+        return super().__repr__()

@@ -7,7 +7,8 @@ A copy of ``gordo_tpu/models/spec.py``'s specs: a
 :class:`OptimizerSpec` fields they carry, equal field by field to the JAX
 package's, so that one artifact's spec means the same thing to both
 packages. Specs are hashable because the fleet store groups members into
-one stacked bucket per spec.
+one stacked bucket per spec. :class:`Dense` and :class:`Sequential` are
+the raw layer-list definition that compiles to a ``FeedForwardSpec``.
 """
 
 from dataclasses import dataclass, field, fields
@@ -192,6 +193,73 @@ class LSTMSpec(ModelSpec):
         (3, 2, 4)
         """
         return (self.n_features,) + tuple(self.dims) + (self.n_features_out,)
+
+
+@dataclass
+class Dense:
+    """One layer of a raw ``Sequential`` definition (Keras' ``Dense``):
+    ``units``, ``activation``, ``l1_activity``. ``input_shape`` and
+    ``input_dim`` are accepted and ignored: the input width is the data's."""
+
+    units: int
+    activation: str = "linear"
+    l1_activity: float = 0.0
+    input_shape: Optional[Tuple[int, ...]] = None
+    input_dim: Optional[int] = None
+
+    def get_params(self, deep: bool = False) -> Dict[str, Any]:
+        return {"units": self.units, "activation": self.activation, "l1_activity": self.l1_activity}
+
+
+class Sequential:
+    """A raw layer-list definition (``KerasRawModelRegressor``'s
+    ``tensorflow.keras.models.Sequential``), which
+    :meth:`compile_spec` turns into a :class:`FeedForwardSpec`: the last
+    layer is the head, the others the hidden layers."""
+
+    def __init__(self, layers, optimizer="Adam", optimizer_kwargs=None, loss="mse"):
+        self.layers = list(layers)
+        self.optimizer = optimizer
+        self.optimizer_kwargs = optimizer_kwargs or {}
+        self.loss = loss
+
+    def get_params(self, deep: bool = False) -> Dict[str, Any]:
+        return {
+            "layers": self.layers,
+            "optimizer": self.optimizer,
+            "optimizer_kwargs": self.optimizer_kwargs,
+            "loss": self.loss,
+        }
+
+    def compile_spec(self, n_features: int) -> FeedForwardSpec:
+        """The :class:`FeedForwardSpec` of the layers for ``n_features``
+        inputs (``gordo_tpu/models/spec.py:230-251``); only ``Dense``
+        layers, at least one.
+
+        >>> Sequential([Dense(4, "tanh"), Dense(3)]).compile_spec(3).widths()
+        (3, 4, 3)
+        """
+        dense_layers = [layer for layer in self.layers if isinstance(layer, Dense)]
+        if len(dense_layers) != len(self.layers):
+            raise ValueError(
+                "Only Dense layers are supported in raw Sequential specs; got "
+                f"{[type(layer).__name__ for layer in self.layers]}"
+            )
+        if not dense_layers:
+            raise ValueError("Sequential spec needs at least one Dense layer")
+        hidden, head = dense_layers[:-1], dense_layers[-1]
+        return FeedForwardSpec(
+            n_features=n_features,
+            n_features_out=head.units,
+            dims=tuple(layer.units for layer in hidden),
+            activations=tuple(layer.activation for layer in hidden),
+            out_activation=head.activation,
+            l1_activity=tuple(layer.l1_activity for layer in hidden)
+            if any(layer.l1_activity for layer in hidden)
+            else (),
+            optimizer=OptimizerSpec.from_config(self.optimizer, self.optimizer_kwargs),
+            loss=self.loss,
+        )
 
 
 def spec_from_dict(data: Dict[str, Any]) -> ModelSpec:

@@ -28,7 +28,10 @@ Semantics kept from the JAX program, member by member:
 - ``EarlyStopping`` is a masked update: ``val_loss`` falls back to the
   train loss where it is NaN, a member stops once ``wait >=
   max(patience, 1)``, restore-best is optional, and ``epochs_ran`` counts
-  the epochs a member had not stopped at their start (``:151-200``).
+  the epochs a member had not stopped at their start (``:151-200``);
+- host callbacks (``ReduceLROnPlateau``, ``TerminateOnNaN``, any other
+  ``Callback``, with ``EarlyStopping`` among them) make a one-member fit
+  a per-epoch host loop (``_fit_host_loop``, ``:778-850``).
 
 :class:`WindowedFit` is the windowed (LSTM) fit of
 ``build_raw_windowed_fit_fn`` (``:343-457``): only each member's series
@@ -47,8 +50,9 @@ from threefry keys, whose bits torch cannot reproduce; the parity tests
 inject a source that derives them as the JAX trainer does.
 """
 
+import logging
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional, Protocol, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +63,8 @@ from .callbacks import Callback, EarlyStopping
 from .nn import Params, forward_lstm_time_major, forward_stacked, init_params, param_keys
 from .optim import OptimizerState, StackedOptimizer
 from .spec import ModelSpec
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -103,24 +109,31 @@ def split_fit_kwargs(kwargs: dict) -> Tuple[dict, dict]:
 def fit_config_from_kwargs(kwargs: dict) -> Tuple[FitConfig, List[Callback]]:
     """
     A :class:`FitConfig` from Keras-style fit kwargs. ``EarlyStopping``
-    compiles into the config; any other callbacks are returned, and
-    callers refuse them (the port has no per-epoch host loop).
+    compiles into the config unless other callbacks come with it: then
+    every callback, the early stoppers first, is returned for the
+    per-epoch host loop (``gordo_tpu/models/training.py:93-128``).
     """
     early_stopping = None
+    early_stoppers: List[Callback] = []
     host_callbacks: List[Callback] = []
     for cb in list(kwargs.get("callbacks") or []):
         if isinstance(cb, EarlyStopping):
+            early_stoppers.append(cb)
             early_stopping = (cb.monitor, cb.patience, cb.min_delta, cb.restore_best_weights)
         elif isinstance(cb, Callback):
             host_callbacks.append(cb)
         else:
             raise TypeError(f"Unsupported callback: {cb!r}")
+    if host_callbacks:
+        # the host loop runs every callback: EarlyStopping rides along
+        host_callbacks = early_stoppers + host_callbacks
+        early_stopping = None
     config = FitConfig(
         epochs=int(kwargs.get("epochs", 1)),
         batch_size=int(kwargs.get("batch_size", 32)),
         validation_split=float(kwargs.get("validation_split", 0.0)),
         shuffle=bool(kwargs.get("shuffle", True)),
-        early_stopping=None if host_callbacks else early_stopping,
+        early_stopping=early_stopping,
     )
     return config, host_callbacks
 
@@ -133,7 +146,10 @@ class RandomSource(Protocol):
         numpy arrays)."""
 
     def permutations(self, seed: int, epochs: int, n_total: int) -> Any:
-        """``[epochs, n_total]`` integer permutations, one an epoch."""
+        """``[epochs, n_total]`` integer permutations, one an epoch. A
+        source may also have ``host_loop_permutations`` of the same form:
+        a host-loop fit (``FleetTrainer.fit_single`` with host callbacks)
+        draws from it."""
 
 
 def _generator(seed: int, stream: int) -> torch.Generator:
@@ -236,6 +252,7 @@ class StackedFit:
         wval: torch.Tensor,
         perms: Optional[torch.Tensor],
         val: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        callbacks: Sequence[Callback] = (),
     ) -> FitOutput:
         """
         Train ``params`` (stacked, float32, on X's device; updated in
@@ -244,7 +261,8 @@ class StackedFit:
         batches), shuffling each epoch by ``perms[M, epochs, n]`` when the
         config shuffles. With ``val = (X_val, y_val)`` validation runs on
         those rows instead, ``wval`` their weights (``fit_single``'s
-        separate validation arrays).
+        separate validation arrays). With host ``callbacks`` (one member
+        only) the epochs run in the host loop of :meth:`_fit`.
         """
         B = self.config.batch_size
         n = wtr.shape[1]
@@ -271,7 +289,7 @@ class StackedFit:
         else:
             X_val = val[0].to(dtype)
             y_val = X_val if val[1] is val[0] else val[1].to(dtype)
-        return self._fit(params, wtr, wval, batches, lambda: self.evaluate(params, X_val, y_val, wval))
+        return self._fit(params, wtr, wval, batches, lambda: self.evaluate(params, X_val, y_val, wval), callbacks)
 
     def _fit(
         self,
@@ -280,10 +298,14 @@ class StackedFit:
         wval: torch.Tensor,
         batches: Callable[[int], Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]],
         validate: Callable[[], torch.Tensor],
+        callbacks: Sequence[Callback] = (),
     ) -> FitOutput:
         """The epochs and early stopping around ``batches(epoch)`` (each
         epoch's ``(xb, yb, wb)``) and ``validate()`` (each member's
-        validation loss), the scaffold of ``_make_fit_loop``."""
+        validation loss), the scaffold of ``_make_fit_loop``; with host
+        ``callbacks``, :meth:`_fit_host_loop`'s epochs instead."""
+        if callbacks:
+            return self._fit_host_loop(params, wtr, wval, batches, validate, callbacks)
         config, es = self.config, self.config.early_stopping
         M = wtr.shape[0]
         for leaf in self.leaves(params):
@@ -336,6 +358,72 @@ class StackedFit:
         )
 
 
+    def _fit_host_loop(
+        self,
+        params: Params,
+        wtr: torch.Tensor,
+        wval: torch.Tensor,
+        batches: Callable[[int], Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]],
+        validate: Callable[[], torch.Tensor],
+        callbacks: Sequence[Callback],
+    ) -> FitOutput:
+        """The per-epoch host loop of one member (``_fit_host_loop``,
+        ``gordo_tpu/models/training.py:778-850``): each epoch trains, then
+        validates when there are validation rows, then every callback's
+        ``on_epoch_end`` runs on ``{loss, lr, val_loss}`` (Keras
+        semantics), then the last learning-rate request changes the
+        optimizer's rate (moments and step counts carry over), then the
+        loop stops if any callback asked to."""
+        if wtr.shape[0] != 1:
+            raise ValueError(f"the host loop trains one member, not {wtr.shape[0]}")
+        for leaf in self.leaves(params):
+            leaf.requires_grad_(True)
+        state = self.optimizer.init(self.leaves(params))
+        has_val = bool((wval > 0).any())
+        device = wtr.device
+        active = torch.ones(1, dtype=torch.bool, device=device)
+        wtr_total = wtr.sum(-1).clamp(min=1.0)
+        for cb in callbacks:
+            cb.on_train_begin()
+        losses, val_losses = [], []
+        steps = 0
+        for epoch in range(self.config.epochs):
+            total = torch.zeros(1, device=device)
+            for xb, yb, wb in batches(epoch):
+                total = total + self.train_step(params, state, xb, yb, wb, active)
+                steps += 1
+            loss = total / wtr_total
+            val_loss = validate() if has_val else torch.full((1,), float("nan"), device=device)
+            losses.append(loss)
+            val_losses.append(val_loss)
+            logs = {"loss": float(loss[0]), "lr": self.optimizer.lr}
+            if has_val:
+                logs["val_loss"] = float(val_loss[0])
+            stop_requests = [cb.on_epoch_end(epoch, logs) for cb in callbacks]
+            new_lr = None
+            for cb in callbacks:
+                request = getattr(cb, "consume_lr_request", None)
+                if callable(request):
+                    requested = request()
+                    if requested is not None:
+                        new_lr = requested
+            if new_lr is not None and new_lr != self.optimizer.lr:
+                logger.info("Host loop: learning rate -> %g (epoch %d)", new_lr, epoch)
+                self.optimizer.lr = float(new_lr)
+            if any(stop_requests):
+                break
+        final = {key: {} for key, _ in self.spec.layer_names()}
+        for (key, name), leaf in zip(self.keys, self.leaves(params)):
+            final[key][name] = leaf.detach()
+        return FitOutput(
+            params=final,
+            losses=torch.stack(losses, dim=1),
+            val_losses=torch.stack(val_losses, dim=1),
+            epochs_ran=torch.full((1,), len(losses), dtype=torch.int64, device=device),
+            steps=steps,
+        )
+
+
 class WindowedFit(StackedFit):
     """The windowed fit of one (LSTM spec, config) over a stacked bucket:
     windows gathered from the resident series each step. Unshuffled, a
@@ -356,6 +444,7 @@ class WindowedFit(StackedFit):
         wtr: torch.Tensor,
         wval: torch.Tensor,
         perms: Optional[torch.Tensor],
+        callbacks: Sequence[Callback] = (),
     ) -> FitOutput:
         """
         Train ``params`` (stacked, float32, on the series' device; updated
@@ -364,7 +453,8 @@ class WindowedFit(StackedFit):
         member is its window ``order[m, j]``, with weights ``wtr``/``wval``
         ``[M, nv]`` (``nv`` a whole number of batches; padding slots point
         at window 0 with weight 0). When the config shuffles, each epoch
-        permutes the slots by ``perms[M, epochs, nv]``.
+        permutes the slots by ``perms[M, epochs, nv]``. Host ``callbacks``
+        run as in :meth:`StackedFit.run`.
         """
         B, lookback = self.config.batch_size, self.spec.lookback_window
         nv = wtr.shape[1]
@@ -405,7 +495,7 @@ class WindowedFit(StackedFit):
                 wsum = wsum + wb.sum(-1)
             return torch.where(wsum > 0, total / wsum, torch.full_like(total, float("nan")))
 
-        return self._fit(params, wtr, wval, batches, validate)
+        return self._fit(params, wtr, wval, batches, validate, callbacks)
 
 
 def permutation_tensor(

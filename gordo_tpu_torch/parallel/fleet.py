@@ -41,12 +41,14 @@ import logging
 import re
 import time
 from dataclasses import dataclass, replace
+from types import SimpleNamespace
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
+from ..models.callbacks import Callback
 from ..models.nn import forward_lstm_windows
 from ..models.spec import FeedForwardSpec, LSTMSpec, ModelSpec
 from ..models.training import (
@@ -292,7 +294,7 @@ class FleetTrainer:
         for result in results:
             by_name[result.name] = result
 
-    def fit_single(self, member, config: FitConfig) -> FleetResult:
+    def fit_single(self, member, config: FitConfig, callbacks: Sequence[Callback] = ()) -> FleetResult:
         """
         Train one member as the JAX package's sequential fit does
         (``gordo_tpu/models/training.py::fit_single``, ``:692-775``, the fit
@@ -301,7 +303,11 @@ class FleetTrainer:
         most the train samples, the train samples are padded to whole
         batches with the last one repeated at weight 0, and each epoch
         permutes those padded samples alone. A fleet bucket pads to a power
-        of two instead and so sees other batches. Device errors raise.
+        of two instead and so sees other batches. Host ``callbacks`` run
+        the epochs in the per-epoch host loop (``_fit_host_loop``), its
+        permutations from the random source's ``host_loop_permutations``
+        when it has one (JAX keys the host loop's epochs apart from the
+        fused fit's). Device errors raise.
         """
         windowed = isinstance(member, WindowedFleetMember)
         n = member.n_windows if windowed else member.n
@@ -334,10 +340,15 @@ class FleetTrainer:
             wval = np.ones((1, n_val), np.float32)
             fit, data, val = StackedFit(member.spec, config), [X_tr, y_tr], (X_val, y_val)
         params = stack_member_params([self.random.init_params(member.spec, member.seed)], self.device)
-        perms = (permutation_tensor(self.random, [member.seed], config.epochs, total, self.device)
+        # the host loop draws each epoch's key apart in JAX: a source may say so
+        source = self.random
+        if callbacks and hasattr(source, "host_loop_permutations"):
+            source = SimpleNamespace(permutations=source.host_loop_permutations)
+        perms = (permutation_tensor(source, [member.seed], config.epochs, total, self.device)
                  if config.shuffle else None)
         wtr_dev, wval_dev = torch.from_numpy(wtr).to(self.device), torch.from_numpy(wval).to(self.device)
-        out = fit.run(params, *data, wtr_dev, wval_dev, perms, **({} if val is None else {"val": val}))
+        out = fit.run(params, *data, wtr_dev, wval_dev, perms, **({} if val is None else {"val": val}),
+                      callbacks=callbacks)
         return self._collect_results([member], out, config, total // B)[0]
 
     def _stack_bucket(self, n_padded: int, bucket: List[FleetMember], config: FitConfig):

@@ -19,7 +19,8 @@ Per machine it follows the JAX builder:
   passes the ``data_fetch`` fault site. A machine whose fetch fails is
   recorded in ``build_errors``;
 - **stage** (``_stage_arrays``, ``:1247-1304``): the host pipeline steps
-  (MinMax) are fitted on the machine's X, ``y`` is aliased to ``X`` when
+  (scalers, imputer, function transformers) are fitted on the machine's
+  X in float64, ``y`` is aliased to ``X`` when
   they are equal, and the fit config and seed come from the estimator's
   kwargs. An LSTM machine keeps its series and its window targets
   (``ops.windows.window_targets``) instead, its model offset is
@@ -36,9 +37,12 @@ Per machine it follows the JAX builder:
   the windows whose targets lie in its train rows and is scored on those
   whose targets lie in its test rows (``_window_train_weights``,
   ``_test_window_rows``, ``:1453-1485``): folds must be contiguous.
-  Then per-tag and aggregate metric scores, and the
-  ``DiffBasedAnomalyDetector`` thresholds: the error scaler fitted on the
-  fold's train targets, each fold's errors handed to the detector's own
+  Then per-tag and aggregate metric scores (after the evaluation's
+  ``scoring_scaler``, any of the four scalers), and the
+  ``DiffBasedAnomalyDetector`` thresholds: a fresh copy of the detector's
+  own error scaler fitted on the fold's train targets
+  (``sklearn_clone(detector.scaler)``, ``:1766``), each fold's errors
+  handed to the detector's own
   threshold functions (``models/anomaly/diff.py``: the max over time of
   6-row rolling minimums, the last fold's kept; ``:1687-1860``). A
   ``DiffBasedKFCVAnomalyDetector`` is cross-validated with ``KFold(5,
@@ -69,7 +73,10 @@ Robustness, as ``_run_build`` (``:504-683``, ``:810-870``) has it:
   built is registered (``builder/build_model.py``);
 - **sequential fallback**: a machine the fleet cannot plan (an estimator
   that is not an autoencoder; a KFCV LSTM, whose scattered KFold folds
-  have no window mapping) and a machine whose device program fails alone
+  have no window mapping; an estimator with host callbacks such as
+  ``ReduceLROnPlateau``, which need the per-epoch host loop of one
+  member: the JAX fleet build fails that machine at its stage,
+  ``:1297-1301``, where the port builds it) and a machine whose device program fails alone
   in its bucket (``self.degraded``) are built by
   ``ModelBuilder(machine, device, random)``; a failure there is the
   machine's error.
@@ -101,7 +108,7 @@ from ..models.estimators import TorchAutoEncoder, TorchLSTMBaseEstimator
 from ..models.metrics import metrics_from_list
 from ..models.model_selection import KFold, TimeSeriesSplit, shuffle_indices
 from ..models.nn import params_from_jax
-from ..models.preprocessing import MinMaxScaler, Pipeline
+from ..models.preprocessing import Pipeline, clone
 from ..models.training import FitConfig, RandomSource, fit_config_from_kwargs, split_fit_kwargs
 from ..ops.windows import model_offset, window_targets
 from ..utils.env import env_float, env_int
@@ -567,7 +574,7 @@ class FleetBuilder:
     def _plan_machine(self, machine: Machine) -> Optional[_Plan]:
         """The machine's plan, or None for a machine the fleet cannot train
         (``_plan_machine``, ``:889-922``): an estimator that is not an
-        autoencoder, or a KFCV LSTM."""
+        autoencoder, a KFCV LSTM, or an estimator with host callbacks."""
         model_obj = serializer.from_definition(machine.model, device=self.device)
         obj, detector, pipeline = model_obj, None, None
         if isinstance(obj, DiffBasedAnomalyDetector):
@@ -578,13 +585,14 @@ class FleetBuilder:
             return None
         if isinstance(obj, TorchLSTMBaseEstimator) and isinstance(detector, DiffBasedKFCVAnomalyDetector):
             return None
+        if fit_config_from_kwargs(split_fit_kwargs(obj.kwargs)[0])[1]:
+            return None  # host callbacks: one member's per-epoch host loop
         return _Plan(machine=machine, model_obj=model_obj, detector=detector, pipeline=pipeline, estimator=obj)
 
     @staticmethod
     def _stage_arrays(plan: _Plan) -> None:
         """Fit the host pipeline steps, window an LSTM's targets, resolve
         spec, fit config and seed."""
-        machine = plan.machine
         X_arr = np.asarray(plan.X, np.float32)
         y_arr = np.asarray(plan.y, np.float32)
         if plan.pipeline is not None and plan.pipeline.transformers:
@@ -612,10 +620,7 @@ class FleetBuilder:
             # order (an LSTM's: its window order); scoring is chronological
             plan.shuffle_perm = shuffle_indices(plan.n_windows, random_state=0)
         plan.spec = estimator.build_spec(X_arr.shape[1], y_arr.shape[1])
-        config, host_callbacks = fit_config_from_kwargs(fit_kwargs)
-        if host_callbacks:
-            raise FleetBuildError(f"{machine.name}: custom host callbacks are not supported in fleet builds")
-        plan.fit_config = config
+        plan.fit_config, _ = fit_config_from_kwargs(fit_kwargs)  # no host callbacks: the plan refused them
         plan.seed = int(fit_kwargs.get("seed", 42))
 
     # --------------------------------------------------------------------- CV
@@ -811,7 +816,7 @@ class FleetBuilder:
         errors for a KFCV detector (whose KFold test rows are scattered, so
         they are smoothed in row order once every fold is in)."""
         detector = plan.detector
-        scaler = MinMaxScaler(feature_range=detector.scaler.feature_range).fit(y_train)
+        scaler = clone(detector.scaler).fit(y_train)
         scaled_mse, abs_err = fold_errors(scaler, y_true, y_pred)
         if isinstance(detector, DiffBasedKFCVAnomalyDetector):
             state.setdefault("kfcv_parts", []).append((np.asarray(test_rows), scaled_mse, abs_err))

@@ -1,26 +1,38 @@
 """
-Model definitions to port objects: a reader for the subset of
-``gordo_tpu/serializer/from_definition.py`` a dense fleet build takes.
+Model definitions to port objects: a reader for every definition
+``gordo_tpu/serializer/from_definition.py`` reads in the example configs.
 
 A definition is a single-key dict ``{dotted.path: kwargs}`` or a bare
 path (defaults). The paths below are matched as strings, never
-imported; the reference's ``gordo.machine.model...`` names map onto
-them as the JAX package's ``COMPAT_LOCATIONS`` maps them
-(``from_definition.py:40-55``). Anything else raises
-``NotImplementedError`` naming the path.
+imported; the reference's ``gordo.machine.model...`` names and the
+``tensorflow.keras.`` / ``keras.`` spellings map onto them as the JAX
+package's ``COMPAT_LOCATIONS`` maps them (``from_definition.py:38-80``).
+Anything else raises ``NotImplementedError`` naming the path.
 
 - ``gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector``: its
   ``base_estimator`` (default: an hourglass autoencoder), ``scaler``
   (default: MinMaxScaler), ``require_thresholds``, ``shuffle``,
   ``window``, ``smoothing_method``;
 - ``sklearn.pipeline.Pipeline`` (``steps``, named ``step_<i>``);
-- ``sklearn.preprocessing.MinMaxScaler`` (``feature_range``);
+- ``sklearn.preprocessing.MinMaxScaler`` (``feature_range``, ``clip``),
+  ``StandardScaler`` (``with_mean``, ``with_std``), ``MaxAbsScaler``
+  (``clip``), ``RobustScaler`` (``with_centering``, ``with_scaling``,
+  ``quantile_range``, ``unit_variance``), all taking ``copy``;
+- ``sklearn.preprocessing.FunctionTransformer`` (``func``, a path of
+  ``models.preprocessing.FUNCTIONS``, and ``kw_args``) and
+  ``gordo_tpu.models.transformers.imputer.InfImputer``;
 - ``gordo_tpu.models[.estimators].JaxAutoEncoder`` with a ``kind`` of
   ``models.estimators.KINDS``; its ``callbacks`` may hold
-  ``EarlyStopping`` (the JAX package's, Keras' or TensorFlow's path);
+  ``EarlyStopping``, ``ReduceLROnPlateau`` and ``TerminateOnNaN`` (the
+  JAX package's, Keras' or TensorFlow's path);
 - ``gordo_tpu.models[.estimators].JaxLSTMAutoEncoder`` and
   ``...JaxLSTMForecast`` with a ``kind`` of ``models.estimators.LSTM_KINDS``
   (and ``lookback_window``, ``batch_size``), the same callbacks;
+- ``gordo_tpu.models[.estimators].JaxRawModelRegressor``: its ``kind`` is
+  ``{spec: <Sequential>, compile: {...}}``, kept as given and compiled at
+  fit time; ``gordo_tpu.models.spec.Sequential`` (``layers`` built in
+  turn, ``optimizer``, ``optimizer_kwargs``, ``loss``) and
+  ``gordo_tpu.models.spec.Dense``;
 - ``gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector``: the
   same arguments (``shuffle`` defaulting to True, ``window`` to 144,
   ``smoothing_method`` to ``smm``) and ``threshold_percentile`` (0.99);
@@ -34,10 +46,19 @@ from typing import Any, Dict, Tuple
 
 from .. import DeviceLike, resolve_device
 from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector
-from ..models.callbacks import EarlyStopping
-from ..models.estimators import TorchAutoEncoder, TorchLSTMAutoEncoder, TorchLSTMForecast
+from ..models.callbacks import Callback, EarlyStopping, ReduceLROnPlateau, TerminateOnNaN
+from ..models.estimators import TorchAutoEncoder, TorchLSTMAutoEncoder, TorchLSTMForecast, TorchRawModelRegressor
 from ..models.model_selection import KFold, TimeSeriesSplit
-from ..models.preprocessing import MinMaxScaler, Pipeline
+from ..models.preprocessing import (
+    FunctionTransformer,
+    MaxAbsScaler,
+    MinMaxScaler,
+    Pipeline,
+    RobustScaler,
+    StandardScaler,
+)
+from ..models.spec import Dense, Sequential
+from ..models.transformers.imputer import InfImputer
 
 DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector"
 KFCV_DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector"
@@ -53,20 +74,44 @@ ESTIMATORS = {
     "gordo_tpu.models.estimators.JaxLSTMAutoEncoder": TorchLSTMAutoEncoder,
     "gordo_tpu.models.JaxLSTMForecast": TorchLSTMForecast,
     "gordo_tpu.models.estimators.JaxLSTMForecast": TorchLSTMForecast,
+    "gordo_tpu.models.JaxRawModelRegressor": TorchRawModelRegressor,
+    "gordo_tpu.models.estimators.JaxRawModelRegressor": TorchRawModelRegressor,
 }
-EARLY_STOPPING = (
-    "gordo_tpu.models.callbacks.EarlyStopping",
-    "tensorflow.keras.callbacks.EarlyStopping",
-    "keras.callbacks.EarlyStopping",
-)
+#: the scalers and stateless transformers, with the keyword arguments each takes
+TRANSFORMERS = {
+    MIN_MAX_SCALER: (MinMaxScaler, ("feature_range", "clip", "copy")),
+    "sklearn.preprocessing.StandardScaler": (StandardScaler, ("with_mean", "with_std", "copy")),
+    "sklearn.preprocessing.MaxAbsScaler": (MaxAbsScaler, ("clip", "copy")),
+    "sklearn.preprocessing.RobustScaler": (
+        RobustScaler, ("with_centering", "with_scaling", "quantile_range", "unit_variance", "copy")),
+    "sklearn.preprocessing.FunctionTransformer": (FunctionTransformer, ("func", "kw_args")),
+    "gordo_tpu.models.transformers.imputer.InfImputer": (
+        InfImputer, ("inf_fill_value", "neg_inf_fill_value", "strategy", "delta")),
+    "gordo_tpu.models.transformers.InfImputer": (
+        InfImputer, ("inf_fill_value", "neg_inf_fill_value", "strategy", "delta")),
+}
+SEQUENTIAL = ("gordo_tpu.models.spec.Sequential", "gordo_tpu.models.Sequential")
+DENSE = ("gordo_tpu.models.spec.Dense", "gordo_tpu.models.Dense")
+#: every callback path, with the port's class
+CALLBACKS = {
+    f"gordo_tpu.models.callbacks.{cls.__name__}": cls for cls in (EarlyStopping, ReduceLROnPlateau, TerminateOnNaN)
+}
 
-#: the reference's paths of the ported classes
+#: the reference's and Keras' paths of the ported classes
 COMPAT_LOCATIONS: Dict[str, str] = {
     "gordo.machine.model.models.KerasAutoEncoder": "gordo_tpu.models.JaxAutoEncoder",
     "gordo.machine.model.models.KerasLSTMAutoEncoder": "gordo_tpu.models.JaxLSTMAutoEncoder",
     "gordo.machine.model.models.KerasLSTMForecast": "gordo_tpu.models.JaxLSTMForecast",
+    "gordo.machine.model.models.KerasRawModelRegressor": "gordo_tpu.models.JaxRawModelRegressor",
     "gordo.machine.model.anomaly.diff.DiffBasedAnomalyDetector": DETECTOR,
     "gordo.machine.model.anomaly.diff.DiffBasedKFCVAnomalyDetector": KFCV_DETECTOR,
+    "gordo.machine.model.transformers.imputer.InfImputer": "gordo_tpu.models.transformers.imputer.InfImputer",
+    "gordo.machine.model.transformer_funcs.general.multiply_by": (
+        "gordo_tpu.models.transformer_funcs.general.multiply_by"),
+    **{f"{keras}.callbacks.{cls.__name__}": f"gordo_tpu.models.callbacks.{cls.__name__}"
+       for keras in ("tensorflow.keras", "keras") for cls in (EarlyStopping, ReduceLROnPlateau, TerminateOnNaN)},
+    **{f"{keras}.models.Sequential": SEQUENTIAL[0] for keras in ("tensorflow.keras", "keras")},
+    **{f"{keras}.layers.Dense": DENSE[0] for keras in ("tensorflow.keras", "keras")},
 }
 
 
@@ -125,13 +170,23 @@ def _build(definition: Any, device) -> Any:
         kwargs.pop("verbose", None)
         _no_more(path, kwargs)
         return Pipeline([(f"step_{i}", _build(step, device)) for i, step in enumerate(steps)])
-    if path == MIN_MAX_SCALER:
-        feature_range = tuple(kwargs.pop("feature_range", (0.0, 1.0)))
-        kwargs.pop("copy", None)
-        if kwargs.pop("clip", False):
-            raise NotImplementedError(f"{path}: clip=True is not ported")
+    if path in TRANSFORMERS:
+        cls, names = TRANSFORMERS[path]
+        options = {key: kwargs.pop(key) for key in names if key in kwargs}
         _no_more(path, kwargs)
-        return MinMaxScaler(feature_range=feature_range)
+        options.pop("copy", None)  # the port's transforms always copy
+        if "func" in options and options["func"] is not None:
+            options["func"] = COMPAT_LOCATIONS.get(options["func"], options["func"])
+        return cls(**options)
+    if path in SEQUENTIAL:
+        layers = [_build(layer, device) for layer in kwargs.pop("layers", ())]
+        options = {key: kwargs.pop(key) for key in ("optimizer", "optimizer_kwargs", "loss") if key in kwargs}
+        _no_more(path, kwargs)
+        return Sequential(layers, **options)
+    if path in DENSE:
+        if "input_shape" in kwargs and kwargs["input_shape"] is not None:
+            kwargs["input_shape"] = tuple(kwargs["input_shape"])
+        return Dense(**kwargs)
     if path in ESTIMATORS:
         if "kind" not in kwargs:
             raise ValueError(f"{path} needs a kind")
@@ -150,9 +205,9 @@ def _build(definition: Any, device) -> Any:
 
 
 def _callback(definition: Any) -> Any:
-    if isinstance(definition, EarlyStopping):
+    if isinstance(definition, Callback):
         return definition
     path, kwargs = _path_and_kwargs(definition)
-    if path not in EARLY_STOPPING:
+    if path not in CALLBACKS:
         raise NotImplementedError(f"callback {path} is not supported by gordo_tpu_torch")
-    return EarlyStopping(**kwargs)
+    return CALLBACKS[path](**kwargs)

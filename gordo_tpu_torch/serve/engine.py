@@ -19,7 +19,13 @@ cache to bound, so the JAX engine's power-of-two member padding
 (repeating ``indices[0]``) is left out; :meth:`stats` reports the padded
 count the JAX engine would have launched. Every request queues its raw
 rows, at every precision: the bucket's ingest plan (the pipeline's
-affine scaling) runs on the device, in the launch at f32.
+affine scaling) runs on the device, in the launch at f32. A rider of a
+host-transformed bucket (a member's pipeline is not affine) is
+transformed on its request thread before it queues, and its batch runs
+without the prologue (``gordo_tpu/serve/engine.py:340-370``): whether
+rows are host-transformed is part of the batch key, so a batch never
+mixes them with raw rows, and ``ingest_batches`` counts only batches run
+with the prologue.
 
 Failures are contained as there: a device error of a batch bisects it;
 a member that fails alone degrades a reduced-precision bucket to f32 and
@@ -257,7 +263,7 @@ class ServeEngine:
         if retry_after is not None:
             self._count("breaker_rejects")
             raise MemberQuarantined(name, retry_after)
-        X = np.asarray(X, np.float32)
+        X = np.asarray(X)
         rows = int(len(X))
         padded_rows = ladder.pad_to(rows, self.config.row_ladder)
         if rows == 0 or padded_rows is None or X.ndim != 2 or X.shape[1] != spec.n_features:
@@ -281,8 +287,13 @@ class ServeEngine:
             self._count("fallback")
             return None
 
-        # rows padded here, on the waiting request thread: the dispatcher
-        # stacks same-rung payloads in one numpy call
+        # a host-transformed bucket's rows go through the member's own
+        # pipeline here, on the waiting request thread
+        from ..server.fleet_store import host_transform
+
+        host = fleet.host_transformed(spec)
+        X = host_transform(model, X) if host else np.asarray(X, np.float32)
+        # rows padded here too: the dispatcher stacks same-rung payloads in one numpy call
         if rows == padded_rows:
             payload = np.ascontiguousarray(X)
         else:
@@ -291,8 +302,8 @@ class ServeEngine:
         item = BatchItem(name, payload, rows=rows, deadline=time.monotonic() + self.config.deadline_s)
         try:
             # precision is part of the key: an f32 and a bf16 request never
-            # share a forward (a mixed hot-swap)
-            future = self._batcher.submit((fleet, spec, padded_rows, prec), item)
+            # share a forward (a mixed hot-swap); so is the host transform
+            future = self._batcher.submit((fleet, spec, padded_rows, prec, host), item)
         except BatcherStopped:
             self._count("fallback")
             return None
@@ -317,8 +328,17 @@ class ServeEngine:
         return f"{type(spec).__name__}:{prec}:{name}"
 
     def _run_batch(self, key: Tuple, items: List[BatchItem]) -> None:
-        fleet, spec, padded_rows, prec = key
+        fleet, spec, padded_rows, prec, host = key
         names, params, ingest = fleet.serving_bucket(spec, prec)
+        if fleet.host_transformed(spec) != host:
+            # the bucket's membership changed its mode after these riders
+            # queued: they score unbatched, in the bucket's present mode
+            for item in items:
+                try:
+                    item.future.set_result(None)
+                except Exception:  # noqa: BLE001 - the waiter gave up
+                    pass
+            return
         bucket_rows = {n: i for i, n in enumerate(names)}
         live: List[BatchItem] = []
         for item in items:

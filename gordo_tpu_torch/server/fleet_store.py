@@ -31,11 +31,19 @@ they were taken at.
 
 Each bucket also has a compiled ingest plan: the affine preprocessing of
 every member's pipeline (``X * scale + offset``, stacked ``[N, F]`` on the
-device), which the kernel applies to the raw request rows as a prologue.
-The port's pipelines hold only affine transformers, so every bucket has
-a plan, except one whose members have no transformers at all: its plan
-is None and it runs without the prologue (a member without transformers
-in a mixed bucket gets the identity row).
+device), which the kernel applies to the raw request rows as a prologue
+(``gordo_tpu/ingest/plan.py``). A bucket whose members have no
+transformers at all has no plan and runs without the prologue (a member
+without transformers in a mixed bucket gets the identity row). A bucket
+with any member whose pipeline is not affine (an ``InfImputer``, a
+``FunctionTransformer``, a clipping scaler) has no plan either and is
+**host-transformed** (:meth:`RevisionFleet.host_transformed`): every
+member's rows go through its own pipeline steps on the host, from the
+request's float64 values to float32 (``_host_transform``,
+``fleet_store.py:53-64``), before the same one K1 or K2 launch; K2 then
+takes the transformed rows as X and the raw rows as y, the JAX store's
+``mse_vs_raw`` rule (``:554-587``). Plans are all or nothing per bucket,
+as in JAX, so a batch never mixes compiled and host-transformed rows.
 """
 
 import logging
@@ -154,20 +162,39 @@ Ingest = Optional[Tuple[torch.Tensor, torch.Tensor]]
 LSTM_SERVING_BATCH = 256
 
 
-def member_plan(model: Any, n_features: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """One model's composed affine pipeline ``(scale, offset)`` (float32),
-    or None when it has no transformers. ``X*s1+o1`` then ``(s2, o2)``
-    composes to ``X*(s1*s2) + (o1*s2 + o2)``, in float64."""
+#: :func:`member_plan`'s answer for a pipeline with a step that has no affine form
+NOT_AFFINE = "not affine"
+
+
+def member_plan(model: Any, n_features: int) -> Any:
+    """One model's composed affine pipeline ``(scale, offset)`` (float32);
+    None when it has no transformers; :data:`NOT_AFFINE` when a step has
+    no affine form (no ``affine()``, or one that answers None).
+    ``X*s1+o1`` then ``(s2, o2)`` composes to ``X*(s1*s2) + (o1*s2 +
+    o2)``, in float64."""
     transformers = _transformers(model)
     if not transformers:
         return None
     scale = np.ones(n_features, np.float64)
     offset = np.zeros(n_features, np.float64)
     for step in transformers:
-        s, o = step.affine()
+        affine = getattr(step, "affine", None)
+        pair = affine() if affine is not None else None
+        if pair is None:
+            return NOT_AFFINE
+        s, o = pair
         scale = scale * np.broadcast_to(s, (n_features,))
         offset = offset * np.broadcast_to(s, (n_features,)) + np.broadcast_to(o, (n_features,))
     return scale.astype(np.float32), offset.astype(np.float32)
+
+
+def host_transform(model: Any, X: Any) -> np.ndarray:
+    """``X`` through the model's own pipeline steps on the host, as they
+    compute (float64 for the request's float64 rows), then float32: the
+    rows a host-transformed bucket's kernel reads (``_host_transform``)."""
+    for step in _transformers(model):
+        X = step.transform(X)
+    return np.asarray(X, np.float32)
 
 
 def fleet_forward_gather(
@@ -218,6 +245,8 @@ class RevisionFleet:
         self._specs: Dict[str, ModelSpec] = {}
         self._resolutions: Dict[str, ModelResolution] = {}
         self._buckets: Dict[ModelSpec, Tuple[List[str], Stacked, Ingest]] = {}
+        #: spec -> whether its bucket is host-transformed (a member is not affine)
+        self._host: Dict[ModelSpec, bool] = {}
         #: (spec, precision) -> the bucket's params cast to that precision
         self._cast_buckets: Dict[Tuple[ModelSpec, str], Stacked] = {}
         #: (spec, precision) -> (gate report, membership epoch it was taken at)
@@ -284,7 +313,8 @@ class RevisionFleet:
             )
             plans = [member_plan(self._models[n], spec.n_features) for n in names]
             ingest = None
-            if any(p is not None for p in plans):
+            host = self._host[spec] = any(p is NOT_AFFINE for p in plans)
+            if not host and any(p is not None for p in plans):
                 identity = (np.ones(spec.n_features, np.float32), np.zeros(spec.n_features, np.float32))
                 plans = [identity if p is None else p for p in plans]
                 ingest = (
@@ -334,8 +364,17 @@ class RevisionFleet:
     def ingest_plan(self, spec: ModelSpec) -> Ingest:
         """The bucket's compiled preprocessing, row for row with
         :meth:`spec_bucket`: ``(scale[N, F], offset[N, F])`` float32 on the
-        device, or None when no member has a transformer."""
+        device, or None when no member has a transformer or the bucket is
+        host-transformed."""
         return self._bucket(spec)[2]
+
+    def host_transformed(self, spec: ModelSpec) -> bool:
+        """Whether ``spec``'s bucket is host-transformed: some member's
+        pipeline is not affine, so every member's rows go through
+        :func:`host_transform` and the kernel runs without the prologue."""
+        with self._lock:
+            self._bucket(spec)
+            return self._host[spec]
 
     def predict(self, name: str, X: np.ndarray) -> np.ndarray:
         """One model's reconstruction of raw rows ``X[B, F]``: the compiled
@@ -346,11 +385,13 @@ class RevisionFleet:
         if estimator is None:
             raise TypeError(f"{name} holds no servable autoencoder")
         spec = estimator.spec_
-        X = np.asarray(X, np.float32)
+        X = np.asarray(X)
         if X.ndim != 2 or X.shape[1] != spec.n_features:
             raise ValueError(f"expected rows of {spec.n_features} features, got shape {X.shape}")
         names, stacked, ingest = self._bucket(spec)
-        x = torch.from_numpy(X).to(self.device)[None]
+        # a host-transformed bucket reads the member's transformed rows; any other, the raw rows
+        rows = host_transform(self.model(name), X) if self.host_transformed(spec) else np.asarray(X, np.float32)
+        x = torch.from_numpy(rows).to(self.device)[None]
         if isinstance(spec, LSTMSpec):
             if spec.lookback_window >= len(X):
                 raise ValueError(f"For {type(estimator).__name__} lookback_window must be < size of X")
@@ -359,9 +400,10 @@ class RevisionFleet:
         return out[0].cpu().numpy()
 
     def _windowed(self, spec: LSTMSpec, rows: Sequence[int], x: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
-        """The windowed forward of bucket members ``rows`` on their raw
-        series ``x[M, b, F]`` (on the device): each series scaled by its
-        member's ingest plan, then the first ``counts[m]`` windows of
+        """The windowed forward of bucket members ``rows`` on their series
+        ``x[M, b, F]`` (on the device; raw, or host-transformed in such a
+        bucket): each series scaled by its member's ingest plan if the
+        bucket has one, then the first ``counts[m]`` windows of
         member ``m`` forwarded, ``[M, max(counts), F_out]``."""
         _, stacked, ingest = self._bucket(spec)
         index = torch.tensor(rows, device=self.device)
@@ -379,10 +421,11 @@ class RevisionFleet:
         """Score many models, one K2 launch per feedforward spec bucket and
         one windowed forward per LSTM one: ``inputs[name]`` are raw rows;
         returns ``({name: (reconstruction, per-row mse)}, {name: error})``.
+        A host-transformed bucket forwards each member's transformed rows.
         The mse is against the raw rows (their last rows, for an LSTM's
         shorter output), over the first ``min(F_out, F)`` columns (the JAX
-        store's ``mse_vs_raw`` rule). One broken model never takes the
-        batch down."""
+        store's ``mse_vs_raw`` rule). One broken model, or one failed host
+        transform, never takes the batch down."""
         errors: Dict[str, Exception] = {}
         by_spec: Dict[ModelSpec, List[str]] = {}
         for name in inputs:
@@ -406,29 +449,47 @@ class RevisionFleet:
                 if raw[n].ndim != 2 or raw[n].shape[1] != spec.n_features:
                     errors[n] = ValueError(f"expected rows of {spec.n_features} features, got shape {raw[n].shape}")
             names = [n for n in names if n not in errors]
+            rows = raw
+            if names and self.host_transformed(spec):
+                rows = {}
+                for n in names:
+                    try:
+                        rows[n] = host_transform(self._models[n], inputs[n])
+                    except Exception as exc:  # noqa: BLE001 - per-machine isolation
+                        logger.warning("fleet_scores: transform failed for %s: %r", n, exc)
+                        errors[n] = exc
+                names = [n for n in names if n in rows]
             if isinstance(spec, LSTMSpec):
-                self._score_lstm_bucket(spec, names, raw, out, errors)
+                self._score_lstm_bucket(spec, names, rows, raw, out, errors)
                 continue
             if not names:
                 continue
             bucket_names, stacked, ingest = self._bucket(spec)
             b_max = max(raw[n].shape[0] for n in names)
-            X = np.zeros((len(names), b_max, spec.n_features), np.float32)
-            for i, n in enumerate(names):
-                X[i, : raw[n].shape[0]] = raw[n]
-            x = torch.from_numpy(X).to(self.device)
+
+            def stacked_rows(arrays):
+                X = np.zeros((len(names), b_max, spec.n_features), np.float32)
+                for i, n in enumerate(names):
+                    X[i, : arrays[n].shape[0]] = arrays[n]
+                return torch.from_numpy(X).to(self.device)
+
+            x = stacked_rows(rows)
+            y = x if rows is raw else stacked_rows(raw)
             indices = None if names == bucket_names else [bucket_names.index(n) for n in names]
-            recon, mse = fleet_anomaly_scores(spec, stacked, x, x, indices, ingest)
+            recon, mse = fleet_anomaly_scores(spec, stacked, x, y, indices, ingest)
             recon, mse = recon.cpu().numpy(), mse.cpu().numpy()
             for i, n in enumerate(names):
                 rows = raw[n].shape[0]
                 out[n] = (recon[i, :rows], mse[i, :rows])
         return out, errors
 
-    def _score_lstm_bucket(self, spec: LSTMSpec, names: List[str], raw: Dict[str, np.ndarray], out, errors) -> None:
-        """One windowed forward for the LSTM members ``names`` (raw rows in
-        ``raw``), each forwarding its own count of windows (its lookahead
-        is its own); a series without a whole window is its error."""
+    def _score_lstm_bucket(self, spec: LSTMSpec, names: List[str], rows: Dict[str, np.ndarray],
+                           raw: Dict[str, np.ndarray], out, errors) -> None:
+        """One windowed forward for the LSTM members ``names`` (model input
+        rows in ``rows``, raw rows in ``raw``, the same dict unless the
+        bucket is host-transformed), each forwarding its own count of
+        windows (its lookahead is its own); a series without a whole window
+        is its error."""
         counts = {}
         for n in names:
             estimator = find_estimator(self._models[n])
@@ -448,7 +509,7 @@ class RevisionFleet:
         b_max = max(spec.lookback_window, *(len(raw[n]) for n in kept))
         X = np.zeros((len(kept), b_max, spec.n_features), np.float32)
         for i, n in enumerate(kept):
-            X[i, : len(raw[n])] = raw[n]
+            X[i, : len(rows[n])] = rows[n]
         x = torch.from_numpy(X).to(self.device)
         predictions = self._windowed(spec, [bucket_names.index(n) for n in kept], x,
                                      [counts[n] for n in kept]).cpu().numpy()

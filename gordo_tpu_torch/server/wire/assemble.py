@@ -5,7 +5,8 @@ without pandas.
 
 The numbers follow the JAX server's dtype flow, quirks included: the
 detector's MinMax scaler scales a float32 reconstruction in place, with
-float32 rounding, before the float64 subtraction; the row mean of
+float32 rounding and no clip, before the float64 subtraction (another
+error scaler runs its own ``transform``, which keeps sklearn's flow); the row mean of
 squares skips NaN, as pandas' ``mean`` does. Columns come out in the
 same order under the same ``(group, sub)`` labels.
 
@@ -19,6 +20,7 @@ from typing import Any, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from ...models.anomaly.diff import smooth as _smooth
+from ...models.preprocessing import MinMaxScaler
 
 
 class WireColumn(NamedTuple):
@@ -76,8 +78,12 @@ class WireTable:
 
 
 def _scaler_transform(scaler: Any, values: np.ndarray) -> np.ndarray:
-    """``MinMaxScaler.transform`` with sklearn's dtype flow: a copy in the
-    input's float dtype, then ``*= scale_`` and ``+= min_`` in place."""
+    """The error scaler's transform as the JAX server runs it: a
+    ``MinMaxScaler`` with sklearn's dtype flow (a copy in the input's
+    float dtype, then ``*= scale_`` and ``+= min_`` in place, never
+    clipped), any other scaler through its own ``transform``."""
+    if type(scaler) is not MinMaxScaler:
+        return np.asarray(scaler.transform(values))
     dtype = values.dtype if values.dtype in (np.float64, np.float32, np.float16) else np.float64
     out = np.array(values, dtype=dtype, copy=True)
     out *= scaler.scale_

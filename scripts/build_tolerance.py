@@ -3,7 +3,7 @@
 How far ``chip_smoke.py``'s card-against-CPU build check sits from a
 wrong build.
 
-    python3 scripts/build_tolerance.py [lstm | sequential]
+    python3 scripts/build_tolerance.py [lstm | sequential | definitions]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU. Builds
 ``chip_smoke.CPU_CHECK`` (two 20-tag and two 40-tag machines: the smoke's
@@ -16,7 +16,12 @@ the CPU's with ``chip_smoke.compare_builds`` at the smoke's limits
 ``chip_smoke.py``'s ``[sequential]`` and those of
 ``tests/test_torch_builder_cuda.py``, held at ``SEQUENTIAL_BUILD_LIMITS``,
 the feedforward machines and the LSTM machines apart (an LSTM never
-shuffles, so it has no ``swap`` build there):
+shuffles, so it has no ``swap`` build there). With ``definitions`` the
+machines are ``[definitions]``'s (its project config and CSVs): one of
+each affine fleet kind, then every non-affine machine, at
+``DEFINITIONS_BUILD_LIMITS``, and
+the callbacks machine, which ``build-fleet`` sends to ``ModelBuilder``,
+at ``SEQUENTIAL_BUILD_LIMITS``:
 
 - ``sound``: full f32, as the smoke builds;
 - ``tf32``: TF32 allowed for matmuls, the precision setting the build
@@ -80,6 +85,19 @@ def swapped_windows():
         yield
     finally:
         FleetBuilder._make_member = staticmethod(make)
+
+
+def definitions_machines(directory):
+    """``[definitions]``'s machines (its project written into ``directory``):
+    ``(fleet machines, the callbacks machine)``."""
+    import chip_smoke
+    from gordo_tpu_torch.cli.cli import load_fleet_machines
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    config_path, _ = chip_smoke.definitions_project(directory)
+    machines = load_fleet_machines(normalize(config_path, "smoke"))
+    fleet = [m for m in machines if m.name in chip_smoke.DEFINITIONS_CPU_CHECK[:-1] or m.name.startswith("nonaffine")]
+    return fleet, [m for m in machines if m.name == chip_smoke.DEFINITIONS_CPU_CHECK[-1]]
 
 
 def sequential_summaries(machines, device, random=None):
@@ -163,6 +181,20 @@ def main():
                            sequential_summaries, controls)
         faults += tolerance("sequential lstm", [m for m, lstm in machines if lstm], limits,
                             sequential_summaries, ("sound", "tf32"))
+    elif sys.argv[1:] == ["definitions"]:
+        import tempfile
+
+        os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as directory:
+            fleet, callbacks = definitions_machines(directory)
+            affine = [m for m in fleet if not m.name.startswith("nonaffine")]
+            limits = chip_smoke.DEFINITIONS_BUILD_LIMITS
+            faults = tolerance("definitions raw, standard, maxabs", affine, limits, chip_smoke.build_summaries,
+                               controls)
+            faults += tolerance("definitions nonaffine", [m for m in fleet if m not in affine], limits,
+                                chip_smoke.build_summaries, controls)
+            faults += tolerance("definitions callbacks", callbacks, chip_smoke.SEQUENTIAL_BUILD_LIMITS,
+                                chip_smoke.build_summaries, controls)
     elif sys.argv[1:] == ["lstm"]:
         faults = tolerance("lstm", lstm_machines(), chip_smoke.LSTM_BUILD_LIMITS, chip_smoke.build_summaries,
                            controls, swap_windows=True)

@@ -367,11 +367,12 @@ def test_definitions_are_read_as_strings():
         ({"sklearn.decomposition.PCA": {"n_components": 2}}, "sklearn.decomposition.PCA"),
         ({"gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector": {"n_splits": 5}}, "n_splits"),
         ({"gordo.machine.model.anomaly.diff.DiffBasedKFCVAnomalyDetector": {"cv": "KFold"}}, "cv"),
-        ({"gordo_tpu.models.JaxRawModelRegressor": {"kind": {"spec": []}}}, "JaxRawModelRegressor"),
+        ({"tensorflow.keras.models.Sequential": {"layers": [{"tensorflow.keras.layers.LSTM": {"units": 4}}]}},
+         "tensorflow.keras.layers.LSTM"),
         ({"gordo_tpu.models.JaxAutoEncoder": {"kind": "lstm_model"}}, "lstm_model"),
         ({"gordo_tpu.models.JaxAutoEncoder": {"kind": "feedforward_model", "callbacks": [
-            {"tensorflow.keras.callbacks.ReduceLROnPlateau": {}}]}}, "ReduceLROnPlateau"),
-        ({"sklearn.preprocessing.MinMaxScaler": {"clip": True}}, "clip"),
+            {"tensorflow.keras.callbacks.ModelCheckpoint": {}}]}}, "ModelCheckpoint"),
+        ({"sklearn.preprocessing.FunctionTransformer": {"func": "numpy.log1p"}}, "numpy.log1p"),
     ],
 )
 def test_unsupported_definitions_raise(definition, message):
