@@ -157,15 +157,34 @@ the bf16 and int8 forwards on the same tensors; so is a full batch that
 the engine did not reach here (32 x 2048 x 20 gathered from 64 with the
 ingest prologue, narrow; 8 x 2048 x 40, wide), on lines of its own.
 
-``[definitions]`` (after ``[engine]``) builds 28 machines of the model
+``[telemetry]`` (right after ``[train]``) reads the files ``[train]``'s
+build wrote beside its machines with telemetry on, the default, and
+holds them to the build: ``build_status.json`` complete with the build's
+counts and every phase's seconds; ``build_trace.jsonl`` with a
+``build_phase`` span of every phase, one ``fleet_fit`` span a stacked
+fit and one ``fleet_predict`` span a K1 launch of the build (read on
+the counter); ``fleet_health.json``'s 72 machines, each with its
+``metadata.json``'s final loss; ``fleet_plan.json``'s naive buckets equal
+to the final fits the trainer ran; the ``device_utilization`` peak
+against ``torch.cuda.max_memory_allocated()``; ``GET .../build-status``
+over the socket equal to the file. It then builds the same shard twice
+more, with ``GORDO_TPU_TELEMETRY=0`` (no trace, status or ledger; the
+same plan written) and with telemetry on (their launches are the kernel
+JSON's ``telemetry`` path), and prints the three wall times, the trace's
+bytes and the status writes a second. The kill drill of ``[sequential]`` also checks the killed
+build's ``build_status.json`` (``running``, 6 completed) and the
+resumed one's (``complete``).
+
+``[definitions]`` (after ``[engine]``) builds 26 machines of the model
 definitions beyond the plain MinMax autoencoder, from CSVs through
 ``build-fleet`` on the card: 8 of ``examples/model-configuration.yaml``'s ``raw_spec``
 block (16-4-20, tanh, tanh, linear; as a detector's base estimator, its
 readings at unit scale), 8 ``StandardScaler`` pipelines with a
 ``RobustScaler`` error scaler, 4 ``MaxAbsScaler`` ones, 4 non-affine ones
 (``InfImputer`` -> ``FunctionTransformer(multiply_by)`` -> clipping
-``MinMaxScaler``, ``inf`` cells in an input-only tag) and 4 of
-``examples/config-influx-callbacks.yaml``'s model block (10 epochs),
+``MinMaxScaler``, ``inf`` cells in an input-only tag) and 2 of
+``examples/config-influx-callbacks.yaml``'s model block (10 epochs; 4 until
+the smoke's phases were timed, each ~13 s alone),
 which go to ``ModelBuilder``'s per-epoch host loop. One machine of each
 kind is built again on the CPU and held to the card's within
 ``DEFINITIONS_BUILD_LIMITS`` (the callbacks machine within
@@ -193,12 +212,14 @@ than the card has SMs, the narrow kernel shares each row among lanes;
 ``[split]`` times that against the build with ``FLEET_DENSE_NO_SPLIT``,
 which ``[kernel]`` also holds against the plain version.
 
-It prints one line per phase, then a JSON line with the kernel numbers,
+``[seconds]`` lines give each phase's wall seconds as it ends, and one
+line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that last line; so does a machine
 without CUDA, and a directory without the package.
 """
 
+import collections
 import contextlib
 import json
 import os
@@ -287,6 +308,21 @@ def check(condition, message):
 
 def phase(name, detail):
     print(f"[{name}] {detail}", flush=True)
+
+
+#: wall seconds of each timed phase, in the order they ran
+PHASE_WALL = {}
+
+
+@contextlib.contextmanager
+def clocked(name):
+    """Time the enclosed phase; print its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_WALL[name] = PHASE_WALL.get(name, 0.0) + time.perf_counter() - t0
+        print(f"[seconds] {name}: {PHASE_WALL[name]:.1f} s", flush=True)
 
 
 # -- phase 1: device ----------------------------------------------------------
@@ -879,7 +915,166 @@ def train_phase(work_dir, directory):
           f"(limit {BUILD_SCORE_TOL}), epochs run equal")
     names = sorted(n for n in fetched if n.startswith("machine-"))
     wide_names = sorted(n for n in fetched if n.startswith("compressor-"))
-    return names, wide_names, launches, cv_cases, 1e3 * wall / len(fetched)
+    return names, wide_names, launches, cv_cases, 1e3 * wall / len(fetched), (shard, builder, wall)
+
+
+# -- [telemetry]: what [train]'s build wrote beside its machines ------------------------
+
+#: the files a default build writes beside its machines
+TELEMETRY_FILES = ("build_status.json", "build_trace.jsonl", "fleet_health.json", "fleet_plan.json")
+
+
+def telemetry_phase(work_dir, directory, train_build, train_launches, card):
+    """``[telemetry]``: the four files [train]'s build (telemetry on, the
+    default) wrote beside its machines, held to the build itself: the
+    status' state, counts and phases; the trace's phases, its ``fleet_fit``
+    spans (one a stacked fit) and ``fleet_predict`` spans (one a K1 launch
+    of the build, read on the counter); the ledger's machines and final
+    losses (each machine's ``metadata.json``); the plan's buckets (ids and
+    members of the final fits the trainer ran); the ``device_utilization`` peak against
+    the allocator's; ``build-status`` over HTTP equal to the file. Then
+    the same shard built twice more, with ``GORDO_TPU_TELEMETRY=0`` (no
+    trace, status or ledger; the same plan written) and with it on; the
+    three wall times printed. Returns the K1 and K2 launches of those two
+    builds."""
+    import torch
+
+    from gordo_tpu_torch import serializer, telemetry
+    from gordo_tpu_torch.cli.cli import build_fleet
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.planner import FleetPlan
+    from gordo_tpu_torch.server import build_app
+
+    shard, builder, wall = train_build
+    present = [name for name in TELEMETRY_FILES if os.path.exists(os.path.join(directory, name))]
+    check(present == list(TELEMETRY_FILES), f"[train]'s build wrote {present}, not {list(TELEMETRY_FILES)}")
+    machines = serializer.list_model_dirs(directory)
+    status = telemetry.load_status(directory)
+    counts = status["machines"]
+    check(status["state"] == "complete" and status["phase"] is None, f"build_status.json says {status['state']}")
+    check(counts["total"] == len(builder.machines) == len(machines) and counts["completed"] == len(machines)
+          and counts["failed"] == len(builder.build_errors) == 0, f"build_status.json counts {counts}")
+    missing = [p for p in BUILD_PHASES if p not in status["phases"] or p not in builder.phase_seconds]
+    check(not missing, f"phases {missing} missing from build_status.json or phase_seconds")
+    drift = max(abs(status["phases"][p]["seconds"] - builder.phase_seconds[p]) for p in status["phases"])
+    check(drift < 1e-5, f"build_status.json's phase seconds {drift} s off the builder's")
+    writes = builder.progress.writes
+    phase("telemetry", f"build_status.json: state complete, machines {counts['completed']}/{counts['total']} "
+          f"completed, {counts['failed']} failed, {len(status['phases'])} phases ({', '.join(status['phases'])}), "
+          f"each phase's seconds equal to phase_seconds; {writes} status writes in the {wall:.2f} s build "
+          f"({writes / wall:.2f} a second)")
+
+    trace_path = os.path.join(directory, telemetry.BUILD_TRACE_FILE)
+    with open(trace_path) as f:
+        spans = [json.loads(line) for line in f]
+    trace_bytes = os.path.getsize(trace_path)
+    names = collections.Counter(s["name"] for s in spans)
+    phases = collections.Counter(s["attributes"]["phase"] for s in spans if s["name"] == "build_phase")
+    programs = [s for s in spans if s["name"] == "device_program"]
+    predicts = [s for s in programs if s["attributes"]["program"] == "fleet_predict"]
+    fits = [s for s in programs if s["attributes"]["program"] == "fleet_fit"]
+    check(all(phases[p] >= 1 for p in BUILD_PHASES), f"build_phase spans {dict(phases)} miss a phase")
+    check(len(predicts) == train_launches["K1"], f"{len(predicts)} fleet_predict spans, but [train]'s build "
+          f"launched K1 {train_launches['K1']} times")
+    check(len(fits) == len(builder.trainer.fits), f"{len(fits)} fleet_fit spans for {len(builder.trainer.fits)} fits")
+    check(names["fleet_build"] == 1 and names["machine_built"] == names["member_trained"] == len(machines)
+          and names["fleet_plan"] == names["fleet_plan_accuracy"] == 1, f"span names {dict(names)}")
+    check(len({s["context"]["trace_id"] for s in spans}) == 1, "the trace holds more than one trace id")
+    phase("telemetry", f"build_trace.jsonl: {len(spans)} spans and events in {trace_bytes} bytes "
+          f"({trace_bytes / len(spans):.0f} a line): {dict(names)}; build_phase spans {dict(phases)}")
+    phase("telemetry", f"fleet_predict spans {len(predicts)} = [train]'s K1 launches {train_launches['K1']} (K1 "
+          f"launches inside fleet_predict spans), "
+          + ", ".join(f"{s['attributes']['shape']} {s['duration_ms']} ms (compile={s['attributes']['compile']})"
+                      for s in predicts)
+          + f"; fleet_fit spans {len(fits)} = stacked fits: "
+          + ", ".join(f"{s['attributes']['members']} members {s['duration_ms']} ms" for s in fits) + f"; {card}")
+
+    health = telemetry.load_health(directory)
+    losses = {}
+    for name in machines:
+        training = serializer.load_metadata(os.path.join(directory, name))["metadata"]["build_metadata"]["model"][
+            "training"]
+        losses[name] = training["final_loss"]
+    wrong = [n for n in machines if health["machines"].get(n, {}).get("build", {}).get("final_loss") != losses[n]]
+    check(sorted(health["machines"]) == machines and not wrong, f"fleet_health.json: {len(health['machines'])} "
+          f"machines, final losses differing from metadata.json for {wrong[:5]}")
+    check(health["summary"]["healthy"] == len(machines), f"ledger summary {health['summary']}")
+    plan = FleetPlan.load(os.path.join(directory, "fleet_plan.json"))
+    final_fits = [f for f in builder.trainer.fits if not any("::" in n for n in f["names"])]  # no CV fold
+    planned = {b["id"]: b["members"] for b in plan.buckets}
+    ran = {f["bucket"]: f["names"] for f in final_fits}
+    check(planned == ran and plan.member_names == machines, f"fleet_plan.json buckets {sorted(planned)}, "
+          f"the final fits ran {sorted(ran)} (or their members differ)")
+    planned = sorted((len(b["members"]), b["n_padded"]) for b in plan.buckets)
+    accuracy = health["plan_accuracy"]
+    check(accuracy["plan_hash"] == plan.plan_hash, "the ledger's plan accuracy names another plan")
+    phase("telemetry", f"fleet_health.json: {len(health['machines'])} machines, each final loss equal to its "
+          f"metadata.json's, summary {health['summary']['healthy']} healthy; fleet_plan.json {plan.plan_hash}: "
+          f"{len(plan.buckets)} naive buckets (members, rows) {planned}, each with the id and members of a final "
+          f"fit the trainer ran; the "
+          f"analytic model's prediction {plan.totals['predicted_wall_s']} s against final-fit programs measured at "
+          f"{accuracy['actual_fit_s']} s (its constants are uncalibrated; not a time of the card)")
+
+    samples = [s["attributes"] for s in spans if s["name"] == "device_utilization"]
+    check(samples and all(a["memory_available"] for a in samples), "no device_utilization sample with memory")
+    peak = max(a["memory_peak_bytes_in_use"] for a in samples)
+    allocator_peak = torch.cuda.max_memory_allocated()
+    check(0 < peak <= allocator_peak and accuracy["measured_hbm_peak_bytes"] == peak,
+          f"device_utilization peak {peak} B against torch.cuda.max_memory_allocated() {allocator_peak} B")
+    phase("telemetry", f"device_utilization: {len(samples)} samples (phases {[a['phase'] for a in samples]}), "
+          f"peak allocated {peak} B <= torch.cuda.max_memory_allocated() {allocator_peak} B (the process's peak so "
+          f"far), in use at the last {samples[-1]['memory_bytes_in_use']} B of {samples[-1]['memory_bytes_limit']} B; "
+          f"the plan predicted {plan.totals['hbm_peak_bytes']} B for its largest bucket; {card}")
+
+    app = build_app(directory, device="cuda")
+    base, stop = serving(app)
+    try:
+        code, body = http_call(base + "/build-status")
+    finally:
+        stop()
+    served = json.loads(body)
+    check(code == 200 and served == {**status, "revision": REVISION}, "GET build-status differs from the file")
+    phase("telemetry", f"GET /gordo/v0/smoke/build-status: 200, the file's document (and the revision)")
+
+    # the same shard again, telemetry off, then on: the off build between two on builds
+    builds = {}
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    for label, value in (("off", "0"), ("on", "1")):
+        out = os.path.join(work_dir, f"telemetry-{label}", REVISION)
+        previous = os.environ.get(telemetry.TELEMETRY_ENV)
+        os.environ[telemetry.TELEMETRY_ENV] = value
+        try:
+            t0 = time.perf_counter()
+            code, again = build_fleet(shard, out, device="cuda")
+            torch.cuda.synchronize()
+            builds[label] = (time.perf_counter() - t0, again)
+        finally:
+            if previous is None:
+                os.environ.pop(telemetry.TELEMETRY_ENV)
+            else:
+                os.environ[telemetry.TELEMETRY_ENV] = previous
+        check(code == 0 and not again.build_errors, f"the telemetry-{label} build exited {code}")
+        written = [n for n in TELEMETRY_FILES if os.path.exists(os.path.join(out, n))]
+        want = ["fleet_plan.json"] if label == "off" else list(TELEMETRY_FILES)
+        check(written == want, f"with GORDO_TPU_TELEMETRY={value} the build wrote {written}")
+        check(FleetPlan.load(os.path.join(out, "fleet_plan.json")).plan_hash == plan.plan_hash,
+              f"the telemetry-{label} build planned another fleet_plan.json")
+    launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    check(launches == {k: 2 * n for k, n in train_launches.items()},
+          f"the two builds launched {launches}, [train]'s one {train_launches}")
+
+    def describe(seconds, built):
+        phase_s = built.phase_seconds
+        return (f"{seconds:.2f} s (without data_fetch {seconds - phase_s['data_fetch']:.2f} s; cv_train "
+                f"{phase_s['cv_train']:.3f}, final_fit {phase_s['final_fit']:.3f}, dump {phase_s['dump']:.3f})")
+
+    (off_wall, off_builder), (on_wall, on_builder) = builds["off"], builds["on"]
+    phase("telemetry", f"the same {len(machines)} machines built again, telemetry on ([train]) "
+          f"{describe(wall, builder)}, off {describe(off_wall, off_builder)}, on {describe(on_wall, on_builder)}: "
+          f"on - off {on_wall - off_wall:+.2f} s, {(on_wall - off_wall) / off_wall:+.1%} (one pair; [train]'s build "
+          f"ran first, with cold file caches); with GORDO_TPU_TELEMETRY=0 only fleet_plan.json beside the machines, "
+          f"the same plan hash; K1 launches {launches['K1']}, K2 {launches['K2']} in the two builds; {card}")
+    return launches
 
 
 def kfcv_project(directory):
@@ -2189,7 +2384,7 @@ def reduced_ms(case, prec):
 
 #: the [definitions] collection, one group a kind of definition: (prefix, machines). Every machine
 #: has 20 tags and TRAIN_ROWS rows
-DEFINITION_GROUPS = (("raw", 8), ("standard", 8), ("maxabs", 4), ("nonaffine", 4), ("callbacks", 4))
+DEFINITION_GROUPS = (("raw", 8), ("standard", 8), ("maxabs", 4), ("nonaffine", 4), ("callbacks", 2))
 #: each group's sensor_data seeds start at DEFINITIONS_SEED + 100 x its index
 DEFINITIONS_SEED = 900
 #: machines built again on the CPU, one of each kind
@@ -2718,6 +2913,7 @@ def kill_and_resume(work_dir, train_collection, card):
     from gordo_tpu_torch import serializer
     from gordo_tpu_torch.parallel.journal import BuildJournal, artifact_complete
     from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.telemetry import load_status
     from gordo_tpu_torch.workflow.workflow_generator import normalize
 
     drill_dir = os.path.join(work_dir, "drill")
@@ -2728,8 +2924,13 @@ def kill_and_resume(work_dir, train_collection, card):
     with open(shard, "w") as f:
         f.write(normalize(config_path, "smoke"))
     out = os.path.join(drill_dir, REVISION)
-    code, _, err, killed_s = run_command(["build-fleet", shard, out], {"GORDO_TPU_FAULTS": DRILL_KILL})
+    # heartbeat 0: the status is written at every landing, before the kill site
+    code, _, err, killed_s = run_command(["build-fleet", shard, out], {"GORDO_TPU_FAULTS": DRILL_KILL,
+                                                                       "GORDO_TPU_TELEMETRY_HEARTBEAT": "0"})
     check(code == 137, f"the killed build-fleet exited {code}, not 137: {err[-2000:]}")
+    status = load_status(out)
+    check(status["state"] == "running" and status["machines"]["completed"] == DRILL_LEFT,
+          f"the killed build's build_status.json: {status['state']}, {status['machines']}")
     left = serializer.list_model_dirs(out)
     staging = [e for e in os.listdir(out) if serializer.is_staging_dir(e)]
     check(len(left) == DRILL_LEFT and all(artifact_complete(os.path.join(out, n)) for n in left),
@@ -2739,6 +2940,10 @@ def kill_and_resume(work_dir, train_collection, card):
     checksums = {n: serializer.load_info(os.path.join(out, n))["checksum"] for n in left}
     code, _, err, resume_s = run_command(["build-fleet", shard, out, "--resume"])
     check(code == 0, f"build-fleet --resume exited {code}: {err[-2000:]}")
+    resumed_status = load_status(out)
+    check(resumed_status["state"] == "complete" and resumed_status["machines"]["resumed"] == DRILL_LEFT
+          and resumed_status["machines"]["completed"] == DRILL_MACHINES - DRILL_LEFT,
+          f"the resumed build's build_status.json: {resumed_status['state']}, {resumed_status['machines']}")
     summary = [line for line in err.splitlines() if "Fleet build complete" in line]
     expected = f"{DRILL_MACHINES - DRILL_LEFT} built, {DRILL_LEFT} resumed, 0 failed"
     check(summary and expected in summary[-1], f"the resume reported {summary[-1:]} , not {expected}")
@@ -2765,17 +2970,27 @@ def kill_and_resume(work_dir, train_collection, card):
         worst, faults = compare_builds(summaries[out], ref)
         reference = "an uninterrupted build of the same shard"
     check(not faults, "resumed machines disagree with their reference: " + "; ".join(faults[:5]))
+    # the two processes' CV forwards: each the first K1 call of a fresh process, which loads K1's library
+    # (built by this script already, so no nvcc) inside its fleet_predict span
+    with open(os.path.join(out, "build_trace.jsonl")) as f:
+        predicts = [span for span in map(json.loads, f) if span["name"] == "device_program"
+                    and span["attributes"]["program"] == "fleet_predict"]
+    check(len(predicts) == 2 and all(s["attributes"]["compile"] for s in predicts),
+          f"the drill's trace holds {len(predicts)} fleet_predict spans, not one a process")
     app = build_app(out, device="cuda")
     status, body = wsgi_call(app, "GET", "/gordo/v0/smoke/models")
     listed = json.loads(body)["models"]
     check(status == 200 and listed == names, f"the app lists {listed}")
     phase("sequential", f"kill and resume: build-fleet of {DRILL_MACHINES} [train] machines with GORDO_TPU_FAULTS="
           f"\"{DRILL_KILL}\" exited 137 after {killed_s:.2f} s with {len(left)} complete artifacts, no half-written "
-          f"model directory ({len(staging)} staging leftovers, hidden), the journal naming the same {len(left)}; "
-          f"--resume exited 0 in {resume_s:.2f} s: {expected}, the resumed info.json checksums unchanged, the "
+          f"model directory ({len(staging)} staging leftovers, hidden), the journal naming the same {len(left)}, "
+          f"build_status.json running with {len(left)} completed; "
+          f"--resume exited 0 in {resume_s:.2f} s: {expected}, build_status.json complete, the resumed info.json "
+          f"checksums unchanged, the "
           f"{len(rebuilt)} rebuilt within BUILD_LIMITS of {reference} (params max abs {worst[0]:.3e}, thresholds "
           f"max rel {worst[1]:.3e}, CV scores {worst[2]:.3e}); the app lists all {len(listed)} and no journal or "
-          f"staging entry; {card}")
+          f"staging entry; the fleet_predict span of each process (its first K1 call, the library's load inside): "
+          f"{', '.join(str(s['duration_ms']) for s in predicts)} ms; {card}")
 
 
 def sequential_phase(work_dir, train_collection, fleet_ms, card):
@@ -3021,12 +3236,14 @@ def main():
     from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 
     t0 = time.perf_counter()
-    libraries = _build.build(variants=((), WIDE_ONLY, NO_SPLIT))
+    with clocked("build"):
+        libraries = _build.build(variants=((), WIDE_ONLY, NO_SPLIT))
     for stem, path in libraries.items():
         log = path.with_suffix(".log")
         report = ptxas_report(log.read_text()) if log.exists() else ["(prebuilt)"]
         phase("build", f"{stem}: {path.name} in {time.perf_counter() - t0:.1f} s; " + " | ".join(report))
 
+    kernels_t0 = time.perf_counter()
     cases = kernel_cases()
     errors = {}
     for name, case in cases.items():
@@ -3052,6 +3269,8 @@ def main():
     unsplit = max(compare(cases[name], NO_SPLIT) for name in activations)
     phase("kernel", f"{len(activations)} activations at hidden 9, no-split build: max abs {unsplit[0]:.3e}, "
           f"max rel {unsplit[1]:.3e}")
+    PHASE_WALL["kernel"] = time.perf_counter() - kernels_t0
+    print(f"[seconds] kernel: {PHASE_WALL['kernel']:.1f} s", flush=True)
 
     from gordo_tpu_torch.server import build_app
     from gordo_tpu_torch.server.app import make_wsgi_server
@@ -3063,7 +3282,8 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work_dir:
         collection = os.path.join(work_dir, REVISION)
-        names, wide_names, train_launches, cv_cases, train_ms = train_phase(work_dir, collection)
+        with clocked("train"):
+            names, wide_names, train_launches, cv_cases, train_ms, train_build = train_phase(work_dir, collection)
         check(sorted(cv_cases) == sorted(CV_CASES), f"CV forwards of widths {sorted(cv_cases)}")
         for width, name in CV_CASES.items():
             cv_case = cv_cases[width][0]
@@ -3073,14 +3293,19 @@ def main():
             errors[name] = compare(cv_case)
             phase("kernel", f"{name}, the build's own fold params and test rows: max abs {errors[name][0]:.3e}, "
                   f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
-        config_launches, kfcv_case, kfcv_launches, errors[KFCV_CASE] = config_phase(work_dir)
+        with clocked("telemetry"):
+            telemetry_launches = telemetry_phase(work_dir, collection, train_build, train_launches, card)
+        with clocked("config"):
+            config_launches, kfcv_case, kfcv_launches, errors[KFCV_CASE] = config_phase(work_dir)
         t0 = time.perf_counter()
-        lstm_directory, lstm_seeds, lstm_build_launches, lstm_ms = lstm_build(work_dir, card)
-        lstm_serve_launches = lstm_serve(lstm_directory, collection, lstm_seeds, card)
+        with clocked("lstm"):
+            lstm_directory, lstm_seeds, lstm_build_launches, lstm_ms = lstm_build(work_dir, card)
+            lstm_serve_launches = lstm_serve(lstm_directory, collection, lstm_seeds, card)
         phase("lstm", f"the phase took {time.perf_counter() - t0:.1f} s ([lstm times] comes later)")
         lstm_launches = {k: lstm_build_launches[k] + lstm_serve_launches[k] for k in ("K1", "K2")}
-        build_launches, sequential_cases = sequential_phase(work_dir, collection, {"train": train_ms, "lstm": lstm_ms},
-                                                            card)
+        with clocked("sequential"):
+            build_launches, sequential_cases = sequential_phase(work_dir, collection,
+                                                                {"train": train_ms, "lstm": lstm_ms}, card)
         check(sorted(sequential_cases) == sorted(SEQUENTIAL_CASES),
               f"sequential fold forwards of widths {sorted(sequential_cases)}")
         for width, name in SEQUENTIAL_CASES.items():
@@ -3099,16 +3324,23 @@ def main():
         thread.start()
         base = f"http://127.0.0.1:{server.server_port}/gordo/v0/smoke"
         try:
-            launches, wide_launches = serve_phase(base, names, wide_names, cpu_app)
-            stream_launches, _latencies, _rows_per_s = stream_phase(base, names, cpu_app)
-            route_launches = routes_phase(base, names, wide_names, cpu_app, collection, card)
+            with clocked("serve"):
+                launches, wide_launches = serve_phase(base, names, wide_names, cpu_app)
+            with clocked("stream"):
+                stream_launches, _latencies, _rows_per_s = stream_phase(base, names, cpu_app)
+            with clocked("routes"):
+                route_launches = routes_phase(base, names, wide_names, cpu_app, collection, card)
         finally:
             server.shutdown()
             server.server_close()
             thread.join(timeout=30)
         check(not thread.is_alive(), "server thread did not stop")
-        engine_launches, engine_batches = engine_phase(collection, names, wide_names, cpu_app, app, card)
-        def_build_launches, def_serve_launches, def_cases, def_k2, def_launches = definitions_phase(work_dir, card)
+        with clocked("engine"):
+            engine_launches, engine_batches = engine_phase(collection, names, wide_names, cpu_app, app, card)
+        with clocked("definitions"):
+            def_build_launches, def_serve_launches, def_cases, def_k2, def_launches = definitions_phase(work_dir,
+                                                                                                        card)
+    times_t0 = time.perf_counter()
 
     for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
         split, smem, per_sm, grid = narrow_plan(scored[name] if name.startswith("K2") else cases[name])
@@ -3203,7 +3435,11 @@ def main():
           f"{bound_ms / kernel:.1%} of it; y's bytes counted apart), CUDA-core f32 bound {cuda_core_ms!r} ms "
           f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
 
-    lstm_times(card)
+    PHASE_WALL["times"] = time.perf_counter() - times_t0
+    print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
+    with clocked("lstm times"):
+        lstm_times(card)
+    tail_t0 = time.perf_counter()
 
     for name in NARROW_CASES:
         case = cases[name]
@@ -3230,6 +3466,11 @@ def main():
         phase("split", f"{name}, indices on the card: {narrow_plan(case)[0]} lanes a row {split!r} ms, "
               f"one lane a row {unsplit!r} ms (split/one {split / unsplit:.2f}), launch floor {floor!r} ms; {card}")
 
+    PHASE_WALL["narrow vs wide, split"] = time.perf_counter() - tail_t0
+    print(f"[seconds] narrow vs wide, split: {PHASE_WALL['narrow vs wide, split']:.1f} s", flush=True)
+    phase("seconds", "every phase: " + ", ".join(f"{name} {seconds:.1f}" for name, seconds in PHASE_WALL.items())
+          + f"; {sum(PHASE_WALL.values()):.1f} s in all")
+
     def entry(name, replaces, launches_, by_path, case, numbers):
         kernel, plain, library, library_tf32 = numbers[:4]
         bound_ms, bound_by, cuda_core_ms = numbers[-3:]
@@ -3245,11 +3486,13 @@ def main():
                   "serve_wide": wide_launches["K1"], "stream": stream_launches["K1"], "routes": route_launches["K1"],
                   "lstm": lstm_launches["K1"], "build": build_launches["K1"],
                   "engine": engine_launches["narrow"] + engine_launches["wide"],
-                  "definitions": def_build_launches["K1"] + def_serve_launches["K1"]}
+                  "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
+                  "telemetry": telemetry_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
-                  "definitions": def_build_launches["K2"] + def_serve_launches["K2"]}
+                  "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
+                  "telemetry": telemetry_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],

@@ -29,6 +29,13 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   model-register cache with other builds. ``--plan-strategy``,
   ``--plan-from`` and ``--cost-table`` are refused: the port has no
   packing planner yet (``ROADMAP.md`` queue 1, item 7).
+- ``build-status OUTPUT_DIR [--as-json] [--watch N]``: the JAX package's
+  ``build-status`` (``gordo_tpu/cli/cli.py:751-800``). It renders the
+  ``build_status.json`` a fleet build heartbeats into ``OUTPUT_DIR``
+  (default ``$OUTPUT_DIR``): state, phase, machine counts with an ETA, the
+  phase table; ``--as-json`` prints the document, ``--watch N`` renders it
+  again every N seconds while the build runs. Without a document it exits
+  1 with the JAX command's message.
 - ``normalize CONFIG PROJECT``: the shard of a project config, what
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator.py::normalize``), printed or written to
@@ -185,6 +192,26 @@ def build_fleet(
         return _report(exceptions_reporter_file, exceptions_report_level), builder
 
 
+def build_status(output_dir: str, as_json: bool = False, watch: Optional[float] = None) -> int:
+    """The ``build-status`` command: print the build's status; the exit code."""
+    import json
+    import time
+
+    from ..telemetry import load_status, render_status
+
+    while True:
+        doc = load_status(output_dir)
+        if doc is None:
+            print(f"Error: No build status found in {output_dir} (no fleet build has written a heartbeat there, "
+                  "or telemetry is disabled)", file=sys.stderr)
+            return 1
+        print(json.dumps(doc, indent=1, sort_keys=True) if as_json else render_status(doc), flush=True)
+        if watch is None or doc.get("state") != "running":
+            return 0
+        time.sleep(max(0.1, watch))
+        print("")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m gordo_tpu_torch")
     parser.add_argument("--log-level", default="INFO")
@@ -220,6 +247,13 @@ def _parser() -> argparse.ArgumentParser:
     build.add_argument("--plan-from", default=None)
     build.add_argument("--cost-table", default=None)
 
+    status = commands.add_parser("build-status", help="render a fleet build's build_status.json")
+    status.add_argument("output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR"),
+                        help="the build's output directory (default $OUTPUT_DIR)")
+    status.add_argument("--as-json", action="store_true", help="print the raw document instead of the table")
+    status.add_argument("--watch", type=float, default=None,
+                        help="render again every N seconds until the build leaves 'running'")
+
     normalize = commands.add_parser("normalize", help="print the shard of a project config")
     normalize.add_argument("config", help="the project's YAML config (a CRD document or its spec.config)")
     normalize.add_argument("project_name")
@@ -242,6 +276,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(document)
         return 0
+    if args.command == "build-status":
+        if not args.output_dir:
+            parser.error("OUTPUT_DIR is required (argument or $OUTPUT_DIR)")
+        return build_status(args.output_dir, args.as_json, args.watch)
     for option, reason in _REFUSED.items():
         if getattr(args, option, None):
             parser.error(f"{reason}, which gordo_tpu_torch does not have yet")

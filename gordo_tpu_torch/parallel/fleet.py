@@ -35,6 +35,16 @@ to a power of two, validation apart.
 :meth:`FleetTrainer.predict_bucket` forwards a whole bucket through
 ``ops/fleet_dense.py::fleet_feedforward``: K1 on a CUDA device, its
 plain version because the tensors lie on the CPU otherwise.
+
+Each bucket fit (``fleet_fit``, ``fleet_windowed_fit``) and each forward
+(``fleet_predict``, ``fleet_windowed_predict``) runs inside a
+``device_program`` span of the active recorder (``telemetry/recorder.py``,
+the JAX sites ``fleet.py:739``, ``:1015``, ``:1096``, ``:1147``) with the
+JAX attributes: members, shape, spec, bytes and the cost model's
+features. The span closes after the results' copy to the host, which
+waits for the card, so it times the device work and adds no
+synchronisation (the JAX trainer blocks on its outputs for that, only
+while a recorder is active).
 """
 
 import logging
@@ -62,7 +72,9 @@ from ..models.training import (
     permutation_tensor,
 )
 from ..ops.fleet_dense import fleet_feedforward
-from ..planner.packing import member_offset, naive_buckets
+from ..planner.costmodel import spec_flops_per_sample, spec_param_count
+from ..planner.packing import member_offset, train_buckets
+from ..telemetry import program_span
 from ..utils.faults import InjectedDeviceError, fault_point
 
 logger = logging.getLogger(__name__)
@@ -173,6 +185,29 @@ class FleetResult:
     error: Optional[BaseException] = None
 
 
+def _bucket_nbytes(bucket) -> int:
+    """The members' raw staged bytes (a span attribute)."""
+    total = 0
+    for member in bucket:
+        if isinstance(member, WindowedFleetMember):
+            total += member.series.nbytes + member.targets.nbytes
+        else:
+            total += member.X.nbytes + (0 if member.y is member.X else member.y.nbytes)
+    return total
+
+
+def _calibration_attrs(spec: ModelSpec, config: FitConfig, stacked_members: int, stacked_samples: int):
+    """The cost model's features on a fit's span, as the JAX trainer
+    records them for calibration."""
+    return dict(
+        params=spec_param_count(spec),
+        flops_per_sample=spec_flops_per_sample(spec),
+        stacked_members=int(stacked_members),
+        stacked_samples=int(stacked_samples),
+        epochs=config.epochs,
+    )
+
+
 def _fill_weight_row(wtr, wval, i, n, member, config: FitConfig):
     """One member's train/val masks: explicit weights, or the Keras-style
     tail validation split over its ``n`` samples."""
@@ -194,8 +229,10 @@ class FleetTrainer:
     every member's init and permutations from ``random`` (default
     :class:`~gordo_tpu_torch.models.training.TorchRandom`).
 
-    ``fits`` records each bucket it trained: members, padded rows (window
-    slots for a windowed bucket), optimizer steps run, host seconds of the fit loop (ending in the results'
+    ``fits`` records each bucket it trained: its id
+    (``planner.train_buckets``, the id ``fleet_plan.json`` gives it), the
+    members' names and count, padded rows (window slots for a windowed
+    bucket), optimizer steps run, host seconds of the fit loop (ending in the results'
     copy to the host) and, on a card, the CUDA-event milliseconds between
     the loop's first and last launch.
     """
@@ -244,15 +281,15 @@ class FleetTrainer:
     def _train_once(self, members: Sequence[FleetMember], config: FitConfig) -> List[FleetResult]:
         by_name: Dict[str, FleetResult] = {}
         failures: Dict[str, BaseException] = {}
-        for planned in naive_buckets(members, config.batch_size):
+        for planned in train_buckets(members, config):
             logger.info(
-                "Fleet bucket: %d models, spec=%s, padded_n=%d%s",
-                len(planned.members), type(planned.spec).__name__, planned.n_padded,
+                "Fleet bucket %s: %d models, spec=%s, padded_n=%d%s",
+                planned.bucket_id, len(planned.members), type(planned.spec).__name__, planned.n_padded,
                 f", windowed, offset {planned.offset}" if planned.windowed else "",
             )
             train = self._train_windowed_bucket if planned.windowed else self._train_bucket
             self._run_bucket_degraded(
-                lambda b, _p=planned, _t=train: _t(_p.spec, _p.n_padded, b, config),
+                lambda b, _p=planned, _t=train: _t(_p.spec, _p.n_padded, b, config, _p.bucket_id),
                 planned.members, by_name, failures,
             )
         for member in members:
@@ -372,10 +409,13 @@ class FleetTrainer:
         return X_dev, y_dev, torch.from_numpy(wtr).to(self.device), torch.from_numpy(wval).to(self.device)
 
     def _train_bucket(
-        self, spec: FeedForwardSpec, n_padded: int, bucket: List[FleetMember], config: FitConfig
+        self, spec: FeedForwardSpec, n_padded: int, bucket: List[FleetMember], config: FitConfig, bucket_id: str
     ) -> List[FleetResult]:
         X, y, wtr, wval = self._stack_bucket(n_padded, bucket, config)
-        return self._fit_bucket(bucket, config, StackedFit(spec, config), (X, y), wtr, wval)
+        span = ("fleet_fit", (spec, config, tuple(X.shape)), dict(
+            members=len(bucket), shape=str(tuple(X.shape)), spec=type(spec).__name__, bytes=_bucket_nbytes(bucket),
+            **_calibration_attrs(spec, config, X.shape[0], X.shape[1])))
+        return self._fit_bucket(bucket, config, StackedFit(spec, config), (X, y), wtr, wval, span, bucket_id)
 
     def _stack_windowed_bucket(
         self, spec: LSTMSpec, n_padded: int, bucket: List[WindowedFleetMember], config: FitConfig
@@ -401,30 +441,38 @@ class FleetTrainer:
         return tuple(torch.from_numpy(a).to(self.device) for a in (series, targets, order, wtr, wval))
 
     def _train_windowed_bucket(
-        self, spec: LSTMSpec, n_padded: int, bucket: List[WindowedFleetMember], config: FitConfig
+        self, spec: LSTMSpec, n_padded: int, bucket: List[WindowedFleetMember], config: FitConfig, bucket_id: str
     ) -> List[FleetResult]:
         series, targets, order, wtr, wval = self._stack_windowed_bucket(spec, n_padded, bucket, config)
-        return self._fit_bucket(bucket, config, WindowedFit(spec, config), (series, targets, order), wtr, wval)
+        span = ("fleet_windowed_fit", (spec, config, tuple(series.shape), tuple(order.shape)), dict(
+            members=len(bucket), shape=str(tuple(series.shape)), spec=type(spec).__name__,
+            bytes=_bucket_nbytes(bucket), **_calibration_attrs(spec, config, series.shape[0], order.shape[1])))
+        return self._fit_bucket(bucket, config, WindowedFit(spec, config), (series, targets, order), wtr, wval, span,
+                                bucket_id)
 
-    def _fit_bucket(self, bucket, config: FitConfig, fit: StackedFit, data, wtr, wval) -> List[FleetResult]:
+    def _fit_bucket(self, bucket, config: FitConfig, fit: StackedFit, data, wtr, wval, span,
+                    bucket_id: str) -> List[FleetResult]:
         """Draw the bucket's init and permutations, run ``fit`` on ``data``
-        and the weights, time it into ``fits`` and collect the results."""
+        and the weights inside the ``span`` (program, key, attributes),
+        time it into ``fits`` and collect the results."""
         seeds = [m.seed for m in bucket]
         params = stack_member_params([self.random.init_params(fit.spec, s) for s in seeds], self.device)
         n = wtr.shape[1]
         perms = permutation_tensor(self.random, seeds, config.epochs, n, self.device) if config.shuffle else None
         steps = n // config.batch_size
         on_card = self.device.type == "cuda"
+        program, key, attributes = span
         t0 = time.perf_counter()
-        if on_card:
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            events[0].record()
-        out = fit.run(params, *data, wtr, wval, perms)
-        if on_card:
-            events[1].record()
-        results = self._collect_results(bucket, out, config, steps)
+        with program_span(program, key, **attributes):
+            if on_card:
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                events[0].record()
+            out = fit.run(params, *data, wtr, wval, perms)
+            if on_card:
+                events[1].record()
+            results = self._collect_results(bucket, out, config, steps)
         self.fits.append(dict(
-            members=len(bucket), rows=n, steps=out.steps,
+            bucket=bucket_id, names=[m.name for m in bucket], members=len(bucket), rows=n, steps=out.steps,
             seconds=time.perf_counter() - t0,
             event_ms=events[0].elapsed_time(events[1]) if on_card else None,
             windowed=isinstance(fit, WindowedFit),
@@ -468,7 +516,9 @@ class FleetTrainer:
             for key, layer in stacked_params.items()
         }
         x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
-        return fleet_feedforward(spec, stacked, x).cpu().numpy()
+        with program_span("fleet_predict", (spec, tuple(x.shape)), members=x.shape[0], shape=str(tuple(x.shape)),
+                          spec=type(spec).__name__):
+            return fleet_feedforward(spec, stacked, x).cpu().numpy()
 
     def predict_windowed_bucket(
         self,
@@ -487,4 +537,8 @@ class FleetTrainer:
         }
         s = torch.from_numpy(np.ascontiguousarray(series, np.float32)).to(self.device)
         o = torch.from_numpy(np.asarray(order, np.int64)).to(self.device)
-        return forward_lstm_windows(spec, stacked, s, o, batch_size).cpu().numpy()
+        # the JAX key holds the window axis padded to whole batches
+        nv_padded = -(-o.shape[1] // batch_size) * batch_size
+        with program_span("fleet_windowed_predict", (spec, batch_size, tuple(s.shape), (o.shape[0], nv_padded)),
+                          members=s.shape[0], shape=str(tuple(s.shape)), spec=type(spec).__name__):
+            return forward_lstm_windows(spec, stacked, s, o, batch_size).cpu().numpy()

@@ -81,8 +81,32 @@ Robustness, as ``_run_build`` (``:504-683``, ``:810-870``) has it:
   ``ModelBuilder(machine, device, random)``; a failure there is the
   machine's error.
 
-The JAX builder's telemetry, progress file, packing planner and
-multi-host mirrors are not ported (``ROADMAP.md`` queue 1).
+What the build writes about itself (``:269-500``, ``:685-800``,
+``:965-1166``; ``telemetry/``, ``planner/``), unless
+``GORDO_TPU_TELEMETRY=0``:
+
+- ``build_trace.jsonl`` (or under ``GORDO_TPU_TELEMETRY_DIR``): a
+  ``fleet_build`` span, a ``build_phase`` span a phase entered, the
+  trainer's ``device_program`` spans (``fleet_fit``, ``fleet_predict``:
+  K1, ...), and the events ``fleet_plan``, ``machine_failed``,
+  ``machine_degraded``, ``member_trained`` (a final fit's losses),
+  ``machine_built`` (an artifact landed), ``device_utilization`` (the
+  card's memory at the end of ``stage``, ``cv_train``, ``final_fit``,
+  ``assemble`` and ``dump``, at most one a second but every
+  ``final_fit``'s) and ``fleet_plan_accuracy``;
+- ``build_status.json``: the live status (``telemetry/progress.py``),
+  ``complete`` or ``failed`` at the end; a killed build leaves it
+  ``running`` with the machines landed by then;
+- ``fleet_health.json``: the ledger's build record of every machine
+  (``telemetry/fleet_health.py``), fed by the events above; the ledger
+  is the builder's, restored from the directory's last snapshot.
+
+``fleet_plan.json``, the naive final-fit buckets priced by the analytic
+cost model (``planner/``), is written with telemetry off too, and its
+hash is journaled. The ``sequential`` phase, the port's own, is entered
+only when a machine is built by ``ModelBuilder``. Not ported: the packing
+planner and plan replay (``ROADMAP.md`` item 7), the Prometheus export
+(item 11b) and the multi-host mirrors (item 12).
 """
 
 import concurrent.futures
@@ -98,7 +122,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import DeviceLike, __version__, serializer
+from .. import DeviceLike, __version__, planner, serializer, telemetry
 from ..builder.build_model import ModelBuilder, split_metadata
 from ..dataset.exceptions import ConfigException, InsufficientDataError
 from ..machine import Machine, TrainingSummaryMetadata
@@ -111,7 +135,7 @@ from ..models.nn import params_from_jax
 from ..models.preprocessing import Pipeline, clone
 from ..models.training import FitConfig, RandomSource, fit_config_from_kwargs, split_fit_kwargs
 from ..ops.windows import model_offset, window_targets
-from ..utils.env import env_float, env_int
+from ..utils.env import env_float, env_int, env_str
 from ..utils.faults import fault_point
 from .fleet import FleetMember, FleetTrainer, WindowedFleetMember, is_device_error, stack_member_params
 from .journal import BuildJournal, clean_staging_dirs
@@ -243,6 +267,10 @@ def _test_window_rows(plan: _Plan, rows: np.ndarray) -> Tuple[np.ndarray, np.nda
     return windows, windows + plan.offset
 
 
+def _cv_mode(plan: _Plan) -> str:
+    return plan.machine.evaluation.get("cv_mode", "full_build").lower()
+
+
 def _cv_for(plan: _Plan):
     """The machine's CV splitter: ``KFold(5, shuffle=True,
     random_state=0)`` for a KFCV detector, else its evaluation's ``cv``
@@ -313,9 +341,10 @@ class FleetBuilder:
     sequential builder after its device program failed alone to that
     failure; ``resumed`` names the machines a resume skipped.
     ``phase_seconds`` holds the host wall time of each phase: ``plan``,
-    ``data_fetch``, ``stage``, ``cv_train``, ``cv_predict`` (the fold
-    forwards through K1), ``cv_score``, ``cv_finalize``, ``final_fit``,
-    ``assemble``, ``sequential`` (the fallback builds), ``dump``.
+    ``data_fetch``, ``stage``, ``bucket_plan``, ``cv_train``,
+    ``cv_predict`` (the fold forwards through K1), ``cv_score``,
+    ``cv_finalize``, ``final_fit``, ``assemble``, ``sequential`` (the
+    fallback builds, when there are any), ``dump``.
     """
 
     def __init__(
@@ -336,20 +365,65 @@ class FleetBuilder:
         self._config_hashes: Dict[str, str] = {}
         #: cache hits' registered ``model.pkl`` bytes, dumped as they are
         self._cached_pickles: Dict[str, bytes] = {}
+        #: the build's recorder, status and ledger (null outside a build)
+        self.recorder: Any = telemetry.NULL_RECORDER
+        self.progress: Optional[telemetry.BuildProgress] = None
+        self._ledger: Any = telemetry.NULL_LEDGER
+        #: the build's final-fit plan (``planner.FleetPlan``)
+        self.fleet_plan: Optional[planner.FleetPlan] = None
+        self._project = ""
+        self._output_revision: Optional[str] = None
+        self._current_phase = ""
+        self._plan_actuals: Dict[str, float] = defaultdict(float)
+        self._member_actuals: Dict[str, int] = defaultdict(int)
+        self._device_peak_bytes = 0
+        self._last_device_sample = 0.0
+
+    #: phases that end with a ``device_utilization`` sample
+    _DEVICE_SAMPLED_PHASES = frozenset({"stage", "cv_train", "final_fit", "assemble", "dump"})
 
     @contextlib.contextmanager
     def _phase(self, name: str):
+        if self.progress is not None:
+            self.progress.phase(name)
         start = time.perf_counter()
+        previous, self._current_phase = self._current_phase, name
         try:
-            yield
+            with self.recorder.span("build_phase", phase=name, machines=len(self.machines)):
+                yield
         finally:
+            self._current_phase = previous
             self.phase_seconds[name] += time.perf_counter() - start
+            self._sample_device(name)
+
+    def _sample_device(self, phase: str) -> None:
+        """A ``device_utilization`` event at the end of a device phase, at
+        most one a second except after a final fit; the build's peak of
+        allocated bytes is kept for the plan's accuracy."""
+        if phase not in self._DEVICE_SAMPLED_PHASES:
+            return
+        now = time.time()
+        if now - self._last_device_sample < 1.0 and phase != "final_fit":
+            return
+        self._last_device_sample = now
+        try:
+            snapshot = telemetry.emit_device_utilization(self.recorder, device=self.device, phase=phase)
+        except Exception as exc:  # noqa: BLE001 - device telemetry is advisory
+            logger.debug("device utilization not sampled: %r", exc)
+            return
+        if snapshot and snapshot.get("available"):
+            self._device_peak_bytes = max(self._device_peak_bytes, int(snapshot.get("max_peak_bytes_in_use") or 0))
 
     def _fail(self, name: str, exc: BaseException) -> None:
         if self._journal is not None:
             self._journal.record(name, "failed", error=repr(exc))
         logger.error("Fleet build of machine %s failed: %r", name, exc)
+        first_failure = name not in self.build_errors
         self.build_errors[name] = exc
+        if first_failure:
+            self.recorder.event("machine_failed", machine=name, error=repr(exc))
+            if self.progress is not None:
+                self.progress.machine_failed(name)
 
     def _skipped(self, name: str) -> bool:
         """Out of the fleet path: failed, or left to the sequential builder."""
@@ -363,6 +437,10 @@ class FleetBuilder:
                        "failure: %r", name, exc)
         self.robustness["sequential_degraded"] += 1
         self.degraded[name] = exc
+        self.recorder.event("machine_degraded", machine=name, error=repr(exc))
+        if self.progress is not None:
+            self.progress.degraded = len(self.degraded)
+            self.progress.write()
 
     def _device_failure(self, plan: _Plan, exc: BaseException) -> None:
         """A member's failure: a device error degrades its machine, any
@@ -388,13 +466,56 @@ class FleetBuilder:
         run journaled ``built`` with a complete artifact (those are not
         returned). With a ``model_register_dir``, registered builds are
         loaded instead of trained and new ones registered
-        (``replace_cache`` forgets the keys first)."""
+        (``replace_cache`` forgets the keys first). Telemetry, unless
+        ``GORDO_TPU_TELEMETRY=0``: the span trace, ``build_status.json``
+        and the health ledger (the module's docstring)."""
         self.build_errors = {}
         self.degraded = {}
         self.resumed = []
         self.phase_seconds = defaultdict(float)
         self.robustness = defaultdict(int)
         self._journal = None
+        self.fleet_plan = None
+        self._plan_actuals = defaultdict(float)
+        self._member_actuals = defaultdict(int)
+        self._device_peak_bytes = 0
+        self._project = self.machines[0].project_name if self.machines else ""
+        self._output_revision = os.path.basename(os.path.normpath(output_dir)) if output_dir is not None else None
+        self._ledger = (telemetry.ledger_for(output_dir, project=self._project) if output_dir is not None
+                        else telemetry.NULL_LEDGER)
+        recorder: Any = telemetry.NULL_RECORDER
+        self.progress = None
+        if telemetry.enabled():
+            trace_path = None
+            if output_dir is not None:
+                trace_dir = env_str(telemetry.TRACE_DIR_ENV, None) or output_dir
+                try:
+                    os.makedirs(trace_dir, exist_ok=True)
+                    trace_path = os.path.join(trace_dir, telemetry.BUILD_TRACE_FILE)
+                except OSError as exc:
+                    logger.debug("No span trace sink: %r", exc)
+            recorder = telemetry.SpanRecorder(sink_path=trace_path, service="gordo-tpu-fleet-build")
+            recorder.add_listener(self._on_span)
+            self.progress = telemetry.BuildProgress(output_dir, project=self._project, total=len(self.machines),
+                                                    phase_seconds=self.phase_seconds)
+        self.recorder = recorder
+        try:
+            with telemetry.activate(recorder):
+                with recorder.span("fleet_build", project=self._project, machines=len(self.machines)):
+                    results = self._run_build(output_dir, model_register_dir, replace_cache, resume)
+        except Exception:
+            # SystemExit and KeyboardInterrupt pass: a killed build stays "running"
+            if self.progress is not None:
+                self.progress.finish("failed")
+            raise
+        finally:
+            recorder.close()
+            self._ledger.flush()
+        if self.progress is not None:
+            self.progress.finish("complete")
+        return results
+
+    def _run_build(self, output_dir, model_register_dir, replace_cache: bool, resume: bool):
         bisects_start = self.trainer.bucket_bisects
         counts_start = dict(self.trainer.bisect_counts)
         machines = self.machines
@@ -411,6 +532,9 @@ class FleetBuilder:
                         remaining.append(machine)
                 machines = remaining
                 logger.info("Resume: %d machines already built, %d to build", len(self.resumed), len(machines))
+                if self.progress is not None:
+                    self.progress.resumed = len(self.resumed)
+                    self.progress.write(force=True)
 
         cached, self._cached_pickles = [], {}
         if model_register_dir:
@@ -425,6 +549,9 @@ class FleetBuilder:
                     cached.append(hit)
                     self._cached_pickles[machine.name] = registry.cached_model_bytes
             logger.info("Model register: %d hits, %d to build", len(cached), len(machines))
+            if self.progress is not None:
+                self.progress.cached = len(cached)
+                self.progress.write(force=True)
 
         with self._phase("plan"):
             plans, fallbacks = [], []
@@ -444,11 +571,9 @@ class FleetBuilder:
                                      flush=False)
             self._journal.flush()
         plans = self._load_all_data(plans)
+        final_members = self._prepare_fleet_plan(plans, output_dir)
 
-        def cv_mode(plan: _Plan) -> str:
-            return plan.machine.evaluation.get("cv_mode", "full_build").lower()
-
-        cv_plans = [p for p in plans if cv_mode(p) in ("full_build", "cross_val_only")]
+        cv_plans = [p for p in plans if _cv_mode(p) in ("full_build", "cross_val_only")]
         if cv_plans:
             self._run_cross_validation(cv_plans)
             if self._journal is not None:
@@ -456,9 +581,7 @@ class FleetBuilder:
                     if not self._skipped(plan.machine.name):
                         self._journal.record(plan.machine.name, "cv_done", flush=False)
                 self._journal.flush()
-        self._run_final_fit(
-            [p for p in plans if not self._skipped(p.machine.name) and cv_mode(p) != "cross_val_only"]
-        )
+        self._run_final_fit(self._final_fit_plans(plans), final_members)
         # bisections the trainer resolved inside a train call, by machine
         for member_name, count in self.trainer.bisect_counts.items():
             delta = count - counts_start.get(member_name, 0)
@@ -476,14 +599,16 @@ class FleetBuilder:
                     results.append(self._assemble(plan))
                 except Exception as exc:
                     self._fail(plan.machine.name, exc)
-        with self._phase("sequential"):
-            by_name = {m.name: m for m in machines}
-            for machine in fallbacks + [by_name[name] for name in self.degraded]:
-                logger.info("Sequential build of machine %s", machine.name)
-                try:
-                    results.append(ModelBuilder(machine, self.device, self.trainer.random).build())
-                except Exception as exc:
-                    self._fail(machine.name, exc)
+        by_name = {m.name: m for m in machines}
+        sequential = fallbacks + [by_name[name] for name in self.degraded]
+        if sequential:
+            with self._phase("sequential"):
+                for machine in sequential:
+                    logger.info("Sequential build of machine %s", machine.name)
+                    try:
+                        results.append(ModelBuilder(machine, self.device, self.trainer.random).build())
+                    except Exception as exc:
+                        self._fail(machine.name, exc)
         if model_register_dir:
             for model, machine in results:
                 try:
@@ -496,7 +621,127 @@ class FleetBuilder:
             with self._phase("dump"):
                 results = self._dump_all(results, output_dir)
             self._journal.flush()  # one clean state file once the build is done
+        self._export_plan_accuracy()
         return [(model, machine) for model, machine in results if machine.name not in self.build_errors]
+
+    # -------------------------------------------------------------- telemetry
+
+    def _on_span(self, span: dict) -> None:
+        """Every finished span and event: final-fit programs count toward
+        the plan's measured numbers, and the machine events feed the
+        health ledger."""
+        name = span["name"]
+        attrs = span.get("attributes") or {}
+        if (name == "device_program" and self._current_phase == "final_fit"
+                and str(attrs.get("program", "")).endswith("_fit")):
+            self._plan_actuals["seconds"] += float(span.get("duration_ms") or 0.0) / 1000.0
+            if attrs.get("compile"):
+                self._plan_actuals["compiles"] += 1
+            if attrs.get("members") is not None and attrs.get("stacked_members"):
+                self._member_actuals["live"] += int(attrs["members"])
+                self._member_actuals["padded"] += int(attrs["stacked_members"])
+        machine = attrs.get("machine")
+        if not machine:
+            return
+        try:
+            if name == "member_trained":
+                loss = attrs.get("final_loss")
+                self._ledger.record_build(str(machine), retries=attrs.get("retries"),
+                                          final_loss=float(loss) if loss is not None and np.isfinite(loss) else None)
+            elif name == "machine_built":
+                # a machine degraded in this build keeps the flag its artifact carries
+                self._ledger.record_build(str(machine), revision=self._output_revision, failed=False,
+                                          degraded=False if str(machine) not in self.degraded else None)
+            elif name == "machine_failed":
+                self._ledger.record_build(str(machine), failed=True, error=attrs.get("error"))
+            elif name == "machine_degraded":
+                self._ledger.record_build(str(machine), degraded=True, error=attrs.get("error"))
+        except Exception as exc:  # noqa: BLE001 - the ledger is advisory
+            logger.debug("Health ledger not fed: %r", exc)
+
+    def _final_fit_plans(self, plans: List[_Plan]) -> List[_Plan]:
+        """The plans whose machines are still to final-fit."""
+        return [p for p in plans if not self._skipped(p.machine.name) and _cv_mode(p) != "cross_val_only"]
+
+    def _prepare_fleet_plan(self, plans: List[_Plan], output_dir: Optional[str]) -> Dict[str, Any]:
+        """The final fit's members and buckets, planned before training
+        (``_prepare_fleet_plan``, ``:1000-1066``, the naive strategy): the
+        ``fleet_plan`` event, ``fleet_plan.json`` and the journal's plan
+        hash. Answers the members by machine name; the final fit trains
+        these same members, which the trainer buckets with the plan's
+        ``planner.train_buckets``."""
+        members: Dict[str, Any] = {}
+        candidates = self._final_fit_plans(plans)
+        if not candidates:
+            return members
+        with self._phase("bucket_plan"):
+            final_plans = []
+            for plan in candidates:
+                try:
+                    members[plan.machine.name] = self._make_member(plan, None, seed=plan.seed,
+                                                                   name=plan.machine.name)
+                except Exception as exc:
+                    self._fail(plan.machine.name, exc)
+                    continue
+                final_plans.append(plan)
+            if not final_plans:
+                return members
+            by_config: Dict[FitConfig, List[Any]] = {}
+            for plan in final_plans:
+                by_config.setdefault(plan.fit_config, []).append(members[plan.machine.name])
+            fingerprint = planner.config_fingerprint(
+                [self._config_hashes.get(p.machine.name) or ModelBuilder.calculate_cache_key(p.machine)
+                 for p in final_plans])
+            plan = planner.build_plan_doc(
+                [(config, planner.plan_train_buckets(group, config)) for config, group in by_config.items()],
+                planner.NAIVE, fingerprint)
+            self.fleet_plan = plan
+            totals = plan.totals
+            self.recorder.event(
+                "fleet_plan", plan_hash=plan.plan_hash, strategy=planner.NAIVE, replayed=False,
+                buckets=totals.get("buckets", 0), members=totals.get("members", 0),
+                compiles=totals.get("compiles", 0), predicted_wall_s=totals.get("predicted_wall_s", 0.0),
+                padding_waste=totals.get("padding_waste", 0.0),
+            )
+            if output_dir is not None:
+                try:
+                    plan.save(os.path.join(output_dir, planner.PLAN_FILE))
+                except OSError as exc:
+                    logger.warning("FleetPlan not persisted: %r", exc)
+            if self._journal is not None:
+                previous = self._journal.plan()
+                if previous and previous.get("plan_hash") != plan.plan_hash:
+                    logger.info("FleetPlan %s differs from the journaled %s: the remaining members are replanned",
+                                plan.plan_hash, previous.get("plan_hash"))
+                self._journal.set_plan(plan.plan_hash, planner.NAIVE)
+        return members
+
+    def _export_plan_accuracy(self) -> None:
+        """The plan's predictions against what the final fit measured
+        (``_export_plan_accuracy``, ``:1110-1166``): an event and the
+        ledger's ``plan_accuracy``."""
+        plan = self.fleet_plan
+        if plan is None:
+            return
+        totals = plan.totals
+        padded = int(self._member_actuals.get("padded", 0))
+        accuracy = dict(
+            plan_hash=plan.plan_hash,
+            strategy=plan.strategy,
+            # from each bucket's spec document (the JAX builder reads an
+            # attribute its bucket documents lack, and records None)
+            precisions=sorted({planner.dtype_precision(b["spec"].get("compute_dtype")) for b in plan.buckets}),
+            predicted_compiles=totals.get("compiles", 0),
+            actual_compiles=int(self._plan_actuals.get("compiles", 0)),
+            predicted_wall_s=totals.get("predicted_wall_s", 0.0),
+            actual_fit_s=round(float(self._plan_actuals.get("seconds", 0.0)), 3),
+            predicted_padding_waste=totals.get("padding_waste", 0.0),
+            measured_member_waste=round(1.0 - self._member_actuals["live"] / padded, 6) if padded else None,
+            predicted_hbm_peak_bytes=totals.get("hbm_peak_bytes", 0),
+            measured_hbm_peak_bytes=self._device_peak_bytes or None,
+        )
+        self.recorder.event("fleet_plan_accuracy", **accuracy)
+        self._ledger.record_plan_accuracy(accuracy)
 
     def _dump_all(self, results, output_dir: str):
         """Dump every artifact with ``serializer.dump_atomic`` in up to 8
@@ -510,6 +755,10 @@ class FleetBuilder:
 
             def landed():
                 self._journal.record(machine.name, "built", config_hash=self._config_hashes.get(machine.name))
+                # the status counts the machine before the kill site, as the journal does
+                self.recorder.event("machine_built", machine=machine.name)
+                if self.progress is not None:
+                    self.progress.machine_completed(machine.name)
                 fault_point("process_kill_after_n_machines", machine.name)
 
             serializer.dump_atomic(model, os.path.join(output_dir, machine.name), metadata=machine.to_dict(),
@@ -844,14 +1093,15 @@ class FleetBuilder:
 
     # -------------------------------------------------------------- final fit
 
-    def _run_final_fit(self, plans: List[_Plan]) -> None:
+    def _run_final_fit(self, plans: List[_Plan], members: Dict[str, Any]) -> None:
+        """Final-fit ``plans``' machines, each on its ``members`` entry,
+        the member the fleet plan was computed from."""
         start = time.perf_counter()
         by_config: Dict[FitConfig, List[_Plan]] = {}
         for plan in plans:
             by_config.setdefault(plan.fit_config, []).append(plan)
         for config, group in by_config.items():
-            members = [self._make_member(p, None, seed=p.seed, name=p.machine.name) for p in group]
-            self._train_final_group(members, group, config, start)
+            self._train_final_group([members[p.machine.name] for p in group], group, config, start)
 
     def _train_final_group(self, members, plans, config, start) -> None:
         """Final-fit one config group. The trainer bisects device errors
@@ -889,6 +1139,10 @@ class FleetBuilder:
             estimator._history = result.history
             plan.train_duration = time.perf_counter() - start
             plan.training_summary = TrainingSummaryMetadata.from_history(result.history)
+            summary = plan.training_summary
+            self.recorder.event("member_trained", machine=plan.machine.name, final_loss=summary.final_loss,
+                                best_loss=summary.best_loss, epochs_run=summary.epochs_run,
+                                early_stop_epoch=summary.early_stop_epoch, retries=result.retries)
             if plan.detector is not None:
                 plan.detector.scaler.fit(plan.y)
 

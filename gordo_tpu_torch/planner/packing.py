@@ -13,15 +13,24 @@ is its series length rounded up the geometric ladder of ratio
 keyed by the model offset, so every member of one has the same number of
 window slots. The pad length sets each epoch's batches (and a dense
 member's permutation length), so it must equal the JAX package's for the
-two trainers to see the same batches. The cost-model ``packed`` strategy
-and block-diagonal packing are not ported.
+two trainers to see the same batches.
+
+:func:`train_buckets` names each bucket (``<hash of spec and fit
+config>-n<pad>``, ``-o<offset>`` when windowed, ``_bucket_key``,
+``:173-188``): the trainer trains these buckets, and
+:func:`plan_train_buckets` fills their ``predicted`` numbers from the
+analytic cost model (``annotate_predictions``, ``:366-440``) for the
+build's ``fleet_plan.json``. The cost-model ``packed`` strategy and
+block-diagonal packing are not ported (``ROADMAP.md`` item 7).
 """
 
+import hashlib
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Sequence, Tuple
 
 from ..utils.env import env_float
+from .costmodel import CostModel
 
 SERIES_PAD_RATIO_ENV = "GORDO_TPU_SERIES_PAD_RATIO"
 DEFAULT_SERIES_PAD_RATIO = 1.25
@@ -90,13 +99,22 @@ def naive_pad_target(member: Any, batch_size: int) -> int:
 @dataclass
 class PlannedBucket:
     """One training bucket: members of one spec padded to ``n_padded``
-    samples (series rows when ``windowed``, of model offset ``offset``)."""
+    samples (series rows when ``windowed``, of model offset ``offset``);
+    ``bucket_id``, ``program`` and the cost model's ``predicted`` numbers
+    once :func:`plan_train_buckets` has planned it."""
 
     spec: Any
     members: List[Any]
     n_padded: int
     offset: int = 0
     windowed: bool = False
+    bucket_id: str = ""
+    program: str = ""
+    predicted: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def member_names(self) -> List[str]:
+        return [m.name for m in self.members]
 
 
 def naive_buckets(members: Sequence[Any], batch_size: int) -> List[PlannedBucket]:
@@ -108,3 +126,79 @@ def naive_buckets(members: Sequence[Any], batch_size: int) -> List[PlannedBucket
         grouped.setdefault(key, []).append(member)
     return [PlannedBucket(spec, bucket, n_padded, offset, windowed)
             for (spec, n_padded, offset, windowed), bucket in grouped.items()]
+
+
+def _bucket_key(spec: Any, config: Any) -> str:
+    """A short id of (spec, fit config), the same in every process and in
+    the JAX package (the spec's dataclass ``repr`` is the same string)."""
+    fit = (config.epochs, config.batch_size, config.validation_split, config.shuffle,
+           tuple(config.early_stopping or ()) or None)
+    return hashlib.sha256(f"{spec!r}|{fit!r}".encode()).hexdigest()[:10]
+
+
+def annotate_predictions(buckets: Sequence[PlannedBucket], config: Any) -> None:
+    """Each bucket's ``predicted`` numbers: stacked shape, run and compile
+    seconds, resident bytes, true and padded FLOPs, padding waste. A
+    compile is counted on the first bucket of each stacked signature
+    only, as ``program_span`` counts them."""
+    cost_model = CostModel()
+    seen = set()
+    for bucket in buckets:
+        m = len(bucket.members)  # the naive strategy pads no member axis
+        if bucket.windowed:
+            m_total, n_series, n_total = cost_model.stacked_windowed_shape(m, bucket.n_padded, bucket.offset,
+                                                                            config.batch_size)
+            shape = [m_total, n_series, n_total]
+        else:
+            m_total, n_total = cost_model.stacked_shape(m, bucket.n_padded, config.batch_size)
+            shape = [m_total, n_total]
+        signature = (repr(bucket.spec), bucket.program, tuple(shape))
+        compiles = 0 if signature in seen else 1
+        seen.add(signature)
+        true_flops = sum(
+            cost_model.train_flops(bucket.spec, 1, _samples(member) - (bucket.offset if bucket.windowed else 0),
+                                   config.epochs)
+            for member in bucket.members
+        )
+        padded_flops = cost_model.train_flops(bucket.spec, m_total, n_total, config.epochs)
+        run_s = cost_model.predict_run_s(bucket.program, bucket.spec, m_total, n_total, config.epochs)
+        compile_s = cost_model.predict_compile_s(bucket.program, bucket.spec) if compiles else 0.0
+        if bucket.windowed:
+            hbm = cost_model.predict_hbm_bytes(bucket.spec, m_total, n_total, config.batch_size,
+                                               series_rows=bucket.n_padded)
+        else:
+            aliased = all(getattr(mm, "y", None) is getattr(mm, "X", None) for mm in bucket.members)
+            hbm = cost_model.predict_hbm_bytes(bucket.spec, m_total, n_total, config.batch_size, y_aliased=aliased)
+        bucket.predicted = {
+            "members": len(bucket.members),
+            "stacked_shape": shape,
+            "compiles": compiles,
+            "compile_s": round(compile_s, 6),
+            "run_s": round(run_s, 6),
+            "hbm_bytes": int(hbm),
+            "flops_true": float(f"{true_flops:.6g}"),
+            "flops_padded": float(f"{padded_flops:.6g}"),
+            "padding_waste": round(1.0 - true_flops / padded_flops if padded_flops else 0.0, 6),
+        }
+
+
+def _samples(member: Any) -> int:
+    return len(member.series) if member_is_windowed(member) else member.n
+
+
+def train_buckets(members: Sequence[Any], config: Any) -> List[PlannedBucket]:
+    """The naive buckets of ``members`` under ``config``, each with its id
+    and program: what the trainer trains and the plan records."""
+    buckets = naive_buckets(members, config.batch_size)
+    for bucket in buckets:
+        bucket.bucket_id = f"{_bucket_key(bucket.spec, config)}-n{bucket.n_padded}" + (
+            f"-o{bucket.offset}" if bucket.windowed else "")
+        bucket.program = "fleet_windowed_fit" if bucket.windowed else "fleet_fit"
+    return buckets
+
+
+def plan_train_buckets(members: Sequence[Any], config: Any) -> List[PlannedBucket]:
+    """:func:`train_buckets`, priced by the analytic cost model."""
+    buckets = train_buckets(members, config)
+    annotate_predictions(buckets, config)
+    return buckets

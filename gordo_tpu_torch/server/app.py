@@ -2,8 +2,8 @@
 The model server: a plain WSGI application, served with ``wsgiref``.
 
 The routes of the JAX server's URL map (``gordo_tpu/server/app.py``),
-with its JSON shapes, in its order; ``build-status``, ``fleet-health``
-and ``slo`` are not ported:
+with its JSON shapes, in its order; ``fleet-health`` and ``slo`` are not
+ported (``ROADMAP.md`` item 11b):
 
 - ``GET /healthcheck`` and ``GET /server-version``;
 - under ``/gordo/v0/<project>/``: ``POST <name>/prediction``,
@@ -14,7 +14,9 @@ and ``slo`` are not ported:
   ``GET revisions`` and ``GET expected-models``;
 - the streaming plane (``views/stream.py``): ``POST .../stream/<id>/ingest``,
   ``GET .../stream/<id>/events`` (server-sent events),
-  ``GET .../stream/status`` and ``DELETE .../stream/<id>``.
+  ``GET .../stream/status`` and ``DELETE .../stream/<id>``;
+- ``GET /gordo/v0/<project>/build-status``: the ``build_status.json`` a
+  fleet build wrote beside the revision's machines, or 404.
 
 A request may pin a revision, a sibling directory of the served one,
 with ``?revision=`` or a ``revision`` header. Every JSON body of a
@@ -225,6 +227,7 @@ def _routes() -> List[Tuple[str, "re.Pattern[str]", Callable[..., Response]]]:
         ("GET", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/events/?$"), stream.get_stream_events),
         ("GET", re.compile(rf"{project}/stream/status/?$"), stream.get_stream_status),
         ("DELETE", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/?$"), stream.delete_stream),
+        ("GET", re.compile(rf"{project}/build-status/?$"), base.get_build_status),
         ("GET", re.compile(rf"{project}/models/?$"), base.get_model_list),
         ("GET", re.compile(rf"{project}/revisions/?$"), base.get_revision_list),
         ("GET", re.compile(rf"{project}/expected-models/?$"), base.get_expected_models),

@@ -2,7 +2,8 @@
 Base routes (``gordo_tpu/server/views/base.py``): the healthcheck and
 server version, per-model prediction, metadata, the model download,
 revision deletion, the model, revision and expected-model lists, and the
-fleet route ``POST /gordo/v0/<project>/prediction/fleet``.
+fleet route ``POST /gordo/v0/<project>/prediction/fleet``, and the
+build's status ``GET /gordo/v0/<project>/build-status``.
 
 ``POST .../<name>/prediction`` scores one model's rows, body ``{"X":
 frame}``, through one gather launch of K1 (with the model's input
@@ -30,6 +31,7 @@ import numpy as np
 from ... import __version__, serializer
 from ...models.anomaly.diff import DiffBasedAnomalyDetector
 from ...serve import BatchShedError
+from ...telemetry import load_status
 from .. import model_io, utils, wire
 from ..app import MODEL_COLLECTION_DIR_ENV_VAR, Response, ServerError
 from ..fleet_store import ModelResolution
@@ -158,6 +160,15 @@ def get_revision_list(ctx, gordo_project: str) -> Response:
 
 def get_expected_models(ctx, gordo_project: str) -> Response:
     return ctx.json_response({"expected-models": ctx.app.expected_models})
+
+
+def get_build_status(ctx, gordo_project: str) -> Response:
+    """The ``build_status.json`` a fleet build wrote beside the revision's
+    machines, as it is (``base.py:678-692``); 404 when there is none."""
+    doc = load_status(ctx.collection_dir)
+    if doc is None:
+        return ctx.json_response({"error": "No build status for this revision."}, status=404)
+    return ctx.json_response(doc)
 
 
 def _full_entry(

@@ -6,6 +6,16 @@ breakers and the serving engine use, a copy of ``gordo_tpu/utils/env.py``'s
 Malformed values never raise: they log one warning per distinct
 ``(name, value)`` pair and fall back to the call-site default.
 
+The build telemetry's knobs, with the JAX package's defaults
+(``gordo_tpu/utils/env.py:248-320``), read where they act:
+``GORDO_TPU_TELEMETRY`` (on), ``GORDO_TPU_TELEMETRY_DIR`` (the build's
+output directory), ``GORDO_TPU_TELEMETRY_MAX_BYTES`` (256 MiB) and
+``GORDO_TPU_TELEMETRY_KEEP`` (3) in ``telemetry/recorder.py``;
+``GORDO_TPU_TELEMETRY_HEARTBEAT`` (0.5 s) in ``telemetry/progress.py``;
+``GORDO_TPU_FLEET_HEALTH`` (on), ``GORDO_TPU_HEALTH_HEARTBEAT`` (2 s) and
+``GORDO_TPU_HEALTH_SHARDS`` (0: from the fleet's size) in
+``telemetry/fleet_health.py``.
+
 >>> import os
 >>> os.environ["GORDO_TPU_DOCTEST_KNOB"] = "not-a-number"
 >>> env_int("GORDO_TPU_DOCTEST_KNOB", 7)

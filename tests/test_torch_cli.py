@@ -58,7 +58,8 @@ def test_too_few_rows_exits_80_and_the_rest_is_dumped(tmp_path):
     out, report = tmp_path / "out", tmp_path / "report.json"
     code = main(["build-fleet", shard, str(out), "--device", "cpu", "--exceptions-reporter-file", str(report)])
     assert code == 80
-    assert sorted(p.name for p in out.iterdir()) == ["build_state.json", "m-2"]
+    assert sorted(p.name for p in out.iterdir()) == ["build_state.json", "build_status.json", "build_trace.jsonl",
+                                                     "fleet_health.json", "fleet_plan.json", "m-2"]
     assert BuildJournal.load(str(out)).machines()["m-1"]["status"] == "failed"
     assert json.loads(report.read_text())["type"] == "InsufficientDataError"
 

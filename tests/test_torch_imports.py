@@ -65,7 +65,8 @@ def test_package_has_modules():
         "cli/exceptions_reporter.py", "__main__.py", "ops/windows.py", "models/factories/lstm_autoencoder.py",
         "builder/__init__.py", "builder/build_model.py", "builder/local_build.py", "builder/utils.py",
         "parallel/journal.py", "utils/disk_registry.py", "serve/batcher.py", "serve/engine.py",
-        "serve/precision.py", "server/model_io.py",
+        "serve/precision.py", "server/model_io.py", "telemetry/recorder.py", "telemetry/progress.py",
+        "telemetry/device.py", "telemetry/fleet_health.py", "planner/costmodel.py", "planner/plan.py",
     ):
         assert expected in names
 
