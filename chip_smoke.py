@@ -120,6 +120,29 @@ the served revision (409) and of one machine of the second (200), after
 which a request pinned to it answers 404. It prints each request's
 status and host ms.
 
+``[observability]`` (after ``[routes]``, the same socket) sends
+``[serve]``'s requests again (three 20-tag anomaly requests, the fleet
+request of 64, a 40-tag anomaly request and the fleet request of 8, 1008
+rows each), two ingests of 64 rows a machine on a fresh stream and a
+burst of 8 anomaly requests through an engine app, with
+``GORDO_TPU_TELEMETRY_DIR`` set and every request exported
+(``GORDO_TPU_TRACE_SAMPLE_RATE=1``). It prints each request's
+``Server-Timing`` by stage in ms and the share of its walltime the stages
+cover; checks that each scoring request launched K1 or K2 and that every
+launch (timed on its way to the kernel) lies inside an ``inference``
+stage, an engine ``device`` span or a ``stream_score`` span; counts
+``serve_trace.jsonl``'s spans by name and its bytes (one ``request`` span
+a scoring request, every ``serve_batch`` linked to request spans of the
+file); holds ``GET /fleet-health`` to what was sent (each machine's
+requests and rows grew by it; the engine app feeds the same ledger, one a
+directory for the process) and the residual mean of the rows sent to a
+CPU app's on a copy of the collection after the same fleet and stream
+requests; renders it with
+``fleet-status``; and sends the same requests with
+``GORDO_TPU_TELEMETRY=0``, printing both walls (not gated). The kernel
+JSON's ``launches_by_path`` has an ``observability`` key: the traced
+pass's launches.
+
 K2, the fused anomaly scores (K1 with a per-row MSE epilogue, the same
 source), is held the same way: against its plain version on both
 kernel paths with ``y`` the input rows (with the ingest prologue), a
@@ -2112,6 +2135,287 @@ ENGINE_FULL_CASES = {20: "full engine batch: hourglass20 gather M=32 of 64 B=204
                      WIDE_TAGS: "full engine batch: hourglass40 gather M=8 of 8 B=2048 +ingest"}
 
 
+#: [observability]: the stream of its two ingests, their rows a machine, and
+#: the anomaly burst through an engine app
+OBS_STREAM = "observability"
+OBS_STREAM_ROWS = STREAM_WINDOW
+OBS_BURST = 8
+#: a request's stages inside its ``inference`` stage when an engine scored it
+ENGINE_SHARES = ("queue_wait", "batch_stack", "batch_device", "batch_scatter")
+
+
+def traced_request(url, method, payload=None):
+    """One request over the socket: ``(status, parsed body, headers, host ms)``."""
+    data = None if payload is None else json.dumps(payload).encode()
+    request = urllib.request.Request(url, data=data, method=method, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=300) as response:
+            status, body, headers = response.status, response.read(), dict(response.headers)
+    except urllib.error.HTTPError as error:
+        status, body, headers = error.code, error.read(), dict(error.headers)
+    return status, json.loads(body), headers, (time.perf_counter() - t0) * 1e3
+
+
+def server_timing(headers):
+    """``Server-Timing`` as ``({stage: ms}, walltime ms, share of the
+    walltime the top-level stages cover)``. With an engine the batch's
+    shares (and its ``device_ingest``) are inside ``inference``."""
+    stages, wall_ms = {}, None
+    for entry in headers["Server-Timing"].split(", "):
+        name, dur = entry.split(";dur=")
+        if name == "request_walltime_s":
+            wall_ms = float(dur) * 1e3
+        else:
+            stages[name] = float(dur)
+    nested = set(ENGINE_SHARES) | ({"device_ingest"} if "queue_wait" in stages else set())
+    covered = sum(ms for name, ms in stages.items() if name not in nested)
+    return stages, wall_ms, covered / wall_ms
+
+
+def captured_launch_times():
+    """Until ``restore()``: the wall-clock interval of every K1 and K2 call
+    on the card through the store (``(kernel, start, end)``), to hold each
+    launch inside the stage or span that should enclose it."""
+    from gordo_tpu_torch.server import fleet_store
+
+    intervals, originals = [], (fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores)
+
+    def timed(kernel, launch):
+        def call(spec, bucket, X, *args, **kwargs):
+            start = time.time()
+            try:
+                return launch(spec, bucket, X, *args, **kwargs)
+            finally:
+                if X.is_cuda:
+                    intervals.append((kernel, start, time.time()))
+        return call
+
+    def restore():
+        fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores = originals
+
+    fleet_store.fleet_feedforward = timed("K1", originals[0])
+    fleet_store.fleet_anomaly_scores = timed("K2", originals[1])
+    return intervals, restore
+
+
+def span_seconds(span):
+    return (datetime.fromisoformat(span["start_time"]).timestamp(), datetime.fromisoformat(span["end_time"]).timestamp())
+
+
+def observability_requests(names, wide_names, first_row):
+    """``[serve]``'s requests, then two stream ingests of OBS_STREAM_ROWS
+    rows a machine from ``first_row`` on (a fresh stream)."""
+    frame = own_frame(wide_names[5], WIDE_TAGS)
+    requests = [(f"/{n}/anomaly/prediction", {"X": request_frame(i), "y": request_frame(i)})
+                for i, n in enumerate([names[0], names[17], names[63]])]
+    requests.append(("/prediction/fleet", {"X": {n: request_frame(100 + i) for i, n in enumerate(names)}}))
+    requests.append((f"/{wide_names[5]}/anomaly/prediction", {"X": frame, "y": frame}))
+    requests.append(("/prediction/fleet", {"X": {n: own_frame(n, WIDE_TAGS) for n in wide_names}}))
+    for step in range(2):
+        requests.append((f"/stream/{OBS_STREAM}/ingest", {"X": {
+            n: request_frame(500 + 10 * step + i, OBS_STREAM_ROWS, first_row + step * OBS_STREAM_ROWS)
+            for i, n in enumerate(names)}}))
+    return requests
+
+
+def gained_residual_mean(before, after):
+    """The residual mean of the rows a ledger record's ``serving`` section
+    gained between two readings. Below the ledger's window the rolling mean
+    is the plain row-weighted one, so the gained rows' mean is the
+    difference of the two weighted sums (each mean rounded to 8 places)."""
+    from gordo_tpu_torch.telemetry import HEALTH_WINDOW_ROWS
+
+    rows0, rows1 = before.get("rows", 0), after["rows"]
+    check(rows1 < HEALTH_WINDOW_ROWS and rows1 > rows0, f"rows {rows0} -> {rows1}")
+    return (after["residual_mean"] * rows1 - (before.get("residual_mean") or 0.0) * rows0) / (rows1 - rows0)
+
+
+def observability_phase(app, base, names, wide_names, collection, card):
+    """What the server records about its own traffic, on the card's app over
+    the socket (see the module docstring). Returns the K1 and K2 launches of
+    its traced pass."""
+    import io
+
+    from gordo_tpu_torch.cli.cli import main as cli_main
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.telemetry import render_fleet_status
+    from gordo_tpu_torch.telemetry import serving as serve_trace
+
+    telemetry_dir = tempfile.mkdtemp(prefix="observability-", dir=os.path.join(HERE, "build"))
+    # the CPU reference serves a copy without a health snapshot: its ledger is its own and holds only this
+    # phase's rows (every app of one directory in a process feeds that directory's one ledger)
+    reference_root = tempfile.mkdtemp(prefix="observability-reference-", dir=os.path.join(HERE, "build"))
+    reference_dir = os.path.join(reference_root, REVISION)
+    shutil.copytree(collection, reference_dir, ignore=shutil.ignore_patterns("fleet_health*", "serve_trace*"))
+    cpu_app = build_app(reference_dir, device="cpu")
+    saved = {k: os.environ.get(k) for k in ("GORDO_TPU_TELEMETRY_DIR", "GORDO_TPU_TRACE_SAMPLE_RATE",
+                                             "GORDO_TPU_TELEMETRY")}
+    os.environ.update(GORDO_TPU_TELEMETRY_DIR=telemetry_dir, GORDO_TPU_TRACE_SAMPLE_RATE="1")
+    os.environ.pop("GORDO_TPU_TELEMETRY", None)
+    serve_trace.reset_serve_recorder()
+    engine = stop_engine = None
+    try:
+        before = app.health_ledger().document()["machines"]
+        requests = observability_requests(names, wide_names, first_row=0)
+        engine, _ = engine_app(collection, max_size=OBS_BURST, max_delay_ms=20000.0, deadline_ms=60000.0)
+        check(engine.health_ledger() is app.health_ledger(), "two apps of one directory feed two ledgers")
+        engine_base, stop_engine = serving(engine)
+        burst_names = names[:OBS_BURST]
+        burst_requests = [(f"/{n}/anomaly/prediction", engine_body("anomaly", own_frame(n, 20)))
+                          for n in burst_names]
+
+        # the traced pass: every request exported, the launches timed
+        intervals, restore = captured_launch_times()
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        t0 = time.perf_counter()
+        answers = []
+        try:
+            for path, payload in requests:
+                k1, k2 = fleet_feedforward.launches, fleet_anomaly_scores.launches
+                status, body, headers, ms = traced_request(base + path, "POST", payload)
+                answers.append((path, status, headers, ms, fleet_feedforward.launches - k1,
+                                fleet_anomaly_scores.launches - k2))
+            burst_answers, _ = burst(engine_base, burst_requests)
+        finally:
+            restore()
+        on_wall = time.perf_counter() - t0
+        launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+        on_stages = collections.Counter()
+        for path, status, headers, ms, k1, k2 in answers:
+            check(status == 200, f"{path} answered {status}")
+            check(k1 + k2 >= 1, f"{path} launched no kernel")
+            stages, wall_ms, share = server_timing(headers)
+            on_stages.update(stages)
+            phase("observability", f"POST {path}: {ms:.1f} ms on the client, walltime {wall_ms:.1f} ms, stages "
+                  + ", ".join(f"{name} {v:.2f}" for name, v in stages.items())
+                  + f" ms; stages cover {share:.1%}; K1 {k1}, K2 {k2}; {card}")
+        for (path, _), (status, body, ms) in zip(burst_requests, burst_answers):
+            check(status == 200, f"engine {path} answered {status}")
+        engine_stats = engine.engine.stats()
+        phase("observability", f"engine burst: {len(burst_requests)} anomaly requests in {engine_stats['batches']} "
+              f"batch(es), K1 launches {engine_stats['launches']}; {card}")
+
+        # serve_trace.jsonl: spans by name; the launches inside their stages
+        serve_trace.serve_recorder().flush()
+        trace_files = sorted(f for f in os.listdir(telemetry_dir) if f.startswith("serve_trace"))
+        spans = []
+        for name in trace_files:
+            with open(os.path.join(telemetry_dir, name)) as f:
+                spans.extend(json.loads(line) for line in f)
+        trace_bytes = sum(os.path.getsize(os.path.join(telemetry_dir, n)) for n in trace_files)
+        by_name = collections.Counter(s["name"] for s in spans)
+        scoring = [s for s in spans if s["name"] == "request" and s["attributes"]["http.route"] in (
+            "anomaly-prediction", "prediction", "fleet-prediction", "stream-ingest")]
+        check(len(scoring) == len(requests) + len(burst_requests),
+              f"{len(scoring)} scoring request spans for {len(requests) + len(burst_requests)} requests")
+        contexts = {(s["context"]["trace_id"], s["context"]["span_id"]) for s in scoring}
+        batches = [s for s in spans if s["name"] == "serve_batch"]
+        check(batches, "the engine burst left no serve_batch span")
+        for batch in batches:
+            links = [(link["context"]["trace_id"], link["context"]["span_id"]) for link in batch.get("links", [])]
+            check(links and set(links) <= contexts, "a serve_batch links to no request span of the trace")
+        holders = [span_seconds(s) for s in spans if s["name"] in ("inference", "device", "stream_score")]
+        outside = [(kernel, start) for kernel, start, end in intervals
+                   if not any(lo - 1e-6 <= start and end <= hi + 1e-6 for lo, hi in holders)]
+        check(len(intervals) == launches["K1"] + launches["K2"], f"{len(intervals)} timed launches for {launches}")
+        check(not outside, f"{len(outside)} launches outside an inference stage, device or stream_score span")
+        phase("observability", f"serve_trace.jsonl: {len(spans)} spans, {trace_bytes} bytes in {len(trace_files)} "
+              f"file(s): " + ", ".join(f"{n} {c}" for n, c in sorted(by_name.items()))
+              + f"; {len(intervals)} launches (K1 {launches['K1']}, K2 {launches['K2']}), each inside an "
+              f"inference stage, device or stream_score span; {len(batches)} serve_batch span(s) linked")
+
+        # the CPU app gets the scoring requests that feed the residual means (after
+        # the trace is read: its requests are exported too)
+        for path, payload in requests:
+            if path.startswith(("/prediction/fleet", "/stream/")):
+                cpu_status, _ = wsgi_post(cpu_app, "/gordo/v0/smoke" + path, payload)
+                check(cpu_status == 200, f"CPU app answered {cpu_status} on {path}")
+
+        # /fleet-health: the serving counts of what was sent (the engine app's burst too, into the same
+        # ledger), the residual means of the rows sent held to the CPU app's
+        status, doc, _, ms = traced_request(base + "/fleet-health", "GET")
+        check(status == 200, f"/fleet-health answered {status}")
+        machines = doc["health"]["machines"]
+        sent = collections.Counter(burst_names)
+        sent_rows = collections.Counter()
+        for path, payload in requests:
+            if path.endswith("/anomaly/prediction"):
+                sent[path.split("/")[1]] += 1
+            else:
+                for n in payload["X"]:
+                    sent[n] += 1
+                    sent_rows[n] += ROWS if path.startswith("/prediction/fleet") else OBS_STREAM_ROWS
+        for n in sorted(set(names) | set(wide_names)):
+            was = before.get(n, {}).get("serving", {"requests": 0, "rows": 0})
+            now = machines[n]["serving"]
+            check(now["requests"] - was["requests"] == sent[n] and now["rows"] - was["rows"] == sent_rows[n],
+                  f"{n}: requests {was['requests']} -> {now['requests']}, rows {was['rows']} -> {now['rows']}; "
+                  f"sent {sent[n]} requests, {sent_rows[n]} rows")
+        cpu_machines = cpu_app.health_ledger().document()["machines"]
+        worst = 0.0
+        for n in sorted(set(names) | set(wide_names)):
+            cpu_serving = cpu_machines[n]["serving"]
+            check(cpu_serving["rows"] == sent_rows[n] and cpu_serving["residual_mean"] is not None,
+                  f"{n}: the CPU app's ledger has {cpu_serving['rows']} rows, mean {cpu_serving['residual_mean']}")
+            card_mean = gained_residual_mean(before.get(n, {}).get("serving", {}), machines[n]["serving"])
+            diff = abs(card_mean - cpu_serving["residual_mean"])
+            check(diff <= ATOL + RTOL * abs(cpu_serving["residual_mean"]),
+                  f"{n}: residual mean of the rows sent {card_mean} vs the CPU app's {cpu_serving['residual_mean']}")
+            worst = max(worst, diff)
+        check(doc["device"]["memory"]["available"], "the device section has no memory reading")
+        phase("observability", f"/fleet-health in {ms:.1f} ms: {doc['health']['summary']['machines']} machines, "
+              f"{doc['health']['summary']['requests']} requests; each machine's requests and rows grew by what was "
+              f"sent; residual means within {worst:.3e} of the CPU app's (rtol {RTOL}, atol {ATOL}); programs "
+              f"{doc['programs']}")
+        rendered = render_fleet_status(doc)
+        check("Health:" in rendered and "(no fleet_health.json)" not in rendered, "render_fleet_status")
+        app.health_ledger().flush()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = cli_main(["fleet-status", collection])
+        check(code == 0 and "Health:" in out.getvalue(), f"fleet-status exited {code}")
+        phase("observability", "fleet-status: " + next(line for line in out.getvalue().splitlines()
+                                                         if line.startswith("Health:")))
+
+        # the same requests with telemetry off: the wall time, not gated
+        os.environ["GORDO_TPU_TELEMETRY"] = "0"
+        serve_trace.reset_serve_recorder()
+        off_requests = observability_requests(names, wide_names, first_row=2 * OBS_STREAM_ROWS)
+        t0 = time.perf_counter()
+        off_stages = collections.Counter()
+        for path, payload in off_requests:
+            status, _, headers, _ = traced_request(base + path, "POST", payload)
+            check(status == 200, f"{path} answered {status} with telemetry off")
+            off_stages.update(server_timing(headers)[0])
+        off_answers, _ = burst(engine_base, burst_requests)
+        off_wall = time.perf_counter() - t0
+        check(all(status == 200 for status, _, _ in off_answers), "the engine burst failed with telemetry off")
+        check(sorted(os.listdir(telemetry_dir)) == trace_files, "telemetry off wrote a file")
+        phase("observability", f"the same {len(requests) + len(burst_requests)} requests: telemetry on "
+              f"{on_wall:.3f} s, off {off_wall:.3f} s (one pair, not gated; scripts/serve_telemetry_ab.py "
+              f"alternates them); the first {len(requests)} summed by stage, on / off: "
+              + ", ".join(f"{name} {on_stages[name]:.1f} / {off_stages[name]:.1f}" for name in on_stages)
+              + f" ms; {card}")
+        return launches
+    finally:
+        if stop_engine is not None:
+            stop_engine()
+        if engine is not None:
+            engine.shutdown()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        serve_trace.reset_serve_recorder()
+        cpu_app.shutdown()
+        shutil.rmtree(telemetry_dir, ignore_errors=True)
+        shutil.rmtree(reference_root, ignore_errors=True)
+
+
+
 def engine_body(route, frame):
     return {"X": frame, "y": frame} if route.startswith("anomaly") else {"X": frame}
 
@@ -3330,6 +3634,8 @@ def main():
                 stream_launches, _latencies, _rows_per_s = stream_phase(base, names, cpu_app)
             with clocked("routes"):
                 route_launches = routes_phase(base, names, wide_names, cpu_app, collection, card)
+            with clocked("observability"):
+                observability_launches = observability_phase(app, base, names, wide_names, collection, card)
         finally:
             server.shutdown()
             server.server_close()
@@ -3487,12 +3793,12 @@ def main():
                   "lstm": lstm_launches["K1"], "build": build_launches["K1"],
                   "engine": engine_launches["narrow"] + engine_launches["wide"],
                   "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
-                  "telemetry": telemetry_launches["K1"]}
+                  "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
                   "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
-                  "telemetry": telemetry_launches["K2"]}
+                  "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],

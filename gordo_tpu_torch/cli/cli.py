@@ -36,6 +36,14 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   phase table; ``--as-json`` prints the document, ``--watch N`` renders it
   again every N seconds while the build runs. Without a document it exits
   1 with the JAX command's message.
+- ``fleet-status DIRECTORY [--as-json] [--watch N] [--machines SEL]
+  [--limit N] [--offset N]``: the JAX package's ``fleet-status``
+  (``gordo_tpu/cli/cli.py:799-890``). It renders the joined fleet-status
+  document of ``DIRECTORY`` (default ``$OUTPUT_DIR``): build, plan,
+  lifecycle, the merged health snapshots with the top offenders, the SLO
+  alerts, the device; ``--machines`` selects records (``all``, ``none``, a
+  state, ``unhealthy``, a comma list), ``--limit``/``--offset`` page them.
+  A missing directory exits 1.
 - ``normalize CONFIG PROJECT``: the shard of a project config, what
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator.py::normalize``), printed or written to
@@ -212,6 +220,33 @@ def build_status(output_dir: str, as_json: bool = False, watch: Optional[float] 
         print("")
 
 
+def fleet_status(directory: str, as_json: bool = False, watch: Optional[float] = None,
+                 machines: Optional[str] = None, limit: Optional[int] = None, offset: int = 0) -> int:
+    """The ``fleet-status`` command (``gordo_tpu/cli/cli.py:799-890``):
+    print the joined fleet-status document of ``directory`` (a build's
+    output, a served revision), as JSON or as text; the exit code. A
+    process of its own has no live ledger, engine or plane: the health
+    view is the snapshots on disk, and ``serving``, ``programs`` and
+    ``stream`` are None (``/fleet-health`` of a running server has them)."""
+    import json
+    import time
+
+    from ..telemetry import fleet_status_document, render_fleet_status, utilization_snapshot
+
+    if not os.path.isdir(directory):
+        print(f"Error: No such directory: {directory}", file=sys.stderr)
+        return 1
+    while True:
+        doc = fleet_status_document(directory, device=utilization_snapshot(), machines=machines, limit=limit,
+                                    offset=offset)
+        print(json.dumps(doc, indent=1, sort_keys=True, default=str) if as_json else render_fleet_status(doc),
+              flush=True)
+        if watch is None:
+            return 0
+        time.sleep(max(0.1, watch))
+        print("")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m gordo_tpu_torch")
     parser.add_argument("--log-level", default="INFO")
@@ -254,6 +289,18 @@ def _parser() -> argparse.ArgumentParser:
     status.add_argument("--watch", type=float, default=None,
                         help="render again every N seconds until the build leaves 'running'")
 
+    fleet = commands.add_parser("fleet-status", help="render the joined fleet-status document of a directory")
+    fleet.add_argument("directory", nargs="?", default=os.environ.get("OUTPUT_DIR"),
+                       help="a build's output or a served revision directory (default $OUTPUT_DIR)")
+    fleet.add_argument("--as-json", action="store_true", help="print the raw document instead of the table")
+    fleet.add_argument("--watch", type=float, default=None, help="render again every N seconds (Ctrl-C to stop)")
+    fleet.add_argument("--machines", default=None,
+                       help="records to show: all, none, a state (healthy, degraded, drifting, quarantined, "
+                            "unhealthy) or a comma list of names; default: inline while the fleet is small")
+    fleet.add_argument("--limit", type=int, default=None,
+                       help="page size of a --machines selection (at most 500)")
+    fleet.add_argument("--offset", type=int, default=0, help="page offset of a --machines selection")
+
     normalize = commands.add_parser("normalize", help="print the shard of a project config")
     normalize.add_argument("config", help="the project's YAML config (a CRD document or its spec.config)")
     normalize.add_argument("project_name")
@@ -276,6 +323,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(document)
         return 0
+    if args.command == "fleet-status":
+        if not args.directory:
+            parser.error("DIRECTORY is required (argument or $OUTPUT_DIR)")
+        return fleet_status(args.directory, args.as_json, args.watch, args.machines, args.limit, args.offset)
     if args.command == "build-status":
         if not args.output_dir:
             parser.error("OUTPUT_DIR is required (argument or $OUTPUT_DIR)")

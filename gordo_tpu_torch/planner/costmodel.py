@@ -2,8 +2,8 @@
 The analytic bucket cost model of ``gordo_tpu/planner/costmodel.py``
 (``spec_param_count``, ``spec_flops_per_sample``, ``compute_precision``,
 ``CostTable``'s constants, ``CostModel``'s shape and estimate methods,
-``:205-295``, ``:439-620``), which prices each bucket of a build's
-``fleet_plan.json``.
+``:205-295``, ``:439-676``), which prices each bucket of a build's
+``fleet_plan.json`` and each serving batch and stream flush.
 
 The constants are the JAX package's uncalibrated defaults, copied as they
 are so that a naive plan, and its hash, equal the JAX build's on the same
@@ -33,6 +33,8 @@ COMPILE_PER_FLOP = 2.0e-7
 DISPATCH_S = 0.01
 #: run time against f32's, and activation bytes an element, by precision
 PRECISION_RUN_FACTORS = {"f32": 1.0, "bf16": 0.6}
+#: a serving forward's run time against f32's (the JAX table's defaults)
+SERVE_PRECISION_FACTORS = {"f32": 1.0, "bf16": 0.6, "int8": 0.55}
 PRECISION_COMPUTE_BYTES = {"f32": 4, "bf16": 2}
 #: Adam keeps params, grads and two moments a member
 _OPTIMIZER_COPIES = 4
@@ -138,3 +140,15 @@ class CostModel:
         activations = (m_total * batch_size * width * (len(getattr(spec, "dims", ())) + 2)
                        * getattr(spec, "lookback_window", 1))
         return int(4 * (data + params) + PRECISION_COMPUTE_BYTES[compute_precision(spec)] * activations)
+
+    def predict_serve_step_s(self, spec: ModelSpec, members: int, rows: int, precision: str = "f32") -> float:
+        """The analytic seconds of one fused serving forward of ``members``
+        x ``rows`` rows (no training factor): what the engine's batch spans
+        and the stream's flush spans carry as ``predicted_device_ms``
+        beside the measured time.
+
+        >>> round(CostModel().predict_serve_step_s(FeedForwardSpec(3, 3, (2,), ("tanh",)), 2, 100), 7)
+        0.0100024
+        """
+        flops = spec_flops_per_sample(spec) * float(members) * float(rows)
+        return SERVE_PRECISION_FACTORS.get(precision, 1.0) * (flops / THROUGHPUT) + DISPATCH_S

@@ -42,9 +42,25 @@ Requests the engine cannot batch (not feedforward, an empty or too tall
 request, rows of the wrong width, a draining batcher) answer None from
 :meth:`batched_predict`, and the caller scores them unbatched.
 
+Each batch is a ``serve_batch`` span of the serving trace
+(``telemetry/serving.py``) with ``stack``, ``device`` and ``scatter``
+children, linked to the request span of every sampled rider; a request
+that is not sampled is not linked (its span is not exported). Each rider
+gets its share back (``queue_wait``, ``batch_stack``, ``batch_device``
+with the copy back, ``batch_scatter``, and ``device_ingest``, the rows'
+copy to the device, for a batch with the ingest prologue), which the
+request records into its ``Server-Timing``. ``padded_members`` on the
+spans is what the JAX engine would launch (the port launches
+``coalesced``); ``predicted_device_ms`` is the analytic cost model's
+(``planner/costmodel.py``) for the launched shape. Bisections, isolated
+members, degraded buckets, demoted rungs and breaker transitions are
+events; each breaker transition also goes to the app's health ledger
+(``ledger``, a zero-argument callable; an engine without one feeds no
+ledger).
+
 The learned performance model's knobs (``GORDO_TPU_PERFMODEL_*``) are not
-ported: set, they make the engine refuse to start. Telemetry spans and
-Prometheus metrics are not ported either.
+ported: set, they make the engine refuse to start. Prometheus metrics are
+not ported either.
 """
 
 import logging
@@ -53,13 +69,15 @@ import threading
 import time
 from concurrent.futures import CancelledError
 from concurrent.futures import TimeoutError as FutureTimeoutError
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.estimators import find_estimator
 from ..models.spec import FeedForwardSpec
+from ..planner.costmodel import CostModel, spec_flops_per_sample
+from ..telemetry.serving import serve_recorder
 from ..utils.env import env_bool, env_float, env_int, env_str
 from ..utils.faults import FaultInjected, fault_point
 from . import ladder, precision
@@ -186,10 +204,13 @@ class ServeConfig:
 class ServeEngine:
     """The micro-batching scheduler over one app's ``FleetModelStore``."""
 
-    def __init__(self, store: Any, config: Optional[ServeConfig] = None):
+    def __init__(self, store: Any, config: Optional[ServeConfig] = None,
+                 ledger: Optional[Callable[[], Any]] = None):
         refuse_perfmodel_knobs()
         self.store = store
         self.config = config or ServeConfig.from_env()
+        #: answers the health ledger the breaker transitions go to (None: no feed)
+        self.ledger = ledger
         self.member_ladder = ladder.member_ladder(self.config.max_size)
         #: gate-then-serve; a failed gate serves f32
         self.governor = precision.PrecisionGovernor()
@@ -236,6 +257,12 @@ class ServeEngine:
             on_shed=self._on_shed,
         )
 
+    @property
+    def _recorder(self) -> Any:
+        # the process-shared serving recorder, read at each use: the batch
+        # spans land in the trace the request spans they link to go to
+        return serve_recorder()
+
     # -- request path ---------------------------------------------------------
 
     def eligible_spec(self, fleet: Any, name: str) -> Optional[FeedForwardSpec]:
@@ -244,10 +271,12 @@ class ServeEngine:
         spec = fleet.loaded_specs().get(name)
         return spec if isinstance(spec, FeedForwardSpec) else None
 
-    def batched_predict(self, fleet: Any, name: str, model: Any, X: Any) -> Optional[np.ndarray]:
+    def batched_predict(self, fleet: Any, name: str, model: Any, X: Any, timing: Any = None) -> Optional[np.ndarray]:
         """One request's reconstruction rows by ``fleet`` (the request's
         revision) through the batcher, or None when the request is not
-        batchable (the caller scores it itself).
+        batchable (the caller scores it itself). ``timing`` is the
+        request's recorder: a sampled request's span is linked from its
+        batch's span, and its share of the batch is recorded on it.
 
         Raises :class:`~gordo_tpu_torch.serve.QueueFullError` (429) when
         admission refuses it, :class:`MemberQuarantined` (503) when its
@@ -277,7 +306,7 @@ class ServeEngine:
             if self.breakers.degraded(fleet, spec, desired):
                 prec = precision.F32
             else:
-                prec = self.governor.effective_precision(fleet, spec, desired)
+                prec = self.governor.effective_precision(fleet, spec, desired, recorder=self._recorder)
             if prec != desired:
                 self._count("precision_degraded")
 
@@ -299,7 +328,14 @@ class ServeEngine:
         else:
             payload = np.zeros((padded_rows, spec.n_features), np.float32)
             payload[:rows] = X
-        item = BatchItem(name, payload, rows=rows, deadline=time.monotonic() + self.config.deadline_s)
+        # the request's trace context rides its item only when the serving
+        # trace is on and the request is exported: a link to an unexported
+        # span would dangle
+        trace = None
+        if self._recorder.enabled and timing is not None and getattr(timing, "trace_id", None) \
+                and getattr(timing, "sampled", True):
+            trace = (timing.trace_id, getattr(timing, "default_parent_id", None))
+        item = BatchItem(name, payload, rows=rows, deadline=time.monotonic() + self.config.deadline_s, trace=trace)
         try:
             # precision is part of the key: an f32 and a bf16 request never
             # share a forward (a mixed hot-swap); so is the host transform
@@ -309,7 +345,7 @@ class ServeEngine:
             return None
         self._count("requests")
         try:
-            recon = future.result(timeout=self.config.deadline_s)
+            recon, meta = future.result(timeout=self.config.deadline_s)
         except FutureTimeoutError:
             future.cancel()
             self._count("shed_deadline")
@@ -317,6 +353,9 @@ class ServeEngine:
                 from None
         except CancelledError:
             raise DeadlineExceeded("request expired while queued") from None
+        if timing is not None:
+            for stage, seconds in meta.items():
+                timing.record(stage, seconds)
         # None: the member's smallest forward ran out of memory; the caller
         # scores it unbatched
         return recon
@@ -329,68 +368,117 @@ class ServeEngine:
 
     def _run_batch(self, key: Tuple, items: List[BatchItem]) -> None:
         fleet, spec, padded_rows, prec, host = key
-        names, params, ingest = fleet.serving_bucket(spec, prec)
-        if fleet.host_transformed(spec) != host:
-            # the bucket's membership changed its mode after these riders
-            # queued: they score unbatched, in the bucket's present mode
-            for item in items:
-                try:
-                    item.future.set_result(None)
-                except Exception:  # noqa: BLE001 - the waiter gave up
-                    pass
-            return
-        bucket_rows = {n: i for i, n in enumerate(names)}
-        live: List[BatchItem] = []
-        for item in items:
-            if item.name in bucket_rows:
-                live.append(item)
-                continue
-            try:  # not in the bucket it was queued for
-                item.future.set_exception(KeyError(f"{item.name} left the serving bucket"))
-            except Exception:  # noqa: BLE001 - already resolved
-                pass
-        if not live:
-            return
-        results: List[Tuple[BatchItem, np.ndarray]] = []
-        failures: List[Tuple[BatchItem, BaseException]] = []
-        fallbacks: List[BatchItem] = []
-        self._score_live(fleet, spec, prec, padded_rows, live, params, bucket_rows, ingest,
-                         results, failures, fallbacks)
-        members = len(live)
-        with self._lock:
-            self._counters["batches"] += 1
-            self._counters["coalesced"] += members
-            self._counters["padded_members"] += ladder.pad_to(members, self.member_ladder) or members
-            if ingest is not None:
-                self._counters["ingest_batches"] += 1
-            self._precision_counters[prec] = self._precision_counters.get(prec, 0) + members
-        for item, rows in results:
-            try:
-                fault_point("serve_scatter", self._fault_key(spec, prec, item.name))
-                item.future.set_result(rows[: item.rows])
-            except FaultInjected as exc:
-                # one rider's hand-back failure is that rider's alone
-                try:
-                    item.future.set_exception(ServeDeviceError(item.name, exc))
-                except Exception:  # noqa: BLE001 - the waiter gave up
-                    pass
-            except Exception:  # noqa: BLE001 - the waiter gave up (504)
-                pass
-        for item in fallbacks:
-            try:
-                item.future.set_result(None)
-            except Exception:  # noqa: BLE001 - the waiter gave up
-                pass
-        for item, exc in failures:
-            try:
-                item.future.set_exception(exc)
-            except Exception:  # noqa: BLE001 - the waiter gave up
-                pass
+        recorder = self._recorder
+        flush_start = time.monotonic()
+        with recorder.span("serve_batch", spec=type(spec).__name__, n_features=spec.n_features, size=len(items),
+                           precision=prec) as batch_span:
+            with recorder.span("stack"):
+                stack_start = time.monotonic()
+                names, params, ingest = fleet.serving_bucket(spec, prec)
+                if fleet.host_transformed(spec) != host:
+                    # the bucket's membership changed its mode after these riders
+                    # queued: they score unbatched, in the bucket's present mode
+                    for item in items:
+                        try:
+                            item.future.set_result((None, {}))
+                        except Exception:  # noqa: BLE001 - the waiter gave up
+                            pass
+                    return
+                bucket_rows = {n: i for i, n in enumerate(names)}
+                live: List[BatchItem] = []
+                for item in items:
+                    if item.name in bucket_rows:
+                        live.append(item)
+                        continue
+                    try:  # not in the bucket it was queued for
+                        item.future.set_exception(KeyError(f"{item.name} left the serving bucket"))
+                    except Exception:  # noqa: BLE001 - already resolved
+                        pass
+                if not live:
+                    return
+                stack_s = time.monotonic() - stack_start
+            members = len(live)
+            padded_members = ladder.pad_to(members, self.member_ladder) or members
+            results: List[Tuple[BatchItem, np.ndarray]] = []
+            failures: List[Tuple[BatchItem, BaseException]] = []
+            fallbacks: List[BatchItem] = []
+            # the stacking and the copy to the device inside the scoring
+            # ladder (bisection runs several forwards) are summed here
+            timings = {"stack": 0.0, "device_ingest": 0.0}
+            with recorder.span("device", padded_members=padded_members, padded_rows=padded_rows, precision=prec):
+                device_start = time.monotonic()
+                self._score_live(fleet, spec, prec, padded_rows, live, params, bucket_rows, ingest,
+                                 results, failures, fallbacks, timings)
+                device_s = time.monotonic() - device_start - timings["stack"] - timings["device_ingest"]
+            stack_s += timings["stack"]
+            ingest_s = timings["device_ingest"]
+            with self._lock:
+                self._counters["batches"] += 1
+                self._counters["coalesced"] += members
+                self._counters["padded_members"] += padded_members
+                if ingest is not None:
+                    self._counters["ingest_batches"] += 1
+                self._precision_counters[prec] = self._precision_counters.get(prec, 0) + members
+            scatter_start = time.monotonic()
+            with recorder.span("scatter"):
+                for item, rows in results:
+                    # read per rider: batch_scatter is the loop's own cost so far
+                    meta = {
+                        "queue_wait": flush_start - item.enqueued_at,
+                        "batch_stack": stack_s,
+                        "batch_device": device_s,
+                        "batch_scatter": time.monotonic() - scatter_start,
+                    }
+                    if ingest is not None:
+                        meta["device_ingest"] = ingest_s
+                    try:
+                        fault_point("serve_scatter", self._fault_key(spec, prec, item.name))
+                        item.future.set_result((rows[: item.rows], meta))
+                    except FaultInjected as exc:
+                        # one rider's hand-back failure is that rider's alone
+                        try:
+                            item.future.set_exception(ServeDeviceError(item.name, exc))
+                        except Exception:  # noqa: BLE001 - the waiter gave up
+                            pass
+                    except Exception:  # noqa: BLE001 - the waiter gave up (504)
+                        pass
+                for item in fallbacks:
+                    try:
+                        item.future.set_result((None, {}))
+                    except Exception:  # noqa: BLE001 - the waiter gave up
+                        pass
+                for item, exc in failures:
+                    try:
+                        item.future.set_exception(exc)
+                    except Exception:  # noqa: BLE001 - the waiter gave up
+                        pass
+            if recorder.enabled:
+                useful = sum(item.rows for item in live)
+                batch_span.set(
+                    coalesced=members,
+                    flops_per_sample=spec_flops_per_sample(spec),
+                    padded_members=padded_members,
+                    padded_rows=padded_rows,
+                    padding_waste=round(1.0 - useful / float(padded_members * padded_rows), 4),
+                    queue_wait_max_ms=round(max(flush_start - item.enqueued_at for item in items) * 1000.0, 3),
+                    precision=prec,
+                    predicted_device_ms=round(
+                        CostModel().predict_serve_step_s(spec, members, padded_rows, prec) * 1000.0, 4),
+                    device_ms=round(device_s * 1000.0, 3),
+                    ingest_ms=round(ingest_s * 1000.0, 3),
+                    isolated_failures=len(failures),
+                )
+                for item in live:
+                    if item.trace is not None:
+                        trace_id, span_id = item.trace
+                        batch_span.link(trace_id, span_id or "", name=item.name,
+                                        queue_wait_ms=round((flush_start - item.enqueued_at) * 1000.0, 3))
 
     # -- failure containment (the scoring ladder) -------------------------------
 
     def _score_live(self, fleet, spec, prec: str, padded_rows: int, live: List[BatchItem], params,
-                    bucket_rows: Dict[str, int], ingest, results: List, failures: List, fallbacks: List) -> None:
+                    bucket_rows: Dict[str, int], ingest, results: List, failures: List, fallbacks: List,
+                    timings: Dict[str, float]) -> None:
         """Score ``live``: a device error of the fused forward bisects the
         batch and scores each half; a one-member forward's failure is the
         member's own (:meth:`_member_failure`). A sticky CUDA error answers
@@ -403,10 +491,10 @@ class ServeEngine:
         if cap is not None and len(live) > cap:
             for start in range(0, len(live), cap):
                 self._score_live(fleet, spec, prec, padded_rows, live[start:start + cap], params, bucket_rows,
-                                 ingest, results, failures, fallbacks)
+                                 ingest, results, failures, fallbacks, timings)
             return
         try:
-            recon = self._fused_live(fleet, spec, prec, padded_rows, live, params, bucket_rows, ingest)
+            recon = self._fused_live(fleet, spec, prec, padded_rows, live, params, bucket_rows, ingest, timings)
         except Exception as exc:
             if not is_device_error(exc):
                 raise
@@ -423,14 +511,16 @@ class ServeEngine:
             self._note_resource_exhausted(fleet, spec, prec, len(live), padded_rows, exc)
             if len(live) > 1:
                 self._count("batch_bisects")
+                self._recorder.event("serve_bisect", members=len(live), precision=prec, error=repr(exc)[:200])
                 logger.warning("fused serving forward failed for %d coalesced member(s) (%s); bisecting",
                                len(live), exc)
                 mid = len(live) // 2
                 for half in (live[:mid], live[mid:]):
                     self._score_live(fleet, spec, prec, padded_rows, half, params, bucket_rows, ingest,
-                                     results, failures, fallbacks)
+                                     results, failures, fallbacks, timings)
             else:
-                self._member_failure(fleet, spec, prec, padded_rows, live[0], exc, results, failures, fallbacks)
+                self._member_failure(fleet, spec, prec, padded_rows, live[0], exc, results, failures, fallbacks,
+                                     timings)
             return
         for i, item in enumerate(live):
             rows = recon[i]
@@ -445,7 +535,7 @@ class ServeEngine:
                     self._member_failure(
                         fleet, spec, prec, padded_rows, item,
                         FloatingPointError(f"non-finite output from member {item.name} ({prec}) for finite input"),
-                        results, failures, fallbacks,
+                        results, failures, fallbacks, timings,
                     )
                     continue
                 # non-finite input rows are the client's; the unbatched
@@ -454,17 +544,22 @@ class ServeEngine:
             self.breakers.record_success(fleet, spec, item.name)
 
     def _fused_live(self, fleet, spec, prec: str, padded_rows: int, live: List[BatchItem], params,
-                    bucket_rows: Dict[str, int], ingest) -> np.ndarray:
+                    bucket_rows: Dict[str, int], ingest, timings: Dict[str, float]) -> np.ndarray:
         """One fused forward over ``live``: the payloads stacked on the host
         and copied to the device once, one gather launch, one copy back;
-        returns the ``[len(live), padded_rows, F_out]`` host rows."""
+        returns the ``[len(live), padded_rows, F_out]`` host rows. The
+        stacking and the copy's enqueueing are added to ``timings``."""
         from ..server.fleet_store import fleet_forward_gather
 
         for item in live:
             fault_point("serve_device_program", self._fault_key(spec, prec, item.name))
+        t0 = time.monotonic()
         X = torch.from_numpy(np.stack([item.payload for item in live]))
+        t1 = time.monotonic()
         if fleet.device.type == "cuda":
             X = X.pin_memory().to(fleet.device, non_blocking=True)
+        timings["stack"] += t1 - t0
+        timings["device_ingest"] += time.monotonic() - t1
         indices = [bucket_rows[item.name] for item in live]
         recon = fleet_forward_gather(spec, params, indices, X, ingest=ingest, precision=prec).cpu().numpy()
         members = len(live)
@@ -476,7 +571,7 @@ class ServeEngine:
         return recon
 
     def _member_failure(self, fleet, spec, prec: str, padded_rows: int, item: BatchItem, exc: BaseException,
-                        results: List, failures: List, fallbacks: List) -> None:
+                        results: List, failures: List, fallbacks: List, timings: Dict[str, float]) -> None:
         """One member failed alone. In order: an out-of-memory hands the
         request back to the unbatched path (the rung was demoted; the member
         is not to blame); a reduced-precision bucket degrades to f32 and the
@@ -496,10 +591,11 @@ class ServeEngine:
             if item.name in names32:
                 rows32 = {n: i for i, n in enumerate(names32)}
                 self._score_live(fleet, spec, precision.F32, padded_rows, [item], params32, rows32, ingest32,
-                                 results, failures, fallbacks)
+                                 results, failures, fallbacks, timings)
                 return
         self._count("members_isolated")
         logger.error("serving device forward failed for member %s in isolation: %r", item.name, exc)
+        self._recorder.event("serve_member_isolated", member=item.name, precision=prec, error=repr(exc)[:200])
         self.breakers.record_failure(fleet, spec, item.name, exc)
         failures.append((item, ServeDeviceError(item.name, exc)))
 
@@ -510,6 +606,8 @@ class ServeEngine:
         if not self.breakers.degrade_bucket(fleet, spec, prec):
             return  # already degraded
         logger.warning("degrading (%s, %s) bucket to f32 after a device error: %r", type(spec).__name__, prec, exc)
+        self._recorder.event("precision_degraded", collection_dir=getattr(fleet, "collection_dir", ""),
+                             precision=prec, error=repr(exc)[:200])
         fleet.set_precision_state(spec, prec, {
             "precision": prec,
             "spec": type(spec).__name__,
@@ -547,10 +645,22 @@ class ServeEngine:
             self._count("rung_demotions")
             logger.warning("out of memory at (%s members, %s rows, %s): capping the %s ladder for %s at %d",
                            members, padded_rows, prec, demoted[0], type(spec).__name__, demoted[1])
+            self._recorder.event("serve_rung_demoted", spec=type(spec).__name__, precision=prec, axis=demoted[0],
+                                 cap=demoted[1], model_informed=False, error=repr(exc)[:200])
 
     def _on_breaker_transition(self, member: str, old: str, new: str, info: dict) -> None:
+        """A breaker's transition: the trip counter, a ``serve_breaker``
+        event, and the member's ``breaker`` section of the health ledger."""
         if new == "open":
             self._count("breaker_trips")
+        self._recorder.event("serve_breaker", member=member, old_state=old, new_state=new, trips=info.get("trips"),
+                             cooldown_s=info.get("cooldown_s"), error=info.get("last_error", ""))
+        if self.ledger is None:
+            return
+        try:
+            self.ledger().record_breaker_transition(member, new, info)
+        except Exception:  # noqa: BLE001 - the ledger is advisory
+            logger.debug("breaker ledger feed failed", exc_info=True)
 
     # -- warmup ---------------------------------------------------------------
 
@@ -575,15 +685,16 @@ class ServeEngine:
         runs = 0
         for spec in sorted(specs, key=repr):
             desired = precision.resolve_precision(spec, self.config.precision)
-            prec = self.governor.effective_precision(fleet, spec, desired) if desired != precision.F32 \
-                else precision.F32
+            prec = self.governor.effective_precision(fleet, spec, desired, recorder=self._recorder) \
+                if desired != precision.F32 else precision.F32
             try:
                 names, params, ingest = fleet.serving_bucket(spec, prec)
             except KeyError:
                 continue
             members = min(len(names), self.config.max_size)
             X = torch.zeros((members, warm_rows, spec.n_features), dtype=torch.float32, device=fleet.device)
-            fleet_forward_gather(spec, params, list(range(members)), X, ingest=ingest, precision=prec).cpu()
+            with self._recorder.span("warmup_program", padded_members=members, padded_rows=warm_rows, precision=prec):
+                fleet_forward_gather(spec, params, list(range(members)), X, ingest=ingest, precision=prec).cpu()
             runs += 1
         self._count("warmup_programs", runs)
         seconds = time.monotonic() - start

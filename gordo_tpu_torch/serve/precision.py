@@ -353,7 +353,7 @@ class PrecisionGovernor:
         #: gating one bucket never holds up another's first request
         self._evaluating: Dict[Tuple, threading.Lock] = {}
 
-    def effective_precision(self, fleet: Any, spec: Any, desired: str) -> str:
+    def effective_precision(self, fleet: Any, spec: Any, desired: str, recorder: Any = None) -> str:
         desired = normalize(desired)
         if desired == F32:
             return F32
@@ -367,12 +367,12 @@ class PrecisionGovernor:
             with key_lock:  # one evaluation a bucket, however many threads ask
                 state = fleet.precision_state(spec, desired)
                 if state is None:
-                    state = self._evaluate(fleet, spec, desired)
+                    state = self._evaluate(fleet, spec, desired, recorder)
             with self._lock:
                 self._evaluating.pop(key, None)
         return desired if state.get("passed") else F32
 
-    def _evaluate(self, fleet: Any, spec: Any, precision: str) -> Dict[str, Any]:
+    def _evaluate(self, fleet: Any, spec: Any, precision: str, recorder: Any = None) -> Dict[str, Any]:
         try:
             report = evaluate_parity(fleet, spec, precision)
         except (KeyboardInterrupt, SystemExit):
@@ -393,4 +393,11 @@ class PrecisionGovernor:
                 "precision gate FAILED for %s at %s; serving f32: %s",
                 fleet.collection_dir, report["precision"], report.get("detail", "verdict divergence"),
             )
+        if recorder is not None:  # the verdict as a ``precision_gate`` event of the serving trace
+            try:
+                recorder.event("precision_gate", collection_dir=fleet.collection_dir, precision=report["precision"],
+                               passed=bool(report.get("passed")), agreement_min=report.get("agreement_min"),
+                               detail=report.get("detail", ""))
+            except Exception:  # noqa: BLE001 - telemetry is advisory
+                pass
         return report

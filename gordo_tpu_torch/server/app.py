@@ -2,8 +2,8 @@
 The model server: a plain WSGI application, served with ``wsgiref``.
 
 The routes of the JAX server's URL map (``gordo_tpu/server/app.py``),
-with its JSON shapes, in its order; ``fleet-health`` and ``slo`` are not
-ported (``ROADMAP.md`` item 11b):
+with its JSON shapes, in its order; ``slo`` is not ported (the SLO
+engine, ``ROADMAP.md`` item 11b):
 
 - ``GET /healthcheck`` and ``GET /server-version``;
 - under ``/gordo/v0/<project>/``: ``POST <name>/prediction``,
@@ -16,7 +16,10 @@ ported (``ROADMAP.md`` item 11b):
   ``GET .../stream/<id>/events`` (server-sent events),
   ``GET .../stream/status`` and ``DELETE .../stream/<id>``;
 - ``GET /gordo/v0/<project>/build-status``: the ``build_status.json`` a
-  fleet build wrote beside the revision's machines, or 404.
+  fleet build wrote beside the revision's machines, or 404;
+- ``GET /gordo/v0/<project>/fleet-health``: the joined fleet-status
+  document (``telemetry/fleet_health.py``), ``?machines=``, ``?limit=``
+  and ``?offset=`` selecting its health records.
 
 A request may pin a revision, a sibling directory of the served one,
 with ``?revision=`` or a ``revision`` header. Every JSON body of a
@@ -36,14 +39,40 @@ on (``serve/engine.py``; its warmup runs in the background unless
 ``GORDO_TPU_SERVE_WARMUP=0``) and, from the first stream route on, its
 :class:`~gordo_tpu_torch.stream.StreamPlane`, which quarantines through
 the engine's breaker board when there is an engine.
+
+What the server records about its traffic (``gordo_tpu/server/app.py``'s
+``RequestContext`` and ``_finalize``): every request has a W3C trace
+identity (an incoming ``traceparent`` continued, else a fresh one),
+echoed in the ``traceparent`` header and bound to its log lines. Its
+stages (``model_resolve``, ``data_decode``, ``device_ingest``,
+``inference``, ``response_assemble``, ``serialize``, and the engine's
+``queue_wait`` and ``batch_*``) are spans of an in-memory recorder, and
+every response carries them as ``Server-Timing`` (ms each, then
+``request_walltime_s`` in seconds). A sampled request
+(``GORDO_TPU_TRACE_SAMPLE_RATE``, an upstream's sampled flag, or
+``?profile=``) is exported to ``serve_trace.jsonl``
+(``telemetry/serving.py``) with a ``request`` span, ``ERROR`` on a 5xx;
+``/healthcheck`` and ``/server-version`` never are. ``?profile=1`` adds
+the host sampling profiler's ``profile`` span; ``?profile=device``
+records the request with ``torch.profiler`` under
+``GORDO_TPU_PROFILE_DIR``. The scoring requests of a resolved model feed
+the served directory's serving health ledger, one for the process
+(``telemetry.serving_ledger``), which adopts the directory's last snapshot
+on first use and which the app's engine and plane feed too (a 503 is not
+an error there). With ``GORDO_TPU_TELEMETRY=0`` nothing is
+written and ``Server-Timing`` stays. The server does not fork workers, so
+the JAX package's post-fork resets have no counterpart.
 """
 
+import contextlib
 import json
 import logging
 import os
 import re
 import socketserver
 import threading
+import time
+import timeit
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 from urllib.parse import parse_qs
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
@@ -51,6 +80,9 @@ from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 from .. import DeviceLike, resolve_device
 from ..serve.engine import ServeConfig, ServeEngine, batching_enabled
 from ..stream import StreamPlane, stream_enabled
+from ..telemetry import SamplingProfiler, SpanRecorder, live_serving_ledger, serving_ledger, should_profile
+from ..telemetry import serving as serve_trace
+from ..telemetry import tracing
 from ..utils import yaml_lite
 from ..utils.env import env_bool
 from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
@@ -158,16 +190,56 @@ class Response:
 class RequestContext:
     """Per-request state handed to the views: the served revision, and
     the revision that answers once :meth:`resolve_revision` has run
-    (``collection_dir``, ``revision``)."""
+    (``collection_dir``, ``revision``); the request's trace identity
+    (``trace_id``, its own ``span_id``, the caller's span) and its stage
+    recorder ``timing``."""
 
     def __init__(self, app: "GordoServerApp", request: Request):
         self.app = app
         self.request = request
+        self.start_time = timeit.default_timer()
+        self.start_wall = time.time()
+        incoming = tracing.parse_traceparent(request.header(tracing.TRACEPARENT_HEADER))
+        if incoming is not None:
+            self.trace_id = incoming.trace_id
+            self.remote_parent_id: Optional[str] = incoming.span_id
+            # the upstream's sampling decision holds; None: decided in dispatch
+            self.sampled: Optional[bool] = incoming.sampled
+            self.span_id = tracing.new_span_id()
+        else:
+            fresh = tracing.new_trace_context()
+            self.trace_id, self.span_id = fresh.trace_id, fresh.span_id
+            self.remote_parent_id = None
+            self.sampled = None
+        # in memory only: the stages nest under the request's span
+        self.timing = SpanRecorder(service="gordo-tpu-server", trace_id=self.trace_id)
+        self.timing.default_parent_id = self.span_id
+        self.current_stage: Optional[str] = None
+        #: (name, start) of a stage that ends with the request (``serialize``):
+        #: closed at the request's own end, so no wait after the encode is lost
+        self.deferred_stage: Optional[Tuple[str, float]] = None
+        self.profiler: Optional[SamplingProfiler] = None
+        self.endpoint: Optional[str] = None
+        self.gordo_name: Optional[str] = None
+        #: the model a scoring route resolved (what the health ledger counts)
+        self.model: Any = None
         self.store = app.store
         self.collection_dir = app.store.collection_dir
         self.current_revision = app.revision
         self.revision: Optional[str] = None
         self._fleet: Optional[RevisionFleet] = None
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """One request stage as a span: in ``Server-Timing``, the exported
+        trace and the profiler's stage axis (``current_stage``)."""
+        previous = self.current_stage
+        self.current_stage = name
+        try:
+            with self.timing.span(name) as handle:
+                yield handle
+        finally:
+            self.current_stage = previous
 
     def resolve_revision(self) -> None:
         """Point the request at the revision it pins (``?revision=`` or
@@ -204,33 +276,41 @@ class RequestContext:
     def json_response(self, payload: Dict[str, Any], status: int = 200) -> Response:
         if self.revision is not None:
             payload = {**payload, "revision": self.revision}
-        return Response(dumps(payload).encode(), status)
+        with self.stage("serialize"):
+            body = dumps(payload).encode()
+        return Response(body, status)
 
 
-def _routes() -> List[Tuple[str, "re.Pattern[str]", Callable[..., Response]]]:
-    """``(method, path pattern, view)`` in the JAX server's URL map order."""
+def _routes() -> List[Tuple[str, "re.Pattern[str]", Callable[..., Response], str]]:
+    """``(method, path pattern, view, endpoint)`` in the JAX server's URL
+    map order, with its endpoint names (a request span's ``http.route``)."""
     from .views import anomaly, base, stream
 
     project = rf"^{PREFIX}/(?P<gordo_project>[^/]+)"
     model = rf"{project}/(?P<gordo_name>[^/]+)"
     return [
-        ("GET", re.compile(r"^/healthcheck/?$"), base.get_healthcheck),
-        ("GET", re.compile(r"^/server-version/?$"), base.get_server_version),
-        ("POST", re.compile(rf"{model}/prediction/?$"), base.post_prediction),
-        ("POST", re.compile(rf"{model}/anomaly/prediction/?$"), anomaly.post_anomaly_prediction),
-        ("GET", re.compile(rf"{model}/metadata/?$"), base.get_metadata),
-        ("GET", re.compile(rf"{model}/healthcheck/?$"), base.get_metadata),
-        ("GET", re.compile(rf"{model}/download-model/?$"), base.get_download_model),
-        ("DELETE", re.compile(rf"{model}/revision/(?P<revision>[^/]+)/?$"), base.delete_model_revision),
-        ("POST", re.compile(rf"{project}/prediction/fleet/?$"), base.post_fleet_prediction),
-        ("POST", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/ingest/?$"), stream.post_stream_ingest),
-        ("GET", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/events/?$"), stream.get_stream_events),
-        ("GET", re.compile(rf"{project}/stream/status/?$"), stream.get_stream_status),
-        ("DELETE", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/?$"), stream.delete_stream),
-        ("GET", re.compile(rf"{project}/build-status/?$"), base.get_build_status),
-        ("GET", re.compile(rf"{project}/models/?$"), base.get_model_list),
-        ("GET", re.compile(rf"{project}/revisions/?$"), base.get_revision_list),
-        ("GET", re.compile(rf"{project}/expected-models/?$"), base.get_expected_models),
+        ("GET", re.compile(r"^/healthcheck/?$"), base.get_healthcheck, "healthcheck"),
+        ("GET", re.compile(r"^/server-version/?$"), base.get_server_version, "server-version"),
+        ("POST", re.compile(rf"{model}/prediction/?$"), base.post_prediction, "prediction"),
+        ("POST", re.compile(rf"{model}/anomaly/prediction/?$"), anomaly.post_anomaly_prediction,
+         "anomaly-prediction"),
+        ("GET", re.compile(rf"{model}/metadata/?$"), base.get_metadata, "metadata"),
+        ("GET", re.compile(rf"{model}/healthcheck/?$"), base.get_metadata, "model-healthcheck"),
+        ("GET", re.compile(rf"{model}/download-model/?$"), base.get_download_model, "download-model"),
+        ("DELETE", re.compile(rf"{model}/revision/(?P<revision>[^/]+)/?$"), base.delete_model_revision,
+         "delete-revision"),
+        ("POST", re.compile(rf"{project}/prediction/fleet/?$"), base.post_fleet_prediction, "fleet-prediction"),
+        ("POST", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/ingest/?$"), stream.post_stream_ingest,
+         "stream-ingest"),
+        ("GET", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/events/?$"), stream.get_stream_events,
+         "stream-events"),
+        ("GET", re.compile(rf"{project}/stream/status/?$"), stream.get_stream_status, "stream-status"),
+        ("DELETE", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/?$"), stream.delete_stream, "stream-close"),
+        ("GET", re.compile(rf"{project}/build-status/?$"), base.get_build_status, "build-status"),
+        ("GET", re.compile(rf"{project}/fleet-health/?$"), base.get_fleet_health, "fleet-health"),
+        ("GET", re.compile(rf"{project}/models/?$"), base.get_model_list, "models"),
+        ("GET", re.compile(rf"{project}/revisions/?$"), base.get_revision_list, "revisions"),
+        ("GET", re.compile(rf"{project}/expected-models/?$"), base.get_expected_models, "expected-models"),
     ]
 
 
@@ -238,7 +318,13 @@ class GordoServerApp:
     """The WSGI application serving one model-collection (revision)
     directory, and the revisions beside it that requests pin, on one
     device. ``expected_models`` is what ``/expected-models`` lists; with a
-    ``serve_config`` the app runs a serving engine of that configuration."""
+    ``serve_config`` the app runs a serving engine of that configuration.
+    ``project`` names the health ledger's project (default ``$PROJECT``)."""
+
+    #: endpoints whose requests are never exported (load balancers poll them)
+    UNTRACED_ENDPOINTS = (None, "healthcheck", "server-version")
+    #: endpoints whose outcomes feed the health ledger: scoring only
+    HEALTH_ENDPOINTS = ("prediction", "anomaly-prediction")
 
     def __init__(
         self,
@@ -246,15 +332,31 @@ class GordoServerApp:
         device: DeviceLike = None,
         expected_models: Sequence[str] = (),
         serve_config: Optional[ServeConfig] = None,
+        project: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.store = FleetModelStore(collection_dir, self.device)
         self.revision = os.path.basename(os.path.normpath(collection_dir))
         self.expected_models = list(expected_models)
+        self.project = project if project is not None else (os.environ.get("PROJECT") or "")
         self.routes = _routes()
-        self.engine: Optional[ServeEngine] = None if serve_config is None else ServeEngine(self.store, serve_config)
+        self.engine: Optional[ServeEngine] = None if serve_config is None else ServeEngine(
+            self.store, serve_config, ledger=self.health_ledger)
         self.plane: Optional[StreamPlane] = None
         self._plane_lock = threading.Lock()
+
+    def health_ledger(self) -> Any:
+        """The serving health ledger of the served directory: one for the
+        process, whichever app, engine or plane feeds it, made on first
+        use (adopting the directory's last snapshot); the null ledger while
+        health telemetry is off."""
+        return serving_ledger(self.store.collection_dir, project=self.project)
+
+    @property
+    def live_ledger(self) -> Any:
+        """The served directory's serving ledger if the process has made
+        one, else None."""
+        return live_serving_ledger(self.store.collection_dir)
 
     def ensure_plane(self) -> Optional[StreamPlane]:
         """The app's streaming plane, created on first use from the
@@ -263,7 +365,8 @@ class GordoServerApp:
             return None
         with self._plane_lock:
             if self.plane is None:
-                self.plane = StreamPlane(self.store, breakers=None if self.engine is None else self.engine.breakers)
+                self.plane = StreamPlane(self.store, breakers=None if self.engine is None else self.engine.breakers,
+                                         ledger=self.health_ledger)
             return self.plane
 
     def start_warmup(self) -> Optional[threading.Thread]:
@@ -286,41 +389,126 @@ class GordoServerApp:
 
     def shutdown(self) -> None:
         """Drain: every live stream gets its terminal ``drain`` frame, then
-        the engine scores everything already queued and stops; later
-        requests are scored unbatched."""
+        the engine scores everything already queued and stops (later
+        requests are scored unbatched); then the serving trace's queue is
+        written and the health ledger's snapshot replaced (where the JAX
+        server leaves it to its heartbeat)."""
         if self.plane is not None:
             self.plane.drain()
         if self.engine is not None:
             self.engine.shutdown(drain=True)
+        serve_trace.serve_recorder().flush()
+        ledger = self.live_ledger
+        if ledger is not None:
+            ledger.flush()
 
     def dispatch(self, request: Request) -> Response:
         ctx = RequestContext(self, request)
+        token = tracing.bind(ctx.trace_id)
         try:
-            response = self._dispatch(ctx, request)
-        except ServerError as exc:
-            response = ctx.json_response(exc.payload, status=exc.status)
-        except Exception:  # noqa: BLE001 - the server boundary answers 500
-            logger.exception("Unhandled server error")
-            response = ctx.json_response({"error": "Internal Server Error"}, status=500)
-        if ctx.revision is not None:
-            response.headers.setdefault("revision", ctx.revision)
-        return response
+            try:
+                response = self._dispatch(ctx, request)
+            except ServerError as exc:
+                response = ctx.json_response(exc.payload, status=exc.status)
+            except Exception:  # noqa: BLE001 - the server boundary answers 500
+                logger.exception("Unhandled server error")
+                response = ctx.json_response({"error": "Internal Server Error"}, status=500)
+            return self._finalize(ctx, response)
+        finally:
+            tracing.unbind(token)
 
     def _dispatch(self, ctx: RequestContext, request: Request) -> Response:
         allowed = []
-        for method, pattern, view in self.routes:
+        for method, pattern, view, endpoint in self.routes:
             match = pattern.match(request.path)
             if match is None:
                 continue
             if method != request.method:
                 allowed.append(method)
                 continue
-            if request.path.startswith(PREFIX + "/"):  # /healthcheck and /server-version have no revision
-                ctx.resolve_revision()
-            return view(ctx, **match.groupdict())
+            ctx.endpoint = endpoint
+            args = match.groupdict()
+            ctx.gordo_name = args.get("gordo_name")
+            if endpoint in ("healthcheck", "server-version"):  # no revision, no sampling
+                return view(ctx, **args)
+            self._decide_sampling(ctx)
+            ctx.resolve_revision()
+            if request.arg("profile") == "device":
+                from ..utils.profiling import maybe_trace
+
+                with maybe_trace(f"request-{ctx.trace_id[:16]}"):
+                    return view(ctx, **args)
+            return view(ctx, **args)
         if allowed:
             return ctx.json_response({"error": "Method Not Allowed"}, status=405)
         return ctx.json_response({"error": "Not Found"}, status=404)
+
+    def _decide_sampling(self, ctx: RequestContext) -> None:
+        """Export sampling with the serving trace on: the upstream's
+        decision, else the head-sampling coin; a profiled request (``?profile=``)
+        is always exported."""
+        if serve_trace.serve_recorder().enabled:
+            if ctx.sampled is None:
+                ctx.sampled = serve_trace.sample_trace()
+            if should_profile(ctx.request.arg("profile")):
+                ctx.sampled = True
+                ctx.profiler = SamplingProfiler().start(stage_getter=lambda: ctx.current_stage)
+        else:
+            ctx.sampled = False
+        # the engine links a batch to this request only when it is exported
+        ctx.timing.sampled = ctx.sampled
+
+    def _finalize(self, ctx: RequestContext, response: Response) -> Response:
+        """The ``revision``, ``traceparent`` and ``Server-Timing`` headers
+        (each stage in ms, then ``request_walltime_s`` in seconds); the
+        health ledger; the export of a sampled request."""
+        if ctx.revision is not None:
+            response.headers.setdefault("revision", ctx.revision)
+        response.headers[tracing.TRACEPARENT_HEADER] = tracing.format_traceparent(
+            ctx.trace_id, ctx.span_id, sampled=bool(ctx.sampled))
+        runtime_s = timeit.default_timer() - ctx.start_time
+        if ctx.deferred_stage is not None:
+            name, stage_start = ctx.deferred_stage
+            ctx.deferred_stage = None
+            ctx.timing.record(name, max(0.0, timeit.default_timer() - stage_start))
+        entries = [f"{name};dur={round(seconds * 1000.0, 2)}" for name, seconds in ctx.timing.durations().items()]
+        entries.append(f"request_walltime_s;dur={runtime_s}")
+        response.headers["Server-Timing"] = ", ".join(entries)
+        profile_report = None
+        if ctx.profiler is not None:
+            profile_report = ctx.profiler.stop()
+            ctx.profiler = None
+        self._record_health(ctx, response)
+        if ctx.sampled and ctx.endpoint not in self.UNTRACED_ENDPOINTS:
+            serve_trace.export_request_trace(
+                ctx.timing,
+                span_id=ctx.span_id,
+                parent_id=ctx.remote_parent_id,
+                start=ctx.start_wall,
+                duration_s=runtime_s,
+                attributes={
+                    "http.method": ctx.request.method,
+                    "http.route": ctx.endpoint,
+                    "http.status_code": response.status,
+                    "gordo_name": ctx.gordo_name or "",
+                    "revision": ctx.revision or "",
+                },
+                error=f"HTTP {response.status}" if response.status >= 500 else None,
+                profile=profile_report,
+            )
+        return response
+
+    def _record_health(self, ctx: RequestContext, response: Response) -> None:
+        """A scoring request of a resolved model into the health ledger: a
+        5xx is the machine's error, a 503 (its breaker shedding) is not, a
+        4xx is the client's. Advisory: a failure here is logged and dropped."""
+        if ctx.endpoint not in self.HEALTH_ENDPOINTS or not ctx.gordo_name or ctx.model is None:
+            return
+        try:
+            self.health_ledger().record_request(ctx.gordo_name,
+                                                error=response.status >= 500 and response.status != 503)
+        except Exception:  # noqa: BLE001 - health telemetry is advisory
+            logger.debug("health ledger request not recorded", exc_info=True)
 
     def __call__(self, environ: Dict[str, Any], start_response) -> Iterable[bytes]:
         response = self.dispatch(Request(environ))
@@ -371,6 +559,8 @@ def build_app(
     if serve_config is None and batching_enabled():
         serve_config = ServeConfig.from_env()
     app = GordoServerApp(collection_dir, device, expected, serve_config)
+    # every log record made in a request carries its trace id from here on
+    tracing.install_trace_log_stamping()
     if app.engine is not None:
         logger.info(
             "micro-batching engine on: max_size=%d max_delay=%.1fms queue_depth=%d row_ladder=%s precision=%s",

@@ -231,6 +231,19 @@ def fleet_forward_gather(
     return serve_precision.forward_feedforward_bf16(spec, members, h)
 
 
+class StagedInput:
+    """One request's rows on the device (:meth:`RevisionFleet.stage_input`):
+    the member, its spec, ``x[1, B, F]`` and, for an LSTM, its windows."""
+
+    __slots__ = ("name", "spec", "x", "windows")
+
+    def __init__(self, name: str, spec: ModelSpec, x: torch.Tensor, windows: int):
+        self.name = name
+        self.spec = spec
+        self.x = x
+        self.windows = windows
+
+
 class RevisionFleet:
     """All models of one revision directory, loaded lazily and kept for
     the life of the revision, with one stacked bucket and ingest plan per
@@ -380,7 +393,15 @@ class RevisionFleet:
         """One model's reconstruction of raw rows ``X[B, F]``: the compiled
         single-member path, one gather launch with the ingest prologue; an
         LSTM's, one windowed forward of the member (``B - offset`` rows;
-        ``ValueError`` unless its lookback is under ``B``)."""
+        ``ValueError`` unless its lookback is under ``B``).
+        :meth:`stage_input` then :meth:`predict_staged`."""
+        return self.predict_staged(self.stage_input(name, X))
+
+    def stage_input(self, name: str, X: np.ndarray) -> "StagedInput":
+        """One request's rows on the device for :meth:`predict_staged` (the
+        routes' ``device_ingest`` stage): checked, transformed on the host
+        in a host-transformed bucket, copied. ``TypeError`` for a model
+        without an autoencoder, ``ValueError`` for rows it cannot take."""
         estimator = find_estimator(self.model(name))
         if estimator is None:
             raise TypeError(f"{name} holds no servable autoencoder")
@@ -388,16 +409,62 @@ class RevisionFleet:
         X = np.asarray(X)
         if X.ndim != 2 or X.shape[1] != spec.n_features:
             raise ValueError(f"expected rows of {spec.n_features} features, got shape {X.shape}")
-        names, stacked, ingest = self._bucket(spec)
+        if isinstance(spec, LSTMSpec) and spec.lookback_window >= len(X):
+            raise ValueError(f"For {type(estimator).__name__} lookback_window must be < size of X")
         # a host-transformed bucket reads the member's transformed rows; any other, the raw rows
         rows = host_transform(self.model(name), X) if self.host_transformed(spec) else np.asarray(X, np.float32)
-        x = torch.from_numpy(rows).to(self.device)[None]
+        windows = len(X) - estimator.offset if isinstance(spec, LSTMSpec) else len(X)
+        return StagedInput(name, spec, torch.from_numpy(rows).to(self.device)[None], windows)
+
+    def predict_staged(self, staged: "StagedInput") -> np.ndarray:
+        """The forward of one staged request (the routes' ``inference``
+        stage): one K1 gather launch, or an LSTM's windowed forward, and the
+        copy back to the host, which waits for the launch."""
+        spec = staged.spec
+        names, stacked, ingest = self._bucket(spec)
         if isinstance(spec, LSTMSpec):
-            if spec.lookback_window >= len(X):
-                raise ValueError(f"For {type(estimator).__name__} lookback_window must be < size of X")
-            return self._windowed(spec, [names.index(name)], x, [len(X) - estimator.offset])[0].cpu().numpy()
-        out = fleet_forward_gather(spec, stacked, [names.index(name)], x, ingest=ingest)
+            return self._windowed(spec, [names.index(staged.name)], staged.x, [staged.windows])[0].cpu().numpy()
+        out = fleet_forward_gather(spec, stacked, [names.index(staged.name)], staged.x, ingest=ingest)
         return out[0].cpu().numpy()
+
+    def precision_reports(self) -> List[Dict[str, Any]]:
+        """The gate reports of the present membership (the fleet-status
+        document's ``serving.gates``)."""
+        with self._lock:
+            return [report for report, epoch in self._precision_states.values() if epoch == self.bucket_epoch]
+
+    def resident_bytes(self) -> Dict[str, int]:
+        """Bytes this fleet keeps on its device: each loaded member's
+        params, the stacked buckets, their reduced-precision casts and the
+        ingest plans (tensor sizes, not an allocator reading)."""
+        def tree_bytes(tree: Stacked) -> int:
+            return sum(t.numel() * t.element_size() for layer in tree.values() for t in layer.values())
+
+        with self._lock:
+            models = dict(self._models)
+            buckets = list(self._buckets.values())
+            casts = list(self._cast_buckets.values())
+        model_bytes = 0
+        for model in models.values():
+            estimator = find_estimator(model)
+            if estimator is not None and estimator.params_ is not None:
+                model_bytes += tree_bytes(estimator.params_)
+        stacked_bytes = sum(tree_bytes(stacked) for _, stacked, _ in buckets)
+        cast_bytes = sum(tree_bytes(cast) for cast in casts)
+        ingest_bytes = sum(sum(t.numel() * t.element_size() for t in ingest)
+                           for _, _, ingest in buckets if ingest is not None)
+        return {"models": len(models), "model_bytes": model_bytes, "stacked_bytes": stacked_bytes,
+                "cast_bytes": cast_bytes, "ingest_bytes": ingest_bytes,
+                "total_bytes": model_bytes + stacked_bytes + cast_bytes + ingest_bytes}
+
+    def forward_buckets(self) -> Dict[str, int]:
+        """The forward buckets this fleet holds, by precision: each f32
+        stacked bucket and each reduced cast of one."""
+        with self._lock:
+            counts = {"f32": len(self._buckets)} if self._buckets else {}
+            for _, prec in self._cast_buckets:
+                counts[prec] = counts.get(prec, 0) + 1
+        return counts
 
     def _windowed(self, spec: LSTMSpec, rows: Sequence[int], x: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
         """The windowed forward of bucket members ``rows`` on their series
@@ -582,6 +649,30 @@ class FleetModelStore:
         with self._lock:
             self._mru = (collection_dir, fleet)
         return fleet
+
+    def revision_stats(self) -> Dict[str, Dict[str, int]]:
+        """:meth:`RevisionFleet.resident_bytes` of each resident revision,
+        by its directory's name (the fleet-status ``serving.store``)."""
+        with self._lock:
+            revisions = list(self._revisions.items())
+        return {os.path.basename(key) or key: fleet.resident_bytes() for key, fleet in revisions}
+
+    def program_cache_stats(self, engine: Any = None) -> Dict[str, Any]:
+        """The fleet-status document's ``programs``, under the JAX keys. The
+        port compiles no program; what it keeps is forward buckets:
+        ``programs`` counts the (spec, precision) forward buckets resident
+        across the revisions, ``by_precision`` them by precision, and
+        ``signatures`` the distinct forward shapes (members, rows,
+        precision) the app's engine launched (0 without one)."""
+        with self._lock:
+            fleets = list(self._revisions.values())
+        by_precision: Dict[str, int] = {}
+        for fleet in fleets:
+            for prec, count in fleet.forward_buckets().items():
+                by_precision[prec] = by_precision.get(prec, 0) + count
+        return {"programs": sum(by_precision.values()),
+                "signatures": len(engine.program_shapes()) if engine is not None else 0,
+                "by_precision": by_precision}
 
     def invalidate(self, collection_dir: str) -> None:
         """Forget ``collection_dir``'s fleet (its artifacts changed on

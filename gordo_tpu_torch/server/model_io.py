@@ -5,7 +5,9 @@ engine: a copy of ``gordo_tpu/server/model_io.py``'s
 
 The port's unbatched reconstruction is the store's single-member path
 (one K1 gather launch with the model's ingest plan), so
-:func:`get_model_output` goes through the request's fleet. The JAX
+:func:`get_model_output` goes through the request's fleet; a route stages
+the rows on the device first (``RevisionFleet.stage_input``, its
+``device_ingest`` stage) and launches in its ``inference`` stage. The JAX
 package's ``accepts_model_output`` is not ported: the port's anomaly
 route always composes the frame from the reconstruction
 (``wire.anomaly_table``), never through a detector's ``anomaly()``.
@@ -18,11 +20,14 @@ import numpy as np
 from ..serve import MemberQuarantined, QueueFullError, ServeDeviceError
 
 
-def get_model_output(ctx, gordo_name: str, X: np.ndarray) -> np.ndarray:
-    """The model's reconstruction of raw rows ``X`` through the request's
-    revision fleet (one K1 gather launch; the windowed forward for an
-    LSTM). ``ValueError`` for rows the model cannot take, ``TypeError``
-    for a model that holds no autoencoder."""
+def get_model_output(ctx, gordo_name: str, X: np.ndarray, staged: Any = None) -> np.ndarray:
+    """The model's reconstruction of raw rows ``X`` (of ``staged``, when
+    they are on the device already) through the request's revision fleet:
+    one K1 gather launch, or the windowed forward for an LSTM, and the
+    copy back. ``ValueError`` for rows the model cannot take,
+    ``TypeError`` for a model that holds no autoencoder."""
+    if staged is not None:
+        return ctx.fleet().predict_staged(staged)
     return ctx.fleet().predict(gordo_name, X)
 
 
@@ -34,7 +39,7 @@ def batched_model_output(ctx, gordo_name: str, model: Any, X: np.ndarray) -> Opt
     engine = ctx.app.engine
     if engine is None:
         return None
-    return engine.batched_predict(ctx.fleet(), gordo_name, model, X)
+    return engine.batched_predict(ctx.fleet(), gordo_name, model, X, timing=ctx.timing)
 
 
 def shed_response(ctx, exc: Exception):

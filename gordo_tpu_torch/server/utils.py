@@ -75,12 +75,15 @@ def delete_revision(store, directory: str, name: str) -> None:
 
 def resolve_model(ctx, gordo_name: str):
     """The scoring routes' model resolution through the request's
-    revision fleet: 422 for a malformed name, 404 when there is no such
+    revision fleet (its model is then ``ctx.model``, which the health
+    ledger counts): 422 for a malformed name, 404 when there is no such
     model."""
     try:
-        return ctx.resolve(gordo_name)
+        resolution = ctx.resolve(gordo_name)
     except FileNotFoundError:
         raise ServerError(f"No such model found: '{gordo_name}'", status=404)
+    ctx.model = resolution.model
+    return resolution
 
 
 def require_metadata(ctx, gordo_name: str) -> Tuple[dict, dict]:

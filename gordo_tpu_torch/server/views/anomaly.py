@@ -11,6 +11,12 @@ and confidence math composes as numpy columns around it, with the
 ``smooth-*`` groups only under ``?all_columns``. ``y`` is required
 (400); a model that is not a ``DiffBasedAnomalyDetector`` answers 422,
 as does one whose thresholds were never fitted.
+
+Its stages, as the JAX route's: ``model_resolve``, ``data_decode``,
+``device_ingest`` (the rows' copy to the device; without an engine),
+``inference`` (the launch and the copy back, or the engine's batch with
+its ``queue_wait`` and ``batch_*`` shares), ``response_assemble`` (the
+anomaly columns) and ``serialize``.
 """
 
 import logging
@@ -35,29 +41,37 @@ def _unprocessable(ctx, model) -> Response:
 
 def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Response:
     start = timeit.default_timer()
-    resolution = utils.resolve_model(ctx, gordo_name)
+    with ctx.stage("model_resolve"):
+        resolution = utils.resolve_model(ctx, gordo_name)
     response_format = negotiate.response_format(ctx.request)  # before decoding and scoring
-    X, y = extract_X_y(ctx.request, resolution)
+    with ctx.stage("data_decode"):
+        X, y = extract_X_y(ctx.request, resolution)
     if y is None:
         raise ServerError("Cannot perform anomaly without 'y' to compare against.")
     model = resolution.model
     if not isinstance(model, DiffBasedAnomalyDetector):
         return _unprocessable(ctx, model)
     try:
-        frequency = resolution.frequency
-        output = model_io.batched_model_output(ctx, gordo_name, model, X.values)
-        if output is None:
-            output = model_io.get_model_output(ctx, gordo_name, X.values)
-        table = wire.anomaly_table(
-            model,
-            X,
-            y,
-            output,
-            frequency=frequency,
-            thresholds=resolution.feature_thresholds,
-            aggregate=resolution.aggregate_threshold,
-            keep_smooth="all_columns" in ctx.request.args,
-        )
+        staged = None
+        if ctx.app.engine is None:
+            with ctx.stage("device_ingest"):
+                staged = ctx.fleet().stage_input(gordo_name, X.values)
+        with ctx.stage("inference"):
+            frequency = resolution.frequency
+            output = None if staged is not None else model_io.batched_model_output(ctx, gordo_name, model, X.values)
+            if output is None:
+                output = model_io.get_model_output(ctx, gordo_name, X.values, staged)
+        with ctx.stage("response_assemble"):
+            table = wire.anomaly_table(
+                model,
+                X,
+                y,
+                output,
+                frequency=frequency,
+                thresholds=resolution.feature_thresholds,
+                aggregate=resolution.aggregate_threshold,
+                keep_smooth="all_columns" in ctx.request.args,
+            )
     except BatchShedError as exc:
         return model_io.shed_response(ctx, exc)
     except AttributeError:

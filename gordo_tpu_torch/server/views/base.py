@@ -19,11 +19,20 @@ scored by one kernel launch over their bucket. Each machine answers the
 lean entry (``model-output`` and the per-row ``total-anomaly-unscaled``)
 or, with ``?full``, a detector's whole anomaly frame (its ``smooth-*``
 groups too with ``?all_columns``). Per-machine problems become entries
-of ``errors``, never the whole batch's failure.
+of ``errors``, never the whole batch's failure. Its stages: ``data_decode``,
+``inference`` (the K2 launches and the copies back), ``response_assemble``
+and ``serialize``; each scored machine's rows and residual mean go to the
+health ledger.
+
+``GET /gordo/v0/<project>/fleet-health`` is the joined fleet-status
+document of the served directory (``telemetry/fleet_health.py``), with
+the app's live ledger and its ``device``, ``programs``, ``serving`` and
+``stream`` sections.
 """
 
 import logging
 import os
+import timeit
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -31,7 +40,9 @@ import numpy as np
 from ... import __version__, serializer
 from ...models.anomaly.diff import DiffBasedAnomalyDetector
 from ...serve import BatchShedError
-from ...telemetry import load_status
+from ...stream import stream_plane_section
+from ...stream.scorer import CLIENT_ERRORS
+from ...telemetry import fleet_status_document, load_status, utilization_snapshot
 from .. import model_io, utils, wire
 from ..app import MODEL_COLLECTION_DIR_ENV_VAR, Response, ServerError
 from ..fleet_store import ModelResolution
@@ -80,22 +91,36 @@ def _score_error(name: str, exc: Exception) -> Dict[str, Any]:
 
 def encode_table_response(ctx, response_format: str, table: wire.WireTable, extra: Optional[dict] = None) -> Response:
     """A scoring route's table as ``{"data": ..., **extra, "revision":
-    ...}``; 415 when the client asked for parquet."""
+    ...}``; 415 when the client asked for parquet. Its ``serialize`` stage
+    ends with the request (the app closes it), so a wait for the GIL
+    after a long encode is still the stage's."""
     if response_format == negotiate.PARQUET:
         raise ServerError(negotiate.PARQUET_UNAVAILABLE, status=415)
-    return Response(wire.encode_response(table, {**(extra or {}), "revision": ctx.revision}))
+    serialize_start = timeit.default_timer()
+    ctx.current_stage = "serialize"
+    response = Response(wire.encode_response(table, {**(extra or {}), "revision": ctx.revision}))
+    ctx.deferred_stage = ("serialize", serialize_start)
+    return response
 
 
 def post_prediction(ctx, gordo_project: str, gordo_name: str) -> Response:
     """One model's reconstruction of ``X``: one K1 gather launch on the
     model's spec bucket. 400 for rows the model cannot take."""
-    resolution = utils.resolve_model(ctx, gordo_name)
+    with ctx.stage("model_resolve"):
+        resolution = utils.resolve_model(ctx, gordo_name)
     response_format = negotiate.response_format(ctx.request)  # before decoding and scoring
-    X, _ = extract_X_y(ctx.request, resolution)
+    with ctx.stage("data_decode"):
+        X, _ = extract_X_y(ctx.request, resolution)
     try:
-        output = model_io.batched_model_output(ctx, gordo_name, resolution.model, X.values)
-        if output is None:
-            output = model_io.get_model_output(ctx, gordo_name, X.values)
+        staged = None
+        if ctx.app.engine is None:
+            with ctx.stage("device_ingest"):
+                staged = ctx.fleet().stage_input(gordo_name, X.values)
+        with ctx.stage("inference"):
+            output = None if staged is not None else model_io.batched_model_output(
+                ctx, gordo_name, resolution.model, X.values)
+            if output is None:
+                output = model_io.get_model_output(ctx, gordo_name, X.values, staged)
     except BatchShedError as exc:
         return model_io.shed_response(ctx, exc)
     except ValueError as err:
@@ -104,7 +129,8 @@ def post_prediction(ctx, gordo_project: str, gordo_name: str) -> Response:
     except TypeError:
         logger.exception("Failed to predict")
         return ctx.json_response({"error": "Something unexpected happened; check your input data"}, status=400)
-    table = wire.prediction_table(X, output, resolution.tag_names, resolution.target_names)
+    with ctx.stage("response_assemble"):
+        table = wire.prediction_table(X, output, resolution.tag_names, resolution.target_names)
     return encode_table_response(ctx, response_format, table)
 
 
@@ -171,6 +197,56 @@ def get_build_status(ctx, gordo_project: str) -> Response:
     return ctx.json_response(doc)
 
 
+def get_fleet_health(ctx, gordo_project: str) -> Response:
+    """The joined fleet-status document of the served directory
+    (``base.py:712-769``): ``?machines=`` (``all``, ``none``, a state,
+    ``unhealthy`` or a comma list of names), ``?limit=``, ``?offset=``.
+    Its ``programs`` are the port's forward buckets
+    (:meth:`~gordo_tpu_torch.server.fleet_store.FleetModelStore.program_cache_stats`)."""
+    app = ctx.app
+    directory = app.store.collection_dir
+    args = ctx.request
+    try:
+        limit = int(args.arg("limit")) if args.arg("limit") is not None else None
+    except (TypeError, ValueError):
+        limit = None
+    try:
+        offset = int(args.arg("offset") or 0)
+    except (TypeError, ValueError):
+        offset = 0
+    try:
+        programs = app.store.program_cache_stats(app.engine)
+    except Exception:  # noqa: BLE001 - cache stats are advisory
+        programs = None
+    serving = None
+    try:
+        if app.engine is not None:
+            serving = app.engine.stats()
+            serving["gates"] = app.store.fleet(directory).precision_reports()
+            serving["store"] = app.store.revision_stats()
+    except Exception:  # noqa: BLE001 - engine stats are advisory
+        pass
+    try:
+        stream = stream_plane_section(app.plane)
+    except Exception:  # noqa: BLE001 - plane stats are advisory
+        stream = None
+    doc = fleet_status_document(directory, device=utilization_snapshot(app.device), programs=programs,
+                                serving=serving, stream=stream, machines=args.arg("machines"), limit=limit,
+                                offset=offset, ledger=app.live_ledger)
+    return ctx.json_response(doc)
+
+
+def _record_fleet_health(ctx, frames: Dict[str, wire.Frame], scores, score_errors) -> None:
+    """The fleet request into the app's health ledger
+    (:meth:`~gordo_tpu_torch.telemetry.fleet_health.FleetHealthLedger.record_scored`).
+    Advisory: a failure is logged and dropped."""
+    try:
+        ctx.app.health_ledger().record_scored({name: len(frame) for name, frame in frames.items()}, scores,
+                                              score_errors, CLIENT_ERRORS)
+    except Exception:  # noqa: BLE001 - health telemetry is advisory
+        logger.debug("fleet health not recorded", exc_info=True)
+
+
 def _full_entry(
     resolution: ModelResolution, X, y, recon, keep_smooth: bool
 ) -> Tuple[Optional[str], Optional[dict]]:
@@ -196,54 +272,58 @@ def post_fleet_prediction(ctx, gordo_project: str) -> Response:
     if negotiate.response_format(ctx.request) == negotiate.PARQUET:
         raise ServerError("The fleet route serves JSON or Arrow, not parquet", status=406)
     negotiate.request_format(ctx.request)
-    body = ctx.request.json()
-    if not isinstance(body, dict) or not isinstance(body.get("X"), dict) or not body["X"]:
-        raise ServerError('Fleet prediction needs a JSON body {"X": {<model-name>: frame}}')
-    full = "full" in ctx.request.args or bool(body.get("full"))
-    keep_smooth = "all_columns" in ctx.request.args
-    y_payloads = body.get("y") if isinstance(body.get("y"), dict) else {}
-
     frames: Dict[str, wire.Frame] = {}
     y_frames: Dict[str, wire.Frame] = {}
     resolutions: Dict[str, ModelResolution] = {}
     errors: Dict[str, Dict[str, Any]] = {}
-    for name, payload in body["X"].items():
-        try:
-            resolution = ctx.resolve(name)
-            X = wire.verify_frame(wire.decode_frame(payload), resolution.tag_names)
-            if name in y_payloads:
-                y_frames[name] = wire.verify_frame(
-                    wire.decode_frame(y_payloads[name]), resolution.target_names
-                )
-            frames[name], resolutions[name] = X, resolution
-        except FileNotFoundError:
-            errors[name] = {"error": f"No such model found: '{name}'", "status": 404}
-        except ServerError as exc:
-            errors[name] = {"error": str(exc), "status": exc.status}
-        except (ValueError, TypeError, KeyError) as exc:
-            errors[name] = {"error": f"Invalid frame payload: {exc}", "status": 400}
-        except Exception:  # noqa: BLE001 - a broken artifact is this machine's problem
-            logger.exception("fleet resolution failed for %s", name)
-            errors[name] = {"error": "Model could not be loaded", "status": 500}
+    with ctx.stage("data_decode"):  # the body's JSON parse included
+        body = ctx.request.json()
+        if not isinstance(body, dict) or not isinstance(body.get("X"), dict) or not body["X"]:
+            raise ServerError('Fleet prediction needs a JSON body {"X": {<model-name>: frame}}')
+        full = "full" in ctx.request.args or bool(body.get("full"))
+        keep_smooth = "all_columns" in ctx.request.args
+        y_payloads = body.get("y") if isinstance(body.get("y"), dict) else {}
+        for name, payload in body["X"].items():
+            try:
+                resolution = ctx.resolve(name)
+                X = wire.verify_frame(wire.decode_frame(payload), resolution.tag_names)
+                if name in y_payloads:
+                    y_frames[name] = wire.verify_frame(
+                        wire.decode_frame(y_payloads[name]), resolution.target_names
+                    )
+                frames[name], resolutions[name] = X, resolution
+            except FileNotFoundError:
+                errors[name] = {"error": f"No such model found: '{name}'", "status": 404}
+            except ServerError as exc:
+                errors[name] = {"error": str(exc), "status": exc.status}
+            except (ValueError, TypeError, KeyError) as exc:
+                errors[name] = {"error": f"Invalid frame payload: {exc}", "status": 400}
+            except Exception:  # noqa: BLE001 - a broken artifact is this machine's problem
+                logger.exception("fleet resolution failed for %s", name)
+                errors[name] = {"error": "Model could not be loaded", "status": 500}
 
     entries: Dict[str, str] = {}
     if frames:
-        scores, score_errors = ctx.fleet().fleet_scores(
-            {name: frame.values for name, frame in frames.items()}
-        )
+        with ctx.stage("inference"):
+            scores, score_errors = ctx.fleet().fleet_scores(
+                {name: frame.values for name, frame in frames.items()}
+            )
+        _record_fleet_health(ctx, frames, scores, score_errors)
         for name, exc in score_errors.items():
             errors[name] = _score_error(name, exc)
-        for name, (recon, mse) in scores.items():
-            X = frames[name]
-            if full:
-                entry, error = _full_entry(resolutions[name], X, y_frames.get(name, X), recon, keep_smooth)
-                if error is not None:
-                    errors[name] = error
-                    continue
-                if entry is not None:
-                    entries[name] = entry
-                    continue
-            keys = wire.index_wire_keys(X.index[len(X.index) - len(recon):])
-            entries[name] = wire.encode_lean_entry(keys, recon, np.asarray(mse))
-    body_bytes = wire.encode_fleet_response(entries, errors, ctx.revision)
+        with ctx.stage("response_assemble"):
+            for name, (recon, mse) in scores.items():
+                X = frames[name]
+                if full:
+                    entry, error = _full_entry(resolutions[name], X, y_frames.get(name, X), recon, keep_smooth)
+                    if error is not None:
+                        errors[name] = error
+                        continue
+                    if entry is not None:
+                        entries[name] = entry
+                        continue
+                keys = wire.index_wire_keys(X.index[len(X.index) - len(recon):])
+                entries[name] = wire.encode_lean_entry(keys, recon, np.asarray(mse))
+    with ctx.stage("serialize"):
+        body_bytes = wire.encode_fleet_response(entries, errors, ctx.revision)
     return Response(body_bytes, 200 if entries else 400)

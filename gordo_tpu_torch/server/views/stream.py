@@ -92,8 +92,10 @@ def post_stream_ingest(ctx, gordo_project: str, stream_id: str) -> Response:
         return ctx.json_response({"error": f"Stream '{stream_id}' is closed"}, status=410)
     frames: Dict[str, wire.Frame] = {}
     errors: Dict[str, Dict[str, Any]] = {}
-    _decode_stream_body(ctx, frames, errors)
-    ack = plane.ingest(session, frames, errors)
+    with ctx.stage("data_decode"):
+        _decode_stream_body(ctx, frames, errors)
+    with ctx.stage("inference"):  # the watermark flush: a K2 launch a spec bucket
+        ack = plane.ingest(session, frames, errors)
     return ctx.json_response(ack, status=200 if (ack["accepted"] or not ack["errors"]) else 400)
 
 

@@ -14,7 +14,7 @@ Master switch: ``GORDO_TPU_STREAM_ENABLED`` (default on).
 """
 
 from .events import SSE_CONTENT_TYPE, TERMINAL_KINDS, StreamEvent, encode_sse, heartbeat_frame
-from .plane import PlaneSaturated, StreamConfig, StreamPlane, stream_enabled
+from .plane import PlaneSaturated, StreamConfig, StreamPlane, stream_enabled, stream_plane_section
 from .ring import EventRing, RowRing
 from .scorer import WindowScorer
 from .session import MachineChannel, StreamSession
@@ -36,4 +36,5 @@ __all__ = [
     "encode_sse",
     "heartbeat_frame",
     "stream_enabled",
+    "stream_plane_section",
 ]

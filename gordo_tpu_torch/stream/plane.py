@@ -8,7 +8,12 @@ store. The plane quarantines through the app's serving engine's breaker
 board when the app has an engine, so a member tripped by requests is
 quarantined on every stream and a stream's probe reopens the routes too
 (the JAX plane's ``stream_breaker_board``); otherwise through a board of
-its own. It owns its telemetry and starts no threads.
+its own. It owns its telemetry and starts no threads. Each ingest is a
+``stream_ingest`` span of the serving trace (``telemetry/serving.py``),
+which the flush that drains its rows links back to; each flush feeds the
+app's health ledger, and the plane's own board reports its breaker
+transitions there too. :func:`stream_plane_section` is the fleet-status
+document's ``stream`` section.
 
 Admission is bounded: at most ``GORDO_TPU_STREAM_MAX_SESSIONS`` live
 sessions (beyond that :class:`PlaneSaturated`, the route's 429), and a
@@ -20,15 +25,16 @@ frame into every live session and refuses new ones.
 import logging
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..serve.breaker import BreakerBoard
+from ..telemetry import serving as serve_trace
 from ..utils.env import env_bool, env_float, env_int
 from ..utils.faults import FaultInjected, fault_point
 from .events import StreamEvent
 from .scorer import WindowScorer
 from .session import StreamSession
-from .telemetry import StreamTelemetry
+from .telemetry import StreamTelemetry, histogram_percentile
 
 logger = logging.getLogger(__name__)
 
@@ -98,14 +104,18 @@ class StreamConfig:
 class StreamPlane:
     """Session registry, scorer, breakers and drain for one server app.
     ``store`` is the app's ``FleetModelStore``; ``breakers`` the board to
-    quarantine through (default: a board of its own)."""
+    quarantine through (default: a board of its own, whose transitions go
+    to the ledger); ``ledger`` a zero-argument callable answering the
+    health ledger the flushes feed (None: no feed)."""
 
-    def __init__(self, store: Any, config: Optional[StreamConfig] = None, breakers: Optional[BreakerBoard] = None):
+    def __init__(self, store: Any, config: Optional[StreamConfig] = None, breakers: Optional[BreakerBoard] = None,
+                 ledger: Optional[Callable[[], Any]] = None):
         self.store = store
         self.config = config or StreamConfig.from_env()
-        self.breakers = breakers or BreakerBoard()
+        self.ledger = ledger
+        self.breakers = breakers or BreakerBoard(on_transition=self._on_breaker_transition)
         self.telemetry = StreamTelemetry()
-        self.scorer = WindowScorer(self.config.window_rows, store, self.breakers, self.telemetry)
+        self.scorer = WindowScorer(self.config.window_rows, store, self.breakers, self.telemetry, ledger=ledger)
         self._lock = threading.Lock()
         self._sessions: Dict[Tuple[str, str], StreamSession] = {}
         self._drained = False
@@ -116,6 +126,16 @@ class StreamPlane:
             "ingest_batches": 0,
             "ingest_errors": 0,
         }
+
+    def _on_breaker_transition(self, member: str, old: str, new: str, info: dict) -> None:
+        """The plane's own board's transitions into the ledger, as the
+        engine's are (a tripped member reaches the fleet status either way)."""
+        if self.ledger is None:
+            return
+        try:
+            self.ledger().record_breaker_transition(member, new, info)
+        except Exception:  # noqa: BLE001 - the ledger is advisory
+            logger.debug("stream breaker ledger feed failed", exc_info=True)
 
     # -- session registry ----------------------------------------------------
 
@@ -184,17 +204,23 @@ class StreamPlane:
         errors = dict(errors or {})
         accepted: Dict[str, int] = {}
         shed: Dict[str, int] = {}
-        for name, frame in frames.items():
-            try:
-                fault_point("stream_ingest", f"{session.stream_id}:{name}")
-            except FaultInjected as exc:
-                # one poisoned entry errors alone; the others still land
-                errors[name] = {"error": str(exc), "status": 500}
-                continue
-            _first_seq, shed_rows = session.append_rows(name, frame)
-            accepted[name] = int(len(frame))
-            if shed_rows:
-                shed[name] = shed_rows
+        with serve_trace.serve_recorder().span("stream_ingest", stream=session.stream_id,
+                                               machines=len(frames)) as ingest_span:
+            for name, frame in frames.items():
+                try:
+                    fault_point("stream_ingest", f"{session.stream_id}:{name}")
+                except FaultInjected as exc:
+                    # one poisoned entry errors alone; the others still land
+                    errors[name] = {"error": str(exc), "status": 500}
+                    continue
+                _first_seq, shed_rows = session.append_rows(name, frame)
+                accepted[name] = int(len(frame))
+                if shed_rows:
+                    shed[name] = shed_rows
+            ingest_span.set(rows=sum(accepted.values()), shed=sum(shed.values()), errors=len(errors))
+            # the flush that drains these rows links back to this span
+            if ingest_span.span_id:
+                session.note_ingest_span(ingest_span.trace_id, ingest_span.span_id)
         self.telemetry.observe_ingest(sum(accepted.values()))
         flush = self.scorer.flush(session)
         with self._lock:
@@ -292,3 +318,47 @@ class StreamPlane:
                 "max_sessions": self.config.max_sessions,
             },
         }
+
+
+def stream_plane_section(plane: Optional[StreamPlane]) -> Optional[Dict[str, Any]]:
+    """The fleet-status document's ``stream`` section of ``plane``: session
+    counts, the summed row accounting, freshness (score lag, watermark
+    delay) and the flush and lag percentiles; None without a plane. The
+    JAX function reads the process's installed plane; the caller passes
+    the app's."""
+    if plane is None:
+        return None
+    stats = plane.stats()
+    sessions = stats.get("sessions") or {}
+    active = [s for s in sessions.values() if not s.get("closed")]
+    accounting = {key: 0 for key in ("rows_in", "rows_scored", "rows_failed", "rows_pending", "rows_shed", "gap")}
+    quarantined = 0
+    score_lags: List[float] = []
+    delays: List[float] = []
+    for session in sessions.values():
+        for key in accounting:
+            accounting[key] += int((session.get("accounting") or {}).get(key, 0))
+        lag = session.get("lag") or {}
+        if lag.get("score_lag_max_ms") is not None:
+            score_lags.append(float(lag["score_lag_max_ms"]))
+        if lag.get("watermark_delay_max_ms") is not None:
+            delays.append(float(lag["watermark_delay_max_ms"]))
+        quarantined += sum(1 for machine in (session.get("machines") or {}).values() if machine.get("quarantined"))
+    telemetry = stats.get("telemetry") or {}
+    return {
+        "enabled": stats.get("enabled"),
+        "draining": stats.get("draining"),
+        "sessions_active": len(active),
+        "sessions_closed": len(sessions) - len(active),
+        "subscribers": sum(int(s.get("subscribers", 0)) for s in sessions.values()),
+        "quarantined_machines": quarantined,
+        "accounting": accounting,
+        "lag": {
+            "score_lag_max_ms": max(score_lags) if score_lags else None,
+            "watermark_delay_max_ms": max(delays) if delays else None,
+            "lag_p95_ms": histogram_percentile(telemetry.get("lag_ms") or {}, 0.95),
+            "flush_p95_ms": histogram_percentile(telemetry.get("flush_ms") or {}, 0.95),
+        },
+        "flushes": int(telemetry.get("flushes", 0)),
+        "counters": stats.get("counters"),
+    }

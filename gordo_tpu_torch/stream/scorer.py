@@ -20,24 +20,32 @@ Each machine's result becomes an ``anomaly`` event with its exact
   also marks the breaker. Client-data failures (``ValueError``,
   ``TypeError``, ``FileNotFoundError``) do not.
 
-Left out, as telemetry and lifecycle work: the recorder spans and their
-links, the cost model's predicted device time, and the health-ledger and
-drift feeds.
+Each flush is one ``stream_score`` span of the serving trace: rows,
+windows and shed rows, each machine's ingest-to-scored lag (p50, max, a
+rows-weighted histogram), the analytic ``predicted_device_ms`` of its
+spec groups (``planner/costmodel.py``) beside the measured ``device_ms``
+(the K2 launch and the copy back), and links to the ``stream_ingest``
+spans it drained; then a ``stream_emit`` span times the events. The
+flush feeds the app's health ledger (rows, residual mean and a request a
+machine, one snapshot a flush). Not ported: the drift monitor's feed
+(the lifecycle, ``ROADMAP.md`` item 11c).
 """
 
 import logging
 import os
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..planner.costmodel import CostModel
 from ..serve.breaker import BreakerBoard
 from ..serve.ladder import snap_rows
+from ..telemetry import serving as serve_trace
 from ..utils.faults import fault_point
 from .events import StreamEvent
 from .session import StreamSession
-from .telemetry import StreamTelemetry
+from .telemetry import StreamTelemetry, lag_bucket_counts
 
 logger = logging.getLogger(__name__)
 
@@ -52,11 +60,14 @@ CLIENT_ERRORS = (ValueError, TypeError, FileNotFoundError)
 class WindowScorer:
     """Cut and score the watermark windows of one session's flush."""
 
-    def __init__(self, window_rows: int, store: Any, board: BreakerBoard, telemetry: StreamTelemetry):
+    def __init__(self, window_rows: int, store: Any, board: BreakerBoard, telemetry: StreamTelemetry,
+                 ledger: Optional[Callable[[], Any]] = None):
         self.window_rows = max(1, int(window_rows))
         self.store = store
         self.board = board
         self.telemetry = telemetry
+        #: a zero-argument callable answering the health ledger (None: no feed)
+        self.ledger = ledger
 
     @staticmethod
     def _spec_for(fleet: Any, name: str) -> Any:
@@ -66,6 +77,19 @@ class WindowScorer:
         except Exception:  # noqa: BLE001 - an unloadable member still gets a breaker key
             spec = None
         return spec if spec is not None else FALLBACK_SPEC
+
+    def _predicted_flush_ms(self, specs: Dict[str, Any], inputs: Dict[str, np.ndarray]) -> float:
+        """The cost model's device ms of the flush: one f32 forward a spec
+        group at its members and tallest rows, summed; -1.0 when no
+        member's spec is known."""
+        groups: Dict[Any, List[int]] = {}
+        for name, rows in inputs.items():
+            spec = specs.get(name)
+            if spec is not None and not isinstance(spec, str):
+                groups.setdefault(spec, []).append(int(len(rows)))
+        total = sum(CostModel().predict_serve_step_s(spec, len(rows), max(rows), "f32") * 1000.0
+                    for spec, rows in groups.items())
+        return round(total, 4) if groups else -1.0
 
     def flush(self, session: StreamSession) -> Dict[str, Any]:
         """Score every full pending window of ``session``; returns the
@@ -118,9 +142,42 @@ class WindowScorer:
             except Exception as exc:  # noqa: BLE001 - this member's failure alone
                 injected[name] = exc
 
+        recorder = serve_trace.serve_recorder()
         shed_rows = session.shed_delta()
-        scores, errors = fleet.fleet_scores(inputs) if inputs else ({}, {})
+        attributes: Dict[str, Any] = {}
+        if recorder.enabled:  # with telemetry off the flush builds no attribute
+            lag_values = sorted(lags_ms.values())
+            cut_names = list(spans)
+            cut_weights = [spans[n][1] - spans[n][0] + 1 for n in cut_names]
+            attributes = dict(
+                stream=session.stream_id,
+                machines=len(inputs),
+                rows=sum(int(len(x)) for x in inputs.values()),
+                windows=sum(spans[n][2] for n in cut_names),
+                shed=shed_rows,
+                revision=revision,
+                lag_p50_ms=lag_values[len(lag_values) // 2] if lag_values else 0.0,
+                lag_max_ms=lag_values[-1] if lag_values else 0.0,
+                lag_hist=lag_bucket_counts([lags_ms[n] for n in cut_names], weights=cut_weights),
+                lag_sum_ms=round(sum(lags_ms[n] * w for n, w in zip(cut_names, cut_weights)), 3),
+                predicted_device_ms=self._predicted_flush_ms(specs, inputs),
+            )
+        with recorder.span("stream_score", **attributes) as score_span:
+            for trace_id, ingest_span_id in session.drain_ingest_spans():
+                score_span.link(trace_id, ingest_span_id)
+            device_started = time.monotonic()
+            # one K2 launch a spec bucket, the copy back inside: device_ms holds the launch
+            scores, errors = fleet.fleet_scores(inputs) if inputs else ({}, {})
+            if recorder.enabled:
+                score_span.set(
+                    device_ms=round((time.monotonic() - device_started) * 1000.0, 3),
+                    rows_scored=sum(int(len(inputs[n])) for n in scores),
+                    rows_failed=sum(spans[n][1] - spans[n][0] + 1 for n in set(errors) | set(injected)),
+                )
         errors.update(injected)
+
+        emit_started = time.monotonic()
+        events_emitted = 0
 
         for name, (_reconstruction, mse) in scores.items():
             first_seq, last_seq, windows = spans[name]
@@ -135,6 +192,7 @@ class WindowScorer:
             if chan.quarantine_notified:
                 chan.quarantine_notified = False
                 session.emit(StreamEvent("recovered", {"machine": name}))
+                events_emitted += 1
             session.emit(
                 StreamEvent(
                     "anomaly",
@@ -150,6 +208,7 @@ class WindowScorer:
                     },
                 )
             )
+            events_emitted += 1
             summary["scored"][name] = rows
             summary["rows"] += rows
 
@@ -169,8 +228,11 @@ class WindowScorer:
                     {"machine": name, "first_seq": first_seq, "last_seq": last_seq, "error": type(exc).__name__},
                 )
             )
+            events_emitted += 1
             summary["errors"][name] = type(exc).__name__
 
+        recorder.record("stream_emit", max(0.0, time.monotonic() - emit_started), stream=session.stream_id,
+                        events=events_emitted, machines=len(scores) + len(errors))
         self.telemetry.observe_flush(
             max(0.0, time.time() - flush_started),
             rows_scored=summary["rows"],
@@ -179,4 +241,17 @@ class WindowScorer:
             lags_ms=[lags_ms.get(n, 0.0) for n in scores],
             lag_weights=[summary["scored"][n] for n in scores],
         )
+        self._feed_ledger(inputs, scores, errors)
         return summary
+
+    def _feed_ledger(self, frames: Dict[str, np.ndarray], scores: Dict[str, Tuple[Any, Any]],
+                     errors: Dict[str, BaseException]) -> None:
+        """The flush into the health ledger
+        (:meth:`~gordo_tpu_torch.telemetry.fleet_health.FleetHealthLedger.record_scored`)."""
+        if self.ledger is None:
+            return
+        try:
+            self.ledger().record_scored({name: len(rows) for name, rows in frames.items()}, scores, errors,
+                                        CLIENT_ERRORS)
+        except Exception:  # noqa: BLE001 - health telemetry is advisory
+            logger.debug("stream health not recorded", exc_info=True)

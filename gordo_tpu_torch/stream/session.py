@@ -97,6 +97,8 @@ class StreamSession:
         self._emit_shed_pending = 0
         #: ring-shed rows already reported by :meth:`shed_delta`
         self._shed_reported = 0
+        #: (trace id, span id) of the ingests the next flush drains
+        self._ingest_spans: List[Tuple[str, str]] = []
 
     # -- ingest side ---------------------------------------------------------
 
@@ -133,6 +135,20 @@ class StreamSession:
             delta = total - self._shed_reported
             self._shed_reported = total
             return max(0, delta)
+
+    def note_ingest_span(self, trace_id: str, span_id: str) -> None:
+        """An ingest span for the next flush to link back to (the oldest
+        dropped past 64)."""
+        with self._wake:
+            self._ingest_spans.append((trace_id, span_id))
+            if len(self._ingest_spans) > 64:
+                del self._ingest_spans[:-64]
+
+    def drain_ingest_spans(self) -> List[Tuple[str, str]]:
+        """Take the ingest spans noted since the last flush."""
+        with self._wake:
+            spans, self._ingest_spans = self._ingest_spans, []
+            return spans
 
     def latest_seq(self) -> int:
         """The cursor that catches everything emitted so far."""

@@ -2,11 +2,14 @@
 The streaming plane's counters and its flush and lag histograms, a copy
 of ``gordo_tpu/stream/telemetry.py``'s accumulator. Each plane owns one
 (the JAX package keeps a process-global one); ``/stream/status`` reads
-its snapshot. No per-machine detail here: that is on the sessions.
+its snapshot, and the fleet-status document's ``stream`` section its
+percentiles (:func:`histogram_percentile`). No per-machine detail here:
+that is on the sessions. :func:`lag_bucket_counts` is the compact lag
+distribution each ``stream_score`` span carries.
 """
 
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 #: fixed bucket edges, a copy of ``gordo_tpu/telemetry/aggregate.py``'s
 #: ``LATENCY_BUCKETS_MS``
@@ -14,6 +17,55 @@ LATENCY_BUCKETS_MS: Tuple[float, ...] = (
     1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 350.0, 500.0,
     750.0, 1000.0, 1500.0, 2500.0, 5000.0, 10000.0, 30000.0, 60000.0,
 )
+
+
+def lag_bucket_counts(lags_ms: Sequence[float], weights: Optional[Sequence[int]] = None) -> List[int]:
+    """``lags_ms`` (weighted by rows when ``weights`` are given) in the
+    fixed buckets, the last slot the overflow.
+
+    >>> lag_bucket_counts([0.5, 3.0, 1e6], [2, 1, 1])[:3], lag_bucket_counts([1e6])[-1]
+    ([2, 0, 1], 1)
+    """
+    counts = [0] * (len(LATENCY_BUCKETS_MS) + 1)
+    for i, value in enumerate(lags_ms):
+        slot = len(LATENCY_BUCKETS_MS)
+        for j, edge in enumerate(LATENCY_BUCKETS_MS):
+            if value <= edge:
+                slot = j
+                break
+        counts[slot] += int(weights[i]) if weights is not None else 1
+    return counts
+
+
+def histogram_percentile(histogram: Dict[str, Any], q: float) -> float:
+    """A percentile (ms) of a histogram snapshot, interpolated inside its
+    bucket; the overflow bucket answers its lower edge. A copy of
+    ``gordo_tpu/telemetry/aggregate.py``'s.
+
+    >>> histogram_percentile({"count": 4, "buckets_ms": [1.0, 2.0], "counts": [0, 4, 0]}, 0.5)
+    1.5
+    """
+    total = histogram.get("count", 0)
+    if not total:
+        return 0.0
+    rank = q * total
+    edges = histogram["buckets_ms"]
+    cumulative = 0
+    lower = 0.0
+    for i, count in enumerate(histogram["counts"]):
+        if not count:
+            if i < len(edges):
+                lower = edges[i]
+            continue
+        if cumulative + count >= rank:
+            if i >= len(edges):
+                return round(lower, 3)
+            inside = max(0.0, min(1.0, (rank - cumulative) / count))
+            return round(lower + (edges[i] - lower) * inside, 3)
+        cumulative += count
+        if i < len(edges):
+            lower = edges[i]
+    return round(lower, 3)
 
 
 class _Histogram:

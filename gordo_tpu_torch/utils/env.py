@@ -16,6 +16,19 @@ output directory), ``GORDO_TPU_TELEMETRY_MAX_BYTES`` (256 MiB) and
 ``GORDO_TPU_HEALTH_SHARDS`` (0: from the fleet's size) in
 ``telemetry/fleet_health.py``.
 
+The serving telemetry's (``gordo_tpu/utils/env.py:275-349``), likewise:
+``GORDO_TPU_TRACE_SAMPLE_RATE`` (0.05) in ``telemetry/serving.py`` and
+``GORDO_TPU_PROFILE_DIR`` (unset: no trace) in ``utils/profiling.py``.
+The other serving settings of the JAX package are constants at their JAX
+defaults, as nothing in the port needs another value:
+``GORDO_TPU_PROFILE_SAMPLE_RATE`` (0) and ``_INTERVAL_MS`` (5) in
+``telemetry/profiler.py``; ``GORDO_TPU_HEALTH_WINDOW`` (100,000 rows),
+``GORDO_TPU_FLEET_STATUS_MAX_MACHINES`` (500) and ``_TOP_K`` (10) in
+``telemetry/fleet_health.py``; ``GORDO_TPU_DEVICE_TELEMETRY`` (on: the
+memory reading follows ``GORDO_TPU_TELEMETRY``); ``GORDO_TPU_WORKER_SINKS``
+(off: the port's server is one process, so its sinks keep their plain
+names).
+
 >>> import os
 >>> os.environ["GORDO_TPU_DOCTEST_KNOB"] = "not-a-number"
 >>> env_int("GORDO_TPU_DOCTEST_KNOB", 7)

@@ -67,6 +67,8 @@ def test_package_has_modules():
         "parallel/journal.py", "utils/disk_registry.py", "serve/batcher.py", "serve/engine.py",
         "serve/precision.py", "server/model_io.py", "telemetry/recorder.py", "telemetry/progress.py",
         "telemetry/device.py", "telemetry/fleet_health.py", "planner/costmodel.py", "planner/plan.py",
+        "telemetry/tracing.py", "telemetry/serving.py", "telemetry/profiler.py", "telemetry/slo.py",
+        "utils/profiling.py",
     ):
         assert expected in names
 
