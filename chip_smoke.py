@@ -143,6 +143,28 @@ requests; renders it with
 JSON's ``launches_by_path`` has an ``observability`` key: the traced
 pass's launches.
 
+``[slo]`` (right after ``[observability]``) reads back what that phase
+exported. ``python -m gordo_tpu_torch trace DIR --as-json``, in a
+process of its own, must count exactly the requests sent, by route and
+status, and explain at least 90% of the median request's walltime by its
+stages; it prints each stage's p50. The rollups (``RollupStore``) must
+hold exactly the requests, errors, stream rows ingested and scored and
+spans sent, one ``serve_batch`` span an engine batch; a second
+aggregation must read no byte. ``GET /slo`` on the card app evaluates
+that directory. Then the SLO drill runs on a card app over a copy of the
+collection with a drill ``slos.toml`` (a 1% budget, the fast rule paging
+at 10x): four clean anomaly requests and a fleet request of 16 rows, each
+answer held to the CPU app's, four requests to a machine whose
+``model.pkl`` is broken on disk (500), then eighty clean ones. ``slo
+check`` must exit 0 (inactive), then 0 (pending) and 1 (firing) after the
+burst, and 0 (resolved) after the clean traffic; after each stage
+``/slo``, ``/fleet-health``'s ``slo`` section and ``fleet-status`` must
+equal ``slo status --as-json``. Its K1 and K2 launches are the kernel
+JSON's ``slo`` path, and the kernel JSON's own rows; K1 at the drill's
+anomaly shape (a gather of 1 of 64 members, 16 rows, the ingest
+prologue) and K2 at its fleet shape (4 of 64, 16 rows, y the rows) are
+held to the plain versions in ``[kernel]`` and timed under ``[times]``.
+
 K2, the fused anomaly scores (K1 with a per-row MSE epilogue, the same
 source), is held the same way: against its plain version on both
 kernel paths with ``y`` the input rows (with the ingest prologue), a
@@ -488,6 +510,9 @@ def kernel_cases():
             300, encoding_dim=(27, 1), decoding_dim=(33,), encoding_func=("relu", "tanh"),
             decoding_func=("tanh",)), 3, 3, 157, ingest=True, seed=75),
     })
+    # [slo]'s drill: its 16-row anomaly requests
+    cases[SLO_ANOMALY] = make_case(hourglass, SERVED_MACHINES, 1, SLO_FRAME_ROWS, indices=[17], ingest=True,
+                                   seed=76)
     return cases
 
 
@@ -590,6 +615,9 @@ def k2_cases(cases):
     for name in (*K2_LOOP_CASES, *activations):
         for y in ("x", "same", "nan"):
             k2[f"K2 {name} y={y}"] = scores_case(cases[name], y, seed=50)
+    # [slo]'s drill: its fleet request of the 4 clean machines, 16 rows each (y the rows, as the store scores)
+    k2[SLO_FLEET] = scores_case(make_case(feedforward_hourglass(20), SERVED_MACHINES, 4, SLO_FRAME_ROWS,
+                                          indices=[0, 1, 2, 3], ingest=True, seed=77))
     return k2
 
 
@@ -2231,10 +2259,26 @@ def gained_residual_mean(before, after):
     return (after["residual_mean"] * rows1 - (before.get("residual_mean") or 0.0) * rows0) / (rows1 - rows0)
 
 
-def observability_phase(app, base, names, wide_names, collection, card):
+def endpoint_of(path):
+    """The route name (a request span's ``http.route``) of a path under
+    ``/gordo/v0/smoke``."""
+    if path.endswith("/anomaly/prediction"):
+        return "anomaly-prediction"
+    if path.startswith("/prediction/fleet"):
+        return "fleet-prediction"
+    if path.startswith("/stream/") and path.endswith("/ingest"):
+        return "stream-ingest"
+    if path.endswith("/prediction"):
+        return "prediction"
+    return path.strip("/")
+
+
+def observability_phase(app, base, names, wide_names, collection, telemetry_dir, card):
     """What the server records about its own traffic, on the card's app over
-    the socket (see the module docstring). Returns the K1 and K2 launches of
-    its traced pass."""
+    the socket (see the module docstring), exported to ``telemetry_dir``.
+    Returns the K1 and K2 launches of its traced pass, and what it left in
+    ``telemetry_dir`` for ``[slo]``: each request by (route, status), the
+    stream rows ingested and the engine's batches."""
     import io
 
     from gordo_tpu_torch.cli.cli import main as cli_main
@@ -2243,7 +2287,6 @@ def observability_phase(app, base, names, wide_names, collection, card):
     from gordo_tpu_torch.telemetry import render_fleet_status
     from gordo_tpu_torch.telemetry import serving as serve_trace
 
-    telemetry_dir = tempfile.mkdtemp(prefix="observability-", dir=os.path.join(HERE, "build"))
     # the CPU reference serves a copy without a health snapshot: its ledger is its own and holds only this
     # phase's rows (every app of one directory in a process feeds that directory's one ledger)
     reference_root = tempfile.mkdtemp(prefix="observability-reference-", dir=os.path.join(HERE, "build"))
@@ -2269,15 +2312,21 @@ def observability_phase(app, base, names, wide_names, collection, card):
         # the traced pass: every request exported, the launches timed
         intervals, restore = captured_launch_times()
         fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        batches_before = engine.engine.stats()["batches"]
         t0 = time.perf_counter()
         answers = []
+        #: every exported request by (route, status), and the stream rows ingested, for [slo]
+        exported, stream_rows = collections.Counter(), 0
         try:
             for path, payload in requests:
                 k1, k2 = fleet_feedforward.launches, fleet_anomaly_scores.launches
                 status, body, headers, ms = traced_request(base + path, "POST", payload)
                 answers.append((path, status, headers, ms, fleet_feedforward.launches - k1,
                                 fleet_anomaly_scores.launches - k2))
+                exported[endpoint_of(path), status] += 1
             burst_answers, _ = burst(engine_base, burst_requests)
+            exported.update((endpoint_of(path), status)
+                            for (path, _), (status, _, _) in zip(burst_requests, burst_answers))
         finally:
             restore()
         on_wall = time.perf_counter() - t0
@@ -2332,11 +2381,15 @@ def observability_phase(app, base, names, wide_names, collection, card):
             if path.startswith(("/prediction/fleet", "/stream/")):
                 cpu_status, _ = wsgi_post(cpu_app, "/gordo/v0/smoke" + path, payload)
                 check(cpu_status == 200, f"CPU app answered {cpu_status} on {path}")
+                exported[endpoint_of(path), cpu_status] += 1
+            if path.startswith("/stream/"):  # the card app's ingest and the CPU app's
+                stream_rows += 2 * sum(len(next(iter(frame.values()))) for frame in payload["X"].values())
 
         # /fleet-health: the serving counts of what was sent (the engine app's burst too, into the same
         # ledger), the residual means of the rows sent held to the CPU app's
         status, doc, _, ms = traced_request(base + "/fleet-health", "GET")
         check(status == 200, f"/fleet-health answered {status}")
+        exported["fleet-health", status] += 1
         machines = doc["health"]["machines"]
         sent = collections.Counter(burst_names)
         sent_rows = collections.Counter()
@@ -2398,7 +2451,8 @@ def observability_phase(app, base, names, wide_names, collection, card):
               f"alternates them); the first {len(requests)} summed by stage, on / off: "
               + ", ".join(f"{name} {on_stages[name]:.1f} / {off_stages[name]:.1f}" for name in on_stages)
               + f" ms; {card}")
-        return launches
+        return launches, {"sent": exported, "stream_rows": stream_rows,
+                          "batches": engine_stats["batches"] - batches_before}
     finally:
         if stop_engine is not None:
             stop_engine()
@@ -2411,9 +2465,231 @@ def observability_phase(app, base, names, wide_names, collection, card):
                 os.environ[key] = value
         serve_trace.reset_serve_recorder()
         cpu_app.shutdown()
-        shutil.rmtree(telemetry_dir, ignore_errors=True)
         shutil.rmtree(reference_root, ignore_errors=True)
 
+
+
+#: [slo]: the drill's objectives (a 1% budget; the fast rule pages at 10x), its
+#: burst of 500s, the clean requests after it (twenty to an error) and their frames
+SLO_DRILL = """
+[[slo]]
+name = "availability"
+objective = "availability"
+target = 0.99
+window = "30d"
+
+[burn]
+fast_window = "1h"
+fast_threshold = 10.0
+fast_severity = "page"
+slow_window = "6h"
+slow_threshold = 6.0
+slow_severity = "ticket"
+confirmation_divisor = 12
+"""
+SLO_BURST = 4
+SLO_RECOVERY = 20 * SLO_BURST
+SLO_FRAME_ROWS = 16
+#: the drill's kernel shapes: K1 for an anomaly request, K2 for the fleet request of 4 machines
+SLO_ANOMALY = "slo drill: hourglass20 gather M=1 B=16 +ingest"
+SLO_FLEET = "K2 slo drill fleet: hourglass20 N=64 M=4 B=16 y=X +ingest"
+
+
+def cli_json(*args):
+    """``python -m gordo_tpu_torch ARGS --as-json`` in this process (the SLO
+    status it evaluates is the one the apps of this process serve):
+    ``(exit code, parsed document)``."""
+    import io
+
+    from gordo_tpu_torch.cli.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli_main([*args, "--as-json"])
+    return code, json.loads(out.getvalue())
+
+
+def slo_phase(base, names, collection, work_dir, traced, cpu_app, card):
+    """The rollups, the SLO engine and trace analysis over what
+    ``[observability]`` exported (``traced``), then the SLO drill on a card
+    app over a copy of the collection (see the module docstring), its clean
+    answers held to ``cpu_app``'s. Returns the phase's K1 and K2 launches."""
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.telemetry import SERVE_TRACE_FILE, aggregate, slo, trace_analysis
+    from gordo_tpu_torch.telemetry import serving as serve_trace
+
+    # the drill's clean requests and its fleet request, answered first by the CPU app (nothing is exported yet)
+    clean, broken = names[:4], names[-1]
+    clean_frames = [request_frame(700 + i, rows=SLO_FRAME_ROWS) for i in range(len(clean))]
+    fleet = {n: request_frame(760 + i, rows=SLO_FRAME_ROWS) for i, n in enumerate(clean)}
+    expected = [wsgi_post(cpu_app, f"/gordo/v0/smoke/{n}/anomaly/prediction", {"X": frame, "y": frame})
+                for n, frame in zip(clean, clean_frames)]
+    expected.append(wsgi_post(cpu_app, "/gordo/v0/smoke/prediction/fleet", {"X": fleet}))
+    check(all(status == 200 for status, _ in expected), "the CPU app did not answer the drill's requests")
+
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    directory, sent = traced["dir"], traced["sent"]
+    requests, errors = sum(sent.values()), sum(n for (_, status), n in sent.items() if status >= 500)
+
+    # trace: the command in a process of its own, over the traced pass's file
+    code, out, err, seconds = run_command(["trace", directory, "--as-json"])
+    check(code == 0, f"trace exited {code}: {err[-2000:]}")
+    doc = json.loads(out)
+    breakdown = doc["request_breakdown"]
+    spans = list(trace_analysis.read_traces(aggregate.sink_bases(directory, SERVE_TRACE_FILE)))
+    by_route = collections.Counter((s["attributes"]["http.route"], s["attributes"]["http.status_code"])
+                                   for s in spans if s["name"] == "request")
+    check(breakdown["requests"] == requests and by_route == sent,
+          f"trace counts {breakdown['requests']} requests, {dict(by_route)}; [observability] sent {dict(sent)}")
+    check(breakdown["attribution_coverage"] >= 0.9, f"attribution coverage {breakdown['attribution_coverage']}")
+    batch_spans = doc["span_summary"].get("serve_batch", {}).get("count", 0)
+    check(batch_spans == traced["batches"], f"{batch_spans} serve_batch spans, {traced['batches']} engine batches")
+    phase("slo", f"trace --as-json (a process of its own) in {seconds:.2f} s: {breakdown['requests']} requests, "
+          + ", ".join(f"{route} {status} x{n}" for (route, status), n in sorted(by_route.items()))
+          + f", as [observability] sent them; stage p50 "
+          + ", ".join(f"{name} {d['p50_ms']}" for name, d in breakdown["stages"].items())
+          + f" ms; attribution coverage {breakdown['attribution_coverage']:.1%} (bar 90%); "
+          f"{traced['batches']} serve_batch spans = the engine's batches")
+
+    # the rollups: everything sent, read once; a second pass reads no byte
+    store = aggregate.RollupStore(directory)
+    trace_bytes = sum(os.path.getsize(path) for _, path in aggregate.discover_sinks(directory))
+    read = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        summary = store.aggregate()
+        with open(store.state_path) as f:
+            offsets = sum(entry["offset"] for entry in json.load(f)["files"].values())
+        read.append((time.perf_counter() - t0, offsets - sum(r[1] for r in read), summary["spans_read"]))
+    rollup = aggregate.summarize_rollup(store.merged())
+    stream = rollup["stream"]
+    check(read[0][1] == trace_bytes and read[0][2] == len(spans), f"first pass read {read[0]}, trace "
+          f"{trace_bytes} bytes and {len(spans)} spans")
+    check(read[1][1:] == (0, 0), f"the second pass read {read[1][1]} bytes, {read[1][2]} spans")
+    check(rollup["requests"] == requests and rollup["errors"] == errors and rollup["spans"] == len(spans),
+          f"rollups hold {rollup['requests']} requests, {rollup['errors']} errors, {rollup['spans']} spans")
+    check(stream["rows_in"] == stream["rows_scored"] == traced["stream_rows"]
+          and stream["rows_failed"] == stream["rows_shed"] == 0, f"rollups' stream rows {stream}, "
+          f"{traced['stream_rows']} ingested")
+    phase("slo", f"rollups of {trace_bytes} bytes ({len(spans)} spans): aggregate {read[0][0] * 1e3:.1f} ms "
+          f"reading {read[0][1]} bytes, again {read[1][0] * 1e3:.1f} ms reading {read[1][1]}; {rollup['requests']} "
+          f"requests, {rollup['errors']} errors, stream rows in {stream['rows_in']} scored {stream['rows_scored']}, "
+          f"latency p50 {rollup['latency_p50_ms']} p95 {rollup['latency_p95_ms']} ms (bucket interpolated)")
+
+    saved = {k: os.environ.get(k) for k in ("GORDO_TPU_TELEMETRY_DIR", "GORDO_TPU_TRACE_SAMPLE_RATE",
+                                             "GORDO_TPU_SLO_SCRAPE_REFRESH", "GORDO_TPU_TELEMETRY")}
+    os.environ.pop("GORDO_TPU_TELEMETRY", None)
+    # the commands leave a status the route serves for the whole drill (the default refresh is 60 s)
+    os.environ.update(GORDO_TPU_TELEMETRY_DIR=directory, GORDO_TPU_TRACE_SAMPLE_RATE="1",
+                      GORDO_TPU_SLO_SCRAPE_REFRESH="3600")
+    stop = drill_app = None
+    try:
+        # /slo of [observability]'s card app over its traffic: a second reader resumes from the state file
+        status, body, _, ms = http_request(base + "/slo", "GET")
+        doc = json.loads(body)
+        check(status == 200 and doc["ok"] and doc["recent"]["requests"] == requests
+              and doc["aggregation"]["spans_read"] == 0, f"/slo answered {status}: {doc.get('recent')}, "
+              f"{doc.get('aggregation')}")
+        phase("slo", f"GET /slo on the card app in {ms:.1f} ms: " + ", ".join(
+            f"{s['name']} budget {s['budget']['remaining_ratio']:.4f} ({s['requests']} events)" for s in doc["slos"])
+            + f"; {doc['firing']} firing; new spans read 0")
+
+        # the drill: a card app over a copy of the collection, its own telemetry directory and objectives
+        drill_root = tempfile.mkdtemp(prefix="slo-drill-", dir=work_dir)
+        served = os.path.join(drill_root, REVISION)
+        shutil.copytree(collection, served, ignore=shutil.ignore_patterns("fleet_health*", "*_trace*"))
+        telemetry_dir = os.path.join(drill_root, "telemetry")
+        os.makedirs(telemetry_dir)
+        with open(os.path.join(telemetry_dir, "slos.toml"), "w") as f:
+            f.write(SLO_DRILL)
+        os.environ["GORDO_TPU_TELEMETRY_DIR"] = telemetry_dir
+        drill_app = build_app(served, device="cuda")
+        check(os.path.normpath(telemetry_dir) in slo._watched, "build_app did not watch its telemetry directory")
+        drill_base, stop = serving(drill_app)
+        t_drill = time.perf_counter()
+
+        def send(count, name_of, expected, seed):
+            for i in range(count):
+                frame = request_frame(seed + i, rows=SLO_FRAME_ROWS)
+                status, body, _, _ = http_request(f"{drill_base}/{name_of(i)}/anomaly/prediction", "POST",
+                                                  {"X": frame, "y": frame})
+                check(status == expected, f"{name_of(i)}: {status}, not {expected}: {body[:300]}")
+            serve_trace.serve_recorder().flush()
+
+        def alerts(expected_code, expected_state):
+            code, doc = cli_json("slo", "check", telemetry_dir)
+            states = {a["id"]: a["state"] for a in doc["alerts"]}
+            check(code == expected_code and set(states.values()) == {expected_state},
+                  f"slo check exited {code} with {states}, not {expected_code} with {expected_state}")
+            return f"check {code} ({expected_state}, fast burn {doc['alerts'][0]['burn_rate']}x)"
+
+        def agree(expected_state):
+            """``slo status --as-json``, then ``/slo``, ``/fleet-health``'s section
+            and ``fleet-status`` (the status just evaluated, served from the cache)."""
+            code, status_doc = cli_json("slo", "status", telemetry_dir)
+            check(code == 0 and {a["state"] for a in status_doc["alerts"]} == {expected_state},
+                  f"slo status exited {code}: {status_doc['alerts']}")
+            section = {"firing": status_doc["firing"], "pending": status_doc["pending"], "ok": status_doc["ok"],
+                       "alerts": status_doc["alerts"], "evaluated_at": status_doc["generated_at"],
+                       "budgets": {s["name"]: s["budget"]["remaining_ratio"] for s in status_doc["slos"]}}
+            status, body, _, _ = http_request(drill_base + "/slo", "GET")
+            route = json.loads(body)
+            route.pop("revision", None)
+            check(status == 200 and route == status_doc, "/slo differs from slo status --as-json")
+            status, body, _, _ = http_request(drill_base + "/fleet-health", "GET")
+            check(status == 200 and json.loads(body)["slo"] == section, "/fleet-health's slo section differs")
+            code, fleet = cli_json("fleet-status", served)
+            check(code == 0 and fleet["slo"] == section, "fleet-status's slo section differs")
+            budget = status_doc["slos"][0]
+            return (f"status, /slo, /fleet-health, fleet-status agree: {expected_state}, budget remaining "
+                    f"{budget['budget']['remaining_ratio']:.4f} of {budget['requests']} requests")
+
+        # the clean stage: each answer held to the CPU app's (numbers within RTOL/ATOL)
+        max_diff = 0.0
+        for (path, payload), (_, cpu_body) in zip(
+                [(f"/{n}/anomaly/prediction", {"X": frame, "y": frame}) for n, frame in zip(clean, clean_frames)]
+                + [("/prediction/fleet", {"X": fleet})], expected):
+            status, body, _, _ = http_request(drill_base + path, "POST", payload)
+            check(status == 200, f"the drill's {path} answered {status}: {body[:300]}")
+            max_diff = max(max_diff, same_json(cpu_body["data"], json.loads(body)["data"]))
+        serve_trace.serve_recorder().flush()
+        phase("slo", f"drill, clean ({len(clean)} anomaly requests and a fleet request of {SLO_FRAME_ROWS} rows, "
+              f"max abs {max_diff:.3e} from the CPU app's answers, rtol {RTOL}, atol {ATOL}): "
+              f"{alerts(0, 'inactive')}; {agree('inactive')}")
+        # the burst: a model whose artifact is broken on disk answers 500
+        artifact = os.path.join(served, broken, "model.pkl")
+        with open(artifact, "rb") as f:
+            original = f.read()
+        with open(artifact, "wb") as f:
+            f.write(b"not a pickle")
+        drill_app.store.invalidate(served)
+        send(SLO_BURST, lambda i: broken, 500, 800)
+        phase("slo", f"drill, burst ({SLO_BURST} requests to {broken}, its model.pkl broken: 500): "
+              f"{alerts(0, 'pending')}, {alerts(1, 'firing')}; {agree('firing')}")
+        with open(artifact, "wb") as f:
+            f.write(original)
+        drill_app.store.invalidate(served)
+        send(SLO_RECOVERY, lambda i: clean[i % len(clean)], 200, 900)
+        phase("slo", f"drill, recovery ({SLO_RECOVERY} clean requests): {alerts(0, 'resolved')}; "
+              f"{agree('inactive')}; the drill took {time.perf_counter() - t_drill:.2f} s")
+        launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+        check(launches["K1"] >= len(clean) + SLO_RECOVERY and launches["K2"] >= 1, f"the drill launched {launches}")
+        phase("slo", f"K1 launches {launches['K1']}, K2 launches {launches['K2']} (the drill's anomaly requests "
+              f"and its fleet request); {card}")
+        return launches
+    finally:
+        if stop is not None:
+            stop()
+        if drill_app is not None:
+            drill_app.shutdown()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        serve_trace.reset_serve_recorder()
+        slo.reset_statuses()
 
 
 def engine_body(route, frame):
@@ -3634,8 +3910,13 @@ def main():
                 stream_launches, _latencies, _rows_per_s = stream_phase(base, names, cpu_app)
             with clocked("routes"):
                 route_launches = routes_phase(base, names, wide_names, cpu_app, collection, card)
+            telemetry_dir = tempfile.mkdtemp(prefix="observability-", dir=work_dir)
             with clocked("observability"):
-                observability_launches = observability_phase(app, base, names, wide_names, collection, card)
+                observability_launches, traced = observability_phase(app, base, names, wide_names, collection,
+                                                                     telemetry_dir, card)
+            with clocked("slo"):
+                slo_launches = slo_phase(base, names, collection, work_dir, {**traced, "dir": telemetry_dir},
+                                         cpu_app, card)
         finally:
             server.shutdown()
             server.server_close()
@@ -3741,6 +4022,19 @@ def main():
           f"{bound_ms / kernel:.1%} of it; y's bytes counted apart), CUDA-core f32 bound {cuda_core_ms!r} ms "
           f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
 
+    timed[SLO_ANOMALY] = times(cases[SLO_ANOMALY])
+    kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[SLO_ANOMALY]
+    phase("times", f"{SLO_ANOMALY}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+          f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} of "
+          f"it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; "
+          f"{card}")
+    scored_timed[SLO_FLEET] = scores_times(scored[SLO_FLEET])
+    kernel, plain, library, library_tf32, k1, bound_ms, bound_by, cuda_core_ms = scored_timed[SLO_FLEET]
+    phase("times", f"{SLO_FLEET}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms (with "
+          f"TF32 {library_tf32!r} ms), K1 alone {k1!r} ms, bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; "
+          f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), "
+          f"launch floor {floor!r} ms; {card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -3793,12 +4087,14 @@ def main():
                   "lstm": lstm_launches["K1"], "build": build_launches["K1"],
                   "engine": engine_launches["narrow"] + engine_launches["wide"],
                   "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
-                  "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"]}
+                  "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"],
+                  "slo": slo_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
                   "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
-                  "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"]}
+                  "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
+                  "slo": slo_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -3841,6 +4137,11 @@ def main():
         # launches: the fleet request's K2 launch for the non-affine bucket
         entry("fleet_anomaly_scores (K2), narrow kernel, host-transformed bucket", "gordo_tpu/ops/pallas_dense.py:126",
               def_launches["K2"], k2_by_path, DEFINITION_K2, scored_timed[DEFINITION_K2]),
+        # launches: the [slo] drill's anomaly requests (K1) and its fleet request (K2), read on the counters
+        entry("fleet_dense (K1), narrow kernel, SLO drill anomaly request", "gordo_tpu/ops/pallas_dense.py:114",
+              slo_launches["K1"], k1_by_path, SLO_ANOMALY, timed[SLO_ANOMALY]),
+        entry("fleet_anomaly_scores (K2), narrow kernel, SLO drill fleet request", "gordo_tpu/ops/pallas_dense.py:126",
+              slo_launches["K2"], k2_by_path, SLO_FLEET, scored_timed[SLO_FLEET]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,21 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   alerts, the device; ``--machines`` selects records (``all``, ``none``, a
   state, ``unhealthy``, a comma list), ``--limit``/``--offset`` page them.
   A missing directory exits 1.
+- ``trace TARGET [--as-json] [--since TIME | --last DURATION]``: the JAX
+  package's ``trace`` (``gordo_tpu/cli/cli.py:890-1005``). It analyzes a
+  span trace (``telemetry/trace_analysis.py``): a file, or a directory's
+  serve and build traces, each with its worker variants and rotated
+  generations (``TARGET`` default ``$OUTPUT_DIR``); ``--since`` (ISO time
+  or epoch seconds) or ``--last`` (``90m``, ``6h``, ``7d``) keeps the
+  spans that end after it.
+- ``slo status DIRECTORY [--config FILE] [--as-json] [--watch N]`` and
+  ``slo check DIRECTORY [--config FILE] [--as-json]``: the JAX package's
+  ``slo`` commands (``gordo_tpu/cli/cli.py:1008-1114``). Each evaluates
+  the SLOs of ``DIRECTORY`` (default ``$GORDO_TPU_TELEMETRY_DIR``) once
+  (``telemetry/slo.py``: the rollups brought up to date, the alerts
+  stepped) and prints the status; ``check`` exits 1 while an alert is
+  firing. A missing directory or a bad ``slos.toml`` exits 1 with the
+  JAX command's message.
 - ``normalize CONFIG PROJECT``: the shard of a project config, what
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator.py::normalize``), printed or written to
@@ -247,6 +262,106 @@ def fleet_status(directory: str, as_json: bool = False, watch: Optional[float] =
         print("")
 
 
+def _fail(message: str) -> int:
+    """A command's error as the JAX commands print it; exit code 1."""
+    print(f"Error: {message}", file=sys.stderr)
+    return 1
+
+
+def _parse_since(since: Optional[str], last: Optional[str]) -> Optional[float]:
+    """``--since`` (ISO time or epoch seconds) or ``--last`` (a duration)
+    as an epoch cutoff; ``ValueError`` with the JAX command's message.
+
+    >>> _parse_since("1970-01-01T00:01:00+00:00", None), _parse_since("60", None), _parse_since(None, None)
+    (60.0, 60.0, None)
+    """
+    import time
+
+    from ..telemetry.aggregate import parse_span_time
+    from ..telemetry.slo import parse_duration
+
+    if since and last:
+        raise ValueError("--since and --last are exclusive")
+    if last:
+        return time.time() - parse_duration(last)
+    if since:
+        try:
+            return float(since)
+        except ValueError:
+            pass
+        ts = parse_span_time(since)
+        if ts is None:
+            raise ValueError(f"Unparseable --since {since!r} (ISO timestamp or epoch)")
+        return ts
+    return None
+
+
+def trace(target: str, as_json: bool = False, since: Optional[str] = None, last: Optional[str] = None) -> int:
+    """The ``trace`` command: print the analysis of ``target`` (a trace
+    file, or a directory's serve and build traces, one analysis each); the
+    exit code."""
+    import json
+
+    from ..telemetry import BUILD_TRACE_FILE, SERVE_TRACE_FILE
+    from ..telemetry.aggregate import sink_bases, sink_window_index
+    from ..telemetry.trace_analysis import analyze_trace, render_analysis
+
+    try:
+        since_ts = _parse_since(since, last)
+    except ValueError as exc:
+        return _fail(str(exc))
+    window_index: dict = {}
+    if os.path.isdir(target):
+        groups = [bases for bases in (sink_bases(target, SERVE_TRACE_FILE), sink_bases(target, BUILD_TRACE_FILE))
+                  if bases]
+        if since_ts is not None:  # the manifest's span windows skip old generations
+            window_index = sink_window_index(target)
+        if not groups:
+            return _fail(f"No {SERVE_TRACE_FILE} or {BUILD_TRACE_FILE} in {target} (is GORDO_TPU_TELEMETRY_DIR "
+                         "pointed elsewhere, or telemetry disabled?)")
+    elif os.path.exists(target):
+        groups = [[target]]
+    else:
+        return _fail(f"No such trace file or directory: {target}")
+    docs = [analyze_trace(group, since_ts=since_ts, window_index=window_index) for group in groups]
+    if as_json:
+        print(json.dumps(docs[0] if len(docs) == 1 else docs, indent=1), flush=True)
+    else:
+        print("\n\n".join(render_analysis(doc) for doc in docs), flush=True)
+    return 0
+
+
+def slo_status(directory: str, config_path: Optional[str] = None, as_json: bool = False,
+               watch: Optional[float] = None, check: bool = False) -> int:
+    """The ``slo status`` command (``slo check`` with ``check``): evaluate
+    ``directory``'s SLOs and print the status; the exit code, 1 for a
+    check while an alert fires."""
+    import json
+    import time
+
+    from ..telemetry import slo
+
+    while True:
+        if not os.path.isdir(directory):
+            return _fail(f"No such directory: {directory}")
+        try:
+            config = slo.load_slo_config(directory, path=config_path)
+        except (OSError, ValueError) as exc:
+            return _fail(f"Bad SLO config: {exc}")
+        try:
+            doc = slo.evaluate(directory, config=config)
+        except OSError as exc:
+            return _fail(f"SLO evaluation failed: {exc}")
+        print(json.dumps(doc, indent=1, sort_keys=True, default=str) if as_json else slo.render_slo_status(doc),
+              flush=True)
+        if check:
+            return 1 if doc.get("firing") else 0
+        if watch is None:
+            return 0
+        time.sleep(max(0.1, watch))
+        print("")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m gordo_tpu_torch")
     parser.add_argument("--log-level", default="INFO")
@@ -301,6 +416,29 @@ def _parser() -> argparse.ArgumentParser:
                        help="page size of a --machines selection (at most 500)")
     fleet.add_argument("--offset", type=int, default=0, help="page offset of a --machines selection")
 
+    trace_ = commands.add_parser("trace", help="analyze a span trace: latency, stage breakdown, streams, profile")
+    trace_.add_argument("target", nargs="?", default=os.environ.get("OUTPUT_DIR"),
+                        help="a trace file, or a telemetry or build directory (default $OUTPUT_DIR)")
+    trace_.add_argument("--as-json", action="store_true", help="print the raw analysis instead of the report")
+    trace_.add_argument("--since", default=None,
+                        help="only spans ending at or after this ISO time (or epoch seconds); older rotated "
+                             "generations are skipped unread")
+    trace_.add_argument("--last", default=None, help="only the trailing window, e.g. 1h, 90m, 7d (not with --since)")
+
+    slo_ = commands.add_parser("slo", help="the SLO engine: rollups, error budgets, burn-rate alerts")
+    slo_commands = slo_.add_subparsers(dest="slo_command", required=True)
+    for name, help_ in (("status", "evaluate and render the SLO status of a directory"),
+                        ("check", "evaluate, and exit 1 while a burn-rate alert is firing")):
+        command = slo_commands.add_parser(name, help=help_)
+        command.add_argument("directory", nargs="?", default=os.environ.get("GORDO_TPU_TELEMETRY_DIR"),
+                             help="a telemetry or build directory (default $GORDO_TPU_TELEMETRY_DIR)")
+        command.add_argument("--config", default=None, help="the slos.toml to evaluate against (default "
+                             "$GORDO_TPU_SLO_CONFIG, then DIRECTORY/slos.toml, then the packaged one)")
+        command.add_argument("--as-json", action="store_true", help="print the raw status instead of the table")
+        if name == "status":
+            command.add_argument("--watch", type=float, default=None,
+                                 help="evaluate and render again every N seconds (Ctrl-C to stop)")
+
     normalize = commands.add_parser("normalize", help="print the shard of a project config")
     normalize.add_argument("config", help="the project's YAML config (a CRD document or its spec.config)")
     normalize.add_argument("project_name")
@@ -323,6 +461,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(document)
         return 0
+    if args.command == "trace":
+        if not args.target:
+            parser.error("TARGET is required (argument or $OUTPUT_DIR)")
+        return trace(args.target, args.as_json, args.since, args.last)
+    if args.command == "slo":
+        if not args.directory:
+            parser.error("DIRECTORY is required (argument or $GORDO_TPU_TELEMETRY_DIR)")
+        if args.config is not None and not os.path.isfile(args.config):
+            parser.error(f"--config: file {args.config!r} does not exist")
+        return slo_status(args.directory, args.config, args.as_json, getattr(args, "watch", None),
+                          check=args.slo_command == "check")
     if args.command == "fleet-status":
         if not args.directory:
             parser.error("DIRECTORY is required (argument or $OUTPUT_DIR)")

@@ -2,8 +2,7 @@
 The model server: a plain WSGI application, served with ``wsgiref``.
 
 The routes of the JAX server's URL map (``gordo_tpu/server/app.py``),
-with its JSON shapes, in its order; ``slo`` is not ported (the SLO
-engine, ``ROADMAP.md`` item 11b):
+with its JSON shapes, in its order, all 19 of them:
 
 - ``GET /healthcheck`` and ``GET /server-version``;
 - under ``/gordo/v0/<project>/``: ``POST <name>/prediction``,
@@ -19,7 +18,12 @@ engine, ``ROADMAP.md`` item 11b):
   fleet build wrote beside the revision's machines, or 404;
 - ``GET /gordo/v0/<project>/fleet-health``: the joined fleet-status
   document (``telemetry/fleet_health.py``), ``?machines=``, ``?limit=``
-  and ``?offset=`` selecting its health records.
+  and ``?offset=`` selecting its health records;
+- ``GET /gordo/v0/<project>/slo``: the SLO engine's status of the serving
+  telemetry directory (``telemetry/slo.py``), what ``slo status
+  --as-json`` prints; 404 without a directory, 422 for a bad
+  ``slos.toml``, 503 where the directory cannot hold the rollups.
+  ``build_app`` marks that directory watched.
 
 A request may pin a revision, a sibling directory of the served one,
 with ``?revision=`` or a ``revision`` header. Every JSON body of a
@@ -82,7 +86,7 @@ from ..serve.engine import ServeConfig, ServeEngine, batching_enabled
 from ..stream import StreamPlane, stream_enabled
 from ..telemetry import SamplingProfiler, SpanRecorder, live_serving_ledger, serving_ledger, should_profile
 from ..telemetry import serving as serve_trace
-from ..telemetry import tracing
+from ..telemetry import slo, tracing
 from ..utils import yaml_lite
 from ..utils.env import env_bool
 from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
@@ -308,6 +312,7 @@ def _routes() -> List[Tuple[str, "re.Pattern[str]", Callable[..., Response], str
         ("DELETE", re.compile(rf"{project}/stream/(?P<stream_id>[^/]+)/?$"), stream.delete_stream, "stream-close"),
         ("GET", re.compile(rf"{project}/build-status/?$"), base.get_build_status, "build-status"),
         ("GET", re.compile(rf"{project}/fleet-health/?$"), base.get_fleet_health, "fleet-health"),
+        ("GET", re.compile(rf"{project}/slo/?$"), base.get_slo_status, "slo"),
         ("GET", re.compile(rf"{project}/models/?$"), base.get_model_list, "models"),
         ("GET", re.compile(rf"{project}/revisions/?$"), base.get_revision_list, "revisions"),
         ("GET", re.compile(rf"{project}/expected-models/?$"), base.get_expected_models, "expected-models"),
@@ -561,6 +566,8 @@ def build_app(
     app = GordoServerApp(collection_dir, device, expected, serve_config)
     # every log record made in a request carries its trace id from here on
     tracing.install_trace_log_stamping()
+    # the SLO status of the serving telemetry directory is kept fresh at scrape time
+    slo.watch(slo.slo_directory(app.store.collection_dir))
     if app.engine is not None:
         logger.info(
             "micro-batching engine on: max_size=%d max_delay=%.1fms queue_depth=%d row_ladder=%s precision=%s",

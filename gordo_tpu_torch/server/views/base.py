@@ -1,9 +1,10 @@
 """
 Base routes (``gordo_tpu/server/views/base.py``): the healthcheck and
 server version, per-model prediction, metadata, the model download,
-revision deletion, the model, revision and expected-model lists, and the
-fleet route ``POST /gordo/v0/<project>/prediction/fleet``, and the
-build's status ``GET /gordo/v0/<project>/build-status``.
+revision deletion, the model, revision and expected-model lists, the
+fleet route ``POST /gordo/v0/<project>/prediction/fleet``, the build's
+status ``GET /gordo/v0/<project>/build-status``, the fleet-status
+document and the SLO status.
 
 ``POST .../<name>/prediction`` scores one model's rows, body ``{"X":
 frame}``, through one gather launch of K1 (with the model's input
@@ -27,7 +28,8 @@ health ledger.
 ``GET /gordo/v0/<project>/fleet-health`` is the joined fleet-status
 document of the served directory (``telemetry/fleet_health.py``), with
 the app's live ledger and its ``device``, ``programs``, ``serving`` and
-``stream`` sections.
+``stream`` sections. ``GET /gordo/v0/<project>/slo`` is the SLO status
+of the serving telemetry directory (``telemetry/slo.py``).
 """
 
 import logging
@@ -43,6 +45,7 @@ from ...serve import BatchShedError
 from ...stream import stream_plane_section
 from ...stream.scorer import CLIENT_ERRORS
 from ...telemetry import fleet_status_document, load_status, utilization_snapshot
+from ...telemetry import slo as slo_engine
 from .. import model_io, utils, wire
 from ..app import MODEL_COLLECTION_DIR_ENV_VAR, Response, ServerError
 from ..fleet_store import ModelResolution
@@ -233,6 +236,30 @@ def get_fleet_health(ctx, gordo_project: str) -> Response:
     doc = fleet_status_document(directory, device=utilization_snapshot(app.device), programs=programs,
                                 serving=serving, stream=stream, machines=args.arg("machines"), limit=limit,
                                 offset=offset, ledger=app.live_ledger)
+    return ctx.json_response(doc)
+
+
+def get_slo_status(ctx, gordo_project: str) -> Response:
+    """The SLO status of the serving telemetry directory
+    (``GORDO_TPU_TELEMETRY_DIR``, else the served directory), what ``slo
+    status --as-json`` prints (``base.py:771-830``): a directory without
+    sinks is empty traffic, inside SLO. 404 when there is no directory,
+    422 for a bad ``slos.toml`` (the operator's to fix), 503 when the
+    directory cannot hold the rollups (a read-only volume). The cached
+    status is served while it is younger than
+    ``GORDO_TPU_SLO_SCRAPE_REFRESH``: a poller does not step the alerts."""
+    directory = slo_engine.slo_directory(ctx.app.store.collection_dir)
+    if not directory or not os.path.isdir(directory):
+        return ctx.json_response({"error": "No telemetry directory to evaluate (set GORDO_TPU_TELEMETRY_DIR)."},
+                                 status=404)
+    try:
+        config = slo_engine.load_slo_config(directory)
+    except (OSError, ValueError) as exc:
+        return ctx.json_response({"error": f"Bad SLO config: {exc}"}, status=422)
+    try:
+        doc = slo_engine.evaluate_cached(directory, config=config)
+    except OSError as exc:
+        return ctx.json_response({"error": f"SLO evaluation failed: {exc}"}, status=503)
     return ctx.json_response(doc)
 
 

@@ -29,12 +29,13 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..serve.breaker import BreakerBoard
 from ..telemetry import serving as serve_trace
+from ..telemetry.aggregate import histogram_percentile
 from ..utils.env import env_bool, env_float, env_int
 from ..utils.faults import FaultInjected, fault_point
 from .events import StreamEvent
 from .scorer import WindowScorer
 from .session import StreamSession
-from .telemetry import StreamTelemetry, histogram_percentile
+from .telemetry import StreamTelemetry
 
 logger = logging.getLogger(__name__)
 

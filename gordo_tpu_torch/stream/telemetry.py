@@ -3,20 +3,16 @@ The streaming plane's counters and its flush and lag histograms, a copy
 of ``gordo_tpu/stream/telemetry.py``'s accumulator. Each plane owns one
 (the JAX package keeps a process-global one); ``/stream/status`` reads
 its snapshot, and the fleet-status document's ``stream`` section its
-percentiles (:func:`histogram_percentile`). No per-machine detail here:
+percentiles (``telemetry/aggregate.py``'s ``histogram_percentile``, whose
+buckets, ``LATENCY_BUCKETS_MS``, these are). No per-machine detail here:
 that is on the sessions. :func:`lag_bucket_counts` is the compact lag
 distribution each ``stream_score`` span carries.
 """
 
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence
 
-#: fixed bucket edges, a copy of ``gordo_tpu/telemetry/aggregate.py``'s
-#: ``LATENCY_BUCKETS_MS``
-LATENCY_BUCKETS_MS: Tuple[float, ...] = (
-    1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 350.0, 500.0,
-    750.0, 1000.0, 1500.0, 2500.0, 5000.0, 10000.0, 30000.0, 60000.0,
-)
+from ..telemetry.aggregate import LATENCY_BUCKETS_MS
 
 
 def lag_bucket_counts(lags_ms: Sequence[float], weights: Optional[Sequence[int]] = None) -> List[int]:
@@ -35,37 +31,6 @@ def lag_bucket_counts(lags_ms: Sequence[float], weights: Optional[Sequence[int]]
                 break
         counts[slot] += int(weights[i]) if weights is not None else 1
     return counts
-
-
-def histogram_percentile(histogram: Dict[str, Any], q: float) -> float:
-    """A percentile (ms) of a histogram snapshot, interpolated inside its
-    bucket; the overflow bucket answers its lower edge. A copy of
-    ``gordo_tpu/telemetry/aggregate.py``'s.
-
-    >>> histogram_percentile({"count": 4, "buckets_ms": [1.0, 2.0], "counts": [0, 4, 0]}, 0.5)
-    1.5
-    """
-    total = histogram.get("count", 0)
-    if not total:
-        return 0.0
-    rank = q * total
-    edges = histogram["buckets_ms"]
-    cumulative = 0
-    lower = 0.0
-    for i, count in enumerate(histogram["counts"]):
-        if not count:
-            if i < len(edges):
-                lower = edges[i]
-            continue
-        if cumulative + count >= rank:
-            if i >= len(edges):
-                return round(lower, 3)
-            inside = max(0.0, min(1.0, (rank - cumulative) / count))
-            return round(lower + (edges[i] - lower) * inside, 3)
-        cumulative += count
-        if i < len(edges):
-            lower = edges[i]
-    return round(lower, 3)
 
 
 class _Histogram:

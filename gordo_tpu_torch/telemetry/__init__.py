@@ -12,11 +12,16 @@ What the port records about itself (``gordo_tpu/telemetry/``):
   (``serving.py``), the host sampling profiler (``profiler.py``), the
   serving feeds of the health ledger, and the joined fleet-status
   document of ``fleet-status`` and ``/fleet-health``
-  (``fleet_health.py``, with ``slo.py``'s persisted alerts).
+  (``fleet_health.py``);
+- what reads the traces back: the time-window rollups of every sink
+  (``aggregate.py``), the SLO engine over them with its burn-rate alerts
+  (``slo.py``, objectives in ``slos.toml``) and the trace analysis of the
+  ``trace`` command (``trace_analysis.py``).
 
 ``GORDO_TPU_TELEMETRY=0`` turns all of it off but ``Server-Timing``.
 """
 
+from .aggregate import ROLLUP_DIR, ROLLUP_STATE_FILE, RollupStore, summarize_rollup
 from .device import (
     emit_device_utilization,
     memory_snapshot,
@@ -91,6 +96,16 @@ from .serving import (
     serve_trace_path,
     trace_sample_rate,
 )
+from .slo import (
+    SLO_CONFIG_FILE,
+    SLO_STATE_FILE,
+    SloConfig,
+    SloSpec,
+    evaluate_slos,
+    firing_alerts,
+    load_slo_config,
+    render_slo_status,
+)
 from .tracing import (
     TRACEPARENT_HEADER,
     TraceContext,
@@ -106,7 +121,9 @@ from .tracing import (
 
 __all__ = [
     "BUILD_STATUS_FILE", "BUILD_TRACE_FILE", "FLEET_HEALTH_ENV", "FLEET_HEALTH_FILE",
-    "FLEET_HEALTH_SHARD_DIR", "FLEET_STATUS_MAX_MACHINES", "FLEET_STATUS_TOP_K", "HEALTH_SHARDS_ENV",
+    "FLEET_HEALTH_SHARD_DIR", "ROLLUP_DIR", "ROLLUP_STATE_FILE", "RollupStore", "SLO_CONFIG_FILE", "SLO_STATE_FILE",
+    "SloConfig", "SloSpec", "evaluate_slos", "firing_alerts", "load_slo_config", "render_slo_status",
+    "summarize_rollup", "FLEET_STATUS_MAX_MACHINES", "FLEET_STATUS_TOP_K", "HEALTH_SHARDS_ENV",
     "HEALTH_WINDOW_ROWS", "HEARTBEAT_ENV", "KEEP_ENV", "MAX_BYTES_ENV", "NULL_LEDGER", "NULL_RECORDER",
     "SERVE_TRACE_FILE", "TELEMETRY_ENV", "TRACEPARENT_HEADER", "TRACE_DIR_ENV", "TRACE_SAMPLE_RATE_ENV",
     "BuildProgress", "FleetHealthLedger", "NullLedger", "NullRecorder", "SamplingProfiler",

@@ -39,7 +39,8 @@ adopts its counts.
 :func:`fleet_status_document` joins ``build_status.json``,
 ``fleet_plan.json``, the lifecycle's state files, the health view (the
 live ledger merged with every other worker's snapshot, never with its
-own), the SLO engine's persisted alerts and the sections its caller
+own), the SLO section (``telemetry/slo.py``: the budgets and alerts of
+this process's last evaluation, else the persisted alerts) and the sections its caller
 injects (``device``, ``programs``, ``serving``, ``stream``);
 :func:`render_fleet_status` renders it for ``fleet-status``.
 """

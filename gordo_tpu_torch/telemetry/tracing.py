@@ -115,7 +115,8 @@ def install_trace_log_stamping() -> None:
     """Stamp the bound trace id into every log record made in a request,
     process-wide, once: a log-record factory (filters do not reach child
     loggers) that sets ``record.trace_id`` and appends ``trace_id=<id>``
-    to the message. ``build_app`` calls it; idempotent."""
+    to the message (outside a request, ``-`` unless a factory it wraps
+    stamped its own). ``build_app`` calls it; idempotent."""
     global _factory_installed
     if _factory_installed:
         return
@@ -125,9 +126,12 @@ def install_trace_log_stamping() -> None:
     def factory(*args, **kwargs):
         record = previous_factory(*args, **kwargs)
         trace_id = current_trace_id()
-        record.trace_id = trace_id or "-"
         if trace_id:
+            record.trace_id = trace_id
             record.msg = f"{record.msg} trace_id={trace_id}"
+        elif not hasattr(record, "trace_id"):
+            # a factory beneath this one (another tracer in the process) may have stamped its own
+            record.trace_id = "-"
         return record
 
     logging.setLogRecordFactory(factory)

@@ -68,9 +68,11 @@ def test_package_has_modules():
         "serve/precision.py", "server/model_io.py", "telemetry/recorder.py", "telemetry/progress.py",
         "telemetry/device.py", "telemetry/fleet_health.py", "planner/costmodel.py", "planner/plan.py",
         "telemetry/tracing.py", "telemetry/serving.py", "telemetry/profiler.py", "telemetry/slo.py",
-        "utils/profiling.py",
+        "utils/profiling.py", "telemetry/aggregate.py", "telemetry/trace_analysis.py",
     ):
         assert expected in names
+    assert (REPO / "gordo_tpu_torch" / "telemetry" / "slos.toml").read_text() == (
+        REPO / "gordo_tpu" / "telemetry" / "slos.toml").read_text()
 
 
 #: library recurrences: the port writes its LSTM out (gate order, the

@@ -277,6 +277,35 @@ def test_trace_id_stamps_log_records():
     assert tracing.current_trace_id() == ""
 
 
+def test_trace_id_stamping_keeps_a_wrapped_factorys_stamp(monkeypatch):
+    """In a process that runs both packages, the JAX package's factory may
+    lie beneath the port's: outside a port request the port keeps the
+    ``trace_id`` it stamped."""
+    import logging
+
+    saved = logging.getLogRecordFactory()
+
+    def other(*args, **kwargs):
+        record = logging.LogRecord(*args, **kwargs)
+        record.trace_id = "other"
+        return record
+
+    monkeypatch.setattr(tracing, "_factory_installed", False)
+    logging.setLogRecordFactory(other)
+    try:
+        tracing.install_trace_log_stamping()
+        make = logging.getLogRecordFactory()
+        assert make("x", logging.INFO, "f", 1, "msg", (), None).trace_id == "other"
+        token = tracing.bind(TRACE)
+        try:
+            record = make("x", logging.INFO, "f", 1, "msg", (), None)
+        finally:
+            tracing.unbind(token)
+        assert record.trace_id == TRACE and record.msg == f"msg trace_id={TRACE}"
+    finally:
+        logging.setLogRecordFactory(saved)
+
+
 # -- Server-Timing and the exported request spans --------------------------------
 
 
