@@ -63,8 +63,8 @@ Run from the root of a checkout; it builds the CUDA kernels from
 
 ``[lstm]`` (after ``[config]``) writes 16 LSTM machines as a project
 config (``examples/model-configuration.yaml``'s settings, lookback 10,
-20 tags, 2000 seeded rows in ``FileDataProvider`` CSVs, 5 epochs, batch
-32, TimeSeriesSplit(3)): 8 lstm_hourglass autoencoders (15-10-10-15), 4
+20 tags, 2000 seeded rows in ``FileDataProvider`` CSVs, ``LSTM_EPOCHS``
+(1, the examples' 5 cut), batch 32, TimeSeriesSplit(3)): 8 lstm_hourglass autoencoders (15-10-10-15), 4
 lstm_symmetric forecasters (64-32-32-64) and 4 lstm_model autoencoders at
 its 256-128-64-64-128-256 defaults, each a ``DiffBasedAnomalyDetector``
 over MinMax. It builds them on the card through ``build-fleet`` (every
@@ -257,6 +257,31 @@ than the card has SMs, the narrow kernel shares each row among lanes;
 ``[split]`` times that against the build with ``FLEET_DENSE_NO_SPLIT``,
 which ``[kernel]`` also holds against the plain version.
 
+``[metrics]`` lines read the Prometheus exposition
+(``gordo_tpu_torch/server/prometheus/``) inside three phases, each
+number held to what was built or sent. In ``[telemetry]``, the process
+registry after the telemetry-on build: the build's machine gauges (72, 72,
+0), each phase histogram's count against the ``build_phase`` spans of the
+two traces ([train]'s and this one; the phases of ``build_status.json``),
+the compile histogram's count against the ``device_program`` first calls,
+the final-loss count against the members trained, the plan's predicted
+seconds against ``fleet_plan.json``. In ``[slo]``, the drill's card app has
+``ENABLE_PROMETHEUS=true`` (its copy of the collection is revision
+``DRILL_REVISION``), and ``/metrics``, served from the same process on a
+socket of its own, is scraped before and after the drill: requests by
+method and status grew by what was sent, ``errors_total{kind="server"}``
+by the four 500s, the ``inference`` stage by the scoring answers; the SLO
+gauges equal ``/slo``'s document, the health gauge sums to the process's
+ledgers' machines, the resident bytes equal ``revision_stats()``, the
+card's memory is there; K1 still 84 and K2 1 (a scrape launches nothing).
+It prints the scrape's ms and bytes, then a warm-up pass and one pair of
+16 anomaly requests with metrics on and off (walltimes, not gated), and
+``observe()`` alone in microseconds. In ``[engine]``, the default-knob
+round runs with metrics on: the batch-size histogram's count equals the
+engine's batches and its sum the coalesced requests, the shed counter
+the engine's shed counts (its deadline sheds at most the engine's, which
+also count a waiter's own timeout).
+
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
@@ -268,6 +293,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -920,6 +946,7 @@ def train_phase(work_dir, directory):
         f.write(normalize(config_path, "smoke"))
     phase("train", f"project config of {len(rows)} machines (CRD document, FileDataProvider CSVs of {TRAIN_ROWS} "
           f"rows) written and normalized to a shard in {time.perf_counter() - t0:.2f} s")
+    series_before = registry_samples()  # the build series this build feeds ([telemetry] reads them)
     with captured_build() as (forwards, fetched):
         fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
         t0 = time.perf_counter()
@@ -927,6 +954,7 @@ def train_phase(work_dir, directory):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    series = (series_before, registry_samples(), directory)
     check(code == 0 and not builder.build_errors, f"build-fleet exited {code}: {builder and builder.build_errors}")
     check(sorted(fetched) == sorted(rows), "build-fleet fetched other machines")
     unequal = [name for name, X in fetched.items() if not np.array_equal(X, rows[name])]
@@ -966,13 +994,67 @@ def train_phase(work_dir, directory):
           f"(limit {BUILD_SCORE_TOL}), epochs run equal")
     names = sorted(n for n in fetched if n.startswith("machine-"))
     wide_names = sorted(n for n in fetched if n.startswith("compressor-"))
-    return names, wide_names, launches, cv_cases, 1e3 * wall / len(fetched), (shard, builder, wall)
+    return names, wide_names, launches, cv_cases, 1e3 * wall / len(fetched), (shard, builder, wall, series)
 
 
 # -- [telemetry]: what [train]'s build wrote beside its machines ------------------------
 
 #: the files a default build writes beside its machines
 TELEMETRY_FILES = ("build_status.json", "build_trace.jsonl", "fleet_health.json", "fleet_plan.json")
+
+
+def build_series_metrics(builds, machines):
+    """``[metrics]`` of ``[telemetry]``: what each telemetry-on build of
+    the shard added to the process registry (``builds``: the samples
+    before and after it, and its directory), held to what it wrote: each
+    phase histogram's count against the ``build_phase`` spans of its trace
+    (the phases of its ``build_status.json``), the compile histogram's
+    against its ``device_program`` first calls, the final-loss count
+    against its members trained; after the last, the machine gauges and
+    the predicted seconds against ``fleet_plan.json``."""
+    from gordo_tpu_torch import telemetry
+    from gordo_tpu_torch.planner import FleetPlan
+
+    t0 = time.perf_counter()
+    samples = registry_samples()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    phase_counts, span_counts = collections.Counter(), collections.Counter()
+    compiles = compile_spans = losses = trained = 0
+    for before, after, directory in builds:
+        def grown(name, **labels):
+            return summed(after, name, **labels) - summed(before, name, **labels)
+
+        with open(os.path.join(directory, telemetry.BUILD_TRACE_FILE)) as f:
+            spans = [json.loads(line) for line in f]
+        counts = {p: grown("gordo_fleet_build_phase_duration_seconds_count", project="smoke", phase=p)
+                  for p in label_values(after, "gordo_fleet_build_phase_duration_seconds_count", "phase",
+                                        project="smoke")}
+        counts = {p: n for p, n in counts.items() if n}
+        in_trace = collections.Counter(s["attributes"]["phase"] for s in spans if s["name"] == "build_phase")
+        status_phases = set(telemetry.load_status(directory)["phases"])
+        check(set(counts) == status_phases and counts == in_trace, f"{directory}: phase histogram counts grew by "
+              f"{counts}; build_status.json's phases {sorted(status_phases)}, its build_phase spans {dict(in_trace)}")
+        phase_counts.update(counts)
+        span_counts.update(in_trace)
+        compiles += grown("gordo_fleet_compile_duration_seconds_count", project="smoke")
+        compile_spans += sum(1 for s in spans if s["name"] == "device_program" and s["attributes"]["compile"])
+        losses += grown("gordo_fleet_member_final_loss_count", project="smoke")
+        trained += sum(1 for s in spans if s["name"] == "member_trained")
+    check(compiles == compile_spans, f"{compiles} compile observations, {compile_spans} device_program first calls")
+    check(losses == trained == len(builds) * machines, f"{losses} final losses observed, {trained} members trained")
+    machines_series = {k: summed(samples, f"gordo_fleet_build_machines_{k}", project="smoke")
+                       for k in ("total", "completed", "failed")}
+    check(machines_series == {"total": machines, "completed": machines, "failed": 0},
+          f"gordo_fleet_build_machines_* {machines_series}, the build {machines} machines, none failed")
+    planned = FleetPlan.load(os.path.join(builds[-1][2], "fleet_plan.json")).totals["predicted_wall_s"]
+    predicted = summed(samples, "gordo_fleet_plan_predicted_seconds", project="smoke", strategy="naive")
+    check(predicted == planned, f"gordo_fleet_plan_predicted_seconds {predicted}, fleet_plan.json {planned}")
+    phase("metrics", f"[telemetry] the process registry in {render_ms:.2f} ms ({len(samples)} samples): what "
+          f"[train]'s build and the telemetry-on one added: phase histogram counts "
+          f"{dict(sorted(phase_counts.items()))} = their traces' build_phase spans (the phases of each "
+          f"build_status.json); compile observations {compiles:.0f} = device_program first calls; final losses "
+          f"{losses:.0f} = members trained; after the last, machines total/completed/failed {machines_series} and "
+          f"gordo_fleet_plan_predicted_seconds {predicted} = fleet_plan.json's")
 
 
 def telemetry_phase(work_dir, directory, train_build, train_launches, card):
@@ -996,7 +1078,7 @@ def telemetry_phase(work_dir, directory, train_build, train_launches, card):
     from gordo_tpu_torch.planner import FleetPlan
     from gordo_tpu_torch.server import build_app
 
-    shard, builder, wall = train_build
+    shard, builder, wall, train_series = train_build
     present = [name for name in TELEMETRY_FILES if os.path.exists(os.path.join(directory, name))]
     check(present == list(TELEMETRY_FILES), f"[train]'s build wrote {present}, not {list(TELEMETRY_FILES)}")
     machines = serializer.list_model_dirs(directory)
@@ -1095,10 +1177,13 @@ def telemetry_phase(work_dir, directory, train_build, train_launches, card):
         previous = os.environ.get(telemetry.TELEMETRY_ENV)
         os.environ[telemetry.TELEMETRY_ENV] = value
         try:
+            series_before = registry_samples()
             t0 = time.perf_counter()
             code, again = build_fleet(shard, out, device="cuda")
             torch.cuda.synchronize()
             builds[label] = (time.perf_counter() - t0, again)
+            if label == "on":
+                on_series = (series_before, registry_samples(), out)
         finally:
             if previous is None:
                 os.environ.pop(telemetry.TELEMETRY_ENV)
@@ -1118,6 +1203,8 @@ def telemetry_phase(work_dir, directory, train_build, train_launches, card):
         phase_s = built.phase_seconds
         return (f"{seconds:.2f} s (without data_fetch {seconds - phase_s['data_fetch']:.2f} s; cv_train "
                 f"{phase_s['cv_train']:.3f}, final_fit {phase_s['final_fit']:.3f}, dump {phase_s['dump']:.3f})")
+
+    build_series_metrics([train_series, on_series], len(machines))
 
     (off_wall, off_builder), (on_wall, on_builder) = builds["off"], builds["on"]
     phase("telemetry", f"the same {len(machines)} machines built again, telemetry on ([train]) "
@@ -1256,9 +1343,10 @@ LSTM_GROUPS = (
      {"kind": "lstm_symmetric", "lookback_window": 10, "dims": [64, 32], "funcs": ["tanh", "tanh"]}, 10),
     ("lstm-model", 4, LSTM_AE, {"kind": "lstm_model", "lookback_window": 10}, 9),
 )
-#: the examples' 5 epochs cut to 2: at 5 the card's build took 47 s and
-#: the CPU check 91 s (one H100 machine), far past the phase's minute
-LSTM_EPOCHS = 2
+#: the examples' 5 epochs cut to 1: at 5 the card's build took 47 s and
+#: the CPU check 91 s (one H100 machine), far past the phase's minute; at 2
+#: 21.5 s and 34.2 s, and the smoke near 700 of its 1200 s
+LSTM_EPOCHS = 1
 #: the LSTM machines' sensor_data seeds start here
 LSTM_SEED = 700
 #: feedforward machines of the [train] collection served beside the LSTMs
@@ -1270,7 +1358,7 @@ LSTM_CPU_CHECK = ("lstm-hourglass-000", "lstm-forecast-000", "lstm-model-000")
 def lstm_machines():
     """The [lstm] collection: ``(name, tags, rows)`` of each machine and
     ``{name: definition}`` (a detector over MinMax and the group's LSTM
-    estimator, 5 epochs, batch 32)."""
+    estimator, LSTM_EPOCHS, batch 32)."""
     machines, models, seed = [], {}, LSTM_SEED
     for prefix, count, path, kwargs, _ in LSTM_GROUPS:
         for i in range(count):
@@ -1517,7 +1605,7 @@ def lstm_build(work_dir, card):
         f.write(normalize(config_path, "smoke-lstm"))
     phase("lstm", f"project config of {len(rows)} LSTM machines (8 lstm_hourglass autoencoders 15-10-10-15, 4 "
           f"lstm_symmetric forecasters 64-32-32-64, 4 lstm_model autoencoders 256-128-64-64-128-256; lookback 10, "
-          f"20 tags, {TRAIN_ROWS} rows, {LSTM_EPOCHS} epochs (cut from the examples' 5 to keep the phase near a "
+          f"20 tags, {TRAIN_ROWS} rows, {LSTM_EPOCHS} epoch (cut from the examples' 5 to keep the phase near a "
           f"minute), batch 32, TimeSeriesSplit(3)) written and normalized in {time.perf_counter() - t0:.2f} s")
     directory = os.path.join(work_dir, "lstm-build", REVISION)
     with captured_windowed() as forwards:
@@ -2493,6 +2581,10 @@ SLO_FRAME_ROWS = 16
 #: the drill's kernel shapes: K1 for an anomaly request, K2 for the fleet request of 4 machines
 SLO_ANOMALY = "slo drill: hourglass20 gather M=1 B=16 +ingest"
 SLO_FLEET = "K2 slo drill fleet: hourglass20 N=64 M=4 B=16 y=X +ingest"
+#: the drill's copy of the collection: a revision name of its own, so its resident bytes are its own series
+DRILL_REVISION = "1710000000000"
+#: anomaly requests of the metrics on/off pair, after a warm-up pass of as many
+METRICS_AB = 16
 
 
 def cli_json(*args):
@@ -2507,6 +2599,150 @@ def cli_json(*args):
     with contextlib.redirect_stdout(out):
         code = cli_main([*args, "--as-json"])
     return code, json.loads(out.getvalue())
+
+
+def serving_metrics():
+    """The process registry's ``/metrics`` app behind a threaded socket
+    server, as ``--metrics-port`` serves it: ``(url, stop)``."""
+    from gordo_tpu_torch.server.app import make_wsgi_server
+    from gordo_tpu_torch.server.prometheus.server import build_metrics_app
+
+    server = make_wsgi_server(build_metrics_app(), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        check(not thread.is_alive(), "metrics server thread did not stop")
+
+    return f"http://127.0.0.1:{server.server_port}/metrics", stop
+
+
+def scrape(url):
+    """One scrape over the socket: ``(samples, host ms, bytes)``."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=60) as response:
+        body = response.read()
+        content_type = response.headers["Content-Type"]
+    ms = (time.perf_counter() - t0) * 1e3
+    check(content_type == "text/plain; version=0.0.4; charset=utf-8", f"/metrics answered {content_type}")
+    return scrape_samples(body.decode()), ms, len(body)
+
+
+def drill_metrics(before, after, sent_by, app, served, machines, telemetry_dir, scrape_ms, scrape_bytes, card):
+    """The drill's scrapes, held to what was sent to its app: requests by
+    method and status, server errors, the ``inference`` stage of each
+    scoring answer; the SLO gauges to ``/slo``'s document (the status the
+    commands left), the health gauge to the process's ledgers, the resident
+    bytes to the store's, the card's memory present."""
+    from gordo_tpu_torch.telemetry import fleet_health, slo
+
+    def grown(name, **labels):
+        return summed(after, name, **labels) - summed(before, name, **labels)
+
+    counted = {key: grown("gordo_server_requests_total", method=key[0], status_code=str(key[1])) for key in sent_by}
+    check(counted == dict(sent_by), f"requests_total grew by {counted}, the drill sent {dict(sent_by)}")
+    errors = grown("gordo_server_request_errors_total", kind="server")
+    server_errors = sum(n for (_, status), n in sent_by.items() if status >= 500)
+    check(errors == server_errors == SLO_BURST, f"errors_total{{kind=server}} grew by {errors}, "
+          f"{server_errors} answered 5xx")
+    scoring = sum(n for (method, status), n in sent_by.items() if method == "POST" and status == 200)
+    inference = grown("gordo_server_stage_duration_seconds_count", stage="inference")
+    check(inference == scoring, f"{inference} inference stages observed, {scoring} scoring requests answered")
+
+    status_doc = slo.scrape_statuses()[os.path.normpath(telemetry_dir)]
+    for spec in status_doc["slos"]:
+        name = spec["name"]
+        for window, rate in spec["burn_rates"].items():
+            got = summed(after, "gordo_slo_burn_rate", slo=name, window=str(window))
+            check(got == float(rate), f"gordo_slo_burn_rate {name} {window}: {got}, /slo {rate}")
+        got = summed(after, "gordo_slo_error_budget_remaining_ratio", slo=name)
+        check(got == float(spec["budget"]["remaining_ratio"]), f"{name}'s budget gauge {got}")
+    states = {"inactive": 0, "resolved": 0, "pending": 1, "firing": 2}
+    worst = {}
+    for alert in status_doc["alerts"]:
+        worst[alert["slo"]] = max(worst.get(alert["slo"], 0), states[alert["state"]])
+    alert_state = {n: summed(after, "gordo_slo_alert_state", slo=n) for n in label_values(after,
+                                                                                        "gordo_slo_alert_state",
+                                                                                        "slo")}
+    check(alert_state == worst, f"gordo_slo_alert_state {alert_state}, /slo's alerts {worst}")
+
+    summaries = fleet_health.ledger_summaries()
+    health = {state: summed(after, "gordo_fleet_health_machines", state=state)
+              for state in label_values(after, "gordo_fleet_health_machines", "state")}
+    ledger_machines = sum(summary["machines"] for summary in summaries.values() if summary)
+    drill_ledger = summaries.get(os.path.abspath(served)) or {}
+    check(sum(health.values()) == ledger_machines and drill_ledger.get("machines") == machines,
+          f"gordo_fleet_health_machines {health} over {ledger_machines} machines in the process's {len(summaries)} "
+          f"ledgers; the drill's ledger {drill_ledger.get('machines')}")
+    resident = app.store.revision_stats()[DRILL_REVISION]
+    exposed = {kind: summed(after, "gordo_store_revision_bytes", revision=DRILL_REVISION, kind=kind)
+               for kind in ("model", "stacked", "cast")}
+    stored = {"model": resident["model_bytes"], "stacked": resident["stacked_bytes"], "cast": resident["cast_bytes"]}
+    check(stored["model"] > 0 and exposed == stored, f"gordo_store_revision_bytes {exposed}, the store {resident}")
+    memory = {kind: summed(after, "gordo_device_memory_bytes", kind=kind)
+              for kind in label_values(after, "gordo_device_memory_bytes", "kind")}
+    check(set(memory) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"} and memory["bytes_limit"] > 0,
+          f"gordo_device_memory_bytes {memory}")
+    phase("metrics", f"[slo] scrape of /metrics over the socket in {scrape_ms:.2f} ms, {scrape_bytes} bytes, "
+          f"{len(after)} samples; grown by the drill: requests {dict(sorted(counted.items()))} (as sent), "
+          f"errors_total{{kind=server}} {errors:.0f}, inference stages {inference:.0f} = scoring answers; "
+          f"gordo_slo_alert_state {alert_state} and every burn rate and budget = /slo's; "
+          f"gordo_fleet_health_machines {health} = the process's {len(summaries)} ledgers' {ledger_machines} machines; "
+          f"gordo_store_revision_bytes {exposed} = revision_stats(); gordo_device_memory_bytes {memory}; {card}")
+
+
+def metrics_pair(app, base, names, card):
+    """The request path's cost of metrics: a warm-up pass, then one pass
+    with the app's metrics on and one with them off, of METRICS_AB anomaly
+    requests each, walltimes printed; and ``observe`` alone, timed on a
+    registry of its own."""
+    from gordo_tpu_torch.server.prometheus.metrics import GordoServerPrometheusMetrics
+    from gordo_tpu_torch.server.prometheus.registry import CollectorRegistry
+
+    frames = [request_frame(950 + i, rows=SLO_FRAME_ROWS) for i in range(METRICS_AB)]
+    metrics, walls = app.prometheus_metrics, {}
+    try:
+        for label in ("warm-up", "on", "off"):
+            app.prometheus_metrics = None if label == "off" else metrics
+            t0 = time.perf_counter()
+            for i, frame in enumerate(frames):
+                status, _, _, _ = http_request(f"{base}/{names[i % len(names)]}/anomaly/prediction", "POST",
+                                               {"X": frame, "y": frame})
+                check(status == 200, f"metrics {label}: {status}")
+            walls[label] = time.perf_counter() - t0
+    finally:
+        app.prometheus_metrics = metrics
+    request, response = dispatched(app, names[0])
+    alone = GordoServerPrometheusMetrics(project="smoke", registry=CollectorRegistry())
+    calls = 20000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        alone.observe(request, response, 0.01)
+    observe_us = (time.perf_counter() - t0) / calls * 1e6
+    phase("metrics", f"[slo] {METRICS_AB} anomaly requests of {SLO_FRAME_ROWS} rows after a warm-up pass "
+          f"({walls['warm-up']:.3f} s): metrics on {walls['on']:.3f} s, off {walls['off']:.3f} s (one pair, not "
+          f"gated); observe() alone {observe_us:.2f} us a request ({len(response.stage_durations)} stages, host "
+          f"clock); {card}")
+
+
+def dispatched(app, name):
+    """One anomaly request through ``app.dispatch``: ``(request, response)``
+    with the stages it recorded."""
+    import io
+
+    from gordo_tpu_torch.server.app import Request
+
+    frame = request_frame(990, rows=SLO_FRAME_ROWS)
+    body = json.dumps({"X": frame, "y": frame}).encode()
+    request = Request({"REQUEST_METHOD": "POST", "PATH_INFO": f"/gordo/v0/smoke/{name}/anomaly/prediction",
+                       "CONTENT_LENGTH": str(len(body)), "CONTENT_TYPE": "application/json",
+                       "wsgi.input": io.BytesIO(body)})
+    response = app.dispatch(request)
+    check(response.status == 200 and response.stage_durations, f"dispatch answered {response.status}")
+    return request, response
 
 
 def slo_phase(base, names, collection, work_dir, traced, cpu_app, card):
@@ -2583,7 +2819,7 @@ def slo_phase(base, names, collection, work_dir, traced, cpu_app, card):
     # the commands leave a status the route serves for the whole drill (the default refresh is 60 s)
     os.environ.update(GORDO_TPU_TELEMETRY_DIR=directory, GORDO_TPU_TRACE_SAMPLE_RATE="1",
                       GORDO_TPU_SLO_SCRAPE_REFRESH="3600")
-    stop = drill_app = None
+    stop = drill_app = stop_metrics = None
     try:
         # /slo of [observability]'s card app over its traffic: a second reader resumes from the state file
         status, body, _, ms = http_request(base + "/slo", "GET")
@@ -2595,25 +2831,39 @@ def slo_phase(base, names, collection, work_dir, traced, cpu_app, card):
             f"{s['name']} budget {s['budget']['remaining_ratio']:.4f} ({s['requests']} events)" for s in doc["slos"])
             + f"; {doc['firing']} firing; new spans read 0")
 
-        # the drill: a card app over a copy of the collection, its own telemetry directory and objectives
+        # the drill: a card app over a copy of the collection, its own telemetry directory and objectives,
+        # with metrics on; the status of [observability]'s directory is dropped, so each SLO has one series
+        slo.reset_statuses()
         drill_root = tempfile.mkdtemp(prefix="slo-drill-", dir=work_dir)
-        served = os.path.join(drill_root, REVISION)
+        served = os.path.join(drill_root, DRILL_REVISION)
         shutil.copytree(collection, served, ignore=shutil.ignore_patterns("fleet_health*", "*_trace*"))
         telemetry_dir = os.path.join(drill_root, "telemetry")
         os.makedirs(telemetry_dir)
         with open(os.path.join(telemetry_dir, "slos.toml"), "w") as f:
             f.write(SLO_DRILL)
         os.environ["GORDO_TPU_TELEMETRY_DIR"] = telemetry_dir
-        drill_app = build_app(served, device="cuda")
+        os.environ["ENABLE_PROMETHEUS"] = "true"
+        try:
+            drill_app = build_app(served, device="cuda")
+        finally:
+            del os.environ["ENABLE_PROMETHEUS"]
+        check(drill_app.prometheus_metrics is not None, "ENABLE_PROMETHEUS=true built an app without metrics")
         check(os.path.normpath(telemetry_dir) in slo._watched, "build_app did not watch its telemetry directory")
         drill_base, stop = serving(drill_app)
+        metrics_url, stop_metrics = serving_metrics()
+        before, _, _ = scrape(metrics_url)
         t_drill = time.perf_counter()
+        sent_by = collections.Counter()  # (method, status) of every request to the drill app
+
+        def drill_request(path, method="GET", payload=None):
+            status, body, _, _ = http_request(drill_base + path, method, payload)
+            sent_by[(method, status)] += 1
+            return status, body
 
         def send(count, name_of, expected, seed):
             for i in range(count):
                 frame = request_frame(seed + i, rows=SLO_FRAME_ROWS)
-                status, body, _, _ = http_request(f"{drill_base}/{name_of(i)}/anomaly/prediction", "POST",
-                                                  {"X": frame, "y": frame})
+                status, body = drill_request(f"/{name_of(i)}/anomaly/prediction", "POST", {"X": frame, "y": frame})
                 check(status == expected, f"{name_of(i)}: {status}, not {expected}: {body[:300]}")
             serve_trace.serve_recorder().flush()
 
@@ -2633,11 +2883,11 @@ def slo_phase(base, names, collection, work_dir, traced, cpu_app, card):
             section = {"firing": status_doc["firing"], "pending": status_doc["pending"], "ok": status_doc["ok"],
                        "alerts": status_doc["alerts"], "evaluated_at": status_doc["generated_at"],
                        "budgets": {s["name"]: s["budget"]["remaining_ratio"] for s in status_doc["slos"]}}
-            status, body, _, _ = http_request(drill_base + "/slo", "GET")
+            status, body = drill_request("/slo")
             route = json.loads(body)
             route.pop("revision", None)
             check(status == 200 and route == status_doc, "/slo differs from slo status --as-json")
-            status, body, _, _ = http_request(drill_base + "/fleet-health", "GET")
+            status, body = drill_request("/fleet-health")
             check(status == 200 and json.loads(body)["slo"] == section, "/fleet-health's slo section differs")
             code, fleet = cli_json("fleet-status", served)
             check(code == 0 and fleet["slo"] == section, "fleet-status's slo section differs")
@@ -2650,7 +2900,7 @@ def slo_phase(base, names, collection, work_dir, traced, cpu_app, card):
         for (path, payload), (_, cpu_body) in zip(
                 [(f"/{n}/anomaly/prediction", {"X": frame, "y": frame}) for n, frame in zip(clean, clean_frames)]
                 + [("/prediction/fleet", {"X": fleet})], expected):
-            status, body, _, _ = http_request(drill_base + path, "POST", payload)
+            status, body = drill_request(path, "POST", payload)
             check(status == 200, f"the drill's {path} answered {status}: {body[:300]}")
             max_diff = max(max_diff, same_json(cpu_body["data"], json.loads(body)["data"]))
         serve_trace.serve_recorder().flush()
@@ -2674,13 +2924,22 @@ def slo_phase(base, names, collection, work_dir, traced, cpu_app, card):
         phase("slo", f"drill, recovery ({SLO_RECOVERY} clean requests): {alerts(0, 'resolved')}; "
               f"{agree('inactive')}; the drill took {time.perf_counter() - t_drill:.2f} s")
         launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
-        check(launches["K1"] >= len(clean) + SLO_RECOVERY and launches["K2"] >= 1, f"the drill launched {launches}")
+        after, scrape_ms, scrape_bytes = scrape(metrics_url)
+        check({"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches} == launches
+              == {"K1": len(clean) + SLO_RECOVERY, "K2": 1}, f"the drill launched {launches}, the scrape "
+              f"{fleet_feedforward.launches - launches['K1']} more K1")
         phase("slo", f"K1 launches {launches['K1']}, K2 launches {launches['K2']} (the drill's anomaly requests "
-              f"and its fleet request); {card}")
+              f"and its fleet request; the scrapes launched none); {card}")
+        # the ledger counts the clean machines: a model that never loaded is no machine of it
+        drill_metrics(before, after, sent_by, drill_app, served, len(clean), telemetry_dir, scrape_ms,
+                      scrape_bytes, card)
+        metrics_pair(drill_app, drill_base, clean, card)
         return launches
     finally:
         if stop is not None:
             stop()
+        if stop_metrics is not None:
+            stop_metrics()
         if drill_app is not None:
             drill_app.shutdown()
         for key, value in saved.items():
@@ -2733,6 +2992,45 @@ def serving(app):
     return f"http://127.0.0.1:{server.server_port}/gordo/v0/smoke", stop
 
 
+SAMPLE_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$")
+LABEL_PAIR = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def scrape_samples(text):
+    """A Prometheus exposition's samples: ``{(name, sorted label pairs):
+    value}``."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        found = SAMPLE_LINE.match(line)
+        check(found is not None, f"an exposition line does not parse: {line!r}")
+        name, labels, value = found.groups()
+        pairs = tuple(sorted((k, re.sub(r"\\(.)", lambda m: "\n" if m.group(1) == "n" else m.group(1), v))
+                             for k, v in LABEL_PAIR.findall(labels or "")))
+        samples[(name, pairs)] = float(value)
+    return samples
+
+
+def registry_samples():
+    """The process registry's samples, rendered as a scrape renders them."""
+    from gordo_tpu_torch.server.prometheus.registry import REGISTRY, generate_latest
+
+    return scrape_samples(generate_latest(REGISTRY).decode())
+
+
+def summed(samples, name, **labels):
+    """The sum of ``name``'s samples whose labels include ``labels``."""
+    return sum(value for (n, pairs), value in samples.items()
+               if n == name and all(dict(pairs).get(k) == v for k, v in labels.items()))
+
+
+def label_values(samples, name, label, **labels):
+    """The values of ``label`` among ``name``'s samples matching ``labels``."""
+    return {dict(pairs)[label] for (n, pairs) in samples
+            if n == name and all(dict(pairs).get(k) == v for k, v in labels.items())}
+
+
 def engine_app(collection, **config):
     """A card app on ``collection`` with an engine of ``config`` (defaults
     otherwise), its models loaded and its warmup (parity gates and one
@@ -2779,6 +3077,52 @@ def engine_case_name(case):
 def verdicts(data):
     """Each row's anomaly verdict: its total-anomaly-confidence above 1."""
     return [v > 1.0 for v in data["total-anomaly-confidence"]["total-anomaly-confidence"].values()]
+
+
+def metered_round(collection, requests):
+    """A burst of ``requests`` at an engine app with every knob at its
+    default and metrics on (``ENABLE_PROMETHEUS=true``), then its
+    ``[metrics]``: the batch-size histogram grew by the engine's batches
+    (count) and coalesced requests (sum), the shed counter by the engine's
+    own shed counts. Returns the app (shut down), the answers and the
+    burst's wall seconds."""
+    os.environ["ENABLE_PROMETHEUS"] = "true"
+    try:
+        app, _ = engine_app(collection)
+    finally:
+        del os.environ["ENABLE_PROMETHEUS"]
+    check(app.engine.metrics is not None, "ENABLE_PROMETHEUS=true built an engine without its metrics")
+    before = registry_samples()
+    base, stop = serving(app)
+    try:
+        answers, wall = burst(base, requests)
+    finally:
+        stop()
+        app.shutdown()
+    after = registry_samples()
+    stats = app.engine.stats()
+
+    def grown(name, **labels):
+        return summed(after, name, **labels) - summed(before, name, **labels)
+
+    batch_count, batch_sum = grown("gordo_server_batch_size_count", project=app.project), grown(
+        "gordo_server_batch_size_sum", project=app.project)
+    sheds = {reason: grown("gordo_server_batch_shed_total", reason=reason)
+             for reason in label_values(after, "gordo_server_batch_shed_total", "reason")}
+    check(batch_count == stats["batches"] and batch_sum == stats["coalesced"],
+          f"gordo_server_batch_size grew by {batch_count} batches of {batch_sum} requests, the engine ran "
+          f"{stats['batches']} of {stats['coalesced']}")
+    # the engine's shed_deadline also counts a waiter's own timeout, which the batcher never shed
+    shed_stats = {reason: stats.get(f"shed_{reason}", 0) for reason in ("queue_full", "deadline", "runner_error")}
+    check(sheds.get("queue_full", 0) == shed_stats["queue_full"]
+          and sheds.get("runner_error", 0) == shed_stats["runner_error"]
+          and sheds.get("deadline", 0) <= shed_stats["deadline"],
+          f"gordo_server_batch_shed_total grew by {sheds}, the engine counted {shed_stats}")
+    phase("metrics", f"[engine] the default-knob round with metrics on: gordo_server_batch_size count "
+          f"{batch_count:.0f} = the engine's batches, sum {batch_sum:.0f} = its coalesced requests; "
+          f"gordo_server_batch_shed_total grew by {sheds}, the engine counted {shed_stats}; "
+          f"queue depth now {summed(after, 'gordo_server_batch_queue_depth', project=app.project):.0f}")
+    return app, answers, wall
 
 
 def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
@@ -2883,16 +3227,11 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
         on_app.shutdown()
     check(sorted(captured) == sorted(ENGINE_FULL_CASES), f"coalesced K1 batches at widths {sorted(captured)}")
 
-    # every knob at its default, the 2000 ms deadline included: how many of 32 clients answer 504
-    default_app, warm_ms = engine_app(collection)
-    base, stop = serving(default_app)
-    try:
-        requests = [(f"/{n}/anomaly/prediction", bodies[("anomaly/prediction", n)])
-                    for n in names[:max(ENGINE_CLIENTS)]]
-        answers, wall = burst(base, requests)
-    finally:
-        stop()
-        default_app.shutdown()
+    # every knob at its default, the 2000 ms deadline included: how many of 32 clients answer 504; metrics on
+    requests = [(f"/{n}/anomaly/prediction", bodies[("anomaly/prediction", n)])
+                for n in names[:max(ENGINE_CLIENTS)]]
+    default_app, answers, wall = metered_round(collection, requests)
+    stats = default_app.engine.stats()
     statuses = [a[0] for a in answers]
     check(set(statuses) <= {200, 504}, f"the default engine answered {sorted(set(statuses))}")
     max_diff = 0.0
@@ -2901,7 +3240,6 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
             max_diff = max(max_diff, same_json(expected[("anomaly/prediction", path.split("/")[1])][1]["data"],
                                                json.loads(body)["data"]))
     ms = np.asarray([a[2] for a in answers])
-    stats = default_app.engine.stats()
     phase("engine", f"C={len(requests)} /anomaly/prediction at the default knobs (deadline "
           f"{default_app.engine.config.deadline_s * 1e3} ms): {statuses.count(200)} answered 200, "
           f"{statuses.count(504)} answered 504 (shed_deadline {stats['shed_deadline']}), in {wall:.3f} s, p50 "

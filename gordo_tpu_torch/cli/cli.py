@@ -59,6 +59,14 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   stepped) and prints the status; ``check`` exits 1 while an alert is
   firing. A missing directory or a bad ``slos.toml`` exits 1 with the
   JAX command's message.
+- ``bench-check CANDIDATE [--baseline F] [--tolerance X] [--report-only]
+  [--as-json]``: the JAX package's ``bench-check``
+  (``gordo_tpu/cli/cli.py:1116-1210``, ``telemetry/benchgate.py``). It
+  holds a bench document to its baseline, by default the committed
+  ``BENCH_*.json`` of its ``bench`` kind found beside the candidate, then
+  in the current directory; it exits 1 on a regression (0 with
+  ``--report-only``), 1 with the JAX command's message when the documents
+  cannot be read or compared, 2 when a named file does not exist.
 - ``normalize CONFIG PROJECT``: the shard of a project config, what
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator.py::normalize``), printed or written to
@@ -362,6 +370,39 @@ def slo_status(directory: str, config_path: Optional[str] = None, as_json: bool 
         print("")
 
 
+def bench_check(candidate: str, baseline_path: Optional[str] = None, tolerance_scale: float = 1.0,
+                report_only: bool = False, as_json: bool = False) -> int:
+    """The ``bench-check`` command: print the comparison of ``candidate``
+    with its baseline; the exit code."""
+    import json
+
+    from ..telemetry.benchgate import BASELINE_FILES, compare_files, render_report
+
+    if baseline_path is None:
+        try:
+            with open(candidate) as handle:
+                bench = json.load(handle).get("bench")
+        except (OSError, ValueError) as exc:
+            return _fail(f"Unreadable candidate: {exc}")
+        default_name = BASELINE_FILES.get(str(bench))
+        if default_name is None:
+            return _fail(f"No default baseline known for bench {bench!r}; pass --baseline")
+        for directory in (os.path.dirname(os.path.abspath(candidate)), os.getcwd()):
+            probe = os.path.join(directory, default_name)
+            if os.path.exists(probe) and os.path.abspath(probe) != os.path.abspath(candidate):
+                baseline_path = probe
+                break
+        if baseline_path is None:
+            return _fail(f"Committed baseline {default_name} not found beside the candidate or in the current "
+                         "directory; pass --baseline")
+    try:
+        report = compare_files(baseline_path, candidate, tolerance_scale=tolerance_scale)
+    except (OSError, ValueError) as exc:
+        return _fail(str(exc))
+    print(json.dumps(report, indent=1, sort_keys=True) if as_json else render_report(report), flush=True)
+    return 1 if not report["ok"] and not report_only else 0
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m gordo_tpu_torch")
     parser.add_argument("--log-level", default="INFO")
@@ -439,6 +480,16 @@ def _parser() -> argparse.ArgumentParser:
             command.add_argument("--watch", type=float, default=None,
                                  help="evaluate and render again every N seconds (Ctrl-C to stop)")
 
+    bench = commands.add_parser("bench-check", help="the performance-regression gate: a bench run against its "
+                                "committed baseline")
+    bench.add_argument("candidate", help="a fresh bench run, a BENCH_*.json-shaped document")
+    bench.add_argument("--baseline", default=None, help="the baseline document (default: the committed BENCH_*.json "
+                       "of the candidate's bench kind, beside the candidate, then in the current directory)")
+    bench.add_argument("--tolerance", type=float, default=1.0,
+                       help="scale every gate's tolerance by this factor (2.0 = twice as lenient)")
+    bench.add_argument("--report-only", action="store_true", help="always exit 0: print the comparison, never gate")
+    bench.add_argument("--as-json", action="store_true", help="print the raw comparison instead of the report")
+
     normalize = commands.add_parser("normalize", help="print the shard of a project config")
     normalize.add_argument("config", help="the project's YAML config (a CRD document or its spec.config)")
     normalize.add_argument("project_name")
@@ -461,6 +512,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(document)
         return 0
+    if args.command == "bench-check":
+        for option, path in (("CANDIDATE", args.candidate), ("--baseline", args.baseline)):
+            if path is not None and not os.path.isfile(path):
+                parser.error(f"{option}: file {path!r} does not exist")
+        return bench_check(args.candidate, args.baseline, args.tolerance, args.report_only, args.as_json)
     if args.command == "trace":
         if not args.target:
             parser.error("TARGET is required (argument or $OUTPUT_DIR)")

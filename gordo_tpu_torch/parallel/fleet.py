@@ -344,7 +344,8 @@ class FleetTrainer:
         the epochs in the per-epoch host loop (``_fit_host_loop``), its
         permutations from the random source's ``host_loop_permutations``
         when it has one (JAX keys the host loop's epochs apart from the
-        fused fit's). Device errors raise.
+        fused fit's). Device errors raise. A fit without callbacks is a
+        ``device_program`` span ``fit_single`` with the JAX attributes.
         """
         windowed = isinstance(member, WindowedFleetMember)
         n = member.n_windows if windowed else member.n
@@ -384,9 +385,21 @@ class FleetTrainer:
         perms = (permutation_tensor(source, [member.seed], config.epochs, total, self.device)
                  if config.shuffle else None)
         wtr_dev, wval_dev = torch.from_numpy(wtr).to(self.device), torch.from_numpy(wval).to(self.device)
-        out = fit.run(params, *data, wtr_dev, wval_dev, perms, **({} if val is None else {"val": val}),
-                      callbacks=callbacks)
-        return self._collect_results([member], out, config, total // B)[0]
+
+        def run() -> FleetResult:
+            out = fit.run(params, *data, wtr_dev, wval_dev, perms, **({} if val is None else {"val": val}),
+                          callbacks=callbacks)
+            return self._collect_results([member], out, config, total // B)[0]
+
+        if callbacks:  # the host loop is no one program: no span, as in JAX
+            return run()
+        # the JAX fit's padded train and validation arrays (an LSTM's as materialized windows)
+        trailing = (member.spec.lookback_window, member.series.shape[1]) if windowed else tuple(member.X.shape[1:])
+        tr_shape, val_shape = (total, *trailing), (n_val, *trailing)
+        # closed after the results' copy to the host, which waits on the fit
+        with program_span("fit_single", (member.spec, config, tr_shape, val_shape), shape=str(tr_shape),
+                          spec=type(member.spec).__name__):
+            return run()
 
     def _stack_bucket(self, n_padded: int, bucket: List[FleetMember], config: FitConfig):
         """``(X, y, wtr, wval)`` tensors on the trainer's device: zero-filled

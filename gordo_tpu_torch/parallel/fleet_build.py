@@ -104,9 +104,17 @@ What the build writes about itself (``:269-500``, ``:685-800``,
 ``fleet_plan.json``, the naive final-fit buckets priced by the analytic
 cost model (``planner/``), is written with telemetry off too, and its
 hash is journaled. The ``sequential`` phase, the port's own, is entered
-only when a machine is built by ``ModelBuilder``. Not ported: the packing
-planner and plan replay (``ROADMAP.md`` item 7), the Prometheus export
-(item 11b) and the multi-host mirrors (item 12).
+only when a machine is built by ``ModelBuilder``.
+
+The Prometheus build series (``server/prometheus/metrics.py``, on the
+process's registry) are fed where the JAX build feeds them: each
+``build_phase`` span, ``device_program`` first call and member's final
+loss as it ends (telemetry on), the progress gauges as machines land or
+fail, the plan's prediction beside ``fleet_plan.json`` and its actuals
+beside ``fleet_plan_accuracy``, the robustness counters at the end. They
+are advisory: a failure is logged and dropped. Not ported: the packing
+planner and plan replay (``ROADMAP.md`` item 7) and the multi-host
+mirrors (item 12).
 """
 
 import concurrent.futures
@@ -315,6 +323,18 @@ def _try_call(fn, *args) -> Optional[BaseException]:
         return exc
 
 
+@contextlib.contextmanager
+def _prometheus():
+    """``server/prometheus/metrics.py``, whose build-series helpers the
+    block calls; metrics are advisory: a failure is logged and dropped."""
+    try:
+        from ..server.prometheus import metrics
+
+        yield metrics
+    except Exception as exc:  # noqa: BLE001 - metrics are advisory
+        logger.debug("Build metric not exported: %r", exc)
+
+
 def _run_pool(fn, items, workers: int) -> List[Optional[BaseException]]:
     """:func:`_try_call` of ``fn`` on every item in a pool of ``workers``
     threads; on ``SystemExit`` or ``KeyboardInterrupt`` the queued items
@@ -424,6 +444,7 @@ class FleetBuilder:
             self.recorder.event("machine_failed", machine=name, error=repr(exc))
             if self.progress is not None:
                 self.progress.machine_failed(name)
+                self._update_progress_gauges()
 
     def _skipped(self, name: str) -> bool:
         """Out of the fleet path: failed, or left to the sequential builder."""
@@ -498,6 +519,7 @@ class FleetBuilder:
             recorder.add_listener(self._on_span)
             self.progress = telemetry.BuildProgress(output_dir, project=self._project, total=len(self.machines),
                                                     phase_seconds=self.phase_seconds)
+            self._update_progress_gauges()
         self.recorder = recorder
         try:
             with telemetry.activate(recorder):
@@ -507,12 +529,14 @@ class FleetBuilder:
             # SystemExit and KeyboardInterrupt pass: a killed build stays "running"
             if self.progress is not None:
                 self.progress.finish("failed")
+                self._update_progress_gauges()
             raise
         finally:
             recorder.close()
             self._ledger.flush()
         if self.progress is not None:
             self.progress.finish("complete")
+            self._update_progress_gauges()
         return results
 
     def _run_build(self, output_dir, model_register_dir, replace_cache: bool, resume: bool):
@@ -621,6 +645,9 @@ class FleetBuilder:
             with self._phase("dump"):
                 results = self._dump_all(results, output_dir)
             self._journal.flush()  # one clean state file once the build is done
+        if any(self.robustness.values()):
+            with _prometheus() as prom:
+                prom.record_fleet_build_robustness(self._project, dict(self.robustness))
         self._export_plan_accuracy()
         return [(model, machine) for model, machine in results if machine.name not in self.build_errors]
 
@@ -632,14 +659,25 @@ class FleetBuilder:
         health ledger."""
         name = span["name"]
         attrs = span.get("attributes") or {}
+        seconds = float(span.get("duration_ms") or 0.0) / 1000.0
         if (name == "device_program" and self._current_phase == "final_fit"
                 and str(attrs.get("program", "")).endswith("_fit")):
-            self._plan_actuals["seconds"] += float(span.get("duration_ms") or 0.0) / 1000.0
+            self._plan_actuals["seconds"] += seconds
             if attrs.get("compile"):
                 self._plan_actuals["compiles"] += 1
             if attrs.get("members") is not None and attrs.get("stacked_members"):
                 self._member_actuals["live"] += int(attrs["members"])
                 self._member_actuals["padded"] += int(attrs["stacked_members"])
+        with _prometheus() as prom:
+            if name == "build_phase":
+                prom.record_fleet_build_phase(self._project, str(attrs.get("phase", "")), seconds)
+            elif name == "device_program" and attrs.get("compile"):
+                prom.record_fleet_compile(self._project, str(attrs.get("program", "")), str(attrs.get("shape", "")),
+                                          seconds)
+            elif name == "member_trained":
+                loss = attrs.get("final_loss")
+                if loss is not None and np.isfinite(loss):
+                    prom.record_member_final_loss(self._project, float(loss))
         machine = attrs.get("machine")
         if not machine:
             return
@@ -658,6 +696,13 @@ class FleetBuilder:
                 self._ledger.record_build(str(machine), degraded=True, error=attrs.get("error"))
         except Exception as exc:  # noqa: BLE001 - the ledger is advisory
             logger.debug("Health ledger not fed: %r", exc)
+
+    def _update_progress_gauges(self) -> None:
+        """The progress gauges from the live status (the dump's threads too)."""
+        if self.progress is not None:
+            with _prometheus() as prom:
+                prom.set_fleet_build_progress(self._project, self.progress.total, self.progress.completed,
+                                              self.progress.failed)
 
     def _final_fit_plans(self, plans: List[_Plan]) -> List[_Plan]:
         """The plans whose machines are still to final-fit."""
@@ -714,6 +759,9 @@ class FleetBuilder:
                     logger.info("FleetPlan %s differs from the journaled %s: the remaining members are replanned",
                                 plan.plan_hash, previous.get("plan_hash"))
                 self._journal.set_plan(plan.plan_hash, planner.NAIVE)
+            with _prometheus() as prom:
+                prom.set_fleet_plan_prediction(self._project, planner.NAIVE, float(totals.get("predicted_wall_s", 0.0)),
+                                               float(totals.get("padding_waste", 0.0)), int(totals.get("compiles", 0)))
         return members
 
     def _export_plan_accuracy(self) -> None:
@@ -742,6 +790,9 @@ class FleetBuilder:
         )
         self.recorder.event("fleet_plan_accuracy", **accuracy)
         self._ledger.record_plan_accuracy(accuracy)
+        with _prometheus() as prom:
+            prom.set_fleet_plan_actuals(self._project, plan.strategy, accuracy["actual_fit_s"],
+                                        accuracy["actual_compiles"])
 
     def _dump_all(self, results, output_dir: str):
         """Dump every artifact with ``serializer.dump_atomic`` in up to 8
@@ -759,6 +810,7 @@ class FleetBuilder:
                 self.recorder.event("machine_built", machine=machine.name)
                 if self.progress is not None:
                     self.progress.machine_completed(machine.name)
+                    self._update_progress_gauges()
                 fault_point("process_kill_after_n_machines", machine.name)
 
             serializer.dump_atomic(model, os.path.join(output_dir, machine.name), metadata=machine.to_dict(),

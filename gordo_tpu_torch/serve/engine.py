@@ -58,9 +58,16 @@ events; each breaker transition also goes to the app's health ledger
 (``ledger``, a zero-argument callable; an engine without one feeds no
 ledger).
 
+``metrics`` is the engine's Prometheus sink
+(``server/prometheus/metrics.py::ServeMetrics``, set by ``build_app`` under
+``ENABLE_PROMETHEUS``; None: nothing observed), called where the JAX engine
+calls it: each batch's size, coalesce ratio and padding waste (read
+against ``padded_members``, as the batch span's), each shed by reason, the
+queue depth, each breaker transition and the open members. A failing sink
+is ignored.
+
 The learned performance model's knobs (``GORDO_TPU_PERFMODEL_*``) are not
-ported: set, they make the engine refuse to start. Prometheus metrics are
-not ported either.
+ported: set, they make the engine refuse to start.
 """
 
 import logging
@@ -211,6 +218,8 @@ class ServeEngine:
         self.config = config or ServeConfig.from_env()
         #: answers the health ledger the breaker transitions go to (None: no feed)
         self.ledger = ledger
+        #: the Prometheus sink (``ServeMetrics``), duck-typed; None: no metrics
+        self.metrics: Any = None
         self.member_ladder = ladder.member_ladder(self.config.max_size)
         #: gate-then-serve; a failed gate serves f32
         self.governor = precision.PrecisionGovernor()
@@ -255,6 +264,7 @@ class ServeEngine:
             inline_flush=self.config.inline_flush,
             retry_after_s=max(1.0, self.config.max_delay_s * 4),
             on_shed=self._on_shed,
+            on_depth=self._on_depth,
         )
 
     @property
@@ -452,14 +462,14 @@ class ServeEngine:
                         item.future.set_exception(exc)
                     except Exception:  # noqa: BLE001 - the waiter gave up
                         pass
+            waste = 1.0 - sum(item.rows for item in live) / float(padded_members * padded_rows)
             if recorder.enabled:
-                useful = sum(item.rows for item in live)
                 batch_span.set(
                     coalesced=members,
                     flops_per_sample=spec_flops_per_sample(spec),
                     padded_members=padded_members,
                     padded_rows=padded_rows,
-                    padding_waste=round(1.0 - useful / float(padded_members * padded_rows), 4),
+                    padding_waste=round(waste, 4),
                     queue_wait_max_ms=round(max(flush_start - item.enqueued_at for item in items) * 1000.0, 3),
                     precision=prec,
                     predicted_device_ms=round(
@@ -473,6 +483,12 @@ class ServeEngine:
                         trace_id, span_id = item.trace
                         batch_span.link(trace_id, span_id or "", name=item.name,
                                         queue_wait_ms=round((flush_start - item.enqueued_at) * 1000.0, 3))
+        if self.metrics is not None:
+            try:
+                self.metrics.observe_batch(size=members, occupancy=members / float(padded_members),
+                                           padding_waste=waste)
+            except Exception:  # noqa: BLE001 - metrics are advisory
+                pass
 
     # -- failure containment (the scoring ladder) -------------------------------
 
@@ -655,12 +671,17 @@ class ServeEngine:
             self._count("breaker_trips")
         self._recorder.event("serve_breaker", member=member, old_state=old, new_state=new, trips=info.get("trips"),
                              cooldown_s=info.get("cooldown_s"), error=info.get("last_error", ""))
-        if self.ledger is None:
-            return
-        try:
-            self.ledger().record_breaker_transition(member, new, info)
-        except Exception:  # noqa: BLE001 - the ledger is advisory
-            logger.debug("breaker ledger feed failed", exc_info=True)
+        if self.ledger is not None:
+            try:
+                self.ledger().record_breaker_transition(member, new, info)
+            except Exception:  # noqa: BLE001 - the ledger is advisory
+                logger.debug("breaker ledger feed failed", exc_info=True)
+        if self.metrics is not None:
+            try:
+                self.metrics.observe_breaker(new)
+                self.metrics.set_breaker_open(self.breakers.snapshot(detail_cap=0)["open"])
+            except Exception:  # noqa: BLE001 - metrics are advisory
+                pass
 
     # -- warmup ---------------------------------------------------------------
 
@@ -740,3 +761,15 @@ class ServeEngine:
         elif reason == "runner_error":
             # the batcher's backstop: a host error of the runner
             self._count("shed_runner_error", n)
+        if self.metrics is not None:
+            try:
+                self.metrics.observe_shed(reason, n)
+            except Exception:  # noqa: BLE001 - metrics are advisory
+                pass
+
+    def _on_depth(self, depth: int) -> None:
+        if self.metrics is not None:
+            try:
+                self.metrics.set_queue_depth(depth)
+            except Exception:  # noqa: BLE001 - metrics are advisory
+                pass

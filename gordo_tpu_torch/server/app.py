@@ -66,6 +66,16 @@ on first use and which the app's engine and plane feed too (a 503 is not
 an error there). With ``GORDO_TPU_TELEMETRY=0`` nothing is
 written and ``Server-Timing`` stays. The server does not fork workers, so
 the JAX package's post-fork resets have no counterpart.
+
+With ``ENABLE_PROMETHEUS`` (any value but ``false``) ``build_app`` gives
+the app the request RED metrics and stage histograms of
+``prometheus/metrics.py`` (``PROJECT`` the project label), observed in
+:meth:`GordoServerApp.__call__` after each dispatch, and its engine a
+``ServeMetrics`` sink; ``run_server`` answers scrapes of the process's
+registry on a second ``wsgiref`` server (``metrics_port``, the
+sidecar's 9090 by default). The collectors read every live app
+(:func:`live_apps`). A failing metric is logged and dropped. The server
+is one process, so ``PROMETHEUS_MULTIPROC_DIR`` is refused.
 """
 
 import contextlib
@@ -77,6 +87,7 @@ import socketserver
 import threading
 import time
 import timeit
+import weakref
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 from urllib.parse import parse_qs
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
@@ -90,6 +101,7 @@ from ..telemetry import slo, tracing
 from ..utils import yaml_lite
 from ..utils.env import env_bool
 from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
+from .prometheus.metrics import ServeMetrics, create_prometheus_metrics, refuse_multiprocess_dir
 from .utils import ServerError, check_metadata_file, validate_gordo_name, validate_revision
 from .wire import dumps
 
@@ -176,7 +188,9 @@ class Request:
 
 class Response:
     """A response: ``body`` is bytes, or an iterator of str chunks sent as
-    they come, without a ``Content-Length`` (server-sent events)."""
+    they come, without a ``Content-Length`` (server-sent events).
+    ``stage_durations`` (seconds by stage) and ``endpoint`` are what the
+    request's context recorded, for the Prometheus observer."""
 
     def __init__(
         self,
@@ -189,6 +203,8 @@ class Response:
         self.status = status
         self.content_type = content_type
         self.headers = dict(headers or {})
+        self.stage_durations: Optional[Dict[str, float]] = None
+        self.endpoint: Optional[str] = None
 
 
 class RequestContext:
@@ -324,7 +340,9 @@ class GordoServerApp:
     directory, and the revisions beside it that requests pin, on one
     device. ``expected_models`` is what ``/expected-models`` lists; with a
     ``serve_config`` the app runs a serving engine of that configuration.
-    ``project`` names the health ledger's project (default ``$PROJECT``)."""
+    ``project`` names the health ledger's project (default ``$PROJECT``).
+    With ``prometheus_metrics`` (``build_app`` sets it under
+    ``ENABLE_PROMETHEUS``) every request is observed after its dispatch."""
 
     #: endpoints whose requests are never exported (load balancers poll them)
     UNTRACED_ENDPOINTS = (None, "healthcheck", "server-version")
@@ -349,6 +367,8 @@ class GordoServerApp:
             self.store, serve_config, ledger=self.health_ledger)
         self.plane: Optional[StreamPlane] = None
         self._plane_lock = threading.Lock()
+        self.prometheus_metrics: Any = None
+        _live_apps.add(self)
 
     def health_ledger(self) -> Any:
         """The serving health ledger of the served directory: one for the
@@ -476,9 +496,13 @@ class GordoServerApp:
             name, stage_start = ctx.deferred_stage
             ctx.deferred_stage = None
             ctx.timing.record(name, max(0.0, timeit.default_timer() - stage_start))
-        entries = [f"{name};dur={round(seconds * 1000.0, 2)}" for name, seconds in ctx.timing.durations().items()]
+        durations = ctx.timing.durations()
+        entries = [f"{name};dur={round(seconds * 1000.0, 2)}" for name, seconds in durations.items()]
         entries.append(f"request_walltime_s;dur={runtime_s}")
         response.headers["Server-Timing"] = ", ".join(entries)
+        # the route's identity and its stages ride the response to the Prometheus observer
+        response.stage_durations = durations
+        response.endpoint = ctx.endpoint
         profile_report = None
         if ctx.profiler is not None:
             profile_report = ctx.profiler.stop()
@@ -516,7 +540,14 @@ class GordoServerApp:
             logger.debug("health ledger request not recorded", exc_info=True)
 
     def __call__(self, environ: Dict[str, Any], start_response) -> Iterable[bytes]:
-        response = self.dispatch(Request(environ))
+        request = Request(environ)
+        start = timeit.default_timer()
+        response = self.dispatch(request)
+        if self.prometheus_metrics is not None:
+            try:
+                self.prometheus_metrics.observe(request, response, timeit.default_timer() - start)
+            except Exception:  # noqa: BLE001 - metrics are advisory, never the response
+                logger.debug("request metrics not observed", exc_info=True)
         headers = [("Content-Type", response.content_type)]
         if isinstance(response.body, bytes):
             headers.append(("Content-Length", str(len(response.body))))
@@ -526,6 +557,15 @@ class GordoServerApp:
         if isinstance(response.body, bytes):
             return [response.body]
         return _encoded(response.body)
+
+
+#: every app of the process, held weakly: the Prometheus collectors read their stores and planes
+_live_apps: "weakref.WeakSet[GordoServerApp]" = weakref.WeakSet()
+
+
+def live_apps() -> List[GordoServerApp]:
+    """The process's live apps."""
+    return list(_live_apps)
 
 
 def _encoded(chunks: Iterator[str]) -> Iterator[bytes]:
@@ -546,8 +586,14 @@ def serve_warmup_enabled() -> bool:
     return env_bool("GORDO_TPU_SERVE_WARMUP", True)
 
 
+def enable_prometheus() -> bool:
+    """``ENABLE_PROMETHEUS``: any value but ``false`` turns the metrics on."""
+    return os.getenv("ENABLE_PROMETHEUS", "false") != "false"
+
+
 def build_app(
-    collection_dir: Optional[str] = None, device: DeviceLike = None, serve_config: Optional[ServeConfig] = None
+    collection_dir: Optional[str] = None, device: DeviceLike = None, serve_config: Optional[ServeConfig] = None,
+    prometheus_registry: Any = None,
 ) -> GordoServerApp:
     """The server application for ``collection_dir`` (default: the
     ``MODEL_COLLECTION_DIR`` environment variable), on ``device``
@@ -557,13 +603,23 @@ def build_app(
     ``GORDO_TPU_BATCHING`` on (its configuration then read from the
     ``GORDO_TPU_BATCH_*`` environment), the app runs a serving engine and
     starts its warmup (:meth:`GordoServerApp.start_warmup`) unless
-    ``GORDO_TPU_SERVE_WARMUP=0``."""
+    ``GORDO_TPU_SERVE_WARMUP=0``. With ``ENABLE_PROMETHEUS`` the app
+    observes its requests and its engine's batches on
+    ``prometheus_registry`` (default the process's ``REGISTRY``), under
+    the ``PROJECT`` label. ``PROMETHEUS_MULTIPROC_DIR`` is refused."""
+    refuse_multiprocess_dir()
     if collection_dir is None:
         collection_dir = os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
     expected = parse_expected_models(os.environ.get(EXPECTED_MODELS_ENV_VAR))
     if serve_config is None and batching_enabled():
         serve_config = ServeConfig.from_env()
     app = GordoServerApp(collection_dir, device, expected, serve_config)
+    if enable_prometheus():
+        app.prometheus_metrics = create_prometheus_metrics(project=app.project, registry=prometheus_registry)
+        if app.engine is not None:
+            app.engine.metrics = ServeMetrics(project=app.project, registry=app.prometheus_metrics.registry)
+    elif prometheus_registry is not None:
+        logger.warning("Ignoring non empty prometheus_registry argument")
     # every log record made in a request carries its trace id from here on
     tracing.install_trace_log_stamping()
     # the SLO status of the serving telemetry directory is kept fresh at scrape time
@@ -590,8 +646,8 @@ class _QuietHandler(WSGIRequestHandler):
         logger.debug("%s - %s", self.address_string(), format % args)
 
 
-def make_wsgi_server(app: GordoServerApp, host: str = "0.0.0.0", port: int = 5555) -> WSGIServer:
-    """A threaded ``wsgiref`` server for ``app`` (port 0 picks a free one)."""
+def make_wsgi_server(app: Callable[..., Iterable[bytes]], host: str = "0.0.0.0", port: int = 5555) -> WSGIServer:
+    """A threaded ``wsgiref`` server for the WSGI ``app`` (port 0 picks a free one)."""
     return make_server(host, port, app, server_class=ThreadingWSGIServer, handler_class=_QuietHandler)
 
 
@@ -600,15 +656,31 @@ def run_server(
     port: int = 5555,
     collection_dir: Optional[str] = None,
     device: DeviceLike = None,
+    metrics_port: int = 9090,
 ) -> None:
     """Serve ``collection_dir`` (default: ``MODEL_COLLECTION_DIR``) until
-    interrupted, with every model loaded up front. On the way out the app
-    drains (:meth:`GordoServerApp.shutdown`)."""
+    interrupted, with every model loaded up front. With
+    ``ENABLE_PROMETHEUS`` the process also answers scrapes on
+    ``metrics_port`` (0 picks a free one) from a second server thread. On
+    the way out the app drains (:meth:`GordoServerApp.shutdown`)."""
+    from .prometheus.server import build_metrics_app
+
     app = build_app(collection_dir, device)
     loaded = app.store.fleet().warm()
     logger.info("serving %d models of %s on %s", len(loaded), app.store.collection_dir, app.device)
+    metrics_server = metrics_thread = None
+    if app.prometheus_metrics is not None:
+        metrics_server = make_wsgi_server(build_metrics_app(app.prometheus_metrics.registry), host, metrics_port)
+        metrics_thread = threading.Thread(target=metrics_server.serve_forever, name="gordo-metrics", daemon=True)
+        metrics_thread.start()
+        logger.info("Prometheus metrics on http://%s:%d/metrics", host, metrics_server.server_port)
     with make_wsgi_server(app, host, port) as server:
+        logger.info("listening on http://%s:%d", host, server.server_port)
         try:
             server.serve_forever()
         finally:
             app.shutdown()
+            if metrics_server is not None:
+                metrics_server.shutdown()
+                metrics_server.server_close()
+                metrics_thread.join(timeout=10)

@@ -48,12 +48,14 @@ from .fleet_health import (
     health_snapshot_paths,
     health_snapshot_units,
     ledger_for,
+    ledger_summaries,
     live_serving_ledger,
     load_health,
     load_merged_health,
     machine_state,
     merge_health_documents,
     render_fleet_status,
+    reset_ledgers,
     reset_serving_ledgers,
     serving_ledger,
     summarize,
@@ -131,10 +133,10 @@ __all__ = [
     "breaker_tripped_machines", "current_trace_id", "emit_device_utilization", "enabled",
     "eta_seconds", "export_request_trace", "fleet_status_document", "format_traceparent", "get_recorder",
     "health_enabled", "health_score", "health_snapshot_paths", "health_snapshot_units", "install_trace_log_stamping",
-    "is_worker_variant", "ledger_for", "live_serving_ledger", "load_health", "load_merged_health", "load_status", "machine_state", "memory_snapshot",
+    "is_worker_variant", "ledger_for", "ledger_summaries", "live_serving_ledger", "load_health", "load_merged_health", "load_status", "machine_state", "memory_snapshot",
     "merge_health_documents", "new_span_id", "new_trace_context", "new_trace_id", "note_program_execution",
     "parse_traceparent", "program_cache_counters", "program_span", "rand_hex", "render_fleet_status",
-    "render_status", "reset_program_counters", "reset_seen_programs", "reset_serve_recorder", "reset_serving_ledgers",
+    "render_status", "reset_ledgers", "reset_program_counters", "reset_seen_programs", "reset_serve_recorder", "reset_serving_ledgers",
     "sample_trace",
     "seen_program", "serve_recorder", "serve_trace_path", "serving_ledger", "should_profile", "summarize", "trace_sample_rate",
     "utilization_snapshot",

@@ -34,7 +34,9 @@ the directory's last snapshot). The server keeps one serving ledger a
 directory for the whole process, as the JAX package does
 (:func:`serving_ledger`): every app on the directory, its engine and its
 stream plane feed that one, so no app overwrites another's snapshot or
-adopts its counts.
+adopts its counts. :func:`ledger_summaries` reads both kinds for the
+Prometheus exposition: each directory's serving ledger, else its newest
+build ledger, for the life of the process.
 
 :func:`fleet_status_document` joins ``build_status.json``,
 ``fleet_plan.json``, the lifecycle's state files, the health view (the
@@ -790,6 +792,12 @@ class FleetHealthLedger:
         return doc if isinstance(doc, dict) else None
 
 
+#: directory -> the newest ledger :func:`ledger_for` made for it, kept for
+#: the life of the process as the JAX package keeps its one ledger a directory
+_made_ledgers: Dict[str, "FleetHealthLedger"] = {}
+_made_lock = threading.Lock()
+
+
 def ledger_for(directory: str, project: str = "") -> Any:
     """A ledger for ``directory`` that has adopted its last snapshot, or
     :data:`NULL_LEDGER` when health telemetry is off."""
@@ -799,6 +807,8 @@ def ledger_for(directory: str, project: str = "") -> Any:
     persisted = ledger._load_own_snapshot()
     if isinstance(persisted, dict):
         ledger.restore(persisted)
+    with _made_lock:
+        _made_ledgers[os.path.abspath(directory)] = ledger
     return ledger
 
 
@@ -831,6 +841,26 @@ def reset_serving_ledgers() -> None:
     """Forget every serving ledger (tests)."""
     with _serving_lock:
         _serving_ledgers.clear()
+
+
+def ledger_summaries() -> Dict[str, Dict[str, Any]]:
+    """Directory -> bounded summary of every ledger the process made, what
+    the Prometheus fleet-health collector reads (``fleet_health.py:1210-1215``):
+    a directory's serving ledger where there is one (it adopted the build's
+    snapshot), else the newest build ledger. As in the JAX package, a
+    directory stays until :func:`reset_ledgers`."""
+    with _made_lock:
+        ledgers = dict(_made_ledgers)
+    with _serving_lock:
+        ledgers.update(_serving_ledgers)
+    return {path: ledger.summary() for path, ledger in ledgers.items()}
+
+
+def reset_ledgers() -> None:
+    """Forget every ledger, serving ones included (tests)."""
+    with _made_lock:
+        _made_ledgers.clear()
+    reset_serving_ledgers()
 
 
 def _load_shard_unit(shard_dir: str) -> Optional[Dict[str, Any]]:

@@ -310,3 +310,49 @@ def test_cost_features_match_jax(spec_kind):
     assert port_model.predict_run_s("fleet_fit", port_spec, 3, 512, 2) == jax_model.predict_run_s(
         "fleet_fit", jax_spec, 3, 512, 2)
     assert json.dumps(port_spec.to_dict()) == json.dumps(jax_spec.to_dict())
+
+
+@pytest.mark.parametrize("spec_kind", ["ff", "lstm"])
+@pytest.mark.parametrize("validation_split", [0.0, 0.25])
+def test_fit_single_span_matches_jax(spec_kind, validation_split):
+    """The sequential fit (``FleetTrainer.fit_single``) is one
+    ``device_program`` span ``fit_single`` under its caller's span, with the
+    JAX fit's attributes: the padded train array's shape (an LSTM's
+    materialized windows) and the spec; a second call of the same key is
+    no compile."""
+    from gordo_tpu.models.training import fit_single as jax_fit_single
+    from gordo_tpu.ops.windows import sliding_windows as jax_sliding_windows
+    from gordo_tpu.ops.windows import window_targets as jax_window_targets
+    from gordo_tpu_torch.parallel.fleet import FleetMember, FleetTrainer, WindowedFleetMember
+
+    rng = np.random.RandomState(3)
+    X = rng.rand(45, 5).astype(np.float32)
+    args = (5, 5, (8, 3, 8), ("tanh", "relu", "tanh")) if spec_kind == "ff" else (5, 5, 6, (4,), ("tanh",))
+    port_spec = (FeedForwardSpec if spec_kind == "ff" else LSTMSpec)(*args)
+    jax_spec = (JaxFeedForwardSpec if spec_kind == "ff" else JaxLSTMSpec)(*args)
+    settings = dict(epochs=1, batch_size=8, validation_split=validation_split, shuffle=False)
+    if spec_kind == "ff":
+        jax_X, jax_y = X, X
+        member = FleetMember("m", port_spec, X, X, seed=1)
+    else:
+        jax_X, jax_y = jax_sliding_windows(X, 6, 0), jax_window_targets(X, 6, 0)
+        member = WindowedFleetMember("m", port_spec, X, np.asarray(jax_y), seed=1)
+    telemetry.reset_seen_programs()
+    jax_telemetry.reset_seen_programs()
+    port_recorder, jax_recorder = telemetry.SpanRecorder(), jax_telemetry.SpanRecorder()
+    trainer = FleetTrainer(device="cpu")
+    with telemetry.activate(port_recorder), port_recorder.span("sequential_build"):
+        for _ in range(2):
+            trainer.fit_single(member, FitConfig(**settings))
+    with jax_telemetry.activate(jax_recorder), jax_recorder.span("sequential_build"):
+        for _ in range(2):
+            jax_fit_single(jax_spec, np.asarray(jax_X), np.asarray(jax_y), JaxFitConfig(**settings), seed=1)
+
+    def programs(spans):
+        names = {s["context"]["span_id"]: s["name"] for s in spans}
+        return [(s["name"], s["attributes"], names.get(s["parent_id"])) for s in spans if s["name"] == "device_program"]
+
+    port, jax = programs(port_recorder.finished()), programs(jax_recorder.finished())
+    assert port == jax
+    assert [a["compile"] for _, a, _ in port] == [True, False]
+    assert port[0][1]["program"] == "fit_single" and port[0][2] == "sequential_build"
