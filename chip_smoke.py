@@ -282,6 +282,32 @@ engine's batches and its sum the coalesced requests, the shed counter
 the engine's shed counts (its deadline sheds at most the engine's, which
 also count a waiter's own timeout).
 
+``[lifecycle]`` (after ``[definitions]``) drives the fleet lifecycle
+(``gordo_tpu_torch/lifecycle/``) on a card app over a copy of
+``[train]``'s collection (without its health ledger, whose open breaker
+from ``[engine]`` the supervisor's breaker feed, on as by default, would
+nominate), the supervisor given the app's store: a healthy probe window of
+every machine (the day after its training rows; scored by K2) drifts
+nothing; a window in which ``machine-007`` and ``compressor-003`` moved 10
+training stds drifts exactly those two, which ``rebuild_stale`` rebuilds
+on the card from their newest rows, all drifted, replaying
+``fleet_plan.json`` (K1 scores their CV folds), published as a canary
+taking a quarter of the traffic; 16 anomaly requests before, during
+(within one request of 4 from the canary, by the revision each answer
+names) and after; the canary is gated (K2 on both fleets) and promoted
+with requests running (none 5xx); a second drift (the two back where they
+were) is rolled back by a gate the canary cannot pass and quarantined; a
+new app over the base directory restores the promotion. Held:
+``state.json``'s events in order, ``quarantine.json``, the health ledger's
+drift, quarantine and promotion records, the ``gordo_fleet_lifecycle_*``
+counters, the K1 launches and the K2 launches by step and width (counted
+where they launch), the rebuilt machines against a CPU ``rebuild_stale``
+(``BUILD_LIMITS``) and the gate's ratios against a CPU store's over the
+same revisions (2e-5 relative). It
+prints each step's seconds from the supervisor's span trace, the swap's
+and the requests' p50 before, during and after; ``[times]`` has K1 at the
+rebuild's CV forwards and K2 at the gates' shapes.
+
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
@@ -644,6 +670,10 @@ def k2_cases(cases):
     # [slo]'s drill: its fleet request of the 4 clean machines, 16 rows each (y the rows, as the store scores)
     k2[SLO_FLEET] = scores_case(make_case(feedforward_hourglass(20), SERVED_MACHINES, 4, SLO_FRAME_ROWS,
                                           indices=[0, 1, 2, 3], ingest=True, seed=77))
+    # [lifecycle]'s gates: one fleet's bucket of each width scores its rebuilt machine's probe window
+    for width, members, index in ((20, SERVED_MACHINES, 7), (WIDE_TAGS, WIDE_MACHINES, 3)):
+        k2[LIFECYCLE_GATE[width]] = scores_case(make_case(feedforward_hourglass(width), members, 1, LIFECYCLE_ROWS,
+                                                          indices=[index], ingest=True, seed=80 + width))
     return k2
 
 
@@ -815,12 +845,16 @@ def yaml_block(value, indent=0):
     return str(value)
 
 
-def machine_rows():
-    """The served collection: (name, tags, sensor_data rows) of
-    SERVED_MACHINES 20-tag machines and WIDE_MACHINES 40-tag compressors."""
+def machine_seeds():
+    """The served collection's (name, tags, sensor_data seed): SERVED_MACHINES
+    20-tag machines and WIDE_MACHINES 40-tag compressors."""
     machines = [(f"machine-{i:03d}", 20, i) for i in range(SERVED_MACHINES)]
-    machines += [(f"compressor-{i:03d}", WIDE_TAGS, WIDE_SEED + i) for i in range(WIDE_MACHINES)]
-    return [(name, tag_list(n_tags), sensor_data(seed, TRAIN_ROWS, n_tags)) for name, n_tags, seed in machines]
+    return machines + [(f"compressor-{i:03d}", WIDE_TAGS, WIDE_SEED + i) for i in range(WIDE_MACHINES)]
+
+
+def machine_rows():
+    """The served collection: (name, tags, sensor_data rows) of each machine."""
+    return [(name, tag_list(n_tags), sensor_data(seed, TRAIN_ROWS, n_tags)) for name, n_tags, seed in machine_seeds()]
 
 
 def write_project(directory, machines=None, models=None, project="smoke"):
@@ -3923,6 +3957,373 @@ def sequential_phase(work_dir, train_collection, fleet_ms, card):
     return launches, cases
 
 
+# -- [lifecycle]: drift, a partial rebuild, a canary, promotion and rollback --------------------
+
+#: the two machines whose probe window drifts, one of each width
+LIFECYCLE_DRIFTED = ("machine-007", "compressor-003")
+#: a probe window: the day of rows after each machine's training rows
+LIFECYCLE_ROWS = 144
+#: the drifted machines' rows move this many training stds
+LIFECYCLE_SHIFT = 10.0
+LIFECYCLE_FRACTION = 0.25
+#: anomaly requests a burst, before, during and after the canary
+LIFECYCLE_BURST = 16
+#: the gate's ratios, card against a CPU app over the same two revisions
+LIFECYCLE_GATE_RTOL = 2e-5
+#: the steps of the supervisor's span trace, in the order they run
+LIFECYCLE_STEPS = ("lifecycle_observe", "drift_eval", "canary_build", "canary_gate", "promote_swap", "rollback")
+LIFECYCLE_EVENTS = ("drift_detected", "canary_serving", "promoted", "canary_rejected", "rolled_back")
+LIFECYCLE_CV = {20: "lifecycle rebuild CV fold scoring: hourglass20 M=3 B=500",
+                WIDE_TAGS: "lifecycle rebuild CV fold scoring: hourglass40 M=3 B=500"}
+LIFECYCLE_GATE = {20: f"K2 lifecycle gate: hourglass20 N={SERVED_MACHINES} M=1 B={LIFECYCLE_ROWS} y=X +ingest",
+                  WIDE_TAGS: f"K2 lifecycle gate: hourglass40 N={WIDE_MACHINES} M=1 B={LIFECYCLE_ROWS} y=X +ingest"}
+
+
+def drifted_series(seed, n_tags, rows):
+    """A drifted machine's ``sensor_data`` series of ``rows`` rows: from
+    row TRAIN_ROWS on it has moved LIFECYCLE_SHIFT training stds."""
+    series = sensor_data(seed, rows, n_tags)
+    series[TRAIN_ROWS:] += LIFECYCLE_SHIFT * series[:TRAIN_ROWS].std(axis=0)
+    return series
+
+
+def lifecycle_windows():
+    """``(healthy, drifted)`` probe windows of every served machine: the
+    LIFECYCLE_ROWS rows that follow its training rows (the same seeded
+    series), and the same with LIFECYCLE_DRIFTED's rows drifted
+    (``drifted_series``)."""
+    healthy, drifted = {}, {}
+    for name, n_tags, seed in machine_seeds():
+        healthy[name] = sensor_data(seed, TRAIN_ROWS + LIFECYCLE_ROWS, n_tags)[TRAIN_ROWS:]
+        drifted[name] = (drifted_series(seed, n_tags, TRAIN_ROWS + LIFECYCLE_ROWS)[TRAIN_ROWS:]
+                         if name in LIFECYCLE_DRIFTED else healthy[name])
+    return healthy, drifted
+
+
+def lifecycle_machines(work_dir, shard):
+    """The supervisor's machine configs: ``shard``'s, except that each of
+    LIFECYCLE_DRIFTED fetches the TRAIN_ROWS rows after its training rows,
+    all drifted, as a rebuild fetches the newest data (a CSV of both
+    spans, ``drifted_series``). Returns the path of that shard."""
+    data_dir = os.path.join(work_dir, "lifecycle-data")
+    os.makedirs(data_dir)
+    with open(shard) as f:
+        doc = json.load(f)
+    seeds = {name: (n_tags, seed) for name, n_tags, seed in machine_seeds()}
+    for machine in doc["machines"]:
+        if machine["name"] in LIFECYCLE_DRIFTED:
+            n_tags, seed = seeds[machine["name"]]
+            dataset = machine["dataset"]
+            dataset["data_provider"]["path"] = write_csv(data_dir, machine["name"], tag_list(n_tags),
+                                                         drifted_series(seed, n_tags, 2 * TRAIN_ROWS))
+            dataset["train_start_date"] = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
+            dataset["train_end_date"] = (TRAIN_START + timedelta(minutes=20 * TRAIN_ROWS)).isoformat()
+    path = os.path.join(data_dir, "shard.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def gate_ratios(store, base_dir, canary_dir, probe, names):
+    """Each rebuilt machine's threshold and residual ratios, unrounded, as
+    the gates compute them, scored by ``store``'s fleets."""
+    import numpy as np
+
+    base, canary = store.fleet(base_dir), store.fleet(canary_dir)
+    base_scores, _ = base.fleet_scores({n: probe[n] for n in names})
+    canary_scores, _ = canary.fleet_scores({n: probe[n] for n in names})
+    out = {}
+    for name in names:
+        thresholds = [float(fleet.model(name).aggregate_threshold_) for fleet in (base, canary)]
+        out[name] = (max(thresholds) / min(thresholds),
+                     float(np.mean(canary_scores[name][1])) / float(np.mean(base_scores[name][1])))
+    return out
+
+
+@contextlib.contextmanager
+def counted_scores():
+    """While open, K2's launches through the store's ``fleet_scores``, by
+    step and input width: ``(counts, step)``, where ``counts[step[0],
+    width]`` grows by each launch and the caller names the step in
+    ``step[0]`` (``"gate"`` until it says otherwise)."""
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores
+    from gordo_tpu_torch.server import fleet_store
+
+    counts, step = collections.Counter(), ["gate"]
+    scores = fleet_store.fleet_anomaly_scores
+
+    def counted(spec, stacked, X, *args, **kwargs):
+        before = fleet_anomaly_scores.launches
+        out = scores(spec, stacked, X, *args, **kwargs)
+        counts[step[0], X.shape[-1]] += fleet_anomaly_scores.launches - before
+        return out
+
+    fleet_store.fleet_anomaly_scores = counted
+    try:
+        yield counts, step
+    finally:
+        fleet_store.fleet_anomaly_scores = scores
+
+
+def lifecycle_burst(app, names, frames, revisions):
+    """LIFECYCLE_BURST anomaly requests through ``app``, round robin over
+    ``names``: the revision that answered each (by its ``revision`` header
+    and body, which must agree) counted into ``revisions``; their host ms."""
+    ms = []
+    for i in range(LIFECYCLE_BURST):
+        name = names[i % len(names)]
+        payload = {"X": frames[name], "y": frames[name]}
+        t0 = time.perf_counter()
+        status, body = wsgi_call(app, "POST", f"/gordo/v0/smoke/{name}/anomaly/prediction", payload)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(status == 200, f"[lifecycle] {name} answered {status}: {body[:300]!r}")
+        revisions[json.loads(body)["revision"]] += 1
+    return ms
+
+
+def lifecycle_phase(work_dir, collection, shard, card):
+    """The fleet lifecycle on the card (see the module docstring): a card app
+    over a copy of [train]'s collection, the supervisor given its store; a
+    healthy window, a drifted one (two machines rebuilt on the card,
+    canaried at LIFECYCLE_FRACTION, bursts before, during and after, gated
+    and promoted with requests running), a second drift rolled back by a
+    gate the canary cannot pass, and a new app restoring the promotion.
+    Returns the phase's K1 and K2 launches, the rebuild's CV forwards as K1
+    cases by width with their launches, and the gates' K2 launches by
+    width."""
+    import numpy as np
+    import torch
+
+    from gordo_tpu_torch import serializer, telemetry
+    from gordo_tpu_torch.cli.cli import load_fleet_machines
+    from gordo_tpu_torch.lifecycle import (LIFECYCLE_TRACE_FILE, DriftConfig, GateConfig, LifecycleConfig,
+                                           LifecycleState, LifecycleSupervisor)
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.parallel.fleet_build import rebuild_stale
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.server.fleet_store import FleetModelStore
+
+    check(telemetry.enabled() and not os.environ.get("GORDO_TPU_TELEMETRY_DIR"),
+          "[lifecycle] reads its steps from the supervisor's own trace: telemetry must be on, in its default place")
+    root = os.path.join(work_dir, "lifecycle")
+    base_revision = os.path.basename(collection)
+    base_dir = os.path.join(root, base_revision)
+    # a clean anchor: the health ledger stays behind, with [engine]'s poisoned member's open breaker, which
+    # the supervisor's breaker feed (on, as by default) would nominate for a rebuild
+    shutil.copytree(collection, base_dir, ignore=shutil.ignore_patterns("fleet_health*"))
+    machines = load_fleet_machines(lifecycle_machines(work_dir, shard))
+    healthy, drifted = lifecycle_windows()
+    frames = {name: request_frame(1200 + i, rows=LIFECYCLE_ROWS, n_tags=healthy[name].shape[1])
+              for i, name in enumerate(LIFECYCLE_DRIFTED)}
+    app = build_app(base_dir, device="cuda")
+    check(app.engine is None, "[lifecycle] serves without the engine (its requests launch K1 themselves)")
+    check(len(app.store.fleet().warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
+    revisions = collections.Counter()
+    lifecycle_burst(app, LIFECYCLE_DRIFTED, frames, revisions)  # the first requests load and stack
+    config = LifecycleConfig(canary_fraction=LIFECYCLE_FRACTION, auto_promote=False, quarantine_cooldown_s=0.0,
+                             drift=DriftConfig(), gates=GateConfig())
+    samples_before = registry_samples()
+
+    # the main path, counted from here
+    fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+    with counted_scores() as (k2_counts, step):
+        supervisor = LifecycleSupervisor(machines, base_dir, app.store, config=config, engine=app.engine)
+        revisions.clear()
+        before_ms = lifecycle_burst(app, LIFECYCLE_DRIFTED, frames, revisions)
+        check(revisions == {base_revision: LIFECYCLE_BURST}, f"before the canary: {dict(revisions)}")
+        observe = supervisor.observe
+
+        def observed(frames_):  # K2 launches of an observation (the rest are the gates')
+            step[0] = "observe"
+            try:
+                return observe(frames_)
+            finally:
+                step[0] = "gate"
+
+        supervisor.observe = observed
+        report = supervisor.run_cycle(healthy)
+        check(report.phase == "idle" and not report.drifted and not report.stale,
+              f"a healthy window drifted {report.drifted} (phase {report.phase})")
+        with captured_build() as (forwards, _fetched):
+            report = supervisor.run_cycle(drifted)
+            torch.cuda.synchronize()
+            first_rebuild = list(forwards)
+            canary = report.canary_revision
+            check(sorted(report.drifted) == sorted(LIFECYCLE_DRIFTED) and report.stale == sorted(LIFECYCLE_DRIFTED),
+                  f"drifted {sorted(report.drifted)}, stale {report.stale}, not {sorted(LIFECYCLE_DRIFTED)}")
+            check(report.phase == "canary_serving" and report.gate and report.gate["passed"]
+                  and report.details.get("rebuilt") == sorted(LIFECYCLE_DRIFTED),
+                  f"the drifted cycle ended in {report.phase}: gate {report.gate}, details {report.details}")
+            status = app.store.canary_status()
+            check(status is not None and status["fraction"] == LIFECYCLE_FRACTION, f"canary routing {status}")
+            check(len(first_rebuild) == 2 and all(n == 1 for *_, n in first_rebuild),
+                  f"the rebuild's CV scoring launched K1 {[n for *_, n in first_rebuild]} times for "
+                  f"{len(first_rebuild)} spec groups")
+            canary_dir = os.path.join(root, canary)
+
+            revisions.clear()
+            during_ms = lifecycle_burst(app, LIFECYCLE_DRIFTED, frames, revisions)
+            share = revisions[canary] / LIFECYCLE_BURST
+            check(abs(revisions[canary] - LIFECYCLE_FRACTION * LIFECYCLE_BURST) <= 1
+                  and revisions[canary] + revisions[base_revision] == LIFECYCLE_BURST,
+                  f"during the canary: {dict(revisions)} (fraction {LIFECYCLE_FRACTION})")
+
+            # promotion, with requests running through the swap
+            statuses, stop = [], threading.Event()
+
+            def hammer():
+                name = LIFECYCLE_DRIFTED[0]
+                while not stop.is_set():
+                    status_, _ = wsgi_call(app, "POST", f"/gordo/v0/smoke/{name}/anomaly/prediction",
+                                           {"X": frames[name], "y": frames[name]})
+                    statuses.append(status_)
+
+            thread = threading.Thread(target=hammer, daemon=True)
+            thread.start()
+            try:
+                promoted = supervisor.promote()
+            finally:
+                stop.set()
+                thread.join(timeout=120)
+            check(not thread.is_alive(), "[lifecycle] request thread did not stop")
+            check(promoted.promoted and promoted.gate["passed"], f"promotion: {promoted}")
+            check(statuses and all(s < 500 for s in statuses),
+                  f"answers across the swap: {collections.Counter(statuses)}")
+            swap_s = promoted.details["swap_seconds"]
+            revisions.clear()
+            after_ms = lifecycle_burst(app, LIFECYCLE_DRIFTED, frames, revisions)
+            check(revisions == {canary: LIFECYCLE_BURST}, f"after the promotion: {dict(revisions)}")
+            app.live_ledger.flush()
+            with open(os.path.join(base_dir, "fleet_health.json")) as f:
+                promoted_records = json.load(f)["machines"]
+
+            # a second drift (the promoted machines' rows back where they were before they drifted), whose
+            # rebuild fetches the data the promoted revision was built from: a gate the canary cannot pass
+            supervisor.config.gates = GateConfig(residual_ratio=0.5)
+            rolled = supervisor.run_cycle(healthy)
+            check(rolled.rolled_back and rolled.phase == "idle" and not rolled.gate["passed"]
+                  and any("residual" in f for f in rolled.gate["failures"]), f"the second drift: {rolled}")
+        check(len(forwards) == 4 and all(n == 1 for *_, n in forwards), f"the two rebuilds' CV forwards: "
+              f"{[(tuple(X.shape), n) for _, _, X, n in forwards]}")
+        # each width's CV forward of the first rebuild as a K1 case, with both rebuilds' launches at that width
+        cv_cases = {X.shape[-1]: (as_case(spec, stacked, X),
+                                  sum(n for *_, Y, n in forwards if Y.shape[-1] == X.shape[-1]))
+                    for spec, stacked, X, _ in first_rebuild}
+        second = rolled.canary_revision
+        check(app.store.route(base_dir) == canary_dir and app.store.canary_status() is None,
+              f"after the rollback the app routes to {app.store.route(base_dir)}")
+        supervisor.close()
+
+        # a new app over the base directory serves the promoted revision
+        restarted = build_app(base_dir, device="cuda")
+        status_, body = wsgi_call(restarted, "POST", f"/gordo/v0/smoke/{LIFECYCLE_DRIFTED[0]}/anomaly/prediction",
+                                  {"X": frames[LIFECYCLE_DRIFTED[0]], "y": frames[LIFECYCLE_DRIFTED[0]]})
+        check(status_ == 200 and json.loads(body)["revision"] == canary, f"a new app answered {status_} from revision "
+              f"{json.loads(body).get('revision')}, not {canary}")
+        torch.cuda.synchronize()
+        launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+        k2_by_step = dict(k2_counts)
+    # the main path ends here; what follows holds it to references
+    gate_k2 = {width: k2_by_step.get(("gate", width), 0) for width in (20, WIDE_TAGS)}
+    card_ratios = gate_ratios(app.store, base_dir, canary_dir, drifted, sorted(LIFECYCLE_DRIFTED))
+
+    # the records
+    state = LifecycleState.load(root)
+    events = [e["event"] for e in state.doc["history"]]
+    order = [e for e in events if e in LIFECYCLE_EVENTS]
+    check(order == ["drift_detected", "canary_serving", "promoted", "drift_detected", "canary_serving",
+                    "canary_rejected", "rolled_back"], f"state.json's events {events}")
+    check(state.serving_revision == canary and state.phase == "idle", f"state serves {state.serving_revision}")
+    quarantined = state.quarantined()
+    check(len(quarantined) == 1 and quarantined[0]["canary_revision"] == second
+          and quarantined[0]["machines"] == sorted(LIFECYCLE_DRIFTED), f"quarantine.json {quarantined}")
+    app.live_ledger.flush()
+    with open(os.path.join(base_dir, "fleet_health.json")) as f:
+        records = json.load(f)["machines"]
+    for name in LIFECYCLE_DRIFTED:
+        record, promoted_record = records[name], promoted_records[name]
+        # the promotion cleared drift and moved the build's revision; the rollback quarantined
+        check(promoted_record["build"]["revision"] == canary and not promoted_record["drift"]["drifted"]
+              and not promoted_record["quarantine"]["active"], f"{name}'s health record after the promotion: "
+              f"{promoted_record}")
+        check(record["drift"]["drifted"] and record["quarantine"]["active"]
+              and record["quarantine"]["revision"] == second,
+              f"{name}'s health record: {record['drift']}, {record['quarantine']}")
+    check(not any(r["drift"]["drifted"] or r["quarantine"]["active"] for n, r in records.items()
+                  if n not in LIFECYCLE_DRIFTED), "a machine that did not drift has a drift or quarantine record")
+    samples = registry_samples()
+    moved = {event: summed(samples, f"gordo_fleet_lifecycle_{event}_total", project="smoke")
+             - summed(samples_before, f"gordo_fleet_lifecycle_{event}_total", project="smoke")
+             for event in ("rebuilds", "promotions", "rollbacks")}
+    check(moved == {"rebuilds": 4.0, "promotions": 1.0, "rollbacks": 1.0}, f"lifecycle counters moved {moved}")
+    check(summed(samples, "gordo_fleet_lifecycle_swap_seconds_count", project="smoke") >= 1.0, "no swap observed")
+    spans = collections.defaultdict(float)
+    with open(os.path.join(root, ".lifecycle", LIFECYCLE_TRACE_FILE)) as f:
+        for line in f:
+            span = json.loads(line)
+            if span.get("kind") != "event":
+                spans[span["name"]] += span["duration_ms"] / 1e3
+    check(all(spans[step] > 0 for step in LIFECYCLE_STEPS), f"steps missing from the trace: {dict(spans)}")
+    # K2: an observation scores every machine (one launch a width); a gate both fleets' rebuilt machines (one
+    # a width and fleet), in 3 cycles and the promotion
+    expected = {(step_, width): n for width in (20, WIDE_TAGS) for step_, n in (("observe", 3), ("gate", 6))}
+    check(k2_by_step == expected and sum(k2_by_step.values()) == launches["K2"],
+          f"K2 launched {k2_by_step} times by step and width ({launches['K2']} in all), expected {expected}")
+    # K1: each rebuild's CV forward a width, every anomaly request, and the new app's one
+    requests = 3 * LIFECYCLE_BURST + len(statuses) + 1
+    check(launches["K1"] == 2 * 2 + requests,
+          f"K1 launched {launches['K1']} times, expected {2 * 2 + requests} (4 CV forwards, {requests} requests)")
+
+    # held to the CPU: the rebuild, and the gate over the same two revisions
+    t0 = time.perf_counter()
+    cpu_dir = os.path.join(work_dir, "lifecycle-cpu-rebuild")
+    cpu_builder = rebuild_stale(machines, LIFECYCLE_DRIFTED, cpu_dir,
+                                base_plan_path=os.path.join(base_dir, "fleet_plan.json"), device="cpu")
+    check(not cpu_builder.build_errors, f"CPU rebuild errors: {cpu_builder.build_errors}")
+    cpu, card_ = {}, {}
+    for name in LIFECYCLE_DRIFTED:
+        for out, directory, device in ((cpu, cpu_dir, "cpu"), (card_, canary_dir, "cpu")):
+            model = serializer.load(os.path.join(directory, name), device)
+            out[name] = build_summary(model, serializer.load_metadata(os.path.join(directory, name)))
+    worst, faults = compare_builds(card_, cpu)
+    check(not faults, "[lifecycle] card rebuild disagrees with the CPU's: " + "; ".join(faults[:5]))
+    cpu_ratios = gate_ratios(FleetModelStore(base_dir, torch.device("cpu")), base_dir, canary_dir, drifted,
+                             sorted(LIFECYCLE_DRIFTED))
+    gate_err = max(abs(card_ratios[n][i] - cpu_ratios[n][i]) / abs(cpu_ratios[n][i])
+                   for n in cpu_ratios for i in range(2))
+    check(gate_err <= LIFECYCLE_GATE_RTOL, f"the gate's ratios on the card {card_ratios}, on the CPU {cpu_ratios}")
+    for name, (threshold_ratio, residual_ratio) in card_ratios.items():
+        check(promoted.gate["checks"]["threshold_parity"][name] == round(threshold_ratio, 4)
+              and promoted.gate["checks"]["residual_parity"][name] == round(residual_ratio, 4),
+              f"the gate's report {promoted.gate['checks']} against its ratios {card_ratios}")
+    cpu_s = time.perf_counter() - t0
+
+    def p50(values):
+        return float(np.median(values))
+
+    phase("lifecycle", f"{SERVED_MACHINES + WIDE_MACHINES} machines served by a card app over a copy of [train]'s "
+          f"collection; probe windows of {LIFECYCLE_ROWS} rows, {', '.join(LIFECYCLE_DRIFTED)} shifted "
+          f"{LIFECYCLE_SHIFT:g} training stds: a healthy window drifted nothing, the shifted one exactly those two; "
+          f"rebuilt on the card as canary {canary} (hardlinks for the other {SERVED_MACHINES + WIDE_MACHINES - 2}), "
+          f"gated, promoted; a second drift's canary {second} rolled back and quarantined")
+    phase("lifecycle", "steps (the supervisor's span trace, seconds summed over the phase): "
+          + ", ".join(f"{step} {spans[step]:.3f}" for step in LIFECYCLE_STEPS)
+          + f"; swap {swap_s!r} s; {card}")
+    phase("lifecycle", f"anomaly requests of {LIFECYCLE_ROWS} rows, host ms p50: before the canary "
+          f"{p50(before_ms):.2f}, during {p50(during_ms):.2f} ({share:.0%} of them from the canary), after the "
+          f"promotion {p50(after_ms):.2f}; {len(statuses)} requests across the swap, none 5xx; {card}")
+    phase("lifecycle", f"card rebuild against a CPU rebuild of the same machines ({cpu_s:.2f} s with the gate's CPU "
+          f"check): params max abs {worst[0]:.3e} (limit {BUILD_PARAM_ATOL}), thresholds max rel {worst[1]:.3e} "
+          f"(limit {BUILD_THRESHOLD_RTOL}), CV scores {worst[2]:.3e} (limit {BUILD_SCORE_TOL}); gate ratios card "
+          f"against CPU max rel {gate_err:.3e} (limit {LIFECYCLE_GATE_RTOL}): "
+          + ", ".join(f"{n} threshold {r[0]:.6f} residual {r[1]:.6f}" for n, r in card_ratios.items()))
+    phase("lifecycle", f"state.json events {order}; quarantine.json 1 record ({second}); health ledger: drift, "
+          f"quarantine and promotion records of the two; counters {moved}; K1 {launches['K1']} (4 CV forwards, "
+          f"{requests} requests), K2 {launches['K2']} (3 observes and 3 gates, one a width and fleet: gates "
+          f"{gate_k2[20]} narrow and {gate_k2[WIDE_TAGS]} wide)")
+    return launches, cv_cases, gate_k2
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """Device ms per call: CUDA events around ``iters`` calls queued behind
     a device sleep that outlasts their enqueueing twice over, so the host's
@@ -4265,6 +4666,16 @@ def main():
         with clocked("definitions"):
             def_build_launches, def_serve_launches, def_cases, def_k2, def_launches = definitions_phase(work_dir,
                                                                                                         card)
+        with clocked("lifecycle"):
+            lifecycle_launches, lifecycle_cv, lifecycle_gate_k2 = lifecycle_phase(work_dir, collection,
+                                                                                  train_build[0], card)
+        for width, name in LIFECYCLE_CV.items():
+            case = lifecycle_cv[width][0]
+            check(tuple(case["X"].shape) == (3, TRAIN_ROWS // 4, width), f"the {width}-tag rebuild's CV forward had "
+                  f"shape {tuple(case['X'].shape)}")
+            errors[name] = compare(case)
+            phase("kernel", f"{name}, the rebuild's own fold params and test rows: max abs {errors[name][0]:.3e}, "
+                  f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
     times_t0 = time.perf_counter()
 
     for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
@@ -4373,6 +4784,21 @@ def main():
           f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), "
           f"launch floor {floor!r} ms; {card}")
 
+    for width, name in LIFECYCLE_CV.items():
+        timed[name] = times(lifecycle_cv[width][0])
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+              f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} "
+              f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
+              f"{floor!r} ms; {card}")
+    for name in LIFECYCLE_GATE.values():
+        scored_timed[name] = scores_times(scored[name])
+        kernel, plain, library, library_tf32, k1, bound_ms, bound_by, cuda_core_ms = scored_timed[name]
+        phase("times", f"{name}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms (with "
+              f"TF32 {library_tf32!r} ms), K1 alone {k1!r} ms, bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor "
+              f"cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+              f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -4426,13 +4852,13 @@ def main():
                   "engine": engine_launches["narrow"] + engine_launches["wide"],
                   "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
                   "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"],
-                  "slo": slo_launches["K1"]}
+                  "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
                   "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
-                  "slo": slo_launches["K2"]}
+                  "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -4480,6 +4906,17 @@ def main():
               slo_launches["K1"], k1_by_path, SLO_ANOMALY, timed[SLO_ANOMALY]),
         entry("fleet_anomaly_scores (K2), narrow kernel, SLO drill fleet request", "gordo_tpu/ops/pallas_dense.py:126",
               slo_launches["K2"], k2_by_path, SLO_FLEET, scored_timed[SLO_FLEET]),
+        # launches: [lifecycle]'s two rebuilds' CV forwards of that width, read on the counter
+        entry("fleet_dense (K1), narrow kernel, lifecycle rebuild CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              lifecycle_cv[20][1], k1_by_path, LIFECYCLE_CV[20], timed[LIFECYCLE_CV[20]]),
+        entry("fleet_dense (K1), wide kernel, lifecycle rebuild CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              lifecycle_cv[WIDE_TAGS][1], k1_by_path, LIFECYCLE_CV[WIDE_TAGS], timed[LIFECYCLE_CV[WIDE_TAGS]]),
+        # launches: [lifecycle]'s three gates' K2 launches at that width, counted where they launch
+        entry("fleet_anomaly_scores (K2), narrow kernel, lifecycle gate", "gordo_tpu/ops/pallas_dense.py:126",
+              lifecycle_gate_k2[20], k2_by_path, LIFECYCLE_GATE[20], scored_timed[LIFECYCLE_GATE[20]]),
+        entry("fleet_anomaly_scores (K2), wide kernel, lifecycle gate", "gordo_tpu/ops/pallas_dense.py:126",
+              lifecycle_gate_k2[WIDE_TAGS], k2_by_path, LIFECYCLE_GATE[WIDE_TAGS],
+              scored_timed[LIFECYCLE_GATE[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,20 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   in the current directory; it exits 1 on a regression (0 with
   ``--report-only``), 1 with the JAX command's message when the documents
   cannot be read or compared, 2 when a named file does not exist.
+- ``lifecycle run MACHINES_CONFIG COLLECTION_DIR``, ``lifecycle status
+  MODELS_ROOT [--as-json]``, ``lifecycle promote COLLECTION_DIR
+  [--machines-config F] [--force]`` and ``lifecycle rollback
+  COLLECTION_DIR [--reason R]``: the JAX package's ``lifecycle`` commands
+  (``gordo_tpu/cli/cli.py:1758-2010``, ``lifecycle/``), their messages and
+  exit codes. ``run`` scores one probe window a machine (its own dataset,
+  fetched through ``dataset/``) through the served revision each cycle and
+  advances the supervisor (``--once``, ``--interval``, ``--cycles``,
+  ``--canary-fraction``, ``--auto-promote/--no-auto-promote``,
+  ``--dry-run``); ``COLLECTION_DIR`` defaults to ``$MODEL_COLLECTION_DIR``,
+  ``MACHINES_CONFIG`` to ``$MACHINES_CONFIG``, ``MODELS_ROOT`` to
+  ``$MODELS_ROOT``. The routing a command installs lives in its own store,
+  on ``--device`` (``cuda`` unless ``cpu``): a server picks a promotion up
+  when it starts.
 - ``normalize CONFIG PROJECT``: the shard of a project config, what
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator.py::normalize``), printed or written to
@@ -403,6 +417,154 @@ def bench_check(candidate: str, baseline_path: Optional[str] = None, tolerance_s
     return 1 if not report["ok"] and not report_only else 0
 
 
+def _lifecycle_supervisor(collection_dir: str, machines_config: Optional[str], canary_fraction: Optional[float],
+                          device: Optional[str], auto_promote: Optional[bool] = None):
+    from ..lifecycle import LifecycleConfig, LifecycleSupervisor
+    from .. import resolve_device
+    from ..server.fleet_store import FleetModelStore
+
+    machines = load_fleet_machines(machines_config) if machines_config else []
+    config = LifecycleConfig.from_env()
+    if canary_fraction is not None:
+        config.canary_fraction = canary_fraction
+    if auto_promote is not None:
+        config.auto_promote = auto_promote
+    store = FleetModelStore(collection_dir, resolve_device(device))
+    return LifecycleSupervisor(machines, collection_dir, store, config=config)
+
+
+def lifecycle_frames(machines: List[Machine]) -> dict:
+    """One probe window a machine, its own dataset's rows; a machine whose
+    fetch fails adds none this cycle."""
+    from ..dataset.datasets import GordoBaseDataset
+
+    frames = {}
+    for machine in machines:
+        try:
+            dataset = (machine.dataset if isinstance(machine.dataset, GordoBaseDataset)
+                       else GordoBaseDataset.from_dict(machine.dataset))
+            frames[machine.name] = dataset.get_data()[0]
+        except Exception as exc:  # noqa: BLE001 - per-machine isolation
+            logger.warning("lifecycle probe fetch failed for %s: %r", machine.name, exc)
+    return frames
+
+
+def _echo_cycle(report) -> None:
+    print(f"phase: {report.phase}")
+    for name, reasons in sorted(report.drifted.items()):
+        print(f"  drifted {name}: {'; '.join(reasons)}")
+    if report.canary_revision:
+        print(f"  canary revision: {report.canary_revision}")
+    if report.gate is not None:
+        print(f"  gates: {'PASSED' if report.gate['passed'] else 'FAILED'}")
+        for failure in report.gate["failures"]:
+            print(f"    {failure}")
+    if report.promoted:
+        print(f"  promoted (swap {report.details.get('swap_seconds', 0)}s)")
+    if report.rolled_back:
+        print("  rolled back; serving stays on the last-good revision")
+    sys.stdout.flush()
+
+
+def lifecycle_run(machines_config: str, collection_dir: str, once: bool = False, interval: float = 300.0,
+                  cycles: Optional[int] = None, canary_fraction: Optional[float] = None, auto_promote: bool = True,
+                  dry_run: bool = False, device: Optional[str] = None) -> int:
+    """``lifecycle run``: supervise ``collection_dir``, a cycle every
+    ``interval`` seconds (one with ``once``, ``cycles`` at most); exit code."""
+    import time
+
+    supervisor = _lifecycle_supervisor(collection_dir, machines_config, canary_fraction, device, auto_promote)
+    try:
+        ran = 0
+        while True:
+            frames = lifecycle_frames(supervisor.machines)
+            if dry_run:
+                supervisor.observe(frames)
+                for name, verdict in sorted(supervisor.evaluate_drift().items()):
+                    print(f"{name}: {'DRIFTED' if verdict.drifted else 'ok'} {'; '.join(verdict.reasons)}")
+            else:
+                _echo_cycle(supervisor.run_cycle(frames))
+            ran += 1
+            if once or (cycles is not None and ran >= cycles):
+                return 0
+            time.sleep(interval)
+    finally:
+        supervisor.close()
+
+
+def lifecycle_status(models_root: str, as_json: bool = False) -> int:
+    """``lifecycle status``: the state and quarantine record of ``models_root``."""
+    import json
+
+    from ..lifecycle import LifecycleState
+
+    state = LifecycleState.load(models_root)
+    quarantined = state.quarantined()
+    if as_json:
+        print(json.dumps({"state": state.doc, "quarantined": quarantined}, indent=1, sort_keys=True, default=str))
+        return 0
+    print(f"phase:    {state.phase}")
+    print(f"anchor:   {state.anchor_revision}")
+    print(f"serving:  {state.serving_revision}")
+    print(f"canary:   {state.canary_revision or '-'}")
+    if state.stale:
+        print(f"stale:    {', '.join(state.stale)}")
+    for entry in (state.doc.get("history") or [])[-5:]:
+        print(f"  {entry.get('event')}: serving={entry.get('serving_revision')} canary={entry.get('canary_revision')}")
+    print(f"quarantined canaries: {len(quarantined)}")
+    for record in quarantined[-3:]:
+        print(f"  revision {record.get('canary_revision')}: {'; '.join(record.get('reasons', [])[:2])}")
+    return 0
+
+
+def lifecycle_promote(collection_dir: str, machines_config: Optional[str] = None, force: bool = False,
+                      device: Optional[str] = None) -> int:
+    """``lifecycle promote``: gate (on a probe window fetched with
+    ``machines_config``) and promote the canary, or promote it with ``force``."""
+    supervisor = _lifecycle_supervisor(collection_dir, machines_config, None, device)
+    try:
+        if machines_config and not force:
+            supervisor.observe(lifecycle_frames(supervisor.machines))
+        report = supervisor.promote(force=force)
+    except RuntimeError as exc:
+        return _fail(str(exc))
+    finally:
+        supervisor.close()
+    _echo_cycle(report)
+    if report.rolled_back:
+        return _fail("gates failed; canary rolled back")
+    return 0
+
+
+def lifecycle_rollback(collection_dir: str, reason: str = "operator rollback", device: Optional[str] = None) -> int:
+    """``lifecycle rollback``: end the canary's slice and quarantine it."""
+    supervisor = _lifecycle_supervisor(collection_dir, None, None, device)
+    try:
+        report = supervisor.rollback(reason)
+    except RuntimeError as exc:
+        return _fail(str(exc))
+    finally:
+        supervisor.close()
+    _echo_cycle(report)
+    return 0
+
+
+def _fraction(text: str) -> float:
+    value = float(text)
+    if not 0.0 < value <= 1.0:
+        raise argparse.ArgumentTypeError(f"{value} is not in the range 0<x<=1")
+    return value
+
+
+def _positive(kind):
+    def parse(text: str):
+        value = kind(text)
+        if value < (1 if kind is int else 0):
+            raise argparse.ArgumentTypeError(f"{value} is not in the range x>={1 if kind is int else 0}")
+        return value
+    return parse
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m gordo_tpu_torch")
     parser.add_argument("--log-level", default="INFO")
@@ -490,6 +652,44 @@ def _parser() -> argparse.ArgumentParser:
     bench.add_argument("--report-only", action="store_true", help="always exit 0: print the comparison, never gate")
     bench.add_argument("--as-json", action="store_true", help="print the raw comparison instead of the report")
 
+    lifecycle = commands.add_parser("lifecycle", help="the fleet lifecycle: drift-triggered rebuilds, canaries, "
+                                    "promotion and rollback")
+    lifecycle_commands = lifecycle.add_subparsers(dest="lifecycle_command", required=True)
+    run = lifecycle_commands.add_parser("run", help="supervise a served revision directory")
+    run.add_argument("machines_config", nargs="?", default=os.environ.get("MACHINES_CONFIG"),
+                     help="path to, or text of, the machines document (default $MACHINES_CONFIG)")
+    run.add_argument("collection_dir", nargs="?", default=os.environ.get("MODEL_COLLECTION_DIR"),
+                     help="the served revision directory (default $MODEL_COLLECTION_DIR)")
+    run.add_argument("--once", action="store_true", help="run a single cycle and exit (cron mode)")
+    run.add_argument("--interval", type=_positive(float), default=300.0,
+                     help="seconds between cycles in loop mode (default 300)")
+    run.add_argument("--cycles", type=_positive(int), default=None,
+                     help="stop after this many cycles (default: run forever)")
+    run.add_argument("--canary-fraction", type=_fraction, default=None,
+                     help="traffic slice routed to a canary under evaluation [GORDO_TPU_CANARY_FRACTION, default 0.25]")
+    run.add_argument("--auto-promote", action=argparse.BooleanOptionalAction, default=True,
+                     help="promote when the gates pass (default); off leaves the canary serving until "
+                          "`lifecycle promote`")
+    run.add_argument("--dry-run", action="store_true", help="observe and report drift only; never rebuild or route")
+    status_ = lifecycle_commands.add_parser("status", help="the lifecycle state and quarantine record")
+    status_.add_argument("models_root", nargs="?", default=os.environ.get("MODELS_ROOT"),
+                         help="the directory holding the numbered revisions (default $MODELS_ROOT)")
+    status_.add_argument("--as-json", "--json", dest="as_json", action="store_true", help="machine-readable output")
+    promote = lifecycle_commands.add_parser("promote", help="promote the current canary revision into serving")
+    promote.add_argument("collection_dir", nargs="?", default=os.environ.get("MODEL_COLLECTION_DIR"),
+                         help="the served revision directory (default $MODEL_COLLECTION_DIR)")
+    promote.add_argument("--machines-config", default=os.environ.get("MACHINES_CONFIG"),
+                         help="machine document for fetching a probe window (gates need scored data; without it "
+                              "only --force can promote)")
+    promote.add_argument("--force", action="store_true",
+                         help="skip the gates (operator has verified the canary externally)")
+    rollback = lifecycle_commands.add_parser("rollback", help="roll back the current canary and quarantine it")
+    rollback.add_argument("collection_dir", nargs="?", default=os.environ.get("MODEL_COLLECTION_DIR"),
+                          help="the served revision directory (default $MODEL_COLLECTION_DIR)")
+    rollback.add_argument("--reason", default="operator rollback", help="recorded in the quarantine entry")
+    for command in (run, promote, rollback):
+        command.add_argument("--device", default="cuda", help="cuda (default) or cpu: where the fleets score")
+
     normalize = commands.add_parser("normalize", help="print the shard of a project config")
     normalize.add_argument("config", help="the project's YAML config (a CRD document or its spec.config)")
     normalize.add_argument("project_name")
@@ -512,6 +712,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(document)
         return 0
+    if args.command == "lifecycle":
+        return _lifecycle_command(parser, args)
     if args.command == "bench-check":
         for option, path in (("CANDIDATE", args.candidate), ("--baseline", args.baseline)):
             if path is not None and not os.path.isfile(path):
@@ -550,3 +752,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     code, _ = build_fleet(args.machines_config, args.output_dir, args.device, args.exceptions_reporter_file,
                           args.exceptions_report_level, args.resume, args.model_register_dir)
     return code
+
+
+def _lifecycle_command(parser: argparse.ArgumentParser, args: argparse.Namespace) -> int:
+    command = args.lifecycle_command
+    if command == "status":
+        if not args.models_root:
+            parser.error("MODELS_ROOT is required (argument or $MODELS_ROOT)")
+        return lifecycle_status(args.models_root, args.as_json)
+    if not args.collection_dir:
+        parser.error("COLLECTION_DIR is required (argument or $MODEL_COLLECTION_DIR)")
+    if command == "promote":
+        return lifecycle_promote(args.collection_dir, args.machines_config, args.force, args.device)
+    if command == "rollback":
+        return lifecycle_rollback(args.collection_dir, args.reason, args.device)
+    if not args.machines_config:
+        parser.error("MACHINES_CONFIG is required (argument or $MACHINES_CONFIG)")
+    return lifecycle_run(args.machines_config, args.collection_dir, args.once, args.interval, args.cycles,
+                         args.canary_fraction, args.auto_promote, args.dry_run, args.device)

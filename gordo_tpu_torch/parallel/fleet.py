@@ -240,6 +240,9 @@ class FleetTrainer:
     def __init__(self, device: DeviceLike = None, random: Optional[RandomSource] = None):
         self.device = resolve_device(device)
         self.random = random if random is not None else TorchRandom()
+        #: a naive ``planner.FleetPlan`` to replay (``FleetBuilder`` sets it
+        #: for a build): the members it covers train in its buckets
+        self.fleet_plan: Any = None
         #: lifetime count of bucket bisections after device errors
         self.bucket_bisects = 0
         #: member name -> bisections its bucket rode through
@@ -281,7 +284,9 @@ class FleetTrainer:
     def _train_once(self, members: Sequence[FleetMember], config: FitConfig) -> List[FleetResult]:
         by_name: Dict[str, FleetResult] = {}
         failures: Dict[str, BaseException] = {}
-        for planned in train_buckets(members, config):
+        planned_buckets, remaining = (self.fleet_plan.materialize_buckets(members) if self.fleet_plan is not None
+                                      else ([], list(members)))
+        for planned in planned_buckets + train_buckets(remaining, config):
             logger.info(
                 "Fleet bucket %s: %d models, spec=%s, padded_n=%d%s",
                 planned.bucket_id, len(planned.members), type(planned.spec).__name__, planned.n_padded,

@@ -112,9 +112,16 @@ process's registry) are fed where the JAX build feeds them: each
 loss as it ends (telemetry on), the progress gauges as machines land or
 fail, the plan's prediction beside ``fleet_plan.json`` and its actuals
 beside ``fleet_plan_accuracy``, the robustness counters at the end. They
-are advisory: a failure is logged and dropped. Not ported: the packing
-planner and plan replay (``ROADMAP.md`` item 7) and the multi-host
-mirrors (item 12).
+are advisory: a failure is logged and dropped.
+
+:func:`rebuild_stale` is the lifecycle's partial rebuild
+(``fleet_build.py:2026-2084``): only the stale machines build, journaled
+and resumable in their own directory, replaying the base revision's
+``fleet_plan.json`` (``FleetBuilder(fleet_plan=)``), so a stale member
+keeps its planned pad target; members the plan does not cover, or whose
+rows outgrew it, pack live. A plan of another strategy than ``naive`` is
+logged and packed live. Not ported: the packing planner, ``--plan-from``
+(``ROADMAP.md`` item 7) and the multi-host mirrors (item 12).
 """
 
 import concurrent.futures
@@ -372,10 +379,22 @@ class FleetBuilder:
         machines: Sequence[Machine],
         device: DeviceLike = None,
         random: Optional[RandomSource] = None,
+        trainer: Optional[FleetTrainer] = None,
+        fleet_plan: Optional[planner.FleetPlan] = None,
+        health_ledger: Any = None,
     ):
         self.machines = list(machines)
-        self.trainer = FleetTrainer(device, random)
+        # a given trainer brings its device and random source
+        self.trainer = trainer if trainer is not None else FleetTrainer(device, random)
         self.device = self.trainer.device
+        if fleet_plan is not None and fleet_plan.strategy != planner.NAIVE:
+            logger.warning("FleetPlan %s has strategy %r, which gordo_tpu_torch cannot replay yet (ROADMAP.md item "
+                           "7); its members pack live", fleet_plan.plan_hash, fleet_plan.strategy)
+            fleet_plan = None
+        #: the plan handed in, replayed by every build of this builder
+        self._external_plan = fleet_plan
+        #: the ledger a build feeds (None: the output directory's own)
+        self._health_ledger = health_ledger
         self.build_errors: Dict[str, BaseException] = {}
         self.degraded: Dict[str, BaseException] = {}
         self.resumed: List[str] = []
@@ -502,8 +521,11 @@ class FleetBuilder:
         self._device_peak_bytes = 0
         self._project = self.machines[0].project_name if self.machines else ""
         self._output_revision = os.path.basename(os.path.normpath(output_dir)) if output_dir is not None else None
-        self._ledger = (telemetry.ledger_for(output_dir, project=self._project) if output_dir is not None
-                        else telemetry.NULL_LEDGER)
+        if self._health_ledger is not None:
+            self._ledger = self._health_ledger
+        else:
+            self._ledger = (telemetry.ledger_for(output_dir, project=self._project) if output_dir is not None
+                            else telemetry.NULL_LEDGER)
         recorder: Any = telemetry.NULL_RECORDER
         self.progress = None
         if telemetry.enabled():
@@ -737,13 +759,23 @@ class FleetBuilder:
             fingerprint = planner.config_fingerprint(
                 [self._config_hashes.get(p.machine.name) or ModelBuilder.calculate_cache_key(p.machine)
                  for p in final_plans])
-            plan = planner.build_plan_doc(
-                [(config, planner.plan_train_buckets(group, config)) for config, group in by_config.items()],
-                planner.NAIVE, fingerprint)
+            plan = self._external_plan
+            if plan is not None:
+                recorded = str(plan.doc.get("config_fingerprint", ""))
+                if recorded and recorded != fingerprint:
+                    logger.warning("FleetPlan %s was computed for a different config set (fingerprint %s != %s); "
+                                   "unknown members will be packed live", plan.plan_hash, recorded, fingerprint)
+            else:
+                plan = planner.build_plan_doc(
+                    [(config, planner.plan_train_buckets(group, config)) for config, group in by_config.items()],
+                    planner.NAIVE, fingerprint)
             self.fleet_plan = plan
+            # only a plan handed in is replayed: a fresh build trains the buckets it just planned
+            self.trainer.fleet_plan = self._external_plan
             totals = plan.totals
             self.recorder.event(
-                "fleet_plan", plan_hash=plan.plan_hash, strategy=planner.NAIVE, replayed=False,
+                "fleet_plan", plan_hash=plan.plan_hash, strategy=planner.NAIVE,
+                replayed=self._external_plan is not None,
                 buckets=totals.get("buckets", 0), members=totals.get("members", 0),
                 compiles=totals.get("compiles", 0), predicted_wall_s=totals.get("predicted_wall_s", 0.0),
                 padding_waste=totals.get("padding_waste", 0.0),
@@ -1241,3 +1273,37 @@ def fleet_build(
     """Build the whole fleet on ``device`` (``cuda`` unless the caller asks
     for the CPU); see :class:`FleetBuilder`."""
     return FleetBuilder(machines, device=device, random=random).build(output_dir=output_dir)
+
+
+def rebuild_stale(
+    machines: Sequence[Machine],
+    stale_names: Sequence[str],
+    output_dir: str,
+    base_plan: Optional[planner.FleetPlan] = None,
+    base_plan_path: Optional[str] = None,
+    resume: bool = True,
+    trainer: Optional[FleetTrainer] = None,
+    health_ledger: Any = None,
+    device: DeviceLike = None,
+) -> FleetBuilder:
+    """Build only ``stale_names`` of ``machines`` into ``output_dir``
+    (journaled there; ``resume`` skips what is already rebuilt), replaying
+    ``base_plan`` or the plan at ``base_plan_path`` (typically the base
+    revision's ``fleet_plan.json``), on ``trainer``'s device and random
+    source (default a ``FleetTrainer`` on ``device``, ``cuda`` unless the
+    caller asks for the CPU). Build records go to ``health_ledger`` (the
+    caller's anchor ledger) when given. Returns the builder, whose
+    ``build_errors`` and ``resumed`` say what happened."""
+    stale = set(stale_names)
+    unknown = stale - {m.name for m in machines}
+    if unknown:
+        raise FleetBuildError(f"stale members not in the machine set: {sorted(unknown)}")
+    if base_plan is None and base_plan_path and os.path.isfile(base_plan_path):
+        try:
+            base_plan = planner.FleetPlan.load(base_plan_path)
+        except ValueError as exc:
+            logger.warning("Base FleetPlan %s unusable (%s); stale members pack live", base_plan_path, exc)
+    builder = FleetBuilder([m for m in machines if m.name in stale], device=device, trainer=trainer,
+                           fleet_plan=base_plan, health_ledger=health_ledger)
+    builder.build(output_dir=output_dir, resume=resume)
+    return builder

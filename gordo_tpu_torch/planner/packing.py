@@ -156,7 +156,7 @@ def annotate_predictions(buckets: Sequence[PlannedBucket], config: Any) -> None:
         compiles = 0 if signature in seen else 1
         seen.add(signature)
         true_flops = sum(
-            cost_model.train_flops(bucket.spec, 1, _samples(member) - (bucket.offset if bucket.windowed else 0),
+            cost_model.train_flops(bucket.spec, 1, member_samples(member) - (bucket.offset if bucket.windowed else 0),
                                    config.epochs)
             for member in bucket.members
         )
@@ -182,7 +182,8 @@ def annotate_predictions(buckets: Sequence[PlannedBucket], config: Any) -> None:
         }
 
 
-def _samples(member: Any) -> int:
+def member_samples(member: Any) -> int:
+    """A member's rows on its pad axis: series rows when windowed, else samples."""
     return len(member.series) if member_is_windowed(member) else member.n
 
 

@@ -9,9 +9,13 @@ fingerprint of the machines' configs. It is deterministic (sorted keys,
 rounded floats, no timestamps): the same configs give the same bytes,
 and ``plan_hash``, the hash of those bytes, is what the build journal
 records. ``predicted_*`` are the analytic cost model's predictions
-(``costmodel.py``), not measured times. Not ported: replaying a plan
-(``materialize_buckets``, ``build-fleet --plan-from``; ``ROADMAP.md``
-item 7).
+(``costmodel.py``), not measured times.
+
+:meth:`FleetPlan.materialize_buckets` replays a plan (``:109-160``): the
+lifecycle's partial rebuild binds the stale members to their planned
+buckets by name, so each keeps its planned pad target. Replaying a plan of
+another strategy than ``naive``, and ``build-fleet --plan-from``, wait for
+the packing planner (``ROADMAP.md`` item 7).
 """
 
 import hashlib
@@ -20,6 +24,7 @@ import os
 from typing import Any, Dict, List, Sequence, Tuple
 
 from .costmodel import COST_TABLE_VERSION
+from .packing import PlannedBucket, member_is_windowed, member_samples
 
 PLAN_VERSION = 1
 PLAN_FILE = "fleet_plan.json"
@@ -77,6 +82,38 @@ class FleetPlan:
         if not isinstance(doc, dict):
             raise PlanError(f"fleet plan {path} is not a JSON object")
         return cls(doc)
+
+
+    def materialize_buckets(self, members: Sequence[Any]) -> Tuple[List[PlannedBucket], List[Any]]:
+        """Bind this plan's bucket rosters to ``members`` by name:
+        ``(buckets, uncovered)``, one bucket with its planned pad target,
+        id and program for each plan bucket that has a member here, and
+        the members to pack live: those the plan does not know (a CV fold
+        member, a machine added since), whose rows outgrew the pad target
+        or whose spec changed."""
+        assignment = {name: bucket for bucket in self.buckets for name in bucket["members"]}
+        by_bucket: Dict[str, List[Any]] = {}
+        uncovered: List[Any] = []
+        for member in members:
+            entry = assignment.get(member.name)
+            if (entry is None or member_samples(member) > int(entry["n_padded"])
+                    or _jsonable(member.spec.to_dict()) != entry.get("spec")):
+                uncovered.append(member)
+                continue
+            by_bucket.setdefault(entry["id"], []).append(member)
+        buckets: List[PlannedBucket] = []
+        for entry in self.buckets:
+            live = by_bucket.get(entry["id"])
+            if not live:
+                continue
+            windowed = bool(entry.get("windowed"))
+            if any(member_is_windowed(m) != windowed for m in live):
+                raise PlanError(f"plan bucket {entry['id']} mixes windowed and dense members with the live fleet — "
+                                "the plan does not match this config; re-run `gordo-tpu plan`")
+            buckets.append(PlannedBucket(spec=live[0].spec, members=live, n_padded=int(entry["n_padded"]),
+                                         offset=int(entry.get("offset", 0)), windowed=windowed,
+                                         bucket_id=str(entry["id"]), program=str(entry["program"])))
+        return buckets, uncovered
 
 
 def _jsonable(value: Any) -> Any:

@@ -26,9 +26,14 @@ with its JSON shapes, in its order, all 19 of them:
   ``build_app`` marks that directory watched.
 
 A request may pin a revision, a sibling directory of the served one,
-with ``?revision=`` or a ``revision`` header. Every JSON body of a
+with ``?revision=`` or a ``revision`` header. A request that pins none
+goes where the store's lifecycle routing sends it
+(``FleetModelStore.route``: a promoted revision, or the canary on its
+traffic slice), decided once a request. Every JSON body of a
 ``/gordo/v0`` route, and its ``revision`` header, carries the revision
-that answered. Errors map to statuses as there: 400 for a bad request or
+that answered. ``build_app`` first restores a promotion that the
+lifecycle recorded beside the revisions (``lifecycle.restore_serving_state``),
+before the engine's warmup, which warms the revision the store routes to. Errors map to statuses as there: 400 for a bad request or
 frame, 404 for an unknown model, 406 and 415 for a format the port does
 not serve (it serves JSON only), 409 for deleting the served revision,
 410 for a malformed or missing revision pin or ingest into a closed
@@ -264,10 +269,16 @@ class RequestContext:
     def resolve_revision(self) -> None:
         """Point the request at the revision it pins (``?revision=`` or
         the ``revision`` header), a sibling directory of the served one,
-        or else at the served revision; 410 when the pin is malformed or
-        names no directory."""
+        or else at the revision the store routes the served one to (a
+        promoted revision, or the canary on its slice; ``route`` runs once
+        a request), which the response then names; 410 when the pin is
+        malformed or names no directory."""
         revision = self.request.arg("revision") or self.request.header("revision")
         if not revision:
+            routed = self.store.route(self.collection_dir)
+            if routed != self.collection_dir:
+                self.collection_dir = routed
+                self.current_revision = os.path.basename(os.path.normpath(routed))
             self.revision = self.current_revision
             return
         # validated before it is adopted: it is echoed into a header
@@ -404,7 +415,7 @@ class GordoServerApp:
 
         def warm():
             try:
-                engine.warmup_collection(self.store.collection_dir)
+                engine.warmup_collection(self.store.route(self.store.collection_dir))
             except Exception:  # noqa: BLE001 - a failed warmup leaves the first requests to pay for it
                 logger.exception("serve warmup failed for %s", self.store.collection_dir)
 
@@ -624,6 +635,13 @@ def build_app(
     tracing.install_trace_log_stamping()
     # the SLO status of the serving telemetry directory is kept fresh at scrape time
     slo.watch(slo.slo_directory(app.store.collection_dir))
+    # a promotion recorded before this process started serves again, before the warmup
+    try:
+        from ..lifecycle import restore_serving_state
+
+        restore_serving_state(app.store)
+    except Exception:  # noqa: BLE001 - a torn state file must not stop the server
+        logger.exception("lifecycle serving-state restore failed")
     if app.engine is not None:
         logger.info(
             "micro-batching engine on: max_size=%d max_delay=%.1fms queue_depth=%d row_ladder=%s precision=%s",
@@ -666,7 +684,7 @@ def run_server(
     from .prometheus.server import build_metrics_app
 
     app = build_app(collection_dir, device)
-    loaded = app.store.fleet().warm()
+    loaded = app.store.fleet(app.store.route(app.store.collection_dir)).warm()
     logger.info("serving %d models of %s on %s", len(loaded), app.store.collection_dir, app.device)
     metrics_server = metrics_thread = None
     if app.prometheus_metrics is not None:

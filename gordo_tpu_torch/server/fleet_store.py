@@ -313,6 +313,14 @@ class RevisionFleet:
                 logger.exception("warm: could not load %s", name)
         return loaded
 
+    def warm_buckets(self) -> List[str]:
+        """:meth:`warm`, then every loaded spec's stacked bucket made
+        resident on the device; the names that loaded."""
+        loaded = self.warm()
+        for spec in set(self.loaded_specs().values()):
+            self._bucket(spec)
+        return loaded
+
     def _bucket(self, spec: ModelSpec) -> Tuple[List[str], Stacked, Ingest]:
         with self._lock:
             cached = self._buckets.get(spec)
@@ -595,7 +603,15 @@ class FleetModelStore:
     ``?revision=``. ``N_CACHED_REVISIONS`` (default 2) bounds how many
     stay resident; a revision is never evicted model by model. An evicted
     or invalidated fleet stays usable by a request that already holds
-    it."""
+    it.
+
+    The lifecycle's routing (``:946-1032``): a hot-swap redirect
+    (:meth:`swap`) and a canary slice (:meth:`set_canary`, every Nth routed
+    request) send an unpinned request for a directory to another revision;
+    :meth:`route` resolves it once a request. A swap or a canary with
+    ``warm`` loads the revision's models and makes its buckets resident on
+    the device before the routing lands (the port compiles nothing). A
+    request already holding a fleet keeps it across a swap."""
 
     def __init__(self, collection_dir: str, device: torch.device):
         max_revisions = env_int("N_CACHED_REVISIONS", 2)
@@ -610,16 +626,79 @@ class FleetModelStore:
         #: the last ``(collection_dir as asked, fleet)``: a request for the
         #: same directory skips the realpath and the lock
         self._mru: Optional[Tuple[str, RevisionFleet]] = None
+        #: hot-swap redirects, requested directory -> served one; written
+        #: under the lock, read without it
+        self._redirects: Dict[str, str] = {}
+        #: the canary slice, (source key, canary directory, every-Nth period)
+        self._canary: Optional[Tuple[str, str, int]] = None
+        #: counts routed requests of the canary's source; unlocked, so under
+        #: concurrent load the slice may be off by a request or two
+        self._canary_tick = 0
+
+    @staticmethod
+    def _route_key(collection_dir: str) -> str:
+        """Routing keys are normalized paths, so a trailing slash does not
+        miss a redirect (no realpath: no system call a request)."""
+        return os.path.normpath(collection_dir)
 
     def route(self, collection_dir: str) -> str:
-        """The revision directory that serves ``collection_dir``: itself.
-        (The JAX store also redirects here for hot-swaps and canaries,
-        which belong to the lifecycle and are not ported.)"""
-        return collection_dir
+        """The directory that serves an unpinned request for
+        ``collection_dir``: the canary on every Nth request of its slice,
+        else the redirect, else ``collection_dir`` itself."""
+        key = self._route_key(collection_dir)
+        canary = self._canary
+        if canary is not None and canary[0] == key:
+            self._canary_tick += 1
+            if self._canary_tick % canary[2] == 0:
+                return canary[1]
+        return self._redirects.get(key, collection_dir)
 
-    def _ensure_fleet(self, collection_dir: str) -> RevisionFleet:
+    def swap(self, collection_dir: str, new_dir: str, warm: bool = True) -> RevisionFleet:
+        """Route ``collection_dir``'s requests to ``new_dir`` from now on
+        (loaded first, with ``warm``); onto itself, drop the redirect. A
+        canary slice of ``collection_dir`` ends."""
+        fleet = self._ensure_fleet(new_dir, warm=warm)
+        key = self._route_key(collection_dir)
+        with self._lock:
+            if os.path.realpath(new_dir) == os.path.realpath(collection_dir):
+                self._redirects.pop(key, None)
+            else:
+                self._redirects[key] = new_dir
+            canary = self._canary
+            if canary is not None and canary[0] == key:
+                self._canary = None
+            self._mru = (new_dir, fleet)
+        return fleet
+
+    def set_canary(self, collection_dir: str, canary_dir: str, fraction: float, warm: bool = True) -> RevisionFleet:
+        """Route every ``round(1 / fraction)``-th request for
+        ``collection_dir`` to ``canary_dir`` (loaded first, with ``warm``)."""
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(f"canary fraction must be in (0, 1]: {fraction}")
+        fleet = self._ensure_fleet(canary_dir, warm=warm)
+        period = max(1, int(round(1.0 / fraction)))
+        with self._lock:
+            self._canary = (self._route_key(collection_dir), canary_dir, period)
+        return fleet
+
+    def clear_canary(self, collection_dir: Optional[str] = None) -> None:
+        """End the canary slice (of ``collection_dir``, or any); requests
+        already routed to it finish there."""
+        with self._lock:
+            canary = self._canary
+            if canary is not None and (collection_dir is None or canary[0] == self._route_key(collection_dir)):
+                self._canary = None
+
+    def canary_status(self) -> Optional[Dict[str, Any]]:
+        canary = self._canary
+        if canary is None:
+            return None
+        return {"source": canary[0], "canary": canary[1], "fraction": 1.0 / canary[2]}
+
+    def _ensure_fleet(self, collection_dir: str, warm: bool = False) -> RevisionFleet:
         """The resident fleet of ``collection_dir``, made (evicting the
-        least recently used beyond ``max_revisions``) on first use."""
+        least recently used beyond ``max_revisions``) on first use; with
+        ``warm``, its models loaded and buckets resident (outside the lock)."""
         key = os.path.realpath(collection_dir)
         with self._lock:
             fleet = self._revisions.get(key)
@@ -636,6 +715,8 @@ class FleetModelStore:
                     logger.info("Evicting served revision %s", evicted)
             else:
                 self._revisions.move_to_end(key)
+        if warm:
+            fleet.warm_buckets()
         return fleet
 
     def fleet(self, collection_dir: Optional[str] = None) -> RevisionFleet:
@@ -681,3 +762,10 @@ class FleetModelStore:
         with self._lock:
             self._mru = None
             self._revisions.pop(key, None)
+            # routing onto the forgotten revision goes; routing from it stays
+            canary = self._canary
+            if canary is not None and os.path.realpath(canary[1]) == key:
+                self._canary = None
+            for source, target in list(self._redirects.items()):
+                if os.path.realpath(target) == key:
+                    del self._redirects[source]

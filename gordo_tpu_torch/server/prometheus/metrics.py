@@ -12,6 +12,9 @@ label names, bucket edges and semantics.
 - :func:`fleet_build_metrics` and the ``record_*`` / ``set_*`` helpers the
   fleet build calls: phase and compile durations, members' final losses,
   robustness counters, progress and plan gauges;
+- :func:`fleet_lifecycle_metrics` and the helpers the lifecycle loop
+  calls: rebuilds, promotions and rollbacks, the drifted, stale and canary
+  gauges, each promotion's swap seconds;
 - the scrape-time collectors: the program cache, the store's resident
   bytes, the fleet health ledgers, the card's memory and the compile
   counters, the SLO statuses, the stream plane;
@@ -28,9 +31,12 @@ covers every directory the process made a build or serving ledger for.
 Metric objects are made once a registry, so a second app of the process
 shares the first one's families. The port's server is one process: the
 JAX package's multi-process exposition (``PROMETHEUS_MULTIPROC_DIR``) is
-refused (:func:`refuse_multiprocess_dir`). Lifecycle's families
-(``:1068-1176``) are not ported: the lifecycle loop, their only caller,
-is not.
+refused (:func:`refuse_multiprocess_dir`).
+
+One difference from the JAX class: :class:`GordoServerPrometheusMetrics`
+caches its stage children by (project, endpoint, stage). The JAX one
+keys them by (endpoint, stage), so with no ``PROJECT`` a second project's
+stages count under the first project seen on that endpoint.
 """
 
 import os
@@ -244,7 +250,7 @@ class GordoServerPrometheusMetrics:
         if stages:
             endpoint = getattr(response, "endpoint", None) or "{unmatched}"
             for stage, seconds in stages.items():
-                stage_key = (endpoint, stage)
+                stage_key = (labels["project"], endpoint, stage)
                 child = self._stage_children.get(stage_key)
                 if child is None:
                     child = self._stage_children[stage_key] = self.stage_duration.labels(
@@ -450,6 +456,74 @@ def set_fleet_build_progress(project: Optional[str], total: int, completed: int,
     metrics["machines_total"].labels(**labels).set(total)
     metrics["machines_completed"].labels(**labels).set(completed)
     metrics["machines_failed"].labels(**labels).set(failed)
+
+
+# -- fleet lifecycle metrics --------------------------------------------------
+
+_lifecycle_metrics: "weakref.WeakKeyDictionary[CollectorRegistry, dict]" = weakref.WeakKeyDictionary()
+
+_LIFECYCLE_EVENT_COUNTERS = (
+    ("rebuilds", "gordo_fleet_lifecycle_rebuilds_total", "Members rebuilt by the drift-triggered lifecycle loop"),
+    ("promotions", "gordo_fleet_lifecycle_promotions_total",
+     "Canary revisions promoted into serving by the lifecycle loop"),
+    ("rollbacks", "gordo_fleet_lifecycle_rollbacks_total",
+     "Canary revisions rolled back and quarantined (gate failures, failed rebuilds, operator rollbacks)"),
+)
+
+#: hot swaps are sub-second by design; the tail buckets catch cold loads
+_SWAP_BUCKETS = (0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0)
+
+
+def _make_lifecycle_metrics(target: CollectorRegistry) -> Dict[str, Any]:
+    metrics: Dict[str, Any] = {
+        key: Counter(name, help_text, labelnames=["project"], registry=target)
+        for key, name, help_text in _LIFECYCLE_EVENT_COUNTERS
+    }
+    metrics["drifted"] = Gauge("gordo_fleet_lifecycle_drifted_machines",
+                               "Machines whose latest drift evaluation tripped", labelnames=["project"],
+                               registry=target)
+    metrics["stale"] = Gauge("gordo_fleet_lifecycle_stale_machines",
+                             "Machines in the current stale set (being rebuilt/canaried)", labelnames=["project"],
+                             registry=target)
+    metrics["canary_fraction"] = Gauge(
+        "gordo_fleet_lifecycle_canary_fraction",
+        "Traffic fraction currently routed to the canary revision (0 when no canary is serving)",
+        labelnames=["project"], registry=target)
+    metrics["swap_seconds"] = Histogram(
+        "gordo_fleet_lifecycle_swap_seconds",
+        "Wall-clock of promoting a canary into serving (the hot swap itself, warm included; requests are "
+        "never paused)", labelnames=["project"], buckets=_SWAP_BUCKETS, registry=target)
+    return metrics
+
+
+def fleet_lifecycle_metrics(registry: Optional[CollectorRegistry] = None) -> dict:
+    """The ``gordo_fleet_lifecycle_*`` set of ``registry`` (default
+    ``REGISTRY``), made once: the event counters, the drift and canary
+    gauges, the swap histogram."""
+    return _once_per_registry(_lifecycle_metrics, registry, _make_lifecycle_metrics)
+
+
+def record_fleet_lifecycle_event(project: Optional[str], event: str, n: int = 1) -> None:
+    """Count ``n`` lifecycle events (``rebuilds``, ``promotions`` or
+    ``rollbacks``; any other name is ignored)."""
+    if event not in {key for key, _, _ in _LIFECYCLE_EVENT_COUNTERS}:
+        return
+    if n:
+        fleet_lifecycle_metrics()[event].labels(project=project or "").inc(n)
+
+
+def set_fleet_lifecycle_status(project: Optional[str], drifted: int, stale: int, canary_fraction: float) -> None:
+    """The lifecycle loop's status gauges (a cycle)."""
+    metrics = fleet_lifecycle_metrics()
+    labels = {"project": project or ""}
+    metrics["drifted"].labels(**labels).set(drifted)
+    metrics["stale"].labels(**labels).set(stale)
+    metrics["canary_fraction"].labels(**labels).set(canary_fraction)
+
+
+def observe_lifecycle_swap(project: Optional[str], seconds: float) -> None:
+    """One promotion's hot-swap seconds."""
+    fleet_lifecycle_metrics()["swap_seconds"].labels(project=project or "").observe(seconds)
 
 
 # -- serving engine metrics ---------------------------------------------------

@@ -225,7 +225,7 @@ def get_fleet_health(ctx, gordo_project: str) -> Response:
     try:
         if app.engine is not None:
             serving = app.engine.stats()
-            serving["gates"] = app.store.fleet(directory).precision_reports()
+            serving["gates"] = app.store.fleet(app.store.route(directory)).precision_reports()
             serving["store"] = app.store.revision_stats()
     except Exception:  # noqa: BLE001 - engine stats are advisory
         pass

@@ -138,6 +138,12 @@ class StreamPlane:
         except Exception:  # noqa: BLE001 - the ledger is advisory
             logger.debug("stream breaker ledger feed failed", exc_info=True)
 
+    def attach_drift(self, monitor: Any) -> None:
+        """Feed every flush's scores into a lifecycle ``DriftMonitor``
+        (``observe_scores(frames, scores)``): ``LifecycleSupervisor.attach_stream``
+        calls this, so this package never imports the lifecycle."""
+        self.scorer.drift_monitor = monitor
+
     # -- session registry ----------------------------------------------------
 
     def _prune_locked(self, now: float) -> None:

@@ -27,8 +27,10 @@ spec groups (``planner/costmodel.py``) beside the measured ``device_ms``
 (the K2 launch and the copy back), and links to the ``stream_ingest``
 spans it drained; then a ``stream_emit`` span times the events. The
 flush feeds the app's health ledger (rows, residual mean and a request a
-machine, one snapshot a flush). Not ported: the drift monitor's feed
-(the lifecycle, ``ROADMAP.md`` item 11c).
+machine, one snapshot a flush) and, once a lifecycle supervisor attached
+its drift monitor (``StreamPlane.attach_drift``), the monitor's
+statistics (``observe_scores``, duck-typed: this package never imports
+the lifecycle).
 """
 
 import logging
@@ -61,13 +63,15 @@ class WindowScorer:
     """Cut and score the watermark windows of one session's flush."""
 
     def __init__(self, window_rows: int, store: Any, board: BreakerBoard, telemetry: StreamTelemetry,
-                 ledger: Optional[Callable[[], Any]] = None):
+                 ledger: Optional[Callable[[], Any]] = None, drift_monitor: Optional[Any] = None):
         self.window_rows = max(1, int(window_rows))
         self.store = store
         self.board = board
         self.telemetry = telemetry
         #: a zero-argument callable answering the health ledger (None: no feed)
         self.ledger = ledger
+        #: a lifecycle ``DriftMonitor`` the flushes feed (None: no feed)
+        self.drift_monitor = drift_monitor
 
     @staticmethod
     def _spec_for(fleet: Any, name: str) -> Any:
@@ -98,7 +102,7 @@ class WindowScorer:
         summary: Dict[str, Any] = {"scored": {}, "errors": {}, "quarantined": {}, "rows": 0}
         # pinned once: every window below scores against this revision
         routed = self.store.route(session.collection_dir)
-        fleet = self.store.fleet()
+        fleet = self.store.fleet(routed)
         revision = os.path.basename(os.path.normpath(routed))
         board = self.board
 
@@ -242,6 +246,7 @@ class WindowScorer:
             lag_weights=[summary["scored"][n] for n in scores],
         )
         self._feed_ledger(inputs, scores, errors)
+        self._feed_drift(inputs, scores)
         return summary
 
     def _feed_ledger(self, frames: Dict[str, np.ndarray], scores: Dict[str, Tuple[Any, Any]],
@@ -255,3 +260,12 @@ class WindowScorer:
                                         CLIENT_ERRORS)
         except Exception:  # noqa: BLE001 - health telemetry is advisory
             logger.debug("stream health not recorded", exc_info=True)
+
+    def _feed_drift(self, frames: Dict[str, np.ndarray], scores: Dict[str, Tuple[Any, Any]]) -> None:
+        monitor = self.drift_monitor
+        if monitor is None or not frames:
+            return
+        try:
+            monitor.observe_scores(frames, scores)
+        except Exception:  # noqa: BLE001 - drift statistics are advisory
+            logger.debug("stream drift feed failed", exc_info=True)

@@ -18,10 +18,12 @@ server's workers write). Its feeds:
   and its request) for each fleet request and stream flush, and
   :meth:`~FleetHealthLedger.record_breaker_transition` on each breaker
   transition;
-- ``record_drift``, ``record_quarantine`` and ``record_promotion`` have no
-  caller in the port yet (the lifecycle, ``ROADMAP.md`` item 11c): they
-  are here because the document and :func:`health_score` read their
-  sections.
+- the lifecycle supervisor (``lifecycle/loop.py``, on the anchor
+  directory's serving ledger): :meth:`~FleetHealthLedger.record_drift`
+  for each drift verdict, :meth:`~FleetHealthLedger.record_quarantine`
+  for a rolled-back canary's machines and
+  :meth:`~FleetHealthLedger.record_promotion` for a promoted one's, and
+  the rebuild's build records.
 
 Past 512 machines (or with ``GORDO_TPU_HEALTH_SHARDS`` set) the snapshot
 splits into ``fleet_health.d/shard-XXXofYYY.json`` plus a bounded

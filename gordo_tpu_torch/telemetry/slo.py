@@ -305,14 +305,25 @@ def state_path(directory: str) -> str:
     return os.path.join(os.path.normpath(directory), SLO_STATE_FILE)
 
 
+def load_alert_states(directory: str) -> Dict[str, Dict[str, Any]]:
+    """The persisted alert records of ``directory`` (empty when it was
+    never evaluated)."""
+    return dict(_load_state(state_path(directory)).get("alerts") or {})
+
+
+#: a persisted ``firing`` record older than this no longer holds the
+#: lifecycle's promotions: a stopped evaluator resolves nothing
+STALE_ALERT_HOLD_S = 2 * 3600.0
+
+
 def firing_alerts(directory: str, severity: Optional[str] = None,
                   max_age_s: Optional[float] = None) -> List[Dict[str, Any]]:
     """The persisted alerts that are ``firing`` (of ``severity``), without
     evaluating. With ``max_age_s``, a state last evaluated longer ago is
     silence: a stopped evaluator resolves nothing."""
-    state = _load_state(state_path(directory))
-    alerts = state.get("alerts") or {}
+    alerts = load_alert_states(directory)
     if max_age_s is not None and alerts:
+        state = _load_state(state_path(directory))
         updated = parse_span_time(state.get("updated_at"))
         if updated is not None and time.time() - updated > max_age_s:
             if any(a.get("state") == "firing" for a in alerts.values()):

@@ -31,6 +31,10 @@ the :func:`inject` context manager or the environment variable. Sites:
 - ``dump_artifact``: inside ``serializer.dump_atomic``, after the files
   are written into the ``.<name>.tmp-*`` staging directory and before
   the rename (key the artifact directory's name).
+- the lifecycle's (``lifecycle/``): ``drift_eval`` as each machine's
+  drift verdict is taken (key the machine name), ``canary_build`` before
+  the stale members rebuild, ``promote_swap`` before the hot swap and
+  ``rollback`` before a canary's rollback (key the canary revision).
 - ``process_kill_after_n_machines``: after each machine's artifact
   landed and was journaled ``built`` (key the machine name); its default
   exception is ``SystemExit(137)``, which a build never records as one
@@ -73,6 +77,10 @@ SITES = (
     "device_program",
     "dump_artifact",
     "process_kill_after_n_machines",
+    "drift_eval",
+    "canary_build",
+    "promote_swap",
+    "rollback",
     "serve_device_program",
     "serve_member_poison",
     "serve_scatter",

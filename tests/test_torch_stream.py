@@ -323,7 +323,7 @@ class FakeStore:
     def route(self, directory):
         return directory
 
-    def fleet(self):
+    def fleet(self, directory=None):
         return self._fleet
 
 
