@@ -94,16 +94,18 @@ each width held against the plain version on its own params and rows, M
 build's ms a machine, and holds each to a CPU ``ModelBuilder`` build of
 the same machine within ``SEQUENTIAL_BUILD_LIMITS``. It runs ``python -m
 gordo_tpu_torch build`` in a subprocess as a build pod does
-(``MACHINE``, ``OUTPUT_DIR``, ``--print-cv-scores``), serves the artifact
-from the card's app, and runs it twice more with ``--model-register-dir``: the second is a cache hit
-with the first's ``model.pkl`` bytes. Then the kill drill: ``build-fleet``
-of 16 of ``[train]``'s machines in a subprocess with
-``GORDO_TPU_FAULTS="process_kill_after_n_machines:*:after=5:kill"`` must
-exit 137 with exactly 6 complete artifacts (the site fires after its
-machine's artifact landed), ``build-fleet --resume`` must resume those 6
-(their ``info.json`` unchanged) and build the other 10 within
+(``MACHINE``, ``OUTPUT_DIR``, ``--print-cv-scores``,
+``--model-register-dir``), serves the artifact from the card's app, and
+runs the command's function once more in its own process with
+``--model-register-dir``: a cache hit with the first's ``model.pkl``
+bytes. Then the kill drill: ``build-fleet`` of 6 of
+``[train]``'s machines in a subprocess with
+``GORDO_TPU_FAULTS="process_kill_after_n_machines:*:after=2:kill"`` must
+exit 137 with exactly 3 complete artifacts (the site fires after its
+machine's artifact landed), ``build-fleet --resume`` must resume those 3
+(their ``info.json`` unchanged) and build the other 3 within
 ``BUILD_LIMITS`` of ``[train]``'s artifacts, and the card's app must list
-all 16. The kernel JSON's ``launches_by_path`` has a ``build`` key: the
+all 6. The kernel JSON's ``launches_by_path`` has a ``build`` key: the
 sequential builds' launches; two of its rows are the fold forwards.
 
 ``[routes]`` then drives the rest of the JSON surface on the card's app
@@ -308,6 +310,29 @@ prints each step's seconds from the supervisor's span trace, the swap's
 and the requests' p50 before, during and after; ``[times]`` has K1 at the
 rebuild's CV forwards and K2 at the gates' shapes.
 
+``[packing]`` (after ``[lifecycle]``) drives the packing planner and the
+packed fit. A project of 24 machines (16 feedforward_hourglass(20) of
+600-2000 rows, 8 of 40 tags of 580-2000; ``examples/config.yaml``'s
+detector, ``[train]``'s epochs and batch, TimeSeriesSplit(3)) is planned by
+``plan --strategy packed -o plan.json`` with a compile budget of 3 and a
+4.5 MB bucket cap (``PACKING_BUDGET``, ``PACKING_HBM_CAP``): one merge
+forced past the cost model's break-even, one rung split into siblings
+sharing ``m_padded``; it prints that plan beside the naive plan and the
+unbudgeted one of the same machines (planned in the smoke's process). ``build-fleet --plan-from plan.json`` with
+``GORDO_TPU_PACKING=auto`` builds it on the card: every final fit the
+plan's bucket (id, members, rows, ``m_padded``), the ``m_padded`` siblings
+unpacked, the others packed x6 (20 tags) and x3 (40), the CV folds packed
+live under the plan's strategy; each fit's steps a second, and one packed
+step of the 20-tag CV bucket beside an unpacked one (launches, device ms,
+paced ms, idle share). The 40-tag trio, alone in its rung, is built again
+on the CPU from the same plan and packing (its packs are the card's) and
+held to ``BUILD_LIMITS``; a card app serves 4 anomaly requests and a
+fleet request of the 24 machines, equal to the CPU app's (K1 4, K2 2);
+``plan --calibrate-from`` fits the card's factors from ``[train]``'s
+``build_trace.jsonl`` and prints the calibrated plan beside the analytic
+one. K1 at the packed build's CV forwards and K2 at the fleet request's
+calls join ``[kernel]`` and ``[times]``.
+
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
@@ -327,6 +352,7 @@ import tempfile
 import threading
 import time
 import traceback
+import types
 import urllib.error
 import urllib.request
 from datetime import datetime, timedelta, timezone
@@ -1865,18 +1891,21 @@ def lstm_times(card):
     return out
 
 
-def make_step(n_features, members):
+def make_step(n_features, members, g=1):
     """One optimizer step of the build's stacked fit on the card, as a
     closure: ``members`` feedforward_hourglass(``n_features``) members,
-    Adam, 32 seeded rows each."""
+    Adam, 32 seeded rows each; packed in packs of ``g`` when ``g > 1``
+    (``PackedFit``, the shared step counts)."""
     import torch
 
     from gordo_tpu_torch.models.factories import feedforward_hourglass
+    from gordo_tpu_torch.models.packing import PackedFit
     from gordo_tpu_torch.models.training import FitConfig, StackedFit, TorchRandom
     from gordo_tpu_torch.parallel.fleet import stack_member_params
 
     spec = feedforward_hourglass(n_features)
-    fit = StackedFit(spec, FitConfig(epochs=5, batch_size=32))
+    config = FitConfig(epochs=5, batch_size=32)
+    fit = PackedFit(spec, config, g) if g > 1 else StackedFit(spec, config)
     params = stack_member_params([TorchRandom().init_params(spec, s) for s in range(members)], "cuda")
     for leaf in fit.leaves(params):
         leaf.requires_grad_(True)
@@ -3666,12 +3695,12 @@ def definitions_phase(work_dir, card):
 #: machine of [train] and an lstm_hourglass machine of [lstm], with the K1
 #: launches each must make (one a TimeSeriesSplit(3) fold; an LSTM none)
 SEQUENTIAL = (("machine-000", 3), ("compressor-000", 3), ("lstm-hourglass-000", 0))
-#: the kill-and-resume drill: [train]'s first 16 20-tag machines; the kill
+#: the kill-and-resume drill: [train]'s first 6 20-tag machines; the kill
 #: site fires after its machine's artifact landed and was journaled, so
-#: ``after=5`` dies with exactly 6 artifacts on disk
-DRILL_MACHINES = 16
-DRILL_KILL = "process_kill_after_n_machines:*:after=5:kill"
-DRILL_LEFT = 6
+#: ``after=2`` dies with exactly 3 artifacts on disk
+DRILL_MACHINES = 6
+DRILL_KILL = "process_kill_after_n_machines:*:after=2:kill"
+DRILL_LEFT = 3
 #: the ``build`` command's machine: one week of RandomDataProvider readings
 COMMAND_MACHINE = "command-000"
 #: a fold forward of each sequential feedforward build, held to the plain
@@ -3805,13 +3834,15 @@ def run_command(args, env=None, timeout=600):
 
 def build_command(work_dir, card):
     """The ``build`` command in a subprocess, as a build pod runs it
-    (``MACHINE``, ``OUTPUT_DIR``, ``--print-cv-scores``): exit 0, the score
-    lines, an artifact the port's app serves; then twice with
-    ``--model-register-dir``, the second a cache hit with the first's
+    (``MACHINE``, ``OUTPUT_DIR``, ``--print-cv-scores``,
+    ``--model-register-dir``): exit 0, the score lines, an artifact the
+    port's app serves, registered; then the command's function once more
+    in this process with the register: a cache hit with the first's
     ``model.pkl`` bytes."""
     import numpy as np
 
     from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.cli.cli import build as build_machine
     from gordo_tpu_torch.server import build_app
 
     end = TRAIN_START + timedelta(days=7)
@@ -3820,10 +3851,14 @@ def build_command(work_dir, card):
         "tag_list": tag_list(20)}})
     collection = os.path.join(work_dir, "command", REVISION)
     output = os.path.join(collection, COMMAND_MACHINE)
-    code, out, err, seconds = run_command(["build", "--print-cv-scores"], {"MACHINE": machine, "OUTPUT_DIR": output})
+    register = os.path.join(work_dir, "register")
+    code, out, err, seconds = run_command(["build", "--print-cv-scores", "--model-register-dir", register],
+                                          {"MACHINE": machine, "OUTPUT_DIR": output})
     check(code == 0, f"build exited {code}: {err[-2000:]}")
     scores = [line for line in out.splitlines() if "_fold-" in line]
     check(len(scores) == 4 * 21 * 7, f"build printed {len(scores)} score lines, not {4 * 21 * 7}")
+    check(serializer.load_metadata(output)["metadata"]["user_defined"].get("date_of_retrieval") is None,
+          "the first build was not trained")
     app = build_app(collection, device="cuda")
     status, body = wsgi_call(app, "GET", "/gordo/v0/smoke/models")
     check(status == 200 and json.loads(body)["models"] == [COMMAND_MACHINE], f"models: {status} {body[:200]}")
@@ -3832,26 +3867,26 @@ def build_command(work_dir, card):
     check(status == 200, f"anomaly request to the built machine answered {status}")
     confidence = np.array(list(answer["data"]["total-anomaly-confidence"]["total-anomaly-confidence"].values()))
     check(confidence.shape == (ROWS,) and np.isfinite(confidence).all(), "anomaly confidence not finite")
-    phase("sequential", f"python -m gordo_tpu_torch build (MACHINE, OUTPUT_DIR, --print-cv-scores; {COMMAND_MACHINE}: "
-          f"20 tags, one week of RandomDataProvider readings, hourglass, 5 epochs) exited 0 in {seconds:.2f} s "
-          f"(a new process: import, kernel load, fetch, 3 folds, fit, dump), {len(scores)} score lines "
-          f"({scores[0]}); the port's app on the card serves the artifact: anomaly request 200; {card}")
-    register = os.path.join(work_dir, "register")
-    times_, pickles = [], []
-    for attempt in range(2):
-        target = os.path.join(work_dir, "command-register", str(attempt), COMMAND_MACHINE)
-        code, _, err, seconds = run_command(["build", "--model-register-dir", register],
-                                            {"MACHINE": machine, "OUTPUT_DIR": target})
-        check(code == 0, f"build --model-register-dir exited {code}: {err[-2000:]}")
-        times_.append(seconds)
-        with open(os.path.join(target, serializer.MODEL_FILE), "rb") as f:
+    phase("sequential", f"python -m gordo_tpu_torch build (MACHINE, OUTPUT_DIR, --print-cv-scores, "
+          f"--model-register-dir; {COMMAND_MACHINE}: 20 tags, one week of RandomDataProvider readings, hourglass, "
+          f"5 epochs) exited 0 in {seconds:.2f} s (a new process: import, kernel load, fetch, 3 folds, fit, dump, "
+          f"register), {len(scores)} score lines ({scores[0]}); the port's app on the card serves the artifact: "
+          f"anomaly request 200; {card}")
+    target = os.path.join(work_dir, "command-register", COMMAND_MACHINE)
+    t0 = time.perf_counter()
+    code = build_machine(machine, target, device="cuda", model_register_dir=register)
+    hit_s = time.perf_counter() - t0
+    check(code == 0, f"build --model-register-dir exited {code}")
+    retrieved = serializer.load_metadata(target)["metadata"]["user_defined"].get("date_of_retrieval")
+    check(retrieved is not None, "the second build was not a cache hit: no date_of_retrieval")
+    pickles = []
+    for directory in (output, target):
+        with open(os.path.join(directory, serializer.MODEL_FILE), "rb") as f:
             pickles.append(f.read())
-        retrieved = serializer.load_metadata(target)["metadata"]["user_defined"].get("date_of_retrieval")
-        check((retrieved is not None) == (attempt == 1), f"run {attempt + 1}: date_of_retrieval {retrieved!r}")
     check(pickles[0] == pickles[1], "the cache hit's model.pkl differs from the registered build's")
-    phase("sequential", f"build --model-register-dir twice: the first built and registered in {times_[0]:.2f} s, the "
-          f"second loaded the registered build (date_of_retrieval stamped, no training) in {times_[1]:.2f} s, "
-          f"model.pkl bytes equal; {card}")
+    phase("sequential", f"build --model-register-dir again (the command's function, in this process): it loaded the "
+          f"registered build (date_of_retrieval stamped, no training) in {hit_s:.2f} s, model.pkl bytes equal to the "
+          f"first's; {card}")
 
 
 def kill_and_resume(work_dir, train_collection, card):
@@ -4324,6 +4359,344 @@ def lifecycle_phase(work_dir, collection, shard, card):
     return launches, cv_cases, gate_k2
 
 
+# -- [packing]: the packing planner, a packed plan replayed, packed fits --------------------------------
+
+#: the packing project: 16 feedforward_hourglass(20) machines and 8 (40) ones, their rows spread so that
+#: the packed plan differs from the naive one. At GORDO_TPU_PLAN_PAD_RATIO's 1.25 and batch 32 the 20-tag
+#: rows fall on rungs 608 and 736 (eleven machines) and 1792 and 2240 (five); padding the eleven up to 2240
+#: costs more run time (0.368 s, the analytic model) than the compile it saves (0.351 s), so only the
+#: compile budget forces that merge. The 40-tag trio of 580-600 rows keeps rung 608 (merging it would add
+#: 0.433 s), the other five take 2240
+PACKING_ROWS = {20: (600, 620, 640, 660, 680, 700, 720, 650, 610, 630, 690, 1500, 1700, 1800, 1900, 2000),
+                WIDE_TAGS: (600, 590, 580, 1800, 1850, 1900, 2000, 2000)}
+PACKING_PROJECT = "smoke-packing"
+#: sensor_data seeds of the packing machines start here (by width)
+PACKING_SEED = {20: 700, WIDE_TAGS: 800}
+#: ``plan``'s knobs: three programs at most (one forced merge: the eleven low 20-tag machines into 2240),
+#: and a bucket cap (4.5 MB) under which the sixteen 20-tag machines at 2240 (0.431 MB each, the cost
+#: model's bytes) split into sibling bins of 10 and 6 sharing a member rung, m_padded 16, while the five
+#: 40-tag ones at 2240 (4.41 MB in all) stay one bucket
+PACKING_BUDGET = "3"
+PACKING_HBM_CAP = "4500000"
+#: built again on the CPU from the same plan and packing: the 40-tag trio, alone in its rung both in
+#: the final fit (the plan's bucket, one pack of 3) and in the CV (its 9 fold members, three packs of 3),
+#: so the CPU build's packs are the card's
+PACKING_CPU_CHECK = ("pack40-000", "pack40-001", "pack40-002")
+#: K1 at the packed build's CV scoring: 3 folds of each width's machines x the longest fold's 500 test rows
+PACKING_CV = {20: "packed build CV fold scoring: hourglass20 M=48 B=500",
+              WIDE_TAGS: "packed build CV fold scoring: hourglass40 M=24 B=500"}
+#: the packed machines' fleet request: four of each width, from every final-fit bucket
+PACKING_FLEET_MACHINES = {20: (0, 5, 10, 15), WIDE_TAGS: (0, 2, 4, 7)}
+#: K2 at that request: each width's bucket of the served revision, its four members gathered
+PACKING_FLEET = {20: "K2 packed fleet request: hourglass20 N=16 M=4 B=1008 y=X +ingest",
+                 WIDE_TAGS: "K2 packed fleet request: hourglass40 N=8 M=4 B=1008 y=X +ingest"}
+
+
+def packing_machines():
+    """``(name, tags, training rows, the next ROWS rows)`` of the packing project."""
+    out = []
+    for width, rows in PACKING_ROWS.items():
+        for i, n in enumerate(rows):
+            values = sensor_data(PACKING_SEED[width] + i, n + ROWS, width)
+            out.append((f"pack{width}-{i:03d}", tag_list(width), values[:n], values[n:]))
+    return out
+
+
+def packing_frame(tags, values):
+    """A packing machine's next ROWS rows as a request frame, with
+    request_frame's excursion."""
+    start = datetime(2020, 3, 1, tzinfo=timezone.utc)
+    keys = [(start + timedelta(minutes=10 * r)).isoformat() for r in range(ROWS)]
+    values = values.copy()
+    values[ROWS // 2:ROWS // 2 + 6, 3] += 25.0
+    return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tags)}
+
+
+def cli_stdout(*args, env=None):
+    """``python -m gordo_tpu_torch ARGS`` in this process (the card's
+    kernels already loaded), ``env`` set for it: ``(exit code, stdout)``."""
+    import io
+
+    from gordo_tpu_torch.cli.cli import main
+
+    saved = {name: os.environ.get(name) for name in (env or {})}
+    os.environ.update(env or {})
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            code = main(list(args))
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    return code, out.getvalue()
+
+
+def plan_summary(doc):
+    """A plan document's buckets, rungs, compiles, predicted seconds and
+    padding waste, as one phrase."""
+    totals = doc["totals"]
+    rungs = sorted({(b["spec"]["n_features"], b["n_padded"]) for b in doc["buckets"]})
+    return (f"{totals['buckets']} buckets (members {[len(b['members']) for b in doc['buckets']]}, m_padded "
+            f"{[b['m_padded'] for b in doc['buckets']]}), rungs (tags, rows) {rungs}, {totals['compiles']} "
+            f"compiles, predicted {totals['predicted_compile_s']} s compile + {totals['predicted_run_s']} s run "
+            f"= {totals['predicted_wall_s']} s, padding waste {totals['padding_waste']:.1%}")
+
+
+def paced_ms(step, iters=20, repeats=5):
+    """ms a step between CUDA events around ``iters`` steps run back to
+    back (the host's enqueue paces them, as in a build), the median of
+    ``repeats`` such runs."""
+    import statistics
+
+    import torch
+
+    for _ in range(3):
+        step()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
+
+
+@contextlib.contextmanager
+def captured_fleet_scores():
+    """While open, each K2 call of the store (``fleet_scores``) as
+    ``(case, launches it made)``, its tensors on the card."""
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores
+    from gordo_tpu_torch.server import fleet_store
+
+    calls, scores = [], fleet_store.fleet_anomaly_scores
+
+    def captured(spec, stacked, X, y, indices=None, ingest=None, *args, **kwargs):
+        before = fleet_anomaly_scores.launches
+        out = scores(spec, stacked, X, y, indices, ingest, *args, **kwargs)
+        calls.append((dict(spec=spec, bucket=stacked, X=X, y=y, indices=indices, ingest=ingest),
+                      fleet_anomaly_scores.launches - before))
+        return out
+
+    fleet_store.fleet_anomaly_scores = captured
+    try:
+        yield calls
+    finally:
+        fleet_store.fleet_anomaly_scores = scores
+
+
+def packing_phase(work_dir, train_collection, card):
+    """``[packing]``: the packing project planned by ``plan --strategy
+    packed`` under a compile budget and an HBM cap (beside the naive plan
+    and the unbudgeted one of the same rows, planned in this process), built on the card by ``build-fleet
+    --plan-from`` with ``GORDO_TPU_PACKING=auto`` (each fit's members,
+    packing and steps a second; a packed step against an unpacked one of
+    the same bucket), held to a CPU build of PACKING_CPU_CHECK from the
+    same plan and packing, its machines served by a card app against the
+    CPU app, and ``plan --calibrate-from`` over ``[train]``'s trace.
+    Returns the phase's K1 and K2 launches, the CV forwards as K1 cases by
+    width with their launches, and the fleet request's K2 calls as cases
+    by width with their launches."""
+    import numpy as np
+    import torch
+
+    from gordo_tpu_torch import planner, serializer
+    from gordo_tpu_torch.cli.cli import build_fleet, load_fleet_machines
+    from gordo_tpu_torch.models.spec import FeedForwardSpec
+    from gordo_tpu_torch.models.training import FitConfig
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.parallel.fleet_build import FleetBuilder
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    root = os.path.join(work_dir, "packing")
+    os.makedirs(root)
+    machines = packing_machines()
+    config_path, _ = write_project(root, [(name, tags, values) for name, tags, values, _ in machines],
+                                   project=PACKING_PROJECT)
+    shard = os.path.join(root, "shard.json")
+    with open(shard, "w") as f:
+        f.write(normalize(config_path, PACKING_PROJECT))
+    knobs = {"GORDO_TPU_PLAN_COMPILE_BUDGET": PACKING_BUDGET, "GORDO_TPU_PLAN_HBM_CAP_BYTES": PACKING_HBM_CAP}
+    plan_path = os.path.join(root, "plan.json")
+    t0 = time.perf_counter()
+    code, out = cli_stdout("plan", shard, "--device", "cuda", "--strategy", "packed", "-o", plan_path, "--as-json",
+                           env=knobs)
+    plan_s = time.perf_counter() - t0
+    check(code == 0, f"plan --strategy packed exited {code}")
+    packed = json.loads(out)
+    # the same members (their rows, X and y apart as staged) planned in this process: naive, and packed
+    # without the budget (the rungs the voluntary merges leave)
+    config = FitConfig(**{k: v for k, v in packed["buckets"][0]["fit_config"].items() if k != "early_stopping"})
+    specs = {b["spec"]["n_features"]: FeedForwardSpec.from_dict(b["spec"]) for b in packed["buckets"]}
+    proxies = [types.SimpleNamespace(name=f"pack{width}-{i:03d}", spec=specs[width], n=n, X=0, y=1)
+               for width, rows in PACKING_ROWS.items() for i, n in enumerate(rows)]
+    naive = planner.build_plan_doc([(config, planner.plan_train_buckets(proxies, config, strategy="naive"))],
+                                   "naive", packed["config_fingerprint"]).doc
+    free = planner.plan_train_buckets(proxies, config, strategy="packed", budget=0, hbm_cap=int(PACKING_HBM_CAP))
+    rung_groups = {"budget": len({(b["spec"]["n_features"], b["n_padded"]) for b in packed["buckets"]}),
+                   "free": len({(b.spec.n_features, b.n_padded) for b in free})}
+    split = [b for b in packed["buckets"] if b["m_padded"]]
+    check(rung_groups["budget"] < rung_groups["free"], f"the compile budget forced no merge: {rung_groups}")
+    check(split and len({b["m_padded"] for b in split}) == 1 and len(split) > 1,
+          f"the HBM cap split no rung into siblings: {[b['m_padded'] for b in packed['buckets']]}")
+    check(packed["strategy"] == "packed" and packed["totals"]["members"] == len(machines), "the packed plan")
+    phase("packing", f"plan --strategy packed of {len(machines)} machines (16 hourglass20 of "
+          f"{min(PACKING_ROWS[20])}-{max(PACKING_ROWS[20])} rows, 8 hourglass40 of {min(PACKING_ROWS[WIDE_TAGS])}-"
+          f"{max(PACKING_ROWS[WIDE_TAGS])}; GORDO_TPU_PLAN_COMPILE_BUDGET={PACKING_BUDGET}, "
+          f"GORDO_TPU_PLAN_HBM_CAP_BYTES={PACKING_HBM_CAP}) in {plan_s:.2f} s (fetch and stage, no training): "
+          f"{plan_summary(packed)}")
+    phase("packing", f"the naive plan of the same machines: {plan_summary(naive)}")
+    phase("packing", f"rung groups {rung_groups['free']} without the budget (the same rows planned in this process), "
+          f"{rung_groups['budget']} with it: a "
+          f"forced merge (the eleven low 20-tag machines padded to 2240, past the model's break-even); the cap "
+          f"split a rung into {len(split)} siblings of {[len(b['members']) for b in split]} members sharing "
+          f"m_padded {split[0]['m_padded']} (the analytic model's constants, not the card's times)")
+
+    out_dir = os.path.join(root, REVISION)
+    saved_packing = os.environ.get("GORDO_TPU_PACKING")
+    os.environ["GORDO_TPU_PACKING"] = "auto"
+    try:
+        with captured_build() as (forwards, fetched):
+            fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+            t0 = time.perf_counter()
+            code, builder = build_fleet(shard, out_dir, device="cuda", plan_from=plan_path)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            build_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+        check(code == 0 and not builder.build_errors, f"build-fleet --plan-from exited {code}: "
+              f"{builder and builder.build_errors}")
+        check({name: len(X) for name, X in fetched.items()} == {name: len(v) for name, _, v, _ in machines},
+              "the build fetched other rows than the machines' CSVs hold")
+        check(len(forwards) == 2 and build_launches["K1"] == 2 and all(n == 1 for *_, n in forwards),
+              f"CV scoring launched K1 {[n for *_, n in forwards]} times for {len(forwards)} spec groups")
+        cv_cases = {X.shape[-1]: (as_case(spec, stacked, X), n) for spec, stacked, X, n in forwards}
+        fits = builder.trainer.fits
+        plan = planner.FleetPlan.load(plan_path)
+        planned = {b["id"]: b for b in plan.buckets}
+        final = [f for f in fits if "::fold" not in f["names"][0]]
+        check(sorted(f["bucket"] for f in final) == sorted(planned), "the final fit ran other buckets than the plan's")
+        for fit in final:
+            entry = planned[fit["bucket"]]
+            check(fit["names"] == entry["members"] and fit["rows"] == entry["n_padded"]
+                  and fit["m_padded"] == entry["m_padded"],
+                  f"bucket {fit['bucket']} replayed {fit['names']} at {fit['rows']} rows, not the plan's")
+            check((fit["packed"] == 1) == bool(entry["m_padded"]),
+                  f"bucket {fit['bucket']} (m_padded {entry['m_padded']}) trained packed x{fit['packed']}")
+        check({f["packed"] for f in fits} >= {6, 3}, f"no fit packed x6 and x3: {[f['packed'] for f in fits]}")
+        check(builder.fleet_plan.plan_hash == plan.plan_hash, "the build wrote another plan than it replayed")
+        for fit in fits:
+            kind = "CV" if "::fold" in fit["names"][0] else "final"
+            phase("packing", f"{kind} fit {fit['bucket']}: {fit['members']} members, {fit['rows']} rows, "
+                  + (f"packed x{fit['packed']}" if fit["packed"] > 1 else "unpacked")
+                  + (f" (m_padded {fit['m_padded']})" if fit["m_padded"] else "")
+                  + f", {fit['steps']} steps in {fit['seconds']:.3f} s: {fit['steps'] / fit['seconds']:.1f} steps "
+                  f"a second, {fit['event_ms'] / fit['steps']:.3f} ms a step between CUDA events")
+        steps = sum(f["steps"] for f in fits)
+        fit_s = sum(f["seconds"] for f in fits)
+        phase("packing", f"build-fleet --plan-from plan.json with GORDO_TPU_PACKING=auto on the card in {wall:.2f} s: "
+              f"{build_phases(builder)}; {len(fits)} fits, {steps} steps in {fit_s:.3f} s ({steps / fit_s:.1f} steps "
+              f"a second); every final fit the plan's bucket (id, members, rows, m_padded), the m_padded siblings "
+              f"unpacked; K1 launches {build_launches['K1']} (CV scoring, one a spec group), K2 "
+              f"{build_launches['K2']}; {card}")
+
+        cv_bucket = max((f for f in fits if "::fold" in f["names"][0] and f["packed"] == 6),
+                        key=lambda f: f["members"])
+        members = cv_bucket["members"]
+        steps_ = {"packed x6": make_step(20, members, 6), "unpacked": make_step(20, members)}
+        # in turns (packed, unpacked, unpacked, packed): the host's pace drifts within a run
+        paced = {label: [] for label in steps_}
+        for label in ("packed x6", "unpacked", "unpacked", "packed x6"):
+            paced[label].append(paced_ms(steps_[label]))
+        for label, step in steps_.items():
+            launches_, kernel_ms = profile_step(step)
+            device_ms = step_device_ms(step)
+            paced_ = min(paced[label])
+            phase("packing", f"one {label} step of the 20-tag CV bucket ({members} members x 32 rows): "
+                  f"{launches_:.0f} kernel launches, {kernel_ms:.4f} ms of kernels (profiler), {device_ms!r} ms of "
+                  f"device time with the host's enqueue hidden, {paced[label][0]!r} and {paced[label][1]!r} ms a "
+                  f"step back to back (the two turns' medians): the device idles ~{1 - device_ms / paced_:.0%} of "
+                  f"a step; {card}")
+
+        t0 = time.perf_counter()
+        cpu_machines = [m for m in load_fleet_machines(shard) if m.name in PACKING_CPU_CHECK]
+        cpu_builder = FleetBuilder(cpu_machines, device="cpu", fleet_plan=plan)
+        cpu = {machine.name: build_summary(model, machine) for model, machine in cpu_builder.build()}
+        cpu_s = time.perf_counter() - t0
+    finally:
+        if saved_packing is None:
+            os.environ.pop("GORDO_TPU_PACKING", None)
+        else:
+            os.environ["GORDO_TPU_PACKING"] = saved_packing
+    check(not cpu_builder.build_errors and sorted(cpu) == sorted(PACKING_CPU_CHECK),
+          f"the CPU build: {cpu_builder.build_errors}")
+    check([f["packed"] for f in cpu_builder.trainer.fits] == [3, 3], "the CPU build's fits were not packed x3")
+    card_summaries = {n: build_summary(serializer.load(os.path.join(out_dir, n), "cpu"),
+                                       serializer.load_metadata(os.path.join(out_dir, n))) for n in PACKING_CPU_CHECK}
+    worst, faults = compare_builds(card_summaries, cpu)
+    check(not faults, "packed card build disagrees with the CPU's: " + "; ".join(faults[:5]))
+    phase("packing", f"card build against a CPU build of {', '.join(PACKING_CPU_CHECK)} from the same plan and "
+          f"packing ({cpu_s:.2f} s on the CPU; their CV and final fits packed x3 there as on the card): params max "
+          f"abs {worst[0]:.3e} (limit {BUILD_PARAM_ATOL}), thresholds max rel {worst[1]:.3e} (limit "
+          f"{BUILD_THRESHOLD_RTOL}), CV scores max |d| / (1 + |cpu|) {worst[2]:.3e} (limit {BUILD_SCORE_TOL})")
+
+    t0 = time.perf_counter()
+    app, cpu_app = build_app(out_dir, device="cuda"), build_app(out_dir, device="cpu")
+    for served in (app, cpu_app):  # every machine resident: the fleet request gathers from whole buckets
+        check(len(served.store.fleet().warm_buckets()) == len(machines), "not every packed machine loaded")
+    by_name = {name: (tags, future) for name, tags, _, future in machines}
+    asked = ("pack20-003", "pack20-014", "pack40-001", "pack40-006")
+    requests = [(f"/{n}/anomaly/prediction", {"X": packing_frame(*by_name[n]), "y": packing_frame(*by_name[n])})
+                for n in asked]
+    fleet = [f"pack{width}-{i:03d}" for width, picked in PACKING_FLEET_MACHINES.items() for i in picked]
+    requests.append(("/prediction/fleet", {"X": {n: packing_frame(*by_name[n]) for n in fleet}}))
+    with captured_fleet_scores() as k2_calls:
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        served_t0 = time.perf_counter()
+        answers = [wsgi_post(app, f"/gordo/v0/{PACKING_PROJECT}" + path, payload) for path, payload in requests]
+        serve_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+        serve_s = time.perf_counter() - served_t0
+    check(serve_launches == {"K1": len(asked), "K2": 2}, f"the requests launched {serve_launches}, not K1 "
+          f"{len(asked)} (one an anomaly request) and K2 2 (one a width)")
+    max_diff = 0.0
+    for (path, payload), (status, body) in zip(requests, answers):
+        cpu_status, cpu_body = wsgi_post(cpu_app, f"/gordo/v0/{PACKING_PROJECT}" + path, payload)
+        check(status == cpu_status == 200, f"{path}: the card app answered {status}, the CPU app {cpu_status}")
+        max_diff = max(max_diff, same_json(cpu_body["data"], body["data"]))
+    fleet_cases = {case["X"].shape[-1]: (case, n) for case, n in k2_calls}
+    phase("packing", f"{len(asked)} anomaly requests ({', '.join(asked)}) and a fleet request of {len(fleet)} "
+          f"({', '.join(fleet)}) to a card app over the packed build: {serve_s:.2f} s on the card's app "
+          f"({time.perf_counter() - t0:.2f} s with both apps' loads and the CPU app's answers), 200, equal to the "
+          f"CPU app's (max abs "
+          f"{max_diff:.3e}, rtol {RTOL}, atol {ATOL}); K1 launches {serve_launches['K1']}, K2 "
+          f"{serve_launches['K2']} (the fleet request's buckets {sorted(fleet_cases)}-tag)")
+
+    trace = os.path.join(train_collection, "build_trace.jsonl")
+    table_path = os.path.join(root, "cost_table.json")
+    code, out = cli_stdout("plan", shard, "--device", "cuda", "--strategy", "packed", "--as-json", "--calibrate-from",
+                           trace, "--cost-table-out", table_path, env=knobs)
+    check(code == 0, f"plan --calibrate-from exited {code}")
+    calibrated = json.loads(out)
+    table = planner.CostTable.load(table_path)
+    check(table.calibrated and calibrated["cost_table"]["calibrated"], "the calibration fitted nothing")
+    phase("packing", f"plan --calibrate-from [train]'s build_trace.jsonl: run_factors {table.run_factors}, "
+          f"compile_factors {table.compile_factors}, samples {table.samples} (on the card a 'compile' span is a "
+          f"stacked shape's first launch: no XLA compile, the factor scales the analytic compile time to that "
+          f"launch's warm-up); {card}")
+    same = [b["id"] for b in calibrated["buckets"]] == [b["id"] for b in packed["buckets"]]
+    phase("packing", f"the calibrated plan of the packing shard: {plan_summary(calibrated)}; against the analytic "
+          f"one: {'the same buckets' if same else 'other buckets'}, predicted wall "
+          f"{calibrated['totals']['predicted_wall_s']} s against {packed['totals']['predicted_wall_s']} s")
+    launches = {k: build_launches[k] + serve_launches[k] for k in ("K1", "K2")}
+    return launches, cv_cases, fleet_cases
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """Device ms per call: CUDA events around ``iters`` calls queued behind
     a device sleep that outlasts their enqueueing twice over, so the host's
@@ -4676,6 +5049,28 @@ def main():
             errors[name] = compare(case)
             phase("kernel", f"{name}, the rebuild's own fold params and test rows: max abs {errors[name][0]:.3e}, "
                   f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
+        with clocked("packing"):
+            packing_launches, packing_cv, packing_fleet = packing_phase(work_dir, collection, card)
+        for width, name in PACKING_CV.items():
+            case = packing_cv[width][0]
+            shape = (3 * len(PACKING_ROWS[width]), TRAIN_ROWS // 4, width)
+            check(tuple(case["X"].shape) == shape, f"the packed build's {width}-tag CV forward had shape "
+                  f"{tuple(case['X'].shape)}, not {shape}")
+            errors[name] = compare(case)
+            phase("kernel", f"{name}, the packed build's own fold params and test rows: max abs "
+                  f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
+        for width, name in PACKING_FLEET.items():
+            case = packing_fleet[width][0]
+            picked = list(PACKING_FLEET_MACHINES[width])
+            members = case["bucket"]["out"]["W"].shape[0]
+            check(tuple(case["X"].shape) == (len(picked), ROWS, width) and members == len(PACKING_ROWS[width])
+                  and list(case["indices"]) == picked and case["ingest"] is not None and case["y"] is case["X"],
+                  f"the packed fleet request's {width}-tag K2 call: X {tuple(case['X'].shape)}, {members} members, "
+                  f"indices {case['indices']}, not {name}")
+            errors[name] = compare_scores(case)
+            phase("kernel", f"{name}, the served packed build's params and the request's rows: max abs "
+                  f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} over recon and mse (rtol {RTOL}, "
+                  f"atol {ATOL})")
     times_t0 = time.perf_counter()
 
     for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
@@ -4799,6 +5194,21 @@ def main():
               f"cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
               f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
 
+    for width, name in PACKING_CV.items():
+        timed[name] = times(packing_cv[width][0])
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+              f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} "
+              f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
+              f"{floor!r} ms; {card}")
+    for width, name in PACKING_FLEET.items():
+        scored_timed[name] = scores_times(packing_fleet[width][0])
+        kernel, plain, library, library_tf32, k1, bound_ms, bound_by, cuda_core_ms = scored_timed[name]
+        phase("times", f"{name}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms (with "
+              f"TF32 {library_tf32!r} ms), K1 alone {k1!r} ms, bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor "
+              f"cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+              f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -4852,13 +5262,15 @@ def main():
                   "engine": engine_launches["narrow"] + engine_launches["wide"],
                   "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
                   "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"],
-                  "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"]}
+                  "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"],
+                  "packing": packing_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
                   "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
-                  "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"]}
+                  "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"],
+                  "packing": packing_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -4917,6 +5329,17 @@ def main():
         entry("fleet_anomaly_scores (K2), wide kernel, lifecycle gate", "gordo_tpu/ops/pallas_dense.py:126",
               lifecycle_gate_k2[WIDE_TAGS], k2_by_path, LIFECYCLE_GATE[WIDE_TAGS],
               scored_timed[LIFECYCLE_GATE[WIDE_TAGS]]),
+        # launches: [packing]'s build's CV forward of that width and its fleet request's K2 call of that
+        # width, read on the counters
+        entry("fleet_dense (K1), narrow kernel, packed build CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              packing_cv[20][1], k1_by_path, PACKING_CV[20], timed[PACKING_CV[20]]),
+        entry("fleet_dense (K1), wide kernel, packed build CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              packing_cv[WIDE_TAGS][1], k1_by_path, PACKING_CV[WIDE_TAGS], timed[PACKING_CV[WIDE_TAGS]]),
+        entry("fleet_anomaly_scores (K2), narrow kernel, packed fleet request", "gordo_tpu/ops/pallas_dense.py:126",
+              packing_fleet[20][1], k2_by_path, PACKING_FLEET[20], scored_timed[PACKING_FLEET[20]]),
+        entry("fleet_anomaly_scores (K2), wide kernel, packed fleet request", "gordo_tpu/ops/pallas_dense.py:126",
+              packing_fleet[WIDE_TAGS][1], k2_by_path, PACKING_FLEET[WIDE_TAGS],
+              scored_timed[PACKING_FLEET[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

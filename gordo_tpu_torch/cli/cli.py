@@ -26,9 +26,22 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   dumped, with the first failure's; ``--exceptions-reporter-file`` writes
   the JSON report. ``--resume`` (``$FLEET_RESUME``) finishes a build that
   was cut short, from its journal; ``--model-register-dir`` shares the
-  model-register cache with other builds. ``--plan-strategy``,
-  ``--plan-from`` and ``--cost-table`` are refused: the port has no
-  packing planner yet (``ROADMAP.md`` queue 1, item 7).
+  model-register cache with other builds. ``--plan-strategy
+  {naive,packed}`` picks the bucket strategy (default
+  ``$GORDO_TPU_PLAN_STRATEGY``, else ``naive``), ``--plan-from`` replays a
+  plan of the ``plan`` command, ``--cost-table`` prices buckets with a
+  calibrated table; an unusable plan or table fails with the JAX
+  command's text (``_load_planner_inputs``, ``cli.py:438-456``), exit 1.
+- ``plan MACHINES_CONFIG [--strategy] [-o FILE] [--cost-table F]
+  [--calibrate-from TRACE] [--cost-table-out F] [--as-json]``: the JAX
+  package's ``plan`` (``gordo_tpu/cli/cli.py:459-555``). It fetches and
+  stages the shard's data (``FleetBuilder.plan_only``, on ``--device``),
+  trains nothing, and prints the ``FleetPlan`` a ``build-fleet`` would
+  run, as the text table (``planner/report.py``) or the document;
+  ``-o`` writes it for ``build-fleet --plan-from``. ``--calibrate-from``
+  first fits a cost table from a build's ``build_trace.jsonl`` and saves
+  it as ``cost_table.json`` beside the trace (or ``--cost-table-out``).
+  A machine that cannot be planned exits 1 with the JAX message.
 - ``build-status OUTPUT_DIR [--as-json] [--watch N]``: the JAX package's
   ``build-status`` (``gordo_tpu/cli/cli.py:751-800``). It renders the
   ``build_status.json`` a fleet build heartbeats into ``OUTPUT_DIR``
@@ -120,9 +133,6 @@ _reporter = ExceptionsReporter(EXIT_CODES)
 
 #: the JAX commands' options that the port refuses, and why
 _REFUSED = {
-    "plan_strategy": "--plan-strategy needs the packing planner (ROADMAP.md queue 1, item 7)",
-    "plan_from": "--plan-from needs the packing planner (ROADMAP.md queue 1, item 7)",
-    "cost_table": "--cost-table needs the packing planner's cost model (ROADMAP.md queue 1, item 7)",
     "model_parameter": "--model-parameter renders the model config with Jinja (ROADMAP.md queue 1, item 13)",
 }
 
@@ -208,6 +218,27 @@ def load_fleet_machines(machines_config: str) -> List[Machine]:
     return [Machine.from_dict(m) for m in machine_dicts]
 
 
+class PlannerInputError(Exception):
+    """A ``--plan-from`` plan or ``--cost-table`` table that cannot be used."""
+
+
+def load_planner_inputs(plan_from: Optional[str], cost_table_path: Optional[str]):
+    """``(FleetPlan, CostTable)`` from their options' paths (None where
+    absent); an unusable document raises :class:`PlannerInputError` with
+    the JAX command's text."""
+    from ..planner import CostTable, FleetPlan
+
+    try:
+        fleet_plan = FleetPlan.load(plan_from) if plan_from else None
+    except ValueError as exc:
+        raise PlannerInputError(f"--plan-from: {exc}") from exc
+    try:
+        cost_table = CostTable.load(cost_table_path) if cost_table_path else None
+    except ValueError as exc:
+        raise PlannerInputError(f"--cost-table: {exc}") from exc
+    return fleet_plan, cost_table
+
+
 def build_fleet(
     machines_config: str,
     output_dir: str,
@@ -216,16 +247,21 @@ def build_fleet(
     exceptions_report_level: str = ReportLevel.MESSAGE.name,
     resume: bool = False,
     model_register_dir: Optional[str] = None,
+    plan_strategy: Optional[str] = None,
+    plan_from: Optional[str] = None,
+    cost_table_path: Optional[str] = None,
 ) -> Tuple[int, Optional[object]]:
     """The ``build-fleet`` command: its exit code and the ``FleetBuilder``
-    (None when the shard did not load)."""
+    (None when the shard or the planner's inputs did not load)."""
     from ..parallel.fleet_build import FleetBuilder
 
     builder = None
     try:
         machines = load_fleet_machines(machines_config)
+        fleet_plan, cost_table = load_planner_inputs(plan_from, cost_table_path)
         logger.info("Fleet-building %d machines; output at %s", len(machines), output_dir)
-        builder = FleetBuilder(machines, device=device)
+        builder = FleetBuilder(machines, device=device, plan_strategy=plan_strategy, fleet_plan=fleet_plan,
+                               cost_table=cost_table)
         results = builder.build(output_dir, model_register_dir=model_register_dir, resume=resume)
         logger.info("Fleet build complete: %d built, %d resumed, %d failed", len(results), len(builder.resumed),
                     len(builder.build_errors))
@@ -235,6 +271,49 @@ def build_fleet(
         return 0, builder
     except Exception:
         return _report(exceptions_reporter_file, exceptions_report_level), builder
+
+
+def plan_fleet(
+    machines_config: str,
+    device: Optional[str] = None,
+    strategy: Optional[str] = None,
+    output_path: Optional[str] = None,
+    cost_table_path: Optional[str] = None,
+    calibrate_from: Optional[str] = None,
+    cost_table_out: Optional[str] = None,
+    as_json: bool = False,
+) -> int:
+    """The ``plan`` command: print the ``FleetPlan`` a ``build-fleet`` of
+    the shard would run (its document with ``as_json``), written to
+    ``output_path`` when given; the exit code. Data is fetched and staged,
+    nothing trains."""
+    from ..parallel.fleet_build import FleetBuilder
+    from ..planner import COST_TABLE_FILE, calibrate, render_plan
+
+    try:
+        _, cost_table = load_planner_inputs(None, cost_table_path)
+    except PlannerInputError as exc:
+        return _fail(str(exc))
+    if calibrate_from:
+        cost_table = calibrate(calibrate_from, cost_table)
+        table_path = cost_table_out or os.path.join(os.path.dirname(os.path.abspath(calibrate_from)), COST_TABLE_FILE)
+        cost_table.save(table_path)
+        logger.info("Calibrated cost table written to %s", table_path)
+    builder = FleetBuilder(load_fleet_machines(machines_config), device=device, plan_strategy=strategy,
+                           cost_table=cost_table)
+    plan = builder.plan_only()
+    if builder.build_errors:
+        name, exc = next(iter(builder.build_errors.items()))
+        return _fail(f"{len(builder.build_errors)} machine(s) could not be planned (first: {name}: {exc!r})")
+    if output_path:
+        plan.save(output_path)
+        logger.info("FleetPlan written to %s", output_path)
+    if as_json:
+        sys.stdout.write(plan.to_json())
+    else:
+        print(render_plan(plan))
+    sys.stdout.flush()
+    return 0
 
 
 def build_status(output_dir: str, as_json: bool = False, watch: Optional[float] = None) -> int:
@@ -596,9 +675,27 @@ def _parser() -> argparse.ArgumentParser:
     reporting(build)
     build.add_argument("--resume", action="store_true", default=env_bool("FLEET_RESUME", False),
                        help="skip the machines the output directory's journal has built (default $FLEET_RESUME)")
-    build.add_argument("--plan-strategy", default=None)
-    build.add_argument("--plan-from", default=None)
-    build.add_argument("--cost-table", default=None)
+    build.add_argument("--plan-strategy", choices=("naive", "packed"), default=None,
+                       help="bucket strategy: naive (default, also $GORDO_TPU_PLAN_STRATEGY) or packed (the cost "
+                            "model's bin packer)")
+    build.add_argument("--plan-from", default=None,
+                       help="replay a FleetPlan of the plan command: its members train in their planned buckets")
+    build.add_argument("--cost-table", default=None, help="a calibrated cost_table.json for the cost model")
+
+    plan_ = commands.add_parser("plan", help="the FleetPlan a build-fleet of a shard would run")
+    plan_.add_argument("machines_config", nargs="?", default=os.environ.get("MACHINES_CONFIG"),
+                       help="path to, or text of, the machines document (default $MACHINES_CONFIG)")
+    plan_.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    plan_.add_argument("--strategy", choices=("naive", "packed"), default=None,
+                       help="bucket strategy (default $GORDO_TPU_PLAN_STRATEGY, else naive)")
+    plan_.add_argument("--output", "-o", dest="output_path", default=None,
+                       help="write the FleetPlan JSON here (for build-fleet --plan-from)")
+    plan_.add_argument("--cost-table", default=None, help="a calibrated cost_table.json (default: the analytic one)")
+    plan_.add_argument("--calibrate-from", default=None,
+                       help="fit a cost table from this build_trace.jsonl first and plan with it")
+    plan_.add_argument("--cost-table-out", default=None,
+                       help="where --calibrate-from saves the table (default: cost_table.json beside the trace)")
+    plan_.add_argument("--as-json", action="store_true", help="print the plan's document instead of the table")
 
     status = commands.add_parser("build-status", help="render a fleet build's build_status.json")
     status.add_argument("output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR"),
@@ -738,6 +835,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not args.output_dir:
             parser.error("OUTPUT_DIR is required (argument or $OUTPUT_DIR)")
         return build_status(args.output_dir, args.as_json, args.watch)
+    if args.command == "plan":
+        if not args.machines_config:
+            parser.error("MACHINES_CONFIG is required (argument or $MACHINES_CONFIG)")
+        for option, path in (("--cost-table", args.cost_table), ("--calibrate-from", args.calibrate_from)):
+            if path is not None and not os.path.isfile(path):
+                parser.error(f"{option}: file {path!r} does not exist")
+        return plan_fleet(args.machines_config, args.device, args.strategy, args.output_path, args.cost_table,
+                          args.calibrate_from, args.cost_table_out, args.as_json)
     for option, reason in _REFUSED.items():
         if getattr(args, option, None):
             parser.error(f"{reason}, which gordo_tpu_torch does not have yet")
@@ -749,8 +854,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                      args.exceptions_report_level)
     if not args.machines_config:
         parser.error("MACHINES_CONFIG is required (argument or $MACHINES_CONFIG)")
+    for option, path in (("--plan-from", args.plan_from), ("--cost-table", args.cost_table)):
+        if path is not None and not os.path.isfile(path):
+            parser.error(f"{option}: file {path!r} does not exist")
     code, _ = build_fleet(args.machines_config, args.output_dir, args.device, args.exceptions_reporter_file,
-                          args.exceptions_report_level, args.resume, args.model_register_dir)
+                          args.exceptions_report_level, args.resume, args.model_register_dir, args.plan_strategy,
+                          args.plan_from, args.cost_table)
     return code
 
 

@@ -10,7 +10,10 @@ by hand. :meth:`StackedOptimizer.step` takes a per-member ``mask[M]``:
 where it is False the member's params, moments and step count all stay
 as they were (an all-padding batch, or a member early stopping has
 frozen), as the JAX program's ``tree_where`` leaves them
-(``gordo_tpu/models/training.py:295-303``).
+(``gordo_tpu/models/training.py:295-303``). The packed fit's optional
+``count_mask`` lets a pack of members share one step count, as optax's
+scalar count is shared by the JAX package's block-diagonal pack
+(``gordo_tpu/models/packing.py:270-292``).
 
 Each rule follows the installed optax's arithmetic in the same order,
 Keras' defaults where the spec names none:
@@ -26,7 +29,7 @@ Keras' defaults where the spec names none:
 """
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -83,9 +86,13 @@ class StackedOptimizer:
         grads: Sequence[torch.Tensor],
         state: OptimizerState,
         mask: torch.Tensor,
+        count_mask: Optional[torch.Tensor] = None,
     ) -> None:
         """Update ``params`` and ``state`` in place for the members where
-        ``mask[M]`` is True; the others keep params, moments and count."""
+        ``mask[M]`` is True; the others keep params, moments and count.
+        With ``count_mask[M]`` the step counts advance where it is True
+        instead: a pack of the packed fit shares one count, which moves
+        when any member of the pack has data (``models/packing.py``)."""
         count = state.count + 1
         if self.name in ("adam", "adamw"):
             # optax's bias_correction: 1 - decay ** count, in f32
@@ -119,4 +126,4 @@ class StackedOptimizer:
             for name, value in new_slots.items():
                 slot = state.slots[name][i]
                 slot.copy_(torch.where(keep, value, slot))
-        state.count = torch.where(mask, count, state.count)
+        state.count = torch.where(mask if count_mask is None else count_mask, count, state.count)

@@ -232,9 +232,14 @@ class StackedFit:
             # the masked-off NaN of an all-padding batch reaches nothing
             objective = torch.where(has_data, loss, torch.zeros_like(loss)).sum()
             grads = torch.autograd.grad(objective, leaves)
-        self.optimizer.step(leaves, grads, state, has_data & active)
+        self.optimizer.step(leaves, grads, state, has_data & active, self.count_mask(has_data, active))
         with torch.no_grad():
             return torch.where(has_data, loss * wsum, torch.zeros_like(loss))
+
+    def count_mask(self, has_data: torch.Tensor, active: torch.Tensor) -> Optional[torch.Tensor]:
+        """Whose optimizer step counts advance this step; None: the members
+        that step (``models/packing.py`` shares a count a pack)."""
+        return None
 
     @torch.no_grad()
     def evaluate(self, params: Params, X: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

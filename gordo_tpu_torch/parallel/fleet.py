@@ -2,9 +2,10 @@
 The fleet trainer: many per-machine models as one stacked computation,
 the dense half of ``gordo_tpu/parallel/fleet.py``.
 
-1. **Bucketing.** Members are grouped by (spec, padded sample count), the
-   naive strategy of the JAX planner (``planner/packing.py``); windowed
-   (LSTM) members by (spec, padded series rows, model offset).
+1. **Bucketing.** ``planner.plan_train_buckets`` groups the members by
+   the trainer's strategy (``naive`` or ``packed``, ``planner/packing.py``)
+   and its cost table; a ``fleet_plan`` replays its buckets for the
+   members it covers (``fleet.py:533-610``).
 2. **Stacking.** Each bucket's data becomes ``X[M, n_padded, F]``
    (zero-filled), with weight masks for ragged lengths, validation
    splits and CV-fold boundaries; ``y`` is ``X`` itself when every
@@ -12,6 +13,15 @@ the dense half of ``gordo_tpu/parallel/fleet.py``.
 3. **One program.** ``models/training.py::StackedFit`` trains the bucket
    with the member axis written out; each member draws its own init and
    permutations from its seed (``models/training.py::RandomSource``).
+   With ``packing`` (``"auto"`` or a factor), a feedforward bucket without
+   early stopping and without a planned member rung trains packed
+   (``models/packing.py::PackedFit``, ``fleet.py:445-463``, ``:758-883``):
+   its consecutive members form packs of G, each pack shuffling with its
+   first member's permutations and sharing Adam's step count, in the same
+   stacked program. The JAX trainer pads a bucket's member axis up to the
+   plan's ``m_padded`` so that sibling buckets share one XLA compile; a
+   PyTorch program has no compile to share, so the port launches the
+   live members only (the plan still records JAX's stacked shape).
 
 A :class:`WindowedFleetMember` (an LSTM machine) brings its raw series
 and its window targets instead of samples: its bucket stacks
@@ -36,7 +46,8 @@ to a power of two, validation apart.
 ``ops/fleet_dense.py::fleet_feedforward``: K1 on a CUDA device, its
 plain version because the tensors lie on the CPU otherwise.
 
-Each bucket fit (``fleet_fit``, ``fleet_windowed_fit``) and each forward
+Each bucket fit (``fleet_fit``, ``fleet_packed_fit`` with ``packed=G``,
+``fleet_windowed_fit``) and each forward
 (``fleet_predict``, ``fleet_windowed_predict``) runs inside a
 ``device_program`` span of the active recorder (``telemetry/recorder.py``,
 the JAX sites ``fleet.py:739``, ``:1015``, ``:1096``, ``:1147``) with the
@@ -72,8 +83,10 @@ from ..models.training import (
     permutation_tensor,
 )
 from ..ops.fleet_dense import fleet_feedforward
-from ..planner.costmodel import spec_flops_per_sample, spec_param_count
-from ..planner.packing import member_offset, train_buckets
+from ..models.packing import PackedFeedForwardSpec, PackedFit, auto_packing
+from ..ops.losses import resolve_loss
+from ..planner.costmodel import CostModel, CostTable, spec_flops_per_sample, spec_param_count
+from ..planner.packing import member_offset, plan_train_buckets
 from ..telemetry import program_span
 from ..utils.faults import InjectedDeviceError, fault_point
 
@@ -229,25 +242,56 @@ class FleetTrainer:
     every member's init and permutations from ``random`` (default
     :class:`~gordo_tpu_torch.models.training.TorchRandom`).
 
-    ``fits`` records each bucket it trained: its id
-    (``planner.train_buckets``, the id ``fleet_plan.json`` gives it), the
-    members' names and count, padded rows (window slots for a windowed
-    bucket), optimizer steps run, host seconds of the fit loop (ending in the results'
-    copy to the host) and, on a card, the CUDA-event milliseconds between
-    the loop's first and last launch.
+    ``packing`` (None or 1: off, an int, or ``"auto"``) packs feedforward
+    buckets (``models/packing.py``); ``plan_strategy`` (None: the
+    ``GORDO_TPU_PLAN_STRATEGY`` default) and ``cost_table`` (None: the
+    analytic one) plan the buckets, and ``fleet_plan`` is a
+    ``planner.FleetPlan`` to replay.
+
+    ``fits`` records each bucket it trained: its id (the id
+    ``fleet_plan.json`` gives it), the members' names and count, padded
+    rows (window slots for a windowed bucket), the packing factor, the
+    planned member rung (``m_padded``; None for a bisected half, which
+    drops it), optimizer steps run, host seconds of the fit loop (ending
+    in the results' copy to the host) and, on a card, the CUDA-event
+    milliseconds between the loop's first and last launch.
     """
 
-    def __init__(self, device: DeviceLike = None, random: Optional[RandomSource] = None):
+    def __init__(self, device: DeviceLike = None, random: Optional[RandomSource] = None, packing: Any = None,
+                 plan_strategy: Optional[str] = None, cost_table: Optional[CostTable] = None):
         self.device = resolve_device(device)
         self.random = random if random is not None else TorchRandom()
-        #: a naive ``planner.FleetPlan`` to replay (``FleetBuilder`` sets it
-        #: for a build): the members it covers train in its buckets
+        self.packing = packing
+        self.plan_strategy = plan_strategy
+        self.cost_table = cost_table
+        #: a ``planner.FleetPlan`` to replay (``FleetBuilder`` sets it for
+        #: a build): the members it covers train in its buckets
         self.fleet_plan: Any = None
         #: lifetime count of bucket bisections after device errors
         self.bucket_bisects = 0
         #: member name -> bisections its bucket rode through
         self.bisect_counts: Dict[str, int] = {}
         self.fits: List[Dict[str, Any]] = []
+
+    def cost_model(self) -> CostModel:
+        """The planner's cost model over this trainer's table."""
+        return CostModel(self.cost_table)
+
+    def _packing_factor(self, spec: ModelSpec, n_members: int, config: FitConfig) -> int:
+        """The packing factor of a bucket (``fleet.py:445-463``): 1 unless
+        packing is on, the spec is feedforward, no early stopping and the
+        loss is known."""
+        if not self.packing or self.packing == 1:
+            return 1
+        if not isinstance(spec, FeedForwardSpec) or config.early_stopping is not None:
+            return 1
+        try:
+            resolve_loss(spec.loss)
+        except ValueError:
+            return 1
+        if self.packing == "auto":
+            return auto_packing(spec, n_members)
+        return max(1, min(int(self.packing), n_members))
 
     def train(
         self, members: Sequence[FleetMember], config: FitConfig, retry_failed: int = 1
@@ -284,19 +328,28 @@ class FleetTrainer:
     def _train_once(self, members: Sequence[FleetMember], config: FitConfig) -> List[FleetResult]:
         by_name: Dict[str, FleetResult] = {}
         failures: Dict[str, BaseException] = {}
-        planned_buckets, remaining = (self.fleet_plan.materialize_buckets(members) if self.fleet_plan is not None
-                                      else ([], list(members)))
-        for planned in planned_buckets + train_buckets(remaining, config):
+        planned_buckets = plan_train_buckets(members, config, strategy=self.plan_strategy,
+                                             cost_model=self.cost_model(), plan=self.fleet_plan)
+        for planned in planned_buckets:
+            # sibling buckets of a split rung (a planned m_padded) are never block-packed
+            g = 1 if planned.windowed or planned.m_padded is not None else self._packing_factor(
+                planned.spec, len(planned.members), config)
             logger.info(
-                "Fleet bucket %s: %d models, spec=%s, padded_n=%d%s",
+                "Fleet bucket %s: %d models, spec=%s, padded_n=%d%s%s",
                 planned.bucket_id, len(planned.members), type(planned.spec).__name__, planned.n_padded,
-                f", windowed, offset {planned.offset}" if planned.windowed else "",
+                f", windowed, offset {planned.offset}" if planned.windowed else "", f", packed x{g}" if g > 1 else "",
             )
-            train = self._train_windowed_bucket if planned.windowed else self._train_bucket
-            self._run_bucket_degraded(
-                lambda b, _p=planned, _t=train: _t(_p.spec, _p.n_padded, b, config, _p.bucket_id),
-                planned.members, by_name, failures,
-            )
+
+            def run(b, _p=planned, _g=g):
+                # the planned member rung holds for the intact bucket only: a bisected half drops it
+                m_padded = _p.m_padded if len(b) == len(_p.members) else None
+                if _p.windowed:
+                    return self._train_windowed_bucket(_p.spec, _p.n_padded, b, config, _p.bucket_id)
+                if _g > 1:
+                    return self._train_bucket_packed(_p.spec, _p.n_padded, b, config, _p.bucket_id, _g)
+                return self._train_bucket(_p.spec, _p.n_padded, b, config, _p.bucket_id, m_padded)
+
+            self._run_bucket_degraded(run, planned.members, by_name, failures)
         for member in members:
             if member.name in failures:
                 by_name[member.name] = FleetResult(
@@ -427,13 +480,32 @@ class FleetTrainer:
         return X_dev, y_dev, torch.from_numpy(wtr).to(self.device), torch.from_numpy(wval).to(self.device)
 
     def _train_bucket(
-        self, spec: FeedForwardSpec, n_padded: int, bucket: List[FleetMember], config: FitConfig, bucket_id: str
+        self, spec: FeedForwardSpec, n_padded: int, bucket: List[FleetMember], config: FitConfig, bucket_id: str,
+        m_padded: Optional[int] = None,
     ) -> List[FleetResult]:
         X, y, wtr, wval = self._stack_bucket(n_padded, bucket, config)
         span = ("fleet_fit", (spec, config, tuple(X.shape)), dict(
             members=len(bucket), shape=str(tuple(X.shape)), spec=type(spec).__name__, bytes=_bucket_nbytes(bucket),
             **_calibration_attrs(spec, config, X.shape[0], X.shape[1])))
-        return self._fit_bucket(bucket, config, StackedFit(spec, config), (X, y), wtr, wval, span, bucket_id)
+        return self._fit_bucket(bucket, config, StackedFit(spec, config), (X, y), wtr, wval, span, bucket_id,
+                                m_padded=m_padded)
+
+    def _train_bucket_packed(
+        self, spec: FeedForwardSpec, n_padded: int, bucket: List[FleetMember], config: FitConfig, bucket_id: str,
+        g: int,
+    ) -> List[FleetResult]:
+        """Train the bucket in packs of ``g`` consecutive members
+        (``_train_bucket_packed``, ``fleet.py:758-883``): one stacked
+        program of the live members, each pack shuffled by its first
+        member's permutations; results per member, ``history.params``
+        carrying ``packed``."""
+        X, y, wtr, wval = self._stack_bucket(n_padded, bucket, config)
+        span = ("fleet_packed_fit", (PackedFeedForwardSpec(spec, g), config, tuple(X.shape)), dict(
+            members=len(bucket), packed=g, shape=str(tuple(X.shape)), spec=type(spec).__name__,
+            bytes=_bucket_nbytes(bucket), **_calibration_attrs(spec, config, X.shape[0], X.shape[1])))
+        perm_seeds = [bucket[(i // g) * g].seed for i in range(len(bucket))]
+        return self._fit_bucket(bucket, config, PackedFit(spec, config, g), (X, y), wtr, wval, span, bucket_id,
+                                perm_seeds=perm_seeds, packed=g)
 
     def _stack_windowed_bucket(
         self, spec: LSTMSpec, n_padded: int, bucket: List[WindowedFleetMember], config: FitConfig
@@ -468,15 +540,18 @@ class FleetTrainer:
         return self._fit_bucket(bucket, config, WindowedFit(spec, config), (series, targets, order), wtr, wval, span,
                                 bucket_id)
 
-    def _fit_bucket(self, bucket, config: FitConfig, fit: StackedFit, data, wtr, wval, span,
-                    bucket_id: str) -> List[FleetResult]:
-        """Draw the bucket's init and permutations, run ``fit`` on ``data``
-        and the weights inside the ``span`` (program, key, attributes),
-        time it into ``fits`` and collect the results."""
+    def _fit_bucket(self, bucket, config: FitConfig, fit: StackedFit, data, wtr, wval, span, bucket_id: str,
+                    perm_seeds: Optional[List[int]] = None, packed: int = 1,
+                    m_padded: Optional[int] = None) -> List[FleetResult]:
+        """Draw the bucket's init (each member's own) and permutations
+        (from ``perm_seeds``, default each member's seed), run ``fit`` on
+        ``data`` and the weights inside the ``span`` (program, key,
+        attributes), time it into ``fits`` and collect the results."""
         seeds = [m.seed for m in bucket]
         params = stack_member_params([self.random.init_params(fit.spec, s) for s in seeds], self.device)
         n = wtr.shape[1]
-        perms = permutation_tensor(self.random, seeds, config.epochs, n, self.device) if config.shuffle else None
+        perms = permutation_tensor(self.random, seeds if perm_seeds is None else perm_seeds, config.epochs, n,
+                                   self.device) if config.shuffle else None
         steps = n // config.batch_size
         on_card = self.device.type == "cuda"
         program, key, attributes = span
@@ -488,9 +563,10 @@ class FleetTrainer:
             out = fit.run(params, *data, wtr, wval, perms)
             if on_card:
                 events[1].record()
-            results = self._collect_results(bucket, out, config, steps)
+            results = self._collect_results(bucket, out, config, steps, packed)
         self.fits.append(dict(
-            bucket=bucket_id, names=[m.name for m in bucket], members=len(bucket), rows=n, steps=out.steps,
+            bucket=bucket_id, names=[m.name for m in bucket], members=len(bucket), rows=n, packed=packed,
+            m_padded=m_padded, steps=out.steps,
             seconds=time.perf_counter() - t0,
             event_ms=events[0].elapsed_time(events[1]) if on_card else None,
             windowed=isinstance(fit, WindowedFit),
@@ -498,7 +574,7 @@ class FleetTrainer:
         return results
 
     @staticmethod
-    def _collect_results(bucket, out: FitOutput, config: FitConfig, steps: int) -> List[FleetResult]:
+    def _collect_results(bucket, out: FitOutput, config: FitConfig, steps: int, packed: int = 1) -> List[FleetResult]:
         host = {key: {name: t.cpu().numpy() for name, t in layer.items()} for key, layer in out.params.items()}
         losses = out.losses.cpu().numpy()
         val_losses = out.val_losses.cpu().numpy()
@@ -517,7 +593,8 @@ class FleetTrainer:
                 params={key: {name: a[i].copy() for name, a in layer.items()} for key, layer in host.items()},
                 history=History(
                     history=history,
-                    params={"epochs": config.epochs, "steps": steps, "verbose": 0, "metrics": list(history)},
+                    params={"epochs": config.epochs, "steps": steps, "verbose": 0, "metrics": list(history),
+                            **({"packed": packed} if packed > 1 else {})},
                     epoch=list(range(ran)),
                 ),
             ))

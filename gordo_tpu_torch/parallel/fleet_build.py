@@ -101,10 +101,20 @@ What the build writes about itself (``:269-500``, ``:685-800``,
   (``telemetry/fleet_health.py``), fed by the events above; the ledger
   is the builder's, restored from the directory's last snapshot.
 
-``fleet_plan.json``, the naive final-fit buckets priced by the analytic
-cost model (``planner/``), is written with telemetry off too, and its
-hash is journaled. The ``sequential`` phase, the port's own, is entered
-only when a machine is built by ``ModelBuilder``.
+``fleet_plan.json``, the final-fit buckets planned by the build's
+strategy (``naive`` or ``packed``, ``plan_strategy`` or
+``GORDO_TPU_PLAN_STRATEGY``) and priced by the cost model over its table
+(``cost_table``; ``planner/``), is written with telemetry off too, and
+its hash and strategy are journaled (``_prepare_fleet_plan``,
+``:1000-1090``). A plan handed in (``fleet_plan``, ``build-fleet
+--plan-from``) is replayed instead: a fingerprint of other configs warns,
+its strategy rides onto the trainer so that the CV fold members, which no
+plan covers, pack live under it. :meth:`FleetBuilder.plan_only` plans
+without training (the ``plan`` command). ``GORDO_TPU_PACKING=auto|<int>``
+turns on the packed fit (``models/packing.py``) when no trainer is
+handed in; a malformed value warns and leaves it off (``:197-212``).
+The ``sequential`` phase, the port's own, is entered only when a machine
+is built by ``ModelBuilder``.
 
 The Prometheus build series (``server/prometheus/metrics.py``, on the
 process's registry) are fed where the JAX build feeds them: each
@@ -118,10 +128,9 @@ are advisory: a failure is logged and dropped.
 (``fleet_build.py:2026-2084``): only the stale machines build, journaled
 and resumable in their own directory, replaying the base revision's
 ``fleet_plan.json`` (``FleetBuilder(fleet_plan=)``), so a stale member
-keeps its planned pad target; members the plan does not cover, or whose
-rows outgrew it, pack live. A plan of another strategy than ``naive`` is
-logged and packed live. Not ported: the packing planner, ``--plan-from``
-(``ROADMAP.md`` item 7) and the multi-host mirrors (item 12).
+keeps its planned pad targets under either strategy; members the plan
+does not cover, or whose rows outgrew it, pack live. Not ported: the
+multi-host mirrors (``ROADMAP.md`` item 12).
 """
 
 import concurrent.futures
@@ -159,6 +168,21 @@ logger = logging.getLogger(__name__)
 
 #: threads fetching the machines' rows (the JAX builder's default)
 DATA_WORKERS = 16
+
+PACKING_ENV = "GORDO_TPU_PACKING"
+
+
+def packing_from_env() -> Any:
+    """``GORDO_TPU_PACKING``: ``"auto"``, an int factor, or None (unset,
+    or malformed, which warns)."""
+    packing: Any = env_str(PACKING_ENV, None)
+    if packing and packing != "auto":
+        try:
+            packing = int(packing)
+        except ValueError:
+            logger.warning("Invalid %s=%r (want an int or 'auto'); packing disabled", PACKING_ENV, packing)
+            packing = None
+    return packing
 
 
 class FleetBuildError(RuntimeError):
@@ -361,7 +385,10 @@ class FleetBuilder:
     Builds every machine of ``machines`` as stacked fleet buckets on
     ``device`` (``cuda`` unless the caller asks for the CPU), drawing each
     member's random numbers from ``random`` (default ``TorchRandom``),
-    fetching rows in ``DATA_WORKERS`` threads.
+    fetching rows in ``DATA_WORKERS`` threads. Without a ``trainer`` the
+    builder makes one with ``GORDO_TPU_PACKING``'s packing;
+    ``plan_strategy``, ``cost_table`` and ``fleet_plan`` (a plan to
+    replay) go onto the trainer, which plans the buckets.
 
     ``build_errors`` maps a failed machine to its exception: one machine's
     failure spares the rest. ``degraded`` maps a machine rebuilt by the
@@ -382,17 +409,23 @@ class FleetBuilder:
         trainer: Optional[FleetTrainer] = None,
         fleet_plan: Optional[planner.FleetPlan] = None,
         health_ledger: Any = None,
+        plan_strategy: Optional[str] = None,
+        cost_table: Optional[planner.CostTable] = None,
     ):
         self.machines = list(machines)
-        # a given trainer brings its device and random source
-        self.trainer = trainer if trainer is not None else FleetTrainer(device, random)
+        # a given trainer brings its device, random source and packing
+        self.trainer = trainer if trainer is not None else FleetTrainer(device, random, packing=packing_from_env())
         self.device = self.trainer.device
-        if fleet_plan is not None and fleet_plan.strategy != planner.NAIVE:
-            logger.warning("FleetPlan %s has strategy %r, which gordo_tpu_torch cannot replay yet (ROADMAP.md item "
-                           "7); its members pack live", fleet_plan.plan_hash, fleet_plan.strategy)
-            fleet_plan = None
-        #: the plan handed in, replayed by every build of this builder
-        self._external_plan = fleet_plan
+        if plan_strategy is not None:
+            self.trainer.plan_strategy = plan_strategy
+        if fleet_plan is not None:
+            self.trainer.fleet_plan = fleet_plan
+        if cost_table is not None:
+            self.trainer.cost_table = cost_table
+        #: the plan handed in (or already on the trainer), replayed by every
+        #: build of this builder, and the strategy the trainer came with
+        self._external_plan = self.trainer.fleet_plan
+        self._external_strategy = self.trainer.plan_strategy
         #: the ledger a build feeds (None: the output directory's own)
         self._health_ledger = health_ledger
         self.build_errors: Dict[str, BaseException] = {}
@@ -546,7 +579,12 @@ class FleetBuilder:
         try:
             with telemetry.activate(recorder):
                 with recorder.span("fleet_build", project=self._project, machines=len(self.machines)):
-                    results = self._run_build(output_dir, model_register_dir, replace_cache, resume)
+                    try:
+                        results = self._run_build(output_dir, model_register_dir, replace_cache, resume)
+                    finally:
+                        # a shared trainer must not keep this build's strategy
+                        self.trainer.fleet_plan = self._external_plan
+                        self.trainer.plan_strategy = self._external_strategy
         except Exception:
             # SystemExit and KeyboardInterrupt pass: a killed build stays "running"
             if self.progress is not None:
@@ -599,18 +637,7 @@ class FleetBuilder:
                 self.progress.cached = len(cached)
                 self.progress.write(force=True)
 
-        with self._phase("plan"):
-            plans, fallbacks = [], []
-            for machine in machines:
-                try:
-                    plan = self._plan_machine(machine)
-                except Exception as exc:
-                    self._fail(machine.name, exc)
-                    continue
-                if plan is None:
-                    fallbacks.append(machine)
-                else:
-                    plans.append(plan)
+        plans, fallbacks = self._plan_all(machines)
         if self._journal is not None:
             for machine in machines:
                 self._journal.record(machine.name, "planned", config_hash=self._config_hashes[machine.name],
@@ -730,51 +757,107 @@ class FleetBuilder:
         """The plans whose machines are still to final-fit."""
         return [p for p in plans if not self._skipped(p.machine.name) and _cv_mode(p) != "cross_val_only"]
 
+    def _plan_all(self, machines: Sequence[Machine]) -> Tuple[List[_Plan], List[Machine]]:
+        """The ``plan`` phase: each machine's plan, and the machines the
+        fleet cannot train (the sequential builder's); a machine whose
+        definition fails is failed."""
+        with self._phase("plan"):
+            plans, fallbacks = [], []
+            for machine in machines:
+                try:
+                    plan = self._plan_machine(machine)
+                except Exception as exc:
+                    self._fail(machine.name, exc)
+                    continue
+                if plan is None:
+                    fallbacks.append(machine)
+                else:
+                    plans.append(plan)
+        return plans, fallbacks
+
+    def _plan_strategy_name(self) -> str:
+        return self.trainer.plan_strategy or planner.default_strategy()
+
+    def _final_members(self, plans: List[_Plan]) -> Tuple[Dict[str, Any], List[_Plan]]:
+        """The final fit's member of each plan still to final-fit, by
+        machine name, and those plans (a machine whose member fails is
+        failed)."""
+        members: Dict[str, Any] = {}
+        final_plans = []
+        for plan in self._final_fit_plans(plans):
+            try:
+                members[plan.machine.name] = self._make_member(plan, None, seed=plan.seed, name=plan.machine.name)
+            except Exception as exc:
+                self._fail(plan.machine.name, exc)
+                continue
+            final_plans.append(plan)
+        return members, final_plans
+
+    def _fingerprint(self, final_plans: List[_Plan]) -> str:
+        return planner.config_fingerprint(
+            [self._config_hashes.get(p.machine.name) or ModelBuilder.calculate_cache_key(p.machine)
+             for p in final_plans])
+
+    def _compute_fleet_plan(self, members: Dict[str, Any], final_plans: List[_Plan],
+                            strategy: str) -> planner.FleetPlan:
+        """The final-fit buckets of ``final_plans`` under ``strategy`` and
+        the trainer's cost model, as a ``FleetPlan``."""
+        by_config: Dict[FitConfig, List[Any]] = {}
+        for plan in final_plans:
+            by_config.setdefault(plan.fit_config, []).append(members[plan.machine.name])
+        cost_model = self.trainer.cost_model()
+        return planner.build_plan_doc(
+            [(config, planner.plan_train_buckets(group, config, strategy=strategy, cost_model=cost_model))
+             for config, group in by_config.items()],
+            strategy, self._fingerprint(final_plans), cost_model.table)
+
+    def plan_only(self) -> planner.FleetPlan:
+        """Plan without training (``plan_only``, ``:1091-1108``): machine
+        plans, data fetch and stage, then the final-fit buckets: the
+        ``FleetPlan`` that the ``plan`` command renders and ``build-fleet
+        --plan-from`` replays. Machines for the sequential builder are
+        not in it; failed machines are in ``build_errors``."""
+        self.build_errors = {}
+        plans, fallbacks = self._plan_all(self.machines)
+        if fallbacks:
+            logger.info("%d machine(s) use the sequential builder and are not fleet-planned: %s", len(fallbacks),
+                        ", ".join(m.name for m in fallbacks[:5]))
+        plans = self._load_all_data(plans)
+        members, final_plans = self._final_members(plans)
+        return self._compute_fleet_plan(members, final_plans, self._plan_strategy_name())
+
     def _prepare_fleet_plan(self, plans: List[_Plan], output_dir: Optional[str]) -> Dict[str, Any]:
         """The final fit's members and buckets, planned before training
-        (``_prepare_fleet_plan``, ``:1000-1066``, the naive strategy): the
-        ``fleet_plan`` event, ``fleet_plan.json`` and the journal's plan
-        hash. Answers the members by machine name; the final fit trains
-        these same members, which the trainer buckets with the plan's
-        ``planner.train_buckets``."""
-        members: Dict[str, Any] = {}
-        candidates = self._final_fit_plans(plans)
-        if not candidates:
-            return members
+        (``_prepare_fleet_plan``, ``:1000-1090``): a plan handed in is
+        replayed (a fingerprint of other configs warns), else one is
+        computed with the build's strategy; the strategy rides onto the
+        trainer, so the CV fold members, which no plan covers, pack live
+        under it. Then the ``fleet_plan`` event, ``fleet_plan.json``, the
+        journal's plan hash and strategy, the plan gauges. Answers the
+        members by machine name; the final fit trains these same members,
+        which the trainer buckets as the plan did."""
+        if not self._final_fit_plans(plans):
+            return {}
+        strategy = self._plan_strategy_name()
         with self._phase("bucket_plan"):
-            final_plans = []
-            for plan in candidates:
-                try:
-                    members[plan.machine.name] = self._make_member(plan, None, seed=plan.seed,
-                                                                   name=plan.machine.name)
-                except Exception as exc:
-                    self._fail(plan.machine.name, exc)
-                    continue
-                final_plans.append(plan)
+            members, final_plans = self._final_members(plans)
             if not final_plans:
                 return members
-            by_config: Dict[FitConfig, List[Any]] = {}
-            for plan in final_plans:
-                by_config.setdefault(plan.fit_config, []).append(members[plan.machine.name])
-            fingerprint = planner.config_fingerprint(
-                [self._config_hashes.get(p.machine.name) or ModelBuilder.calculate_cache_key(p.machine)
-                 for p in final_plans])
             plan = self._external_plan
             if plan is not None:
-                recorded = str(plan.doc.get("config_fingerprint", ""))
+                recorded, fingerprint = str(plan.doc.get("config_fingerprint", "")), self._fingerprint(final_plans)
                 if recorded and recorded != fingerprint:
                     logger.warning("FleetPlan %s was computed for a different config set (fingerprint %s != %s); "
                                    "unknown members will be packed live", plan.plan_hash, recorded, fingerprint)
+                strategy = plan.strategy or strategy
             else:
-                plan = planner.build_plan_doc(
-                    [(config, planner.plan_train_buckets(group, config)) for config, group in by_config.items()],
-                    planner.NAIVE, fingerprint)
+                plan = self._compute_fleet_plan(members, final_plans, strategy)
             self.fleet_plan = plan
-            # only a plan handed in is replayed: a fresh build trains the buckets it just planned
-            self.trainer.fleet_plan = self._external_plan
+            # only a plan handed in rides on the trainer: a fresh build plans the same members again
+            self.trainer.plan_strategy = strategy
             totals = plan.totals
             self.recorder.event(
-                "fleet_plan", plan_hash=plan.plan_hash, strategy=planner.NAIVE,
+                "fleet_plan", plan_hash=plan.plan_hash, strategy=strategy,
                 replayed=self._external_plan is not None,
                 buckets=totals.get("buckets", 0), members=totals.get("members", 0),
                 compiles=totals.get("compiles", 0), predicted_wall_s=totals.get("predicted_wall_s", 0.0),
@@ -790,9 +873,9 @@ class FleetBuilder:
                 if previous and previous.get("plan_hash") != plan.plan_hash:
                     logger.info("FleetPlan %s differs from the journaled %s: the remaining members are replanned",
                                 plan.plan_hash, previous.get("plan_hash"))
-                self._journal.set_plan(plan.plan_hash, planner.NAIVE)
+                self._journal.set_plan(plan.plan_hash, strategy)
             with _prometheus() as prom:
-                prom.set_fleet_plan_prediction(self._project, planner.NAIVE, float(totals.get("predicted_wall_s", 0.0)),
+                prom.set_fleet_plan_prediction(self._project, strategy, float(totals.get("predicted_wall_s", 0.0)),
                                                float(totals.get("padding_waste", 0.0)), int(totals.get("compiles", 0)))
         return members
 

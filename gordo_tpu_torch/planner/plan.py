@@ -1,29 +1,30 @@
 """
 The ``fleet_plan.json`` a build writes beside its machines, a copy of
 ``gordo_tpu/planner/plan.py`` (``FleetPlan``, ``build_plan_doc``,
-``config_fingerprint``, ``:1-110``, ``:160-290``).
+``config_fingerprint``, ``:1-290``).
 
 The plan holds every final-fit bucket (id, program, spec, fit config,
-members, pad targets, the cost model's predictions), the totals and the
-fingerprint of the machines' configs. It is deterministic (sorted keys,
-rounded floats, no timestamps): the same configs give the same bytes,
-and ``plan_hash``, the hash of those bytes, is what the build journal
-records. ``predicted_*`` are the analytic cost model's predictions
+members, pad targets, the cost model's predictions), the strategy, the
+cost table's provenance, the totals and the fingerprint of the machines'
+configs. It is deterministic (sorted keys, rounded floats, no
+timestamps): the same configs and table give the same bytes, and
+``plan_hash``, the hash of those bytes, is what the build journal
+records. ``predicted_*`` are the cost model's predictions
 (``costmodel.py``), not measured times.
 
-:meth:`FleetPlan.materialize_buckets` replays a plan (``:109-160``): the
-lifecycle's partial rebuild binds the stale members to their planned
-buckets by name, so each keeps its planned pad target. Replaying a plan of
-another strategy than ``naive``, and ``build-fleet --plan-from``, wait for
-the packing planner (``ROADMAP.md`` item 7).
+:meth:`FleetPlan.materialize_buckets` replays a plan of either strategy
+(``:109-160``): ``build-fleet --plan-from`` and the lifecycle's partial
+rebuild bind the members to their planned buckets by name, so each keeps
+its planned pad targets and member rung whichever of its neighbours are
+still to build.
 """
 
 import hashlib
 import json
 import os
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .costmodel import COST_TABLE_VERSION
+from .costmodel import CostTable
 from .packing import PlannedBucket, member_is_windowed, member_samples
 
 PLAN_VERSION = 1
@@ -39,8 +40,10 @@ class FleetPlan:
 
     def __init__(self, doc: Dict[str, Any]):
         if int(doc.get("version", 0)) != PLAN_VERSION:
-            raise PlanError(f"fleet plan version {doc.get('version')!r} != supported {PLAN_VERSION}")
+            raise PlanError(f"fleet plan version {doc.get('version')!r} != supported {PLAN_VERSION}; "
+                            "re-run `gordo-tpu plan`")
         self.doc = doc
+        self._assignment: Dict[str, dict] = {name: bucket for bucket in self.buckets for name in bucket["members"]}
 
     @property
     def strategy(self) -> str:
@@ -56,7 +59,11 @@ class FleetPlan:
 
     @property
     def member_names(self) -> List[str]:
-        return sorted({name for bucket in self.buckets for name in bucket["members"]})
+        return sorted(self._assignment)
+
+    def covers(self, names: Sequence[str]) -> bool:
+        """True when every name is a member of some bucket."""
+        return all(name in self._assignment for name in names)
 
     def to_json(self) -> str:
         """The canonical bytes: sorted keys, indent 1, a final newline."""
@@ -83,19 +90,17 @@ class FleetPlan:
             raise PlanError(f"fleet plan {path} is not a JSON object")
         return cls(doc)
 
-
     def materialize_buckets(self, members: Sequence[Any]) -> Tuple[List[PlannedBucket], List[Any]]:
         """Bind this plan's bucket rosters to ``members`` by name:
-        ``(buckets, uncovered)``, one bucket with its planned pad target,
+        ``(buckets, uncovered)``, one bucket with its planned pad targets,
         id and program for each plan bucket that has a member here, and
         the members to pack live: those the plan does not know (a CV fold
         member, a machine added since), whose rows outgrew the pad target
         or whose spec changed."""
-        assignment = {name: bucket for bucket in self.buckets for name in bucket["members"]}
         by_bucket: Dict[str, List[Any]] = {}
         uncovered: List[Any] = []
         for member in members:
-            entry = assignment.get(member.name)
+            entry = self._assignment.get(member.name)
             if (entry is None or member_samples(member) > int(entry["n_padded"])
                     or _jsonable(member.spec.to_dict()) != entry.get("spec")):
                 uncovered.append(member)
@@ -112,7 +117,9 @@ class FleetPlan:
                                 "the plan does not match this config; re-run `gordo-tpu plan`")
             buckets.append(PlannedBucket(spec=live[0].spec, members=live, n_padded=int(entry["n_padded"]),
                                          offset=int(entry.get("offset", 0)), windowed=windowed,
-                                         bucket_id=str(entry["id"]), program=str(entry["program"])))
+                                         bucket_id=str(entry["id"]), program=str(entry["program"]),
+                                         m_padded=int(entry["m_padded"]) if entry.get("m_padded") is not None
+                                         else None))
         return buckets, uncovered
 
 
@@ -129,10 +136,13 @@ def build_plan_doc(
     buckets_by_config: Sequence[Tuple[Any, Sequence[Any]]],
     strategy: str,
     config_fingerprint: str,
+    cost_table: Optional[CostTable] = None,
 ) -> FleetPlan:
     """The plan of per-fit-config bucket lists whose predictions are
     filled in (``packing.plan_train_buckets``), for one card (the JAX
-    mesh ``(1, 1)``) and the uncalibrated analytic cost table."""
+    mesh ``(1, 1)``), recording the strategy and the cost table's
+    version, calibration and samples (default: the analytic table)."""
+    table = cost_table or CostTable()
     bucket_docs: List[dict] = []
     totals: Dict[str, Any] = {"buckets": 0, "members": 0, "compiles": 0, "predicted_compile_s": 0.0,
                               "predicted_run_s": 0.0, "flops_true": 0.0, "flops_padded": 0.0, "hbm_peak_bytes": 0}
@@ -154,7 +164,7 @@ def build_plan_doc(
                 "fit_config": config_doc,
                 "members": list(bucket.member_names),
                 "n_padded": bucket.n_padded,
-                "m_padded": None,  # the packed strategy's member rung; the naive one has none
+                "m_padded": bucket.m_padded,
                 "offset": bucket.offset,
                 "predicted": predicted,
             })
@@ -179,7 +189,9 @@ def build_plan_doc(
         "strategy": strategy,
         "mesh_shape": [1, 1],
         "config_fingerprint": config_fingerprint,
-        "cost_table": {"version": COST_TABLE_VERSION, "calibrated": False, "samples": {}, "learned": False},
+        # the learned model never costs a port plan (the planner refuses it)
+        "cost_table": {"version": table.version, "calibrated": table.calibrated,
+                       "samples": {str(k): int(v) for k, v in sorted(table.samples.items())}, "learned": False},
         "buckets": bucket_docs,
         "totals": totals,
     })

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..ops.activations import resolve_activation
+from ..planner.costmodel import PRECISION_ALIASES
 from ..utils.env import env_bool, env_float, env_int, env_str
 
 logger = logging.getLogger(__name__)
@@ -54,13 +55,6 @@ PRECISIONS: Tuple[str, ...] = ("f32", "bf16", "int8")
 
 F32 = "f32"
 
-#: every accepted spelling (``gordo_tpu/planner/costmodel.py``'s
-#: ``PRECISION_ALIASES``)
-PRECISION_ALIASES: Dict[str, str] = {
-    "f32": "f32", "fp32": "f32", "float32": "f32",
-    "bf16": "bf16", "bfloat16": "bf16",
-    "int8": "int8", "i8": "int8", "w8": "int8",
-}
 
 #: raw values already warned about: a malformed knob warns once
 _warned: set = set()

@@ -3,12 +3,12 @@ process on the CPU: the artifacts serve; a machine with too few rows
 exits 80 (the JAX command's code for ``InsufficientDataError``) while the
 other is still dumped beside the build journal, with the JSON failure
 report written; an unknown data provider exits with the code the JAX
-command gives; the planner's options, which the port does not have, are
-refused, naming ``ROADMAP.md``; ``--resume`` and ``--model-register-dir``
-work."""
+command gives; the planner's options give the build JAX's plan;
+``--resume`` and ``--model-register-dir`` work."""
 
 import json
 
+import jax
 import pytest
 from click.testing import CliRunner
 from werkzeug.test import Client
@@ -71,15 +71,35 @@ def test_unknown_data_provider_exits_as_the_jax_command_does(tmp_path):
     assert main(["build-fleet", shard, str(tmp_path / "port"), "--device", "cpu"]) == jax_code
 
 
-@pytest.mark.parametrize("option", [["--plan-from", "plan.json"], ["--plan-strategy", "packed"],
-                                    ["--cost-table", "table.json"]])
-def test_options_not_ported_are_refused(tmp_path, capsys, option):
-    shard = _shard(tmp_path, _machine("m-1"))
-    with pytest.raises(SystemExit) as exit_info:
-        main(["build-fleet", shard, str(tmp_path / "out"), "--device", "cpu", *option])
-    assert exit_info.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()
+@pytest.mark.parametrize("option", ["--plan-from", "--plan-strategy", "--cost-table"])
+def test_options_not_ported_are_refused(tmp_path, capsys, monkeypatch, option):
+    """The planner's three options, refused until the packing planner was
+    ported, are taken, each giving the build JAX's plan: ``--plan-from``
+    replays the JAX ``plan`` command's document, ``--plan-strategy packed``
+    and ``--cost-table`` (a calibrated table) write the ``fleet_plan.json``
+    that JAX's ``plan`` prints for the same shard (a one-device JAX mesh,
+    as the port plans)."""
+    from gordo_tpu.cli.cli import gordo_tpu_cli
+    from gordo_tpu.parallel import fleet as jax_fleet
+    from gordo_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from gordo_tpu_torch.planner import CostTable
+
+    monkeypatch.setattr(jax_fleet, "make_mesh", lambda *a, **k: jax_make_mesh(jax.devices()[:1]))
+    shard = _shard(tmp_path, _machine("m-1"), _machine("m-2", train_end_date="2020-01-05T00:00:00+00:00"))
+    table = tmp_path / "table.json"
+    CostTable(run_factors={"fleet_fit": 0.25}, compile_factors={"fleet_fit": 3.0}, samples={"fleet_fit": 4}).save(
+        str(table))
+    jax_args = {"--plan-from": ["--strategy", "packed"], "--plan-strategy": ["--strategy", "packed"],
+                "--cost-table": ["--cost-table", str(table)]}[option]
+    want = CliRunner().invoke(gordo_tpu_cli, ["plan", shard, "--as-json", *jax_args])
+    assert want.exit_code == 0, want.output
+    (tmp_path / "plan.json").write_text(want.stdout)
+    value = {"--plan-from": str(tmp_path / "plan.json"), "--plan-strategy": "packed", "--cost-table": str(table)}
+    out = tmp_path / "out"
+    assert main(["build-fleet", shard, str(out), "--device", "cpu", option, value[option]]) == 0
+    assert (out / "fleet_plan.json").read_text() == want.stdout
+    assert BuildJournal.load(str(out)).plan()["strategy"] == json.loads(want.stdout)["strategy"]
+    assert sorted(p.name for p in out.iterdir() if p.name.startswith("m-")) == ["m-1", "m-2"]
 
 
 def test_resume_and_model_register_dir_are_taken(tmp_path, monkeypatch):

@@ -70,7 +70,7 @@ def test_package_has_modules():
         "telemetry/tracing.py", "telemetry/serving.py", "telemetry/profiler.py", "telemetry/slo.py",
         "utils/profiling.py", "telemetry/aggregate.py", "telemetry/trace_analysis.py",
         "lifecycle/__init__.py", "lifecycle/state.py", "lifecycle/revision.py", "lifecycle/drift.py",
-        "lifecycle/gates.py", "lifecycle/loop.py",
+        "lifecycle/gates.py", "lifecycle/loop.py", "planner/ladder.py", "planner/report.py", "models/packing.py",
     ):
         assert expected in names
     assert (REPO / "gordo_tpu_torch" / "telemetry" / "slos.toml").read_text() == (

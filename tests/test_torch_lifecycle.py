@@ -46,6 +46,7 @@ from gordo_tpu_torch.lifecycle import drift, gates
 from gordo_tpu_torch.machine import Machine
 from gordo_tpu_torch.parallel.fleet import FleetTrainer
 from gordo_tpu_torch.parallel.fleet_build import FleetBuilder, rebuild_stale
+from gordo_tpu_torch.parallel.journal import BuildJournal
 from gordo_tpu_torch.planner import FleetPlan
 from gordo_tpu_torch.server.fleet_store import FleetModelStore
 from gordo_tpu_torch.telemetry import slo
@@ -463,8 +464,8 @@ def test_materialize_buckets_matches_jax(bases):
 
 def test_rebuild_stale_replays_the_base_plan(bases, tmp_path, caplog):
     """``rebuild_stale`` trains the stale member at the base plan's pad
-    target (here one the live packer would not choose); a plan of another
-    strategy is logged and packed live."""
+    target (here one the live packer would not choose); a ``packed`` base
+    plan replays as planned too, its strategy journaled."""
     _, port_base = bases
     with open(os.path.join(port_base, "fleet_plan.json")) as f:
         doc = json.load(f)
@@ -485,10 +486,13 @@ def test_rebuild_stale_replays_the_base_plan(bases, tmp_path, caplog):
     with open(path, "w") as f:
         json.dump(doc, f)
     with caplog.at_level(logging.WARNING):
-        builder = rebuild_stale(port_machines(), ["lc-1"], str(tmp_path / "live"), base_plan_path=path,
+        builder = rebuild_stale(port_machines(), ["lc-1"], str(tmp_path / "packed"), base_plan_path=path,
                                 trainer=port_trainer())
-    assert "strategy 'packed'" in caplog.text and "pack live" in caplog.text
-    assert [fit["rows"] for fit in builder.trainer.fits if fit["names"] == ["lc-1"]] == [live]
+    assert "pack live" not in caplog.text and builder.build_errors == {}
+    assert [fit["rows"] for fit in builder.trainer.fits if fit["names"] == ["lc-1"]] == [2 * live]
+    assert BuildJournal.load(str(tmp_path / "packed")).plan() == {"plan_hash": FleetPlan(doc).plan_hash,
+                                                                   "strategy": "packed"}
+    assert builder.trainer.plan_strategy is None  # the build's strategy does not outlive it
     with pytest.raises(Exception, match="not in the machine set"):
         rebuild_stale(port_machines(), ["lc-7"], str(tmp_path / "unknown"))
 
