@@ -81,7 +81,31 @@ which must launch K2 once, for the feedforward bucket; and ``[lstm
 times]`` times the windowed forward at 1 x 1008 and 16 x 1008 rows for
 lstm_model and the hourglass beside its bound and a cuDNN
 ``torch.nn.LSTM`` stack of the same layers (the yardstick, used nowhere
-in the package).
+in the package). Before serving, ``[lstm]`` builds the same shard again
+with ``GORDO_TPU_LSTM_SEGMENTED=4`` (``LSTM_SEGMENTS``; PR 18): its CV
+folds stay windowed, every final fit must be segmented; it prints the
+build's seconds beside the windowed build's, each group's final fit ms
+an update against the windowed final fit's ms a step, and one segmented
+update at the CV step's members (launches, kernel, device and host ms,
+idle share) beside the windowed CV step; it holds ``LSTM_CPU_CHECK``'s
+segmented card build to a segmented CPU build within
+``LSTM_BUILD_LIMITS`` (a machine whose params pass the limit is held to
+an f64 fit of the same member instead: the card at most ``F64_MULTIPLE``
+times the CPU's distance), and a G = B bucket on the card to the
+windowed fit.
+
+``[arrow]`` (after ``[slo]``, on ``[serve]``'s app and socket; PR 18)
+sends a 20-tag and a 40-tag anomaly request, a 20-tag and a 40-tag
+``/prediction``, the 64-machine fleet request and two stream ingests of
+64 rows a machine first as JSON, then as Arrow IPC bodies (``Accept``
+the Arrow stream type; ``GDTAF1`` containers for the fleet and the
+stream). Each Arrow answer, read by the port's ``decode_response`` and
+``unpack_streams``, must equal its JSON twin to the bit (floats, index,
+``start``/``end``, revision, the fleet's errors, the acks); it prints
+both's ``Server-Timing`` stages and bytes; K1 must launch once a
+per-model request and K2 once for the fleet request and once a flush.
+Those K1 and K2 calls are held to the plain versions and timed under
+``[times]`` and have rows of their own in the kernel JSON.
 
 ``[sequential]`` (after ``[lstm]``) drives the sequential build and the fleet
 build's crash recovery. It builds three machines one at a time with
@@ -214,11 +238,12 @@ the counter); ``fleet_health.json``'s 72 machines, each with its
 ``metadata.json``'s final loss; ``fleet_plan.json``'s naive buckets equal
 to the final fits the trainer ran; the ``device_utilization`` peak
 against ``torch.cuda.max_memory_allocated()``; ``GET .../build-status``
-over the socket equal to the file. It then builds the same shard twice
+over the socket equal to the file. It then builds the same shard once
 more, with ``GORDO_TPU_TELEMETRY=0`` (no trace, status or ledger; the
-same plan written) and with telemetry on (their launches are the kernel
-JSON's ``telemetry`` path), and prints the three wall times, the trace's
-bytes and the status writes a second. The kill drill of ``[sequential]`` also checks the killed
+same plan written; its launches are the kernel JSON's ``telemetry``
+path), and prints both wall times (a second build with telemetry on was
+cut in PR 18 to keep the smoke's time), the trace's bytes and the status
+writes a second. The kill drill of ``[sequential]`` also checks the killed
 build's ``build_status.json`` (``running``, 6 completed) and the
 resumed one's (``complete``).
 
@@ -262,9 +287,9 @@ which ``[kernel]`` also holds against the plain version.
 ``[metrics]`` lines read the Prometheus exposition
 (``gordo_tpu_torch/server/prometheus/``) inside three phases, each
 number held to what was built or sent. In ``[telemetry]``, the process
-registry after the telemetry-on build: the build's machine gauges (72, 72,
-0), each phase histogram's count against the ``build_phase`` spans of the
-two traces ([train]'s and this one; the phases of ``build_status.json``),
+registry after [train]'s build and the telemetry-off one: the build's
+machine gauges (72, 72, 0), each phase histogram's count against the
+``build_phase`` spans of [train]'s trace (the phases of ``build_status.json``),
 the compile histogram's count against the ``device_program`` first calls,
 the final-loss count against the members trained, the plan's predicted
 seconds against ``fleet_plan.json``. In ``[slo]``, the drill's card app has
@@ -1070,8 +1095,8 @@ def build_series_metrics(builds, machines):
     phase histogram's count against the ``build_phase`` spans of its trace
     (the phases of its ``build_status.json``), the compile histogram's
     against its ``device_program`` first calls, the final-loss count
-    against its members trained; after the last, the machine gauges and
-    the predicted seconds against ``fleet_plan.json``."""
+    against its members trained; right after the last, the machine gauges
+    and the predicted seconds against ``fleet_plan.json``."""
     from gordo_tpu_torch import telemetry
     from gordo_tpu_torch.planner import FleetPlan
 
@@ -1102,15 +1127,16 @@ def build_series_metrics(builds, machines):
         trained += sum(1 for s in spans if s["name"] == "member_trained")
     check(compiles == compile_spans, f"{compiles} compile observations, {compile_spans} device_program first calls")
     check(losses == trained == len(builds) * machines, f"{losses} final losses observed, {trained} members trained")
-    machines_series = {k: summed(samples, f"gordo_fleet_build_machines_{k}", project="smoke")
+    last = builds[-1][1]  # the registry right after the last telemetry-on build
+    machines_series = {k: summed(last, f"gordo_fleet_build_machines_{k}", project="smoke")
                        for k in ("total", "completed", "failed")}
     check(machines_series == {"total": machines, "completed": machines, "failed": 0},
           f"gordo_fleet_build_machines_* {machines_series}, the build {machines} machines, none failed")
     planned = FleetPlan.load(os.path.join(builds[-1][2], "fleet_plan.json")).totals["predicted_wall_s"]
-    predicted = summed(samples, "gordo_fleet_plan_predicted_seconds", project="smoke", strategy="naive")
+    predicted = summed(last, "gordo_fleet_plan_predicted_seconds", project="smoke", strategy="naive")
     check(predicted == planned, f"gordo_fleet_plan_predicted_seconds {predicted}, fleet_plan.json {planned}")
     phase("metrics", f"[telemetry] the process registry in {render_ms:.2f} ms ({len(samples)} samples): what "
-          f"[train]'s build and the telemetry-on one added: phase histogram counts "
+          f"[train]'s build added: phase histogram counts "
           f"{dict(sorted(phase_counts.items()))} = their traces' build_phase spans (the phases of each "
           f"build_status.json); compile observations {compiles:.0f} = device_program first calls; final losses "
           f"{losses:.0f} = members trained; after the last, machines total/completed/failed {machines_series} and "
@@ -1126,10 +1152,10 @@ def telemetry_phase(work_dir, directory, train_build, train_launches, card):
     losses (each machine's ``metadata.json``); the plan's buckets (ids and
     members of the final fits the trainer ran); the ``device_utilization`` peak against
     the allocator's; ``build-status`` over HTTP equal to the file. Then
-    the same shard built twice more, with ``GORDO_TPU_TELEMETRY=0`` (no
-    trace, status or ledger; the same plan written) and with it on; the
-    three wall times printed. Returns the K1 and K2 launches of those two
-    builds."""
+    the same shard built once more, with ``GORDO_TPU_TELEMETRY=0`` (no
+    trace, status or ledger; the same plan written), its wall time beside
+    [train]'s (telemetry on). Returns the K1 and K2 launches of that
+    build."""
     import torch
 
     from gordo_tpu_torch import serializer, telemetry
@@ -1229,49 +1255,42 @@ def telemetry_phase(work_dir, directory, train_build, train_launches, card):
     check(code == 200 and served == {**status, "revision": REVISION}, "GET build-status differs from the file")
     phase("telemetry", f"GET /gordo/v0/smoke/build-status: 200, the file's document (and the revision)")
 
-    # the same shard again, telemetry off, then on: the off build between two on builds
-    builds = {}
+    # the same shard again with telemetry off, beside [train]'s build (telemetry on): one build, not an on
+    # build after the off one, to keep the smoke under its time (PR 18)
     fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
-    for label, value in (("off", "0"), ("on", "1")):
-        out = os.path.join(work_dir, f"telemetry-{label}", REVISION)
-        previous = os.environ.get(telemetry.TELEMETRY_ENV)
-        os.environ[telemetry.TELEMETRY_ENV] = value
-        try:
-            series_before = registry_samples()
-            t0 = time.perf_counter()
-            code, again = build_fleet(shard, out, device="cuda")
-            torch.cuda.synchronize()
-            builds[label] = (time.perf_counter() - t0, again)
-            if label == "on":
-                on_series = (series_before, registry_samples(), out)
-        finally:
-            if previous is None:
-                os.environ.pop(telemetry.TELEMETRY_ENV)
-            else:
-                os.environ[telemetry.TELEMETRY_ENV] = previous
-        check(code == 0 and not again.build_errors, f"the telemetry-{label} build exited {code}")
-        written = [n for n in TELEMETRY_FILES if os.path.exists(os.path.join(out, n))]
-        want = ["fleet_plan.json"] if label == "off" else list(TELEMETRY_FILES)
-        check(written == want, f"with GORDO_TPU_TELEMETRY={value} the build wrote {written}")
-        check(FleetPlan.load(os.path.join(out, "fleet_plan.json")).plan_hash == plan.plan_hash,
-              f"the telemetry-{label} build planned another fleet_plan.json")
+    out = os.path.join(work_dir, "telemetry-off", REVISION)
+    previous = os.environ.get(telemetry.TELEMETRY_ENV)
+    os.environ[telemetry.TELEMETRY_ENV] = "0"
+    try:
+        t0 = time.perf_counter()
+        code, off_builder = build_fleet(shard, out, device="cuda")
+        torch.cuda.synchronize()
+        off_wall = time.perf_counter() - t0
+    finally:
+        if previous is None:
+            os.environ.pop(telemetry.TELEMETRY_ENV)
+        else:
+            os.environ[telemetry.TELEMETRY_ENV] = previous
+    check(code == 0 and not off_builder.build_errors, f"the telemetry-off build exited {code}")
+    written = [n for n in TELEMETRY_FILES if os.path.exists(os.path.join(out, n))]
+    check(written == ["fleet_plan.json"], f"with GORDO_TPU_TELEMETRY=0 the build wrote {written}")
+    check(FleetPlan.load(os.path.join(out, "fleet_plan.json")).plan_hash == plan.plan_hash,
+          "the telemetry-off build planned another fleet_plan.json")
     launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
-    check(launches == {k: 2 * n for k, n in train_launches.items()},
-          f"the two builds launched {launches}, [train]'s one {train_launches}")
+    check(launches == train_launches, f"the telemetry-off build launched {launches}, [train]'s {train_launches}")
 
     def describe(seconds, built):
         phase_s = built.phase_seconds
         return (f"{seconds:.2f} s (without data_fetch {seconds - phase_s['data_fetch']:.2f} s; cv_train "
                 f"{phase_s['cv_train']:.3f}, final_fit {phase_s['final_fit']:.3f}, dump {phase_s['dump']:.3f})")
 
-    build_series_metrics([train_series, on_series], len(machines))
+    build_series_metrics([train_series], len(machines))
 
-    (off_wall, off_builder), (on_wall, on_builder) = builds["off"], builds["on"]
     phase("telemetry", f"the same {len(machines)} machines built again, telemetry on ([train]) "
-          f"{describe(wall, builder)}, off {describe(off_wall, off_builder)}, on {describe(on_wall, on_builder)}: "
-          f"on - off {on_wall - off_wall:+.2f} s, {(on_wall - off_wall) / off_wall:+.1%} (one pair; [train]'s build "
-          f"ran first, with cold file caches); with GORDO_TPU_TELEMETRY=0 only fleet_plan.json beside the machines, "
-          f"the same plan hash; K1 launches {launches['K1']}, K2 {launches['K2']} in the two builds; {card}")
+          f"{describe(wall, builder)}, off {describe(off_wall, off_builder)}: on - off {wall - off_wall:+.2f} s, "
+          f"{(wall - off_wall) / off_wall:+.1%} (one pair; [train]'s build ran first, with cold file caches); with "
+          f"GORDO_TPU_TELEMETRY=0 only fleet_plan.json beside the machines, the same plan hash; K1 launches "
+          f"{launches['K1']}, K2 {launches['K2']} in the off build; {card}")
     return launches
 
 
@@ -1413,6 +1432,9 @@ LSTM_SEED = 700
 LSTM_FF_MACHINES = ("machine-000", "machine-001", "machine-002", "machine-003")
 #: machines built again on the CPU, one an architecture
 LSTM_CPU_CHECK = ("lstm-hourglass-000", "lstm-forecast-000", "lstm-model-000")
+#: segments an update of [lstm]'s segmented build (GORDO_TPU_LSTM_SEGMENTED):
+#: 4 segments of 8 windows, a span of 8 + 10 - 1 = 17 rows
+LSTM_SEGMENTS = 4
 
 
 def lstm_machines():
@@ -1507,6 +1529,30 @@ def lstm_step(spec, members):
         return fit.train_step(params, state, xb, yb, wb, active)
 
     return step
+
+
+def segmented_step(spec, members, segments=LSTM_SEGMENTS):
+    """One update of the segmented fit on the card, as a closure:
+    ``members`` members of ``spec``, Adam, the update's 32 windows as
+    ``segments`` segments of a seeded 2000-row series (``SegmentedFit``'s
+    own indices), the twin of :func:`lstm_step`."""
+    import torch
+
+    from gordo_tpu_torch.models.training import FitConfig, SegmentedFit, TorchRandom
+    from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+    fit = SegmentedFit(spec, FitConfig(epochs=LSTM_EPOCHS, batch_size=32, shuffle=False), segments)
+    params = stack_member_params([TorchRandom().init_params(spec, s) for s in range(members)], "cuda")
+    for leaf in fit.leaves(params):
+        leaf.requires_grad_(True)
+    state = fit.optimizer.init(fit.leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    series = torch.rand(members, TRAIN_ROWS, spec.n_features, generator=gen).cuda()
+    targets = series[:, spec.lookback_window - 1:]
+    rows, windows = fit.indices(1, series.shape[1], targets.shape[1], "cuda")
+    wb = torch.ones(members, 32, device="cuda")
+    active = torch.ones(members, dtype=torch.bool, device="cuda")
+    return lambda: fit.train_step(params, state, series[:, rows[0]], targets[:, windows[0]], wb, active)
 
 
 def profile_step(step, steps=5):
@@ -1691,6 +1737,7 @@ def lstm_build(work_dir, card):
           f"{steps / fit_s:.1f} steps a second, {1e3 * fit_s / steps:.3f} ms a step on the host clock, "
           f"{event_ms / steps:.3f} ms between CUDA events; per fit ms a step between events "
           f"{[round(f['event_ms'] / f['steps'], 3) for f in fits]}; {card}")
+    cv_steps = {}
     for (prefix, count, *_), fit in zip(LSTM_GROUPS, fits):
         spec = serializer.load(os.path.join(directory, f"{prefix}-000"), "cpu").base_estimator.estimator.spec_
         step = lstm_step(spec, 3 * count)
@@ -1698,6 +1745,7 @@ def lstm_build(work_dir, card):
         host_ms = host_step_ms(step)
         step_launches, kernel_ms = profile_step(step)
         fit_ms = fit["event_ms"] / fit["steps"]
+        cv_steps[prefix] = (spec, step_launches, kernel_ms, device_ms, host_ms)
         # a step of more launches than the card's queue holds lets the host pace
         # the sleep-hidden timing too: the profiler's kernel time is the device's busy time
         phase("lstm", f"one CV step of {prefix} ({3 * count} members x 32 windows, dims {spec.dims}): "
@@ -1716,8 +1764,196 @@ def lstm_build(work_dir, card):
           f"max rel {worst[1]:.3e} (limit {LSTM_BUILD_LIMITS[1]}), CV scores max |d| / (1 + |cpu|) "
           f"{worst[2]:.3e} (limit {LSTM_BUILD_LIMITS[2]}), epochs run and model_offset equal")
     check(not faults, "card LSTM build disagrees with the CPU's: " + "; ".join(faults[:5]))
+    segmented_launches = lstm_segmented(work_dir, shard, (builder, wall, directory, cv_steps), card)
+    launches = {k: launches[k] + segmented_launches[k] for k in launches}
     seeds = {name: LSTM_SEED + i for i, (name, _, _) in enumerate(machines)}
     return directory, seeds, launches, 1e3 * wall / len(rows)
+
+
+def lstm_segmented(work_dir, shard, windowed, card):
+    """``[lstm]``'s segmented build: the same shard built again on the card
+    with ``GORDO_TPU_LSTM_SEGMENTED=LSTM_SEGMENTS``. The CV folds (fold
+    weights) keep the windowed fit, as in JAX; every final fit must be
+    segmented. Prints the build's seconds beside the windowed build's,
+    each group's final fit ms an update against the windowed build's ms a
+    step (CUDA events), and one segmented update at the CV step's members
+    beside the windowed CV step measured before it (``windowed``'s
+    readings): kernel launches and kernel ms (``torch.profiler``), device
+    ms and host ms, the device's idle share. Holds LSTM_CPU_CHECK's
+    segmented card build to the CPU within LSTM_BUILD_LIMITS: its
+    thresholds and CV scores (the windowed CV folds) to the windowed card
+    build's, itself held to a CPU build before; its final fits to the
+    same segmented fits run on the CPU from the inputs the card's took (a
+    machine whose params pass the limit is held to an f64 fit of the same
+    member: the card at most F64_MULTIPLE times the CPU's distance).
+    Returns K1's and K2's launches."""
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.cli.cli import build_fleet
+    from gordo_tpu_torch.models.training import SegmentedFit
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+
+    windowed_builder, windowed_wall, windowed_dir, cv_steps = windowed
+    directory = os.path.join(work_dir, "lstm-segmented", REVISION)
+    os.environ["GORDO_TPU_LSTM_SEGMENTED"] = str(LSTM_SEGMENTS)
+    try:
+        with captured_segmented_fits() as final_fits:
+            fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+            t0 = time.perf_counter()
+            code, builder = build_fleet(shard, directory, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    finally:
+        os.environ.pop("GORDO_TPU_LSTM_SEGMENTED")
+    check(code == 0 and not builder.build_errors, f"segmented build-fleet exited {code}: {builder.build_errors}")
+
+    def final(fits):  # a CV fold's member is named machine::fold
+        return [f for f in fits if not any("::" in n for n in f["names"])]
+
+    cv = [f for f in builder.trainer.fits if f not in final(builder.trainer.fits)]
+    segmented, windowed_final = final(builder.trainer.fits), final(windowed_builder.trainer.fits)
+    check(len(segmented) == len(windowed_final) == len(LSTM_GROUPS)
+          and all(f["segmented"] == LSTM_SEGMENTS for f in segmented) and not any(f["segmented"] for f in cv),
+          f"segmented build: final fits {[f['segmented'] for f in segmented]}, CV fits {[f['segmented'] for f in cv]}")
+    phase("lstm", f"segmented build-fleet (GORDO_TPU_LSTM_SEGMENTED={LSTM_SEGMENTS}) of the same shard on the card "
+          f"in {wall:.2f} s against the windowed build's {windowed_wall:.2f} s: {build_phases(builder)}; "
+          f"{len(cv)} CV fits windowed (fold weights), {len(segmented)} final fits segmented; K1 launches "
+          f"{launches['K1']}, K2 {launches['K2']}; {card}")
+    for (prefix, count, *_), seg, win in zip(LSTM_GROUPS, segmented, windowed_final):
+        spec, w_launch, w_kernel, w_device, w_host = cv_steps[prefix]
+        step = segmented_step(spec, 3 * count)
+        s_device = step_device_ms(step)
+        s_host = host_step_ms(step, steps=5)
+        s_launch, s_kernel = profile_step(step, steps=3)
+        ratio = seg["event_ms"] * win["steps"] / (seg["steps"] * win["event_ms"])
+        phase("lstm", f"{prefix} final fit ({count} members, batch 32): segmented {seg['steps']} updates at "
+              f"{seg['event_ms'] / seg['steps']:.3f} ms an update between events, windowed {win['steps']} steps "
+              f"at {win['event_ms'] / win['steps']:.3f} ms (x{ratio:.2f}); one update at the CV step's {3 * count} "
+              f"members: segmented {s_launch:.0f} launches, {s_kernel:.3f} ms of kernel time, {s_device!r} ms "
+              f"device, {s_host:.3f} ms host, idle ~{1 - s_kernel / s_host:.0%}; the windowed CV step "
+              f"{w_launch:.0f} launches, {w_kernel:.3f} ms kernel, {w_device!r} ms device, {w_host:.3f} ms host, "
+              f"idle ~{1 - w_kernel / w_host:.0%} (launches x{s_launch / w_launch:.2f}, host ms "
+              f"x{s_host / w_host:.2f}, kernel ms x{s_kernel / w_kernel:.2f}); {card}")
+
+    def summaries(root):
+        return {name: build_summary(serializer.load(os.path.join(root, name), "cpu"),
+                                    serializer.load_metadata(os.path.join(root, name))) for name in LSTM_CPU_CHECK}
+
+    card_segmented, card_windowed = summaries(directory), summaries(windowed_dir)
+    # the final fits differ by design: only the CV's thresholds and scores are held to the windowed build's
+    cv_worst, faults = compare_builds(card_segmented, card_windowed,
+                                      (float("inf"), LSTM_BUILD_LIMITS[1], LSTM_BUILD_LIMITS[2]))
+    t0 = time.perf_counter()
+    distances, held = {}, {}
+    for name in LSTM_CPU_CHECK:
+        spec, config, segments, series, targets, wtr, wval, init = final_fits[name]
+        params = {k: {n: t.clone() for n, t in layer.items()} for k, layer in init.items()}
+        cpu = SegmentedFit(spec, config, segments).run(params, series, targets, wtr, wval).params
+        cpu = {k: {n: t[0].numpy() for n, t in layer.items()} for k, layer in cpu.items()}
+        got = card_segmented[name]["params"]
+        distances[name] = max(float(abs(got[k][n] - cpu[k][n]).max()) for k, layer in cpu.items() for n in layer)
+        if distances[name] > LSTM_BUILD_LIMITS[0]:
+            # a segmented fit's own f32 rounding can pass the limit (a span of 17 steps carries more of it than a
+            # window of 10): such a machine is held to an f64 fit of the same member instead
+            held[name] = f64_held_params(final_fits[name], got, cpu)
+    cpu_s = time.perf_counter() - t0
+    phase("lstm", f"segmented card build of {', '.join(LSTM_CPU_CHECK)}: thresholds max rel {cv_worst[1]:.3e} and CV "
+          f"scores max |d| / (1 + |windowed|) {cv_worst[2]:.3e} from the windowed card build's (limits "
+          f"{LSTM_BUILD_LIMITS[1]}, {LSTM_BUILD_LIMITS[2]}); each final fit run again on the CPU from the card's "
+          f"inputs ({cpu_s:.2f} s): params max abs {', '.join(f'{n} {d:.3e}' for n, d in distances.items())} "
+          f"(limit {LSTM_BUILD_LIMITS[0]}); past it, held to an f64 fit of the same member (the card at most "
+          f"{F64_MULTIPLE} x the CPU's distance or the limit): "
+          + (", ".join(f"{name} card {c:.3e}, CPU {p:.3e}" for name, (c, p) in held.items()) or "none"))
+    check(not faults, "segmented card build's CV disagrees with the windowed one's: " + "; ".join(faults[:5]))
+    for name, (card_err, cpu_err) in held.items():
+        limit = F64_MULTIPLE * max(cpu_err, LSTM_BUILD_LIMITS[0])
+        check(card_err <= limit, f"{name}: the card's segmented params {card_err:.3e} from the f64 fit, the CPU's "
+              f"{cpu_err:.3e} (limit {limit:.3e})")
+    segments_equal_windows(card)
+    return launches
+
+
+@contextlib.contextmanager
+def captured_segmented_fits():
+    """During a build: each segmented final fit's inputs by member name,
+    ``(spec, config, segments, series, targets, wtr, wval, initial params)``
+    of that member alone."""
+    from gordo_tpu_torch.models.training import SegmentedFit
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer, stack_member_params
+
+    fits, fit_bucket = {}, FleetTrainer._fit_bucket
+
+    def captured(self, bucket, config, fit, data, wtr, wval, *args, **kwargs):
+        if isinstance(fit, SegmentedFit):
+            for i, member in enumerate(bucket):
+                init = stack_member_params([self.random.init_params(fit.spec, member.seed)], "cpu")
+                fits[member.name] = (fit.spec, config, fit.segments, *(t[i:i + 1].cpu().clone() for t in data),
+                                     wtr[i:i + 1].cpu().clone(), wval[i:i + 1].cpu().clone(), init)
+        return fit_bucket(self, bucket, config, fit, data, wtr, wval, *args, **kwargs)
+
+    FleetTrainer._fit_bucket = captured
+    try:
+        yield fits
+    finally:
+        FleetTrainer._fit_bucket = fit_bucket
+
+
+def f64_held_params(inputs, card, cpu):
+    """``(card's, CPU's)`` largest params distance from the same segmented
+    fit run in float64 on the CPU (``compute_dtype`` float64, f64 params;
+    the head's output is cast to f32 before the loss)."""
+    import dataclasses
+
+    from gordo_tpu_torch.models.training import SegmentedFit
+
+    spec, config, segments, series, targets, wtr, wval, init = inputs
+    params = {k: {n: t.double().clone() for n, t in layer.items()} for k, layer in init.items()}
+    exact = SegmentedFit(dataclasses.replace(spec, compute_dtype="float64"), config, segments).run(
+        params, series.double(), targets.double(), wtr.double(), wval.double()).params
+
+    def distance(got):
+        return max(float(abs(got[k][n] - exact[k][n][0].numpy()).max()) for k, layer in got.items() for n in layer)
+
+    return distance(card), distance(cpu)
+
+
+def segments_equal_windows(card):
+    """One bucket on the card (3 lstm_hourglass(20) members of 300 rows, a
+    validation split) trained by the segmented fit at G = B (one window a
+    segment, each starting cold) and by the windowed fit from the same
+    params: losses, val losses and params within LSTM_BUILD_LIMITS."""
+    import torch
+
+    from gordo_tpu_torch.models.factories import lstm_hourglass
+    from gordo_tpu_torch.models.training import FitConfig, SegmentedFit, TorchRandom, WindowedFit
+    from gordo_tpu_torch.parallel.fleet import stack_member_params
+
+    spec = lstm_hourglass(20, lookback_window=10, encoding_layers=2)
+    config = FitConfig(epochs=2, batch_size=32, validation_split=0.2, shuffle=False)
+    series = torch.stack([torch.from_numpy(sensor_data(900 + m, 300, 20)) for m in range(3)]).float().cuda()
+    targets = series[:, spec.lookback_window - 1:]
+    nw = targets.shape[1]
+    nv = -(-nw // 32) * 32
+    n_val = int(nw * config.validation_split)
+    wtr = torch.zeros(3, nv, device="cuda")
+    wval = torch.zeros_like(wtr)
+    wtr[:, :nw - n_val], wval[:, nw - n_val:nw] = 1.0, 1.0
+    init = [TorchRandom().init_params(spec, seed) for seed in range(3)]
+    order = torch.arange(nv, device="cuda").clamp(max=nw - 1).repeat(3, 1)
+    windowed = WindowedFit(spec, config).run(stack_member_params(init, "cuda"), series, targets, order, wtr, wval,
+                                             None)
+    segmented = SegmentedFit(spec, config, 32).run(stack_member_params(init, "cuda"), series, targets, wtr, wval)
+    params = max(float((segmented.params[k][n] - leaf).abs().max())
+                 for k, layer in windowed.params.items() for n, leaf in layer.items())
+    losses = max(float(((got - want).abs() / want.abs()).max()) for got, want in (
+        (segmented.losses, windowed.losses), (segmented.val_losses, windowed.val_losses)))
+    check(params <= LSTM_BUILD_LIMITS[0] and losses <= LSTM_BUILD_LIMITS[1],
+          f"segmented fit at G = B differs from the windowed fit: params {params}, losses {losses} (relative)")
+    phase("lstm", f"segmented fit at G = B = 32 against the windowed fit on the card (3 lstm_hourglass(20) members, "
+          f"{nw} windows, 2 epochs, a validation split): params max abs {params:.3e} (limit {LSTM_BUILD_LIMITS[0]}), "
+          f"losses and val losses max rel {losses:.3e} (limit {LSTM_BUILD_LIMITS[1]}); {card}")
 
 
 def f64_held(cpu_data, data, reference, path):
@@ -1964,18 +2200,19 @@ def post(url, payload):
     return status, json.loads(body), (time.perf_counter() - t0) * 1e3
 
 
-def wsgi_call(app, method, path, payload=None, query="", headers=None):
+def wsgi_call(app, method, path, payload=None, query="", headers=None, raw=None, content_type="application/json"):
     """One request straight into a WSGI app, without a socket: ``(status,
-    body bytes)``."""
+    body bytes)``; ``raw`` bytes are sent as they are instead of
+    ``payload``'s JSON."""
     import io
     from wsgiref.util import setup_testing_defaults
 
-    body = b"" if payload is None else json.dumps(payload).encode()
+    body = raw if raw is not None else b"" if payload is None else json.dumps(payload).encode()
     environ = {}
     setup_testing_defaults(environ)
     environ.update(
         REQUEST_METHOD=method, PATH_INFO=path, QUERY_STRING=query, CONTENT_LENGTH=str(len(body)),
-        CONTENT_TYPE="application/json", **{"wsgi.input": io.BytesIO(body)},
+        CONTENT_TYPE=content_type, **{"wsgi.input": io.BytesIO(body)},
         **{"HTTP_" + k.upper().replace("-", "_"): v for k, v in (headers or {}).items()},
     )
     status = []
@@ -1990,6 +2227,20 @@ def wsgi_post(app, path, payload):
     """One POST straight into a WSGI app: ``(status, parsed JSON)``."""
     status, body = wsgi_call(app, "POST", path, payload)
     return status, json.loads(body)
+
+
+def wsgi_arrow(app, path, payload):
+    """``payload`` (``{"X": frame, "y"?: frame}``) POSTed straight into a
+    WSGI app as an Arrow body, answered as Arrow: ``(status, {"data":
+    tree})``, the tree the JSON route answers (``arrow_tree``; ``[arrow]``
+    holds the two equal to the bit), for a tenth of the JSON codec's host
+    time."""
+    from gordo_tpu_torch.server import wire
+
+    y = payload.get("y")
+    body = wire.encode_request(wire.decode_frame(payload["X"]), None if y is None else wire.decode_frame(y))
+    status, answer = wsgi_call(app, "POST", path, raw=body, content_type=ARROW_TYPE, headers={"Accept": ARROW_TYPE})
+    return status, {"data": arrow_tree(wire.decode_response(answer)[0])} if status == 200 else json.loads(answer)
 
 
 def http_call(url, method="GET"):
@@ -2104,6 +2355,206 @@ def check_answers(requests, answers, names, n_tags, cpu_app):
             phase("serve", f"POST {path} ({len(names)} machines x {ROWS} rows): 200 in {ms:.1f} ms")
         max_diff = max(max_diff, same_json(cpu_body["data"], data))
     return max_diff
+
+
+ARROW_TYPE = "application/vnd.apache.arrow.stream"
+#: [arrow]'s K1 and K2 calls on the card, by what they scored: each is held
+#: against the plain version and timed in [times]
+ARROW_CASES = {
+    "K1 narrow": "arrow anomaly and prediction: hourglass20 gather M=1 B=1008 +ingest",
+    "K1 wide": "arrow anomaly and prediction: hourglass40 gather M=1 B=1008 +ingest",
+    "K2 fleet": "K2 arrow fleet: hourglass20 M=64 B=1008 y=X +ingest",
+    "K2 flush": "K2 arrow stream flush: hourglass20 M=64 B=64 y=X +ingest",
+}
+
+
+def raw_post(url, body, content_type, accept=None):
+    """One POST of raw bytes over the socket, any status: ``(status, body
+    bytes, headers, host ms)``."""
+    headers = {"Content-Type": content_type, **({"Accept": accept} if accept else {})}
+    request = urllib.request.Request(url, data=body, method="POST", headers=headers)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=300) as response:
+            status, data, got = response.status, response.read(), dict(response.headers)
+    except urllib.error.HTTPError as error:
+        status, data, got = error.code, error.read(), dict(error.headers)
+    return status, data, got, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def captured_store_kernels():
+    """While open, each K1 and K2 call of the store on the card as
+    ``(kernel, case, launches it made)``, its indices as a list."""
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server import fleet_store
+
+    calls, originals = [], (fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores)
+
+    def listed(indices):
+        return None if indices is None else [int(i) for i in (indices.tolist() if hasattr(indices, "tolist")
+                                                                else indices)]
+
+    def k1(spec, stacked, X, indices=None, ingest=None, *args, **kwargs):
+        before = fleet_feedforward.launches
+        out = originals[0](spec, stacked, X, indices, ingest, *args, **kwargs)
+        if X.is_cuda:
+            calls.append(("K1", dict(spec=spec, bucket=stacked, X=X, indices=listed(indices), ingest=ingest),
+                          fleet_feedforward.launches - before))
+        return out
+
+    def k2(spec, stacked, X, y, indices=None, ingest=None, *args, **kwargs):
+        before = fleet_anomaly_scores.launches
+        out = originals[1](spec, stacked, X, y, indices, ingest, *args, **kwargs)
+        if X.is_cuda:
+            calls.append(("K2", dict(spec=spec, bucket=stacked, X=X, y=y, indices=listed(indices), ingest=ingest),
+                          fleet_anomaly_scores.launches - before))
+        return out
+
+    fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores = k1, k2
+    try:
+        yield calls
+    finally:
+        fleet_store.fleet_feedforward, fleet_store.fleet_anomaly_scores = originals
+
+
+def arrow_tree(table):
+    """A decoded Arrow response table as the JSON route's ``data`` tree:
+    ``{group: {sub (the group for a scalar one): {index key: value}}}``,
+    NaN and nulls as None."""
+    import math
+
+    from gordo_tpu_torch.server.wire import index_wire_keys
+
+    keys = index_wire_keys(table.index)
+    tree = {}
+    for column in table.columns:
+        values = [None if v is None or (isinstance(v, float) and math.isnan(v)) else v
+                  for v in column.values.tolist()]
+        tree.setdefault(column.group, {})[column.sub or column.group] = dict(zip(keys, values))
+    return tree
+
+
+def same_tree(expected, got, path):
+    """Nested objects equal to the bit: the same keys in the same order."""
+    if isinstance(expected, dict):
+        check(isinstance(got, dict) and list(got) == list(expected), f"{path}: keys differ")
+        for key in expected:
+            same_tree(expected[key], got[key], f"{path}/{key}")
+    else:
+        check(got == expected and type(got) is type(expected), f"{path}: {got!r} vs {expected!r}")
+
+
+def stage_text(headers):
+    stages, wall_ms, _ = server_timing(headers)
+    return (", ".join(f"{name} {stages[name]:.2f}" for name in ("data_decode", "inference", "response_assemble",
+                                                                  "serialize") if name in stages)
+            + f" ms, walltime {wall_ms:.1f} ms")
+
+
+def arrow_phase(base, names, wide_names, card):
+    """``[arrow]`` on the card's app at ``base`` ([serve]'s, no new build):
+    a 20-tag and a 40-tag anomaly request, a 20-tag and a 40-tag
+    ``/prediction``, a fleet request for the 64 20-tag machines and two
+    stream ingests of 64 rows a machine, each sent as JSON and then as
+    Arrow (``Content-Type`` and ``Accept`` of the Arrow stream type; the
+    fleet and stream bodies ``GDTAF1`` containers). Every Arrow answer,
+    decoded by the port's ``decode_response``/``unpack_streams``, must equal
+    the JSON answer of the same request to the bit: floats, index,
+    ``start``/``end``, revision, the fleet trailer's errors, the stream's
+    acks. Prints each pair's ``Server-Timing`` stages and bytes. Counts K1
+    and K2 over the Arrow run (one K1 a per-model request, one K2 for the
+    fleet request, one a flush) and returns them with the captured
+    kernel calls."""
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server import wire
+
+    def arrow_body(X, y=None):
+        return wire.encode_request(wire.decode_frame(X), None if y is None else wire.decode_frame(y))
+
+    wide_frame = own_frame(wide_names[5], WIDE_TAGS)
+    single = [
+        ("20-tag anomaly", f"/{names[0]}/anomaly/prediction", request_frame(500), request_frame(500)),
+        ("40-tag anomaly", f"/{wide_names[5]}/anomaly/prediction", wide_frame, wide_frame),
+        ("20-tag prediction", f"/{names[17]}/prediction", request_frame(501), None),
+        ("40-tag prediction", f"/{wide_names[2]}/prediction", own_frame(wide_names[2], WIDE_TAGS), None),
+    ]
+    fleet_frames = {n: request_frame(100 + i) for i, n in enumerate(names)}
+    stream_posts = [{n: request_frame(600 + 10 * step + i, STREAM_WINDOW, step * STREAM_WINDOW)
+                     for i, n in enumerate(names)} for step in range(2)]
+
+    json_answers = {label: raw_post(base + path, json.dumps({"X": X} if y is None else {"X": X, "y": y}).encode(),
+                                    "application/json") for label, path, X, y in single}
+    json_answers["64-machine fleet"] = raw_post(base + "/prediction/fleet", json.dumps({"X": fleet_frames}).encode(),
+                                                "application/json")
+    json_acks = [raw_post(base + "/stream/arrow-json/ingest", json.dumps({"X": frames}).encode(), "application/json")
+                 for frames in stream_posts]
+    t0 = time.perf_counter()
+    bodies = {label: arrow_body(X, y) for label, _, X, y in single}
+    bodies["64-machine fleet"] = wire.pack_streams({n: arrow_body(f) for n, f in fleet_frames.items()})
+    stream_bodies = [wire.pack_streams({n: arrow_body(f) for n, f in frames.items()}) for frames in stream_posts]
+    encode_ms = (time.perf_counter() - t0) * 1e3
+
+    with captured_store_kernels() as calls:
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        arrow_answers = {label: raw_post(base + path, bodies[label], ARROW_TYPE, ARROW_TYPE)
+                         for label, path, _, _ in single}
+        arrow_answers["64-machine fleet"] = raw_post(base + "/prediction/fleet", bodies["64-machine fleet"],
+                                                     ARROW_TYPE, ARROW_TYPE)
+        arrow_acks = [raw_post(base + "/stream/arrow/ingest", body, ARROW_TYPE) for body in stream_bodies]
+        launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    expected = {"K1": len(single), "K2": 1 + len(stream_posts)}
+    check(launches == expected, f"[arrow]'s Arrow requests launched {launches}, not {expected}")
+
+    for label, (status, body, headers, ms) in arrow_answers.items():
+        json_status, json_body, json_headers, json_ms = json_answers[label]
+        check(status == json_status == 200 and headers["Content-Type"] == ARROW_TYPE,
+              f"{label}: Arrow answered {status} {headers.get('Content-Type')}, JSON {json_status}")
+        answer = json.loads(json_body)
+        if label.endswith("fleet"):
+            entries, trailer = wire.unpack_streams(body)
+            check(list(entries) == list(answer["data"]) == names, f"{label}: machines differ")
+            for name, stream in entries.items():
+                table, _ = wire.decode_response(stream)
+                tree = arrow_tree(table)
+                # the JSON lean entry's per-row mse is flat, not nested under its group
+                tree["total-anomaly-unscaled"] = tree["total-anomaly-unscaled"]["total-anomaly-unscaled"]
+                same_tree(answer["data"][name], tree, f"{label}/{name}")
+            check(trailer == {"errors": answer.get("errors", {}), "revision": answer["revision"]},
+                  f"{label}: trailer {trailer}")
+        else:
+            table, extra = wire.decode_response(body)
+            same_tree(answer["data"], arrow_tree(table), label)
+            check(extra["revision"] == answer["revision"] == headers["revision"]
+                  and ("time-seconds" in extra) == ("time-seconds" in answer), f"{label}: envelope {extra}")
+        phase("arrow", f"{label}: Arrow {len(body)} B in {ms:.1f} ms ({stage_text(headers)}); JSON "
+              f"{len(json_body)} B in {json_ms:.1f} ms ({stage_text(json_headers)}); the answers equal to the bit")
+    for step, ((status, body, headers, ms), (json_status, json_body, json_headers, json_ms)) in enumerate(
+            zip(arrow_acks, json_acks)):
+        ack, json_ack = json.loads(body), json.loads(json_body)
+        check(status == json_status == 200 and {**ack, "stream": None} == {**json_ack, "stream": None}
+              and ack["scored"] == {n: STREAM_WINDOW for n in names}, f"stream ingest {step}: {ack} vs {json_ack}")
+        phase("arrow", f"stream ingest {step} ({len(names)} machines x {STREAM_WINDOW} rows, a GDTAF1 container of "
+              f"{len(stream_bodies[step])} B): {ms:.1f} ms ({stage_text(headers)}); JSON {len(json.dumps({'X': stream_posts[step]}))} B "
+              f"{json_ms:.1f} ms ({stage_text(json_headers)}); acks equal, {STREAM_WINDOW} rows scored a machine")
+    for stream in ("arrow", "arrow-json"):
+        check(http_call(f"{base}/stream/{stream}", method="DELETE")[0] == 200, f"closing stream {stream}")
+
+    cases = {}
+    for kernel, case, made in calls:
+        width = case["spec"].n_features
+        key = (f"K1 {'narrow' if width == 20 else 'wide'}" if kernel == "K1"
+               else "K2 fleet" if case["X"].shape[1] == ROWS else "K2 flush")
+        cases.setdefault(key, [case, 0])[1] += made
+    check(sorted(cases) == sorted(ARROW_CASES), f"[arrow]'s kernel calls {sorted(cases)}")
+    shapes = {key: (tuple(case["X"].shape), case["indices"]) for key, (case, _) in cases.items()}
+    check(shapes["K1 narrow"][0] == (1, ROWS, 20) and shapes["K1 wide"][0] == (1, ROWS, WIDE_TAGS)
+          and shapes["K2 fleet"][0] == (SERVED_MACHINES, ROWS, 20)
+          and shapes["K2 flush"][0] == (SERVED_MACHINES, STREAM_WINDOW, 20), f"[arrow]'s kernel shapes {shapes}")
+    phase("arrow", f"Arrow bodies encoded by the client in {encode_ms:.1f} ms; K1 launches {launches['K1']} (one a "
+          f"per-model request), K2 {launches['K2']} (the fleet request, one a flush); by call "
+          f"{ {key: made for key, (_, made) in cases.items()} }; {card}")
+    return launches, {ARROW_CASES[key]: (case, made) for key, (case, made) in cases.items()}
 
 
 def sse_events(body):
@@ -3209,9 +3660,11 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
     bodies = {(route, n): engine_body(route, own_frame(n, 20)) for route in ENGINE_ROUTES
               for n in names[:max(ENGINE_CLIENTS)]}
     t0 = time.perf_counter()
-    expected = {key: wsgi_post(cpu_app, f"/gordo/v0/smoke/{key[1]}/{key[0]}", body) for key, body in bodies.items()}
+    # the CPU app answers as Arrow, read back into the JSON route's tree: the same numbers, less host time
+    expected = {key: wsgi_arrow(cpu_app, f"/gordo/v0/smoke/{key[1]}/{key[0]}", body) for key, body in bodies.items()}
     check(all(status == 200 for status, _ in expected.values()), "the CPU app refused a request")
-    phase("engine", f"{len(expected)} CPU-app answers to hold the card's to in {time.perf_counter() - t0:.1f} s")
+    phase("engine", f"{len(expected)} CPU-app answers (Arrow) to hold the card's to in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     launches = {"narrow": 0, "wide": 0}
     (on_base, stop_on), (off_base, stop_off) = serving(on_app), serving(plain_app)
@@ -5029,6 +5482,8 @@ def main():
             with clocked("slo"):
                 slo_launches = slo_phase(base, names, collection, work_dir, {**traced, "dir": telemetry_dir},
                                          cpu_app, card)
+            with clocked("arrow"):
+                arrow_launches, arrow_cases = arrow_phase(base, names, wide_names, card)
         finally:
             server.shutdown()
             server.server_close()
@@ -5179,6 +5634,24 @@ def main():
           f"{bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), "
           f"launch floor {floor!r} ms; {card}")
 
+    for name, (case, _) in arrow_cases.items():
+        if name.startswith("K2"):
+            errors[name] = compare_scores(case)
+            scored_timed[name] = scores_times(case)
+            kernel, plain, library, library_tf32, k1, bound_ms, bound_by, cuda_core_ms = scored_timed[name]
+            phase("times", f"{name}: K2 {kernel!r} ms (max abs {errors[name][0]:.3e} vs plain), plain {plain!r} ms, "
+                  f"baddbmm chain + mean {library!r} ms (with TF32 {library_tf32!r} ms), K1 alone {k1!r} ms, bound "
+                  f"{bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 "
+                  f"bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+        else:
+            errors[name] = compare(case)
+            timed[name] = times(case)
+            kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+            phase("times", f"{name}: K1 {kernel!r} ms (max abs {errors[name][0]:.3e} vs plain), plain {plain!r} ms, "
+                  f"baddbmm chain {library!r} ms (with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, "
+                  f"3xTF32 tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+                  f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+
     for width, name in LIFECYCLE_CV.items():
         timed[name] = times(lifecycle_cv[width][0])
         kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
@@ -5263,14 +5736,14 @@ def main():
                   "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
                   "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"],
                   "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"],
-                  "packing": packing_launches["K1"]}
+                  "packing": packing_launches["K1"], "arrow": arrow_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
                   "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
                   "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"],
-                  "packing": packing_launches["K2"]}
+                  "packing": packing_launches["K2"], "arrow": arrow_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -5340,6 +5813,19 @@ def main():
         entry("fleet_anomaly_scores (K2), wide kernel, packed fleet request", "gordo_tpu/ops/pallas_dense.py:126",
               packing_fleet[WIDE_TAGS][1], k2_by_path, PACKING_FLEET[WIDE_TAGS],
               scored_timed[PACKING_FLEET[WIDE_TAGS]]),
+        # launches: [arrow]'s Arrow requests of that kernel and width, read on the counters where they launch
+        entry("fleet_dense (K1), narrow kernel, Arrow anomaly and prediction requests",
+              "gordo_tpu/ops/pallas_dense.py:114", arrow_cases[ARROW_CASES["K1 narrow"]][1], k1_by_path,
+              ARROW_CASES["K1 narrow"], timed[ARROW_CASES["K1 narrow"]]),
+        entry("fleet_dense (K1), wide kernel, Arrow anomaly and prediction requests",
+              "gordo_tpu/ops/pallas_dense.py:114", arrow_cases[ARROW_CASES["K1 wide"]][1], k1_by_path,
+              ARROW_CASES["K1 wide"], timed[ARROW_CASES["K1 wide"]]),
+        entry("fleet_anomaly_scores (K2), narrow kernel, Arrow fleet request", "gordo_tpu/ops/pallas_dense.py:126",
+              arrow_cases[ARROW_CASES["K2 fleet"]][1], k2_by_path, ARROW_CASES["K2 fleet"],
+              scored_timed[ARROW_CASES["K2 fleet"]]),
+        entry("fleet_anomaly_scores (K2), narrow kernel, Arrow stream flushes", "gordo_tpu/ops/pallas_dense.py:126",
+              arrow_cases[ARROW_CASES["K2 flush"]][1], k2_by_path, ARROW_CASES["K2 flush"],
+              scored_timed[ARROW_CASES["K2 flush"]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

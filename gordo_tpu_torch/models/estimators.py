@@ -38,7 +38,7 @@ from ..ops.windows import model_offset, num_windows, window_targets
 from . import factories
 from .nn import Params, forward_lstm_windows, params_from_jax, params_to_numpy
 from .spec import LSTMSpec, ModelSpec, Sequential
-from .training import History, fit_config_from_kwargs, split_fit_kwargs
+from .training import History, fit_config_from_kwargs, fit_single_segmented, segmented_config, split_fit_kwargs
 
 #: the architecture factories a feedforward definition's ``kind`` may name
 KINDS = {
@@ -262,7 +262,10 @@ class TorchLSTMBaseEstimator(TorchAutoEncoder):
         ``fit_single`` over its windows does, the windows gathered on the
         device (``random``: the trainer's random source, default
         ``TorchRandom``); host callbacks run the per-epoch host loop, as
-        the JAX estimator's ``fit_single`` does for them."""
+        the JAX estimator's ``fit_single`` does for them. With
+        ``GORDO_TPU_LSTM_SEGMENTED=N``, no host callbacks, a batch N
+        divides and at least one whole batch of windows, the fit is
+        ``fit_single_segmented`` (``estimators.py:326-345``)."""
         from ..parallel.fleet import FleetTrainer, WindowedFleetMember
 
         X_arr = self._checked(X)
@@ -276,10 +279,14 @@ class TorchLSTMBaseEstimator(TorchAutoEncoder):
         config, host_callbacks = fit_config_from_kwargs(fit_kwargs)
         self.kwargs.update(n_features=X_arr.shape[-1], n_features_out=y_arr.shape[-1])
         self.spec_ = self.build_spec(X_arr.shape[-1], y_arr.shape[-1])
-        member = WindowedFleetMember(
-            "estimator", self.spec_, X_arr, window_targets(y_arr, self.lookback_window, self.lookahead),
-            seed=int(fit_kwargs.get("seed", 42)),
-        )
+        targets = window_targets(y_arr, self.lookback_window, self.lookahead)
+        seed = int(fit_kwargs.get("seed", 42))
+        segments = segmented_config()
+        if segments and not host_callbacks and config.batch_size % segments == 0 and len(targets) >= config.batch_size:
+            self.params_, self._history = fit_single_segmented(
+                self.spec_, X_arr, targets, config, seed, segments, self.device, random)
+            return self
+        member = WindowedFleetMember("estimator", self.spec_, X_arr, targets, seed=seed)
         result = FleetTrainer(self.device, random).fit_single(member, config, host_callbacks)
         self.params_ = params_from_jax(result.params, self.device)
         self._history = result.history

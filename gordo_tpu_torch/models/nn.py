@@ -213,6 +213,23 @@ def forward_lstm_time_major(spec: LSTMSpec, stacked: Params, x_seq: torch.Tensor
     return resolve_activation(spec.out_activation)(out).to(torch.float32), penalty
 
 
+def forward_lstm_sequence(spec: LSTMSpec, stacked: Params, x_seq: torch.Tensor) -> torch.Tensor:
+    """The stacked LSTM over ``x_seq[M, T, G, F]`` (time major) with the
+    head at every step: ``[M, T, G, n_features_out]``, the segmented fit's
+    forward (``gordo_tpu/models/nn.py::forward_lstm_sequence``). The output
+    at step ``t`` is the many-to-one output of the window ending at ``t``
+    with its state warmed by the span's earlier steps. Compute runs in
+    ``spec.compute_dtype``; the output is float32."""
+    dtype = getattr(torch, spec.compute_dtype)
+    h = x_seq.to(dtype)
+    for key, act in spec.layer_names()[:-1]:
+        h = _lstm_layer_stacked(stacked[key], h, act)
+    M, T, G, H = h.shape
+    head = stacked["out"]
+    out = torch.baddbmm(head["b"].to(dtype)[:, None, :], h.reshape(M, T * G, H), head["W"].to(dtype))
+    return resolve_activation(spec.out_activation)(out).to(torch.float32).view(M, T, G, -1)
+
+
 def forward_lstm_stacked(spec: LSTMSpec, stacked: Params, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stacked LSTM forward on windows ``X[M, B, lookback, F]`` (the JAX
     package's ``[batch, lookback, F]`` a member): ``(output[M, B, F_out],

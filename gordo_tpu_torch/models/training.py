@@ -42,6 +42,12 @@ holds its ``lookback``-times larger windows; the weights are per virtual
 slot, validation runs batch by batch. Given the same virtual order it
 trains as :class:`StackedFit` does on the windows made beforehand.
 
+:class:`SegmentedFit` is ``build_raw_segmented_fit_fn`` (``:461-607``),
+opt-in with ``GORDO_TPU_LSTM_SEGMENTED`` (:func:`segmented_config`): each
+update's windows in order as a few segments, one recurrence a segment
+with its state carried from window to window; :func:`fit_single_segmented`
+is its one-model form (``:610-689``).
+
 Randomness is explicit: a :class:`RandomSource` draws each member's
 initial params and its per-epoch permutations from the member's seed.
 The default, :class:`TorchRandom`, draws from CPU ``torch.Generator``s,
@@ -59,8 +65,10 @@ import torch
 
 from ..ops.losses import resolve_loss, weighted_mean_loss
 from ..ops.windows import gather_windows
+from ..telemetry import program_span
+from ..utils.env import env_int
 from .callbacks import Callback, EarlyStopping
-from .nn import Params, forward_lstm_time_major, forward_stacked, init_params, param_keys
+from .nn import Params, forward_lstm_sequence, forward_lstm_time_major, forward_stacked, init_params, param_keys
 from .optim import OptimizerState, StackedOptimizer
 from .spec import ModelSpec
 
@@ -429,6 +437,13 @@ class StackedFit:
         )
 
 
+def _live_batches(weights: torch.Tensor, batch_size: int) -> List[int]:
+    """The batches of ``weights[M, n]`` where some member has weight: a
+    batch of padding slots alone changes nothing and adds 0, so it is left
+    out (a windowed fit's unshuffled batches, a segmented fit's updates)."""
+    return torch.nonzero(weights.view(len(weights), -1, batch_size).sum(-1).sum(0)).flatten().tolist()
+
+
 class WindowedFit(StackedFit):
     """The windowed fit of one (LSTM spec, config) over a stacked bucket:
     windows gathered from the resident series each step. Unshuffled, a
@@ -472,9 +487,7 @@ class WindowedFit(StackedFit):
             return gather_windows(series, starts, lookback), torch.take_along_dim(targets, starts[..., None], dim=1)
 
         def live(weights: torch.Tensor) -> List[int]:
-            # the batch starts where some member has weight: a batch of
-            # padding slots alone changes nothing and adds 0, so it is left out
-            return [B * i for i in torch.nonzero(weights.view(len(weights), -1, B).sum(-1).sum(0)).flatten().tolist()]
+            return [B * i for i in _live_batches(weights, B)]
 
         train_starts = None if self.config.shuffle else live(wtr)
 
@@ -501,6 +514,189 @@ class WindowedFit(StackedFit):
             return torch.where(wsum > 0, total / wsum, torch.full_like(total, float("nan")))
 
         return self._fit(params, wtr, wval, batches, validate, callbacks)
+
+
+def segmented_config() -> Optional[int]:
+    """The segments an update of the opt-in segmented LSTM fit
+    (``GORDO_TPU_LSTM_SEGMENTED``: 0 or unset is off, N is N segments an
+    update), read by the fleet trainer and the LSTM estimators alike
+    (``gordo_tpu/models/training.py:44-52``)."""
+    value = env_int("GORDO_TPU_LSTM_SEGMENTED", 0)
+    return value if value > 0 else None
+
+
+class SegmentedFit(StackedFit):
+    """
+    The segmented (stateful-scan) fit of one (LSTM spec, config) over a
+    stacked bucket, ``build_raw_segmented_fit_fn``
+    (``gordo_tpu/models/training.py:461-607``). Update ``k`` covers the
+    same ``B`` consecutive windows as the unshuffled windowed fit's batch
+    ``k``, as ``G`` segments of ``L = B / G`` windows headed at ``k*B +
+    g*L``: one recurrence over the ``L + lookback - 1`` rows of each
+    segment (:func:`~.nn.forward_lstm_sequence`) gives every window of the
+    segment. A segment's first window starts cold, as the windowed fit's
+    do; the later ones start from the state the segment has warmed,
+    which is JAX's semantics. At ``G = B`` every window starts cold and
+    the fit is the windowed fit's.
+
+    Cell applications an update drop from ``B * lookback`` to ``B + G *
+    (lookback - 1)``; the steps run one after another rise from
+    ``lookback`` to ``L + lookback - 1``. Row indices clamp to the last
+    series row and window indices to the last target; the loss is the
+    weighted mean over the ``B`` windows, an update without weight for a
+    member changes nothing of it, and an update without weight for any
+    member is not run (the penalty is 0: an LSTM has no L1 term).
+    Validation adds each update's weighted mean times
+    its weight, 0 for an update without weight, and is NaN without
+    validation weight.
+    """
+
+    def __init__(self, spec: ModelSpec, config: FitConfig, segments: int):
+        if config.shuffle:
+            raise ValueError("segmented LSTM training requires shuffle=False")
+        if config.batch_size % segments:
+            raise ValueError(f"batch_size {config.batch_size} not divisible by segments {segments}")
+        super().__init__(spec, config)
+        self.segments = segments
+
+    def indices(self, updates: int, n: int, n_windows: int, device: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every update's gather indices on ``device``: the series rows of
+        its segments, ``[updates, span, G]`` (time major, clamped to ``n -
+        1``), and its windows in segment order, ``[updates, B]`` (clamped
+        to ``n_windows - 1``); ``series[:, rows[k]]`` is update ``k``'s
+        input, ``targets[:, windows[k]]`` its targets."""
+        B, G = self.config.batch_size, self.segments
+        L = B // G
+        heads = torch.arange(updates, device=device)[:, None] * B + torch.arange(G, device=device)[None, :] * L
+        span = torch.arange(L + self.spec.lookback_window - 1, device=device)
+        rows = (heads[:, None, :] + span[None, :, None]).clamp(max=n - 1)
+        windows = (heads[:, :, None] + torch.arange(L, device=device)[None, None, :]).clamp(max=n_windows - 1)
+        return rows, windows.reshape(updates, B)
+
+    def forward(self, params: Params, xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The outputs of an update's windows, ``[M, B, F_out]`` in segment
+        order, from its segments' rows ``xb[M, span, G, F]``; penalty 0."""
+        lookback = self.spec.lookback_window
+        out = forward_lstm_sequence(self.spec, params, xb)[:, lookback - 1:]  # [M, L, G, F_out]
+        penalty = torch.zeros(xb.shape[0], dtype=torch.float32, device=xb.device)
+        return out.transpose(1, 2).reshape(out.shape[0], -1, out.shape[-1]), penalty
+
+    def run(
+        self,
+        params: Params,
+        series: torch.Tensor,
+        targets: torch.Tensor,
+        wtr: torch.Tensor,
+        wval: torch.Tensor,
+        perms: Optional[torch.Tensor] = None,
+        callbacks: Sequence[Callback] = (),
+    ) -> FitOutput:
+        """
+        Train ``params`` (stacked, float32, on the series' device; updated
+        in place) on each member's ``series[M, n, F]`` towards its window
+        targets ``targets[M, n_windows, F_out]``, window ``j`` starting at
+        row ``j``, with weights ``wtr``/``wval`` ``[M, nv]`` over the
+        windows in order (``nv`` a whole number of batches). ``perms`` is
+        not read: the fit never shuffles. Host ``callbacks`` run as in
+        :meth:`StackedFit.run`.
+        """
+        B = self.config.batch_size
+        nv = wtr.shape[1]
+        if nv % B:
+            raise ValueError(f"window axis {nv} is not a whole number of {B}-window batches")
+        dtype = getattr(torch, self.spec.compute_dtype)
+        series, targets = series.to(dtype), targets.to(dtype)
+        rows, windows = self.indices(nv // B, series.shape[1], targets.shape[1], series.device)
+
+        def update(k: int):
+            return series[:, rows[k]], targets[:, windows[k]]
+
+        train_updates = _live_batches(wtr, B)
+
+        def batches(epoch: int):
+            for k in train_updates:
+                yield (*update(k), wtr[:, k * B:(k + 1) * B])
+
+        @torch.no_grad()
+        def validate() -> torch.Tensor:
+            total = torch.zeros(wval.shape[0], device=wval.device)
+            wsum = torch.zeros_like(total)
+            for k in _live_batches(wval, B):
+                wb = wval[:, k * B:(k + 1) * B]
+                loss = self.batch_loss(params, *update(k), wb)
+                w = wb.sum(-1)
+                # the all-padding member's NaN mean times 0 is NaN: the guard zeroes it
+                total = total + torch.where(w > 0, loss * w, torch.zeros_like(loss))
+                wsum = wsum + w
+            return torch.where(wsum > 0, total / wsum, torch.full_like(total, float("nan")))
+
+        return self._fit(params, wtr, wval, batches, validate, callbacks)
+
+
+def fit_single_segmented(
+    spec: ModelSpec,
+    series: np.ndarray,
+    targets: np.ndarray,
+    config: FitConfig,
+    seed: int = 42,
+    segments: int = 4,
+    device: Any = "cpu",
+    random: Optional[RandomSource] = None,
+) -> Tuple[Params, History]:
+    """
+    One model's segmented fit (``gordo_tpu/models/training.py:610-689``),
+    the estimators' path under ``GORDO_TPU_LSTM_SEGMENTED``: the raw
+    ``series[n, F]`` and its window targets ``targets[n_windows, F_out]``
+    on ``device``, the last ``int(n_windows * validation_split)`` windows
+    validating, the windows padded to whole batches at weight 0, init from
+    ``random`` (default :class:`TorchRandom`) at ``seed``. Returns the
+    params (one model's, on ``device``) and the history, whose ``steps``
+    count the train windows' batches and whose ``segmented`` is
+    ``segments``. A ``device_program`` span ``fit_single_segmented``.
+    """
+    if config.shuffle:
+        raise ValueError("segmented LSTM training requires shuffle=False")
+    series = np.asarray(series, np.float32)
+    targets = np.asarray(targets, np.float32)
+    nw = len(targets)
+    B = config.batch_size
+    if B % segments or nw < B:
+        raise ValueError(
+            f"segments={segments} needs batch_size divisible by it and at "
+            f"least one full batch of windows (nw={nw}, batch={B})"
+        )
+    nv = -(-nw // B) * B
+    n_val = int(nw * config.validation_split)
+    wtr = np.zeros((1, nv), np.float32)
+    wtr[0, : nw - n_val] = 1.0
+    wval = np.zeros((1, nv), np.float32)
+    wval[0, nw - n_val: nw] = 1.0
+    init = (random or TorchRandom()).init_params(spec, seed)
+    params = {
+        key: {name: torch.as_tensor(np.asarray(leaf, np.float32))[None].to(device) for name, leaf in layer.items()}
+        for key, layer in init.items()
+    }
+    fit = SegmentedFit(spec, config, segments)
+    data = [torch.from_numpy(a).to(device) for a in (series[None], targets[None], wtr, wval)]
+    with program_span("fit_single_segmented", (spec, config, segments, series.shape, targets.shape),
+                      shape=str(tuple(series.shape)), spec=type(spec).__name__):
+        out = fit.run(params, *data)
+        losses, val_losses, ran = out.losses[0].tolist(), out.val_losses[0].tolist(), int(out.epochs_ran[0])
+    history = {"loss": losses[:ran]}
+    if n_val:
+        history["val_loss"] = val_losses[:ran]
+    return {key: {name: leaf[0] for name, leaf in layer.items()} for key, layer in out.params.items()}, History(
+        history=history,
+        params={
+            "epochs": config.epochs,
+            # the train windows' batches, as the dense fit over windows counts them
+            "steps": (nw - n_val + B - 1) // B,
+            "verbose": 0,
+            "metrics": list(history),
+            "segmented": segments,
+        },
+        epoch=list(range(ran)),
+    )
 
 
 def permutation_tensor(

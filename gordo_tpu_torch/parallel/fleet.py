@@ -29,7 +29,11 @@ and its window targets instead of samples: its bucket stacks
 and trains through ``models/training.py::WindowedFit``, which gathers
 each batch's windows on the device (``fleet.py:898-1026``, without the
 mesh). :meth:`FleetTrainer.predict_windowed_bucket` forwards windows the
-same way, 256 a batch (``:1108-1161``).
+same way, 256 a batch (``:1108-1161``). With ``GORDO_TPU_LSTM_SEGMENTED=N``
+a windowed bucket whose members train in order, without their own order
+or weights, under a batch N divides, trains through
+``models/training.py::SegmentedFit`` instead (``fleet.py:954-1030``),
+silently falling back to the windowed fit otherwise, as in JAX.
 
 A diverged member (final loss not finite) is retrained with seed
 ``seed + 7919 * attempt`` (``fleet.py:476-531``). A bucket whose program
@@ -47,7 +51,7 @@ to a power of two, validation apart.
 plain version because the tensors lie on the CPU otherwise.
 
 Each bucket fit (``fleet_fit``, ``fleet_packed_fit`` with ``packed=G``,
-``fleet_windowed_fit``) and each forward
+``fleet_windowed_fit``, ``fleet_segmented_fit``) and each forward
 (``fleet_predict``, ``fleet_windowed_predict``) runs inside a
 ``device_program`` span of the active recorder (``telemetry/recorder.py``,
 the JAX sites ``fleet.py:739``, ``:1015``, ``:1096``, ``:1147``) with the
@@ -77,10 +81,12 @@ from ..models.training import (
     FitOutput,
     History,
     RandomSource,
+    SegmentedFit,
     StackedFit,
     TorchRandom,
     WindowedFit,
     permutation_tensor,
+    segmented_config,
 )
 from ..ops.fleet_dense import fleet_feedforward
 from ..models.packing import PackedFeedForwardSpec, PackedFit, auto_packing
@@ -254,7 +260,9 @@ class FleetTrainer:
     planned member rung (``m_padded``; None for a bisected half, which
     drops it), optimizer steps run, host seconds of the fit loop (ending
     in the results' copy to the host) and, on a card, the CUDA-event
-    milliseconds between the loop's first and last launch.
+    milliseconds between the loop's first and last launch, whether the
+    bucket is windowed and the segments an update of a segmented fit
+    (None for any other).
     """
 
     def __init__(self, device: DeviceLike = None, random: Optional[RandomSource] = None, packing: Any = None,
@@ -530,13 +538,34 @@ class FleetTrainer:
             _fill_weight_row(wtr, wval, i, nv, member, config)
         return tuple(torch.from_numpy(a).to(self.device) for a in (series, targets, order, wtr, wval))
 
+    @staticmethod
+    def _segmented_eligible(bucket: List[WindowedFleetMember], config: FitConfig) -> Optional[int]:
+        """The segments an update when the opt-in segmented fit takes the
+        bucket (``fleet.py:954-973``), else None: segments need the
+        windows in order, so a shuffle, a member's own ``order`` or
+        weights, or a batch the segments do not divide keep the windowed
+        fit."""
+        segments = segmented_config()
+        if not segments or config.shuffle or config.batch_size % segments:
+            return None
+        if any(m.order is not None or m.train_weights is not None or m.val_weights is not None for m in bucket):
+            return None
+        return segments
+
     def _train_windowed_bucket(
         self, spec: LSTMSpec, n_padded: int, bucket: List[WindowedFleetMember], config: FitConfig, bucket_id: str
     ) -> List[FleetResult]:
         series, targets, order, wtr, wval = self._stack_windowed_bucket(spec, n_padded, bucket, config)
-        span = ("fleet_windowed_fit", (spec, config, tuple(series.shape), tuple(order.shape)), dict(
+        attributes = dict(
             members=len(bucket), shape=str(tuple(series.shape)), spec=type(spec).__name__,
-            bytes=_bucket_nbytes(bucket), **_calibration_attrs(spec, config, series.shape[0], order.shape[1])))
+            bytes=_bucket_nbytes(bucket), **_calibration_attrs(spec, config, series.shape[0], order.shape[1]))
+        segments = self._segmented_eligible(bucket, config)
+        if segments is not None:
+            logger.info("Segmented LSTM training: %d segments/update (L=%d)", segments, config.batch_size // segments)
+            span = ("fleet_segmented_fit", (spec, config, segments, tuple(series.shape)), attributes)
+            return self._fit_bucket(bucket, config, SegmentedFit(spec, config, segments), (series, targets), wtr, wval,
+                                    span, bucket_id)
+        span = ("fleet_windowed_fit", (spec, config, tuple(series.shape), tuple(order.shape)), attributes)
         return self._fit_bucket(bucket, config, WindowedFit(spec, config), (series, targets, order), wtr, wval, span,
                                 bucket_id)
 
@@ -569,7 +598,8 @@ class FleetTrainer:
             m_padded=m_padded, steps=out.steps,
             seconds=time.perf_counter() - t0,
             event_ms=events[0].elapsed_time(events[1]) if on_card else None,
-            windowed=isinstance(fit, WindowedFit),
+            windowed=isinstance(fit, (WindowedFit, SegmentedFit)),
+            segmented=getattr(fit, "segments", None),
         ))
         return results
 

@@ -181,7 +181,8 @@ def validate_learned_section(doc: object) -> Optional[dict]:
 class CostTable:
     """The analytic model's constants and the correction factors
     :func:`calibrate` fits: ``run_factors`` and ``compile_factors`` by
-    program (``fleet_fit``, ``fleet_windowed_fit``, ...; 1.0 when
+    program (``fleet_fit``, ``fleet_windowed_fit``,
+    ``fleet_segmented_fit``, ...; 1.0 when
     absent), ``precision_factors`` by precision, ``samples`` the spans
     behind each program's factors."""
 

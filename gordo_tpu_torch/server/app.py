@@ -34,8 +34,10 @@ traffic slice), decided once a request. Every JSON body of a
 that answered. ``build_app`` first restores a promotion that the
 lifecycle recorded beside the revisions (``lifecycle.restore_serving_state``),
 before the engine's warmup, which warms the revision the store routes to. Errors map to statuses as there: 400 for a bad request or
-frame, 404 for an unknown model, 406 and 415 for a format the port does
-not serve (it serves JSON only), 409 for deleting the served revision,
+frame or Arrow body (an ``ArrowDecodeError`` anywhere answers 400 with a
+JSON error body), 404 for an unknown model, 406 and 415 for a format the
+port does not serve (parquet; Arrow with ``GORDO_TPU_WIRE_ARROW=0``), 409
+for deleting the served revision,
 410 for a malformed or missing revision pin or ingest into a closed
 stream, 422 for a malformed name or a model that is not an anomaly
 detector, 429 and 503 (with ``Retry-After``) when the streaming plane
@@ -108,7 +110,7 @@ from ..utils.env import env_bool
 from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
 from .prometheus.metrics import ServeMetrics, create_prometheus_metrics, refuse_multiprocess_dir
 from .utils import ServerError, check_metadata_file, validate_gordo_name, validate_revision
-from .wire import dumps
+from .wire import ArrowDecodeError, dumps
 
 logger = logging.getLogger(__name__)
 
@@ -446,6 +448,8 @@ class GordoServerApp:
                 response = self._dispatch(ctx, request)
             except ServerError as exc:
                 response = ctx.json_response(exc.payload, status=exc.status)
+            except ArrowDecodeError as exc:  # the views answer it; none reaches here unanswered
+                response = ctx.json_response({"message": str(exc)}, status=400)
             except Exception:  # noqa: BLE001 - the server boundary answers 500
                 logger.exception("Unhandled server error")
                 response = ctx.json_response({"error": "Internal Server Error"}, status=500)

@@ -9,13 +9,20 @@ document and the SLO status.
 ``POST .../<name>/prediction`` scores one model's rows, body ``{"X":
 frame}``, through one gather launch of K1 (with the model's input
 scaling as its prologue) and answers ``start``/``end``/``model-input``/
-``model-output``. With the app's serving engine (``GORDO_TPU_BATCHING``)
+``model-output``. A body of ``Content-Type:
+application/vnd.apache.arrow.stream`` is an Arrow IPC stream of role-tagged
+columns (``wire/arrow_codec.py``), and ``Accept`` of that type answers one
+(``wire/negotiate.py``), the envelope as its ``gordo:meta``; both inside
+the ``data_decode`` and ``serialize`` stages as JSON is. With the app's serving engine (``GORDO_TPU_BATCHING``)
 concurrent requests coalesce into one launch; its refusals answer 429,
 503, 500 or 504 (``server/model_io.py``), and what it cannot batch is
 scored alone as without it.
 
 The fleet route scores many models in one request, body ``{"X": {name:
-frame}, "y"?: {name: frame}, "full"?: bool}``: models sharing a spec are
+frame}, "y"?: {name: frame}, "full"?: bool}`` or a ``GDTAF1`` container of
+one Arrow stream a machine (``full`` and ``all_columns`` may ride its
+trailer), answered in kind when asked: a container with
+``{"errors", "revision"}`` as its trailer. Models sharing a spec are
 scored by one kernel launch over their bucket. Each machine answers the
 lean entry (``model-output`` and the per-row ``total-anomaly-unscaled``)
 or, with ``?full``, a detector's whole anomaly frame (its ``smooth-*``
@@ -62,12 +69,33 @@ def get_server_version(ctx) -> Response:
     return ctx.json_response({"version": __version__})
 
 
+def arrow_frames(
+    payload: bytes, resolution: ModelResolution, with_y: bool = True
+) -> Tuple[wire.Frame, Optional[wire.Frame]]:
+    """``X`` (and ``y`` when the body has role ``y`` columns and ``with_y``)
+    from one Arrow stream, aligned with the model's tags as
+    ``frame_from_columns`` aligns them (``gordo_tpu/server/utils.py:255-345``);
+    400 with JAX's message for a body that cannot be read or columns that
+    do not fit."""
+    try:
+        x_columns, y_columns, index = wire.decode_frames(payload)
+        X = wire.frame_from_columns(x_columns, index, resolution.tag_names)
+        y = wire.frame_from_columns(y_columns, index, resolution.target_names) if y_columns and with_y else None
+    except (wire.ArrowDecodeError, wire.FrameError) as exc:
+        raise ServerError(str(exc), status=400)
+    return X, y
+
+
 def extract_X_y(request, resolution: ModelResolution) -> Tuple[wire.Frame, Optional[wire.Frame]]:
-    """``X`` (and ``y`` when sent) from a ``{"X": frame, "y": frame}`` body,
-    aligned with the model's tags; 400 on anything unreadable, 415 for an
-    Arrow or parquet body."""
-    if negotiate.request_format(request) == negotiate.PARQUET:
+    """``X`` (and ``y`` when sent) from a ``{"X": frame, "y": frame}`` body
+    or an Arrow stream, aligned with the model's tags; 400 on anything
+    unreadable, 415 for a parquet body (or an Arrow one with the Arrow
+    codec off)."""
+    body_format = negotiate.request_format(request)
+    if body_format == negotiate.PARQUET:
         raise ServerError(negotiate.PARQUET_UNAVAILABLE, status=415)
+    if body_format == negotiate.ARROW:
+        return arrow_frames(request.body, resolution)
     body = request.json()
     if not isinstance(body, dict) or "X" not in body:
         raise ServerError('Cannot predict without "X"')
@@ -94,14 +122,19 @@ def _score_error(name: str, exc: Exception) -> Dict[str, Any]:
 
 def encode_table_response(ctx, response_format: str, table: wire.WireTable, extra: Optional[dict] = None) -> Response:
     """A scoring route's table as ``{"data": ..., **extra, "revision":
-    ...}``; 415 when the client asked for parquet. Its ``serialize`` stage
-    ends with the request (the app closes it), so a wait for the GIL
-    after a long encode is still the stage's."""
+    ...}``, or as an Arrow stream with that envelope as ``gordo:meta``;
+    415 when the client asked for parquet. Its ``serialize`` stage ends
+    with the request (the app closes it), so a wait for the GIL after a
+    long encode is still the stage's."""
     if response_format == negotiate.PARQUET:
         raise ServerError(negotiate.PARQUET_UNAVAILABLE, status=415)
     serialize_start = timeit.default_timer()
     ctx.current_stage = "serialize"
-    response = Response(wire.encode_response(table, {**(extra or {}), "revision": ctx.revision}))
+    envelope = {**(extra or {}), "revision": ctx.revision}
+    if response_format == negotiate.ARROW:
+        response = Response(wire.encode_arrow_table(table, envelope), content_type=wire.ARROW_CONTENT_TYPE)
+    else:
+        response = Response(wire.encode_response(table, envelope))
     ctx.deferred_stage = ("serialize", serialize_start)
     return response
 
@@ -276,9 +309,9 @@ def _record_fleet_health(ctx, frames: Dict[str, wire.Frame], scores, score_error
 
 def _full_entry(
     resolution: ModelResolution, X, y, recon, keep_smooth: bool
-) -> Tuple[Optional[str], Optional[dict]]:
-    """One detector's whole anomaly frame as an encoded entry, or
-    ``(None, None)`` for a model that is not a detector."""
+) -> Tuple[Optional[wire.WireTable], Optional[dict]]:
+    """One detector's whole anomaly table, or ``(None, None)`` for a model
+    that is not a detector."""
     model = resolution.model
     if not isinstance(model, DiffBasedAnomalyDetector):
         return None, None
@@ -292,44 +325,83 @@ def _full_entry(
         return None, {"error": "Model has no thresholds (require_thresholds unmet)", "status": 422}
     except ValueError as exc:
         return None, {"error": f"ValueError: {exc}", "status": 400}
-    return "".join(wire.encode_table(table)), None
+    return table, None
+
+
+def decode_machines(ctx, payloads: Dict[str, Any], decode, errors: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """``{name: (decode(name, payload, resolution), resolution)}`` for each machine of a fleet
+    or stream body; a machine that cannot be resolved or decoded becomes
+    its entry in ``errors`` (404, its ``ServerError``'s status, 400 for a
+    bad payload, 500 for an artifact that does not load)."""
+    decoded: Dict[str, Any] = {}
+    for name, payload in payloads.items():
+        try:
+            resolution = ctx.resolve(name)
+            decoded[name] = decode(name, payload, resolution), resolution
+        except FileNotFoundError:
+            errors[name] = {"error": f"No such model found: '{name}'", "status": 404}
+        except ServerError as exc:
+            errors[name] = {"error": str(exc), "status": exc.status}
+        except (ValueError, TypeError, KeyError) as exc:
+            errors[name] = {"error": f"Invalid frame payload: {exc}", "status": 400}
+        except Exception:  # noqa: BLE001 - a broken artifact is this machine's problem
+            logger.exception("resolution failed for %s", name)
+            errors[name] = {"error": "Model could not be loaded", "status": 500}
+    return decoded
+
+
+def arrow_container(ctx, what: str) -> Tuple[Dict[str, bytes], Dict[str, Any]]:
+    """The machines' Arrow streams and the trailer of a ``GDTAF1`` body;
+    400 for a body that is no container or has no machine."""
+    try:
+        entries, extra = wire.unpack_streams(ctx.request.body)
+    except wire.ArrowDecodeError as exc:
+        raise ServerError(str(exc), status=400)
+    if not entries:
+        raise ServerError(f"{what} needs at least one machine entry")
+    return entries, extra
 
 
 def post_fleet_prediction(ctx, gordo_project: str) -> Response:
-    if negotiate.response_format(ctx.request) == negotiate.PARQUET:
+    response_format = negotiate.response_format(ctx.request)
+    if response_format == negotiate.PARQUET:
         raise ServerError("The fleet route serves JSON or Arrow, not parquet", status=406)
-    negotiate.request_format(ctx.request)
+    body_format = negotiate.request_format(ctx.request)
     frames: Dict[str, wire.Frame] = {}
     y_frames: Dict[str, wire.Frame] = {}
     resolutions: Dict[str, ModelResolution] = {}
     errors: Dict[str, Dict[str, Any]] = {}
-    with ctx.stage("data_decode"):  # the body's JSON parse included
-        body = ctx.request.json()
-        if not isinstance(body, dict) or not isinstance(body.get("X"), dict) or not body["X"]:
-            raise ServerError('Fleet prediction needs a JSON body {"X": {<model-name>: frame}}')
-        full = "full" in ctx.request.args or bool(body.get("full"))
-        keep_smooth = "all_columns" in ctx.request.args
-        y_payloads = body.get("y") if isinstance(body.get("y"), dict) else {}
-        for name, payload in body["X"].items():
-            try:
-                resolution = ctx.resolve(name)
-                X = wire.verify_frame(wire.decode_frame(payload), resolution.tag_names)
-                if name in y_payloads:
-                    y_frames[name] = wire.verify_frame(
-                        wire.decode_frame(y_payloads[name]), resolution.target_names
-                    )
-                frames[name], resolutions[name] = X, resolution
-            except FileNotFoundError:
-                errors[name] = {"error": f"No such model found: '{name}'", "status": 404}
-            except ServerError as exc:
-                errors[name] = {"error": str(exc), "status": exc.status}
-            except (ValueError, TypeError, KeyError) as exc:
-                errors[name] = {"error": f"Invalid frame payload: {exc}", "status": 400}
-            except Exception:  # noqa: BLE001 - a broken artifact is this machine's problem
-                logger.exception("fleet resolution failed for %s", name)
-                errors[name] = {"error": "Model could not be loaded", "status": 500}
+    args = ctx.request.args
+    with ctx.stage("data_decode"):  # the body's parse included
+        if body_format == negotiate.ARROW:
+            # a container of one stream a machine; full and all_columns may ride its trailer
+            streams, extra = arrow_container(ctx, "Fleet prediction")
+            full = "full" in args or bool(extra.get("full"))
+            keep_smooth = "all_columns" in args or bool(extra.get("all_columns"))
+            decoded = decode_machines(ctx, streams, lambda _, payload, resolution: arrow_frames(payload, resolution),
+                                      errors)
+        else:
+            body = ctx.request.json()
+            if not isinstance(body, dict) or not isinstance(body.get("X"), dict) or not body["X"]:
+                raise ServerError('Fleet prediction needs a JSON body {"X": {<model-name>: frame}}')
+            full = "full" in args or bool(body.get("full"))
+            keep_smooth = "all_columns" in args
+            y_payloads = body.get("y") if isinstance(body.get("y"), dict) else {}
 
-    entries: Dict[str, str] = {}
+            def decode_json(name, payload, resolution):
+                X = wire.verify_frame(wire.decode_frame(payload), resolution.tag_names)
+                if name not in y_payloads:
+                    return X, None
+                return X, wire.verify_frame(wire.decode_frame(y_payloads[name]), resolution.target_names)
+
+            decoded = decode_machines(ctx, body["X"], decode_json, errors)
+        for name, ((X, y), resolution) in decoded.items():
+            frames[name], resolutions[name] = X, resolution
+            if y is not None:
+                y_frames[name] = y
+
+    as_arrow = response_format == negotiate.ARROW
+    entries: Dict[str, Any] = {}
     if frames:
         with ctx.stage("inference"):
             scores, score_errors = ctx.fleet().fleet_scores(
@@ -342,15 +414,23 @@ def post_fleet_prediction(ctx, gordo_project: str) -> Response:
             for name, (recon, mse) in scores.items():
                 X = frames[name]
                 if full:
-                    entry, error = _full_entry(resolutions[name], X, y_frames.get(name, X), recon, keep_smooth)
+                    table, error = _full_entry(resolutions[name], X, y_frames.get(name, X), recon, keep_smooth)
                     if error is not None:
                         errors[name] = error
                         continue
-                    if entry is not None:
-                        entries[name] = entry
+                    if table is not None:
+                        entries[name] = table if as_arrow else "".join(wire.encode_table(table))
                         continue
-                keys = wire.index_wire_keys(X.index[len(X.index) - len(recon):])
-                entries[name] = wire.encode_lean_entry(keys, recon, np.asarray(mse))
+                index = X.index[len(X.index) - len(recon):]
+                if as_arrow:
+                    entries[name] = wire.lean_table(index, recon, np.asarray(mse), X.unit)
+                else:
+                    entries[name] = wire.encode_lean_entry(wire.index_wire_keys(index), recon, np.asarray(mse))
+    status = 200 if entries else 400
     with ctx.stage("serialize"):
+        if as_arrow:
+            streams = {name: wire.encode_arrow_table(table) for name, table in entries.items()}
+            body_bytes = wire.pack_streams(streams, {"errors": errors, "revision": ctx.revision})
+            return Response(body_bytes, status, wire.ARROW_CONTENT_TYPE)
         body_bytes = wire.encode_fleet_response(entries, errors, ctx.revision)
-    return Response(body_bytes, 200 if entries else 400)
+    return Response(body_bytes, status)

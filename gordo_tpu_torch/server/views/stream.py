@@ -5,11 +5,12 @@ of ``gordo_tpu/server/views/stream.py``: the HTTP side of
 repeated ingest POSTs and read as one long-lived SSE response.
 
 - ``POST .../stream/<stream_id>/ingest``: the JSON body
-  ``{"X": {<machine>: frame}}``; rows land in the session's rings, the
-  watermark flush scores, and the JSON ack reports accepted, shed,
-  scored and quarantined rows per machine and the consumer ``cursor``.
-  (The JAX server also takes an Arrow container; here that is a body
-  that is not JSON, and answers 400.)
+  ``{"X": {<machine>: frame}}``, or an Arrow container of one stream a
+  machine (``Content-Type: application/vnd.apache.arrow.stream``,
+  ``wire.pack_streams``; role ``y`` columns are ignored); rows land in the
+  session's rings, the watermark flush scores, and the JSON ack reports
+  accepted, shed, scored and quarantined rows per machine and the
+  consumer ``cursor``.
 - ``GET .../stream/<stream_id>/events``: ``text/event-stream``; resume
   with ``?cursor=<seq>`` or the ``Last-Event-ID`` header;
   ``?max_events=`` and ``?idle_timeout_s=`` bound the response.
@@ -21,15 +22,14 @@ cap (both with ``Retry-After``), 410 ingest into a closed stream, 400 a
 malformed body, 404 closing an unknown stream.
 """
 
-import logging
 import re
 from typing import Any, Dict
 
 from ...stream import SSE_CONTENT_TYPE, PlaneSaturated, stream_enabled
 from .. import wire
 from ..app import Response, ServerError
-
-logger = logging.getLogger(__name__)
+from ..wire import negotiate
+from .base import arrow_container, arrow_frames, decode_machines
 
 _STREAM_ID = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,127}$")
 
@@ -60,24 +60,22 @@ def _open_session(ctx, plane, gordo_project: str, stream_id: str):
 
 
 def _decode_stream_body(ctx, frames: Dict[str, wire.Frame], errors: Dict[str, Dict[str, Any]]) -> None:
-    """Decode each machine's frame, aligned with its model's tags; a bad
-    entry errors alone in the ack."""
-    body = ctx.request.json()
-    if not isinstance(body, dict) or not isinstance(body.get("X"), dict) or not body["X"]:
-        raise ServerError('Stream ingest needs a JSON body {"X": {<model-name>: frame}}')
-    for name, payload in body["X"].items():
-        try:
-            resolution = ctx.resolve(name)
-            frames[name] = wire.verify_frame(wire.decode_frame(payload), resolution.tag_names)
-        except FileNotFoundError:
-            errors[name] = {"error": f"No such model found: '{name}'", "status": 404}
-        except ServerError as exc:
-            errors[name] = {"error": str(exc), "status": exc.status}
-        except (ValueError, TypeError, KeyError) as exc:
-            errors[name] = {"error": f"Invalid frame payload: {exc}", "status": 400}
-        except Exception:  # noqa: BLE001 - a broken artifact is this machine's problem
-            logger.exception("stream resolution failed for %s", name)
-            errors[name] = {"error": "Model could not be loaded", "status": 500}
+    """Decode each machine's frame, aligned with its model's tags, from an
+    Arrow container or a JSON body; a bad entry errors alone in the ack
+    (``gordo_tpu/server/views/stream.py:100-146``)."""
+    if negotiate.request_format(ctx.request) == negotiate.ARROW:
+        streams, _ = arrow_container(ctx, "Stream ingest")
+        decoded = decode_machines(ctx, streams, lambda _, payload, resolution: arrow_frames(
+            payload, resolution, with_y=False)[0], errors)
+    else:
+        body = ctx.request.json()
+        if not isinstance(body, dict) or not isinstance(body.get("X"), dict) or not body["X"]:
+            raise ServerError('Stream ingest needs an Arrow container or a JSON body {"X": {<model-name>: frame}}')
+        decoded = decode_machines(
+            ctx, body["X"], lambda _, payload, resolution: wire.verify_frame(wire.decode_frame(payload),
+                                                                             resolution.tag_names), errors)
+    for name, (frame, _) in decoded.items():
+        frames[name] = frame
 
 
 def post_stream_ingest(ctx, gordo_project: str, stream_id: str) -> Response:

@@ -1,6 +1,20 @@
-"""The JSON wire format and columnar response assembly."""
+"""The wire formats: JSON, the Arrow IPC stream and its fleet container,
+content negotiation, and columnar response assembly."""
 
-from .assemble import WireColumn, WireTable, anomaly_table, index_wire_keys, prediction_table
+from .arrow_codec import (
+    ARROW_CONTENT_TYPE,
+    ArrowDecodeError,
+    ArrowIndex,
+    arrow_enabled,
+    decode_frames,
+    decode_response,
+    encode_request,
+    frame_from_columns,
+    pack_streams,
+    unpack_streams,
+)
+from .arrow_codec import encode_table as encode_arrow_table
+from .assemble import WireColumn, WireTable, anomaly_table, index_wire_keys, lean_table, prediction_table
 from .json_codec import (
     Frame,
     FrameError,
@@ -14,18 +28,30 @@ from .json_codec import (
 )
 
 __all__ = [
+    "ARROW_CONTENT_TYPE",
+    "ArrowDecodeError",
+    "ArrowIndex",
     "Frame",
     "FrameError",
     "WireColumn",
     "WireTable",
     "anomaly_table",
+    "arrow_enabled",
     "decode_frame",
+    "decode_frames",
+    "decode_response",
     "dumps",
+    "encode_arrow_table",
     "encode_fleet_response",
     "encode_lean_entry",
+    "encode_request",
     "encode_response",
     "encode_table",
+    "frame_from_columns",
     "index_wire_keys",
+    "lean_table",
+    "pack_streams",
     "prediction_table",
+    "unpack_streams",
     "verify_frame",
 ]

@@ -48,13 +48,15 @@ def index_wire_keys(index: Sequence[Any]) -> List[str]:
 
 
 class WireTable:
-    """An ordered columnar response over one index."""
+    """An ordered columnar response over one index; ``unit`` is a datetime
+    index's Arrow timestamp unit (None: ``us``, the JSON decode's)."""
 
-    __slots__ = ("index", "columns", "_keys")
+    __slots__ = ("index", "columns", "unit", "_keys")
 
-    def __init__(self, index: Sequence[Any], columns: List[WireColumn]):
+    def __init__(self, index: Sequence[Any], columns: List[WireColumn], unit: Optional[str] = None):
         self.index = list(index)
         self.columns = columns
+        self.unit = unit
         self._keys: Optional[List[str]] = None
 
     @property
@@ -139,7 +141,7 @@ def prediction_table(
     columns += _matrix_columns(
         "model-output", output, target_names if target_names is not None else tag_names
     )
-    return WireTable(index, columns)
+    return WireTable(index, columns, getattr(X, "unit", None))
 
 
 def anomaly_table(
@@ -215,4 +217,13 @@ def anomaly_table(
             "`.cross_validate` was not called to calculate thresholds "
             "before `.anomaly`"
         )
-    return WireTable(index, columns)
+    return WireTable(index, columns, getattr(X, "unit", None))
+
+
+def lean_table(index: Sequence[Any], recon: np.ndarray, mse: np.ndarray, unit: Optional[str] = None) -> WireTable:
+    """The fleet route's lean entry (``model-output`` by column position and
+    the per-row ``total-anomaly-unscaled``) as a table, the Arrow twin of
+    ``json_codec.encode_lean_entry`` (JAX's ``_lean_table``)."""
+    columns = [WireColumn("model-output", str(col), recon[:, col]) for col in range(recon.shape[1])]
+    columns.append(WireColumn("total-anomaly-unscaled", "", np.asarray(mse)))
+    return WireTable(index, columns, unit)

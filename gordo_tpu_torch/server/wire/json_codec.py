@@ -34,21 +34,24 @@ class FrameError(ValueError):
 
 class Frame:
     """A decoded request frame: ``index`` (sorted datetimes or ints),
-    ``columns`` (names) and ``values`` (float64 ``[rows, columns]``)."""
+    ``columns`` (names) and ``values`` (``[rows, columns]``: float64 from
+    JSON, the columns' own dtype from Arrow); ``unit`` is a datetime
+    index's Arrow timestamp unit (None: ``us``, the ISO parse's)."""
 
-    __slots__ = ("index", "columns", "values")
+    __slots__ = ("index", "columns", "values", "unit")
 
-    def __init__(self, index: List[Any], columns: List[str], values: np.ndarray):
+    def __init__(self, index: List[Any], columns: List[str], values: np.ndarray, unit: Optional[str] = None):
         self.index = index
         self.columns = columns
         self.values = values
+        self.unit = unit
 
     def __len__(self) -> int:
         return len(self.index)
 
     def __getitem__(self, rows: slice) -> "Frame":
         """The rows ``rows`` (a slice) as a frame sharing ``values``."""
-        return Frame(self.index[rows], self.columns, self.values[rows])
+        return Frame(self.index[rows], self.columns, self.values[rows], self.unit)
 
 
 def _parse_index(keys: Sequence[str]) -> List[Any]:
@@ -113,13 +116,13 @@ def verify_frame(frame: Frame, expected: Sequence[str]) -> Frame:
     expected = list(expected)
     if all(name in frame.columns for name in expected):
         positions = [frame.columns.index(name) for name in expected]
-        return Frame(frame.index, expected, frame.values[:, positions])
+        return Frame(frame.index, expected, frame.values[:, positions], frame.unit)
     if len(frame.columns) != len(expected):
         raise FrameError(
             f"Unexpected features: was expecting {expected} length of "
             f"{len(expected)}, but got {frame.columns} length of {len(frame.columns)}"
         )
-    return Frame(frame.index, expected, frame.values)
+    return Frame(frame.index, expected, frame.values, frame.unit)
 
 
 def _value_literal(value: Any) -> str:

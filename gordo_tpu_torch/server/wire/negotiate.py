@@ -1,29 +1,34 @@
 """
-Content negotiation for the prediction, anomaly and fleet routes, with
-the rules the JAX server follows when it has no pyarrow
-(``gordo_tpu/server/wire/negotiate.py``): the port serves JSON only.
+Content negotiation for the prediction, anomaly and fleet routes, the
+rules of ``gordo_tpu/server/wire/negotiate.py`` (``:25-108``).
 
 - Response: ``?format=parquet`` asks for parquet. Otherwise the
   ``Accept`` header's qualities decide among JSON (``*/*`` and
-  ``application/*`` count as JSON, and JSON wins ties), Arrow and
-  parquet. A header that admits only Arrow, or none of the three,
-  answers 406. Parquet is chosen, and then refused: 415 on the per-model
-  routes, when the response is encoded; 406 on the fleet route.
-- Request: an Arrow body answers 415, a raw parquet body 415 on the
-  per-model routes; anything else is read as JSON.
+  ``application/*`` count as JSON), Arrow and parquet: the highest
+  quality wins, JSON wins ties and Arrow beats parquet on theirs. A
+  header that admits none of the three answers 406. Parquet is chosen,
+  and then refused: 415 on the per-model routes, when the response is
+  encoded; 406 on the fleet route.
+- Request: an Arrow body selects ``arrow``, a raw parquet body
+  ``parquet`` (415 on the per-model routes); anything else is read as
+  JSON.
+- With ``GORDO_TPU_WIRE_ARROW=0`` the port answers as a server without
+  the Arrow codec: a header that admits only Arrow answers 406, one that
+  admits JSON or parquet beside it forgets Arrow, and an Arrow body
+  answers 415.
 """
 
 import re
 from typing import Tuple
 
 from ..utils import ServerError
+from .arrow_codec import ARROW_CONTENT_TYPE, arrow_enabled
 
 JSON_CONTENT_TYPE = "application/json"
-ARROW_CONTENT_TYPE = "application/vnd.apache.arrow.stream"
 PARQUET_CONTENT_TYPE = "application/x-parquet"
 
 #: the response and request formats
-JSON, PARQUET, LEGACY = "json", "parquet", "legacy"
+JSON, ARROW, PARQUET, LEGACY = "json", "arrow", "parquet", "legacy"
 
 #: the answer of a route asked for parquet, which needs pyarrow
 PARQUET_UNAVAILABLE = "Parquet wire format unavailable (pyarrow not installed); use JSON"
@@ -72,32 +77,40 @@ def accept_qualities(header: str) -> Tuple[float, float, float]:
 
 
 def response_format(request) -> str:
-    """``json`` or ``parquet``; 406 when the ``Accept`` header admits
-    neither JSON nor parquet."""
+    """``json``, ``arrow`` or ``parquet``; 406 when the ``Accept`` header
+    admits none of them."""
     if request.arg("format") == "parquet":
         return PARQUET
     accept = request.header("Accept")
     if not accept:
         return JSON
     json_q, arrow_q, parquet_q = accept_qualities(accept)
-    if arrow_q > 0 and json_q <= 0 and parquet_q <= 0:
-        raise ServerError(
-            "Arrow responses unavailable (pyarrow not installed); accept application/json instead",
-            status=406,
-        )
-    if json_q <= 0 and parquet_q <= 0:
+    if arrow_q > 0 and not arrow_enabled():
+        if json_q <= 0 and parquet_q <= 0:
+            raise ServerError(
+                "Arrow responses unavailable (pyarrow not installed); accept application/json instead",
+                status=406,
+            )
+        arrow_q = 0.0
+    if json_q <= 0 and arrow_q <= 0 and parquet_q <= 0:
         raise ServerError(
             "Not acceptable: this route serves application/json, "
             f"{ARROW_CONTENT_TYPE} or {PARQUET_CONTENT_TYPE}",
             status=406,
         )
+    if arrow_q > json_q and arrow_q >= parquet_q:
+        return ARROW
     return PARQUET if parquet_q > json_q else JSON
 
 
 def request_format(request) -> str:
-    """The body's format by its ``Content-Type``: ``parquet`` for a raw
-    parquet body, else ``legacy`` (JSON); 415 for an Arrow body."""
+    """The body's format by its ``Content-Type``: ``arrow``, ``parquet`` for
+    a raw parquet body, else ``legacy`` (JSON); 415 for an Arrow body with
+    the Arrow codec off."""
     mimetype = (request.header("Content-Type") or "").partition(";")[0].strip().lower()
     if mimetype == ARROW_CONTENT_TYPE:
-        raise ServerError("Arrow request bodies unsupported (pyarrow not installed); send application/json", status=415)
+        if not arrow_enabled():
+            raise ServerError(
+                "Arrow request bodies unsupported (pyarrow not installed); send application/json", status=415)
+        return ARROW
     return PARQUET if mimetype == PARQUET_CONTENT_TYPE else LEGACY

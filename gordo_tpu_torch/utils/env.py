@@ -16,6 +16,10 @@ output directory), ``GORDO_TPU_TELEMETRY_MAX_BYTES`` (256 MiB) and
 ``GORDO_TPU_HEALTH_SHARDS`` (0: from the fleet's size) in
 ``telemetry/fleet_health.py``.
 
+The training knob ``GORDO_TPU_LSTM_SEGMENTED`` (0: off; N: N segments
+an update of the segmented LSTM fit) is read in ``models/training.py``
+(``segmented_config``).
+
 The serving telemetry's (``gordo_tpu/utils/env.py:275-349``), likewise:
 ``GORDO_TPU_TRACE_SAMPLE_RATE`` (0.05) in ``telemetry/serving.py`` and
 ``GORDO_TPU_PROFILE_DIR`` (unset: no trace) in ``utils/profiling.py``.

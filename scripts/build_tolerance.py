@@ -3,7 +3,7 @@
 How far ``chip_smoke.py``'s card-against-CPU build check sits from a
 wrong build.
 
-    python3 scripts/build_tolerance.py [lstm | sequential | definitions]
+    python3 scripts/build_tolerance.py [lstm | segmented | sequential | definitions]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU. Builds
 ``chip_smoke.CPU_CHECK`` (two 20-tag and two 40-tag machines: the smoke's
@@ -11,7 +11,12 @@ definition, rows and seeds), or with ``lstm`` ``chip_smoke.LSTM_CPU_CHECK``
 (one ``[lstm]`` machine an architecture, its definition, rows and seed),
 on the CPU, then three times on the card, and holds each card build to
 the CPU's with ``chip_smoke.compare_builds`` at the smoke's limits
-(``LSTM_BUILD_LIMITS`` for ``lstm``). With ``sequential`` the builds are
+(``LSTM_BUILD_LIMITS`` for ``lstm``). ``segmented`` builds the same
+machines with ``GORDO_TPU_LSTM_SEGMENTED=chip_smoke.LSTM_SEGMENTS`` (the
+final fits segmented, the CV folds windowed): ``sound`` and ``tf32`` as
+below, then ``bucket``: each machine built on the card among every
+``[lstm]`` machine of its group, as the smoke's build trains it (4 or 8
+members to a bucket), held to its CPU build alone. With ``sequential`` the builds are
 ``ModelBuilder``'s, one machine at a time: the machines of
 ``chip_smoke.py``'s ``[sequential]`` and those of
 ``tests/test_torch_builder_cuda.py``, held at ``SEQUENTIAL_BUILD_LIMITS``,
@@ -45,9 +50,10 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def lstm_machines():
-    """``chip_smoke.LSTM_CPU_CHECK`` as fleet-build machines holding their
-    rows as arrays (the rows ``[lstm]`` writes to its CSVs)."""
+def lstm_machines(every=False):
+    """``chip_smoke.LSTM_CPU_CHECK`` (with ``every``, all of ``[lstm]``'s
+    machines) as fleet-build machines holding their rows as arrays (the
+    rows ``[lstm]`` writes to its CSVs)."""
     from datetime import timedelta
 
     import chip_smoke
@@ -58,7 +64,7 @@ def lstm_machines():
     return [
         Machine.from_config({"name": name, "model": models[name], "dataset": {"tag_list": tags, "resolution": "10min"}},
                             "smoke-lstm", data=(values, None), index=index)
-        for name, tags, values in machines if name in chip_smoke.LSTM_CPU_CHECK
+        for name, tags, values in machines if every or name in chip_smoke.LSTM_CPU_CHECK
     ]
 
 
@@ -195,6 +201,30 @@ def main():
                                 chip_smoke.build_summaries, controls)
             faults += tolerance("definitions callbacks", callbacks, chip_smoke.SEQUENTIAL_BUILD_LIMITS,
                                 chip_smoke.build_summaries, controls)
+    elif sys.argv[1:] == ["segmented"]:
+        os.environ["GORDO_TPU_LSTM_SEGMENTED"] = str(chip_smoke.LSTM_SEGMENTS)
+        checked = lstm_machines()
+        cpu_build = []
+
+        def alone(machines, device, random=None):  # the CPU build once, for both calls
+            if device != "cpu":
+                return chip_smoke.build_summaries(machines, device, random)
+            if not cpu_build:
+                cpu_build.append(chip_smoke.build_summaries(machines, device))
+            return cpu_build[0]
+
+        faults = tolerance("lstm segmented", checked, chip_smoke.LSTM_BUILD_LIMITS, alone, ("sound", "tf32"))
+        groups = tuple(name.rsplit("-", 1)[0] for name in chip_smoke.LSTM_CPU_CHECK)
+
+        def in_buckets(machines, device, random=None):
+            if device == "cpu":
+                return alone(machines, device)
+            everything = lstm_machines(every=True)
+            summaries, seconds = chip_smoke.build_summaries(
+                [m for m in everything if m.name.rsplit("-", 1)[0] in groups], device)
+            return {m.name: summaries[m.name] for m in machines}, seconds
+
+        tolerance("lstm segmented", checked, chip_smoke.LSTM_BUILD_LIMITS, in_buckets, ("bucket",))
     elif sys.argv[1:] == ["lstm"]:
         faults = tolerance("lstm", lstm_machines(), chip_smoke.LSTM_BUILD_LIMITS, chip_smoke.build_summaries,
                            controls, swap_windows=True)

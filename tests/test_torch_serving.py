@@ -561,7 +561,7 @@ def test_stream_statuses(stream_clients, monkeypatch):
     assert _post(port_client, f"{base}/bad id!/ingest", {"X": {}})[0] == 400
     assert _post(port_client, f"{base}/s3/ingest", {"X": {}})[0] == 400
     response = port_client.post(f"{base}/s3/ingest", data=b"ARROW1\x00", content_type="application/vnd.apache.arrow.stream")
-    assert response.status_code == 400  # Arrow bodies are not ported yet
+    assert response.status_code == 400  # not a GDTAF1 container
     assert port_client.get(f"{base}/s3/events?cursor=x").status_code == 400
     monkeypatch.setenv("GORDO_TPU_STREAM_MAX_SESSIONS", "1")
     capped = Client(build_app(port_client.application.store.collection_dir, device="cpu"))
