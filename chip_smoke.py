@@ -208,12 +208,13 @@ the same shape, and its bounds.
 ``[engine]`` then serves the ``[train]`` collection through the
 micro-batching engine (``GORDO_TPU_BATCHING``'s ``ServeEngine``, default
 knobs but a 30 s batching deadline) on the card over the socket, beside the same app without it: C = 1,
-8 and 32 concurrent clients, each on its own 20-tag machine with its own
+8 and 16 concurrent clients (32 before ``[ingress]`` was added: the cut
+pays for it), each on its own 20-tag machine with its own
 next 1008 rows, on ``/anomaly/prediction`` then ``/prediction``, every
 answer held to the CPU app's; it prints requests a second, p50 and p99
 host latency with batching on and off, K1's launches, the engine's
-batches, coalesced requests and mean batch, and checks that 32 clients
-took fewer K1 launches than requests. One more burst of 32 clients on
+batches, coalesced requests and mean batch, and checks that 16 clients
+took fewer K1 launches than requests. One more burst of 16 clients on
 ``/anomaly/prediction`` runs an engine at every default knob, the 2000 ms
 deadline included, and prints how many answered 504 (a reading, not a
 check; the 200s are held to the CPU app's). Then 8 clients of the 40-tag
@@ -358,6 +359,31 @@ fleet request of the 24 machines, equal to the CPU app's (K1 4, K2 2);
 one. K1 at the packed build's CV forwards and K2 at the fleet request's
 calls join ``[kernel]`` and ``[times]``.
 
+``[ingress]`` (after ``[packing]``) drives every data input the JAX
+package reads, with no pyarrow, pandas or network: the committed parquet
+files pyarrow wrote (``tests/data/parquet/``, SNAPPY, GZIP and none,
+dictionary pages, data pages v1 and v2) decoded to the numbers beside
+them, and one ``build-fleet`` on the card of four 20-tag machines of
+``[train]``'s width, detector, epochs and split: ``file-wide-000`` (a
+wide parquet file the port's writer wrote), ``file-tags-000`` (a
+directory of one parquet file a tag, two of them the committed pyarrow
+fixtures), ``influx-000`` (InfluxDB 1.x's ``/query`` answered by an
+``http.server`` on 127.0.0.1, which records each query: they must be the
+JAX provider's InfluxQL byte for byte, ``INGRESS_INFLUXQL``, with basic
+auth and the API key) and ``filtered-000`` (a CSV under a ``row_filter``
+of backticks, ``&`` and a chained comparison dropping 10-30% of its
+rows). The CV forward is one K1 launch, held to the plain version on the
+build's own fold params and rows; each machine's X equals its CSV twin's
+to the bit (filtered-000's after the same filter in numpy), each fetch
+is timed beside its twin's, and a CPU build of the four is held to the
+card's under ``BUILD_LIMITS``. A card app then answers a raw-parquet
+``/prediction`` and a multipart-parquet (``X`` and ``y``)
+``/anomaly/prediction``, both ``?format=parquet``: one K1 launch each,
+counted where they launch, and each answer, read by the port's reader,
+equal to the same request's JSON answer to the bit; their
+``Server-Timing`` stages are printed beside the JSON twins'. Both K1
+shapes are ``[times]`` cases and kernel-JSON rows.
+
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
@@ -365,6 +391,7 @@ Any failure exits non-zero before that last line; so does a machine
 without CUDA, and a directory without the package.
 """
 
+import base64
 import collections
 import contextlib
 import json
@@ -2749,12 +2776,14 @@ def routes_phase(base, names, wide_names, cpu_app, collection, card):
 
 # -- [engine]: the micro-batching serve engine ------------------------------------------
 
-ENGINE_CLIENTS = (1, 8, 32)
+#: the latency rounds' concurrent clients (1, 8 and 32 until the [ingress] phase's seconds were paid
+#: for here: the largest round's JSON bodies were most of the phase)
+ENGINE_CLIENTS = (1, 8, 16)
 ENGINE_ROUTES = ("anomaly/prediction", "prediction")
 ENGINE_PRECISIONS = ("bf16", "int8")
 #: the member whose forward the drill poisons
 ENGINE_POISON = "machine-005"
-#: the engine's batching deadline for the latency rounds: 32 clients' 1008-row JSON bodies hold the GIL for
+#: the engine's batching deadline for the latency rounds: 16-32 clients' 1008-row JSON bodies hold the GIL for
 #: seconds, and a rehearsal on the CPU at the 2000 ms default shed requests with 504 while their batch waited
 #: for it; those rounds measure latency, so they wait (every other knob is the default). One burst runs at
 #: the default deadline and reports its 504s
@@ -3648,6 +3677,13 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
     from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
 
     t_phase = time.perf_counter()
+    parts, t_part = {}, [t_phase]  # the phase's seconds by part
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = parts.get(name, 0.0) + now - t_part[0]
+        t_part[0] = now
+
     # the apps below warm up in the foreground, timed, instead of in a thread at build
     os.environ["GORDO_TPU_SERVE_WARMUP"] = "0"
     os.environ["GORDO_TPU_BREAKER_THRESHOLD"] = "1"  # the poison drill's breaker opens on its first failure
@@ -3665,6 +3701,7 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
     check(all(status == 200 for status, _ in expected.values()), "the CPU app refused a request")
     phase("engine", f"{len(expected)} CPU-app answers (Arrow) to hold the card's to in "
           f"{time.perf_counter() - t0:.1f} s")
+    part("engine app and CPU answers")
 
     launches = {"narrow": 0, "wide": 0}
     (on_base, stop_on), (off_base, stop_off) = serving(on_app), serving(plain_app)
@@ -3702,6 +3739,7 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
                         check(k1 == clients, f"batching off: {k1} K1 launches for {clients} requests")
                     phase("engine", f"{line}; max abs diff vs the CPU app {max_diff:.3e}; {card}")
 
+        part("latency rounds")
         # the 40-tag bucket: the wide kernel
         requests = [(f"/{n}/anomaly/prediction", engine_body("anomaly", own_frame(n, WIDE_TAGS))) for n in wide_names]
         before = engine.stats()
@@ -3719,6 +3757,7 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
               f"K1 launches {k1}, engine batches {after['batches'] - before['batches']}, coalesced "
               f"{after['coalesced'] - before['coalesced']}; max abs diff vs the CPU app {max_diff:.3e}; {card}")
 
+        part("40-tag round")
         # the poison drill: the member's riders answer, it answers 500, then 503 from its open breaker
         os.environ["GORDO_TPU_FAULTS"] = f"serve_member_poison:*{ENGINE_POISON}:times=inf"
         try:
@@ -3733,6 +3772,7 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
         finally:
             del os.environ["GORDO_TPU_FAULTS"]
         stats = engine.stats()
+        part("poison drill")
         phase("engine", f"poisoned {ENGINE_POISON}: 7 riders 200, it 500 then 503; nonfinite_outputs "
               f"{stats['nonfinite_outputs']}, members_isolated {stats['members_isolated']}, breaker_trips "
               f"{stats['breaker_trips']}, breaker_rejects {stats['breaker_rejects']}")
@@ -3743,10 +3783,11 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
         on_app.shutdown()
     check(sorted(captured) == sorted(ENGINE_FULL_CASES), f"coalesced K1 batches at widths {sorted(captured)}")
 
-    # every knob at its default, the 2000 ms deadline included: how many of 32 clients answer 504; metrics on
+    # every knob at its default, the 2000 ms deadline included: how many of 16 clients answer 504; metrics on
     requests = [(f"/{n}/anomaly/prediction", bodies[("anomaly/prediction", n)])
                 for n in names[:max(ENGINE_CLIENTS)]]
     default_app, answers, wall = metered_round(collection, requests)
+    part("default-knob round")
     stats = default_app.engine.stats()
     statuses = [a[0] for a in answers]
     check(set(statuses) <= {200, 504}, f"the default engine answered {sorted(set(statuses))}")
@@ -3795,9 +3836,11 @@ def engine_phase(collection, names, wide_names, cpu_app, plain_app, card):
         phase("engine", f"C=8 /anomaly/prediction at {prec}: {wall:.3f} s, coalesced {stats['precision']['coalesced']}"
               f" in {stats['batches']} batches, verdicts equal to f32's on {agree} of {rows} rows "
               f"({agree / rows:.4%}); {card}")
+        part(f"{prec} round")
     for name in ("GORDO_TPU_SERVE_WARMUP", "GORDO_TPU_BREAKER_THRESHOLD"):
         del os.environ[name]
-    phase("engine", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    phase("engine", f"the phase took {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{name} {seconds:.1f}" for name, seconds in parts.items()))
     return launches, captured
 
 
@@ -5150,6 +5193,360 @@ def packing_phase(work_dir, train_collection, card):
     return launches, cv_cases, fleet_cases
 
 
+# -- [ingress]: every data input the JAX package reads ------------------------------
+
+#: [ingress]'s project and machines, each 20 tags of TRAIN_ROWS rows from TRAIN_START, DEFINITION's detector
+INGRESS_PROJECT = "smoke-ingress"
+INGRESS_MACHINES = ("file-wide-000", "file-tags-000", "influx-000", "filtered-000")
+#: their sensor_data seeds: INGRESS_SEED + their position (clear of [train]'s, [lstm]'s and [definitions]')
+INGRESS_SEED = 1500
+#: file-tags-000's tags read from the parquet files pyarrow wrote (``scripts/make_parquet_fixtures.py``,
+#: SNAPPY, dictionary pages, data page v1); its other tags the port's writer writes
+INGRESS_FIXTURES = os.path.join("tests", "data", "parquet")
+INGRESS_FIXTURE_TAGS = ("tag-00", "tag-01")
+#: influx-000's source: InfluxDB 1.x's /query on 127.0.0.1, user, password and API key
+INGRESS_INFLUX_AUTH = ("smoke", "ingress-pw")
+INGRESS_API_KEY = "ingress-key"
+#: the InfluxQL the JAX provider (``gordo_tpu/dataset/data_provider.py:410-423``) writes for each of
+#: influx-000's tags over [TRAIN_START, TRAIN_START + TRAIN_ROWS x 10 min) with ``where_tags``
+#: ``{"site": "north"}``: a copy, written out here
+INGRESS_INFLUXQL = ('SELECT "Value" FROM "sensors" WHERE time >= 1577836800000000000 AND time < 1579036800000000000 '
+                    "AND \"tag\" = '{tag}' AND \"site\" = 'north'")
+#: filtered-000's row_filter drops between these shares of its rows
+INGRESS_DROPPED = (0.10, 0.30)
+#: [ingress]'s K1 calls on the card, held against the plain version and timed in [times]
+INGRESS_CASES = {
+    "cv": "ingress CV fold scoring: hourglass20 M=12 B=500",
+    "served": "parquet requests: hourglass20 gather M=1 of 4 B=1008 +ingest",
+}
+
+
+def ingress_rows():
+    """``{name: (tags, rows)}`` of [ingress]'s machines: file-tags-000's
+    first tags the fixtures' numbers, the rest seeded ``sensor_data``."""
+    import numpy as np
+
+    rows = {}
+    for i, name in enumerate(INGRESS_MACHINES):
+        values = sensor_data(INGRESS_SEED + i, TRAIN_ROWS, 20)
+        if name == "file-tags-000":
+            for j, tag in enumerate(INGRESS_FIXTURE_TAGS):
+                values[:, j] = np.load(os.path.join(HERE, INGRESS_FIXTURES, "tags", f"{tag}.npz"))["values"][:, 0]
+        rows[name] = (tag_list(20), values)
+    return rows
+
+
+def ingress_filter(values):
+    """filtered-000's ``row_filter`` (backticks, ``&``, a chained comparison)
+    from its rows' percentiles, and the rows it keeps in numpy, written apart
+    from the port's evaluator."""
+    import numpy as np
+
+    low0 = round(float(np.percentile(values[:, 0], 12)), 3)
+    low1, high1 = (round(float(np.percentile(values[:, 1], q)), 3) for q in (4, 99))
+    text = f"`tag-00` > {low0} & {low1} < `tag-01` <= {high1}"
+    keep = (values[:, 0] > low0) & (low1 < values[:, 1]) & (values[:, 1] <= high1)
+    return text, keep
+
+
+def influx_server(values, tags):
+    """InfluxDB 1.x's ``GET /query`` on 127.0.0.1 in a thread, answering
+    ``tags``' readings (``values``' columns at TRAIN_START's 10-minute stamps,
+    measurement ``sensors``, field ``Value``, Influx tag ``tag``) as its JSON
+    with ``epoch=ns`` stamps: ``(port, seen, stop)``, ``seen`` each query's
+    text, parameters and headers."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.parse import parse_qs, urlsplit
+
+    import numpy as np
+
+    stamps = np.datetime64(TRAIN_START.replace(tzinfo=None), "ns").astype(np.int64) + 600 * 10**9 * np.arange(
+        len(values), dtype=np.int64)
+    pattern = re.compile(r"time >= (\d+) AND time < (\d+) AND \"tag\" = '([^']*)'")
+    seen = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            params = {k: v[0] for k, v in parse_qs(urlsplit(self.path).query).items()}
+            seen.append((params.get("q"), params, dict(self.headers)))
+            match = pattern.search(params.get("q", ""))
+            series = []
+            if match and match.group(3) in tags:
+                start, end = int(match.group(1)), int(match.group(2))
+                inside = (stamps >= start) & (stamps < end)
+                column = values[inside, tags.index(match.group(3))]
+                series = [{"name": "sensors", "columns": ["time", "Value"],
+                           "values": [[int(t), float(v)] for t, v in zip(stamps[inside], column)]}]
+            body = json.dumps({"results": [{"statement_id": 0, **({"series": series} if series else {})}]}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        check(not thread.is_alive(), "the Influx server's thread did not stop")
+
+    return server.server_port, seen, stop
+
+
+def ingress_project(root, port, rows):
+    """[ingress]'s sources on disk and its project config (JSON): the wide
+    parquet file and the per-tag directory written by the port's writer (two
+    of the directory's files copied from the fixtures), filtered-000's CSV
+    and its row_filter, influx-000's provider at ``port``. Returns the
+    config's path, the row_filter's text and the rows it keeps."""
+    import numpy as np
+
+    from gordo_tpu_torch.utils import parquet
+
+    ticks = (np.datetime64(TRAIN_START.replace(tzinfo=None), "us").astype(np.int64)
+             + 600 * 10**6 * np.arange(TRAIN_ROWS, dtype=np.int64))
+    end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
+    providers = {}
+    tags, wide = rows["file-wide-000"]
+    path = os.path.join(root, "file-wide-000.parquet")
+    with open(path, "wb") as f:
+        f.write(parquet.write_frame(tags, [wide[:, j] for j in range(len(tags))], ticks, "us", "UTC"))
+    providers["file-wide-000"] = {"type": "FileDataProvider", "path": path}
+    tags, per_tag = rows["file-tags-000"]
+    directory = os.path.join(root, "file-tags-000")
+    os.makedirs(directory)
+    for j, tag in enumerate(tags):
+        target = os.path.join(directory, f"{tag}.parquet")
+        if tag in INGRESS_FIXTURE_TAGS:
+            shutil.copyfile(os.path.join(HERE, INGRESS_FIXTURES, "tags", f"{tag}.parquet"), target)
+        else:
+            with open(target, "wb") as f:
+                f.write(parquet.write_frame(["value"], [per_tag[:, j]], ticks, "us", "UTC"))
+    providers["file-tags-000"] = {"type": "FileDataProvider", "path": directory}
+    user, password = INGRESS_INFLUX_AUTH
+    providers["influx-000"] = {"type": "InfluxDataProvider", "measurement": "sensors",
+                               "uri": f"{user}:{password}@127.0.0.1:{port}/plant", "api_key": INGRESS_API_KEY,
+                               "api_key_header": "X-Ingress-Key", "where_tags": {"site": "north"}}
+    tags, filtered = rows["filtered-000"]
+    providers["filtered-000"] = {"type": "FileDataProvider", "timestamp_column": "time",
+                                 "path": write_csv(root, "filtered-000", tags, filtered)}
+    text, keep = ingress_filter(filtered)
+    machines = []
+    for name in INGRESS_MACHINES:
+        dataset = {"data_provider": providers[name], "tag_list": rows[name][0],
+                   "train_start_date": TRAIN_START.isoformat(), "train_end_date": end}
+        if name == "filtered-000":
+            dataset["row_filter"] = text
+        machines.append({"name": name, "model": DEFINITION, "dataset": dataset})
+    config_path = os.path.join(root, "ingress.json")
+    with open(config_path, "w") as f:
+        json.dump({"machines": machines}, f, indent=1)
+    return config_path, text, keep
+
+
+def multipart_body(files):
+    """``files`` (``{name: bytes}``) as a ``multipart/form-data`` body, as a
+    client's upload writes it: ``(body, content type)``."""
+    boundary = "ingress-" + os.urandom(8).hex()
+    parts = []
+    for name, data in files.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"; filename="{name}"\r\n'
+                     "Content-Type: application/octet-stream\r\n\r\n".encode() + data + b"\r\n")
+    return b"".join(parts) + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def ingress_phase(work_dir, card):
+    """``[ingress]`` (see the module docstring). Returns the phase's K1
+    launches and its K1 calls as cases with their launches."""
+    import numpy as np
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.cli.cli import build_fleet, load_fleet_machines
+    from gordo_tpu_torch.dataset import GordoBaseDataset
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.server import build_app, wire
+    from gordo_tpu_torch.utils import parquet
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    root = os.path.join(work_dir, "ingress")
+    os.makedirs(root)
+
+    # the committed pyarrow files, decoded here without pyarrow
+    fixtures = sorted(os.path.join(dirpath, name) for dirpath, _, files in os.walk(os.path.join(HERE, INGRESS_FIXTURES))
+                      for name in files if name.endswith(".parquet"))
+    check(len(fixtures) >= 5, f"the parquet fixtures are missing: {fixtures}")
+    for path in fixtures:
+        with open(path, "rb") as f:
+            data = f.read()
+        expected = np.load(path[: -len(".parquet")] + ".npz")
+        frame = parquet.read_frame(data)
+        index = parquet.timestamp_ns(frame.index) if frame.index.kind == "timestamp" else frame.index.values
+        numeric = [(str(label), c.values) for label, c in zip(frame.labels, frame.columns) if c.kind != "timestamp"]
+        check(np.array_equal(index, expected["index"]) and [n for n, _ in numeric] == list(expected["names"])
+              and np.array_equal(np.column_stack([v for _, v in numeric]), expected["values"], equal_nan=True),
+              f"{os.path.relpath(path, HERE)} decodes to other numbers than its .npz")
+    fixture = os.path.join(HERE, INGRESS_FIXTURES, "tags", f"{INGRESS_FIXTURE_TAGS[0]}.parquet")
+    with open(fixture, "rb") as f:
+        data = f.read()
+    decode_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        parquet.read_frame(data)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    phase("ingress", f"{len(fixtures)} parquet files pyarrow wrote (SNAPPY, GZIP and none; dictionary pages; data "
+          f"pages v1 and v2; UTC, naive and Oslo indexes in ms, us and ns) decoded by the port's reader to the "
+          f"numbers written beside them; {os.path.relpath(fixture, HERE)} ({len(data)} B, {TRAIN_ROWS} rows, "
+          f"SNAPPY, RLE_DICTIONARY, page v1) in {min(decode_ms):.3f} ms (median {np.median(decode_ms):.3f}) on the "
+          f"host")
+
+    rows = ingress_rows()
+    influx_tags, influx_values = rows["influx-000"]
+    port, seen, stop_influx = influx_server(influx_values, influx_tags)
+    try:
+        config_path, row_filter, keep = ingress_project(root, port, rows)
+        dropped = 1 - keep.mean()
+        check(INGRESS_DROPPED[0] <= dropped <= INGRESS_DROPPED[1], f"the row_filter drops {dropped:.1%} of the rows")
+        shard = os.path.join(root, "shard.json")
+        with open(shard, "w") as f:
+            f.write(normalize(config_path, INGRESS_PROJECT))
+        out_dir = os.path.join(root, REVISION)
+        with captured_build() as (forwards, fetched):
+            fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+            t0 = time.perf_counter()
+            code, builder = build_fleet(shard, out_dir, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            build_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+        check(code == 0 and not builder.build_errors, f"build-fleet exited {code}: {builder and builder.build_errors}")
+        check(sorted(fetched) == sorted(INGRESS_MACHINES), f"the build fetched {sorted(fetched)}")
+        check(len(forwards) == 1 and build_launches["K1"] == 1 and forwards[0][3] == 1,
+              f"CV scoring launched K1 {[n for *_, n in forwards]} times for {len(forwards)} spec groups, not once")
+        spec, stacked, X, _ = forwards[0]
+        check(X.shape[0] == 3 * len(INGRESS_MACHINES) and X.shape[2] == 20, f"the CV forward's shape {X.shape}")
+        cv_case = as_case(spec, stacked, X)
+        queries = [q for q, _, _ in seen]
+        expected_queries = [INGRESS_INFLUXQL.format(tag=tag) for tag in influx_tags]
+        check(queries == expected_queries, f"the Influx server saw {queries[:2]}..., not the JAX provider's InfluxQL "
+              f"{expected_queries[:2]}...")
+        _, params, headers = seen[-1]
+        auth = headers.get("Authorization", "").split()
+        check(params.get("db") == "plant" and params.get("epoch") == "ns"
+              and headers.get("X-Ingress-Key") == INGRESS_API_KEY and len(auth) == 2
+              and base64.b64decode(auth[1]).decode() == ":".join(INGRESS_INFLUX_AUTH),
+              f"the Influx reads' parameters {params} and headers {sorted(headers)}")
+        fits, steps, fit_s, event_ms = fit_rates(builder)
+        phase("ingress", f"build-fleet of {len(fetched)} machines (parquet wide file, per-tag parquet directory, "
+              f"InfluxDB over HTTP, CSV under row_filter {row_filter!r}, {dropped:.1%} of its rows dropped; "
+              f"hourglass20, 5 epochs, batch 32, TimeSeriesSplit(3)) on the card in {wall:.2f} s: "
+              f"{build_phases(builder)}; "
+              f"{steps} steps in {fit_s:.3f} s; K1 launches {build_launches['K1']} (the CV forward {tuple(X.shape)}), "
+              f"K2 {build_launches['K2']}; the Influx server saw {len(queries)} queries, each the JAX provider's "
+              f"InfluxQL byte for byte, with basic auth and the API key")
+
+        # each machine's fetched X against its CSV twin's, and each source's fetch a machine
+        machines = {m.name: m for m in load_fleet_machines(shard)}
+        end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
+        fetch_ms, twin_ms = {}, {}
+        for name in INGRESS_MACHINES:
+            tags, values = rows[name]
+            twin = {"data_provider": {"type": "FileDataProvider", "timestamp_column": "time",
+                                      "path": write_csv(root, f"{name}-twin", tags, values)},
+                    "tag_list": tags, "train_start_date": TRAIN_START.isoformat(), "train_end_date": end}
+            t0 = time.perf_counter()
+            twin_X = GordoBaseDataset.from_dict(twin).get_data()[0]
+            twin_ms[name] = (time.perf_counter() - t0) * 1e3
+            if name == "filtered-000":
+                twin_X = twin_X[keep]
+            check(np.array_equal(fetched[name], twin_X), f"{name}: the build's X differs from its CSV twin's")
+            t0 = time.perf_counter()
+            again = machines[name].dataset.get_data()[0]
+            fetch_ms[name] = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(again, twin_X), f"{name}: a second fetch differs")
+        phase("ingress", "each machine's X equal to its CSV twin's to the bit (filtered-000's after the same filter, "
+              "written in numpy); a fetch a machine on the host (its source, then the CSV twin): "
+              + ", ".join(f"{n} {fetch_ms[n]:.2f} ms against {twin_ms[n]:.2f} ms" for n in INGRESS_MACHINES))
+
+        t0 = time.perf_counter()
+        cpu, cpu_s = build_summaries(list(machines.values()), "cpu")
+    finally:
+        stop_influx()
+    card_summaries = {n: build_summary(serializer.load(os.path.join(out_dir, n), "cpu"),
+                                       serializer.load_metadata(os.path.join(out_dir, n))) for n in INGRESS_MACHINES}
+    worst, faults = compare_builds(card_summaries, cpu)
+    check(not faults, "the card's [ingress] build disagrees with the CPU's: " + "; ".join(faults[:5]))
+    phase("ingress", f"card build against a CPU build of the {len(cpu)} machines from the same shard and sources "
+          f"({cpu_s:.2f} s on the CPU): params max abs {worst[0]:.3e} (limit {BUILD_PARAM_ATOL}), thresholds max rel "
+          f"{worst[1]:.3e} (limit {BUILD_THRESHOLD_RTOL}), CV scores max |d| / (1 + |cpu|) {worst[2]:.3e} (limit "
+          f"{BUILD_SCORE_TOL}), epochs run equal")
+
+    # the parquet routes on a card app, each request beside its JSON twin
+    app = build_app(out_dir, device="cuda")
+    check(len(app.store.fleet().warm()) == len(INGRESS_MACHINES), "not every [ingress] model loaded")
+    base, stop = serving(app)
+    try:
+        wide_X = own_rows_frame("file-wide-000", rows)
+        tags_X, tags_y = own_rows_frame("file-tags-000", rows), own_rows_frame("file-tags-000", rows, shift=0.5)
+        requests = {
+            "raw-parquet /prediction": ("/file-wide-000/prediction", {"X": wide_X}),
+            "multipart-parquet /anomaly/prediction": ("/file-tags-000/anomaly/prediction", {"X": tags_X, "y": tags_y}),
+        }
+        json_answers = {label: raw_post(base + path, json.dumps(payload).encode(), "application/json")
+                        for label, (path, payload) in requests.items()}
+        raw_body = wire.dataframe_into_parquet_bytes(wire.decode_frame(wide_X))
+        form_body, form_type = multipart_body({
+            "X": wire.dataframe_into_parquet_bytes(wire.decode_frame(tags_X)),
+            "y": wire.dataframe_into_parquet_bytes(wire.decode_frame(tags_y))})
+        bodies = {"raw-parquet /prediction": (raw_body, wire.PARQUET_CONTENT_TYPE),
+                  "multipart-parquet /anomaly/prediction": (form_body, form_type)}
+        with captured_store_kernels() as calls:
+            fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+            answers = {label: raw_post(base + path + "?format=parquet", *bodies[label])
+                       for label, (path, _) in requests.items()}
+            serve_launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    finally:
+        stop()
+        app.shutdown()
+    check(serve_launches == {"K1": len(requests), "K2": 0}, f"the parquet requests launched {serve_launches}, not "
+          f"K1 {len(requests)} (one a request)")
+    for label, (status, body, headers, ms) in answers.items():
+        json_status, json_body, json_headers, json_ms = json_answers[label]
+        check(status == json_status == 200 and headers["Content-Type"] == "application/octet-stream",
+              f"{label}: parquet answered {status} {headers.get('Content-Type')}, JSON {json_status}")
+        table = wire.table_from_parquet_bytes(body)
+        same_tree(json.loads(json_body)["data"], arrow_tree(table), label)
+        check(headers["revision"] == json_headers["revision"] == REVISION, f"{label}: revision {headers['revision']}")
+        phase("ingress", f"{label}: parquet {len(bodies[label][0])} B in, {len(body)} B out in {ms:.1f} ms "
+              f"({stage_text(headers)}); JSON {len(json_body)} B out in {json_ms:.1f} ms ({stage_text(json_headers)}); "
+              f"the parquet answer, read by the port's reader, equal to the JSON answer to the bit")
+    check(len(calls) == len(requests) and all(kernel == "K1" and made == 1 for kernel, _, made in calls),
+          f"[ingress]'s kernel calls {[(k, m) for k, _, m in calls]}")
+    served_case = calls[0][1]
+    check(tuple(served_case["X"].shape) == (1, ROWS, 20) and served_case["ingest"] is not None,
+          f"the parquet request's K1 call: X {tuple(served_case['X'].shape)}")
+    phase("ingress", f"K1 launches {serve_launches['K1']} (one a parquet request, counted where they launch), K2 "
+          f"{serve_launches['K2']}; {card}")
+    launches = {"K1": build_launches["K1"] + serve_launches["K1"], "K2": build_launches["K2"]}
+    return launches, {INGRESS_CASES["cv"]: (cv_case, 1), INGRESS_CASES["served"]: (served_case, len(calls))}
+
+
+def own_rows_frame(name, rows, shift=0.0):
+    """ROWS of an [ingress] machine's readings past its training rows, as a
+    JSON frame (the seeded machines' own continuation; file-tags-000's
+    fixture tags continue as seeded data), plus ``shift``."""
+    tags, _ = rows[name]
+    values = sensor_data(INGRESS_SEED + INGRESS_MACHINES.index(name), TRAIN_ROWS + ROWS, 20)[TRAIN_ROWS:] + shift
+    keys = [(TRAIN_START + timedelta(minutes=10 * (TRAIN_ROWS + r))).isoformat() for r in range(ROWS)]
+    return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tags)}
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """Device ms per call: CUDA events around ``iters`` calls queued behind
     a device sleep that outlasts their enqueueing twice over, so the host's
@@ -5514,6 +5911,12 @@ def main():
             errors[name] = compare(case)
             phase("kernel", f"{name}, the packed build's own fold params and test rows: max abs "
                   f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
+        with clocked("ingress"):
+            ingress_launches, ingress_cases = ingress_phase(work_dir, card)
+        for name, (case, _) in ingress_cases.items():
+            errors[name] = compare(case)
+            phase("kernel", f"{name} {tuple(case['X'].shape)}, [ingress]'s own params and rows: max abs "
+                  f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         for width, name in PACKING_FLEET.items():
             case = packing_fleet[width][0]
             picked = list(PACKING_FLEET_MACHINES[width])
@@ -5682,6 +6085,14 @@ def main():
               f"cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
               f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
 
+    for name, (case, _) in ingress_cases.items():
+        timed[name] = times(case)
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name} {tuple(case['X'].shape)}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain "
+              f"{library!r} ms (with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor "
+              f"cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+              f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -5736,14 +6147,14 @@ def main():
                   "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
                   "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"],
                   "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"],
-                  "packing": packing_launches["K1"], "arrow": arrow_launches["K1"]}
+                  "packing": packing_launches["K1"], "arrow": arrow_launches["K1"], "ingress": ingress_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
                   "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
                   "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"],
-                  "packing": packing_launches["K2"], "arrow": arrow_launches["K2"]}
+                  "packing": packing_launches["K2"], "arrow": arrow_launches["K2"], "ingress": ingress_launches["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -5826,6 +6237,13 @@ def main():
         entry("fleet_anomaly_scores (K2), narrow kernel, Arrow stream flushes", "gordo_tpu/ops/pallas_dense.py:126",
               arrow_cases[ARROW_CASES["K2 flush"]][1], k2_by_path, ARROW_CASES["K2 flush"],
               scored_timed[ARROW_CASES["K2 flush"]]),
+        # launches: [ingress]'s CV forward of its four machines (parquet, Influx, row_filter sources) and its two
+        # parquet requests, read on the counters where they launch
+        entry("fleet_dense (K1), narrow kernel, ingress CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              ingress_cases[INGRESS_CASES["cv"]][1], k1_by_path, INGRESS_CASES["cv"], timed[INGRESS_CASES["cv"]]),
+        entry("fleet_dense (K1), narrow kernel, parquet requests", "gordo_tpu/ops/pallas_dense.py:114",
+              ingress_cases[INGRESS_CASES["served"]][1], k1_by_path, INGRESS_CASES["served"],
+              timed[INGRESS_CASES["served"]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,12 @@ yields one :class:`~.series.Series` per requested tag.
   examples and tests, bit for bit the JAX provider's (the tag name's
   sha256 seeds a ``RandomState``; stamps are a ``linspace`` of the
   window's UTC nanoseconds, in the start date's time zone).
-- :class:`FileDataProvider`: CSV files, one wide file of tag columns or
-  a directory of one file per tag; naive stamps are read in ``tz``;
-  readings in ``[start, end)``. Parquet raises ``NotImplementedError``:
-  it needs pyarrow.
+- :class:`FileDataProvider`: CSV and parquet files (``utils/parquet.py``),
+  one wide file of tag columns or a directory of one file per tag; naive
+  stamps are read in ``tz``; readings in ``[start, end)``.
 - :class:`ListBackedDataProvider`: series held in memory.
-- :class:`InfluxDataProvider`: raises ``NotImplementedError`` when it is
-  read; it needs an Influx client and a network.
+- :class:`InfluxDataProvider`: InfluxDB 1.x over HTTP (``influx.py``),
+  one query a tag, the JAX provider's InfluxQL.
 
 ``to_dict`` writes the JAX package's class paths, so an artifact's
 ``metadata.json`` reads the same from either package.
@@ -22,11 +21,14 @@ import abc
 import csv
 import hashlib
 import os
+from datetime import timezone
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
+from ..utils import parquet
 from ..utils.args import capture_args
+from .influx import InfluxQueryClient
 from .sensor_tag import SensorTag, normalize_sensor_tags
 from .series import Series, datetime_ns, parse_datetime, resolve_tz, tz_of
 
@@ -106,6 +108,14 @@ class _Frame:
         self.stamps, self.columns, self.tz = stamps, columns, tz
 
 
+def _numeric(column: "parquet.ParquetColumn") -> np.ndarray:
+    """A parquet column as float64 (NaN for a null); a column of another
+    kind stays as it is and fails if a tag reads it."""
+    if column.kind in ("float64", "float32", "int64", "int32", "bool") and column.values.dtype != object:
+        return column.values.astype(np.float64)
+    return column.values
+
+
 def _float(text: str) -> float:
     text = text.strip()
     return float(text) if text else np.nan
@@ -113,12 +123,13 @@ def _float(text: str) -> float:
 
 class FileDataProvider(GordoBaseDataProvider):
     """
-    Tag readings from CSV files: ``path`` is one wide file whose columns
-    are tags (stamps in ``timestamp_column``, default the first column),
-    or a directory of ``<tag>.csv`` files, each a ``timestamp_column`` and
-    a ``value_column`` (default the first two). ``tag_column_map`` maps a
-    config tag name to its column or file name; naive stamps are read in
-    ``tz`` (default UTC).
+    Tag readings from CSV or parquet files: ``path`` is one wide file
+    whose columns are tags (stamps in ``timestamp_column``, default a
+    parquet file's datetime index, else the first column), or a
+    directory of ``<tag>.csv``/``<tag>.parquet`` files, each a
+    ``timestamp_column`` and a ``value_column`` (default the first two).
+    ``tag_column_map`` maps a config tag name to its column or file name;
+    naive stamps are read in ``tz`` (default UTC).
     """
 
     _FORMATS = {".parquet": "parquet", ".pq": "parquet", ".csv": "csv"}
@@ -142,9 +153,7 @@ class FileDataProvider(GordoBaseDataProvider):
 
     def _read_frame(self, path: str) -> _Frame:
         if self._format_of(path) == "parquet":
-            raise NotImplementedError(
-                f"{path!r}: parquet needs pyarrow, which gordo_tpu_torch does not use; export the data as CSV"
-            )
+            return self._read_parquet(path)
         with open(path, newline="") as f:
             rows = list(csv.reader(f))
         if not rows:
@@ -161,6 +170,43 @@ class FileDataProvider(GordoBaseDataProvider):
             for j, name in enumerate(header) if j != ts_pos
         }
         return _Frame(ns[order], columns, tz)
+
+    def _read_parquet(self, path: str) -> _Frame:
+        """A parquet file by the JAX provider's rules: the stamps are the
+        pandas index when it holds datetimes, else ``timestamp_column``,
+        else the first column; naive stamps are read in ``tz``."""
+        with open(path, "rb") as f:
+            try:
+                frame = parquet.read_frame(f.read())
+            except parquet.ParquetDecodeError as exc:
+                raise ValueError(f"{path!r}: {exc}") from None
+        columns = dict(zip((str(label) for label in frame.labels), frame.columns))
+        ts_col = self.timestamp_column
+        if ts_col is None and (frame.index is None or frame.index.kind != "timestamp"):
+            ts_col = next(iter(columns), None)
+        if ts_col is None:
+            stamps = frame.index
+        elif ts_col not in columns:
+            raise ValueError(f"Timestamp column {ts_col!r} not present in {path!r} (columns: {list(columns)})")
+        else:
+            stamps = columns.pop(ts_col)
+        if stamps.kind == "timestamp":
+            if (stamps.values == np.iinfo(np.int64).min).any():
+                raise ValueError(f"{path!r}: the time stamps hold nulls")
+            ns = parquet.timestamp_ns(stamps)
+            if stamps.tz is not None:
+                tz = timezone.utc if stamps.tz.upper() == "UTC" else resolve_tz(stamps.tz)
+            else:  # wall-clock stamps, read in ``tz``
+                tz = resolve_tz(self.tz)
+                naive = (ns // 1000).astype("datetime64[us]").astype(object).tolist()
+                ns = np.array([datetime_ns(d.replace(tzinfo=tz)) for d in naive], np.int64) + ns % 1000
+        elif stamps.kind == "string":
+            ns, tz = self._stamps(list(stamps.values), path)
+        else:
+            raise ValueError(f"{path!r}: the time stamps are {stamps.kind}, not datetimes")
+        order = np.argsort(ns, kind="stable")
+        values = {name: _numeric(column)[order] for name, column in columns.items()}
+        return _Frame(ns[order], values, tz)
 
     def _stamps(self, texts: List[str], path: str):
         """ISO stamps as UTC nanoseconds and their time zone: naive ones
@@ -206,20 +252,26 @@ class FileDataProvider(GordoBaseDataProvider):
             column = self.value_column or next(iter(frame.columns), None)
             if column not in frame.columns:
                 raise ValueError(f"Value column {column!r} not present in {tag_file!r}")
-            return Series(tag.name, frame.stamps, frame.columns[column], frame.tz)
+            return Series(tag.name, frame.stamps, _readings(frame.columns[column], tag_file), frame.tz)
         frame = self._wide()
         column = self._column_for(tag)
         if column not in frame.columns:
             raise ValueError(
                 f"Tag {tag.name!r} (column {column!r}) not present in {self.path!r} (columns: {list(frame.columns)})"
             )
-        return Series(tag.name, frame.stamps, frame.columns[column], frame.tz)
+        return Series(tag.name, frame.stamps, _readings(frame.columns[column], self.path), frame.tz)
 
     def load_series(self, train_start_date, train_end_date, tag_list):
         _window_check(train_start_date, train_end_date)
         start_ns, end_ns = datetime_ns(train_start_date), datetime_ns(train_end_date)
         for tag in normalize_sensor_tags(tag_list):
             yield self._series_for(tag).window(start_ns, end_ns)
+
+
+def _readings(values: np.ndarray, path: str) -> np.ndarray:
+    if values.dtype != np.float64:
+        raise ValueError(f"A tag's column in {path!r} is not numeric ({values.dtype})")
+    return values
 
 
 class ListBackedDataProvider(GordoBaseDataProvider):
@@ -237,8 +289,23 @@ class ListBackedDataProvider(GordoBaseDataProvider):
 
 
 class InfluxDataProvider(GordoBaseDataProvider):
-    """The JAX package's Influx reader, kept so a config naming it loads;
-    reading raises: the port has no Influx client."""
+    """
+    Tag series from an InfluxDB 1.x database, the JAX provider
+    (``gordo_tpu/dataset/data_provider.py:312-470``) over HTTP: one
+    ``SELECT`` a tag, the same InfluxQL byte for byte.
+
+    - sensor layout (default): one ``measurement`` whose rows name their
+      sensor in the Influx tag ``tag_key``, readings in field
+      ``value_name``;
+    - field layout (``fields_are_tags``): the sensor names are the
+      measurement's fields (what the prediction forwarder writes).
+
+    ``where_tags`` adds ``"key" = 'value'`` conditions. ``client`` is any
+    object whose ``query(q)`` answers ``{measurement: (ns stamps,
+    values)}``; otherwise ``uri`` (``<user>:<password>@<host>:<port>/<db>``)
+    makes an :class:`~.influx.InfluxQueryClient`, with ``api_key`` in the
+    ``api_key_header`` header when it is set.
+    """
 
     @capture_args
     def __init__(self, measurement: str, value_name: str = "Value", tag_key: str = "tag",
@@ -246,12 +313,63 @@ class InfluxDataProvider(GordoBaseDataProvider):
                  uri: Optional[str] = None, api_key: Optional[str] = None,
                  api_key_header: str = "Ocp-Apim-Subscription-Key", client=None, **kwargs):
         self.measurement = measurement
+        self.value_name = value_name
+        self.tag_key = tag_key
+        self.fields_are_tags = fields_are_tags
+        self.where_tags = where_tags or {}
+        self.uri = uri
+        self.api_key = api_key
+        self.api_key_header = api_key_header
+        self.influx_client = client
+        if self.influx_client is None and uri:
+            headers = {api_key_header: api_key} if api_key else None
+            self.influx_client = InfluxQueryClient.from_uri(uri, headers=headers)
+
+    def _require_client(self):
+        if self.influx_client is None:
+            raise ValueError("InfluxDataProvider has no client; pass uri=... or client=...")
+        return self.influx_client
+
+    @staticmethod
+    def _escape(identifier: str) -> str:
+        """An InfluxQL string literal's text: backslashes first, then
+        quotes, so a value cannot close the literal."""
+        return identifier.replace("\\", "\\\\").replace("'", "\\'")
+
+    def query_text(self, tag: SensorTag, start_ns: int, end_ns: int) -> str:
+        """The InfluxQL the JAX provider writes for ``tag`` over
+        ``[start_ns, end_ns)``."""
+        conditions = [f"time >= {start_ns} AND time < {end_ns}"]
+        if self.fields_are_tags:
+            field = tag.name
+        else:
+            field = self.value_name
+            conditions.append(f"\"{self.tag_key}\" = '{self._escape(tag.name)}'")
+        for key, value in self.where_tags.items():
+            conditions.append(f"\"{key}\" = '{self._escape(str(value))}'")
+        return f'SELECT "{field}" FROM "{self.measurement}" WHERE {" AND ".join(conditions)}'
+
+    def _query_series(self, tag: SensorTag, train_start_date, train_end_date) -> Series:
+        client = self._require_client()
+        start_ns, end_ns = datetime_ns(train_start_date), datetime_ns(train_end_date)
+        result = client.query(self.query_text(tag, start_ns, end_ns))
+        found = result.get(self.measurement) if hasattr(result, "get") else None
+        if found is None or len(found[0]) == 0:
+            raise ValueError(
+                f"No data for tag {tag.name!r} in measurement {self.measurement!r} over "
+                f"[{train_start_date}, {train_end_date})"
+            )
+        stamps, values = np.asarray(found[0], np.int64), np.asarray(found[1], np.float64)
+        order = np.argsort(stamps, kind="stable")
+        return Series(tag.name, stamps[order], values[order], timezone.utc)
+
+    def can_handle_tag(self, tag: SensorTag) -> bool:
+        return self.influx_client is not None or bool(self.uri)
 
     def load_series(self, train_start_date, train_end_date, tag_list):
-        raise NotImplementedError(
-            "InfluxDataProvider is not ported to gordo_tpu_torch: it needs an Influx client and a network; "
-            "export the data as CSV and use FileDataProvider"
-        )
+        _window_check(train_start_date, train_end_date)
+        for tag in normalize_sensor_tags(tag_list):
+            yield self._query_series(tag, train_start_date, train_end_date)
 
 
 PROVIDERS = {

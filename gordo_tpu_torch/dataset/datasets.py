@@ -15,8 +15,10 @@ inner join of the JAX dataset's per-series path; its one-pass path
 gives the same rows). A bin's mean sums its readings in another order
 than pandas, so values agree to about 1e-15 relative, not bit for bit.
 
-``to_dict`` writes the JAX package's class paths; ``row_filter`` (a
-pandas ``query`` string) raises ``NotImplementedError``.
+``to_dict`` writes the JAX package's class paths. ``row_filter``, a
+pandas ``query`` string, is evaluated by ``query.py`` on the joined
+columns, after the known filter periods and before the thresholds, as
+the JAX dataset's filter chain runs.
 """
 
 import abc
@@ -28,6 +30,7 @@ import numpy as np
 from ..utils.args import capture_args
 from .data_provider import GordoBaseDataProvider, RandomDataProvider
 from .exceptions import ConfigException, InsufficientDataError
+from .query import row_mask
 from .sensor_tag import SensorTag, normalize_sensor_tags, to_list_of_strings, unique_tag_names
 from .series import (
     Series,
@@ -279,7 +282,7 @@ class TimeSeriesDataset(GordoBaseDataset):
         keep = ~np.isnan(data).any(axis=1)
         return labels[keep], names, data[keep], series_list[0].tz
 
-    def _apply_filters(self, labels: np.ndarray, data: np.ndarray):
+    def _apply_filters(self, labels: np.ndarray, names: List[str], data: np.ndarray):
         n_before = len(data)
         keep = np.ones(n_before, bool)
         for period in self.known_filter_periods:
@@ -287,10 +290,8 @@ class TimeSeriesDataset(GordoBaseDataset):
                 continue
             start, end = (datetime_ns(_parse_timestamp(p)) for p in period[:2])
             keep &= (labels < start) | (labels > end)
-        if self.row_filter:
-            raise NotImplementedError(
-                f"row_filter {self.row_filter!r} is a pandas query, which gordo_tpu_torch does not evaluate yet"
-            )
+        if self.row_filter:  # on the rows the periods kept, as pandas queries what is left
+            keep[keep] = row_mask(self.row_filter, names, data[keep])
         if self.low_threshold is not None:
             keep &= (data > self.low_threshold).all(axis=1)
         if self.high_threshold is not None:
@@ -309,7 +310,7 @@ class TimeSeriesDataset(GordoBaseDataset):
 
     def get_data(self) -> Tuple[np.ndarray, np.ndarray, List[Any]]:
         labels, names, data, tz = self._load_and_join()
-        labels, data = self._apply_filters(labels, data)
+        labels, data = self._apply_filters(labels, names, data)
         if len(data) <= self.n_samples_threshold:
             raise InsufficientDataError(
                 f"Dataset resolved to {len(data)} rows, below threshold {self.n_samples_threshold}"

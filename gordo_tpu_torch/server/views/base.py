@@ -12,8 +12,12 @@ scaling as its prologue) and answers ``start``/``end``/``model-input``/
 ``model-output``. A body of ``Content-Type:
 application/vnd.apache.arrow.stream`` is an Arrow IPC stream of role-tagged
 columns (``wire/arrow_codec.py``), and ``Accept`` of that type answers one
-(``wire/negotiate.py``), the envelope as its ``gordo:meta``; both inside
-the ``data_decode`` and ``serialize`` stages as JSON is. With the app's serving engine (``GORDO_TPU_BATCHING``)
+(``wire/negotiate.py``), the envelope as its ``gordo:meta``. A raw
+``application/x-parquet`` body (``X``) or a ``multipart/form-data`` upload
+of parquet files ``X`` and ``y`` is read with ``wire/parquet_codec.py``,
+and ``?format=parquet`` (or an ``Accept`` preferring it) answers the
+table as parquet. Each format is decoded and encoded inside the
+``data_decode`` and ``serialize`` stages as JSON is. With the app's serving engine (``GORDO_TPU_BATCHING``)
 concurrent requests coalesce into one launch; its refusals answer 429,
 503, 500 or 504 (``server/model_io.py``), and what it cannot batch is
 scored alone as without it.
@@ -53,7 +57,7 @@ from ...stream import stream_plane_section
 from ...stream.scorer import CLIENT_ERRORS
 from ...telemetry import fleet_status_document, load_status, utilization_snapshot
 from ...telemetry import slo as slo_engine
-from .. import model_io, utils, wire
+from .. import model_io, multipart, utils, wire
 from ..app import MODEL_COLLECTION_DIR_ENV_VAR, Response, ServerError
 from ..fleet_store import ModelResolution
 from ..wire import negotiate
@@ -86,16 +90,40 @@ def arrow_frames(
     return X, y
 
 
+def parquet_frames(X_bytes: bytes, y_bytes: Optional[bytes],
+                   resolution: ModelResolution) -> Tuple[wire.Frame, Optional[wire.Frame]]:
+    """``X`` (and ``y``) from parquet files, aligned with the model's tags
+    as a JSON frame is; 400 for a file that cannot be read or columns that
+    do not fit."""
+    try:
+        X = wire.verify_frame(wire.dataframe_from_parquet_bytes(X_bytes), resolution.tag_names)
+        y = None
+        if y_bytes is not None:
+            y = wire.verify_frame(wire.dataframe_from_parquet_bytes(y_bytes), resolution.target_names)
+    except (wire.ParquetDecodeError, wire.FrameError) as exc:
+        raise ServerError(str(exc), status=400)
+    return X, y
+
+
 def extract_X_y(request, resolution: ModelResolution) -> Tuple[wire.Frame, Optional[wire.Frame]]:
-    """``X`` (and ``y`` when sent) from a ``{"X": frame, "y": frame}`` body
-    or an Arrow stream, aligned with the model's tags; 400 on anything
-    unreadable, 415 for a parquet body (or an Arrow one with the Arrow
-    codec off)."""
+    """``X`` (and ``y`` when sent) from a ``{"X": frame, "y": frame}`` body,
+    an Arrow stream, a raw parquet body (``X`` only) or a multipart form
+    of parquet files ``X`` and ``y`` (``gordo_tpu/server/utils.py:344-398``),
+    aligned with the model's tags; 400 on anything unreadable, 415 for an
+    Arrow body with the Arrow codec off."""
     body_format = negotiate.request_format(request)
     if body_format == negotiate.PARQUET:
-        raise ServerError(negotiate.PARQUET_UNAVAILABLE, status=415)
+        return parquet_frames(request.body, None, resolution)
     if body_format == negotiate.ARROW:
         return arrow_frames(request.body, resolution)
+    if multipart.is_form(request.header("Content-Type")):
+        try:
+            files = multipart.form_files(request.body, request.header("Content-Type"))
+        except multipart.MultipartError as exc:
+            raise ServerError(str(exc))
+        if "X" not in files:
+            raise ServerError('Cannot predict without "X"')
+        return parquet_frames(files["X"], files.get("y"), resolution)
     body = request.json()
     if not isinstance(body, dict) or "X" not in body:
         raise ServerError('Cannot predict without "X"')
@@ -122,16 +150,18 @@ def _score_error(name: str, exc: Exception) -> Dict[str, Any]:
 
 def encode_table_response(ctx, response_format: str, table: wire.WireTable, extra: Optional[dict] = None) -> Response:
     """A scoring route's table as ``{"data": ..., **extra, "revision":
-    ...}``, or as an Arrow stream with that envelope as ``gordo:meta``;
-    415 when the client asked for parquet. Its ``serialize`` stage ends
-    with the request (the app closes it), so a wait for the GIL after a
-    long encode is still the stage's."""
-    if response_format == negotiate.PARQUET:
-        raise ServerError(negotiate.PARQUET_UNAVAILABLE, status=415)
+    ...}``, as an Arrow stream with that envelope as ``gordo:meta``, or as
+    parquet: the table alone, as the JAX server writes its frame
+    (``WireTable.to_frame()``), answered as the JAX server's file
+    download. Its ``serialize`` stage ends with the request (the app
+    closes it), so a wait for the GIL after a long encode is still the
+    stage's."""
     serialize_start = timeit.default_timer()
     ctx.current_stage = "serialize"
     envelope = {**(extra or {}), "revision": ctx.revision}
-    if response_format == negotiate.ARROW:
+    if response_format == negotiate.PARQUET:
+        response = Response(wire.dataframe_into_parquet_bytes(table), content_type=wire.PARQUET_RESPONSE_CONTENT_TYPE)
+    elif response_format == negotiate.ARROW:
         response = Response(wire.encode_arrow_table(table, envelope), content_type=wire.ARROW_CONTENT_TYPE)
     else:
         response = Response(wire.encode_response(table, envelope))

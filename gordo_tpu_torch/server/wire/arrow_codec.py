@@ -70,7 +70,7 @@ _TYPE_NAMES = (
     "Interval", "List", "Struct", "Union", "FixedSizeBinary", "FixedSizeList", "Map", "Duration", "LargeBinary",
     "LargeUtf8", "LargeList", "RunEndEncoded", "BinaryView", "Utf8View", "ListView", "LargeListView",
 )
-_NULL, _INT, _FLOAT, _UTF8, _BOOL, _TIMESTAMP = 1, 2, 3, 5, 6, 10
+_NULL, _INT, _FLOAT, _UTF8, _BOOL, _TIMESTAMP, _LARGE_UTF8 = 1, 2, 3, 5, 6, 10, 20
 _READ = "Null, Int, FloatingPoint, Utf8, Bool and Timestamp"
 _FLOAT_DTYPES = {0: np.float16, 1: np.float32, 2: np.float64}
 _PRECISIONS = {np.dtype(np.float32): 1, np.dtype(np.float64): 2}
@@ -252,7 +252,8 @@ class _View:
 
 def _type_table(kind: tuple) -> Tuple[int, _Table]:
     """The ``Type`` union member and table of a column type: ``("null",)``,
-    ``("utf8",)``, ``("bool",)``, ``("int", bits, signed)``, ``("float",
+    ``("utf8",)``, ``("large_utf8",)`` (written for parquet's schema
+    only), ``("bool",)``, ``("int", bits, signed)``, ``("float",
     precision)`` or ``("timestamp", unit, tz)``."""
     name = kind[0]
     if name == "int":
@@ -264,7 +265,7 @@ def _type_table(kind: tuple) -> Tuple[int, _Table]:
         if kind[2] is not None:
             fields.append((1, "string", kind[2]))
         return _TIMESTAMP, _Table(fields)
-    return {"null": _NULL, "utf8": _UTF8, "bool": _BOOL}[name], _Table([])
+    return {"null": _NULL, "utf8": _UTF8, "bool": _BOOL, "large_utf8": _LARGE_UTF8}[name], _Table([])
 
 
 def _read_type(field: _View, name: str) -> tuple:
@@ -358,17 +359,27 @@ def _column(values: Any) -> Tuple[tuple, int, int, List[bytes]]:
     return ("utf8",), n, nulls, [_bitmap(valid) if nulls else b"", offsets.tobytes(), b"".join(encoded)]
 
 
+def timestamp_ticks(index: Sequence[Any], unit: Optional[str]) -> Tuple[np.ndarray, str, Optional[str]]:
+    """A datetime index as ``(int64 ticks, unit, zone)``: ticks of ``unit``
+    (default ``us``, what the JSON decode's ISO parse gives) since the UTC
+    epoch for aware datetimes (zone ``UTC``, ``+HH:MM`` or an IANA key),
+    since the wall-clock epoch for naive ones (zone None)."""
+    values = list(index)
+    zone = values[0].tzinfo if values else None
+    epoch = _EPOCH.replace(tzinfo=timezone.utc) if zone else _EPOCH
+    ticks = np.array([(v - epoch) // _MICROSECOND for v in values], np.int64)
+    unit = unit or "us"
+    ticks = ticks * 1000 if unit == "ns" else ticks // _US_PER_TICK[unit]
+    return ticks, unit, _tz_name(zone)
+
+
 def _index_column(index: Sequence[Any], unit: Optional[str]) -> Tuple[tuple, int, int, List[bytes]]:
-    """The index as a timestamp column in ``unit`` (default ``us``, what the
-    JSON decode's ISO parse gives) with its zone, or an int64 column."""
+    """The index as a timestamp column (:func:`timestamp_ticks`) with its
+    zone, or an int64 column."""
     values = list(index)
     if values and isinstance(values[0], datetime):
-        zone = values[0].tzinfo
-        epoch = _EPOCH.replace(tzinfo=timezone.utc) if zone else _EPOCH
-        ticks = np.array([(v - epoch) // _MICROSECOND for v in values], np.int64)
-        unit = unit or "us"
-        ticks = ticks * 1000 if unit == "ns" else ticks // _US_PER_TICK[unit]
-        return ("timestamp", unit, _tz_name(zone)), len(values), 0, [b"", ticks.astype("<i8").tobytes()]
+        ticks, unit, zone = timestamp_ticks(values, unit)
+        return ("timestamp", unit, zone), len(values), 0, [b"", ticks.astype("<i8").tobytes()]
     return _column(np.asarray(values, np.int64))
 
 
@@ -414,6 +425,13 @@ def _schema_message(fields, metadata: Optional[Dict[bytes, bytes]]) -> bytes:
             _SCHEMA_CACHE.clear()
         _SCHEMA_CACHE[key] = message
     return message
+
+
+def arrow_schema_message(fields: List[Tuple[str, tuple]], metadata: Dict[bytes, bytes]) -> bytes:
+    """The schema message of ``(name, type)`` fields with the schema's
+    ``metadata``, framed as a stream's first message: what a parquet
+    file's ``ARROW:schema`` holds (base64)."""
+    return _schema_message([(name, {}, kind) for name, kind in fields], metadata)
 
 
 def _stream(fields: List[Tuple[str, Dict[bytes, bytes], tuple, int, int, List[bytes]]],
@@ -645,7 +663,14 @@ def _index(kind: tuple, values: np.ndarray) -> ArrowIndex:
         return ArrowIndex(values.astype(np.int64).tolist(), None)
     if kind[0] != "timestamp":
         raise ArrowDecodeError(f"The index column is {kind[0]}; the port reads a timestamp or an integer index")
-    unit, tz = kind[1], kind[2]
+    return index_from_ticks(values, kind[1], kind[2])
+
+
+def index_from_ticks(values: np.ndarray, unit: str, tz: Optional[str]) -> ArrowIndex:
+    """Timestamp ticks of ``unit`` as the port's index: datetimes, aware in
+    zone ``tz`` (ticks since the UTC epoch) or naive (``tz`` None), with
+    their unit; ``ArrowDecodeError`` for nanoseconds below the
+    microsecond."""
     ticks = np.asarray(values, np.int64)
     key = None
     if len(ticks) <= _INDEX_CACHE_MAX_ROWS:

@@ -6,12 +6,12 @@ rules of ``gordo_tpu/server/wire/negotiate.py`` (``:25-108``).
   ``Accept`` header's qualities decide among JSON (``*/*`` and
   ``application/*`` count as JSON), Arrow and parquet: the highest
   quality wins, JSON wins ties and Arrow beats parquet on theirs. A
-  header that admits none of the three answers 406. Parquet is chosen,
-  and then refused: 415 on the per-model routes, when the response is
-  encoded; 406 on the fleet route.
+  header that admits none of the three answers 406. Parquet is served
+  on the per-model routes (``parquet_codec.py``); the fleet route
+  answers it 406, as the JAX route does.
 - Request: an Arrow body selects ``arrow``, a raw parquet body
-  ``parquet`` (415 on the per-model routes); anything else is read as
-  JSON.
+  ``parquet`` (``X`` only); anything else is ``legacy``: a multipart
+  form of parquet files (``server/multipart.py``) or JSON.
 - With ``GORDO_TPU_WIRE_ARROW=0`` the port answers as a server without
   the Arrow codec: a header that admits only Arrow answers 406, one that
   admits JSON or parquet beside it forgets Arrow, and an Arrow body
@@ -23,15 +23,12 @@ from typing import Tuple
 
 from ..utils import ServerError
 from .arrow_codec import ARROW_CONTENT_TYPE, arrow_enabled
+from .parquet_codec import PARQUET_CONTENT_TYPE
 
 JSON_CONTENT_TYPE = "application/json"
-PARQUET_CONTENT_TYPE = "application/x-parquet"
 
 #: the response and request formats
 JSON, ARROW, PARQUET, LEGACY = "json", "arrow", "parquet", "legacy"
-
-#: the answer of a route asked for parquet, which needs pyarrow
-PARQUET_UNAVAILABLE = "Parquet wire format unavailable (pyarrow not installed); use JSON"
 
 _QUALITY = re.compile(r"-?\d+(\.\d+)?")
 
@@ -105,8 +102,8 @@ def response_format(request) -> str:
 
 def request_format(request) -> str:
     """The body's format by its ``Content-Type``: ``arrow``, ``parquet`` for
-    a raw parquet body, else ``legacy`` (JSON); 415 for an Arrow body with
-    the Arrow codec off."""
+    a raw parquet body, else ``legacy`` (a multipart form or JSON); 415
+    for an Arrow body with the Arrow codec off."""
     mimetype = (request.header("Content-Type") or "").partition(";")[0].strip().lower()
     if mimetype == ARROW_CONTENT_TYPE:
         if not arrow_enabled():

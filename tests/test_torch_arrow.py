@@ -24,7 +24,8 @@
   the index unit written back is JAX's: the request's for an Arrow body,
   the ISO parse's (``us``) for a JSON one;
 - a negotiation table of ``Accept`` headers on which both servers select
-  the same format (the port then refuses parquet with 415).
+  the same format (parquet a file on the per-model routes, 406 on the
+  fleet route).
 """
 
 import json
@@ -483,19 +484,18 @@ NEGOTIATION = [
 @pytest.mark.parametrize("accept,chosen", NEGOTIATION)
 @pytest.mark.parametrize("route", ["anomaly", "fleet"])
 def test_negotiation_with_arrow(clients, accept, chosen, route):
-    """Both servers select the same format for each ``Accept`` header; the
-    port refuses parquet (415 a model, 406 the fleet route)."""
+    """Both servers select the same format for each ``Accept`` header:
+    parquet answers a file on the anomaly route and 406 on the fleet
+    route."""
     X = _frame(TAGS["machine-1"], 8, seed=95)
     url, payload = {
         "anomaly": (f"/gordo/v0/{PROJECT}/machine-1/anomaly/prediction", {"X": X, "y": X}),
         "fleet": (f"/gordo/v0/{PROJECT}/prediction/fleet", {"X": {"machine-1": X}}),
     }[route]
     expected, got = _both(clients, url, json.dumps(payload), content_type="application/json", accept=accept)
-    types = {"json": "application/json", "arrow": ARROW}
+    types = {"json": "application/json", "arrow": ARROW, "parquet": "application/octet-stream"}
     if chosen == "406" or (chosen == "parquet" and route == "fleet"):
         assert got.status_code == expected.status_code == 406
-    elif chosen == "parquet":
-        assert expected.status_code == 200 and got.status_code == 415
     else:
         assert got.status_code == expected.status_code == 200
         assert got.mimetype == expected.mimetype == types[chosen]

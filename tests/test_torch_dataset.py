@@ -206,12 +206,41 @@ def test_no_common_rows_is_insufficient_data(tmp_path):
         dataset.get_data()
 
 
-def test_parquet_and_influx_raise_not_implemented(tmp_path):
-    parquet = _file_config(tmp_path / "plant.parquet")
-    with pytest.raises(NotImplementedError, match="pyarrow"):
-        GordoBaseDataset.from_dict(parquet).get_data()
-    influx = _random(data_provider={"type": "InfluxDataProvider", "measurement": "sensors"})
-    with pytest.raises(NotImplementedError, match="Influx"):
-        GordoBaseDataset.from_dict(influx).get_data()
-    with pytest.raises(NotImplementedError, match="row_filter"):
-        GordoBaseDataset.from_dict(_random(row_filter="t1 > 0")).get_data()
+@pytest.mark.parametrize("source", ["parquet", "influx", "row_filter"])
+def test_parquet_and_influx_raise_not_implemented(tmp_path, source):
+    """The three inputs the port once refused (``NotImplementedError``)
+    now read what the JAX dataset reads: a wide parquet file, an InfluxDB
+    read (the JAX side over ``tests/dataset/test_influx_provider.py``'s
+    fake client, the port over HTTP to a server answering from it) and a
+    ``row_filter``."""
+    if source == "parquet":
+        _write_wide(tmp_path / "plant.csv")
+        frame = pd.read_csv(tmp_path / "plant.csv")
+        frame["time"] = pd.to_datetime(frame["time"], format="ISO8601")
+        frame.to_parquet(tmp_path / "plant.parquet")
+        _assert_same_data(*_both(_file_config(tmp_path / "plant.parquet")))
+    elif source == "influx":
+        from gordo_tpu.dataset.data_provider import InfluxDataProvider as JaxInfluxDataProvider
+        from tests.test_torch_influx import InfluxServer, RecordingClient, _seed, _uri
+
+        fake = RecordingClient()
+        _seed(fake, ["t1", "t2", "t3"], n=9 * 144)
+        server = InfluxServer(fake)
+        try:
+            config = _random(train_start_date="2020-01-01T00:00:00+00:00",
+                             train_end_date="2020-01-08T00:00:00+00:00")
+            jax_dataset = JaxDataset.from_dict({**config, "data_provider": JaxInfluxDataProvider(
+                measurement="sensors", client=fake)})
+            dataset = GordoBaseDataset.from_dict({**config, "data_provider": {
+                "type": "InfluxDataProvider", "measurement": "sensors", "uri": _uri(server)}})
+            X, y = jax_dataset.get_data()
+            PX, Py, index = dataset.get_data()
+        finally:
+            server.close()
+        np.testing.assert_array_equal([datetime_ns(i) for i in index], X.index.as_unit("ns").asi8)
+        np.testing.assert_allclose(PX, X.to_numpy(np.float64), rtol=RTOL)
+        np.testing.assert_allclose(Py, y.to_numpy(np.float64), rtol=RTOL)
+    else:
+        jax_dataset, dataset = _both(_random(row_filter="t1 > 0 & t2 < t3 + 100"))
+        _assert_same_data(jax_dataset, dataset)
+        assert dataset.get_metadata()["filtered_rows"] == jax_dataset.get_metadata()["filtered_rows"]

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``gordo_tpu_torch/`` nor
 ``chip_smoke.py`` imports JAX, the JAX package, or a library the card's
 machine does not have (pandas, scikit-learn, werkzeug, yaml, pyarrow,
-click, jinja2, pydantic, dateutil, ml_dtypes, prometheus_client).
+click, jinja2, pydantic, dateutil, ml_dtypes, prometheus_client,
+influxdb, requests, a snappy binding, numexpr, fastparquet).
 Checked on the source with ``ast``, so an import inside a function
 counts too."""
 
@@ -15,6 +16,7 @@ FILES = sorted((REPO / "gordo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.p
 FORBIDDEN = {
     "jax", "jaxlib", "gordo_tpu", "pandas", "sklearn", "werkzeug", "yaml", "pyarrow", "optax", "flax",
     "click", "jinja2", "pydantic", "dateutil", "ml_dtypes", "prometheus_client",
+    "influxdb", "requests", "snappy", "cramjam", "numexpr", "fastparquet",
 }
 
 
@@ -71,6 +73,8 @@ def test_package_has_modules():
         "utils/profiling.py", "telemetry/aggregate.py", "telemetry/trace_analysis.py",
         "lifecycle/__init__.py", "lifecycle/state.py", "lifecycle/revision.py", "lifecycle/drift.py",
         "lifecycle/gates.py", "lifecycle/loop.py", "planner/ladder.py", "planner/report.py", "models/packing.py",
+        "dataset/query.py", "dataset/influx.py", "utils/snappy.py", "utils/thrift_compact.py", "utils/parquet.py",
+        "server/multipart.py", "server/wire/parquet_codec.py",
     ):
         assert expected in names
     assert (REPO / "gordo_tpu_torch" / "telemetry" / "slos.toml").read_text() == (

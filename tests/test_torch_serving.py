@@ -676,14 +676,9 @@ ARROW = "application/vnd.apache.arrow.stream"
         ("anomaly", {"headers": {"Accept": f"{ARROW}, application/json;q=0.5"}}, 200),
         ("prediction", {"headers": {"Accept": "*/*"}}, 200),
         ("fleet", {"headers": {"Accept": "application/*;q=0.3, application/x-parquet;q=0.2"}}, 200),
-        ("anomaly", {"headers": {"Accept": "application/x-parquet"}}, 415),
-        ("anomaly", {"query_string": {"format": "parquet"}}, 415),
-        ("prediction", {"query_string": {"format": "parquet"}}, 415),
-        ("fleet", {"query_string": {"format": "parquet"}}, 406),
         ("anomaly", {"content_type": ARROW}, 415),
         ("prediction", {"content_type": ARROW}, 415),
         ("fleet", {"content_type": ARROW}, 415),
-        ("prediction", {"content_type": "application/x-parquet"}, 415),
     ],
 )
 def test_negotiation_statuses(clients, monkeypatch, route, kwargs, status):
@@ -706,6 +701,47 @@ def test_negotiation_statuses(clients, monkeypatch, route, kwargs, status):
     assert responses[1].mimetype == "application/json"
     if status != 200:
         assert json.loads(responses[1].get_data()) == json.loads(responses[0].get_data())
+
+
+@pytest.mark.parametrize(
+    "route,kwargs,status",
+    [
+        ("anomaly", {"headers": {"Accept": "application/x-parquet"}}, 200),
+        ("anomaly", {"query_string": {"format": "parquet"}}, 200),
+        ("prediction", {"query_string": {"format": "parquet"}}, 200),
+        ("fleet", {"query_string": {"format": "parquet"}}, 406),
+        ("prediction", {"content_type": "application/x-parquet"}, 200),
+    ],
+)
+def test_parquet_negotiation_statuses(clients, route, kwargs, status):
+    """The parquet rows of ``test_negotiation_statuses``, now against the
+    JAX server with pyarrow: both answer 200 with a parquet file (a raw
+    parquet body answered as JSON), and 406 with the same body on the fleet
+    route."""
+    import pandas as pd
+
+    from gordo_tpu.server.utils import dataframe_into_parquet_bytes
+
+    X = _frame(TAGS["machine-1"], 8, seed=63)
+    url, payload = {
+        "anomaly": (f"/gordo/v0/{PROJECT}/machine-1/anomaly/prediction", {"X": X, "y": X}),
+        "prediction": (f"/gordo/v0/{PROJECT}/machine-1/prediction", {"X": X}),
+        "fleet": (f"/gordo/v0/{PROJECT}/prediction/fleet", {"X": {"machine-1": X}}),
+    }[route]
+    if kwargs.get("content_type") == "application/x-parquet":
+        frame = pd.DataFrame(X)
+        frame.index = pd.to_datetime(frame.index, format="ISO8601")
+        kwargs = dict(kwargs, data=dataframe_into_parquet_bytes(frame.sort_index()))
+    else:
+        kwargs = dict(kwargs, data=json.dumps(payload), content_type="application/json")
+    responses = [client.post(url, **kwargs) for client in clients]
+    assert [r.status_code for r in responses] == [status, status]
+    assert responses[1].mimetype == responses[0].mimetype
+    if status != 200:
+        assert json.loads(responses[1].get_data()) == json.loads(responses[0].get_data())
+    elif kwargs["content_type"] == "application/json":
+        assert responses[1].mimetype == "application/octet-stream"
+        assert pd.read_parquet(io.BytesIO(responses[1].get_data())).columns.get_level_values(0)[0] == "start"
 
 
 @pytest.mark.parametrize("name", ["machine-1", "machine-2", "machine-3"])
