@@ -207,9 +207,9 @@ the same shape, and its bounds.
 
 ``[engine]`` then serves the ``[train]`` collection through the
 micro-batching engine (``GORDO_TPU_BATCHING``'s ``ServeEngine``, default
-knobs but a 30 s batching deadline) on the card over the socket, beside the same app without it: C = 1,
-8 and 16 concurrent clients (32 before ``[ingress]`` was added: the cut
-pays for it), each on its own 20-tag machine with its own
+knobs but a 30 s batching deadline) on the card over the socket, beside the same app without it: C = 1
+and 16 concurrent clients (32 before ``[ingress]`` was added and 8 before
+``[mesh]`` was: the cuts pay for them), each on its own 20-tag machine with its own
 next 1008 rows, on ``/anomaly/prediction`` then ``/prediction``, every
 answer held to the CPU app's; it prints requests a second, p50 and p99
 host latency with batching on and off, K1's launches, the engine's
@@ -383,6 +383,34 @@ counted where they launch, and each answer, read by the port's reader,
 equal to the same request's JSON answer to the bit; their
 ``Server-Timing`` stages are printed beside the JSON twins'. Both K1
 shapes are ``[times]`` cases and kernel-JSON rows.
+
+``[mesh]`` (after ``[ingress]``) drives the device plane. Ingest:
+Arrow anomaly requests for a 20-tag and a 40-tag ``[train]`` machine on a
+card app without an engine, 10 rounds with ``GORDO_TPU_INGEST_DLPACK``
+on (every request moved by the dlpack rung, counted) and off (none) in
+alternating order, then a round of 8 concurrent 20-tag ones through an
+engine on each rung; every answer equal to the bit across the rungs;
+each rung's median ``device_ingest`` and ``data_decode`` ms, each
+rider's staging and K1's launches printed. The sharded build: 16 of
+``[train]``'s machines (12 of
+20 tags, 4 of 40) built by the ``build-fleet`` command's function in two
+processes on the one card, joined through ``JAX_PROCESS_COUNT``,
+``JAX_PROCESS_INDEX`` and ``JAX_COORDINATOR_ADDRESS`` into a gloo group,
+a ``(2, 1)`` mesh: each rank's CV forward of its block is one K1 launch a
+width (counted in its process), rank 1 writes nothing, rank 0's
+artifacts are held to ``[train]``'s one-process card build of the same
+machines (``BUILD_LIMITS``) and its ``fleet_plan.json`` has ``mesh_shape`` [2, 1];
+rank 0's narrow and wide blocks are held to the plain version and timed
+under ``[times]``. The data axis: 8 20-tag members at ``(1, 2)`` in a new
+group, the gradients all-reduced by gloo on CUDA tensors, held to
+``(1, 1)`` on the card within the CPU test's rtol 1e-5, atol 1e-6. The
+ring: an LSTM predict of a 16384-row series over ``["cuda:0",
+"cuda:0"]`` against the windowed forward on one device (rtol 1e-5, atol
+1e-6). With more than one card visible, the build runs once more over
+NCCL through the command line (``python -m gordo_tpu_torch build-fleet
+--device cuda``, which spawns a rank a card; the ranks above and the
+reference build name ``cuda:0`` and never spawn); otherwise the phase
+says it did not.
 
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
@@ -2227,10 +2255,12 @@ def post(url, payload):
     return status, json.loads(body), (time.perf_counter() - t0) * 1e3
 
 
-def wsgi_call(app, method, path, payload=None, query="", headers=None, raw=None, content_type="application/json"):
+def wsgi_call(app, method, path, payload=None, query="", headers=None, raw=None, content_type="application/json",
+              response_headers=None):
     """One request straight into a WSGI app, without a socket: ``(status,
     body bytes)``; ``raw`` bytes are sent as they are instead of
-    ``payload``'s JSON."""
+    ``payload``'s JSON; the response's headers go into the dict
+    ``response_headers`` when one is given."""
     import io
     from wsgiref.util import setup_testing_defaults
 
@@ -2243,7 +2273,13 @@ def wsgi_call(app, method, path, payload=None, query="", headers=None, raw=None,
         **{"HTTP_" + k.upper().replace("-", "_"): v for k, v in (headers or {}).items()},
     )
     status = []
-    chunks = app(environ, lambda s, h: status.append(int(s.split()[0])))
+
+    def start_response(line, pairs):
+        status.append(int(line.split()[0]))
+        if response_headers is not None:
+            response_headers.update(pairs)
+
+    chunks = app(environ, start_response)
     try:
         return status[0], b"".join(chunks)
     finally:
@@ -2777,8 +2813,8 @@ def routes_phase(base, names, wide_names, cpu_app, collection, card):
 # -- [engine]: the micro-batching serve engine ------------------------------------------
 
 #: the latency rounds' concurrent clients (1, 8 and 32 until the [ingress] phase's seconds were paid
-#: for here: the largest round's JSON bodies were most of the phase)
-ENGINE_CLIENTS = (1, 8, 16)
+#: for here: the largest round's JSON bodies were most of the phase; the round of 8 paid for [mesh]'s)
+ENGINE_CLIENTS = (1, 16)
 ENGINE_ROUTES = ("anomaly/prediction", "prediction")
 ENGINE_PRECISIONS = ("bf16", "int8")
 #: the member whose forward the drill poisons
@@ -4408,8 +4444,9 @@ def kill_and_resume(work_dir, train_collection, card):
         f.write(normalize(config_path, "smoke"))
     out = os.path.join(drill_dir, REVISION)
     # heartbeat 0: the status is written at every landing, before the kill site
-    code, _, err, killed_s = run_command(["build-fleet", shard, out], {"GORDO_TPU_FAULTS": DRILL_KILL,
-                                                                       "GORDO_TPU_TELEMETRY_HEARTBEAT": "0"})
+    # cuda:0: the drill's builds are one process on one card wherever more are visible
+    code, _, err, killed_s = run_command(["build-fleet", shard, out, "--device", "cuda:0"],
+                                         {"GORDO_TPU_FAULTS": DRILL_KILL, "GORDO_TPU_TELEMETRY_HEARTBEAT": "0"})
     check(code == 137, f"the killed build-fleet exited {code}, not 137: {err[-2000:]}")
     status = load_status(out)
     check(status["state"] == "running" and status["machines"]["completed"] == DRILL_LEFT,
@@ -4421,7 +4458,7 @@ def kill_and_resume(work_dir, train_collection, card):
     journal = BuildJournal.load(out).machines()
     check(sorted(n for n, e in journal.items() if e["status"] == "built") == left, "journal and artifacts differ")
     checksums = {n: serializer.load_info(os.path.join(out, n))["checksum"] for n in left}
-    code, _, err, resume_s = run_command(["build-fleet", shard, out, "--resume"])
+    code, _, err, resume_s = run_command(["build-fleet", shard, out, "--resume", "--device", "cuda:0"])
     check(code == 0, f"build-fleet --resume exited {code}: {err[-2000:]}")
     resumed_status = load_status(out)
     check(resumed_status["state"] == "complete" and resumed_status["machines"]["resumed"] == DRILL_LEFT
@@ -4446,7 +4483,7 @@ def kill_and_resume(work_dir, train_collection, card):
         phase("sequential", f"the resumed machines against [train]'s artifacts: {'; '.join(faults[:3])}; building an "
               f"uninterrupted reference of the same shard")
         reference_dir = os.path.join(drill_dir, "reference")
-        code, _, err, _ = run_command(["build-fleet", shard, reference_dir])
+        code, _, err, _ = run_command(["build-fleet", shard, reference_dir, "--device", "cuda:0"])
         check(code == 0, f"the reference build-fleet exited {code}: {err[-2000:]}")
         ref = {n: build_summary(serializer.load(os.path.join(reference_dir, n), "cpu"),
                                 serializer.load_metadata(os.path.join(reference_dir, n))) for n in rebuilt}
@@ -5537,6 +5574,432 @@ def ingress_phase(work_dir, card):
     return launches, {INGRESS_CASES["cv"]: (cv_case, 1), INGRESS_CASES["served"]: (served_case, len(calls))}
 
 
+# -- [mesh]: the device plane: raw-column transfer, the fleet over ranks, the ring -------
+
+#: [train]'s machines the sharded build takes: 12 of 20 tags, 4 of 40
+MESH_MACHINES = tuple(f"machine-{i:03d}" for i in range(12)) + tuple(f"compressor-{i:03d}" for i in range(4))
+#: each rank's block of a width's CV fold models (3 folds x the width's machines, over 2 ranks)
+MESH_CV = {20: "mesh rank CV fold scoring: hourglass20 M=18 B=500",
+           WIDE_TAGS: "mesh rank CV fold scoring: hourglass40 M=6 B=500"}
+#: the data-axis bucket: [train]'s first 8 20-tag machines' rows, scaled to [0, 1]
+MESH_DATA_MEMBERS = 8
+MESH_DATA_CONFIG = dict(epochs=2, batch_size=32, validation_split=0.1)
+#: what the data axis is held to against one rank: the CPU test's tolerance (tests/test_torch_mesh.py)
+MESH_DATA_RTOL, MESH_DATA_ATOL = 1e-5, 1e-6
+#: the ring predict: rows of the series, cut over two devices (the one card, twice)
+MESH_RING_ROWS = 16384
+MESH_RING_RTOL, MESH_RING_ATOL = 1e-5, 1e-6
+MESH_ENGINE_CLIENTS = 8
+#: rounds of the two requests without an engine on each rung, the rungs' order alternating a round
+MESH_INGEST_ROUNDS = 10
+#: seconds the two ranks may take together, start to end
+MESH_TIMEOUT = 300
+
+#: one rank's process: ``python -c MESH_RANK <here> <args...>``
+MESH_RANK = "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; chip_smoke.mesh_rank(*sys.argv[2:])"
+
+
+def mesh_rank(rank, shard, out_dir, result_path, data_port, data_path):
+    """One rank of ``[mesh]`` (a process of its own, the ``JAX_*`` variables
+    set by the phase): the ``build-fleet`` command's function over a
+    two-rank gloo group on the card, its K1 launches counted from 0 and
+    each CV forward captured; then the data-axis bucket at ``(1, 2)`` in a
+    new group. Writes its results to ``result_path`` (pickle)."""
+    import pickle
+
+    import torch
+
+    from gordo_tpu_torch.cli.cli import build_fleet
+    from gordo_tpu_torch.models.training import FitConfig
+    from gordo_tpu_torch.ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+    from gordo_tpu_torch.parallel import fleet as fleet_module
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer
+    from gordo_tpu_torch.parallel.mesh import initialize_backend, make_mesh, shutdown_backend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(rank)
+    # each CV forward of this rank's block, as it reaches K1, with the launches it made
+    forwards, launch = [], fleet_module.fleet_feedforward
+
+    def captured(spec, stacked, x, *args, **kwargs):
+        before = fleet_feedforward.launches
+        out = launch(spec, stacked, x, *args, **kwargs)
+        forwards.append((spec, {k: {n: t.cpu().numpy() for n, t in layer.items()} for k, layer in stacked.items()},
+                         x.cpu().numpy(), fleet_feedforward.launches - before))
+        return out
+
+    fleet_module.fleet_feedforward = captured
+    try:
+        fleet_feedforward.launches = fleet_anomaly_scores.launches = 0
+        t0 = time.perf_counter()
+        code, builder = build_fleet(shard, out_dir, device="cuda:0", dist_backend="gloo")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": fleet_feedforward.launches, "K2": fleet_anomaly_scores.launches}
+    finally:
+        fleet_module.fleet_feedforward = launch
+    result = {"code": code, "wall": wall, "launches": launches, "forwards": forwards,
+              "fits": builder.trainer.fits if builder else [], "phases": dict(builder.phase_seconds) if builder else {}}
+    with open(data_path, "rb") as f:
+        members = pickle.load(f)
+    initialize_backend(f"localhost:{data_port}", 2, rank, backend="gloo", device="cuda:0")
+    try:
+        trainer = FleetTrainer(mesh=make_mesh(2, device="cuda"))
+        t0 = time.perf_counter()
+        trained = trainer.train(members, FitConfig(**MESH_DATA_CONFIG))
+        torch.cuda.synchronize()
+        result["data"] = {"wall": time.perf_counter() - t0, "coords": trainer.mesh.coords, "fits": trainer.fits,
+                          "results": [(r.name, r.params, r.history.history, r.error) for r in trained]}
+    finally:
+        shutdown_backend()
+    with open(result_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def arrow_bits(body):
+    """An Arrow answer's index and every column's bytes, or its values when
+    they are not numbers (what two rungs' answers must share to the bit)."""
+    import numpy as np
+
+    from gordo_tpu_torch.server import wire
+
+    table, _ = wire.decode_response(body)
+    return [table.index] + [(c.group, c.sub, values.tobytes() if values.dtype.kind in "fiub" else values.tolist())
+                            for c in table.columns for values in [np.asarray(c.values)]]
+
+
+def mesh_ingest(collection, names, wide_names, card):
+    """Arrow anomaly requests (20 and 40 tags) on a card app without an
+    engine, MESH_INGEST_ROUNDS rounds with GORDO_TPU_INGEST_DLPACK on and
+    off in alternating order, and a round of MESH_ENGINE_CLIENTS
+    concurrent ones through an engine on each rung: the answers equal to
+    the bit across the rungs, the rung of each request counted, each
+    rung's ``device_ingest`` (without an engine; the host rung stacks the
+    columns there, the dlpack rung gathers them into the pinned buffer) and
+    each rider's staging. Returns the K1 launches of all of them."""
+    import numpy as np
+
+    from gordo_tpu_torch.ingest import ingest_stats, reset_ingest_stats
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+    from gordo_tpu_torch.server import build_app, wire
+
+    def arrow_body(name, n_tags):
+        frame = wire.decode_frame(own_frame(name, n_tags))
+        return wire.encode_request(frame, frame)
+
+    single = [(names[0], arrow_body(names[0], 20)), (wide_names[0], arrow_body(wide_names[0], WIDE_TAGS))]
+    round_ = [(n, arrow_body(n, 20)) for n in names[:MESH_ENGINE_CLIENTS]]
+    plain_app = build_app(collection, device="cuda")
+    check(plain_app.engine is None, "GORDO_TPU_BATCHING is set: [mesh]'s first app must have no engine")
+    engine_app_, _ = engine_app(collection)
+
+    def post_arrow(app, name, body):
+        headers = {}
+        status, answer = wsgi_call(app, "POST", f"/gordo/v0/smoke/{name}/anomaly/prediction", raw=body,
+                                   content_type=ARROW_TYPE, headers={"Accept": ARROW_TYPE}, response_headers=headers)
+        check(status == 200, f"[mesh] Arrow anomaly request for {name} answered {status}: {answer[:300]}")
+        return answer, server_timing(headers)[0]
+
+    answers = {"1": [], "0": []}
+    ingest_ms = {(knob, width): [] for knob in ("1", "0") for width in (20, WIDE_TAGS)}
+    decode_ms = {key: [] for key in ingest_ms}
+    try:
+        # one request of each width on each rung first, unread: the pinned staging buffers' first allocations
+        for knob in ("1", "0"):
+            os.environ["GORDO_TPU_INGEST_DLPACK"] = knob
+            for name, body in single:
+                post_arrow(plain_app, name, body)
+        fleet_feedforward.launches = 0
+        for round_i in range(MESH_INGEST_ROUNDS):
+            for knob in ("1", "0") if round_i % 2 == 0 else ("0", "1"):
+                os.environ["GORDO_TPU_INGEST_DLPACK"] = knob
+                for (name, body), width in zip(single, (20, WIDE_TAGS)):
+                    before = ingest_stats()
+                    answer, stages = post_arrow(plain_app, name, body)
+                    after = ingest_stats()
+                    took = (after["dlpack_transfers"] - before["dlpack_transfers"],
+                            after["host_transfers"] - before["host_transfers"])
+                    check(took == ((1, 0) if knob == "1" else (0, 1)),
+                          f"[mesh] GORDO_TPU_INGEST_DLPACK={knob}: a {width}-tag request took (dlpack, host) {took}; "
+                          f"{after}")
+                    ingest_ms[(knob, width)].append(stages.get("device_ingest", 0.0))
+                    decode_ms[(knob, width)].append(stages.get("data_decode", 0.0))
+                    if round_i == 0:
+                        answers[knob].append(arrow_bits(answer))
+        alone_k1 = fleet_feedforward.launches
+        alone_line = "; ".join(
+            f"{width} tags, {rung} rung: device_ingest median {np.median(ingest_ms[(knob, width)]):.4f} ms "
+            f"(min {min(ingest_ms[(knob, width)]):.4f}, max {max(ingest_ms[(knob, width)]):.4f}), data_decode "
+            f"median {np.median(decode_ms[(knob, width)]):.4f} ms"
+            for width in (20, WIDE_TAGS) for knob, rung in (("1", "dlpack"), ("0", "host")))
+        phase("mesh", f"ingest without an engine, {MESH_INGEST_ROUNDS} rounds of a 20- and a 40-tag Arrow anomaly "
+              f"request ({ROWS} rows) on each rung, the rungs' order alternating a round: {alone_line}; "
+              f"K1 launches {alone_k1}; {card}")
+        round_k1 = {}
+        for knob in ("1", "0"):
+            os.environ["GORDO_TPU_INGEST_DLPACK"] = knob
+            reset_ingest_stats()
+            fleet_feedforward.launches = 0
+            before = engine_app_.engine.stats()
+            results = [None] * len(round_)
+
+            def hit(i):
+                results[i] = post_arrow(engine_app_, *round_[i])
+
+            threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(round_))]
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join(timeout=300)
+            check(all(r is not None for r in results), "[mesh] an engine request never returned")
+            after = engine_app_.engine.stats()
+            round_k1[knob] = fleet_feedforward.launches
+            round_stats = ingest_stats()
+            answers[knob] += [arrow_bits(a) for a, _ in results]
+            rung = "dlpack" if knob == "1" else "host"
+            served = round_stats["dlpack_transfers"] if knob == "1" else round_stats["host_transfers"]
+            check(served == len(round_) and round_stats["dlpack_transfers"] == (served if knob == "1" else 0),
+                  f"[mesh] with GORDO_TPU_INGEST_DLPACK={knob} the engine round's transfers were {round_stats}")
+            staging = [t.get("batch_stack", 0.0) + t.get("device_ingest", 0.0) for _, t in results]
+            phase("mesh", f"ingest, GORDO_TPU_INGEST_DLPACK={knob} (the {rung} rung): an engine round of "
+                  f"{len(round_)} concurrent 20-tag Arrow anomaly requests: {after['batches'] - before['batches']} "
+                  f"batches, a rider's batch_stack + device_ingest (its batch's staging into one pinned buffer "
+                  f"and the copy's enqueueing) {', '.join(f'{ms:.3f}' for ms in staging)} ms, transfers "
+                  f"{round_stats}; K1 launches {round_k1[knob]}; {card}")
+    finally:
+        os.environ.pop("GORDO_TPU_INGEST_DLPACK", None)
+        engine_app_.shutdown()
+    unequal = [i for i, (a, b) in enumerate(zip(answers["1"], answers["0"])) if a != b]
+    check(not unequal, f"[mesh] the dlpack rung's answers {unequal} differ from the host rung's")
+    launches = alone_k1 + sum(round_k1.values())
+    check(alone_k1 >= 2 * len(single) * MESH_INGEST_ROUNDS and min(round_k1.values()) >= 1,
+          f"[mesh] the ingest requests launched K1 {alone_k1} and {round_k1} times")
+    phase("mesh", f"ingest: every answer of the dlpack rung equal to the host rung's to the bit "
+          f"({len(answers['1'])} answers)")
+    return launches
+
+
+def mesh_ring(card):
+    """An LSTM predict of a MESH_RING_ROWS-row series cut over two devices
+    (the one card, twice) against the windowed forward on one."""
+    import numpy as np
+    import torch
+
+    from gordo_tpu_torch.models.factories import lstm_model
+    from gordo_tpu_torch.models.nn import forward_lstm_windows
+    from gordo_tpu_torch.models.training import TorchRandom
+    from gordo_tpu_torch.parallel import sequence
+
+    spec = lstm_model(20, lookback_window=10, encoding_dim=(32, 16), encoding_func=("tanh", "tanh"),
+                      decoding_dim=(16, 32), decoding_func=("tanh", "tanh"))
+    params = {k: {n: torch.as_tensor(t, dtype=torch.float32).cuda() for n, t in layer.items()}
+              for k, layer in TorchRandom().init_params(spec, 7).items()}
+    X = (sensor_data(77, MESH_RING_ROWS, 20) / 100.0).astype(np.float32)
+    os.environ[sequence.RING_PREDICT_ROWS_ENV] = str(MESH_RING_ROWS)
+    try:
+        check(sequence.ring_predict_enabled(MESH_RING_ROWS, ["cuda:0", "cuda:0"]), "the ring is not enabled")
+    finally:
+        del os.environ[sequence.RING_PREDICT_ROWS_ENV]
+    t0 = time.perf_counter()
+    ringed = sequence.ring_windowed_predict(spec, params, X, 10, 0, ["cuda:0", "cuda:0"])
+    ring_s = time.perf_counter() - t0
+    single = {k: {n: t[None] for n, t in layer.items()} for k, layer in params.items()}
+    t0 = time.perf_counter()
+    one = forward_lstm_windows(spec, single, torch.from_numpy(X).cuda()[None],
+                               torch.arange(len(ringed), device="cuda")[None], 256)[0].cpu().numpy()
+    one_s = time.perf_counter() - t0
+    check(ringed.shape == one.shape == (MESH_RING_ROWS - 9, 20), f"ring output {ringed.shape}, one device {one.shape}")
+    diff = float(np.abs(ringed - one).max())
+    check(np.allclose(ringed, one, rtol=MESH_RING_RTOL, atol=MESH_RING_ATOL),
+          f"the ring disagrees with one device: max abs {diff}")
+    phase("mesh", f"ring predict: lstm_model(20; 32-16-16-32, lookback 10) over {MESH_RING_ROWS} rows cut over "
+          f"[cuda:0, cuda:0] in {ring_s:.3f} s against the windowed forward on one device in {one_s:.3f} s: max abs "
+          f"{diff:.3e} (rtol {MESH_RING_RTOL}, atol {MESH_RING_ATOL}); {card}")
+
+
+def mesh_data_members():
+    """The data-axis bucket: MESH_DATA_MEMBERS 20-tag machines' rows, each
+    column scaled to [0, 1], as fleet members."""
+    import numpy as np
+
+    from gordo_tpu_torch.models.factories import feedforward_hourglass
+    from gordo_tpu_torch.parallel.fleet import FleetMember
+
+    members = []
+    for i, (name, _, values) in enumerate(machine_rows()[:MESH_DATA_MEMBERS]):
+        lo, hi = values.min(axis=0), values.max(axis=0)
+        X = ((values - lo) / (hi - lo)).astype(np.float32)
+        members.append(FleetMember(name, feedforward_hourglass(20), X, X, seed=60 + i))
+    return members
+
+
+def mesh_phase(work_dir, collection, names, wide_names, card):
+    """``[mesh]`` (see the module docstring). Returns the K1 launches of
+    its main path and each rank-0 CV forward as a K1 case with its
+    launches, by width."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.models.training import FitConfig
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer
+    from gordo_tpu_torch.workflow.workflow_generator import normalize
+
+    t_phase = time.perf_counter()
+    ingest_k1 = mesh_ingest(collection, names, wide_names, card)
+    root = os.path.join(work_dir, "mesh")
+    os.makedirs(root)
+    rows = {name: (tags, values) for name, tags, values in machine_rows() if name in MESH_MACHINES}
+    config_path, _ = write_project(root, [(n, *rows[n]) for n in MESH_MACHINES], project="smoke")
+    shard = os.path.join(root, "shard.json")
+    with open(shard, "w") as f:
+        f.write(normalize(config_path, "smoke"))
+    data_path = os.path.join(root, "members.pkl")
+    members = mesh_data_members()
+    with open(data_path, "wb") as f:
+        pickle.dump(members, f)
+
+    coordinator, data_port = free_port(), free_port()
+    outs = [os.path.join(root, f"rank{r}", REVISION) for r in range(2)]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(2):
+            env = {**os.environ, "JAX_PROCESS_COUNT": "2", "JAX_PROCESS_INDEX": str(r),
+                   "JAX_COORDINATOR_ADDRESS": f"localhost:{coordinator}", "PYTHONPATH": HERE}
+            log = open(os.path.join(root, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MESH_RANK, HERE, str(r), shard, outs[r], os.path.join(root, f"rank{r}.pkl"),
+                 str(data_port), data_path], env=env, stdout=log, stderr=subprocess.STDOUT, cwd=root))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(root, f"rank{r}.log")) as f:
+                print(f.read()[-6000:], flush=True)
+        check(proc.returncode == 0, f"[mesh] rank {r} exited {proc.returncode}")
+    results = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    check(all(res["code"] == 0 for res in results), f"[mesh] build-fleet exited {[res['code'] for res in results]}")
+    check(not os.path.exists(os.path.dirname(outs[1])), "[mesh] rank 1 wrote into its output directory")
+    built = sorted(d for d in os.listdir(outs[0]) if os.path.isdir(os.path.join(outs[0], d)))
+    check(built == sorted(MESH_MACHINES), f"[mesh] rank 0 wrote {built}")
+    for name in ("build_status.json", "build_trace.jsonl", "fleet_plan.json"):
+        check(os.path.exists(os.path.join(outs[0], name)), f"[mesh] rank 0 wrote no {name}")
+    with open(os.path.join(outs[0], "fleet_plan.json")) as f:
+        mesh_shape = json.load(f)["mesh_shape"]
+    check(mesh_shape == [2, 1], f"[mesh] fleet_plan.json's mesh_shape {mesh_shape}")
+    for r, res in enumerate(results):
+        cv = {X.shape[-1]: (X.shape, n) for _, _, X, n in res["forwards"]}
+        check(sorted(cv) == [20, WIDE_TAGS] and all(n == 1 for _, n in cv.values()) and res["launches"]["K1"] == 2,
+              f"[mesh] rank {r}'s CV forwards {cv}, K1 launches {res['launches']}")
+        phase("mesh", f"rank {r} of a (2, 1) mesh (gloo, both ranks on the one card): build-fleet of "
+              f"{len(MESH_MACHINES)} machines in {res['wall']:.2f} s, its stacked fits "
+              f"{[(f['members'], f['rows']) for f in res['fits']]}, CV forwards of its blocks "
+              f"{[cv[w][0] for w in sorted(cv)]}, K1 launches {res['launches']['K1']} (one a width), K2 "
+              f"{res['launches']['K2']}; phases {', '.join(f'{k} {v:.3f}' for k, v in res['phases'].items())} s")
+    k1_ranks = [res["launches"]["K1"] for res in results]
+
+    # the one-process card build of the same machines is [train]'s: the same rows, definition and seeds, in
+    # one process on the one card (a member's fit does not depend on the bucket it shares)
+    single_dir = collection
+
+    def summaries(directory):
+        out = {}
+        for name in MESH_MACHINES:
+            model = serializer.load(os.path.join(directory, name), "cpu")
+            out[name] = build_summary(model, serializer.load_metadata(os.path.join(directory, name)))
+        return out
+
+    worst, faults = compare_builds(summaries(outs[0]), summaries(single_dir))
+    check(not faults, "[mesh] the sharded build disagrees with the one-process build: " + "; ".join(faults[:5]))
+    phase("mesh", f"sharded build (two ranks, {ranks_s:.2f} s with both processes' start) against [train]'s "
+          f"one-process card build of the same {len(MESH_MACHINES)} machines: params max abs {worst[0]:.3e} "
+          f"(limit {BUILD_PARAM_ATOL}), thresholds max rel {worst[1]:.3e} (limit {BUILD_THRESHOLD_RTOL}), CV scores "
+          f"{worst[2]:.3e} (limit {BUILD_SCORE_TOL}); rank 1 wrote nothing; fleet_plan.json mesh_shape {mesh_shape}")
+
+    data = [res["data"] for res in results]
+    coords = [d["coords"] for d in data]
+    check(coords == [(0, 0), (0, 1)], f"[mesh] data-axis coordinates {coords}")
+    for (n0, p0, h0, e0), (n1, p1, h1, e1) in zip(data[0]["results"], data[1]["results"]):
+        check(n0 == n1 and e0 is None and e1 is None and h0 == h1, f"[mesh] the data ranks disagree on {n0}")
+        check(all(np.array_equal(p0[k][n], p1[k][n]) for k in p0 for n in p0[k]), f"[mesh] data ranks' {n0} params")
+    t0 = time.perf_counter()
+    alone = FleetTrainer("cuda").train(members, FitConfig(**MESH_DATA_CONFIG))
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    param_diff = loss_diff = 0.0
+    for (name, params, history, _), want in zip(data[0]["results"], alone):
+        for key, layer in want.params.items():
+            for leaf, value in layer.items():
+                check(np.allclose(params[key][leaf], value, rtol=MESH_DATA_RTOL, atol=MESH_DATA_ATOL),
+                      f"[mesh] (1, 2) {name} {key}/{leaf} beyond rtol {MESH_DATA_RTOL}, atol {MESH_DATA_ATOL}")
+                param_diff = max(param_diff, float(np.abs(params[key][leaf] - value).max()))
+        for metric, values in want.history.history.items():
+            check(np.allclose(history[metric], values, rtol=MESH_DATA_RTOL, atol=MESH_DATA_ATOL),
+                  f"[mesh] (1, 2) {name} {metric}")
+            loss_diff = max(loss_diff, float(np.abs(np.asarray(history[metric]) - np.asarray(values)).max()))
+    steps = sum(f["steps"] for f in data[0]["fits"])
+    phase("mesh", f"data axis: {MESH_DATA_MEMBERS} 20-tag members of {TRAIN_ROWS} rows at (1, 2), each rank half of "
+          f"every batch, the gradients all-reduced by gloo on CUDA tensors ({steps} steps, one flat buffer a step) in "
+          f"{data[0]['wall']:.3f} s against (1, 1) in {alone_s:.3f} s: params max abs {param_diff:.3e}, losses "
+          f"{loss_diff:.3e} (rtol {MESH_DATA_RTOL}, atol {MESH_DATA_ATOL}); both ranks' results equal; {card}")
+
+    mesh_ring(card)
+    if torch.cuda.device_count() > 1:
+        nccl_dir = os.path.join(root, "nccl", REVISION)
+        t0 = time.perf_counter()
+        # the command line spawns one rank a visible card (the library call never spawns)
+        code, _, err, _ = run_command(["build-fleet", shard, nccl_dir, "--device", "cuda"], timeout=MESH_TIMEOUT)
+        check(code == 0, f"[mesh] the NCCL build across {torch.cuda.device_count()} cards exited {code}: "
+              f"{err[-3000:]}")
+        worst, faults = compare_builds(summaries(nccl_dir), summaries(single_dir))
+        check(not faults, "[mesh] the NCCL build disagrees: " + "; ".join(faults[:5]))
+        phase("mesh", f"NCCL across {torch.cuda.device_count()} cards (a rank a card): build-fleet in "
+              f"{time.perf_counter() - t0:.2f} s, params max abs {worst[0]:.3e} from the one-process build")
+    else:
+        phase("mesh", "NCCL across cards: not run (one card visible)")
+
+    cases = {}
+    for spec, stacked, X, n in results[0]["forwards"]:
+        cases[X.shape[-1]] = (as_case(spec, stacked, X), n)
+    for width, name in MESH_CV.items():
+        shape = (3 * sum(1 for m in MESH_MACHINES if (width == 20) == m.startswith("machine-")) // 2,
+                 TRAIN_ROWS // 4, width)
+        check(tuple(cases[width][0]["X"].shape) == shape, f"[mesh] rank 0's {width}-tag CV block "
+              f"{tuple(cases[width][0]['X'].shape)}, not {shape}")
+    launches = {"K1": ingest_k1 + sum(k1_ranks), "per_rank": k1_ranks}
+    phase("mesh", f"K1 launches: ingest {ingest_k1}, the ranks' CV forwards {k1_ranks}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches, cases
+
+
 def own_rows_frame(name, rows, shift=0.0):
     """ROWS of an [ingress] machine's readings past its training rows, as a
     JSON frame (the seeded machines' own continuation; file-tags-000's
@@ -5913,6 +6376,12 @@ def main():
                   f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         with clocked("ingress"):
             ingress_launches, ingress_cases = ingress_phase(work_dir, card)
+        with clocked("mesh"):
+            mesh_launches, mesh_cases = mesh_phase(work_dir, collection, names, wide_names, card)
+        for width, name in MESH_CV.items():
+            errors[name] = compare(mesh_cases[width][0])
+            phase("kernel", f"{name}, rank 0's own block of fold params and test rows: max abs {errors[name][0]:.3e}, "
+                  f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         for name, (case, _) in ingress_cases.items():
             errors[name] = compare(case)
             phase("kernel", f"{name} {tuple(case['X'].shape)}, [ingress]'s own params and rows: max abs "
@@ -6093,6 +6562,14 @@ def main():
               f"cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
               f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
 
+    for width, name in MESH_CV.items():
+        timed[name] = times(mesh_cases[width][0])
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+              f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} "
+              f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
+              f"{floor!r} ms; {card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -6147,14 +6624,16 @@ def main():
                   "definitions": def_build_launches["K1"] + def_serve_launches["K1"],
                   "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"],
                   "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"],
-                  "packing": packing_launches["K1"], "arrow": arrow_launches["K1"], "ingress": ingress_launches["K1"]}
+                  "packing": packing_launches["K1"], "arrow": arrow_launches["K1"], "ingress": ingress_launches["K1"],
+                  "mesh": mesh_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
                   "definitions": def_build_launches["K2"] + def_serve_launches["K2"],
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
                   "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"],
-                  "packing": packing_launches["K2"], "arrow": arrow_launches["K2"], "ingress": ingress_launches["K2"]}
+                  "packing": packing_launches["K2"], "arrow": arrow_launches["K2"], "ingress": ingress_launches["K2"],
+                  "mesh": 0}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -6244,6 +6723,11 @@ def main():
         entry("fleet_dense (K1), narrow kernel, parquet requests", "gordo_tpu/ops/pallas_dense.py:114",
               ingress_cases[INGRESS_CASES["served"]][1], k1_by_path, INGRESS_CASES["served"],
               timed[INGRESS_CASES["served"]]),
+        # launches: rank 0's CV forward of its block of that width in [mesh]'s two-rank build, read on the counter
+        entry("fleet_dense (K1), narrow kernel, mesh rank CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              mesh_cases[20][1], k1_by_path, MESH_CV[20], timed[MESH_CV[20]]),
+        entry("fleet_dense (K1), wide kernel, mesh rank CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
+              mesh_cases[WIDE_TAGS][1], k1_by_path, MESH_CV[WIDE_TAGS], timed[MESH_CV[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

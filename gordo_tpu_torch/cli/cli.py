@@ -32,6 +32,25 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   plan of the ``plan`` command, ``--cost-table`` prices buckets with a
   calibrated table; an unusable plan or table fails with the JAX
   command's text (``_load_planner_inputs``, ``cli.py:438-456``), exit 1.
+  **Across processes and cards** (``cli.py:634-749``): the command reads
+  the variables the JAX workflow template injects, ``JAX_PROCESS_COUNT``,
+  ``JAX_PROCESS_INDEX`` and ``JAX_COORDINATOR_ADDRESS`` (``host:port``).
+  A JAX pod is one process driving every local chip; a port pod runs one
+  process a visible card (``--device cuda``), spawned by the command line
+  (:func:`spawn_build_fleet`), so the world is ``JAX_PROCESS_COUNT`` x
+  cards and a rank is ``JAX_PROCESS_INDEX * cards + local``; with one
+  visible card, or a device that names its card, nothing is spawned. The
+  library function :func:`build_fleet` never spawns: it is one rank on
+  one device. A join or a collective waits at most 600 s
+  (``parallel/mesh.py``'s ``DEFAULT_TIMEOUT_S``). The ranks
+  join one ``torch.distributed`` group (``parallel/mesh.py``: ``nccl``,
+  or ``gloo`` on the CPU or when ``--dist-backend gloo`` names it, for
+  ranks that share a card) and train the shard as one
+  fleet over a ``(world, 1)`` mesh. Only rank 0 dumps, journals, writes
+  the telemetry files and the failure report; the other ranks first
+  mirror its resume and model-register filters read-only, so every rank
+  trains the same machines. A rank that fails, or a group that does not
+  form, fails the build.
 - ``plan MACHINES_CONFIG [--strategy] [-o FILE] [--cost-table F]
   [--calibrate-from TRACE] [--cost-table-out F] [--as-json]``: the JAX
   package's ``plan`` (``gordo_tpu/cli/cli.py:459-555``). It fetches and
@@ -103,6 +122,7 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
 import argparse
 import logging
 import os
+import socket
 import sys
 import traceback
 from typing import List, Optional, Tuple
@@ -111,7 +131,7 @@ from ..dataset.exceptions import ConfigException, InsufficientDataError, NoSuita
 from ..dataset.sensor_tag import SensorTagNormalizationError
 from ..machine import Machine
 from ..utils import yaml_lite
-from ..utils.env import env_bool
+from ..utils.env import env_bool, env_int, env_str
 from .exceptions_reporter import ExceptionsReporter, ReportLevel
 
 logger = logging.getLogger(__name__)
@@ -250,19 +270,114 @@ def build_fleet(
     plan_strategy: Optional[str] = None,
     plan_from: Optional[str] = None,
     cost_table_path: Optional[str] = None,
+    dist_backend: Optional[str] = None,
 ) -> Tuple[int, Optional[object]]:
-    """The ``build-fleet`` command: its exit code and the ``FleetBuilder``
-    (None when the shard or the planner's inputs did not load)."""
-    from ..parallel.fleet_build import FleetBuilder
+    """The ``build-fleet`` command in this process, on one device: its exit
+    code and the ``FleetBuilder`` (None when the shard or the planner's
+    inputs did not load). Under ``JAX_PROCESS_COUNT`` > 1 the process is
+    rank ``JAX_PROCESS_INDEX`` of that many, on ``device`` (``cuda``:
+    the default card). Spawning one rank a visible card is the command
+    line's (:func:`spawn_build_fleet`), never this function's."""
+    args = (machines_config, output_dir, device, exceptions_reporter_file, exceptions_report_level, resume,
+            model_register_dir, plan_strategy, plan_from, cost_table_path, dist_backend)
+    try:
+        count, index, coordinator = _process_layout()
+    except Exception:
+        return _report(exceptions_reporter_file, exceptions_report_level), None
+    return _build_fleet_rank(args, index, count, 0, coordinator)
 
+
+def spawn_build_fleet(cards: int, *args) -> int:
+    """``build-fleet`` as ``cards`` ranks of this process, one a card,
+    spawned (``torch.multiprocessing``) with :func:`build_fleet`'s
+    arguments: the world is ``JAX_PROCESS_COUNT`` x ``cards`` and a rank is
+    ``JAX_PROCESS_INDEX * cards + local``. The exit code is the first
+    failed rank's, else 0."""
+    import torch.multiprocessing as mp
+
+    exceptions_reporter_file, exceptions_report_level = args[3], args[4]
+    try:
+        count, index, coordinator = _process_layout()
+    except Exception:
+        return _report(exceptions_reporter_file, exceptions_report_level)
+    coordinator = coordinator or f"localhost:{_free_port()}"
+    logger.info("Spawning %d ranks, one a card, as process %d of %d", cards, index, count)
+    try:
+        mp.start_processes(_spawned_rank, args=(args, index, count, cards, coordinator), nprocs=cards,
+                           start_method="spawn")
+    except mp.ProcessExitedException as exc:
+        logger.error("%s", exc)
+        return exc.exit_code if exc.exit_code and exc.exit_code > 0 else 1
+    except mp.ProcessRaisedException as exc:
+        logger.error("%s", exc)
+        return 1
+    return 0
+
+
+def _process_layout() -> Tuple[int, int, Optional[str]]:
+    """``(count, index, coordinator)`` of this process from the variables
+    the JAX workflow template injects; a layout of more than one process
+    needs ``JAX_COORDINATOR_ADDRESS``."""
+    count = env_int("JAX_PROCESS_COUNT", 1)
+    index = env_int("JAX_PROCESS_INDEX", 0)
+    coordinator = env_str("JAX_COORDINATOR_ADDRESS", None)
+    if count > 1 and not coordinator:
+        raise KeyError("JAX_COORDINATOR_ADDRESS")
+    return count, index, coordinator if count > 1 else None
+
+
+def visible_cards(device: Optional[str]) -> int:
+    """The ranks the command line runs in this process: every visible card
+    for ``--device cuda`` without an index, else 1."""
+    import torch
+
+    from .. import resolve_device
+
+    target = resolve_device(device)
+    return max(1, torch.cuda.device_count()) if target.type == "cuda" and target.index is None else 1
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _spawned_rank(local: int, args: tuple, index: int, count: int, cards: int, coordinator: str) -> None:
+    """One spawned rank's build (``torch.multiprocessing`` target); a
+    failure exits with its code."""
+    logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(levelname)s %(name)s: %(message)s")
+    code, _ = _build_fleet_rank(args, index * cards + local, count * cards, local, coordinator)
+    if code:
+        sys.exit(code)
+
+
+def _build_fleet_rank(args: tuple, rank: int, world: int, local: int,
+                      coordinator: Optional[str]) -> Tuple[int, Optional[object]]:
+    """Rank ``rank`` of ``world`` (alone without a ``coordinator``): join
+    the group, build, leave; only rank 0 writes."""
+    (machines_config, output_dir, device, exceptions_reporter_file, exceptions_report_level, resume,
+     model_register_dir, plan_strategy, plan_from, cost_table_path, dist_backend) = args
+    from ..parallel.fleet_build import FleetBuilder
+    from ..parallel.mesh import initialize_backend, shutdown_backend
+
+    coordinating = rank == 0
     builder = None
     try:
+        if coordinator is not None and world > 1:
+            if device in (None, "cuda"):
+                device = f"cuda:{local}"
+            initialize_backend(coordinator, world, rank, backend=dist_backend, device=device, local_rank=local)
         machines = load_fleet_machines(machines_config)
         fleet_plan, cost_table = load_planner_inputs(plan_from, cost_table_path)
-        logger.info("Fleet-building %d machines; output at %s", len(machines), output_dir)
+        if not coordinating:
+            machines = _mirror_filters(machines, output_dir, model_register_dir, resume)
+        logger.info("Fleet-building %d machines; output at %s%s", len(machines), output_dir,
+                    "" if coordinating else f" (rank {rank}: side effects skipped)")
         builder = FleetBuilder(machines, device=device, plan_strategy=plan_strategy, fleet_plan=fleet_plan,
                                cost_table=cost_table)
-        results = builder.build(output_dir, model_register_dir=model_register_dir, resume=resume)
+        results = builder.build(output_dir if coordinating else None,
+                                model_register_dir=model_register_dir if coordinating else None, resume=resume)
         logger.info("Fleet build complete: %d built, %d resumed, %d failed", len(results), len(builder.resumed),
                     len(builder.build_errors))
         if builder.build_errors:
@@ -270,7 +385,26 @@ def build_fleet(
             raise exc
         return 0, builder
     except Exception:
-        return _report(exceptions_reporter_file, exceptions_report_level), builder
+        return _report(exceptions_reporter_file if coordinating else None, exceptions_report_level), builder
+    finally:
+        if coordinator is not None and world > 1:
+            shutdown_backend()
+
+
+def _mirror_filters(machines: List[Machine], output_dir: str, model_register_dir: Optional[str],
+                    resume: bool) -> List[Machine]:
+    """The machines rank 0 will train, seen from another rank: rank 0's
+    resume and model-register filters, read without writing anything
+    (``cli.py:654-675``), so every rank trains the same machines."""
+    from ..builder.build_model import ModelBuilder
+    from ..parallel.journal import resumable_names
+
+    if resume:
+        skip = set(resumable_names(output_dir, machines))
+        machines = [m for m in machines if m.name not in skip]
+    if model_register_dir:
+        machines = [m for m in machines if ModelBuilder.probe_cache(m, model_register_dir) is None]
+    return machines
 
 
 def plan_fleet(
@@ -681,6 +815,9 @@ def _parser() -> argparse.ArgumentParser:
     build.add_argument("--plan-from", default=None,
                        help="replay a FleetPlan of the plan command: its members train in their planned buckets")
     build.add_argument("--cost-table", default=None, help="a calibrated cost_table.json for the cost model")
+    build.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                       help="the ranks' torch.distributed backend (default nccl on cards, gloo on the CPU); "
+                            "gloo lets ranks share one card")
 
     plan_ = commands.add_parser("plan", help="the FleetPlan a build-fleet of a shard would run")
     plan_.add_argument("machines_config", nargs="?", default=os.environ.get("MACHINES_CONFIG"),
@@ -857,9 +994,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     for option, path in (("--plan-from", args.plan_from), ("--cost-table", args.cost_table)):
         if path is not None and not os.path.isfile(path):
             parser.error(f"{option}: file {path!r} does not exist")
-    code, _ = build_fleet(args.machines_config, args.output_dir, args.device, args.exceptions_reporter_file,
-                          args.exceptions_report_level, args.resume, args.model_register_dir, args.plan_strategy,
-                          args.plan_from, args.cost_table)
+    command = (args.machines_config, args.output_dir, args.device, args.exceptions_reporter_file,
+               args.exceptions_report_level, args.resume, args.model_register_dir, args.plan_strategy,
+               args.plan_from, args.cost_table, args.dist_backend)
+    try:
+        cards = visible_cards(args.device)
+    except Exception:
+        return _report(args.exceptions_reporter_file, args.exceptions_report_level)
+    if cards > 1:
+        return spawn_build_fleet(cards, *command)
+    code, _ = build_fleet(*command)
     return code
 
 

@@ -300,9 +300,18 @@ class TorchLSTMBaseEstimator(TorchAutoEncoder):
     def predict(self, X) -> np.ndarray:
         """The output for every window of ``X[rows, n_features]``:
         ``[rows - offset, n_features_out]`` float32, the windows forwarded
-        ``PREDICT_BATCH`` at a time on the estimator's device."""
+        ``PREDICT_BATCH`` at a time on the estimator's device. A series of
+        at least ``GORDO_TPU_RING_PREDICT_ROWS`` rows, with more than one
+        card to cut it over, takes the ring instead
+        (``parallel/sequence.py``, ``gordo_tpu/models/estimators.py:365-377``)."""
+        from ..parallel import sequence
+
         self._require_device()
         X = self._checked(X)
+        devices = sequence.ring_devices(self.device)
+        if sequence.ring_predict_enabled(len(X), devices):
+            return sequence.ring_windowed_predict(self.spec_, self.params_, np.asarray(X, np.float32),
+                                                  self.lookback_window, self.lookahead, devices)
         count = num_windows(len(X), self.lookback_window, self.lookahead)  # >= 1 once checked
         single = {key: {name: t[None] for name, t in layer.items()} for key, layer in self.params_.items()}
         series = torch.as_tensor(X, device=self.device)[None]

@@ -204,6 +204,11 @@ class StackedFit:
         self.per_sample = resolve_loss(spec.loss)
         self.optimizer = StackedOptimizer(spec.optimizer)
         self.keys = list(param_keys(spec))
+        #: the mesh's data axis (``parallel/mesh.py::DataShard``), set by
+        #: the fleet trainer when it is wider than 1: each rank computes
+        #: its share of every batch's rows, weighted over the batch's whole
+        #: weight, and the group sums the gradients and the losses
+        self.data: Any = None
 
     def leaves(self, params: Params) -> List[torch.Tensor]:
         return [params[key][name] for key, name in self.keys]
@@ -233,16 +238,40 @@ class StackedFit:
         all-padding batch). Never synchronises with the device."""
         leaves = self.leaves(params)
         with torch.enable_grad():
-            loss = self.batch_loss(params, xb, yb, wb)
             wsum = wb.sum(-1)
             has_data = wsum > 0
+            if self.data is None:
+                loss = self.batch_loss(params, xb, yb, wb)
+            else:
+                loss = self.shard_loss(params, xb, yb, wb, wsum)
             # the sum over members: each member's gradient is its own, and
             # the masked-off NaN of an all-padding batch reaches nothing
             objective = torch.where(has_data, loss, torch.zeros_like(loss)).sum()
             grads = torch.autograd.grad(objective, leaves)
+        if self.data is not None:
+            # one flat buffer a step: every leaf's gradient and the batch loss
+            flat = torch.cat([g.reshape(-1) for g in grads] + [torch.where(has_data, loss, 0.0).detach()])
+            self.data.all_reduce(flat)
+            grads = [part.view_as(g) for part, g in zip(flat.split([g.numel() for g in grads] + [len(loss)]), grads)]
+            loss = flat[-len(loss):]
         self.optimizer.step(leaves, grads, state, has_data & active, self.count_mask(has_data, active))
         with torch.no_grad():
             return torch.where(has_data, loss * wsum, torch.zeros_like(loss))
+
+    def shard_batch(self, xb: torch.Tensor, yb: torch.Tensor, wb: torch.Tensor):
+        """This data rank's rows of a batch ``(xb, yb, wb)`` (rows on axis 1)."""
+        lo, hi = self.data.bounds(wb.shape[1])
+        return xb[:, lo:hi], yb[:, lo:hi], wb[:, lo:hi]
+
+    def shard_loss(self, params: Params, xb: torch.Tensor, yb: torch.Tensor, wb: torch.Tensor,
+                   wsum: torch.Tensor) -> torch.Tensor:
+        """This data rank's part of each member's batch loss ``[M]``: its
+        rows' weighted losses over the whole batch's weight ``wsum`` plus
+        its rows' L1 activity (a raw sum); the group's parts sum to
+        :meth:`batch_loss`."""
+        xs, ys, ws = self.shard_batch(xb, yb, wb)
+        out, penalty = self.forward(params, xs)
+        return (self.per_sample(out, ys) * ws).sum(-1) / wsum.clamp(min=1.0) + penalty
 
     def count_mask(self, has_data: torch.Tensor, active: torch.Tensor) -> Optional[torch.Tensor]:
         """Whose optimizer step counts advance this step; None: the members
@@ -253,6 +282,12 @@ class StackedFit:
     def evaluate(self, params: Params, X: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Each member's weighted loss ``[M]`` over all of ``X`` (no L1
         term); NaN where ``w`` is all zero."""
+        if self.data is not None:
+            wsum = w.sum(-1)
+            lo, hi = self.data.bounds(w.shape[1])
+            out, _ = self.forward(params, X[:, lo:hi])
+            total = self.data.all_reduce((self.per_sample(out, y[:, lo:hi]) * w[:, lo:hi]).sum(-1))
+            return torch.where(wsum > 0, total / wsum.clamp(min=1.0), torch.full_like(total, float("nan")))
         out, _ = self.forward(params, X)
         return weighted_mean_loss(self.per_sample(out, y), w)
 
@@ -455,6 +490,11 @@ class WindowedFit(StackedFit):
         """The forward of gathered, time-major windows ``xb[M, L, B, F]``."""
         return forward_lstm_time_major(self.spec, params, xb)
 
+    def shard_batch(self, xb: torch.Tensor, yb: torch.Tensor, wb: torch.Tensor):
+        """This data rank's windows of a batch (axis 2 of the time-major ``xb``)."""
+        lo, hi = self.data.bounds(wb.shape[1])
+        return xb[:, :, lo:hi], yb[:, lo:hi], wb[:, lo:hi]
+
     def run(
         self,
         params: Params,
@@ -509,8 +549,12 @@ class WindowedFit(StackedFit):
             for s in live(wval):
                 xb, yb = batch(order[:, s:s + B])
                 wb = wval[:, s:s + B]
-                total = total + (self.per_sample(self.forward(params, xb)[0], yb) * wb).sum(-1)
                 wsum = wsum + wb.sum(-1)
+                if self.data is not None:
+                    xb, yb, wb = self.shard_batch(xb, yb, wb)
+                total = total + (self.per_sample(self.forward(params, xb)[0], yb) * wb).sum(-1)
+            if self.data is not None:
+                self.data.all_reduce(total)
             return torch.where(wsum > 0, total / wsum, torch.full_like(total, float("nan")))
 
         return self._fit(params, wtr, wval, batches, validate, callbacks)
@@ -573,6 +617,14 @@ class SegmentedFit(StackedFit):
         windows = (heads[:, :, None] + torch.arange(L, device=device)[None, None, :]).clamp(max=n_windows - 1)
         return rows, windows.reshape(updates, B)
 
+    def shard_batch(self, xb: torch.Tensor, yb: torch.Tensor, wb: torch.Tensor):
+        """This data rank's whole segments of an update: segments on axis 2
+        of ``xb[M, span, G, F]``, their ``L`` windows each in ``yb`` and
+        ``wb``."""
+        lo, hi = self.data.bounds(self.segments)
+        L = self.config.batch_size // self.segments
+        return xb[:, :, lo:hi], yb[:, lo * L:hi * L], wb[:, lo * L:hi * L]
+
     def forward(self, params: Params, xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The outputs of an update's windows, ``[M, B, F_out]`` in segment
         order, from its segments' rows ``xb[M, span, G, F]``; penalty 0."""
@@ -623,11 +675,16 @@ class SegmentedFit(StackedFit):
             wsum = torch.zeros_like(total)
             for k in _live_batches(wval, B):
                 wb = wval[:, k * B:(k + 1) * B]
-                loss = self.batch_loss(params, *update(k), wb)
                 w = wb.sum(-1)
+                if self.data is None:
+                    loss = self.batch_loss(params, *update(k), wb)
+                else:
+                    loss = self.shard_loss(params, *update(k), wb, w)
                 # the all-padding member's NaN mean times 0 is NaN: the guard zeroes it
                 total = total + torch.where(w > 0, loss * w, torch.zeros_like(loss))
                 wsum = wsum + w
+            if self.data is not None:
+                self.data.all_reduce(total)
             return torch.where(wsum > 0, total / wsum, torch.full_like(total, float("nan")))
 
         return self._fit(params, wtr, wval, batches, validate, callbacks)

@@ -35,6 +35,26 @@ or weights, under a batch N divides, trains through
 ``models/training.py::SegmentedFit`` instead (``fleet.py:954-1030``),
 silently falling back to the windowed fit otherwise, as in JAX.
 
+**The mesh** (``parallel/mesh.py``; ``fleet.py:665-735``, ``:775-830``,
+``:1072-1106``). Over a ``(models, data)`` mesh of ranks, each bucket's
+member axis is cut into the model axis's blocks (whole packs for a packed
+bucket; the padding to a multiple of the axis is JAX's zero-weight dummies,
+which the port leaves out as it leaves out ``m_padded``), and each rank
+stacks and trains only its own block. The sample axis is rounded to
+``lcm(batch_size, data)`` (``:682-689``, ``:780-787``); the ranks of a data
+group hold the same block and each computes its share of every batch's
+rows (``models/training.py``: ``StackedFit.data``), summing the gradients
+as one flat buffer a step, so every rank applies the same Adam update.
+Each bucket's results (or its failure) are then gathered to every rank as
+host values, as ``fetch_to_host``'s ``process_allgather`` does
+(``:221-240``), so every rank goes on with the same results, retries and
+bisections: a device error on any rank bisects the bucket on all of them.
+:meth:`FleetTrainer.predict_bucket` and
+:meth:`FleetTrainer.predict_windowed_bucket` score each rank's member
+block on its own device (K1 on a card) and gather the predictions. The
+cost model takes the mesh's shape, so a ``fleet_plan.json`` is JAX's on a
+mesh of the same shape.
+
 A diverged member (final loss not finite) is retrained with seed
 ``seed + 7919 * attempt`` (``fleet.py:476-531``). A bucket whose program
 fails on the device is bisected until the failure is isolated to one
@@ -72,7 +92,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import DeviceLike, resolve_device
+from .. import DeviceLike
 from ..models.callbacks import Callback
 from ..models.nn import forward_lstm_windows
 from ..models.spec import FeedForwardSpec, LSTMSpec, ModelSpec
@@ -95,6 +115,7 @@ from ..planner.costmodel import CostModel, CostTable, spec_flops_per_sample, spe
 from ..planner.packing import member_offset, plan_train_buckets
 from ..telemetry import program_span
 from ..utils.faults import InjectedDeviceError, fault_point
+from .mesh import DataShard, Mesh, make_mesh, model_data_sharding, model_sharding
 
 logger = logging.getLogger(__name__)
 
@@ -113,9 +134,19 @@ def is_device_error(exc: BaseException) -> bool:
     >>> is_device_error(ValueError("bad shape"))
     False
     """
-    if isinstance(exc, (InjectedDeviceError, torch.cuda.OutOfMemoryError)):
+    if isinstance(exc, (InjectedDeviceError, torch.cuda.OutOfMemoryError, RankDeviceError)):
         return True
     return isinstance(exc, RuntimeError) and bool(_DEVICE_ERROR.search(str(exc)))
+
+
+class RankDeviceError(RuntimeError):
+    """Another rank's device program failed on its block of the bucket:
+    every rank bisects the bucket alike."""
+
+
+class RankError(RuntimeError):
+    """Another rank failed its block of the bucket with a host error: every
+    rank fails alike."""
 
 
 def stack_member_params(
@@ -254,6 +285,11 @@ class FleetTrainer:
     analytic one) plan the buckets, and ``fleet_plan`` is a
     ``planner.FleetPlan`` to replay.
 
+    ``mesh`` (``parallel/mesh.py``; default :func:`~.mesh.make_mesh`, the
+    process group's ranks on the model axis, or the one-device mesh) shards
+    each bucket over ranks (the module's docstring); the trainer's device
+    is then the mesh's. ``device`` names it when no mesh is given.
+
     ``fits`` records each bucket it trained: its id (the id
     ``fleet_plan.json`` gives it), the members' names and count, padded
     rows (window slots for a windowed bucket), the packing factor, the
@@ -266,8 +302,10 @@ class FleetTrainer:
     """
 
     def __init__(self, device: DeviceLike = None, random: Optional[RandomSource] = None, packing: Any = None,
-                 plan_strategy: Optional[str] = None, cost_table: Optional[CostTable] = None):
-        self.device = resolve_device(device)
+                 plan_strategy: Optional[str] = None, cost_table: Optional[CostTable] = None,
+                 mesh: Optional[Mesh] = None):
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.device = self.mesh.device
         self.random = random if random is not None else TorchRandom()
         self.packing = packing
         self.plan_strategy = plan_strategy
@@ -282,8 +320,8 @@ class FleetTrainer:
         self.fits: List[Dict[str, Any]] = []
 
     def cost_model(self) -> CostModel:
-        """The planner's cost model over this trainer's table."""
-        return CostModel(self.cost_table)
+        """The planner's cost model over this trainer's table and mesh shape."""
+        return CostModel(self.cost_table, mesh_shape=self.mesh.shape)
 
     def _packing_factor(self, spec: ModelSpec, n_members: int, config: FitConfig) -> int:
         """The packing factor of a bucket (``fleet.py:445-463``): 1 unless
@@ -351,13 +389,17 @@ class FleetTrainer:
             def run(b, _p=planned, _g=g):
                 # the planned member rung holds for the intact bucket only: a bisected half drops it
                 m_padded = _p.m_padded if len(b) == len(_p.members) else None
+                local = b[model_sharding(self.mesh, len(b), _g)]
+                if not local:  # this rank's block is all padding
+                    return []
                 if _p.windowed:
-                    return self._train_windowed_bucket(_p.spec, _p.n_padded, b, config, _p.bucket_id)
+                    return self._train_windowed_bucket(_p.spec, _p.n_padded, local, config, _p.bucket_id)
                 if _g > 1:
-                    return self._train_bucket_packed(_p.spec, _p.n_padded, b, config, _p.bucket_id, _g)
-                return self._train_bucket(_p.spec, _p.n_padded, b, config, _p.bucket_id, m_padded)
+                    return self._train_bucket_packed(_p.spec, _p.n_padded, local, config, _p.bucket_id, _g)
+                return self._train_bucket(_p.spec, _p.n_padded, local, config, _p.bucket_id, m_padded)
 
-            self._run_bucket_degraded(run, planned.members, by_name, failures)
+            self._run_bucket_degraded(lambda b, _run=run: self._gathered(_run, b), planned.members, by_name,
+                                      failures)
         for member in members:
             if member.name in failures:
                 by_name[member.name] = FleetResult(
@@ -368,6 +410,33 @@ class FleetTrainer:
                     error=failures[member.name],
                 )
         return [by_name[m.name] for m in members]
+
+    def _gathered(self, run, bucket) -> List["FleetResult"]:
+        """``run(bucket)`` on every rank (each trains its own block), the
+        blocks' results gathered to every rank in member order; a failure on
+        any rank raises on all: a host error anywhere as :class:`RankError`,
+        else a device error as :class:`RankDeviceError`, so that every rank
+        bisects or fails alike (a failed rank raises its own exception
+        where it is of that kind)."""
+        if not self.mesh.distributed:
+            return run(bucket)
+        try:
+            outcome: Any = ("ok", run(bucket))
+        except Exception as exc:  # noqa: BLE001 - every rank must reach the gather
+            outcome, local_exc = ("device" if is_device_error(exc) else "host", repr(exc)), exc
+        else:
+            local_exc = None
+        gathered = self.mesh.all_gather_object((self.mesh.coords, outcome))
+        failed = [(coords, o) for coords, o in gathered if o[0] != "ok"]
+        if failed:
+            host = [(coords, o) for coords, o in failed if o[0] == "host"]
+            if local_exc is not None and (not host or not is_device_error(local_exc)):
+                raise local_exc
+            coords, (_, text) = (host or failed)[0]
+            cls = RankError if host else RankDeviceError
+            raise cls(f"rank at mesh coordinates {coords} failed its block: {text}")
+        by_name = {r.name: r for coords, (_, results) in gathered if coords[1] == 0 for r in results}
+        return [by_name[m.name] for m in bucket]
 
     def _run_bucket_degraded(self, run, bucket, by_name, failures) -> None:
         """Run one bucket; on a device error bisect it and retry each half,
@@ -467,9 +536,17 @@ class FleetTrainer:
                           spec=type(member.spec).__name__):
             return run()
 
+    def _sample_step(self, config: FitConfig) -> int:
+        """What the sample axis rounds up to: whole batches that also divide
+        across the data axis (``fleet.py:682-689``)."""
+        return int(np.lcm(config.batch_size, self.mesh.shape[1]))
+
     def _stack_bucket(self, n_padded: int, bucket: List[FleetMember], config: FitConfig):
         """``(X, y, wtr, wval)`` tensors on the trainer's device: zero-filled
-        padding, ``y`` aliased to ``X`` when every member trains ``y is X``."""
+        padding (the rows rounded up to :meth:`_sample_step`), ``y`` aliased
+        to ``X`` when every member trains ``y is X``."""
+        step = self._sample_step(config)
+        n_padded = -(-n_padded // step) * step
 
         def stacked(arrays):
             out = np.zeros((len(arrays), n_padded) + np.shape(arrays[0])[1:], np.float32)
@@ -520,10 +597,10 @@ class FleetTrainer:
     ):
         """``(series, targets, order, wtr, wval)`` tensors on the trainer's
         device: ``n_padded`` series rows, ``n_padded - offset`` target
-        rows, and the virtual slots rounded up to whole batches."""
+        rows, and the virtual slots rounded up to :meth:`_sample_step`."""
         nw_padded = n_padded - member_offset(bucket[0])
-        B = config.batch_size
-        nv_padded = -(-nw_padded // B) * B
+        step = self._sample_step(config)
+        nv_padded = -(-nw_padded // step) * step
         M = len(bucket)
         series = np.zeros((M, n_padded, bucket[0].series.shape[1]), np.float32)
         targets = np.zeros((M, nw_padded, bucket[0].targets.shape[1]), np.float32)
@@ -577,6 +654,7 @@ class FleetTrainer:
         ``data`` and the weights inside the ``span`` (program, key,
         attributes), time it into ``fits`` and collect the results."""
         seeds = [m.seed for m in bucket]
+        fit.data = DataShard(self.mesh) if self.mesh.shape[1] > 1 else None
         params = stack_member_params([self.random.init_params(fit.spec, s) for s in seeds], self.device)
         n = wtr.shape[1]
         perms = permutation_tensor(self.random, seeds if perm_seeds is None else perm_seeds, config.epochs, n,
@@ -635,15 +713,34 @@ class FleetTrainer:
     ) -> np.ndarray:
         """Forward a whole bucket, ``X[M, N, F] -> [M, N, F_out]`` (float32
         numpy), member ``i`` of ``stacked_params`` on ``X[i]``: one K1
-        launch on a CUDA device."""
+        launch on a CUDA device. Over a mesh each rank forwards its block of
+        members and rows (``fleet.py:1072-1106``) and every rank gets the
+        whole prediction."""
+        X = np.asarray(X)
+        members, rows = model_data_sharding(self.mesh, X.shape[0], X.shape[1])
         stacked = {
-            key: {name: torch.as_tensor(leaf, dtype=torch.float32).to(self.device) for name, leaf in layer.items()}
+            key: {name: torch.as_tensor(leaf[members], dtype=torch.float32).to(self.device)
+                  for name, leaf in layer.items()}
             for key, layer in stacked_params.items()
         }
-        x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
+        x = torch.from_numpy(np.ascontiguousarray(X[members, rows], np.float32)).to(self.device)
         with program_span("fleet_predict", (spec, tuple(x.shape)), members=x.shape[0], shape=str(tuple(x.shape)),
                           spec=type(spec).__name__):
-            return fleet_feedforward(spec, stacked, x).cpu().numpy()
+            out = fleet_feedforward(spec, stacked, x).cpu().numpy() if x.numel() else None
+        return self._assemble(X.shape[:2], members, rows, out)
+
+    def _assemble(self, shape, members: slice, rows: slice, out: Optional[np.ndarray]) -> np.ndarray:
+        """The whole ``[M, N, F_out]`` prediction from every rank's block
+        (``out`` this rank's, None when its block is empty)."""
+        if not self.mesh.distributed:
+            return out
+        blocks = self.mesh.all_gather_object((members, rows, out))
+        width = next(b[2].shape[-1] for b in blocks if b[2] is not None)
+        whole = np.zeros(tuple(shape) + (width,), np.float32)
+        for m, r, block in blocks:
+            if block is not None:
+                whole[m, r] = block
+        return whole
 
     def predict_windowed_bucket(
         self,
@@ -655,15 +752,22 @@ class FleetTrainer:
     ) -> np.ndarray:
         """Forward a windowed bucket, ``series[M, n, F]`` and window starts
         ``order[M, nv]`` -> ``[M, nv, F_out]`` (float32 numpy), the windows
-        gathered on the device ``batch_size`` at a time."""
+        gathered on the device ``batch_size`` at a time. Over a mesh each
+        rank forwards its block of members (``fleet.py:1108-1161``)."""
+        members = model_sharding(self.mesh, len(series))
+        every = slice(0, np.shape(order)[1])
         stacked = {
-            key: {name: torch.as_tensor(leaf, dtype=torch.float32).to(self.device) for name, leaf in layer.items()}
+            key: {name: torch.as_tensor(leaf[members], dtype=torch.float32).to(self.device)
+                  for name, leaf in layer.items()}
             for key, layer in stacked_params.items()
         }
-        s = torch.from_numpy(np.ascontiguousarray(series, np.float32)).to(self.device)
-        o = torch.from_numpy(np.asarray(order, np.int64)).to(self.device)
+        s = torch.from_numpy(np.ascontiguousarray(series[members], np.float32)).to(self.device)
+        o = torch.from_numpy(np.asarray(order, np.int64)[members]).to(self.device)
         # the JAX key holds the window axis padded to whole batches
         nv_padded = -(-o.shape[1] // batch_size) * batch_size
         with program_span("fleet_windowed_predict", (spec, batch_size, tuple(s.shape), (o.shape[0], nv_padded)),
                           members=s.shape[0], shape=str(tuple(s.shape)), spec=type(spec).__name__):
-            return forward_lstm_windows(spec, stacked, s, o, batch_size).cpu().numpy()
+            out = forward_lstm_windows(spec, stacked, s, o, batch_size).cpu().numpy() if len(s) else None
+        if self.mesh.distributed and self.mesh.coords[1]:
+            out = None  # the data group's first rank answers for its block
+        return self._assemble((len(series), every.stop), members, every, out)

@@ -809,7 +809,7 @@ class FleetBuilder:
         return planner.build_plan_doc(
             [(config, planner.plan_train_buckets(group, config, strategy=strategy, cost_model=cost_model))
              for config, group in by_config.items()],
-            strategy, self._fingerprint(final_plans), cost_model.table)
+            strategy, self._fingerprint(final_plans), cost_model.table, cost_model.mesh_shape)
 
     def plan_only(self) -> planner.FleetPlan:
         """Plan without training (``plan_only``, ``:1091-1108``): machine

@@ -14,8 +14,10 @@ plan, and its hash, equal the JAX build's on the same config: a sustained
 program, 0.01 s to dispatch one, a bf16 program at 0.6 of an f32 one's
 run time. They rank buckets against each other; they are neither a TPU's
 times nor the card's, and a plan's ``predicted_wall_s`` is this model's
-prediction, not a measurement. The port plans for one card, the JAX
-trainer's ``(1, 1)`` mesh.
+prediction, not a measurement. ``CostModel`` takes the trainer's mesh
+shape (``parallel/mesh.py``; ``(1, 1)`` for one card) and rounds stacked
+shapes as the trainer does, so a plan equals JAX's on a mesh of that
+shape.
 
 ``calibrate`` sets each program's factor to the median of actual over
 analytic seconds of the trace's ``device_program`` spans. A span with
@@ -278,24 +280,31 @@ def _round_up(n: int, step: int) -> int:
 
 class CostModel:
     """Bucket estimates against a :class:`CostTable` (default: the
-    analytic one) for one card, the JAX trainer's ``(1, 1)`` mesh."""
+    analytic one) for the trainer's ``mesh_shape``, ``(model axis, data
+    axis)`` (default one card, ``(1, 1)``)."""
 
-    def __init__(self, table: Optional[CostTable] = None):
+    def __init__(self, table: Optional[CostTable] = None, mesh_shape: Tuple[int, int] = (1, 1)):
         self.table = table or CostTable()
+        self.mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1] or 1))
 
     def stacked_shape(self, m: int, n_padded: int, batch_size: int) -> Tuple[int, int]:
-        """``(m_total, n_total)``: the members, the samples rounded up to
-        whole batches.
+        """``(m_total, n_total)`` as JAX's trainer stacks them: the members
+        rounded up to a multiple of the model axis, the samples to whole
+        batches that also divide across the data axis.
 
-        >>> CostModel().stacked_shape(3, 1000, 32)
-        (3, 1024)
+        >>> CostModel().stacked_shape(3, 1000, 32), CostModel(mesh_shape=(2, 3)).stacked_shape(3, 1000, 32)
+        ((3, 1024), (4, 1056))
         """
-        return m, _round_up(n_padded, batch_size)
+        model_axis, data_axis = self.mesh_shape
+        return _round_up(m, model_axis), _round_up(n_padded, math.lcm(batch_size, data_axis))
 
     def stacked_windowed_shape(self, m: int, n_padded: int, offset: int, batch_size: int) -> Tuple[int, int, int]:
-        """``(m_total, series_rows, windows_total)``: the series stays at
-        ``n_padded``, the windows round up to whole batches."""
-        return m, n_padded, _round_up(n_padded - offset, batch_size)
+        """``(m_total, series_rows, windows_total)``: the members as in
+        :meth:`stacked_shape`, the series at ``n_padded``, the windows
+        rounded as the samples are."""
+        model_axis, data_axis = self.mesh_shape
+        return (_round_up(m, model_axis), n_padded,
+                _round_up(n_padded - offset, math.lcm(batch_size, data_axis)))
 
     def train_flops(self, spec: ModelSpec, m: int, n: int, epochs: int) -> float:
         return _TRAIN_FLOP_FACTOR * spec_flops_per_sample(spec) * float(m) * float(n) * float(max(epochs, 1))

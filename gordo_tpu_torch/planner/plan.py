@@ -137,11 +137,13 @@ def build_plan_doc(
     strategy: str,
     config_fingerprint: str,
     cost_table: Optional[CostTable] = None,
+    mesh_shape: Tuple[int, int] = (1, 1),
 ) -> FleetPlan:
     """The plan of per-fit-config bucket lists whose predictions are
-    filled in (``packing.plan_train_buckets``), for one card (the JAX
-    mesh ``(1, 1)``), recording the strategy and the cost table's
-    version, calibration and samples (default: the analytic table)."""
+    filled in (``packing.plan_train_buckets``), for the trainer's
+    ``mesh_shape`` (``(1, 1)``: one card), recording the strategy and the
+    cost table's version, calibration and samples (default: the analytic
+    table)."""
     table = cost_table or CostTable()
     bucket_docs: List[dict] = []
     totals: Dict[str, Any] = {"buckets": 0, "members": 0, "compiles": 0, "predicted_compile_s": 0.0,
@@ -187,7 +189,7 @@ def build_plan_doc(
     return FleetPlan({
         "version": PLAN_VERSION,
         "strategy": strategy,
-        "mesh_shape": [1, 1],
+        "mesh_shape": [int(mesh_shape[0]), int(mesh_shape[1] or 1)],
         "config_fingerprint": config_fingerprint,
         # the learned model never costs a port plan (the planner refuses it)
         "cost_table": {"version": table.version, "calibrated": table.calibrated,

@@ -7,12 +7,16 @@ keyed by ``(revision fleet, spec, row rung, precision)``:
 
 - **request thread** (:meth:`ServeEngine.batched_predict`): the breaker
   first (503), then the row rung and the precision (the parity gate), then
-  the request's raw float32 rows padded to the rung and queued;
-- **dispatcher** (``_run_batch``): the live riders' rows stacked to
-  ``[members, rung, F]`` and copied to the device once, one K1 gather
-  launch with the bucket's ``indices`` and ingest plan at f32 (the plain
-  bf16/int8 forward at reduced precision), one copy back, and each
-  rider's rows handed back through its future.
+  the request's payload queued as it came: its decoded wire columns
+  (``ingest.RawColumns``) or its matrix;
+- **dispatcher** (``_run_batch``): the live riders' payloads staged by
+  ``ingest.stage`` into one ``[members, rung, F]`` host buffer, pinned on
+  a card (over the dlpack rung when their columns allow,
+  ``gordo_tpu/serve/engine.py:747-806``), and copied to the device
+  once, one K1 gather launch with the bucket's
+  ``indices`` and ingest plan at f32 (the plain bf16/int8 forward at
+  reduced precision), one copy back, and each rider's rows handed back
+  through its future.
 
 The port launches exactly the live members: a hand kernel has no compile
 cache to bound, so the JAX engine's power-of-two member padding
@@ -81,6 +85,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ingest import RawColumns, compiled_enabled, dlpack_enabled, ingest_stats, stage, staging_buffer
 from ..models.estimators import find_estimator
 from ..models.spec import FeedForwardSpec
 from ..planner.costmodel import CostModel, spec_flops_per_sample
@@ -287,6 +292,9 @@ class ServeEngine:
         batchable (the caller scores it itself). ``timing`` is the
         request's recorder: a sampled request's span is linked from its
         batch's span, and its share of the batch is recorded on it.
+        ``X`` is a matrix or the request's decoded wire columns
+        (``ingest.RawColumns``, ``gordo_tpu/serve/engine.py:255-263``): the
+        item queues them as they are, and the dispatcher stages them.
 
         Raises :class:`~gordo_tpu_torch.serve.QueueFullError` (429) when
         admission refuses it, :class:`MemberQuarantined` (503) when its
@@ -302,10 +310,14 @@ class ServeEngine:
         if retry_after is not None:
             self._count("breaker_rejects")
             raise MemberQuarantined(name, retry_after)
-        X = np.asarray(X)
-        rows = int(len(X))
+        if isinstance(X, RawColumns):
+            raw, shape = X, (X.rows, X.width)
+        else:
+            X = np.asarray(X)
+            raw, shape = None, X.shape
+        rows = int(shape[0])
         padded_rows = ladder.pad_to(rows, self.config.row_ladder)
-        if rows == 0 or padded_rows is None or X.ndim != 2 or X.shape[1] != spec.n_features:
+        if rows == 0 or padded_rows is None or len(shape) != 2 or shape[1] != spec.n_features:
             # too tall for the ladder, or rows the unbatched path refuses itself
             self._count("fallback")
             return None
@@ -331,13 +343,10 @@ class ServeEngine:
         from ..server.fleet_store import host_transform
 
         host = fleet.host_transformed(spec)
-        X = host_transform(model, X) if host else np.asarray(X, np.float32)
-        # rows padded here too: the dispatcher stacks same-rung payloads in one numpy call
-        if rows == padded_rows:
-            payload = np.ascontiguousarray(X)
+        if host:
+            payload = RawColumns.from_matrix(host_transform(model, raw.values() if raw is not None else X))
         else:
-            payload = np.zeros((padded_rows, spec.n_features), np.float32)
-            payload[:rows] = X
+            payload = raw if raw is not None else RawColumns.from_matrix(X)
         # the request's trace context rides its item only when the serving
         # trace is on and the request is exported: a link to an unexported
         # span would dangle
@@ -545,7 +554,7 @@ class ServeEngine:
             except FaultInjected:
                 rows = np.full_like(rows, np.nan)
             if self.config.finite_check and not np.isfinite(rows[: item.rows]).all():
-                if np.isfinite(item.payload[: item.rows]).all():
+                if np.isfinite(item.payload.host_matrix()[: item.rows]).all():
                     # finite input, non-finite output: the member is poisoned
                     self._count("nonfinite_outputs")
                     self._member_failure(
@@ -561,19 +570,27 @@ class ServeEngine:
 
     def _fused_live(self, fleet, spec, prec: str, padded_rows: int, live: List[BatchItem], params,
                     bucket_rows: Dict[str, int], ingest, timings: Dict[str, float]) -> np.ndarray:
-        """One fused forward over ``live``: the payloads stacked on the host
-        and copied to the device once, one gather launch, one copy back;
-        returns the ``[len(live), padded_rows, F_out]`` host rows. The
-        stacking and the copy's enqueueing are added to ``timings``."""
+        """One fused forward over ``live``: every payload staged by
+        ``ingest.stage`` into its slice of one ``[members, padded_rows, F]``
+        host buffer (pinned on a card; over the dlpack rung when its columns
+        allow and ``GORDO_TPU_INGEST_DLPACK`` is on), one copy to the device,
+        one gather launch, one copy back
+        (``gordo_tpu/serve/engine.py:747-806``); returns the
+        ``[len(live), padded_rows, F_out]`` host rows. The staging
+        (``stack``) and the copy's enqueueing (``device_ingest``) are added
+        to ``timings``."""
         from ..server.fleet_store import fleet_forward_gather
 
         for item in live:
             fault_point("serve_device_program", self._fault_key(spec, prec, item.name))
         t0 = time.monotonic()
-        X = torch.from_numpy(np.stack([item.payload for item in live]))
+        use_dlpack = dlpack_enabled(fleet.device)
+        buf = staging_buffer((len(live), padded_rows, spec.n_features), fleet.device)
+        host = buf.numpy()
+        for m, item in enumerate(live):
+            stage(item.payload, host[m], dlpack=use_dlpack)
         t1 = time.monotonic()
-        if fleet.device.type == "cuda":
-            X = X.pin_memory().to(fleet.device, non_blocking=True)
+        X = buf.to(fleet.device, non_blocking=True)
         timings["stack"] += t1 - t0
         timings["device_ingest"] += time.monotonic() - t1
         indices = [bucket_rows[item.name] for item in live]
@@ -736,6 +753,8 @@ class ServeEngine:
         stats["pending"] = self._batcher.pending()
         stats["breaker"] = self.breakers.summary()
         stats["demoted_rungs"] = demotions
+        device = getattr(self.store, "device", "cpu")
+        stats["ingest"] = {"compiled": compiled_enabled(), "dlpack": dlpack_enabled(device), **ingest_stats()}
         return stats
 
     def program_shapes(self) -> List[Tuple]:

@@ -250,6 +250,9 @@ class RequestContext:
         self.gordo_name: Optional[str] = None
         #: the model a scoring route resolved (what the health ledger counts)
         self.model: Any = None
+        #: the request's decoded X columns (``ingest.RawColumns``), kept by
+        #: the Arrow and parquet decodes when they line up with ``X``
+        self.ingest: Any = None
         self.store = app.store
         self.collection_dir = app.store.collection_dir
         self.current_revision = app.revision

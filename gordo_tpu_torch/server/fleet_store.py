@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import serializer
+from ..ingest import RawColumns, compiled_enabled, dlpack_enabled, to_device
 from ..models.estimators import find_estimator
 from ..models.nn import forward_lstm_windows
 from ..models.spec import FeedForwardSpec, LSTMSpec, ModelSpec
@@ -322,6 +323,13 @@ class RevisionFleet:
         return loaded
 
     def _bucket(self, spec: ModelSpec) -> Tuple[List[str], Stacked, Ingest]:
+        """``(names, stacked params, ingest plan)`` of ``spec``'s resident
+        bucket; with ``GORDO_TPU_INGEST_COMPILED`` off, no plan (the bucket
+        is then host-transformed, :meth:`host_transformed`)."""
+        names, stacked, ingest = self._resident_bucket(spec)
+        return names, stacked, ingest if compiled_enabled() else None
+
+    def _resident_bucket(self, spec: ModelSpec) -> Tuple[List[str], Stacked, Ingest]:
         with self._lock:
             cached = self._buckets.get(spec)
             if cached is not None:
@@ -391,11 +399,12 @@ class RevisionFleet:
 
     def host_transformed(self, spec: ModelSpec) -> bool:
         """Whether ``spec``'s bucket is host-transformed: some member's
-        pipeline is not affine, so every member's rows go through
-        :func:`host_transform` and the kernel runs without the prologue."""
+        pipeline is not affine, or ``GORDO_TPU_INGEST_COMPILED`` is off, so
+        every member's rows go through :func:`host_transform` and the
+        kernel runs without the prologue."""
         with self._lock:
-            self._bucket(spec)
-            return self._host[spec]
+            self._resident_bucket(spec)
+            return self._host[spec] or not compiled_enabled()
 
     def predict(self, name: str, X: np.ndarray) -> np.ndarray:
         """One model's reconstruction of raw rows ``X[B, F]``: the compiled
@@ -405,24 +414,36 @@ class RevisionFleet:
         :meth:`stage_input` then :meth:`predict_staged`."""
         return self.predict_staged(self.stage_input(name, X))
 
-    def stage_input(self, name: str, X: np.ndarray) -> "StagedInput":
+    def stage_input(self, name: str, X: Any) -> "StagedInput":
         """One request's rows on the device for :meth:`predict_staged` (the
         routes' ``device_ingest`` stage): checked, transformed on the host
-        in a host-transformed bucket, copied. ``TypeError`` for a model
-        without an autoencoder, ``ValueError`` for rows it cannot take."""
+        in a host-transformed bucket, else moved by ``ingest.to_device``,
+        over the dlpack rung on a card unless ``GORDO_TPU_INGEST_DLPACK`` is
+        off (``gordo_tpu/server/model_io.py:111-156``). ``X`` is a matrix
+        or the request's decoded columns (``ingest.RawColumns``).
+        ``TypeError`` for a model without an autoencoder, ``ValueError``
+        for rows it cannot take."""
         estimator = find_estimator(self.model(name))
         if estimator is None:
             raise TypeError(f"{name} holds no servable autoencoder")
         spec = estimator.spec_
-        X = np.asarray(X)
-        if X.ndim != 2 or X.shape[1] != spec.n_features:
-            raise ValueError(f"expected rows of {spec.n_features} features, got shape {X.shape}")
-        if isinstance(spec, LSTMSpec) and spec.lookback_window >= len(X):
+        if isinstance(X, RawColumns):
+            raw, shape = X, (X.rows, X.width)
+        else:
+            X = np.asarray(X)
+            raw, shape = RawColumns.from_matrix(X), X.shape
+        if len(shape) != 2 or shape[1] != spec.n_features:
+            raise ValueError(f"expected rows of {spec.n_features} features, got shape {shape}")
+        rows = raw.rows
+        if isinstance(spec, LSTMSpec) and spec.lookback_window >= rows:
             raise ValueError(f"For {type(estimator).__name__} lookback_window must be < size of X")
         # a host-transformed bucket reads the member's transformed rows; any other, the raw rows
-        rows = host_transform(self.model(name), X) if self.host_transformed(spec) else np.asarray(X, np.float32)
-        windows = len(X) - estimator.offset if isinstance(spec, LSTMSpec) else len(X)
-        return StagedInput(name, spec, torch.from_numpy(rows).to(self.device)[None], windows)
+        if self.host_transformed(spec):
+            x = torch.from_numpy(host_transform(self.model(name), raw.values())).to(self.device)
+        else:
+            x = to_device(raw, dlpack=dlpack_enabled(self.device), device=self.device)
+        windows = rows - estimator.offset if isinstance(spec, LSTMSpec) else rows
+        return StagedInput(name, spec, x[None], windows)
 
     def predict_staged(self, staged: "StagedInput") -> np.ndarray:
         """The forward of one staged request (the routes' ``inference``

@@ -7,7 +7,10 @@ The port's unbatched reconstruction is the store's single-member path
 (one K1 gather launch with the model's ingest plan), so
 :func:`get_model_output` goes through the request's fleet; a route stages
 the rows on the device first (``RevisionFleet.stage_input``, its
-``device_ingest`` stage) and launches in its ``inference`` stage. The JAX
+``device_ingest`` stage: ``ingest.to_device`` of :func:`request_rows`,
+the request's decoded columns when an Arrow or parquet decode kept them)
+and launches in its ``inference`` stage. The engine's items carry the
+same rows (:func:`batched_model_output`). The JAX
 package's ``accepts_model_output`` is not ported: the port's anomaly
 route always composes the frame from the reconstruction
 (``wire.anomaly_table``), never through a detector's ``anomaly()``.
@@ -20,7 +23,14 @@ import numpy as np
 from ..serve import MemberQuarantined, QueueFullError, ServeDeviceError
 
 
-def get_model_output(ctx, gordo_name: str, X: np.ndarray, staged: Any = None) -> np.ndarray:
+def request_rows(ctx, X: Any) -> Any:
+    """What a route scores: the request's decoded X columns when the Arrow
+    or parquet decode kept them (``ctx.ingest``, never stacked on the
+    host), else the frame's ``values``."""
+    return ctx.ingest if ctx.ingest is not None else X.values
+
+
+def get_model_output(ctx, gordo_name: str, X: Any, staged: Any = None) -> np.ndarray:
     """The model's reconstruction of raw rows ``X`` (of ``staged``, when
     they are on the device already) through the request's revision fleet:
     one K1 gather launch, or the windowed forward for an LSTM, and the
@@ -31,7 +41,7 @@ def get_model_output(ctx, gordo_name: str, X: np.ndarray, staged: Any = None) ->
     return ctx.fleet().predict(gordo_name, X)
 
 
-def batched_model_output(ctx, gordo_name: str, model: Any, X: np.ndarray) -> Optional[np.ndarray]:
+def batched_model_output(ctx, gordo_name: str, model: Any, X: Any) -> Optional[np.ndarray]:
     """The engine's reconstruction of one request, or None when the app
     has no engine or the request is not batchable (the caller then calls
     :func:`get_model_output`). The engine's refusals propagate; the route

@@ -3,7 +3,8 @@ Request helpers of the per-model routes, a port of the parts of
 ``gordo_tpu/server/utils.py`` that serve JSON: name and revision
 validation, the ``metadata.json`` check a request repeats (a DELETE may
 remove a revision under the store), revision deletion, and model and
-metadata resolution.
+metadata resolution; and :func:`stash_raw_columns`, which keeps an Arrow
+or parquet request's decoded X columns for the device ingest.
 
 Errors are :class:`ServerError`: a message answered as ``{key: message}``
 with an HTTP status.
@@ -12,9 +13,12 @@ with an HTTP status.
 import os
 import re
 import shutil
-from typing import Tuple
+from typing import Any, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .. import serializer
+from ..ingest import RawColumns
 
 gordo_name_re = re.compile(r"^[a-zA-Z\d-]+")
 revision_re = re.compile(r"\d+")
@@ -101,3 +105,24 @@ def require_metadata(ctx, gordo_name: str) -> Tuple[dict, dict]:
         return info, serializer.load_metadata(model_dir)
     except FileNotFoundError:
         raise ServerError(f"No metadata found for '{gordo_name}'", status=404)
+
+
+def stash_raw_columns(ctx, x_columns: Mapping[str, np.ndarray], index: Optional[Sequence[Any]],
+                      names: Sequence[str]) -> None:
+    """Keep the decoded X columns beside the assembled frame as
+    ``ctx.ingest`` (``gordo_tpu/server/utils.py:323-341``), so the device
+    ingest gathers them straight into its staging buffer and the frame is
+    never stacked on the host;
+    only where they match the frame row for row and column for column: an
+    index in order (the decode sorts rows otherwise), the frame's
+    ``names`` keying into the wire columns (a positional rename does not),
+    and every column 1-D. Otherwise nothing is kept, which is never
+    wrong."""
+    if index is not None and any(b < a for a, b in zip(index, index[1:])):
+        return
+    try:
+        columns = [np.asarray(x_columns[name]) for name in names]
+    except KeyError:
+        return
+    if columns and all(c.ndim == 1 for c in columns):
+        ctx.ingest = RawColumns.from_columns(columns)

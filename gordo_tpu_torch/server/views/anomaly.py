@@ -45,7 +45,7 @@ def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Respons
         resolution = utils.resolve_model(ctx, gordo_name)
     response_format = negotiate.response_format(ctx.request)  # before decoding and scoring
     with ctx.stage("data_decode"):
-        X, y = extract_X_y(ctx.request, resolution)
+        X, y = extract_X_y(ctx.request, resolution, ctx)
     if y is None:
         raise ServerError("Cannot perform anomaly without 'y' to compare against.")
     model = resolution.model
@@ -55,12 +55,13 @@ def post_anomaly_prediction(ctx, gordo_project: str, gordo_name: str) -> Respons
         staged = None
         if ctx.app.engine is None:
             with ctx.stage("device_ingest"):
-                staged = ctx.fleet().stage_input(gordo_name, X.values)
+                staged = ctx.fleet().stage_input(gordo_name, model_io.request_rows(ctx, X))
         with ctx.stage("inference"):
             frequency = resolution.frequency
-            output = None if staged is not None else model_io.batched_model_output(ctx, gordo_name, model, X.values)
+            output = None if staged is not None else model_io.batched_model_output(
+                ctx, gordo_name, model, model_io.request_rows(ctx, X))
             if output is None:
-                output = model_io.get_model_output(ctx, gordo_name, X.values, staged)
+                output = model_io.get_model_output(ctx, gordo_name, model_io.request_rows(ctx, X), staged)
         with ctx.stage("response_assemble"):
             table = wire.anomaly_table(
                 model,

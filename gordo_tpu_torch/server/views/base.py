@@ -74,48 +74,56 @@ def get_server_version(ctx) -> Response:
 
 
 def arrow_frames(
-    payload: bytes, resolution: ModelResolution, with_y: bool = True
+    payload: bytes, resolution: ModelResolution, with_y: bool = True, ctx: Any = None
 ) -> Tuple[wire.Frame, Optional[wire.Frame]]:
     """``X`` (and ``y`` when the body has role ``y`` columns and ``with_y``)
     from one Arrow stream, aligned with the model's tags as
     ``frame_from_columns`` aligns them (``gordo_tpu/server/utils.py:255-345``);
     400 with JAX's message for a body that cannot be read or columns that
-    do not fit."""
+    do not fit. With a request ``ctx``, X's decoded columns are kept as
+    ``ctx.ingest`` where they line up with X (``utils.stash_raw_columns``)."""
     try:
         x_columns, y_columns, index = wire.decode_frames(payload)
         X = wire.frame_from_columns(x_columns, index, resolution.tag_names)
         y = wire.frame_from_columns(y_columns, index, resolution.target_names) if y_columns and with_y else None
     except (wire.ArrowDecodeError, wire.FrameError) as exc:
         raise ServerError(str(exc), status=400)
+    if ctx is not None:
+        utils.stash_raw_columns(ctx, x_columns, None if index is None else index.values, X.columns)
     return X, y
 
 
 def parquet_frames(X_bytes: bytes, y_bytes: Optional[bytes],
-                   resolution: ModelResolution) -> Tuple[wire.Frame, Optional[wire.Frame]]:
+                   resolution: ModelResolution, ctx: Any = None) -> Tuple[wire.Frame, Optional[wire.Frame]]:
     """``X`` (and ``y``) from parquet files, aligned with the model's tags
     as a JSON frame is; 400 for a file that cannot be read or columns that
-    do not fit."""
+    do not fit. With a request ``ctx``, X's decoded columns are kept as
+    in :func:`arrow_frames`."""
     try:
-        X = wire.verify_frame(wire.dataframe_from_parquet_bytes(X_bytes), resolution.tag_names)
+        X_file, x_columns = wire.parquet_columns(X_bytes)
+        X = wire.verify_frame(X_file, resolution.tag_names)
         y = None
         if y_bytes is not None:
             y = wire.verify_frame(wire.dataframe_from_parquet_bytes(y_bytes), resolution.target_names)
     except (wire.ParquetDecodeError, wire.FrameError) as exc:
         raise ServerError(str(exc), status=400)
+    if ctx is not None:
+        utils.stash_raw_columns(ctx, x_columns, X.index, X.columns)
     return X, y
 
 
-def extract_X_y(request, resolution: ModelResolution) -> Tuple[wire.Frame, Optional[wire.Frame]]:
+def extract_X_y(request, resolution: ModelResolution, ctx: Any = None) -> Tuple[wire.Frame, Optional[wire.Frame]]:
     """``X`` (and ``y`` when sent) from a ``{"X": frame, "y": frame}`` body,
     an Arrow stream, a raw parquet body (``X`` only) or a multipart form
     of parquet files ``X`` and ``y`` (``gordo_tpu/server/utils.py:344-398``),
     aligned with the model's tags; 400 on anything unreadable, 415 for an
-    Arrow body with the Arrow codec off."""
+    Arrow body with the Arrow codec off. With a request ``ctx``, an Arrow or
+    parquet X's decoded columns are kept as ``ctx.ingest``."""
     body_format = negotiate.request_format(request)
     if body_format == negotiate.PARQUET:
-        return parquet_frames(request.body, None, resolution)
+        return parquet_frames(request.body, None, resolution, ctx)
     if body_format == negotiate.ARROW:
-        return arrow_frames(request.body, resolution)
+        return arrow_frames(request.body, resolution, ctx=ctx)
     if multipart.is_form(request.header("Content-Type")):
         try:
             files = multipart.form_files(request.body, request.header("Content-Type"))
@@ -123,7 +131,7 @@ def extract_X_y(request, resolution: ModelResolution) -> Tuple[wire.Frame, Optio
             raise ServerError(str(exc))
         if "X" not in files:
             raise ServerError('Cannot predict without "X"')
-        return parquet_frames(files["X"], files.get("y"), resolution)
+        return parquet_frames(files["X"], files.get("y"), resolution, ctx)
     body = request.json()
     if not isinstance(body, dict) or "X" not in body:
         raise ServerError('Cannot predict without "X"')
@@ -176,17 +184,17 @@ def post_prediction(ctx, gordo_project: str, gordo_name: str) -> Response:
         resolution = utils.resolve_model(ctx, gordo_name)
     response_format = negotiate.response_format(ctx.request)  # before decoding and scoring
     with ctx.stage("data_decode"):
-        X, _ = extract_X_y(ctx.request, resolution)
+        X, _ = extract_X_y(ctx.request, resolution, ctx)
     try:
         staged = None
         if ctx.app.engine is None:
             with ctx.stage("device_ingest"):
-                staged = ctx.fleet().stage_input(gordo_name, X.values)
+                staged = ctx.fleet().stage_input(gordo_name, model_io.request_rows(ctx, X))
         with ctx.stage("inference"):
             output = None if staged is not None else model_io.batched_model_output(
-                ctx, gordo_name, resolution.model, X.values)
+                ctx, gordo_name, resolution.model, model_io.request_rows(ctx, X))
             if output is None:
-                output = model_io.get_model_output(ctx, gordo_name, X.values, staged)
+                output = model_io.get_model_output(ctx, gordo_name, model_io.request_rows(ctx, X), staged)
     except BatchShedError as exc:
         return model_io.shed_response(ctx, exc)
     except ValueError as err:

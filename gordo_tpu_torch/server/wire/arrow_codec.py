@@ -726,7 +726,9 @@ def frame_from_columns(columns: Dict[str, np.ndarray], index: Optional[ArrowInde
     ``json_codec.verify_frame`` aligns (``gordo_tpu/server/utils.py:255-292``):
     the model's tags selected in order (extras dropped), or a full-width
     positional rename; ``FrameError`` otherwise. Rows are sorted by the
-    index when it is not monotonic; without an index they are numbered."""
+    index when it is not monotonic (which stacks them); without an index
+    they are numbered. Rows in order stay the decoded columns, unstacked
+    (``Frame.arrays``)."""
     expected = list(expected)
     names = list(columns)
     if all(name in columns for name in expected):
@@ -738,16 +740,16 @@ def frame_from_columns(columns: Dict[str, np.ndarray], index: Optional[ArrowInde
             f"Unexpected features: was expecting {expected} length of "
             f"{len(expected)}, but got {names} length of {len(names)}"
         )
-    values = np.column_stack([columns[name] for name in order])
-    if values.dtype.kind not in "fiu":
+    arrays = [columns[name] for name in order]
+    if np.result_type(*arrays).kind not in "fiu":
         raise FrameError(f"Non-numeric values in columns {order}")
     if index is None:
-        return Frame(list(range(len(values))), expected, values)
+        return Frame(list(range(len(arrays[0]))), expected, None, None, arrays)
     keys = index.values
     if any(b < a for a, b in zip(keys, keys[1:])):
         rows = sorted(range(len(keys)), key=keys.__getitem__)
-        keys, values = [keys[i] for i in rows], values[rows]
-    return Frame(keys, expected, values, index.unit)
+        return Frame([keys[i] for i in rows], expected, np.column_stack(arrays)[rows], index.unit)
+    return Frame(keys, expected, None, index.unit, arrays)
 
 
 def decode_response(buf) -> Tuple[WireTable, Dict[str, Any]]:

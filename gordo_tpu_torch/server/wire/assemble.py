@@ -123,6 +123,16 @@ def _matrix_columns(group: str, values: np.ndarray, names: Sequence[str]) -> Lis
     return [WireColumn(group, sub, values[:, i]) for i, sub in enumerate(subs)]
 
 
+def _input_columns(X: Any, n_out: int, names: Sequence[str]) -> List[WireColumn]:
+    """The ``model-input`` group: ``X``'s last ``n_out`` rows column by
+    column (a frame's unstacked columns are never stacked for it); subs as
+    :func:`_matrix_columns` names them."""
+    arrays = X.arrays() if hasattr(X, "arrays") else list(np.asarray(X.values).T)
+    start = len(X.index) - n_out
+    subs = list(names) if len(arrays) == len(names) else [str(i) for i in range(len(arrays))]
+    return [WireColumn("model-input", sub, a[start:]) for sub, a in zip(subs, arrays)]
+
+
 def prediction_table(
     X: Any,
     model_output: np.ndarray,
@@ -137,7 +147,7 @@ def prediction_table(
     index = X.index[len(X.index) - n_out:]
     starts, ends = _index_strings(index, frequency)
     columns = [WireColumn("start", "", starts), WireColumn("end", "", ends)]
-    columns += _matrix_columns("model-input", np.asarray(X.values)[len(X.values) - n_out:], tag_names)
+    columns += _input_columns(X, n_out, tag_names)
     columns += _matrix_columns(
         "model-output", output, target_names if target_names is not None else tag_names
     )
@@ -170,7 +180,6 @@ def anomaly_table(
         raise ValueError("model output is longer than its input")
     index = X.index[len(X.index) - n_out:]
     starts, ends = _index_strings(index, frequency)
-    model_input = np.asarray(X.values)[len(X.values) - n_out:]
     out_names = list(y.columns)
     out_subs = out_names if output.shape[1] == len(out_names) else [str(i) for i in range(output.shape[1])]
 
@@ -184,7 +193,7 @@ def anomaly_table(
     total_unscaled = _row_mean_of_squares(tag_unscaled)
 
     columns = [WireColumn("start", "", starts), WireColumn("end", "", ends)]
-    columns += _matrix_columns("model-input", model_input, list(X.columns))
+    columns += _input_columns(X, n_out, list(X.columns))
     columns += _matrix_columns("model-output", output, out_names)
     columns += [WireColumn("tag-anomaly-scaled", sub, tag_scaled[:, i]) for i, sub in enumerate(out_subs)]
     columns.append(WireColumn("total-anomaly-scaled", "", total_scaled))

@@ -36,22 +36,50 @@ class Frame:
     """A decoded request frame: ``index`` (sorted datetimes or ints),
     ``columns`` (names) and ``values`` (``[rows, columns]``: float64 from
     JSON, the columns' own dtype from Arrow); ``unit`` is a datetime
-    index's Arrow timestamp unit (None: ``us``, the ISO parse's)."""
+    index's Arrow timestamp unit (None: ``us``, the ISO parse's). A frame
+    made from decoded columns (``arrays``) keeps them unstacked until its
+    ``values`` are first read, so that a request whose columns go to the
+    device as they are (``ingest.RawColumns``) and into the answer column
+    by column (:meth:`arrays`) is never stacked on the host."""
 
-    __slots__ = ("index", "columns", "values", "unit")
+    __slots__ = ("index", "columns", "unit", "_values", "_arrays")
 
-    def __init__(self, index: List[Any], columns: List[str], values: np.ndarray, unit: Optional[str] = None):
+    def __init__(self, index: List[Any], columns: List[str], values: Optional[np.ndarray] = None,
+                 unit: Optional[str] = None, arrays: Optional[List[np.ndarray]] = None):
         self.index = index
         self.columns = columns
-        self.values = values
         self.unit = unit
+        self._values = values
+        self._arrays = arrays
+
+    @property
+    def values(self) -> np.ndarray:
+        if self._values is None:
+            self._values = np.column_stack(self._arrays)
+        return self._values
+
+    def arrays(self) -> List[np.ndarray]:
+        """The columns one by one in ``values``' dtype: the decoded columns
+        themselves while the frame is unstacked, else views of ``values``."""
+        if self._values is None:
+            dtype = np.result_type(*self._arrays)
+            return [np.asarray(a, dtype) for a in self._arrays]
+        return [self._values[:, j] for j in range(self._values.shape[1])]
+
+    def take(self, positions: Sequence[int], columns: List[str]) -> "Frame":
+        """The columns at ``positions``, named ``columns``."""
+        if self._values is None:
+            return Frame(self.index, columns, None, self.unit, [self._arrays[p] for p in positions])
+        return Frame(self.index, columns, self._values[:, positions], self.unit)
 
     def __len__(self) -> int:
         return len(self.index)
 
     def __getitem__(self, rows: slice) -> "Frame":
         """The rows ``rows`` (a slice) as a frame sharing ``values``."""
-        return Frame(self.index[rows], self.columns, self.values[rows], self.unit)
+        if self._values is None:
+            return Frame(self.index[rows], self.columns, None, self.unit, [a[rows] for a in self._arrays])
+        return Frame(self.index[rows], self.columns, self._values[rows], self.unit)
 
 
 def _parse_index(keys: Sequence[str]) -> List[Any]:
@@ -115,14 +143,13 @@ def verify_frame(frame: Frame, expected: Sequence[str]) -> Frame:
     names differ is renamed positionally; anything else is refused."""
     expected = list(expected)
     if all(name in frame.columns for name in expected):
-        positions = [frame.columns.index(name) for name in expected]
-        return Frame(frame.index, expected, frame.values[:, positions], frame.unit)
+        return frame.take([frame.columns.index(name) for name in expected], expected)
     if len(frame.columns) != len(expected):
         raise FrameError(
             f"Unexpected features: was expecting {expected} length of "
             f"{len(expected)}, but got {frame.columns} length of {len(frame.columns)}"
         )
-    return Frame(frame.index, expected, frame.values, frame.unit)
+    return Frame(frame.index, expected, frame._values, frame.unit, frame._arrays)
 
 
 def _value_literal(value: Any) -> str:

@@ -22,7 +22,7 @@ A body that is malformed or holds what the codec does not read raises
 """
 
 from datetime import datetime
-from typing import Any, List, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -38,7 +38,7 @@ PARQUET_RESPONSE_CONTENT_TYPE = "application/octet-stream"
 
 __all__ = [
     "PARQUET_CONTENT_TYPE", "PARQUET_RESPONSE_CONTENT_TYPE", "ParquetDecodeError", "dataframe_from_parquet_bytes",
-    "dataframe_into_parquet_bytes", "table_from_parquet_bytes",
+    "dataframe_into_parquet_bytes", "parquet_columns", "table_from_parquet_bytes",
 ]
 
 
@@ -58,17 +58,24 @@ def _index(frame: parquet.ParquetFrame, rows: int):
     raise ParquetDecodeError(f"The index is {index.kind}; the port reads a timestamp or an integer index")
 
 
-def dataframe_from_parquet_bytes(buf) -> Frame:
-    """A parquet request body as a frame (see the module's docstring)."""
+def parquet_columns(buf) -> Tuple[Frame, Dict[str, np.ndarray]]:
+    """A parquet request body as a frame (see the module's docstring) and
+    the decoded columns the frame keeps unstacked, by name."""
     frame = parquet.read_frame(buf)
     names = [str(label) for label in frame.labels]
     rows = len(frame.columns[0].values) if frame.columns else 0
     numeric = [c.values for c in frame.columns if c.values.dtype.kind in "fiu"]
     if len(numeric) != len(frame.columns):
         raise FrameError(f"Non-numeric values in columns {names}")
-    values = np.column_stack(numeric) if numeric else np.zeros((rows, 0))
     index, unit = _index(frame, rows)
-    return Frame(index, names, values, unit)
+    if not numeric:
+        return Frame(index, names, np.zeros((rows, 0)), unit), {}
+    return Frame(index, names, None, unit, numeric), dict(zip(names, numeric))
+
+
+def dataframe_from_parquet_bytes(buf) -> Frame:
+    """A parquet request body as a frame (see the module's docstring)."""
+    return parquet_columns(buf)[0]
 
 
 def dataframe_into_parquet_bytes(frame: Union[WireTable, Frame]) -> bytes:
