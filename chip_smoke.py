@@ -63,7 +63,7 @@ Run from the root of a checkout; it builds the CUDA kernels from
 
 ``[lstm]`` (after ``[config]``) writes 16 LSTM machines as a project
 config (``examples/model-configuration.yaml``'s settings, lookback 10,
-20 tags, 2000 seeded rows in ``FileDataProvider`` CSVs, ``LSTM_EPOCHS``
+20 tags, ``LSTM_ROWS`` (1000) seeded rows in ``FileDataProvider`` CSVs, ``LSTM_EPOCHS``
 (1, the examples' 5 cut), batch 32, TimeSeriesSplit(3)): 8 lstm_hourglass autoencoders (15-10-10-15), 4
 lstm_symmetric forecasters (64-32-32-64) and 4 lstm_model autoencoders at
 its 256-128-64-64-128-256 defaults, each a ``DiffBasedAnomalyDetector``
@@ -412,6 +412,31 @@ NCCL through the command line (``python -m gordo_tpu_torch build-fleet
 reference build name ``cuda:0`` and never spawn); otherwise the phase
 says it did not.
 
+``[deploy]`` (after ``[mesh]``) runs the deploy pod's commands on
+``[train]``'s collection: ``wait-for-models`` over its 72 names (exit 0)
+and with an absent one and ``--timeout 1`` (exit 1, naming it);
+``ensure-single-workflow`` for a revision, ``--check-only`` for the one
+before it (stale, exit 1), and again past a planted guard an hour old;
+``python -m gordo_tpu_torch run-server --batching`` in a process of its
+own on the card (the seconds until ``/healthcheck`` answers 200). The
+port's ``Client`` then sends ``predict`` (parquet) for two 20-tag
+machines and a 40-tag one over the last ROWS of their own training rows,
+``fleet_anomaly_scores`` over the 64 (a day of rows), ``metadata`` and
+``download-model`` (the pickle loaded on the card, its params equal to
+the file's), every frame held to the same client's answer from the CPU
+app in this process. Then 8 ``/prediction`` requests wait in the
+server's engine (a 3 s window) when SIGTERM comes: each is answered 200
+well inside the window (the drain flushed it) and equal to the CPU app's,
+``/healthcheck`` answers 503 ``draining`` meanwhile, and the process exits
+0 within 60 s; the drain's seconds and the K1 and K2 launches of the
+server's process come from the drain's log line. ``score --input`` a CSV
+of a 20-tag and a 40-tag model's next rows runs on the card (one K1
+launch each, counted here; each call held to the plain version and timed
+under ``[times]``) and with ``--device cpu``: the two parquet files agree
+within rtol 1e-5, atol 1e-5 (max abs and max rel printed). Last,
+``cleanup-revisions`` of five numbered directories, with and without
+``--dry-run``.
+
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
@@ -426,6 +451,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -963,7 +989,7 @@ def machine_rows():
     return [(name, tag_list(n_tags), sensor_data(seed, TRAIN_ROWS, n_tags)) for name, n_tags, seed in machine_seeds()]
 
 
-def write_project(directory, machines=None, models=None, project="smoke"):
+def write_project(directory, machines=None, models=None, project="smoke", n_rows=TRAIN_ROWS):
     """A collection as a project config in ``examples/config.yaml``'s
     dialect (a CRD document, ``globals.model`` a ``|`` block holding
     ``DEFINITION``, or each machine's own ``model`` block from ``models``),
@@ -971,9 +997,9 @@ def write_project(directory, machines=None, models=None, project="smoke"):
     (``machines``: ``(name, tags, rows)``, default the served collection's
     ``machine_rows``) at 10-minute stamps from TRAIN_START, floats with 17
     significant digits so they read back exactly, and the half-open window
-    ``[TRAIN_START, TRAIN_START + TRAIN_ROWS x 10 min)`` holding all of
+    ``[TRAIN_START, TRAIN_START + n_rows x 10 min)`` holding all of
     them. Returns the config's path and ``{name: rows}``."""
-    end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
+    end = (TRAIN_START + timedelta(minutes=10 * n_rows)).isoformat()
     entries, rows = [], {}
     for name, tags, values in machine_rows() if machines is None else machines:
         path = write_csv(directory, name, tags, values)
@@ -1481,6 +1507,15 @@ LSTM_GROUPS = (
 #: the CPU check 91 s (one H100 machine), far past the phase's minute; at 2
 #: 21.5 s and 34.2 s, and the smoke near 700 of its 1200 s
 LSTM_EPOCHS = 1
+#: the LSTM machines' training rows: TRAIN_ROWS cut to half, with
+#: LSTM_PROFILE_STEPS, to pay for [deploy] (at 2000 rows the phase took
+#: 155.6-196.8 s, 67 s of it the CPU's builds and fits that the card's are
+#: held to, which scale with the rows; every check still runs)
+LSTM_ROWS = 1000
+#: steps ``torch.profiler`` records for each step profiled in [lstm] (once 5
+#: and 3: the trace's processing took 59 s of the phase; a step's launches
+#: are the same every step)
+LSTM_PROFILE_STEPS = 1
 #: the LSTM machines' sensor_data seeds start here
 LSTM_SEED = 700
 #: feedforward machines of the [train] collection served beside the LSTMs
@@ -1500,7 +1535,7 @@ def lstm_machines():
     for prefix, count, path, kwargs, _ in LSTM_GROUPS:
         for i in range(count):
             name = f"{prefix}-{i:03d}"
-            machines.append((name, tag_list(20), sensor_data(seed, TRAIN_ROWS, 20)))
+            machines.append((name, tag_list(20), sensor_data(seed, LSTM_ROWS, 20)))
             estimator = {path: {**kwargs, "epochs": LSTM_EPOCHS, "batch_size": 32}}
             models[name] = {DETECTOR_PATH: {"base_estimator": {"sklearn.pipeline.Pipeline": {
                 "steps": ["sklearn.preprocessing.MinMaxScaler", estimator]}}}}
@@ -1515,10 +1550,10 @@ def lstm_offsets():
 
 def lstm_own_frame(name, seed):
     """An LSTM machine's next ROWS rows (``sensor_data`` from its seed past
-    the TRAIN_ROWS it trained on), with request_frame's excursion."""
+    the LSTM_ROWS it trained on), with request_frame's excursion."""
     start = datetime(2020, 1, 1, tzinfo=timezone.utc)
-    keys = [(start + timedelta(minutes=10 * (TRAIN_ROWS + r))).isoformat() for r in range(ROWS)]
-    values = sensor_data(seed, TRAIN_ROWS + ROWS, 20)[TRAIN_ROWS:]
+    keys = [(start + timedelta(minutes=10 * (LSTM_ROWS + r))).isoformat() for r in range(ROWS)]
+    values = sensor_data(seed, LSTM_ROWS + ROWS, 20)[LSTM_ROWS:]
     values[ROWS // 2:ROWS // 2 + 6, 3] += 25.0
     return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tag_list(20))}
 
@@ -1760,13 +1795,13 @@ def lstm_build(work_dir, card):
     machines, models = lstm_machines()
     lstm_dir = os.path.join(work_dir, "lstm")
     os.makedirs(lstm_dir)
-    config_path, rows = write_project(lstm_dir, machines, models, project="smoke-lstm")
+    config_path, rows = write_project(lstm_dir, machines, models, project="smoke-lstm", n_rows=LSTM_ROWS)
     shard = os.path.join(lstm_dir, "shard.json")
     with open(shard, "w") as f:
         f.write(normalize(config_path, "smoke-lstm"))
     phase("lstm", f"project config of {len(rows)} LSTM machines (8 lstm_hourglass autoencoders 15-10-10-15, 4 "
           f"lstm_symmetric forecasters 64-32-32-64, 4 lstm_model autoencoders 256-128-64-64-128-256; lookback 10, "
-          f"20 tags, {TRAIN_ROWS} rows, {LSTM_EPOCHS} epoch (cut from the examples' 5 to keep the phase near a "
+          f"20 tags, {LSTM_ROWS} rows, {LSTM_EPOCHS} epoch (cut from the examples' 5 to keep the phase near a "
           f"minute), batch 32, TimeSeriesSplit(3)) written and normalized in {time.perf_counter() - t0:.2f} s")
     directory = os.path.join(work_dir, "lstm-build", REVISION)
     with captured_windowed() as forwards:
@@ -1798,7 +1833,7 @@ def lstm_build(work_dir, card):
         step = lstm_step(spec, 3 * count)
         device_ms = step_device_ms(step)
         host_ms = host_step_ms(step)
-        step_launches, kernel_ms = profile_step(step)
+        step_launches, kernel_ms = profile_step(step, steps=LSTM_PROFILE_STEPS)
         fit_ms = fit["event_ms"] / fit["steps"]
         cv_steps[prefix] = (spec, step_launches, kernel_ms, device_ms, host_ms)
         # a step of more launches than the card's queue holds lets the host pace
@@ -1881,7 +1916,7 @@ def lstm_segmented(work_dir, shard, windowed, card):
         step = segmented_step(spec, 3 * count)
         s_device = step_device_ms(step)
         s_host = host_step_ms(step, steps=5)
-        s_launch, s_kernel = profile_step(step, steps=3)
+        s_launch, s_kernel = profile_step(step, steps=LSTM_PROFILE_STEPS)
         ratio = seg["event_ms"] * win["steps"] / (seg["steps"] * win["event_ms"])
         phase("lstm", f"{prefix} final fit ({count} members, batch 32): segmented {seg['steps']} updates at "
               f"{seg['event_ms'] / seg['steps']:.3f} ms an update between events, windowed {win['steps']} steps "
@@ -4266,7 +4301,7 @@ def sequential_machines():
         tags, values = rows[name]
         config = {"name": name, "model": models.get(name, DEFINITION),
                   "dataset": {"tag_list": tags, "resolution": "10min"}}
-        out.append((Machine.from_config(config, "smoke", data=(values, None), index=index), launches,
+        out.append((Machine.from_config(config, "smoke", data=(values, None), index=index[:len(values)]), launches,
                     lstm_offsets().get(name, 0)))
     return out
 
@@ -6000,6 +6035,352 @@ def mesh_phase(work_dir, collection, names, wide_names, card):
     return launches, cases
 
 
+# -- [deploy]: the deploy pod's commands -------------------------------------------------
+
+#: [deploy]'s client predictions: two 20-tag machines and a 40-tag one, over the last DEPLOY_ROWS of
+#: their own training rows (their dataset configs read the CSVs [train] wrote)
+DEPLOY_PREDICT = ("machine-000", "machine-031", "compressor-002")
+DEPLOY_ROWS = ROWS
+#: the fleet request's window: the last day of the 64 machines' training rows
+DEPLOY_FLEET_ROWS = 144
+#: the server's batching window (ms): long enough that the burst waits in the engine when SIGTERM comes
+DEPLOY_DELAY_MS = 3000
+#: the burst's requests (machines past ENGINE_POISON), the wait before SIGTERM, the drain's grace and the
+#: bound on the server's exit after the signal
+DEPLOY_BURST = 8
+DEPLOY_SIGNAL_AFTER_S = 1.0
+DEPLOY_GRACE_S = 1.0
+DEPLOY_EXIT_LIMIT_S = 60
+#: the models ``score`` runs on, each on the card and on the CPU, and its K1 calls' names
+DEPLOY_SCORE = ("machine-006", "compressor-001")
+DEPLOY_SCORE_CASES = {20: "score: hourglass20 M=1 B=1008", WIDE_TAGS: "score: hourglass40 M=1 B=1008"}
+DEPLOY_REVISION = 1700000000002
+DRAIN_LINE = re.compile(r"drained in ([0-9.]+) s \((\d+) request thread\(s\) still answering\); kernel launches: "
+                        r"K1 (\d+), K2 (\d+)")
+
+
+def cli_run(*args):
+    """``python -m gordo_tpu_torch ARGS`` in this process: ``(exit code,
+    stdout, stderr)``."""
+    import io
+
+    from gordo_tpu_torch.cli.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            code = cli_main(list(args))
+        except SystemExit as exc:
+            code = exc.code
+    return code, out.getvalue(), err.getvalue()
+
+
+@contextlib.contextmanager
+def captured_estimator_k1():
+    """While open, each K1 call of an estimator's ``predict`` on the card
+    as ``(case, launches it made)``."""
+    from gordo_tpu_torch.models import estimators
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+
+    calls, original = [], estimators.fleet_feedforward
+
+    def k1(spec, stacked, X, *args, **kwargs):
+        before = fleet_feedforward.launches
+        out = original(spec, stacked, X, *args, **kwargs)
+        if X.is_cuda:
+            calls.append((dict(spec=spec, bucket=stacked, X=X, indices=None, ingest=None),
+                          fleet_feedforward.launches - before))
+        return out
+
+    estimators.fleet_feedforward = k1
+    try:
+        yield calls
+    finally:
+        estimators.fleet_feedforward = original
+
+
+def same_tables(expected, got, what):
+    """Two answers' tables: the same labels, index and strings; numbers
+    within RTOL/ATOL (NaN where NaN). Returns the largest abs difference."""
+    import numpy as np
+
+    check([(c.group, c.sub) for c in got.columns] == [(c.group, c.sub) for c in expected.columns],
+          f"{what}: columns differ")
+    check(list(got.index) == list(expected.index), f"{what}: index differs")
+    worst = 0.0
+    for want, have in zip(expected.columns, got.columns):
+        a, b = np.asarray(want.values), np.asarray(have.values)
+        if a.dtype.kind != "f":
+            check(list(a) == list(b), f"{what}: {want.group}|{want.sub} differs")
+            continue
+        check(bool(np.array_equal(np.isnan(a), np.isnan(b))), f"{what}: {want.group}|{want.sub} NaN cells differ")
+        diff = np.abs(b.astype(np.float64) - a)[~np.isnan(a)]
+        check(bool((diff <= ATOL + RTOL * np.abs(a[~np.isnan(a)])).all()),
+              f"{what}: {want.group}|{want.sub} beyond rtol {RTOL}, atol {ATOL}: max abs {diff.max():.3e}")
+        worst = max(worst, float(diff.max()) if diff.size else 0.0)
+    return worst
+
+
+def score_csv(path, name, n_tags):
+    """``own_frame``'s rows of a machine as ``score --input``'s CSV: an
+    unnamed index column of ISO times, then a column a tag."""
+    frame = own_frame(name, n_tags)
+    tags = list(frame)
+    keys = list(frame[tags[0]])
+    with open(path, "w") as f:
+        f.write("," + ",".join(tags) + "\n")
+        for key in keys:
+            f.write(key + "," + ",".join(repr(frame[tag][key]) for tag in tags) + "\n")
+    return path
+
+
+def deploy_phase(work_dir, collection, names, wide_names, cpu_app, card):
+    """The deploy pod's commands on [train]'s collection: see the
+    module's docstring. Returns the server process's K1 and K2 launches
+    (read on its drain's log line), ``score``'s K1 launches on the card
+    and its K1 calls by width."""
+    import numpy as np
+
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+    from gordo_tpu_torch.server.wire import table_from_parquet_bytes
+
+    t_phase = time.perf_counter()
+    every = names + wide_names
+    code, out, err = cli_run("wait-for-models", collection, *[a for n in every for a in ("--name", n)],
+                             "--timeout", "5", "--poll-interval", "1")
+    check(code == 0 and out.strip() == f"All {len(every)} models present in {collection}",
+          f"wait-for-models exited {code}: {out!r} {err!r}")
+    t0 = time.perf_counter()
+    code, out, err = cli_run("wait-for-models", collection, "--name", names[0], "--name", "machine-absent",
+                             "--timeout", "1", "--poll-interval", "1")
+    check(code == 1 and err.strip() == "Error: Timed out after 1s waiting for models: machine-absent",
+          f"wait-for-models of an absent model exited {code}: {err!r}")
+    phase("deploy", f"wait-for-models: the {len(every)} models present, exit 0; with machine-absent, exit 1 after "
+          f"{time.perf_counter() - t0:.2f} s naming it")
+
+    root = os.path.join(work_dir, "deploy-root")
+    revision = str(DEPLOY_REVISION)
+    code, out, _ = cli_run("ensure-single-workflow", root, revision)
+    check(code == 0 and out.strip() == f"Acquired deploy lock for revision {revision}", f"the lock: {code} {out!r}")
+    code, _, err = cli_run("ensure-single-workflow", root, str(DEPLOY_REVISION - 1), "--check-only")
+    check(code == 1 and "is stale and must not write" in err, f"--check-only of an older revision: {code} {err!r}")
+    guard = os.path.join(root, ".deploy.guard", "owner-1-crashed")
+    os.makedirs(guard)
+    os.utime(guard, (time.time() - 3600,) * 2)
+    code, out, _ = cli_run("ensure-single-workflow", root, str(DEPLOY_REVISION + 1))
+    with open(os.path.join(root, "deploy.lock")) as f:
+        held = json.load(f)["revision"]
+    check(code == 0 and held == str(DEPLOY_REVISION + 1) and not os.path.exists(os.path.dirname(guard)),
+          f"acquiring past a planted stale guard: {code}, lock {held}")
+    phase("deploy", f"ensure-single-workflow: revision {revision} acquired; {DEPLOY_REVISION - 1} --check-only "
+          f"stale, exit 1; a planted guard an hour old broken and {DEPLOY_REVISION + 1} acquired")
+
+    port = free_port()
+    log_path = os.path.join(work_dir, "deploy-server.log")
+    args = ["run-server", "--batching", "--host", "127.0.0.1", "--port", str(port), "--batch-max-size", "64",
+            "--batch-max-delay-ms", str(DEPLOY_DELAY_MS), "--batch-deadline-ms", "60000", "--no-serve-warmup",
+            "--drain-grace-s", str(DEPLOY_GRACE_S), "--log-level", "info"]
+    base = f"http://127.0.0.1:{port}"
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "gordo_tpu_torch", *args], cwd=HERE, stdout=log,
+                                stderr=subprocess.STDOUT, env={**os.environ, "MODEL_COLLECTION_DIR": collection})
+        try:
+            while True:
+                try:
+                    if http_call(f"{base}/healthcheck")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                      f"run-server did not come up: {open(log_path).read()[-2000:]}")
+                time.sleep(0.1)
+            healthy_s = time.perf_counter() - t0
+            phase("deploy", f"run-server --batching on the card answered /healthcheck 200 after {healthy_s:.2f} s "
+                  f"(a process of its own, {len(every)} models)")
+            served = deploy_client_rounds(base, port, collection, names, wide_names, cpu_app, card)
+            burst = deploy_drain(proc, base, names, cpu_app, log_path)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = open(log_path).read()
+    found = DRAIN_LINE.findall(text)
+    check(len(found) == 1, f"the server logged {len(found)} drain lines: {text[-2000:]}")
+    drain_s, left, server_k1, server_k2 = float(found[0][0]), int(found[0][1]), int(found[0][2]), int(found[0][3])
+    check("--workers, --worker-connections, --threads, --worker-class, --server-app, --with-prometheus-config are "
+          "ignored" in text, "run-server did not log the gunicorn options it ignores")
+    check(server_k1 >= 2 and server_k2 >= 1, f"the server launched K1 {server_k1} and K2 {server_k2} times")
+    phase("deploy", f"SIGTERM with {DEPLOY_BURST} /prediction requests in the engine (window {DEPLOY_DELAY_MS} ms): "
+          f"every one answered 200 in {min(burst['spent']):.3f}-{max(burst['spent']):.3f} s of its send (the drain, "
+          f"not the window), each equal to the CPU app's (max abs {burst['diff']:.3e}); /healthcheck answered 503 "
+          f"'draining' {burst['draining']} times; the drain took {drain_s} s ({left} request threads left), the "
+          f"process exited 0 {burst['exit_s']:.2f} s after the signal (limit {DEPLOY_EXIT_LIMIT_S} s); counted in "
+          f"the server's process (its drain's log line): K1 launches {server_k1}, K2 {server_k2}; {card}")
+
+    t0 = time.perf_counter()
+    outputs, launches, cases, worst = {}, 0, {}, (0.0, 0.0)
+    for name in DEPLOY_SCORE:
+        n_tags = WIDE_TAGS if name.startswith("compressor-") else 20
+        csv_path = score_csv(os.path.join(work_dir, f"score-{name}.csv"), name, n_tags)
+        for device in ("cuda", "cpu"):
+            out_path = os.path.join(work_dir, f"score-{name}-{device}.parquet")
+            with captured_estimator_k1() as calls:
+                fleet_feedforward.launches = 0
+                code, out, err = cli_run("score", os.path.join(collection, name), out_path, "--input", csv_path,
+                                         "--device", device)
+                made = fleet_feedforward.launches
+            check(code == 0 and out.strip() == f"Scored {ROWS} rows -> {out_path}",
+                  f"score {name} on {device}: {code} {out!r} {err!r}")
+            with open(out_path, "rb") as f:
+                outputs[device] = table_from_parquet_bytes(f.read())
+            if device == "cuda":
+                check(made == 1 and len(calls) == 1, f"score {name} on the card launched K1 {made} times")
+                launches += made
+                cases[n_tags] = calls[0]
+            else:
+                check(made == 0, f"score {name} on the CPU launched K1 {made} times")
+        card_t, cpu_t = outputs["cuda"], outputs["cpu"]
+        check([c.group for c in card_t.columns][:2] == ["start", "end"] and any(
+            c.group.startswith("total-anomaly-confidence") for c in card_t.columns), f"score {name}: columns")
+        same_tables(cpu_t, card_t, f"score {name}")
+        for a, b in zip(cpu_t.columns, card_t.columns):
+            a, b = np.asarray(a.values), np.asarray(b.values)
+            if a.dtype.kind == "f" and (~np.isnan(a)).any():
+                diff = np.abs(b.astype(np.float64) - a)[~np.isnan(a)]
+                rel = diff / np.maximum(np.abs(a[~np.isnan(a)]), 1e-6)
+                worst = (max(worst[0], float(diff.max())), max(worst[1], float(rel.max())))
+    phase("deploy", f"score --input CSV of {', '.join(DEPLOY_SCORE)} ({ROWS} rows each) on the card and with "
+          f"--device cpu: pipe-flattened parquet, {len(card_t.columns)} columns for the 40-tag one; card against "
+          f"CPU max abs {worst[0]:.3e}, max rel {worst[1]:.3e} (rtol {RTOL}, atol {ATOL}); K1 launches on the card "
+          f"{launches} (one a model, counted in this process) in {time.perf_counter() - t0:.2f} s; {card}")
+
+    revisions_root = os.path.join(work_dir, "deploy-revisions")
+    for r in (998, 999, 1000, 1001, 1002):
+        os.makedirs(os.path.join(revisions_root, str(r)))
+    code, out, _ = cli_run("cleanup-revisions", revisions_root, "999", "--keep", "2", "--dry-run")
+    check(code == 0 and sorted(os.listdir(revisions_root)) == ["1000", "1001", "1002", "998", "999"]
+          and out.strip().endswith("Revisions: 3 kept, 2 deleted (dry run)"), f"cleanup --dry-run: {code} {out!r}")
+    code, out, _ = cli_run("cleanup-revisions", revisions_root, "999", "--keep", "2")
+    check(code == 0 and sorted(os.listdir(revisions_root)) == ["1001", "1002", "999"], f"cleanup: {code} {out!r}")
+    phase("deploy", f"cleanup-revisions of 998-1002, current 999, --keep 2: the dry run deleted nothing, the run kept "
+          f"999, 1001 and 1002 ({out.strip()})")
+    phase("deploy", f"the phase took {time.perf_counter() - t_phase:.1f} s: the server up in {healthy_s:.2f} s, its "
+          f"drain {drain_s} s; client rounds {served['seconds']:.2f} s")
+    return {"server": {"K1": server_k1, "K2": server_k2}, "score": launches}, cases
+
+
+def deploy_client_rounds(base, port, collection, names, wide_names, cpu_app, card):
+    """The port's ``Client`` against the server at ``port``: ``predict``
+    (parquet) of DEPLOY_PREDICT, ``fleet_anomaly_scores`` over the 64,
+    ``metadata`` and ``download-model``, every answer held to the CPU app's
+    (the same client over ``WSGITransport``) for the same rows."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.client import Client, WSGITransport
+
+    t_rounds = time.perf_counter()
+    client = Client("smoke", host="127.0.0.1", port=port, scheme="http", use_parquet=True, device="cuda")
+    reference = Client("smoke", transport=WSGITransport(cpu_app), use_parquet=True, device="cpu")
+    end = TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)
+    start = (end - timedelta(minutes=10 * DEPLOY_ROWS)).isoformat()
+    t0 = time.perf_counter()
+    got = client.predict(start, end.isoformat(), targets=list(DEPLOY_PREDICT))
+    predict_s = time.perf_counter() - t0
+    want = reference.predict(start, end.isoformat(), targets=list(DEPLOY_PREDICT))
+    check([r.name for r in got] == [r.name for r in want] and sorted(r.name for r in got) == sorted(DEPLOY_PREDICT),
+          "predict answered other machines")
+    diff = 0.0
+    for result, expected in zip(got, want):
+        check(not result.error_messages and len(result.predictions.index) == DEPLOY_ROWS,
+              f"predict {result.name}: {result.error_messages}")
+        diff = max(diff, same_tables(expected.predictions, result.predictions, f"predict {result.name}"))
+    phase("deploy", f"client predict (parquet) of {', '.join(DEPLOY_PREDICT)}, {DEPLOY_ROWS} rows of their own data "
+          f"each: {predict_s:.2f} s, every frame equal to the CPU app's (max abs {diff:.3e})")
+
+    fetched = {}
+    fetch = client._data_for_window
+
+    def recorded(machine, start_, end_):
+        fetched[machine.name] = fetch(machine, start_, end_)
+        return fetched[machine.name]
+
+    client._data_for_window = recorded
+    reference._data_for_window = lambda machine, start_, end_: fetched[machine.name]
+    fleet_start = (end - timedelta(minutes=10 * DEPLOY_FLEET_ROWS)).isoformat()
+    t0 = time.perf_counter()
+    got = client.fleet_anomaly_scores(fleet_start, end.isoformat(), targets=names)
+    fleet_s = time.perf_counter() - t0
+    want = reference.fleet_anomaly_scores(fleet_start, end.isoformat(), targets=names)
+    check(sorted(got) == sorted(want) == sorted(names), "fleet_anomaly_scores answered other machines")
+    diff = 0.0
+    for name, result in got.items():
+        check(not result.error_messages and len(result.predictions.index) == DEPLOY_FLEET_ROWS,
+              f"fleet {name}: {result.error_messages}")
+        diff = max(diff, same_tables(want[name].predictions, result.predictions, f"fleet {name}"))
+    phase("deploy", f"client fleet_anomaly_scores (lean) over the {len(names)} 20-tag machines, {DEPLOY_FLEET_ROWS} "
+          f"rows each: {fleet_s:.2f} s with the data fetch, every entry equal to the CPU app's (max abs {diff:.3e})")
+
+    targets = [names[0], wide_names[0]]
+    check(client.get_metadata(targets) == reference.get_metadata(targets), "metadata differs from the CPU app's")
+    downloaded = client.download_model([names[1]])[names[1]]
+    on_disk = serializer.load(os.path.join(collection, names[1]), "cpu")
+    got_params = downloaded.base_estimator.estimator.params_
+    want_params = on_disk.base_estimator.estimator.params_
+    check(all(got_params[k][n].device.type == "cuda" for k in got_params for n in got_params[k]),
+          "the downloaded model is not on the card")
+    check(all(np.array_equal(got_params[k][n].cpu().numpy(), want_params[k][n].numpy())
+              for k in want_params for n in want_params[k]), "the downloaded model's params differ from the file's")
+    phase("deploy", f"client metadata of {', '.join(targets)} equal to the CPU app's; download-model of {names[1]} "
+          f"loaded on the card, its params equal to its model.pkl's")
+    return {"seconds": time.perf_counter() - t_rounds}
+
+
+def deploy_drain(proc, base, names, cpu_app, log_path):
+    """DEPLOY_BURST concurrent ``/prediction`` requests, each machine's own
+    next rows, queued in the server's engine; SIGTERM; ``/healthcheck``
+    polled while the server drains; the answers held to the CPU app's."""
+    candidates = [n for n in names if n != ENGINE_POISON][8:8 + DEPLOY_BURST]
+    requests = [(f"/{n}/prediction", {"X": own_frame(n, 20)}) for n in candidates]
+    answers, spent = [None] * len(requests), [None] * len(requests)
+
+    def hit(i):
+        t0 = time.perf_counter()
+        answers[i] = post(f"{base}/gordo/v0/smoke{requests[i][0]}", requests[i][1])
+        spent[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(requests))]
+    for thread in threads:
+        thread.start()
+    time.sleep(DEPLOY_SIGNAL_AFTER_S)
+    t_signal = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    draining = 0
+    while proc.poll() is None:
+        try:
+            status, body = http_request(f"{base}/healthcheck", "GET")[:2]
+        except OSError:
+            break
+        draining += status == 503 and body == b"draining"
+        time.sleep(0.02)
+    for thread in threads:
+        thread.join(timeout=DEPLOY_EXIT_LIMIT_S)
+    code = proc.wait(timeout=DEPLOY_EXIT_LIMIT_S)
+    exit_s = time.perf_counter() - t_signal
+    check(code == 0, f"run-server exited {code} after SIGTERM: {open(log_path).read()[-2000:]}")
+    check(exit_s <= DEPLOY_EXIT_LIMIT_S, f"run-server took {exit_s:.1f} s to exit")
+    check(draining >= 1, "/healthcheck never answered 503 while the server drained")
+    check(all(answer is not None and answer[0] == 200 for answer in answers), f"burst answers {answers}")
+    check(max(spent) < DEPLOY_DELAY_MS / 1e3, f"the burst waited {max(spent):.2f} s: the window, not the drain")
+    diff = 0.0
+    for (path, payload), (_, body, _) in zip(requests, answers):
+        cpu_status, cpu_body = wsgi_post(cpu_app, "/gordo/v0/smoke" + path, payload)
+        check(cpu_status == 200, f"the CPU app answered {cpu_status} on {path}")
+        diff = max(diff, same_json(cpu_body["data"], body["data"]))
+    return {"spent": spent, "draining": draining, "exit_s": exit_s, "diff": diff}
+
+
 def own_rows_frame(name, rows, shift=0.0):
     """ROWS of an [ingress] machine's readings past its training rows, as a
     JSON frame (the seeded machines' own continuation; file-tags-000's
@@ -6382,6 +6763,15 @@ def main():
             errors[name] = compare(mesh_cases[width][0])
             phase("kernel", f"{name}, rank 0's own block of fold params and test rows: max abs {errors[name][0]:.3e}, "
                   f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
+        with clocked("deploy"):
+            deploy_launches, deploy_cases = deploy_phase(work_dir, collection, names, wide_names, cpu_app, card)
+        for width, name in DEPLOY_SCORE_CASES.items():
+            case = deploy_cases[width][0]
+            check(tuple(case["X"].shape) == (1, ROWS, width), f"score's {width}-tag K1 call had shape "
+                  f"{tuple(case['X'].shape)}")
+            errors[name] = compare(case)
+            phase("kernel", f"{name}, the scored model's own params and its scaled rows: max abs "
+                  f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         for name, (case, _) in ingress_cases.items():
             errors[name] = compare(case)
             phase("kernel", f"{name} {tuple(case['X'].shape)}, [ingress]'s own params and rows: max abs "
@@ -6570,6 +6960,14 @@ def main():
               f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
               f"{floor!r} ms; {card}")
 
+    for width, name in DEPLOY_SCORE_CASES.items():
+        timed[name] = times(deploy_cases[width][0])
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+              f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} "
+              f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
+              f"{floor!r} ms; {card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -6625,7 +7023,8 @@ def main():
                   "telemetry": telemetry_launches["K1"], "observability": observability_launches["K1"],
                   "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"],
                   "packing": packing_launches["K1"], "arrow": arrow_launches["K1"], "ingress": ingress_launches["K1"],
-                  "mesh": mesh_launches["K1"]}
+                  "mesh": mesh_launches["K1"],
+                  "deploy": deploy_launches["server"]["K1"] + deploy_launches["score"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
@@ -6633,7 +7032,7 @@ def main():
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
                   "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"],
                   "packing": packing_launches["K2"], "arrow": arrow_launches["K2"], "ingress": ingress_launches["K2"],
-                  "mesh": 0}
+                  "mesh": 0, "deploy": deploy_launches["server"]["K2"]}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -6728,6 +7127,11 @@ def main():
               mesh_cases[20][1], k1_by_path, MESH_CV[20], timed[MESH_CV[20]]),
         entry("fleet_dense (K1), wide kernel, mesh rank CV fold scoring", "gordo_tpu/ops/pallas_dense.py:114",
               mesh_cases[WIDE_TAGS][1], k1_by_path, MESH_CV[WIDE_TAGS], timed[MESH_CV[WIDE_TAGS]]),
+        # launches: [deploy]'s score of a model of that width on the card, read on the counter where it launches
+        entry("fleet_dense (K1), narrow kernel, score", "gordo_tpu/ops/pallas_dense.py:114", deploy_cases[20][1],
+              k1_by_path, DEPLOY_SCORE_CASES[20], timed[DEPLOY_SCORE_CASES[20]]),
+        entry("fleet_dense (K1), wide kernel, score", "gordo_tpu/ops/pallas_dense.py:114", deploy_cases[WIDE_TAGS][1],
+              k1_by_path, DEPLOY_SCORE_CASES[WIDE_TAGS], timed[DEPLOY_SCORE_CASES[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

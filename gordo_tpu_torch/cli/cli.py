@@ -12,8 +12,10 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   as ``<metric>_<fold>=<value>``. The exit codes and the failure report
   are ``build-fleet``'s. ``--model-parameter`` is refused: it renders the
   model config as a Jinja template, and the port has no Jinja
-  (``ROADMAP.md`` queue 1, item 13). Unlike the JAX command, the port
-  records the model definition as given, without every default filled in.
+  (``ROADMAP.md`` queue 1, item 13). Like the JAX command, it records the
+  model definition expanded, every default filled in
+  (``serializer.into_definition``), so its cache key is the JAX
+  command's.
 - ``build-fleet MACHINES_CONFIG OUTPUT_DIR [--device cuda|cpu]``: the JAX
   package's ``build-fleet`` (``gordo_tpu/cli/cli.py:558-725``). It builds
   every machine of a shard (a path to, or the text of, a ``machines:``
@@ -117,6 +119,11 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator.py::normalize``), printed or written to
   ``--output``.
+- the deploy pod's commands (``cli/deploy.py``): ``run-server`` (the
+  one-process server, drained by SIGTERM), ``wait-for-models``, ``score``,
+  ``ensure-single-workflow`` and ``cleanup-revisions``; and the
+  ``client`` group (``client/cli.py``): ``metadata``, ``download-model``
+  and ``predict``.
 """
 
 import argparse
@@ -127,11 +134,13 @@ import sys
 import traceback
 from typing import List, Optional, Tuple
 
+from ..client.cli import add_client_parser, client_main
 from ..dataset.exceptions import ConfigException, InsufficientDataError, NoSuitableDataProviderError
 from ..dataset.sensor_tag import SensorTagNormalizationError
 from ..machine import Machine
 from ..utils import yaml_lite
 from ..utils.env import env_bool, env_int, env_str
+from . import deploy
 from .exceptions_reporter import ExceptionsReporter, ReportLevel
 
 logger = logging.getLogger(__name__)
@@ -150,6 +159,9 @@ EXIT_CODES = (
     (ConfigException, 100),
 )
 _reporter = ExceptionsReporter(EXIT_CODES)
+
+#: the deploy pod's commands (``cli/deploy.py``)
+DEPLOY_COMMANDS = ("run-server", "wait-for-models", "score", "ensure-single-workflow", "cleanup-revisions")
 
 #: the JAX commands' options that the port refuses, and why
 _REFUSED = {
@@ -203,12 +215,15 @@ def build(
     """The ``build`` command: build one machine (``machine_config``, its
     JSON or YAML text) into ``output_dir``; the exit code."""
     from ..builder import create_model_builder
+    from ..serializer import from_definition, into_definition
 
     try:
         config = yaml_lite.safe_load(machine_config)
         if not isinstance(config, dict):
             raise ValueError(f"MACHINE must be a mapping, got {type(config).__name__}")
         machine = Machine.from_config(config, project_name=config["project_name"])
+        # every default frozen into the recorded definition, as the JAX command records it
+        machine.model = into_definition(from_definition(machine.model, device="cpu"))
         logger.info("Building, output will be at: %s", output_dir)
         logger.info("Register dir: %s", model_register_dir)
         builder = create_model_builder(model_builder_class)(machine, device=device)
@@ -928,6 +943,8 @@ def _parser() -> argparse.ArgumentParser:
     normalize.add_argument("config", help="the project's YAML config (a CRD document or its spec.config)")
     normalize.add_argument("project_name")
     normalize.add_argument("--output", default=None, help="write the shard here instead of printing it")
+    deploy.add_parsers(commands)
+    add_client_parser(commands)
     return parser
 
 
@@ -948,6 +965,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if args.command == "lifecycle":
         return _lifecycle_command(parser, args)
+    if args.command in DEPLOY_COMMANDS:
+        return deploy.main(parser, args)
+    if args.command == "client":
+        return client_main(parser, args)
     if args.command == "bench-check":
         for option, path in (("CANDIDATE", args.candidate), ("--baseline", args.baseline)):
             if path is not None and not os.path.isfile(path):

@@ -336,18 +336,27 @@ class InfluxDataProvider(GordoBaseDataProvider):
         quotes, so a value cannot close the literal."""
         return identifier.replace("\\", "\\\\").replace("'", "\\'")
 
+    @staticmethod
+    def _identifier(name: str) -> str:
+        """A double-quoted InfluxQL identifier: backslashes first, then
+        double quotes escaped, so a name cannot close its quotes. An
+        ordinary name is quoted as the JAX provider quotes it."""
+        return '"' + str(name).replace("\\", "\\\\").replace('"', '\\"') + '"'
+
     def query_text(self, tag: SensorTag, start_ns: int, end_ns: int) -> str:
         """The InfluxQL the JAX provider writes for ``tag`` over
-        ``[start_ns, end_ns)``."""
+        ``[start_ns, end_ns)``, every identifier escaped (the JAX provider
+        quotes its identifiers unescaped, ``ROADMAP.md`` fault 5)."""
         conditions = [f"time >= {start_ns} AND time < {end_ns}"]
         if self.fields_are_tags:
             field = tag.name
         else:
             field = self.value_name
-            conditions.append(f"\"{self.tag_key}\" = '{self._escape(tag.name)}'")
+            conditions.append(f"{self._identifier(self.tag_key)} = '{self._escape(tag.name)}'")
         for key, value in self.where_tags.items():
-            conditions.append(f"\"{key}\" = '{self._escape(str(value))}'")
-        return f'SELECT "{field}" FROM "{self.measurement}" WHERE {" AND ".join(conditions)}'
+            conditions.append(f"{self._identifier(key)} = '{self._escape(str(value))}'")
+        return (f"SELECT {self._identifier(field)} FROM {self._identifier(self.measurement)} "
+                f"WHERE {' AND '.join(conditions)}")
 
     def _query_series(self, tag: SensorTag, train_start_date, train_end_date) -> Series:
         client = self._require_client()

@@ -21,6 +21,8 @@ output (``diff.py:294-305``; the fleet builder aligns its CV test rows the
 same way, ``:189-190``); the detectors' smoothing (:func:`smooth`, pandas'
 rolling median, rolling mean and ``ewm`` in numpy) lives here and serves
 both ``?all_columns`` and the KFCV thresholds.
+:meth:`DiffBasedAnomalyDetector.anomaly` gives the same table for a
+frame, what the ``score`` command writes.
 
 ``DiffBasedKFCVAnomalyDetector`` is the KFold variant
 (``diff.py:365-462``): cross-validated with ``KFold(5, shuffle=True,
@@ -255,6 +257,22 @@ class DiffBasedAnomalyDetector:
 
     def predict(self, X) -> np.ndarray:
         return self.base_estimator.predict(X)
+
+    def anomaly(self, X, y, frequency: Optional[Any] = None) -> Any:
+        """The anomaly frame of ``X`` against ``y`` (``diff.py:254-364``):
+        the base estimator's prediction (on a card, one K1 launch for a
+        feedforward autoencoder) assembled by
+        ``server/wire/assemble.py::anomaly_table`` into the ``WireTable``
+        the anomaly route answers with ``?all_columns``, the ``smooth-*``
+        groups included when the detector smooths, as the JAX frame
+        includes them. ``X`` and ``y`` are request frames
+        (``json_codec.Frame``: ``index``, ``columns``, ``values``);
+        ``frequency`` (a ``timedelta``) fills the ``end`` column."""
+        from ...server.wire.assemble import anomaly_table
+
+        if not hasattr(X, "values"):
+            raise ValueError("Unable to find X.values property")
+        return anomaly_table(self, X, y, self.predict(np.asarray(X.values)), frequency, keep_smooth=True)
 
     def score(self, X, y) -> float:
         """Explained variance of the prediction against ``y``'s last rows,

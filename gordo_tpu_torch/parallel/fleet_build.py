@@ -129,8 +129,10 @@ are advisory: a failure is logged and dropped.
 and resumable in their own directory, replaying the base revision's
 ``fleet_plan.json`` (``FleetBuilder(fleet_plan=)``), so a stale member
 keeps its planned pad targets under either strategy; members the plan
-does not cover, or whose rows outgrew it, pack live. Not ported: the
-multi-host mirrors (``ROADMAP.md`` item 12).
+does not cover, or whose rows outgrew it, pack live. The multi-host
+mirrors, where a rank other than 0 reads rank 0's resume and
+model-register filters without writing, are the command line's
+(``cli/cli.py::_mirror_filters``).
 """
 
 import concurrent.futures

@@ -1,7 +1,9 @@
 """Artifact dump/load with the JAX package's directory layout, and the
-model-definition reader (``from_definition``)."""
+model-definition reader and writer (``from_definition``,
+``into_definition``)."""
 
 from .from_definition import from_definition
+from .into_definition import into_definition
 from .serializer import (
     BUILD_JOURNAL_EVENTS_FILE,
     BUILD_JOURNAL_FILE,
@@ -30,6 +32,7 @@ __all__ = [
     "dump_atomic",
     "dumps",
     "from_definition",
+    "into_definition",
     "is_builder_dropping",
     "is_staging_dir",
     "list_model_dirs",

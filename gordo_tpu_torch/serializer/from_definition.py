@@ -36,6 +36,12 @@ Anything else raises ``NotImplementedError`` naming the path.
 - ``gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector``: the
   same arguments (``shuffle`` defaulting to True, ``window`` to 144,
   ``smoothing_method`` to ``smm``) and ``threshold_percentile`` (0.99);
+- an expanded definition (``into_definition``, what ``build`` records):
+  the scalers under their classes' own modules
+  (``sklearn.preprocessing._data.MinMaxScaler``,
+  ``..._function_transformer.FunctionTransformer``), and sklearn's other
+  arguments (a pipeline's ``transform_input``, a FunctionTransformer's
+  ``validate``, ``inverse_func`` ...) at their defaults;
 - ``sklearn.model_selection.TimeSeriesSplit`` (``n_splits``) and
   ``sklearn.model_selection.KFold`` (``n_splits``, ``shuffle``,
   ``random_state``), for an evaluation's ``cv``.
@@ -112,6 +118,18 @@ COMPAT_LOCATIONS: Dict[str, str] = {
        for keras in ("tensorflow.keras", "keras") for cls in (EarlyStopping, ReduceLROnPlateau, TerminateOnNaN)},
     **{f"{keras}.models.Sequential": SEQUENTIAL[0] for keras in ("tensorflow.keras", "keras")},
     **{f"{keras}.layers.Dense": DENSE[0] for keras in ("tensorflow.keras", "keras")},
+    # the classes' own modules, as an expanded definition (``into_definition``) names them
+    **{f"sklearn.preprocessing._data.{name}": f"sklearn.preprocessing.{name}"
+       for name in ("MinMaxScaler", "StandardScaler", "MaxAbsScaler", "RobustScaler")},
+    "sklearn.preprocessing._function_transformer.FunctionTransformer": "sklearn.preprocessing.FunctionTransformer",
+}
+
+#: arguments an expanded definition gives at sklearn's defaults, which the port reads only at them
+SKLEARN_DEFAULTS = {
+    PIPELINE: {"transform_input": None},
+    "sklearn.preprocessing.FunctionTransformer": {
+        "accept_sparse": False, "check_inverse": True, "feature_names_out": None, "inv_kw_args": None,
+        "inverse_func": None, "validate": False},
 }
 
 
@@ -127,6 +145,9 @@ def _path_and_kwargs(definition: Any) -> Tuple[str, Dict[str, Any]]:
 
 
 def _no_more(path: str, kwargs: Dict[str, Any]) -> None:
+    for key, default in SKLEARN_DEFAULTS.get(path, {}).items():
+        if key in kwargs and kwargs[key] == default:
+            del kwargs[key]
     if kwargs:
         raise NotImplementedError(f"{path}: arguments {sorted(kwargs)} are not ported")
 
@@ -210,4 +231,6 @@ def _callback(definition: Any) -> Any:
     path, kwargs = _path_and_kwargs(definition)
     if path not in CALLBACKS:
         raise NotImplementedError(f"callback {path} is not supported by gordo_tpu_torch")
-    return CALLBACKS[path](**kwargs)
+    callback = CALLBACKS[path](**kwargs)
+    callback.definition = definition  # what ``into_definition`` gives back, as the JAX estimator keeps it
+    return callback

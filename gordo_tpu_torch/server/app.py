@@ -74,6 +74,12 @@ an error there). With ``GORDO_TPU_TELEMETRY=0`` nothing is
 written and ``Server-Timing`` stays. The server does not fork workers, so
 the JAX package's post-fork resets have no counterpart.
 
+A drain (:func:`drain_and_stop`; SIGTERM or SIGINT under
+:func:`run_server`) flips ``/healthcheck`` to 503, ends every stream with
+its ``drain`` frame, scores everything the engine holds, stops the
+accept loop and waits, within a bound, for the answers still being
+written, as the JAX server drains (``gordo_tpu/server/app.py:699-760``).
+
 With ``ENABLE_PROMETHEUS`` (any value but ``false``) ``build_app`` gives
 the app the request RED metrics and stage histograms of
 ``prometheus/metrics.py`` (``PROJECT`` the project label), observed in
@@ -384,7 +390,19 @@ class GordoServerApp:
         self.plane: Optional[StreamPlane] = None
         self._plane_lock = threading.Lock()
         self.prometheus_metrics: Any = None
+        #: set by :meth:`begin_drain`: ``/healthcheck`` answers 503 from then on
+        self._draining = threading.Event()
         _live_apps.add(self)
+
+    def begin_drain(self) -> None:
+        """Answer ``/healthcheck`` with 503 from now on, so that load
+        balancers stop sending; every request already accepted, and any
+        that still arrives, is answered."""
+        self._draining.set()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
 
     def health_ledger(self) -> Any:
         """The serving health ledger of the served directory: one for the
@@ -661,9 +679,37 @@ def build_app(
 
 
 class ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
-    """``wsgiref``'s server with a thread per request."""
+    """``wsgiref``'s server with a thread per request. The request
+    threads are daemons, so that a stuck connection cannot hold the
+    process; the server keeps the live ones, and :meth:`join_requests`
+    waits for them, within a bound, before the process goes."""
 
     daemon_threads = True
+    #: ``server_close`` does not join the request threads without a bound
+    block_on_close = False
+
+    def __init__(self, *args, **kwargs):
+        self._live: set = set()
+        self._live_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address):
+        thread = threading.Thread(target=self.process_request_thread, args=(request, client_address),
+                                  name="gordo-request", daemon=True)
+        with self._live_lock:
+            self._live = {t for t in self._live if t.is_alive()}
+            self._live.add(thread)
+        thread.start()
+
+    def join_requests(self, timeout: float) -> int:
+        """Wait at most ``timeout`` seconds for the request threads still
+        writing their answers; the number still alive after it."""
+        deadline = time.monotonic() + timeout
+        with self._live_lock:
+            live = list(self._live)
+        for thread in live:
+            thread.join(max(0.0, deadline - time.monotonic()))
+        return sum(thread.is_alive() for thread in live)
 
 
 class _QuietHandler(WSGIRequestHandler):
@@ -676,18 +722,86 @@ def make_wsgi_server(app: Callable[..., Iterable[bytes]], host: str = "0.0.0.0",
     return make_server(host, port, app, server_class=ThreadingWSGIServer, handler_class=_QuietHandler)
 
 
+#: seconds a drain waits for the request threads still answering after the accept loop stopped
+REQUEST_JOIN_TIMEOUT_S = 30.0
+
+
+def drain_and_stop(app: GordoServerApp, server: Any = None, grace_s: float = 0.0,
+                   join_timeout_s: float = REQUEST_JOIN_TIMEOUT_S) -> None:
+    """Graceful shutdown, in the JAX server's order
+    (``gordo_tpu/server/app.py:699-738``): the app starts draining
+    (``/healthcheck`` answers 503); the stream plane sends every
+    subscriber its ``drain`` frame; the engine scores every queued and
+    in-flight batch (:meth:`GordoServerApp.shutdown`, which also writes
+    the serving trace's queue), and what arrives after it scores
+    unbatched; then the accept loop of ``server`` stops. The port then
+    waits, at most ``join_timeout_s``, for the request threads still
+    writing their answers (the server's threads are daemons, which the
+    process's exit would kill mid-answer), and only then closes the
+    serving trace's writer, so their spans reach the file too. With
+    ``grace_s`` the accept loop keeps answering that long after the
+    engine drained (a port option, 0 as in JAX): load balancers see the
+    503 before the socket closes. The log's last line counts the K1 and
+    K2 launches this process made."""
+    from ..ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+
+    started = time.monotonic()
+    app.begin_drain()
+    app.shutdown()
+    if grace_s > 0:
+        time.sleep(grace_s)
+    left = 0
+    if server is not None:
+        server.shutdown()
+        if hasattr(server, "join_requests"):
+            left = server.join_requests(join_timeout_s)
+    serve_trace.reset_serve_recorder()
+    logger.info("drained in %.3f s (%d request thread(s) still answering); kernel launches: K1 %d, K2 %d",
+                time.monotonic() - started, left, fleet_feedforward.launches, fleet_anomaly_scores.launches)
+
+
+def install_graceful_shutdown(app: GordoServerApp, server: Any = None, grace_s: float = 0.0) -> Optional[Callable]:
+    """SIGTERM and SIGINT start :func:`drain_and_stop` on a thread (a
+    signal handler must return at once); the handler, or None off the
+    main thread, where no handler can be installed (an embedded server
+    manages its own life)."""
+    import signal
+
+    started = threading.Event()
+
+    def handler(_signum, _frame):
+        if started.is_set():  # a second signal while draining: the drain already runs
+            return
+        started.set()
+        handler.thread = threading.Thread(target=drain_and_stop, args=(app, server, grace_s), name="gordo-drain",
+                                          daemon=True)
+        handler.thread.start()
+
+    handler.thread = None
+    try:
+        signal.signal(signal.SIGTERM, handler)
+        signal.signal(signal.SIGINT, handler)
+    except ValueError:  # not the main thread
+        return None
+    return handler
+
+
 def run_server(
     host: str = "0.0.0.0",
     port: int = 5555,
     collection_dir: Optional[str] = None,
     device: DeviceLike = None,
     metrics_port: int = 9090,
+    drain_grace_s: float = 0.0,
 ) -> None:
     """Serve ``collection_dir`` (default: ``MODEL_COLLECTION_DIR``) until
-    interrupted, with every model loaded up front. With
-    ``ENABLE_PROMETHEUS`` the process also answers scrapes on
-    ``metrics_port`` (0 picks a free one) from a second server thread. On
-    the way out the app drains (:meth:`GordoServerApp.shutdown`)."""
+    SIGTERM or SIGINT, with every model loaded up front: the JAX
+    command's one-process server (``gordo_tpu/server/app.py:848-895``),
+    threaded. A signal drains it (:func:`install_graceful_shutdown`,
+    ``drain_grace_s`` the drain's grace) and it returns when the drain
+    is done. With ``ENABLE_PROMETHEUS`` the process also answers scrapes
+    on ``metrics_port`` (0 picks a free one) from a second server
+    thread."""
     from .prometheus.server import build_metrics_app
 
     app = build_app(collection_dir, device)
@@ -700,11 +814,16 @@ def run_server(
         metrics_thread.start()
         logger.info("Prometheus metrics on http://%s:%d/metrics", host, metrics_server.server_port)
     with make_wsgi_server(app, host, port) as server:
+        handler = install_graceful_shutdown(app, server, drain_grace_s)
         logger.info("listening on http://%s:%d", host, server.server_port)
         try:
             server.serve_forever()
         finally:
-            app.shutdown()
+            drain = None if handler is None else handler.thread
+            if drain is not None:
+                drain.join()
+            else:  # the loop ended without a signal's drain: drain here
+                drain_and_stop(app, server)
             if metrics_server is not None:
                 metrics_server.shutdown()
                 metrics_server.server_close()

@@ -66,6 +66,9 @@ logger = logging.getLogger(__name__)
 
 
 def get_healthcheck(ctx) -> Response:
+    """200, or 503 with the body ``draining`` once the app drains."""
+    if ctx.app.draining:
+        return Response(b"draining", 503, "text/plain")
     return Response(b"", 200, "text/plain")
 
 

@@ -12,8 +12,9 @@ of ``utils/parquet.py``, the counterparts of the JAX server's
   JAX server keeps the frame's.
 - :func:`dataframe_into_parquet_bytes`: a response table as the frame
   the JAX server writes (``WireTable.to_frame()``: two-level
-  ``(group, sub)`` columns over the request's index and unit), or a
-  request frame with flat columns; SNAPPY pages.
+  ``(group, sub)`` columns over the request's index and unit), a flat
+  one (``flat``: the client's sinks and ``score``), or a request frame
+  with flat columns; SNAPPY pages.
 - :func:`table_from_parquet_bytes`: a response read back as a
   ``WireTable`` (the client's decoder, and the checks').
 
@@ -78,11 +79,12 @@ def dataframe_from_parquet_bytes(buf) -> Frame:
     return parquet_columns(buf)[0]
 
 
-def dataframe_into_parquet_bytes(frame: Union[WireTable, Frame]) -> bytes:
-    """A response table (two-level columns) or a request frame (flat
-    columns) as parquet bytes."""
+def dataframe_into_parquet_bytes(frame: Union[WireTable, Frame], flat: bool = False) -> bytes:
+    """A response table (two-level columns; with ``flat``, one level of
+    the columns' groups) or a request frame (flat columns) as parquet
+    bytes."""
     if isinstance(frame, WireTable):
-        labels: List[Any] = [(c.group, c.sub) for c in frame.columns]
+        labels: List[Any] = [c.group if flat else (c.group, c.sub) for c in frame.columns]
         columns = [c.values for c in frame.columns]
     else:
         labels = list(frame.columns)

@@ -60,7 +60,7 @@ def lstm_machines(every=False):
     from gordo_tpu_torch.machine import Machine
 
     machines, models = chip_smoke.lstm_machines()
-    index = [chip_smoke.TRAIN_START + timedelta(minutes=10 * r) for r in range(chip_smoke.TRAIN_ROWS)]
+    index = [chip_smoke.TRAIN_START + timedelta(minutes=10 * r) for r in range(chip_smoke.LSTM_ROWS)]
     return [
         Machine.from_config({"name": name, "model": models[name], "dataset": {"tag_list": tags, "resolution": "10min"}},
                             "smoke-lstm", data=(values, None), index=index)

@@ -74,7 +74,9 @@ def test_package_has_modules():
         "lifecycle/__init__.py", "lifecycle/state.py", "lifecycle/revision.py", "lifecycle/drift.py",
         "lifecycle/gates.py", "lifecycle/loop.py", "planner/ladder.py", "planner/report.py", "models/packing.py",
         "dataset/query.py", "dataset/influx.py", "utils/snappy.py", "utils/thrift_compact.py", "utils/parquet.py",
-        "server/multipart.py", "server/wire/parquet_codec.py",
+        "server/multipart.py", "server/wire/parquet_codec.py", "client/__init__.py", "client/client.py",
+        "client/io.py", "client/utils.py", "client/forwarders.py", "client/cli.py", "cli/deploy.py",
+        "serializer/into_definition.py",
     ):
         assert expected in names
     assert (REPO / "gordo_tpu_torch" / "telemetry" / "slos.toml").read_text() == (

@@ -161,7 +161,9 @@ def test_port_reads_what_jax_reads(influx, layout):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_influxql_byte_for_byte(influx, layout):
     """Both providers' query text for the same tags and window, escaping
-    included (``'`` and ``\\`` in a tag name and a ``where_tags`` value)."""
+    included (``'`` and ``\\`` in a tag name and a ``where_tags`` value);
+    where a tag name is the field's identifier, the port escapes its
+    backslash (fault 5)."""
     fake, server = influx
     config = dict(LAYOUTS[layout])
     if "where_tags" in config:
@@ -174,6 +176,9 @@ def test_influxql_byte_for_byte(influx, layout):
         with pytest.raises(ValueError, match="No data"):
             list(jax.load_series(pd.Timestamp(start), pd.Timestamp(end), [JaxSensorTag(tag)]))
         expected = fake.queries[-1]
+        if config.get("fields_are_tags") and "\\" in tag:
+            # fault 5, fixed on the port's side: the field's identifier escapes its backslash
+            expected = expected.replace(f'"{tag}"', '"' + tag.replace("\\", "\\\\") + '"', 1)
         with pytest.raises(ValueError, match="No data"):
             list(port.load_series(start, end, [SensorTag(tag)]))
         assert fake.queries[-1] == expected
@@ -267,3 +272,68 @@ def test_influx_callbacks_example_builds_on_the_port(influx, tmp_path):
     assert metadata["metadata"]["build_metadata"]["dataset"]["dataset_meta"]["row_count"] == 576
     assert len(server.queries) >= 3 and all('FROM "sensors"' in q for q in server.queries)
     assert base64.b64decode(server.headers[-1]["Authorization"].split()[1]).decode() == "gordo:secret"
+
+
+def _influxql_tokens(query):
+    """The query's tokens: ``("ident", name)`` for a double-quoted
+    identifier and ``("str", text)`` for a single-quoted literal, each
+    with InfluxQL's backslash escapes undone, and ``("word", w)`` for the
+    rest split on spaces."""
+    tokens, i = [], 0
+    while i < len(query):
+        ch = query[i]
+        if ch in "\"'":
+            text, i = [], i + 1
+            while query[i] != ch:
+                if query[i] == "\\":
+                    i += 1
+                text.append(query[i])
+                i += 1
+            tokens.append(("ident" if ch == '"' else "str", "".join(text)))
+            i += 1
+        elif ch == " ":
+            i += 1
+        else:
+            end = query.find(" ", i)
+            end = len(query) if end < 0 else end
+            tokens.append(("word", query[i:end]))
+            i = end
+    return tokens
+
+
+@pytest.mark.parametrize("config,tag", [
+    ({"measurement": "m", "tag_key": "tag\" = 'x' OR \"tag"}, "T1"),
+    ({"measurement": "m\" OR \"x", "fields_are_tags": True}, "ab\"c"),
+    ({"measurement": "m\\", "where_tags": {"k\\\" OR \"j": "v"}}, "T\\1"),
+], ids=["tag-key", "measurement-and-field", "backslashes"])
+def test_hostile_identifiers_stay_one_identifier(config, tag):
+    """``ROADMAP.md`` fault 5, fixed on the port's side: a name holding
+    ``"`` or ``\\`` is escaped inside its quotes, so it reads back as one
+    identifier, and no ``OR`` escapes the time window."""
+    port = InfluxDataProvider(client=RecordingClient(), **config)
+    tokens = _influxql_tokens(port.query_text(SensorTag(tag), 0, 10))
+    field = tag if config.get("fields_are_tags") else "Value"
+    expected = [("word", "SELECT"), ("ident", field), ("word", "FROM"), ("ident", config["measurement"]),
+                ("word", "WHERE"), ("word", "time"), ("word", ">="), ("word", "0"), ("word", "AND"),
+                ("word", "time"), ("word", "<"), ("word", "10")]
+    if not config.get("fields_are_tags"):
+        expected += [("word", "AND"), ("ident", config.get("tag_key", "tag")), ("word", "="), ("str", tag)]
+    for key, value in config.get("where_tags", {}).items():
+        expected += [("word", "AND"), ("ident", key), ("word", "="), ("str", value)]
+    assert tokens == expected
+
+
+def test_ordinary_names_stay_the_jax_query():
+    """The JAX provider's query of ordinary names, pinned: the escaping
+    changes no byte of it."""
+    fake = RecordingClient()
+    config = {"measurement": "sensors", "where_tags": {"site": "north"}}
+    start, end = parse_datetime("2020-01-01T00:00:00+00:00"), parse_datetime("2020-01-02T00:00:00+00:00")
+    with pytest.raises(ValueError, match="No data"):
+        list(JaxInfluxDataProvider(client=fake, **config).load_series(
+            pd.Timestamp(start), pd.Timestamp(end), [JaxSensorTag("ctag-07")]))
+    expected = ('SELECT "Value" FROM "sensors" WHERE time >= 1577836800000000000 AND time < 1577923200000000000 '
+                'AND "tag" = \'ctag-07\' AND "site" = \'north\'')
+    assert fake.queries[-1] == expected
+    port = InfluxDataProvider(client=fake, **config)
+    assert port.query_text(SensorTag("ctag-07"), datetime_ns(start), datetime_ns(end)) == expected
