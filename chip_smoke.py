@@ -437,6 +437,34 @@ within rtol 1e-5, atol 1e-5 (max abs and max rel printed). Last,
 ``cleanup-revisions`` of five numbered directories, with and without
 ``--dry-run``.
 
+``[workflow]`` (after ``[deploy]``) renders a deploy with ``python -m
+gordo_tpu_torch workflow generate``: a project config of two of
+``[train]``'s 20-tag machines and a 40-tag one (their CSVs), the fleet a
+``v5litepod-1`` slice (one builder pod of one card), InfluxDB on (so a
+``PostgresReporter`` at ``gordo-postgres-<project>`` on every machine)
+and remote logging on for one (an ``MlFlowReporter``); it prints the
+documents by kind, the render's seconds and the validation's. It then
+runs the rendered builder Job's own ``command``, ``args`` and ``env`` as
+a process on the card, with the first shard's ``machines.yaml``,
+replacing only the paths, ``python`` by this interpreter, the pod's
+completion index by 0, the Postgres host by a stub of the Postgres
+backend in this process (``gordo_tpu_torch/reporters/pgstub.py``:
+SCRAM-SHA-256 with the user and password of the template's Postgres
+StatefulSet) and adding ``GORDO_TPU_MLFLOW_DIR``, each printed. Held:
+exit 0; one upsert a machine, each row's metadata equal to its
+``metadata.json``; one MLflow run, of the remote-logging machine, its
+metrics equal to its CV scores and its ``model_key`` the register's
+cache key; K1 launched once for each spec group of the pod's
+``fleet_plan.json``, read from the pod's log line, which counts K1's
+launches in its process by shape. The stub then refuses the password
+and one machine is built again (a cache hit): exit 90, the artifact
+dumped first. Last, ``build --model-parameter n_epochs,1`` of a machine
+whose model is a template string, with a ``sqlite:///`` Postgres
+reporter, on the card: its CV score lines printed, its row equal to its
+``metadata.json``, K1 once a fold. K1 is held to its plain version and
+timed at each spec group's spec (the plan's) and the shape the pod
+logged for it, with seeded params and rows.
+
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
 then ``nvidia-smi``'s line, and last ``{"ok": true, "device": {...}}``.
@@ -4980,6 +5008,21 @@ def packing_frame(tags, values):
     return {tag: dict(zip(keys, values[:, j].tolist())) for j, tag in enumerate(tags)}
 
 
+@contextlib.contextmanager
+def environment(values):
+    """``os.environ`` with ``values`` while open."""
+    saved = {name: os.environ.get(name) for name in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
 def cli_stdout(*args, env=None):
     """``python -m gordo_tpu_torch ARGS`` in this process (the card's
     kernels already loaded), ``env`` set for it: ``(exit code, stdout)``."""
@@ -4987,18 +5030,9 @@ def cli_stdout(*args, env=None):
 
     from gordo_tpu_torch.cli.cli import main
 
-    saved = {name: os.environ.get(name) for name in (env or {})}
-    os.environ.update(env or {})
     out = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            code = main(list(args))
-    finally:
-        for name, value in saved.items():
-            if value is None:
-                os.environ.pop(name, None)
-            else:
-                os.environ[name] = value
+    with environment(env or {}), contextlib.redirect_stdout(out):
+        code = main(list(args))
     return code, out.getvalue()
 
 
@@ -6381,6 +6415,266 @@ def deploy_drain(proc, base, names, cpu_app, log_path):
     return {"spent": spent, "draining": draining, "exit_s": exit_s, "diff": diff}
 
 
+# -- [workflow]: workflow generate, and the rendered builder pod run on the card --------
+
+#: the machines of the rendered workflow ([train]'s rows), the one whose builder logs to MLflow, and the
+#: machine ``build --model-parameter`` builds
+WORKFLOW_PROJECT = "smoke-workflow"
+WORKFLOW_REVISION = "1700000000003"
+WORKFLOW_MACHINES = ("machine-000", "machine-001", "compressor-000")
+WORKFLOW_LOGGED = "machine-001"
+WORKFLOW_TEMPLATED = "templated-000"
+#: ``runtime.fleet.accelerator_type``: a slice of one host of one card
+WORKFLOW_ACCELERATOR = "v5litepod-1"
+#: the K1 row of the builder pod's CV forward of F tags, at the (M, B) its process logged
+WORKFLOW_CV = "workflow build CV fold scoring: hourglass{F} M={M} B={B}"
+#: the model of ``build --model-parameter``: DEFINITION with its epochs a template parameter
+WORKFLOW_TEMPLATED_MODEL = (
+    "gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector:\n"
+    "  base_estimator:\n"
+    "    sklearn.pipeline.Pipeline:\n"
+    "      steps:\n"
+    "        - sklearn.preprocessing.MinMaxScaler\n"
+    "        - gordo_tpu.models.estimators.JaxAutoEncoder:\n"
+    "            kind: feedforward_hourglass\n"
+    "            epochs: {{ n_epochs }}\n"
+    "            batch_size: 32\n"
+)
+BUILD_LINE = re.compile(r"Fleet build complete: (\d+) built, (\d+) resumed, (\d+) failed; kernel launches: "
+                        r"K1 (\d+), K2 (\d+); K1 launches by shape \(members x rows x tags\): (.*)")
+
+
+def workflow_project(directory):
+    """WORKFLOW_MACHINES as a project config (JSON text, which is YAML): a
+    CRD document of FileDataProvider CSVs of [train]'s rows, DEFINITION in
+    the globals, the fleet a slice of one card, InfluxDB on (the default)
+    and remote logging on for WORKFLOW_LOGGED. Returns its path."""
+    rows = {name: (tags, values) for name, tags, values in machine_rows() if name in WORKFLOW_MACHINES}
+    end = (TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)).isoformat()
+    machines = []
+    for name in WORKFLOW_MACHINES:
+        tags, values = rows[name]
+        machine = {"name": name, "dataset": {
+            "data_provider": {"type": "FileDataProvider", "path": write_csv(directory, name, tags, values),
+                              "timestamp_column": "time"},
+            "tag_list": tags, "train_start_date": TRAIN_START.isoformat(), "train_end_date": end}}
+        if name == WORKFLOW_LOGGED:
+            machine["runtime"] = {"builder": {"remote_logging": {"enable": True}}}
+        machines.append(machine)
+    config = {"apiVersion": "equinor.com/v1", "kind": "Gordo", "metadata": {"name": WORKFLOW_PROJECT},
+              "spec": {"config": {"machines": machines, "globals": {
+                  "model": DEFINITION, "runtime": {"fleet": {"accelerator_type": WORKFLOW_ACCELERATOR}}}}}}
+    path = os.path.join(directory, f"{WORKFLOW_PROJECT}.yaml")
+    with open(path, "w") as f:
+        json.dump(config, f, indent=1)
+    return path
+
+
+def pod_env(container, replace):
+    """A rendered container's ``env`` as a dict; a ``valueFrom`` entry
+    takes its value from ``replace``, and so does a value ``replace`` names."""
+    env = {}
+    for var in container.get("env") or []:
+        name = var["name"]
+        env[name] = replace[name] if name in replace else var.get("value", "")
+        check("valueFrom" not in var or name in replace, f"{name} takes its value from {var.get('valueFrom')}")
+    return env
+
+
+def workflow_phase(work_dir, card):
+    """``workflow generate`` of WORKFLOW_MACHINES, then the rendered builder
+    pod's own command, args and env run on the card with only its paths,
+    its Postgres host and its MLflow directory replaced: see the module's
+    docstring. Returns the K1 launches of its three builds (the pod's,
+    counted in its process and read from its log line; the refused run's and
+    the parameter build's, counted in this one), and the pod's CV forwards
+    by width: its spec group's spec (its ``fleet_plan.json``), and the
+    ``(M, B)`` and launches its process logged for that width."""
+    from gordo_tpu_torch.builder import ModelBuilder
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.spec import FeedForwardSpec
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+    from gordo_tpu_torch.reporters import PostgresReporter
+    from gordo_tpu_torch.reporters.mlflow import get_machine_log_items
+    from gordo_tpu_torch.reporters.pgstub import PostgresStub
+    from gordo_tpu_torch.utils import yaml_lite
+    from gordo_tpu_torch.workflow.manifest_validation import validate_manifests
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "workflow")
+    os.makedirs(root)
+    config_path = workflow_project(root)
+    t0 = time.perf_counter()
+    code, out, err = cli_run("workflow", "generate", "--machine-config", config_path, "--project-name",
+                             WORKFLOW_PROJECT, "--project-revision", WORKFLOW_REVISION)
+    generate_s = time.perf_counter() - t0
+    check(code == 0, f"workflow generate exited {code}: {err[-2000:]}")
+    t0 = time.perf_counter()
+    documents = [d for d in yaml_lite.safe_load_all(out) if d]
+    errors = validate_manifests(documents)
+    validate_s = time.perf_counter() - t0
+    check(not errors, f"the rendered manifests fail validation: {errors[:5]}")
+    kinds = collections.Counter(d["kind"] for d in documents)
+    phase("workflow", f"workflow generate of {len(WORKFLOW_MACHINES)} machines ({WORKFLOW_ACCELERATOR}, InfluxDB on, "
+          f"remote logging for {WORKFLOW_LOGGED}): {len(documents)} documents ({dict(sorted(kinds.items()))}) in "
+          f"{generate_s:.3f} s, its validation included; read back and validated again in {validate_s:.3f} s: "
+          f"passed")
+
+    shard_map = next(d for d in documents if d["kind"] == "ConfigMap" and "machines.yaml" in d.get("data", {}))
+    job = next(d for d in documents if d["kind"] == "Job" and d["metadata"]["name"].startswith("gordo-fleet-"))
+    pod = job["spec"]["template"]["spec"]
+    container = pod["containers"][0]
+    check(job["spec"]["parallelism"] == 1 and container["resources"]["limits"]["nvidia.com/gpu"] == 1
+          and "cloud.google.com/gke-accelerator" in pod["nodeSelector"],
+          f"the builder Job is not one pod of one card: {job['spec']['parallelism']}, {container['resources']}")
+    postgres = next(d for d in documents if d["kind"] == "StatefulSet" and d["metadata"]["name"].startswith(
+        "gordo-postgres-"))
+    pg_env = {e["name"]: e.get("value") for e in postgres["spec"]["template"]["spec"]["containers"][0]["env"]}
+    stub = PostgresStub(auth="scram", user=pg_env["POSTGRES_USER"], password=pg_env["POSTGRES_PASSWORD"])
+    try:
+        shard = yaml_lite.safe_load(shard_map["data"]["machines.yaml"])
+        host = f"gordo-postgres-{WORKFLOW_PROJECT}"
+        for machine in shard["machines"]:
+            for reporter in machine["runtime"]["reporters"]:
+                if isinstance(reporter, dict) and "gordo_tpu.reporters.postgres.PostgresReporter" in reporter:
+                    kwargs = reporter["gordo_tpu.reporters.postgres.PostgresReporter"]
+                    check(kwargs == {"host": host}, f"the injected Postgres reporter: {kwargs}")
+                    kwargs.update(host="127.0.0.1", port=stub.port)
+        shard_path = os.path.join(root, "machines.yaml")
+        with open(shard_path, "w") as f:
+            json.dump(shard, f)
+        out_dir, register = os.path.join(root, "models"), os.path.join(root, "register")
+        mlflow_dir, report_file = os.path.join(root, "mlruns"), os.path.join(root, "termination-log")
+        paths = {"/etc/gordo/machines.yaml": shard_path,
+                 f"/gordo/models/{WORKFLOW_PROJECT}/models/{WORKFLOW_REVISION}": out_dir}
+        command = [sys.executable if part == "python" else part for part in container["command"]]
+        args = [paths.get(part, part) for part in container["args"]]
+        env = pod_env(container, {"JAX_PROCESS_INDEX": "0", "MODEL_REGISTER_DIR": register,
+                                  "EXCEPTIONS_REPORTER_FILE": report_file})
+        env["GORDO_TPU_MLFLOW_DIR"] = mlflow_dir
+        phase("workflow", f"the builder pod's command {container['command'] + container['args']} run with: python -> "
+              f"{sys.executable}; /etc/gordo/machines.yaml and the models path -> temporary files; MODEL_REGISTER_DIR "
+              f"and EXCEPTIONS_REPORTER_FILE -> temporary paths; JAX_PROCESS_INDEX (the pod's completion index) -> 0; "
+              f"the Postgres reporter's host {host} -> 127.0.0.1:{stub.port}, a SCRAM-SHA-256 stub with the "
+              f"template's user and password; GORDO_TPU_MLFLOW_DIR -> a temporary directory added")
+        log_path = os.path.join(root, "builder.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            code = subprocess.run(command + args, cwd=HERE, stdout=log, stderr=subprocess.STDOUT, timeout=600,
+                                  env={**os.environ, **env}).returncode
+        pod_s = time.perf_counter() - t0
+        text = open(log_path).read()
+        check(code == 0, f"the builder pod's command exited {code}: {text[-3000:]}")
+        found = BUILD_LINE.findall(text)
+        check(len(found) == 1, f"the build logged {len(found)} completion lines")
+        built, pod_k1 = int(found[0][0]), int(found[0][3])
+        # the pod's K1 launches by X's shape, from its log line, and its spec groups, from its fleet_plan.json
+        pod_shapes = {}
+        for part in found[0][5].split(", "):
+            dims, count = part.rsplit(" ", 1)
+            M, B, F = map(int, dims.split("x"))
+            check(F not in pod_shapes, f"the pod launched K1 at two {F}-tag shapes: {found[0][5]}")
+            pod_shapes[F] = (M, B, int(count))
+        with open(os.path.join(out_dir, "fleet_plan.json")) as f:
+            buckets = {b["spec"]["n_features"]: b for b in json.load(f)["buckets"]}
+        check(built == len(WORKFLOW_MACHINES) and sorted(pod_shapes) == sorted(buckets)
+              and sum(n for _, _, n in pod_shapes.values()) == pod_k1
+              and all(n == 1 and M % len(buckets[F]["members"]) == 0 for F, (M, _, n) in pod_shapes.items()),
+              f"the pod built {built} machines with K1 launched {pod_k1} times by shape {found[0][5]}, not once "
+              f"for each of its spec groups {sorted(buckets)}")
+        pod_specs = {F: FeedForwardSpec.from_dict(b["spec"]) for F, b in buckets.items()}
+        upserts = [s for s, _ in stub.statements if s.startswith("INSERT INTO machine")]
+        check(len(upserts) == len(WORKFLOW_MACHINES) and sorted(stub.rows) == sorted(WORKFLOW_MACHINES),
+              f"the stub took {len(upserts)} upserts for {sorted(stub.rows)}")
+        check(all("{" not in s for s, _ in stub.statements), "JSON spliced into the SQL text")
+        scores = {}
+        for name in WORKFLOW_MACHINES:
+            with open(os.path.join(out_dir, name, "metadata.json")) as f:
+                artifact = json.load(f)
+            row = json.loads(stub.rows[name][2])
+            check(row == artifact["metadata"], f"{name}: the Postgres row's metadata differs from metadata.json's")
+            scores[name] = artifact["metadata"]["build_metadata"]["model"]["cross_validation"]["scores"]
+            check(bool(scores[name]), f"{name}: no CV scores")
+        runs = os.listdir(os.path.join(mlflow_dir, WORKFLOW_LOGGED))
+        check(sorted(os.listdir(mlflow_dir)) == [WORKFLOW_LOGGED] and len(runs) == 1,
+              f"MLflow runs {os.listdir(mlflow_dir)}: one run of {WORKFLOW_LOGGED} expected")
+        run_dir = os.path.join(mlflow_dir, WORKFLOW_LOGGED, runs[0])
+        with open(os.path.join(out_dir, WORKFLOW_LOGGED, "metadata.json")) as f:
+            logged = Machine.from_dict(json.load(f))
+        key = ModelBuilder.calculate_cache_key(logged)
+        with open(os.path.join(run_dir, "tags.json")) as f:
+            tags = json.load(f)
+        with open(os.path.join(run_dir, "batches.jsonl")) as f:
+            batches = [json.loads(line) for line in f]
+        metrics = [tuple(m[:2]) + (m[3],) for batch in batches for m in batch["metrics"]]
+        expected = [(m.key, m.value, m.step) for m in get_machine_log_items(logged)[0]]
+        check(tags == {"model_key": key} and key in os.listdir(os.path.join(register, "builds")),
+              f"the run's tags {tags}, not the cache key {key} of the register")
+        check(metrics == expected and open(os.path.join(run_dir, "status")).read() == "FINISHED",
+              "the MLflow run's metrics differ from the build's CV scores")
+        r2 = scores[WORKFLOW_MACHINES[0]]["r2-score"]["fold-mean"]
+        groups = ", ".join(f"{F} tags, {len(b['members'])} members" for F, b in sorted(buckets.items()))
+        phase("workflow", f"the builder pod's build-fleet on the card: exit 0 in {pod_s:.2f} s (a process of its "
+              f"own); {len(upserts)} upserts over SCRAM-SHA-256 ({len(stub.scram)} logins), each row's metadata "
+              f"equal to its metadata.json ({WORKFLOW_MACHINES[0]} r2 fold-mean {r2!r}); an MLflow run of "
+              f"{WORKFLOW_LOGGED}, {len(metrics)} metrics equal to its CV scores, model_key {key[:12]}... the "
+              f"register's key; K1 launches {pod_k1} (counted in the pod's process and logged by shape: "
+              f"{found[0][5]}; the spec groups of its fleet_plan.json: {groups}); {card}")
+
+        stub.refuse = True
+        one = dict(shard, machines=shard["machines"][:1])
+        with open(shard_path, "w") as f:
+            json.dump(one, f)
+        refused_dir = os.path.join(root, "refused")
+        run_args = [refused_dir if part == out_dir else part for part in args]
+        fleet_feedforward.launches = 0
+        with environment(env):  # the first run's register: a cache hit, loaded and dumped, then reported
+            code, _, err = cli_run(*run_args)
+        refused_k1 = fleet_feedforward.launches
+        name = WORKFLOW_MACHINES[0]
+        check(code == 90 and "PostgresReporterException" in err and stub.refused,
+              f"a refused password: exit {code}, {err[-1500:]}")
+        check(os.path.isfile(os.path.join(refused_dir, name, "model.pkl")), "nothing dumped before the report")
+        with open(report_file) as f:
+            report = json.load(f)
+        report = (report.get("traceback") or report.get("message") or "").strip().splitlines()[-1:]
+        phase("workflow", f"the stub refusing the password: build-fleet of {name} (a cache hit in the register) "
+              f"exited 90, its artifact dumped first; its termination report: {report}; K1 launches {refused_k1}")
+    finally:
+        stub.close()
+
+    database = os.path.join(root, "reports.db")
+    with open(config_path) as f:
+        dataset = json.load(f)["spec"]["config"]["machines"][0]["dataset"]  # machine-000's rows
+    config = {"name": WORKFLOW_TEMPLATED, "project_name": WORKFLOW_PROJECT, "model": WORKFLOW_TEMPLATED_MODEL,
+              "dataset": dataset, "runtime": {"reporters": [{"gordo_tpu.reporters.postgres.PostgresReporter": {
+                  "host": f"sqlite:///{database}"}}]}}
+    one_dir = os.path.join(root, "one")
+    fleet_feedforward.launches = 0
+    t0 = time.perf_counter()
+    code, out, err = cli_run("build", json.dumps(config), one_dir, "--print-cv-scores", "--model-parameter",
+                             "n_epochs,1")
+    one_s = time.perf_counter() - t0
+    one_k1 = fleet_feedforward.launches
+    check(code == 0, f"build --model-parameter exited {code}: {err[-2000:]}")
+    lines = out.strip().splitlines()
+    check(lines and all(re.fullmatch(r"[\w-]+_fold-[\w-]+=\S+", line) for line in lines),
+          f"the CV score lines: {lines[:3]}")
+    with open(os.path.join(one_dir, "metadata.json")) as f:
+        artifact = json.load(f)
+    row = PostgresReporter(host=f"sqlite:///{database}").fetch(WORKFLOW_TEMPLATED)
+    check(row["metadata"] == artifact["metadata"] and row["model"] == artifact["model"],
+          "the sqlite row differs from the build's metadata.json")
+    check('"epochs": 1' in json.dumps(artifact["model"]), "the model parameter was not expanded")
+    check(one_k1 == 3, f"build --model-parameter launched K1 {one_k1} times, not once a fold")
+    phase("workflow", f"build --model-parameter n_epochs,1 of {WORKFLOW_TEMPLATED} (its model a template string) on "
+          f"the card: exit 0 in {one_s:.2f} s, {len(lines)} CV score lines printed, its sqlite:/// row equal to its "
+          f"metadata.json; K1 launches {one_k1} (a fold each)")
+    phase("workflow", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    pod_cv = {F: (pod_specs[F], M, B, n) for F, (M, B, n) in pod_shapes.items()}
+    return {"pod": pod_k1, "refused": refused_k1, "parameter": one_k1}, pod_cv
+
+
 def own_rows_frame(name, rows, shift=0.0):
     """ROWS of an [ingress] machine's readings past its training rows, as a
     JSON frame (the seeded machines' own continuation; file-tags-000's
@@ -6765,6 +7059,8 @@ def main():
                   f"max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
         with clocked("deploy"):
             deploy_launches, deploy_cases = deploy_phase(work_dir, collection, names, wide_names, cpu_app, card)
+        with clocked("workflow"):
+            workflow_launches, workflow_cv = workflow_phase(work_dir, card)
         for width, name in DEPLOY_SCORE_CASES.items():
             case = deploy_cases[width][0]
             check(tuple(case["X"].shape) == (1, ROWS, width), f"score's {width}-tag K1 call had shape "
@@ -6788,6 +7084,16 @@ def main():
             phase("kernel", f"{name}, the served packed build's params and the request's rows: max abs "
                   f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} over recon and mse (rtol {RTOL}, "
                   f"atol {ATOL})")
+    from gordo_tpu_torch.models.factories import feedforward_hourglass
+
+    # the builder pod's CV forwards ran in its own process: K1 held to the plain version at the spec of its
+    # spec group (its fleet_plan.json) and the shape its process logged, with seeded params and rows
+    workflow_names = {F: WORKFLOW_CV.format(F=F, M=M, B=B) for F, (_, M, B, _) in workflow_cv.items()}
+    workflow_cases = {F: make_case(spec, M, M, B, seed=60 + F) for F, (spec, M, B, _) in workflow_cv.items()}
+    for width, name in workflow_names.items():
+        errors[name] = compare(workflow_cases[width])
+        phase("kernel", f"{name}, seeded params and rows at the spec and shape of the builder pod's {width}-tag CV "
+              f"forward: max abs {errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
     times_t0 = time.perf_counter()
 
     for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
@@ -6833,8 +7139,6 @@ def main():
           f"chain {library!r} ms (with TF32 {library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 "
           f"tensor cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
           f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
-    from gordo_tpu_torch.models.factories import feedforward_hourglass
-
     engine_names = {width: engine_case_name(case) for width, case in engine_batches.items()}
     engine_cases = {engine_names[width]: case for width, case in engine_batches.items()}
     for width, n, m, indices in ((20, 64, 32, list(range(0, 64, 2))), (WIDE_TAGS, 8, 8, list(range(8)))):
@@ -6968,6 +7272,14 @@ def main():
               f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
               f"{floor!r} ms; {card}")
 
+    for width, name in workflow_names.items():
+        timed[name] = times(workflow_cases[width])
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+              f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} "
+              f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
+              f"{floor!r} ms; {card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -7024,7 +7336,8 @@ def main():
                   "slo": slo_launches["K1"], "lifecycle": lifecycle_launches["K1"],
                   "packing": packing_launches["K1"], "arrow": arrow_launches["K1"], "ingress": ingress_launches["K1"],
                   "mesh": mesh_launches["K1"],
-                  "deploy": deploy_launches["server"]["K1"] + deploy_launches["score"]}
+                  "deploy": deploy_launches["server"]["K1"] + deploy_launches["score"],
+                  "workflow": sum(workflow_launches.values())}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
@@ -7032,7 +7345,7 @@ def main():
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
                   "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"],
                   "packing": packing_launches["K2"], "arrow": arrow_launches["K2"], "ingress": ingress_launches["K2"],
-                  "mesh": 0, "deploy": deploy_launches["server"]["K2"]}
+                  "mesh": 0, "deploy": deploy_launches["server"]["K2"], "workflow": 0}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -7132,6 +7445,14 @@ def main():
               k1_by_path, DEPLOY_SCORE_CASES[20], timed[DEPLOY_SCORE_CASES[20]]),
         entry("fleet_dense (K1), wide kernel, score", "gordo_tpu/ops/pallas_dense.py:114", deploy_cases[WIDE_TAGS][1],
               k1_by_path, DEPLOY_SCORE_CASES[WIDE_TAGS], timed[DEPLOY_SCORE_CASES[WIDE_TAGS]]),
+        # launches: the rendered builder pod's CV forwards at that width's shape, counted in its process and
+        # logged by shape; the shape timed with seeded params and rows
+        entry("fleet_dense (K1), narrow kernel, workflow builder pod CV fold scoring",
+              "gordo_tpu/ops/pallas_dense.py:114", workflow_cv[20][3], k1_by_path, workflow_names[20],
+              timed[workflow_names[20]]),
+        entry("fleet_dense (K1), wide kernel, workflow builder pod CV fold scoring",
+              "gordo_tpu/ops/pallas_dense.py:114", workflow_cv[WIDE_TAGS][3], k1_by_path,
+              workflow_names[WIDE_TAGS], timed[workflow_names[WIDE_TAGS]]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,15 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   through the model-register cache with ``--model-register-dir``
   (``$MODEL_REGISTER_DIR``). ``--print-cv-scores`` prints each CV score
   as ``<metric>_<fold>=<value>``. The exit codes and the failure report
-  are ``build-fleet``'s. ``--model-parameter`` is refused: it renders the
-  model config as a Jinja template, and the port has no Jinja
-  (``ROADMAP.md`` queue 1, item 13). Like the JAX command, it records the
-  model definition expanded, every default filled in
-  (``serializer.into_definition``), so its cache key is the JAX
-  command's.
+  are ``build-fleet``'s. ``--model-parameter key,val`` (repeated) renders
+  a model given as a string through the port's template renderer
+  (``utils/template.py``) and reads it as YAML (``expand_model``); a name
+  the model uses and no parameter gives exits 2 with ``Model parameter
+  missing value!``. Like the JAX command, it records the model definition
+  expanded, every default filled in (``serializer.into_definition``), so
+  its cache key is the JAX command's. The machine's reporters
+  (``runtime.reporters``, ``reporters/``) run after the build, before the
+  CV scores are printed; a reporter's failure exits 90.
 - ``build-fleet MACHINES_CONFIG OUTPUT_DIR [--device cuda|cpu]``: the JAX
   package's ``build-fleet`` (``gordo_tpu/cli/cli.py:558-725``). It builds
   every machine of a shard (a path to, or the text of, a ``machines:``
@@ -23,10 +26,11 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   ``parallel/fleet_build.py`` into ``OUTPUT_DIR`` (default
   ``$OUTPUT_DIR``, else ``/data``), on the card unless ``--device cpu``.
   A machine without ``project_name`` takes the document's, else
-  ``fleet-build``. It exits with the code of the exception that failed
-  it (:data:`EXIT_CODES`); when some machines fail and the rest are
-  dumped, with the first failure's; ``--exceptions-reporter-file`` writes
-  the JSON report. ``--resume`` (``$FLEET_RESUME``) finishes a build that
+  ``fleet-build``. Rank 0 runs each dumped machine's reporters after the
+  build. It exits with the code of the exception that failed it
+  (:data:`EXIT_CODES`; a reporter's 90); when some machines fail and the
+  rest are dumped and reported, with the first failure's;
+  ``--exceptions-reporter-file`` writes the JSON report. ``--resume`` (``$FLEET_RESUME``) finishes a build that
   was cut short, from its journal; ``--model-register-dir`` shares the
   model-register cache with other builds. ``--plan-strategy
   {naive,packed}`` picks the bucket strategy (default
@@ -115,10 +119,14 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   ``$MODELS_ROOT``. The routing a command installs lives in its own store,
   on ``--device`` (``cuda`` unless ``cpu``): a server picks a promotion up
   when it starts.
+- ``workflow generate --machine-config F --project-name P ...``: the JAX
+  package's ``workflow generate`` (``cli/workflow_generator.py``), every
+  option with its ``WORKFLOW_GENERATOR_*`` variable: the manifests of a
+  project's deploy rendered from the port's template, validated, printed.
 - ``normalize CONFIG PROJECT``: the shard of a project config, what
   ``workflow generate`` puts into its ConfigMaps
-  (``workflow/workflow_generator.py::normalize``), printed or written to
-  ``--output``.
+  (``workflow/workflow_generator/workflow_generator.py::normalize``),
+  printed or written to ``--output``.
 - the deploy pod's commands (``cli/deploy.py``): ``run-server`` (the
   one-process server, drained by SIGTERM), ``wait-for-models``, ``score``,
   ``ensure-single-workflow`` and ``cleanup-revisions``; and the
@@ -132,21 +140,22 @@ import os
 import socket
 import sys
 import traceback
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 from ..client.cli import add_client_parser, client_main
 from ..dataset.exceptions import ConfigException, InsufficientDataError, NoSuitableDataProviderError
 from ..dataset.sensor_tag import SensorTagNormalizationError
 from ..machine import Machine
+from ..reporters.base import ReporterException
 from ..utils import yaml_lite
 from ..utils.env import env_bool, env_int, env_str
-from . import deploy
+from ..utils.template import Template, UndefinedError
+from . import deploy, workflow_generator
 from .exceptions_reporter import ExceptionsReporter, ReportLevel
 
 logger = logging.getLogger(__name__)
 
 #: exception type to exit code, the JAX command's map (``cli.py:47-60``)
-#: without its reporters' exception: the port runs no reporters
 EXIT_CODES = (
     (Exception, 1),
     (ValueError, 2),
@@ -156,18 +165,13 @@ EXIT_CODES = (
     (NoSuitableDataProviderError, 70),
     (InsufficientDataError, 80),
     (ImportError, 85),
+    (ReporterException, 90),
     (ConfigException, 100),
 )
 _reporter = ExceptionsReporter(EXIT_CODES)
 
 #: the deploy pod's commands (``cli/deploy.py``)
 DEPLOY_COMMANDS = ("run-server", "wait-for-models", "score", "ensure-single-workflow", "cleanup-revisions")
-
-#: the JAX commands' options that the port refuses, and why
-_REFUSED = {
-    "model_parameter": "--model-parameter renders the model config with Jinja (ROADMAP.md queue 1, item 13)",
-}
-
 
 def _report(exceptions_reporter_file: Optional[str], exceptions_report_level: str) -> int:
     """Print the exception being handled, write its report when asked, and
@@ -202,6 +206,23 @@ def get_all_score_strings(machine: Machine) -> List[str]:
     ]
 
 
+def key_value_par(val: str) -> List[str]:
+    """A ``--model-parameter`` value split at its commas (``key,value``)."""
+    return val.split(",")
+
+
+def expand_model(model_config: str, model_parameters: dict) -> Any:
+    """A model given as a template string, rendered with
+    ``model_parameters`` and read as YAML; a name without a value raises
+    ``ValueError`` (``gordo_tpu/cli/cli.py:214-225``)."""
+    try:
+        model_config = Template(model_config, strict=True).render(**model_parameters)
+    except UndefinedError as exc:
+        raise ValueError("Model parameter missing value!") from exc
+    logger.info("Expanded model config: %s", model_config)
+    return yaml_lite.safe_load(model_config)
+
+
 def build(
     machine_config: str,
     output_dir: str,
@@ -211,9 +232,12 @@ def build(
     print_cv_scores: bool = False,
     exceptions_reporter_file: Optional[str] = None,
     exceptions_report_level: str = ReportLevel.MESSAGE.name,
+    model_parameter: Sequence[Sequence[str]] = (),
 ) -> int:
     """The ``build`` command: build one machine (``machine_config``, its
-    JSON or YAML text) into ``output_dir``; the exit code."""
+    JSON or YAML text) into ``output_dir``, its model a template string
+    expanded with ``model_parameter``'s ``(key, value)`` pairs, then run
+    its reporters; the exit code."""
     from ..builder import create_model_builder
     from ..serializer import from_definition, into_definition
 
@@ -221,6 +245,8 @@ def build(
         config = yaml_lite.safe_load(machine_config)
         if not isinstance(config, dict):
             raise ValueError(f"MACHINE must be a mapping, got {type(config).__name__}")
+        if model_parameter and isinstance(config.get("model"), str):
+            config["model"] = expand_model(config["model"], dict(model_parameter))
         machine = Machine.from_config(config, project_name=config["project_name"])
         # every default frozen into the recorded definition, as the JAX command records it
         machine.model = into_definition(from_definition(machine.model, device="cpu"))
@@ -228,6 +254,8 @@ def build(
         logger.info("Register dir: %s", model_register_dir)
         builder = create_model_builder(model_builder_class)(machine, device=device)
         _, machine_out = builder.build(output_dir, model_register_dir)
+        logger.debug("Reporting built machine.")
+        machine_out.report()
         if print_cv_scores:
             for score in get_all_score_strings(machine_out):
                 print(score)
@@ -393,8 +421,17 @@ def _build_fleet_rank(args: tuple, rank: int, world: int, local: int,
                                cost_table=cost_table)
         results = builder.build(output_dir if coordinating else None,
                                 model_register_dir=model_register_dir if coordinating else None, resume=resume)
-        logger.info("Fleet build complete: %d built, %d resumed, %d failed", len(results), len(builder.resumed),
-                    len(builder.build_errors))
+        if coordinating:
+            for _, machine_out in results:
+                machine_out.report()
+        from ..ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
+
+        by_shape = ", ".join(f"{'x'.join(map(str, shape))} {n}" for shape, n in
+                             sorted(fleet_feedforward.shapes.items()))
+        logger.info("Fleet build complete: %d built, %d resumed, %d failed; kernel launches: K1 %d, K2 %d; "
+                    "K1 launches by shape (members x rows x tags): %s", len(results), len(builder.resumed),
+                    len(builder.build_errors), fleet_feedforward.launches, fleet_anomaly_scores.launches,
+                    by_shape or "none")
         if builder.build_errors:
             _, exc = next(iter(builder.build_errors.items()))
             raise exc
@@ -814,7 +851,8 @@ def _parser() -> argparse.ArgumentParser:
     one.add_argument("--model-builder-class", default=os.environ.get("MODEL_BUILDER_CLASS"),
                      help="a subclass of gordo_tpu_torch.builder.build_model.ModelBuilder, as module.path.Name")
     one.add_argument("--print-cv-scores", action="store_true", help="print the CV scores to stdout")
-    one.add_argument("--model-parameter", action="append", default=[])
+    one.add_argument("--model-parameter", type=key_value_par, action="append", default=[],
+                     help="key,value of a model parameter, for a model given as a template string; repeatable")
 
     build = commands.add_parser("build-fleet", help="build every machine of a shard")
     build.add_argument("machines_config", nargs="?", default=os.environ.get("MACHINES_CONFIG"),
@@ -945,6 +983,7 @@ def _parser() -> argparse.ArgumentParser:
     normalize.add_argument("--output", default=None, help="write the shard here instead of printing it")
     deploy.add_parsers(commands)
     add_client_parser(commands)
+    workflow_generator.add_parser(commands)
     return parser
 
 
@@ -963,6 +1002,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(document)
         return 0
+    if args.command == "workflow":
+        return workflow_generator.main(parser, args)
     if args.command == "lifecycle":
         return _lifecycle_command(parser, args)
     if args.command in DEPLOY_COMMANDS:
@@ -1001,15 +1042,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 parser.error(f"{option}: file {path!r} does not exist")
         return plan_fleet(args.machines_config, args.device, args.strategy, args.output_path, args.cost_table,
                           args.calibrate_from, args.cost_table_out, args.as_json)
-    for option, reason in _REFUSED.items():
-        if getattr(args, option, None):
-            parser.error(f"{reason}, which gordo_tpu_torch does not have yet")
     if args.command == "build":
         if not args.machine_config:
             parser.error("MACHINE is required (argument or $MACHINE)")
         return build(args.machine_config, args.output_dir, args.device, args.model_register_dir,
                      args.model_builder_class, args.print_cv_scores, args.exceptions_reporter_file,
-                     args.exceptions_report_level)
+                     args.exceptions_report_level, args.model_parameter)
     if not args.machines_config:
         parser.error("MACHINES_CONFIG is required (argument or $MACHINES_CONFIG)")
     for option, path in (("--plan-from", args.plan_from), ("--cost-table", args.cost_table)):

@@ -20,6 +20,9 @@ given, with ``resolution`` (default ``10min``) and ``target_tag_list``
 """
 
 import copy
+import datetime
+import json
+import logging
 import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -29,6 +32,8 @@ from ..dataset import ArrayDataset, GordoBaseDataset
 from ..dataset.sensor_tag import to_list_of_strings
 from ..workflow.helpers import patch_dict
 from .loader import GlobalsConfig, load_machine_config
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_EVALUATION_CONFIG = {
     "cv_mode": "full_build",
@@ -52,6 +57,19 @@ def _valid_name(value: Any, what: str) -> str:
             "or '-', at most 63 chars, starting/ending alphanumeric"
         )
     return value
+
+
+def json_default(obj: Any) -> Any:
+    """What JSON cannot hold, as the JAX package's ``MachineJSONEncoder``
+    writes it: datetimes as ISO strings, objects by ``to_dict``, numpy
+    values as Python's."""
+    if isinstance(obj, (datetime.datetime, datetime.date)):
+        return obj.isoformat()
+    if hasattr(obj, "to_dict"):
+        return obj.to_dict()
+    if hasattr(obj, "tolist"):
+        return obj.tolist()
+    raise TypeError(f"{type(obj).__name__} is not JSON serializable")
 
 
 def tag_names(tags: Optional[Sequence[Any]]) -> list:
@@ -205,6 +223,25 @@ class Machine:
             "metadata": self.metadata,
             "runtime": self.runtime,
         }
+
+    def to_json(self) -> str:
+        """:meth:`to_dict` as JSON, datetimes as ISO strings."""
+        return json.dumps(self.to_dict(), default=json_default)
+
+    def to_yaml(self) -> str:
+        """:meth:`to_dict` as JSON text, which is YAML: the JAX machine
+        writes block YAML (``yaml.dump``), which reads back the same; the
+        port has no YAML writer."""
+        return json.dumps(self.to_dict(), default=json_default, indent=1)
+
+    def report(self) -> None:
+        """Run the reporters of ``runtime.reporters`` on this machine
+        (``gordo_tpu/machine/machine.py:217-227``)."""
+        from ..reporters.base import create_reporters
+
+        for reporter in create_reporters(self.runtime.get("reporters", [])):
+            logger.debug("Reporting machine %s via %r", self.name, reporter)
+            reporter.report(self)
 
     def __repr__(self) -> str:
         return f"Machine(name={self.name!r}, project_name={self.project_name!r})"

@@ -25,9 +25,12 @@ back. Its plain version is :func:`fleet_anomaly_scores_reference`.
 
 ``fleet_feedforward.launches`` and ``fleet_anomaly_scores.launches``
 count kernel launches (never plain runs), so a caller can show that a
-path went through the kernel.
+path went through the kernel; ``fleet_feedforward.shapes`` counts K1's
+launches by ``X``'s shape ``(M, B, F)``, so a process that launched K1
+at several shapes (a fleet build's spec groups) can say which it ran.
 """
 
+import collections
 import ctypes
 import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
@@ -293,10 +296,12 @@ def fleet_feedforward(
     out, _ = _launch(spec, stacked, X, indices, ingest, None, defines)
     with _launches_lock:  # request threads of the server launch concurrently
         fleet_feedforward.launches += 1
+        fleet_feedforward.shapes[tuple(X.shape)] += 1
     return out
 
 
 fleet_feedforward.launches = 0  # type: ignore[attr-defined]
+fleet_feedforward.shapes = collections.Counter()  # type: ignore[attr-defined]
 
 
 def fleet_anomaly_scores(

@@ -44,7 +44,10 @@ Anything else raises ``NotImplementedError`` naming the path.
   ``validate``, ``inverse_func`` ...) at their defaults;
 - ``sklearn.model_selection.TimeSeriesSplit`` (``n_splits``) and
   ``sklearn.model_selection.KFold`` (``n_splits``, ``shuffle``,
-  ``random_state``), for an evaluation's ``cv``.
+  ``random_state``), for an evaluation's ``cv``;
+- the reporters of ``runtime.reporters`` (:func:`reporter_from_definition`,
+  :data:`REPORTERS`): ``gordo_tpu.reporters[.postgres].PostgresReporter``,
+  ``...[.mlflow].MlFlowReporter`` and ``...[.base].LogReporter``.
 """
 
 import copy
@@ -65,6 +68,7 @@ from ..models.preprocessing import (
 )
 from ..models.spec import Dense, Sequential
 from ..models.transformers.imputer import InfImputer
+from ..reporters import LogReporter, MlFlowReporter, PostgresReporter
 
 DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector"
 KFCV_DETECTOR = "gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector"
@@ -101,6 +105,14 @@ DENSE = ("gordo_tpu.models.spec.Dense", "gordo_tpu.models.Dense")
 #: every callback path, with the port's class
 CALLBACKS = {
     f"gordo_tpu.models.callbacks.{cls.__name__}": cls for cls in (EarlyStopping, ReduceLROnPlateau, TerminateOnNaN)
+}
+
+#: every reporter path, with the port's class
+REPORTERS = {
+    f"gordo_tpu.reporters{module}.{cls.__name__}": cls
+    for cls, modules in ((PostgresReporter, ("", ".postgres")), (MlFlowReporter, ("", ".mlflow")),
+                         (LogReporter, ("", ".base")))
+    for module in modules
 }
 
 #: the reference's and Keras' paths of the ported classes
@@ -234,3 +246,12 @@ def _callback(definition: Any) -> Any:
     callback = CALLBACKS[path](**kwargs)
     callback.definition = definition  # what ``into_definition`` gives back, as the JAX estimator keeps it
     return callback
+
+
+def reporter_from_definition(definition: Any) -> Any:
+    """The reporter a ``runtime.reporters`` entry names (a path, or a
+    single-key dict of the path and its arguments)."""
+    path, kwargs = _path_and_kwargs(definition)
+    if path not in REPORTERS:
+        raise NotImplementedError(f"reporter {path} is not supported by gordo_tpu_torch")
+    return REPORTERS[path](**kwargs)

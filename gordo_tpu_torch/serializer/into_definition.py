@@ -43,6 +43,7 @@ from ..models.preprocessing import (
     StandardScaler,
 )
 from ..models.transformers.imputer import InfImputer
+from ..reporters import LogReporter, MlFlowReporter, PostgresReporter
 
 _ESTIMATORS = "gordo_tpu.models.estimators"
 _SKLEARN_DATA = "sklearn.preprocessing._data"
@@ -62,6 +63,11 @@ JAX_CLASSES: Dict[type, Tuple[str, Dict[str, Any]]] = {
         "delta": 2.0, "inf_fill_value": None, "neg_inf_fill_value": None, "strategy": "minmax"}),
     Pipeline: ("sklearn.pipeline.Pipeline", {"memory": None, "steps": None, "transform_input": None,
                                              "verbose": False}),
+    # the reporters' captured arguments (``capture_args``), as their ``to_dict`` writes them
+    PostgresReporter: ("gordo_tpu.reporters.postgres.PostgresReporter", {
+        "host": None, "port": 5432, "user": "postgres", "password": "postgres", "database": "postgres"}),
+    MlFlowReporter: ("gordo_tpu.reporters.mlflow.MlFlowReporter", {"args": [], "model_builder_class": None}),
+    LogReporter: ("gordo_tpu.reporters.base.LogReporter", {"level": "INFO"}),
 }
 #: the port's estimators by the JAX estimators' paths
 ESTIMATOR_PATHS = {

@@ -21,6 +21,9 @@ standard library only: the card's machine has no PyYAML.
   carries an offset).
 
 Anchors, aliases, tags, directives and a second document raise :class:`YAMLError` (a ``ValueError``) naming the line.
+:func:`safe_load_all` reads a stream of documents split on ``---`` (and
+ended by ``...``), as ``yaml.safe_load_all`` does: an explicit document
+with nothing in it is ``None``.
 
 >>> safe_load("a: [1, 2.0, yes]\\nb:\\n- x: 1e-3\\n")
 {'a': [1, 2.0, True], 'b': [{'x': '1e-3'}]}
@@ -689,3 +692,36 @@ def safe_load(text: str) -> Any:
     if isinstance(text, bytes):
         text = text.decode("utf-8")
     return _Reader(text).document()
+
+
+def _document_marker(line: str, marker: str) -> bool:
+    return line == marker or line.startswith((marker + " ", marker + "\t"))
+
+
+def safe_load_all(text: str) -> List[Any]:
+    """Every document of the stream ``text`` (a ``str``, or a file
+    object), each read as :func:`safe_load` reads one."""
+    if hasattr(text, "read"):
+        text = text.read()
+    if isinstance(text, bytes):
+        text = text.decode("utf-8")
+    if text.startswith("\ufeff"):
+        text = text[1:]
+    documents: List[List[str]] = []
+    current: Optional[List[str]] = None  # the open document's lines
+    for line in text.replace("\r\n", "\n").replace("\r", "\n").split("\n"):
+        if _document_marker(line, "---"):
+            if current is not None:
+                documents.append(current)
+            current = [" " * 3 + line[3:]]
+        elif _document_marker(line, "..."):
+            if current is not None:
+                documents.append(current)
+            current = None
+        elif current is not None:
+            current.append(line)
+        elif not _blank(line):
+            current = [line]
+    if current is not None:
+        documents.append(current)
+    return [_Reader("\n".join(lines) + "\n").document() for lines in documents]

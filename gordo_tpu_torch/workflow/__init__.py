@@ -1,2 +1,3 @@
-"""Config normalization: a project config's globals merged into its
-machines, and the machine shard a fleet build reads."""
+"""The deploy's config half: a project config's globals merged into its
+machines, the machine shard a fleet build reads, and ``workflow
+generate``'s template, slice geometry and manifest validation."""

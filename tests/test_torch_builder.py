@@ -357,7 +357,13 @@ def test_build_command_failures_match_jax(tmp_path, dataset, code):
 
 
 def test_build_command_refuses_model_parameters(tmp_path, capsys):
-    with pytest.raises(SystemExit) as exit_info:
-        main(["build", "{}", str(tmp_path), "--model-parameter", "epochs,3"])
-    assert exit_info.value.code == 2
-    assert "Jinja" in capsys.readouterr().err
+    """``--model-parameter`` is taken since the port renders templates; a
+    name the templated model uses and no parameter gives is refused as the
+    JAX command refuses it: exit 2, ``Model parameter missing value!``."""
+    model = "gordo_tpu.models.JaxAutoEncoder:\n  kind: feedforward_hourglass\n  epochs: {{ epochs }}\n"
+    config = json.dumps({**machine_config("detector"), "project_name": PROJECT, "model": model})
+    code = main(["build", config, str(tmp_path / "port"), "--device", "cpu", "--model-parameter", "batch,3"])
+    assert code == 2
+    assert "ValueError: Model parameter missing value!" in capsys.readouterr().err
+    jax = CliRunner().invoke(gordo_tpu_cli, ["build", config, str(tmp_path / "jax"), "--model-parameter", "batch,3"])
+    assert jax.exit_code == code

@@ -152,7 +152,7 @@ class _Builder:
         self.machines, self.device, self.resumed, self.build_errors = machines, device, [], {}
 
     def build(self, output_dir, model_register_dir=None, resume=False):
-        return [m.name for m in self.machines]
+        return []  # FleetBuilder.build's (model, machine) results: none built
 
 
 def test_build_fleet_spawns_only_from_the_command_line(shard, tmp_path, monkeypatch):

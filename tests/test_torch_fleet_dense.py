@@ -54,6 +54,25 @@ def test_hourglass_matches_pallas(m, b):
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
 
 
+def test_launches_are_counted_by_shape_where_the_kernel_launches(monkeypatch):
+    """A launch (the kernel stood in for, on a tensor off the CPU) adds one
+    to ``launches`` and one to ``shapes`` at X's shape; a CPU run to neither."""
+    import collections
+
+    spec = factories.feedforward_hourglass(6)
+    bucket = {k: {n: torch.zeros(2, *t.shape) for n, t in layer.items()}
+              for k, layer in init_feedforward(spec, torch.Generator().manual_seed(0)).items()}
+    monkeypatch.setattr(fleet_feedforward, "launches", 0)
+    monkeypatch.setattr(fleet_feedforward, "shapes", collections.Counter())
+    monkeypatch.setattr(fleet_dense, "_launch", lambda spec, stacked, X, *_: (X, None))
+    fleet_feedforward(spec, bucket, torch.zeros(2, 5, 6))
+    assert fleet_feedforward.launches == 0 and not fleet_feedforward.shapes
+    for M, B in ((2, 5), (1, 7), (2, 5)):
+        fleet_feedforward(spec, bucket, torch.empty(M, B, 6, device="meta"))
+    assert fleet_feedforward.launches == 3
+    assert fleet_feedforward.shapes == {(2, 5, 6): 2, (1, 7, 6): 1}
+
+
 def test_explicit_dims_relu_matches_pallas():
     kwargs = dict(encoding_dim=(8, 4), decoding_dim=(4, 8),
                   encoding_func=("relu", "relu"), decoding_func=("relu", "relu"))

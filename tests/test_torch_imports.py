@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports JAX, the JAX package, or a library the card's
 machine does not have (pandas, scikit-learn, werkzeug, yaml, pyarrow,
 click, jinja2, pydantic, dateutil, ml_dtypes, prometheus_client,
-influxdb, requests, a snappy binding, numexpr, fastparquet).
+influxdb, requests, a snappy binding, numexpr, fastparquet, mlflow, the
+AzureML SDK, psycopg2, jsonschema).
 Checked on the source with ``ast``, so an import inside a function
 counts too."""
 
@@ -16,7 +17,8 @@ FILES = sorted((REPO / "gordo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.p
 FORBIDDEN = {
     "jax", "jaxlib", "gordo_tpu", "pandas", "sklearn", "werkzeug", "yaml", "pyarrow", "optax", "flax",
     "click", "jinja2", "pydantic", "dateutil", "ml_dtypes", "prometheus_client",
-    "influxdb", "requests", "snappy", "cramjam", "numexpr", "fastparquet",
+    "influxdb", "requests", "snappy", "cramjam", "numexpr", "fastparquet", "mlflow", "azureml", "psycopg2",
+    "jsonschema",
 }
 
 
@@ -61,7 +63,8 @@ def test_package_has_modules():
         "parallel/fleet_build.py", "serializer/from_definition.py", "machine/machine.py", "machine/metadata.py",
         "server/utils.py", "server/fleet_store.py", "server/wire/negotiate.py", "server/wire/assemble.py",
         "server/views/base.py", "utils/yaml_lite.py", "utils/args.py", "workflow/helpers.py",
-        "workflow/workflow_generator.py", "workflow/config_elements/normalized_config.py", "machine/constants.py",
+        "workflow/workflow_generator/workflow_generator.py", "workflow/config_elements/normalized_config.py",
+        "machine/constants.py",
         "machine/loader.py", "dataset/exceptions.py", "dataset/sensor_tag.py", "dataset/series.py",
         "dataset/data_provider.py", "dataset/datasets.py", "models/anomaly/diff.py", "cli/cli.py",
         "cli/exceptions_reporter.py", "__main__.py", "ops/windows.py", "models/factories/lstm_autoencoder.py",
@@ -76,11 +79,17 @@ def test_package_has_modules():
         "dataset/query.py", "dataset/influx.py", "utils/snappy.py", "utils/thrift_compact.py", "utils/parquet.py",
         "server/multipart.py", "server/wire/parquet_codec.py", "client/__init__.py", "client/client.py",
         "client/io.py", "client/utils.py", "client/forwarders.py", "client/cli.py", "cli/deploy.py",
-        "serializer/into_definition.py",
+        "serializer/into_definition.py", "reporters/__init__.py", "reporters/base.py", "reporters/mlflow.py",
+        "reporters/postgres.py", "reporters/pgwire.py", "reporters/pgstub.py", "utils/template.py",
+        "workflow/workflow_generator/tpu.py",
+        "workflow/workflow_generator/__init__.py", "workflow/config_elements/schemas.py",
+        "workflow/manifest_validation.py", "cli/workflow_generator.py",
     ):
         assert expected in names
     assert (REPO / "gordo_tpu_torch" / "telemetry" / "slos.toml").read_text() == (
         REPO / "gordo_tpu" / "telemetry" / "slos.toml").read_text()
+    assert (REPO / "gordo_tpu_torch" / "workflow" / "workflow_generator" / "resources"
+            / "gpu-workflow.yml.template").is_file()
 
 
 #: library recurrences: the port writes its LSTM out (gate order, the

@@ -12,7 +12,8 @@ package's, on the CPU.
   its own expanded definition back to the same definition.
 - The port's ``build`` and the JAX ``build`` of one machine (each through
   a model register) record the same ``model`` in ``metadata.json`` and
-  land under the same cache key.
+  land under the same cache key, and so do they with a model given as a
+  template string and expanded by ``--model-parameter``.
 """
 
 import glob
@@ -90,5 +91,34 @@ def test_build_records_the_jax_commands_definition_and_cache_key(tmp_path, capsy
             models.append(json.load(f)["model"])
     assert models[1] == models[0]
     assert "sklearn.preprocessing._data.MinMaxScaler" in json.dumps(models[1])
+    keys = [sorted(p.name for p in (root / "register" / "builds").iterdir()) for root in roots]
+    assert keys[1] == keys[0] and len(keys[0]) == 1
+
+
+TEMPLATED = """
+gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector:
+  base_estimator:
+    sklearn.pipeline.Pipeline:
+      steps:
+        - sklearn.preprocessing.{{ scaler }}
+        - gordo_tpu.models.JaxAutoEncoder:
+            kind: feedforward_hourglass
+            encoding_layers: 1
+            epochs: {{ n_epochs }}
+"""
+
+
+def test_build_model_parameter_expands_as_the_jax_command(tmp_path):
+    config = json.dumps({**machine_config("detector"), "project_name": PROJECT, "model": TEMPLATED})
+    parameters = ["--model-parameter", "n_epochs,2", "--model-parameter", "scaler,MinMaxScaler"]
+    roots = tmp_path / "jax", tmp_path / "port"
+    result = CliRunner().invoke(gordo_tpu_cli, ["build", config, str(roots[0] / "out"), "--model-register-dir",
+                                                str(roots[0] / "register"), *parameters])
+    assert result.exit_code == 0, result.output
+    assert main(["build", config, str(roots[1] / "out"), "--device", "cpu", "--model-register-dir",
+                 str(roots[1] / "register"), *parameters]) == 0
+    models = [json.loads((root / "out" / "metadata.json").read_text())["model"] for root in roots]
+    assert models[1] == models[0]
+    assert '"epochs": 2' in json.dumps(models[1]) and "{{" not in json.dumps(models[1])
     keys = [sorted(p.name for p in (root / "register" / "builds").iterdir()) for root in roots]
     assert keys[1] == keys[0] and len(keys[0]) == 1
