@@ -111,7 +111,7 @@ Those K1 and K2 calls are held to the plain versions and timed under
 build's crash recovery. It builds three machines one at a time with
 ``ModelBuilder`` on the card (machine-000 of ``[train]``, 20 tags, K1's
 narrow kernel; compressor-000, 40 tags, the wide one; lstm-hourglass-000
-of ``[lstm]``), each fold's ``predict`` one K1 launch (3 a feedforward
+of ``[lstm]``; each at ``SEQUENTIAL_EPOCHS`` epochs), each fold's ``predict`` one K1 launch (3 a feedforward
 machine, 0 for the LSTM, read on the counter; the last fold's forward of
 each width held against the plain version on its own params and rows, M
 = 1 x 500, and timed), prints each build's times beside the fleet
@@ -464,6 +464,37 @@ reporter, on the card: its CV score lines printed, its row equal to its
 ``metadata.json``, K1 once a fold. K1 is held to its plain version and
 timed at each spec group's spec (the plan's) and the shape the pod
 logged for it, with seeded params and rows.
+
+``[perfmodel]`` (after ``[workflow]``) fits the learned performance
+model (``gordo_tpu_torch/perfmodel/``) on the card's own batches. An app
+with a batching engine on ``[train]``'s collection (ladders
+``PERFMODEL_LADDERS``), every span exported to a fresh telemetry
+directory, takes coalesced requests of the machines' own rows, a thread
+each, released together: 1, 4 and 16 20-tag machines x 50, 200 and 1000
+rows, three times; 2, 4 and 8 40-tag machines x 200 rows; one JSON
+anomaly request; then engines at bf16 and int8 on the same store, 4
+machines x each row count. Held: one ``serve_batch`` span a batch. The
+``perfmodel fit`` command, a process, fits the corpus (at least 32
+``device_ms/fleet_forward`` rows); it prints the populations, each
+model's learned and analytic holdout log-MAE (the analytic constants are
+the JAX package's) and the gate's verdict; a fit the gate refuses is
+installed again with ``--force`` for what follows, and says so.
+``perfmodel status`` and ``eval`` read the table; a recalibration
+(``GORDO_TPU_PERFMODEL_RECAL=1``) over the same corpus must skip it. A
+second app starts under ``GORDO_TPU_PERFMODEL=1``, ``_TABLE``,
+``_WARMUP``, ``_BATCH_CAP_BYTES`` (the predicted bytes of the full
+member ladder at the middle row rung, so the tallest rung is cut),
+``_BREAKER`` and ``_PRECISION``: it prints its warmup order (held to the
+predicted costs), the row caps and the precision nomination; the JSON
+request sent again goes unbatched over the cap and must equal the first
+engine's batched answer to the bit; a replay within the cap, then an
+out-of-memory injected at ``serve_device_program`` in a batch of 8, which
+must bisect, answer every rider and demote with ``model_informed``. The
+``trace`` report prints the prediction accuracy of the first run
+(analytic) and the replay (learned); ``plan`` of three of ``[train]``'s
+machines with the table, knob off and on, prints the plan's ``learned``.
+K1 is held to its plain version and timed at the corpus's largest f32
+batch, captured on its way to the kernel.
 
 ``[seconds]`` lines give each phase's wall seconds as it ends, and one
 line all of them. It prints one line per phase, then a JSON line with the kernel numbers,
@@ -4290,6 +4321,9 @@ def definitions_phase(work_dir, card):
 #: machine of [train] and an lstm_hourglass machine of [lstm], with the K1
 #: launches each must make (one a TimeSeriesSplit(3) fold; an LSTM none)
 SEQUENTIAL = (("machine-000", 3), ("compressor-000", 3), ("lstm-hourglass-000", 0))
+#: the sequential builds' epochs, on the card and the CPU alike: fewer than
+#: [train]'s 5 and [lstm]'s, to keep the smoke within its time limit
+SEQUENTIAL_EPOCHS = 2
 #: the kill-and-resume drill: [train]'s first 6 20-tag machines; the kill
 #: site fires after its machine's artifact landed and was journaled, so
 #: ``after=2`` dies with exactly 3 artifacts on disk
@@ -4307,9 +4341,10 @@ SEQUENTIAL_CASES = {20: "sequential fold scoring: hourglass20 M=1 B=500",
 #: that path here and in ``tests/test_torch_builder_cuda.py``: a lone
 #: member's Adam steps carry the f32 differences further than a stacked
 #: bucket's. ``scripts/build_tolerance.py sequential`` on an H100 (sound /
-#: TF32 on / one row swapped in the last epoch): feedforward params 3.71e-6
-#: / 3.22e-3 / 4.35e-5, thresholds 1.31e-7 / 2.04e-5 / 4.55e-6, CV scores
-#: 5.90e-7 / 5.87e-4 / 1.17e-4; LSTM (sound / TF32 on; it never shuffles)
+#: TF32 on / one row swapped in the last epoch), [sequential]'s machines at
+#: SEQUENTIAL_EPOCHS: feedforward params 3.71e-6 / 3.22e-3 / 4.35e-5,
+#: thresholds 5.33e-8 / 2.04e-5 / 2.23e-6, CV scores 5.38e-7 / 6.24e-4 /
+#: 1.17e-4 (every planted fault fails a check); LSTM (sound / TF32 on; it never shuffles)
 #: params LSTM_SOUND_TF32_PARAMS, thresholds LSTM_SOUND_TF32_THRESHOLDS,
 #: CV scores LSTM_SOUND_TF32_SCORES.
 SEQUENTIAL_BUILD_LIMITS = (1e-5, 3e-6, 2e-5)
@@ -4327,8 +4362,9 @@ def sequential_machines():
     out = []
     for name, launches in SEQUENTIAL:
         tags, values = rows[name]
-        config = {"name": name, "model": models.get(name, DEFINITION),
-                  "dataset": {"tag_list": tags, "resolution": "10min"}}
+        model = json.loads(re.sub(r'"epochs": \d+', f'"epochs": {SEQUENTIAL_EPOCHS}',
+                                  json.dumps(models.get(name, DEFINITION))))
+        config = {"name": name, "model": model, "dataset": {"tag_list": tags, "resolution": "10min"}}
         out.append((Machine.from_config(config, "smoke", data=(values, None), index=index[:len(values)]), launches,
                     lstm_offsets().get(name, 0)))
     return out
@@ -4383,12 +4419,12 @@ def sequential_builds(card, fleet_ms):
             made, before = fleet_feedforward.launches - before, fleet_feedforward.launches
             meta = built.metadata["build_metadata"]
             collection = "lstm" if offset else "train"
-            phase("sequential", f"{machine.name} built alone by ModelBuilder on the card in "
-                  f"{walls[machine.name]:.1f} ms: fetch {1e3 * meta['dataset']['query_duration_sec']:.3f} ms (rows "
+            phase("sequential", f"{machine.name} built alone by ModelBuilder on the card at {SEQUENTIAL_EPOCHS} "
+                  f"epochs in {walls[machine.name]:.1f} ms: fetch {1e3 * meta['dataset']['query_duration_sec']:.3f} ms (rows "
                   f"already in memory), CV {1e3 * meta['model']['cross_validation']['cv_duration_sec']:.1f} ms "
                   f"(3 folds, one after another), final fit {1e3 * meta['model']['model_training_duration_sec']:.1f} "
-                  f"ms; [{collection}]'s build-fleet took {fleet_ms[collection]:.1f} ms a machine "
-                  f"({walls[machine.name] / fleet_ms[collection]:.1f}x); K1 launches {made} (expected {launches}: "
+                  f"ms; [{collection}]'s build-fleet, at its own epochs, took {fleet_ms[collection]:.1f} ms a "
+                  f"machine ({walls[machine.name] / fleet_ms[collection]:.1f}x); K1 launches {made} (expected {launches}: "
                   f"one a fold's predict), model_offset {meta['model']['model_offset']}; {card}")
             check(made == launches and len(forwards) - first == launches,
                   f"{machine.name}: the sequential build launched K1 {made} times in {len(forwards) - first} "
@@ -6675,6 +6711,308 @@ def workflow_phase(work_dir, card):
     return {"pod": pod_k1, "refused": refused_k1, "parameter": one_k1}, pod_cv
 
 
+# -- [perfmodel]: the learned performance model, fitted on the card's own batches ------
+
+#: the engines' ladders: three member rungs of the served 20-tag bucket, three row rungs
+PERFMODEL_LADDERS = dict(max_size=16, max_delay_ms=25.0, deadline_ms=30000.0, row_ladder=(64, 256, 1024))
+#: coalesced members and request rows of the corpus's f32 batches (each 3 times), and of its reduced ones
+PERFMODEL_MEMBERS = (1, 4, 16)
+PERFMODEL_ROWS = (50, 200, 1000)
+PERFMODEL_REPEATS = 3
+#: the machines the plan command plans with the fitted table: two 20-tag, one 40-tag
+PERFMODEL_PLANNED = ("machine-000", "machine-001", "compressor-000")
+#: the member an injected out-of-memory strikes in the capped engine's drill
+PERFMODEL_OOM = "machine-003"
+
+
+def own_matrix(name, rows):
+    """A machine's next ``rows`` readings past its training rows, as the
+    matrix a request carries (``own_frame``'s values, without the excursion)."""
+    n_tags = WIDE_TAGS if name.startswith("compressor-") else 20
+    seed = int(name.rsplit("-", 1)[1]) + (WIDE_SEED if name.startswith("compressor-") else 0)
+    return sensor_data(seed, TRAIN_ROWS + rows, n_tags)[TRAIN_ROWS:].astype("float32")
+
+
+def engine_batch(engine, fleet, names, rows):
+    """One request of ``rows`` rows from each of ``names`` into ``engine``
+    at once (a thread each, released together), to coalesce into one batch:
+    each request's reconstruction rows, or None (not batched)."""
+    results, barrier = [None] * len(names), threading.Barrier(len(names))
+    matrices = [own_matrix(name, rows) for name in names]
+
+    def send(i):
+        barrier.wait()
+        results[i] = engine.batched_predict(fleet, names[i], fleet.model(names[i]), matrices[i])
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(names))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=120)
+    check(not any(thread.is_alive() for thread in threads), "a request of an engine batch never returned")
+    return results
+
+
+def trace_spans(directory, name):
+    with open(os.path.join(directory, "serve_trace.jsonl")) as f:
+        return [span for span in map(json.loads, f) if span.get("name") == name]
+
+
+def perfmodel_phase(work_dir, collection, names, wide_names, shard, card):
+    """The learned performance model on the card (see the module
+    docstring): a corpus of real K1 batches, the fit and its gate, the
+    commands, recalibration, the engine's consumers and the planner's.
+    Returns the phase's K1 launches and its largest f32 batch as a K1 case."""
+    import numpy as np
+
+    from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
+    from gordo_tpu_torch.perfmodel import maybe_recalibrate
+    from gordo_tpu_torch.planner import CostModel, load_table_safe
+    from gordo_tpu_torch.serve import precision
+    from gordo_tpu_torch.serve.engine import ServeConfig, ServeEngine
+    from gordo_tpu_torch.server import build_app
+    from gordo_tpu_torch.server import fleet_store
+    from gordo_tpu_torch.telemetry import serving as serve_trace
+    from gordo_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    corpus_dir = tempfile.mkdtemp(prefix="perfmodel-corpus-", dir=work_dir)
+    replay_dir = tempfile.mkdtemp(prefix="perfmodel-replay-", dir=work_dir)
+    knobs = ("GORDO_TPU_PERFMODEL", "GORDO_TPU_PERFMODEL_TABLE", "GORDO_TPU_PERFMODEL_WARMUP",
+             "GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES", "GORDO_TPU_PERFMODEL_BREAKER", "GORDO_TPU_PERFMODEL_PRECISION",
+             "GORDO_TPU_PERFMODEL_RECAL")
+    check(not any(os.environ.get(k) for k in knobs), "a GORDO_TPU_PERFMODEL knob is set before [perfmodel]")
+    fleet_feedforward.launches = 0
+    largest, launch = {}, fleet_store.fleet_feedforward
+
+    def captured(spec, bucket, X, indices=None, ingest=None, **kwargs):
+        if X.shape[0] * X.shape[1] > largest.get("size", 0) and X.shape[-1] == 20:
+            largest.update(size=X.shape[0] * X.shape[1], case=dict(
+                spec=spec, bucket=bucket, X=X, indices=[int(i) for i in indices], ingest=ingest))
+        return launch(spec, bucket, X, indices=indices, ingest=ingest, **kwargs)
+
+    engines, apps = [], []
+    try:
+        # 1. the corpus: real batches through a batching engine, every span exported
+        with environment({"GORDO_TPU_TELEMETRY_DIR": corpus_dir, "GORDO_TPU_TRACE_SAMPLE_RATE": "1",
+                          "GORDO_TPU_SERVE_WARMUP": "0"}):
+            serve_trace.reset_serve_recorder()
+            app = build_app(collection, device="cuda", serve_config=ServeConfig(**PERFMODEL_LADDERS))
+            apps.append(app)
+            fleet = app.store.fleet()
+            check(len(fleet.warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
+            app.engine.warmup_fleet(fleet)
+            fleet_store.fleet_feedforward = captured
+            try:
+                t0 = time.perf_counter()
+                for _ in range(PERFMODEL_REPEATS):
+                    for members in PERFMODEL_MEMBERS:
+                        for rows in PERFMODEL_ROWS:
+                            got = engine_batch(app.engine, fleet, names[:members], rows)
+                            check(all(r is not None and r.shape == (rows, 20) for r in got),
+                                  f"an f32 batch of {members} x {rows} rows was not scored")
+                for members in (2, 4, 8):
+                    got = engine_batch(app.engine, fleet, wide_names[:members], 200)
+                    check(all(r is not None for r in got), f"a 40-tag batch of {members} was not scored")
+                body = engine_body("anomaly/prediction", own_frame(names[0], 20))
+                path = f"/gordo/v0/smoke/{names[0]}/anomaly/prediction"
+                status, uncapped = wsgi_post(app, path, body)
+                check(status == 200, f"{path} answered {status}")
+            finally:
+                fleet_store.fleet_feedforward = launch
+            f32_stats = app.engine.stats()
+            reduced = {}
+            for prec in ENGINE_PRECISIONS:
+                engine = ServeEngine(app.store, ServeConfig(serve_precision=prec, **PERFMODEL_LADDERS))
+                engines.append(engine)
+                engine.warmup_fleet(fleet)
+                for rows in PERFMODEL_ROWS:
+                    got = engine_batch(engine, fleet, names[:4], rows)
+                    check(all(r is not None for r in got), f"a {prec} batch of 4 x {rows} rows was not scored")
+                reduced[prec] = engine.stats()
+                check(reduced[prec]["precision"]["coalesced"] == {prec: 12},
+                      f"the {prec} engine coalesced {reduced[prec]['precision']['coalesced']}")
+            serve_trace.serve_recorder().flush()
+            corpus_s = time.perf_counter() - t0
+        batches = f32_stats["batches"] + sum(s["batches"] for s in reduced.values())
+        spans = trace_spans(corpus_dir, "serve_batch")
+        check(len(spans) == batches, f"{len(spans)} serve_batch spans for {batches} engine batches")
+        shapes = sorted({(s["attributes"]["precision"], s["attributes"]["padded_members"],
+                          s["attributes"]["padded_rows"]) for s in spans})
+        phase("perfmodel", f"corpus: {batches} engine batches in {corpus_s:.2f} s ({f32_stats['batches']} f32: "
+              f"members {PERFMODEL_MEMBERS} x rows {PERFMODEL_ROWS} x {PERFMODEL_REPEATS} of the 20-tag bucket, 3 of "
+              f"the 40-tag bucket, one JSON anomaly request of {ROWS} rows; "
+              + ", ".join(f"{s['batches']} {p}" for p, s in reduced.items())
+              + f"), each a serve_batch span of {len(shapes)} (precision, members, rows) shapes; K1 launches "
+              f"{fleet_feedforward.launches}; {card}")
+
+        # 2. the fit, as the command runs it, and its gate against the analytic ruler
+        table = os.path.join(work_dir, "perfmodel-cost_table.json")
+
+        def fit(*extra):
+            proc = subprocess.run([sys.executable, "-m", "gordo_tpu_torch", "perfmodel", "fit", corpus_dir,
+                                   "--table", table, *extra, "--as-json"], cwd=HERE, capture_output=True,
+                                  text=True, timeout=300)
+            check(proc.returncode == 0, f"perfmodel fit exited {proc.returncode}: {proc.stderr[-2000:]}")
+            return json.loads(proc.stdout)
+
+        t0 = time.perf_counter()
+        report = fit()
+        fit_s = time.perf_counter() - t0
+        populations = report["corpus"]["rows_by_model"]
+        check(populations.get("device_ms/fleet_forward", 0) >= 32 and "hbm_bytes/fleet_forward" not in populations,
+              f"the corpus's populations: {populations}")
+        phase("perfmodel", f"perfmodel fit (a process, {fit_s:.2f} s): {report['corpus']['rows']} rows from "
+              f"{report['corpus']['spans']} spans, by model {populations}; fingerprint {report['fingerprint']}")
+        for entry in report["models"]:
+            phase("perfmodel", f"{entry['target']}/{entry['program']}: n={entry['n']}, holdout log-MAE learned "
+                  f"{entry['holdout_mae_log']!r}, analytic {entry['analytic_mae_log']!r} (the JAX package's "
+                  f"constants, not the card's); verdict: {entry['reason']}")
+        phase("perfmodel", f"gate: {'PROMOTED' if report['promoted'] else 'not promoted'} ({report['reason']})")
+        if not report["promoted"]:
+            check(report["models"], "the fit had no model to gate")
+            report = fit("--force")
+            check(report["promoted"], f"perfmodel fit --force did not install: {report['reason']}")
+            phase("perfmodel", f"the consumers below run on the forced table ({table}): perfmodel fit --force "
+                  f"installed {[m['reason'] for m in report['models']]}")
+        else:
+            phase("perfmodel", f"the consumers below run on the promoted table ({table})")
+
+        # 3. the other two commands on that table
+        code, status_doc = cli_json("perfmodel", "status", "--table", table)
+        check(code == 0 and status_doc["learned"] and status_doc["corpus"]["fingerprint"] == report["fingerprint"],
+              f"perfmodel status: {code} {status_doc}")
+        code, evaluation = cli_json("perfmodel", "eval", corpus_dir, "--table", table)
+        check(code == 0 and evaluation["models"], f"perfmodel eval exited {code}")
+        phase("perfmodel", "perfmodel status: " + "; ".join(
+            f"{m['target']}/{m['program']} n={m['n']} holdout_mae_log={m['holdout_mae_log']}"
+            for m in status_doc["models"]) + "; perfmodel eval over every row: " + "; ".join(
+            f"{m['target']}/{m['program']} learned {m['learned_mae_log']} ({m['learned_scored']} of {m['rows']} in "
+            f"its domain), analytic {m['analytic_mae_log']}" for m in evaluation["models"]))
+
+        # 4. the lifecycle's recalibration over the same corpus: nothing new, nothing refitted
+        with environment({"GORDO_TPU_PERFMODEL_RECAL": "1"}):
+            before = open(table).read()
+            recal = maybe_recalibrate(corpus_dir, table_path=table)
+        check(recal is not None and recal["reason"] == "corpus unchanged since incumbent fit"
+              and open(table).read() == before, f"recalibration over the unchanged corpus: {recal}")
+        phase("perfmodel", f"maybe_recalibrate (GORDO_TPU_PERFMODEL_RECAL=1) over the same corpus: "
+              f"{recal['reason']}, the table unchanged")
+
+        # 5. a second engine under every consumer knob
+        spec20 = fleet.loaded_specs()[names[0]]
+        spec40 = fleet.loaded_specs()[wide_names[0]]
+        model = CostModel(load_table_safe(table), use_learned=True)
+        top = PERFMODEL_LADDERS["max_size"]
+        budget = model.predict_serve_hbm_bytes(spec20, top, PERFMODEL_LADDERS["row_ladder"][1], "f32")
+        with environment({"GORDO_TPU_TELEMETRY_DIR": replay_dir, "GORDO_TPU_TRACE_SAMPLE_RATE": "1",
+                          "GORDO_TPU_SERVE_WARMUP": "0", "GORDO_TPU_PERFMODEL": "1",
+                          "GORDO_TPU_PERFMODEL_TABLE": table, "GORDO_TPU_PERFMODEL_WARMUP": "1",
+                          "GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES": str(budget), "GORDO_TPU_PERFMODEL_BREAKER": "1",
+                          "GORDO_TPU_PERFMODEL_PRECISION": "1"}):
+            serve_trace.reset_serve_recorder()
+            capped = build_app(collection, device="cuda", serve_config=ServeConfig(**PERFMODEL_LADDERS))
+            apps.append(capped)
+            capped_fleet = capped.store.fleet()
+            check(len(capped_fleet.warm()) == SERVED_MACHINES + WIDE_MACHINES, "not every model loaded")
+            engine = capped.engine
+            warm = engine.warmup_fleet(capped_fleet)
+            warm_rows = max(r for r in PERFMODEL_LADDERS["row_ladder"] if r <= engine.config.warmup_max_rows)
+            predicted = {s.n_features: engine._predicted_step_ms(s, top, warm_rows, "f32") for s in warm["order"]}
+            hot_first = sorted(warm["order"], key=lambda s: (
+                -engine._cost_model().predict_serve_step_s(s, top, warm_rows, "f32"), repr(s)))
+            check(warm["order"] == hot_first and warm["programs"] == 2, f"warmup ran {warm}, predicted {predicted}")
+            caps = {s.n_features: engine._model_row_cap(s, "f32") for s in (spec20, spec40)}
+            check(caps[20] == PERFMODEL_LADDERS["row_ladder"][1], f"the byte budget capped the 20-tag rows at {caps}")
+            nominations = {s.n_features: precision.model_preferred(s, top, warm_rows, engine._cost_model())
+                           for s in (spec20, spec40)}
+            phase("perfmodel", f"second engine (GORDO_TPU_PERFMODEL=1, _TABLE, _WARMUP, _BATCH_CAP_BYTES={budget}, "
+                  f"_BREAKER, _PRECISION): warmup order (hot first) "
+                  + ", ".join(f"hourglass{n} {predicted[n]!r} ms predicted at {top} x {warm_rows}"
+                              for n in [s.n_features for s in warm["order"]])
+                  + f"; row caps by the byte budget (predict_serve_hbm_bytes of {top} members x "
+                  f"{PERFMODEL_LADDERS['row_ladder'][1]} rows at 20 tags): hourglass20 {caps[20]}, hourglass40 "
+                  f"{caps[40]} (ladder {PERFMODEL_LADDERS['row_ladder']}); precision nomination at {top} x "
+                  f"{warm_rows}: "
+                  + ", ".join(f"hourglass{n} {p or 'none (f32 stays)'}" for n, p in nominations.items()))
+
+            # beyond the cap: unbatched, and the same answer to the bit as the uncapped engine's batch
+            before = engine.stats()
+            k1 = fleet_feedforward.launches
+            status, capped_answer = wsgi_post(capped, path, body)
+            after = engine.stats()
+            check(status == 200 and after["fallback"] == before["fallback"] + 1 and after["batches"] ==
+                  before["batches"], f"the request beyond the cap: {status}, {before['fallback']} -> "
+                  f"{after['fallback']} fallbacks")
+            check(capped_answer["data"] == uncapped["data"], "the capped engine's unbatched answer differs from the "
+                  "uncapped engine's batched one")
+            phase("perfmodel", f"POST {path} ({ROWS} rows, over the {caps[20]}-row cap): 200 unbatched (fallback "
+                  f"+1, no batch, K1 launches {fleet_feedforward.launches - k1}), its data equal to the uncapped "
+                  f"engine's batched answer to the bit")
+
+            # a replay within the cap, for the trace's learned predictions, and the OOM drill
+            for members in PERFMODEL_MEMBERS:
+                for rows in PERFMODEL_ROWS[:2]:
+                    got = engine_batch(engine, capped_fleet, names[:members], rows)
+                    check(all(r is not None for r in got), f"a replayed batch of {members} x {rows} was not scored")
+            with faults.inject(faults.FaultRule("serve_device_program", match=f"*{PERFMODEL_OOM}", times=1)):
+                got = engine_batch(engine, capped_fleet, names[:8], PERFMODEL_ROWS[1])
+            check(all(r is not None for r in got), "a rider of the OOM drill's batch was not scored")
+            serve_trace.serve_recorder().flush()
+            demoted = trace_spans(replay_dir, "serve_rung_demoted")
+            stats = engine.stats()
+            check(stats["rung_demotions"] == 1 and len(demoted) == 1
+                  and demoted[0]["attributes"]["model_informed"] is True,
+                  f"the OOM drill: {stats['rung_demotions']} demotions, events {demoted}")
+            event = demoted[0]["attributes"]
+            phase("perfmodel", f"injected RESOURCE_EXHAUSTED at serve_device_program in a batch of 8 x "
+                  f"{PERFMODEL_ROWS[1]} rows: every rider answered (batch_bisects {stats['batch_bisects']}), the "
+                  f"{event['axis']} ladder capped at {event['cap']} ({event['precision']}), model_informed "
+                  f"{event['model_informed']} (the fixed heuristic would halve to 4)")
+        serve_trace.reset_serve_recorder()
+
+        # 6. the trace report: the first run's analytic predictions against the replay's learned ones
+        accuracy = {}
+        for label, directory in (("analytic (corpus)", corpus_dir), ("learned (replay)", replay_dir)):
+            code, doc = cli_json("trace", directory)
+            check(code == 0 and doc.get("prediction_accuracy"), f"trace {directory} exited {code}")
+            accuracy[label] = doc["prediction_accuracy"]["serve_batch"]
+        phase("perfmodel", "trace report's prediction accuracy of serve_batch: " + "; ".join(
+            f"{label}: {a['count']} batches, error_p50 {a['error_p50']}, error_p95 {a['error_p95']}, bias "
+            f"{a['bias']}" for label, a in accuracy.items()) + f"; {card}")
+
+        # 7. the planner with the table
+        with open(shard) as f:
+            doc = json.load(f)
+        doc["machines"] = [m for m in doc["machines"] if m["name"] in PERFMODEL_PLANNED]
+        small = os.path.join(work_dir, "perfmodel-shard.json")
+        with open(small, "w") as f:
+            json.dump(doc, f)
+        plans = {}
+        for knob in ("0", "1"):
+            code, out = cli_stdout("plan", small, "--device", "cuda", "--strategy", "packed", "--cost-table", table,
+                                   "--as-json", env={"GORDO_TPU_PERFMODEL": knob})
+            check(code == 0, f"plan with GORDO_TPU_PERFMODEL={knob} exited {code}")
+            plans[knob] = json.loads(out)
+        check(plans["1"]["cost_table"]["learned"] is True and plans["0"]["cost_table"]["learned"] is False,
+              f"the plans' learned: {plans['0']['cost_table']}, {plans['1']['cost_table']}")
+        phase("perfmodel", f"plan of {len(doc['machines'])} machines with the table: GORDO_TPU_PERFMODEL=1 "
+              f"cost_table.learned {plans['1']['cost_table']['learned']}, predicted_wall_s "
+              f"{plans['1']['totals']['predicted_wall_s']} (knob off: learned {plans['0']['cost_table']['learned']}, "
+              f"{plans['0']['totals']['predicted_wall_s']}; the table has no training-program model, so the "
+              f"buckets cost analytic either way)")
+    finally:
+        for engine in engines:
+            engine.shutdown()
+        for app in apps:
+            app.shutdown()
+        serve_trace.reset_serve_recorder()
+    case = largest.get("case")
+    check(case is not None, "no coalesced 20-tag f32 batch was captured")
+    phase("perfmodel", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"K1": fleet_feedforward.launches}, case
+
+
 def own_rows_frame(name, rows, shift=0.0):
     """ROWS of an [ingress] machine's readings past its training rows, as a
     JSON frame (the seeded machines' own continuation; file-tags-000's
@@ -7061,6 +7399,14 @@ def main():
             deploy_launches, deploy_cases = deploy_phase(work_dir, collection, names, wide_names, cpu_app, card)
         with clocked("workflow"):
             workflow_launches, workflow_cv = workflow_phase(work_dir, card)
+        with clocked("perfmodel"):
+            perfmodel_launches, perfmodel_case = perfmodel_phase(work_dir, collection, names, wide_names,
+                                                                 train_build[0], card)
+        perfmodel_name = engine_case_name(perfmodel_case).replace("coalesced engine batch", "perfmodel corpus batch")
+        errors[perfmodel_name] = compare(perfmodel_case)
+        phase("kernel", f"{perfmodel_name}, the corpus's largest f32 batch (its bucket, indices, ingest plan and "
+              f"rows): max abs {errors[perfmodel_name][0]:.3e}, max rel {errors[perfmodel_name][1]:.3e} "
+              f"(rtol {RTOL}, atol {ATOL})")
         for width, name in DEPLOY_SCORE_CASES.items():
             case = deploy_cases[width][0]
             check(tuple(case["X"].shape) == (1, ROWS, width), f"score's {width}-tag K1 call had shape "
@@ -7280,6 +7626,13 @@ def main():
               f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
               f"{floor!r} ms; {card}")
 
+    timed[perfmodel_name] = times(perfmodel_case)
+    kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[perfmodel_name]
+    phase("times", f"{perfmodel_name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+          f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} of "
+          f"it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; "
+          f"{card}")
+
     PHASE_WALL["times"] = time.perf_counter() - times_t0
     print(f"[seconds] times: {PHASE_WALL['times']:.1f} s", flush=True)
     with clocked("lstm times"):
@@ -7337,7 +7690,7 @@ def main():
                   "packing": packing_launches["K1"], "arrow": arrow_launches["K1"], "ingress": ingress_launches["K1"],
                   "mesh": mesh_launches["K1"],
                   "deploy": deploy_launches["server"]["K1"] + deploy_launches["score"],
-                  "workflow": sum(workflow_launches.values())}
+                  "workflow": sum(workflow_launches.values()), "perfmodel": perfmodel_launches["K1"]}
     k2_by_path = {"train": train_launches["K2"], "config": config_launches["K2"], "serve": launches["K2"],
                   "serve_wide": wide_launches["K2"], "stream": stream_launches["K2"], "routes": route_launches["K2"],
                   "lstm": lstm_launches["K2"], "build": build_launches["K2"], "engine": 0,
@@ -7345,7 +7698,7 @@ def main():
                   "telemetry": telemetry_launches["K2"], "observability": observability_launches["K2"],
                   "slo": slo_launches["K2"], "lifecycle": lifecycle_launches["K2"],
                   "packing": packing_launches["K2"], "arrow": arrow_launches["K2"], "ingress": ingress_launches["K2"],
-                  "mesh": 0, "deploy": deploy_launches["server"]["K2"], "workflow": 0}
+                  "mesh": 0, "deploy": deploy_launches["server"]["K2"], "workflow": 0, "perfmodel": 0}
     k2_wide = f"K2 {WIDE_CASES[0]} y=X"
     print(json.dumps({"kernels": [
         entry("fleet_dense (K1), narrow kernel", "gordo_tpu/ops/pallas_dense.py:114", launches["K1"],
@@ -7453,6 +7806,11 @@ def main():
         entry("fleet_dense (K1), wide kernel, workflow builder pod CV fold scoring",
               "gordo_tpu/ops/pallas_dense.py:114", workflow_cv[WIDE_TAGS][3], k1_by_path,
               workflow_names[WIDE_TAGS], timed[workflow_names[WIDE_TAGS]]),
+        # launches: [perfmodel]'s K1 launches (its corpus's f32 batches, both engines' warmups, the unbatched
+        # request over the cap, the replay and the OOM drill), read on the counter; the shape: the corpus's
+        # largest f32 batch, captured on its way to K1
+        entry("fleet_dense (K1), narrow kernel, perfmodel corpus batch", "gordo_tpu/ops/pallas_dense.py:114",
+              perfmodel_launches["K1"], k1_by_path, perfmodel_name, timed[perfmodel_name]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -119,6 +119,9 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   ``$MODELS_ROOT``. The routing a command installs lives in its own store,
   on ``--device`` (``cuda`` unless ``cpu``): a server picks a promotion up
   when it starts.
+- ``perfmodel fit CORPUS_DIR``, ``perfmodel status`` and ``perfmodel eval
+  CORPUS_DIR`` (``cli/perfmodel.py``): the JAX package's ``perfmodel``
+  commands over the learned performance model (``perfmodel/``).
 - ``workflow generate --machine-config F --project-name P ...``: the JAX
   package's ``workflow generate`` (``cli/workflow_generator.py``), every
   option with its ``WORKFLOW_GENERATOR_*`` variable: the manifests of a
@@ -150,7 +153,7 @@ from ..reporters.base import ReporterException
 from ..utils import yaml_lite
 from ..utils.env import env_bool, env_int, env_str
 from ..utils.template import Template, UndefinedError
-from . import deploy, workflow_generator
+from . import deploy, perfmodel, workflow_generator
 from .exceptions_reporter import ExceptionsReporter, ReportLevel
 
 logger = logging.getLogger(__name__)
@@ -982,6 +985,7 @@ def _parser() -> argparse.ArgumentParser:
     normalize.add_argument("project_name")
     normalize.add_argument("--output", default=None, help="write the shard here instead of printing it")
     deploy.add_parsers(commands)
+    perfmodel.add_parser(commands)
     add_client_parser(commands)
     workflow_generator.add_parser(commands)
     return parser
@@ -1006,6 +1010,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return workflow_generator.main(parser, args)
     if args.command == "lifecycle":
         return _lifecycle_command(parser, args)
+    if args.command == "perfmodel":
+        return perfmodel.main(parser, args)
     if args.command in DEPLOY_COMMANDS:
         return deploy.main(parser, args)
     if args.command == "client":

@@ -40,10 +40,13 @@ Where the port differs from the JAX supervisor:
 - **The health ledger** is the anchor directory's serving ledger
   (``telemetry.serving_ledger``), the one the app feeds: drift,
   quarantine, promotion and the rebuild's build records go there.
-- **Perfmodel recalibration** (``GORDO_TPU_PERFMODEL_RECAL``) needs the
-  learned performance model, which the port does not have
-  (``ROADMAP.md`` item 13): a truthy value makes the supervisor refuse to
-  start.
+
+Under ``GORDO_TPU_PERFMODEL_RECAL`` each cycle ends with one
+recalibration of the learned performance model
+(``perfmodel.service.maybe_recalibrate``) over the telemetry directory
+(``GORDO_TPU_TELEMETRY_DIR``), else the collection directory: the cycle
+report's ``details["perfmodel"]`` and a ``perfmodel_recalibrated`` event
+say what it did; a failure is a debug line, never a broken cycle.
 
 Its spans and events go to ``lifecycle_trace.jsonl`` in
 ``GORDO_TPU_TELEMETRY_DIR``, else in ``<models root>/.lifecycle``
@@ -61,6 +64,7 @@ import numpy as np
 
 from .. import telemetry
 from ..parallel.fleet_build import rebuild_stale
+from ..perfmodel.service import maybe_recalibrate
 from ..planner import PLAN_FILE
 from ..server.prometheus import metrics as prometheus
 from ..telemetry import slo as slo_engine
@@ -77,15 +81,6 @@ logger = logging.getLogger(__name__)
 LIFECYCLE_TRACE_FILE = "lifecycle_trace.jsonl"
 
 PERFMODEL_RECAL_ENV = "GORDO_TPU_PERFMODEL_RECAL"
-
-
-def refuse_perfmodel_recalibration() -> None:
-    """Raise when ``GORDO_TPU_PERFMODEL_RECAL`` is truthy: the port has no
-    learned performance model to recalibrate."""
-    raw = env_str(PERFMODEL_RECAL_ENV, "")
-    if raw and env_bool(PERFMODEL_RECAL_ENV, False):
-        raise NotImplementedError(f"{PERFMODEL_RECAL_ENV}={raw!r} needs the learned performance model, which "
-                                  "gordo_tpu_torch does not have (ROADMAP.md item 13); unset it")
 
 
 @dataclass
@@ -144,7 +139,6 @@ class LifecycleSupervisor:
 
     def __init__(self, machines: Sequence[Any], collection_dir: str, store: Any,
                  config: Optional[LifecycleConfig] = None, engine: Any = None, trainer: Any = None):
-        refuse_perfmodel_recalibration()
         self.machines = list(machines)
         self.collection_dir = os.path.normpath(collection_dir)
         self.models_root = os.path.dirname(self.collection_dir)
@@ -264,9 +258,28 @@ class LifecycleSupervisor:
                 self._gate_and_settle(report)
             # windows in progress survive a restart
             self.state.update(drift=self.monitor.snapshot())
+            self._maybe_recalibrate(report)
         report.phase = self.state.phase
         self._export_status(report)
         return report
+
+    def _maybe_recalibrate(self, report: CycleReport) -> None:
+        """The learned performance model's recalibration, once a cycle
+        (``gordo_tpu/lifecycle/loop.py:316-346``): off unless
+        ``GORDO_TPU_PERFMODEL_RECAL``; advisory, a failure is a debug line."""
+        if not env_bool(PERFMODEL_RECAL_ENV, False):
+            return
+        try:
+            corpus = env_str(telemetry.TRACE_DIR_ENV, None) or self.collection_dir
+            result = maybe_recalibrate(corpus)
+            if result is None:
+                return
+            report.details["perfmodel"] = {"promoted": bool(result.get("promoted")), "reason": result.get("reason"),
+                                           "models": len(result.get("models") or [])}
+            self.recorder.event("perfmodel_recalibrated", corpus=corpus, promoted=bool(result.get("promoted")),
+                                reason=str(result.get("reason", ""))[:200], models=len(result.get("models") or []))
+        except Exception as exc:  # noqa: BLE001 - recalibration is advisory
+            logger.debug("perfmodel recalibration skipped: %r", exc)
 
     def _detect(self, report: CycleReport) -> None:
         verdicts = self.evaluate_drift()

@@ -16,7 +16,9 @@ from .costmodel import (
     calibrate,
     compute_precision,
     dtype_precision,
+    learned_feature_vector,
     load_table_safe,
+    perfmodel_enabled,
     spec_flops_per_sample,
     spec_param_count,
     validate_learned_section,
@@ -39,7 +41,7 @@ __all__ = [
     "COST_TABLE_FILE", "CostModel", "CostTable", "FleetPlan", "LEARNED_FEATURES", "LEARNED_TARGETS",
     "LEARNED_VERSION", "NAIVE", "PACKED", "PERFMODEL_ENV", "PLAN_FILE", "PlanError", "PlannedBucket", "STRATEGIES",
     "annotate_predictions", "build_plan_doc", "calibrate", "compute_precision", "config_fingerprint",
-    "default_strategy", "dtype_precision", "geometric_rungs", "load_table_safe", "naive_buckets",
-    "plan_train_buckets", "render_plan", "round_up_ladder", "sample_pad_ratio", "series_pad_ratio",
+    "default_strategy", "dtype_precision", "geometric_rungs", "learned_feature_vector", "load_table_safe",
+    "naive_buckets", "perfmodel_enabled", "plan_train_buckets", "render_plan", "round_up_ladder", "sample_pad_ratio", "series_pad_ratio",
     "spec_flops_per_sample", "spec_param_count", "validate_learned_section",
 ]

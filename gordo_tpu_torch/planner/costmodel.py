@@ -26,10 +26,16 @@ launch of a stacked shape: there is no XLA compile, so its "compile"
 factor measures a first launch's warm-up (allocator, cuBLAS handles)
 against the analytic compile time.
 
-The ``learned`` section of a table (the learned performance model,
-``ROADMAP.md`` item 13) is validated, read and written back as the JAX
-package does, and never consulted: the planner refuses
-``GORDO_TPU_PERFMODEL`` (:func:`refuse_perfmodel`).
+The ``learned`` section of a table holds the learned performance model's
+log-linear regressors (``gordo_tpu_torch/perfmodel/`` fits and promotes
+them). The evaluation side lives here, as in the JAX package
+(``costmodel.py:113-141``, ``:303-340``, ``:448-486``): the feature
+vector (:func:`learned_feature_vector`), ``CostTable.learned_predict``
+inside the training corpus's domain box, and ``CostModel``'s learned
+branch of each estimate. It answers only when ``GORDO_TPU_PERFMODEL`` is
+on (read once, when a ``CostModel`` is made); off, or out of the domain,
+every estimate is the analytic one, and a plan is byte-identical to one
+costed with a table that has no such section.
 """
 
 import json
@@ -37,10 +43,10 @@ import logging
 import math
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from ..models.spec import FeedForwardSpec, LSTMSpec, ModelSpec
-from ..utils.env import env_bool, env_str
+from ..utils.env import env_bool
 
 logger = logging.getLogger(__name__)
 
@@ -49,18 +55,25 @@ COST_TABLE_FILE = "cost_table.json"
 #: the table's schema version; another one is refused
 COST_TABLE_VERSION = 1
 
-#: the learned performance model's switch, which the port refuses
+#: the learned performance model's switch (default off: the section is inert)
 PERFMODEL_ENV = "GORDO_TPU_PERFMODEL"
-#: the ``learned`` section's schema (``costmodel.py:51-78``)
+#: the ``learned`` section's schema (``costmodel.py:51-78``): the fit side
+#: (``perfmodel/``) and the evaluation here share this vocabulary
 LEARNED_VERSION = 1
 LEARNED_FEATURES: Tuple[str, ...] = ("log_flops_per_sample", "log_members", "log_rows", "log_epochs", "bf16",
                                      "int8")
 LEARNED_TARGETS: Tuple[str, ...] = ("device_ms", "compile_ms", "hbm_bytes")
+#: slack in log space around the corpus's per-feature [lo, hi] box: a
+#: shape further out answers analytic
+LEARNED_DOMAIN_SLACK = 1.6
 
 #: Adam keeps params, grads and two moments a member
 _OPTIMIZER_COPIES = 4
 #: a training step: the forward and twice it backward
 _TRAIN_FLOP_FACTOR = 3.0
+#: resident weight bytes an element, by serving precision (int8 keeps an
+#: f32 scale an output channel besides, :meth:`CostModel.serve_weight_bytes`)
+PRECISION_WEIGHT_BYTES: Dict[str, int] = {"f32": 4, "bf16": 2, "int8": 1}
 #: activation bytes an element, by precision (int8 serving computes in bf16)
 PRECISION_COMPUTE_BYTES: Dict[str, int] = {"f32": 4, "bf16": 2, "int8": 2}
 #: every accepted spelling of a precision
@@ -73,12 +86,28 @@ PRECISION_ALIASES: Dict[str, str] = {
 DEFAULT_PRECISION_FACTORS: Dict[str, float] = {"bf16": 0.6, "int8": 0.55}
 
 
-def refuse_perfmodel() -> None:
-    """Raise when ``GORDO_TPU_PERFMODEL`` is truthy: the planner has no
-    learned performance model to cost with."""
-    if env_bool(PERFMODEL_ENV, False):
-        raise NotImplementedError(f"{PERFMODEL_ENV}={env_str(PERFMODEL_ENV, '')!r} needs the learned performance "
-                                  "model (ROADMAP.md queue 1, item 13), which gordo_tpu_torch does not have; unset it")
+def perfmodel_enabled() -> bool:
+    """The ``GORDO_TPU_PERFMODEL`` switch (default off)."""
+    return env_bool(PERFMODEL_ENV, False)
+
+
+def learned_feature_vector(flops_per_sample: float, members: int, rows: int, epochs: int = 1,
+                           precision: Optional[str] = None) -> List[float]:
+    """The :data:`LEARNED_FEATURES` vector of one program shape, the
+    regressors' input on both the fit and the evaluation side.
+
+    >>> [round(v, 3) for v in learned_feature_vector(100.0, 8, 512)]
+    [4.615, 2.079, 6.238, 0.0, 0.0, 0.0]
+    """
+    prec = normalize_precision(precision)
+    return [
+        math.log(max(float(flops_per_sample), 0.0) + 1.0),
+        math.log(max(int(members), 1)),
+        math.log(max(int(rows), 1)),
+        math.log(max(int(epochs), 1)),
+        1.0 if prec == "bf16" else 0.0,
+        1.0 if prec == "int8" else 0.0,
+    ]
 
 
 def normalize_precision(precision: Optional[str]) -> str:
@@ -199,12 +228,40 @@ class CostTable:
     compile_factors: Dict[str, float] = field(default_factory=dict)
     precision_factors: Dict[str, float] = field(default_factory=lambda: dict(DEFAULT_PRECISION_FACTORS))
     samples: Dict[str, int] = field(default_factory=dict)
-    #: the learned regressors' section, kept as read (never consulted)
+    #: the learned regressors' section (:func:`validate_learned_section`),
+    #: consulted only under ``GORDO_TPU_PERFMODEL``
     learned: Optional[dict] = None
     version: int = COST_TABLE_VERSION
 
     def precision_factor(self, precision: Optional[str]) -> float:
         return float(self.precision_factors.get(normalize_precision(precision), 1.0))
+
+    def learned_entry(self, target: str, program: str) -> Optional[dict]:
+        """The fitted model of ``(target, program)``, or None."""
+        if not self.learned:
+            return None
+        return (self.learned.get("targets") or {}).get(target, {}).get(program)
+
+    def learned_predict(self, target: str, program: str, features: Sequence[float]) -> Optional[float]:
+        """``exp(intercept + coef . x)`` of the fitted model of ``(target,
+        program)`` on a :func:`learned_feature_vector`, in the target's unit
+        (ms or bytes). None when no model is fitted, the shape lies outside
+        the corpus's box widened by :data:`LEARNED_DOMAIN_SLACK`, or the
+        arithmetic misbehaves: the caller then answers analytic."""
+        entry = self.learned_entry(target, program)
+        if entry is None:
+            return None
+        try:
+            for x, lo_i, hi_i in zip(features, entry["lo"], entry["hi"]):
+                if not (lo_i - LEARNED_DOMAIN_SLACK <= x <= hi_i + LEARNED_DOMAIN_SLACK):
+                    return None
+            coef = entry["coef"]
+            value = math.exp(float(coef[0]) + sum(float(c) * float(x) for c, x in zip(coef[1:], features)))
+        except (TypeError, ValueError, KeyError, IndexError, OverflowError):
+            return None
+        if not math.isfinite(value) or value < 0.0:
+            return None
+        return value
 
     def to_dict(self) -> dict:
         doc = {
@@ -260,6 +317,9 @@ class CostTable:
     def calibrated(self) -> bool:
         return bool(self.run_factors or self.compile_factors)
 
+    @property
+    def has_learned(self) -> bool:
+        return bool(self.learned and (self.learned.get("targets") or {}))
 
 
 def load_table_safe(path: Optional[str]) -> CostTable:
@@ -281,11 +341,23 @@ def _round_up(n: int, step: int) -> int:
 class CostModel:
     """Bucket estimates against a :class:`CostTable` (default: the
     analytic one) for the trainer's ``mesh_shape``, ``(model axis, data
-    axis)`` (default one card, ``(1, 1)``)."""
+    axis)`` (default one card, ``(1, 1)``). ``use_learned`` (default
+    ``GORDO_TPU_PERFMODEL``) is resolved once, here: one model answers
+    with one ruler for its whole life."""
 
-    def __init__(self, table: Optional[CostTable] = None, mesh_shape: Tuple[int, int] = (1, 1)):
+    def __init__(self, table: Optional[CostTable] = None, mesh_shape: Tuple[int, int] = (1, 1),
+                 use_learned: Optional[bool] = None):
         self.table = table or CostTable()
         self.mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1] or 1))
+        self.use_learned = perfmodel_enabled() if use_learned is None else bool(use_learned)
+
+    def _learned(self, target: str, program: str, spec: ModelSpec, members: int, rows: int, epochs: int = 1,
+                 precision: Optional[str] = None) -> Optional[float]:
+        """The learned prediction of one shape, or None: answer analytic."""
+        if not self.use_learned:
+            return None
+        return self.table.learned_predict(
+            target, program, learned_feature_vector(spec_flops_per_sample(spec), members, rows, epochs, precision))
 
     def stacked_shape(self, m: int, n_padded: int, batch_size: int) -> Tuple[int, int]:
         """``(m_total, n_total)`` as JAX's trainer stacks them: the members
@@ -315,13 +387,20 @@ class CostModel:
         time corrected by the program's and the precision's factors."""
         if precision is None:
             precision = compute_precision(spec)
+        learned = self._learned("device_ms", program, spec, m_total, n_total, epochs, precision)
+        if learned is not None:
+            return learned / 1000.0
         factor = self.table.run_factors.get(program, 1.0) * self.table.precision_factor(precision)
         return factor * (self.train_flops(spec, m_total, n_total, epochs) / self.table.throughput) + \
             self.table.dispatch_s
 
     def predict_compile_s(self, program: str, spec: ModelSpec) -> float:
         """The compile time of one program, seconds (on the card: its
-        first launch's warm-up, once calibrated)."""
+        first launch's warm-up, once calibrated). The learned model keys it
+        on the spec alone: the shape axes pinned to 1."""
+        learned = self._learned("compile_ms", program, spec, 1, 1)
+        if learned is not None:
+            return learned / 1000.0
         factor = self.table.compile_factors.get(program, 1.0)
         return factor * (self.table.compile_floor_s + self.table.compile_per_flop * spec_flops_per_sample(spec))
 
@@ -333,6 +412,10 @@ class CostModel:
         program holds its series)."""
         if precision is None:
             precision = compute_precision(spec)
+        learned = self._learned("hbm_bytes", "fleet_windowed_fit" if series_rows is not None else "fleet_fit", spec,
+                                m_total, n_total, 1, precision)
+        if learned is not None:
+            return int(learned)
         f_in = getattr(spec, "n_features", 1)
         f_out = getattr(spec, "n_features_out", f_in)
         if series_rows is not None:
@@ -347,6 +430,34 @@ class CostModel:
         compute_bytes = PRECISION_COMPUTE_BYTES.get(normalize_precision(precision), 4)
         return int(4 * (data + params) + compute_bytes * activations)
 
+    def serve_weight_bytes(self, spec: ModelSpec, members: int, precision: str = "f32") -> int:
+        """Resident weight bytes of a serving bucket of ``members`` at a
+        precision: bf16 halves them, int8 quarters them and adds an f32
+        scale an output channel a member.
+
+        >>> CostModel().serve_weight_bytes(FeedForwardSpec(3, 3, (2,), ("tanh",)), 2, "int8")
+        74
+        """
+        precision = normalize_precision(precision)
+        scales = 0
+        if precision == "int8":
+            dims = tuple(getattr(spec, "dims", ())) + (getattr(spec, "n_features_out", 1),)
+            scales = 4 * members * sum(dims)
+        return int(PRECISION_WEIGHT_BYTES.get(precision, 4) * spec_param_count(spec) * members + scales)
+
+    def predict_serve_hbm_bytes(self, spec: ModelSpec, members: int, rows: int, precision: str = "f32") -> int:
+        """Resident bytes of one fused serving batch: the weight bucket, the
+        rows at the compute width and the f32 output (the learned model's
+        ``hbm_bytes`` of ``fleet_forward`` in its domain)."""
+        precision = normalize_precision(precision)
+        learned = self._learned("hbm_bytes", "fleet_forward", spec, members, rows, 1, precision)
+        if learned is not None:
+            return int(learned)
+        f_in = getattr(spec, "n_features", 1)
+        f_out = getattr(spec, "n_features_out", f_in)
+        payload = PRECISION_COMPUTE_BYTES.get(precision, 4) * members * rows * f_in
+        return self.serve_weight_bytes(spec, members, precision) + payload + 4 * members * rows * f_out
+
     def predict_serve_step_s(self, spec: ModelSpec, members: int, rows: int, precision: str = "f32") -> float:
         """The seconds of one fused serving forward of ``members`` x
         ``rows`` rows (no training factor): what the engine's batch spans
@@ -356,6 +467,9 @@ class CostModel:
         >>> round(CostModel().predict_serve_step_s(FeedForwardSpec(3, 3, (2,), ("tanh",)), 2, 100), 7)
         0.0100024
         """
+        learned = self._learned("device_ms", "fleet_forward", spec, members, rows, 1, precision)
+        if learned is not None:
+            return learned / 1000.0
         flops = spec_flops_per_sample(spec) * float(members) * float(rows)
         factor = self.table.run_factors.get("fleet_forward", 1.0) * self.table.precision_factor(precision)
         return factor * (flops / self.table.throughput) + self.table.dispatch_s

@@ -39,7 +39,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..utils.env import env_int, env_str
-from .costmodel import CostModel, refuse_perfmodel
+from .costmodel import CostModel
 from .ladder import round_up_ladder, sample_pad_ratio, series_pad_ratio  # noqa: F401 - re-exported
 
 logger = logging.getLogger(__name__)
@@ -331,7 +331,6 @@ def plan_train_buckets(
     the others (CV fold members, machines added since) pack live with
     ``strategy`` (default :func:`default_strategy`).
     """
-    refuse_perfmodel()
     if not members:
         return []
     strategy = strategy or default_strategy()

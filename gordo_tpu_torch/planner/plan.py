@@ -24,7 +24,7 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .costmodel import CostTable
+from .costmodel import CostTable, perfmodel_enabled
 from .packing import PlannedBucket, member_is_windowed, member_samples
 
 PLAN_VERSION = 1
@@ -191,9 +191,10 @@ def build_plan_doc(
         "strategy": strategy,
         "mesh_shape": [int(mesh_shape[0]), int(mesh_shape[1] or 1)],
         "config_fingerprint": config_fingerprint,
-        # the learned model never costs a port plan (the planner refuses it)
+        # which ruler ranked the buckets: learned only with a fitted section and the knob on
         "cost_table": {"version": table.version, "calibrated": table.calibrated,
-                       "samples": {str(k): int(v) for k, v in sorted(table.samples.items())}, "learned": False},
+                       "samples": {str(k): int(v) for k, v in sorted(table.samples.items())},
+                       "learned": table.has_learned and perfmodel_enabled()},
         "buckets": bucket_docs,
         "totals": totals,
     })

@@ -55,8 +55,9 @@ with the copy back, ``batch_scatter``, and ``device_ingest``, the rows'
 copy to the device, for a batch with the ingest prologue), which the
 request records into its ``Server-Timing``. ``padded_members`` on the
 spans is what the JAX engine would launch (the port launches
-``coalesced``); ``predicted_device_ms`` is the analytic cost model's
-(``planner/costmodel.py``) for the launched shape. Bisections, isolated
+``coalesced``); ``predicted_device_ms`` is the engine's cost model's
+(:meth:`ServeEngine._cost_model`) for the span's ``padded_members`` x
+``padded_rows``, the features a learned model regresses on. Bisections, isolated
 members, degraded buckets, demoted rungs and breaker transitions are
 events; each breaker transition also goes to the app's health ledger
 (``ledger``, a zero-argument callable; an engine without one feeds no
@@ -70,8 +71,29 @@ against ``padded_members``, as the batch span's), each shed by reason, the
 queue depth, each breaker transition and the open members. A failing sink
 is ignored.
 
-The learned performance model's knobs (``GORDO_TPU_PERFMODEL_*``) are not
-ported: set, they make the engine refuse to start.
+The learned performance model's consumers (``gordo_tpu/serve/engine.py``,
+each knob off by default, each falling back to the behaviour without the
+model when the model cannot answer):
+
+- ``GORDO_TPU_PERFMODEL_TABLE``: the ``cost_table.json`` the engine's
+  one cost model is built from (:meth:`ServeEngine._cost_model`), for its
+  batch spans' predictions and every consumer below;
+- ``GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES``: the tallest row rung whose
+  predicted fused batch (the full member ladder) fits the budget; a taller
+  request serves unbatched (:meth:`ServeEngine._model_row_cap`, merged
+  with the out-of-memory cap as a min);
+- ``GORDO_TPU_PERFMODEL_BREAKER`` (``_BREAKER_SAFETY``, default 0.8): an
+  out-of-memory demotes to the largest lower rung predicted to fit under
+  that share of the failed shape's bytes (:meth:`ServeEngine._hbm_aware_cap`;
+  the event's ``model_informed``);
+- ``GORDO_TPU_PERFMODEL_WARMUP``: warmup runs the specs predicted
+  costliest first, ``repr`` breaking ties;
+- ``GORDO_TPU_PERFMODEL_PRECISION``: a spec with no pinned precision
+  serves at the rung the learned model nominates
+  (``precision.model_preferred``), on the request path and in warmup.
+
+None of them is consulted around a launch: a prediction that fails falls
+back to the analytic ruler or to the fixed heuristic, never to the CPU.
 """
 
 import logging
@@ -88,7 +110,7 @@ import torch
 from ..ingest import RawColumns, compiled_enabled, dlpack_enabled, ingest_stats, stage, staging_buffer
 from ..models.estimators import find_estimator
 from ..models.spec import FeedForwardSpec
-from ..planner.costmodel import CostModel, spec_flops_per_sample
+from ..planner.costmodel import CostModel, load_table_safe, spec_flops_per_sample
 from ..telemetry.serving import serve_recorder
 from ..utils.env import env_bool, env_float, env_int, env_str
 from ..utils.faults import FaultInjected, fault_point
@@ -100,14 +122,12 @@ logger = logging.getLogger(__name__)
 
 BATCHING_ENV = "GORDO_TPU_BATCHING"
 
-#: the learned performance model's consumer knobs (off by default in the
-#: JAX package); the model is not ported, so the engine refuses them
-PERFMODEL_KNOBS = (
-    "GORDO_TPU_PERFMODEL_PRECISION",
-    "GORDO_TPU_PERFMODEL_WARMUP",
-    "GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES",
-    "GORDO_TPU_PERFMODEL_BREAKER",
-)
+#: the learned performance model's consumer knobs (``engine.py:62-68``)
+PERFMODEL_TABLE_ENV = "GORDO_TPU_PERFMODEL_TABLE"
+PERFMODEL_WARMUP_ENV = "GORDO_TPU_PERFMODEL_WARMUP"
+PERFMODEL_CAP_ENV = "GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES"
+PERFMODEL_BREAKER_ENV = "GORDO_TPU_PERFMODEL_BREAKER"
+PERFMODEL_BREAKER_SAFETY_ENV = "GORDO_TPU_PERFMODEL_BREAKER_SAFETY"
 
 #: CUDA errors that the runtime reports as sticky: the context is lost,
 #: and no retry on it can succeed
@@ -122,16 +142,6 @@ _STICKY_CUDA = re.compile(
 def batching_enabled() -> bool:
     """The switch: batching is opt-in (``GORDO_TPU_BATCHING=1``)."""
     return env_bool(BATCHING_ENV, False)
-
-
-def refuse_perfmodel_knobs() -> None:
-    """Raise when a learned-performance-model knob is set: the port has no
-    cost model to honour it with."""
-    for name in PERFMODEL_KNOBS:
-        raw = env_str(name, "")
-        if raw and raw.strip().lower() not in ("0", "false", "off", "no"):
-            raise NotImplementedError(f"{name}={raw!r} needs the learned performance model, which gordo_tpu_torch "
-                                      "does not have; unset it")
 
 
 def is_sticky_device_error(exc: BaseException) -> bool:
@@ -218,7 +228,6 @@ class ServeEngine:
 
     def __init__(self, store: Any, config: Optional[ServeConfig] = None,
                  ledger: Optional[Callable[[], Any]] = None):
-        refuse_perfmodel_knobs()
         self.store = store
         self.config = config or ServeConfig.from_env()
         #: answers the health ledger the breaker transitions go to (None: no feed)
@@ -260,6 +269,12 @@ class ServeEngine:
             "ingest_batches": 0,  # batches run with the ingest prologue
         }
         self._precision_counters: Dict[str, int] = {}
+        #: (spec, members, rows, precision) -> the cost model's device ms
+        self._step_predictions: Dict[Tuple, float] = {}
+        #: the engine's one cost model (:meth:`_cost_model`), built on first use
+        self._cost_model_cache: Optional[CostModel] = None
+        #: (spec, precision) -> the predicted-HBM row cap (None: uncapped)
+        self._model_row_caps: Dict[Tuple, Optional[int]] = {}
         self._batcher = MicroBatcher(
             self._run_batch,
             max_size=self.config.max_size,
@@ -322,7 +337,7 @@ class ServeEngine:
             self._count("fallback")
             return None
 
-        desired = precision.resolve_precision(spec, self.config.precision)
+        desired = self._desired_precision(spec, padded_rows)
         prec = desired
         if desired != precision.F32:
             if self.breakers.degraded(fleet, spec, desired):
@@ -332,8 +347,12 @@ class ServeEngine:
             if prec != desired:
                 self._count("precision_degraded")
 
-        # a rung that ran out of memory serves unbatched from now on
+        # a rung that ran out of memory serves unbatched from now on; the
+        # predicted-HBM cap on the same axis merges with it as a min
         row_cap = self._row_caps.get((spec, prec))
+        model_cap = self._model_row_cap(spec, prec)
+        if model_cap is not None and (row_cap is None or model_cap < row_cap):
+            row_cap = model_cap
         if row_cap is not None and padded_rows > row_cap:
             self._count("fallback")
             return None
@@ -481,8 +500,7 @@ class ServeEngine:
                     padding_waste=round(waste, 4),
                     queue_wait_max_ms=round(max(flush_start - item.enqueued_at for item in items) * 1000.0, 3),
                     precision=prec,
-                    predicted_device_ms=round(
-                        CostModel().predict_serve_step_s(spec, members, padded_rows, prec) * 1000.0, 4),
+                    predicted_device_ms=self._predicted_step_ms(spec, padded_members, padded_rows, prec),
                     device_ms=round(device_s * 1000.0, 3),
                     ingest_ms=round(ingest_s * 1000.0, 3),
                     isolated_failures=len(failures),
@@ -660,16 +678,23 @@ class ServeEngine:
             torch.cuda.empty_cache()
         demoted = None
         padded = ladder.pad_to(members, self.member_ladder) or members
-        with self._lock:
+        # the predicted-HBM demotion (GORDO_TPU_PERFMODEL_BREAKER) may drop
+        # several rungs at once; None defers to the fixed heuristic
+        cap = self._hbm_aware_cap(spec, prec, padded, padded_rows, "members" if members > 1 else "rows")
+        model_informed = cap is not None
+        if cap is None:
             if members > 1:
                 cap = max(1, padded // 2)
+            else:
+                lower = [r for r in self.config.row_ladder if r < padded_rows]
+                cap = max(lower) if lower else 0
+        with self._lock:
+            if members > 1:
                 current = self._member_caps.get((spec, prec))
                 if current is None or cap < current:
                     self._member_caps[(spec, prec)] = cap
                     demoted = ("members", cap)
             else:
-                lower = [r for r in self.config.row_ladder if r < padded_rows]
-                cap = max(lower) if lower else 0
                 current = self._row_caps.get((spec, prec))
                 if current is None or cap < current:
                     self._row_caps[(spec, prec)] = cap
@@ -679,7 +704,7 @@ class ServeEngine:
             logger.warning("out of memory at (%s members, %s rows, %s): capping the %s ladder for %s at %d",
                            members, padded_rows, prec, demoted[0], type(spec).__name__, demoted[1])
             self._recorder.event("serve_rung_demoted", spec=type(spec).__name__, precision=prec, axis=demoted[0],
-                                 cap=demoted[1], model_informed=False, error=repr(exc)[:200])
+                                 cap=demoted[1], model_informed=model_informed, error=repr(exc)[:200])
 
     def _on_breaker_transition(self, member: str, old: str, new: str, info: dict) -> None:
         """A breaker's transition: the trip counter, a ``serve_breaker``
@@ -700,6 +725,119 @@ class ServeEngine:
             except Exception:  # noqa: BLE001 - metrics are advisory
                 pass
 
+    # -- the learned performance model's consumers -----------------------------
+
+    def _desired_precision(self, spec: Any, rows: int) -> str:
+        """The precision ``spec`` is asked to serve at, before the gate and
+        the degrade set: its own or the configured one; with neither pinned,
+        the learned model's nomination at the full member ladder and
+        ``rows`` (``GORDO_TPU_PERFMODEL_PRECISION``), else f32."""
+        desired = precision.resolve_precision(spec, self.config.precision)
+        if desired == precision.F32 and not getattr(spec, "precision", ""):
+            desired = precision.model_preferred(spec, self.member_ladder[-1], rows, self._cost_model()) or desired
+        return desired
+
+    def _cost_model(self) -> CostModel:
+        """The engine's cost model, built once from the table
+        ``GORDO_TPU_PERFMODEL_TABLE`` names (the analytic defaults without
+        one; a corrupt or missing table degrades to them in
+        ``load_table_safe``), so every consumer measures with one ruler."""
+        model = self._cost_model_cache
+        if model is None:
+            with self._lock:
+                if self._cost_model_cache is None:
+                    self._cost_model_cache = CostModel(load_table_safe(env_str(PERFMODEL_TABLE_ENV, None)))
+                model = self._cost_model_cache
+        return model
+
+    def _predicted_step_ms(self, spec: Any, members: int, rows: int, prec: str) -> float:
+        """The cost model's device ms of one fused batch at this shape and
+        precision, cached by shape; -1.0 when the estimate fails."""
+        key = (spec, members, rows, prec)
+        cached = self._step_predictions.get(key)
+        if cached is None:
+            try:
+                cached = round(self._cost_model().predict_serve_step_s(spec, members, rows, prec) * 1000.0, 4)
+            except Exception:  # noqa: BLE001 - a prediction is telemetry, never the batch's problem
+                cached = -1.0
+            with self._lock:
+                if len(self._step_predictions) > 4096:
+                    self._step_predictions.clear()
+                self._step_predictions[key] = cached
+        return cached
+
+    def _model_row_cap(self, spec: Any, prec: str) -> Optional[int]:
+        """The predicted-HBM row cap of ``(spec, prec)`` under
+        ``GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES``: the tallest row rung whose
+        fused batch at the full member ladder is predicted within the budget
+        (0: every request unbatched). None (uncapped) with the knob off or
+        an estimate that fails."""
+        cap_bytes = env_int(PERFMODEL_CAP_ENV, 0)
+        if cap_bytes <= 0:
+            return None
+        key = (spec, prec)
+        with self._lock:
+            if key in self._model_row_caps:
+                return self._model_row_caps[key]
+        cap: Optional[int] = None
+        try:
+            model = self._cost_model()
+            top_members = self.member_ladder[-1]
+            fitting = [rung for rung in self.config.row_ladder
+                       if model.predict_serve_hbm_bytes(spec, top_members, rung, prec) <= cap_bytes]
+            cap = max(fitting) if fitting else 0
+            if cap != self.config.row_ladder[-1]:
+                logger.info("perfmodel batch cap: (%s, %s) rows capped at %d (predicted HBM budget %d bytes)",
+                            type(spec).__name__, prec, cap, cap_bytes)
+        except Exception:  # noqa: BLE001 - an unpredictable shape stays uncapped, not unbatched
+            cap = None
+        with self._lock:
+            if len(self._model_row_caps) > 4096:
+                self._model_row_caps.clear()
+            self._model_row_caps[key] = cap
+        return cap
+
+    def _hbm_aware_cap(self, spec: Any, prec: str, padded_members: int, padded_rows: int,
+                       axis: str) -> Optional[int]:
+        """The out-of-memory demotion the predicted bytes inform
+        (``GORDO_TPU_PERFMODEL_BREAKER``): the largest lower rung on
+        ``axis`` (``members`` or ``rows``) predicted within
+        ``GORDO_TPU_PERFMODEL_BREAKER_SAFETY`` (default 0.8) of the failed
+        shape's bytes. None defers to the fixed heuristic."""
+        if not env_bool(PERFMODEL_BREAKER_ENV, False):
+            return None
+        try:
+            model = self._cost_model()
+            safety = env_float(PERFMODEL_BREAKER_SAFETY_ENV, 0.8) or 0.8
+            failed = model.predict_serve_hbm_bytes(spec, padded_members, padded_rows, prec)
+            if failed <= 0:
+                return None
+            budget = failed * float(safety)
+            if axis == "members":
+                fitting = [v for v in self.member_ladder if v < padded_members
+                           and model.predict_serve_hbm_bytes(spec, v, padded_rows, prec) <= budget]
+            else:
+                fitting = [r for r in self.config.row_ladder if r < padded_rows
+                           and model.predict_serve_hbm_bytes(spec, padded_members, r, prec) <= budget]
+            return max(fitting) if fitting else None
+        except Exception:  # noqa: BLE001 - the fixed heuristic is the fallback
+            return None
+
+    def warmup_order(self, specs: Any, rows: int) -> List[Any]:
+        """The order warmup runs ``specs`` in: by ``repr``, or under
+        ``GORDO_TPU_PERFMODEL_WARMUP`` the costliest predicted step first
+        (f32, the full member ladder, ``rows``), ``repr`` breaking ties."""
+        order = sorted(specs, key=repr)
+        if env_bool(PERFMODEL_WARMUP_ENV, False):
+            try:
+                model = self._cost_model()
+                top_members = self.member_ladder[-1]
+                order = sorted(specs, key=lambda s: (
+                    -model.predict_serve_step_s(s, top_members, rows, precision.F32), repr(s)))
+            except Exception:  # noqa: BLE001 - the order is advisory
+                order = sorted(specs, key=repr)
+        return order
+
     # -- warmup ---------------------------------------------------------------
 
     def warmup_collection(self, collection_dir: str) -> Dict[str, Any]:
@@ -713,16 +851,17 @@ class ServeEngine:
         feedforward bucket, then one forward a bucket at its serving
         precision (one K1 launch a spec at f32 on a card, which also loads
         the kernel library, built with ``nvcc`` on first use), at the
-        tallest rung within ``warmup_max_rows``."""
+        tallest rung within ``warmup_max_rows``, the specs in
+        :meth:`warmup_order`. The result's ``order`` lists the specs run."""
         from ..server.fleet_store import fleet_forward_gather
 
         start = time.monotonic()
         warm_rows = max([r for r in self.config.row_ladder if r <= self.config.warmup_max_rows]
                         or [self.config.row_ladder[0]])
         specs = {spec for spec in fleet.loaded_specs().values() if isinstance(spec, FeedForwardSpec)}
-        runs = 0
-        for spec in sorted(specs, key=repr):
-            desired = precision.resolve_precision(spec, self.config.precision)
+        runs, order = 0, []
+        for spec in self.warmup_order(specs, warm_rows):
+            desired = self._desired_precision(spec, warm_rows)
             prec = self.governor.effective_precision(fleet, spec, desired, recorder=self._recorder) \
                 if desired != precision.F32 else precision.F32
             try:
@@ -734,10 +873,11 @@ class ServeEngine:
             with self._recorder.span("warmup_program", padded_members=members, padded_rows=warm_rows, precision=prec):
                 fleet_forward_gather(spec, params, list(range(members)), X, ingest=ingest, precision=prec).cpu()
             runs += 1
+            order.append(spec)
         self._count("warmup_programs", runs)
         seconds = time.monotonic() - start
         logger.info("serve warmup: %d forward(s) over %d spec bucket(s) in %.2fs", runs, len(specs), seconds)
-        return {"programs": runs, "specs": len(specs), "seconds": seconds}
+        return {"programs": runs, "specs": len(specs), "seconds": seconds, "order": order}
 
     # -- introspection and lifecycle -------------------------------------------
 

@@ -27,9 +27,9 @@ stages float32 and casts on the card (both round to nearest even, so the
 bf16 values are the same), and :func:`payload_dtype` answers the torch
 dtype the forward casts its input rows to.
 
-The learned cost model that may nominate a precision
-(``GORDO_TPU_PERFMODEL_PRECISION``) is not ported: the engine refuses to
-start while that knob is on (``serve.engine.refuse_perfmodel_knobs``).
+Under ``GORDO_TPU_PERFMODEL_PRECISION`` the learned performance model may
+nominate the rung it measured fastest (:func:`model_preferred`), which
+then rides the gate and the degrade set as a configured rung does.
 """
 
 import logging
@@ -41,13 +41,14 @@ import numpy as np
 import torch
 
 from ..ops.activations import resolve_activation
-from ..planner.costmodel import PRECISION_ALIASES
+from ..planner.costmodel import PRECISION_ALIASES, learned_feature_vector, spec_flops_per_sample
 from ..utils.env import env_bool, env_float, env_int, env_str
 
 logger = logging.getLogger(__name__)
 
 PRECISION_ENV = "GORDO_TPU_SERVE_PRECISION"
 GATE_ENV = "GORDO_TPU_PRECISION_GATE"
+PERFMODEL_PRECISION_ENV = "GORDO_TPU_PERFMODEL_PRECISION"
 
 #: the ladder, widest first; f32 is the default and the degrade target.
 #: int8 is per-channel weight-only quantization (activations run bf16)
@@ -95,6 +96,33 @@ def resolve_precision(spec: Any, default: Optional[str] = None) -> str:
 def gate_enabled() -> bool:
     """The parity gate's switch (``GORDO_TPU_PRECISION_GATE``, default on)."""
     return env_bool(GATE_ENV, True)
+
+
+def model_preferred(spec: Any, members: int, rows: int, cost_model: Any) -> Optional[str]:
+    """The rung the learned performance model predicts fastest for
+    ``spec`` at ``members`` x ``rows``, or None to keep the configured
+    resolution (``gordo_tpu/serve/precision.py:109-155``): off unless
+    ``GORDO_TPU_PERFMODEL_PRECISION``; only from measured evidence (every
+    rung needs an in-domain learned ``fleet_forward`` prediction: the
+    analytic precision factors always favour reduced); a nomination of f32
+    is None. Advisory: the winner still rides the gate and the degrade set."""
+    if not env_bool(PERFMODEL_PRECISION_ENV, False):
+        return None
+    try:
+        flops = spec_flops_per_sample(spec)
+        best: Optional[Tuple[float, str]] = None
+        for candidate in PRECISIONS:
+            predicted = cost_model.table.learned_predict(
+                "device_ms", "fleet_forward", learned_feature_vector(flops, members, rows, 1, candidate))
+            if predicted is None:
+                return None  # partial evidence: keep the configured rung
+            if best is None or predicted < best[0]:
+                best = (predicted, candidate)
+        if best is None or best[1] == F32:
+            return None
+        return best[1]
+    except Exception:  # noqa: BLE001 - advisory, never a gate
+        return None
 
 
 def payload_dtype(precision: str = F32) -> torch.dtype:

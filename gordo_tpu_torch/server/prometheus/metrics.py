@@ -91,8 +91,9 @@ def refuse_multiprocess_dir() -> None:
         if value:
             raise NotImplementedError(
                 f"{name}={value!r} asks for the multi-process exposition of run-server's workers, which "
-                "gordo_tpu_torch does not have yet (ROADMAP.md queue 1, item 13); unset it: the port's server is "
-                "one process and serves its metrics itself (python -m gordo_tpu_torch.server --metrics-port)")
+                "gordo_tpu_torch does not have yet (ROADMAP.md queue 1, item 13, part 8: the pre-fork server); "
+                "unset it: the port's server is one process and serves its metrics itself (python -m "
+                "gordo_tpu_torch.server --metrics-port)")
 
 
 _made_lock = threading.RLock()

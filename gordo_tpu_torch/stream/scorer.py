@@ -22,8 +22,9 @@ Each machine's result becomes an ``anomaly`` event with its exact
 
 Each flush is one ``stream_score`` span of the serving trace: rows,
 windows and shed rows, each machine's ingest-to-scored lag (p50, max, a
-rows-weighted histogram), the analytic ``predicted_device_ms`` of its
-spec groups (``planner/costmodel.py``) beside the measured ``device_ms``
+rows-weighted histogram), the ``predicted_device_ms`` of its spec groups
+(the cost model of the table ``GORDO_TPU_PERFMODEL_TABLE`` names, else
+the analytic one; ``planner/costmodel.py``) beside the measured ``device_ms``
 (the K2 launch and the copy back), and links to the ``stream_ingest``
 spans it drained; then a ``stream_emit`` span times the events. The
 flush feeds the app's health ledger (rows, residual mean and a request a
@@ -40,10 +41,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..planner.costmodel import CostModel
+from ..planner.costmodel import CostModel, load_table_safe
 from ..serve.breaker import BreakerBoard
 from ..serve.ladder import snap_rows
 from ..telemetry import serving as serve_trace
+from ..utils.env import env_str
 from ..utils.faults import fault_point
 from .events import StreamEvent
 from .session import StreamSession
@@ -72,6 +74,8 @@ class WindowScorer:
         self.ledger = ledger
         #: a lifecycle ``DriftMonitor`` the flushes feed (None: no feed)
         self.drift_monitor = drift_monitor
+        #: (spec, members, rows) -> predicted device ms of one spec group
+        self._step_predictions: Dict[Any, float] = {}
 
     @staticmethod
     def _spec_for(fleet: Any, name: str) -> Any:
@@ -82,17 +86,39 @@ class WindowScorer:
             spec = None
         return spec if spec is not None else FALLBACK_SPEC
 
+    def _predicted_step_ms(self, spec: Any, members: int, rows: int) -> float:
+        """The cost model's device ms of one f32 spec group at this shape,
+        through the table ``GORDO_TPU_PERFMODEL_TABLE`` names (a bad one
+        degrades to the analytic defaults), cached by shape; -1.0 when the
+        estimate fails."""
+        key = (spec, members, rows)
+        cached = self._step_predictions.get(key)
+        if cached is None:
+            try:
+                model = CostModel(load_table_safe(env_str("GORDO_TPU_PERFMODEL_TABLE", None)))
+                cached = round(model.predict_serve_step_s(spec, members, rows, "f32") * 1000.0, 4)
+            except Exception:  # noqa: BLE001 - a prediction is telemetry, never the flush's problem
+                cached = -1.0
+            if len(self._step_predictions) > 4096:
+                self._step_predictions.clear()
+            self._step_predictions[key] = cached
+        return cached
+
     def _predicted_flush_ms(self, specs: Dict[str, Any], inputs: Dict[str, np.ndarray]) -> float:
-        """The cost model's device ms of the flush: one f32 forward a spec
-        group at its members and tallest rows, summed; -1.0 when no
-        member's spec is known."""
+        """The predicted device ms of the flush: one forward a spec group at
+        its members and tallest rows, summed; -1.0 when no member's spec is
+        known or a group's estimate failed."""
         groups: Dict[Any, List[int]] = {}
         for name, rows in inputs.items():
             spec = specs.get(name)
             if spec is not None and not isinstance(spec, str):
                 groups.setdefault(spec, []).append(int(len(rows)))
-        total = sum(CostModel().predict_serve_step_s(spec, len(rows), max(rows), "f32") * 1000.0
-                    for spec, rows in groups.items())
+        total = 0.0
+        for spec, rows in groups.items():
+            predicted = self._predicted_step_ms(spec, len(rows), max(rows))
+            if predicted < 0.0:
+                return -1.0
+            total += predicted
         return round(total, 4) if groups else -1.0
 
     def flush(self, session: StreamSession) -> Dict[str, Any]:

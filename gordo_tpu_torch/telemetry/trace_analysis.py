@@ -23,7 +23,7 @@ import json
 import os
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
-from .aggregate import generation_files, parse_span_time
+from .aggregate import generation_files, parse_span_time, sink_bases
 
 #: names never counted as a request's stage; the stream spans are roots
 #: with a breakdown of their own
@@ -31,6 +31,13 @@ _NON_STAGE_NAMES = ("request", "profile", "stream_ingest", "stream_score", "stre
 _STREAM_STAGES = ("stream_ingest", "stream_score", "stream_emit")
 #: the profile frames an analysis lists
 MAX_PROFILE_FRAMES = 25
+
+
+def trace_bases(directory: str, base_name: str) -> List[str]:
+    """Every base path of one logical trace in ``directory``: the shared
+    name and each ``-<pid>`` worker variant (:func:`~.aggregate.sink_bases`;
+    each base's rotated generations ride with it)."""
+    return sink_bases(directory, base_name)
 
 
 def iter_trace_files(path: str, since_ts: Optional[float] = None,

@@ -36,6 +36,7 @@ from werkzeug.test import Client
 from gordo_tpu import serializer as jax_serializer
 from gordo_tpu import serve as jax_serve
 from gordo_tpu.builder import local_build
+from gordo_tpu.models.spec import FeedForwardSpec as JaxFeedForwardSpec
 from gordo_tpu.serve import breaker as jax_breaker
 from gordo_tpu.server import build_app as jax_build_app
 from gordo_tpu.server.fleet_store import STORE as JAX_STORE
@@ -640,9 +641,23 @@ def test_batching_off_is_the_default(collections, monkeypatch):
     app = build_app(port_dir, device="cpu")
     assert app.engine.config.max_size == 3 and app.engine.config.deadline_s == 2.0
     app.shutdown()
+    # the learned performance model's byte budget builds the app, and caps the row rungs as JAX's engine does
     monkeypatch.setenv("GORDO_TPU_PERFMODEL_BATCH_CAP_BYTES", "1000000")
-    with pytest.raises(NotImplementedError, match="PERFMODEL_BATCH_CAP_BYTES"):
-        build_app(port_dir, device="cpu")
+    app = build_app(port_dir, device="cpu")
+    jax_engine = jax_serve.ServeEngine(jax_serve.ServeConfig(max_size=3, row_ladder=app.engine.config.row_ladder))
+    try:
+        fleet = app.store.fleet()
+        fleet.warm()
+        for name in (NARROW[0], WIDE):
+            spec = fleet.loaded_specs()[name]
+            jax_spec = JaxFeedForwardSpec(spec.n_features, spec.n_features_out, tuple(spec.dims),
+                                          tuple(spec.activations))
+            cap = app.engine._model_row_cap(spec, "f32")
+            assert cap == jax_engine._model_row_cap(jax_spec, "f32")
+            assert 0 < cap < app.engine.config.row_ladder[-1]
+    finally:
+        app.shutdown()
+        jax_engine.shutdown()
 
 
 def test_stream_plane_shares_the_engines_board(collections, jax_app, monkeypatch):

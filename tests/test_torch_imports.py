@@ -84,6 +84,8 @@ def test_package_has_modules():
         "workflow/workflow_generator/tpu.py",
         "workflow/workflow_generator/__init__.py", "workflow/config_elements/schemas.py",
         "workflow/manifest_validation.py", "cli/workflow_generator.py",
+        "perfmodel/__init__.py", "perfmodel/features.py", "perfmodel/model.py", "perfmodel/service.py",
+        "cli/perfmodel.py",
     ):
         assert expected in names
     assert (REPO / "gordo_tpu_torch" / "telemetry" / "slos.toml").read_text() == (

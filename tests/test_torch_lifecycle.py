@@ -630,20 +630,73 @@ def test_slo_hold_matches_jax(bases, tmp_path, monkeypatch):
 # -- guards --------------------------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("value", ["1", "true", "on"])
-def test_perfmodel_recalibration_is_refused(bases, tmp_path, monkeypatch, value):
-    """A truthy ``GORDO_TPU_PERFMODEL_RECAL`` stops the supervisor from
-    being made (the port has no learned performance model); off, it starts."""
-    _, port_base = bases
-    root = models_root(port_base, tmp_path)
-    collection = os.path.join(root, BASE)
-    store = FleetModelStore(collection, torch.device("cpu"))
-    monkeypatch.setenv("GORDO_TPU_PERFMODEL_RECAL", value)
-    with pytest.raises(NotImplementedError, match="GORDO_TPU_PERFMODEL_RECAL"):
-        lifecycle.LifecycleSupervisor(port_machines(), collection, store)
-    assert not os.path.exists(os.path.join(root, ".lifecycle"))
-    monkeypatch.setenv("GORDO_TPU_PERFMODEL_RECAL", "0")
-    lifecycle.LifecycleSupervisor(port_machines(), collection, store).close()
+def _recalibration_cycle(supervisor_of, root, corpus, monkeypatch):
+    """One idle cycle of a supervisor whose telemetry directory is
+    ``corpus``: its report's ``details`` and the ``cost_table.json`` beside
+    the corpus afterwards (None: no table)."""
+    monkeypatch.setenv("GORDO_TPU_TELEMETRY_DIR", corpus)
+    supervisor = supervisor_of(root)
+    try:
+        report = supervisor.run_cycle()
+    finally:
+        supervisor.close()
+    path = os.path.join(corpus, "cost_table.json")
+    table = None
+    if os.path.exists(path):
+        with open(path) as f:
+            table = json.load(f)
+        table["learned"]["corpus"]["directory"] = os.path.relpath(table["learned"]["corpus"]["directory"], corpus)
+    events = []
+    trace = os.path.join(corpus, lifecycle.LIFECYCLE_TRACE_FILE)
+    if os.path.exists(trace):
+        with open(trace) as f:
+            events = [json.loads(line) for line in f if "perfmodel_recalibrated" in line]
+    return report.details.get("perfmodel"), table, len(events)
+
+
+@pytest.mark.parametrize("case", ["off", "promoting corpus", "unchanged corpus"])
+def test_perfmodel_recalibration_matches_jax(bases, tmp_path, monkeypatch, case):
+    """``GORDO_TPU_PERFMODEL_RECAL``: off, a cycle fits nothing; on, it fits
+    the telemetry directory's corpus and promotes it into the table beside
+    it; on over a corpus the table was fitted on, it skips the refit. The
+    cycle report's ``details["perfmodel"]``, the event and the table on disk
+    equal the JAX supervisor's."""
+    from gordo_tpu.perfmodel import fit_and_promote as jax_fit_and_promote
+    from gordo_tpu_torch.perfmodel import fit_and_promote
+    from tests.perfmodel.conftest import grid_spans, write_corpus
+
+    jax_base, port_base = bases
+    monkeypatch.delenv("GORDO_TPU_PERFMODEL_TABLE", raising=False)
+    if case == "off":
+        monkeypatch.delenv("GORDO_TPU_PERFMODEL_RECAL", raising=False)
+    else:
+        monkeypatch.setenv("GORDO_TPU_PERFMODEL_RECAL", "1")
+    port_root, jax_root = models_root(port_base, tmp_path / "port"), models_root(jax_base, tmp_path / "jax")
+    runs = {
+        "port": (lambda root: lifecycle.LifecycleSupervisor(
+            port_machines(), os.path.join(root, BASE), FleetModelStore(os.path.join(root, BASE), torch.device("cpu"))),
+            port_root, fit_and_promote),
+        "jax": (lambda root: jax_lifecycle.LifecycleSupervisor(jax_machines(), os.path.join(root, BASE),
+                                                               store=JaxFleetModelStore(max_revisions=4)),
+                jax_root, jax_fit_and_promote),
+    }
+    results = {}
+    for package, (supervisor_of, root, fit) in runs.items():
+        corpus = str(tmp_path / f"{package}-telemetry")
+        write_corpus(corpus, grid_spans(jitter=0.02))
+        if case == "unchanged corpus":
+            assert fit(corpus)["promoted"]
+        results[package] = _recalibration_cycle(supervisor_of, root, corpus, monkeypatch)
+    assert results["port"] == results["jax"]
+    details, table, events = results["port"]
+    if case == "off":
+        assert (details, table, events) == (None, None, 0)
+    elif case == "promoting corpus":
+        assert details == {"promoted": True, "reason": "promoted", "models": 2} and events == 1
+        assert sorted(table["learned"]["targets"]) == ["compile_ms", "device_ms"]
+    else:
+        assert details == {"promoted": False, "reason": "corpus unchanged since incumbent fit", "models": 0}
+        assert events == 1 and table["learned"]["corpus"]["rows"] == 108
 
 
 def test_lifecycle_exports_jax_names():

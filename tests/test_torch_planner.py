@@ -173,9 +173,28 @@ def test_strategy_and_perfmodel_knobs(monkeypatch, caplog):
     assert packing.hbm_cap_bytes() == jax_packing.hbm_cap_bytes() == 1 << 20
     with pytest.raises(ValueError, match="unknown plan strategy"):
         planner.plan_train_buckets(_members("port", 0, 2), FitConfig(), strategy="best")
-    monkeypatch.setenv("GORDO_TPU_PERFMODEL", "1")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        planner.plan_train_buckets(_members("port", 0, 2), FitConfig())
+    # GORDO_TPU_PERFMODEL: on, the packer costs through the table's learned section bucket for bucket as JAX's,
+    # and the plan records it; off, the section is inert
+    learned = {"version": 1, "features": list(jax_planner.LEARNED_FEATURES), "targets": {
+        "device_ms": {"fleet_fit": {"coef": [-9.0, 0.5, 0.9, 0.8, 0.7, -0.3, -0.2], "lo": [0.0] * 6,
+                                    "hi": [12.0] * 6}},
+        "compile_ms": {"fleet_fit": {"coef": [6.0, 0.1, 0.0, 0.0, 0.0, 0.0, 0.0], "lo": [0.0] * 6,
+                                     "hi": [12.0] * 6}}}}
+    config, jax_config = FitConfig(epochs=5, batch_size=32), JaxFitConfig(epochs=5, batch_size=32)
+    predictions = []
+    for knob in ("0", "1"):
+        monkeypatch.setenv("GORDO_TPU_PERFMODEL", knob)
+        table, jax_table = planner.CostTable(learned=learned), jax_planner.CostTable(learned=learned)
+        got = planner.plan_train_buckets(_members("port", 0, 12), config, strategy="packed",
+                                         cost_model=planner.CostModel(table), budget=2)
+        want = jax_planner.plan_train_buckets(_members("jax", 0, 12), jax_config, strategy="packed",
+                                              cost_model=jax_planner.CostModel(jax_table), budget=2)
+        assert _shape(got) == _shape(want)
+        doc = planner.build_plan_doc([(config, got)], "packed", "fingerprint", cost_table=table).doc
+        jax_doc = jax_planner.build_plan_doc([(jax_config, want)], "packed", (1, 1), jax_table, "fingerprint").doc
+        assert doc["cost_table"]["learned"] is jax_doc["cost_table"]["learned"] is (knob == "1")
+        predictions.append([b.predicted for b in got])
+    assert predictions[0] != predictions[1]
 
 
 # -- the plan command ------------------------------------------------------------------------------------------

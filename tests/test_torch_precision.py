@@ -17,6 +17,7 @@ The fleets are ``tests/test_torch_engine.py``'s collection, plus a third
 revision whose specs declare ``precision: bf16``.
 """
 
+import copy
 import dataclasses
 import json
 import os
@@ -24,17 +25,17 @@ import os
 import numpy as np
 import pytest
 
+from gordo_tpu import planner as jax_planner
 from gordo_tpu import serializer as jax_serializer
 from gordo_tpu.models.spec import FeedForwardSpec as JaxFeedForwardSpec
 from gordo_tpu.serve import precision as JP
 from gordo_tpu.server.fleet_store import RevisionFleet as JaxRevisionFleet
 from gordo_tpu.server.fleet_store import STORE as JAX_STORE
 from gordo_tpu.server.fleet_store import fleet_forward_gather as jax_gather
-from gordo_tpu_torch import serializer
+from gordo_tpu_torch import planner, serializer
 from gordo_tpu_torch.models.estimators import find_estimator
 from gordo_tpu_torch.models.spec import FeedForwardSpec
 from gordo_tpu_torch.serve import precision as P
-from gordo_tpu_torch.serve.engine import refuse_perfmodel_knobs
 from gordo_tpu_torch.server.fleet_store import RevisionFleet, fleet_forward_gather
 
 from tests.test_torch_engine import (  # noqa: F401 - fixtures used by name
@@ -91,9 +92,25 @@ def test_vocabulary_and_resolution_match_jax(monkeypatch):
     assert P.payload_dtype("f32") is not P.payload_dtype("bf16") is P.payload_dtype("int8")
     monkeypatch.setenv(P.GATE_ENV, "0")
     assert P.gate_enabled() is JP.gate_enabled() is False
-    monkeypatch.setenv("GORDO_TPU_PERFMODEL_PRECISION", "1")
-    with pytest.raises(NotImplementedError, match="PERFMODEL_PRECISION"):
-        refuse_perfmodel_knobs()
+    # the learned model's nomination (GORDO_TPU_PERFMODEL_PRECISION): the JAX answer on the same table,
+    # knob off and on, in and out of the table's domain, on evidence for reduced, for f32 and for neither
+    entry = {"coef": [0.1, 0.0, 1.0, 1.0, 0.0, -0.5, 0.2], "lo": [0.0] * 6, "hi": [8.0] * 6, "n": 64,
+             "holdout_mae_log": 0.05}
+    learned = {"version": 1, "features": list(planner.LEARNED_FEATURES), "targets": {"device_ms": {
+        "fleet_forward": entry}}}
+    tables = (learned, {**learned, "targets": {"device_ms": {"fleet_forward": {
+        **entry, "coef": [0.1, 0.0, 1.0, 1.0, 0.0, 0.5, 0.7]}}}}, None)
+    nominated = []
+    for knob in ("0", "1"):
+        monkeypatch.setenv("GORDO_TPU_PERFMODEL_PRECISION", knob)
+        for section in tables:
+            ours = planner.CostModel(planner.CostTable(learned=copy.deepcopy(section)))
+            theirs = jax_planner.CostModel(jax_planner.CostTable(learned=copy.deepcopy(section)))
+            for members, rows in ((8, 32), (1, 1), (8, 65536)):
+                got = P.model_preferred(spec, members, rows, ours)
+                assert got == JP.model_preferred(jax_spec, members, rows, theirs), (knob, members, rows)
+                nominated.append(got)
+    assert nominated.count("bf16") == 2 and set(nominated) == {None, "bf16"}
 
 
 SPEC = dict(n_features=20, n_features_out=20, dims=(16, 8, 16), activations=("tanh", "relu", "tanh"))
