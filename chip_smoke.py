@@ -416,20 +416,42 @@ says it did not.
 ``[train]``'s collection: ``wait-for-models`` over its 72 names (exit 0)
 and with an absent one and ``--timeout 1`` (exit 1, naming it);
 ``ensure-single-workflow`` for a revision, ``--check-only`` for the one
-before it (stale, exit 1), and again past a planted guard an hour old;
-``python -m gordo_tpu_torch run-server --batching`` in a process of its
-own on the card (the seconds until ``/healthcheck`` answers 200). The
-port's ``Client`` then sends ``predict`` (parquet) for two 20-tag
-machines and a 40-tag one over the last ROWS of their own training rows,
-``fleet_anomaly_scores`` over the 64 (a day of rows), ``metadata`` and
-``download-model`` (the pickle loaded on the card, its params equal to
-the file's), every frame held to the same client's answer from the CPU
-app in this process. Then 8 ``/prediction`` requests wait in the
-server's engine (a 3 s window) when SIGTERM comes: each is answered 200
-well inside the window (the drain flushed it) and equal to the CPU app's,
-``/healthcheck`` answers 503 ``draining`` meanwhile, and the process exits
-0 within 60 s; the drain's seconds and the K1 and K2 launches of the
-server's process come from the drain's log line. ``score --input`` a CSV
+before it (stale, exit 1), and again past a planted guard an hour old.
+Three ``python -m gordo_tpu_torch run-server`` servers start together,
+each a pre-fork master (``gordo_tpu_torch/server/prefork.py``) in a
+process of its own on the card, every request traced into its worker's
+``serve_trace-<pid>.jsonl``: one of ``--workers 2 --threads 4`` without
+an engine, with ``ENABLE_PROMETHEUS`` and a multi-process directory, one
+of ``--workers 2`` with ``--batching``, and one of ``--workers 1
+--threads 4`` (the seconds until ``/healthcheck`` answers 200, each
+worker's boot seconds and card memory). On the first: a worker
+killed (SIGKILL) right after its boot is reaped and replaced, its files
+holding no live gauge. The port's ``Client`` then sends ``predict``
+(parquet) for two 20-tag machines and a 40-tag one over the last ROWS of
+their own training rows, ``fleet_anomaly_scores`` over the 64 (a day of
+rows), ``metadata`` and ``download-model`` (the pickle loaded on the
+card, its params equal to the file's), every frame held to the same
+client's answer from the CPU app in this process. 16 clients send 20-tag
+JSON anomaly requests one after another for 7 s (the answers of the
+last 6 s counted: requests a second, printed as information); both
+workers' pids answer, the traced requests equal to those sent;
+``nvidia-smi --query-compute-apps`` and the processes' open
+``/dev/nvidia*`` files show a context in each worker and none in any
+master. The same 16 clients run on the 1-worker server, which then
+drains on SIGTERM (exit 0, K1 on its drain line equal to its requests);
+one scrape of the first master's
+``/metrics`` counts every request sent; 8 anomaly requests are in flight
+when SIGTERM comes: each answered 200, the master exits 0, and the K1
+and K2 launches on the workers' drain lines equal the requests' (one K1
+a ``/prediction`` or anomaly request, one K2 a fleet request); every
+answer equal to the CPU app's. On the second, 8 ``/prediction`` requests
+wait in the workers' engines (a 3 s window) when SIGTERM comes: each is
+answered 200 well inside the window (the drains flushed them) and equal
+to the CPU app's, ``/healthcheck`` answers 503 ``draining`` meanwhile,
+the master exits 0 within 60 s, and the K1 launches on the drain lines
+equal the engines' batches, one a worker that held a rider; each batch's
+members and padded rows, read off its ``serve_batch`` span, are the
+shape its K1 call is held to the plain version and timed at. ``score --input`` a CSV
 of a 20-tag and a 40-tag model's next rows runs on the card (one K1
 launch each, counted here; each call held to the plain version and timed
 under ``[times]``) and with ``--device cpu``: the two parquet files agree
@@ -519,6 +541,7 @@ import time
 import traceback
 import types
 import urllib.error
+import urllib.parse
 import urllib.request
 from datetime import datetime, timedelta, timezone
 
@@ -2426,6 +2449,8 @@ def same_json(expected, got, path="data"):
     RTOL/ATOL, everything else exact. Returns the largest abs difference."""
     if isinstance(expected, dict):
         check(isinstance(got, dict) and list(got) == list(expected), f"keys differ at {path}")
+        if expected and not any(isinstance(v, dict) for v in expected.values()):
+            return same_leaves(expected, got, path)
         return max([same_json(expected[k], got[k], f"{path}/{k}") for k in expected] or [0.0])
     if isinstance(expected, float) and isinstance(got, float):
         diff = abs(got - expected)
@@ -2433,6 +2458,28 @@ def same_json(expected, got, path="data"):
         return diff
     check(got == expected, f"{path}: {got!r} vs {expected!r}")
     return 0.0
+
+
+
+def same_leaves(expected, got, path):
+    """``same_json`` of a dict of leaves (an answer's column), its floats
+    compared as one array: the same test, in float64, as one at a time."""
+    import numpy as np
+
+    want, have, equal = [], [], True
+    for k, e in expected.items():
+        g = got[k]
+        if isinstance(e, float) and isinstance(g, float):
+            want.append(e)
+            have.append(g)
+        else:
+            equal = equal and g == e
+    want, have = np.asarray(want, dtype=np.float64), np.asarray(have, dtype=np.float64)
+    diff = np.abs(have - want)
+    if not (equal and bool((diff <= ATOL + RTOL * np.abs(want)).all())):
+        for k in expected:  # the first value that differs, named as one at a time names it
+            same_json(expected[k], got[k], f"{path}/{k}")
+    return float(diff.max()) if diff.size else 0.0
 
 
 ANOMALY_GROUPS = [
@@ -6125,8 +6172,34 @@ DEPLOY_EXIT_LIMIT_S = 60
 DEPLOY_SCORE = ("machine-006", "compressor-001")
 DEPLOY_SCORE_CASES = {20: "score: hourglass20 M=1 B=1008", WIDE_TAGS: "score: hourglass40 M=1 B=1008"}
 DEPLOY_REVISION = 1700000000002
+#: a worker's drain line: its seconds, request threads left, K1 and K2 launches and pid
 DRAIN_LINE = re.compile(r"drained in ([0-9.]+) s \((\d+) request thread\(s\) still answering\); kernel launches: "
-                        r"K1 (\d+), K2 (\d+)")
+                        r"K1 (\d+), K2 (\d+) \(pid (\d+)\)")
+#: a worker's boot line: its number and pid
+BOOT_LINE = r"worker (\d+) booted \(pid (\d+)\)"
+#: run-server's workers in [deploy]: the processes each server forks and the requests each answers at once
+DEPLOY_WORKERS = 2
+DEPLOY_THREADS = 4
+#: the throughput rounds (information, not a claim): clients at once, each sending 20-tag JSON anomaly
+#: requests of its machine's own next rows one after another for DEPLOY_ROUND_S seconds, two clients a
+#: machine, over DEPLOY_CLIENTS // 2 machines past the first 8; the rate counts the answers that came in
+#: the round's last DEPLOY_ROUND_S - DEPLOY_ROUND_WARM_S seconds (every client busy)
+DEPLOY_CLIENTS = 16
+DEPLOY_ROUND_S = 7.0
+DEPLOY_ROUND_WARM_S = 1.0
+#: the bound on a server's boot (two masters import torch at once) and on any wait for a log line
+DEPLOY_BOOT_LIMIT_S = 180
+#: the shapes the run-server workers launched in their own processes, held to the plain version and timed
+#: here with seeded params and rows: an anomaly request of the 64, the client's 40-tag /prediction, each
+#: engine batch of the burst at the members and padded rows its serve_batch span recorded, and the
+#: client's fleet request
+DEPLOY_WORKER_CASES = {
+    "anomaly": f"run-server worker's anomaly request: hourglass20 gather M=1 of {SERVED_MACHINES} B={ROWS} +ingest",
+    "wide": f"run-server worker's /prediction: hourglass{WIDE_TAGS} gather M=1 of {WIDE_MACHINES} B={ROWS} +ingest",
+}
+DEPLOY_ENGINE_CASE = "run-server engine batch: hourglass20 gather M={M} of " + f"{SERVED_MACHINES} " + "B={B} +ingest"
+DEPLOY_FLEET_CASE = (f"K2 run-server worker's fleet request: hourglass20 N={SERVED_MACHINES} M={SERVED_MACHINES} "
+                     f"B={DEPLOY_FLEET_ROWS} y=X +ingest")
 
 
 def cli_run(*args):
@@ -6245,48 +6318,47 @@ def deploy_phase(work_dir, collection, names, wide_names, cpu_app, card):
     phase("deploy", f"ensure-single-workflow: revision {revision} acquired; {DEPLOY_REVISION - 1} --check-only "
           f"stale, exit 1; a planted guard an hour old broken and {DEPLOY_REVISION + 1} acquired")
 
-    port = free_port()
-    log_path = os.path.join(work_dir, "deploy-server.log")
-    args = ["run-server", "--batching", "--host", "127.0.0.1", "--port", str(port), "--batch-max-size", "64",
-            "--batch-max-delay-ms", str(DEPLOY_DELAY_MS), "--batch-deadline-ms", "60000", "--no-serve-warmup",
-            "--drain-grace-s", str(DEPLOY_GRACE_S), "--log-level", "info"]
-    base = f"http://127.0.0.1:{port}"
-    with open(log_path, "w") as log:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "gordo_tpu_torch", *args], cwd=HERE, stdout=log,
-                                stderr=subprocess.STDOUT, env={**os.environ, "MODEL_COLLECTION_DIR": collection})
-        try:
-            while True:
-                try:
-                    if http_call(f"{base}/healthcheck")[0] == 200:
-                        break
-                except OSError:
-                    pass
-                check(proc.poll() is None and time.perf_counter() - t0 < 120,
-                      f"run-server did not come up: {open(log_path).read()[-2000:]}")
-                time.sleep(0.1)
-            healthy_s = time.perf_counter() - t0
-            phase("deploy", f"run-server --batching on the card answered /healthcheck 200 after {healthy_s:.2f} s "
-                  f"(a process of its own, {len(every)} models)")
-            served = deploy_client_rounds(base, port, collection, names, wide_names, cpu_app, card)
-            burst = deploy_drain(proc, base, names, cpu_app, log_path)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    text = open(log_path).read()
-    found = DRAIN_LINE.findall(text)
-    check(len(found) == 1, f"the server logged {len(found)} drain lines: {text[-2000:]}")
-    drain_s, left, server_k1, server_k2 = float(found[0][0]), int(found[0][1]), int(found[0][2]), int(found[0][3])
-    check("--workers, --worker-connections, --threads, --worker-class, --server-app, --with-prometheus-config are "
-          "ignored" in text, "run-server did not log the gunicorn options it ignores")
-    check(server_k1 >= 2 and server_k2 >= 1, f"the server launched K1 {server_k1} and K2 {server_k2} times")
-    phase("deploy", f"SIGTERM with {DEPLOY_BURST} /prediction requests in the engine (window {DEPLOY_DELAY_MS} ms): "
-          f"every one answered 200 in {min(burst['spent']):.3f}-{max(burst['spent']):.3f} s of its send (the drain, "
-          f"not the window), each equal to the CPU app's (max abs {burst['diff']:.3e}); /healthcheck answered 503 "
-          f"'draining' {burst['draining']} times; the drain took {drain_s} s ({left} request threads left), the "
-          f"process exited 0 {burst['exit_s']:.2f} s after the signal (limit {DEPLOY_EXIT_LIMIT_S} s); counted in "
-          f"the server's process (its drain's log line): K1 launches {server_k1}, K2 {server_k2}; {card}")
+    t0 = time.perf_counter()
+    workers_server = DeployServer(work_dir, "workers", collection, [
+        "--no-batching", "--workers", str(DEPLOY_WORKERS), "--threads", str(DEPLOY_THREADS), "--metrics-port",
+        str(free_port()), "--with-prometheus-config"], prometheus=True)
+    engine_server = DeployServer(work_dir, "engine", collection, [
+        "--batching", "--batch-max-size", "64", "--batch-max-delay-ms", str(DEPLOY_DELAY_MS), "--batch-deadline-ms",
+        "60000", "--no-serve-warmup", "--workers", str(DEPLOY_WORKERS), "--threads", str(DEPLOY_BURST)])
+    one_server = DeployServer(work_dir, "one", collection, [
+        "--no-batching", "--workers", "1", "--threads", str(DEPLOY_THREADS)])
+    servers = (workers_server, engine_server, one_server)
+    try:
+        workers_server.wait_healthy(t0, DEPLOY_WORKERS)
+        engine_server.wait_healthy(t0, DEPLOY_WORKERS)
+        one_server.wait_healthy(t0, 1)
+        healthy_s = time.perf_counter() - t0
+        phase("deploy", f"run-server on the card, three servers started together, each a pre-fork master: "
+              f"{DEPLOY_WORKERS} workers of {DEPLOY_THREADS} threads without an engine, {DEPLOY_WORKERS} of "
+              f"{DEPLOY_BURST} threads with one (so that a worker can hold the whole burst in its engine), 1 of "
+              f"{DEPLOY_THREADS} threads without an engine (the 1-worker throughput round): /healthcheck 200 after "
+              f"{workers_server.healthy_s:.2f}, {engine_server.healthy_s:.2f} and {one_server.healthy_s:.2f} s "
+              f"({len(every)} models each); the workers' boots {[s.boot_seconds() for s in servers]} s (app, models, "
+              f"buckets, one K1 probe) after the masters' fork; card memory each worker reserved at boot: "
+              f"{[b for s in servers for b in s.reserved()]} bytes")
+        workers = deploy_workers_phase(workers_server, one_server, collection, names, wide_names, cpu_app, card,
+                                       other_masters=[engine_server.proc.pid, one_server.proc.pid])
+        burst = deploy_drain(engine_server, names, cpu_app)
+    finally:
+        for server_ in servers:
+            server_.stop()
+    drain_s = burst["drain_s"]
+    server = {"K1": workers["K1"] + burst["K1"], "K2": workers["K2"] + burst["K2"], "workers_K1": workers["K1"],
+              "workers_K2": workers["K2"], "engine_K1": burst["K1"], "engine_batches": burst["shapes"]}
+    served = workers["rounds"]
+    phase("deploy", f"SIGTERM with {DEPLOY_BURST} /prediction requests in the engines of {len(burst['pids'])} "
+          f"worker(s) (window {DEPLOY_DELAY_MS} ms): every one answered 200 in {min(burst['spent']):.3f}-"
+          f"{max(burst['spent']):.3f} s of its send (the drain, not the window), each equal to the CPU app's (max abs "
+          f"{burst['diff']:.3e}); /healthcheck answered 503 'draining' {burst['draining']} times; the drains took "
+          f"{drain_s} s, the master exited 0 {burst['exit_s']:.2f} s after the signal (limit {DEPLOY_EXIT_LIMIT_S} "
+          f"s); K1 launches on the workers' drain lines {burst['K1']} = the engine batches the burst called for, one "
+          f"a worker that held a rider ({burst['batches']} serve_batch spans in their sinks, members x padded rows "
+          f"by pid {[(pid, f'{m}x{b}') for pid, m, b, _ in burst['shapes']]}), K2 {burst['K2']}; {card}")
 
     t0 = time.perf_counter()
     outputs, launches, cases, worst = {}, 0, {}, (0.0, 0.0)
@@ -6335,9 +6407,10 @@ def deploy_phase(work_dir, collection, names, wide_names, cpu_app, card):
     check(code == 0 and sorted(os.listdir(revisions_root)) == ["1001", "1002", "999"], f"cleanup: {code} {out!r}")
     phase("deploy", f"cleanup-revisions of 998-1002, current 999, --keep 2: the dry run deleted nothing, the run kept "
           f"999, 1001 and 1002 ({out.strip()})")
-    phase("deploy", f"the phase took {time.perf_counter() - t_phase:.1f} s: the server up in {healthy_s:.2f} s, its "
-          f"drain {drain_s} s; client rounds {served['seconds']:.2f} s")
-    return {"server": {"K1": server_k1, "K2": server_k2}, "score": launches}, cases
+    phase("deploy", f"the phase took {time.perf_counter() - t_phase:.1f} s: the servers up in {healthy_s:.2f} s, "
+          f"the workers' server's part {workers['seconds']:.2f} s (client rounds {served['seconds']:.2f} s), the "
+          f"engine's drains {drain_s} s")
+    return {"server": server, "score": launches}, cases
 
 
 def deploy_client_rounds(base, port, collection, names, wide_names, cpu_app, card):
@@ -6352,6 +6425,13 @@ def deploy_client_rounds(base, port, collection, names, wide_names, cpu_app, car
 
     t_rounds = time.perf_counter()
     client = Client("smoke", host="127.0.0.1", port=port, scheme="http", use_parquet=True, device="cuda")
+    calls, transport = [], client.transport
+
+    def counted(method, url, body, headers):
+        calls.append((method, urllib.parse.urlsplit(url).path))
+        return transport(method, url, body, headers)
+
+    client.transport = counted
     reference = Client("smoke", transport=WSGITransport(cpu_app), use_parquet=True, device="cpu")
     end = TRAIN_START + timedelta(minutes=10 * TRAIN_ROWS)
     start = (end - timedelta(minutes=10 * DEPLOY_ROWS)).isoformat()
@@ -6404,13 +6484,349 @@ def deploy_client_rounds(base, port, collection, names, wide_names, cpu_app, car
               for k in want_params for n in want_params[k]), "the downloaded model's params differ from the file's")
     phase("deploy", f"client metadata of {', '.join(targets)} equal to the CPU app's; download-model of {names[1]} "
           f"loaded on the card, its params equal to its model.pkl's")
-    return {"seconds": time.perf_counter() - t_rounds}
+    return {"seconds": time.perf_counter() - t_rounds, "calls": calls}
 
 
-def deploy_drain(proc, base, names, cpu_app, log_path):
+class DeployServer:
+    """``python -m gordo_tpu_torch run-server`` in a process of its own on
+    the card: a pre-fork master and its workers, the log in the work
+    directory, every request traced into each worker's own
+    ``serve_trace-<pid>.jsonl``; with ``prometheus``, ENABLE_PROMETHEUS and
+    a fresh multi-process directory, which the master fans in."""
+
+    def __init__(self, work_dir, name, collection, args, prometheus=False):
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.log_path = os.path.join(work_dir, f"deploy-{name}.log")
+        self.telemetry = os.path.join(work_dir, f"deploy-{name}-telemetry")
+        self.multiproc = os.path.join(work_dir, f"deploy-{name}-prometheus") if prometheus else None
+        for directory in (self.telemetry, self.multiproc):
+            if directory:
+                shutil.rmtree(directory, ignore_errors=True)
+        env = {k: v for k, v in os.environ.items() if k not in ("PROMETHEUS_MULTIPROC_DIR", "prometheus_multiproc_dir")}
+        env.update(MODEL_COLLECTION_DIR=collection, GORDO_TPU_TELEMETRY="1", GORDO_TPU_TELEMETRY_DIR=self.telemetry,
+                   GORDO_TPU_TRACE_SAMPLE_RATE="1.0", GORDO_TPU_WORKER_SINKS="1",
+                   ENABLE_PROMETHEUS="true" if prometheus else "false")
+        if prometheus:
+            env["PROMETHEUS_MULTIPROC_DIR"] = self.multiproc
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "gordo_tpu_torch", "run-server", "--host", "127.0.0.1", "--port", str(self.port),
+             "--drain-grace-s", str(DEPLOY_GRACE_S), "--log-level", "info", *args],
+            cwd=HERE, stdout=self.log, stderr=subprocess.STDOUT, env=env)
+        self.healthy_s = None
+
+    def text(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    def wait_for(self, pattern, count=1):
+        """The matches of ``pattern`` in the log once it holds ``count``."""
+        deadline = time.perf_counter() + DEPLOY_BOOT_LIMIT_S
+        while True:
+            found = re.findall(pattern, self.text())
+            if len(found) >= count:
+                return found
+            check(self.proc.poll() is None and time.perf_counter() < deadline,
+                  f"run-server ({self.log_path}) never logged {pattern!r}: {self.text()[-3000:]}")
+            time.sleep(0.05)
+
+    def wait_healthy(self, t0, workers):
+        self.wait_for(BOOT_LINE, workers)
+        while True:
+            try:
+                if http_call(f"{self.base}/healthcheck")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(self.proc.poll() is None and time.perf_counter() - t0 < DEPLOY_BOOT_LIMIT_S,
+                  f"run-server did not come up: {self.text()[-3000:]}")
+            time.sleep(0.05)
+        self.healthy_s = time.perf_counter() - t0
+
+    def booted(self):
+        """``[(worker number, pid)]`` in boot order."""
+        return [(int(n), int(pid)) for n, pid in re.findall(BOOT_LINE, self.text())]
+
+    def boot_seconds(self):
+        return [float(t) for t in re.findall(r"worker \d+ booted \(pid \d+\): .*?, ([0-9.]+) s;", self.text())]
+
+    def reserved(self):
+        return [int(b) for b in re.findall(r"card memory reserved (\d+) bytes", self.text())]
+
+    def metrics_url(self):
+        port = re.search(r"Prometheus metrics on http://127\.0\.0\.1:(\d+)", self.text()).group(1)
+        return f"http://127.0.0.1:{port}/metrics"
+
+    def drains(self):
+        """``{pid: (K1, K2, drain seconds)}`` from the workers' drain lines."""
+        return {int(pid): (int(k1), int(k2), float(s)) for s, _, k1, k2, pid in DRAIN_LINE.findall(self.text())}
+
+    def spans(self):
+        """``{pid: Counter of span names}`` of the workers' serving traces."""
+        out = {}
+        for name in os.listdir(self.telemetry) if os.path.isdir(self.telemetry) else ():
+            found = re.fullmatch(r"serve_trace-(\d+)\.jsonl", name)
+            if found:
+                with open(os.path.join(self.telemetry, name)) as f:
+                    out[int(found.group(1))] = collections.Counter(json.loads(line)["name"] for line in f if line.strip())
+        return out
+
+    def batches(self):
+        """The workers' engine batches from their serving traces: ``(pid,
+        members, padded rows, the riders' machine names)`` a ``serve_batch``
+        span, the shape K1 launched at (``[members, padded rows, F]``)."""
+        out = []
+        for name in os.listdir(self.telemetry) if os.path.isdir(self.telemetry) else ():
+            found = re.fullmatch(r"serve_trace-(\d+)\.jsonl", name)
+            if found:
+                with open(os.path.join(self.telemetry, name)) as f:
+                    for span in (json.loads(line) for line in f if line.strip()):
+                        if span["name"] == "serve_batch":
+                            attrs = span["attributes"]
+                            out.append((int(found.group(1)), int(attrs["coalesced"]), int(attrs["padded_rows"]),
+                                        [link["attributes"]["name"] for link in span.get("links") or ()]))
+        return sorted(out)
+
+    def wait_requests(self, sent):
+        """The traced requests a pid once the traces hold ``sent`` of them
+        (the sinks' writers poll every 50 ms and idle up to a second)."""
+        deadline = time.perf_counter() + 30
+        while True:
+            by_pid = {pid: names["request"] for pid, names in self.spans().items() if names["request"]}
+            if sum(by_pid.values()) >= sent or time.perf_counter() > deadline:
+                return by_pid
+            time.sleep(0.1)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def post_raw(url, payload):
+    """One JSON POST over the socket: ``(status, body bytes)``."""
+    request = urllib.request.Request(url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(request, timeout=300) as response:
+        return response.status, response.read()
+
+
+def pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def holds_card(pid):
+    """Whether the process has the driver's device files open (every CUDA
+    context does; a process that never initialised CUDA has none)."""
+    held = []
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            held.append(os.readlink(f"/proc/{pid}/fd/{fd}"))
+        except OSError:
+            pass
+    return any(path.startswith("/dev/nvidia") for path in held)
+
+
+def compute_apps():
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return {int(word) for word in out.split() if word.strip().isdigit()}
+
+
+class DeployAnswers:
+    """The CPU app's answer to each machine's 20-tag anomaly request of its
+    own next rows, made once a machine."""
+
+    def __init__(self, cpu_app):
+        self.cpu_app, self.payloads, self.answers, self.first = cpu_app, {}, {}, {}
+
+    def request(self, name):
+        if name not in self.payloads:
+            frame = own_frame(name, 20)
+            self.payloads[name] = {"X": frame, "y": frame}
+            status, body = wsgi_post(self.cpu_app, f"/gordo/v0/smoke/{name}/anomaly/prediction", self.payloads[name])
+            check(status == 200, f"the CPU app answered {status} for {name}")
+            self.answers[name] = body
+        return f"/gordo/v0/smoke/{name}/anomaly/prediction", self.payloads[name]
+
+    def held(self, name, body):
+        """The largest abs difference of a card answer from the CPU app's:
+        the first answer for a machine is compared value by value, every
+        later one must equal it byte for byte but for its ``time-seconds``."""
+        timeless = re.sub(rb'"time-seconds": [^,}]*', b"", body)
+        first = self.first.setdefault(name, (timeless, None))
+        if first[1] is None:
+            self.first[name] = (timeless, same_json(self.answers[name]["data"], json.loads(body)["data"]))
+            return self.first[name][1]
+        check(timeless == first[0], f"two answers of the card for {name} differ")
+        return first[1]
+
+
+def deploy_throughput(server, machines, reference, clients=DEPLOY_CLIENTS):
+    """``clients`` threads at once, each sending 20-tag JSON anomaly requests
+    of its machine one after another until DEPLOY_ROUND_S has passed; every
+    answer 200 and equal to the CPU app's. Returns the requests, the
+    answers of the measured window (its last DEPLOY_ROUND_S -
+    DEPLOY_ROUND_WARM_S seconds), their rate and the largest difference."""
+    jobs = [reference.request(machines[i % len(machines)]) + (machines[i % len(machines)],) for i in range(clients)]
+    answers = [[] for _ in jobs]
+    t0 = time.perf_counter()
+    t_end = t0 + DEPLOY_ROUND_S
+
+    def client(i):
+        path, payload, _ = jobs[i]
+        while time.perf_counter() < t_end:
+            status, body = post_raw(server.base + path, payload)
+            answers[i].append((status, body, time.perf_counter()))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=300)
+    diff = 0.0
+    for (_, _, name), got in zip(jobs, answers):
+        check(got and all(status == 200 for status, _, _ in got), f"throughput answers for {name}: "
+              f"{[status for status, _, _ in got]}")
+        diff = max([diff] + [reference.held(name, body) for _, body, _ in got])
+    window = DEPLOY_ROUND_S - DEPLOY_ROUND_WARM_S
+    counted = sum(1 for got in answers for _, _, at in got if t0 + DEPLOY_ROUND_WARM_S <= at <= t_end)
+    return {"n": sum(len(got) for got in answers), "counted": counted, "rate": counted / window, "diff": diff}
+
+
+def deploy_workers_phase(server, one_server, collection, names, wide_names, cpu_app, card, other_masters=()):
+    """The pre-fork server's own checks, on the server without an engine:
+    a killed worker replaced, the client rounds, the workers' answers and
+    pids, no CUDA context in the masters, the throughput at 2 workers and
+    (on ``one_server``, then drained) at 1, the fan-in of every request on
+    one scrape, a burst in flight at SIGTERM, and the K1 and K2 launches
+    summed over the workers' drain lines against what the requests call
+    for."""
+    t_part = time.perf_counter()
+    master = server.proc.pid
+    victim = server.booted()[0][1]
+    t0 = time.perf_counter()
+    os.kill(victim, signal.SIGKILL)
+    server.wait_for(rf"worker \d+ \(pid {victim}\) exited -9 after [0-9.]+ s: forking a replacement")
+    server.wait_for(BOOT_LINE, DEPLOY_WORKERS + 1)
+    replaced_s = time.perf_counter() - t0
+    live = {pid for _, pid in server.booted()} - {victim}
+    check(not pid_alive(victim) and len(live) == DEPLOY_WORKERS, f"after SIGKILL of {victim}: workers {live}")
+    victim_files = sorted(f for f in os.listdir(server.multiproc) if f.endswith(f"_{victim}.db"))
+    check(not any(f.startswith("gauge_live") for f in victim_files), f"live gauges of the dead pid: {victim_files}")
+    phase("deploy", f"SIGKILL of worker pid {victim} right after its boot: the master reaped it, marked it dead and "
+          f"forked a replacement, booted {replaced_s:.2f} s after the kill; the dead pid's files {victim_files} hold "
+          f"no live gauge (every gauge of the port is max-mode, as JAX's; what it counted stays counted)")
+
+    served = deploy_client_rounds(server.base, server.port, collection, names, wide_names, cpu_app, card)
+    calls = served["calls"]
+    k1_calls = sum(1 for m, path in calls if m == "POST" and path.endswith("/prediction")
+                   and not path.endswith("/prediction/fleet"))
+    k2_calls = sum(1 for m, path in calls if m == "POST" and path.endswith("/prediction/fleet"))
+    sent, k1_sent = len(calls), k1_calls
+    reference = DeployAnswers(cpu_app)
+    machines = names[8:8 + DEPLOY_CLIENTS // 2]
+    two = deploy_throughput(server, machines, reference)
+    sent, k1_sent = sent + two["n"], k1_sent + two["n"]
+    by_pid = server.wait_requests(sent)
+    check(set(by_pid) == live and sum(by_pid.values()) == sent,
+          f"the requests in the workers' traces {by_pid} (sent {sent}, workers {sorted(live)})")
+    phase("deploy", f"both workers answered: traced requests by pid {by_pid} = the {sent} sent after the kill "
+          f"({len(calls)} of the client's rounds: {k1_calls} /prediction, {k2_calls} fleet; {two['n']} anomaly "
+          f"requests of {DEPLOY_CLIENTS} clients), none by the dead pid")
+
+    apps = compute_apps()
+    masters = [master, *other_masters]
+    held = {pid: holds_card(pid) for pid in masters + sorted(live)}
+    check(not any(held[pid] for pid in masters), f"a master holds the card's device files: {held}")
+    check(all(held[pid] for pid in live), f"a worker holds no device file: {held}")
+    same_namespace = os.getpid() in apps
+    if same_namespace:
+        check(live <= apps and not apps & set(masters), f"nvidia-smi compute apps {sorted(apps)}: workers "
+              f"{sorted(live)}, masters {masters}")
+    phase("deploy", f"no CUDA context in the masters: nvidia-smi --query-compute-apps lists {sorted(apps)} "
+          + ("(this process's pid among them: the workers listed, the masters not)" if same_namespace else
+             "(pids of another namespace: not comparable here)")
+          + f"; /dev/nvidia* open in each worker {sorted(live)} and in no master {masters}")
+
+    one = deploy_throughput(one_server, machines, reference)
+    one_server.proc.send_signal(signal.SIGTERM)
+    code = one_server.proc.wait(timeout=DEPLOY_EXIT_LIMIT_S)
+    one_drains = one_server.drains()
+    one_k1 = sum(d[0] for d in one_drains.values())
+    check(code == 0 and len(one_drains) == 1 and one_k1 == one["n"],
+          f"the 1-worker server exited {code}, drain lines {one_drains}, {one['n']} requests sent")
+    window = DEPLOY_ROUND_S - DEPLOY_ROUND_WARM_S
+    phase("deploy", f"20-tag JSON anomaly requests a second at {DEPLOY_CLIENTS} clients, each sending for "
+          f"{DEPLOY_ROUND_S} s, the answers of the last {window} s counted ({DEPLOY_THREADS} threads a worker; "
+          f"information, not a claim): 1 worker {one['rate']:.2f} ({one['counted']} of its {one['n']} answers), "
+          f"{DEPLOY_WORKERS} workers {two['rate']:.2f} ({two['counted']} of {two['n']}); every answer equal to the "
+          f"CPU app's (max abs {max(one['diff'], two['diff']):.3e}); the 1-worker server (run-server --workers 1) "
+          f"exited 0 on SIGTERM, its drain line's K1 {one_k1} = its {one['n']} requests; "
+          f"{card}")
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(server.metrics_url(), timeout=60) as response:
+        text = response.read().decode()
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    counted = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                  if line.startswith("gordo_server_requests_total{"))
+    check(counted == sent, f"the master's /metrics counts {counted} requests, {sent} were sent")
+    files = sorted(os.listdir(server.multiproc))
+    phase("deploy", f"one scrape of the master's /metrics ({scrape_ms:.1f} ms, {len(text)} bytes) counts "
+          f"gordo_server_requests_total {counted:g} = the {sent} requests sent, over {len(files)} files of "
+          f"{len({f.rsplit('_', 1)[1] for f in files})} pids (the killed worker's included)")
+
+    burst = [reference.request(machines[i % len(machines)]) for i in range(DEPLOY_WORKERS * DEPLOY_THREADS)]
+    answers = [None] * len(burst)
+
+    def hit(i):
+        answers[i] = post_raw(server.base + burst[i][0], burst[i][1])
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(burst))]
+    for thread in threads:
+        thread.start()
+    time.sleep(0.2)
+    t_signal = time.perf_counter()
+    server.proc.send_signal(signal.SIGTERM)
+    for thread in threads:
+        thread.join(timeout=DEPLOY_EXIT_LIMIT_S)
+    code = server.proc.wait(timeout=DEPLOY_EXIT_LIMIT_S)
+    exit_s = time.perf_counter() - t_signal
+    check(code == 0 and exit_s <= DEPLOY_EXIT_LIMIT_S, f"run-server exited {code} {exit_s:.1f} s after SIGTERM: "
+          f"{server.text()[-3000:]}")
+    check(all(a is not None and a[0] == 200 for a in answers), f"the burst's answers: {answers}")
+    diff = max(reference.held(machines[i % len(machines)], body) for i, (_, body) in enumerate(answers))
+    sent, k1_sent = sent + len(burst), k1_sent + len(burst)
+    drains = server.drains()
+    everyone = {pid for _, pid in server.booted()} - {victim}
+    check(set(drains) == everyone, f"drain lines of {sorted(drains)}, workers {sorted(everyone)}")
+    k1, k2 = sum(d[0] for d in drains.values()), sum(d[1] for d in drains.values())
+    check(k1 == k1_sent and k2 == k2_calls, f"the workers' drain lines count K1 {k1}, K2 {k2}; the requests call "
+          f"for K1 {k1_sent} (one a /prediction or anomaly request), K2 {k2_calls} (one a fleet request)")
+    check("all workers stopped: exit 0" in server.text(), "the master did not log its exit 0")
+    phase("deploy", f"SIGTERM with {len(burst)} anomaly requests in flight ({DEPLOY_WORKERS} x {DEPLOY_THREADS} "
+          f"threads): every one answered 200, equal to the CPU app's (max abs {diff:.3e}); the master exited 0 "
+          f"{exit_s:.2f} s after the signal; drain lines (K1, K2, s) by pid {drains}: K1 {k1} = the {k1_sent} "
+          f"/prediction and anomaly requests sent, K2 {k2} = the {k2_calls} fleet requests; {card}")
+    # the 1-worker server's launches count with the workers' (one K1 an anomaly request, both in its own process)
+    return {"K1": k1 + one_k1, "K2": k2, "rounds": served, "seconds": time.perf_counter() - t_part}
+
+
+
+def deploy_drain(server, names, cpu_app):
     """DEPLOY_BURST concurrent ``/prediction`` requests, each machine's own
-    next rows, queued in the server's engine; SIGTERM; ``/healthcheck``
-    polled while the server drains; the answers held to the CPU app's."""
+    next rows, queued in the engines of the batching server's workers;
+    SIGTERM; ``/healthcheck`` polled while the workers drain; the answers
+    held to the CPU app's; each worker's launches on its drain line held to
+    the batches its riders called for."""
+    base = server.base
     candidates = [n for n in names if n != ENGINE_POISON][8:8 + DEPLOY_BURST]
     requests = [(f"/{n}/prediction", {"X": own_frame(n, 20)}) for n in candidates]
     answers, spent = [None] * len(requests), [None] * len(requests)
@@ -6425,9 +6841,9 @@ def deploy_drain(proc, base, names, cpu_app, log_path):
         thread.start()
     time.sleep(DEPLOY_SIGNAL_AFTER_S)
     t_signal = time.perf_counter()
-    proc.send_signal(signal.SIGTERM)
+    server.proc.send_signal(signal.SIGTERM)
     draining = 0
-    while proc.poll() is None:
+    while server.proc.poll() is None:
         try:
             status, body = http_request(f"{base}/healthcheck", "GET")[:2]
         except OSError:
@@ -6436,9 +6852,9 @@ def deploy_drain(proc, base, names, cpu_app, log_path):
         time.sleep(0.02)
     for thread in threads:
         thread.join(timeout=DEPLOY_EXIT_LIMIT_S)
-    code = proc.wait(timeout=DEPLOY_EXIT_LIMIT_S)
+    code = server.proc.wait(timeout=DEPLOY_EXIT_LIMIT_S)
     exit_s = time.perf_counter() - t_signal
-    check(code == 0, f"run-server exited {code} after SIGTERM: {open(log_path).read()[-2000:]}")
+    check(code == 0, f"run-server exited {code} after SIGTERM: {server.text()[-2000:]}")
     check(exit_s <= DEPLOY_EXIT_LIMIT_S, f"run-server took {exit_s:.1f} s to exit")
     check(draining >= 1, "/healthcheck never answered 503 while the server drained")
     check(all(answer is not None and answer[0] == 200 for answer in answers), f"burst answers {answers}")
@@ -6448,7 +6864,23 @@ def deploy_drain(proc, base, names, cpu_app, log_path):
         cpu_status, cpu_body = wsgi_post(cpu_app, "/gordo/v0/smoke" + path, payload)
         check(cpu_status == 200, f"the CPU app answered {cpu_status} on {path}")
         diff = max(diff, same_json(cpu_body["data"], body["data"]))
-    return {"spent": spent, "draining": draining, "exit_s": exit_s, "diff": diff}
+    drains, spans = server.drains(), server.spans()
+    riders = {pid for pid, names_ in spans.items() if names_["request"]}
+    batches = sum(names_["serve_batch"] for names_ in spans.values())
+    k1, k2 = sum(d[0] for d in drains.values()), sum(d[1] for d in drains.values())
+    check(len(drains) == DEPLOY_WORKERS and sum(n["request"] for n in spans.values()) == len(requests),
+          f"drain lines {drains}, traced requests {spans}")
+    check(k1 == len(riders) == batches and k2 == 0, f"the engines' launches K1 {k1}, K2 {k2}: workers with riders "
+          f"{sorted(riders)}, serve_batch spans {batches}")
+    # the shapes K1 launched at: each batch's members and padded rows, read off its span
+    shapes = server.batches()
+    check(len(shapes) == batches and sum(m for _, m, _, _ in shapes) == len(requests)
+          and sorted(n for *_, riders_ in shapes for n in riders_) == sorted(candidates)
+          and all(len(riders_) == m for _, m, _, riders_ in shapes),
+          f"the engines' serve_batch spans {shapes}: not the {len(requests)} requests of {candidates}")
+    return {"spent": spent, "draining": draining, "exit_s": exit_s, "diff": diff, "K1": k1, "K2": k2,
+            "pids": sorted(riders), "batches": batches, "shapes": shapes,
+            "drain_s": max(d[2] for d in drains.values())}
 
 
 # -- [workflow]: workflow generate, and the rendered builder pod run on the card --------
@@ -7440,6 +7872,34 @@ def main():
         errors[name] = compare(workflow_cases[width])
         phase("kernel", f"{name}, seeded params and rows at the spec and shape of the builder pod's {width}-tag CV "
               f"forward: max abs {errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
+    # the run-server workers' requests ran in their processes: K1 and K2 held to the plain version at the
+    # shapes those requests launched, with seeded params and rows
+    deploy_worker_cases = {
+        DEPLOY_WORKER_CASES["anomaly"]: make_case(feedforward_hourglass(20), SERVED_MACHINES, 1, ROWS, indices=[9],
+                                                  ingest=True, seed=90),
+        DEPLOY_WORKER_CASES["wide"]: make_case(feedforward_hourglass(WIDE_TAGS), WIDE_MACHINES, 1, ROWS, indices=[2],
+                                               ingest=True, seed=91),
+    }
+    # the engine batches of the burst, at the shapes their spans recorded: {name: [launches, riders, M, B]}
+    deploy_batches = {}
+    for _, members, rows, riders in deploy_launches["server"]["engine_batches"]:
+        deploy_batches.setdefault(DEPLOY_ENGINE_CASE.format(M=members, B=rows), [0, riders, members, rows])[0] += 1
+    check(sum(b[0] for b in deploy_batches.values()) == deploy_launches["server"]["engine_K1"],
+          f"the engine batches {deploy_batches} are not the {deploy_launches['server']['engine_K1']} K1 launches")
+    for i, (name, (_, riders, members, rows)) in enumerate(sorted(deploy_batches.items())):
+        deploy_worker_cases[name] = make_case(feedforward_hourglass(20), SERVED_MACHINES, members, rows,
+                                              indices=[names.index(r) for r in riders], ingest=True, seed=92 + i)
+    deploy_fleet = scores_case(make_case(feedforward_hourglass(20), SERVED_MACHINES, SERVED_MACHINES,
+                                         DEPLOY_FLEET_ROWS, indices=list(range(SERVED_MACHINES)), ingest=True,
+                                         seed=93))
+    for name, case in deploy_worker_cases.items():
+        errors[name] = compare(case)
+        phase("kernel", f"{name}, seeded params and rows at the shape a run-server worker launched: max abs "
+              f"{errors[name][0]:.3e}, max rel {errors[name][1]:.3e} (rtol {RTOL}, atol {ATOL})")
+    errors[DEPLOY_FLEET_CASE] = compare_scores(deploy_fleet)
+    phase("kernel", f"{DEPLOY_FLEET_CASE}, seeded params and rows at the shape of the client's fleet request to a "
+          f"run-server worker: max abs {errors[DEPLOY_FLEET_CASE][0]:.3e}, max rel {errors[DEPLOY_FLEET_CASE][1]:.3e} "
+          f"over recon and mse (rtol {RTOL}, atol {ATOL})")
     times_t0 = time.perf_counter()
 
     for name in (*NARROW_CASES, "K2 stream flush: hourglass20 M=64 B=512 y=X +ingest"):
@@ -7617,6 +8077,20 @@ def main():
               f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} "
               f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
               f"{floor!r} ms; {card}")
+
+    for name, case in deploy_worker_cases.items():
+        timed[name] = times(case)
+        kernel, plain, library, library_tf32, bound_ms, bound_by, cuda_core_ms = timed[name]
+        phase("times", f"{name}: K1 {kernel!r} ms, plain {plain!r} ms, baddbmm chain {library!r} ms (with TF32 "
+              f"{library_tf32!r} ms), bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor cores; {bound_ms / kernel:.1%} "
+              f"of it), CUDA-core f32 bound {cuda_core_ms!r} ms ({cuda_core_ms / kernel:.1%}), launch floor "
+              f"{floor!r} ms; {card}")
+    scored_timed[DEPLOY_FLEET_CASE] = scores_times(deploy_fleet)
+    kernel, plain, library, library_tf32, k1, bound_ms, bound_by, cuda_core_ms = scored_timed[DEPLOY_FLEET_CASE]
+    phase("times", f"{DEPLOY_FLEET_CASE}: K2 {kernel!r} ms, plain {plain!r} ms, baddbmm chain + mean {library!r} ms "
+          f"(with TF32 {library_tf32!r} ms), K1 alone {k1!r} ms, bound {bound_ms!r} ms ({bound_by}, 3xTF32 tensor "
+          f"cores; {bound_ms / kernel:.1%} of it), CUDA-core f32 bound {cuda_core_ms!r} ms "
+          f"({cuda_core_ms / kernel:.1%}), launch floor {floor!r} ms; {card}")
 
     for width, name in workflow_names.items():
         timed[name] = times(workflow_cases[width])
@@ -7798,6 +8272,19 @@ def main():
               k1_by_path, DEPLOY_SCORE_CASES[20], timed[DEPLOY_SCORE_CASES[20]]),
         entry("fleet_dense (K1), wide kernel, score", "gordo_tpu/ops/pallas_dense.py:114", deploy_cases[WIDE_TAGS][1],
               k1_by_path, DEPLOY_SCORE_CASES[WIDE_TAGS], timed[DEPLOY_SCORE_CASES[WIDE_TAGS]]),
+        # launches: the run-server workers' K1 launches of both widths (the pre-fork servers without an engine,
+        # of 2 workers and of 1), summed over their drain lines; the shape timed with seeded params and rows
+        entry("fleet_dense (K1), run-server workers' requests", "gordo_tpu/ops/pallas_dense.py:114",
+              deploy_launches["server"]["workers_K1"], k1_by_path, DEPLOY_WORKER_CASES["anomaly"],
+              timed[DEPLOY_WORKER_CASES["anomaly"]]),
+        # launches: the batching server's engine batches of that shape (members and padded rows off their
+        # serve_batch spans), the shape timed with seeded params and rows
+        *(entry(f"fleet_dense (K1), narrow kernel, run-server engine batch of {members}",
+                "gordo_tpu/ops/pallas_dense.py:114", launches_, k1_by_path, name, timed[name])
+          for name, (launches_, _, members, _) in sorted(deploy_batches.items())),
+        entry("fleet_anomaly_scores (K2), narrow kernel, run-server worker's fleet request",
+              "gordo_tpu/ops/pallas_dense.py:126", deploy_launches["server"]["workers_K2"], k2_by_path,
+              DEPLOY_FLEET_CASE, scored_timed[DEPLOY_FLEET_CASE]),
         # launches: the rendered builder pod's CV forwards at that width's shape, counted in its process and
         # logged by shape; the shape timed with seeded params and rows
         entry("fleet_dense (K1), narrow kernel, workflow builder pod CV fold scoring",

@@ -130,8 +130,9 @@ The port's command line (``python -m gordo_tpu_torch``), on ``argparse``:
   ``workflow generate`` puts into its ConfigMaps
   (``workflow/workflow_generator/workflow_generator.py::normalize``),
   printed or written to ``--output``.
-- the deploy pod's commands (``cli/deploy.py``): ``run-server`` (the
-  one-process server, drained by SIGTERM), ``wait-for-models``, ``score``,
+- the deploy pod's commands (``cli/deploy.py``): ``run-server`` (a
+  pre-fork master and its worker processes, drained by SIGTERM),
+  ``wait-for-models``, ``score``,
   ``ensure-single-workflow`` and ``cleanup-revisions``; and the
   ``client`` group (``client/cli.py``): ``metadata``, ``download-model``
   and ``predict``.

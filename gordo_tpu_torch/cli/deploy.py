@@ -4,16 +4,24 @@ The deploy pod's commands (``gordo_tpu/cli/cli.py:247-420`` and
 messages and exit codes: an error prints ``Error: <message>`` on stderr
 and exits 1, a missing argument exits 2.
 
-- ``run-server``: the JAX command's one-process server, threaded
-  (``server/app.py::run_server``; the card's machine has no gunicorn). The
-  batching options travel as the ``GORDO_TPU_*`` variables, as in JAX.
-  ``--workers``, ``--worker-connections``, ``--threads``,
-  ``--worker-class``, ``--server-app`` and ``--with-prometheus-config``
-  are gunicorn's: accepted and ignored, as the JAX command's fallback
-  ignores them, with one log line. The port adds ``--device``,
-  ``--metrics-port`` and ``--drain-grace-s`` (``GORDO_TPU_DRAIN_GRACE_S``,
-  default 0: the seconds a drain keeps answering before the socket
-  closes). SIGTERM or SIGINT drains the server and exits 0.
+- ``run-server``: the JAX command's gunicorn server as the port's own
+  pre-fork master (``server/prefork.py``; the card's machine has no
+  gunicorn): ``--workers`` processes (``GORDO_SERVER_WORKERS``, default 2,
+  1-4), each with its own app and CUDA context, answering at most
+  ``--threads`` requests at once (``--worker-class gthread``; ``sync``
+  answers one; any other class is served as ``gthread``, with one log
+  line). With ``ENABLE_PROMETHEUS`` the master answers ``/metrics`` on
+  ``--metrics-port`` from every worker's files
+  (``PROMETHEUS_MULTIPROC_DIR``, a private directory when unset);
+  ``--with-prometheus-config`` marks a dead worker's live gauges dead, as
+  the JAX config module does. The batching options travel as the
+  ``GORDO_TPU_*`` variables, as in JAX. ``--worker-connections`` and
+  ``--server-app`` are gunicorn's: accepted and ignored, with one log
+  line. The port adds ``--device``, ``--metrics-port`` and
+  ``--drain-grace-s`` (``GORDO_TPU_DRAIN_GRACE_S``, default 0: the seconds
+  a drain keeps answering before the socket closes). SIGTERM or SIGINT
+  drains every worker and exits 0; a worker that cannot boot (no card,
+  a kernel that fails) exits the command with 3.
 - ``wait-for-models MODELS_DIR``: until every ``--name`` (default the
   ``EXPECTED_MODELS`` YAML list) has its ``metadata.json``; the timeout's
   message names the missing models.
@@ -49,9 +57,8 @@ from ..utils import yaml_lite
 
 logger = logging.getLogger(__name__)
 
-#: the gunicorn options the one-process server accepts and ignores
-GUNICORN_OPTIONS = ("workers", "worker_connections", "threads", "worker_class", "server_app",
-                    "with_prometheus_config")
+#: the gunicorn options the pre-fork server accepts and ignores
+GUNICORN_OPTIONS = ("worker_connections", "server_app")
 LOCK_FILE = "deploy.lock"
 GUARD = ".deploy.guard"
 #: seconds before a guard counts as a crashed holder's, and the wait for the guard
@@ -84,23 +91,27 @@ def _float_range(low: float, high: float):
 
 def add_parsers(commands) -> None:
     """The deploy commands under the command line's subparsers."""
-    server = commands.add_parser("run-server", help="run the model server (one process, threaded)")
+    server = commands.add_parser("run-server", help="run the model server (a pre-fork master and its workers)")
     server.add_argument("--host", default=os.environ.get("GORDO_SERVER_HOST", "0.0.0.0"))
-    server.add_argument("--port", type=_int_range(1, 65535), default=int(os.environ.get("GORDO_SERVER_PORT", 5555)))
+    server.add_argument("--port", type=_int_range(0, 65535), default=int(os.environ.get("GORDO_SERVER_PORT", 5555)),
+                        help="the port the master binds (0 picks a free one, which its log names) "
+                             "[GORDO_SERVER_PORT, 5555]")
     server.add_argument("--workers", type=_int_range(1, 4), default=int(os.environ.get("GORDO_SERVER_WORKERS", 2)),
-                        help="gunicorn's; ignored by the one-process server")
+                        help="worker processes the master forks [GORDO_SERVER_WORKERS, 2]")
     server.add_argument("--worker-connections", type=_int_range(1, 4000),
                         default=int(os.environ.get("GORDO_SERVER_WORKER_CONNECTIONS", 50)), help="gunicorn's; ignored")
     server.add_argument("--threads", type=int, default=int(os.environ.get("GORDO_SERVER_THREADS", 8)),
-                        help="gunicorn's; ignored")
+                        help="requests a gthread worker answers at once [GORDO_SERVER_THREADS, 8]")
     server.add_argument("--worker-class", default=os.environ.get("GORDO_SERVER_WORKER_CLASS", "gthread"),
-                        help="gunicorn's; ignored")
+                        help="gthread (threads a worker) or sync (one request at a time); any other is served as "
+                             "gthread [GORDO_SERVER_WORKER_CLASS, gthread]")
     server.add_argument("--log-level", dest="server_log_level",
                         choices=("debug", "info", "warning", "error", "critical"),
                         default=os.environ.get("GORDO_SERVER_LOG_LEVEL", "debug"), help="the server's log level")
     server.add_argument("--server-app", default=os.environ.get("GORDO_SERVER_APP", "gordo_tpu.server.app:build_app()"),
                         help="gunicorn's; ignored")
-    server.add_argument("--with-prometheus-config", action="store_true", help="gunicorn's; ignored")
+    server.add_argument("--with-prometheus-config", action="store_true",
+                        help="mark a dead worker's live gauges dead in the metrics directory")
     server.add_argument("--batching", action=argparse.BooleanOptionalAction, default=None,
                         help="coalesce concurrent requests into batches (default $GORDO_TPU_BATCHING, off)")
     server.add_argument("--batch-max-size", type=_int_range(1, 4096), default=None,
@@ -119,7 +130,8 @@ def add_parsers(commands) -> None:
                         help="the batches' precision [GORDO_TPU_SERVE_PRECISION, f32]")
     server.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     server.add_argument("--metrics-port", type=int, default=9090,
-                        help="where /metrics answers while ENABLE_PROMETHEUS is set (0 picks a free port)")
+                        help="where the master answers /metrics while ENABLE_PROMETHEUS is set (0 picks a free "
+                             "port)")
     server.add_argument("--drain-grace-s", type=_float_range(0.0, 600.0),
                         default=float(os.environ.get("GORDO_TPU_DRAIN_GRACE_S", 0.0)),
                         help="seconds a drain keeps answering (healthcheck 503) before the socket closes "
@@ -187,7 +199,8 @@ def main(parser: argparse.ArgumentParser, args: argparse.Namespace) -> int:
 
 def run_server_command(args: argparse.Namespace) -> int:
     """``run-server``: the batching options into the environment, then the
-    one-process server until a signal drains it."""
+    pre-fork master and its workers until a signal drains them; the
+    master's exit code."""
     from ..server.app import run_server
 
     for name, value in (
@@ -203,11 +216,11 @@ def run_server_command(args: argparse.Namespace) -> int:
         if value is not None:
             os.environ[name] = str(value)
     logging.getLogger().setLevel(args.server_log_level.upper())
-    logger.warning("gunicorn is not used: serving one process, threaded; %s are ignored",
+    logger.warning("gunicorn is not used: the port's pre-fork master serves; %s are ignored",
                    ", ".join(f"--{name.replace('_', '-')}" for name in GUNICORN_OPTIONS))
-    run_server(args.host, args.port, device=args.device, metrics_port=args.metrics_port,
-               drain_grace_s=args.drain_grace_s)
-    return 0
+    return run_server(args.host, args.port, device=args.device, metrics_port=args.metrics_port,
+                      drain_grace_s=args.drain_grace_s, workers=args.workers, threads=args.threads,
+                      worker_class=args.worker_class, prometheus_config=args.with_prometheus_config)
 
 
 # -- wait-for-models -------------------------------------------------------------------

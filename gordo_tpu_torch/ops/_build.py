@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
+from ..utils.postfork import register_postfork_reset
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gordo_tpu_torch"
 NVCC_FLAGS = (
@@ -35,6 +37,17 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _reset_after_fork() -> None:
+    """A forked worker loads the libraries it launches itself, after its
+    own CUDA context exists; the lock is rebound, never taken."""
+    global _lock, _loaded
+    _lock = threading.Lock()
+    _loaded = {}
+
+
+register_postfork_reset(_reset_after_fork, name="ops._build.loaded")
 
 
 class KernelBuildError(RuntimeError):

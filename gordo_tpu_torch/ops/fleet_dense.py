@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models.spec import FeedForwardSpec
+from ..utils.postfork import register_postfork_reset
 from .activations import activation_code, resolve_activation
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -333,3 +334,16 @@ def fleet_anomaly_scores(
 
 
 fleet_anomaly_scores.launches = 0  # type: ignore[attr-defined]
+
+
+def _reset_launch_counters_after_fork() -> None:
+    """A forked worker counts its own launches from 0 (its drain line
+    reports them); the counters' lock is rebound, never taken."""
+    global _launches_lock
+    _launches_lock = threading.Lock()
+    fleet_feedforward.launches = 0
+    fleet_feedforward.shapes = collections.Counter()
+    fleet_anomaly_scores.launches = 0
+
+
+register_postfork_reset(_reset_launch_counters_after_fork, name="ops.fleet_dense.launches")

@@ -71,8 +71,12 @@ the served directory's serving health ledger, one for the process
 (``telemetry.serving_ledger``), which adopts the directory's last snapshot
 on first use and which the app's engine and plane feed too (a 503 is not
 an error there). With ``GORDO_TPU_TELEMETRY=0`` nothing is
-written and ``Server-Timing`` stays. The server does not fork workers, so
-the JAX package's post-fork resets have no counterpart.
+written and ``Server-Timing`` stays. Under ``run-server``'s workers
+(:func:`run_server`, ``server/prefork.py``) every process writes its own
+``serve_trace-<pid>.jsonl`` and ``fleet_health-<pid>.json`` (worker
+sinks), and a forked worker drops what it inherited of the process-wide
+state (``utils/postfork.py``): the recorder, the ledgers, the live apps,
+the launch counters, the loaded kernel libraries, the metric objects.
 
 A drain (:func:`drain_and_stop`; SIGTERM or SIGINT under
 :func:`run_server`) flips ``/healthcheck`` to 503, ends every stream with
@@ -84,11 +88,11 @@ With ``ENABLE_PROMETHEUS`` (any value but ``false``) ``build_app`` gives
 the app the request RED metrics and stage histograms of
 ``prometheus/metrics.py`` (``PROJECT`` the project label), observed in
 :meth:`GordoServerApp.__call__` after each dispatch, and its engine a
-``ServeMetrics`` sink; ``run_server`` answers scrapes of the process's
-registry on a second ``wsgiref`` server (``metrics_port``, the
-sidecar's 9090 by default). The collectors read every live app
-(:func:`live_apps`). A failing metric is logged and dropped. The server
-is one process, so ``PROMETHEUS_MULTIPROC_DIR`` is refused.
+``ServeMetrics`` sink. With ``PROMETHEUS_MULTIPROC_DIR`` set they count
+into the process's files of that directory, and the pre-fork master
+answers scrapes of every worker's files on ``metrics_port`` (9090 by
+default). The collectors read every live app (:func:`live_apps`). A
+failing metric is logged and dropped.
 """
 
 import contextlib
@@ -113,8 +117,9 @@ from ..telemetry import serving as serve_trace
 from ..telemetry import slo, tracing
 from ..utils import yaml_lite
 from ..utils.env import env_bool
+from ..utils.postfork import register_postfork_reset
 from .fleet_store import FleetModelStore, ModelResolution, RevisionFleet
-from .prometheus.metrics import ServeMetrics, create_prometheus_metrics, refuse_multiprocess_dir
+from .prometheus.metrics import ServeMetrics, create_prometheus_metrics
 from .utils import ServerError, check_metadata_file, validate_gordo_name, validate_revision
 from .wire import ArrowDecodeError, dumps
 
@@ -599,6 +604,15 @@ class GordoServerApp:
 _live_apps: "weakref.WeakSet[GordoServerApp]" = weakref.WeakSet()
 
 
+def _reset_after_fork() -> None:
+    """A forked worker's collectors read its own apps, none of its parent's."""
+    global _live_apps
+    _live_apps = weakref.WeakSet()
+
+
+register_postfork_reset(_reset_after_fork, name="server.app.live_apps")
+
+
 def live_apps() -> List[GordoServerApp]:
     """The process's live apps."""
     return list(_live_apps)
@@ -641,9 +655,10 @@ def build_app(
     starts its warmup (:meth:`GordoServerApp.start_warmup`) unless
     ``GORDO_TPU_SERVE_WARMUP=0``. With ``ENABLE_PROMETHEUS`` the app
     observes its requests and its engine's batches on
-    ``prometheus_registry`` (default the process's ``REGISTRY``), under
-    the ``PROJECT`` label. ``PROMETHEUS_MULTIPROC_DIR`` is refused."""
-    refuse_multiprocess_dir()
+    ``prometheus_registry`` (default the process's ``REGISTRY``, or, while
+    ``PROMETHEUS_MULTIPROC_DIR`` is set, a registry of its own whose
+    numbers go to the process's files of that directory), under the
+    ``PROJECT`` label."""
     if collection_dir is None:
         collection_dir = os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
     expected = parse_expected_models(os.environ.get(EXPECTED_MODELS_ENV_VAR))
@@ -682,24 +697,46 @@ class ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
     """``wsgiref``'s server with a thread per request. The request
     threads are daemons, so that a stuck connection cannot hold the
     process; the server keeps the live ones, and :meth:`join_requests`
-    waits for them, within a bound, before the process goes."""
+    waits for them, within a bound, before the process goes. With
+    ``max_threads`` (a pre-fork worker's ``--threads``) at most that many
+    requests are answered at once: the accept loop waits for a free
+    thread, and the connections behind it wait in the listening socket's
+    backlog, where another worker may take them."""
 
     daemon_threads = True
     #: ``server_close`` does not join the request threads without a bound
     block_on_close = False
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, max_threads: Optional[int] = None, **kwargs):
         self._live: set = set()
         self._live_lock = threading.Lock()
+        self._slots = threading.BoundedSemaphore(max_threads) if max_threads else None
+        self._stopping = False
         super().__init__(*args, **kwargs)
 
     def process_request(self, request, client_address):
-        thread = threading.Thread(target=self.process_request_thread, args=(request, client_address),
+        slot = False
+        if self._slots is not None:
+            # a stopping server answers the connection it accepted beyond the cap
+            while not slot and not self._stopping:
+                slot = self._slots.acquire(timeout=0.5)
+        thread = threading.Thread(target=self._answer, args=(request, client_address, slot),
                                   name="gordo-request", daemon=True)
         with self._live_lock:
             self._live = {t for t in self._live if t.is_alive()}
             self._live.add(thread)
         thread.start()
+
+    def _answer(self, request, client_address, slot: bool) -> None:
+        try:
+            self.process_request_thread(request, client_address)
+        finally:
+            if slot:
+                self._slots.release()
+
+    def shutdown(self) -> None:
+        self._stopping = True
+        super().shutdown()
 
     def join_requests(self, timeout: float) -> int:
         """Wait at most ``timeout`` seconds for the request threads still
@@ -722,6 +759,23 @@ def make_wsgi_server(app: Callable[..., Iterable[bytes]], host: str = "0.0.0.0",
     return make_server(host, port, app, server_class=ThreadingWSGIServer, handler_class=_QuietHandler)
 
 
+def serve_socket(app: Callable[..., Iterable[bytes]], sock: Any, max_threads: Optional[int] = None) -> WSGIServer:
+    """A threaded ``wsgiref`` server for ``app`` on ``sock``, a socket
+    already bound and listening (a pre-fork worker's, shared with the
+    other workers), answering at most ``max_threads`` requests at once."""
+    import socket as socket_module
+
+    host, port = sock.getsockname()[:2]
+    server = ThreadingWSGIServer((host, port), _QuietHandler, bind_and_activate=False, max_threads=max_threads)
+    server.socket.close()
+    server.socket = sock
+    server.server_address = sock.getsockname()
+    server.server_name, server.server_port = socket_module.getfqdn(host), port
+    server.setup_environ()
+    server.set_app(app)
+    return server
+
+
 #: seconds a drain waits for the request threads still answering after the accept loop stopped
 REQUEST_JOIN_TIMEOUT_S = 30.0
 
@@ -742,7 +796,8 @@ def drain_and_stop(app: GordoServerApp, server: Any = None, grace_s: float = 0.0
     ``grace_s`` the accept loop keeps answering that long after the
     engine drained (a port option, 0 as in JAX): load balancers see the
     503 before the socket closes. The log's last line counts the K1 and
-    K2 launches this process made."""
+    K2 launches this process made (a pre-fork worker's own, from 0 at its
+    fork), with its pid."""
     from ..ops.fleet_dense import fleet_anomaly_scores, fleet_feedforward
 
     started = time.monotonic()
@@ -756,8 +811,9 @@ def drain_and_stop(app: GordoServerApp, server: Any = None, grace_s: float = 0.0
         if hasattr(server, "join_requests"):
             left = server.join_requests(join_timeout_s)
     serve_trace.reset_serve_recorder()
-    logger.info("drained in %.3f s (%d request thread(s) still answering); kernel launches: K1 %d, K2 %d",
-                time.monotonic() - started, left, fleet_feedforward.launches, fleet_anomaly_scores.launches)
+    logger.info("drained in %.3f s (%d request thread(s) still answering); kernel launches: K1 %d, K2 %d (pid %d)",
+                time.monotonic() - started, left, fleet_feedforward.launches, fleet_anomaly_scores.launches,
+                os.getpid())
 
 
 def install_graceful_shutdown(app: GordoServerApp, server: Any = None, grace_s: float = 0.0) -> Optional[Callable]:
@@ -793,38 +849,25 @@ def run_server(
     device: DeviceLike = None,
     metrics_port: int = 9090,
     drain_grace_s: float = 0.0,
-) -> None:
+    workers: int = 1,
+    threads: int = 8,
+    worker_class: str = "gthread",
+    prometheus_config: bool = False,
+) -> int:
     """Serve ``collection_dir`` (default: ``MODEL_COLLECTION_DIR``) until
-    SIGTERM or SIGINT, with every model loaded up front: the JAX
-    command's one-process server (``gordo_tpu/server/app.py:848-895``),
-    threaded. A signal drains it (:func:`install_graceful_shutdown`,
-    ``drain_grace_s`` the drain's grace) and it returns when the drain
-    is done. With ``ENABLE_PROMETHEUS`` the process also answers scrapes
-    on ``metrics_port`` (0 picks a free one) from a second server
-    thread."""
-    from .prometheus.server import build_metrics_app
+    SIGTERM or SIGINT: the JAX command's gunicorn server
+    (``gordo_tpu/server/app.py:800-895``) as the port's pre-fork master
+    (``server/prefork.py``), which forks ``workers`` processes, each with
+    its own app, device context and every model loaded up front, answering
+    at most ``threads`` requests at once (``worker_class`` ``sync``: one).
+    A signal drains every worker (``drain_grace_s`` the drain's grace);
+    the exit code is 0 when every worker drained, and not 0 when a worker
+    could not boot. With ``ENABLE_PROMETHEUS`` the master answers scrapes
+    of every worker's metrics on ``metrics_port`` (0 picks a free one);
+    ``prometheus_config`` marks a dead worker's live gauges dead
+    (``--with-prometheus-config``)."""
+    from .prefork import PreforkServer
 
-    app = build_app(collection_dir, device)
-    loaded = app.store.fleet(app.store.route(app.store.collection_dir)).warm()
-    logger.info("serving %d models of %s on %s", len(loaded), app.store.collection_dir, app.device)
-    metrics_server = metrics_thread = None
-    if app.prometheus_metrics is not None:
-        metrics_server = make_wsgi_server(build_metrics_app(app.prometheus_metrics.registry), host, metrics_port)
-        metrics_thread = threading.Thread(target=metrics_server.serve_forever, name="gordo-metrics", daemon=True)
-        metrics_thread.start()
-        logger.info("Prometheus metrics on http://%s:%d/metrics", host, metrics_server.server_port)
-    with make_wsgi_server(app, host, port) as server:
-        handler = install_graceful_shutdown(app, server, drain_grace_s)
-        logger.info("listening on http://%s:%d", host, server.server_port)
-        try:
-            server.serve_forever()
-        finally:
-            drain = None if handler is None else handler.thread
-            if drain is not None:
-                drain.join()
-            else:  # the loop ended without a signal's drain: drain here
-                drain_and_stop(app, server)
-            if metrics_server is not None:
-                metrics_server.shutdown()
-                metrics_server.server_close()
-                metrics_thread.join(timeout=10)
+    return PreforkServer(host, port, workers=workers, threads=threads, worker_class=worker_class,
+                         collection_dir=collection_dir, device=device, metrics_port=metrics_port,
+                         drain_grace_s=drain_grace_s, prometheus_config=prometheus_config).run()

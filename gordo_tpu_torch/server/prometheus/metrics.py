@@ -29,9 +29,14 @@ apps hold. :func:`~gordo_tpu_torch.telemetry.fleet_health.ledger_summaries`
 covers every directory the process made a build or serving ledger for.
 
 Metric objects are made once a registry, so a second app of the process
-shares the first one's families. The port's server is one process: the
-JAX package's multi-process exposition (``PROMETHEUS_MULTIPROC_DIR``) is
-refused (:func:`refuse_multiprocess_dir`).
+shares the first one's families. With ``PROMETHEUS_MULTIPROC_DIR`` set
+(``run-server``'s workers, ``server/prefork.py``), an app's metrics keep
+their numbers in the worker's files of that directory
+(``multiprocess.py``) on a registry of their own, and
+:func:`multiprocess_registry` is the fan-in that the master serves. Every
+gauge is merged by its largest value across processes
+(``multiprocess_mode="max"``), as the JAX package's are. A forked worker
+forgets the metric objects its parent made (``register_postfork_reset``).
 
 One difference from the JAX class: :class:`GordoServerPrometheusMetrics`
 caches its stage children by (project, endpoint, stage). The JAX one
@@ -46,6 +51,8 @@ import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 from ... import __version__
+from ...utils.postfork import register_postfork_reset
+from .multiprocess import MULTIPROC_ENV, MultiProcessCollector, multiprocess_dir  # noqa: F401 - MULTIPROC_ENV re-exported
 from .registry import (
     REGISTRY,
     CollectorRegistry,
@@ -79,21 +86,28 @@ _STAGE_BUCKETS = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
 )
 
-MULTIPROC_ENV = ("PROMETHEUS_MULTIPROC_DIR", "prometheus_multiproc_dir")
+def _ensure_multiproc_dir() -> Optional[str]:
+    """The configured ``PROMETHEUS_MULTIPROC_DIR`` (either spelling),
+    made when it is missing, or None."""
+    directory = multiprocess_dir()
+    if directory:
+        os.makedirs(directory, exist_ok=True)
+    return directory
 
 
-def refuse_multiprocess_dir() -> None:
-    """Raise when ``PROMETHEUS_MULTIPROC_DIR`` (either spelling) is set:
-    the port's server is one process, and the multi-process exposition
-    comes with ``run-server``'s workers."""
-    for name in MULTIPROC_ENV:
-        value = os.environ.get(name)
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r} asks for the multi-process exposition of run-server's workers, which "
-                "gordo_tpu_torch does not have yet (ROADMAP.md queue 1, item 13, part 8: the pre-fork server); "
-                "unset it: the port's server is one process and serves its metrics itself (python -m "
-                "gordo_tpu_torch.server --metrics-port)")
+def multiprocess_registry() -> Optional[CollectorRegistry]:
+    """A registry fanning in every process's files when
+    ``PROMETHEUS_MULTIPROC_DIR`` is set (``gordo_tpu/server/prometheus/metrics.py:52-83``),
+    else None. It carries the scrape-time collectors too (program cache,
+    fleet console): they have no files, so the fan-in alone would drop
+    them."""
+    if not _ensure_multiproc_dir():
+        return None
+    registry = CollectorRegistry()
+    MultiProcessCollector(registry)
+    register_program_cache_collector(registry)
+    register_fleet_console_collectors(registry)
+    return registry
 
 
 _made_lock = threading.RLock()
@@ -154,6 +168,7 @@ def _make_request_metrics(registry: CollectorRegistry) -> Dict[str, Any]:
             "Server build information",
             labelnames=["version", "project"],
             registry=registry,
+            multiprocess_mode="max",
         ),
     }
 
@@ -262,8 +277,11 @@ class GordoServerPrometheusMetrics:
 def create_prometheus_metrics(
     project: Optional[str] = None, registry: Optional[CollectorRegistry] = None
 ) -> GordoServerPrometheusMetrics:
-    """An app's request metrics on ``registry`` (default ``REGISTRY``)."""
-    refuse_multiprocess_dir()
+    """An app's request metrics on ``registry`` (default: a new
+    :func:`multiprocess_registry` when the directory is set, else
+    ``REGISTRY``)."""
+    if registry is None:
+        registry = multiprocess_registry() or REGISTRY
     return GordoServerPrometheusMetrics(project=project, registry=registry)
 
 
@@ -361,7 +379,7 @@ def _make_build_metrics(target: CollectorRegistry) -> Dict[str, Any]:
             "Machines failed so far in the current fleet build",
         ),
     ):
-        metrics[gauge_key] = Gauge(name, help_text, labelnames=["project"], registry=target)
+        metrics[gauge_key] = Gauge(name, help_text, labelnames=["project"], registry=target, multiprocess_mode="max")
     # the plan's promise beside what the final fit cost; strategy is bounded (naive|packed)
     for gauge_key, name, help_text in (
         (
@@ -395,7 +413,8 @@ def _make_build_metrics(target: CollectorRegistry) -> Dict[str, Any]:
             "during the final-fit phase of the build",
         ),
     ):
-        metrics[gauge_key] = Gauge(name, help_text, labelnames=["project", "strategy"], registry=target)
+        metrics[gauge_key] = Gauge(name, help_text, labelnames=["project", "strategy"], registry=target,
+                                   multiprocess_mode="max")
     return metrics
 
 
@@ -482,14 +501,14 @@ def _make_lifecycle_metrics(target: CollectorRegistry) -> Dict[str, Any]:
     }
     metrics["drifted"] = Gauge("gordo_fleet_lifecycle_drifted_machines",
                                "Machines whose latest drift evaluation tripped", labelnames=["project"],
-                               registry=target)
+                               registry=target, multiprocess_mode="max")
     metrics["stale"] = Gauge("gordo_fleet_lifecycle_stale_machines",
                              "Machines in the current stale set (being rebuilt/canaried)", labelnames=["project"],
-                             registry=target)
+                             registry=target, multiprocess_mode="max")
     metrics["canary_fraction"] = Gauge(
         "gordo_fleet_lifecycle_canary_fraction",
         "Traffic fraction currently routed to the canary revision (0 when no canary is serving)",
-        labelnames=["project"], registry=target)
+        labelnames=["project"], registry=target, multiprocess_mode="max")
     metrics["swap_seconds"] = Histogram(
         "gordo_fleet_lifecycle_swap_seconds",
         "Wall-clock of promoting a canary into serving (the hot swap itself, warm included; requests are "
@@ -897,6 +916,21 @@ def register_fleet_console_collectors(registry: CollectorRegistry) -> None:
 _serve_families: "weakref.WeakKeyDictionary[CollectorRegistry, dict]" = weakref.WeakKeyDictionary()
 
 
+def _reset_after_fork() -> None:
+    """A forked worker makes its metric objects anew (the process registry
+    starts empty in it, ``registry.py``): the caches of the parent's are
+    dropped, and the lock is rebound, never taken."""
+    global _made_lock, _request_metrics, _build_metrics, _lifecycle_metrics, _serve_families
+    global _program_cache_registries, _fleet_console_registries
+    _made_lock = threading.RLock()
+    _request_metrics, _build_metrics = weakref.WeakKeyDictionary(), weakref.WeakKeyDictionary()
+    _lifecycle_metrics, _serve_families = weakref.WeakKeyDictionary(), weakref.WeakKeyDictionary()
+    _program_cache_registries, _fleet_console_registries = weakref.WeakSet(), weakref.WeakSet()
+
+
+register_postfork_reset(_reset_after_fork, name="server.prometheus.metrics.caches")
+
+
 def _make_serve_families(registry: CollectorRegistry) -> Dict[str, Any]:
     labels = ["project"]
     families = {
@@ -905,6 +939,7 @@ def _make_serve_families(registry: CollectorRegistry) -> Dict[str, Any]:
             "Requests currently waiting in the micro-batch queue",
             labelnames=labels,
             registry=registry,
+            multiprocess_mode="max",
         ),
         "batch_size": Histogram(
             "gordo_server_batch_size",
@@ -954,6 +989,7 @@ def _make_serve_families(registry: CollectorRegistry) -> Dict[str, Any]:
             "batches)",
             labelnames=labels,
             registry=registry,
+            multiprocess_mode="max",
         ),
     }
     register_program_cache_collector(registry)

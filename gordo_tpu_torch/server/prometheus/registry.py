@@ -23,7 +23,14 @@ writes it:
 Every child keeps its own lock, so the server's request threads may
 observe concurrently. :data:`REGISTRY` is the process's registry; unlike
 ``prometheus_client``'s, it carries no ``process_*`` or ``python_*``
-collectors.
+collectors. A forked worker starts with it empty (its parent's metrics
+are the parent's).
+
+While ``PROMETHEUS_MULTIPROC_DIR`` is set, a child made from then on
+keeps its numbers in this process's files of the directory
+(``multiprocess.py``: the ``counter``, ``histogram`` and
+``gauge_<multiprocess_mode>`` files, a gauge's mode ``all`` unless its
+maker says otherwise); otherwise in memory.
 """
 
 import bisect
@@ -32,6 +39,8 @@ import re
 import threading
 import time
 from typing import Any, Dict, Iterable, Iterator, List, NamedTuple, Optional, Sequence, Tuple
+
+from ...utils.postfork import register_postfork_reset
 
 #: the ``Content-Type`` of an exposition
 CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
@@ -158,8 +167,20 @@ class CollectorRegistry:
 REGISTRY = CollectorRegistry()
 
 
+def _reset_registry_after_fork() -> None:
+    """A forked worker's process registry starts empty: the metrics its
+    parent registered count the parent's numbers. The lock is rebound,
+    never taken."""
+    REGISTRY._lock = threading.Lock()
+    REGISTRY._collectors = []
+    REGISTRY._names = set()
+
+
+register_postfork_reset(_reset_registry_after_fork, name="server.prometheus.registry.REGISTRY")
+
+
 class _Value:
-    """One number under its own lock."""
+    """One number under its own lock (in memory)."""
 
     __slots__ = ("_lock", "value")
 
@@ -180,9 +201,21 @@ class _Value:
             return self.value
 
 
+def make_value(typ: str, metric_name: str, name: str, labelnames: Sequence[str], labelvalues: Sequence[str],
+               documentation: str, multiprocess_mode: str = "") -> Any:
+    """A sample's number: in this process's file of the multi-process
+    directory while one is set (``multiprocess.MmapedValue``), else in
+    memory. ``name`` is the sample's (``<metric>_total``, ``_sum``, ...)."""
+    from .multiprocess import MmapedValue, multiprocess_dir
+
+    if multiprocess_dir():
+        return MmapedValue(typ, metric_name, name, labelnames, labelvalues, documentation, multiprocess_mode)
+    return _Value()
+
+
 class _CounterChild:
-    def __init__(self):
-        self._value = _Value()
+    def __init__(self, value: Any):
+        self._value = value
         self._created = time.time()
 
     def inc(self, amount: float = 1) -> None:
@@ -195,8 +228,8 @@ class _CounterChild:
 
 
 class _GaugeChild:
-    def __init__(self):
-        self._value = _Value()
+    def __init__(self, value: Any):
+        self._value = value
 
     def set(self, value: float) -> None:
         self._value.set(float(value))
@@ -206,23 +239,23 @@ class _GaugeChild:
 
 
 class _HistogramChild:
-    def __init__(self, upper_bounds: Tuple[float, ...]):
+    """A histogram's sum and its counts a bucket (not cumulative), each a
+    number of :func:`make_value`: ``values`` holds the sum's, then each
+    bucket's."""
+
+    def __init__(self, upper_bounds: Tuple[float, ...], values: List[Any]):
         self._upper_bounds = upper_bounds
-        self._lock = threading.Lock()
-        self._counts = [0.0] * len(upper_bounds)
-        self._sum = 0.0
+        self._values = values
         self._created = time.time()
 
     def observe(self, amount: float) -> None:
         amount = float(amount)
-        with self._lock:
-            self._sum += amount
-            if amount == amount:  # a NaN falls in no bucket
-                self._counts[bisect.bisect_left(self._upper_bounds, amount)] += 1
+        self._values[0].add(amount)
+        if amount == amount:  # a NaN falls in no bucket
+            self._values[1 + bisect.bisect_left(self._upper_bounds, amount)].add(1.0)
 
     def samples(self) -> Iterable[Tuple[str, Dict[str, str], float]]:
-        with self._lock:
-            counts, total = list(self._counts), self._sum
+        total, counts = self._values[0].get(), [value.get() for value in self._values[1:]]
         out, acc = [], 0.0
         for bound, count in zip(self._upper_bounds, counts):
             acc += count
@@ -255,8 +288,15 @@ class _MetricWrapper:
     def describe_names(self) -> List[str]:
         return [self._name + suffix for suffix in self._suffixes]
 
-    def _child(self) -> Any:
+    def _child(self, labelvalues: Tuple[str, ...]) -> Any:
         raise NotImplementedError
+
+    def _value(self, suffix: str, labelvalues: Tuple[str, ...], extra: Tuple[Tuple[str, str], ...] = (),
+               multiprocess_mode: str = "") -> Any:
+        """The number of the sample ``<name><suffix>`` of a child."""
+        return make_value(self._type, self._name, self._name + suffix,
+                          self._labelnames + tuple(k for k, _ in extra), labelvalues + tuple(v for _, v in extra),
+                          self._documentation, multiprocess_mode)
 
     def labels(self, **labelkwargs: Any) -> Any:
         """The child of these label values, made on first use."""
@@ -268,7 +308,7 @@ class _MetricWrapper:
             with self._lock:
                 child = self._children.get(values)
                 if child is None:
-                    child = self._children[values] = self._child()
+                    child = self._children[values] = self._child(values)
         return child
 
     def collect(self) -> List[Metric]:
@@ -295,15 +335,27 @@ class Counter(_MetricWrapper):
             name = name[:-6]
         super().__init__(name, documentation, labelnames, registry)
 
-    def _child(self) -> _CounterChild:
-        return _CounterChild()
+    def _child(self, labelvalues: Tuple[str, ...]) -> _CounterChild:
+        return _CounterChild(self._value("_total", labelvalues))
 
 
 class Gauge(_MetricWrapper):
+    """A gauge; ``multiprocess_mode`` is how the multi-process fan-in
+    merges its processes' numbers (``prometheus_client``'s modes)."""
+
     _type = "gauge"
 
-    def _child(self) -> _GaugeChild:
-        return _GaugeChild()
+    def __init__(self, name: str, documentation: str, labelnames: Sequence[str] = (),
+                 registry: Optional[CollectorRegistry] = REGISTRY, multiprocess_mode: str = "all"):
+        from .multiprocess import GAUGE_MODES
+
+        if multiprocess_mode not in GAUGE_MODES:
+            raise ValueError("Invalid multiprocess mode: " + multiprocess_mode)
+        self._multiprocess_mode = multiprocess_mode
+        super().__init__(name, documentation, labelnames, registry)
+
+    def _child(self, labelvalues: Tuple[str, ...]) -> _GaugeChild:
+        return _GaugeChild(self._value("", labelvalues, multiprocess_mode=self._multiprocess_mode))
 
 
 class Histogram(_MetricWrapper):
@@ -326,8 +378,11 @@ class Histogram(_MetricWrapper):
         self._upper_bounds = tuple(bounds)
         super().__init__(name, documentation, labelnames, registry)
 
-    def _child(self) -> _HistogramChild:
-        return _HistogramChild(self._upper_bounds)
+    def _child(self, labelvalues: Tuple[str, ...]) -> _HistogramChild:
+        # the sum's number first, then each bucket's, as prometheus_client makes them
+        values = [self._value("_sum", labelvalues)] + [
+            self._value("_bucket", labelvalues, (("le", float_to_go_string(bound)),)) for bound in self._upper_bounds]
+        return _HistogramChild(self._upper_bounds, values)
 
 
 def _escape_help(text: str) -> str:

@@ -1,20 +1,23 @@
 """
 The ``/metrics`` WSGI app (``gordo_tpu/server/prometheus/server.py``),
-which the server runs on a second ``wsgiref`` server of its own process
-(``python -m gordo_tpu_torch.server --metrics-port``): ``/metrics`` and
-``/`` answer the registry's exposition, any other path 404.
+which ``run-server``'s pre-fork master answers on its metrics port
+(``--metrics-port``, ``server/prefork.py``): ``/metrics`` and ``/`` answer
+the registry's exposition, any other path 404. With no registry given it
+serves the workers' fan-in while ``PROMETHEUS_MULTIPROC_DIR`` is set, as
+the JAX app does, else the process's ``REGISTRY``.
 """
 
 from typing import Any, Callable, Dict, Iterable, Optional
 
-from .metrics import register_program_cache_collector
+from .metrics import multiprocess_registry, register_program_cache_collector
 from .registry import CONTENT_TYPE_LATEST, REGISTRY, CollectorRegistry, generate_latest
 
 
 def build_metrics_app(registry: Optional[CollectorRegistry] = None) -> Callable[..., Iterable[bytes]]:
-    """A WSGI app answering scrapes of ``registry`` (default ``REGISTRY``)."""
+    """A WSGI app answering scrapes of ``registry`` (default: the
+    multi-process fan-in when its directory is set, else ``REGISTRY``)."""
     if registry is None:
-        registry = REGISTRY
+        registry = multiprocess_registry() or REGISTRY
     register_program_cache_collector(registry)
 
     def app(environ: Dict[str, Any], start_response) -> Iterable[bytes]:

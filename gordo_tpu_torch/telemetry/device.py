@@ -68,14 +68,16 @@ def memory_snapshot(device: Any = None) -> Optional[Dict[str, Any]]:
     ``peak_bytes_in_use`` (the allocator's peak since the process began
     or its last reset), ``bytes_limit`` (the card's memory), their
     ``max_*`` copies (one card: the same), ``utilization``. None when
-    telemetry is off; ``available`` False for a CPU ``device`` or when the
-    allocator has no stats.
+    telemetry is off; ``available`` False for a CPU ``device``, when the
+    allocator has no stats, or in a process that has not initialised CUDA
+    (it holds nothing on the card; the pre-fork master, whose scrapes
+    must not create a context that its next forked worker would inherit).
     """
     if not enabled():
         return None
     device = torch.device("cuda" if device is None else device)
     doc: Dict[str, Any] = {"devices": 1, "measured_devices": 0, "available": False}
-    if device.type != "cuda" or not torch.cuda.is_available():
+    if device.type != "cuda" or not torch.cuda.is_initialized():
         return doc
     try:
         stats = torch.cuda.memory_stats(device)

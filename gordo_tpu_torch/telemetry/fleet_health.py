@@ -5,9 +5,10 @@ The fleet health ledger and the joined fleet-status document, a copy of
 One record a machine (``serving``, ``drift``, ``build``, ``quarantine``
 and ``breaker`` sections, the JAX package's keys), each with its derived
 health score and state, and a bounded summary of the fleet, persisted
-beside the artifacts as ``fleet_health.json`` (the port's server is one
-process; the readers also merge the ``fleet_health-<pid>.json`` that a JAX
-server's workers write). Its feeds:
+beside the artifacts as ``fleet_health.json``, or, under worker sinks
+(``telemetry.recorder.worker_sink_path``: the workers of ``run-server``'s
+pre-fork master), as each worker's ``fleet_health-<pid>.json``, which the
+readers merge. Its feeds:
 
 - a fleet build: the ``build`` section (the final loss of each trained
   member, a landed artifact, a failure or a degradation with its error)
@@ -64,7 +65,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 
 from ..utils.env import env_bool, env_float, env_int
-from .recorder import _iso, enabled, is_worker_variant
+from ..utils.postfork import register_postfork_reset
+from .recorder import _iso, enabled, is_worker_variant, worker_sink_path
 
 logger = logging.getLogger(__name__)
 
@@ -365,7 +367,11 @@ class FleetHealthLedger:
 
     def __init__(self, directory: Optional[str] = None, project: str = "", heartbeat_seconds: Optional[float] = None):
         self.directory = os.path.normpath(directory) if directory is not None else None
-        self.path = os.path.join(self.directory, FLEET_HEALTH_FILE) if self.directory is not None else None
+        # under worker sinks each process snapshots to its own fleet_health-<pid>.json
+        self.path = worker_sink_path(os.path.join(self.directory, FLEET_HEALTH_FILE)) \
+            if self.directory is not None else None
+        #: the process that made the ledger: a forked worker makes its own (:func:`serving_ledger`)
+        self._pid = os.getpid()
         self.shard_dir = _shard_dir_for(self.path) if self.path is not None else None
         self.project = project
         if heartbeat_seconds is None:
@@ -818,18 +824,33 @@ _serving_ledgers: Dict[str, Any] = {}
 _serving_lock = threading.Lock()
 
 
+def _reset_after_fork() -> None:
+    """Drop the inherited ledgers in a forked worker: each holds the
+    parent's snapshot path, so workers writing through them would
+    overwrite one file. The per-call pid check of :func:`serving_ledger`
+    guards the same; the worker is single-threaded here and the inherited
+    locks may be held, so they are rebound, not taken."""
+    global _made_ledgers, _made_lock, _serving_ledgers, _serving_lock
+    _made_lock, _serving_lock = threading.Lock(), threading.Lock()
+    _made_ledgers, _serving_ledgers = {}, {}
+
+
+register_postfork_reset(_reset_after_fork, name="telemetry.fleet_health.ledgers")
+
+
 def serving_ledger(directory: str, project: str = "") -> Any:
     """The process's serving ledger for ``directory``, made on first use
-    by :func:`ledger_for`; :data:`NULL_LEDGER` while health telemetry is
+    by :func:`ledger_for` (again in a forked process, whose snapshot path
+    holds its own pid); :data:`NULL_LEDGER` while health telemetry is
     off. Lock-free once made."""
     if not health_enabled():
         return NULL_LEDGER
     key = os.path.abspath(directory)
     ledger = _serving_ledgers.get(key)
-    if ledger is None:
+    if ledger is None or ledger._pid != os.getpid():
         with _serving_lock:
             ledger = _serving_ledgers.get(key)
-            if ledger is None:
+            if ledger is None or ledger._pid != os.getpid():
                 ledger = _serving_ledgers[key] = ledger_for(directory, project=project)
     return ledger
 

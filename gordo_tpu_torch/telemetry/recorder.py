@@ -31,9 +31,11 @@ Two users:
   what was recorded is on disk; :meth:`SpanRecorder.close` stops the
   writer and loses nothing. Before each write the sink checks that its
   file is still the one at its path (another process may have rotated or
-  removed it) and reopens it if not. The port's server is one process,
-  so its sinks keep their plain names; :func:`is_worker_variant` still
-  reads the ``<stem>-<pid><ext>`` sinks of a JAX server's workers.
+  removed it) and reopens it if not. Under ``run-server``'s workers
+  (``server/prefork.py``) each process writes sinks of its own,
+  ``<stem>-<pid><ext>`` (:func:`worker_sink_path`: on exactly when
+  ``PROMETHEUS_MULTIPROC_DIR`` is set, unless ``GORDO_TPU_WORKER_SINKS``
+  says otherwise), which every reader merges (:func:`is_worker_variant`).
 
 Spans link to spans of other traces (:meth:`SpanHandle.link`): the
 engine's batch span to the requests it coalesced, a stream flush to the
@@ -64,6 +66,7 @@ import time
 from typing import Any, Callable, Dict, Hashable, List, Optional
 
 from ..utils.env import env_bool, env_int
+from ..utils.postfork import register_postfork_reset
 
 TELEMETRY_ENV = "GORDO_TPU_TELEMETRY"
 TRACE_DIR_ENV = "GORDO_TPU_TELEMETRY_DIR"
@@ -74,6 +77,31 @@ DEFAULT_KEEP = 3
 #: the asynchronous sink's queue bound, and the backlog that wakes the writer early
 _QUEUE_MAX = 20000
 _WAKE_BACKLOG = 2048
+
+
+#: per-process sinks: when on, the sinks a process owns (``serve_trace.jsonl``,
+#: ``fleet_health.json``) get a ``-<pid>`` suffix, so that the workers of a
+#: pre-fork server do not overwrite one shared path; the readers merge every
+#: variant. Default: on exactly when ``PROMETHEUS_MULTIPROC_DIR`` (either
+#: spelling) is set, the multi-worker deployment's own signal.
+WORKER_SINKS_ENV = "GORDO_TPU_WORKER_SINKS"
+
+
+def worker_sinks_enabled() -> bool:
+    """Whether this process's sinks carry its pid (``GORDO_TPU_WORKER_SINKS``,
+    default: whether a multi-process metrics directory is set)."""
+    multi_worker = bool(os.environ.get("PROMETHEUS_MULTIPROC_DIR") or os.environ.get("prometheus_multiproc_dir"))
+    return env_bool(WORKER_SINKS_ENV, multi_worker)
+
+
+def worker_sink_path(path: str) -> str:
+    """``serve_trace.jsonl`` -> ``serve_trace-<pid>.jsonl`` when worker
+    sinks are on (the suffix before the extension, so that rotated
+    generations keep their ``.N`` tail)."""
+    if not worker_sinks_enabled():
+        return path
+    stem, ext = os.path.splitext(path)
+    return f"{stem}-{os.getpid()}{ext}"
 
 
 def enabled() -> bool:
@@ -100,6 +128,16 @@ def _iso(ts: float) -> str:
 
 #: span and trace ids: a PRNG seeded once from the OS (ids need only be unique)
 _id_source = random.Random(int.from_bytes(os.urandom(16), "big"))
+
+
+def _reseed_ids_after_fork() -> None:
+    """A forked worker draws its span and trace ids from a source of its
+    own: with the parent's state every worker would mint the same ids."""
+    global _id_source
+    _id_source = random.Random(int.from_bytes(os.urandom(16), "big"))
+
+
+register_postfork_reset(_reseed_ids_after_fork, name="telemetry.recorder.ids")
 
 
 def rand_hex(chars: int = 32) -> str:

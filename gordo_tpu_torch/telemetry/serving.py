@@ -20,10 +20,11 @@ file is made. ``GORDO_TPU_TRACE_SAMPLE_RATE`` (default 0.05) is the share
 of locally started requests exported; every request still gets a trace id
 and its ``Server-Timing``.
 
-The JAX module also drops its recorder in a process forked from a server
-(``register_postfork_reset``) and names each worker's sink
-``serve_trace-<pid>.jsonl``; the port's server does not fork workers,
-so there is no such hook and one plain sink.
+A worker forked by ``run-server``'s master (``server/prefork.py``) drops
+the recorder it inherited (``register_postfork_reset``: the writer thread
+is the parent's and does not exist on the worker's side of the fork)
+and, with worker sinks on (``telemetry.recorder.worker_sink_path``),
+writes ``serve_trace-<pid>.jsonl`` of its own, which the readers merge.
 """
 
 import atexit
@@ -33,7 +34,8 @@ import threading
 from typing import Any, Dict, Optional
 
 from ..utils.env import env_float, env_str
-from .recorder import NULL_RECORDER, TRACE_DIR_ENV, SpanRecorder, enabled, rand_hex
+from ..utils.postfork import register_postfork_reset
+from .recorder import NULL_RECORDER, TRACE_DIR_ENV, SpanRecorder, enabled, rand_hex, worker_sink_path
 
 #: the serving trace beside ``build_trace.jsonl``: request, stage, batch
 #: and stream spans
@@ -44,6 +46,22 @@ DEFAULT_TRACE_SAMPLE_RATE = 0.05
 _lock = threading.Lock()
 _recorder: Optional[SpanRecorder] = None
 _atexit_registered = False
+
+
+def _reset_after_fork() -> None:
+    """Drop the inherited recorder in a forked worker: its sink path holds
+    the parent's pid and its writer thread is the parent's, so every span
+    the worker queued would never reach the disk. The worker is
+    single-threaded here and the inherited lock may be held, so it is
+    rebound, not taken; the recorder is dropped, not closed, so that the
+    parent's buffered bytes are not written a second time."""
+    global _recorder, _lock
+    _lock = threading.Lock()
+    _recorder = None
+
+
+register_postfork_reset(_reset_after_fork, name="telemetry.serving.recorder")
+
 #: (raw environment value, parsed rate): parsed again only when the value changes
 _rate_cache: tuple = (None, DEFAULT_TRACE_SAMPLE_RATE)
 
@@ -73,11 +91,12 @@ def sample_trace() -> bool:
 def serve_trace_path() -> Optional[str]:
     """Where the serving trace goes, or None when telemetry is off or no
     ``GORDO_TPU_TELEMETRY_DIR`` is set (a server has no output directory
-    of its own to default to)."""
+    of its own to default to): ``serve_trace-<pid>.jsonl`` under worker
+    sinks."""
     trace_dir = env_str(TRACE_DIR_ENV, None)
     if not enabled() or not trace_dir:
         return None
-    return os.path.join(trace_dir, SERVE_TRACE_FILE)
+    return worker_sink_path(os.path.join(trace_dir, SERVE_TRACE_FILE))
 
 
 def serve_recorder() -> Any:

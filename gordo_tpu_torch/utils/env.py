@@ -29,9 +29,11 @@ defaults, as nothing in the port needs another value:
 ``telemetry/profiler.py``; ``GORDO_TPU_HEALTH_WINDOW`` (100,000 rows),
 ``GORDO_TPU_FLEET_STATUS_MAX_MACHINES`` (500) and ``_TOP_K`` (10) in
 ``telemetry/fleet_health.py``; ``GORDO_TPU_DEVICE_TELEMETRY`` (on: the
-memory reading follows ``GORDO_TPU_TELEMETRY``); ``GORDO_TPU_WORKER_SINKS``
-(off: the port's server is one process, so its sinks keep their plain
-names).
+memory reading follows ``GORDO_TPU_TELEMETRY``). ``GORDO_TPU_WORKER_SINKS``
+(``gordo_tpu/utils/env.py:349``; default: on exactly when
+``PROMETHEUS_MULTIPROC_DIR`` is set, as under ``run-server``'s workers) is
+read in ``telemetry/recorder.py``: when on, a process's serving trace and
+health snapshot carry its pid.
 
 >>> import os
 >>> os.environ["GORDO_TPU_DOCTEST_KNOB"] = "not-a-number"

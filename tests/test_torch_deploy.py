@@ -1,10 +1,12 @@
 """The port's deploy pod commands against the JAX package's, on the CPU.
 
 - ``run-server``: a ``python -m gordo_tpu_torch run-server --device cpu
-  --batching`` subprocess with engine requests queued gets SIGTERM: every
-  accepted request is answered (sooner than its batching window, so the
-  drain flushed it), ``/healthcheck`` answers 503 while it drains, and it
-  exits 0 (its own time limit: 120 s). In process, the JAX drain tests'
+  --batching --workers 3`` subprocess (a pre-fork master and three worker
+  processes) with engine requests queued gets SIGTERM: every accepted
+  request is answered (sooner than its batching window, so each worker's
+  drain flushed it), ``/healthcheck`` answers 503 while they drain, every
+  worker logs its drain and the master exits 0 (its own time limit: 120
+  s), removing the private metrics directory it made. In process, the JAX drain tests'
   assertions (``tests/serve/test_graceful_shutdown.py``,
   ``tests/serve/test_shutdown_threads.py``,
   ``tests/server/test_stream_routes.py::test_drain_and_stop_terminates_concurrent_subscribers``)
@@ -24,6 +26,7 @@
 
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -82,13 +85,15 @@ def _post_json(url, payload, timeout=60.0):
 def test_run_server_drains_queued_requests_on_sigterm(collections, tmp_path):  # noqa: F811
     _, port_dir = collections
     port = _free_port()
-    env = {**os.environ, "MODEL_COLLECTION_DIR": port_dir, "GORDO_TPU_TELEMETRY_DIR": str(tmp_path),
-           "PYTHONPATH": os.getcwd()}
+    env = {k: v for k, v in os.environ.items() if k not in ("PROMETHEUS_MULTIPROC_DIR", "prometheus_multiproc_dir")}
+    env.update(MODEL_COLLECTION_DIR=port_dir, GORDO_TPU_TELEMETRY_DIR=str(tmp_path), PYTHONPATH=os.getcwd(),
+               OMP_NUM_THREADS="1", ENABLE_PROMETHEUS="true")
     log = open(tmp_path / "server.log", "w+")
     proc = subprocess.Popen(
         [sys.executable, "-m", "gordo_tpu_torch", "run-server", "--device", "cpu", "--batching", "--host",
          "127.0.0.1", "--port", str(port), "--batch-max-size", "64", "--batch-max-delay-ms", "8000",
-         "--no-serve-warmup", "--drain-grace-s", "3", "--log-level", "info", "--workers", "3"],
+         "--no-serve-warmup", "--drain-grace-s", "3", "--log-level", "info", "--workers", "3", "--metrics-port",
+         "0"],
         env=env, stdout=log, stderr=subprocess.STDOUT)
     base = f"http://127.0.0.1:{port}"
     try:
@@ -138,9 +143,15 @@ def test_run_server_drains_queued_requests_on_sigterm(collections, tmp_path):  #
     assert [status for status, _ in answers] == [200] * 4, text
     assert max(spent) < 7.0, spent  # answered by the drain, not by the batching window
     assert answers[0][1]["data"]["model-output"] == expected["data"]["model-output"]
-    assert "--workers, --worker-connections, --threads, --worker-class, --server-app, --with-prometheus-config " \
-           "are ignored" in text
-    assert "drained in" in text and "kernel launches: K1 0, K2 0" in text
+    assert "--worker-connections, --server-app are ignored" in text
+    workers = {int(pid) for pid in re.findall(r"worker \d+ booted \(pid (\d+)\)", text)}
+    assert len(workers) == 3 and proc.pid not in workers
+    # each worker drained and counted its own launches (none on the CPU)
+    drained = re.findall(r"drained in [0-9.]+ s .*kernel launches: K1 0, K2 0 \(pid (\d+)\)", text)
+    assert {int(pid) for pid in drained} == workers and len(drained) == 3
+    assert "all workers stopped: exit 0" in text
+    private = re.search(r"the workers' files in (\S+)\)", text).group(1)
+    assert not os.path.exists(private)
 
 
 @pytest.fixture

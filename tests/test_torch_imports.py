@@ -64,7 +64,7 @@ def test_package_has_modules():
         "server/utils.py", "server/fleet_store.py", "server/wire/negotiate.py", "server/wire/assemble.py",
         "server/views/base.py", "utils/yaml_lite.py", "utils/args.py", "workflow/helpers.py",
         "workflow/workflow_generator/workflow_generator.py", "workflow/config_elements/normalized_config.py",
-        "machine/constants.py",
+        "machine/constants.py", "utils/postfork.py", "server/prefork.py", "server/prometheus/multiprocess.py",
         "machine/loader.py", "dataset/exceptions.py", "dataset/sensor_tag.py", "dataset/series.py",
         "dataset/data_provider.py", "dataset/datasets.py", "models/anomaly/diff.py", "cli/cli.py",
         "cli/exceptions_reporter.py", "__main__.py", "ops/windows.py", "models/factories/lstm_autoencoder.py",

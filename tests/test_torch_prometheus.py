@@ -34,6 +34,7 @@ import urllib.request
 import jax
 import numpy as np
 import prometheus_client
+import prometheus_client.multiprocess
 import pytest
 from prometheus_client.parser import text_string_to_metric_families
 from werkzeug.test import Client
@@ -477,11 +478,31 @@ def test_concurrent_observations_lose_nothing():
 
 @pytest.mark.parametrize("name", port_metrics.MULTIPROC_ENV)
 def test_multiprocess_dir_is_refused(monkeypatch, tmp_path, name):
-    monkeypatch.setenv(name, str(tmp_path / "mp"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_app(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_metrics.create_prometheus_metrics("p", port_registry.CollectorRegistry())
+    """The directory the one-process server once refused now selects the
+    multi-process exposition, as in JAX: ``build_app`` makes it, the app's
+    metrics count into this process's files there on a registry of their
+    own (not ``REGISTRY``), and ``build_metrics_app()`` serves the fan-in,
+    which equals ``prometheus_client``'s reading of the same files."""
+    directory = tmp_path / "mp"
+    for other in port_metrics.MULTIPROC_ENV:
+        monkeypatch.delenv(other, raising=False)
+    monkeypatch.setenv(name, str(directory))
+    monkeypatch.setenv("ENABLE_PROMETHEUS", "true")
+    monkeypatch.setenv("GORDO_TPU_TELEMETRY", "0")
+    app = build_app(str(tmp_path), device="cpu")
+    assert directory.is_dir()
+    assert app.prometheus_metrics.registry is not port_registry.REGISTRY
+    Client(app).get("/server-version")
+    metrics = port_metrics.create_prometheus_metrics("p", port_registry.CollectorRegistry())
+    metrics.request_count.labels(method="GET", path="/x", status_code="200", gordo_name="", project="p").inc(3)
+    pid = os.getpid()
+    assert {f"counter_{pid}.db", f"histogram_{pid}.db", f"gauge_max_{pid}.db"} <= set(os.listdir(directory))
+    text = Client(build_metrics_app()).get("/metrics").get_data().decode()
+    fan_in = {name: samples for name, _, _, samples in families(text) if name.startswith("gordo_server_request")}
+    theirs = prometheus_client.CollectorRegistry()
+    prometheus_client.multiprocess.MultiProcessCollector(theirs, path=str(directory))
+    assert fan_in == {name: samples for name, _, _, samples in families(jax_text(theirs)) if name in fan_in}
+    assert sum(value for _, labels, value in fan_in["gordo_server_requests"]) == 4.0
 
 
 # -- the engine's sink ---------------------------------------------------------------------

@@ -605,17 +605,20 @@ def test_sink_reopens_a_file_another_process_moved(tmp_path):
 
 
 def test_worker_sinks_match_jax(tmp_path, monkeypatch):
-    """A JAX server's workers (``GORDO_TPU_WORKER_SINKS=1``) write
-    ``serve_trace-<pid>.jsonl`` and ``fleet_health-<pid>.json``; the port's
-    server is one process and keeps the plain names, and its readers take
-    the JAX workers' snapshots as the JAX readers do."""
+    """Workers (``GORDO_TPU_WORKER_SINKS=1``) write ``serve_trace-<pid>.jsonl``
+    and ``fleet_health-<pid>.json``, the port's as the JAX package's; a
+    one-process server (``GORDO_TPU_WORKER_SINKS=0``) keeps the plain names,
+    and the port's readers merge both as the JAX readers do."""
     monkeypatch.delenv("PROMETHEUS_MULTIPROC_DIR", raising=False)
     monkeypatch.setenv("GORDO_TPU_TELEMETRY_DIR", str(tmp_path))
     monkeypatch.setenv("GORDO_TPU_WORKER_SINKS", "1")
     jax_trace, jax_ledger = jax_serving.serve_trace_path(), jax_fleet_health.FleetHealthLedger(str(tmp_path))
-    port_ledger = FleetHealthLedger(directory=str(tmp_path))
     assert jax_trace == str(tmp_path / f"serve_trace-{os.getpid()}.jsonl")
     assert jax_ledger.path == str(tmp_path / f"fleet_health-{os.getpid()}.json")
+    assert serving.serve_trace_path() == jax_trace
+    assert FleetHealthLedger(directory=str(tmp_path)).path == jax_ledger.path
+    monkeypatch.setenv("GORDO_TPU_WORKER_SINKS", "0")
+    port_ledger = FleetHealthLedger(directory=str(tmp_path))
     assert serving.serve_trace_path() == str(tmp_path / "serve_trace.jsonl")
     assert port_ledger.path == str(tmp_path / FLEET_HEALTH_FILE)
     for name, base in ((os.path.basename(jax_trace), "serve_trace.jsonl"),

@@ -6,9 +6,10 @@ deliberate differences, and each difference reads as it should:
   same arguments;
 - the builder Job's pods are GPU pods: ``nvidia.com/gpu`` cards a pod from
   the slice geometry, a GKE GPU node selector, no ``JAX_PLATFORMS``;
-- the server Deployment has no metrics sidecar, no shared metrics volume
-  and no ``PROMETHEUS_MULTIPROC_DIR``: the server takes
-  ``--metrics-port 9090`` and a ``metrics`` port of 9090;
+- the server Deployment has no metrics sidecar: the server's pre-fork
+  master answers 9090 itself (``--metrics-port 9090`` and a ``metrics``
+  port of 9090) from the same ``PROMETHEUS_MULTIPROC_DIR`` and
+  ``emptyDir`` volume as the JAX server's workers write to;
 - the shard ConfigMaps' ``machines.yaml`` is JSON text of the same data.
 
 Also: ``yaml_lite.safe_load_all`` against ``yaml.safe_load_all`` on the
@@ -17,6 +18,7 @@ manifests, and the command's validation gate and its exit codes."""
 
 import copy
 import json
+import logging
 import os
 
 import pytest
@@ -53,6 +55,17 @@ OPTIONS = {
              "none", "--gordo-version", "pr-12", "--namespace", "gordo"],
 }
 PORT_COMMAND = ["python", "-m", "gordo_tpu_torch"]
+
+
+@pytest.fixture(autouse=True)
+def _logger_levels():
+    """Both generators set their package logger's level (``--log-level``);
+    a later test in the same process must not inherit it."""
+    loggers = [logging.getLogger(name) for name in ("gordo_tpu", "gordo_tpu_torch")]
+    levels = [logger.level for logger in loggers]
+    yield
+    for logger, level in zip(loggers, levels):
+        logger.setLevel(level)
 
 
 def jax_render(config, *options):
@@ -111,8 +124,6 @@ def as_jax(doc, jax_doc):
         jax_pod = jax_doc["spec"]["template"]["spec"]
         server = pod["containers"][0]
         assert [c["name"] for c in pod["containers"]] == ["server"]
-        assert "PROMETHEUS_MULTIPROC_DIR" not in _env_names(server)
-        assert [v["name"] for v in pod["volumes"]] == ["models"]
         if "--with-prometheus-config" in server["args"]:
             at = server["args"].index("--metrics-port")
             assert server["args"][at:at + 2] == ["--metrics-port", "9090"]
@@ -120,13 +131,13 @@ def as_jax(doc, jax_doc):
             assert server["ports"].pop() == {"name": "metrics", "containerPort": 9090}
             jax_server, sidecar = jax_pod["containers"]
             assert sidecar["name"] == "metrics"
-            assert server["env"] == [e for e in jax_server["env"] if e["name"] != "PROMETHEUS_MULTIPROC_DIR"]
-            assert server["volumeMounts"] == [m for m in jax_server["volumeMounts"]
-                                              if m["name"] != "prometheus-metrics"]
-            server["env"], server["volumeMounts"] = jax_server["env"], jax_server["volumeMounts"]
+            assert {"name": "PROMETHEUS_MULTIPROC_DIR", "value": "/tmp/prometheus"} in server["env"]
+            assert {"name": "prometheus-metrics", "mountPath": "/tmp/prometheus"} in server["volumeMounts"]
+            assert {"name": "prometheus-metrics", "emptyDir": {}} in pod["volumes"]
             pod["containers"].append(sidecar)
-            pod["volumes"] = jax_pod["volumes"]
         else:
+            assert "PROMETHEUS_MULTIPROC_DIR" not in _env_names(server)
+            assert [v["name"] for v in pod["volumes"]] == ["models"]
             assert "--metrics-port" not in server["args"] and len(server["ports"]) == 1
     return doc
 
