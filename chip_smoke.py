@@ -472,20 +472,33 @@ replacing only the paths, ``python`` by this interpreter, the pod's
 completion index by 0, the Postgres host by a stub of the Postgres
 backend in this process (``gordo_tpu_torch/reporters/pgstub.py``:
 SCRAM-SHA-256 with the user and password of the template's Postgres
-StatefulSet) and adding ``GORDO_TPU_MLFLOW_DIR``, each printed. Held:
+StatefulSet) and adding ``MLFLOW_TRACKING_URI``, a stub of an MLflow
+tracking server in this process (``gordo_tpu_torch/reporters/
+mlflowstub.py``), with ``MLFLOW_TRACKING_TOKEN``, each printed. Held:
 exit 0; one upsert a machine, each row's metadata equal to its
-``metadata.json``; one MLflow run, of the remote-logging machine, its
-metrics equal to its CV scores and its ``model_key`` the register's
-cache key; K1 launched once for each spec group of the pod's
-``fleet_plan.json``, read from the pod's log line, which counts K1's
-launches in its process by shape. The stub then refuses the password
-and one machine is built again (a cache hit): exit 90, the artifact
-dumped first. Last, ``build --model-parameter n_epochs,1`` of a machine
-whose model is a template string, with a ``sqlite:///`` Postgres
-reporter, on the card: its CV score lines printed, its row equal to its
-``metadata.json``, K1 once a fold. K1 is held to its plain version and
-timed at each spec group's spec (the plan's) and the shape the pod
-logged for it, with seeded params and rows.
+``metadata.json``; on the tracking stub over MLflow's REST API one
+experiment and one run, of the remote-logging machine, its metrics equal
+to ``get_machine_log_items`` of its dumped machine (untimed), its
+``model_key`` the register's cache key, the ``metadata.json`` uploaded
+through the artifact proxy equal to the dumped one, ``FINISHED``, the
+token on every request, and no file-client run; K1 launched once for
+each spec group of the pod's ``fleet_plan.json``, read from the pod's
+log line, which counts K1's launches in its process by shape. The stub
+then refuses the password and one machine is built again (a cache hit):
+exit 90, the artifact dumped first. Then ``build --model-parameter
+n_epochs,1`` of a machine whose model is a template string, with a
+``sqlite:///`` Postgres reporter and an ``MlFlowReporter`` through the
+file client (``GORDO_TPU_MLFLOW_DIR``), on the card: its CV score lines
+printed, its row and its run equal to its ``metadata.json``, K1 once a
+fold. Last, the AzureML route in this process on the pod's logged
+machine, against a TLS stub of the service principal's login, ARM's
+workspace and its tracking server: one login with the principal's
+tenant, id and secret, the tracking requests under the workspace's
+``mlFlowTrackingUri``, the ARM token on every later request, the same
+run as the pod's. Each run's seconds, requests and bytes are printed. K1
+is held to its plain version and timed at each spec group's spec (the
+plan's) and the shape the pod logged for it, with seeded params and
+rows.
 
 ``[perfmodel]`` (after ``[workflow]``) fits the learned performance
 model (``gordo_tpu_torch/perfmodel/``) on the card's own batches. An app
@@ -6892,6 +6905,13 @@ WORKFLOW_REVISION = "1700000000003"
 WORKFLOW_MACHINES = ("machine-000", "machine-001", "compressor-000")
 WORKFLOW_LOGGED = "machine-001"
 WORKFLOW_TEMPLATED = "templated-000"
+#: the tracking token the pod's run is sent with; the AzureML route's workspace, service principal and ARM token
+WORKFLOW_MLFLOW_TOKEN = "smoke-tracking-token"
+WORKFLOW_WORKSPACE = {"subscription_id": "smoke-subscription", "resource_group": "smoke-group",
+                      "workspace_name": "smoke-workspace"}
+WORKFLOW_PRINCIPAL = {"tenant_id": "smoke-tenant", "service_principal_id": "smoke-client",
+                      "service_principal_password": "smoke-secret"}
+WORKFLOW_ARM_TOKEN = "smoke-arm-token"
 #: ``runtime.fleet.accelerator_type``: a slice of one host of one card
 WORKFLOW_ACCELERATOR = "v5litepod-1"
 #: the K1 row of the builder pod's CV forward of F tags, at the (M, B) its process logged
@@ -6949,11 +6969,42 @@ def pod_env(container, replace):
     return env
 
 
+def traffic(requests):
+    """``(seconds from the first request's arrival to the last one's
+    answer, requests, bytes in, bytes out)`` of a stub's requests."""
+    return (requests[-1]["done"] - requests[0]["at"], len(requests), sum(r["bytes_in"] for r in requests),
+            sum(r["bytes_out"] for r in requests))
+
+
+def tracking_line(numbers):
+    seconds, count, bytes_in, bytes_out = numbers
+    return f"{seconds:.4f} s, {count} requests, {bytes_in} bytes sent and {bytes_out} answered"
+
+
+def held_tracking_run(stub, name, key, metrics, artifact, authorization, requests):
+    """Check the one run a tracking stub took: of experiment ``name``,
+    tagged ``model_key`` ``key``, its metrics ``metrics`` (untimed), its
+    one artifact JSON-equal to ``artifact``, FINISHED, and ``authorization``
+    on each of ``requests``. Returns their :func:`traffic`."""
+    check(list(stub.experiments) == [name] and len(stub.runs) == 1,
+          f"the tracking stub holds experiments {list(stub.experiments)} and {len(stub.runs)} runs: one of {name}")
+    (run,) = stub.runs.values()
+    check(run["tags"] == {"model_key": key}, f"the run's tags {run['tags']}, not the cache key {key}")
+    check([(k, v, step) for k, v, _, step in run["metrics"]] == metrics,
+          "the run's metrics differ from the build's CV scores")
+    check([json.loads(a) for a in stub.artifacts.values()] == [artifact],
+          f"the proxied artifacts {list(stub.artifacts)} differ from the dumped metadata.json")
+    check(run["info"]["status"] == "FINISHED" and run["end_time"], f"the run ended {run['info']['status']}")
+    check(all(r["headers"].get("authorization") == authorization for r in requests), "a request without the token")
+    return traffic(requests)
+
+
 def workflow_phase(work_dir, card):
     """``workflow generate`` of WORKFLOW_MACHINES, then the rendered builder
-    pod's own command, args and env run on the card with only its paths,
-    its Postgres host and its MLflow directory replaced: see the module's
-    docstring. Returns the K1 launches of its three builds (the pod's,
+    pod's own command, args and env run on the card with only its paths
+    and its Postgres host replaced and an MLflow tracking server (a stub)
+    added; then ``build --model-parameter`` and the AzureML route: see the
+    module's docstring. Returns the K1 launches of its three builds (the pod's,
     counted in its process and read from its log line; the refused run's and
     the parameter build's, counted in this one), and the pod's CV forwards
     by width: its spec group's spec (its ``fleet_plan.json``), and the
@@ -6963,7 +7014,9 @@ def workflow_phase(work_dir, card):
     from gordo_tpu_torch.models.spec import FeedForwardSpec
     from gordo_tpu_torch.ops.fleet_dense import fleet_feedforward
     from gordo_tpu_torch.reporters import PostgresReporter
+    from gordo_tpu_torch.reporters import mlflow as mlflow_reporter
     from gordo_tpu_torch.reporters.mlflow import get_machine_log_items
+    from gordo_tpu_torch.reporters.mlflowstub import MlflowStub
     from gordo_tpu_torch.reporters.pgstub import PostgresStub
     from gordo_tpu_torch.utils import yaml_lite
     from gordo_tpu_torch.workflow.manifest_validation import validate_manifests
@@ -6999,6 +7052,7 @@ def workflow_phase(work_dir, card):
         "gordo-postgres-"))
     pg_env = {e["name"]: e.get("value") for e in postgres["spec"]["template"]["spec"]["containers"][0]["env"]}
     stub = PostgresStub(auth="scram", user=pg_env["POSTGRES_USER"], password=pg_env["POSTGRES_PASSWORD"])
+    tracking = MlflowStub(token=WORKFLOW_MLFLOW_TOKEN)
     try:
         shard = yaml_lite.safe_load(shard_map["data"]["machines.yaml"])
         host = f"gordo-postgres-{WORKFLOW_PROJECT}"
@@ -7019,12 +7073,14 @@ def workflow_phase(work_dir, card):
         args = [paths.get(part, part) for part in container["args"]]
         env = pod_env(container, {"JAX_PROCESS_INDEX": "0", "MODEL_REGISTER_DIR": register,
                                   "EXCEPTIONS_REPORTER_FILE": report_file})
-        env["GORDO_TPU_MLFLOW_DIR"] = mlflow_dir
+        env["MLFLOW_TRACKING_URI"], env["MLFLOW_TRACKING_TOKEN"] = tracking.url, WORKFLOW_MLFLOW_TOKEN
+        env["GORDO_TPU_MLFLOW_DIR"] = mlflow_dir  # held unwritten: the tracking server takes the run
         phase("workflow", f"the builder pod's command {container['command'] + container['args']} run with: python -> "
               f"{sys.executable}; /etc/gordo/machines.yaml and the models path -> temporary files; MODEL_REGISTER_DIR "
               f"and EXCEPTIONS_REPORTER_FILE -> temporary paths; JAX_PROCESS_INDEX (the pod's completion index) -> 0; "
               f"the Postgres reporter's host {host} -> 127.0.0.1:{stub.port}, a SCRAM-SHA-256 stub with the "
-              f"template's user and password; GORDO_TPU_MLFLOW_DIR -> a temporary directory added")
+              f"template's user and password; added: MLFLOW_TRACKING_URI -> {tracking.url}, a stub of an MLflow "
+              f"tracking server in this process, MLFLOW_TRACKING_TOKEN, and GORDO_TPU_MLFLOW_DIR (to show it unused)")
         log_path = os.path.join(root, "builder.log")
         t0 = time.perf_counter()
         with open(log_path, "w") as log:
@@ -7063,30 +7119,24 @@ def workflow_phase(work_dir, card):
             check(row == artifact["metadata"], f"{name}: the Postgres row's metadata differs from metadata.json's")
             scores[name] = artifact["metadata"]["build_metadata"]["model"]["cross_validation"]["scores"]
             check(bool(scores[name]), f"{name}: no CV scores")
-        runs = os.listdir(os.path.join(mlflow_dir, WORKFLOW_LOGGED))
-        check(sorted(os.listdir(mlflow_dir)) == [WORKFLOW_LOGGED] and len(runs) == 1,
-              f"MLflow runs {os.listdir(mlflow_dir)}: one run of {WORKFLOW_LOGGED} expected")
-        run_dir = os.path.join(mlflow_dir, WORKFLOW_LOGGED, runs[0])
         with open(os.path.join(out_dir, WORKFLOW_LOGGED, "metadata.json")) as f:
-            logged = Machine.from_dict(json.load(f))
+            logged_doc = json.load(f)
+        logged = Machine.from_dict(logged_doc)
         key = ModelBuilder.calculate_cache_key(logged)
-        with open(os.path.join(run_dir, "tags.json")) as f:
-            tags = json.load(f)
-        with open(os.path.join(run_dir, "batches.jsonl")) as f:
-            batches = [json.loads(line) for line in f]
-        metrics = [tuple(m[:2]) + (m[3],) for batch in batches for m in batch["metrics"]]
+        check(key in os.listdir(os.path.join(register, "builds")), f"the cache key {key} is not the register's")
         expected = [(m.key, m.value, m.step) for m in get_machine_log_items(logged)[0]]
-        check(tags == {"model_key": key} and key in os.listdir(os.path.join(register, "builds")),
-              f"the run's tags {tags}, not the cache key {key} of the register")
-        check(metrics == expected and open(os.path.join(run_dir, "status")).read() == "FINISHED",
-              "the MLflow run's metrics differ from the build's CV scores")
+        pod_traffic = held_tracking_run(tracking, WORKFLOW_LOGGED, key, expected, logged_doc,
+                                        f"Bearer {WORKFLOW_MLFLOW_TOKEN}", tracking.requests)
+        check(not os.path.exists(mlflow_dir), "the pod wrote a file-client run beside the tracking server's")
         r2 = scores[WORKFLOW_MACHINES[0]]["r2-score"]["fold-mean"]
         groups = ", ".join(f"{F} tags, {len(b['members'])} members" for F, b in sorted(buckets.items()))
         phase("workflow", f"the builder pod's build-fleet on the card: exit 0 in {pod_s:.2f} s (a process of its "
               f"own); {len(upserts)} upserts over SCRAM-SHA-256 ({len(stub.scram)} logins), each row's metadata "
               f"equal to its metadata.json ({WORKFLOW_MACHINES[0]} r2 fold-mean {r2!r}); an MLflow run of "
-              f"{WORKFLOW_LOGGED}, {len(metrics)} metrics equal to its CV scores, model_key {key[:12]}... the "
-              f"register's key; K1 launches {pod_k1} (counted in the pod's process and logged by shape: "
+              f"{WORKFLOW_LOGGED} on the tracking stub over REST: one experiment, {len(expected)} metrics equal to "
+              f"its CV scores, model_key {key[:12]}... the register's key, the proxied metadata.json equal to the "
+              f"dumped one, FINISHED, the token on every request, no file-client run; {tracking_line(pod_traffic)}; "
+              f"K1 launches {pod_k1} (counted in the pod's process and logged by shape: "
               f"{found[0][5]}; the spec groups of its fleet_plan.json: {groups}); {card}")
 
         stub.refuse = True
@@ -7110,18 +7160,21 @@ def workflow_phase(work_dir, card):
               f"exited 90, its artifact dumped first; its termination report: {report}; K1 launches {refused_k1}")
     finally:
         stub.close()
+        tracking.close()
 
     database = os.path.join(root, "reports.db")
     with open(config_path) as f:
         dataset = json.load(f)["spec"]["config"]["machines"][0]["dataset"]  # machine-000's rows
     config = {"name": WORKFLOW_TEMPLATED, "project_name": WORKFLOW_PROJECT, "model": WORKFLOW_TEMPLATED_MODEL,
               "dataset": dataset, "runtime": {"reporters": [{"gordo_tpu.reporters.postgres.PostgresReporter": {
-                  "host": f"sqlite:///{database}"}}]}}
-    one_dir = os.path.join(root, "one")
+                  "host": f"sqlite:///{database}"}}, "gordo_tpu.reporters.mlflow.MlFlowReporter"]}}
+    one_dir, one_mlruns = os.path.join(root, "one"), os.path.join(root, "one-mlruns")
+    check(not os.environ.get("MLFLOW_TRACKING_URI"), "MLFLOW_TRACKING_URI is set in the smoke's environment")
     fleet_feedforward.launches = 0
     t0 = time.perf_counter()
-    code, out, err = cli_run("build", json.dumps(config), one_dir, "--print-cv-scores", "--model-parameter",
-                             "n_epochs,1")
+    with environment({"GORDO_TPU_MLFLOW_DIR": one_mlruns}):
+        code, out, err = cli_run("build", json.dumps(config), one_dir, "--print-cv-scores", "--model-parameter",
+                                 "n_epochs,1")
     one_s = time.perf_counter() - t0
     one_k1 = fleet_feedforward.launches
     check(code == 0, f"build --model-parameter exited {code}: {err[-2000:]}")
@@ -7135,9 +7188,58 @@ def workflow_phase(work_dir, card):
           "the sqlite row differs from the build's metadata.json")
     check('"epochs": 1' in json.dumps(artifact["model"]), "the model parameter was not expanded")
     check(one_k1 == 3, f"build --model-parameter launched K1 {one_k1} times, not once a fold")
+    runs = os.listdir(os.path.join(one_mlruns, WORKFLOW_TEMPLATED)) if os.path.isdir(one_mlruns) else []
+    check(len(runs) == 1, f"the file client wrote runs {runs}: one run of {WORKFLOW_TEMPLATED} expected")
+    run_dir = os.path.join(one_mlruns, WORKFLOW_TEMPLATED, runs[0])
+    one_machine = Machine.from_dict(artifact)
+    with open(os.path.join(run_dir, "tags.json")) as f:
+        tags = json.load(f)
+    with open(os.path.join(run_dir, "batches.jsonl")) as f:
+        file_metrics = [tuple(m[:2]) + (m[3],) for line in f for m in json.loads(line)["metrics"]]
+    with open(os.path.join(run_dir, "artifacts", "metadata.json")) as f:
+        file_artifact = json.load(f)
+    check(tags == {"model_key": ModelBuilder.calculate_cache_key(one_machine)},
+          f"the file client's run tags {tags}, not the build's cache key")
+    check(file_metrics == [(m.key, m.value, m.step) for m in get_machine_log_items(one_machine)[0]]
+          and file_artifact == artifact and open(os.path.join(run_dir, "status")).read() == "FINISHED",
+          "the file client's run differs from the build's metadata.json")
     phase("workflow", f"build --model-parameter n_epochs,1 of {WORKFLOW_TEMPLATED} (its model a template string) on "
           f"the card: exit 0 in {one_s:.2f} s, {len(lines)} CV score lines printed, its sqlite:/// row equal to its "
-          f"metadata.json; K1 launches {one_k1} (a fold each)")
+          f"metadata.json, its MLflow run through the file client (GORDO_TPU_MLFLOW_DIR; MLFLOW_TRACKING_URI unset) "
+          f"with {len(file_metrics)} metrics equal to its CV scores and its metadata.json; K1 launches {one_k1} "
+          f"(a fold each)")
+
+    # the AzureML route, in this process: the service principal's login, ARM's workspace, then its tracking server
+    azure = MlflowStub(token=WORKFLOW_ARM_TOKEN, tls=True)
+    try:
+        azure.service_principal = tuple(WORKFLOW_PRINCIPAL.values())
+        azure.add_workspace(*WORKFLOW_WORKSPACE.values())
+        t0 = time.perf_counter()
+        with environment({"MLFLOW_TRACKING_SERVER_CERT_PATH": azure.cafile}):
+            with mlflow_reporter.mlflow_context(WORKFLOW_LOGGED, key, dict(WORKFLOW_WORKSPACE),
+                                                dict(WORKFLOW_PRINCIPAL), login_host=azure.url,
+                                                arm_host=azure.url) as (client, run_id):
+                mlflow_reporter.log_machine(client, run_id, logged)
+        azure_s = time.perf_counter() - t0
+    finally:
+        azure.close()
+    login, workspace, *azure_tracking = azure.requests
+    scope = workspace["path"]
+    check(login["path"] == f"/{WORKFLOW_PRINCIPAL['tenant_id']}/oauth2/v2.0/token"
+          and (login["body"].get("client_id"), login["body"].get("client_secret")) == (
+              WORKFLOW_PRINCIPAL["service_principal_id"], WORKFLOW_PRINCIPAL["service_principal_password"])
+          and len(azure.logins) == 1, f"the service principal's login: {login['path']}, {len(azure.logins)} logins")
+    check(scope.endswith(f"/workspaces/{WORKFLOW_WORKSPACE['workspace_name']}")
+          and all(r["path"].startswith(f"/mlflow/v1.0{scope}/api/2.0/") for r in azure_tracking),
+          "the tracking requests do not go to the workspace's tracking URI")
+    azure_traffic = held_tracking_run(azure, WORKFLOW_LOGGED, key, expected, logged_doc, f"Bearer {WORKFLOW_ARM_TOKEN}",
+                                      [workspace, *azure_tracking])
+    phase("workflow", f"the AzureML route on {WORKFLOW_LOGGED}'s logged machine, in this process over TLS: the service "
+          f"principal's token (client credentials), ARM's workspace, its mlFlowTrackingUri as https: "
+          f"{client.tracking_uri}; "
+          f"the same run as the pod's (model_key, {len(expected)} metrics, metadata.json, FINISHED), the token on "
+          f"ARM's and every tracking request; {azure_s:.3f} s on the host clock, "
+          f"{tracking_line(azure_traffic)} after the login")
     phase("workflow", f"the phase took {time.perf_counter() - t_phase:.1f} s")
     pod_cv = {F: (pod_specs[F], M, B, n) for F, (M, B, n) in pod_shapes.items()}
     return {"pod": pod_k1, "refused": refused_k1, "parameter": one_k1}, pod_cv

@@ -1,23 +1,28 @@
 """
-The MLflow reporter, the port's ``gordo_tpu/reporters/mlflow.py`` as the
-JAX package runs it where ``mlflow`` cannot be imported (the card's
-machine): a build's metadata as MLflow metrics and params
+The MLflow reporter, the port's ``gordo_tpu/reporters/mlflow.py``: a
+build's metadata as MLflow metrics and params
 (:func:`get_machine_log_items`), in batches of at most 200 metrics and 100
 params (:func:`batch_log_items`), logged one run a build, tagged with the
-builder's cache key (``model_key``), through :class:`FileTrackingClient`
-under ``GORDO_TPU_MLFLOW_DIR``, with the machine's ``metadata.json``
+builder's cache key (``model_key``), with the machine's ``metadata.json``
 attached.
 
-Workspace kwargs (``AZUREML_WORKSPACE_STR``) need a remote tracking
-server, which raises the JAX package's ``mlflow (and the AzureML SDK) are
-required for remote tracking``: no client of a remote MLflow server is
-ported.
+The tracking client is chosen in the JAX reporter's order
+(:func:`get_mlflow_client`): workspace kwargs (``AZUREML_WORKSPACE_STR``)
+reach the AzureML workspace's tracking server through a service principal
+(``DL_SERVICE_AUTH_STR``; ``reporters/azureml.py``); else an ``http(s)``
+``MLFLOW_TRACKING_URI`` is spoken to over MLflow's REST API
+(``reporters/mlflow_rest.py``, where the JAX reporter uses
+``MlflowClient``); else, with it unset, :class:`FileTrackingClient` writes
+under ``GORDO_TPU_MLFLOW_DIR``, as the JAX package does without mlflow. A
+tracking URI of any other scheme raises. None of them falls back to
+another: a server that cannot be reached fails the report.
 """
 
 import json
 import os
 import shutil
 import tempfile
+import urllib.parse
 import uuid
 from collections import namedtuple
 from contextlib import contextmanager
@@ -26,14 +31,12 @@ from typing import List, Optional, Tuple
 
 from ..utils.args import capture_args
 from ..utils.env import env_str
-from .base import BaseReporter, ReporterException
+from .azureml import ARM_HOST, LOGIN_HOST, workspace_client
+from .base import BaseReporter
+from .mlflow_rest import MlflowLoggingError, RestTrackingClient
 
 Metric = namedtuple("Metric", ["key", "value", "timestamp", "step"])
 Param = namedtuple("Param", ["key", "value"])
-
-
-class MlflowLoggingError(ReporterException):
-    pass
 
 
 def _datetime_to_ms_since_epoch(dt: datetime) -> int:
@@ -183,24 +186,39 @@ class FileTrackingClient:
             fh.write("FINISHED")
 
 
-def get_mlflow_client(workspace_kwargs: Optional[dict] = None, service_principal_kwargs: Optional[dict] = None):
-    """The tracking client: the file client; workspace kwargs (a remote
-    AzureML tracking server) raise, as in the JAX package without mlflow."""
+def get_mlflow_client(workspace_kwargs: Optional[dict] = None, service_principal_kwargs: Optional[dict] = None,
+                      login_host: str = LOGIN_HOST, arm_host: str = ARM_HOST):
+    """The tracking client: the AzureML workspace's with workspace kwargs
+    (through ``login_host`` and ``arm_host``), the REST client of an
+    ``http(s)`` ``MLFLOW_TRACKING_URI``, or the file client with it unset."""
     if workspace_kwargs:
-        raise MlflowLoggingError("mlflow (and the AzureML SDK) are required for remote tracking")
-    return FileTrackingClient()
+        return workspace_client(workspace_kwargs, service_principal_kwargs or {}, login_host, arm_host)
+    tracking_uri = env_str("MLFLOW_TRACKING_URI", None)
+    if tracking_uri is None:
+        return FileTrackingClient()
+    scheme = urllib.parse.urlsplit(tracking_uri).scheme
+    if scheme not in ("http", "https"):
+        raise MlflowLoggingError(f"MLFLOW_TRACKING_URI {tracking_uri!r}: the scheme {scheme!r} is not supported "
+                                 "(http and https are; unset, runs go under GORDO_TPU_MLFLOW_DIR)")
+    return RestTrackingClient(tracking_uri)
 
 
-def get_run_id(client: FileTrackingClient, experiment_name: str, model_key: str) -> str:
-    """A new run of the experiment, tagged with the model's cache key."""
-    return client.create_run(experiment_name, tags={"model_key": model_key})
+def get_run_id(client, experiment_name: str, model_key: str) -> str:
+    """A new run of the experiment (created on a tracking server that lacks
+    it), tagged with the model's cache key."""
+    if isinstance(client, FileTrackingClient):
+        return client.create_run(experiment_name, tags={"model_key": model_key})
+    experiment = client.get_experiment_by_name(experiment_name)
+    experiment_id = experiment["experiment_id"] if experiment else client.create_experiment(experiment_name)
+    return client.create_run(experiment_id, tags={"model_key": model_key})
 
 
 @contextmanager
 def mlflow_context(name: str, model_key: Optional[str] = None, workspace_kwargs: Optional[dict] = None,
-                   service_principal_kwargs: Optional[dict] = None):
+                   service_principal_kwargs: Optional[dict] = None, login_host: str = LOGIN_HOST,
+                   arm_host: str = ARM_HOST):
     """``(client, run_id)``, the run terminated on exit."""
-    client = get_mlflow_client(workspace_kwargs, service_principal_kwargs)
+    client = get_mlflow_client(workspace_kwargs, service_principal_kwargs, login_host, arm_host)
     run_id = get_run_id(client, name, model_key or uuid.uuid4().hex)
     try:
         yield client, run_id

@@ -3,7 +3,7 @@
 machine does not have (pandas, scikit-learn, werkzeug, yaml, pyarrow,
 click, jinja2, pydantic, dateutil, ml_dtypes, prometheus_client,
 influxdb, requests, a snappy binding, numexpr, fastparquet, mlflow, the
-AzureML SDK, psycopg2, jsonschema).
+AzureML SDK or another ``azure`` package, psycopg2, jsonschema).
 Checked on the source with ``ast``, so an import inside a function
 counts too."""
 
@@ -17,7 +17,7 @@ FILES = sorted((REPO / "gordo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.p
 FORBIDDEN = {
     "jax", "jaxlib", "gordo_tpu", "pandas", "sklearn", "werkzeug", "yaml", "pyarrow", "optax", "flax",
     "click", "jinja2", "pydantic", "dateutil", "ml_dtypes", "prometheus_client",
-    "influxdb", "requests", "snappy", "cramjam", "numexpr", "fastparquet", "mlflow", "azureml", "psycopg2",
+    "influxdb", "requests", "snappy", "cramjam", "numexpr", "fastparquet", "mlflow", "azureml", "azure", "psycopg2",
     "jsonschema",
 }
 
@@ -80,7 +80,8 @@ def test_package_has_modules():
         "server/multipart.py", "server/wire/parquet_codec.py", "client/__init__.py", "client/client.py",
         "client/io.py", "client/utils.py", "client/forwarders.py", "client/cli.py", "cli/deploy.py",
         "serializer/into_definition.py", "reporters/__init__.py", "reporters/base.py", "reporters/mlflow.py",
-        "reporters/postgres.py", "reporters/pgwire.py", "reporters/pgstub.py", "utils/template.py",
+        "reporters/postgres.py", "reporters/pgwire.py", "reporters/pgstub.py", "reporters/mlflow_rest.py",
+        "reporters/azureml.py", "reporters/mlflowstub.py", "utils/template.py",
         "workflow/workflow_generator/tpu.py",
         "workflow/workflow_generator/__init__.py", "workflow/config_elements/schemas.py",
         "workflow/manifest_validation.py", "cli/workflow_generator.py",

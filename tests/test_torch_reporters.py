@@ -6,7 +6,9 @@ package's, on the CPU:
 - ``get_machine_log_items`` and ``batch_log_items`` of one built machine's
   dict equal to the JAX functions' (the metrics' timestamps left out);
   the MLflow runs of both reporters: the same tags (the cache key), batches
-  and ``metadata.json``;
+  and ``metadata.json``; with workspace kwargs, the JAX package without
+  mlflow raises where the port logs the same run to the workspace (a stub
+  of its login, ARM and tracking server);
 - the ``sqlite://`` rows equal to the JAX reporter's;
 - ``pgwire`` against a stub of the Postgres backend (``reporters/pgstub.py``):
   trust, cleartext, MD5 and SCRAM-SHA-256, the last with RFC 7677's
@@ -42,6 +44,7 @@ from gordo_tpu_torch.reporters import (
     mlflow,
     pgwire,
 )
+from gordo_tpu_torch.reporters.mlflowstub import MlflowStub
 from gordo_tpu_torch.reporters.pgstub import PostgresStub
 
 PROJECT = "reporter-test"
@@ -138,11 +141,28 @@ def test_mlflow_runs_equal_the_jax_reporters(built, tmp_path, monkeypatch):
     assert runs["port"] == runs["jax"]
     assert runs["port"]["status"] == "FINISHED" and len(runs["port"]["tags"]["model_key"]) == 64
     monkeypatch.setenv("AZUREML_WORKSPACE_STR", "sub:group:workspace")
-    with pytest.raises(MlflowLoggingError) as ours:
-        MlFlowReporter().report(Machine.from_dict(built))
+    monkeypatch.setenv("DL_SERVICE_AUTH_STR", "tenant:client:secret")
     with pytest.raises(jax_mlflow.MlflowLoggingError) as jax:
         JaxMlFlowReporter().report(JaxMachine.from_dict(json.loads(json.dumps(built))))
-    assert str(ours.value) == str(jax.value) == "mlflow (and the AzureML SDK) are required for remote tracking"
+    assert str(jax.value) == "mlflow (and the AzureML SDK) are required for remote tracking"
+    # the port reaches the workspace's tracking server through the service principal (a stub of login, ARM, MLflow)
+    stub = MlflowStub(token="arm-token", tls=True)
+    try:
+        stub.service_principal = ("tenant", "client", "secret")
+        stub.add_workspace("sub", "group", "workspace")
+        monkeypatch.setenv("MLFLOW_TRACKING_SERVER_CERT_PATH", stub.cafile)
+        with mlflow.mlflow_context("m-1", runs["port"]["tags"]["model_key"], mlflow.get_workspace_kwargs(),
+                                   mlflow.get_spauth_kwargs(), login_host=stub.url, arm_host=stub.url) as (
+                client, run_id):
+            mlflow.log_machine(client, run_id, Machine.from_dict(built))
+    finally:
+        stub.close()
+    (run,) = stub.runs.values()
+    assert run["tags"] == runs["port"]["tags"] and run["info"]["status"] == "FINISHED"
+    assert [[k, v, step] for k, v, _, step in run["metrics"]] == [m for b in runs["port"]["batches"]
+                                                                  for m in b["metrics"]]
+    assert [list(p) for p in run["params"]] == [p for b in runs["port"]["batches"] for p in b["params"]]
+    assert [json.loads(a) for a in stub.artifacts.values()] == [runs["port"]["metadata"]]
 
 
 def test_sqlite_rows_equal_the_jax_reporters(built, tmp_path):
